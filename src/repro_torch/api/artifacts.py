@@ -12,6 +12,11 @@ sha256 of every tensor), each failure an ``ArtifactError`` naming what
 failed.  A manifest with a ``model`` section loads and its arrays are
 verified, but only the index is rebuilt: the model loader waits for the
 training slice (ROADMAP.md, queue 1, item 9).
+
+An IVF index stores its partition (``index/ivf/{centroids,lists,
+list_lens}``, meta ``imbalance``, ``n_probe``, ``list_codes``); the
+in-list codes slab is recomputed on load, and ``n_probe`` follows the
+(possibly overridden) config, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import numpy as np
 from repro_torch.api.config import ICQConfig
 from repro_torch.index import make_index
 from repro_torch.index.flat import FlatADC, TwoStep
+from repro_torch.index.ivf import IVFIndex, IVFTwoStep
 
 FORMAT_VERSION = 1
 _MANIFEST = "manifest.json"
@@ -60,25 +66,38 @@ def index_opts(index, serve) -> Dict[str, Any]:
                                 pipeline_tile=serve.pipeline_tile)
     if index.kind != "flat":
         opts["refine_cap"] = index.refine_cap
+    if index.kind == "ivf":
+        opts["n_probe"] = index.n_probe
     return opts
 
 
 def index_from_numpy(arrays: Dict[str, np.ndarray], config_dict, *,
-                     device=None):
+                     device=None, imbalance: Optional[float] = None):
     """A port index from the reference's index state: ``index/codes``,
-    ``index/C`` and ``index/structure/{xi,fast_mask,sigma}`` (the keys
-    of ``arrays.npz``), built as ``config_dict`` (an ``ICQConfig`` or
-    its dict) describes, on ``device`` (the card unless named)."""
+    ``index/C``, ``index/structure/{xi,fast_mask,sigma}`` and, for IVF,
+    ``index/ivf/{centroids,lists,list_lens}`` (the keys of
+    ``arrays.npz``), built as ``config_dict`` (an ``ICQConfig`` or its
+    dict) describes, on ``device`` (the card unless named).  An IVF
+    index also takes the manifest's ``imbalance``."""
     config = (config_dict if isinstance(config_dict, ICQConfig)
               else ICQConfig.from_dict(config_dict))
     kind = config.index.kind
-    structure = None
+    structure, extra = None, {}
     if kind != "flat":
         structure = tuple(np.asarray(arrays[f"index/structure/{k}"])
                           for k in _STRUCTURE)
+    if kind == "ivf":
+        if imbalance is None:
+            raise ArtifactError("an IVF index needs the manifest's "
+                                "index.imbalance")
+        extra["ivf"] = IVFIndex(
+            centroids=np.asarray(arrays["index/ivf/centroids"]),
+            lists=np.asarray(arrays["index/ivf/lists"]),
+            list_lens=np.asarray(arrays["index/ivf/list_lens"]),
+            imbalance=float(imbalance))
     return make_index(kind, np.asarray(arrays["index/codes"]),
                       np.asarray(arrays["index/C"]), structure,
-                      device=device,
+                      device=device, **extra,
                       **index_opts(config.index, config.serve))
 
 
@@ -86,7 +105,7 @@ def index_from_numpy(arrays: Dict[str, np.ndarray], config_dict, *,
 class Artifacts:
     """A saved (or about-to-be-saved) index with its config."""
     config: ICQConfig
-    index: Optional[Any] = None          # FlatADC | TwoStep
+    index: Optional[Any] = None          # FlatADC | TwoStep | IVFTwoStep
     manifest: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------- save --
@@ -135,11 +154,12 @@ class Artifacts:
 
     def _save_index(self, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
         idx = self.index
-        kind = {FlatADC: "flat", TwoStep: "two-step"}.get(type(idx))
+        kind = {FlatADC: "flat", TwoStep: "two-step",
+                IVFTwoStep: "ivf"}.get(type(idx))
         if kind is None:
             raise ArtifactError(
                 f"cannot serialize index type {type(idx).__name__}; "
-                "supported: FlatADC, TwoStep")
+                "supported: FlatADC, TwoStep, IVFTwoStep")
         if idx.code_bits != self.config.index.code_bits:
             raise ArtifactError(
                 f"index.code_bits={idx.code_bits} on the index being saved "
@@ -155,8 +175,22 @@ class Artifacts:
         if kind != "flat":
             for k, t in zip(_STRUCTURE, idx.structure):
                 arrays[f"index/structure/{k}"] = t.cpu().numpy()
-        return {"kind": kind, "n": int(codes.shape[0]),
+        meta = {"kind": kind, "n": int(codes.shape[0]),
                 "code_bits": int(idx.code_bits)}
+        if kind == "ivf":
+            if int(idx.n_probe) != self.config.index.n_probe:
+                raise ArtifactError(
+                    f"index.n_probe={int(idx.n_probe)} on the index being "
+                    f"saved disagrees with the config's "
+                    f"index.n_probe={self.config.index.n_probe}; the "
+                    "embedded config describes the reload, so align them")
+            for k in ("centroids", "lists", "list_lens"):
+                arrays[f"index/ivf/{k}"] = getattr(idx.ivf, k).cpu().numpy()
+            meta["imbalance"] = float(idx.ivf.imbalance)
+            meta["n_probe"] = int(idx.n_probe)      # informational
+            # the port always serves from the in-list codes slab
+            meta["list_codes"] = True
+        return meta
 
     # ------------------------------------------------------------- load --
     @classmethod
@@ -274,5 +308,6 @@ class Artifacts:
                 f"index.code_bits cannot be overridden on load (artifacts "
                 f"store the {stored_bits}-bit packed layout); re-encode "
                 "and re-save to change the code width")
-        return index_from_numpy(arrays, config, device=device)
+        return index_from_numpy(arrays, config, device=device,
+                                imbalance=meta.get("imbalance"))
 

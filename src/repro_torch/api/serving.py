@@ -1,5 +1,6 @@
 """Config-driven index construction and the ``AnnEngine`` serving
-handle (twin of ``repro.api.serving`` for the flat kinds).
+handle (twin of ``repro.api.serving``) for the flat, two-step and IVF
+kinds.
 
 ``load_ann_engine(path)`` opens a saved artifact directory as a serving
 engine on the CUDA card; ``AnnEngine.search`` runs a query batch
@@ -25,6 +26,7 @@ from repro_torch.core.encode import pack_nibbles
 from repro_torch.index import make_index
 from repro_torch.index.base import resolve_backend, resolve_device
 from repro_torch.index.flat import FlatADC
+from repro_torch.index.ivf import IVFTwoStep
 from repro_torch.kernels.stages import pad_to
 from repro_torch.resilience.budget import (ResultMeta, SearchBudget,
                                            validate_budget)
@@ -59,8 +61,9 @@ class AnnEngine:
         return self.index.device
 
     def _stages(self):
-        return ("adc",) if isinstance(self.index, FlatADC) \
-            else ("crude", "refine")
+        probe = ("probe",) if isinstance(self.index, IVFTwoStep) else ()
+        return probe + (("adc",) if isinstance(self.index, FlatADC)
+                        else ("crude", "refine"))
 
     def _run_tiled(self, queries, k):
         """One call at the arrival shape, or (tile, d) zero-padded
@@ -129,11 +132,16 @@ class AnnEngine:
 
 
 def build_index(codes, C, structure, *, index_cfg: IndexConfig,
-                serve_cfg: ServeConfig, device=None):
-    """Build a flat or two-step index from the config tree's sections on
-    ``device`` (the card unless named).  ``index_cfg.code_bits == 4``
-    packs byte-per-code (n, K) codes two per byte; codes already in the
-    (n, ceil(K/2)) layout are taken as they are."""
+                serve_cfg: ServeConfig, emb_db=None, generator=None,
+                device=None):
+    """Build an index from the config tree's sections on ``device`` (the
+    card unless named).  ``index_cfg.code_bits == 4`` packs byte-per-code
+    (n, K) codes two per byte; codes already in the (n, ceil(K/2))
+    layout are taken as they are.
+
+    ``emb_db`` (the (n, d) embeddings the codes encode) is required for
+    ``index_cfg.kind == "ivf"``; ``generator`` (a ``torch.Generator`` or
+    an int seed) seeds its coarse k-means, which runs on the device."""
     if index_cfg.code_bits == 4:
         if C.shape[1] > 16:
             raise ConfigError(
@@ -141,9 +149,20 @@ def build_index(codes, C, structure, *, index_cfg: IndexConfig,
                 f"codewords (4-bit codes), got m={C.shape[1]}; set "
                 "train.codebook_size <= 16 or keep index.code_bits=8")
         if codes.shape[-1] == C.shape[0] and C.shape[0] > 1:
-            codes = pack_nibbles(torch.as_tensor(codes), C.shape[0])
+            codes = pack_nibbles(
+                codes if isinstance(codes, torch.Tensor)
+                else torch.from_numpy(np.array(codes)), C.shape[0])
+    opts = index_opts(index_cfg, serve_cfg)
+    if index_cfg.kind == "ivf":
+        if emb_db is None:
+            raise ConfigError("index.kind='ivf' needs emb_db= (the "
+                              "embeddings the codes encode) to fit the "
+                              "coarse quantizer")
+        opts.update(emb_db=emb_db, n_lists=index_cfg.n_lists,
+                    kmeans_iters=index_cfg.kmeans_iters,
+                    generator=generator)
     return make_index(index_cfg.kind, codes, C, structure, device=device,
-                      **index_opts(index_cfg, serve_cfg))
+                      **opts)
 
 
 def load_ann_engine(path: str, *, device=None,

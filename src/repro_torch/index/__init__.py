@@ -1,7 +1,6 @@
-"""The flat index layer of the port (twin of ``repro.index``):
-``make_index`` builds a ``FlatADC`` or ``TwoStep`` by name on one
-device.  The IVF index is still to be ported (ROADMAP.md, queue 1,
-item 5) and raises by name."""
+"""The index layer of the port (twin of ``repro.index``): ``make_index``
+builds a ``FlatADC``, ``TwoStep`` or ``IVFTwoStep`` by name on one
+device."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,7 +10,7 @@ from repro_torch.core.icq import ICQStructure
 from repro_torch.index.base import (SearchResult, build_lut, lut_sum,
                                     resolve_backend, resolve_device)
 
-INDEX_KINDS = ("flat", "two-step")
+INDEX_KINDS = ("flat", "two-step", "ivf")
 
 
 def _tensor(x) -> torch.Tensor:
@@ -23,21 +22,23 @@ def _tensor(x) -> torch.Tensor:
 
 def make_index(kind: str, codes, C, structure=None, *, device=None,
                **opts):
-    """Build an index by name ("flat" | "two-step") with its arrays
-    (numpy or torch) moved to ``device`` — the CUDA card unless the
-    caller names another device (``index.base.resolve_device``)."""
-    if kind == "ivf":
-        raise NotImplementedError("index kind 'ivf' is not ported to the "
-                                  "PyTorch package yet (ROADMAP.md, "
-                                  "queue 1, item 5)")
-    # flat.py builds on kernels/stages.py, which imports index.base: a
-    # module-level import here would cycle
+    """Build an index by name ("flat" | "two-step" | "ivf") with its
+    arrays (numpy or torch) moved to ``device`` — the CUDA card unless
+    the caller names another device (``index.base.resolve_device``).
+
+    "ivf" takes ``emb_db`` (the (n, d) embeddings the codes encode),
+    ``n_lists``, ``n_probe``, ``kmeans_iters`` and ``generator`` (a
+    ``torch.Generator`` or an int seed) and fits its coarse k-means on
+    the device; or ``ivf``, a stored ``IVFIndex`` partition."""
+    # flat.py and ivf.py build on kernels/stages.py, which imports
+    # index.base: a module-level import here would cycle
     from repro_torch.index.flat import FlatADC, TwoStep
+    from repro_torch.index.ivf import IVFIndex, IVFTwoStep
 
     if kind not in INDEX_KINDS:
         raise ValueError(f"unknown index kind {kind!r}; expected one of "
-                         f"{list(INDEX_KINDS) + ['ivf']}")
-    cls = FlatADC if kind == "flat" else TwoStep
+                         f"{list(INDEX_KINDS)}")
+    cls = {"flat": FlatADC, "two-step": TwoStep, "ivf": IVFTwoStep}[kind]
     dev = resolve_device(device)
     codes = _tensor(codes)
     if codes.dtype not in (torch.uint8, torch.int32):
@@ -47,6 +48,15 @@ def make_index(kind: str, codes, C, structure=None, *, device=None,
     if structure is not None:
         structure = ICQStructure(*(_tensor(t).to(dev) for t in structure))
     resolve_backend(opts.get("backend", "auto"), dev)
+    if opts.get("emb_db") is not None:
+        opts["emb_db"] = _tensor(opts["emb_db"]).to(dev, torch.float32)
+    if opts.get("ivf") is not None:
+        ivf = opts["ivf"]
+        opts["ivf"] = IVFIndex(
+            centroids=_tensor(ivf.centroids).to(dev, torch.float32),
+            lists=_tensor(ivf.lists).to(dev, torch.int32),
+            list_lens=_tensor(ivf.list_lens).to(dev, torch.int32),
+            imbalance=float(ivf.imbalance))
     return cls.build(codes, C, structure, **opts)
 
 

@@ -10,6 +10,7 @@ table is bitwise equal to the reference's and to the CUDA kernels'.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -153,16 +154,28 @@ def _int_acc_dtype(K: int) -> torch.dtype:
         else torch.int32
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run the enclosed matrix products in full f32 on the card: TF32
+    would move distances by about 1e-3 relative and so change rankings.
+    The caller's ``allow_tf32`` setting is restored on exit."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = saved
+
+
 def build_lut(q: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Per-query ADC tables ``T[k, j] = ||c_{k,j}||^2 - 2 <q, c_{k,j}>``.
     q (d,) or (nq, d) f32, C (K, m, d) -> (K, m) or (nq, K, m) f32."""
-    # TF32 would move LUT entries by about 1e-3 relative and so change
-    # rankings; the einsum must run in full f32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
     sq = cb.codeword_sq_norms(C)
-    if q.ndim == 1:
-        return sq - 2.0 * torch.einsum("d,kmd->km", q, C)
-    return sq[None] - 2.0 * torch.einsum("qd,kmd->qkm", q, C)
+    with full_f32_matmul():
+        if q.ndim == 1:
+            return sq - 2.0 * torch.einsum("d,kmd->km", q, C)
+        return sq[None] - 2.0 * torch.einsum("qd,kmd->qkm", q, C)
 
 
 def _gather_k(table: torch.Tensor, codes: torch.Tensor, k: int):

@@ -149,9 +149,10 @@ def two_step_search(queries, codes, C, structure, topk: int, *,
 
 @dataclasses.dataclass(frozen=True)
 class _FlatBase:
-    """Shared options and the not-yet-ported verbs of the flat indexes.
-    The CUDA kernels choose their own tiles, so the reference's
-    ``block_q``/``block_n``/``interpret`` options have no counterpart."""
+    """Shared options and the not-yet-ported verbs of the port's indexes
+    (flat, two-step and IVF).  The CUDA kernels choose their own tiles,
+    so the reference's ``block_q``/``block_n``/``interpret`` options
+    have no counterpart."""
     topk: int = 50
     backend: str = "auto"
     query_chunk: Optional[int] = None

@@ -4,7 +4,12 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``<repo>/build/kernels/``
 (git-ignored) and loaded with ``ctypes``.  The build runs at first use,
 never at import: the CPU tests import every module on a machine with no
-``nvcc``.  All sources compile in parallel, one ``nvcc`` each.
+``nvcc``.  All sources compile in parallel, one ``nvcc`` each; a source
+is rebuilt when it or a shared ``csrc/*.cuh`` header is newer than its
+library.
+
+``LAUNCHES`` counts the launches of each kernel wrapper (a plain count:
+a run can show that its main path went through the kernels).
 
     from repro_torch.kernels import build
     seconds, logs = build.build_all(verbose=True)   # -Xptxas -v output
@@ -27,17 +32,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+LAUNCHES: Dict[str, int] = {
+    "crude_topk": 0, "refine_topk": 0,
+    "ivf_crude_topk": 0, "ivf_refine_topk": 0,
+    "kmeans_assign": 0,
+}
+
 # ctypes signatures of each library's C entry points: every pointer and
 # the stream travel as c_void_p (a bare Python int would be cut to 32
 # bits), every size as c_int / c_long
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_COMMON = {   # search_common.cuh, compiled into every library
+    "icq_chunk_points": ([], _I),
+    "icq_error_string": ([_I], ctypes.c_char_p),
+}
 SIGNATURES = {
     "batched_search": {
-        "icq_chunk_points": ([], _I),
-        "icq_error_string": ([_I], ctypes.c_char_p),
+        **_COMMON,
         "icq_crude_topk": ([_P] * 7 + [_I] * 9 + [_P], _I),
         "icq_refine_topk": ([_P] * 6 + [_I] * 8 + [_P], _I),
         "icq_select_topk": ([_P] * 4 + [_I, _L, _I, _P], _I),
+    },
+    "ivf_search": {
+        **_COMMON,
+        "icq_ivf_crude_topk": ([_P] * 8 + [_I] * 9 + [_P], _I),
+        "icq_ivf_refine_topk": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    },
+    "kmeans": {
+        **_COMMON,
+        "icq_kmeans_assign": ([_P] * 5 + [_L, _I, _I, _P], _I),
     },
 }
 
@@ -86,8 +109,10 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    path, src = _lib_path(name), CSRC / f"{name}.cu"
-    if not path.exists() or path.stat().st_mtime < src.stat().st_mtime:
+    path = _lib_path(name)
+    newest = max(p.stat().st_mtime
+                 for p in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
+    if not path.exists() or path.stat().st_mtime < newest:
         build_all()
     lib = ctypes.CDLL(str(path))
     for fn, (argtypes, restype) in SIGNATURES[name].items():

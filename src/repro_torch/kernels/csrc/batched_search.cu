@@ -38,23 +38,14 @@
 //     nvcc cannot contract the int8 dequant (scale * acc + offset) or
 //     full = crude + slow into an FMA.
 //   This first version is simple and right; the bitonic sort of every
-//   chunk is its known cost (see PERF.md).
-#include <climits>
-#include <cstdint>
-
-#include <cuda_runtime.h>
-#include <math_constants.h>
+//   chunk is its known cost (see PERF.md).  The chunk sort, the code-row
+//   staging and the LUT sums live in search_common.cuh, shared with the
+//   IVF slab kernels (ivf_search.cu).
+#include "search_common.cuh"
 
 namespace {
 
-constexpr int kChunk = 1024;    // points per block step == sort width
-constexpr int kThreads = 256;
 constexpr int kMaxQueryTile = 8;
-constexpr size_t kMaxSmem = 227 * 1024;
-
-__host__ __device__ constexpr size_t align16(size_t x) {
-  return (x + 15) & ~size_t(15);
-}
 
 // Dynamic shared memory of one scan block: sort keys, code rows, LUTs of
 // the query tile and per-query scalars (scale/offset or threshold).
@@ -86,100 +77,6 @@ __device__ ScanSmem carve(unsigned char* base, int Kc, int qt, int Km,
   off += align16(size_t(qt) * Km * lut_esize);
   s.scalars = reinterpret_cast<float*>(base + off);
   return s;
-}
-
-__device__ __forceinline__ bool key_less(float a, int ia, float b, int ib) {
-  return a < b || (a == b && ia < ib);
-}
-
-// Ascending bitonic sort of kChunk (value, index) pairs in shared memory.
-// The caller synchronises before; the sort synchronises after each step.
-__device__ void bitonic_sort(float* v, int* ix) {
-  for (int k = 2; k <= kChunk; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < kChunk; i += blockDim.x) {
-        const int l = i ^ j;
-        if (l > i) {
-          const float a = v[i], b = v[l];
-          const int ia = ix[i], ib = ix[l];
-          const bool up = (i & k) == 0;
-          if (up ? key_less(b, ib, a, ia) : key_less(a, ia, b, ib)) {
-            v[i] = b;
-            v[l] = a;
-            ix[i] = ib;
-            ix[l] = ia;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Stage the code rows [base, base + kChunk) of the (n, Kc) uint8 codes.
-__device__ void load_codes(uint8_t* dst, const uint8_t* __restrict__ codes,
-                           long base, int n, int Kc) {
-  const long rows = min(long(kChunk), long(n) - base);
-  const int nbytes = int(rows) * Kc;
-  const uint8_t* src = codes + base * Kc;
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int nvec = nbytes >> 4;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = s4[i];
-    done = nvec << 4;
-  }
-  for (int i = done + threadIdx.x; i < nbytes; i += blockDim.x)
-    dst[i] = src[i];
-}
-
-// f32 LUT sum of one code row, codebooks in order from 0.0.  Nibble byte
-// kc holds codebooks (2kc, 2kc+1) in its (low, high) nibble; the odd-K
-// sentinel codebook has an all-zero LUT column.
-template <bool NIBBLE>
-__device__ __forceinline__ float row_sum_f32(const float* lut,
-                                             const uint8_t* row, int Kc,
-                                             int m) {
-  float acc = 0.0f;
-  for (int kc = 0; kc < Kc; ++kc) {
-    const int b = row[kc];
-    if (NIBBLE) {
-      acc = __fadd_rn(acc, lut[(2 * kc) * m + (b & 15)]);
-      acc = __fadd_rn(acc, lut[(2 * kc + 1) * m + (b >> 4)]);
-    } else {
-      acc = __fadd_rn(acc, lut[kc * m + b]);
-    }
-  }
-  return acc;
-}
-
-// int8 LUT sum of one code row: exact in int32.
-template <bool NIBBLE>
-__device__ __forceinline__ int row_sum_i8(const int8_t* lut,
-                                          const uint8_t* row, int Kc, int m) {
-  int acc = 0;
-  for (int kc = 0; kc < Kc; ++kc) {
-    const int b = row[kc];
-    if (NIBBLE) {
-      acc += lut[(2 * kc) * m + (b & 15)];
-      acc += lut[(2 * kc + 1) * m + (b >> 4)];
-    } else {
-      acc += lut[kc * m + b];
-    }
-  }
-  return acc;
-}
-
-// Write the first topk sorted pairs as list `chunk` of query qg.
-__device__ void write_topk(const float* v, const int* ix, float* out_v,
-                           int* out_i, int qg, int nchunks, int chunk,
-                           int topk) {
-  const long out = (long(qg) * nchunks + chunk) * topk;
-  for (int t = threadIdx.x; t < topk; t += blockDim.x) {
-    out_v[out + t] = v[t];
-    out_i[out + t] = ix[t];
-  }
 }
 
 // Phase 1.  grid (x: strided over point chunks, y: query tiles of qt).
@@ -230,8 +127,7 @@ crude_scan_kernel(const uint8_t* __restrict__ codes,
           if (QUANT) {
             const int acc = row_sum_i8<NIBBLE>(
                 reinterpret_cast<const int8_t*>(s.lut) + q * Km, row, Kc, m);
-            d = __fadd_rn(__fmul_rn(s.scalars[q], float(acc)),
-                          s.scalars[qt + q]);
+            d = dequant(s.scalars[q], acc, s.scalars[qt + q]);
           } else {
             d = row_sum_f32<NIBBLE>(
                 reinterpret_cast<const float*>(s.lut) + q * Km, row, Kc, m);
@@ -337,25 +233,9 @@ dim3 scan_grid(int n, int nq, int qt, int num_sms) {
   return dim3(max(1, min(nchunks, want)), qtiles);
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch_scan(Kernel kernel, dim3 grid, size_t smem,
-                        cudaStream_t stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
-
-int icq_chunk_points() { return kChunk; }
-
-const char* icq_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // Phase 1.  codes (n, Kc) uint8; lut (nq, Km) f32, or int8 with scale /
 // offset (nq,) f32; crude (nq, n) f32 or null; cand_v / cand_i
@@ -381,17 +261,17 @@ int icq_crude_topk(const void* codes, const void* lut, const void* scale,
   int* ci = static_cast<int*>(cand_i);
   cudaError_t e;
   if (quant && nibble)
-    e = launch_scan(crude_scan_kernel<true, true>, grid, smem, s, c, lut, sc,
-                    of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
+    e = launch_with_smem(crude_scan_kernel<true, true>, grid, smem, s, c,
+                         lut, sc, of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
   else if (quant)
-    e = launch_scan(crude_scan_kernel<true, false>, grid, smem, s, c, lut, sc,
-                    of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
+    e = launch_with_smem(crude_scan_kernel<true, false>, grid, smem, s, c,
+                         lut, sc, of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
   else if (nibble)
-    e = launch_scan(crude_scan_kernel<false, true>, grid, smem, s, c, lut, sc,
-                    of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
+    e = launch_with_smem(crude_scan_kernel<false, true>, grid, smem, s, c,
+                         lut, sc, of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
   else
-    e = launch_scan(crude_scan_kernel<false, false>, grid, smem, s, c, lut,
-                    sc, of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
+    e = launch_with_smem(crude_scan_kernel<false, false>, grid, smem, s, c,
+                         lut, sc, of, cr, cv, ci, n, Kc, nq, Km, m, topk, qt);
   return int(e);
 }
 
@@ -415,11 +295,11 @@ int icq_refine_topk(const void* codes, const void* lut, const void* crude,
   int* ci = static_cast<int*>(cand_i);
   cudaError_t e;
   if (nibble)
-    e = launch_scan(refine_scan_kernel<true>, grid, smem, s, c, l, cr, t, cv,
-                    ci, n, Kc, nq, Km, m, topk, qt);
+    e = launch_with_smem(refine_scan_kernel<true>, grid, smem, s, c, l, cr,
+                         t, cv, ci, n, Kc, nq, Km, m, topk, qt);
   else
-    e = launch_scan(refine_scan_kernel<false>, grid, smem, s, c, l, cr, t,
-                    cv, ci, n, Kc, nq, Km, m, topk, qt);
+    e = launch_with_smem(refine_scan_kernel<false>, grid, smem, s, c, l, cr,
+                         t, cv, ci, n, Kc, nq, Km, m, topk, qt);
   return int(e);
 }
 

@@ -1,15 +1,17 @@
 """The two-step search as three stages (twin of ``repro.kernels.stages``
-for the flat path):
+for the kernel paths):
 
     CrudeStage      fast-subset LUT sums and the crude top-k (eq. 2,
-                    phase 1), through ``ops.batched_crude_topk``.
+                    phase 1), through ``ops.batched_crude_topk`` (flat)
+                    or ``ops.ivf_crude_topk`` (``slab``: IVF candidates).
     ThresholdStage  the eq. 2 threshold bootstrap: among the crude top-k
                     take the candidate furthest by full distance; its
                     crude value plus sigma is the threshold.  Tiny
                     (nq, topk) PyTorch code.
     RefineStage     slow-codebook sums for margin-test survivors and the
                     final top-k (eq. 1: full = crude + slow), through
-                    ``ops.batched_refine_topk``.
+                    ``ops.batched_refine_topk`` or ``ops.ivf_refine_topk``
+                    (``slab``).
 
 The ops wrappers launch the CUDA kernels for tensors on the card and run
 the kernels' plain PyTorch versions for tensors on the CPU, so both
@@ -126,8 +128,9 @@ def slow_lut_operand(luts: torch.Tensor, fast, *, code_bits: int = 8):
 # --------------------------------------------------------------- stages ----
 
 class CrudeOut(NamedTuple):
-    """``crude`` is the dense (nq, n) crude matrix (None when
-    ``want_crude=False``); ``cand_vals``/``cand_idx`` the crude top-k."""
+    """``crude`` is the dense (nq, n) or slab (nq, nc) crude matrix
+    (None when ``want_crude=False``); ``cand_vals``/``cand_idx`` the
+    crude top-k (global indices, or slab positions for ``slab``)."""
     crude: Optional[torch.Tensor]
     cand_vals: torch.Tensor
     cand_idx: torch.Tensor
@@ -150,6 +153,18 @@ class CrudeStage:
         return CrudeOut(*ops.batched_crude_topk(
             codes, lut_flat, self.topk, want_crude=self.want_crude,
             lut_scale=scale, lut_offset=offset, code_bits=self.code_bits))
+
+    def slab(self, cand_codes, cand_ids, luts, fast) -> CrudeOut:
+        """IVF crude pass over the gathered candidate slab.  cand_codes
+        (nq, nc, Kc) stored rows, cand_ids (nq, nc) global ids (-1 =
+        invalid; invalid columns are +inf in the dense crude output, so
+        the refine pass inherits the mask)."""
+        from repro_torch.kernels import ops
+        lut_flat, scale, offset = crude_lut_operands(
+            luts, fast, quantized=self.quantized, code_bits=self.code_bits)
+        return CrudeOut(*ops.ivf_crude_topk(
+            cand_codes, cand_ids, lut_flat, self.topk, lut_scale=scale,
+            lut_offset=offset, code_bits=self.code_bits))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +201,22 @@ class ThresholdStage:
         far = torch.argmax(full_cand, dim=1)
         return cand_vals.gather(1, far[:, None])[:, 0] + sigma
 
+    def from_slab_candidates(self, luts, cand_codes, cand_vals, cand_pos,
+                             fast, sigma):
+        """Bootstrap from the slab crude kernel's top-k of slab
+        positions; the +inf slots of slabs thinner than topk are left
+        out of the far-element argmax."""
+        ok = torch.isfinite(cand_vals)
+        pos = torch.where(ok, cand_pos, torch.zeros_like(cand_pos)).long()
+        cand_top = torch.gather(
+            cand_codes, 1,
+            pos[:, :, None].expand(-1, -1, cand_codes.shape[2]))
+        cand_top = widen_codes(cand_top, luts.shape[1], self.code_bits)
+        full_cand = cand_vals + base.lut_sum(luts, cand_top, ~fast)
+        far = torch.argmax(torch.where(
+            ok, full_cand, torch.full_like(full_cand, -float("inf"))), dim=1)
+        return cand_vals.gather(1, far[:, None])[:, 0] + sigma
+
 
 @dataclasses.dataclass(frozen=True)
 class RefineStage:
@@ -204,6 +235,18 @@ class RefineStage:
                                             self.topk,
                                             code_bits=self.code_bits)
         return idx, dist, crude < thr[:, None]
+
+    def slab(self, cand_codes, luts, crude, thr, fast, safe):
+        """IVF refine over the candidate slab.  ``safe`` (nq, nc) maps
+        slab positions to global ids (0 at invalid columns), through
+        ``safe[min(pos, nc - 1)]`` as the reference does, so the +inf
+        tail carries the same ids.  Returns (ids, dist, passed)."""
+        from repro_torch.kernels import ops
+        lut_slow = slow_lut_operand(luts, fast, code_bits=self.code_bits)
+        dist, pos = ops.ivf_refine_topk(cand_codes, lut_slow, crude, thr,
+                                        self.topk, code_bits=self.code_bits)
+        pos = torch.clamp(pos.long(), max=safe.shape[1] - 1)
+        return safe.gather(1, pos), dist, crude < thr[:, None]
 
 
 def two_step_stages(*, topk: int, quantized: bool = False,

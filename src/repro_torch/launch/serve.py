@@ -1,9 +1,13 @@
 """ANN serving command of the port (twin of ``repro.launch.serve``'s
-``--ann`` and ``--load-artifacts`` paths, flat and two-step kinds).
+``--ann`` and ``--load-artifacts`` paths, flat, two-step and IVF kinds).
 
     # build a synthetic index from a seed, serve query batches on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --ann \
         --ann-n 1000000 --ann-d 128 --ann-queries 64 --topk 100
+    # the IVF index: a coarse k-means over the decoded database on the
+    # card, 1024 lists, 8 probed per query
+    PYTHONPATH=src python -m repro_torch.launch.serve --ann \
+        --ann-index ivf --ann-lists 1024 --ann-probe 8 --ann-n 1000000
     # the same on the CPU, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --ann --device cpu \
         --ann-n 20000 --ann-queries 8
@@ -42,19 +46,33 @@ def serve_batches(engine, nq: int, d: int, batches: int, label: str,
 
 def serve_ann(cfg, n: int, nq: int, *, batches: int, device, seed: int,
               save_dir=None):
-    """Build a synthetic index as ``cfg`` describes and serve it."""
+    """Build a synthetic index as ``cfg`` describes and serve it.  The
+    IVF kind fits its coarse quantizer over the decoded database
+    ``decode(C, codes)``, seeded with ``seed``."""
+    import torch
+
     from repro_torch.api import AnnEngine, Artifacts, build_index
+    from repro_torch.core.codebooks import decode
     from repro_torch.data.synthetic import make_synthetic_index
+    from repro_torch.index.base import resolve_device
 
     t = cfg.train
     codes, C, structure = make_synthetic_index(
         seed, n, d=t.d, K=t.num_codebooks, m=t.codebook_size,
         num_fast=t.num_fast)
+    device = resolve_device(device)
+    emb_db = None
+    if cfg.index.kind == "ivf":
+        emb_db = decode(torch.from_numpy(C).to(device),
+                        torch.from_numpy(codes).to(device))
     index = build_index(codes, C, structure, index_cfg=cfg.index,
-                        serve_cfg=cfg.serve, device=device)
+                        serve_cfg=cfg.serve, emb_db=emb_db, generator=seed,
+                        device=device)
     engine = AnnEngine(index, resilience=cfg.resilience, query_tile=nq)
+    ivf = (f" lists={cfg.index.n_lists} probe={cfg.index.n_probe}"
+           if cfg.index.kind == "ivf" else "")
     serve_batches(engine, nq, t.d, batches,
-                  f"ann: index={cfg.index.kind} n={n} d={t.d} "
+                  f"ann: index={cfg.index.kind}{ivf} n={n} d={t.d} "
                   f"K={t.num_codebooks} m={t.codebook_size} nq={nq} "
                   f"topk={cfg.serve.topk} lut={cfg.serve.lut_dtype} "
                   f"bits={cfg.index.code_bits}", seed=seed + 1)
@@ -102,8 +120,14 @@ def main(argv=None):
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--ann-n", type=int, default=100_000)
     ap.add_argument("--ann-queries", type=int, default=64)
-    ap.add_argument("--ann-index", default=None, choices=["flat", "two-step"],
+    ap.add_argument("--ann-index", default=None,
+                    choices=["flat", "two-step", "ivf"],
                     help="override index.kind")
+    ap.add_argument("--ann-lists", type=int, default=None,
+                    help="override index.n_lists (ivf coarse cells)")
+    ap.add_argument("--ann-probe", type=int, default=None,
+                    help="override index.n_probe (ivf cells probed per "
+                         "query)")
     ap.add_argument("--ann-d", type=int, default=None,
                     help="override train.d")
     ap.add_argument("--ann-k", type=int, default=None,
@@ -120,6 +144,8 @@ def main(argv=None):
 
     overrides = {k: v for k, v in {
         "index.kind": args.ann_index,
+        "index.n_lists": args.ann_lists,
+        "index.n_probe": args.ann_probe,
         "train.d": args.ann_d,
         "train.num_codebooks": args.ann_k,
         "train.codebook_size": args.ann_m,
