@@ -42,7 +42,19 @@ or outside a checkout of the repository.  Phases:
    m = 16) as in phase 4.  The three IVF kernels are then timed as in
    phase 3 at the served shape: the slab of one served tile, and the
    build's 1M points against its 1024 centroids (with the two-call
-   library yardstick ``argmin(addmm)`` beside ``kmeans_assign``).
+   library yardstick ``argmin(addmm)`` beside ``kmeans_assign``);
+6. encode and grow at SIFT1M geometry (3 ICM sweeps): the ICM kernel
+   against its plain version at 1 and 3 sweeps on ``decode(C, random
+   codes) + noise`` (codes equal on >= 99.9% of rows, reconstruction MSE
+   to rtol 1e-5), the first index winning when every codeword is
+   duplicated, the same codes per row in a permuted row order, its time
+   beside its bound; ``encode_database`` of all points (launch counts
+   reset before, read after), equal to a direct ``icm_encode``; then a
+   two-step and an IVF index built from the first 90% of the points
+   grow by the rest through ``AnnEngine.add`` (counts reset before, read
+   after): codes (and for IVF lists and in-list codes) equal to the
+   index built over all points at once, one 64-query tile served equal
+   by both, and equal again after a save and ``load_ann_engine``.
 
 With ``--profile DIR``, five more tiles of the two-step-f32 and ivf-f32
 cells run under ``torch.profiler`` after their counted windows: the
@@ -82,6 +94,8 @@ SIGMA = 10.0
 # the IVF cells follow Jegou et al.'s IVFADC setting on SIFT1M:
 # k' = 1024 coarse cells, w = 8 probed per query, 20 Lloyd iterations
 IVF = dict(n_lists=1024, n_probe=8, kmeans_iters=20)
+# ICM sweeps of the encoder (the config's encode.icm_iters)
+ICM_ITERS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -852,6 +866,213 @@ def ivf_cells(seed, n, batches, workdir, profile_dir=None):
     return total, records
 
 
+# ------------------------------------------- phase 6: encode and grow ----
+
+def encode_problem(seed: int, n: int):
+    """SIFT1M-width points on the card: x = decode(C, random codes) +
+    0.1 noise, C (8, 256, 128) random codebooks."""
+    import torch
+    from repro_torch.core.codebooks import decode
+    K, m, d = SIFT["K"], SIFT["m"], SIFT["d"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 300)
+    C = torch.randn((K, m, d), generator=g, device="cuda") / K ** 0.5
+    codes = torch.randint(0, m, (n, K), generator=g, device="cuda")
+    x = decode(C, codes) + 0.1 * torch.randn((n, d), generator=g,
+                                             device="cuda")
+    return x, C
+
+
+def row_errors(x, C, codes):
+    """Squared reconstruction error of every row (n,) f32."""
+    import torch
+    from repro_torch.core.codebooks import decode
+    return torch.sum(torch.square(x - decode(C, codes)), dim=1)
+
+
+def check_icm(x, C, seed: int, iters: int):
+    """The ICM kernel against its plain version on the same CUDA
+    tensors; returns its record (time, plain time, bound, largest
+    difference of a row's reconstruction error)."""
+    import torch
+    from repro_torch.core.encode import encode_pq
+    from repro_torch.kernels import icm_encode as icm
+    n, d = x.shape
+    K, m, _ = C.shape
+    init = encode_pq(x, C)
+    err = 0.0
+    for it in (1, iters):
+        got = icm.icm_encode_cuda(x, init, C, iters=it)
+        want = icm.icm_encode_torch(x, init, C, iters=it)
+        torch.cuda.synchronize()
+        differ = int((got != want).any(1).sum())
+        eg, ew = row_errors(x, C, got), row_errors(x, C, want)
+        mse = (float(eg.double().mean()), float(ew.double().mean()))
+        err = max(err, float((eg - ew).abs().max()))
+        log(f"mode icm_encode n={n} K={K} m={m} d={d} iters={it}: "
+            f"{differ} rows differ from the plain version "
+            f"({1 - differ / n:.6f} equal), MSE {mse[0]!r} vs plain "
+            f"{mse[1]!r}")
+        check(differ <= n // 1000 and abs(mse[0] - mse[1])
+              <= 1e-5 * abs(mse[1]), f"icm_encode kernel disagrees with "
+              f"its plain version at iters={it}: {differ} rows, MSE {mse}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 301)
+    perm = torch.randperm(n, generator=g, device="cuda")
+    same = torch.equal(icm.icm_encode_cuda(x[perm], init[perm], C,
+                                           iters=iters), got[perm])
+    log(f"icm_encode in a permuted row order: same codes per row: {same}")
+    check(same, "icm_encode codes depend on the row order")
+    dup = C.clone()
+    dup[:, m // 2:] = dup[:, :m // 2]
+    rows = min(n, 100_003)                   # ragged against the tile
+    wild = torch.randint(0, m, (rows, K), generator=g, device="cuda",
+                         dtype=torch.int32)
+    tie = [fn(x[:rows], wild, dup, iters=1)
+           for fn in (icm.icm_encode_cuda, icm.icm_encode_torch)]
+    first = all(int(t.max()) < m // 2 for t in tie)
+    log(f"icm_encode with every codeword duplicated (n={rows}): the first "
+        f"index wins: {first}")
+    check(first, "icm_encode took a later index of an exact tie")
+
+    ms = time_ms(lambda: icm.icm_encode_cuda(x, init, C, iters=iters), 5)
+    plain_ms = time_ms(lambda: icm.icm_encode_torch(x, init, C,
+                                                    iters=iters), 2)
+    # per point and step: m dot products of d FMAs, m scores of a
+    # multiply and a subtract, the 3 d adds of the recon chain; plus the
+    # K - 1 adds per dimension of the initial recon
+    ops = n * iters * K * (m * (2 * d + 2) + 3 * d) + n * (K - 1) * d
+    nbytes = n * d * 4 + 2 * n * K * 4 + K * m * d * 4 + K * m * 4
+    b_ms, b_by = bound_ms(nbytes, ops)
+    log(f"kernel icm_encode n={n} K={K} m={m} d={d} iters={iters}: "
+        f"{ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}")
+    return dict(name="icm_encode", route="cuda",
+                source="src/repro_torch/kernels/csrc/icm_encode.cu",
+                replaces="src/repro/kernels/icm_encode.py:83",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def encode_window(x, C, iters: int):
+    """``encode_database`` of all points at the config's chunk, launch
+    counts reset before and read after; checked against a direct
+    ``icm_encode``.  Returns (codes, launches)."""
+    import torch
+    from repro_torch.api import ICQConfig
+    from repro_torch.core.encode import icm_encode, pack_codes
+    from repro_torch.trainer import encode_database
+    n = x.shape[0]
+    chunk = ICQConfig().encode.chunk
+    times = {}
+    for c in (chunk, n):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        codes = encode_database(x, C, icm_iters=iters, chunk=c)
+        torch.cuda.synchronize()
+        times[c] = time.perf_counter() - t0
+        if c == chunk:
+            launches = read_launches()
+    log(f"encode_database n={n} iters={iters}: chunk {chunk}: "
+        f"{times[chunk]:.4f} s ({n / times[chunk]:.0f} points/s), chunk "
+        f"{n} (one launch per kernel): {times[n]:.4f} s "
+        f"({n / times[n]:.0f} points/s) (host clock, ending in a "
+        f"synchronize); launches at chunk {chunk}: {launches}")
+    direct = pack_codes(icm_encode(x, C, iters), C.shape[1])
+    check(torch.equal(codes, direct) and codes.dtype == torch.uint8,
+          "encode_database != a direct icm_encode of the same rows")
+    check(launches["icm_encode"] > 0, "encode_database launched no "
+                                      "icm_encode kernel")
+    return codes, launches
+
+
+def grow_cell(kind, x, C, codes_all, *, seed, workdir):
+    """Build ``kind`` from the first 90% of the points, ``AnnEngine.add``
+    the rest (counts reset before, read after) and hold the grown index
+    against the one built over all points at once.  Returns the add's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import (AnnEngine, Artifacts, build_index,
+                                 load_ann_engine)
+    from repro_torch.api.artifacts import index_opts
+    from repro_torch.index import make_index
+    from repro_torch.index.ivf import ivf_assign
+    n, d = x.shape
+    n0 = n - n // 10
+    cfg = cell_config(SIFT, kind, "f32", 8)
+    fast = torch.arange(SIFT["K"], device="cuda") < SIFT["num_fast"]
+    structure = (torch.ones(d, dtype=torch.bool, device="cuda"), fast,
+                 torch.tensor(SIGMA, device="cuda"))
+    emb = {"emb_db": x[:n0], "generator": seed} if kind == "ivf" else {}
+    index = build_index(codes_all[:n0], C, structure, index_cfg=cfg.index,
+                        serve_cfg=cfg.serve, device="cuda", **emb)
+    engine = AnnEngine(index, resilience=cfg.resilience, query_tile=TILE)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    engine.add(x[n0:])
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["icm_encode"] > 0 and launches["kmeans_assign"] > 0,
+          f"grow {kind}: the add launched icm_encode "
+          f"{launches['icm_encode']} and kmeans_assign "
+          f"{launches['kmeans_assign']} times")
+    grown = engine.index
+    if kind == "ivf":
+        ivf = ivf_assign(index.ivf.centroids, x)
+        full = make_index("ivf", codes_all, C, structure, device="cuda",
+                          ivf=ivf, **index_opts(cfg.index, cfg.serve))
+        same = (torch.equal(grown.ivf.lists, full.ivf.lists)
+                and torch.equal(grown.ivf.list_lens, full.ivf.list_lens)
+                and torch.equal(grown.list_codes, full.list_codes))
+        check(same, "grow ivf: lists or in-list codes != ivf_assign over "
+                    "all points")
+    else:
+        full = build_index(codes_all, C, structure, index_cfg=cfg.index,
+                           serve_cfg=cfg.serve, device="cuda")
+    check(torch.equal(grown.codes, full.codes),
+          f"grow {kind}: codes != the one-shot build's")
+    rng = np.random.default_rng(seed + 13)
+    q = torch.from_numpy(rng.standard_normal((TILE, d),
+                                             dtype=np.float32)).cuda()
+    r = engine.search(q)
+    want = AnnEngine(full, query_tile=TILE).search(q)
+    path = os.path.join(workdir, f"grown-{kind}")
+    Artifacts(config=cfg, index=grown).save(path)
+    loaded = load_ann_engine(path, query_tile=TILE)
+    again = loaded.search(q)
+    same = all(torch.equal(a.indices, r.indices)
+               and torch.equal(a.distances, r.distances)
+               for a in (want, again))
+    log(f"grow {kind}: {n0} + {n - n0} points, add {add_s:.4f} s (host "
+        f"clock, ending in a synchronize; {(n - n0) / add_s:.0f} "
+        f"points/s); launches {launches}; codes"
+        + (", lists, list_lens and in-list codes" if kind == "ivf" else "")
+        + f" equal to the one-shot build; served tile equal to the one-shot "
+        f"index's and after save + load_ann_engine: {same}; "
+        f"pass_rate={float(r.pass_rate):.6f} n={loaded.n}")
+    check(same and loaded.n == n, f"grow {kind}: the grown, the one-shot "
+                                  "and the reloaded index serve different "
+                                  "answers")
+    return launches
+
+
+def encode_and_grow(seed: int, n: int, workdir):
+    """Phase 6.  Returns (the launches of the encode and add windows, the
+    icm_encode record)."""
+    iters = ICM_ITERS
+    x, C = encode_problem(seed, n)
+    record = check_icm(x, C, seed, iters)
+    codes, launches = encode_window(x, C, iters)
+    total = dict(launches)
+    for kind in ("two-step", "ivf"):
+        for k, v in grow_cell(kind, x, C, codes, seed=seed,
+                              workdir=workdir).items():
+            total[k] += v
+    return total, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -910,8 +1131,10 @@ def main(argv=None) -> int:
             del engine
         ivf_total, ivf_records = ivf_cells(args.seed, args.n, args.batches,
                                            workdir, args.profile)
+        enc_total, records["icm_encode"] = encode_and_grow(args.seed, args.n,
+                                                           workdir)
     for k in total:
-        total[k] += ivf_total[k]
+        total[k] += ivf_total[k] + enc_total[k]
     records.update(ivf_records)
     for k, rec in records.items():
         check(total[k] > 0, f"{k} was never launched on the main path")
@@ -919,7 +1142,7 @@ def main(argv=None) -> int:
 
     log(json.dumps({"kernels": [records[k] for k in (
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
-        "kmeans_assign")]}))
+        "kmeans_assign", "icm_encode")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

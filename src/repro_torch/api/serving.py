@@ -4,7 +4,8 @@ kinds.
 
 ``load_ann_engine(path)`` opens a saved artifact directory as a serving
 engine on the CUDA card; ``AnnEngine.search`` runs a query batch
-through the index and attaches a ``ResultMeta`` to every result.
+through the index and attaches a ``ResultMeta`` to every result;
+``AnnEngine.add`` grows the served index in place (``Index.add``).
 
 This slice serves the ``full`` rung of the degradation ladder only,
 with no mesh and no failover: a kernel that fails to build or launch
@@ -86,6 +87,14 @@ class AnnEngine:
         if r.indices.is_cuda:
             torch.cuda.synchronize(r.indices.device)
         return r
+
+    def add(self, new_vectors, **encode_opts) -> "AnnEngine":
+        """Grow the served index by ``new_vectors`` ((n_new, d), numpy or
+        torch): ``Index.add`` with ``encode_opts`` (``icm_iters``,
+        ``encode_backend``, ``point_chunk``).  ``n`` and ``device`` follow
+        the index; ``query_tile`` is unchanged.  Returns the engine."""
+        self.index = self.index.add(new_vectors, **encode_opts)
+        return self
 
     def __call__(self, queries, budget: Optional[SearchBudget] = None):
         return self.search(queries, budget=budget)

@@ -3,21 +3,13 @@ builds a ``FlatADC``, ``TwoStep`` or ``IVFTwoStep`` by name on one
 device."""
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.icq import ICQStructure
-from repro_torch.index.base import (SearchResult, build_lut, lut_sum,
-                                    resolve_backend, resolve_device)
+from repro_torch.index.base import (SearchResult, as_torch, build_lut,
+                                    lut_sum, resolve_backend, resolve_device)
 
 INDEX_KINDS = ("flat", "two-step", "ivf")
-
-
-def _tensor(x) -> torch.Tensor:
-    """A tensor of ``x`` (numpy arrays are copied: arrays handed over
-    from other frameworks may be read-only)."""
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.array(x))
 
 
 def make_index(kind: str, codes, C, structure=None, *, device=None,
@@ -40,22 +32,22 @@ def make_index(kind: str, codes, C, structure=None, *, device=None,
                          f"{list(INDEX_KINDS)}")
     cls = {"flat": FlatADC, "two-step": TwoStep, "ivf": IVFTwoStep}[kind]
     dev = resolve_device(device)
-    codes = _tensor(codes)
+    codes = as_torch(codes)
     if codes.dtype not in (torch.uint8, torch.int32):
         codes = codes.to(torch.int32)     # uint16 codes (m > 256) widen
     codes = codes.to(dev).contiguous()
-    C = _tensor(C).to(dev, torch.float32).contiguous()
+    C = as_torch(C).to(dev, torch.float32).contiguous()
     if structure is not None:
-        structure = ICQStructure(*(_tensor(t).to(dev) for t in structure))
+        structure = ICQStructure(*(as_torch(t).to(dev) for t in structure))
     resolve_backend(opts.get("backend", "auto"), dev)
     if opts.get("emb_db") is not None:
-        opts["emb_db"] = _tensor(opts["emb_db"]).to(dev, torch.float32)
+        opts["emb_db"] = as_torch(opts["emb_db"]).to(dev, torch.float32)
     if opts.get("ivf") is not None:
         ivf = opts["ivf"]
         opts["ivf"] = IVFIndex(
-            centroids=_tensor(ivf.centroids).to(dev, torch.float32),
-            lists=_tensor(ivf.lists).to(dev, torch.int32),
-            list_lens=_tensor(ivf.list_lens).to(dev, torch.int32),
+            centroids=as_torch(ivf.centroids).to(dev, torch.float32),
+            lists=as_torch(ivf.lists).to(dev, torch.int32),
+            list_lens=as_torch(ivf.list_lens).to(dev, torch.int32),
             imbalance=float(ivf.imbalance))
     return cls.build(codes, C, structure, **opts)
 

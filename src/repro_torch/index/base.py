@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +34,13 @@ class SearchResult(NamedTuple):
 
 
 # --------------------------------------------------------------- device ----
+
+def as_torch(x) -> torch.Tensor:
+    """A tensor of ``x`` (numpy arrays are copied: arrays handed over
+    from other frameworks may be read-only)."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.array(x))
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the CUDA card unless the

@@ -11,11 +11,15 @@ the kernels' plain PyTorch versions.
 "Average Ops", the paper's speed metric, counts LUT adds per point:
 |K_fast| + pass_rate * (K - |K_fast|), against K for one-step ADC.
 
+``add`` grows an index without retraining: the new rows are encoded by
+the ICM engine (``core.encode.icm_encode``, the ICM kernel on the card)
+and appended, so a grown index equals one built over all rows at once.
+
 Options of the reference still to be ported raise by name, each naming
 its ROADMAP.md item: ``refine_cap`` (queue 1, the jnp-only capped
 refine), ``filter`` (queue 1, filtered search), ``pipeline`` (queue 1,
-item 7), ``search_crude`` (queue 1, the degradation ladder), ``add``
-(queue 1, item 6) and ``shard`` (queue 1, item 10).
+item 7), ``search_crude`` (queue 1, the degradation ladder) and
+``shard`` (queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.index.base import (SearchResult, build_lut,
+from repro_torch.core.encode import icm_encode, pack_nibbles
+from repro_torch.index.base import (SearchResult, as_torch, build_lut,
                                     chunked_over_queries, resolve_backend,
                                     resolve_code_bits, resolve_lut_dtype)
 from repro_torch.kernels.stages import CrudeStage, two_step_stages
@@ -147,12 +152,26 @@ def two_step_search(queries, codes, C, structure, topk: int, *,
 
 # -------------------------------------------------------------- indexes ----
 
+def _encode_new_rows(new_vectors, C, codes_dtype, *, icm_iters: int,
+                     encode_backend: str, point_chunk: Optional[int],
+                     code_bits: int = 8) -> torch.Tensor:
+    """The encode step of ``add``: ICM over the new embeddings (PQ warm
+    start) on C's device, packed to the stored format (``codes_dtype``
+    for byte codes, nibble rows under ``code_bits=4``)."""
+    x = as_torch(new_vectors).to(C.device, torch.float32)
+    new = icm_encode(x, C, icm_iters, backend=encode_backend,
+                     point_chunk=point_chunk)
+    if code_bits == 4:
+        return pack_nibbles(new, C.shape[0])
+    return new.to(codes_dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class _FlatBase:
-    """Shared options and the not-yet-ported verbs of the port's indexes
-    (flat, two-step and IVF).  The CUDA kernels choose their own tiles,
-    so the reference's ``block_q``/``block_n``/``interpret`` options
-    have no counterpart."""
+    """Shared options, ``add`` and the not-yet-ported verbs of the
+    port's indexes (flat, two-step and IVF).  The CUDA kernels choose
+    their own tiles, so the reference's ``block_q``/``block_n``/
+    ``interpret`` options have no counterpart."""
     topk: int = 50
     backend: str = "auto"
     query_chunk: Optional[int] = None
@@ -174,9 +193,18 @@ class _FlatBase:
         raise _not_ported("search_crude (the crude rung of the "
                           "degradation ladder)", "queue 1, item 4")
 
-    def add(self, new_vectors, **opts):
-        raise _not_ported("Index.add (incremental encode)",
-                          "queue 1, item 6")
+    def add(self, new_vectors, *, icm_iters: int = 3,
+            encode_backend: str = "auto",
+            point_chunk: Optional[int] = 8192):
+        """Encode ``new_vectors`` ((n_new, d) embeddings, numpy or torch)
+        and append their rows: an incremental build, no retraining.
+        Returns a new index; the new rows get ids [n, n + n_new)."""
+        new = _encode_new_rows(new_vectors, self.C, self.codes.dtype,
+                               icm_iters=icm_iters,
+                               encode_backend=encode_backend,
+                               point_chunk=point_chunk,
+                               code_bits=self.code_bits)
+        return dataclasses.replace(self, codes=torch.cat([self.codes, new]))
 
     def shard(self, mesh):
         raise _not_ported("Index.shard (sharded serving)",

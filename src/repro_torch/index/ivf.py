@@ -21,11 +21,13 @@ with ``coarse = n_lists / n`` (``ivf_ops_result``).
 
 The build runs the coarse k-means through ``ops.kmeans_assign`` (the
 CUDA kernel on the card) and lays the lists out from a stable sort of
-the assignments.  Options of the reference still to be ported raise by
-name, each naming its ROADMAP.md item: ``search_crude`` (the probes and
-crude rungs, queue 1, item 4), ``refine_cap`` and ``filter`` (queue 1,
-item 2), ``pipeline`` (queue 1, item 7), ``add`` (``ivf_extend``, queue
-1, item 6) and ``shard`` (queue 1, item 10).
+the assignments.  ``add`` encodes the new rows (the ICM kernel) and
+routes them into the fixed lists with ``ivf_extend``, so a grown index
+equals ``ivf_assign`` of the same centroids over all rows.  Options of
+the reference still to be ported raise by name, each naming its
+ROADMAP.md item: ``search_crude`` (the probes and crude rungs, queue 1,
+item 4), ``refine_cap`` and ``filter`` (queue 1, item 2), ``pipeline``
+(queue 1, item 7) and ``shard`` (queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -37,11 +39,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import codebooks as cb
-from repro_torch.index.base import (SearchResult, build_lut,
+from repro_torch.index.base import (SearchResult, as_torch, build_lut,
                                     chunked_over_queries, full_f32_matmul,
                                     resolve_backend, resolve_lut_dtype)
 from repro_torch.index.flat import (_check_fastscan_geometry, _check_filter,
-                                    _FlatBase, _not_ported)
+                                    _encode_new_rows, _FlatBase, _not_ported)
 from repro_torch.kernels.stages import two_step_stages, topk_two_key
 
 # centroid rows of the lists k-means cannot seed (n_lists > n): huge but
@@ -114,6 +116,33 @@ def ivf_assign(centroids: torch.Tensor, emb_db: torch.Tensor) -> IVFIndex:
     goes to its nearest centroid."""
     ids = cb.kmeans_assign(emb_db.to(torch.float32), centroids)
     return _pack_buckets(ids, centroids.shape[0], centroids)
+
+
+def ivf_extend(ivf: IVFIndex, new_emb: torch.Tensor,
+               start_id: int) -> IVFIndex:
+    """Route new points into the existing lists, centroids fixed: every
+    ``new_emb`` row goes to its nearest centroid (``kmeans_assign``) with
+    the global id ``start_id + row``.  The old ids' lists are read back
+    from the padded slab and the whole partition is laid out again by
+    ``_pack_buckets`` (ascending ids per list, max_len grown as needed),
+    so the result equals ``ivf_assign`` over the concatenated
+    embeddings."""
+    n_lists, max_len = ivf.lists.shape
+    valid = ivf.lists >= 0
+    old_ids = ivf.lists[valid].long()
+    if old_ids.numel() != start_id or (
+            start_id and not torch.equal(
+                torch.sort(old_ids).values,
+                torch.arange(start_id, device=old_ids.device))):
+        raise ValueError(f"the lists must hold the ids 0 .. {start_id - 1} "
+                         f"once each to be extended from id {start_id}; "
+                         f"they hold {old_ids.numel()} ids")
+    owner = torch.empty(start_id, dtype=torch.long, device=old_ids.device)
+    owner[old_ids] = torch.arange(n_lists, device=old_ids.device)[:, None] \
+        .expand(n_lists, max_len)[valid]
+    new_ids = cb.kmeans_assign(new_emb.to(torch.float32), ivf.centroids)
+    return _pack_buckets(torch.cat([owner, new_ids.long()]), n_lists,
+                         ivf.centroids)
 
 
 def ivf_list_codes(ivf: IVFIndex, codes: torch.Tensor) -> torch.Tensor:
@@ -293,6 +322,21 @@ class IVFTwoStep(_FlatBase):
         raise _not_ported("search_crude (the probes and crude rungs of "
                           "the degradation ladder)", "queue 1, item 4")
 
-    def add(self, new_vectors, **opts):
-        raise _not_ported("IVFTwoStep.add (incremental encode and "
-                          "ivf_extend)", "queue 1, item 6")
+    def add(self, new_vectors, *, icm_iters: int = 3,
+            encode_backend: str = "auto",
+            point_chunk: Optional[int] = 8192) -> "IVFTwoStep":
+        """Encode ``new_vectors`` ((n_new, d) embeddings, numpy or torch)
+        and route them into the lists, coarse centroids fixed, no
+        retraining; the in-list codes slab is rebuilt.  Returns a new
+        index whose new rows get ids [n, n + n_new); it equals the index
+        of ``ivf_assign`` with the same centroids over all rows."""
+        x = as_torch(new_vectors).to(self.device, torch.float32)
+        new = _encode_new_rows(x, self.C, self.codes.dtype,
+                               icm_iters=icm_iters,
+                               encode_backend=encode_backend,
+                               point_chunk=point_chunk,
+                               code_bits=self.code_bits)
+        codes = torch.cat([self.codes, new])
+        ivf = ivf_extend(self.ivf, x, start_id=self.codes.shape[0])
+        return dataclasses.replace(self, codes=codes, ivf=ivf,
+                                   list_codes=ivf_list_codes(ivf, codes))

@@ -35,7 +35,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {
     "crude_topk": 0, "refine_topk": 0,
     "ivf_crude_topk": 0, "ivf_refine_topk": 0,
-    "kmeans_assign": 0,
+    "kmeans_assign": 0, "icm_encode": 0,
 }
 
 # ctypes signatures of each library's C entry points: every pointer and
@@ -61,6 +61,10 @@ SIGNATURES = {
     "kmeans": {
         **_COMMON,
         "icq_kmeans_assign": ([_P] * 5 + [_L, _I, _I, _P], _I),
+    },
+    "icm_encode": {
+        **_COMMON,
+        "icq_icm_encode": ([_P] * 5 + [_L] + [_I] * 4 + [_P], _I),
     },
 }
 

@@ -6,6 +6,7 @@ the kernel launches of each wrapper."""
 from __future__ import annotations
 
 from repro_torch.kernels import batched_search as bs
+from repro_torch.kernels import icm_encode as icm
 from repro_torch.kernels import kmeans as km
 from repro_torch.kernels.build import LAUNCHES  # noqa: F401
 
@@ -80,3 +81,11 @@ def kmeans_assign(x, cent):
     distance)."""
     fn = km.kmeans_assign_cuda if _on_card(x) else km.kmeans_assign_torch
     return fn(x, cent)
+
+
+def icm_encode(x, init_codes, C, *, iters: int):
+    """ICM sweeps from a warm start: x (n, d) f32, init_codes (n, K)
+    int32, C (K, m, d) f32 -> codes (n, K) int32 (each step's argmin
+    takes the first index of the minimum)."""
+    fn = icm.icm_encode_cuda if _on_card(x) else icm.icm_encode_torch
+    return fn(x, init_codes, C, iters=iters)

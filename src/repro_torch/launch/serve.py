@@ -11,6 +11,9 @@
     # the same on the CPU, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --ann --device cpu \
         --ann-n 20000 --ann-queries 8
+    # then grow the served index by 128 vectors (ICM encode + append)
+    PYTHONPATH=src python -m repro_torch.launch.serve --ann --device cpu \
+        --ann-n 20000 --ann-queries 8 --ann-add 128
     # save, then serve the saved directory in a fresh process
     PYTHONPATH=src python -m repro_torch.launch.serve --ann \
         --save-artifacts /path/ann && \
@@ -18,7 +21,8 @@
         --load-artifacts /path/ann
 
 Each batch's time comes from the host clock around work that ends in a
-device synchronize (the engine synchronizes before it returns).
+device synchronize (the engine synchronizes before it returns); so does
+the ``--ann-add`` time.
 """
 from __future__ import annotations
 
@@ -44,11 +48,38 @@ def serve_batches(engine, nq: int, d: int, batches: int, label: str,
     return res
 
 
+def grow(engine, n_add: int, nq: int, seed: int):
+    """``--ann-add``: ``n_add`` new vectors ``decode(C, random codes) +
+    0.01 * noise`` from ``seed``, added to the engine (encode + append,
+    no retraining), then one more batch served."""
+    import torch
+
+    from repro_torch.core.codebooks import decode
+
+    C = engine.index.C
+    K, m, d = C.shape
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, m, size=(n_add, K)))
+    noise = torch.from_numpy(rng.standard_normal((n_add, d),
+                                                 dtype=np.float32))
+    new = decode(C, codes.to(C.device)) + 0.01 * noise.to(C.device)
+    t0 = time.perf_counter()
+    engine.add(new)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.perf_counter() - t0
+    res = engine(rng.standard_normal((nq, d), dtype=np.float32))
+    print(f"ann-add: +{n_add} vectors in {dt * 1e3:.1f} ms (encode + "
+          f"append, no retraining) -> n={engine.n}; post-add "
+          f"pass_rate={float(res.pass_rate):.4f}")
+
+
 def serve_ann(cfg, n: int, nq: int, *, batches: int, device, seed: int,
-              save_dir=None):
-    """Build a synthetic index as ``cfg`` describes and serve it.  The
-    IVF kind fits its coarse quantizer over the decoded database
-    ``decode(C, codes)``, seeded with ``seed``."""
+              save_dir=None, n_add: int = 0):
+    """Build a synthetic index as ``cfg`` describes and serve it, then
+    with ``n_add`` grow it (``grow``).  The IVF kind fits its coarse
+    quantizer over the decoded database ``decode(C, codes)``, seeded
+    with ``seed``.  ``save_dir`` saves the index the engine holds."""
     import torch
 
     from repro_torch.api import AnnEngine, Artifacts, build_index
@@ -76,8 +107,10 @@ def serve_ann(cfg, n: int, nq: int, *, batches: int, device, seed: int,
                   f"K={t.num_codebooks} m={t.codebook_size} nq={nq} "
                   f"topk={cfg.serve.topk} lut={cfg.serve.lut_dtype} "
                   f"bits={cfg.index.code_bits}", seed=seed + 1)
+    if n_add > 0:
+        grow(engine, n_add, nq, seed + 3)
     if save_dir:
-        Artifacts(config=cfg, index=index).save(save_dir)
+        Artifacts(config=cfg, index=engine.index).save(save_dir)
         print(f"ann: artifacts (config hash {cfg.config_hash()[:12]}) -> "
               f"{save_dir}; reload with --load-artifacts")
 
@@ -119,6 +152,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--ann-n", type=int, default=100_000)
+    ap.add_argument("--ann-add", type=int, default=0, metavar="N",
+                    help="with --ann: after the timed batches, add N new "
+                         "vectors to the served index and serve once more")
     ap.add_argument("--ann-queries", type=int, default=64)
     ap.add_argument("--ann-index", default=None,
                     choices=["flat", "two-step", "ivf"],
@@ -156,7 +192,8 @@ def main(argv=None):
     if args.load_artifacts:
         for flag, val in (("--config", args.config),
                           ("--save-artifacts", args.save_artifacts),
-                          ("--ann-index", args.ann_index)):
+                          ("--ann-index", args.ann_index),
+                          ("--ann-add", args.ann_add or None)):
             if val is not None:
                 ap.error(f"{flag} cannot be combined with --load-artifacts")
         serve_loaded(args.load_artifacts, args.ann_queries,
@@ -171,7 +208,7 @@ def main(argv=None):
     cfg = ICQConfig.load(args.config) if args.config else ICQConfig()
     serve_ann(cfg.with_overrides(overrides), args.ann_n, args.ann_queries,
               batches=args.batches, device=args.device, seed=args.seed,
-              save_dir=args.save_artifacts)
+              save_dir=args.save_artifacts, n_add=args.ann_add)
 
 
 if __name__ == "__main__":

@@ -148,3 +148,44 @@ def test_cuda_kmeans_assign_matches_plain_version():
     assert bool((got_i[clear] == want_i[clear]).all())
     assert not bool((got_i == 250).any())
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-6 * size)
+
+
+@pytest.mark.gpu
+def test_cuda_icm_encode_matches_plain_version():
+    """The ICM kernel against its plain version on a ragged n, an m that
+    is not a multiple of the 64-codeword tile and a d that is not one of
+    the 32-dimension step: codes equal on at least 99.9% of rows (the
+    kernel's dot products round in their own order, and a flip at a near
+    tie changes that point's later steps), reconstruction MSE to rtol
+    1e-5; with every codeword duplicated the first index always wins;
+    encoding the rows in another order gives each row the same codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.codebooks import decode
+    from repro_torch.core.encode import encode_pq
+    from repro_torch.kernels import icm_encode as icm
+    rng = np.random.default_rng(4)
+    n, K, m, d = 20_011, 8, 100, 40
+    C = torch.from_numpy((rng.standard_normal((K, m, d))
+                          / np.sqrt(K)).astype(np.float32)).cuda()
+    true = torch.from_numpy(rng.integers(0, m, size=(n, K))).cuda()
+    x = decode(C, true) + 0.1 * torch.from_numpy(
+        rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    init = encode_pq(x, C)
+    for iters in (1, 3):
+        got = icm.icm_encode_cuda(x, init, C, iters=iters)
+        want = icm.icm_encode_torch(x, init, C, iters=iters)
+        torch.cuda.synchronize()
+        assert float((got == want).all(1).float().mean()) >= 0.999
+        mse = [float(torch.mean(torch.sum(torch.square(x - decode(C, c)), 1)))
+               for c in (got, want)]
+        assert mse[0] == pytest.approx(mse[1], rel=1e-5)
+    perm = torch.from_numpy(rng.permutation(n)).cuda()
+    assert torch.equal(icm.icm_encode_cuda(x[perm], init[perm].contiguous(),
+                                           C, iters=3), got[perm])
+    dup = C.clone()
+    dup[:, m // 2:] = dup[:, :m // 2]
+    wild = torch.from_numpy(rng.integers(0, m, size=(n, K)).astype(
+        np.int32)).cuda()
+    codes = icm.icm_encode_cuda(x, wild, dup, iters=1)
+    assert int(codes.max()) < m // 2

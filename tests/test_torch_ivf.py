@@ -414,8 +414,6 @@ def test_ivf_build_needs_embeddings_and_raises_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         index.search_crude(q)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.add(emb[:3])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         index.search(_t(q), filter=np.ones(300, bool))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
