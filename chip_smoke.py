@@ -55,6 +55,22 @@ or outside a checkout of the repository.  Phases:
    after): codes (and for IVF lists and in-list codes) equal to the
    index built over all points at once, one 64-query tile served equal
    by both, and equal again after a save and ``load_ann_engine``.
+   ``kmeans_assign`` and the ICM kernel are also timed at one encode
+   chunk (8192 points; L = 256 for the PQ warm start), the shape at
+   which the encode and add windows launch them;
+7. the kernel ops (``ops.adc``, ``ops.two_step``, ``ops.flash_attention``):
+   each kernel against its plain version on ragged shapes (ADC and
+   two-step bit for bit on uint8 and int32 rows, K in {2, 8, 16}, m in
+   {16, 256}, thresholds passing none, some and all points; flash
+   attention within 2e-5 in f32 and 2e-2 in bf16, causal and not,
+   sq != sk, MHA, GQA and MQA, dh in {32, 64, 128, 256}); then the ops
+   once each at full width, counts reset before and read after: ADC and
+   two-step at SIFT1M geometry (1M uint8 rows, one query's LUT, 2 fast
+   codebooks, the threshold at the crude 0.3% quantile), flash attention
+   at tinyllama-1.1b's (f32 and bf16) and llama3-405b's (bf16) attention
+   widths at s = 4096, causal; and their times beside their bounds, their
+   plain versions and a one-call library yardstick (``embedding_bag``,
+   ``scaled_dot_product_attention``).
 
 With ``--profile DIR``, five more tiles of the two-step-f32 and ivf-f32
 cells run under ``torch.profiler`` after their counted windows: the
@@ -81,6 +97,8 @@ SRC = os.path.join(ROOT, "src")
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# and the dense bf16 tensor-core rate
+BF16_OPS_PER_S = 989e12
 
 TOPK = 100
 TILE = 64
@@ -96,6 +114,16 @@ SIGMA = 10.0
 IVF = dict(n_lists=1024, n_probe=8, kmeans_iters=20)
 # ICM sweeps of the encoder (the config's encode.icm_iters)
 ICM_ITERS = 3
+# attention widths of two repo configs at the train_4k length (4096,
+# src/repro/configs/shapes.py): tinyllama-1.1b
+# (src/repro/configs/tinyllama_1_1b.py) and llama3-405b
+# (src/repro/configs/llama3_405b.py), batch 1, causal
+ATTENTION = (("tinyllama-1.1b", dict(b=1, s=4096, H=32, KVH=4, dh=64),
+              ("float32", "bfloat16")),
+             ("llama3-405b", dict(b=1, s=4096, H=128, KVH=8, dh=128),
+              ("bfloat16",)))
+# the served cells' pass rate: the two-step threshold at this quantile
+PASS_QUANTILE = 0.003
 
 
 class SmokeFailure(RuntimeError):
@@ -128,11 +156,40 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float):
+def graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed ``replays`` times between CUDA events, so
+    that the host's time to launch a microsecond kernel stays out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """Least time for the work: the larger of bytes over the memory rate
-    and f32 operations over the f32 rate."""
+    and operations over their rate (f32 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -952,6 +1009,43 @@ def check_icm(x, C, seed: int, iters: int):
                 bound_by=b_by, library_ms=None)
 
 
+def time_encode_chunk(x, C, iters: int):
+    """``kmeans_assign`` (against one codebook, L = m, as the PQ warm
+    start calls it) and the ICM kernel at one encode chunk, the shape at
+    which the encode and add windows launch them: kernel times in a CUDA
+    graph, plain and library times eager (CUDA events).  Printed only;
+    the records keep the whole-problem shapes."""
+    import torch
+    from repro_torch.api import ICQConfig
+    from repro_torch.core.encode import encode_pq
+    from repro_torch.kernels import icm_encode as icm
+    from repro_torch.kernels import kmeans as km
+    chunk = ICQConfig().encode.chunk
+    K, m, d = C.shape
+    xc, cent = x[:chunk].contiguous(), C[0].contiguous()
+    csq = cent.square().sum(1)
+    ms = graph_ms(lambda: km.kmeans_assign_cuda(xc, cent))
+    plain_ms = time_ms(lambda: km.kmeans_assign_torch(xc, cent), 20)
+    lib_ms = time_ms(lambda: torch.argmin(
+        torch.addmm(csq, xc, cent.T, alpha=-2.0), 1), 20)
+    b_ms, b_by = bound_ms((chunk * d + m * d + m) * 4 + chunk * 8,
+                          2 * chunk * m * d)
+    log(f"kernel kmeans_assign n={chunk} L={m} d={d} (one warm-start "
+        f"launch): {ms:.5f} ms (CUDA graph), plain {plain_ms:.5f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), two-call library yardstick "
+        f"argmin(addmm) {lib_ms:.5f} ms")
+    init = encode_pq(xc, C)
+    ms = graph_ms(lambda: icm.icm_encode_cuda(xc, init, C, iters=iters), 10)
+    plain_ms = time_ms(lambda: icm.icm_encode_torch(xc, init, C,
+                                                    iters=iters), 3)
+    ops = chunk * iters * K * (m * (2 * d + 2) + 3 * d) + chunk * (K - 1) * d
+    b_ms, b_by = bound_ms(chunk * d * 4 + 2 * chunk * K * 4
+                          + K * m * d * 4 + K * m * 4, ops)
+    log(f"kernel icm_encode n={chunk} K={K} m={m} d={d} iters={iters} (one "
+        f"encode launch): {ms:.5f} ms (CUDA graph), plain {plain_ms:.5f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by})")
+
+
 def encode_window(x, C, iters: int):
     """``encode_database`` of all points at the config's chunk, launch
     counts reset before and read after; checked against a direct
@@ -1064,6 +1158,7 @@ def encode_and_grow(seed: int, n: int, workdir):
     iters = ICM_ITERS
     x, C = encode_problem(seed, n)
     record = check_icm(x, C, seed, iters)
+    time_encode_chunk(x, C, iters)
     codes, launches = encode_window(x, C, iters)
     total = dict(launches)
     for kind in ("two-step", "ivf"):
@@ -1071,6 +1166,229 @@ def encode_and_grow(seed: int, n: int, workdir):
                               workdir=workdir).items():
             total[k] += v
     return total, record
+
+
+# ------------------------------------------------ phase 7: kernel ops ----
+
+FLASH_MODES = (   # b, sq, sk, H, KVH, dh, causal
+    (1, 64, 64, 4, 4, 32, True),
+    (2, 128, 128, 8, 2, 64, True),
+    (1, 64, 256, 4, 1, 32, False),       # cross-length, MQA
+    (2, 256, 256, 8, 8, 128, True),
+    (1, 1000, 1000, 8, 1, 64, True),     # ragged against the 64-row tile
+    (1, 333, 1111, 4, 2, 128, True),     # sq < sk, GQA
+    (2, 700, 130, 6, 3, 32, False),      # sq > sk
+    (1, 700, 130, 4, 4, 128, True),      # sq > sk, causal
+    (1, 300, 300, 2, 1, 256, True),      # dh 256 (gemma-7b's head width)
+)
+
+
+def flash_tolerance(dtype) -> float:
+    import torch
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def attention_operands(seed, b, sq, sk, H, KVH, dh, dtype):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((b, sq, H, dh), (b, sk, KVH, dh), (b, sk, KVH, dh))]
+
+
+def check_kernel_ops(seed: int):
+    """Phase 7 (a): the ADC, two-step and flash kernels against their
+    plain versions on ragged shapes, launch counts reset before and
+    read after (these launches are checks, not the main path)."""
+    import torch
+    from repro_torch.kernels import adc, two_step
+    from repro_torch.kernels import flash_attention as fa
+    reset_launches()
+    n = 100_003                              # ragged against every block
+    for K, m in ((2, 16), (8, 256), (16, 16), (16, 256)):
+        g = torch.Generator(device="cuda").manual_seed(seed + 40 + K + m)
+        codes = torch.randint(0, m, (n, K), generator=g, device="cuda",
+                              dtype=torch.int32)
+        codes[n // 2:n // 2 + 9] = codes[3]
+        lut = torch.randn((K, m), generator=g, device="cuda")
+        fast = torch.arange(K, device="cuda") < max(1, K // 4)
+        for dtype in (torch.uint8, torch.int32):
+            c = codes.to(dtype)
+            ok = torch.equal(adc.adc_cuda(c, lut), adc.adc_torch(c, lut))
+            crude = two_step.two_step_torch(c, lut, fast, 0.0)[0]
+            passes = []
+            for thr in (crude.min(), crude.median(), crude.max() + 1.0):
+                got = two_step.two_step_cuda(c, lut, fast, thr)
+                want = two_step.two_step_torch(c, lut, fast, thr)
+                ok = ok and equal_outputs(got, want)
+                passes.append(int(got[1].sum()))
+            torch.cuda.synchronize()
+            ok = ok and passes[0] == 0 and 0 < passes[1] < n \
+                and passes[2] == n
+            log(f"mode adc + two_step n={n} K={K} m={m} "
+                f"{str(dtype).split('.')[-1]} rows, passed {passes}: "
+                f"{'equal' if ok else 'DIFFERENT'}")
+            check(ok, f"adc/two_step kernel != plain version (K={K}, m={m},"
+                      f" {dtype}) or wrong pass counts {passes}")
+    for mode in FLASH_MODES:
+        b, sq, sk, H, KVH, dh, causal = mode
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attention_operands(seed + sq + dh, b, sq, sk, H, KVH,
+                                         dh, dtype)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = fa.flash_attention_torch(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            tol = flash_tolerance(dtype)
+            err = float((got.float() - want.float()).abs().max())
+            ok = (got.dtype == dtype and got.shape == want.shape
+                  and bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                                         atol=tol).all()))
+            log(f"mode flash_attention b={b} sq={sq} sk={sk} H={H} KVH={KVH}"
+                f" dh={dh} causal={causal} {str(dtype).split('.')[-1]}: "
+                f"max_abs_err {err} (tolerance {tol}): "
+                f"{'within' if ok else 'OUTSIDE'}")
+            check(ok, f"flash_attention kernel != plain version {mode} "
+                      f"{dtype}: max_abs_err {err}")
+    log(f"phase 7 check launches: {read_launches()}")
+
+
+def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize):
+    """(bytes, operations) of one attention call: q, k, v read and out
+    written once; two products of 2 dh operations per visible
+    (query, key) pair, counting only the causal part."""
+    if causal:
+        pairs = sum(min(i + 1, sk) for i in range(sq))
+    else:
+        pairs = sq * sk
+    nbytes = itemsize * (2 * b * sq * H * dh + 2 * b * sk * KVH * dh)
+    return nbytes, 4 * b * H * dh * pairs
+
+
+def kernel_ops(seed: int, n: int):
+    """Phase 7 (b, c): the kernel ops once each at full width through
+    ``ops`` (ADC and two-step over ``n`` points), launch counts reset
+    before and read after; outputs checked against the plain versions;
+    then times, bounds and yardsticks.  Returns (the window's launches,
+    the three records)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.index.base import build_lut
+    from repro_torch.kernels import adc, ops, two_step
+    from repro_torch.kernels import flash_attention as fa
+    K, m, d = SIFT["K"], SIFT["m"], SIFT["d"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 400)
+    C = torch.randn((K, m, d), generator=g, device="cuda") / K ** 0.5
+    codes = torch.randint(0, m, (n, K), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    lut = build_lut(torch.randn((d,), generator=g, device="cuda"), C)
+    fast = torch.arange(K, device="cuda") < SIFT["num_fast"]
+    thr = torch.quantile(two_step.two_step_torch(codes, lut, fast, 0.0)[0],
+                         PASS_QUANTILE)
+    cells = [(name, w, getattr(torch, dt)) for name, w, dts in ATTENTION
+             for dt in dts]
+    qkv = [attention_operands(seed + 500 + i, w["b"], w["s"], w["s"], w["H"],
+                              w["KVH"], w["dh"], dt)
+           for i, (_, w, dt) in enumerate(cells)]
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dist = ops.adc(codes, lut)
+    crude, passed = ops.two_step(codes, lut, fast, thr)
+    attn = [ops.flash_attention(*t, causal=True) for t in qkv]
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {k: 0 for k in launches}
+    want.update(adc=1, two_step=1, flash_attention=len(cells))
+    log(f"kernel ops window: {window_s:.4f} s (host clock, first calls); "
+        f"launches {launches}")
+    check(launches == want, f"kernel ops launch counts {launches} != {want}")
+
+    records = {}
+    want = adc.adc_torch(codes, lut)
+    check(torch.equal(dist, want) and bool(torch.isfinite(dist).all()),
+          "ops.adc at full width != plain version")
+    want_c, want_p = two_step.two_step_torch(codes, lut, fast, thr)
+    rate = float(passed.float().mean())
+    check(torch.equal(crude, want_c) and torch.equal(passed, want_p)
+          and 0 < rate < 0.01, f"ops.two_step at full width != plain "
+                               f"version or pass rate {rate}")
+    errs = {"adc": float((dist.double() - want.double()).abs().max()),
+            "two_step": float((crude.double() - want_c.double()).abs()
+                              .max())}
+    # the library yardstick of ADC: one embedding_bag over the flat LUT
+    # with the codes shifted to k m + code (int64, made outside the timed
+    # call); none computes the two-step in one call
+    flat = (codes.long() + torch.arange(K, device="cuda") * m).contiguous()
+    table = lut.reshape(-1, 1)
+    for name, call, plain, library, out_bytes, replaces in (
+            ("adc", lambda: adc.adc_cuda(codes, lut),
+             lambda: adc.adc_torch(codes, lut),
+             lambda: F.embedding_bag(flat, table, mode="sum"), n * 4,
+             "src/repro/kernels/adc.py:49"),
+            ("two_step", lambda: two_step.two_step_cuda(codes, lut, fast, thr),
+             lambda: two_step.two_step_torch(codes, lut, fast, thr), None,
+             n * 8, "src/repro/kernels/two_step.py:36")):
+        ms = graph_ms(call)
+        eager_ms = time_ms(call, 50)
+        plain_ms = time_ms(plain, 10)
+        lib_ms = graph_ms(library) if library else None
+        b_ms, b_by = bound_ms(n * K + K * m * 4 + out_bytes, n * K)
+        records[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/adc.cu", replaces=replaces,
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+        log(f"kernel {name} n={n} K={K} m={m} uint8 rows: {ms:.5f} ms (CUDA "
+            f"graph of 50 calls), {eager_ms:.5f} ms per eager call (CUDA "
+            f"events, host launch included), plain {plain_ms:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}), library "
+            + (f"embedding_bag(codes + k m, lut, sum) {lib_ms:.5f} ms (CUDA "
+               "graph)" if library else "none: no single call")
+            + (f"; pass rate {rate:.6f} at the {PASS_QUANTILE} quantile"
+               if name == "two_step" else ""))
+
+    for (name, w, dtype), (q, k, v), got in zip(cells, qkv, attn):
+        want = fa.flash_attention_torch(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = flash_tolerance(dtype)
+        check(bool(torch.isfinite(got.float()).all()) and bool(torch.isclose(
+            got.float(), want.float(), rtol=tol, atol=tol).all()),
+            f"ops.flash_attention {name} {dtype} != plain version: "
+            f"max_abs_err {err}")
+        del want
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+        sdpa_err = float((sdpa.transpose(1, 2).float() - got.float()).abs()
+                         .max())
+        del sdpa
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5)
+        plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v), 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        nbytes, nops = attention_work(w["b"], w["s"], w["s"], w["H"],
+                                      w["KVH"], w["dh"], True,
+                                      q.element_size())
+        b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
+                              if dtype == torch.bfloat16 else F32_OPS_PER_S)
+        log(f"kernel flash_attention {name} b={w['b']} s={w['s']} H={w['H']}"
+            f" KVH={w['KVH']} dh={w['dh']} causal "
+            f"{str(dtype).split('.')[-1]}: {ms:.4f} ms "
+            f"({nops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms "
+            f"({nops / lib_ms / 1e9:.2f} TFLOP/s); max_abs_err "
+            f"{err}, against SDPA {sdpa_err}")
+        # the record keeps the last, widest cell (llama3-405b, bf16)
+        records["flash_attention"] = dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:71",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms)
+    return launches, records
 
 
 def main(argv=None) -> int:
@@ -1085,6 +1403,7 @@ def main(argv=None) -> int:
                          "and ivf-f32 cells with torch.profiler (Chrome "
                          "traces to DIR)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -1133,16 +1452,22 @@ def main(argv=None) -> int:
                                            workdir, args.profile)
         enc_total, records["icm_encode"] = encode_and_grow(args.seed, args.n,
                                                            workdir)
+    check_kernel_ops(args.seed)
+    ops_total, ops_records = kernel_ops(args.seed, args.n)
     for k in total:
-        total[k] += ivf_total[k] + enc_total[k]
+        total[k] += ivf_total[k] + enc_total[k] + ops_total[k]
     records.update(ivf_records)
+    records.update(ops_records)
     for k, rec in records.items():
         check(total[k] > 0, f"{k} was never launched on the main path")
         rec["launches"] = total[k]
 
+    log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s (host "
+        "clock, the kernels' build included)")
     log(json.dumps({"kernels": [records[k] for k in (
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
-        "kmeans_assign", "icm_encode")]}))
+        "kmeans_assign", "icm_encode", "adc", "two_step",
+        "flash_attention")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,12 +36,13 @@ LAUNCHES: Dict[str, int] = {
     "crude_topk": 0, "refine_topk": 0,
     "ivf_crude_topk": 0, "ivf_refine_topk": 0,
     "kmeans_assign": 0, "icm_encode": 0,
+    "adc": 0, "two_step": 0, "flash_attention": 0,
 }
 
 # ctypes signatures of each library's C entry points: every pointer and
 # the stream travel as c_void_p (a bare Python int would be cut to 32
 # bits), every size as c_int / c_long
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _COMMON = {   # search_common.cuh, compiled into every library
     "icq_chunk_points": ([], _I),
     "icq_error_string": ([_I], ctypes.c_char_p),
@@ -65,6 +66,16 @@ SIGNATURES = {
     "icm_encode": {
         **_COMMON,
         "icq_icm_encode": ([_P] * 5 + [_L] + [_I] * 4 + [_P], _I),
+    },
+    "adc": {
+        **_COMMON,
+        "icq_adc_max_lut_bytes": ([], _L),
+        "icq_adc": ([_P, _I, _P, _P, _L, _I, _I, _P], _I),
+        "icq_two_step": ([_P, _I] + [_P] * 5 + [_L, _I, _I, _P], _I),
+    },
+    "flash_attention": {
+        **_COMMON,
+        "icq_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
     },
 }
 

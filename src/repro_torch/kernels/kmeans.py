@@ -2,12 +2,14 @@
 ``repro.kernels.kmeans``): the CUDA kernel of ``csrc/kmeans.cu`` beside
 its plain PyTorch version.
 
-Both return ``(ids (n,) int32, dist (n,) f32)`` with ``scores =
-||c||^2 - 2 x.c``, ``ids`` the first index of each row's minimum and
-``dist = min + ||x||^2``.  The kernel sums its dot products in its own
-order, so it equals the plain version to rounding, not bit for bit:
-ids agree wherever the two nearest scores are further apart than that
-rounding.
+Both take f32 or bf16 points and centroids; bf16 is widened to f32,
+exactly, so it is the same math as the reference's bf16 dot with f32
+accumulation.  Both return ``(ids (n,) int32, dist (n,) f32)`` with
+``scores = ||c||^2 - 2 x.c``, ``ids`` the first index of each row's
+minimum and ``dist = min + ||x||^2``.  The kernel sums its dot products
+in its own order, so it equals the plain version to rounding, not bit
+for bit: ids agree wherever the two nearest scores are further apart
+than that rounding.
 """
 from __future__ import annotations
 
@@ -23,9 +25,15 @@ def _centroid_sq_norms(cent: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(cent), dim=-1)
 
 
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def kmeans_assign_torch(x: torch.Tensor, cent: torch.Tensor):
-    """Plain version.  x (n, d) f32, cent (L, d) f32 -> (ids (n,) int32,
-    dist (n,) f32).  The (n, L) score matrix is one full-f32 matmul."""
+    """Plain version.  x (n, d), cent (L, d), f32 or bf16 -> (ids (n,)
+    int32, dist (n,) f32).  The (n, L) score matrix is one full-f32
+    matmul."""
+    x, cent = _widen(x), _widen(cent)
     with full_f32_matmul():
         scores = _centroid_sq_norms(cent)[None] - 2.0 * (x @ cent.T)
     ids = torch.argmin(scores, dim=1)          # first index of the minimum
@@ -46,6 +54,7 @@ def _check_matrix(t: torch.Tensor, name: str, d=None):
 def kmeans_assign_cuda(x: torch.Tensor, cent: torch.Tensor):
     """Launch the assignment kernel; same operands and outputs as
     ``kmeans_assign_torch``."""
+    x, cent = _widen(x), _widen(cent)
     _check_matrix(x, "x")
     _check_matrix(cent, "cent", x.shape[1])
     if cent.device != x.device:

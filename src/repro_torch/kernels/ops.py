@@ -5,9 +5,13 @@ the CPU; nothing falls back from one to the other.  ``LAUNCHES`` counts
 the kernel launches of each wrapper."""
 from __future__ import annotations
 
+from repro_torch.core.encode import pack_nibbles, unpack_nibbles  # noqa: F401
+from repro_torch.kernels import adc as adc_mod
 from repro_torch.kernels import batched_search as bs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import icm_encode as icm
 from repro_torch.kernels import kmeans as km
+from repro_torch.kernels import two_step as ts
 from repro_torch.kernels.build import LAUNCHES  # noqa: F401
 
 
@@ -18,6 +22,21 @@ def _on_card(t) -> bool:
         return False
     raise ValueError(f"the kernels run on cuda or cpu tensors, got "
                      f"{t.device}")
+
+
+def adc(codes, lut):
+    """ADC LUT sum over one LUT: codes (n, K) uint8 or int32 in [0, m),
+    lut (K, m) f32 -> dists (n,) f32."""
+    fn = adc_mod.adc_cuda if _on_card(codes) else adc_mod.adc_torch
+    return fn(codes, lut)
+
+
+def two_step(codes, lut, fast_mask, threshold):
+    """Fused phase 1 over one LUT: the crude ADC over the fast-masked
+    LUT and the eq. 2 mask.  codes (n, K), lut (K, m) f32, fast_mask (K,)
+    bool, threshold a scalar -> (crude (n,) f32, passed (n,) int32)."""
+    fn = ts.two_step_cuda if _on_card(codes) else ts.two_step_torch
+    return fn(codes, lut, fast_mask, threshold)
 
 
 def batched_crude_topk(codes, lut_flat, topk: int, *,
@@ -40,6 +59,17 @@ def batched_refine_topk(codes, lut_flat, crude, thresholds, topk: int, *,
     crude (nq, n), thresholds (nq,) -> (dist (nq, topk), idx (nq, topk))."""
     fn = bs.refine_topk_cuda if _on_card(codes) else bs.refine_topk_torch
     return fn(codes, lut_flat, crude, thresholds, topk, code_bits=code_bits)
+
+
+def fastscan_crude_topk(packed_codes, lut_flat, topk: int, *,
+                        want_crude: bool = True, lut_scale=None,
+                        lut_offset=None):
+    """The 4-bit fast-scan crude pass: ``batched_crude_topk`` over
+    nibble-packed codes (n, ceil(K/2)) uint8 against an even-K lut_flat
+    (``index.base.fastscan_kernel_operands`` or ``pad_luts_even``)."""
+    return batched_crude_topk(packed_codes, lut_flat, topk,
+                              want_crude=want_crude, lut_scale=lut_scale,
+                              lut_offset=lut_offset, code_bits=4)
 
 
 def ivf_crude_topk(cand_codes, cand_ids, lut_flat, topk: int, *,
@@ -76,9 +106,9 @@ def ivf_refine_topk(cand_codes, lut_flat, crude, thresholds, topk: int, *,
 
 
 def kmeans_assign(x, cent):
-    """Nearest centroid of every point: x (n, d) f32, cent (L, d) f32 ->
-    (ids (n,) int32, first index of the minimum; dist (n,) f32 squared
-    distance)."""
+    """Nearest centroid of every point: x (n, d), cent (L, d), f32 or
+    bf16 (widened to f32, exactly) -> (ids (n,) int32, first index of
+    the minimum; dist (n,) f32 squared distance)."""
     fn = km.kmeans_assign_cuda if _on_card(x) else km.kmeans_assign_torch
     return fn(x, cent)
 
@@ -89,3 +119,12 @@ def icm_encode(x, init_codes, C, *, iters: int):
     takes the first index of the minimum)."""
     fn = icm.icm_encode_cuda if _on_card(x) else icm.icm_encode_torch
     return fn(x, init_codes, C, iters=iters)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Flash attention with GQA and MQA: q (b, sq, H, dh), k/v (b, sk,
+    KVH, dh), f32 or bf16, H a multiple of KVH -> (b, sq, H, dh) in v's
+    type; ``causal`` masks top-left aligned (q_pos >= k_pos)."""
+    fn = (fa.flash_attention_cuda if _on_card(q)
+          else fa.flash_attention_torch)
+    return fn(q, k, v, causal=causal)

@@ -189,3 +189,85 @@ def test_cuda_icm_encode_matches_plain_version():
         np.int32)).cuda()
     codes = icm.icm_encode_cuda(x, wild, dup, iters=1)
     assert int(codes.max()) < m // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,m", [(2, 16), (8, 256), (16, 16), (16, 256)])
+def test_cuda_adc_and_two_step_match_plain_versions(K, m):
+    """The ADC and two-step kernels equal their plain versions bit for
+    bit on uint8 and int32 rows, n ragged against the block, duplicated
+    rows, and thresholds that pass none, some and all points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import adc, two_step
+    rng = np.random.default_rng(K * m)
+    n = 20_011
+    codes = rng.integers(0, m, size=(n, K))
+    codes[n // 2:n // 2 + 9] = codes[3]
+    lut = torch.from_numpy(rng.standard_normal((K, m)).astype(
+        np.float32)).cuda()
+    fast = torch.zeros((K,), dtype=torch.bool, device="cuda")
+    fast[:max(1, K // 4)] = True
+    for dtype in (torch.uint8, torch.int32):
+        c = torch.from_numpy(codes).to(dtype).cuda()
+        got = adc.adc_cuda(c, lut)
+        torch.cuda.synchronize()
+        assert torch.equal(got, adc.adc_torch(c, lut))
+        crude = two_step.two_step_torch(c, lut, fast, 0.0)[0]
+        lo, hi = float(crude.min()), float(crude.max())
+        for thr in (lo, float(crude.median()), hi + 1.0):
+            got = two_step.two_step_cuda(c, lut, fast, thr)
+            want = two_step.two_step_torch(c, lut, fast, thr)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        assert int(got[1].sum()) == n
+
+
+FLASH_CASES = [
+    (1, 64, 64, 4, 4, 32, True),
+    (2, 128, 128, 8, 2, 64, True),
+    (1, 64, 256, 4, 1, 32, False),      # cross-length, MQA
+    (2, 256, 256, 8, 8, 128, True),
+    (1, 200, 330, 4, 2, 64, True),      # ragged, sq < sk, GQA
+    (1, 330, 200, 4, 1, 128, True),     # ragged, sq > sk, MQA
+    (2, 100, 77, 6, 3, 128, False),
+    (1, 300, 300, 2, 1, 256, True),     # dh 256
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,dh,causal", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain_version(b, sq, sk, h, kvh, dh,
+                                                    causal, dtype):
+    """The flash kernel against its plain version in the working type,
+    at 2e-5 (f32) and 2e-2 (bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(sq + sk + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).cuda()
+        for s in ((b, sq, h, dh), (b, sk, kvh, dh), (b, sk, kvh, dh)))
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_torch(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_kmeans_assign_takes_bf16():
+    """bf16 operands run the f32 kernel on their exact f32 values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import kmeans as km
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((5003, 64), generator=g, device="cuda").bfloat16()
+    cent = torch.randn((97, 64), generator=g, device="cuda").bfloat16()
+    got = km.kmeans_assign_cuda(x, cent)
+    want = km.kmeans_assign_cuda(x.float(), cent.float())
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
