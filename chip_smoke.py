@@ -57,13 +57,18 @@ or outside a checkout of the repository.  Phases:
    by both, and equal again after a save and ``load_ann_engine``.
    ``kmeans_assign`` and the ICM kernel are also timed at one encode
    chunk (8192 points; L = 256 for the PQ warm start), the shape at
-   which the encode and add windows launch them;
+   which the encode and add windows launch them; there the wrapper
+   splits the centroid axis (split-L), the split launch must equal the
+   unsplit one bit for bit, and the ``argmin(addmm)`` yardstick is
+   timed in a CUDA graph beside its eager time;
 7. the kernel ops (``ops.adc``, ``ops.two_step``, ``ops.flash_attention``):
    each kernel against its plain version on ragged shapes (ADC and
    two-step bit for bit on uint8 and int32 rows, K in {2, 8, 16}, m in
    {16, 256}, thresholds passing none, some and all points; flash
    attention within 2e-5 in f32 and 2e-2 in bf16, causal and not,
-   sq != sk, MHA, GQA and MQA, dh in {32, 64, 128, 256}); then the ops
+   sq != sk, MHA, GQA and MQA, dh in {32, 64, 128, 256}; each line names
+   the body that ran, ``mma.sync`` bf16 or FMA f32, with its registers
+   and local-memory bytes); then the ops
    once each at full width, counts reset before and read after: ADC and
    two-step at SIFT1M geometry (1M uint8 rows, one query's LUT, 2 fast
    codebooks, the threshold at the crude 0.3% quantile), flash attention
@@ -885,7 +890,8 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
         bound_by=b_by, library_ms=lib_ms)
     log(f"kernel kmeans_assign n={n} L={L} d={d}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), two-call "
-        f"library yardstick argmin(addmm) {lib_ms:.4f} ms; ids equal on "
+        f"library yardstick argmin(addmm) {lib_ms:.4f} ms (kernel / "
+        f"library {ms / lib_ms:.3f}); ids equal on "
         f"{same:.6f} of points ({clear} with a clear nearest), "
         f"max_abs_err {err}")
     return records
@@ -1013,8 +1019,11 @@ def time_encode_chunk(x, C, iters: int):
     """``kmeans_assign`` (against one codebook, L = m, as the PQ warm
     start calls it) and the ICM kernel at one encode chunk, the shape at
     which the encode and add windows launch them: kernel times in a CUDA
-    graph, plain and library times eager (CUDA events).  Printed only;
-    the records keep the whole-problem shapes."""
+    graph, plain times eager and the library yardstick both in a graph
+    and eager (CUDA events).  At this shape the wrapper splits the
+    centroid axis (split-L): the split launch must equal the unsplit one
+    bit for bit and agree with the plain version (``compare_assign``).
+    Times printed only; the records keep the whole-problem shapes."""
     import torch
     from repro_torch.api import ICQConfig
     from repro_torch.core.encode import encode_pq
@@ -1024,16 +1033,37 @@ def time_encode_chunk(x, C, iters: int):
     K, m, d = C.shape
     xc, cent = x[:chunk].contiguous(), C[0].contiguous()
     csq = cent.square().sum(1)
+    split = km.plan(chunk, m, d)[2]
+    got = km.kmeans_assign_cuda(xc, cent)
+    one = km.kmeans_assign_cuda(xc, cent, _split=1)
+    want = km.kmeans_assign_torch(xc, cent)
+    torch.cuda.synchronize()
+    same = equal_outputs(got, one)
+    ok, err, share, clear = compare_assign(got, want, xc, cent)
+    log(f"mode kmeans_assign n={chunk} L={m} d={d}: split into {split} "
+        f"centroid slices, equal bit for bit to the unsplit launch: "
+        f"{same}; against the plain version ids equal on {share:.6f} of "
+        f"points ({clear} with a clear nearest), max_abs_err {err}")
+    check(split > 1 and same, f"kmeans_assign split ({split} slices) != "
+                              "unsplit at the warm start's shape")
+    check(ok, "kmeans_assign (split) disagrees with its plain version "
+              "beyond the stated tolerance at the warm start's shape")
     ms = graph_ms(lambda: km.kmeans_assign_cuda(xc, cent))
+    one_ms = graph_ms(lambda: km.kmeans_assign_cuda(xc, cent, _split=1))
     plain_ms = time_ms(lambda: km.kmeans_assign_torch(xc, cent), 20)
-    lib_ms = time_ms(lambda: torch.argmin(
-        torch.addmm(csq, xc, cent.T, alpha=-2.0), 1), 20)
+
+    def library():
+        return torch.argmin(torch.addmm(csq, xc, cent.T, alpha=-2.0), 1)
+
+    lib_graph_ms = graph_ms(library)
+    lib_ms = time_ms(library, 20)
     b_ms, b_by = bound_ms((chunk * d + m * d + m) * 4 + chunk * 8,
                           2 * chunk * m * d)
     log(f"kernel kmeans_assign n={chunk} L={m} d={d} (one warm-start "
-        f"launch): {ms:.5f} ms (CUDA graph), plain {plain_ms:.5f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by}), two-call library yardstick "
-        f"argmin(addmm) {lib_ms:.5f} ms")
+        f"launch): {ms:.5f} ms (CUDA graph; {one_ms:.5f} ms unsplit), "
+        f"plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms ({b_by}), two-call "
+        f"library yardstick argmin(addmm) {lib_graph_ms:.5f} ms (CUDA "
+        f"graph), {lib_ms:.5f} ms eager")
     init = encode_pq(xc, C)
     ms = graph_ms(lambda: icm.icm_encode_cuda(xc, init, C, iters=iters), 10)
     plain_ms = time_ms(lambda: icm.icm_encode_torch(xc, init, C,
@@ -1188,6 +1218,15 @@ def flash_tolerance(dtype) -> float:
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
+def flash_body(dtype, dh) -> str:
+    """The flash body that runs for ``dtype`` and ``dh``: its path, and
+    its registers and local-memory (spill) bytes per thread."""
+    from repro_torch.kernels import flash_attention as fa
+    a = fa.kernel_attributes(dtype, dh)
+    return (f"{a['path']}, {a['registers']} registers, "
+            f"{a['local_bytes']} B local per thread")
+
+
 def attention_operands(seed, b, sq, sk, H, KVH, dh, dtype):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1243,9 +1282,9 @@ def check_kernel_ops(seed: int):
                   and bool(torch.isclose(got.float(), want.float(), rtol=tol,
                                          atol=tol).all()))
             log(f"mode flash_attention b={b} sq={sq} sk={sk} H={H} KVH={KVH}"
-                f" dh={dh} causal={causal} {str(dtype).split('.')[-1]}: "
-                f"max_abs_err {err} (tolerance {tol}): "
-                f"{'within' if ok else 'OUTSIDE'}")
+                f" dh={dh} causal={causal} {str(dtype).split('.')[-1]} "
+                f"({flash_body(dtype, dh)}): max_abs_err {err} (tolerance "
+                f"{tol}): {'within' if ok else 'OUTSIDE'}")
             check(ok, f"flash_attention kernel != plain version {mode} "
                       f"{dtype}: max_abs_err {err}")
     log(f"phase 7 check launches: {read_launches()}")
@@ -1375,12 +1414,13 @@ def kernel_ops(seed: int, n: int):
                               if dtype == torch.bfloat16 else F32_OPS_PER_S)
         log(f"kernel flash_attention {name} b={w['b']} s={w['s']} H={w['H']}"
             f" KVH={w['KVH']} dh={w['dh']} causal "
-            f"{str(dtype).split('.')[-1]}: {ms:.4f} ms "
+            f"{str(dtype).split('.')[-1]} ({flash_body(dtype, w['dh'])}): "
+            f"{ms:.4f} ms "
             f"({nops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), library "
             f"scaled_dot_product_attention {lib_ms:.4f} ms "
-            f"({nops / lib_ms / 1e9:.2f} TFLOP/s); max_abs_err "
-            f"{err}, against SDPA {sdpa_err}")
+            f"({nops / lib_ms / 1e9:.2f} TFLOP/s), kernel / SDPA "
+            f"{ms / lib_ms:.2f}; max_abs_err {err}, against SDPA {sdpa_err}")
         # the record keeps the last, widest cell (llama3-405b, bf16)
         records["flash_attention"] = dict(
             name="flash_attention", route="cuda",

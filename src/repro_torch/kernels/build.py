@@ -61,7 +61,8 @@ SIGNATURES = {
     },
     "kmeans": {
         **_COMMON,
-        "icq_kmeans_assign": ([_P] * 5 + [_L, _I, _I, _P], _I),
+        "icq_kmeans_assign": ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
+        "icq_kmeans_plan": ([_L, _I, _I, _I, _P], _I),
     },
     "icm_encode": {
         **_COMMON,
@@ -76,6 +77,7 @@ SIGNATURES = {
     "flash_attention": {
         **_COMMON,
         "icq_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
+        "icq_flash_attention_attributes": ([_I, _I, _P, _P], _I),
     },
 }
 

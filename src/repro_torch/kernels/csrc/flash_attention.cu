@@ -11,7 +11,7 @@
 //   s    = NEG_INF = -1e30 where causal and q_pos < k_pos (top-left
 //          aligned, both counted from 0, also when sq != sk)
 //   m'   = max(m, max_j s);  corr = exp(m - m');  p = exp(s - m')
-//   l    = l * corr + sum_j p
+//   l    = l * corr + sum_j p                  (p unrounded)
 //   o    = o * corr + (p cast to v's type) . v     (f32 sums)
 // and out = o / max(l, 1e-30) cast to v's type.  Key tiles wholly above
 // the diagonal are skipped; key rows past sk (the ragged last tile) get
@@ -21,31 +21,69 @@
 // What bounds it on this card: operations.  Causal attention at s = 4096
 // does 4 dh H s (s + 1) / 2 operations: 0.55e12 for llama3-405b's 128
 // heads of 128 (0.56 ms at the 989 TFLOP/s of bf16 tensor cores) and
-// 0.07e12 for tinyllama's 32 heads of 64 (1.0 ms at 67 TFLOP/s f32),
-// against 0.3 GB and 0.08 GB of q, k, v and out.
+// 0.07e12 for tinyllama's 32 heads of 64 (0.07 ms in bf16, 1.0 ms at the
+// 67 TFLOP/s of f32 FMAs), against 0.3 GB and 0.08 GB of q, k, v and out.
 //
-// What the design does about it, in this first version:
+// Two bodies, chosen by the type; no runtime fallback between them.
+//
+// bf16: tensor cores (flash_mma_kernel), the FlashAttention-2 structure.
+//   * One block of 4 warps per (head, 64-query tile, batch); each warp
+//     owns 16 query rows.  blockIdx.x is the head, so the first wave
+//     holds every head's last query tile: the causal tiles with the most
+//     key tiles start first.
+//   * Both products are mma.sync m16n8k16 (bf16 in, f32 accumulate).
+//     The Q fragments are read once with ldmatrix and stay in registers
+//     (dh <= 128; at dh 256 they are re-read from shared memory each
+//     tile, so that the 128 f32 of O per thread stay in registers).  S
+//     comes from ldmatrix.x4 fragments of K and stays in its accumulator
+//     fragments; scale, masks and the online softmax run there (exp2 of
+//     log2-scaled scores, one MUFU instruction each), the row max and
+//     sum reducing over the quad that shares a row (shuffles 1 and 2).
+//     P is rounded to bf16 straight into the A fragments of P . V (an
+//     accumulator pair of m16n8 is an A-fragment pair of m16n8k16), so
+//     it never touches shared memory; l sums the unrounded p.  V is read
+//     with ldmatrix.x4.trans; O stays in f32 accumulators.
+//   * K and V stream through their own two-stage cp.async rings (16-byte
+//     copies; rows past sk zero-filled through the source-size operand):
+//     the next K tile loads during this tile's S and softmax, the next V
+//     tile during this tile's P . V, with two barriers per tile.  Shared
+//     rows are padded by 16 bytes, so the 8 row addresses of an ldmatrix
+//     fall in 8 distinct 16-byte bank groups.
+//   * Keys per tile: 64, and 32 at dh 256 (registers).  At dh 128 the Q
+//     tile is staged in V's second stage and the registers are capped at
+//     168, so three blocks (12 warps) share an SM instead of two; at dh
+//     64 a cap of 128 registers lets four share it instead of three.
+//     Both measured faster on the H100 despite small spills (60 and 8
+//     bytes).
+//   * What still bounds it: every warp reads the whole K and V tile
+//     through ldmatrix, so shared-memory reads take about as long as the
+//     mma.sync work, which itself reaches about a third of the bf16 peak;
+//     wgmma (operands read once per warpgroup) with TMA-fed rings is the
+//     next step.
+//
+// f32: f32 FMAs on the SIMT cores (flash_kernel), the first port's design.
 //   * One block of 256 threads per (64-query tile, head, batch); query
-//     tiles are visited from the last, so the causal tiles with the most
-//     key tiles start first.  The Q tile (f32, 64 x dh) stays in shared
-//     memory; each 64-key tile of K, then of V, is staged into one shared
-//     buffer (bf16 widened to f32 on the way in), read from the
-//     (b, s, heads, dh) layout with 16-byte loads: no repeat of K/V for
-//     GQA and no transposes.  Rows are padded by 4 floats, so the float4
-//     reads of 8 neighbouring lanes fall in distinct banks.
+//     tiles are visited from the last.  The Q tile (64 x dh) stays in
+//     shared memory; each 64-key tile of K, then of V, is staged into one
+//     shared buffer, read from the (b, s, heads, dh) layout with 16-byte
+//     loads: no repeat of K/V for GQA and no transposes.  Rows are padded
+//     by 4 floats, so the float4 reads of 8 neighbouring lanes fall in
+//     distinct banks.
 //   * Each thread holds a 4 x 4 tile of S (rows 4 ty + i, keys tx + 16 j)
-//     and a 4 x dh/16 tile of O, in registers; both products are f32 FMAs
-//     on the SIMT cores.  The row max and row sum reduce over the 16 lanes
-//     of a row group with shuffles; P goes through shared memory, cast to
-//     v's type first as the reference does.
-//   * f32 FMAs run at 67 TFLOP/s at most, so bf16 stays far from its
-//     tensor-core bound; mma.sync / wgmma, TMA and a pipelined K/V ring
-//     are left for later.
+//     and a 4 x dh/16 tile of O, in registers.  The row max and row sum
+//     reduce over the 16 lanes of a row group with shuffles; P goes
+//     through shared memory.  It keeps 2e-5 against the plain version,
+//     which TF32 tensor cores would not.
+#include <cstdint>
+
 #include <cuda_bf16.h>
 
 #include "search_common.cuh"
 
 namespace {
+
+// ------------------------------------------------------ f32: SIMT FMAs ----
+
 
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBKey = 64;     // keys per tile
@@ -67,16 +105,6 @@ struct Geometry {
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src,
-                                       float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
 // x rounded to T and back (the cast of p before the P . V product).
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
@@ -84,11 +112,6 @@ template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // VW f32 values at v stored as T at dst (VW * sizeof(T) aligned).
 template <int VW>
 __device__ __forceinline__ void store_vec(float* dst, const float* v) {
@@ -97,14 +120,6 @@ __device__ __forceinline__ void store_vec(float* dst, const float* v) {
   else
     *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
 }
-template <int VW>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* dst,
-                                          const float* v) {
-  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
-  d[0] = __floats2bfloat162_rn(v[0], v[1]);
-  if constexpr (VW == 4) d[1] = __floats2bfloat162_rn(v[2], v[3]);
-}
-
 // Stage rows [row0, row0 + 64) of one head into dst (64 x kLd f32); rows
 // at or past `rows` read 0.  src points at row 0 of the head; rows are
 // `stride` elements apart.
@@ -315,21 +330,347 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dh(int dh, const void* q, const void* k, const void* v,
-                void* out, int b, int sq, int sk, int H, int KVH,
-                float scale, bool causal, cudaStream_t s) {
-  switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                                  causal, s);
-    case 64: return launch<T, 64>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                                  causal, s);
-    case 128: return launch<T, 128>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                                    causal, s);
-    case 256: return launch<T, 256>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                                    causal, s);
-    default: return int(cudaErrorInvalidValue);
+
+// ------------------------------------------- bf16: mma.sync tensor cores ----
+
+constexpr int kMmaWarps = 4;                  // 16 query rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaBQ = 16 * kMmaWarps;        // query rows per block
+
+template <int DH>
+struct MmaGeometry {
+  static constexpr int kBK = DH >= 256 ? 32 : 64;   // keys per tile
+  static constexpr int kLd = DH + 8;                // bf16 row stride
+  static constexpr bool kQInRegs = DH <= 128;
+  // at dh 128 the Q tile is staged in V's second stage (read into
+  // registers before that stage is first filled) and the registers are
+  // capped at 168, so that three blocks share an SM; at dh 64 they are
+  // capped at 128, so that four do
+  static constexpr bool kQInV = DH == 128;
+  static constexpr int kMinBlocks = DH == 128 ? 3 : (DH == 64 ? 4 : 1);
+  static constexpr int kTile = kBK * kLd;           // one K or V stage
+  static constexpr size_t kSmem =
+      sizeof(__nv_bfloat16) *
+      ((kQInV ? 0 : size_t(kMmaBQ) * kLd) + 4 * size_t(kTile));
+  static_assert(!kQInV || (kQInRegs && kMmaBQ <= kBK), "Q fits one stage");
+};
+
+// 2^x in one MUFU instruction (no denormal handling: every x here is
+// <= 0, and a result that underflows adds nothing).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst; with src_bytes = 0 nothing is read and
+// dst is zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a . b over one m16 n8 k16 step, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 in one 32-bit register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// cp.async rows [row0, row0 + ROWS) of one head (rows `stride` elements
+// apart, src at row 0) into dst (ROWS x kLd); rows at or past `rows` are
+// zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile_async(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
+    int rows, long stride) {
+  constexpr int kChunks = DH / 8;                  // 16 bytes each
+  constexpr int kIters = ROWS * kChunks / kMmaThreads;
+  static_assert(ROWS * kChunks % kMmaThreads == 0, "whole passes");
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads;
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const bool ok = row0 + r < rows;
+    cp_async16(smem_addr(dst + r * MmaGeometry<DH>::kLd + c),
+               src + (ok ? long(row0 + r) * stride + c : 0), ok ? 16 : 0);
   }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, MmaGeometry<DH>::kMinBlocks)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ out, int sq, int sk, int H,
+                 int KVH, float scale, bool causal) {
+  using G = MmaGeometry<DH>;
+  constexpr int kBK = G::kBK, kLd = G::kLd;
+  constexpr int kKS = DH / 16;    // k-steps of S = Q . K^T
+  constexpr int kNT = kBK / 8;    // 8-key column tiles of S
+  constexpr int kPS = kBK / 16;   // k-steps of O += P . V
+  constexpr int kDT = DH / 8;     // 8-wide column tiles of O
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* k_sm = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* v_sm = k_sm + 2 * G::kTile;       // 2 stages each
+  __nv_bfloat16* q_sm = v_sm + (G::kQInV ? 1 : 2) * G::kTile;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // fragment row, column pair
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
+  const int q0 = (n_qt - 1 - int(blockIdx.y)) * kMmaBQ;
+  const int kvh = h / (H / KVH);
+  const long q_stride = long(H) * DH, kv_stride = long(KVH) * DH;
+  const __nv_bfloat16* q_head = q + long(b) * sq * q_stride + long(h) * DH;
+  const __nv_bfloat16* k_head =
+      k + long(b) * sk * kv_stride + long(kvh) * DH;
+  const __nv_bfloat16* v_head =
+      v + long(b) * sk * kv_stride + long(kvh) * DH;
+
+  // key tiles up to the one holding the tile's last row's own position
+  int n_kt = (sk + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (min(q0 + kMmaBQ, sq) - 1) / kBK + 1);
+
+  // per-lane ldmatrix offsets (elements): Q as A (rows lane % 16, column
+  // half lane / 16); K as B of two 8-key tiles (keys lane & 7 and + 8
+  // for lanes 16-31, column half bit 3 of the lane); V as B^T of two
+  // 8-column tiles (keys lane & 7 and + 8 for bit 3, column half lane /
+  // 16)
+  const int a_off = (warp * 16 + lane % 16) * kLd + (lane / 16) * 8;
+  const int k_off =
+      ((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8;
+  const int v_off =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + (lane >> 4) * 8;
+  const uint32_t q_a = smem_addr(q_sm) + 2 * a_off;
+  const uint32_t k_a = smem_addr(k_sm) + 2 * k_off;
+  const uint32_t v_a = smem_addr(v_sm) + 2 * v_off;
+
+  load_tile_async<DH, kMmaBQ>(q_sm, q_head, q0, sq, q_stride);
+  load_tile_async<DH, kBK>(k_sm, k_head, 0, sk, kv_stride);
+  cp_async_commit();
+  load_tile_async<DH, kBK>(v_sm, v_head, 0, sk, kv_stride);
+  cp_async_commit();
+
+  uint32_t qf[G::kQInRegs ? kKS : 1][4];
+  cp_async_wait<1>();     // Q and the first K tile
+  __syncthreads();
+  if constexpr (G::kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) ldmatrix_x4(qf[kk], q_a + 32 * kk);
+  }
+
+  const float sl2 = scale * 1.4426950408889634f;   // scores in log2 units
+  const int row_w = q0 + warp * 16;                // the warp's first row
+  const int rows[2] = {row_w + g, row_w + g + 8};
+  float o[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.0f, 0.0f};      // this lane's share of the row sum
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    const int st = kt & 1;
+    if (kt + 1 < n_kt)
+      load_tile_async<DH, kBK>(k_sm + (st ^ 1) * G::kTile, k_head,
+                               k0 + kBK, sk, kv_stride);
+    cp_async_commit();
+    cp_async_wait<2>();   // K tile kt
+    __syncthreads();
+
+    float s[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      uint32_t a[4];
+      if constexpr (G::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, q_a + 32 * kk);
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bb[4];
+        ldmatrix_x4(bb, k_a + 2 * (st * G::kTile + np * 16 * kLd + kk * 16));
+        mma_bf16(s[2 * np], a, bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+
+    // scale, mask and the online softmax on the accumulator fragments:
+    // element e of column tile nt is row rows[e / 2], key
+    // k0 + 8 nt + 2 t + e % 2
+    const bool mask = k0 + kBK > sk || (causal && k0 + kBK - 1 > row_w);
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * sl2;
+        if (mask) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          if (key >= sk)
+            x = -CUDART_INF_F;
+          else if (causal && rows[e >> 1] < key)
+            x = kNegInf;
+        }
+        s[nt][e] = x;
+        mt[e >> 1] = fmaxf(mt[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float m_new = fmaxf(m_run[i], mt[i]);
+      corr[i] = ex2(m_run[i] - m_new);
+      m_run[i] = m_new;
+      l_run[i] *= corr[i];
+    }
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt) {
+      o[dt][0] *= corr[0];
+      o[dt][1] *= corr[0];
+      o[dt][2] *= corr[1];
+      o[dt][3] *= corr[1];
+    }
+    // P as the A fragments of P . V: k-step j takes column tiles 2j and
+    // 2j + 1, (rows g, g + 8) each
+    uint32_t pf[kPS][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float p0 = ex2(s[nt][0] - m_run[0]);
+      const float p1 = ex2(s[nt][1] - m_run[0]);
+      const float p2 = ex2(s[nt][2] - m_run[1]);
+      const float p3 = ex2(s[nt][3] - m_run[1]);
+      l_run[0] += p0 + p1;
+      l_run[1] += p2 + p3;
+      pf[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
+      pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    if (kt + 1 < n_kt)
+      load_tile_async<DH, kBK>(v_sm + (st ^ 1) * G::kTile, v_head,
+                               k0 + kBK, sk, kv_stride);
+    cp_async_commit();
+    cp_async_wait<2>();   // V tile kt
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < kPS; ++kk)
+#pragma unroll
+      for (int nd = 0; nd < kDT / 2; ++nd) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, v_a + 2 * (st * G::kTile + kk * 16 * kLd +
+                                         nd * 16));
+        mma_bf16(o[2 * nd], pf[kk], bb[0], bb[1]);
+        mma_bf16(o[2 * nd + 1], pf[kk], bb[2], bb[3]);
+      }
+  }
+
+  __nv_bfloat16* out_head =
+      out + long(b) * sq * q_stride + long(h) * DH;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (rows[i] >= sq) continue;
+    const float den = fmaxf(l, 1e-30f);
+    __nv_bfloat16* dst = out_head + long(rows[i]) * q_stride + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
+          __floats2bfloat162_rn(__fdiv_rn(o[dt][2 * i], den),
+                                __fdiv_rn(o[dt][2 * i + 1], den));
+  }
+}
+
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               int b, int sq, int sk, int H, int KVH, float scale,
+               bool causal, cudaStream_t stream) {
+  auto kernel = flash_mma_kernel<DH>;
+  const size_t smem = MmaGeometry<DH>::kSmem;
+  const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
+  if (n_qt > 65535) return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(n_qt),
+                  static_cast<unsigned>(b));
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), sq, sk, H, KVH, scale, causal);
+  return int(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ dispatch ----
+
+template <int DH>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 void* out, int b, int sq, int sk, int H, int KVH,
+                 float scale, bool causal, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, DH>(q, k, v, out, b, sq, sk, H, KVH, scale,
+                             causal, s);
+  if (dtype == 1)
+    return launch_mma<DH>(q, k, v, out, b, sq, sk, H, KVH, scale, causal,
+                          s);
+  return int(cudaErrorInvalidValue);
+}
+
+template <int DH>
+cudaError_t attributes(int dtype, cudaFuncAttributes* attr) {
+  if (dtype == 0) return cudaFuncGetAttributes(attr, flash_kernel<float, DH>);
+  if (dtype == 1) return cudaFuncGetAttributes(attr, flash_mma_kernel<DH>);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -337,10 +678,10 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
 extern "C" {
 
 // q (b, sq, H, dh), k / v (b, sk, KVH, dh), out (b, sq, H, dh), all of
-// one type: dtype 0 = f32, 1 = bf16; every pointer 16-byte aligned.
-// dh in {32, 64, 128, 256}, H a multiple of KVH, b and H at most 65535.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for another shape
-// or type.
+// one type: dtype 0 = f32 (FMA body), 1 = bf16 (tensor-core body); every
+// pointer 16-byte aligned.  dh in {32, 64, 128, 256}, H a multiple of
+// KVH, b and H at most 65535.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another shape or type.
 int icq_flash_attention(const void* q, const void* k, const void* v,
                         void* out, int dtype, int b, int sq, int sk, int H,
                         int KVH, int dh, float scale, int causal,
@@ -349,13 +690,37 @@ int icq_flash_attention(const void* q, const void* k, const void* v,
       b > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k, v, out, b, sq, sk, H, KVH, scale,
-                              causal != 0, s);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, out, b, sq, sk, H, KVH,
-                                      scale, causal != 0, s);
-  return int(cudaErrorInvalidValue);
+  const bool c = causal != 0;
+  switch (dh) {
+    case 32: return launch_dtype<32>(dtype, q, k, v, out, b, sq, sk, H, KVH,
+                                     scale, c, s);
+    case 64: return launch_dtype<64>(dtype, q, k, v, out, b, sq, sk, H, KVH,
+                                     scale, c, s);
+    case 128: return launch_dtype<128>(dtype, q, k, v, out, b, sq, sk, H,
+                                       KVH, scale, c, s);
+    case 256: return launch_dtype<256>(dtype, q, k, v, out, b, sq, sk, H,
+                                       KVH, scale, c, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The registers per thread and local-memory bytes per thread (spills and
+// local arrays) of the body that runs for dtype and dh.
+int icq_flash_attention_attributes(int dtype, int dh, int* regs,
+                                   int* local_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t e;
+  switch (dh) {
+    case 32: e = attributes<32>(dtype, &attr); break;
+    case 64: e = attributes<64>(dtype, &attr); break;
+    case 128: e = attributes<128>(dtype, &attr); break;
+    case 256: e = attributes<256>(dtype, &attr); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return int(e);
+  *regs = attr.numRegs;
+  *local_bytes = int(attr.localSizeBytes);
+  return 0;
 }
 
 }  // extern "C"

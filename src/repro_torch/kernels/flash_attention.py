@@ -11,9 +11,13 @@ the mask is the reference's finite ``NEG_INF`` where ``q_pos < k_pos``,
 top-left aligned (both counted from 0, also when sq != sk); the softmax
 weights are cast to v's type before the P . V product (f32 sums), and
 the output is ``o / max(l, 1e-30)``.  The kernel keeps a running max
-and sum over 64-key tiles and skips tiles above the diagonal; the plain
+and sum over key tiles and skips tiles above the diagonal; the plain
 version takes each head's full softmax at once.  They agree to rounding:
 2e-5 in f32 and 2e-2 in bf16, the reference's own tolerances.
+
+The type picks the kernel's body (``PATHS``): bf16 runs both products on
+the tensor cores (``mma.sync`` m16n8k16, f32 accumulate), f32 runs f32
+FMAs on the SIMT cores; neither falls back to the other.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)       # the kernel's compiled head widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PATHS = {torch.float32: "FMA f32", torch.bfloat16: "mma.sync bf16"}
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -101,3 +106,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                            f"{lib.icq_error_string(err).decode()}")
     build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def kernel_attributes(dtype: torch.dtype, dh: int) -> dict:
+    """The body that runs for ``dtype`` and ``dh``: its path (``PATHS``),
+    registers per thread and local-memory bytes per thread (spills and
+    local arrays), as ``cudaFuncGetAttributes`` reports them."""
+    if dtype not in DTYPES or dh not in HEAD_DIMS:
+        raise ValueError(f"no kernel for {dtype} at head dim {dh}")
+    lib = build.library("flash_attention")
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib.icq_flash_attention_attributes(
+        DTYPES[dtype], dh, ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        raise RuntimeError("flash_attention attributes failed: "
+                           f"{lib.icq_error_string(err).decode()}")
+    return dict(path=PATHS[dtype], registers=regs.value,
+                local_bytes=local.value)

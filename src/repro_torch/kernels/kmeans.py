@@ -10,6 +10,11 @@ minimum and ``dist = min + ||x||^2``.  The kernel sums its dot products
 in its own order, so it equals the plain version to rounding, not bit
 for bit: ids agree wherever the two nearest scores are further apart
 than that rounding.
+
+Where the kernel's 128-point tiles alone would not fill the card, it
+splits the centroid axis into slices and a second launch reduces them
+(``plan``, which the CUDA source decides); a score does not depend on
+the tiling, so the split output equals the unsplit one bit for bit.
 """
 from __future__ import annotations
 
@@ -51,9 +56,27 @@ def _check_matrix(t: torch.Tensor, name: str, d=None):
         raise ValueError(f"{name} has {t.shape[1]} columns, expected {d}")
 
 
-def kmeans_assign_cuda(x: torch.Tensor, cent: torch.Tensor):
+def plan(n: int, L: int, d: int, split: int = 0):
+    """The kernel's tiling of one call, as ``csrc/kmeans.cu`` decides
+    it: ``(Lp, dp, S)``, L and d padded to its tiles and S centroid
+    slices.  ``split`` >= 1 asks for that many slices (lowered so that
+    none is empty); 0 lets the kernel choose for the current device."""
+    lib = build.library("kmeans")
+    out = (ctypes.c_int * 3)()
+    err = lib.icq_kmeans_plan(n, L, d, split, out)
+    if err:
+        raise ValueError(f"no kmeans_assign plan for n={n} L={L} d={d} "
+                         f"split={split} (split lies in [0, ceil(L / "
+                         f"128)]): {lib.icq_error_string(err).decode()}")
+    return tuple(out)
+
+
+def kmeans_assign_cuda(x: torch.Tensor, cent: torch.Tensor, *,
+                       _split: int = None):
     """Launch the assignment kernel; same operands and outputs as
-    ``kmeans_assign_torch``."""
+    ``kmeans_assign_torch``.  ``_split`` forces the number of centroid
+    slices (tests hold split against unsplit launches); by default
+    the kernel chooses it from n (``plan``)."""
     x, cent = _widen(x), _widen(cent)
     _check_matrix(x, "x")
     _check_matrix(cent, "cent", x.shape[1])
@@ -65,14 +88,22 @@ def kmeans_assign_cuda(x: torch.Tensor, cent: torch.Tensor):
         raise ValueError(f"empty operand: x {tuple(x.shape)}, "
                          f"cent {tuple(cent.shape)}")
     lib = build.library("kmeans")
+    Lp, dp, split = plan(n, L, d, 0 if _split is None else _split)
+
+    def scratch(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    # ||c||^2 is the plain version's own sum, so that scores (and the
+    # k-means built on them) do not depend on which side computed it
     csq = _centroid_sq_norms(cent).contiguous()
-    ids = torch.empty((n,), dtype=torch.int32, device=x.device)
-    dist = torch.empty((n,), dtype=torch.float32, device=x.device)
+    cent_t = scratch((dp, Lp))
+    parts = ((scratch((split, n)), scratch((split, n), torch.int32),
+              scratch((n,))) if split > 1 else (None, None, None))
+    ids, dist = scratch((n,), torch.int32), scratch((n,))
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    err = lib.icq_kmeans_assign(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(cent.data_ptr()),
-        ctypes.c_void_p(csq.data_ptr()), ctypes.c_void_p(ids.data_ptr()),
-        ctypes.c_void_p(dist.data_ptr()), n, L, d, stream)
+    ptr = [ctypes.c_void_p(None if t is None else t.data_ptr())
+           for t in (x, cent, csq, cent_t, *parts, ids, dist)]
+    err = lib.icq_kmeans_assign(*ptr, n, L, d, split, stream)
     if err:
         raise RuntimeError("kmeans_assign kernel launch failed: "
                            f"{lib.icq_error_string(err).decode()}")

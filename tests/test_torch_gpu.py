@@ -233,6 +233,14 @@ FLASH_CASES = [
     (1, 330, 200, 4, 1, 128, True),     # ragged, sq > sk, MQA
     (2, 100, 77, 6, 3, 128, False),
     (1, 300, 300, 2, 1, 256, True),     # dh 256
+    # bf16 runs the tensor-core body (64-key tiles, 32 at dh 256): key
+    # lengths off the tile, causal with sq > sk, MQA, at every head width
+    (1, 257, 100, 4, 1, 32, True),      # causal, sq > sk, MQA
+    (1, 96, 161, 8, 1, 64, False),      # MQA, sk off the tile
+    (1, 1000, 1000, 8, 8, 64, True),    # many causal tiles, ragged
+    (1, 80, 1000, 4, 1, 128, False),    # many key tiles, MQA
+    (1, 130, 77, 4, 2, 256, True),      # causal, sq > sk, GQA
+    (2, 64, 97, 4, 1, 256, False),      # MQA, sk off the 32-key tile
 ]
 
 
@@ -271,3 +279,33 @@ def test_cuda_kmeans_assign_takes_bf16():
     want = km.kmeans_assign_cuda(x.float(), cent.float())
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,L", [(8192, 256), (10007, 1024)])
+def test_cuda_kmeans_assign_split_equals_unsplit(n, L):
+    """Split-L launches (the centroid axis in S slices, reduced by a
+    second launch) equal the unsplit launch bit for bit, at the PQ warm
+    start's 8192 x 256 and at a ragged n, for every S; with a centroid
+    duplicated across slices, the first index wins in every split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import kmeans as km
+    rng = np.random.default_rng(n + L)
+    x = torch.from_numpy(rng.standard_normal((n, 128)).astype(
+        np.float32)).cuda()
+    cent = torch.from_numpy(rng.standard_normal((L, 128)).astype(
+        np.float32)).cuda()
+    dup = L - 24                         # in the last 128-centroid tile
+    cent[dup] = cent[5]
+    x[:9] = cent[5]                      # exact ties between 5 and dup
+    want = km.kmeans_assign_cuda(x, cent, _split=1)
+    torch.cuda.synchronize()
+    assert bool((want[0][:9] == 5).all())
+    assert not bool((want[0] == dup).any())
+    n_ct = -(-L // 128)
+    for split in [None, *range(2, n_ct + 1)]:
+        got = km.kmeans_assign_cuda(x, cent, _split=split)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), split
+        assert torch.equal(got[1], want[1]), split

@@ -225,3 +225,41 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention.flash_attention_cuda(*qkv)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.adc(c.to("meta"), lt.to("meta"))
+
+
+@pytest.mark.parametrize("n,L", [
+    (8192, 256),              # the PQ warm start's chunk
+    (10_007, 1024),
+    (20_011, 301),
+    (5003, 97),               # one 128-centroid tile
+    (1000, 1024),
+    (8960, 640),
+    (129, 129),               # one past a tile on both axes
+    (1, 130),
+])
+def test_kmeans_assign_matches_reference_across_tiles(n, L):
+    """``ops.kmeans_assign`` on CPU tensors (the plain version) against
+    the reference's jnp assignment at shapes on and off the CUDA
+    kernel's 128 x 128 tiles: ids equal wherever the two nearest scores
+    are apart by more than 1e-5 of the terms' size, distances to rtol
+    1e-5 plus an atol of 1e-6 of it.  The first centroid is duplicated
+    as the last and is the first point: that tie is not clear, because
+    the CPU's matmul may round two equal columns apart (it does at n =
+    1), so only its distance is checked."""
+    rng = np.random.default_rng(n + L)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    cent = rng.standard_normal((L, 16)).astype(np.float32)
+    cent[-1] = cent[0]
+    x[:1] = cent[0]
+    ids, dist = ops.kmeans_assign(torch.from_numpy(x),
+                                  torch.from_numpy(cent))
+    want_i, want_d = (np.asarray(a) for a in ref.kmeans_assign_ref(
+        jnp.asarray(x), jnp.asarray(cent)))
+    size = float((x ** 2).sum(1).max() + (cent ** 2).sum(1).max())
+    scores = (cent ** 2).sum(1)[None] - 2.0 * x.astype(np.float64) @ cent.T
+    two = np.sort(scores, axis=1)[:, :2]
+    clear = two[:, 1] - two[:, 0] > 1e-5 * size
+    assert ids.dtype == torch.int32 and dist.dtype == torch.float32
+    np.testing.assert_array_equal(ids.numpy()[clear], want_i[clear])
+    np.testing.assert_allclose(dist.numpy(), want_d, rtol=1e-5,
+                               atol=1e-6 * size)
