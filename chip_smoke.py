@@ -18,7 +18,8 @@ or outside a checkout of the repository.  Phases:
    or off and flat refine {8, 4 bit}, with duplicated code rows (exact
    ties); slab crude {f32, int8} x {8, 4 bit} and slab refine {8, 4
    bit} with many survivors and with fewer than topk, on slabs with -1
-   holes, duplicated rows and one query slab thinner than topk; and
+   holes, duplicated rows and one query slab thinner than topk; every
+   one of them again at topk = 257 and 2048 (past the chunk); and
    ``kmeans_assign`` (L = 8193 centroids, one duplicated) against its
    plain version: ids equal wherever the two nearest scores are apart
    by more than 1e-5 of the terms' size, distances to rtol 1e-5;
@@ -48,7 +49,9 @@ or outside a checkout of the repository.  Phases:
    codes) + noise`` (codes equal on >= 99.9% of rows, reconstruction MSE
    to rtol 1e-5), the first index winning when every codeword is
    duplicated, the same codes per row in a permuted row order, its time
-   beside its bound; ``encode_database`` of all points (launch counts
+   beside its bound; all of it first at GIST1M's d = 960 on 100k
+   points (the target and recon tiles staged through global scratch);
+   ``encode_database`` of all points (launch counts
    reset before, read after), equal to a direct ``icm_encode``; then a
    two-step and an IVF index built from the first 90% of the points
    grow by the rest through ``AnnEngine.add`` (counts reset before, read
@@ -129,6 +132,13 @@ ATTENTION = (("tinyllama-1.1b", dict(b=1, s=4096, H=32, KVH=4, dh=64),
               ("bfloat16",)))
 # the served cells' pass rate: the two-step threshold at this quantile
 PASS_QUANTILE = 0.003
+# phase 2 also checks each search mode at these k: past the 256 that
+# the card once capped, and past the 1024-point chunk
+LARGE_TOPK = (257, 2048)
+# phase 6 also encodes at GIST1M's width (d = 960, a standard benchmark
+# of the paper's field; past the 256 dimensions that the ICM kernel
+# keeps resident), on 100k points
+WIDE_ICM = dict(n=100_000, d=960)
 
 
 class SmokeFailure(RuntimeError):
@@ -245,38 +255,41 @@ def check_modes(seed: int):
             lut_flat, sc, of = crude_lut_operands(
                 luts, fast, quantized=lut_dtype == "int8",
                 code_bits=code_bits)
-            for want_crude in (True, False):
-                got = bs.crude_topk_cuda(stored, lut_flat, TOPK, sc, of,
+            for topk, want_crude in ((TOPK, True), (TOPK, False),
+                                     *((k, True) for k in LARGE_TOPK)):
+                got = bs.crude_topk_cuda(stored, lut_flat, topk, sc, of,
                                          want_crude=want_crude,
                                          code_bits=code_bits)
-                want = bs.crude_topk_torch(stored, lut_flat, TOPK, sc, of,
+                want = bs.crude_topk_torch(stored, lut_flat, topk, sc, of,
                                            want_crude=want_crude,
                                            code_bits=code_bits)
                 torch.cuda.synchronize()
                 ok = equal_outputs(got, want)
-                log(f"mode crude {lut_dtype} {code_bits}-bit "
+                log(f"mode crude {lut_dtype} {code_bits}-bit topk={topk} "
                     f"want_crude={want_crude}: "
                     f"{'equal' if ok else 'DIFFERENT'}")
                 check(ok, f"crude kernel != plain version ({lut_dtype}, "
-                          f"{code_bits}-bit, want_crude={want_crude})")
+                          f"{code_bits}-bit, topk={topk}, "
+                          f"want_crude={want_crude})")
         lut_fast, _, _ = crude_lut_operands(luts, fast, quantized=False,
                                             code_bits=code_bits)
         crude = bs.crude_topk_torch(stored, lut_fast, TOPK,
                                     code_bits=code_bits)[0]
         lut_slow = slow_lut_operand(luts, fast, code_bits=code_bits)
         ranked = torch.sort(crude, dim=1).values
-        for rank in (5000, 30):   # many survivors; fewer than topk
+        for topk, rank in ((TOPK, 5000), (TOPK, 30),   # many; < topk
+                           *((k, 5000) for k in LARGE_TOPK)):
             thr = ranked[:, rank].contiguous()
-            got = bs.refine_topk_cuda(stored, lut_slow, crude, thr, TOPK,
+            got = bs.refine_topk_cuda(stored, lut_slow, crude, thr, topk,
                                       code_bits=code_bits)
-            want = bs.refine_topk_torch(stored, lut_slow, crude, thr, TOPK,
+            want = bs.refine_topk_torch(stored, lut_slow, crude, thr, topk,
                                         code_bits=code_bits)
             torch.cuda.synchronize()
             ok = equal_outputs(got, want)
-            log(f"mode refine {code_bits}-bit survivors/query~{rank}: "
-                f"{'equal' if ok else 'DIFFERENT'}")
+            log(f"mode refine {code_bits}-bit topk={topk} "
+                f"survivors/query~{rank}: {'equal' if ok else 'DIFFERENT'}")
             check(ok, f"refine kernel != plain version ({code_bits}-bit, "
-                      f"threshold at rank {rank})")
+                      f"topk={topk}, threshold at rank {rank})")
 
 
 def slab_problem(seed, nq, nc, K, m, d, num_fast):
@@ -317,37 +330,40 @@ def check_slab_modes(seed: int):
             lut_flat, sc, of = crude_lut_operands(
                 luts, fast, quantized=lut_dtype == "int8",
                 code_bits=code_bits)
-            got = bs.ivf_crude_topk_cuda(stored, ids, lut_flat, TOPK, sc, of,
-                                         code_bits=code_bits)
-            want = bs.ivf_crude_topk_torch(stored, ids, lut_flat, TOPK, sc,
-                                           of, code_bits=code_bits)
-            torch.cuda.synchronize()
-            ok = equal_outputs(got, want)
-            thin = bool(torch.isinf(got[1][1, TOPK // 3:]).all())
-            log(f"mode ivf_crude {lut_dtype} {code_bits}-bit: "
-                f"{'equal' if ok else 'DIFFERENT'}; thin slab's +inf tail: "
-                f"{thin}")
-            check(ok and thin, f"slab crude kernel != plain version "
-                               f"({lut_dtype}, {code_bits}-bit)")
+            for topk in (TOPK, *LARGE_TOPK):
+                got = bs.ivf_crude_topk_cuda(stored, ids, lut_flat, topk, sc,
+                                             of, code_bits=code_bits)
+                want = bs.ivf_crude_topk_torch(stored, ids, lut_flat, topk,
+                                               sc, of, code_bits=code_bits)
+                torch.cuda.synchronize()
+                ok = equal_outputs(got, want)
+                thin = bool(torch.isinf(got[1][1, TOPK // 3:]).all())
+                log(f"mode ivf_crude {lut_dtype} {code_bits}-bit "
+                    f"topk={topk}: {'equal' if ok else 'DIFFERENT'}; thin "
+                    f"slab's +inf tail: {thin}")
+                check(ok and thin, f"slab crude kernel != plain version "
+                                   f"({lut_dtype}, {code_bits}-bit, "
+                                   f"topk={topk})")
         lut_fast, _, _ = crude_lut_operands(luts, fast, quantized=False,
                                             code_bits=code_bits)
         crude = bs.ivf_crude_topk_torch(stored, ids, lut_fast, TOPK,
                                         code_bits=code_bits)[0]
         lut_slow = slow_lut_operand(luts, fast, code_bits=code_bits)
         ranked = torch.sort(crude, dim=1).values
-        for rank in (2000, 30):   # many survivors; fewer than topk
+        for topk, rank in ((TOPK, 2000), (TOPK, 30),   # many; < topk
+                           *((k, 2000) for k in LARGE_TOPK)):
             thr = ranked[:, rank].contiguous()
             thr[1] = ranked[1, 2]                  # the thin slab
-            got = bs.ivf_refine_topk_cuda(stored, lut_slow, crude, thr, TOPK,
+            got = bs.ivf_refine_topk_cuda(stored, lut_slow, crude, thr, topk,
                                           code_bits=code_bits)
             want = bs.ivf_refine_topk_torch(stored, lut_slow, crude, thr,
-                                            TOPK, code_bits=code_bits)
+                                            topk, code_bits=code_bits)
             torch.cuda.synchronize()
             ok = equal_outputs(got, want)
-            log(f"mode ivf_refine {code_bits}-bit survivors/query~{rank}: "
-                f"{'equal' if ok else 'DIFFERENT'}")
+            log(f"mode ivf_refine {code_bits}-bit topk={topk} "
+                f"survivors/query~{rank}: {'equal' if ok else 'DIFFERENT'}")
             check(ok, f"slab refine kernel != plain version ({code_bits}-"
-                      f"bit, threshold at rank {rank})")
+                      f"bit, topk={topk}, threshold at rank {rank})")
 
 
 def compare_assign(got, want, x, cent):
@@ -931,12 +947,12 @@ def ivf_cells(seed, n, batches, workdir, profile_dir=None):
 
 # ------------------------------------------- phase 6: encode and grow ----
 
-def encode_problem(seed: int, n: int):
-    """SIFT1M-width points on the card: x = decode(C, random codes) +
-    0.1 noise, C (8, 256, 128) random codebooks."""
+def encode_problem(seed: int, n: int, d: int = SIFT["d"]):
+    """Points on the card: x = decode(C, random codes) + 0.1 noise, C
+    (8, 256, d) random codebooks (SIFT1M's d = 128 unless given)."""
     import torch
     from repro_torch.core.codebooks import decode
-    K, m, d = SIFT["K"], SIFT["m"], SIFT["d"]
+    K, m = SIFT["K"], SIFT["m"]
     g = torch.Generator(device="cuda").manual_seed(seed + 300)
     C = torch.randn((K, m, d), generator=g, device="cuda") / K ** 0.5
     codes = torch.randint(0, m, (n, K), generator=g, device="cuda")
@@ -1065,6 +1081,7 @@ def time_encode_chunk(x, C, iters: int):
         f"library yardstick argmin(addmm) {lib_graph_ms:.5f} ms (CUDA "
         f"graph), {lib_ms:.5f} ms eager")
     init = encode_pq(xc, C)
+    grid = icm.plan(chunk, K, m, d, iters)["grid"]
     ms = graph_ms(lambda: icm.icm_encode_cuda(xc, init, C, iters=iters), 10)
     plain_ms = time_ms(lambda: icm.icm_encode_torch(xc, init, C,
                                                     iters=iters), 3)
@@ -1072,8 +1089,9 @@ def time_encode_chunk(x, C, iters: int):
     b_ms, b_by = bound_ms(chunk * d * 4 + 2 * chunk * K * 4
                           + K * m * d * 4 + K * m * 4, ops)
     log(f"kernel icm_encode n={chunk} K={K} m={m} d={d} iters={iters} (one "
-        f"encode launch): {ms:.5f} ms (CUDA graph), plain {plain_ms:.5f} "
-        f"ms, bound {b_ms:.5f} ms ({b_by})")
+        f"encode launch): {ms:.5f} ms (CUDA graph; {grid} CTAs; "
+        f"{ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.5f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
 
 
 def encode_window(x, C, iters: int):
@@ -1186,6 +1204,9 @@ def encode_and_grow(seed: int, n: int, workdir):
     """Phase 6.  Returns (the launches of the encode and add windows, the
     icm_encode record)."""
     iters = ICM_ITERS
+    xw, Cw = encode_problem(seed + 1, min(n, WIDE_ICM["n"]), WIDE_ICM["d"])
+    check_icm(xw, Cw, seed + 1, iters)        # printed, not recorded
+    del xw, Cw
     x, C = encode_problem(seed, n)
     record = check_icm(x, C, seed, iters)
     time_encode_chunk(x, C, iters)

@@ -21,12 +21,17 @@ beside its plain PyTorch version.
 
 Every top-k is in ascending (distance, column) order, the reference's
 two-key order, where the column is the global index (flat) or the slab
-position (IVF).  ``*_torch`` are the plain versions: the same sums in
-the same order (codebooks in order from 0.0, dequant as two roundings),
-so on the same inputs kernel and plain version agree bit for bit.
+position (IVF).  Any ``1 <= topk <= n`` (flat) or ``<= nc`` (slab) is
+served, on the card as on the CPU.  ``*_torch`` are the plain versions:
+the same sums in the same order (codebooks in order from 0.0, dequant
+as two roundings), so on the same inputs kernel and plain version agree
+bit for bit.
 ``*_cuda`` check their operands, allocate the outputs, launch on the
 current stream without synchronising, count the launch in
-``build.LAUNCHES`` and raise if the launch failed.
+``build.LAUNCHES`` and raise if the launch failed.  Each kernel writes
+sorted candidate lists per query (the crude kernel one per block, the
+others one per 1024-point chunk); ``_merge_lists`` merges them two by
+two down to the top-k.
 """
 from __future__ import annotations
 
@@ -38,12 +43,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.stages import (check_quantized_args,
                                         resolve_kernel_code_bits,
                                         topk_two_key, unpack_nibble_tile)
-
-# each merge level cuts a query's candidate list from L to about
-# L * topk / chunk (chunk = 1024 points per block), so topk is bounded
-# well below the chunk
-MAX_TOPK = 256
-
 
 # ------------------------------------------------------- plain versions ----
 
@@ -78,9 +77,9 @@ def _slab_lut_sum(cols: torch.Tensor, lut_flat: torch.Tensor, K: int,
 
 
 def _check_slab_topk(nc: int, topk: int):
-    _check(1 <= topk <= min(MAX_TOPK, nc),
-           f"topk={topk} must be in [1, min({MAX_TOPK}, nc={nc})]; "
-           "gather_candidates pads the slab to >= topk columns")
+    _check(1 <= topk <= nc,
+           f"topk={topk} must be in [1, nc={nc}]; gather_candidates pads "
+           "the slab to >= topk columns")
 
 
 def crude_topk_torch(codes, lut_flat, topk: int, lut_scale=None,
@@ -175,14 +174,13 @@ def _check_codes(codes: torch.Tensor, ndim: int):
     _check(codes.dtype == torch.uint8,
            f"the CUDA search kernels take uint8 code rows, got "
            f"{codes.dtype}; wider codes (m > 256) are still to be ported "
-           "(ROADMAP.md, queue 1)")
+           "(ROADMAP.md, queue 1, item 13)")
     _check(codes.ndim == ndim and codes.is_contiguous(),
            f"codes must be a contiguous {ndim}-d tensor")
 
 
 def _check_flat_topk(n: int, topk: int):
-    _check(1 <= topk <= min(MAX_TOPK, n),
-           f"topk={topk} must be in [1, min({MAX_TOPK}, n={n})]")
+    _check(1 <= topk <= n, f"topk={topk} must be in [1, n={n}]")
 
 
 def _check_operand(t: torch.Tensor, name: str, shape, dtype, device):
@@ -210,25 +208,55 @@ def _launch_env(device: torch.device, name: str = "batched_search"):
     return lib, sms, stream
 
 
-def _merge_lists(vals, idx, topk: int, stream):
-    """Reduce per-chunk (nq, L) candidate lists to the (nq, topk) top-k,
-    one select launch of ``batched_search.cu`` per level (the flat and
-    the slab kernels share it)."""
+def _merge_lists(vals, idx, w: int, topk: int, stream):
+    """Merge each query's sorted candidate lists ((nq, L * w): L lists
+    of w pairs, ascending on (distance, column)) two by two down to the
+    (nq, topk) top-k: ``icq_merge_lists`` levels (one thread per output
+    pair) while the lists are too many for one block's shared memory,
+    then ``icq_merge_block`` (the remaining levels in one launch, one
+    block per query).  The flat and the slab kernels share it.  The
+    lists hold at least topk real pairs in all, so the result is topk
+    wide."""
     lib = build.library("batched_search")
     nq = vals.shape[0]
-    chunk = lib.icq_chunk_points()
-    while vals.shape[1] > topk:
-        L = vals.shape[1]
-        nch = -(-L // chunk)
-        out_v = torch.empty((nq, nch * topk), dtype=torch.float32,
-                            device=vals.device)
-        out_i = torch.empty((nq, nch * topk), dtype=torch.int32,
-                            device=vals.device)
-        _raise_on(lib.icq_select_topk(_ptr(vals), _ptr(idx), _ptr(out_v),
-                                      _ptr(out_i), nq, L, topk, stream),
-                  lib, "select_topk")
-        vals, idx = out_v, out_i
-    return vals, idx
+    L = vals.shape[1] // w
+    dev = vals.device
+    while L > 1 and not lib.icq_merge_block_fits(L, w, topk):
+        wo, Lo = min(topk, 2 * w), -(-L // 2)
+        out_v = torch.empty((nq, Lo * wo), dtype=torch.float32, device=dev)
+        out_i = torch.empty((nq, Lo * wo), dtype=torch.int32, device=dev)
+        _raise_on(lib.icq_merge_lists(_ptr(vals), _ptr(idx), _ptr(out_v),
+                                      _ptr(out_i), nq, L, w, topk, stream),
+                  lib, "merge_lists")
+        vals, idx, L, w = out_v, out_i, Lo, wo
+    if L == 1:
+        return vals, idx
+    out_v = torch.empty((nq, topk), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, topk), dtype=torch.int32, device=dev)
+    _raise_on(lib.icq_merge_block(_ptr(vals), _ptr(idx), _ptr(out_v),
+                                  _ptr(out_i), nq, L, w, topk, stream),
+              lib, "merge_block")
+    return out_v, out_i
+
+
+def _chunk_lists(n: int, nq: int, topk: int, device):
+    """Empty (nq, ceil(n / chunk) * w) candidate lists of a kernel that
+    writes one list of w = min(topk, chunk) pairs per 1024-point chunk."""
+    chunk = build.library("batched_search").icq_chunk_points()
+    w = min(topk, chunk)
+    size = (nq, -(-n // chunk) * w)
+    return (torch.empty(size, dtype=torch.float32, device=device),
+            torch.empty(size, dtype=torch.int32, device=device), w)
+
+
+def _crude_grid(n, Kc, nq, Km, quantized, nibble, topk) -> int:
+    """Blocks along the points of one crude launch (``icq_crude_plan``:
+    one wave on the current device), one candidate list each."""
+    lib = build.library("batched_search")
+    out = (ctypes.c_int * 1)()
+    _raise_on(lib.icq_crude_plan(n, Kc, nq, Km, int(quantized), int(nibble),
+                                 topk, out), lib, "crude_plan")
+    return out[0]
 
 
 def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
@@ -248,19 +276,19 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
     if quantized:
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
-    lib, sms, stream = _launch_env(dev)
-    nch = -(-n // lib.icq_chunk_points())
+    lib, _, stream = _launch_env(dev)
+    grid = _crude_grid(n, Kc, nq, Km, quantized, code_bits == 4, topk)
     crude = (torch.empty((nq, n), dtype=torch.float32, device=dev)
              if want_crude else None)
-    cand_v = torch.empty((nq, nch * topk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nq, nch * topk), dtype=torch.int32, device=dev)
+    cand_v = torch.empty((nq, grid * topk), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((nq, grid * topk), dtype=torch.int32, device=dev)
     _raise_on(lib.icq_crude_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(lut_scale), _ptr(lut_offset),
         _ptr(crude), _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
-        int(quantized), int(code_bits == 4), topk, sms, stream),
+        int(quantized), int(code_bits == 4), topk, grid, stream),
         lib, "crude_topk")
     build.LAUNCHES["crude_topk"] += 1
-    vals, idx = _merge_lists(cand_v, cand_i, topk, stream)
+    vals, idx = _merge_lists(cand_v, cand_i, topk, topk, stream)
     return crude, vals, idx
 
 
@@ -278,16 +306,14 @@ def refine_topk_cuda(codes, lut_flat, crude, thresholds, topk: int, *,
     _check_operand(crude, "crude", (nq, n), torch.float32, dev)
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
     lib, sms, stream = _launch_env(dev)
-    nch = -(-n // lib.icq_chunk_points())
-    cand_v = torch.empty((nq, nch * topk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nq, nch * topk), dtype=torch.int32, device=dev)
+    cand_v, cand_i, w = _chunk_lists(n, nq, topk, dev)
     _raise_on(lib.icq_refine_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(crude), _ptr(thresholds),
         _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
         int(code_bits == 4), topk, sms, stream),
         lib, "refine_topk")
     build.LAUNCHES["refine_topk"] += 1
-    return _merge_lists(cand_v, cand_i, topk, stream)
+    return _merge_lists(cand_v, cand_i, w, topk, stream)
 
 
 def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
@@ -309,17 +335,15 @@ def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
     lib, sms, stream = _launch_env(dev, "ivf_search")
-    nch = -(-nc // lib.icq_chunk_points())
     crude = torch.empty((nq, nc), dtype=torch.float32, device=dev)
-    cand_v = torch.empty((nq, nch * topk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nq, nch * topk), dtype=torch.int32, device=dev)
+    cand_v, cand_i, w = _chunk_lists(nc, nq, topk, dev)
     _raise_on(lib.icq_ivf_crude_topk(
         _ptr(cand_codes), _ptr(cand_ids), _ptr(lut_flat), _ptr(lut_scale),
         _ptr(lut_offset), _ptr(crude), _ptr(cand_v), _ptr(cand_i), nq, nc,
         Kc, Km, m, int(quantized), int(code_bits == 4), topk, sms, stream),
         lib, "ivf_crude_topk")
     build.LAUNCHES["ivf_crude_topk"] += 1
-    vals, pos = _merge_lists(cand_v, cand_i, topk, stream)
+    vals, pos = _merge_lists(cand_v, cand_i, w, topk, stream)
     return crude, vals, pos
 
 
@@ -337,13 +361,11 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
     _check_operand(crude, "crude", (nq, nc), torch.float32, dev)
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
     lib, sms, stream = _launch_env(dev, "ivf_search")
-    nch = -(-nc // lib.icq_chunk_points())
-    cand_v = torch.empty((nq, nch * topk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nq, nch * topk), dtype=torch.int32, device=dev)
+    cand_v, cand_i, w = _chunk_lists(nc, nq, topk, dev)
     _raise_on(lib.icq_ivf_refine_topk(
         _ptr(cand_codes), _ptr(lut_flat), _ptr(crude), _ptr(thresholds),
         _ptr(cand_v), _ptr(cand_i), nq, nc, Kc, Km, m,
         int(code_bits == 4), topk, sms, stream),
         lib, "ivf_refine_topk")
     build.LAUNCHES["ivf_refine_topk"] += 1
-    return _merge_lists(cand_v, cand_i, topk, stream)
+    return _merge_lists(cand_v, cand_i, w, topk, stream)

@@ -52,7 +52,10 @@ SIGNATURES = {
         **_COMMON,
         "icq_crude_topk": ([_P] * 7 + [_I] * 9 + [_P], _I),
         "icq_refine_topk": ([_P] * 6 + [_I] * 8 + [_P], _I),
-        "icq_select_topk": ([_P] * 4 + [_I, _L, _I, _P], _I),
+        "icq_crude_plan": ([_I] * 7 + [_P], _I),
+        "icq_merge_lists": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "icq_merge_block": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "icq_merge_block_fits": ([_I] * 3, _I),
     },
     "ivf_search": {
         **_COMMON,
@@ -66,7 +69,8 @@ SIGNATURES = {
     },
     "icm_encode": {
         **_COMMON,
-        "icq_icm_encode": ([_P] * 5 + [_L] + [_I] * 4 + [_P], _I),
+        "icq_icm_plan": ([_L] + [_I] * 4 + [_P], _I),
+        "icq_icm_encode": ([_P] * 8 + [_L] + [_I] * 5 + [_P], _I),
     },
     "adc": {
         **_COMMON,

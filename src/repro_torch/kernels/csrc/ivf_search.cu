@@ -25,12 +25,17 @@
 //     matvec exists for the MXU and does not carry over.
 //   * Invalid slab columns (id < 0) are +inf in the dense crude output,
 //     so the refine pass inherits the mask through crude < thr.
-//   * Top-k: the chunk sort of search_common.cuh keeps the first topk
-//     (value, position) pairs of each chunk; the flat kernels' select
-//     launch (icq_select_topk in batched_search.cu) merges the per-chunk
-//     lists per query.  The order is total, so the result equals one
-//     sort of the whole slab row: lowest position first among ties, and
-//     the +inf tail carries the lowest +inf positions.
+//   * Top-k: the chunk sort of search_common.cuh keeps the first
+//     w = min(topk, 1024) (value, position) pairs of each chunk, so a
+//     list holds its whole chunk when topk >= 1024; the flat kernels'
+//     merge launches (icq_merge_lists levels, then icq_merge_block, in
+//     batched_search.cu) merge the per-chunk lists per query two by
+//     two.  The order is total, so the
+//     result equals one sort of the whole slab row: lowest position
+//     first among ties, and the +inf tail carries the lowest +inf
+//     positions.  Pads past the slab are (+inf, INT_MAX) and sort after
+//     it.  Any topk <= nc is served.  These two kernels keep the sort
+//     of every chunk (the flat crude kernel no longer does).
 //   * Sum order and rounding equal the plain PyTorch version bit for bit
 //     (codebook order from 0.0, __fadd_rn / __fmul_rn), as in the flat
 //     kernels.
@@ -72,7 +77,7 @@ slab_crude_kernel(const uint8_t* __restrict__ codes,
                   const float* __restrict__ offset_g,
                   float* __restrict__ crude, float* __restrict__ cand_v,
                   int* __restrict__ cand_i, int nc, int Kc, int Km, int m,
-                  int topk) {
+                  int w) {
   extern __shared__ __align__(16) unsigned char smem[];
   const SlabSmem s = carve_slab(smem, Kc);
   const int q = blockIdx.y;
@@ -118,7 +123,7 @@ slab_crude_kernel(const uint8_t* __restrict__ codes,
     }
     __syncthreads();
     bitonic_sort(s.val, s.idx);
-    write_topk(s.val, s.idx, cand_v, cand_i, q, nchunks, chunk, topk);
+    write_list(s.val, s.idx, cand_v, cand_i, q, nchunks, chunk, w);
   }
 }
 
@@ -132,7 +137,7 @@ slab_refine_kernel(const uint8_t* __restrict__ codes,
                    const float* __restrict__ crude,
                    const float* __restrict__ thr_g,
                    float* __restrict__ cand_v, int* __restrict__ cand_i,
-                   int nc, int Kc, int Km, int m, int topk) {
+                   int nc, int Kc, int Km, int m, int w) {
   extern __shared__ __align__(16) unsigned char smem[];
   const SlabSmem s = carve_slab(smem, Kc);
   const float* lut = reinterpret_cast<const float*>(s.lut);
@@ -163,7 +168,7 @@ slab_refine_kernel(const uint8_t* __restrict__ codes,
     }
     __syncthreads();
     bitonic_sort(s.val, s.idx);
-    write_topk(s.val, s.idx, cand_v, cand_i, q, nchunks, chunk, topk);
+    write_list(s.val, s.idx, cand_v, cand_i, q, nchunks, chunk, w);
   }
 }
 
@@ -176,8 +181,8 @@ dim3 slab_grid(int nc, int nq, int num_sms) {
 }
 
 bool slab_args_ok(int nq, int nc, int topk, size_t smem) {
-  return nq >= 1 && nq <= 65535 && nc >= 1 && topk >= 1 && topk <= kChunk &&
-         topk <= nc && smem <= kMaxSmem;
+  return nq >= 1 && nq <= 65535 && nc >= 1 && topk >= 1 && topk <= nc &&
+         smem <= kMaxSmem;
 }
 
 }  // namespace
@@ -186,8 +191,8 @@ extern "C" {
 
 // Phase 1.  codes (nq, nc, Kc) uint8; ids (nq, nc) int32, -1 = invalid;
 // lut (nq, Km) f32, or int8 with scale / offset (nq,) f32; crude
-// (nq, nc) f32; cand_v / cand_i (nq, ceil(nc / chunk), topk).  Returns
-// cudaGetLastError().
+// (nq, nc) f32; cand_v / cand_i (nq, ceil(nc / chunk), min(topk,
+// chunk)).  Returns cudaGetLastError().
 int icq_ivf_crude_topk(const void* codes, const void* ids, const void* lut,
                        const void* scale, const void* offset, void* crude,
                        void* cand_v, void* cand_i, int nq, int nc, int Kc,
@@ -195,6 +200,7 @@ int icq_ivf_crude_topk(const void* codes, const void* ids, const void* lut,
                        int num_sms, void* stream) {
   const size_t smem = slab_smem_bytes(Kc, Km, quant ? 1 : 4);
   if (!slab_args_ok(nq, nc, topk, smem)) return int(cudaErrorInvalidValue);
+  const int w = min(topk, kChunk);
   const dim3 grid = slab_grid(nc, nq, num_sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
@@ -207,16 +213,16 @@ int icq_ivf_crude_topk(const void* codes, const void* ids, const void* lut,
   cudaError_t e;
   if (quant && nibble)
     e = launch_with_smem(slab_crude_kernel<true, true>, grid, smem, s, c, id,
-                         lut, sc, of, cr, cv, ci, nc, Kc, Km, m, topk);
+                         lut, sc, of, cr, cv, ci, nc, Kc, Km, m, w);
   else if (quant)
     e = launch_with_smem(slab_crude_kernel<true, false>, grid, smem, s, c,
-                         id, lut, sc, of, cr, cv, ci, nc, Kc, Km, m, topk);
+                         id, lut, sc, of, cr, cv, ci, nc, Kc, Km, m, w);
   else if (nibble)
     e = launch_with_smem(slab_crude_kernel<false, true>, grid, smem, s, c,
-                         id, lut, sc, of, cr, cv, ci, nc, Kc, Km, m, topk);
+                         id, lut, sc, of, cr, cv, ci, nc, Kc, Km, m, w);
   else
     e = launch_with_smem(slab_crude_kernel<false, false>, grid, smem, s, c,
-                         id, lut, sc, of, cr, cv, ci, nc, Kc, Km, m, topk);
+                         id, lut, sc, of, cr, cv, ci, nc, Kc, Km, m, w);
   return int(e);
 }
 
@@ -229,6 +235,7 @@ int icq_ivf_refine_topk(const void* codes, const void* lut, const void* crude,
                         int num_sms, void* stream) {
   const size_t smem = slab_smem_bytes(Kc, Km, 4);
   if (!slab_args_ok(nq, nc, topk, smem)) return int(cudaErrorInvalidValue);
+  const int w = min(topk, kChunk);
   const dim3 grid = slab_grid(nc, nq, num_sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
@@ -240,10 +247,10 @@ int icq_ivf_refine_topk(const void* codes, const void* lut, const void* crude,
   cudaError_t e;
   if (nibble)
     e = launch_with_smem(slab_refine_kernel<true>, grid, smem, s, c, l, cr, t,
-                         cv, ci, nc, Kc, Km, m, topk);
+                         cv, ci, nc, Kc, Km, m, w);
   else
     e = launch_with_smem(slab_refine_kernel<false>, grid, smem, s, c, l, cr,
-                         t, cv, ci, nc, Kc, Km, m, topk);
+                         t, cv, ci, nc, Kc, Km, m, w);
   return int(e);
 }
 

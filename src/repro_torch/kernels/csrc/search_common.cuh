@@ -1,7 +1,8 @@
 // Device code shared by the search kernels (batched_search.cu for the
 // flat pass, ivf_search.cu for the IVF candidate slab): the chunk
-// geometry, the two-key bitonic chunk sort, the staging of code rows,
-// the codebook-order LUT sums and the per-chunk top-k write.
+// geometry, the two-key bitonic sort, the co-rank merge of two sorted
+// lists, the staging of code rows, the codebook-order LUT sums and the
+// per-chunk list write.
 //
 // Each source is compiled into its own shared library, so every helper
 // here has internal linkage (anonymous namespace) in the one
@@ -28,12 +29,13 @@ __device__ __forceinline__ bool key_less(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-// Ascending bitonic sort of kChunk (value, index) pairs in shared memory.
-// The caller synchronises before; the sort synchronises after each step.
-__device__ void bitonic_sort(float* v, int* ix) {
-  for (int k = 2; k <= kChunk; k <<= 1) {
+// Ascending bitonic sort of P (value, index) pairs in shared memory, P
+// a power of two.  The caller synchronises before; the sort
+// synchronises after each step.
+__device__ void bitonic_sort_n(float* v, int* ix, int P) {
+  for (int k = 2; k <= P; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < kChunk; i += blockDim.x) {
+      for (int i = threadIdx.x; i < P; i += blockDim.x) {
         const int l = i ^ j;
         if (l > i) {
           const float a = v[i], b = v[l];
@@ -49,6 +51,36 @@ __device__ void bitonic_sort(float* v, int* ix) {
       }
       __syncthreads();
     }
+  }
+}
+
+__device__ __forceinline__ void bitonic_sort(float* v, int* ix) {
+  bitonic_sort_n(v, ix, kChunk);
+}
+
+// Element t of the merge of two ascending lists A (wa pairs) and B (wb
+// pairs), A first on equal keys: a co-rank binary search for the number
+// a of A's pairs among the merge's first t, then the smaller head.
+// t < wa + wb.  The pointers may address shared or global memory.
+__device__ __forceinline__ void merged_at(const float* av, const int* ai,
+                                          int wa, const float* bv,
+                                          const int* bi, int wb, int t,
+                                          float& v, int& id) {
+  int lo = max(0, t - wb), hi = min(t, wa);
+  while (lo < hi) {   // A[mid] precedes B[t - mid - 1]: take more of A
+    const int mid = (lo + hi) >> 1;
+    if (key_less(bv[t - mid - 1], bi[t - mid - 1], av[mid], ai[mid]))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  const int a = lo, b = t - lo;
+  if (a < wa && (b >= wb || !key_less(bv[b], bi[b], av[a], ai[a]))) {
+    v = av[a];
+    id = ai[a];
+  } else {
+    v = bv[b];
+    id = bi[b];
   }
 }
 
@@ -70,6 +102,26 @@ __device__ void load_codes(uint8_t* dst, const uint8_t* __restrict__ codes,
     dst[i] = src[i];
 }
 
+// Byte kc of a code row.  Rows of a multiple of 4 bytes are read as
+// 32-bit words (a staged row starts 4-aligned); the sum order is the
+// same either way.
+template <typename Add>
+__device__ __forceinline__ void for_row_bytes(const uint8_t* row, int Kc,
+                                              Add add) {
+  if ((Kc & 3) == 0) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(row);
+    for (int k4 = 0; k4 < (Kc >> 2); ++k4) {
+      const uint32_t v = w[k4];
+      add(4 * k4, int(v & 255u));
+      add(4 * k4 + 1, int((v >> 8) & 255u));
+      add(4 * k4 + 2, int((v >> 16) & 255u));
+      add(4 * k4 + 3, int(v >> 24));
+    }
+  } else {
+    for (int kc = 0; kc < Kc; ++kc) add(kc, int(row[kc]));
+  }
+}
+
 // f32 LUT sum of one code row, codebooks in order from 0.0.  Nibble byte
 // kc holds codebooks (2kc, 2kc+1) in its (low, high) nibble; the odd-K
 // sentinel codebook has an all-zero LUT column.
@@ -78,15 +130,14 @@ __device__ __forceinline__ float row_sum_f32(const float* lut,
                                              const uint8_t* row, int Kc,
                                              int m) {
   float acc = 0.0f;
-  for (int kc = 0; kc < Kc; ++kc) {
-    const int b = row[kc];
+  for_row_bytes(row, Kc, [&](int kc, int b) {
     if (NIBBLE) {
       acc = __fadd_rn(acc, lut[(2 * kc) * m + (b & 15)]);
       acc = __fadd_rn(acc, lut[(2 * kc + 1) * m + (b >> 4)]);
     } else {
       acc = __fadd_rn(acc, lut[kc * m + b]);
     }
-  }
+  });
   return acc;
 }
 
@@ -95,15 +146,14 @@ template <bool NIBBLE>
 __device__ __forceinline__ int row_sum_i8(const int8_t* lut,
                                           const uint8_t* row, int Kc, int m) {
   int acc = 0;
-  for (int kc = 0; kc < Kc; ++kc) {
-    const int b = row[kc];
+  for_row_bytes(row, Kc, [&](int kc, int b) {
     if (NIBBLE) {
       acc += lut[(2 * kc) * m + (b & 15)];
       acc += lut[(2 * kc + 1) * m + (b >> 4)];
     } else {
       acc += lut[kc * m + b];
     }
-  }
+  });
   return acc;
 }
 
@@ -113,12 +163,14 @@ __device__ __forceinline__ float dequant(float scale, int acc, float offset) {
   return __fadd_rn(__fmul_rn(scale, float(acc)), offset);
 }
 
-// Write the first topk sorted pairs as list `chunk` of query qg.
-__device__ void write_topk(const float* v, const int* ix, float* out_v,
+// Write the first w sorted pairs as list `chunk` (of nchunks lists of
+// w pairs) of query qg; w = min(topk, kChunk), so a list holds every
+// point of its chunk when topk >= kChunk.
+__device__ void write_list(const float* v, const int* ix, float* out_v,
                            int* out_i, int qg, int nchunks, int chunk,
-                           int topk) {
-  const long out = (long(qg) * nchunks + chunk) * topk;
-  for (int t = threadIdx.x; t < topk; t += blockDim.x) {
+                           int w) {
+  const long out = (long(qg) * nchunks + chunk) * w;
+  for (int t = threadIdx.x; t < w; t += blockDim.x) {
     out_v[out + t] = v[t];
     out_i[out + t] = ix[t];
   }

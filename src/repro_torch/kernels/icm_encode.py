@@ -11,7 +11,9 @@ r + c_{k,b_k}``.  They return the codes (n, K) int32.
 The kernel computes the recon chain in the plain version's order, so
 only its dot products round differently: codes agree wherever the two
 best scores of every step are further apart than that rounding, and a
-flip at a near tie changes the later steps of that point only.
+flip at a near tie changes the later steps of that point only.  Any d
+is encoded: above 256 dimensions the kernel keeps the recon and target
+tiles in a scratch that the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -51,6 +53,19 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def plan(n: int, K: int, m: int, d: int, iters: int):
+    """The kernel's launch shape on the current device (``icq_icm_plan``):
+    {grid, mpad, dpad, staged, BM}, the scratch sizes that
+    ``icm_encode_cuda`` allocates."""
+    lib = build.library("icm_encode")
+    out = (ctypes.c_int * 5)()
+    err = lib.icq_icm_plan(n, K, m, d, iters, out)
+    if err:
+        raise RuntimeError(f"icm_encode plan failed (n={n}, K={K}, m={m}, "
+                           f"d={d}): {lib.icq_error_string(err).decode()}")
+    return dict(zip(("grid", "mpad", "dpad", "staged", "BM"), out))
+
+
 def icm_encode_cuda(x: torch.Tensor, init_codes: torch.Tensor,
                     C: torch.Tensor, *, iters: int) -> torch.Tensor:
     """Launch the ICM kernel; same operands and output as
@@ -68,18 +83,26 @@ def icm_encode_cuda(x: torch.Tensor, init_codes: torch.Tensor,
         raise ValueError(f"empty operand or negative iters: x "
                          f"{tuple(x.shape)}, C {tuple(C.shape)}, "
                          f"iters={iters}")
+    shape = plan(n, K, m, d, iters)
     lib = build.library("icm_encode")
     sq = codeword_sq_norms(C).contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    CT = torch.empty((K, shape["dpad"], shape["mpad"]), **f32)
+    scratch = shape["grid"] * shape["BM"] * d if shape["staged"] else 0
+    tg = torch.empty((scratch,), **f32) if scratch else None
+    rg = torch.empty((scratch,), **f32) if scratch else None
     out = torch.empty((n, K), dtype=torch.int32, device=x.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+    def ptr(t):
+        return None if t is None else ctypes.c_void_p(t.data_ptr())
+
     err = lib.icq_icm_encode(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(init_codes.data_ptr()),
-        ctypes.c_void_p(C.data_ptr()), ctypes.c_void_p(sq.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), n, K, m, d, int(iters), stream)
+        ptr(x), ptr(init_codes), ptr(C), ptr(sq), ptr(CT), ptr(tg), ptr(rg),
+        ptr(out), n, K, m, d, int(iters), shape["grid"], stream)
     if err:
         raise RuntimeError(
-            f"icm_encode kernel launch failed (n={n}, K={K}, m={m}, d={d}; "
-            "a point tile holds 64 x d f32 twice in shared memory, so d "
-            f"is at most ~440): {lib.icq_error_string(err).decode()}")
+            f"icm_encode kernel launch failed (n={n}, K={K}, m={m}, d={d}): "
+            f"{lib.icq_error_string(err).decode()}")
     build.LAUNCHES["icm_encode"] += 1
     return out

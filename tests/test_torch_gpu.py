@@ -309,3 +309,184 @@ def test_cuda_kmeans_assign_split_equals_unsplit(n, L):
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]), split
         assert torch.equal(got[1], want[1]), split
+
+
+LARGE_TOPK = [257, 512, 1000, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topk", LARGE_TOPK)
+@pytest.mark.parametrize("lut_dtype,code_bits", CASES)
+def test_cuda_search_kernels_serve_large_topk(lut_dtype, code_bits, topk):
+    """Past the 1024-point chunk and past a block's points: the flat
+    crude (dense crude on and off) and refine kernels and the slab pair
+    equal their plain versions bit for bit at topk in {257, 512, 1000,
+    2048}, on ragged shapes with forced ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    K, m = (7, 16) if code_bits == 4 else (8, 256)
+    codes, luts, fast = _problem(37, 9001, 11, K, m)
+    stored = pack_nibbles(codes, K) if code_bits == 4 else codes
+    lut_flat, scale, offset = stages.crude_lut_operands(
+        luts, fast, quantized=lut_dtype == "int8", code_bits=code_bits)
+    for want_crude in (True, False):
+        got = bs.crude_topk_cuda(stored, lut_flat, topk, scale, offset,
+                                 want_crude=want_crude, code_bits=code_bits)
+        want = bs.crude_topk_torch(stored, lut_flat, topk, scale, offset,
+                                   want_crude=want_crude,
+                                   code_bits=code_bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+    crude = bs.crude_topk_torch(stored, lut_flat, topk, scale, offset,
+                                code_bits=code_bits)[0]
+    lut_slow = stages.slow_lut_operand(luts, fast, code_bits=code_bits)
+    for rank in (3000, 7):     # many survivors; fewer than topk
+        thr = torch.sort(crude, dim=1).values[:, rank].contiguous()
+        got = bs.refine_topk_cuda(stored, lut_slow, crude, thr, topk,
+                                  code_bits=code_bits)
+        want = bs.refine_topk_torch(stored, lut_slow, crude, thr, topk,
+                                    code_bits=code_bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    scodes, ids, sluts, sfast = _slab(43, 5, 2500, K, m)
+    sstored = (pack_nibbles(scodes, K) if code_bits == 4 else scodes) \
+        .contiguous()
+    slut, sscale, soffset = stages.crude_lut_operands(
+        sluts, sfast, quantized=lut_dtype == "int8", code_bits=code_bits)
+    got = bs.ivf_crude_topk_cuda(sstored, ids, slut, topk, sscale, soffset,
+                                 code_bits=code_bits)
+    want = bs.ivf_crude_topk_torch(sstored, ids, slut, topk, sscale,
+                                   soffset, code_bits=code_bits)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    scrude = want[0]
+    sslow = stages.slow_lut_operand(sluts, sfast, code_bits=code_bits)
+    thr = torch.sort(scrude, dim=1).values[:, 1500].contiguous()
+    got = bs.ivf_refine_topk_cuda(sstored, sslow, scrude, thr, topk,
+                                  code_bits=code_bits)
+    want = bs.ivf_refine_topk_torch(sstored, sslow, scrude, thr, topk,
+                                    code_bits=code_bits)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _ordered_problem(order, n, nq, lut_dtype, code_bits):
+    """Codes and one LUT per query whose crude distance of point i is a
+    chosen function of i: rising with i (the running bar never prunes),
+    falling (every point enters), or equal for all.  f32 LUTs give the
+    rank itself (exact integers); int8 LUTs a coarse, non-decreasing
+    step of it (long runs of exact ties)."""
+    r = np.arange(n)
+    if order == "falling":
+        r = n - 1 - r
+    elif order == "equal":
+        r = np.full(n, 12345)
+    if code_bits == 8:
+        K, m = 2, 256
+        codes = np.stack([r // 256 % 256, r % 256], 1).astype(np.uint8)
+        if lut_dtype == "f32":
+            lut = np.stack([256.0 * np.arange(m), np.arange(m)])
+        else:
+            lut = np.stack([np.arange(m) // 2 - 64, np.zeros(m)])
+    else:
+        K, m = 4, 16
+        codes = np.stack([r >> (4 * k) & 15 for k in range(K)], 1)
+        lut = np.stack([16.0 ** k * np.arange(m) for k in range(K)])
+        if lut_dtype == "int8":
+            lut = np.stack([np.zeros(m)] * 3 + [np.arange(m)])
+        codes = pack_nibbles(torch.from_numpy(codes.astype(np.uint8)),
+                             K).numpy()
+    flat = np.tile(lut.reshape(1, K * m), (nq, 1))
+    codes = torch.from_numpy(np.ascontiguousarray(codes)).cuda()
+    if lut_dtype == "f32":
+        return codes, torch.from_numpy(flat.astype(np.float32)).cuda(), \
+            None, None
+    scale = torch.full((nq,), 0.5, device="cuda")
+    offset = torch.linspace(-1.0, 1.0, nq, device="cuda")
+    return (codes, torch.from_numpy(flat.astype(np.int8)).cuda(), scale,
+            offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["rising", "falling", "equal"])
+@pytest.mark.parametrize("lut_dtype,code_bits", CASES)
+def test_cuda_crude_topk_adversarial_orders(lut_dtype, code_bits, order):
+    """The running-list crude kernel against its plain version bit for
+    bit where its bar is least use: distances rising with the index,
+    falling with it, all equal; n ragged against the 1024-point chunk,
+    and topk up to more points than a block sees."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 50_001
+    codes, lut, scale, offset = _ordered_problem(order, n, 3, lut_dtype,
+                                                 code_bits)
+    for topk in (1, 100, 2048, 5000):
+        got = bs.crude_topk_cuda(codes, lut, topk, scale, offset,
+                                 code_bits=code_bits)
+        want = bs.crude_topk_torch(codes, lut, topk, scale, offset,
+                                   code_bits=code_bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), topk
+
+
+@pytest.mark.gpu
+def test_cuda_crude_topk_lists_in_global_memory():
+    """A topk whose running lists do not fit beside the LUTs in shared
+    memory (the lists then live in the block's output rows): still
+    equal to the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codes, luts, fast = _problem(47, 70_001, 3, 8, 256)
+    lut_flat, _, _ = stages.crude_lut_operands(luts, fast, quantized=False)
+    got = bs.crude_topk_cuda(codes, lut_flat, 40_000)
+    want = bs.crude_topk_torch(codes, lut_flat, 40_000)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _icm_problem(seed, n, K, m, d):
+    from repro_torch.core.codebooks import decode
+    from repro_torch.core.encode import encode_pq
+    rng = np.random.default_rng(seed)
+    C = torch.from_numpy((rng.standard_normal((K, m, d))
+                          / np.sqrt(K)).astype(np.float32)).cuda()
+    true = torch.from_numpy(rng.integers(0, m, size=(n, K))).cuda()
+    x = decode(C, true) + 0.1 * torch.from_numpy(
+        rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    return x, C, encode_pq(x, C), rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [512, 960])
+def test_cuda_icm_encode_wide_d(d):
+    """Past 256 dimensions (recon and target in the wrapper's scratch,
+    the target staged in 256-dimension parts): codes equal to the plain
+    version on at least 99.9% of rows, reconstruction MSE to rtol 1e-5;
+    encoding in chunks, or the rows in another order, gives each row the
+    same codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.codebooks import decode
+    from repro_torch.kernels import icm_encode as icm
+    n, K, m = 6_007, 8, 256
+    x, C, init, rng = _icm_problem(d, n, K, m, d)
+    got = icm.icm_encode_cuda(x, init, C, iters=3)
+    want = icm.icm_encode_torch(x, init, C, iters=3)
+    torch.cuda.synchronize()
+    assert float((got == want).all(1).float().mean()) >= 0.999
+    mse = [float(torch.mean(torch.sum(torch.square(x - decode(C, c)), 1)))
+           for c in (got, want)]
+    assert mse[0] == pytest.approx(mse[1], rel=1e-5)
+    parts = torch.cat([icm.icm_encode_cuda(x[s:s + 1000], init[s:s + 1000],
+                                           C, iters=3)
+                       for s in range(0, n, 1000)])
+    assert torch.equal(parts, got)
+    perm = torch.from_numpy(rng.permutation(n)).cuda()
+    assert torch.equal(icm.icm_encode_cuda(x[perm], init[perm].contiguous(),
+                                           C, iters=3), got[perm])

@@ -382,6 +382,33 @@ def test_ivf_artifact_served_by_both(ivf_artifacts, monkeypatch, saved_by,
     assert engine.index.ivf.imbalance == ref_index.ivf.imbalance
 
 
+@pytest.mark.parametrize("saved_by", ["reference", "port"])
+def test_ivf_serves_topk_past_256(ivf_artifacts, monkeypatch, saved_by):
+    """k = 300, past the 256 that the slab top-k once capped (the plain
+    path raised too): the port's plain IVF path against the reference's
+    jnp IVF search on one artifact, given the same LUTs.  Ids equal;
+    distances to rtol 1e-5 plus the atol rule above."""
+    q, cells = ivf_artifacts
+    path = cells[("f32", 8)][0 if saved_by == "reference" else 1]
+    k = 300
+    want = ref_api.load_ann_engine(
+        path, overrides={"serve.backend": "jnp"}).search(jnp.asarray(q), k=k)
+    monkeypatch.setattr(port_ivf, "build_lut", lambda qs, C: torch.tensor(
+        np.asarray(ref_base.build_lut(jnp.asarray(qs.numpy()),
+                                      jnp.asarray(C.numpy())))))
+    engine = load_ann_engine(path, device="cpu")
+    got = engine.search(q, k=k)
+    assert got.indices.shape == (NQ, k)
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(want.indices))
+    luts = ref_base.build_lut(jnp.asarray(q),
+                              jnp.asarray(engine.index.C.numpy()))
+    atol = 1e-5 * luts.shape[1] * float(jnp.abs(luts).max())
+    np.testing.assert_allclose(got.distances.numpy(),
+                               np.asarray(want.distances), rtol=1e-5,
+                               atol=atol)
+
+
 def test_ivf_n_probe_follows_the_config_on_load(ivf_artifacts):
     _, cells = ivf_artifacts
     ref_path, port_path = cells[("f32", 8)]

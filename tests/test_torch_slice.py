@@ -67,8 +67,8 @@ def engine_C(path):
     return jnp.asarray(ref_api.Artifacts.load(path).index.C)
 
 
-def _port_search(path, q):
-    return load_ann_engine(path, device="cpu").search(q)
+def _port_search(path, q, k=None):
+    return load_ann_engine(path, device="cpu").search(q, k=k)
 
 
 @pytest.mark.parametrize("kind,lut_dtype,code_bits", CELLS)
@@ -125,6 +125,43 @@ def test_slice_close_to_reference_end_to_end(artifacts, kind, lut_dtype,
     clear[:, :-1] &= gap
     assert clear.mean() > 0.9
     np.testing.assert_array_equal(got_i[clear], want_i[clear])
+
+
+@pytest.mark.parametrize("kind", ["flat", "two-step"])
+def test_slice_serves_topk_past_256(artifacts, monkeypatch, kind):
+    """k = 300, past the 256 that the flat top-k once capped on the
+    card: the port's plain path against the reference's jnp engine on
+    one artifact, given the same LUTs.  Pass counts equal; distances to
+    rtol 1e-6 plus the atol rule of (a); ids equal wherever the
+    reference's neighbouring distances differ by more than rtol 1e-6
+    (among 300 of 3000 points an exact tie in the port can be one ulp
+    apart in the reference's jitted crude + slow), and the same id set
+    in every row."""
+    q, cells = artifacts
+    path, _ = cells[(kind, "f32", 8)]
+    k = 300
+    want = ref_api.load_ann_engine(path).search(jnp.asarray(q), k=k)
+    monkeypatch.setattr(port_flat, "build_lut", lambda qs, C: torch.tensor(
+        np.asarray(ref_base.build_lut(jnp.asarray(qs.numpy()),
+                                      jnp.asarray(C.numpy())))))
+    got = _port_search(path, q, k=k)
+    assert got.indices.shape == (NQ, k)
+    got_i, want_i = got.indices.numpy(), np.asarray(want.indices)
+    want_d = np.asarray(want.distances)
+    luts = ref_base.build_lut(jnp.asarray(q), engine_C(path))
+    atol = 1e-6 * luts.shape[1] * float(jnp.abs(luts).max())
+    np.testing.assert_allclose(got.distances.numpy(), want_d, rtol=1e-6,
+                               atol=atol)
+    gap = np.abs(np.diff(want_d, axis=1)) > 1e-6 * np.abs(want_d[:, 1:])
+    clear = np.ones_like(want_i, bool)
+    clear[:, 1:] &= gap
+    clear[:, :-1] &= gap
+    assert clear.mean() > 0.99
+    np.testing.assert_array_equal(got_i[clear], want_i[clear])
+    for g, w in zip(got_i, want_i):
+        assert set(g.tolist()) == set(w.tolist())
+    passes = [round(float(r.pass_rate) * NQ * N) for r in (got, want)]
+    assert passes[0] == passes[1]
 
 
 @pytest.mark.parametrize("kind", ["flat", "two-step"])
