@@ -15,18 +15,21 @@ or outside a checkout of the repository.  Phases:
    compiler's ``-Xptxas -v`` report;
 2. every kernel mode on ragged shapes, each equal bit for bit to its
    plain version: flat crude {f32, int8} x {8, 4 bit} x dense crude on
-   or off and flat refine {8, 4 bit}, with duplicated code rows (exact
-   ties); slab crude {f32, int8} x {8, 4 bit} and slab refine {8, 4
-   bit} with many survivors and with fewer than topk, on slabs with -1
-   holes, duplicated rows and one query slab thinner than topk; every
-   one of them again at topk = 257 and 2048 (past the chunk); and
+   or off, with duplicated code rows (exact ties); slab crude {f32,
+   int8} x {8, 4 bit} on slabs with -1 holes, duplicated rows and one
+   query slab thinner than topk; flat and slab refine {8, 4 bit} with
+   many survivors, fewer than topk, none, all, and survivors only in
+   the first and only in the last 1024-row chunk; every one of them at
+   topk = 100, 257 and 2048 (past the chunk); and
    ``kmeans_assign`` (L = 8193 centroids, one duplicated) against its
    plain version: ids equal wherever the two nearest scores are apart
    by more than 1e-5 of the terms' size, distances to rtol 1e-5;
 3. the flat kernels at the main path's shape (64 queries x 1M points,
    K = 8, m = 256): time (CUDA events), the plain version's time, the
    least time the card could take (bytes or operations, whichever
-   binds);
+   binds); the refine kernel at the served cells' margin (sigma = 10,
+   about 0.3% of the points pass) and at sigma = 0.5 (fewer survivors
+   than topk);
 4. the flat main path: for two-step f32, two-step int8, flat f32 and a
    4-bit index (K = 16, m = 16, int8 LUTs), a synthetic index made
    from ``--seed`` is saved with ``Artifacts.save``, loaded with
@@ -41,8 +44,9 @@ or outside a checkout of the repository.  Phases:
    saved index serves the cells ivf-f32, ivf-int8 (the same artifact
    with ``serve.lut_dtype`` overridden) and ivf-int8-4bit (K = 16,
    m = 16) as in phase 4.  The three IVF kernels are then timed as in
-   phase 3 at the served shape: the slab of one served tile, and the
-   build's 1M points against its 1024 centroids (with the two-call
+   phase 3 at the served shape: the slab of one served tile (one slab
+   kernel call in a CUDA graph printed beside its eager time), and
+   the build's 1M points against its 1024 centroids (with the two-call
    library yardstick ``argmin(addmm)`` beside ``kmeans_assign``);
 6. encode and grow at SIFT1M geometry (3 ICM sweeps): the ICM kernel
    against its plain version at 1 and 3 sweeps on ``decode(C, random
@@ -276,20 +280,43 @@ def check_modes(seed: int):
         crude = bs.crude_topk_torch(stored, lut_fast, TOPK,
                                     code_bits=code_bits)[0]
         lut_slow = slow_lut_operand(luts, fast, code_bits=code_bits)
-        ranked = torch.sort(crude, dim=1).values
-        for topk, rank in ((TOPK, 5000), (TOPK, 30),   # many; < topk
-                           *((k, 5000) for k in LARGE_TOPK)):
-            thr = ranked[:, rank].contiguous()
-            got = bs.refine_topk_cuda(stored, lut_slow, crude, thr, topk,
-                                      code_bits=code_bits)
-            want = bs.refine_topk_torch(stored, lut_slow, crude, thr, topk,
-                                        code_bits=code_bits)
-            torch.cuda.synchronize()
-            ok = equal_outputs(got, want)
-            log(f"mode refine {code_bits}-bit topk={topk} "
-                f"survivors/query~{rank}: {'equal' if ok else 'DIFFERENT'}")
-            check(ok, f"refine kernel != plain version ({code_bits}-bit, "
-                      f"topk={topk}, threshold at rank {rank})")
+        for regime, cr, thr in refine_regimes(crude, 5000):
+            for topk in (TOPK, *LARGE_TOPK):
+                got = bs.refine_topk_cuda(stored, lut_slow, cr, thr, topk,
+                                          code_bits=code_bits)
+                want = bs.refine_topk_torch(stored, lut_slow, cr, thr, topk,
+                                            code_bits=code_bits)
+                torch.cuda.synchronize()
+                ok = equal_outputs(got, want)
+                log(f"mode refine {code_bits}-bit topk={topk} survivors: "
+                    f"{regime}: {'equal' if ok else 'DIFFERENT'}")
+                check(ok, f"refine kernel != plain version ({code_bits}-"
+                          f"bit, topk={topk}, survivors: {regime})")
+
+
+def refine_regimes(crude, many: int):
+    """(name, crude, thresholds) of the refine checks, each where a
+    running top-k can go wrong: many survivors per query; fewer than
+    topk, spread over every block (the +inf tail carries the lowest
+    pruned columns); none; all (thr = +inf); and survivors only in the
+    first and only in the last 1024-column chunk (every other column's
+    crude raised far above the threshold)."""
+    import torch
+    nq, n = crude.shape
+    ranked = torch.sort(crude, dim=1).values
+    col = torch.arange(n, device=crude.device)
+    inf = float("inf")
+    out = [("many", crude, ranked[:, many]),
+           ("fewer than topk", crude, ranked[:, 30]),
+           ("none", crude, torch.full((nq,), -inf, device=crude.device)),
+           ("all", crude, torch.full((nq,), inf, device=crude.device))]
+    for name, keep in (("first chunk only", col < 1024),
+                       ("last chunk only", col >= (n - 1) // 1024 * 1024)):
+        cr = torch.where(keep, crude, crude.abs() + 1e6)
+        rank = min(int(keep.sum()) - 1, 150)
+        out.append((name, cr, torch.sort(cr, dim=1).values[:, rank]))
+    return [(name, cr.contiguous(), thr.contiguous())
+            for name, cr, thr in out]
 
 
 def slab_problem(seed, nq, nc, K, m, d, num_fast):
@@ -349,21 +376,23 @@ def check_slab_modes(seed: int):
         crude = bs.ivf_crude_topk_torch(stored, ids, lut_fast, TOPK,
                                         code_bits=code_bits)[0]
         lut_slow = slow_lut_operand(luts, fast, code_bits=code_bits)
-        ranked = torch.sort(crude, dim=1).values
-        for topk, rank in ((TOPK, 2000), (TOPK, 30),   # many; < topk
-                           *((k, 2000) for k in LARGE_TOPK)):
-            thr = ranked[:, rank].contiguous()
-            thr[1] = ranked[1, 2]                  # the thin slab
-            got = bs.ivf_refine_topk_cuda(stored, lut_slow, crude, thr, topk,
-                                          code_bits=code_bits)
-            want = bs.ivf_refine_topk_torch(stored, lut_slow, crude, thr,
-                                            topk, code_bits=code_bits)
-            torch.cuda.synchronize()
-            ok = equal_outputs(got, want)
-            log(f"mode ivf_refine {code_bits}-bit topk={topk} "
-                f"survivors/query~{rank}: {'equal' if ok else 'DIFFERENT'}")
-            check(ok, f"slab refine kernel != plain version ({code_bits}-"
-                      f"bit, topk={topk}, threshold at rank {rank})")
+        # the -1 columns are +inf in crude: they never pass, and rank by
+        # position like any pruned column; the thin slab (row 1) gets a
+        # finite threshold that passes 2 of its columns
+        for regime, cr, thr in refine_regimes(crude, 2000):
+            if regime in ("many", "fewer than topk"):
+                thr[1] = torch.sort(cr[1]).values[2]
+            for topk in (TOPK, *LARGE_TOPK):
+                got = bs.ivf_refine_topk_cuda(stored, lut_slow, cr, thr,
+                                              topk, code_bits=code_bits)
+                want = bs.ivf_refine_topk_torch(stored, lut_slow, cr, thr,
+                                                topk, code_bits=code_bits)
+                torch.cuda.synchronize()
+                ok = equal_outputs(got, want)
+                log(f"mode ivf_refine {code_bits}-bit topk={topk} survivors:"
+                    f" {regime}: {'equal' if ok else 'DIFFERENT'}")
+                check(ok, f"slab refine kernel != plain version ({code_bits}"
+                          f"-bit, topk={topk}, survivors: {regime})")
 
 
 def compare_assign(got, want, x, cent):
@@ -421,7 +450,6 @@ def time_kernels(seed: int, n: int):
     K, m, d = SIFT["K"], SIFT["m"], SIFT["d"]
     codes, luts, fast = problem(seed + 100, n, TILE, K, m, d,
                                 SIFT["num_fast"], dup=False)
-    sigma = torch.tensor(0.5, device="cuda")
     lut_flat, _, _ = crude_lut_operands(luts, fast, quantized=False)
     lut_slow = slow_lut_operand(luts, fast)
     records = {}
@@ -448,33 +476,39 @@ def time_kernels(seed: int, n: int):
         f"max_abs_err {err}")
 
     crude, cv, ci = crude_k
-    thr = ThresholdStage(topk=TOPK).from_candidates(luts, codes, cv, ci,
-                                                    fast, sigma)
-    ref_k = bs.refine_topk_cuda(codes, lut_slow, crude, thr, TOPK)
-    ref_p = bs.refine_topk_torch(codes, lut_slow, crude, thr, TOPK)
-    check(equal_outputs(ref_k, ref_p), "refine kernel != plain version at "
-          "the main path's shape")
-    fin = torch.isfinite(ref_k[0])
-    err = float((ref_k[0][fin].double() - ref_p[0][fin].double()).abs()
-                .max()) if bool(fin.any()) else 0.0
-    ms = time_ms(lambda: bs.refine_topk_cuda(codes, lut_slow, crude, thr,
-                                             TOPK), 20)
-    plain_ms = time_ms(lambda: bs.refine_topk_torch(codes, lut_slow, crude,
-                                                    thr, TOPK), 3)
-    survivors = int((crude < thr[:, None]).sum())
-    nbytes = codes.numel() + lut_slow.numel() * 4 + TILE * n * 4 \
-        + TILE * 4 + TILE * TOPK * 8
-    # one compare per point, K adds and one add per survivor
-    b_ms, b_by = bound_ms(nbytes, TILE * n + survivors * (K + 1))
-    records["refine_topk"] = dict(
-        name="refine_topk", route="cuda",
-        source="src/repro_torch/kernels/csrc/batched_search.cu",
-        replaces="src/repro/kernels/batched_search.py:441",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    log(f"kernel refine_topk 8-bit nq={TILE} n={n} survivors={survivors}: "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}), max_abs_err {err}")
+    # the served cells' margin (about 0.3% of the points pass) gives the
+    # record; sigma = 0.5 (fewer survivors than topk: the +inf tail) is
+    # printed beside it
+    for sigma in (SIGMA, 0.5):
+        thr = ThresholdStage(topk=TOPK).from_candidates(
+            luts, codes, cv, ci, fast, torch.tensor(sigma, device="cuda"))
+        ref_k = bs.refine_topk_cuda(codes, lut_slow, crude, thr, TOPK)
+        ref_p = bs.refine_topk_torch(codes, lut_slow, crude, thr, TOPK)
+        check(equal_outputs(ref_k, ref_p), f"refine kernel != plain version "
+              f"at the main path's shape (sigma={sigma})")
+        fin = torch.isfinite(ref_k[0])
+        err = float((ref_k[0][fin].double() - ref_p[0][fin].double()).abs()
+                    .max()) if bool(fin.any()) else 0.0
+        ms = time_ms(lambda: bs.refine_topk_cuda(codes, lut_slow, crude, thr,
+                                                 TOPK), 20)
+        plain_ms = time_ms(lambda: bs.refine_topk_torch(codes, lut_slow,
+                                                        crude, thr, TOPK), 3)
+        survivors = int((crude < thr[:, None]).sum())
+        nbytes = codes.numel() + lut_slow.numel() * 4 + TILE * n * 4 \
+            + TILE * 4 + TILE * TOPK * 8
+        # one compare per point, K adds and one add per survivor
+        b_ms, b_by = bound_ms(nbytes, TILE * n + survivors * (K + 1))
+        if sigma == SIGMA:
+            records["refine_topk"] = dict(
+                name="refine_topk", route="cuda",
+                source="src/repro_torch/kernels/csrc/search_common.cuh",
+                replaces="src/repro/kernels/batched_search.py:441",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+        log(f"kernel refine_topk 8-bit nq={TILE} n={n} sigma={sigma} "
+            f"survivors={survivors} ({survivors / TILE:.1f} per query): "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), max_abs_err {err}")
 
     # the other crude modes at their main-path shapes (printed only)
     lq, sc, of = crude_lut_operands(luts, fast, quantized=True)
@@ -832,8 +866,13 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
                                     "the served shape")
     fin = torch.isfinite(want[0])
     err = float((got[0][fin].double() - want[0][fin].double()).abs().max())
+    # a slab kernel takes tens of µs, about its wrapper's host time: the
+    # record keeps the eager time, one call in a CUDA graph is printed
+    # beside it
     ms = time_ms(lambda: bs.ivf_crude_topk_cuda(cand_codes, cand_ids, lf,
                                                 TOPK), 20)
+    g_ms = graph_ms(lambda: bs.ivf_crude_topk_cuda(cand_codes, cand_ids, lf,
+                                                   TOPK))
     plain_ms = time_ms(lambda: bs.ivf_crude_topk_torch(cand_codes, cand_ids,
                                                        lf, TOPK), 3)
     # the id and the dense crude value of every slab column, the codes of
@@ -847,9 +886,9 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
         replaces="src/repro/kernels/batched_search.py:320",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    log(f"kernel ivf_crude_topk f32 8-bit nq={nq} nc={nc}: {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"max_abs_err {err}")
+    log(f"kernel ivf_crude_topk f32 8-bit nq={nq} nc={nc}: {ms:.4f} ms "
+        f"(eager; {g_ms:.4f} ms in a CUDA graph), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}")
 
     crude, cv, cp = got
     thr = ThresholdStage(topk=TOPK).from_slab_candidates(
@@ -864,6 +903,8 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
                 .max()) if bool(fin.any()) else 0.0
     ms = time_ms(lambda: bs.ivf_refine_topk_cuda(cand_codes, slow, crude,
                                                  thr, TOPK), 20)
+    g_ms = graph_ms(lambda: bs.ivf_refine_topk_cuda(cand_codes, slow, crude,
+                                                    thr, TOPK))
     plain_ms = time_ms(lambda: bs.ivf_refine_topk_torch(cand_codes, slow,
                                                         crude, thr, TOPK), 3)
     survivors = int((crude < thr[:, None]).sum())
@@ -876,13 +917,14 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
     b_ms, b_by = bound_ms(nbytes, nq * nc + survivors * (K + 1))
     records["ivf_refine_topk"] = dict(
         name="ivf_refine_topk", route="cuda",
-        source="src/repro_torch/kernels/csrc/ivf_search.cu",
+        source="src/repro_torch/kernels/csrc/search_common.cuh",
         replaces="src/repro/kernels/batched_search.py:390",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
     log(f"kernel ivf_refine_topk 8-bit nq={nq} nc={nc} survivors="
-        f"{survivors}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), max_abs_err {err}")
+        f"{survivors} ({survivors / nq:.1f} per query): {ms:.4f} ms "
+        f"(eager; {g_ms:.4f} ms in a CUDA graph), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}")
 
     x, cent = emb_db, centroids
     n, d = x.shape

@@ -29,9 +29,10 @@ bit for bit.
 ``*_cuda`` check their operands, allocate the outputs, launch on the
 current stream without synchronising, count the launch in
 ``build.LAUNCHES`` and raise if the launch failed.  Each kernel writes
-sorted candidate lists per query (the crude kernel one per block, the
-others one per 1024-point chunk); ``_merge_lists`` merges them two by
-two down to the top-k.
+sorted candidate lists per query (the slab crude kernel one per
+1024-point chunk, the others one per block, each block keeping a
+running top-k over its chunks); ``_merge_lists`` merges them two by two
+down to the top-k.
 """
 from __future__ import annotations
 
@@ -239,23 +240,38 @@ def _merge_lists(vals, idx, w: int, topk: int, stream):
     return out_v, out_i
 
 
+def _lists(nq: int, size: int, device):
+    """Empty (nq, size) candidate lists: values and columns."""
+    return (torch.empty((nq, size), dtype=torch.float32, device=device),
+            torch.empty((nq, size), dtype=torch.int32, device=device))
+
+
 def _chunk_lists(n: int, nq: int, topk: int, device):
     """Empty (nq, ceil(n / chunk) * w) candidate lists of a kernel that
     writes one list of w = min(topk, chunk) pairs per 1024-point chunk."""
     chunk = build.library("batched_search").icq_chunk_points()
     w = min(topk, chunk)
-    size = (nq, -(-n // chunk) * w)
-    return (torch.empty(size, dtype=torch.float32, device=device),
-            torch.empty(size, dtype=torch.int32, device=device), w)
+    return (*_lists(nq, -(-n // chunk) * w, device), w)
 
 
-def _crude_grid(n, Kc, nq, Km, quantized, nibble, topk) -> int:
-    """Blocks along the points of one crude launch (``icq_crude_plan``:
-    one wave on the current device), one candidate list each."""
-    lib = build.library("batched_search")
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _plan(lib, name: str, *args) -> int:
+    """Blocks along the points (or slab columns) of one launch of a
+    running-list kernel, from its C plan ``name`` (one wave on the
+    current device); each block writes one list of topk per query.
+    Raises ValueError for a shape that no block layout serves."""
     out = (ctypes.c_int * 1)()
-    _raise_on(lib.icq_crude_plan(n, Kc, nq, Km, int(quantized), int(nibble),
-                                 topk, out), lib, "crude_plan")
+    err = getattr(lib, name)(*args, out)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(
+            f"{name}{args}: no block layout serves this shape: one query's "
+            f"LUT beside a staged 1024-row chunk of codes exceeds a block's "
+            f"227 KB of shared memory (the refine passes need 1024 * Kc + "
+            f"4 * Km <= 220000 bytes: K <= 107 codebooks at m = 256), or "
+            f"the query tiles exceed 65535")
+    _raise_on(err, lib, name)
     return out[0]
 
 
@@ -277,11 +293,11 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
     lib, _, stream = _launch_env(dev)
-    grid = _crude_grid(n, Kc, nq, Km, quantized, code_bits == 4, topk)
+    grid = _plan(lib, "icq_crude_plan", n, Kc, nq, Km, int(quantized),
+                 int(code_bits == 4), topk)
     crude = (torch.empty((nq, n), dtype=torch.float32, device=dev)
              if want_crude else None)
-    cand_v = torch.empty((nq, grid * topk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nq, grid * topk), dtype=torch.int32, device=dev)
+    cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_crude_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(lut_scale), _ptr(lut_offset),
         _ptr(crude), _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
@@ -305,15 +321,17 @@ def refine_topk_cuda(codes, lut_flat, crude, thresholds, topk: int, *,
     _check_operand(lut_flat, "lut_flat", (nq, Km), torch.float32, dev)
     _check_operand(crude, "crude", (nq, n), torch.float32, dev)
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
-    lib, sms, stream = _launch_env(dev)
-    cand_v, cand_i, w = _chunk_lists(n, nq, topk, dev)
+    lib, _, stream = _launch_env(dev)
+    grid = _plan(lib, "icq_refine_plan", n, Kc, nq, Km, int(code_bits == 4),
+                 topk)
+    cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_refine_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(crude), _ptr(thresholds),
         _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
-        int(code_bits == 4), topk, sms, stream),
+        int(code_bits == 4), topk, grid, stream),
         lib, "refine_topk")
     build.LAUNCHES["refine_topk"] += 1
-    return _merge_lists(cand_v, cand_i, w, topk, stream)
+    return _merge_lists(cand_v, cand_i, topk, topk, stream)
 
 
 def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
@@ -360,12 +378,14 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
     _check_operand(lut_flat, "lut_flat", (nq, Km), torch.float32, dev)
     _check_operand(crude, "crude", (nq, nc), torch.float32, dev)
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
-    lib, sms, stream = _launch_env(dev, "ivf_search")
-    cand_v, cand_i, w = _chunk_lists(nc, nq, topk, dev)
+    lib, _, stream = _launch_env(dev, "ivf_search")
+    grid = _plan(lib, "icq_ivf_refine_plan", nq, nc, Kc, Km,
+                 int(code_bits == 4), topk)
+    cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_ivf_refine_topk(
         _ptr(cand_codes), _ptr(lut_flat), _ptr(crude), _ptr(thresholds),
         _ptr(cand_v), _ptr(cand_i), nq, nc, Kc, Km, m,
-        int(code_bits == 4), topk, sms, stream),
+        int(code_bits == 4), topk, grid, stream),
         lib, "ivf_refine_topk")
     build.LAUNCHES["ivf_refine_topk"] += 1
-    return _merge_lists(cand_v, cand_i, w, topk, stream)
+    return _merge_lists(cand_v, cand_i, topk, topk, stream)

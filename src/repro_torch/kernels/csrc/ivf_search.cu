@@ -25,17 +25,29 @@
 //     matvec exists for the MXU and does not carry over.
 //   * Invalid slab columns (id < 0) are +inf in the dense crude output,
 //     so the refine pass inherits the mask through crude < thr.
-//   * Top-k: the chunk sort of search_common.cuh keeps the first
+//   * Crude top-k: the chunk sort of search_common.cuh keeps the first
 //     w = min(topk, 1024) (value, position) pairs of each chunk, so a
-//     list holds its whole chunk when topk >= 1024; the flat kernels'
-//     merge launches (icq_merge_lists levels, then icq_merge_block, in
-//     batched_search.cu) merge the per-chunk lists per query two by
-//     two.  The order is total, so the
+//     list holds its whole chunk when topk >= 1024.
+//   * Refine: the flat refine kernel itself (refine_scan_kernel in
+//     search_common.cuh), launched with a query tile of one and each
+//     query's own slab as its code rows; a row's index is its slab
+//     position.  A block walks its chunks of the slab in ascending
+//     order, admits only points below its list's bar into a pending
+//     buffer and merges it when the list still holds pads, when it
+//     would overflow, and at the end; the next chunk's code rows and
+//     crude values are staged with cp.async meanwhile.  A few percent of
+//     the valid columns survive on the served cells, so after its first
+//     chunk a round is a margin test, a few slow sums and a barrier.
+//     Blocks per query: one wave (occupancy calculator), at most one per
+//     chunk and one per topk columns (icq_ivf_refine_plan), so a query
+//     has a few lists to merge.
+//   * Both write sorted lists per query that the flat kernels' merge
+//     launches (icq_merge_lists levels, then icq_merge_block, in
+//     batched_search.cu) merge two by two.  The order is total, so the
 //     result equals one sort of the whole slab row: lowest position
 //     first among ties, and the +inf tail carries the lowest +inf
 //     positions.  Pads past the slab are (+inf, INT_MAX) and sort after
-//     it.  Any topk <= nc is served.  These two kernels keep the sort
-//     of every chunk (the flat crude kernel no longer does).
+//     it.  Any topk <= nc is served.
 //   * Sum order and rounding equal the plain PyTorch version bit for bit
 //     (codebook order from 0.0, __fadd_rn / __fmul_rn), as in the flat
 //     kernels.
@@ -43,8 +55,8 @@
 
 namespace {
 
-// Dynamic shared memory of one slab block: sort keys, code rows and the
-// query's flattened LUT.
+// Dynamic shared memory of one slab crude block: the chunk's sort keys,
+// its code rows and the query's flattened LUT.
 __host__ __device__ size_t slab_smem_bytes(int Kc, int Km, int lut_esize) {
   return size_t(kChunk) * (sizeof(float) + sizeof(int)) +
          align16(size_t(kChunk) * Kc) + align16(size_t(Km) * lut_esize);
@@ -57,13 +69,15 @@ struct SlabSmem {
   unsigned char* lut;
 };
 
-__device__ SlabSmem carve_slab(unsigned char* base, int Kc) {
+__device__ SlabSmem carve_slab(unsigned char* base, int Kc, int Km,
+                               int lut_esize) {
   SlabSmem s;
   s.val = reinterpret_cast<float*>(base);
   s.idx = reinterpret_cast<int*>(base + kChunk * sizeof(float));
   size_t off = size_t(kChunk) * (sizeof(float) + sizeof(int));
   s.codes = base + off;
-  s.lut = base + off + align16(size_t(kChunk) * Kc);
+  off += align16(size_t(kChunk) * Kc);
+  s.lut = base + off;
   return s;
 }
 
@@ -79,7 +93,7 @@ slab_crude_kernel(const uint8_t* __restrict__ codes,
                   int* __restrict__ cand_i, int nc, int Kc, int Km, int m,
                   int w) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const SlabSmem s = carve_slab(smem, Kc);
+  const SlabSmem s = carve_slab(smem, Kc, Km, QUANT ? 1 : 4);
   const int q = blockIdx.y;
   const long row0 = long(q) * nc;
   const int nchunks = (nc + kChunk - 1) / kChunk;
@@ -116,51 +130,6 @@ slab_crude_kernel(const uint8_t* __restrict__ codes,
                                     row, Kc, m);
         }
         crude[row0 + gi] = d;
-        pos = int(gi);
-      }
-      s.val[p] = d;
-      s.idx[p] = pos;
-    }
-    __syncthreads();
-    bitonic_sort(s.val, s.idx);
-    write_list(s.val, s.idx, cand_v, cand_i, q, nchunks, chunk, w);
-  }
-}
-
-// Phase 2: the margin test crude < thr (invalid columns are +inf), the
-// slow-masked f32 LUT sum for survivors, full = crude + slow; the rest
-// rank +inf.
-template <bool NIBBLE>
-__global__ void __launch_bounds__(kThreads)
-slab_refine_kernel(const uint8_t* __restrict__ codes,
-                   const float* __restrict__ lut_g,
-                   const float* __restrict__ crude,
-                   const float* __restrict__ thr_g,
-                   float* __restrict__ cand_v, int* __restrict__ cand_i,
-                   int nc, int Kc, int Km, int m, int w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const SlabSmem s = carve_slab(smem, Kc);
-  const float* lut = reinterpret_cast<const float*>(s.lut);
-  const int q = blockIdx.y;
-  const long row0 = long(q) * nc;
-  const int nchunks = (nc + kChunk - 1) / kChunk;
-  for (int i = threadIdx.x; i < Km; i += blockDim.x)
-    reinterpret_cast<float*>(s.lut)[i] = lut_g[long(q) * Km + i];
-  const float thr = thr_g[q];
-  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
-    const long base = long(chunk) * kChunk;
-    __syncthreads();
-    load_codes(s.codes, codes + row0 * Kc, base, nc, Kc);
-    __syncthreads();
-    for (int p = threadIdx.x; p < kChunk; p += blockDim.x) {
-      const long gi = base + p;
-      float d = CUDART_INF_F;
-      int pos = INT_MAX;
-      if (gi < nc) {
-        const float c = crude[row0 + gi];
-        if (c < thr)
-          d = __fadd_rn(c, row_sum_f32<NIBBLE>(lut, s.codes + p * Kc, Kc,
-                                               m));
         pos = int(gi);
       }
       s.val[p] = d;
@@ -226,32 +195,26 @@ int icq_ivf_crude_topk(const void* codes, const void* ids, const void* lut,
   return int(e);
 }
 
+// The slab refine's blocks per query, for the caller to size its
+// candidate lists (nq, out[0], topk): one wave of blocks (as many as fit
+// on all SMs at this shared memory, divided among the queries), at most
+// one per 1024-row chunk and one per topk columns.  Returns
+// cudaErrorInvalidValue for another shape.
+int icq_ivf_refine_plan(int nq, int nc, int Kc, int Km, int nibble,
+                        int topk, int* out) {
+  return refine_plan<1>(nc, Kc, nq, Km, nibble, topk, out);
+}
+
 // Phase 2.  codes as in phase 1; lut (nq, Km) f32 slow-masked; crude
-// (nq, nc) f32 from phase 1; thr (nq,) f32; cand_v / cand_i as in
-// phase 1.
+// (nq, nc) f32 from phase 1; thr (nq,) f32; out_v / out_i (nq, grid,
+// topk), grid from icq_ivf_refine_plan.
 int icq_ivf_refine_topk(const void* codes, const void* lut, const void* crude,
-                        const void* thr, void* cand_v, void* cand_i, int nq,
+                        const void* thr, void* out_v, void* out_i, int nq,
                         int nc, int Kc, int Km, int m, int nibble, int topk,
-                        int num_sms, void* stream) {
-  const size_t smem = slab_smem_bytes(Kc, Km, 4);
-  if (!slab_args_ok(nq, nc, topk, smem)) return int(cudaErrorInvalidValue);
-  const int w = min(topk, kChunk);
-  const dim3 grid = slab_grid(nc, nq, num_sms);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const float* l = static_cast<const float*>(lut);
-  const float* cr = static_cast<const float*>(crude);
-  const float* t = static_cast<const float*>(thr);
-  float* cv = static_cast<float*>(cand_v);
-  int* ci = static_cast<int*>(cand_i);
-  cudaError_t e;
-  if (nibble)
-    e = launch_with_smem(slab_refine_kernel<true>, grid, smem, s, c, l, cr, t,
-                         cv, ci, nc, Kc, Km, m, w);
-  else
-    e = launch_with_smem(slab_refine_kernel<false>, grid, smem, s, c, l, cr,
-                         t, cv, ci, nc, Kc, Km, m, w);
-  return int(e);
+                        int grid_x, void* stream) {
+  return refine_launch<1>(codes, long(nc) * Kc, lut, crude, thr, out_v,
+                          out_i, nc, Kc, nq, Km, m, nibble, topk, grid_x,
+                          stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,12 @@
 // Device code shared by the search kernels (batched_search.cu for the
 // flat pass, ivf_search.cu for the IVF candidate slab): the chunk
 // geometry, the two-key bitonic sort, the co-rank merge of two sorted
-// lists, the staging of code rows, the codebook-order LUT sums and the
-// per-chunk list write.
+// lists, the running per-block top-k (admission behind a bar, warp-ballot
+// compaction, merge of the candidate buffer into the list), the staging
+// of LUT tiles and code rows, the codebook-order LUT sums, the
+// per-chunk list write, and the scan block (shared-memory layout,
+// tiling, plan) with the one refine kernel that both the flat and the
+// IVF refine pass launch.
 //
 // Each source is compiled into its own shared library, so every helper
 // here has internal linkage (anonymous namespace) in the one
@@ -19,11 +23,21 @@ namespace {
 
 constexpr int kChunk = 1024;    // rows per block step == sort width
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerThread = kChunk / kThreads;   // a thread's chunk points
 constexpr size_t kMaxSmem = 227 * 1024;
+// candidate buffers up to this size merge by rank (no sort); larger ones
+// are bitonic-sorted and merged by co-rank
+constexpr int kRankMerge = 64;
 
 __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
+
+// Shared scratch of the running top-k (list_round): the +inf candidates
+// of each (point group r, warp) of a round.
+constexpr int kListScratchInts = kPerThread * kWarps;
+constexpr size_t kListScratchBytes = align16(kListScratchInts * sizeof(int));
 
 __device__ __forceinline__ bool key_less(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
@@ -84,22 +98,341 @@ __device__ __forceinline__ void merged_at(const float* av, const int* ai,
   }
 }
 
+// Merge the c sorted candidates (bv, bi) into the ascending list (lv, li)
+// of topk pairs, keeping its first topk, in place: rounds of blockDim.x
+// output positions from the back, each computed (co-rank search over
+// the list and the buffer) before any is written.  A round reads list
+// pairs at positions <= its own, which later (lower) rounds have not
+// written yet.  All threads call it; it synchronises after each round.
+__device__ void merge_into_list(float* lv, int* li, int topk,
+                                const float* bv, const int* bi, int c) {
+  for (int start = (topk - 1) / int(blockDim.x) * int(blockDim.x);
+       start >= 0; start -= int(blockDim.x)) {
+    const int t = start + threadIdx.x;
+    float v = 0.0f;
+    int id = 0;
+    if (t < topk) merged_at(lv, li, topk, bv, bi, c, t, v, id);
+    __syncthreads();
+    if (t < topk) {
+      lv[t] = v;
+      li[t] = id;
+    }
+    __syncthreads();
+  }
+}
+
+// Merge a small unsorted candidate buffer (c <= blockDim.x pairs) into
+// the ascending list, in place, without sorting it: list pair i moves to
+// i + #(candidates below it), candidate b to #(list pairs below it) +
+// #(candidates below it), and whatever lands at topk or past it falls
+// off.  Keys are distinct (pads only repeat in the list, and keep their
+// order), so the positions below topk are each taken once.  Candidate
+// positions are taken from the
+// list before it moves and written last, into the holes; list pairs move
+// right only, in rounds from the back as in merge_into_list.
+__device__ void rank_into_list(float* lv, int* li, int topk,
+                               const float* bv, const int* bi, int c) {
+  int cpos = topk;
+  float cv = 0.0f;
+  int ci = 0;
+  if (int(threadIdx.x) < c) {
+    cv = bv[threadIdx.x];
+    ci = bi[threadIdx.x];
+    int lo = 0, hi = topk;           // list pairs below the candidate
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (key_less(lv[mid], li[mid], cv, ci))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    cpos = lo;
+    for (int b = 0; b < c; ++b) cpos += key_less(bv[b], bi[b], cv, ci);
+  }
+  for (int start = (topk - 1) / int(blockDim.x) * int(blockDim.x);
+       start >= 0; start -= int(blockDim.x)) {
+    const int t = start + threadIdx.x;
+    float v = 0.0f;
+    int id = 0, to = topk;
+    if (t < topk) {
+      v = lv[t];
+      id = li[t];
+      to = t;
+      for (int b = 0; b < c; ++b) to += key_less(bv[b], bi[b], v, id);
+    }
+    __syncthreads();
+    if (to < topk) {
+      lv[to] = v;
+      li[to] = id;
+    }
+    __syncthreads();
+  }
+  if (cpos < topk) {
+    lv[cpos] = cv;
+    li[cpos] = ci;
+  }
+  __syncthreads();
+}
+
+// A block's running top-k of one query: the ascending list (v, i) of
+// topk (value, index) pairs, its pending buffer (bv, bi; kChunk pairs)
+// of candidates not merged yet, and two ints of shared memory: the
+// buffer's count and the first position a round could not write.
+struct RunningList {
+  float* v;
+  int* i;
+  float* bv;
+  int* bi;
+  int* count;   // count[0]: pending pairs; count[1]: first unwritten
+  int topk;
+};
+
+// An empty running list: topk pads (+inf, INT_MAX), which sort after
+// every real point, the +inf ones included; nothing pending.
+__device__ void start_list(const RunningList& L) {
+  for (int t = threadIdx.x; t < L.topk; t += blockDim.x) {
+    L.v[t] = CUDART_INF_F;
+    L.i[t] = INT_MAX;
+  }
+  if (threadIdx.x == 0) {
+    L.count[0] = 0;
+    L.count[1] = INT_MAX;
+  }
+}
+
+// Merge the first c pending pairs into the list: up to kRankMerge by
+// rank, more by a bitonic sort of the buffer and a co-rank merge.  c is
+// uniform; all threads call it and it ends with a barrier.
+__device__ void merge_pending(const RunningList& L, int c) {
+  if (c <= kRankMerge) {
+    rank_into_list(L.v, L.i, L.topk, L.bv, L.bi, c);
+    return;
+  }
+  int P = 1;
+  while (P < c) P <<= 1;
+  for (int t = c + threadIdx.x; t < P; t += blockDim.x) {
+    L.bv[t] = CUDART_INF_F;
+    L.bi[t] = INT_MAX;
+  }
+  __syncthreads();
+  bitonic_sort_n(L.bv, L.bi, P);
+  merge_into_list(L.v, L.i, L.topk, L.bv, L.bi, c);
+}
+
+// Merge whatever is pending (at the end of a block's walk).  All threads
+// call it.
+__device__ void flush_list(const RunningList& L) {
+  __syncthreads();
+  const int c = L.count[0];
+  if (c > 0) {
+    merge_pending(L, c);
+    if (threadIdx.x == 0) L.count[0] = 0;
+  }
+}
+
+__device__ void store_list(float* out_v, int* out_i, const float* lv,
+                           const int* li, int topk) {
+  for (int t = threadIdx.x; t < topk; t += blockDim.x) {
+    out_v[t] = lv[t];
+    out_i[t] = li[t];
+  }
+}
+
+// One round of a running top-k: the points of one chunk for one query
+// enter the list L.  Thread t holds the chunk's points t + r * kThreads
+// (r < kPerThread), of index base + t + r * kThreads and value v[r];
+// indices >= limit are absent.  The list's last pair is the bar tau: a
+// point is a candidate only if its key is below it.  Candidates are
+// compacted into the pending buffer with one ballot per point group and
+// one shared-memory add per warp.
+//
+// Without KEEP the buffer is merged into the list at the end of the
+// round (the crude pass: one buffer serves every query of its tile).
+// With KEEP it is merged only when the list still holds pads, when it
+// would overflow, and at the end of the walk (flush_list): the bar stays
+// where the last merge left it, so later rounds admit more candidates
+// than a fresh bar would, which only costs buffer room, and a round
+// whose candidates fit costs one barrier and no merge.
+//
+// +inf points (pruned by a margin test) rank by index, lowest first, and
+// fill the list while it holds pads.  In such a round a +inf point is a
+// candidate only if fewer than topk +inf candidates of the chunk have a
+// lower index (a block-wide prefix count): the others would fall off
+// the list behind those.  Membership is decided by the keys alone; the
+// cap only keeps the first chunk of a block from filling the buffer.
+// Once a block's list is full, +inf points of its later (higher) chunks
+// are above the bar, since a block walks its chunks in ascending order.
+//
+// scratch: kListScratchInts ints, shared by the block's lists.  The list
+// and its buffer are read and written only between barriers, so every
+// thread sees the same bar and counts.  All threads call it.
+template <bool KEEP>
+__device__ __forceinline__ void list_round(const RunningList& L,
+                                           int* scratch,
+                                           const float (&v)[kPerThread],
+                                           int base, int limit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int* inf_count = scratch;
+  const float tau_v = L.v[L.topk - 1];
+  const int tau_i = L.i[L.topk - 1];
+  const bool pads = tau_i == INT_MAX;
+  bool enter[kPerThread];
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int id = base + int(threadIdx.x) + r * kThreads;
+    enter[r] = id < limit && key_less(v[r], id, tau_v, tau_i);
+  }
+  if (pads) {                        // cap the +inf candidates
+    unsigned inf_mask[kPerThread];
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      inf_mask[r] = __ballot_sync(0xffffffffu,
+                                  enter[r] && v[r] == CUDART_INF_F);
+      if (lane == 0) inf_count[r * kWarps + warp] = __popc(inf_mask[r]);
+    }
+    __syncthreads();
+    int before = 0;                  // +inf candidates of lower index
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      for (int j = r == 0 ? 0 : (r - 1) * kWarps + warp; j < r * kWarps + warp;
+           ++j)
+        before += inf_count[j];
+      if (inf_mask[r] >> lane & 1u)
+        enter[r] = before + __popc(inf_mask[r] & below) < L.topk;
+    }
+  }
+  unsigned mask[kPerThread];
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    mask[r] = __ballot_sync(0xffffffffu, enter[r]);
+    total += __popc(mask[r]);
+  }
+  // a warp writes its candidates only if all of them fit; else it marks
+  // the first position it could not write, and writes after a merge
+  // (without KEEP the buffer is empty at the start of a round and holds
+  // a chunk, so everything fits)
+  auto place = [&]() {
+    int at = 0;
+    if (lane == 0 && total != 0) at = atomicAdd(L.count, total);
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (KEEP && at + total > kChunk) {
+      if (lane == 0) atomicMin(L.count + 1, at);
+      return false;
+    }
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      if (enter[r]) {
+        const int pos = at + __popc(mask[r] & below);
+        L.bv[pos] = v[r];
+        L.bi[pos] = base + int(threadIdx.x) + r * kThreads;
+      }
+      at += __popc(mask[r]);
+    }
+    return true;
+  };
+  const bool placed = place();
+  __syncthreads();
+  int c = L.count[0];
+  if (KEEP && c > kChunk) {          // uniform: merge what was written
+    merge_pending(L, L.count[1]);
+    if (threadIdx.x == 0) {
+      L.count[0] = 0;
+      L.count[1] = INT_MAX;
+    }
+    __syncthreads();
+    if (!placed) place();            // this round's candidates all fit
+    __syncthreads();
+    c = L.count[0];
+  }
+  if (c > 0 && (!KEEP || pads)) {
+    merge_pending(L, c);
+    if (threadIdx.x == 0) L.count[0] = 0;
+  }
+}
+
+// Rows [q0, q0 + qt) of a row-major (nq, Km) table into shared memory,
+// rows past nq zeroed; eight independent loads in flight per thread.
+template <typename T>
+__device__ void load_table_tile(T* dst, const T* __restrict__ src, int q0,
+                                int qt, int nq, int Km) {
+  const int total = qt * Km, valid = (min(q0 + qt, nq) - q0) * Km;
+  src += long(q0) * Km;
+  for (int i0 = threadIdx.x; i0 < total; i0 += 8 * int(blockDim.x)) {
+    T t[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * int(blockDim.x);
+      t[u] = i < valid ? src[i] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * int(blockDim.x);
+      if (i < total) dst[i] = t[u];
+    }
+  }
+}
+
+// 16- and 4-byte copies from global to shared memory that complete
+// asynchronously (cp.async), and the wait for all of a thread's copies.
+template <int BYTES, typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == BYTES, "one element per copy");
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Copy nbytes from global to shared memory (the destination 16-byte
+// aligned): 16-byte pieces when the source is 16-byte aligned, 4-byte
+// words when it is 4-byte aligned, bytes for the rest.  With async, the
+// pieces and words are cp.async copies that the caller waits for
+// (cp_async_wait_all) before the barrier that publishes them.
+template <typename T>
+__device__ __forceinline__ int stage_pieces(void* dst, const void* src,
+                                            int nbytes, bool async) {
+  const int n = nbytes / int(sizeof(T));
+  const T* s = static_cast<const T*>(src);
+  T* d = static_cast<T*>(dst);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (async)
+      cp_async<sizeof(T)>(d + i, s + i);
+    else
+      d[i] = s[i];
+  }
+  return n * int(sizeof(T));
+}
+__device__ void stage_bytes(void* dst, const void* src, int nbytes,
+                            bool async) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  int done = 0;
+  if ((a & 15) == 0)
+    done = stage_pieces<uint4>(dst, src, nbytes, async);
+  else if ((a & 3) == 0)
+    done = stage_pieces<uint32_t>(dst, src, nbytes, async);
+  for (int i = done + threadIdx.x; i < nbytes; i += blockDim.x)
+    static_cast<uint8_t*>(dst)[i] = static_cast<const uint8_t*>(src)[i];
+}
+
 // Stage the code rows [base, base + kChunk) of the (n, Kc) uint8 codes.
 __device__ void load_codes(uint8_t* dst, const uint8_t* __restrict__ codes,
-                           long base, long n, int Kc) {
+                           long base, long n, int Kc, bool async = false) {
   const long rows = min(long(kChunk), n - base);
-  const int nbytes = int(rows) * Kc;
-  const uint8_t* src = codes + base * Kc;
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int nvec = nbytes >> 4;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = s4[i];
-    done = nvec << 4;
-  }
-  for (int i = done + threadIdx.x; i < nbytes; i += blockDim.x)
-    dst[i] = src[i];
+  stage_bytes(dst, codes + base * Kc, int(rows) * Kc, async);
 }
 
 // Byte kc of a code row.  Rows of a multiple of 4 bytes are read as
@@ -184,6 +517,285 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// ---- scan blocks: the flat crude pass and both refine passes ----------
+//
+// A scan block walks its chunks (strided over the rows, in ascending
+// order) for a tile of qt queries and keeps a running list per query.
+
+// Dynamic shared memory of one scan block: candidate buffers (the crude
+// pass one for its tile, the refine pass one per query, which keeps its
+// candidates pending across chunks), `stages` staging buffers of code
+// rows (in the refine pass with the crude values of its tile beside
+// them), LUTs of the query tile, per-query scalars (scale/offset or
+// threshold), the running top-k's scratch and counts and, when they
+// fit, the qt running lists of topk pairs.
+__host__ __device__ size_t stage_bytes_per_buf(int Kc, int qt, bool refine) {
+  return align16(size_t(kChunk) * Kc) +
+         (refine ? size_t(qt) * kChunk * sizeof(float) : 0);
+}
+__host__ __device__ size_t scan_smem_bytes(int Kc, int qt, int Km,
+                                           int lut_esize, int n_scalars,
+                                           int topk, bool lists_in_smem,
+                                           bool refine, int stages) {
+  const int buffers = refine ? qt : 1;
+  return size_t(buffers) * kChunk * (sizeof(float) + sizeof(int)) +
+         stages * stage_bytes_per_buf(Kc, qt, refine) +
+         align16(size_t(qt) * Km * lut_esize) +
+         align16(size_t(n_scalars) * qt * sizeof(float)) + kListScratchBytes +
+         align16(size_t(2) * qt * sizeof(int)) +
+         (lists_in_smem ? size_t(qt) * topk * (sizeof(float) + sizeof(int))
+                        : 0);
+}
+
+struct ScanSmem {
+  float* val;       // candidate buffers of kChunk pairs
+  int* idx;
+  uint8_t* stage;   // staging buffers: kChunk code rows (then, in the
+  size_t stage_buf; // refine pass, qt rows of kChunk crude values)
+  size_t crude_off; // bytes between buffers; the crude rows' offset
+  unsigned char* lut;
+  float* scalars;
+  int* scratch;
+  int* counts;      // two per query
+  float* list_v;    // qt lists of topk pairs, when they fit
+  int* list_i;
+};
+
+__device__ ScanSmem carve(unsigned char* base, int Kc, int qt, int Km,
+                          int lut_esize, int n_scalars, int topk,
+                          bool refine, int stages) {
+  const int buffers = refine ? qt : 1;
+  ScanSmem s;
+  s.val = reinterpret_cast<float*>(base);
+  s.idx = reinterpret_cast<int*>(s.val + size_t(buffers) * kChunk);
+  size_t off = size_t(buffers) * kChunk * (sizeof(float) + sizeof(int));
+  s.stage = base + off;
+  s.stage_buf = stage_bytes_per_buf(Kc, qt, refine);
+  s.crude_off = align16(size_t(kChunk) * Kc);
+  off += stages * s.stage_buf;
+  s.lut = base + off;
+  off += align16(size_t(qt) * Km * lut_esize);
+  s.scalars = reinterpret_cast<float*>(base + off);
+  off += align16(size_t(n_scalars) * qt * sizeof(float));
+  s.scratch = reinterpret_cast<int*>(base + off);
+  off += kListScratchBytes;
+  s.counts = reinterpret_cast<int*>(base + off);
+  off += align16(size_t(2) * qt * sizeof(int));
+  s.list_v = reinterpret_cast<float*>(base + off);
+  s.list_i = reinterpret_cast<int*>(s.list_v + size_t(qt) * topk);
+  return s;
+}
+
+// Block x's running lists of the queries of its tile: in shared memory,
+// or (lists_in_smem = false) its own output rows q * gridDim.x + x of
+// the (nq, gridDim.x, topk) candidate lists.  Query q's candidates go to
+// buffer q (the refine pass) or all to buffer 0 (the crude pass).
+struct BlockLists {
+  const ScanSmem& s;
+  float* out_v;
+  int* out_i;
+  int q0, topk;
+  bool in_smem, buffer_per_query;
+  __device__ long row(int q) const {
+    return (long(q0 + q) * gridDim.x + blockIdx.x) * topk;
+  }
+  __device__ RunningList operator[](int q) const {
+    const size_t b = buffer_per_query ? size_t(q) * kChunk : 0;
+    return RunningList{in_smem ? s.list_v + size_t(q) * topk : out_v + row(q),
+                       in_smem ? s.list_i + size_t(q) * topk : out_i + row(q),
+                       s.val + b, s.idx + b, s.counts + 2 * q, topk};
+  }
+  __device__ void start(int nql) const {
+    for (int q = 0; q < nql; ++q) start_list((*this)[q]);
+  }
+  // pending candidates merged, the lists in shared memory written out;
+  // all threads call it
+  __device__ void finish(int nql) const {
+    for (int q = 0; q < nql; ++q) flush_list((*this)[q]);
+    if (!in_smem) return;
+    __syncthreads();
+    for (int q = 0; q < nql; ++q)
+      store_list(out_v + row(q), out_i + row(q), (*this)[q].v, (*this)[q].i,
+                 topk);
+  }
+};
+
+// Phase 2, flat and IVF: the margin test crude < thr, the slow-masked
+// f32 LUT sum for survivors, full = crude + slow; pruned points rank
+// +inf.  grid (x: blocks strided over the n rows' chunks, y: query
+// tiles of qt).  codes (n, Kc) rows shared by every query (codes_q_
+// stride 0, the flat pass), or each query's own slab of n rows
+// (codes_q_stride n * Kc, qt = 1: the IVF pass, where a row's index is
+// its slab position).  crude (nq, n); out_v / out_i (nq, gridDim.x,
+// topk): block x's list of query q is row (q * gridDim.x + x).
+//
+// A running list per query with a pending buffer (list_round<true>):
+// the served cells let a few rows per chunk and query through, so a
+// round is a margin test, a few slow sums and one barrier, and a list
+// merges rarely.  With two stages the next chunk's code rows and crude
+// values are staged (cp.async) into the other buffer while the block
+// works on the current chunk; with one (codes too wide for two) they
+// are staged after it.
+template <bool NIBBLE>
+__global__ void __launch_bounds__(kThreads)
+refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
+                   const float* __restrict__ lut_g,
+                   const float* __restrict__ crude,
+                   const float* __restrict__ thr_g, float* out_v, int* out_i,
+                   int n, int Kc, int nq, int Km, int m, int topk, int qt,
+                   int stages, bool lists_in_smem) {
+  // named apart from the other sources' own dynamic shared arrays
+  extern __shared__ __align__(16) unsigned char scan_smem[];
+  const ScanSmem s = carve(scan_smem, Kc, qt, Km, 4, 1, topk, true, stages);
+  const float* lut = reinterpret_cast<const float*>(s.lut);
+  const int q0 = blockIdx.y * qt;
+  const int nql = min(qt, nq - q0);
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  const BlockLists lists{s, out_v, out_i, q0, topk, lists_in_smem, true};
+  codes += long(blockIdx.y) * codes_q_stride;
+  // a chunk's code rows and its crude rows of the tile into buffer b
+  auto stage = [&](int chunk, int b) {
+    const long base = long(chunk) * kChunk;
+    uint8_t* dst = s.stage + b * s.stage_buf;
+    load_codes(dst, codes, base, n, Kc, true);
+    const int rows = int(min(long(kChunk), n - base));
+    for (int q = 0; q < nql; ++q)
+      stage_bytes(dst + s.crude_off + size_t(q) * kChunk * sizeof(float),
+                  crude + long(q0 + q) * n + base, rows * int(sizeof(float)),
+                  true);
+  };
+  if (blockIdx.x < nchunks) stage(blockIdx.x, 0);
+  load_table_tile(reinterpret_cast<float*>(s.lut), lut_g, q0, qt, nq, Km);
+  for (int i = threadIdx.x; i < qt; i += blockDim.x)
+    s.scalars[i] = q0 + i < nq ? thr_g[q0 + i] : 0.0f;
+  lists.start(nql);
+  int buf = 0;
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const long base = long(chunk) * kChunk;
+    const int next = chunk + int(gridDim.x);
+    cp_async_wait_all();   // this chunk's rows
+    __syncthreads();       // ... for every thread; the other buffer's
+                           // readers (the previous chunk) are done
+    if (stages == 2 && next < nchunks) stage(next, buf ^ 1);
+    const uint8_t* rows = s.stage + buf * s.stage_buf;
+    const float* cr = reinterpret_cast<const float*>(rows + s.crude_off);
+    for (int q = 0; q < nql; ++q) {
+      const float thr = s.scalars[q];
+      float v[kPerThread];
+#pragma unroll
+      for (int r = 0; r < kPerThread; ++r) {
+        const int p = threadIdx.x + r * kThreads;
+        v[r] = CUDART_INF_F;
+        if (base + p < n) {
+          const float c = cr[q * kChunk + p];
+          if (c < thr)
+            v[r] = __fadd_rn(c, row_sum_f32<NIBBLE>(lut + q * Km,
+                                                    rows + p * Kc, Kc, m));
+        }
+      }
+      list_round<true>(lists[q], s.scratch, v, int(base), n);
+    }
+    if (stages == 1 && next < nchunks) {
+      __syncthreads();     // this chunk's readers are done
+      stage(next, 0);
+    }
+    buf ^= stages - 1;
+  }
+  lists.finish(nql);
+}
+
+// A scan pass's shape: the largest query tile (at most max_qt) whose
+// running lists fit in shared memory beside the LUTs; if none does, the
+// largest tile without them (lists in global memory).  The refine pass
+// double-buffers its staging (stages = 2) unless not even one query
+// fits that way, and then stages after each chunk.  qt = 0: nothing
+// fits.
+struct ScanTiling {
+  int qt, stages;
+  bool lists_in_smem;
+  size_t smem;
+};
+
+ScanTiling scan_tiling(int Kc, int Km, int lut_esize, int n_scalars,
+                       int topk, bool refine, int max_qt) {
+  for (int stages = refine ? 2 : 1; stages >= 1; --stages) {
+    for (int lists = 1; lists >= 0; --lists) {
+      for (int qt = max_qt; qt >= 1; qt >>= 1) {
+        const size_t b = scan_smem_bytes(Kc, qt, Km, lut_esize, n_scalars,
+                                         topk, lists, refine, stages);
+        if (b <= kMaxSmem) return ScanTiling{qt, stages, lists == 1, b};
+      }
+    }
+  }
+  return ScanTiling{0, 1, true, 0};
+}
+
+ScanTiling refine_tiling(int Kc, int Km, int topk, int max_qt) {
+  return scan_tiling(Kc, Km, 4, 1, topk, true, max_qt);
+}
+
+bool scan_args_ok(const ScanTiling& t, int n, int nq, int topk) {
+  return t.qt > 0 && n >= 1 && nq >= 1 && (nq + t.qt - 1) / t.qt <= 65535 &&
+         topk >= 1 && topk <= n;
+}
+
+// Blocks along the rows of a scan launch, for the caller to size its
+// candidate lists (nq, out[0], topk): one wave of blocks (as many as fit
+// on all SMs at this shared memory, divided among the query tiles), at
+// most one per 1024-row chunk and one per topk rows (the lists then
+// hold at most nq x n pairs).
+template <typename Kernel>
+int scan_plan(Kernel kernel, const ScanTiling& t, int n, int nq, int topk,
+              int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(t.smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, t.smem);
+  if (e != cudaSuccess) return int(e);
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  const int qtiles = (nq + t.qt - 1) / t.qt;
+  const int wave = max(1, per_sm) * sms / qtiles;
+  out[0] = max(1, min(min(nchunks, n / topk), wave));
+  return int(cudaSuccess);
+}
+
+// The refine pass's plan and launch, flat (MAX_QT > 1, codes_q_stride
+// 0) and IVF (MAX_QT = 1, codes_q_stride n * Kc).  Both return
+// cudaErrorInvalidValue for a shape that no tiling serves.  Templates,
+// so that only the sources that launch the kernel compile it.
+template <int MAX_QT>
+int refine_plan(int n, int Kc, int nq, int Km, int nibble, int topk,
+                int* out) {
+  const ScanTiling t = refine_tiling(Kc, Km, topk, MAX_QT);
+  if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
+  if (nibble) return scan_plan(refine_scan_kernel<true>, t, n, nq, topk, out);
+  return scan_plan(refine_scan_kernel<false>, t, n, nq, topk, out);
+}
+
+template <int MAX_QT>
+int refine_launch(const void* codes, long codes_q_stride, const void* lut,
+                  const void* crude, const void* thr, void* out_v,
+                  void* out_i, int n, int Kc, int nq, int Km, int m,
+                  int nibble, int topk, int grid_x, void* stream) {
+  const ScanTiling t = refine_tiling(Kc, Km, topk, MAX_QT);
+  if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
+    return int(cudaErrorInvalidValue);
+  auto kernel = nibble ? refine_scan_kernel<true> : refine_scan_kernel<false>;
+  return int(launch_with_smem(
+      kernel, dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
+      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
+      codes_q_stride, static_cast<const float*>(lut),
+      static_cast<const float*>(crude), static_cast<const float*>(thr),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), n, Kc, nq, Km, m,
+      topk, t.qt, t.stages, t.lists_in_smem));
 }
 
 }  // namespace

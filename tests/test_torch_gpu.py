@@ -450,6 +450,175 @@ def test_cuda_crude_topk_lists_in_global_memory():
         assert torch.equal(g, w)
 
 
+def _refine_regime(crude, regime):
+    """(crude, thresholds) of one refine regime: no point passes, every
+    point passes (thr = +inf), fewer survivors than topk spread over
+    every block, or survivors only in the first or only in the last
+    1024-column chunk (every other column's crude raised far above the
+    threshold)."""
+    nq, n = crude.shape
+    inf = float("inf")
+    if regime == "none":
+        return crude, torch.full((nq,), -inf, device=crude.device)
+    if regime == "all":
+        return crude, torch.full((nq,), inf, device=crude.device)
+    if regime == "fewer_than_topk":
+        return crude, torch.sort(crude, dim=1).values[:, 7].contiguous()
+    col = torch.arange(n, device=crude.device)
+    keep = (col < 1024 if regime == "first_chunk"
+            else col >= (n - 1) // 1024 * 1024)
+    cr = torch.where(keep, crude, crude.abs() + 1e6).contiguous()
+    rank = min(int(keep.sum()) - 1, 150)
+    return cr, torch.sort(cr, dim=1).values[:, rank].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["none", "all", "fewer_than_topk",
+                                    "first_chunk", "last_chunk"])
+@pytest.mark.parametrize("code_bits", [8, 4])
+def test_cuda_refine_kernels_adversarial_thresholds(code_bits, regime):
+    """The running-list refine kernels, flat and slab, against their
+    plain versions bit for bit where the bar and the +inf tail decide:
+    n and nc ragged against the 1024-row chunk, slab columns -1 and a
+    slab row thinner than topk, topk from 1 past the chunk.  With no
+    survivor the top-k is (+inf, 0..topk-1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    K, m = (7, 16) if code_bits == 4 else (8, 256)
+    codes, luts, fast = _problem(53, 9001, 11, K, m)
+    stored = pack_nibbles(codes, K) if code_bits == 4 else codes
+    lut_fast, _, _ = stages.crude_lut_operands(luts, fast, quantized=False,
+                                               code_bits=code_bits)
+    lut_slow = stages.slow_lut_operand(luts, fast, code_bits=code_bits)
+    crude = bs.crude_topk_torch(stored, lut_fast, 20,
+                                code_bits=code_bits)[0]
+    cr, thr = _refine_regime(crude, regime)
+    for topk in (1, 20, *LARGE_TOPK):
+        got = bs.refine_topk_cuda(stored, lut_slow, cr, thr, topk,
+                                  code_bits=code_bits)
+        want = bs.refine_topk_torch(stored, lut_slow, cr, thr, topk,
+                                    code_bits=code_bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), topk
+        if regime == "none":
+            assert bool(torch.isinf(got[0]).all())
+            assert bool((got[1] == torch.arange(topk, device="cuda")).all())
+    scodes, ids, sluts, sfast = _slab(59, 5, 2500, K, m)
+    sstored = (pack_nibbles(scodes, K) if code_bits == 4 else scodes) \
+        .contiguous()
+    slut, _, _ = stages.crude_lut_operands(sluts, sfast, quantized=False,
+                                           code_bits=code_bits)
+    sslow = stages.slow_lut_operand(sluts, sfast, code_bits=code_bits)
+    scrude = bs.ivf_crude_topk_torch(sstored, ids, slut, 20,
+                                     code_bits=code_bits)[0]
+    cr, thr = _refine_regime(scrude, regime)
+    for topk in (1, 20, *LARGE_TOPK):
+        got = bs.ivf_refine_topk_cuda(sstored, sslow, cr, thr, topk,
+                                      code_bits=code_bits)
+        want = bs.ivf_refine_topk_torch(sstored, sslow, cr, thr, topk,
+                                        code_bits=code_bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), topk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["rising", "falling", "equal"])
+def test_cuda_refine_kernels_adversarial_orders(order):
+    """The refine kernels, flat and slab, where a block's pending buffer
+    is least use: crude rising with the index (its bar never prunes),
+    falling (every later chunk lands below a stale bar and the buffer
+    overflows) and all equal, with thr = +inf and a threshold that
+    passes half the points; n ragged against the 1024-point chunk, topk
+    up to more points than a block sees."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, nq = 50_001, 3
+    col = torch.arange(n, dtype=torch.float32, device="cuda")
+    crude = {"rising": col, "falling": n - col,
+             "equal": torch.full_like(col, 7.0)}[order]
+    crude = crude[None].repeat(nq, 1).contiguous()
+    codes = torch.zeros((n, 8), dtype=torch.uint8, device="cuda")
+    slow = torch.zeros((nq, 8 * 256), device="cuda")
+    slab = codes[None].expand(nq, -1, -1).contiguous()
+    for thr_v in (float("inf"), n / 2):
+        thr = torch.full((nq,), thr_v, device="cuda")
+        for topk in (1, 100, 2048, 5000):
+            got = bs.refine_topk_cuda(codes, slow, crude, thr, topk)
+            want = bs.refine_topk_torch(codes, slow, crude, thr, topk)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (thr_v, topk)
+            got = bs.ivf_refine_topk_cuda(slab, slow, crude, thr, topk)
+            want = bs.ivf_refine_topk_torch(slab, slow, crude, thr, topk)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (thr_v, topk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rank", [50, 28_000])
+def test_cuda_refine_lists_in_global_memory(rank):
+    """A topk whose running lists do not fit in shared memory (they then
+    live in the block's output rows), flat and slab, with fewer and with
+    more survivors than topk: equal to the plain versions bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    codes, luts, fast = _problem(61, 30_011, 3, 8, 256)
+    lut_fast, _, _ = stages.crude_lut_operands(luts, fast, quantized=False)
+    lut_slow = stages.slow_lut_operand(luts, fast)
+    crude = bs.crude_topk_torch(codes, lut_fast, 20)[0]
+    thr = torch.sort(crude, dim=1).values[:, rank].contiguous()
+    got = bs.refine_topk_cuda(codes, lut_slow, crude, thr, 26_000)
+    want = bs.refine_topk_torch(codes, lut_slow, crude, thr, 26_000)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    slab = codes[None].expand(3, -1, -1).contiguous()
+    got = bs.ivf_refine_topk_cuda(slab, lut_slow, crude, thr, 26_000)
+    want = bs.ivf_refine_topk_torch(slab, lut_slow, crude, thr, 26_000)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [72, 107])
+def test_cuda_refine_kernels_wide_codes(K):
+    """Codes too wide for two staging buffers at m = 256 (K > 70: the
+    refine blocks then stage each chunk after the last), up to the
+    widest that one block's shared memory serves, flat and slab, with
+    the lists in shared and in global memory: equal to the plain
+    versions bit for bit.  One codebook more raises a ValueError."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, nq, m = 5003, 3, 256
+    codes, luts, fast = _problem(67 + K, n, nq, K, m)
+    lut_fast, _, _ = stages.crude_lut_operands(luts, fast, quantized=False)
+    lut_slow = stages.slow_lut_operand(luts, fast)
+    crude = bs.crude_topk_torch(codes, lut_fast, 20)[0]
+    slab = codes[None].expand(nq, -1, -1).contiguous()
+    for rank in (7, 400):
+        thr = torch.sort(crude, dim=1).values[:, rank].contiguous()
+        for topk in (20, 2048):
+            got = bs.refine_topk_cuda(codes, lut_slow, crude, thr, topk)
+            want = bs.refine_topk_torch(codes, lut_slow, crude, thr, topk)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (rank, topk)
+            got = bs.ivf_refine_topk_cuda(slab, lut_slow, crude, thr, topk)
+            want = bs.ivf_refine_topk_torch(slab, lut_slow, crude, thr, topk)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (rank, topk)
+    wide = torch.zeros((n, 108), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        bs.refine_topk_cuda(wide, torch.zeros((nq, 108 * m), device="cuda"),
+                            crude, thr, 20)
+
+
 def _icm_problem(seed, n, K, m, d):
     from repro_torch.core.codebooks import decode
     from repro_torch.core.encode import encode_pq

@@ -130,12 +130,17 @@ def test_slab_crude_plain_matches_pallas(lut_dtype, code_bits):
 
 
 @pytest.mark.parametrize("code_bits", [8, 4])
-@pytest.mark.parametrize("survivors", ["many", "fewer_than_topk"])
+@pytest.mark.parametrize("survivors", ["many", "fewer_than_topk", "none",
+                                       "all", "last_chunk"])
 def test_slab_refine_plain_matches_pallas(code_bits, survivors):
     """The margin test, slow sum and top-k of slab positions; with fewer
-    survivors than topk the +inf tail carries the lowest positions."""
+    survivors than topk the +inf tail carries the lowest positions (-1
+    columns among them), with none the top-k is (+inf, 0..topk-1).
+    ``last_chunk``: a slab ragged against the 1024-column chunk, whose
+    few survivors all lie past it."""
     K, m = _geometry(code_bits)
-    codes, ids, luts, fast = _slab_problem(13 + code_bits, 6, 270, K, m)
+    nc = 1100 if survivors == "last_chunk" else 270
+    codes, ids, luts, fast = _slab_problem(13 + code_bits, 6, nc, K, m)
     stored = _stored(codes, K, code_bits)
     lut_flat, _, _ = ref_stages.crude_lut_operands(
         jnp.asarray(luts), jnp.asarray(fast), quantized=False,
@@ -143,9 +148,17 @@ def test_slab_refine_plain_matches_pallas(code_bits, survivors):
     crude = np.asarray(ref_bs.ivf_crude_topk_pallas(
         jnp.asarray(stored), jnp.asarray(ids), lut_flat, topk=TOPK,
         interpret=True, code_bits=code_bits)[0])
-    rank = 4 if survivors == "fewer_than_topk" else 120
-    thr = np.sort(crude, axis=1)[:, rank].astype(np.float32)
-    thr[1] = np.sort(crude[1])[2]         # the thin row: finite threshold
+    rank = {"many": 120, "fewer_than_topk": 4, "last_chunk": 4}.get(
+        survivors)
+    if survivors == "last_chunk":
+        crude = crude.copy()
+        crude[:, :1024] = np.abs(crude[:, :1024]) + 1e6
+    if rank is not None:
+        thr = np.sort(crude, axis=1)[:, rank].astype(np.float32)
+        thr[1] = np.sort(crude[1])[2]     # the thin row: finite threshold
+    else:
+        thr = np.full((6,), -np.inf if survivors == "none" else np.inf,
+                      np.float32)
     lut_slow = ref_stages.slow_lut_operand(jnp.asarray(luts),
                                            jnp.asarray(fast),
                                            code_bits=code_bits)
@@ -157,8 +170,14 @@ def test_slab_refine_plain_matches_pallas(code_bits, survivors):
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=RTOL,
                                atol=_atol(luts))
-    if survivors == "fewer_than_topk":
+    if survivors in ("fewer_than_topk", "last_chunk"):
         assert np.isinf(got_v.numpy()[:, rank:]).all()
+    if survivors == "last_chunk":
+        rows = [0, 2, 3, 4, 5]                # the thin row passes early
+        assert (got_p.numpy()[rows, :rank] >= 1024).all()
+    if survivors == "none":
+        np.testing.assert_array_equal(got_p.numpy(),
+                                      np.tile(np.arange(TOPK), (6, 1)))
 
 
 @pytest.mark.parametrize("quantized", [False, True])

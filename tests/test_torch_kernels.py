@@ -101,11 +101,30 @@ def test_crude_plain_matches_pallas(lut_dtype, code_bits, want_crude):
     _assert_topk(got[1], got[2], want[1], want[2], _atol(luts))
 
 
+def _survivors(crude, survivors):
+    """(crude, thresholds) of one refine regime: many survivors, fewer
+    than topk, none, all (thr = +inf), or a few only in the last
+    1024-point chunk of a ragged n (the other points' crude raised far
+    above the threshold, so the +inf tail holds the lowest of them)."""
+    nq = crude.shape[0]
+    if survivors == "none":
+        return crude, np.full((nq,), -np.inf, np.float32)
+    if survivors == "all":
+        return crude, np.full((nq,), np.inf, np.float32)
+    if survivors == "last_chunk":
+        crude = crude.copy()
+        crude[:, :1024] = np.abs(crude[:, :1024]) + 1e6
+    rank = {"many": 300, "fewer_than_topk": 6, "last_chunk": 10}[survivors]
+    return crude, np.sort(crude, axis=1)[:, rank].astype(np.float32)
+
+
 @pytest.mark.parametrize("code_bits", [8, 4])
-@pytest.mark.parametrize("survivors", ["many", "fewer_than_topk"])
+@pytest.mark.parametrize("survivors", ["many", "fewer_than_topk", "none",
+                                       "all", "last_chunk"])
 def test_refine_plain_matches_pallas(code_bits, survivors):
     """The margin test, slow sum and top-k of survivors; with fewer
-    survivors than topk the +inf tail carries the lowest pruned ids."""
+    survivors than topk the +inf tail carries the lowest pruned ids,
+    with none the top-k is (+inf, 0..topk-1)."""
     K, m = (7, 16) if code_bits == 4 else (8, 256)
     codes, luts, fast = _problem(21 + code_bits, 1100, 11, K, m)
     stored = _stored(codes, K, code_bits)
@@ -115,9 +134,7 @@ def test_refine_plain_matches_pallas(code_bits, survivors):
     crude, _, _ = ref_bs.crude_topk_pallas(
         jnp.asarray(stored), lut_flat, topk=20, interpret=True,
         code_bits=code_bits)
-    crude = np.asarray(crude)
-    rank = 6 if survivors == "fewer_than_topk" else 300
-    thr = np.sort(crude, axis=1)[:, rank].astype(np.float32)
+    crude, thr = _survivors(np.asarray(crude), survivors)
     lut_slow = ref_stages.slow_lut_operand(jnp.asarray(luts),
                                            jnp.asarray(fast),
                                            code_bits=code_bits)
@@ -134,8 +151,18 @@ def test_refine_plain_matches_pallas(code_bits, survivors):
         jnp.asarray(thr), jnp.asarray(fast))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(jnp_i))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(jnp_v))
-    if survivors == "fewer_than_topk":
-        assert np.isinf(got_v.numpy()[:, 6:]).all()
+    tail = {"fewer_than_topk": 6, "last_chunk": 10, "none": 0}
+    if survivors in tail:
+        assert np.isinf(got_v.numpy()[:, tail[survivors]:]).all()
+    if survivors == "last_chunk":
+        assert (got_i.numpy()[:, :10] >= 1024).all()
+        np.testing.assert_array_equal(got_i.numpy()[:, 10:],
+                                      np.tile(np.arange(10), (11, 1)))
+    if survivors == "none":
+        np.testing.assert_array_equal(got_i.numpy(),
+                                      np.tile(np.arange(20), (11, 1)))
+    if survivors == "all":
+        assert np.isfinite(got_v.numpy()).all()
 
 
 def test_topk_two_key_tie_order():
