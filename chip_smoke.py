@@ -12,7 +12,10 @@ Needs one CUDA card; exits non-zero, printing no result, without one
 or outside a checkout of the repository.  Phases:
 
 1. card name and power limit (nvidia-smi), kernel build time and the
-   compiler's ``-Xptxas -v`` report;
+   compiler's ``-Xptxas -v`` report, with the registers and spills of
+   every instance of the two scan kernels (the crude kernel as the flat
+   pass compiles it in batched_search.cu and as the slab pass does in
+   ivf_search.cu);
 2. every kernel mode on ragged shapes, each equal bit for bit to its
    plain version: flat crude {f32, int8} x {8, 4 bit} x dense crude on
    or off, with duplicated code rows (exact ties); slab crude {f32,
@@ -20,7 +23,14 @@ or outside a checkout of the repository.  Phases:
    query slab thinner than topk; flat and slab refine {8, 4 bit} with
    many survivors, fewer than topk, none, all, and survivors only in
    the first and only in the last 1024-row chunk; every one of them at
-   topk = 100, 257 and 2048 (past the chunk); and
+   topk = 100, 257 and 2048 (past the chunk); the slab crude in every
+   mode on adversarial slabs (distances rising, falling and equal
+   along the slab; a row of ids all -1, a row with 700 invalid columns
+   before its first valid one; slabs of one chunk, 1025 and 5000
+   columns) at topk 1, 100 and 2048 (or nc); the widest codes at
+   m = 256: flat and slab refine and slab crude at K = 109 (f32), slab
+   crude at K = 175 (int8 LUTs), each equal to its plain version, and
+   K = 110 / 176 raising a ValueError; and
    ``kmeans_assign`` (L = 8193 centroids, one duplicated) against its
    plain version: ids equal wherever the two nearest scores are apart
    by more than 1e-5 of the terms' size, distances to rtol 1e-5;
@@ -45,7 +55,9 @@ or outside a checkout of the repository.  Phases:
    with ``serve.lut_dtype`` overridden) and ivf-int8-4bit (K = 16,
    m = 16) as in phase 4.  The three IVF kernels are then timed as in
    phase 3 at the served shape: the slab of one served tile (one slab
-   kernel call in a CUDA graph printed beside its eager time), and
+   kernel call in a CUDA graph printed beside its eager time; the slab
+   crude kernel alone at 1 to 16 blocks per query beside its plan's),
+   and
    the build's 1M points against its 1024 centroids (with the two-call
    library yardstick ``argmin(addmm)`` beside ``kmeans_assign``);
 6. encode and grow at SIFT1M geometry (3 ICM sweeps): the ICM kernel
@@ -216,6 +228,38 @@ def equal_outputs(got, want) -> bool:
     import torch
     return all((g is None and w is None) or torch.equal(g, w)
                for g, w in zip(got, want))
+
+
+def scan_kernel_registers(logs) -> list:
+    """(source, kernel instance, registers, spill store bytes, spill load
+    bytes) of every instance of the two scan kernels in the
+    ``-Xptxas -v`` report, from their mangled template arguments."""
+    import re
+    out = []
+    for name, text in logs.items():
+        fn, spills = None, (0, 0)
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn, spills = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                k = re.search(r"(crude|refine)_scan_kernelI((?:L[bi]\d+E)+)E",
+                              fn)
+                if k:
+                    flags = re.findall(r"L[bi](\d+)E", k.group(2))
+                    names = (("quant", "nibble", "masked", "stages")
+                             if k.group(1) == "crude"
+                             else ("nibble", "stages"))
+                    inst = ", ".join(f"{a}={b}" for a, b in zip(names, flags))
+                    out.append((f"{name}.cu", f"{k.group(1)}_scan_kernel<"
+                                f"{inst}>", int(m.group(1)), *spills))
+                fn = None
+    return out
 
 
 # ------------------------------------------------------------ operands ----
@@ -393,6 +437,151 @@ def check_slab_modes(seed: int):
                     f" {regime}: {'equal' if ok else 'DIFFERENT'}")
                 check(ok, f"slab refine kernel != plain version ({code_bits}"
                           f"-bit, topk={topk}, survivors: {regime})")
+
+
+def ordered_slab(order, nc, nq, lut_dtype, code_bits):
+    """A slab whose crude distance at position i is a chosen function of
+    i, the same in every row: rising with i, falling, or equal for all.
+    f32 LUTs give the rank itself (exact integers); int8 LUTs a coarse,
+    non-decreasing step of it (long runs of exact ties).  Returns (codes
+    (nq, nc, Kc), lut, scale, offset) on the card."""
+    import torch
+    from repro_torch.core.encode import pack_nibbles
+    r = torch.arange(nc, device="cuda")
+    if order == "falling":
+        r = nc - 1 - r
+    elif order == "equal":
+        r = torch.full_like(r, 12345)
+    j = torch.arange(256 if code_bits == 8 else 16, device="cuda",
+                     dtype=torch.float32)
+    if code_bits == 8:
+        codes = torch.stack([r // 256 % 256, r % 256], 1).to(torch.uint8)
+        lut = (torch.stack([256.0 * j, j]) if lut_dtype == "f32"
+               else torch.stack([torch.div(j, 2, rounding_mode="floor")
+                                 - 64, 0 * j]))
+    else:
+        codes = pack_nibbles(torch.stack([r >> (4 * k) & 15
+                                          for k in range(4)], 1)
+                             .to(torch.uint8), 4)
+        lut = (torch.stack([16.0 ** k * j for k in range(4)])
+               if lut_dtype == "f32"
+               else torch.stack([0 * j, 0 * j, 0 * j, j]))
+    lut = lut.reshape(1, -1).repeat(nq, 1)
+    slab = codes[None].expand(nq, -1, -1).contiguous()
+    if lut_dtype == "f32":
+        return slab, lut.contiguous(), None, None
+    return (slab, lut.to(torch.int8).contiguous(),
+            torch.full((nq,), 0.5, device="cuda"),
+            torch.linspace(-1.0, 1.0, nq, device="cuda"))
+
+
+def check_slab_adversarial(seed: int):
+    """The slab crude kernel in every mode equals its plain version bit
+    for bit on adversarial slabs: distances rising, falling and equal
+    along the slab; row 0 all -1 (its top-k must be (+inf, 0..topk-1)),
+    row 1 with 700 invalid columns before its first valid one, row 2
+    with 20% holes, row 3 with none; slabs of one chunk, 1025 and 5000
+    columns; topk 1, 100 and 2048 (or nc)."""
+    import torch
+    from repro_torch.kernels import batched_search as bs
+    nq = 4
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    for nc in (1024, 1025, 5000):
+        ids = torch.randint(0, 1 << 30, (nq, nc), generator=g,
+                            device="cuda", dtype=torch.int32)
+        ids[0] = -1
+        ids[1, :700] = -1
+        ids[2, torch.rand((nc,), generator=g, device="cuda") < 0.2] = -1
+        for order in ("rising", "falling", "equal"):
+            for lut_dtype in ("f32", "int8"):
+                for code_bits in (8, 4):
+                    slab, lut, sc, of = ordered_slab(order, nc, nq,
+                                                     lut_dtype, code_bits)
+                    for topk in (1, TOPK, min(2048, nc)):
+                        got = bs.ivf_crude_topk_cuda(slab, ids, lut, topk,
+                                                     sc, of,
+                                                     code_bits=code_bits)
+                        want = bs.ivf_crude_topk_torch(slab, ids, lut, topk,
+                                                       sc, of,
+                                                       code_bits=code_bits)
+                        torch.cuda.synchronize()
+                        empty = (bool(torch.isinf(got[1][0]).all())
+                                 and torch.equal(got[2][0], torch.arange(
+                                     topk, device="cuda",
+                                     dtype=torch.int32)))
+                        check(equal_outputs(got, want) and empty,
+                              f"slab crude kernel != plain version on an "
+                              f"adversarial slab ({order}, nc={nc}, "
+                              f"{lut_dtype}, {code_bits}-bit, topk={topk})")
+    log("mode ivf_crude adversarial slabs (rising / falling / equal; a row "
+        "all -1, a 700-column invalid prefix, 20% holes; nc = 1024, 1025, "
+        "5000) x {f32, int8} x {8, 4 bit} x topk {1, 100, 2048 or nc}: "
+        "equal")
+
+
+def check_wide_codes(seed: int):
+    """The widest codes one block's shared memory serves at m = 256:
+    flat and slab refine and slab crude at K = 109 with f32 LUTs, slab
+    crude at K = 175 with int8 LUTs (its running lists in global
+    memory), each equal to its plain version bit for bit at topk 100
+    and 2048; one codebook more raises a ValueError naming shared
+    memory."""
+    import torch
+    from repro_torch.kernels import batched_search as bs
+    from repro_torch.kernels.stages import crude_lut_operands, slow_lut_operand
+    nq, nc, m = 3, 5003, 256
+    for K, lut_dtype in ((109, "f32"), (175, "int8")):
+        codes, ids, luts, fast = slab_problem(seed + K, nq, nc, K, m, 16, 2)
+        quant = lut_dtype == "int8"
+        lf, sc, of = crude_lut_operands(luts, fast, quantized=quant)
+        for topk in (TOPK, 2048):
+            got = bs.ivf_crude_topk_cuda(codes, ids, lf, topk, sc, of)
+            want = bs.ivf_crude_topk_torch(codes, ids, lf, topk, sc, of)
+            torch.cuda.synchronize()
+            check(equal_outputs(got, want), f"slab crude kernel != plain "
+                                            f"version at K={K} {lut_dtype}, "
+                                            f"topk={topk}")
+        if not quant:
+            slow = slow_lut_operand(luts, fast)
+            crude = want[0]
+            thr = torch.sort(crude, dim=1).values[:, 400].contiguous()
+            flat = codes[0].contiguous()
+            for topk in (TOPK, 2048):
+                got = bs.ivf_refine_topk_cuda(codes, slow, crude, thr, topk)
+                want = bs.ivf_refine_topk_torch(codes, slow, crude, thr,
+                                                topk)
+                torch.cuda.synchronize()
+                check(equal_outputs(got, want), f"slab refine kernel != "
+                      f"plain version at K={K}, topk={topk}")
+                got = bs.refine_topk_cuda(flat, slow, crude, thr, topk)
+                want = bs.refine_topk_torch(flat, slow, crude, thr, topk)
+                torch.cuda.synchronize()
+                check(equal_outputs(got, want), f"refine kernel != plain "
+                      f"version at K={K}, topk={topk}")
+        wide = torch.zeros((nq, nc, K + 1), dtype=torch.uint8,
+                           device="cuda")
+        lut = torch.zeros((nq, (K + 1) * m), device="cuda",
+                          dtype=torch.int8 if quant else torch.float32)
+        calls = [("slab crude", lambda: bs.ivf_crude_topk_cuda(
+            wide, ids, lut, TOPK, sc, of))]
+        if not quant:
+            thr = torch.zeros((nq,), device="cuda")
+            cr = torch.zeros((nq, nc), device="cuda")
+            calls += [("slab refine", lambda: bs.ivf_refine_topk_cuda(
+                          wide, lut, cr, thr, TOPK)),
+                      ("refine", lambda: bs.refine_topk_cuda(
+                          wide[0].contiguous(), lut, cr, thr, TOPK))]
+        for what, call in calls:
+            try:
+                call()
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            check("shared memory" in raised, f"{what} at K={K + 1} "
+                                             f"({lut_dtype}) did not raise")
+        log(f"mode wide codes K={K} m={m} {lut_dtype}: "
+            f"{'slab crude' if quant else 'slab crude, slab and flat refine'}"
+            f" equal at topk {TOPK} and 2048; K={K + 1} raises")
 
 
 def compare_assign(got, want, x, cent):
@@ -839,6 +1028,40 @@ def slab_of(engine, q):
     return build_lut(q, index.C), cand_ids, cand_codes
 
 
+def slab_crude_sweep(cand_codes, cand_ids, lf):
+    """The slab crude kernel alone (f32 8-bit, one launch in a CUDA
+    graph, no merge) at 1 to 16 blocks per query beside the plan's
+    choice: each block sorts its first chunk and merges the few rows
+    below its bar in later ones, so blocks per query trade sorts against
+    rounds.  Also prints the slab refine's blocks per query."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import batched_search as bs
+    from repro_torch.kernels import build
+    lib = build.library("ivf_search")
+    nq, nc, Kc = cand_codes.shape
+    Km = lf.shape[1]
+    plan = bs._plan(lib, "icq_ivf_crude_plan", nq, nc, Kc, Km, 0, 0, TOPK)
+    refine = bs._plan(lib, "icq_ivf_refine_plan", nq, nc, Kc, Km, 0, TOPK)
+    crude = torch.empty((nq, nc), device="cuda")
+    times = []
+    for grid in sorted({1, 2, 3, 4, 6, 8, 16, plan}):
+        cv, ci = bs._lists(nq, grid * TOPK, crude.device)
+
+        def launch():
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.icq_ivf_crude_topk(
+                bs._ptr(cand_codes), bs._ptr(cand_ids), bs._ptr(lf), None,
+                None, bs._ptr(crude), bs._ptr(cv), bs._ptr(ci), nq, nc, Kc,
+                Km, Km // Kc, 0, 0, TOPK, grid, ctypes.c_void_p(stream))
+            check(err == 0, f"slab crude launch at grid {grid} failed")
+        times.append(f"{grid}{'*' if grid == plan else ''}: "
+                     f"{graph_ms(launch) * 1e3:.2f} us")
+    log(f"slab crude kernel alone by blocks per query (* the plan's; "
+        f"{-(-nc // 1024)} chunks a query): {', '.join(times)}; slab "
+        f"refine plan: {refine} blocks per query")
+
+
 def time_ivf_kernels(engine, q, emb_db, centroids):
     """The three IVF kernels at the served shape (the slab of one served
     64-query tile; the build's points and centroids): times, plain
@@ -882,13 +1105,15 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
     b_ms, b_by = bound_ms(nbytes, valid * K)
     records["ivf_crude_topk"] = dict(
         name="ivf_crude_topk", route="cuda",
-        source="src/repro_torch/kernels/csrc/ivf_search.cu",
+        source="src/repro_torch/kernels/csrc/search_common.cuh",
         replaces="src/repro/kernels/batched_search.py:320",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    log(f"kernel ivf_crude_topk f32 8-bit nq={nq} nc={nc}: {ms:.4f} ms "
+    log(f"kernel ivf_crude_topk f32 8-bit nq={nq} nc={nc} "
+        f"(crude_scan_kernel, launched by ivf_search.cu): {ms:.4f} ms "
         f"(eager; {g_ms:.4f} ms in a CUDA graph), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}")
+    slab_crude_sweep(cand_codes, cand_ids, lf)
 
     crude, cv, cp = got
     thr = ThresholdStage(topk=TOPK).from_slab_candidates(
@@ -1527,9 +1752,14 @@ def main(argv=None) -> int:
     log(f"kernels built in {seconds:.2f} s")
     for name, text in logs.items():
         log(f"--- nvcc -Xptxas -v: {name}.cu ---\n{text.strip()}")
+    for src, inst, regs, st, ld in scan_kernel_registers(logs):
+        log(f"registers {src} {inst}: {regs} registers, spill stores "
+            f"{st} B, spill loads {ld} B")
 
     check_modes(args.seed)
     check_slab_modes(args.seed)
+    check_slab_adversarial(args.seed)
+    check_wide_codes(args.seed)
     check_kmeans(args.seed)
     records = time_kernels(args.seed, args.n)
 

@@ -29,9 +29,8 @@ bit for bit.
 ``*_cuda`` check their operands, allocate the outputs, launch on the
 current stream without synchronising, count the launch in
 ``build.LAUNCHES`` and raise if the launch failed.  Each kernel writes
-sorted candidate lists per query (the slab crude kernel one per
-1024-point chunk, the others one per block, each block keeping a
-running top-k over its chunks); ``_merge_lists`` merges them two by two
+one sorted candidate list per query and block, each block keeping a
+running top-k over its chunks; ``_merge_lists`` merges them two by two
 down to the top-k.
 """
 from __future__ import annotations
@@ -204,9 +203,8 @@ def _raise_on(err: int, lib, what: str):
 
 def _launch_env(device: torch.device, name: str = "batched_search"):
     lib = build.library(name)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    return lib, sms, stream
+    return lib, stream
 
 
 def _merge_lists(vals, idx, w: int, topk: int, stream):
@@ -246,14 +244,6 @@ def _lists(nq: int, size: int, device):
             torch.empty((nq, size), dtype=torch.int32, device=device))
 
 
-def _chunk_lists(n: int, nq: int, topk: int, device):
-    """Empty (nq, ceil(n / chunk) * w) candidate lists of a kernel that
-    writes one list of w = min(topk, chunk) pairs per 1024-point chunk."""
-    chunk = build.library("batched_search").icq_chunk_points()
-    w = min(topk, chunk)
-    return (*_lists(nq, -(-n // chunk) * w, device), w)
-
-
 _CUDA_ERROR_INVALID_VALUE = 1
 
 
@@ -268,9 +258,10 @@ def _plan(lib, name: str, *args) -> int:
         raise ValueError(
             f"{name}{args}: no block layout serves this shape: one query's "
             f"LUT beside a staged 1024-row chunk of codes exceeds a block's "
-            f"227 KB of shared memory (the refine passes need 1024 * Kc + "
-            f"4 * Km <= 220000 bytes: K <= 107 codebooks at m = 256), or "
-            f"the query tiles exceed 65535")
+            f"227 KB of shared memory (1024 * Kc + Km * LUT bytes <= "
+            f"~224,000: at m = 256, K <= 109 codebooks with f32 LUTs, which "
+            f"binds both refine passes and the f32 crude passes, and K <= "
+            f"175 with int8 crude LUTs), or the query tiles exceed 65535")
     _raise_on(err, lib, name)
     return out[0]
 
@@ -292,7 +283,7 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
     if quantized:
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
-    lib, _, stream = _launch_env(dev)
+    lib, stream = _launch_env(dev)
     grid = _plan(lib, "icq_crude_plan", n, Kc, nq, Km, int(quantized),
                  int(code_bits == 4), topk)
     crude = (torch.empty((nq, n), dtype=torch.float32, device=dev)
@@ -321,7 +312,7 @@ def refine_topk_cuda(codes, lut_flat, crude, thresholds, topk: int, *,
     _check_operand(lut_flat, "lut_flat", (nq, Km), torch.float32, dev)
     _check_operand(crude, "crude", (nq, n), torch.float32, dev)
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
-    lib, _, stream = _launch_env(dev)
+    lib, stream = _launch_env(dev)
     grid = _plan(lib, "icq_refine_plan", n, Kc, nq, Km, int(code_bits == 4),
                  topk)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
@@ -352,16 +343,18 @@ def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
     if quantized:
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
-    lib, sms, stream = _launch_env(dev, "ivf_search")
+    lib, stream = _launch_env(dev, "ivf_search")
+    grid = _plan(lib, "icq_ivf_crude_plan", nq, nc, Kc, Km, int(quantized),
+                 int(code_bits == 4), topk)
     crude = torch.empty((nq, nc), dtype=torch.float32, device=dev)
-    cand_v, cand_i, w = _chunk_lists(nc, nq, topk, dev)
+    cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_ivf_crude_topk(
         _ptr(cand_codes), _ptr(cand_ids), _ptr(lut_flat), _ptr(lut_scale),
         _ptr(lut_offset), _ptr(crude), _ptr(cand_v), _ptr(cand_i), nq, nc,
-        Kc, Km, m, int(quantized), int(code_bits == 4), topk, sms, stream),
+        Kc, Km, m, int(quantized), int(code_bits == 4), topk, grid, stream),
         lib, "ivf_crude_topk")
     build.LAUNCHES["ivf_crude_topk"] += 1
-    vals, pos = _merge_lists(cand_v, cand_i, w, topk, stream)
+    vals, pos = _merge_lists(cand_v, cand_i, topk, topk, stream)
     return crude, vals, pos
 
 
@@ -378,7 +371,7 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
     _check_operand(lut_flat, "lut_flat", (nq, Km), torch.float32, dev)
     _check_operand(crude, "crude", (nq, nc), torch.float32, dev)
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
-    lib, _, stream = _launch_env(dev, "ivf_search")
+    lib, stream = _launch_env(dev, "ivf_search")
     grid = _plan(lib, "icq_ivf_refine_plan", nq, nc, Kc, Km,
                  int(code_bits == 4), topk)
     cand_v, cand_i = _lists(nq, grid * topk, dev)

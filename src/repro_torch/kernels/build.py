@@ -44,7 +44,6 @@ LAUNCHES: Dict[str, int] = {
 # bits), every size as c_int / c_long
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _COMMON = {   # search_common.cuh, compiled into every library
-    "icq_chunk_points": ([], _I),
     "icq_error_string": ([_I], ctypes.c_char_p),
 }
 SIGNATURES = {
@@ -61,6 +60,7 @@ SIGNATURES = {
     "ivf_search": {
         **_COMMON,
         "icq_ivf_crude_topk": ([_P] * 8 + [_I] * 9 + [_P], _I),
+        "icq_ivf_crude_plan": ([_I] * 7 + [_P], _I),
         "icq_ivf_refine_topk": ([_P] * 6 + [_I] * 8 + [_P], _I),
         "icq_ivf_refine_plan": ([_I] * 6 + [_P], _I),
     },

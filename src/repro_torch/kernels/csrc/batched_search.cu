@@ -36,9 +36,10 @@
 //     is sorted), more by a bitonic sort of the buffer and a co-rank
 //     merge, back to front.  The crude pass merges at the end of each
 //     (chunk, query); after the first chunks tau prunes almost every
-//     point, so almost no chunk is sorted.  Each block writes one list
-//     per query: (nq, gridDim.x,
-//     topk) candidates, one wave of blocks (occupancy calculator,
+//     point, so almost no chunk is sorted.  The IVF crude pass launches
+//     this same kernel over each query's own slab (ivf_search.cu).
+//     Each block writes one list per query: (nq, gridDim.x, topk)
+//     candidates, one wave of blocks (occupancy calculator,
 //     icq_crude_plan / icq_refine_plan), but no more than n / topk, so
 //     that a block sees topk points on average and the lists stay within
 //     nq x n pairs at a large topk.  A topk whose lists do not fit beside
@@ -78,9 +79,10 @@
 //     nvcc cannot contract the int8 dequant (scale * acc + offset) or
 //     full = crude + slow into an FMA.
 //   The running list, the scan block's layout, tiling and plan, the
-//   refine kernel, the sort, the merge step, the code-row staging and
-//   the LUT sums live in search_common.cuh, shared with the IVF slab
-//   kernels (ivf_search.cu).
+//   crude and the refine kernel, the sort, the merge step, the code-row
+//   staging and the LUT sums live in search_common.cuh, shared with the
+//   IVF slab passes (ivf_search.cu); this file launches them at a query
+//   tile of up to 8 (crude) and 2 (refine) queries.
 #include "search_common.cuh"
 
 namespace {
@@ -94,77 +96,6 @@ constexpr int kRefineQueryTile = 2;
 // pairs per buffer of the one-block final merge: two buffers of
 // (value, index) pairs, 192 KB of shared memory
 constexpr long kMergeBlockCap = 12288;
-
-// Phase 1.  grid (x: blocks strided over point chunks, y: query tiles of
-// qt).  crude may be null (want_crude = false): no dense matrix is
-// written.  out_v / out_i (nq, gridDim.x, topk): block x's list of query
-// q is row (q * gridDim.x + x).  The launch bound asks for two blocks an
-// SM, which the shared memory allows anyway: without it ptxas settles
-// for 48 registers and spills in the int8 variant.
-template <bool QUANT, bool NIBBLE>
-__global__ void __launch_bounds__(kThreads, 2)
-crude_scan_kernel(const uint8_t* __restrict__ codes,
-                  const void* __restrict__ lut_g,
-                  const float* __restrict__ scale_g,
-                  const float* __restrict__ offset_g,
-                  float* __restrict__ crude, float* out_v, int* out_i,
-                  int n, int Kc, int nq, int Km, int m, int topk, int qt,
-                  bool lists_in_smem) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ScanSmem s =
-      carve(smem, Kc, qt, Km, QUANT ? 1 : 4, QUANT ? 2 : 0, topk, false, 1);
-  const int q0 = blockIdx.y * qt;
-  const int nql = min(qt, nq - q0);              // queries of this tile
-  const int nchunks = (n + kChunk - 1) / kChunk;
-  const BlockLists lists{s, out_v, out_i, q0, topk, lists_in_smem, false};
-  if (QUANT)
-    load_table_tile(reinterpret_cast<int8_t*>(s.lut),
-                    static_cast<const int8_t*>(lut_g), q0, qt, nq, Km);
-  else
-    load_table_tile(reinterpret_cast<float*>(s.lut),
-                    static_cast<const float*>(lut_g), q0, qt, nq, Km);
-  if (QUANT) {
-    for (int i = threadIdx.x; i < qt; i += blockDim.x) {
-      const int q = q0 + i;
-      s.scalars[i] = q < nq ? scale_g[q] : 0.0f;
-      s.scalars[qt + i] = q < nq ? offset_g[q] : 0.0f;
-    }
-  }
-  lists.start(nql);
-  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
-    const long base = long(chunk) * kChunk;
-    __syncthreads();  // the previous chunk's readers are done
-    load_codes(s.stage, codes, base, n, Kc);
-    __syncthreads();
-    for (int q = 0; q < nql; ++q) {
-      const int qg = q0 + q;
-      // the thread's kPerThread points first (independent gather
-      // chains), then one shared-memory add per warp for all of them
-      float dv[kPerThread];
-#pragma unroll
-      for (int r = 0; r < kPerThread; ++r) {
-        const int p = threadIdx.x + r * kThreads;
-        const long gi = base + p;
-        float d = CUDART_INF_F;
-        if (gi < n) {
-          const uint8_t* row = s.stage + p * Kc;
-          if (QUANT) {
-            const int acc = row_sum_i8<NIBBLE>(
-                reinterpret_cast<const int8_t*>(s.lut) + q * Km, row, Kc, m);
-            d = dequant(s.scalars[q], acc, s.scalars[qt + q]);
-          } else {
-            d = row_sum_f32<NIBBLE>(
-                reinterpret_cast<const float*>(s.lut) + q * Km, row, Kc, m);
-          }
-          if (crude != nullptr) crude[long(qg) * n + gi] = d;
-        }
-        dv[r] = d;
-      }
-      list_round<false>(lists[q], s.scratch, dv, int(base), n);
-    }
-  }
-  lists.finish(nql);
-}
 
 // One merge level, one thread per output pair: lists 2j and 2j + 1 of
 // each query's L lists of w pairs (in (nq, L, w)) -> list j of wo =
@@ -251,11 +182,6 @@ long merge_block_pairs(int L, int w, int topk) {
   return most;
 }
 
-ScanTiling crude_tiling(int Kc, int Km, int quant, int topk) {
-  return scan_tiling(Kc, Km, quant ? 1 : 4, quant ? 2 : 0, topk, false,
-                     kMaxQueryTile);
-}
-
 }  // namespace
 
 extern "C" {
@@ -264,15 +190,8 @@ extern "C" {
 // cudaErrorInvalidValue for another shape.
 int icq_crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
                    int topk, int* out) {
-  const ScanTiling t = crude_tiling(Kc, Km, quant, topk);
-  if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
-  if (quant && nibble)
-    return scan_plan(crude_scan_kernel<true, true>, t, n, nq, topk, out);
-  if (quant)
-    return scan_plan(crude_scan_kernel<true, false>, t, n, nq, topk, out);
-  if (nibble)
-    return scan_plan(crude_scan_kernel<false, true>, t, n, nq, topk, out);
-  return scan_plan(crude_scan_kernel<false, false>, t, n, nq, topk, out);
+  return crude_plan<kMaxQueryTile, false>(n, Kc, nq, Km, quant, nibble,
+                                          topk, out);
 }
 
 // The refine pass's block count along the points (scan_plan).
@@ -289,37 +208,9 @@ int icq_crude_topk(const void* codes, const void* lut, const void* scale,
                    void* out_i, int n, int Kc, int nq, int Km, int m,
                    int quant, int nibble, int topk, int grid_x,
                    void* stream) {
-  const ScanTiling t = crude_tiling(Kc, Km, quant, topk);
-  if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
-    return int(cudaErrorInvalidValue);
-  const dim3 grid(grid_x, (nq + t.qt - 1) / t.qt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const float* sc = static_cast<const float*>(scale);
-  const float* of = static_cast<const float*>(offset);
-  float* cr = static_cast<float*>(crude);
-  float* ov = static_cast<float*>(out_v);
-  int* oi = static_cast<int*>(out_i);
-  const int qt = t.qt;
-  const bool ls = t.lists_in_smem;
-  cudaError_t e;
-  if (quant && nibble)
-    e = launch_with_smem(crude_scan_kernel<true, true>, grid, t.smem, s, c,
-                         lut, sc, of, cr, ov, oi, n, Kc, nq, Km, m, topk, qt,
-                         ls);
-  else if (quant)
-    e = launch_with_smem(crude_scan_kernel<true, false>, grid, t.smem, s, c,
-                         lut, sc, of, cr, ov, oi, n, Kc, nq, Km, m, topk, qt,
-                         ls);
-  else if (nibble)
-    e = launch_with_smem(crude_scan_kernel<false, true>, grid, t.smem, s, c,
-                         lut, sc, of, cr, ov, oi, n, Kc, nq, Km, m, topk, qt,
-                         ls);
-  else
-    e = launch_with_smem(crude_scan_kernel<false, false>, grid, t.smem, s, c,
-                         lut, sc, of, cr, ov, oi, n, Kc, nq, Km, m, topk, qt,
-                         ls);
-  return int(e);
+  return crude_launch<kMaxQueryTile, false>(
+      codes, 0, nullptr, lut, scale, offset, crude, out_v, out_i, n, Kc, nq,
+      Km, m, quant, nibble, topk, grid_x, stream);
 }
 
 // Phase 2.  codes as in phase 1; lut (nq, Km) f32 slow-masked; crude

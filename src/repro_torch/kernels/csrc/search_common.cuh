@@ -3,10 +3,10 @@
 // geometry, the two-key bitonic sort, the co-rank merge of two sorted
 // lists, the running per-block top-k (admission behind a bar, warp-ballot
 // compaction, merge of the candidate buffer into the list), the staging
-// of LUT tiles and code rows, the codebook-order LUT sums, the
-// per-chunk list write, and the scan block (shared-memory layout,
-// tiling, plan) with the one refine kernel that both the flat and the
-// IVF refine pass launch.
+// of LUT tiles and code rows, the codebook-order LUT sums, and the scan
+// block (shared-memory layout, tiling, plan) with its two kernels: the
+// crude kernel that the flat and the IVF crude pass launch, and the
+// refine kernel that the flat and the IVF refine pass launch.
 //
 // Each source is compiled into its own shared library, so every helper
 // here has internal linkage (anonymous namespace) in the one
@@ -21,14 +21,17 @@
 
 namespace {
 
-constexpr int kChunk = 1024;    // rows per block step == sort width
+constexpr int kChunk = 1024;    // rows per block step; the widest sort
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = kChunk / kThreads;   // a thread's chunk points
 constexpr size_t kMaxSmem = 227 * 1024;
 // candidate buffers up to this size merge by rank (no sort); larger ones
-// are bitonic-sorted and merged by co-rank
+// are bitonic-sorted (128 pairs a warp, so a chunk takes every warp) and
+// merged by co-rank
 constexpr int kRankMerge = 64;
+static_assert(kRankMerge >= 64 && kChunk == 128 * kWarps,
+              "bitonic_sort_n sorts 128 to kChunk pairs, 128 a warp");
 
 __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
@@ -43,12 +46,87 @@ __device__ __forceinline__ bool key_less(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-// Ascending bitonic sort of P (value, index) pairs in shared memory, P
-// a power of two.  The caller synchronises before; the sort
-// synchronises after each step.
+// Bitonic steps (stage k, distances j, j / 2, ..., 1) over a warp's
+// 128 consecutive pairs from position base, held in registers: lane l
+// holds positions base + l + 32 e (e < 4).  Distances 64 and 32 pair a
+// lane's own registers, shorter ones two lanes (one shuffle each for
+// value and index).  The pair's lower position keeps the smaller key in
+// an ascending run ((position & k) == 0), the larger in a descending one.
+__device__ __forceinline__ void warp_bitonic_steps(float (&v)[4], int (&ix)[4],
+                                                   int base, int k, int j) {
+  const int lane = threadIdx.x & 31;
+  auto pair = [&](int lo, int hi) {   // lo, hi: constant register slots
+    const bool up = ((base + lane + 32 * lo) & k) == 0;
+    if (key_less(v[hi], ix[hi], v[lo], ix[lo]) == up) {
+      const float tv = v[lo];
+      const int ti = ix[lo];
+      v[lo] = v[hi];
+      ix[lo] = ix[hi];
+      v[hi] = tv;
+      ix[hi] = ti;
+    }
+  };
+  for (; j > 0; j >>= 1) {
+    if (j == 64) {
+      pair(0, 2);
+      pair(1, 3);
+    } else if (j == 32) {
+      pair(0, 1);
+      pair(2, 3);
+    } else {
+      const bool lower = (lane & j) == 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float b = __shfl_xor_sync(0xffffffffu, v[e], j);
+        const int ib = __shfl_xor_sync(0xffffffffu, ix[e], j);
+        const bool up = ((base + lane + 32 * e) & k) == 0;
+        // the lower position takes the smaller key going up, the larger
+        // going down; its partner the other
+        if (key_less(b, ib, v[e], ix[e]) == (lower == up)) {
+          v[e] = b;
+          ix[e] = ib;
+        }
+      }
+    }
+  }
+}
+
+// Ascending bitonic sort of P (value, index) pairs in shared memory, P a
+// power of two in [128, 4 * blockDim.x].  Each warp sorts 128 pairs in
+// registers (stages up to 128, no barrier); each later stage k takes
+// its distances >= 128 as shared-memory steps across warps (a barrier
+// each) and the rest in registers again, so P = 1024 costs 10 barriers
+// where a barrier a step costs 55.  The caller synchronises before; the
+// sort ends with a barrier.
 __device__ void bitonic_sort_n(float* v, int* ix, int P) {
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int base = warp * 128;
+  const bool mine = base < P;
+  float rv[4];
+  int ri[4];
+  auto load = [&]() {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      rv[e] = v[base + lane + 32 * e];
+      ri[e] = ix[base + lane + 32 * e];
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[base + lane + 32 * e] = rv[e];
+      ix[base + lane + 32 * e] = ri[e];
+    }
+  };
+  if (mine) {
+    load();
+    for (int k = 2; k <= 128; k <<= 1)
+      warp_bitonic_steps(rv, ri, base, k, k >> 1);
+    store();
+  }
+  __syncthreads();
+  for (int k = 256; k <= P; k <<= 1) {
+    for (int j = k >> 1; j >= 128; j >>= 1) {
       for (int i = threadIdx.x; i < P; i += blockDim.x) {
         const int l = i ^ j;
         if (l > i) {
@@ -65,11 +143,13 @@ __device__ void bitonic_sort_n(float* v, int* ix, int P) {
       }
       __syncthreads();
     }
+    if (mine) {
+      load();
+      warp_bitonic_steps(rv, ri, base, k, 64);
+      store();
+    }
+    __syncthreads();
   }
-}
-
-__device__ __forceinline__ void bitonic_sort(float* v, int* ix) {
-  bitonic_sort_n(v, ix, kChunk);
 }
 
 // Element t of the merge of two ascending lists A (wa pairs) and B (wb
@@ -201,8 +281,9 @@ __device__ void start_list(const RunningList& L) {
 }
 
 // Merge the first c pending pairs into the list: up to kRankMerge by
-// rank, more by a bitonic sort of the buffer and a co-rank merge.  c is
-// uniform; all threads call it and it ends with a barrier.
+// rank, more by a bitonic sort of the buffer (padded to P >= 128 pairs)
+// and a co-rank merge.  c is uniform; all threads call it and it ends
+// with a barrier.
 __device__ void merge_pending(const RunningList& L, int c) {
   if (c <= kRankMerge) {
     rank_into_list(L.v, L.i, L.topk, L.bv, L.bi, c);
@@ -496,19 +577,6 @@ __device__ __forceinline__ float dequant(float scale, int acc, float offset) {
   return __fadd_rn(__fmul_rn(scale, float(acc)), offset);
 }
 
-// Write the first w sorted pairs as list `chunk` (of nchunks lists of
-// w pairs) of query qg; w = min(topk, kChunk), so a list holds every
-// point of its chunk when topk >= kChunk.
-__device__ void write_list(const float* v, const int* ix, float* out_v,
-                           int* out_i, int qg, int nchunks, int chunk,
-                           int w) {
-  const long out = (long(qg) * nchunks + chunk) * w;
-  for (int t = threadIdx.x; t < w; t += blockDim.x) {
-    out_v[out + t] = v[t];
-    out_i[out + t] = ix[t];
-  }
-}
-
 template <typename Kernel, typename... Args>
 cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
                              cudaStream_t stream, Args... args) {
@@ -519,21 +587,27 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-// ---- scan blocks: the flat crude pass and both refine passes ----------
+// ---- scan blocks: the crude and the refine pass, flat and IVF ---------
 //
 // A scan block walks its chunks (strided over the rows, in ascending
 // order) for a tile of qt queries and keeps a running list per query.
+// The flat passes share each chunk's code rows among the tile's queries
+// (codes_q_stride 0); the IVF passes give each query its own slab of n
+// rows (codes_q_stride n * Kc, qt = 1), where a row's index is its slab
+// position.
 
 // Dynamic shared memory of one scan block: candidate buffers (the crude
 // pass one for its tile, the refine pass one per query, which keeps its
 // candidates pending across chunks), `stages` staging buffers of code
-// rows (in the refine pass with the crude values of its tile beside
-// them), LUTs of the query tile, per-query scalars (scale/offset or
-// threshold), the running top-k's scratch and counts and, when they
-// fit, the qt running lists of topk pairs.
-__host__ __device__ size_t stage_bytes_per_buf(int Kc, int qt, bool refine) {
+// rows (with two, the refine pass stages the crude values of its tile
+// beside them; with one it reads them from global memory), LUTs of the
+// query tile, per-query scalars (scale/offset or threshold), the
+// running top-k's scratch and counts and, when they fit, the qt running
+// lists of topk pairs.
+__host__ __device__ size_t stage_bytes_per_buf(int Kc, int qt,
+                                               bool with_crude) {
   return align16(size_t(kChunk) * Kc) +
-         (refine ? size_t(qt) * kChunk * sizeof(float) : 0);
+         (with_crude ? size_t(qt) * kChunk * sizeof(float) : 0);
 }
 __host__ __device__ size_t scan_smem_bytes(int Kc, int qt, int Km,
                                            int lut_esize, int n_scalars,
@@ -541,7 +615,7 @@ __host__ __device__ size_t scan_smem_bytes(int Kc, int qt, int Km,
                                            bool refine, int stages) {
   const int buffers = refine ? qt : 1;
   return size_t(buffers) * kChunk * (sizeof(float) + sizeof(int)) +
-         stages * stage_bytes_per_buf(Kc, qt, refine) +
+         stages * stage_bytes_per_buf(Kc, qt, refine && stages == 2) +
          align16(size_t(qt) * Km * lut_esize) +
          align16(size_t(n_scalars) * qt * sizeof(float)) + kListScratchBytes +
          align16(size_t(2) * qt * sizeof(int)) +
@@ -553,8 +627,8 @@ struct ScanSmem {
   float* val;       // candidate buffers of kChunk pairs
   int* idx;
   uint8_t* stage;   // staging buffers: kChunk code rows (then, in the
-  size_t stage_buf; // refine pass, qt rows of kChunk crude values)
-  size_t crude_off; // bytes between buffers; the crude rows' offset
+  size_t stage_buf; // two-stage refine pass, qt rows of kChunk crude
+  size_t crude_off; // values); bytes between buffers; the crude offset
   unsigned char* lut;
   float* scalars;
   int* scratch;
@@ -572,7 +646,7 @@ __device__ ScanSmem carve(unsigned char* base, int Kc, int qt, int Km,
   s.idx = reinterpret_cast<int*>(s.val + size_t(buffers) * kChunk);
   size_t off = size_t(buffers) * kChunk * (sizeof(float) + sizeof(int));
   s.stage = base + off;
-  s.stage_buf = stage_bytes_per_buf(Kc, qt, refine);
+  s.stage_buf = stage_bytes_per_buf(Kc, qt, refine && stages == 2);
   s.crude_off = align16(size_t(kChunk) * Kc);
   off += stages * s.stage_buf;
   s.lut = base + off;
@@ -622,44 +696,139 @@ struct BlockLists {
   }
 };
 
+// Phase 1, flat and IVF: the fast-masked LUT sum of every row for every
+// query of the tile (int8 LUTs dequantized as scale * acc + offset), the
+// dense crude rows and the crude top-k.  grid (x: blocks strided over
+// the n rows' chunks, y: query tiles of qt).  codes (n, Kc) shared by
+// the tile or each query's own slab (codes_q_stride, above); crude (nq,
+// n), or null: no dense matrix is written.  MASKED: ids (nq, n), and a
+// row whose id is < 0 (the IVF slab's pads) is +inf, in the dense crude
+// row and in the ranking.  out_v / out_i (nq, gridDim.x, topk): block
+// x's list of query q is row (q * gridDim.x + x).
+//
+// A running list per query, its candidates merged at the end of each
+// round (list_round<false>, one buffer for the tile): the block's first
+// chunk fills the list, after it the bar prunes almost every row, so a
+// later round is a ballot, a barrier and a merge by rank of the few rows
+// below the bar.  +inf rows enter only while the list holds pads, lowest
+// position first, so a slab row with fewer valid rows than topk ends in
+// its lowest invalid positions.  Each chunk's code rows are loaded
+// between two barriers (double-buffering them with cp.async gained 1-4%
+// on the slab pass on the H100, which the IVF tile's host time hides).
+// The launch bound asks for two blocks an SM, which the shared memory
+// allows anyway: without it ptxas settles for 48 registers and spills
+// in the int8 variant.
+template <bool QUANT, bool NIBBLE, bool MASKED>
+__global__ void __launch_bounds__(kThreads, 2)
+crude_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
+                  const int* __restrict__ ids,
+                  const void* __restrict__ lut_g,
+                  const float* __restrict__ scale_g,
+                  const float* __restrict__ offset_g,
+                  float* __restrict__ crude, float* out_v, int* out_i,
+                  int n, int Kc, int nq, int Km, int m, int topk, int qt,
+                  bool lists_in_smem) {
+  // named apart from the other sources' own dynamic shared arrays
+  extern __shared__ __align__(16) unsigned char scan_smem[];
+  const ScanSmem s = carve(scan_smem, Kc, qt, Km, QUANT ? 1 : 4,
+                           QUANT ? 2 : 0, topk, false, 1);
+  const int q0 = blockIdx.y * qt;
+  const int nql = min(qt, nq - q0);              // queries of this tile
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  const BlockLists lists{s, out_v, out_i, q0, topk, lists_in_smem, false};
+  codes += long(blockIdx.y) * codes_q_stride;
+  if (QUANT)
+    load_table_tile(reinterpret_cast<int8_t*>(s.lut),
+                    static_cast<const int8_t*>(lut_g), q0, qt, nq, Km);
+  else
+    load_table_tile(reinterpret_cast<float*>(s.lut),
+                    static_cast<const float*>(lut_g), q0, qt, nq, Km);
+  if (QUANT) {
+    for (int i = threadIdx.x; i < qt; i += blockDim.x) {
+      const int q = q0 + i;
+      s.scalars[i] = q < nq ? scale_g[q] : 0.0f;
+      s.scalars[qt + i] = q < nq ? offset_g[q] : 0.0f;
+    }
+  }
+  lists.start(nql);
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const long base = long(chunk) * kChunk;
+    __syncthreads();  // the previous chunk's readers are done
+    load_codes(s.stage, codes, base, n, Kc);
+    __syncthreads();
+    for (int q = 0; q < nql; ++q) {
+      const long qrow = long(q0 + q) * n;
+      // the thread's kPerThread points first (independent gather
+      // chains), then one shared-memory add per warp for all of them
+      float dv[kPerThread];
+#pragma unroll
+      for (int r = 0; r < kPerThread; ++r) {
+        const int p = threadIdx.x + r * kThreads;
+        const long gi = base + p;
+        float d = CUDART_INF_F;
+        if (gi < n) {
+          if (!MASKED || ids[qrow + gi] >= 0) {
+            const uint8_t* row = s.stage + p * Kc;
+            if (QUANT) {
+              const int acc = row_sum_i8<NIBBLE>(
+                  reinterpret_cast<const int8_t*>(s.lut) + q * Km, row, Kc,
+                  m);
+              d = dequant(s.scalars[q], acc, s.scalars[qt + q]);
+            } else {
+              d = row_sum_f32<NIBBLE>(
+                  reinterpret_cast<const float*>(s.lut) + q * Km, row, Kc,
+                  m);
+            }
+          }
+          if (crude != nullptr) crude[qrow + gi] = d;
+        }
+        dv[r] = d;
+      }
+      list_round<false>(lists[q], s.scratch, dv, int(base), n);
+    }
+  }
+  lists.finish(nql);
+}
+
 // Phase 2, flat and IVF: the margin test crude < thr, the slow-masked
 // f32 LUT sum for survivors, full = crude + slow; pruned points rank
 // +inf.  grid (x: blocks strided over the n rows' chunks, y: query
-// tiles of qt).  codes (n, Kc) rows shared by every query (codes_q_
-// stride 0, the flat pass), or each query's own slab of n rows
-// (codes_q_stride n * Kc, qt = 1: the IVF pass, where a row's index is
-// its slab position).  crude (nq, n); out_v / out_i (nq, gridDim.x,
-// topk): block x's list of query q is row (q * gridDim.x + x).
+// tiles of qt).  codes as in the crude kernel; crude (nq, n); out_v /
+// out_i (nq, gridDim.x, topk): block x's list of query q is row (q *
+// gridDim.x + x).
 //
 // A running list per query with a pending buffer (list_round<true>):
 // the served cells let a few rows per chunk and query through, so a
 // round is a margin test, a few slow sums and one barrier, and a list
-// merges rarely.  With two stages the next chunk's code rows and crude
+// merges rarely.  STAGES = 2: the next chunk's code rows and crude
 // values are staged (cp.async) into the other buffer while the block
-// works on the current chunk; with one (codes too wide for two) they
-// are staged after it.
-template <bool NIBBLE>
+// works on the current chunk; 1 (codes too wide for two): the code rows
+// are staged after it and the crude values read from global memory,
+// one coalesced word per thread and point.
+template <bool NIBBLE, int STAGES>
 __global__ void __launch_bounds__(kThreads)
 refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
                    const float* __restrict__ lut_g,
                    const float* __restrict__ crude,
                    const float* __restrict__ thr_g, float* out_v, int* out_i,
                    int n, int Kc, int nq, int Km, int m, int topk, int qt,
-                   int stages, bool lists_in_smem) {
+                   bool lists_in_smem) {
   // named apart from the other sources' own dynamic shared arrays
   extern __shared__ __align__(16) unsigned char scan_smem[];
-  const ScanSmem s = carve(scan_smem, Kc, qt, Km, 4, 1, topk, true, stages);
+  const ScanSmem s = carve(scan_smem, Kc, qt, Km, 4, 1, topk, true, STAGES);
   const float* lut = reinterpret_cast<const float*>(s.lut);
   const int q0 = blockIdx.y * qt;
   const int nql = min(qt, nq - q0);
   const int nchunks = (n + kChunk - 1) / kChunk;
   const BlockLists lists{s, out_v, out_i, q0, topk, lists_in_smem, true};
   codes += long(blockIdx.y) * codes_q_stride;
-  // a chunk's code rows and its crude rows of the tile into buffer b
+  // a chunk's code rows (with two stages also its crude rows of the
+  // tile) into buffer b
   auto stage = [&](int chunk, int b) {
     const long base = long(chunk) * kChunk;
     uint8_t* dst = s.stage + b * s.stage_buf;
     load_codes(dst, codes, base, n, Kc, true);
+    if (STAGES == 1) return;
     const int rows = int(min(long(kChunk), n - base));
     for (int q = 0; q < nql; ++q)
       stage_bytes(dst + s.crude_off + size_t(q) * kChunk * sizeof(float),
@@ -678,7 +847,7 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
     cp_async_wait_all();   // this chunk's rows
     __syncthreads();       // ... for every thread; the other buffer's
                            // readers (the previous chunk) are done
-    if (stages == 2 && next < nchunks) stage(next, buf ^ 1);
+    if (STAGES == 2 && next < nchunks) stage(next, buf ^ 1);
     const uint8_t* rows = s.stage + buf * s.stage_buf;
     const float* cr = reinterpret_cast<const float*>(rows + s.crude_off);
     for (int q = 0; q < nql; ++q) {
@@ -689,7 +858,8 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
         const int p = threadIdx.x + r * kThreads;
         v[r] = CUDART_INF_F;
         if (base + p < n) {
-          const float c = cr[q * kChunk + p];
+          const float c = STAGES == 2 ? cr[q * kChunk + p]
+                                      : crude[long(q0 + q) * n + base + p];
           if (c < thr)
             v[r] = __fadd_rn(c, row_sum_f32<NIBBLE>(lut + q * Km,
                                                     rows + p * Kc, Kc, m));
@@ -697,11 +867,11 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
       }
       list_round<true>(lists[q], s.scratch, v, int(base), n);
     }
-    if (stages == 1 && next < nchunks) {
+    if (STAGES == 1 && next < nchunks) {
       __syncthreads();     // this chunk's readers are done
       stage(next, 0);
     }
-    buf ^= stages - 1;
+    buf ^= STAGES - 1;
   }
   lists.finish(nql);
 }
@@ -710,8 +880,8 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
 // running lists fit in shared memory beside the LUTs; if none does, the
 // largest tile without them (lists in global memory).  The refine pass
 // double-buffers its staging (stages = 2) unless not even one query
-// fits that way, and then stages after each chunk.  qt = 0: nothing
-// fits.
+// fits that way, and then stages after each chunk; the crude pass loads
+// each chunk between barriers (stages = 1).  qt = 0: nothing fits.
 struct ScanTiling {
   int qt, stages;
   bool lists_in_smem;
@@ -734,6 +904,11 @@ ScanTiling scan_tiling(int Kc, int Km, int lut_esize, int n_scalars,
 
 ScanTiling refine_tiling(int Kc, int Km, int topk, int max_qt) {
   return scan_tiling(Kc, Km, 4, 1, topk, true, max_qt);
+}
+
+ScanTiling crude_tiling(int Kc, int Km, int quant, int topk, int max_qt) {
+  return scan_tiling(Kc, Km, quant ? 1 : 4, quant ? 2 : 0, topk, false,
+                     max_qt);
 }
 
 bool scan_args_ok(const ScanTiling& t, int n, int nq, int topk) {
@@ -767,17 +942,63 @@ int scan_plan(Kernel kernel, const ScanTiling& t, int n, int nq, int topk,
   return int(cudaSuccess);
 }
 
-// The refine pass's plan and launch, flat (MAX_QT > 1, codes_q_stride
-// 0) and IVF (MAX_QT = 1, codes_q_stride n * Kc).  Both return
-// cudaErrorInvalidValue for a shape that no tiling serves.  Templates,
-// so that only the sources that launch the kernel compile it.
+// The kernels' instances for a LUT type, code width and stage count.
+template <bool MASKED>
+auto crude_instance(int quant, int nibble) {
+  if (quant)
+    return nibble ? crude_scan_kernel<true, true, MASKED>
+                  : crude_scan_kernel<true, false, MASKED>;
+  return nibble ? crude_scan_kernel<false, true, MASKED>
+                : crude_scan_kernel<false, false, MASKED>;
+}
+template <int STAGES>
+auto refine_instance(int nibble) {
+  return nibble ? refine_scan_kernel<true, STAGES>
+                : refine_scan_kernel<false, STAGES>;
+}
+
+// The crude pass's plan and launch, flat (MAX_QT > 1, codes_q_stride 0,
+// no ids) and IVF (MAX_QT = 1, codes_q_stride n * Kc, MASKED by the id
+// slab); the refine pass's, flat (MAX_QT > 1) and IVF (MAX_QT = 1).
+// Each returns cudaErrorInvalidValue for a shape that no tiling serves.
+// Templates, so that only the sources that launch a kernel compile it.
+template <int MAX_QT, bool MASKED>
+int crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
+               int topk, int* out) {
+  const ScanTiling t = crude_tiling(Kc, Km, quant, topk, MAX_QT);
+  if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
+  return scan_plan(crude_instance<MASKED>(quant, nibble), t, n, nq, topk,
+                   out);
+}
+
+template <int MAX_QT, bool MASKED>
+int crude_launch(const void* codes, long codes_q_stride, const void* ids,
+                 const void* lut, const void* scale, const void* offset,
+                 void* crude, void* out_v, void* out_i, int n, int Kc,
+                 int nq, int Km, int m, int quant, int nibble, int topk,
+                 int grid_x, void* stream) {
+  const ScanTiling t = crude_tiling(Kc, Km, quant, topk, MAX_QT);
+  if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
+    return int(cudaErrorInvalidValue);
+  return int(launch_with_smem(
+      crude_instance<MASKED>(quant, nibble),
+      dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
+      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
+      codes_q_stride, static_cast<const int*>(ids), lut,
+      static_cast<const float*>(scale), static_cast<const float*>(offset),
+      static_cast<float*>(crude), static_cast<float*>(out_v),
+      static_cast<int*>(out_i), n, Kc, nq, Km, m, topk, t.qt,
+      t.lists_in_smem));
+}
+
 template <int MAX_QT>
 int refine_plan(int n, int Kc, int nq, int Km, int nibble, int topk,
                 int* out) {
   const ScanTiling t = refine_tiling(Kc, Km, topk, MAX_QT);
   if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
-  if (nibble) return scan_plan(refine_scan_kernel<true>, t, n, nq, topk, out);
-  return scan_plan(refine_scan_kernel<false>, t, n, nq, topk, out);
+  return scan_plan(t.stages == 2 ? refine_instance<2>(nibble)
+                                  : refine_instance<1>(nibble),
+                   t, n, nq, topk, out);
 }
 
 template <int MAX_QT>
@@ -788,19 +1009,17 @@ int refine_launch(const void* codes, long codes_q_stride, const void* lut,
   const ScanTiling t = refine_tiling(Kc, Km, topk, MAX_QT);
   if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
     return int(cudaErrorInvalidValue);
-  auto kernel = nibble ? refine_scan_kernel<true> : refine_scan_kernel<false>;
   return int(launch_with_smem(
-      kernel, dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
+      t.stages == 2 ? refine_instance<2>(nibble) : refine_instance<1>(nibble),
+      dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
       static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
       codes_q_stride, static_cast<const float*>(lut),
       static_cast<const float*>(crude), static_cast<const float*>(thr),
       static_cast<float*>(out_v), static_cast<int*>(out_i), n, Kc, nq, Km, m,
-      topk, t.qt, t.stages, t.lists_in_smem));
+      topk, t.qt, t.lists_in_smem));
 }
 
 }  // namespace
-
-extern "C" int icq_chunk_points() { return kChunk; }
 
 extern "C" const char* icq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -585,13 +585,80 @@ def test_cuda_refine_lists_in_global_memory(rank):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [72, 107])
+@pytest.mark.parametrize("order", ["rising", "falling", "equal"])
+@pytest.mark.parametrize("lut_dtype,code_bits", CASES)
+def test_cuda_slab_crude_adversarial(lut_dtype, code_bits, order):
+    """The running-list slab crude kernel against its plain version bit
+    for bit on adversarial slabs: distances rising, falling and equal
+    along the slab; a row whose ids are all -1 (its top-k is (+inf,
+    0..topk-1)), a row with 700 invalid columns before its first valid
+    one, a row with 20% holes and a row with none; slabs of exactly one
+    chunk, of 1025 columns and of 5000; topk 1, 100 and 2048 (or nc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    nq = 4
+    for nc in (1024, 1025, 5000):
+        codes, lut, scale, offset = _ordered_problem(order, nc, nq,
+                                                     lut_dtype, code_bits)
+        slab = codes[None].expand(nq, -1, -1).contiguous()
+        rng = np.random.default_rng(nc)
+        ids = rng.integers(0, 1 << 30, size=(nq, nc)).astype(np.int32)
+        ids[0] = -1
+        ids[1, :700] = -1
+        ids[2, rng.random(nc) < 0.2] = -1
+        ids = torch.from_numpy(ids).cuda()
+        for topk in (1, 100, min(2048, nc)):
+            got = bs.ivf_crude_topk_cuda(slab, ids, lut, topk, scale, offset,
+                                         code_bits=code_bits)
+            want = bs.ivf_crude_topk_torch(slab, ids, lut, topk, scale,
+                                           offset, code_bits=code_bits)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (nc, topk)
+            assert bool(torch.isinf(got[1][0]).all())
+            assert bool((got[2][0] == torch.arange(topk,
+                                                   device="cuda")).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype,K", [("f32", 109), ("int8", 175)])
+def test_cuda_slab_crude_wide_codes(lut_dtype, K):
+    """The slab crude kernel at the widest codes one block's shared
+    memory serves at m = 256: f32 LUTs to K = 109 (the running lists in
+    shared memory), int8 LUTs to K = 175 (the lists in global memory);
+    equal to the plain version bit for bit.  One codebook more raises a
+    ValueError."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    nq, nc, m = 3, 2500, 256
+    quantized = lut_dtype == "int8"
+    codes, ids, luts, fast = _slab(71 + K, nq, nc, K, m)
+    lut_flat, scale, offset = stages.crude_lut_operands(
+        luts, fast, quantized=quantized)
+    for topk in (20, 2048):
+        got = bs.ivf_crude_topk_cuda(codes, ids, lut_flat, topk, scale,
+                                     offset)
+        want = bs.ivf_crude_topk_torch(codes, ids, lut_flat, topk, scale,
+                                       offset)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), topk
+    wide = torch.zeros((nq, nc, K + 1), dtype=torch.uint8, device="cuda")
+    lut = torch.zeros((nq, (K + 1) * m), device="cuda",
+                      dtype=torch.int8 if quantized else torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        bs.ivf_crude_topk_cuda(wide, ids, lut, 20, scale, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [72, 107, 109])
 def test_cuda_refine_kernels_wide_codes(K):
     """Codes too wide for two staging buffers at m = 256 (K > 70: the
-    refine blocks then stage each chunk after the last), up to the
-    widest that one block's shared memory serves, flat and slab, with
-    the lists in shared and in global memory: equal to the plain
-    versions bit for bit.  One codebook more raises a ValueError."""
+    refine blocks then stage each chunk's code rows after the last and
+    read the crude values from global memory), up to the widest that one
+    block's shared memory serves (K = 109), flat and slab, with the
+    lists in shared and in global memory: equal to the plain versions
+    bit for bit.  K = 110 raises a ValueError in both."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     n, nq, m = 5003, 3, 256
@@ -613,10 +680,13 @@ def test_cuda_refine_kernels_wide_codes(K):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (rank, topk)
-    wide = torch.zeros((n, 108), dtype=torch.uint8, device="cuda")
+    wide = torch.zeros((n, 110), dtype=torch.uint8, device="cuda")
+    slow = torch.zeros((nq, 110 * m), device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
-        bs.refine_topk_cuda(wide, torch.zeros((nq, 108 * m), device="cuda"),
-                            crude, thr, 20)
+        bs.refine_topk_cuda(wide, slow, crude, thr, 20)
+    with pytest.raises(ValueError, match="shared memory"):
+        bs.ivf_refine_topk_cuda(wide[None].expand(nq, -1, -1).contiguous(),
+                                slow, crude, thr, 20)
 
 
 def _icm_problem(seed, n, K, m, d):

@@ -96,12 +96,21 @@ def _geometry(code_bits):
 SLAB_CASES = [(lut, bits) for lut in ("f32", "int8") for bits in (8, 4)]
 
 
+@pytest.mark.parametrize("holes", ["random", "all_invalid_row",
+                                   "invalid_prefix"])
 @pytest.mark.parametrize("lut_dtype,code_bits", SLAB_CASES)
-def test_slab_crude_plain_matches_pallas(lut_dtype, code_bits):
+def test_slab_crude_plain_matches_pallas(lut_dtype, code_bits, holes):
     """Ragged nq and nc against the (4, 128) Pallas tiles, odd K under
-    the nibble format, -1 holes and a slab row thinner than topk."""
+    the nibble format, -1 holes and a slab row thinner than topk; with
+    ``all_invalid_row`` one more row whose ids are all -1 (its top-k is
+    (+inf, 0..topk-1)), with ``invalid_prefix`` more than topk invalid
+    columns before the first valid one in every row."""
     K, m = _geometry(code_bits)
     codes, ids, luts, fast = _slab_problem(3 + code_bits, 5, 300, K, m)
+    if holes == "all_invalid_row":
+        ids[3] = -1
+    elif holes == "invalid_prefix":
+        ids[:, :4 * TOPK] = -1
     stored = _stored(codes, K, code_bits)
     lut_flat, scale, offset = ref_stages.crude_lut_operands(
         jnp.asarray(luts), jnp.asarray(fast),
@@ -122,6 +131,11 @@ def test_slab_crude_plain_matches_pallas(lut_dtype, code_bits):
     # the thin row's top-k ends in +inf slots at its lowest invalid
     # positions, as the reference's two-key merge orders them
     assert np.isinf(got[1].numpy()[1, TOPK // 2:]).all()
+    if holes == "all_invalid_row":
+        assert np.isinf(got[1].numpy()[3]).all()
+        np.testing.assert_array_equal(got[2].numpy()[3], np.arange(TOPK))
+    elif holes == "invalid_prefix":
+        assert (got[2].numpy()[[0, 2, 3, 4]] >= 4 * TOPK).all()
     jnp_crude, _ = ref_ivf._ivf_crude_scores(
         jnp.asarray(luts), jnp.asarray(stored), jnp.asarray(ids >= 0),
         jnp.asarray(fast), quantized=lut_dtype == "int8", need_slow=False,
