@@ -27,10 +27,14 @@ or outside a checkout of the repository.  Phases:
    mode on adversarial slabs (distances rising, falling and equal
    along the slab; a row of ids all -1, a row with 700 invalid columns
    before its first valid one; slabs of one chunk, 1025 and 5000
-   columns) at topk 1, 100 and 2048 (or nc); the widest codes at
-   m = 256: flat and slab refine and slab crude at K = 109 (f32), slab
-   crude at K = 175 (int8 LUTs), each equal to its plain version, and
-   K = 110 / 176 raising a ValueError; and
+   columns) at topk 1, 100 and 2048 (or nc); the same modes, regimes
+   and adversarial slabs (m = 1024) over int32 code rows at m = 512 and
+   1024 (codes wider than a byte, as the index stores them); the widest
+   codes one block's shared memory serves: at m = 256 (uint8 rows) K =
+   109 with f32 LUTs and 175 with int8 crude LUTs, at m = 512 (int32) 36
+   and 48, at m = 1024 27 and 43, all four passes at the f32 width and
+   both crude passes at the int8 width equal to their plain versions,
+   one codebook more raising a ValueError naming shared memory; and
    ``kmeans_assign`` (L = 8193 centroids, one duplicated) against its
    plain version: ids equal wherever the two nearest scores are apart
    by more than 1e-5 of the terms' size, distances to rtol 1e-5;
@@ -94,7 +98,30 @@ or outside a checkout of the repository.  Phases:
    at tinyllama-1.1b's (f32 and bf16) and llama3-405b's (bf16) attention
    widths at s = 4096, causal; and their times beside their bounds, their
    plain versions and a one-call library yardstick (``embedding_bag``,
-   ``scaled_dot_product_attention``).
+   ``scaled_dot_product_attention``);
+8. (run after phase 5, as is 9) the degradation ladder on the
+   two-step-f32, flat-f32 and ivf-f32 artifacts of phases 4-5: every rung the card offers (two-step and
+   flat {full, crude}, IVF {full, probes, crude}) warmed once and served
+   in 64-query tiles with the launch counts reset before and read after
+   (the crude rung launches the crude kernel once a tile and the refine
+   never), its ms per tile printed beside the card's name and power
+   limit; the crude rung equal bit for bit to the crude top-k of the
+   plain composition on the same CUDA tensors, the probes rung to the
+   index served full at n_probe = 4, full to the plain composition; a
+   deadline of half the crude rung's measured time serves crude; filter,
+   refine_cap and the capped rung raise the reference's ValueError; and
+   a ``FaultInjector`` fault at ``kernels.batched_crude_topk`` is
+   retried once in place (max_retries 1), no failover, the same top-k;
+9. codes wider than a byte at SIFT1M's width: the flat crude and refine
+   kernels timed over 1M int32 rows at m = 1024 beside their byte bound,
+   a two-step f32 and an IVF f32 index at K = 8, m = 1024 (32 MB of
+   int32 codes) saved, loaded with ``load_ann_engine`` and served in
+   64-query tiles equal to the plain composition, and the slab kernels
+   timed on the wide IVF cell's served slab.
+
+Every engine but the fault check's runs with
+``resilience.max_retries = 0``, so a kernel failure raises at once; at
+the end none may have retried or failed over.
 
 With ``--profile DIR``, five more tiles of the two-step-f32 and ivf-f32
 cells run under ``torch.profiler`` after their counted windows: the
@@ -164,6 +191,32 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str):
     if not cond:
         raise SmokeFailure(what)
+
+
+# every engine the script serves with, by name, with its stats: all but
+# phase 8's fault check run with resilience.max_retries = 0, so a kernel
+# failure raises at once, and at the end none may have retried or
+# failed over
+ENGINES = []
+NO_RETRIES = {"resilience.max_retries": 0}
+
+
+def engine_load(name, path, overrides=None, **kw):
+    """``load_ann_engine`` with no retries, registered in ``ENGINES``."""
+    from repro_torch.api import load_ann_engine
+    engine = load_ann_engine(path, overrides={**NO_RETRIES,
+                                              **(overrides or {})}, **kw)
+    ENGINES.append((name, engine.stats))
+    return engine
+
+
+def engine_over(name, index, **kw):
+    """``AnnEngine`` over an index with no retries, registered."""
+    from repro_torch.api import AnnEngine, ResilienceConfig
+    engine = AnnEngine(index, resilience=ResilienceConfig(max_retries=0),
+                       **kw)
+    ENGINES.append((name, engine.stats))
+    return engine
 
 
 def log(msg: str):
@@ -248,14 +301,16 @@ def scan_kernel_registers(logs) -> list:
                 spills = (int(m.group(1)), int(m.group(2)))
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
-                k = re.search(r"(crude|refine)_scan_kernelI((?:L[bi]\d+E)+)E",
-                              fn)
+                k = re.search(r"(crude|refine)_scan_kernelI([hi])"
+                              r"((?:L[bi]\d+E)+)E", fn)
                 if k:
-                    flags = re.findall(r"L[bi](\d+)E", k.group(2))
+                    flags = re.findall(r"L[bi](\d+)E", k.group(3))
                     names = (("quant", "nibble", "masked", "stages")
                              if k.group(1) == "crude"
                              else ("nibble", "stages"))
-                    inst = ", ".join(f"{a}={b}" for a, b in zip(names, flags))
+                    rows = "uint8" if k.group(2) == "h" else "int32"
+                    inst = ", ".join([f"rows={rows}"] + [
+                        f"{a}={b}" for a, b in zip(names, flags)])
                     out.append((f"{name}.cu", f"{k.group(1)}_scan_kernel<"
                                 f"{inst}>", int(m.group(1)), *spills))
                 fn = None
@@ -264,15 +319,23 @@ def scan_kernel_registers(logs) -> list:
 
 # ------------------------------------------------------------ operands ----
 
+def code_dtype(m: int):
+    """The stored code type of m codewords: uint8 up to 256, int32 past
+    it (``core.encode``'s rule)."""
+    import torch
+    return torch.uint8 if m <= 256 else torch.int32
+
+
 def problem(seed, n, nq, K, m, d, num_fast, dup: bool):
-    """Codes (n, K) uint8 with duplicated rows when ``dup``, f32 LUTs of
-    random queries (built by the port), and the fast mask, on the card."""
+    """Codes (n, K) in their stored type (``code_dtype``) with duplicated
+    rows when ``dup``, f32 LUTs of random queries (built by the port),
+    and the fast mask, on the card."""
     import torch
     from repro_torch.index.base import build_lut
     g = torch.Generator(device="cuda").manual_seed(seed)
     C = torch.randn((K, m, d), generator=g, device="cuda") / K ** 0.5
     codes = torch.randint(0, m, (n, K), generator=g, device="cuda",
-                          dtype=torch.int32).to(torch.uint8)
+                          dtype=torch.int32).to(code_dtype(m))
     if dup:
         codes[n // 2:n // 2 + 9] = codes[3]
         codes[-7:] = codes[1]
@@ -289,13 +352,14 @@ def stored_codes(codes, K, code_bits):
 
 # ------------------------------------------------------- phase 2: modes ----
 
-def check_modes(seed: int):
-    """Every mode of both kernels equals its plain version bit for bit."""
+def check_modes(seed: int, geometries=((8, 8, 256), (4, 7, 16))):
+    """Every mode of both kernels equals its plain version bit for bit,
+    for each (code_bits, K, m) of ``geometries`` (m > 256: int32 rows)."""
     import torch
     from repro_torch.kernels import batched_search as bs
     from repro_torch.kernels.stages import crude_lut_operands, slow_lut_operand
     n, nq = 200_003, 67          # ragged against the 1024-point chunk
-    for code_bits, K, m in ((8, 8, 256), (4, 7, 16)):
+    for code_bits, K, m in geometries:
         codes, luts, fast = problem(seed + code_bits, n, nq, K, m, 32, 2,
                                     dup=True)
         stored = stored_codes(codes, K, code_bits)
@@ -313,11 +377,12 @@ def check_modes(seed: int):
                                            code_bits=code_bits)
                 torch.cuda.synchronize()
                 ok = equal_outputs(got, want)
-                log(f"mode crude {lut_dtype} {code_bits}-bit topk={topk} "
+                log(f"mode crude {lut_dtype} {code_bits}-bit m={m} "
+                    f"{stored.dtype} rows topk={topk} "
                     f"want_crude={want_crude}: "
                     f"{'equal' if ok else 'DIFFERENT'}")
                 check(ok, f"crude kernel != plain version ({lut_dtype}, "
-                          f"{code_bits}-bit, topk={topk}, "
+                          f"{code_bits}-bit, m={m}, topk={topk}, "
                           f"want_crude={want_crude})")
         lut_fast, _, _ = crude_lut_operands(luts, fast, quantized=False,
                                             code_bits=code_bits)
@@ -332,10 +397,10 @@ def check_modes(seed: int):
                                             code_bits=code_bits)
                 torch.cuda.synchronize()
                 ok = equal_outputs(got, want)
-                log(f"mode refine {code_bits}-bit topk={topk} survivors: "
-                    f"{regime}: {'equal' if ok else 'DIFFERENT'}")
+                log(f"mode refine {code_bits}-bit m={m} topk={topk} "
+                    f"survivors: {regime}: {'equal' if ok else 'DIFFERENT'}")
                 check(ok, f"refine kernel != plain version ({code_bits}-"
-                          f"bit, topk={topk}, survivors: {regime})")
+                          f"bit, m={m}, topk={topk}, survivors: {regime})")
 
 
 def refine_regimes(crude, many: int):
@@ -364,16 +429,16 @@ def refine_regimes(crude, many: int):
 
 
 def slab_problem(seed, nq, nc, K, m, d, num_fast):
-    """A ragged candidate slab on the card: codes (nq, nc, K) uint8 with
-    duplicated rows (exact ties), ids with -1 holes in every row and a
-    query (row 1) with fewer valid columns than topk, f32 LUTs of random
-    queries and the fast mask."""
+    """A ragged candidate slab on the card: codes (nq, nc, K) in their
+    stored type with duplicated rows (exact ties), ids with -1 holes in
+    every row and a query (row 1) with fewer valid columns than topk,
+    f32 LUTs of random queries and the fast mask."""
     import torch
     from repro_torch.index.base import build_lut
     g = torch.Generator(device="cuda").manual_seed(seed)
     C = torch.randn((K, m, d), generator=g, device="cuda") / K ** 0.5
     codes = torch.randint(0, m, (nq, nc, K), generator=g, device="cuda",
-                          dtype=torch.int32).to(torch.uint8)
+                          dtype=torch.int32).to(code_dtype(m))
     codes[:, 500:509] = codes[:, 3:4]
     codes[:, -7:] = codes[:, 1:2]
     ids = torch.randint(0, 1 << 30, (nq, nc), generator=g, device="cuda",
@@ -386,14 +451,14 @@ def slab_problem(seed, nq, nc, K, m, d, num_fast):
     return codes, ids, build_lut(q, C), fast
 
 
-def check_slab_modes(seed: int):
+def check_slab_modes(seed: int, geometries=((8, 8, 256), (4, 7, 16))):
     """Every mode of both slab kernels equals its plain version bit for
-    bit on ragged slabs."""
+    bit on ragged slabs, for each (code_bits, K, m) of ``geometries``."""
     import torch
     from repro_torch.kernels import batched_search as bs
     from repro_torch.kernels.stages import crude_lut_operands, slow_lut_operand
     nq, nc = 37, 9_001           # ragged against the 1024-row chunk
-    for code_bits, K, m in ((8, 8, 256), (4, 7, 16)):
+    for code_bits, K, m in geometries:
         codes, ids, luts, fast = slab_problem(seed + 10 + code_bits, nq, nc,
                                               K, m, 32, 2)
         stored = stored_codes(codes, K, code_bits)
@@ -409,11 +474,11 @@ def check_slab_modes(seed: int):
                 torch.cuda.synchronize()
                 ok = equal_outputs(got, want)
                 thin = bool(torch.isinf(got[1][1, TOPK // 3:]).all())
-                log(f"mode ivf_crude {lut_dtype} {code_bits}-bit "
+                log(f"mode ivf_crude {lut_dtype} {code_bits}-bit m={m} "
                     f"topk={topk}: {'equal' if ok else 'DIFFERENT'}; thin "
                     f"slab's +inf tail: {thin}")
                 check(ok and thin, f"slab crude kernel != plain version "
-                                   f"({lut_dtype}, {code_bits}-bit, "
+                                   f"({lut_dtype}, {code_bits}-bit, m={m}, "
                                    f"topk={topk})")
         lut_fast, _, _ = crude_lut_operands(luts, fast, quantized=False,
                                             code_bits=code_bits)
@@ -433,17 +498,18 @@ def check_slab_modes(seed: int):
                                                 topk, code_bits=code_bits)
                 torch.cuda.synchronize()
                 ok = equal_outputs(got, want)
-                log(f"mode ivf_refine {code_bits}-bit topk={topk} survivors:"
-                    f" {regime}: {'equal' if ok else 'DIFFERENT'}")
+                log(f"mode ivf_refine {code_bits}-bit m={m} topk={topk} "
+                    f"survivors: {regime}: {'equal' if ok else 'DIFFERENT'}")
                 check(ok, f"slab refine kernel != plain version ({code_bits}"
-                          f"-bit, topk={topk}, survivors: {regime})")
+                          f"-bit, m={m}, topk={topk}, survivors: {regime})")
 
 
-def ordered_slab(order, nc, nq, lut_dtype, code_bits):
+def ordered_slab(order, nc, nq, lut_dtype, code_bits, m=256):
     """A slab whose crude distance at position i is a chosen function of
     i, the same in every row: rising with i, falling, or equal for all.
     f32 LUTs give the rank itself (exact integers); int8 LUTs a coarse,
-    non-decreasing step of it (long runs of exact ties).  Returns (codes
+    non-decreasing step of it (long runs of exact ties).  8-bit codes are
+    two codebooks of m codewords (int32 rows past 256).  Returns (codes
     (nq, nc, Kc), lut, scale, offset) on the card."""
     import torch
     from repro_torch.core.encode import pack_nibbles
@@ -452,12 +518,13 @@ def ordered_slab(order, nc, nq, lut_dtype, code_bits):
         r = nc - 1 - r
     elif order == "equal":
         r = torch.full_like(r, 12345)
-    j = torch.arange(256 if code_bits == 8 else 16, device="cuda",
+    j = torch.arange(m if code_bits == 8 else 16, device="cuda",
                      dtype=torch.float32)
     if code_bits == 8:
-        codes = torch.stack([r // 256 % 256, r % 256], 1).to(torch.uint8)
-        lut = (torch.stack([256.0 * j, j]) if lut_dtype == "f32"
-               else torch.stack([torch.div(j, 2, rounding_mode="floor")
+        codes = torch.stack([r // m % m, r % m], 1).to(code_dtype(m))
+        lut = (torch.stack([float(m) * j, j]) if lut_dtype == "f32"
+               else torch.stack([torch.div(j, m // 128,
+                                           rounding_mode="floor")
                                  - 64, 0 * j]))
     else:
         codes = pack_nibbles(torch.stack([r >> (4 * k) & 15
@@ -475,13 +542,14 @@ def ordered_slab(order, nc, nq, lut_dtype, code_bits):
             torch.linspace(-1.0, 1.0, nq, device="cuda"))
 
 
-def check_slab_adversarial(seed: int):
+def check_slab_adversarial(seed: int, formats=((8, 256), (4, 16))):
     """The slab crude kernel in every mode equals its plain version bit
     for bit on adversarial slabs: distances rising, falling and equal
     along the slab; row 0 all -1 (its top-k must be (+inf, 0..topk-1)),
     row 1 with 700 invalid columns before its first valid one, row 2
     with 20% holes, row 3 with none; slabs of one chunk, 1025 and 5000
-    columns; topk 1, 100 and 2048 (or nc)."""
+    columns; topk 1, 100 and 2048 (or nc); for each (code_bits, m) of
+    ``formats`` (m > 256: int32 rows)."""
     import torch
     from repro_torch.kernels import batched_search as bs
     nq = 4
@@ -494,9 +562,9 @@ def check_slab_adversarial(seed: int):
         ids[2, torch.rand((nc,), generator=g, device="cuda") < 0.2] = -1
         for order in ("rising", "falling", "equal"):
             for lut_dtype in ("f32", "int8"):
-                for code_bits in (8, 4):
+                for code_bits, m in formats:
                     slab, lut, sc, of = ordered_slab(order, nc, nq,
-                                                     lut_dtype, code_bits)
+                                                     lut_dtype, code_bits, m)
                     for topk in (1, TOPK, min(2048, nc)):
                         got = bs.ivf_crude_topk_cuda(slab, ids, lut, topk,
                                                      sc, of,
@@ -512,76 +580,95 @@ def check_slab_adversarial(seed: int):
                         check(equal_outputs(got, want) and empty,
                               f"slab crude kernel != plain version on an "
                               f"adversarial slab ({order}, nc={nc}, "
-                              f"{lut_dtype}, {code_bits}-bit, topk={topk})")
-    log("mode ivf_crude adversarial slabs (rising / falling / equal; a row "
-        "all -1, a 700-column invalid prefix, 20% holes; nc = 1024, 1025, "
-        "5000) x {f32, int8} x {8, 4 bit} x topk {1, 100, 2048 or nc}: "
-        "equal")
+                              f"{lut_dtype}, {code_bits}-bit, m={m}, "
+                              f"topk={topk})")
+    log(f"mode ivf_crude adversarial slabs (rising / falling / equal; a row "
+        f"all -1, a 700-column invalid prefix, 20% holes; nc = 1024, 1025, "
+        f"5000) x {{f32, int8}} x (code_bits, m) {list(formats)} x topk "
+        f"{{1, 100, 2048 or nc}}: equal")
+
+
+# the widest codes one block's shared memory serves, per m: (m, K with
+# f32 LUTs (all four passes), K with int8 crude LUTs (both crude
+# passes)); uint8 rows at m = 256, int32 rows past it
+WIDEST = ((256, 109, 175), (512, 36, 48), (1024, 27, 43))
 
 
 def check_wide_codes(seed: int):
-    """The widest codes one block's shared memory serves at m = 256:
-    flat and slab refine and slab crude at K = 109 with f32 LUTs, slab
-    crude at K = 175 with int8 LUTs (its running lists in global
-    memory), each equal to its plain version bit for bit at topk 100
-    and 2048; one codebook more raises a ValueError naming shared
-    memory."""
+    """The widest codes of ``WIDEST``: at the f32 K every pass (flat and
+    slab crude, flat and slab refine), at the int8 K both crude passes,
+    each equal to its plain version bit for bit at topk 100 and 2048;
+    one codebook more raises a ValueError naming shared memory in each."""
     import torch
     from repro_torch.kernels import batched_search as bs
     from repro_torch.kernels.stages import crude_lut_operands, slow_lut_operand
-    nq, nc, m = 3, 5003, 256
-    for K, lut_dtype in ((109, "f32"), (175, "int8")):
-        codes, ids, luts, fast = slab_problem(seed + K, nq, nc, K, m, 16, 2)
-        quant = lut_dtype == "int8"
-        lf, sc, of = crude_lut_operands(luts, fast, quantized=quant)
-        for topk in (TOPK, 2048):
-            got = bs.ivf_crude_topk_cuda(codes, ids, lf, topk, sc, of)
-            want = bs.ivf_crude_topk_torch(codes, ids, lf, topk, sc, of)
-            torch.cuda.synchronize()
-            check(equal_outputs(got, want), f"slab crude kernel != plain "
-                                            f"version at K={K} {lut_dtype}, "
-                                            f"topk={topk}")
-        if not quant:
-            slow = slow_lut_operand(luts, fast)
-            crude = want[0]
-            thr = torch.sort(crude, dim=1).values[:, 400].contiguous()
+    nq, nc = 3, 5003
+    for m, k_f32, k_int8 in WIDEST:
+        for K, lut_dtype in ((k_f32, "f32"), (k_int8, "int8")):
+            codes, ids, luts, fast = slab_problem(seed + K + m, nq, nc, K, m,
+                                                  16, 2)
             flat = codes[0].contiguous()
+            quant = lut_dtype == "int8"
+            lf, sc, of = crude_lut_operands(luts, fast, quantized=quant)
             for topk in (TOPK, 2048):
-                got = bs.ivf_refine_topk_cuda(codes, slow, crude, thr, topk)
-                want = bs.ivf_refine_topk_torch(codes, slow, crude, thr,
-                                                topk)
-                torch.cuda.synchronize()
-                check(equal_outputs(got, want), f"slab refine kernel != "
-                      f"plain version at K={K}, topk={topk}")
-                got = bs.refine_topk_cuda(flat, slow, crude, thr, topk)
-                want = bs.refine_topk_torch(flat, slow, crude, thr, topk)
-                torch.cuda.synchronize()
-                check(equal_outputs(got, want), f"refine kernel != plain "
-                      f"version at K={K}, topk={topk}")
-        wide = torch.zeros((nq, nc, K + 1), dtype=torch.uint8,
-                           device="cuda")
-        lut = torch.zeros((nq, (K + 1) * m), device="cuda",
-                          dtype=torch.int8 if quant else torch.float32)
-        calls = [("slab crude", lambda: bs.ivf_crude_topk_cuda(
-            wide, ids, lut, TOPK, sc, of))]
-        if not quant:
-            thr = torch.zeros((nq,), device="cuda")
-            cr = torch.zeros((nq, nc), device="cuda")
-            calls += [("slab refine", lambda: bs.ivf_refine_topk_cuda(
-                          wide, lut, cr, thr, TOPK)),
-                      ("refine", lambda: bs.refine_topk_cuda(
-                          wide[0].contiguous(), lut, cr, thr, TOPK))]
-        for what, call in calls:
-            try:
-                call()
-                raised = ""
-            except ValueError as e:
-                raised = str(e)
-            check("shared memory" in raised, f"{what} at K={K + 1} "
-                                             f"({lut_dtype}) did not raise")
-        log(f"mode wide codes K={K} m={m} {lut_dtype}: "
-            f"{'slab crude' if quant else 'slab crude, slab and flat refine'}"
-            f" equal at topk {TOPK} and 2048; K={K + 1} raises")
+                for what, cuda, plain, args in (
+                        ("slab crude", bs.ivf_crude_topk_cuda,
+                         bs.ivf_crude_topk_torch, (codes, ids, lf, topk, sc,
+                                                   of)),
+                        ("flat crude", bs.crude_topk_cuda,
+                         bs.crude_topk_torch, (flat, lf, topk, sc, of))):
+                    got, want = cuda(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    check(equal_outputs(got, want), f"{what} kernel != "
+                          f"plain version at m={m} K={K} {lut_dtype}, "
+                          f"topk={topk}")
+            if not quant:
+                slow = slow_lut_operand(luts, fast)
+                scrude = bs.ivf_crude_topk_torch(codes, ids, lf, TOPK)[0]
+                crude = bs.crude_topk_torch(flat, lf, TOPK)[0]
+                sthr = torch.sort(scrude, dim=1).values[:, 400].contiguous()
+                thr = torch.sort(crude, dim=1).values[:, 400].contiguous()
+                for topk in (TOPK, 2048):
+                    for what, cuda, plain, args in (
+                            ("slab refine", bs.ivf_refine_topk_cuda,
+                             bs.ivf_refine_topk_torch, (codes, slow, scrude,
+                                                        sthr, topk)),
+                            ("flat refine", bs.refine_topk_cuda,
+                             bs.refine_topk_torch, (flat, slow, crude, thr,
+                                                    topk))):
+                        got, want = cuda(*args), plain(*args)
+                        torch.cuda.synchronize()
+                        check(equal_outputs(got, want), f"{what} kernel != "
+                              f"plain version at m={m} K={K}, topk={topk}")
+            wide = torch.zeros((nq, nc, K + 1), dtype=code_dtype(m),
+                               device="cuda")
+            lut = torch.zeros((nq, (K + 1) * m), device="cuda",
+                              dtype=torch.int8 if quant else torch.float32)
+            calls = [("slab crude", lambda: bs.ivf_crude_topk_cuda(
+                          wide, ids, lut, TOPK, sc, of)),
+                     ("flat crude", lambda: bs.crude_topk_cuda(
+                          wide[0].contiguous(), lut, TOPK, sc, of))]
+            if not quant:
+                thr0 = torch.zeros((nq,), device="cuda")
+                cr = torch.zeros((nq, nc), device="cuda")
+                calls += [("slab refine", lambda: bs.ivf_refine_topk_cuda(
+                              wide, lut, cr, thr0, TOPK)),
+                          ("flat refine", lambda: bs.refine_topk_cuda(
+                              wide[0].contiguous(), lut, cr, thr0, TOPK))]
+            for what, call in calls:
+                try:
+                    call()
+                    raised = ""
+                except ValueError as e:
+                    raised = str(e)
+                check("shared memory" in raised, f"{what} at m={m} "
+                      f"K={K + 1} ({lut_dtype}) did not raise")
+            log(f"mode widest codes m={m} ({codes.dtype} rows) K={K} "
+                f"{lut_dtype}: "
+                + ("slab and flat crude, slab and flat refine" if not quant
+                   else "slab and flat crude")
+                + f" equal at topk {TOPK} and 2048; K={K + 1} raises a "
+                  f"ValueError naming shared memory in each")
 
 
 def compare_assign(got, want, x, cent):
@@ -628,15 +715,18 @@ def check_kmeans(seed: int):
 
 # ------------------------------------------------ phase 3: kernel times ----
 
-def time_kernels(seed: int, n: int):
+def time_kernels(seed: int, n: int, m: int = SIFT["m"]):
     """Both kernels at the main path's shape: times, plain times, bounds
-    and the largest difference from the plain version."""
+    and the largest difference from the plain version.  At another m
+    (codes wider than a byte: int32 rows) the same lines are printed
+    for the f32 crude and the refine, and the records are of that m."""
     import torch
     from repro_torch.kernels import batched_search as bs
     from repro_torch.kernels.stages import (ThresholdStage,
                                             crude_lut_operands,
                                             slow_lut_operand)
-    K, m, d = SIFT["K"], SIFT["m"], SIFT["d"]
+    K, d = SIFT["K"], SIFT["d"]
+    rows = f"m={m} {code_dtype(m)} rows".replace("torch.", "")
     codes, luts, fast = problem(seed + 100, n, TILE, K, m, d,
                                 SIFT["num_fast"], dup=False)
     lut_flat, _, _ = crude_lut_operands(luts, fast, quantized=False)
@@ -651,7 +741,8 @@ def time_kernels(seed: int, n: int):
           "at the main path's shape")
     ms = time_ms(lambda: bs.crude_topk_cuda(codes, lut_flat, TOPK), 20)
     plain_ms = time_ms(lambda: bs.crude_topk_torch(codes, lut_flat, TOPK), 3)
-    nbytes = codes.numel() + lut_flat.numel() * 4 + TILE * n * 4 \
+    code_bytes = codes.numel() * codes.element_size()
+    nbytes = code_bytes + lut_flat.numel() * 4 + TILE * n * 4 \
         + TILE * TOPK * 8
     b_ms, b_by = bound_ms(nbytes, TILE * n * K)
     records["crude_topk"] = dict(
@@ -660,8 +751,8 @@ def time_kernels(seed: int, n: int):
         replaces="src/repro/kernels/batched_search.py:168",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    log(f"kernel crude_topk f32 8-bit nq={TILE} n={n}: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+    log(f"kernel crude_topk f32 8-bit {rows} nq={TILE} n={n}: {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"max_abs_err {err}")
 
     crude, cv, ci = crude_k
@@ -683,7 +774,7 @@ def time_kernels(seed: int, n: int):
         plain_ms = time_ms(lambda: bs.refine_topk_torch(codes, lut_slow,
                                                         crude, thr, TOPK), 3)
         survivors = int((crude < thr[:, None]).sum())
-        nbytes = codes.numel() + lut_slow.numel() * 4 + TILE * n * 4 \
+        nbytes = code_bytes + lut_slow.numel() * 4 + TILE * n * 4 \
             + TILE * 4 + TILE * TOPK * 8
         # one compare per point, K adds and one add per survivor
         b_ms, b_by = bound_ms(nbytes, TILE * n + survivors * (K + 1))
@@ -694,11 +785,13 @@ def time_kernels(seed: int, n: int):
                 replaces="src/repro/kernels/batched_search.py:441",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
-        log(f"kernel refine_topk 8-bit nq={TILE} n={n} sigma={sigma} "
+        log(f"kernel refine_topk 8-bit {rows} nq={TILE} n={n} sigma={sigma} "
             f"survivors={survivors} ({survivors / TILE:.1f} per query): "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), max_abs_err {err}")
 
+    if m != SIFT["m"]:
+        return records
     # the other crude modes at their main-path shapes (printed only)
     lq, sc, of = crude_lut_operands(luts, fast, quantized=True)
     ms = time_ms(lambda: bs.crude_topk_cuda(codes, lq, TOPK, sc, of), 10)
@@ -831,9 +924,8 @@ def serve_saved(name, path, *, seed, n, batches, overrides=None):
     tile)."""
     import numpy as np
     import torch
-    from repro_torch.api import load_ann_engine
 
-    engine = load_ann_engine(path, query_tile=TILE, overrides=overrides)
+    engine = engine_load(name, path, overrides, query_tile=TILE)
     index = engine.index
     d = int(index.C.shape[-1])
     engine.warm(TILE)
@@ -881,7 +973,8 @@ def serve_saved(name, path, *, seed, n, batches, overrides=None):
     C = index.C
     log(f"cell {name}: n={n} d={d} K={C.shape[0]} m={C.shape[1]} "
         f"kind={type(index).__name__} lut={index.lut_dtype} "
-        f"bits={index.code_bits} tile={TILE} topk={TOPK}: "
+        f"bits={index.code_bits} rows={index.codes.dtype} tile={TILE} "
+        f"topk={TOPK}: "
         f"batch {dev_ms:.4f} ms (events), {host_ms:.4f} ms (host clock), "
         f"{dev_ms * 1e3 / TILE:.3f} us/query;"
         f" pass_rate={float(r.pass_rate):.6f} "
@@ -1041,8 +1134,11 @@ def slab_crude_sweep(cand_codes, cand_ids, lf):
     lib = build.library("ivf_search")
     nq, nc, Kc = cand_codes.shape
     Km = lf.shape[1]
-    plan = bs._plan(lib, "icq_ivf_crude_plan", nq, nc, Kc, Km, 0, 0, TOPK)
-    refine = bs._plan(lib, "icq_ivf_refine_plan", nq, nc, Kc, Km, 0, TOPK)
+    cb = cand_codes.element_size()
+    plan = bs._plan(lib, "icq_ivf_crude_plan", nq, nc, Kc, Km, 0, 0, cb,
+                    TOPK)
+    refine = bs._plan(lib, "icq_ivf_refine_plan", nq, nc, Kc, Km, 0, cb,
+                      TOPK)
     crude = torch.empty((nq, nc), device="cuda")
     times = []
     for grid in sorted({1, 2, 3, 4, 6, 8, 16, plan}):
@@ -1053,7 +1149,7 @@ def slab_crude_sweep(cand_codes, cand_ids, lf):
             err = lib.icq_ivf_crude_topk(
                 bs._ptr(cand_codes), bs._ptr(cand_ids), bs._ptr(lf), None,
                 None, bs._ptr(crude), bs._ptr(cv), bs._ptr(ci), nq, nc, Kc,
-                Km, Km // Kc, 0, 0, TOPK, grid, ctypes.c_void_p(stream))
+                Km, Km // Kc, 0, 0, cb, TOPK, grid, ctypes.c_void_p(stream))
             check(err == 0, f"slab crude launch at grid {grid} failed")
         times.append(f"{grid}{'*' if grid == plan else ''}: "
                      f"{graph_ms(launch) * 1e3:.2f} us")
@@ -1062,10 +1158,12 @@ def slab_crude_sweep(cand_codes, cand_ids, lf):
         f"refine plan: {refine} blocks per query")
 
 
-def time_ivf_kernels(engine, q, emb_db, centroids):
+def time_ivf_kernels(engine, q, emb_db=None, centroids=None):
     """The three IVF kernels at the served shape (the slab of one served
     64-query tile; the build's points and centroids): times, plain
-    times, bounds, the largest difference from the plain version."""
+    times, bounds, the largest difference from the plain version.
+    Without the build's points (a wide-code cell), the two slab kernels
+    only, with no sweep of the crude's blocks."""
     import torch
     from repro_torch.kernels import batched_search as bs
     from repro_torch.kernels import kmeans as km
@@ -1101,7 +1199,9 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
     # the id and the dense crude value of every slab column, the codes of
     # the valid columns only (an invalid column is +inf whatever its
     # codes), the LUT and the top-k, once each
-    nbytes = nq * nc * (4 + 4) + valid * Kc + lf.numel() * 4 + nq * TOPK * 8
+    row_bytes = Kc * cand_codes.element_size()
+    nbytes = nq * nc * (4 + 4) + valid * row_bytes + lf.numel() * 4 \
+        + nq * TOPK * 8
     b_ms, b_by = bound_ms(nbytes, valid * K)
     records["ivf_crude_topk"] = dict(
         name="ivf_crude_topk", route="cuda",
@@ -1109,11 +1209,13 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
         replaces="src/repro/kernels/batched_search.py:320",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    log(f"kernel ivf_crude_topk f32 8-bit nq={nq} nc={nc} "
+    log(f"kernel ivf_crude_topk f32 8-bit {cand_codes.dtype} rows "
+        f"m={index.C.shape[1]} nq={nq} nc={nc} "
         f"(crude_scan_kernel, launched by ivf_search.cu): {ms:.4f} ms "
         f"(eager; {g_ms:.4f} ms in a CUDA graph), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}")
-    slab_crude_sweep(cand_codes, cand_ids, lf)
+    if emb_db is not None:
+        slab_crude_sweep(cand_codes, cand_ids, lf)
 
     crude, cv, cp = got
     thr = ThresholdStage(topk=TOPK).from_slab_candidates(
@@ -1137,7 +1239,7 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
     # only (the margin test needs no codes), the slow LUT, the
     # thresholds and the top-k, once each; one compare per column, K
     # adds and one add per survivor
-    nbytes = nq * nc * 4 + survivors * Kc + slow.numel() * 4 + nq * 4 \
+    nbytes = nq * nc * 4 + survivors * row_bytes + slow.numel() * 4 + nq * 4 \
         + nq * TOPK * 8
     b_ms, b_by = bound_ms(nbytes, nq * nc + survivors * (K + 1))
     records["ivf_refine_topk"] = dict(
@@ -1146,11 +1248,14 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
         replaces="src/repro/kernels/batched_search.py:390",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
-    log(f"kernel ivf_refine_topk 8-bit nq={nq} nc={nc} survivors="
+    log(f"kernel ivf_refine_topk 8-bit {cand_codes.dtype} rows "
+        f"m={index.C.shape[1]} nq={nq} nc={nc} survivors="
         f"{survivors} ({survivors / nq:.1f} per query): {ms:.4f} ms "
         f"(eager; {g_ms:.4f} ms in a CUDA graph), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err}")
 
+    if emb_db is None:
+        return records
     x, cent = emb_db, centroids
     n, d = x.shape
     L = cent.shape[0]
@@ -1182,7 +1287,8 @@ def time_ivf_kernels(engine, q, emb_db, centroids):
 
 def ivf_cells(seed, n, batches, workdir, profile_dir=None):
     """Phase 5: IVF at SIFT1M geometry, k' = 1024, w = 8.  Returns (the
-    launches of the build and served windows, the IVF kernel records)."""
+    launches of the build and served windows, the IVF kernel records,
+    the path of the f32 8-bit artifact)."""
     total = {}
 
     def add(launches):
@@ -1192,6 +1298,7 @@ def ivf_cells(seed, n, batches, workdir, profile_dir=None):
     path, launches, emb_db, cent = build_ivf_cell(
         "ivf-8bit", SIFT, "f32", 8, seed=seed, n=n, workdir=workdir,
         check_repeat=True)
+    f32_path = path
     add(launches)
     launches, engine, q = serve_saved("ivf-f32", path, seed=seed, n=n,
                                       batches=batches)
@@ -1209,7 +1316,7 @@ def ivf_cells(seed, n, batches, workdir, profile_dir=None):
     add(launches)
     add(serve_saved("ivf-int8-4bit", path, seed=seed, n=n,
                     batches=batches)[0])
-    return total, records
+    return total, records, f32_path
 
 
 # ------------------------------------------- phase 6: encode and grow ----
@@ -1401,8 +1508,7 @@ def grow_cell(kind, x, C, codes_all, *, seed, workdir):
     launches."""
     import numpy as np
     import torch
-    from repro_torch.api import (AnnEngine, Artifacts, build_index,
-                                 load_ann_engine)
+    from repro_torch.api import Artifacts, build_index
     from repro_torch.api.artifacts import index_opts
     from repro_torch.index import make_index
     from repro_torch.index.ivf import ivf_assign
@@ -1415,7 +1521,7 @@ def grow_cell(kind, x, C, codes_all, *, seed, workdir):
     emb = {"emb_db": x[:n0], "generator": seed} if kind == "ivf" else {}
     index = build_index(codes_all[:n0], C, structure, index_cfg=cfg.index,
                         serve_cfg=cfg.serve, device="cuda", **emb)
-    engine = AnnEngine(index, resilience=cfg.resilience, query_tile=TILE)
+    engine = engine_over(f"grow-{kind}", index, query_tile=TILE)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1446,10 +1552,10 @@ def grow_cell(kind, x, C, codes_all, *, seed, workdir):
     q = torch.from_numpy(rng.standard_normal((TILE, d),
                                              dtype=np.float32)).cuda()
     r = engine.search(q)
-    want = AnnEngine(full, query_tile=TILE).search(q)
+    want = engine_over(f"one-shot-{kind}", full, query_tile=TILE).search(q)
     path = os.path.join(workdir, f"grown-{kind}")
     Artifacts(config=cfg, index=grown).save(path)
-    loaded = load_ann_engine(path, query_tile=TILE)
+    loaded = engine_load(f"grown-{kind}", path, query_tile=TILE)
     again = loaded.search(q)
     same = all(torch.equal(a.indices, r.indices)
                and torch.equal(a.distances, r.distances)
@@ -1719,6 +1825,251 @@ def kernel_ops(seed: int, n: int):
     return launches, records
 
 
+# ------------------------------------------------- phase 8: the ladder ----
+
+def crude_reference(index, q):
+    """The crude rung composed by hand from the plain versions on the same
+    CUDA tensors: the crude top-k the full path bootstraps its threshold
+    from (ids through the slab for IVF); for FlatADC the full search.
+    Returns (ids, distances)."""
+    import torch
+    from repro_torch.index.base import build_lut
+    from repro_torch.index.flat import FlatADC
+    from repro_torch.index.ivf import (IVFTwoStep, coarse_probe,
+                                       gather_candidates)
+    from repro_torch.kernels import batched_search as bs
+    from repro_torch.kernels.stages import crude_lut_operands
+    if isinstance(index, FlatADC):
+        return plain_composition(index, q)
+    quant, bits, topk = index.lut_dtype == "int8", index.code_bits, index.topk
+    lf, sc, of = crude_lut_operands(build_lut(q, index.C),
+                                    index.structure.fast_mask,
+                                    quantized=quant, code_bits=bits)
+    if isinstance(index, IVFTwoStep):
+        probes = coarse_probe(q, index.ivf.centroids, index.n_probe)
+        cand_ids, cand_codes = gather_candidates(probes, index.ivf.lists,
+                                                 index.list_codes, topk)
+        _, vals, pos = bs.ivf_crude_topk_torch(cand_codes, cand_ids, lf,
+                                               topk, sc, of, code_bits=bits)
+        safe = torch.where(cand_ids >= 0, cand_ids,
+                           torch.zeros_like(cand_ids))
+        return safe.gather(1, pos.long()), vals
+    _, vals, idx = bs.crude_topk_torch(index.codes, lf, topk, sc, of,
+                                       want_crude=False, code_bits=bits)
+    return idx, vals
+
+
+def rung_launches(index, level, batches):
+    """Launches of one served window at a rung: the full and probes rungs
+    as ``expected_launches``; the crude rung the crude kernel once a
+    tile and the refine never."""
+    want = expected_launches(index, batches)
+    if level == "crude":
+        for k in ("refine_topk", "ivf_refine_topk"):
+            want[k] = 0
+    return want
+
+
+LADDER = {"TwoStep": ("full", "crude"), "FlatADC": ("full", "crude"),
+          "IVFTwoStep": ("full", "probes", "crude")}
+
+
+def ladder_cell(name, path, *, seed, batches, card):
+    """Phase 8 on one saved cell: every rung the card offers, served in
+    64-query tiles (warmed once, launch counts reset before and read
+    after), each held against its reference on the same CUDA tensors;
+    then a deadline below the crude rung's measured time, and the
+    options the card refuses.  Returns the rungs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.index.flat import FlatADC
+    from repro_torch.resilience import SearchBudget
+
+    engine = engine_load(f"ladder-{name}", path, query_tile=TILE)
+    index = engine.index
+    d = int(index.C.shape[-1])
+    levels = engine._levels()
+    check(levels == LADDER[type(index).__name__],
+          f"ladder {name}: rungs {levels}")
+    rng = np.random.default_rng(seed + 17)
+    queries = [torch.from_numpy(rng.standard_normal((TILE, d),
+                                                    dtype=np.float32)).cuda()
+               for _ in range(batches)]
+    total = {k: 0 for k in read_launches()}
+    for level in levels:
+        budget = SearchBudget(force_level=level)
+        engine.warm(TILE, budget=budget)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        results = [engine.search(q, budget=budget) for q in queries]
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / batches
+        dev_ms = start.elapsed_time(end) / batches
+        launches = read_launches()
+        lidx = engine._level_index(level, budget)
+        want = rung_launches(lidx, level, batches)
+        check(launches == want, f"ladder {name} {level}: launch counts "
+                                f"{launches} != {want}")
+        for k in total:
+            total[k] += launches[k]
+        r, q = results[-1], queries[-1]
+        check(all(x.meta.level_name == level and x.meta.backend == "cuda"
+                  for x in results), f"ladder {name} {level}: meta "
+                                     f"{r.meta}")
+        if level == "crude":
+            ids, dist = crude_reference(index, q)
+            what = "the plain crude top-k"
+        elif level == "probes":
+            check(lidx.n_probe == index.n_probe // 2 == 4,
+                  f"ladder {name}: probes rung at n_probe {lidx.n_probe}")
+            at4 = engine_load(f"ladder-{name}-n_probe4", path,
+                              {"index.n_probe": 4}, query_tile=TILE)
+            w = at4.search(q)
+            ids, dist = w.indices, w.distances
+            p_ids, p_dist = plain_composition(lidx, q)
+            check(torch.equal(p_ids, ids) and torch.equal(p_dist, dist),
+                  f"ladder {name}: n_probe 4 != its plain composition")
+            what = "full at n_probe 4"
+        else:
+            ids, dist = plain_composition(index, q)
+            what = "the plain composition"
+        same = torch.equal(ids, r.indices) and torch.equal(dist, r.distances)
+        check(same, f"ladder {name} {level}: served top-k != {what}")
+        log(f"ladder {name} rung {level}: {dev_ms:.4f} ms per 64-query "
+            f"tile (events), {host_ms:.4f} ms (host clock), {batches} "
+            f"tiles; stages {r.meta.stages}, degraded {r.meta.degraded}, "
+            f"pass_rate={float(r.pass_rate):.6f} "
+            f"avg_ops={float(r.avg_ops):.6f}; launches {launches}; equal "
+            f"to {what}: {same}; {card}")
+    # every rung has a warm estimate now; a deadline below the crude
+    # rung's fits none, and the crude floor serves
+    crude_ms = engine._ema["crude"]
+    deadline = 0.5 * crude_ms
+    r = engine.search(queries[0], budget=SearchBudget(deadline_ms=deadline))
+    check(r.meta.level_name == "crude" and r.meta.degraded
+          and r.meta.deadline_ms == deadline,
+          f"ladder {name}: deadline {deadline} ms served {r.meta}")
+    log(f"ladder {name}: EMAs {dict(engine._ema)} ms; deadline "
+        f"{deadline:.4f} ms (half the crude rung's) served rung "
+        f"{r.meta.level_name} (level {r.meta.level}, degraded "
+        f"{r.meta.degraded}, wall {r.meta.wall_ms:.4f} ms, exceeded "
+        f"{r.meta.deadline_exceeded})")
+    # options the card refuses with the reference's words
+    q = queries[0]
+    refused = []
+    calls = [("filter", "filtered search requires backend='jnp'",
+              lambda: engine.search(q, filter=torch.ones(
+                  engine.n, dtype=torch.bool, device="cuda")))]
+    if not isinstance(index, FlatADC):
+        calls += [("refine_cap", "refine_cap compaction requires "
+                   "backend='jnp'", lambda: engine_load(
+                       f"ladder-{name}-refine_cap", path,
+                       {"index.refine_cap": 64}).search(q)),
+                  ("capped rung", "not servable", lambda: engine.search(
+                      q, budget=SearchBudget(force_level="capped")))]
+    for what, words, call in calls:
+        try:
+            call()
+            msg = ""
+        except ValueError as e:
+            msg = str(e)
+        check(words in msg, f"ladder {name}: {what} on the card did not "
+                            f"raise ({msg!r})")
+        refused.append(what)
+    log(f"ladder {name}: on the card {', '.join(refused)} raise the "
+        f"reference's ValueError")
+    return total
+
+
+def raise_then_pass_seed(p: float) -> int:
+    """The first seed whose ``FaultInjector`` raises on its first check
+    and not on its second (each check draws three uniforms: raise, delay,
+    corrupt)."""
+    import numpy as np
+    for seed in range(1000):
+        u = np.random.default_rng(seed).random(6)
+        if u[0] < p <= u[3]:
+            return seed
+    raise SmokeFailure("no fault seed found")
+
+
+def fault_check(path, *, seed):
+    """A ``FaultInjector`` fault at ``kernels.batched_crude_topk`` fails
+    the first attempt of a two-step batch; the engine (max_retries 1)
+    retries it in place: one retry, no failover, the clean top-k."""
+    import numpy as np
+    import torch
+    from repro_torch.api import load_ann_engine
+    from repro_torch.resilience import FaultInjector, FaultSpec
+    stage = "kernels.batched_crude_topk"
+    rng = np.random.default_rng(seed + 19)
+    q = torch.from_numpy(rng.standard_normal((TILE, SIFT["d"]),
+                                             dtype=np.float32)).cuda()
+    clean = engine_load("fault-clean", path, query_tile=TILE).search(q)
+    engine = load_ann_engine(path, query_tile=TILE, overrides={
+        "resilience.max_retries": 1, "resilience.backoff_base_ms": 1.0})
+    inj = FaultInjector(seed=raise_then_pass_seed(0.5),
+                        spec=FaultSpec(p_raise=0.5, targets=(stage,)))
+    reset_launches()
+    with inj.installed():
+        r = engine.search(q)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same = (torch.equal(r.indices, clean.indices)
+            and torch.equal(r.distances, clean.distances))
+    log(f"fault check two-step-f32: {inj.counts} at {stage}, "
+        f"max_retries=1: retries {engine.stats['retries']}, failovers "
+        f"{engine.stats['failovers']}, launches {launches}; same top-k as "
+        f"the clean engine: {same}")
+    check(inj.counts == {f"{stage}:raise": 1}
+          and engine.stats["retries"] == 1
+          and engine.stats["failovers"] == 0 and same
+          and launches["crude_topk"] == 1 and launches["refine_topk"] == 1,
+          "fault check: the injected fault was not retried once in place")
+
+
+# --------------------------------------------- phase 9: wide-code cells ----
+
+# codes wider than a byte at SIFT1M's width: m = 1024 codewords, stored
+# as int32 rows (32 MB of codes at 1M points)
+WIDE = dict(d=128, K=8, m=1024, num_fast=2)
+
+
+def wide_cells(seed, n, batches, workdir):
+    """Phase 9: a two-step f32 and an IVF f32 index at m = 1024 (int32
+    rows), each saved, loaded with ``load_ann_engine``, served in
+    64-query tiles equal to the plain composition; the four scan
+    kernels timed over int32 rows beside their byte bounds.  Returns
+    the launches."""
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    time_kernels(seed + 300, n, m=WIDE["m"])
+    path = save_flat_cell("wide-two-step", WIDE, "two-step", "f32", 8,
+                          seed=seed + 5, n=n, workdir=workdir)
+    launches, engine, _ = serve_saved("two-step-f32-m1024", path,
+                                      seed=seed, n=n, batches=batches)
+    add(launches)
+    del engine
+    path, launches, _, _ = build_ivf_cell(
+        "ivf-m1024", WIDE, "f32", 8, seed=seed + 5, n=n, workdir=workdir,
+        check_repeat=False)
+    add(launches)
+    launches, engine, q = serve_saved("ivf-f32-m1024", path, seed=seed,
+                                      n=n, batches=batches)
+    add(launches)
+    time_ivf_kernels(engine, q)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1759,6 +2110,11 @@ def main(argv=None) -> int:
     check_modes(args.seed)
     check_slab_modes(args.seed)
     check_slab_adversarial(args.seed)
+    # codes wider than a byte: int32 rows at m = 512 and 1024
+    wide = ((8, 8, 512), (8, 8, 1024))
+    check_modes(args.seed + 1, wide)
+    check_slab_modes(args.seed + 1, wide)
+    check_slab_adversarial(args.seed + 1, ((8, 1024),))
     check_wide_codes(args.seed)
     check_kmeans(args.seed)
     records = time_kernels(args.seed, args.n)
@@ -1769,10 +2125,16 @@ def main(argv=None) -> int:
              ("two-step-int8-4bit", dict(d=128, K=16, m=16, num_fast=4),
               "two-step", "int8", 4))
     total = {k: 0 for k in read_launches()}
+    paths = {}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_") as workdir:
         for name, *cell in cells:
-            path = save_flat_cell(name, *cell, seed=args.seed, n=args.n,
-                                  workdir=workdir)
+            path = paths[name] = save_flat_cell(
+                name, *cell, seed=args.seed, n=args.n, workdir=workdir)
             launches, engine, _ = serve_saved(name, path, seed=args.seed,
                                               n=args.n, batches=args.batches)
             for k in total:
@@ -1781,8 +2143,13 @@ def main(argv=None) -> int:
                 profile_served(name, engine, seed=args.seed, batches=5,
                                out_dir=args.profile)
             del engine
-        ivf_total, ivf_records = ivf_cells(args.seed, args.n, args.batches,
-                                           workdir, args.profile)
+        ivf_total, ivf_records, paths["ivf-f32"] = ivf_cells(
+            args.seed, args.n, args.batches, workdir, args.profile)
+        for name in ("two-step-f32", "flat-f32", "ivf-f32"):
+            add(ladder_cell(name, paths[name], seed=args.seed,
+                            batches=args.batches, card=card))
+        fault_check(paths["two-step-f32"], seed=args.seed)
+        add(wide_cells(args.seed, args.n, args.batches, workdir))
         enc_total, records["icm_encode"] = encode_and_grow(args.seed, args.n,
                                                            workdir)
     check_kernel_ops(args.seed)
@@ -1794,6 +2161,12 @@ def main(argv=None) -> int:
     for k, rec in records.items():
         check(total[k] > 0, f"{k} was never launched on the main path")
         rec["launches"] = total[k]
+    busy = [(name, st) for name, st in ENGINES
+            if st["retries"] or st["failovers"]]
+    log(f"{len(ENGINES)} engines served with max_retries=0 (all but the "
+        f"fault check's): retries and failovers "
+        + ("0 in every one" if not busy else f"in {busy}"))
+    check(not busy, f"engines retried or failed over: {busy}")
 
     log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s (host "
         "clock, the kernels' build included)")

@@ -6,11 +6,13 @@ from repro_torch.api.config import (CHOICES, SCHEMA_VERSION, ConfigError,
                                     EncodeConfig, ICQConfig, IndexConfig,
                                     ResilienceConfig, ServeConfig,
                                     TrainConfig)
-from repro_torch.api.serving import AnnEngine, build_index, load_ann_engine
+from repro_torch.api.serving import (AnnEngine, build_ann_engine,
+                                     build_index, load_ann_engine)
 
 __all__ = [
     "ICQConfig", "TrainConfig", "EncodeConfig", "IndexConfig",
     "ServeConfig", "ResilienceConfig", "ConfigError", "SCHEMA_VERSION",
     "CHOICES", "Artifacts", "ArtifactError", "FORMAT_VERSION",
-    "index_from_numpy", "AnnEngine", "build_index", "load_ann_engine",
+    "index_from_numpy", "AnnEngine", "build_ann_engine", "build_index",
+    "load_ann_engine",
 ]

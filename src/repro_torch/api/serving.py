@@ -3,55 +3,99 @@ handle (twin of ``repro.api.serving``) for the flat, two-step and IVF
 kinds.
 
 ``load_ann_engine(path)`` opens a saved artifact directory as a serving
-engine on the CUDA card; ``AnnEngine.search`` runs a query batch
-through the index and attaches a ``ResultMeta`` to every result;
-``AnnEngine.add`` grows the served index in place (``Index.add``).
+engine on the CUDA card; ``build_ann_engine(codes, C, structure, ...)``
+is the kwarg front door (folded into ``IndexConfig`` and
+``ServeConfig``, then ``build_index``); ``AnnEngine.search`` runs a
+query batch through the index and attaches a ``ResultMeta`` to every
+result; ``AnnEngine.add`` grows the served index in place.
 
-This slice serves the ``full`` rung of the degradation ladder only,
-with no mesh and no failover: a kernel that fails to build or launch
-raises, whatever ``resilience.pallas_failover`` says (the field is kept
-for config-hash parity).  The capped and crude rungs and the retry
-policy wait for the resilience slice (ROADMAP.md, queue 1, item 4).
+The engine executes the degradation ladder (full -> capped -> probes ->
+crude): per batch it picks the least degraded rung whose measured warm
+wall time (an EMA, alpha 0.3) fits the budget's deadline; hard caps
+promote their rung (``refine_cap`` the capped rung, ``max_n_probe`` below
+the index's ``n_probe`` the probes rung) and ``allow_refine=False``
+takes the crude floor.  On the card the rungs are the kernels': two-step
+and flat {full, crude}, IVF {full, probes, crude}; the capped rung, like
+``filter``, is a jnp-engine option of the reference, which the plain
+versions serve on the CPU and the card refuses.
+
+A failed batch (a ``RuntimeError``: a kernel launch, a CUDA error, an
+injected fault) is retried in place under ``BackoffPolicy`` (1 +
+``resilience.max_retries`` attempts; each retry counted in
+``stats["retries"]``); the last failure raises ``RetriesExhausted``
+chained to it.  A refused argument (``ValueError``) raises at once.  The engine never fails over: the reference's Pallas ->
+jnp failover would move the batch onto the plain versions, which never
+serve on a CUDA device, and a fallback would hide a failing kernel.  So
+``resilience.pallas_failover`` is kept for ``config_hash`` parity and
+has no effect here; ``stats["failovers"]`` stays 0.  Sharded engines
+(``mesh=``, ``mark_shard_dead``, coverage < 1) wait for ROADMAP.md queue
+1 item 10, the pipelined executor (``serve.pipeline``) for item 7.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.api.artifacts import ArtifactError, Artifacts, index_opts
-from repro_torch.api.config import ConfigError, IndexConfig, ServeConfig
+from repro_torch.api.config import (ConfigError, IndexConfig,
+                                    ResilienceConfig, ServeConfig)
 from repro_torch.core.encode import pack_nibbles
 from repro_torch.index import make_index
 from repro_torch.index.base import resolve_backend, resolve_device
 from repro_torch.index.flat import FlatADC
 from repro_torch.index.ivf import IVFTwoStep
 from repro_torch.kernels.stages import pad_to
-from repro_torch.resilience.budget import (ResultMeta, SearchBudget,
-                                           validate_budget)
+from repro_torch.resilience.budget import (DEGRADE_LEVELS, ResultMeta,
+                                           SearchBudget, validate_budget)
+from repro_torch.resilience.retry import BackoffPolicy, retry_with_backoff
+
+# warm-timing EMA weight: recent batches dominate, but one outlier does
+# not whipsaw the ladder's choice
+_EMA_ALPHA = 0.3
+
+
+def _sharding_not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (sharded "
+        "serving, ROADMAP.md, queue 1, item 10)")
 
 
 class AnnEngine:
     """A serving handle over one index: ``engine(queries)`` or
-    ``engine.search(queries)`` serves an (nq, d) batch.
+    ``engine.search(queries, k, budget=, filter=)`` serves an (nq, d)
+    batch and attaches a ``ResultMeta``.
 
     ``query_tile``: None serves each batch at its own shape; set, every
     batch runs as zero-padded (tile, d) chunks, so a row's answer does
     not depend on how rows were batched (PyTorch, like XLA, may pick
     another reduction order for another batch shape).
 
-    ``stats`` counts batches served per rung (only ``full`` here) and
-    the degraded and failover totals (always 0 in this slice)."""
+    ``resilience`` (a ``ResilienceConfig``): the default deadline, the
+    ladder's knobs and the retry policy.  ``fault_injector`` (a
+    ``resilience.faults.FaultInjector``) is checked at ``engine.search``
+    before each attempt; its kernel hook is installed separately
+    (``injector.installed()``).
 
-    def __init__(self, index, *, resilience=None,
-                 query_tile: Optional[int] = None):
+    ``stats`` counts batches served per rung and the degraded, retried
+    and failed-over totals (failovers stay 0: see the module docstring).
+    """
+
+    def __init__(self, index, *,
+                 resilience: Optional[ResilienceConfig] = None,
+                 fault_injector=None, query_tile: Optional[int] = None):
         self.index = index
-        self.resilience = resilience
+        self.resilience = resilience or ResilienceConfig()
+        self.fault_injector = fault_injector
         self.query_tile = query_tile
         self.backend = resolve_backend(index.backend, index.device)
-        self.stats: Dict[str, int] = {"degraded": 0, "failovers": 0}
+        self._ema: Dict[str, float] = {}     # rung -> warm wall-ms EMA
+        self._warmed: set = set()            # rung variants served once
+        self.stats: Dict[str, int] = {"degraded": 0, "failovers": 0,
+                                      "retries": 0}
 
     @property
     def n(self) -> int:
@@ -61,21 +105,106 @@ class AnnEngine:
     def device(self) -> torch.device:
         return self.index.device
 
-    def _stages(self):
-        probe = ("probe",) if isinstance(self.index, IVFTwoStep) else ()
-        return probe + (("adc",) if isinstance(self.index, FlatADC)
-                        else ("crude", "refine"))
+    def mark_shard_dead(self, *shards: int):
+        raise _sharding_not_ported("mark_shard_dead")
 
-    def _run_tiled(self, queries, k):
+    # ------------------------------------------------------------ ladder --
+    def _levels(self) -> Tuple[str, ...]:
+        """Rungs this engine serves, least to most degraded."""
+        idx = self.index
+        if isinstance(idx, FlatADC):
+            return ("full", "crude")         # crude == full (no refine)
+        capped = () if self.backend == "cuda" else ("capped",)
+        if isinstance(idx, IVFTwoStep):
+            return ("full",) + capped + ("probes", "crude")
+        return ("full",) + capped + ("crude",)
+
+    def _level_index(self, level: str, budget: SearchBudget):
+        """The index variant serving one rung (``dataclasses.replace``:
+        the tensors are shared, only options change)."""
+        idx = self.index
+        repl: Dict[str, Any] = {}
+        if level == "capped":
+            cap = (budget.refine_cap if budget.refine_cap is not None
+                   else self.resilience.degraded_refine_cap)
+            repl["refine_cap"] = (cap if cap is not None
+                                  else max(4 * int(idx.topk), 64))
+        if hasattr(idx, "n_probe"):
+            n_probe = int(idx.n_probe)
+            if level == "probes":
+                n_probe = max(self.resilience.min_n_probe, n_probe // 2)
+            if budget.max_n_probe is not None:
+                n_probe = min(n_probe, budget.max_n_probe)
+            n_probe = max(1, n_probe)
+            if n_probe != int(idx.n_probe):
+                repl["n_probe"] = n_probe
+        return dataclasses.replace(idx, **repl) if repl else idx
+
+    def _estimate_ms(self, level: str, order: Tuple[str, ...]):
+        """Expected warm wall time of a rung: its own EMA, else the best
+        measured less degraded rung as an upper bound (a more degraded
+        rung never runs slower), else None (unknown)."""
+        if level in self._ema:
+            return self._ema[level]
+        upper = [self._ema[lv] for lv in order[:order.index(level)]
+                 if lv in self._ema]
+        return min(upper) if upper else None
+
+    def _pick_level(self, budget: SearchBudget) -> str:
+        order = self._levels()
+        if budget.force_level is not None:
+            if budget.force_level not in order:
+                raise ValueError(
+                    f"force_level={budget.force_level!r} is not servable "
+                    f"by this engine (available: {list(order)})")
+            return budget.force_level
+        if not budget.allow_refine:
+            return "crude" if "crude" in order else order[-1]
+        # hard caps promote their rung outright (no timing involved)
+        floor = 0
+        if budget.refine_cap is not None and "capped" in order:
+            floor = max(floor, order.index("capped"))
+        if (budget.max_n_probe is not None and "probes" in order
+                and budget.max_n_probe < int(self.index.n_probe)):
+            floor = max(floor, order.index("probes"))
+        candidates = order[floor:]
+        deadline = self._deadline(budget)
+        if deadline is None:
+            return candidates[0]
+        # the least degraded rung whose estimate fits; a rung with no
+        # estimate yet is taken (its measurement steers the next batch);
+        # the crude floor is always eligible
+        for name in candidates:
+            est = self._estimate_ms(name, order)
+            if est is None or est <= deadline:
+                return name
+        return candidates[-1]
+
+    def _deadline(self, budget: SearchBudget):
+        return (budget.deadline_ms if budget.deadline_ms is not None
+                else self.resilience.deadline_ms)
+
+    def _stages(self, level: str) -> Tuple[str, ...]:
+        probe = ("probe",) if isinstance(self.index, IVFTwoStep) else ()
+        if isinstance(self.index, FlatADC):
+            return probe + ("adc",)
+        if level == "crude":
+            return probe + ("crude",)
+        if level == "capped":
+            return probe + ("crude", "refine-capped")
+        return probe + ("crude", "refine")
+
+    # ----------------------------------------------------------- serving --
+    def _run_tiled(self, call, queries):
         """One call at the arrival shape, or (tile, d) zero-padded
         chunks with the pad rows sliced off; returns once the device
         has finished the batch."""
         tile = self.query_tile
         if tile is None:
-            r = self.index.search(queries, k)
+            r = call(queries)
         else:
             nq = queries.shape[0]
-            parts = [self.index.search(pad_to(queries[s:s + tile], tile), k)
+            parts = [call(pad_to(queries[s:s + tile], tile))
                      for s in range(0, max(nq, 1), tile)]
             # avg_ops/pass_rate are padded-batch diagnostics (mean over
             # chunks); the bitwise contract covers ids and distances only
@@ -88,13 +217,33 @@ class AnnEngine:
             torch.cuda.synchronize(r.indices.device)
         return r
 
-    def add(self, new_vectors, **encode_opts) -> "AnnEngine":
-        """Grow the served index by ``new_vectors`` ((n_new, d), numpy or
-        torch): ``Index.add`` with ``encode_opts`` (``icm_iters``,
-        ``encode_backend``, ``point_chunk``).  ``n`` and ``device`` follow
-        the index; ``query_tile`` is unchanged.  Returns the engine."""
-        self.index = self.index.add(new_vectors, **encode_opts)
-        return self
+    def _attempt(self, call, queries):
+        if self.fault_injector is not None:
+            self.fault_injector.check("engine.search")
+        return self._run_tiled(call, queries)
+
+    def _serve(self, level: str, k, budget: SearchBudget, queries,
+               filter=None):
+        """One batch at one rung, retried in place on failure."""
+        lidx = self._level_index(level, budget)
+        search = lidx.search_crude if level == "crude" else lidx.search
+
+        def call(q):
+            return search(q, k, filter=filter)
+
+        res = self.resilience
+        policy = BackoffPolicy(max_retries=res.max_retries,
+                               base_ms=res.backoff_base_ms,
+                               max_ms=res.backoff_max_ms)
+
+        def count_retry(attempt, error, delay_ms):
+            self.stats["retries"] += 1
+
+        key = (level, k, getattr(lidx, "refine_cap", None),
+               getattr(lidx, "n_probe", None), filter is not None)
+        return key, retry_with_backoff(
+            lambda: self._attempt(call, queries), policy=policy,
+            retryable=(RuntimeError,), on_retry=count_retry)
 
     def __call__(self, queries, budget: Optional[SearchBudget] = None):
         return self.search(queries, budget=budget)
@@ -102,41 +251,66 @@ class AnnEngine:
     def search(self, queries, k: Optional[int] = None, *,
                budget: Optional[SearchBudget] = None, filter=None):
         """Serve one query batch ((nq, d) numpy or torch; moved to the
-        index's device as f32); ``k`` overrides the index's ``topk``."""
-        if filter is not None:
-            raise NotImplementedError(
-                "filtered search is not ported to the PyTorch package yet "
-                "(ROADMAP.md, queue 1, item 2)")
+        index's device as f32); ``k`` overrides the index's ``topk``.
+        ``budget`` bounds the batch: the engine picks the ladder rung
+        that fits and reports it on ``result.meta``.  ``filter``: an
+        optional (n,) bool row predicate (plain versions only: the index
+        refuses it on the card; absent slots are id -1 at distance
+        +inf)."""
         budget = validate_budget(budget) if budget is not None \
             else SearchBudget()
-        if (budget.force_level not in (None, "full")
-                or not budget.allow_refine or budget.refine_cap is not None
-                or budget.max_n_probe is not None):
-            raise NotImplementedError(
-                "the degradation ladder is not ported yet: this slice "
-                "serves the 'full' rung only (ROADMAP.md, queue 1, item 4)")
-        deadline = budget.deadline_ms
-        if deadline is None and self.resilience is not None:
-            deadline = self.resilience.deadline_ms
+        level = self._pick_level(budget)
+        deadline = self._deadline(budget)
         if not isinstance(queries, torch.Tensor):
             queries = torch.from_numpy(np.array(queries, np.float32))
         queries = queries.to(self.device, torch.float32)
         t0 = time.perf_counter()
-        result = self._run_tiled(queries, k)
+        key, result = self._serve(level, k, budget, queries, filter)
         wall_ms = (time.perf_counter() - t0) * 1000.0
+        # warm-only timing: a rung variant's first batch pays kernel
+        # builds and allocator growth and would skew the estimates
+        if key in self._warmed:
+            prev = self._ema.get(level)
+            self._ema[level] = wall_ms if prev is None else \
+                (1 - _EMA_ALPHA) * prev + _EMA_ALPHA * wall_ms
+        else:
+            self._warmed.add(key)
+        li = DEGRADE_LEVELS.index(level)
         meta = ResultMeta(
-            stages=self._stages(), wall_ms=wall_ms, deadline_ms=deadline,
+            level=li, level_name=level, degraded=li > 0,
+            stages=self._stages(level), wall_ms=wall_ms,
+            deadline_ms=deadline,
             deadline_exceeded=deadline is not None and wall_ms > deadline,
-            backend=self.backend)
-        self.stats["full"] = self.stats.get("full", 0) + 1
+            coverage=1.0, backend=self.backend)
+        self.stats[level] = self.stats.get(level, 0) + 1
+        if meta.degraded:
+            self.stats["degraded"] += 1
         return result._replace(meta=meta)
 
-    def warm(self, nq: int, k: Optional[int] = None) -> "AnnEngine":
-        """Serve one all-zero (nq, d) batch so the first real batch finds
-        the kernels built and loaded and the allocator warm."""
+    def warm(self, nq: int, k: Optional[int] = None, *,
+             budget: Optional[SearchBudget] = None) -> "AnnEngine":
+        """Serve one all-zero (nq, d) batch at the rung ``budget`` picks
+        and mark that rung warm, so the first real batch finds the
+        kernels built and loaded and the allocator warm, and its time
+        feeds the ladder's estimates."""
+        budget = validate_budget(budget) if budget is not None \
+            else SearchBudget()
+        level = self._pick_level(budget)
         d = int(self.index.C.shape[-1])
-        self._run_tiled(torch.zeros((int(nq), d), dtype=torch.float32,
-                                    device=self.device), k)
+        zeros = torch.zeros((int(nq), d), dtype=torch.float32,
+                            device=self.device)
+        key, _ = self._serve(level, k, budget, zeros)
+        self._warmed.add(key)
+        return self
+
+    def add(self, new_vectors, **encode_opts) -> "AnnEngine":
+        """Grow the served index by ``new_vectors`` ((n_new, d), numpy or
+        torch): ``Index.add`` with ``encode_opts`` (``icm_iters``,
+        ``encode_backend``, ``point_chunk``).  ``n`` and ``device`` follow
+        the index; ``query_tile`` is unchanged.  The rungs' timings are
+        measured anew.  Returns the engine."""
+        self.index = self.index.add(new_vectors, **encode_opts)
+        self._warmed = set()
         return self
 
 
@@ -174,16 +348,60 @@ def build_index(codes, C, structure, *, index_cfg: IndexConfig,
                       **opts)
 
 
+def build_ann_engine(codes, C, structure, *, topk: int = 50,
+                     backend: str = "auto", block_q=None, block_n=None,
+                     query_chunk=None, index: str = "two-step", mesh=None,
+                     emb_db=None, n_lists: int = 64, n_probe: int = 8,
+                     refine_cap=None, generator=None,
+                     lut_dtype: str = "f32", code_bits: int = 8,
+                     pipeline: str = "off", pipeline_tile=None,
+                     resilience: Optional[ResilienceConfig] = None,
+                     fault_injector=None, device=None,
+                     query_tile: Optional[int] = None) -> AnnEngine:
+    """The kwarg front door: the kwargs fold into the config tree
+    (``IndexConfig`` + ``ServeConfig``, validated there), the index is
+    built by ``build_index`` on ``device`` (the card unless named) and
+    served by an ``AnnEngine``.
+
+    ``index`` picks the kind ("flat" | "two-step" | "ivf"); "ivf" also
+    needs ``emb_db`` (the embeddings the codes encode) and takes
+    ``n_lists``, ``n_probe`` and ``generator`` (the reference's ``key``:
+    a ``torch.Generator`` or an int seed for the coarse k-means).
+    ``block_q``/``block_n`` are validated and kept in the config only:
+    the CUDA kernels choose their own tiles.  ``mesh`` raises (sharded
+    serving, queue 1 item 10), and so does ``pipeline != "off"`` (the
+    pipelined executor, item 7)."""
+    if mesh is not None:
+        raise _sharding_not_ported("build_ann_engine(mesh=)")
+    # n_lists / n_probe describe an IVF only; the flat kinds ignore them
+    index_cfg = (IndexConfig(kind=index, n_lists=n_lists, n_probe=n_probe,
+                             refine_cap=refine_cap, code_bits=code_bits)
+                 if index == "ivf"
+                 else IndexConfig(kind=index, refine_cap=refine_cap,
+                                  code_bits=code_bits))
+    serve_cfg = ServeConfig(topk=topk, backend=backend, lut_dtype=lut_dtype,
+                            query_chunk=query_chunk, block_q=block_q,
+                            block_n=block_n, pipeline=pipeline,
+                            pipeline_tile=pipeline_tile)
+    idx = build_index(codes, C, structure, index_cfg=index_cfg,
+                      serve_cfg=serve_cfg, emb_db=emb_db,
+                      generator=generator, device=device)
+    return AnnEngine(idx, resilience=resilience,
+                     fault_injector=fault_injector, query_tile=query_tile)
+
+
 def load_ann_engine(path: str, *, device=None,
                     overrides: Optional[Dict[str, Any]] = None,
                     verify_checksums: Optional[bool] = None,
-                    query_tile: Optional[int] = None) -> AnnEngine:
+                    query_tile: Optional[int] = None,
+                    fault_injector=None) -> AnnEngine:
     """Open a saved artifact directory as a serving engine on ``device``
     (the CUDA card unless named; with no card this raises).
 
     ``overrides`` applies dotted config overrides before the index is
     rebuilt.  ``verify_checksums`` forces the per-tensor sha256 pass
-    (None defers to the embedded ``resilience.verify_artifacts``)."""
+    (None defers to the embedded ``resilience.verify_artifacts``).  The
+    engine inherits the embedded ``ResilienceConfig``."""
     device = resolve_device(device)
     art = Artifacts.load(path, overrides=overrides,
                          verify_checksums=verify_checksums, device=device)
@@ -192,4 +410,4 @@ def load_ann_engine(path: str, *, device=None,
             f"{path}: artifacts hold no index (model-only save); build "
             "one and save again")
     return AnnEngine(art.index, resilience=art.config.resilience,
-                     query_tile=query_tile)
+                     fault_injector=fault_injector, query_tile=query_tile)

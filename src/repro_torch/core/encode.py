@@ -88,7 +88,7 @@ def pack_codes(codes: torch.Tensor, m: int) -> torch.Tensor:
     """Narrowest stored dtype for m codewords: uint8 for m <= 256, else
     int32.  The reference stores m <= 65536 as uint16; PyTorch's uint16
     covers few ops, so the port widens such codes to int32 (the CUDA
-    kernels take uint8 rows only)."""
+    search kernels take uint8 and int32 rows)."""
     return codes.to(torch.uint8 if m <= 256 else torch.int32)
 
 

@@ -1,6 +1,7 @@
 """Index-layer foundations (twin of ``repro.index.base``): the
 ``SearchResult`` record, the ADC LUT primitives, int8 LUT calibration,
-the nibble LUT sum, device and backend resolution, and query chunking.
+the nibble LUT sum, device and backend resolution, the row filter of a
+filtered search, and query chunking.
 
 LUTs: ``T[k, j] = ||c_{k,j}||^2 - 2 <q, c_{k,j}>``; ranking by their
 masked sums is ranking by L2 distance after ICQ's hard projection.
@@ -275,6 +276,27 @@ def nibble_lut_sum(lut, packed: torch.Tensor, K: int, cb_mask=None):
                                   packed[:, kp].long()).to(acc_dt)
         acc = part if acc is None else acc + part
     return dequantize_acc(lut, acc, cb_mask)
+
+
+# ------------------------------------------------------------ filtering ----
+
+def as_filter(filter, n: int, device) -> torch.Tensor:
+    """Validate a per-row metadata predicate: a length-``n`` boolean
+    vector (True = row eligible), numpy or torch, moved to ``device``
+    and cast to bool; wrong shapes raise by name."""
+    f = as_torch(filter)
+    if f.ndim != 1 or f.shape[0] != n:
+        raise ValueError(f"filter must be a ({n},) boolean predicate "
+                         f"(one entry per database row), got shape "
+                         f"{tuple(f.shape)}")
+    return f.to(device=device, dtype=torch.bool)
+
+
+def mask_filtered_ids(ids: torch.Tensor, dist: torch.Tensor):
+    """Post-filter result convention: slots whose distance is +inf (no
+    eligible row left to fill them) report id ``-1``.  Applied only on
+    filtered searches, so unfiltered results stay bitwise unchanged."""
+    return torch.where(torch.isinf(dist), torch.full_like(ids, -1), ids)
 
 
 # ------------------------------------------------------------- chunking ----

@@ -23,11 +23,17 @@ The build runs the coarse k-means through ``ops.kmeans_assign`` (the
 CUDA kernel on the card) and lays the lists out from a stable sort of
 the assignments.  ``add`` encodes the new rows (the ICM kernel) and
 routes them into the fixed lists with ``ivf_extend``, so a grown index
-equals ``ivf_assign`` of the same centroids over all rows.  Options of
-the reference still to be ported raise by name, each naming its
-ROADMAP.md item: ``search_crude`` (the probes and crude rungs, queue 1,
-item 4), ``refine_cap`` and ``filter`` (queue 1, item 2), ``pipeline``
-(queue 1, item 7) and ``shard`` (queue 1, item 10).
+equals ``ivf_assign`` of the same centroids over all rows.
+
+``search_crude`` is the degradation ladder's crude floor: probe, gather
+and the slab crude pass, its top-k of slab positions mapped to ids (no
+refine); the ladder's probes rung is ``search`` at a reduced
+``n_probe``.  ``filter`` and ``refine_cap`` are the reference's
+jnp-engine options, served by the plain versions on the CPU through the
+reference's jnp composition (filtered candidates invalid in the slab,
+the bootstrap from the dense slab crude) and refused on the card with
+the reference's ``ValueError``.  ``pipeline`` (queue 1, item 7) and
+``shard`` (item 10) raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -41,10 +47,14 @@ import torch.nn.functional as F
 from repro_torch.core import codebooks as cb
 from repro_torch.index.base import (SearchResult, as_torch, build_lut,
                                     chunked_over_queries, full_f32_matmul,
-                                    resolve_backend, resolve_lut_dtype)
+                                    mask_filtered_ids, resolve_backend,
+                                    resolve_lut_dtype)
 from repro_torch.index.flat import (_check_fastscan_geometry, _check_filter,
-                                    _encode_new_rows, _FlatBase, _not_ported)
-from repro_torch.kernels.stages import two_step_stages, topk_two_key
+                                    _check_refine_cap, _encode_new_rows,
+                                    _FlatBase, capped_refine)
+from repro_torch.kernels.stages import (CrudeStage, RefineStage,
+                                        ThresholdStage, topk_two_key,
+                                        two_step_stages)
 
 # centroid rows of the lists k-means cannot seed (n_lists > n): huge but
 # finite, so probe distances stay ordered, never NaN
@@ -223,6 +233,73 @@ def _ivf_block(qs, env, *, topk: int, n_probe: int, quantized: bool,
                                               **opts), env, **opts)
 
 
+def _filtered_slab(qs, env, *, topk: int, n_probe: int, pred):
+    """Probe and gather, with the filter folded into validity: returns
+    (cand_ids with filtered columns -1, cand_codes, safe ids (0 at the
+    gather's pads, the reference's ``safe``), valid (nq, nc))."""
+    probes = coarse_probe(qs, env["centroids"], n_probe)
+    cand_ids, cand_codes = gather_candidates(probes, env["lists"],
+                                             env["list_codes"], topk)
+    valid = cand_ids >= 0
+    safe = torch.where(valid, cand_ids, torch.zeros_like(cand_ids))
+    if pred is not None:
+        valid = valid & pred[safe.long()]
+        cand_ids = torch.where(valid, cand_ids, torch.full_like(cand_ids,
+                                                                -1))
+    return cand_ids, cand_codes, safe, valid
+
+
+def _ivf_block_dense(qs, env, *, topk: int, n_probe: int, quantized: bool,
+                     code_bits: int, refine_cap: Optional[int], pred=None):
+    """The reference's jnp IVF two-step over one query block, for the
+    plain versions' options: filtered candidates invalid (+inf crude),
+    the bootstrap from the dense slab crude
+    (``ThresholdStage.from_dense_slab``), then the slab refine or, with
+    ``refine_cap``, the survivor compaction (clamped into [topk, nc])."""
+    fast = env["fast"]
+    luts = build_lut(qs, env["C"])
+    cand_ids, cand_codes, safe, valid = _filtered_slab(
+        qs, env, topk=topk, n_probe=n_probe, pred=pred)
+    crude = CrudeStage(topk=topk, quantized=quantized,
+                       code_bits=code_bits).slab(cand_codes, cand_ids, luts,
+                                                 fast).crude
+    thr = ThresholdStage(topk=topk, quantized=quantized,
+                         code_bits=code_bits).from_dense_slab(
+        luts, cand_codes, crude, fast, env["sigma"])
+    passed = crude < thr[:, None]
+    if refine_cap is None:
+        ids, dist, _ = RefineStage(topk=topk, code_bits=code_bits).slab(
+            cand_codes, luts, crude, thr, fast, safe)
+    else:
+        cap = min(max(refine_cap, topk), crude.shape[1])
+        pos, dist = capped_refine(luts, cand_codes, crude, thr, topk, cap,
+                                  code_bits=code_bits)
+        ids = safe.gather(1, pos)
+    if pred is not None:
+        ids = mask_filtered_ids(ids, dist)
+    return (ids, dist, valid.sum(dim=1).to(torch.float32),
+            passed.sum(dim=1).to(torch.float32))
+
+
+def _ivf_crude_block(qs, env, *, topk: int, n_probe: int, quantized: bool,
+                     code_bits: int, pred=None):
+    """The crude rung over one query block: probe, gather and the slab
+    crude stage, its top-k of slab positions mapped to ids (the
+    reference's ``safe[pos]``); no refine.  Returns (ids, dist, n_cand,
+    n_pass = 0)."""
+    luts = build_lut(qs, env["C"])
+    cand_ids, cand_codes, safe, valid = _filtered_slab(
+        qs, env, topk=topk, n_probe=n_probe, pred=pred)
+    out = CrudeStage(topk=topk, quantized=quantized,
+                     code_bits=code_bits).slab(cand_codes, cand_ids, luts,
+                                               env["fast"])
+    ids = safe.gather(1, out.cand_idx.long())
+    if pred is not None:
+        ids = mask_filtered_ids(ids, out.cand_vals)
+    n_cand = valid.sum(dim=1).to(torch.float32)
+    return ids, out.cand_vals, n_cand, torch.zeros_like(n_cand)
+
+
 def ivf_ops_result(ids, dist, n_cand, n_pass, *, n: int, n_lists: int, K,
                    kf) -> SearchResult:
     """Fold per-query candidate and pass counts into the generalized
@@ -245,12 +322,30 @@ def ivf_two_step_search(queries, codes, C, structure, ivf: IVFIndex,
     """Batched IVF + ICQ two-step over the in-list codes slab
     ``list_codes`` (``ivf_list_codes``).  ``lut_dtype`` selects the crude
     tables ("f32" | "int8"; the refine pass is always f32);
-    ``code_bits=4`` serves nibble-packed codes."""
-    resolve_backend(backend, codes.device)
-    _check_filter(filter)
-    if refine_cap is not None:
-        raise _not_ported("refine_cap (the capped refine)", "queue 1, item 2")
-    K = C.shape[0]
+    ``code_bits=4`` serves nibble-packed codes.  ``refine_cap`` and
+    ``filter`` (an (n,) bool row predicate; absent slots are id -1 at
+    distance +inf) are served by the plain versions only."""
+    be = resolve_backend(backend, codes.device)
+    pred = _check_filter(filter, codes.shape[0], be, codes.device)
+    _check_refine_cap(refine_cap, be)
+    opts, n_lists, kf = _ivf_engine(
+        C, structure, ivf, list_codes, topk=topk, n_probe=n_probe,
+        lut_dtype=lut_dtype, code_bits=code_bits)
+    if pred is None and refine_cap is None:
+        fn = functools.partial(_ivf_block, **opts)
+    else:
+        fn = functools.partial(_ivf_block_dense, refine_cap=refine_cap,
+                               pred=pred, **opts)
+    ids, dist, n_cand, n_pass = chunked_over_queries(fn, queries,
+                                                     query_chunk)
+    return ivf_ops_result(ids, dist, n_cand, n_pass, n=codes.shape[0],
+                          n_lists=n_lists, K=C.shape[0], kf=kf)
+
+
+def _ivf_engine(C, structure, ivf: IVFIndex, list_codes, *, topk: int,
+                n_probe: int, lut_dtype: str, code_bits: int):
+    """The keyword operands of an IVF block function, the list count and
+    |K_fast|; checks ``n_probe``."""
     n_lists = ivf.lists.shape[0]
     if not 1 <= n_probe <= n_lists:
         raise ValueError(f"n_probe={n_probe} outside [1, {n_lists}]")
@@ -258,15 +353,33 @@ def ivf_two_step_search(queries, codes, C, structure, ivf: IVFIndex,
     env = {"C": C, "fast": fast, "sigma": structure.sigma,
            "centroids": ivf.centroids, "lists": ivf.lists,
            "list_codes": list_codes}
-    fn = functools.partial(
-        _ivf_block, env=env, topk=topk, n_probe=n_probe,
-        quantized=resolve_lut_dtype(lut_dtype) == "int8",
-        code_bits=_check_fastscan_geometry(code_bits, C.shape[1]))
+    opts = dict(env=env, topk=topk, n_probe=n_probe,
+                quantized=resolve_lut_dtype(lut_dtype) == "int8",
+                code_bits=_check_fastscan_geometry(code_bits, C.shape[1]))
+    return opts, n_lists, torch.sum(fast.to(torch.float32))
+
+
+def ivf_crude_search(queries, codes, C, structure, ivf: IVFIndex,
+                     topk: int, n_probe: int, *, list_codes,
+                     backend: str = "auto",
+                     query_chunk: Optional[int] = None,
+                     lut_dtype: str = "f32", code_bits: int = 8,
+                     filter=None) -> SearchResult:
+    """The IVF crude floor of the degradation ladder: probe and the
+    crude-only ranking of the candidate slab, equal bit for bit to the
+    crude top-k the full path bootstraps from.  ``avg_ops`` drops the
+    pass-rate term (nothing refined).  ``filter`` as in
+    ``ivf_two_step_search`` (plain versions only)."""
+    be = resolve_backend(backend, codes.device)
+    pred = _check_filter(filter, codes.shape[0], be, codes.device)
+    opts, n_lists, kf = _ivf_engine(
+        C, structure, ivf, list_codes, topk=topk, n_probe=n_probe,
+        lut_dtype=lut_dtype, code_bits=code_bits)
+    fn = functools.partial(_ivf_crude_block, pred=pred, **opts)
     ids, dist, n_cand, n_pass = chunked_over_queries(fn, queries,
                                                      query_chunk)
     return ivf_ops_result(ids, dist, n_cand, n_pass, n=codes.shape[0],
-                          n_lists=n_lists, K=K,
-                          kf=torch.sum(fast.to(torch.float32)))
+                          n_lists=n_lists, K=C.shape[0], kf=kf)
 
 
 # --------------------------------------------------------------- index ----
@@ -283,12 +396,6 @@ class IVFTwoStep(_FlatBase):
     n_probe: int = 8
     refine_cap: Optional[int] = None
     list_codes: torch.Tensor = None     # (n_lists, max_len, Kc)
-
-    def __post_init__(self):
-        super().__post_init__()
-        if self.refine_cap is not None:
-            raise _not_ported("index.refine_cap (the capped refine)",
-                              "queue 1, item 2")
 
     @classmethod
     def build(cls, codes, C, structure, *, emb_db=None, ivf=None,
@@ -314,13 +421,23 @@ class IVFTwoStep(_FlatBase):
             queries, self.codes, self.C, self.structure, self.ivf,
             topk if topk is not None else self.topk, self.n_probe,
             list_codes=self.list_codes, backend=self.backend,
+            query_chunk=self.query_chunk, refine_cap=self.refine_cap,
+            lut_dtype=self.lut_dtype, code_bits=self.code_bits,
+            filter=filter)
+
+    def search_crude(self, queries, topk: Optional[int] = None,
+                     n_probe: Optional[int] = None, *,
+                     filter=None) -> SearchResult:
+        """The crude floor of the degradation ladder: probe and the slab
+        crude ranking with no refine, equal bit for bit to the full
+        path's crude top-k.  ``n_probe`` overrides the index's."""
+        return ivf_crude_search(
+            queries, self.codes, self.C, self.structure, self.ivf,
+            topk if topk is not None else self.topk,
+            n_probe if n_probe is not None else self.n_probe,
+            list_codes=self.list_codes, backend=self.backend,
             query_chunk=self.query_chunk, lut_dtype=self.lut_dtype,
             code_bits=self.code_bits, filter=filter)
-
-    def search_crude(self, queries, topk=None, n_probe=None, *,
-                     filter=None):
-        raise _not_ported("search_crude (the probes and crude rungs of "
-                          "the degradation ladder)", "queue 1, item 4")
 
     def add(self, new_vectors, *, icm_iters: int = 3,
             encode_backend: str = "auto",

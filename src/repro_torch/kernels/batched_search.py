@@ -22,7 +22,10 @@ beside its plain PyTorch version.
 Every top-k is in ascending (distance, column) order, the reference's
 two-key order, where the column is the global index (flat) or the slab
 position (IVF).  Any ``1 <= topk <= n`` (flat) or ``<= nc`` (slab) is
-served, on the card as on the CPU.  ``*_torch`` are the plain versions:
+served, on the card as on the CPU, and so are code rows of uint8 (m <=
+256) and int32 (wider codes, as the index stores them); the CUDA scan
+kernels compile one instance per row type.  ``*_torch`` are the plain
+versions:
 the same sums in the same order (codebooks in order from 0.0, dequant
 as two roundings), so on the same inputs kernel and plain version agree
 bit for bit.
@@ -169,14 +172,18 @@ def _check(cond: bool, what: str):
         raise ValueError(what)
 
 
-def _check_codes(codes: torch.Tensor, ndim: int):
+def _check_codes(codes: torch.Tensor, ndim: int, code_bits: int) -> int:
+    """Checks the stored code rows; returns their bytes per code (1 for
+    uint8 rows, 4 for the int32 rows of codes wider than a byte)."""
     _check(codes.is_cuda, "codes must lie on the CUDA device")
-    _check(codes.dtype == torch.uint8,
-           f"the CUDA search kernels take uint8 code rows, got "
-           f"{codes.dtype}; wider codes (m > 256) are still to be ported "
-           "(ROADMAP.md, queue 1, item 13)")
+    _check(codes.dtype in (torch.uint8, torch.int32),
+           f"the CUDA search kernels take uint8 or int32 code rows, got "
+           f"{codes.dtype}")
+    _check(code_bits == 8 or codes.dtype == torch.uint8,
+           "nibble codes (code_bits=4) come in uint8 rows")
     _check(codes.ndim == ndim and codes.is_contiguous(),
            f"codes must be a contiguous {ndim}-d tensor")
+    return codes.element_size()
 
 
 def _check_flat_topk(n: int, topk: int):
@@ -258,10 +265,11 @@ def _plan(lib, name: str, *args) -> int:
         raise ValueError(
             f"{name}{args}: no block layout serves this shape: one query's "
             f"LUT beside a staged 1024-row chunk of codes exceeds a block's "
-            f"227 KB of shared memory (1024 * Kc + Km * LUT bytes <= "
-            f"~224,000: at m = 256, K <= 109 codebooks with f32 LUTs, which "
-            f"binds both refine passes and the f32 crude passes, and K <= "
-            f"175 with int8 crude LUTs), or the query tiles exceed 65535")
+            f"227 KB of shared memory (1024 * row bytes + Km * LUT bytes <= "
+            f"~224,000; the widest K served, with f32 LUTs (both refine "
+            f"passes, the f32 crude passes) / int8 crude LUTs: uint8 rows at "
+            f"m = 256: 109 / 175; int32 rows at m = 512: 36 / 48, at "
+            f"m = 1024: 27 / 43), or the query tiles exceed 65535")
     _raise_on(err, lib, name)
     return out[0]
 
@@ -272,7 +280,7 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
     """Launch the crude kernel; same operands and outputs as
     ``crude_topk_torch``."""
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
-    _check_codes(codes, 2)
+    code_bytes = _check_codes(codes, 2, code_bits)
     n, Kc = codes.shape
     _check_flat_topk(n, topk)
     nq, Km = lut_flat.shape
@@ -285,14 +293,14 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
     lib, stream = _launch_env(dev)
     grid = _plan(lib, "icq_crude_plan", n, Kc, nq, Km, int(quantized),
-                 int(code_bits == 4), topk)
+                 int(code_bits == 4), code_bytes, topk)
     crude = (torch.empty((nq, n), dtype=torch.float32, device=dev)
              if want_crude else None)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_crude_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(lut_scale), _ptr(lut_offset),
         _ptr(crude), _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
-        int(quantized), int(code_bits == 4), topk, grid, stream),
+        int(quantized), int(code_bits == 4), code_bytes, topk, grid, stream),
         lib, "crude_topk")
     build.LAUNCHES["crude_topk"] += 1
     vals, idx = _merge_lists(cand_v, cand_i, topk, topk, stream)
@@ -303,7 +311,7 @@ def refine_topk_cuda(codes, lut_flat, crude, thresholds, topk: int, *,
                      code_bits: int = 8):
     """Launch the refine kernel; same operands and outputs as
     ``refine_topk_torch``."""
-    _check_codes(codes, 2)
+    code_bytes = _check_codes(codes, 2, code_bits)
     n, Kc = codes.shape
     _check_flat_topk(n, topk)
     nq, Km = lut_flat.shape
@@ -314,12 +322,12 @@ def refine_topk_cuda(codes, lut_flat, crude, thresholds, topk: int, *,
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
     lib, stream = _launch_env(dev)
     grid = _plan(lib, "icq_refine_plan", n, Kc, nq, Km, int(code_bits == 4),
-                 topk)
+                 code_bytes, topk)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_refine_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(crude), _ptr(thresholds),
         _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
-        int(code_bits == 4), topk, grid, stream),
+        int(code_bits == 4), code_bytes, topk, grid, stream),
         lib, "refine_topk")
     build.LAUNCHES["refine_topk"] += 1
     return _merge_lists(cand_v, cand_i, topk, topk, stream)
@@ -331,7 +339,7 @@ def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
     """Launch the slab crude kernel; same operands and outputs as
     ``ivf_crude_topk_torch``."""
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
-    _check_codes(cand_codes, 3)
+    code_bytes = _check_codes(cand_codes, 3, code_bits)
     nq, nc, Kc = cand_codes.shape
     _check_slab_topk(nc, topk)
     Km = lut_flat.shape[1]
@@ -345,13 +353,14 @@ def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
     lib, stream = _launch_env(dev, "ivf_search")
     grid = _plan(lib, "icq_ivf_crude_plan", nq, nc, Kc, Km, int(quantized),
-                 int(code_bits == 4), topk)
+                 int(code_bits == 4), code_bytes, topk)
     crude = torch.empty((nq, nc), dtype=torch.float32, device=dev)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_ivf_crude_topk(
         _ptr(cand_codes), _ptr(cand_ids), _ptr(lut_flat), _ptr(lut_scale),
         _ptr(lut_offset), _ptr(crude), _ptr(cand_v), _ptr(cand_i), nq, nc,
-        Kc, Km, m, int(quantized), int(code_bits == 4), topk, grid, stream),
+        Kc, Km, m, int(quantized), int(code_bits == 4), code_bytes, topk,
+        grid, stream),
         lib, "ivf_crude_topk")
     build.LAUNCHES["ivf_crude_topk"] += 1
     vals, pos = _merge_lists(cand_v, cand_i, topk, topk, stream)
@@ -362,7 +371,7 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
                          topk: int, *, code_bits: int = 8):
     """Launch the slab refine kernel; same operands and outputs as
     ``ivf_refine_topk_torch``."""
-    _check_codes(cand_codes, 3)
+    code_bytes = _check_codes(cand_codes, 3, code_bits)
     nq, nc, Kc = cand_codes.shape
     _check_slab_topk(nc, topk)
     Km = lut_flat.shape[1]
@@ -373,12 +382,12 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
     _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
     lib, stream = _launch_env(dev, "ivf_search")
     grid = _plan(lib, "icq_ivf_refine_plan", nq, nc, Kc, Km,
-                 int(code_bits == 4), topk)
+                 int(code_bits == 4), code_bytes, topk)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_ivf_refine_topk(
         _ptr(cand_codes), _ptr(lut_flat), _ptr(crude), _ptr(thresholds),
         _ptr(cand_v), _ptr(cand_i), nq, nc, Kc, Km, m,
-        int(code_bits == 4), topk, grid, stream),
+        int(code_bits == 4), code_bytes, topk, grid, stream),
         lib, "ivf_refine_topk")
     build.LAUNCHES["ivf_refine_topk"] += 1
     return _merge_lists(cand_v, cand_i, topk, topk, stream)

@@ -49,20 +49,20 @@ _COMMON = {   # search_common.cuh, compiled into every library
 SIGNATURES = {
     "batched_search": {
         **_COMMON,
-        "icq_crude_topk": ([_P] * 7 + [_I] * 9 + [_P], _I),
-        "icq_refine_topk": ([_P] * 6 + [_I] * 8 + [_P], _I),
-        "icq_crude_plan": ([_I] * 7 + [_P], _I),
-        "icq_refine_plan": ([_I] * 6 + [_P], _I),
+        "icq_crude_topk": ([_P] * 7 + [_I] * 10 + [_P], _I),
+        "icq_refine_topk": ([_P] * 6 + [_I] * 9 + [_P], _I),
+        "icq_crude_plan": ([_I] * 8 + [_P], _I),
+        "icq_refine_plan": ([_I] * 7 + [_P], _I),
         "icq_merge_lists": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "icq_merge_block": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "icq_merge_block_fits": ([_I] * 3, _I),
     },
     "ivf_search": {
         **_COMMON,
-        "icq_ivf_crude_topk": ([_P] * 8 + [_I] * 9 + [_P], _I),
-        "icq_ivf_crude_plan": ([_I] * 7 + [_P], _I),
-        "icq_ivf_refine_topk": ([_P] * 6 + [_I] * 8 + [_P], _I),
-        "icq_ivf_refine_plan": ([_I] * 6 + [_P], _I),
+        "icq_ivf_crude_topk": ([_P] * 8 + [_I] * 10 + [_P], _I),
+        "icq_ivf_crude_plan": ([_I] * 8 + [_P], _I),
+        "icq_ivf_refine_topk": ([_P] * 6 + [_I] * 9 + [_P], _I),
+        "icq_ivf_refine_plan": ([_I] * 7 + [_P], _I),
     },
     "kmeans": {
         **_COMMON,

@@ -21,7 +21,9 @@
 //     shared memory is cheap, so each block pins the flattened LUTs of a
 //     query tile (up to 8 queries, 8 KB each at K = 8, m = 256 f32) in
 //     shared memory, stages a chunk of 1024 code rows (1 byte per code,
-//     read once per query tile) and sums the K gathered entries per row.
+//     or 4 for codes wider than a byte (m > 256: int32 rows, as the
+//     index stores them; those instances compile on their own), read
+//     once per query tile) and sums the K gathered entries per row.
 //   * Dense crude values are written row-major, neighbouring threads on
 //     neighbouring points, so the 256 MB store is coalesced.
 //   * Top-k: a running list per block, as the TPU kernels carry their
@@ -189,28 +191,30 @@ extern "C" {
 // The crude pass's block count along the points (scan_plan).  Returns
 // cudaErrorInvalidValue for another shape.
 int icq_crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
-                   int topk, int* out) {
+                   int code_bytes, int topk, int* out) {
   return crude_plan<kMaxQueryTile, false>(n, Kc, nq, Km, quant, nibble,
-                                          topk, out);
+                                          code_bytes, topk, out);
 }
 
 // The refine pass's block count along the points (scan_plan).
-int icq_refine_plan(int n, int Kc, int nq, int Km, int nibble, int topk,
-                    int* out) {
-  return refine_plan<kRefineQueryTile>(n, Kc, nq, Km, nibble, topk, out);
+int icq_refine_plan(int n, int Kc, int nq, int Km, int nibble,
+                    int code_bytes, int topk, int* out) {
+  return refine_plan<kRefineQueryTile>(n, Kc, nq, Km, nibble, code_bytes,
+                                       topk, out);
 }
 
-// Phase 1.  codes (n, Kc) uint8; lut (nq, Km) f32, or int8 with scale /
-// offset (nq,) f32; crude (nq, n) f32 or null; out_v / out_i (nq, grid,
-// topk), grid from icq_crude_plan.  Returns cudaGetLastError().
+// Phase 1.  codes (n, Kc) of code_bytes a code: uint8 (1) or int32 (4,
+// no nibbles); lut (nq, Km) f32, or int8 with scale / offset (nq,) f32;
+// crude (nq, n) f32 or null; out_v / out_i (nq, grid, topk), grid from
+// icq_crude_plan.  Returns cudaGetLastError().
 int icq_crude_topk(const void* codes, const void* lut, const void* scale,
                    const void* offset, void* crude, void* out_v,
                    void* out_i, int n, int Kc, int nq, int Km, int m,
-                   int quant, int nibble, int topk, int grid_x,
-                   void* stream) {
+                   int quant, int nibble, int code_bytes, int topk,
+                   int grid_x, void* stream) {
   return crude_launch<kMaxQueryTile, false>(
       codes, 0, nullptr, lut, scale, offset, crude, out_v, out_i, n, Kc, nq,
-      Km, m, quant, nibble, topk, grid_x, stream);
+      Km, m, quant, nibble, code_bytes, topk, grid_x, stream);
 }
 
 // Phase 2.  codes as in phase 1; lut (nq, Km) f32 slow-masked; crude
@@ -218,11 +222,11 @@ int icq_crude_topk(const void* codes, const void* lut, const void* scale,
 // icq_refine_plan.
 int icq_refine_topk(const void* codes, const void* lut, const void* crude,
                     const void* thr, void* out_v, void* out_i, int n,
-                    int Kc, int nq, int Km, int m, int nibble, int topk,
-                    int grid_x, void* stream) {
+                    int Kc, int nq, int Km, int m, int nibble,
+                    int code_bytes, int topk, int grid_x, void* stream) {
   return refine_launch<kRefineQueryTile>(codes, 0, lut, crude, thr, out_v,
                                          out_i, n, Kc, nq, Km, m, nibble,
-                                         topk, grid_x, stream);
+                                         code_bytes, topk, grid_x, stream);
 }
 
 // One merge level: in (nq, L, w) sorted lists -> out (nq, ceil(L / 2),

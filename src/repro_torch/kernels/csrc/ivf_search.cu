@@ -65,28 +65,29 @@ extern "C" {
 // candidate lists (nq, out[0], topk).  Returns cudaErrorInvalidValue for
 // a shape that no tiling serves.
 int icq_ivf_crude_plan(int nq, int nc, int Kc, int Km, int quant,
-                       int nibble, int topk, int* out) {
-  return crude_plan<1, true>(nc, Kc, nq, Km, quant, nibble, topk, out);
+                       int nibble, int code_bytes, int topk, int* out) {
+  return crude_plan<1, true>(nc, Kc, nq, Km, quant, nibble, code_bytes, topk,
+                             out);
 }
 
-// Phase 1.  codes (nq, nc, Kc) uint8; ids (nq, nc) int32, -1 = invalid;
-// lut (nq, Km) f32, or int8 with scale / offset (nq,) f32; crude
-// (nq, nc) f32; out_v / out_i (nq, grid, topk), grid from
-// icq_ivf_crude_plan.  Returns cudaGetLastError().
+// Phase 1.  codes (nq, nc, Kc) uint8 or int32 (code_bytes 1 or 4); ids
+// (nq, nc) int32, -1 = invalid; lut (nq, Km) f32, or int8 with scale /
+// offset (nq,) f32; crude (nq, nc) f32; out_v / out_i (nq, grid, topk),
+// grid from icq_ivf_crude_plan.  Returns cudaGetLastError().
 int icq_ivf_crude_topk(const void* codes, const void* ids, const void* lut,
                        const void* scale, const void* offset, void* crude,
                        void* out_v, void* out_i, int nq, int nc, int Kc,
-                       int Km, int m, int quant, int nibble, int topk,
-                       int grid_x, void* stream) {
+                       int Km, int m, int quant, int nibble,
+                       int code_bytes, int topk, int grid_x, void* stream) {
   return crude_launch<1, true>(codes, long(nc) * Kc, ids, lut, scale, offset,
                                crude, out_v, out_i, nc, Kc, nq, Km, m, quant,
-                               nibble, topk, grid_x, stream);
+                               nibble, code_bytes, topk, grid_x, stream);
 }
 
 // The slab refine's blocks per query, as icq_ivf_crude_plan.
 int icq_ivf_refine_plan(int nq, int nc, int Kc, int Km, int nibble,
-                        int topk, int* out) {
-  return refine_plan<1>(nc, Kc, nq, Km, nibble, topk, out);
+                        int code_bytes, int topk, int* out) {
+  return refine_plan<1>(nc, Kc, nq, Km, nibble, code_bytes, topk, out);
 }
 
 // Phase 2.  codes as in phase 1; lut (nq, Km) f32 slow-masked; crude
@@ -94,11 +95,11 @@ int icq_ivf_refine_plan(int nq, int nc, int Kc, int Km, int nibble,
 // topk), grid from icq_ivf_refine_plan.
 int icq_ivf_refine_topk(const void* codes, const void* lut, const void* crude,
                         const void* thr, void* out_v, void* out_i, int nq,
-                        int nc, int Kc, int Km, int m, int nibble, int topk,
-                        int grid_x, void* stream) {
+                        int nc, int Kc, int Km, int m, int nibble,
+                        int code_bytes, int topk, int grid_x, void* stream) {
   return refine_launch<1>(codes, long(nc) * Kc, lut, crude, thr, out_v,
-                          out_i, nc, Kc, nq, Km, m, nibble, topk, grid_x,
-                          stream);
+                          out_i, nc, Kc, nq, Km, m, nibble, code_bytes, topk,
+                          grid_x, stream);
 }
 
 }  // extern "C"

@@ -509,18 +509,22 @@ __device__ void stage_bytes(void* dst, const void* src, int nbytes,
     static_cast<uint8_t*>(dst)[i] = static_cast<const uint8_t*>(src)[i];
 }
 
-// Stage the code rows [base, base + kChunk) of the (n, Kc) uint8 codes.
-__device__ void load_codes(uint8_t* dst, const uint8_t* __restrict__ codes,
+// Stage the code rows [base, base + kChunk) of the (n, Kc) codes: uint8
+// rows (m <= 256) or int32 rows (wider codes, as the index stores them).
+template <typename CodeT>
+__device__ void load_codes(CodeT* dst, const CodeT* __restrict__ codes,
                            long base, long n, int Kc, bool async = false) {
   const long rows = min(long(kChunk), n - base);
-  stage_bytes(dst, codes + base * Kc, int(rows) * Kc, async);
+  stage_bytes(dst, codes + base * Kc, int(rows) * Kc * int(sizeof(CodeT)),
+              async);
 }
 
-// Byte kc of a code row.  Rows of a multiple of 4 bytes are read as
-// 32-bit words (a staged row starts 4-aligned); the sum order is the
-// same either way.
+// Code kc of a staged row, in codebook order.  uint8 rows of a multiple
+// of 4 bytes are read as 32-bit words (a staged row starts 4-aligned),
+// int32 rows of a multiple of 4 codes as 16-byte vectors (a staged row
+// then starts 16-aligned); the sum order is the same either way.
 template <typename Add>
-__device__ __forceinline__ void for_row_bytes(const uint8_t* row, int Kc,
+__device__ __forceinline__ void for_row_codes(const uint8_t* row, int Kc,
                                               Add add) {
   if ((Kc & 3) == 0) {
     const uint32_t* w = reinterpret_cast<const uint32_t*>(row);
@@ -535,16 +539,34 @@ __device__ __forceinline__ void for_row_bytes(const uint8_t* row, int Kc,
     for (int kc = 0; kc < Kc; ++kc) add(kc, int(row[kc]));
   }
 }
+template <typename Add>
+__device__ __forceinline__ void for_row_codes(const int32_t* row, int Kc,
+                                              Add add) {
+  if ((Kc & 3) == 0) {
+    const int4* w = reinterpret_cast<const int4*>(row);
+    for (int k4 = 0; k4 < (Kc >> 2); ++k4) {
+      const int4 v = w[k4];
+      add(4 * k4, v.x);
+      add(4 * k4 + 1, v.y);
+      add(4 * k4 + 2, v.z);
+      add(4 * k4 + 3, v.w);
+    }
+  } else {
+    for (int kc = 0; kc < Kc; ++kc) add(kc, row[kc]);
+  }
+}
 
 // f32 LUT sum of one code row, codebooks in order from 0.0.  Nibble byte
 // kc holds codebooks (2kc, 2kc+1) in its (low, high) nibble; the odd-K
-// sentinel codebook has an all-zero LUT column.
-template <bool NIBBLE>
+// sentinel codebook has an all-zero LUT column.  Nibbles come in uint8
+// rows only.
+template <bool NIBBLE, typename CodeT>
 __device__ __forceinline__ float row_sum_f32(const float* lut,
-                                             const uint8_t* row, int Kc,
+                                             const CodeT* row, int Kc,
                                              int m) {
+  static_assert(!NIBBLE || sizeof(CodeT) == 1, "nibbles are bytes");
   float acc = 0.0f;
-  for_row_bytes(row, Kc, [&](int kc, int b) {
+  for_row_codes(row, Kc, [&](int kc, int b) {
     if (NIBBLE) {
       acc = __fadd_rn(acc, lut[(2 * kc) * m + (b & 15)]);
       acc = __fadd_rn(acc, lut[(2 * kc + 1) * m + (b >> 4)]);
@@ -556,11 +578,12 @@ __device__ __forceinline__ float row_sum_f32(const float* lut,
 }
 
 // int8 LUT sum of one code row: exact in int32.
-template <bool NIBBLE>
+template <bool NIBBLE, typename CodeT>
 __device__ __forceinline__ int row_sum_i8(const int8_t* lut,
-                                          const uint8_t* row, int Kc, int m) {
+                                          const CodeT* row, int Kc, int m) {
+  static_assert(!NIBBLE || sizeof(CodeT) == 1, "nibbles are bytes");
   int acc = 0;
-  for_row_bytes(row, Kc, [&](int kc, int b) {
+  for_row_codes(row, Kc, [&](int kc, int b) {
     if (NIBBLE) {
       acc += lut[(2 * kc) * m + (b & 15)];
       acc += lut[(2 * kc + 1) * m + (b >> 4)];
@@ -599,23 +622,24 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem,
 // Dynamic shared memory of one scan block: candidate buffers (the crude
 // pass one for its tile, the refine pass one per query, which keeps its
 // candidates pending across chunks), `stages` staging buffers of code
-// rows (with two, the refine pass stages the crude values of its tile
-// beside them; with one it reads them from global memory), LUTs of the
+// rows (row_bytes each: Kc bytes for uint8 rows, 4 Kc for int32 rows;
+// with two stages the refine pass stages the crude values of its tile
+// beside them, with one it reads them from global memory), LUTs of the
 // query tile, per-query scalars (scale/offset or threshold), the
 // running top-k's scratch and counts and, when they fit, the qt running
 // lists of topk pairs.
-__host__ __device__ size_t stage_bytes_per_buf(int Kc, int qt,
+__host__ __device__ size_t stage_bytes_per_buf(int row_bytes, int qt,
                                                bool with_crude) {
-  return align16(size_t(kChunk) * Kc) +
+  return align16(size_t(kChunk) * row_bytes) +
          (with_crude ? size_t(qt) * kChunk * sizeof(float) : 0);
 }
-__host__ __device__ size_t scan_smem_bytes(int Kc, int qt, int Km,
+__host__ __device__ size_t scan_smem_bytes(int row_bytes, int qt, int Km,
                                            int lut_esize, int n_scalars,
                                            int topk, bool lists_in_smem,
                                            bool refine, int stages) {
   const int buffers = refine ? qt : 1;
   return size_t(buffers) * kChunk * (sizeof(float) + sizeof(int)) +
-         stages * stage_bytes_per_buf(Kc, qt, refine && stages == 2) +
+         stages * stage_bytes_per_buf(row_bytes, qt, refine && stages == 2) +
          align16(size_t(qt) * Km * lut_esize) +
          align16(size_t(n_scalars) * qt * sizeof(float)) + kListScratchBytes +
          align16(size_t(2) * qt * sizeof(int)) +
@@ -637,7 +661,7 @@ struct ScanSmem {
   int* list_i;
 };
 
-__device__ ScanSmem carve(unsigned char* base, int Kc, int qt, int Km,
+__device__ ScanSmem carve(unsigned char* base, int row_bytes, int qt, int Km,
                           int lut_esize, int n_scalars, int topk,
                           bool refine, int stages) {
   const int buffers = refine ? qt : 1;
@@ -646,8 +670,8 @@ __device__ ScanSmem carve(unsigned char* base, int Kc, int qt, int Km,
   s.idx = reinterpret_cast<int*>(s.val + size_t(buffers) * kChunk);
   size_t off = size_t(buffers) * kChunk * (sizeof(float) + sizeof(int));
   s.stage = base + off;
-  s.stage_buf = stage_bytes_per_buf(Kc, qt, refine && stages == 2);
-  s.crude_off = align16(size_t(kChunk) * Kc);
+  s.stage_buf = stage_bytes_per_buf(row_bytes, qt, refine && stages == 2);
+  s.crude_off = align16(size_t(kChunk) * row_bytes);
   off += stages * s.stage_buf;
   s.lut = base + off;
   off += align16(size_t(qt) * Km * lut_esize);
@@ -699,12 +723,13 @@ struct BlockLists {
 // Phase 1, flat and IVF: the fast-masked LUT sum of every row for every
 // query of the tile (int8 LUTs dequantized as scale * acc + offset), the
 // dense crude rows and the crude top-k.  grid (x: blocks strided over
-// the n rows' chunks, y: query tiles of qt).  codes (n, Kc) shared by
-// the tile or each query's own slab (codes_q_stride, above); crude (nq,
-// n), or null: no dense matrix is written.  MASKED: ids (nq, n), and a
-// row whose id is < 0 (the IVF slab's pads) is +inf, in the dense crude
-// row and in the ranking.  out_v / out_i (nq, gridDim.x, topk): block
-// x's list of query q is row (q * gridDim.x + x).
+// the n rows' chunks, y: query tiles of qt).  codes (n, Kc) of CodeT
+// (uint8, or int32 for codes wider than a byte) shared by the tile or
+// each query's own slab (codes_q_stride, above); crude (nq, n), or null:
+// no dense matrix is written.  MASKED: ids (nq, n), and a row whose id
+// is < 0 (the IVF slab's pads) is +inf, in the dense crude row and in
+// the ranking.  out_v / out_i (nq, gridDim.x, topk): block x's list of
+// query q is row (q * gridDim.x + x).
 //
 // A running list per query, its candidates merged at the end of each
 // round (list_round<false>, one buffer for the tile): the block's first
@@ -717,10 +742,11 @@ struct BlockLists {
 // on the slab pass on the H100, which the IVF tile's host time hides).
 // The launch bound asks for two blocks an SM, which the shared memory
 // allows anyway: without it ptxas settles for 48 registers and spills
-// in the int8 variant.
-template <bool QUANT, bool NIBBLE, bool MASKED>
+// in the int8 variant.  The int32-row instances compile on their own,
+// so the uint8 ones keep their registers.
+template <typename CodeT, bool QUANT, bool NIBBLE, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 2)
-crude_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
+crude_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
                   const int* __restrict__ ids,
                   const void* __restrict__ lut_g,
                   const float* __restrict__ scale_g,
@@ -730,8 +756,9 @@ crude_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
                   bool lists_in_smem) {
   // named apart from the other sources' own dynamic shared arrays
   extern __shared__ __align__(16) unsigned char scan_smem[];
-  const ScanSmem s = carve(scan_smem, Kc, qt, Km, QUANT ? 1 : 4,
-                           QUANT ? 2 : 0, topk, false, 1);
+  const ScanSmem s = carve(scan_smem, Kc * int(sizeof(CodeT)), qt, Km,
+                           QUANT ? 1 : 4, QUANT ? 2 : 0, topk, false, 1);
+  const CodeT* staged = reinterpret_cast<const CodeT*>(s.stage);
   const int q0 = blockIdx.y * qt;
   const int nql = min(qt, nq - q0);              // queries of this tile
   const int nchunks = (n + kChunk - 1) / kChunk;
@@ -754,7 +781,7 @@ crude_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
   for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
     const long base = long(chunk) * kChunk;
     __syncthreads();  // the previous chunk's readers are done
-    load_codes(s.stage, codes, base, n, Kc);
+    load_codes(reinterpret_cast<CodeT*>(s.stage), codes, base, n, Kc);
     __syncthreads();
     for (int q = 0; q < nql; ++q) {
       const long qrow = long(q0 + q) * n;
@@ -768,7 +795,7 @@ crude_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
         float d = CUDART_INF_F;
         if (gi < n) {
           if (!MASKED || ids[qrow + gi] >= 0) {
-            const uint8_t* row = s.stage + p * Kc;
+            const CodeT* row = staged + p * Kc;
             if (QUANT) {
               const int acc = row_sum_i8<NIBBLE>(
                   reinterpret_cast<const int8_t*>(s.lut) + q * Km, row, Kc,
@@ -805,9 +832,9 @@ crude_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
 // works on the current chunk; 1 (codes too wide for two): the code rows
 // are staged after it and the crude values read from global memory,
 // one coalesced word per thread and point.
-template <bool NIBBLE, int STAGES>
+template <typename CodeT, bool NIBBLE, int STAGES>
 __global__ void __launch_bounds__(kThreads)
-refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
+refine_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
                    const float* __restrict__ lut_g,
                    const float* __restrict__ crude,
                    const float* __restrict__ thr_g, float* out_v, int* out_i,
@@ -815,7 +842,8 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
                    bool lists_in_smem) {
   // named apart from the other sources' own dynamic shared arrays
   extern __shared__ __align__(16) unsigned char scan_smem[];
-  const ScanSmem s = carve(scan_smem, Kc, qt, Km, 4, 1, topk, true, STAGES);
+  const ScanSmem s = carve(scan_smem, Kc * int(sizeof(CodeT)), qt, Km, 4, 1,
+                           topk, true, STAGES);
   const float* lut = reinterpret_cast<const float*>(s.lut);
   const int q0 = blockIdx.y * qt;
   const int nql = min(qt, nq - q0);
@@ -827,7 +855,7 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
   auto stage = [&](int chunk, int b) {
     const long base = long(chunk) * kChunk;
     uint8_t* dst = s.stage + b * s.stage_buf;
-    load_codes(dst, codes, base, n, Kc, true);
+    load_codes(reinterpret_cast<CodeT*>(dst), codes, base, n, Kc, true);
     if (STAGES == 1) return;
     const int rows = int(min(long(kChunk), n - base));
     for (int q = 0; q < nql; ++q)
@@ -849,6 +877,7 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
                            // readers (the previous chunk) are done
     if (STAGES == 2 && next < nchunks) stage(next, buf ^ 1);
     const uint8_t* rows = s.stage + buf * s.stage_buf;
+    const CodeT* staged = reinterpret_cast<const CodeT*>(rows);
     const float* cr = reinterpret_cast<const float*>(rows + s.crude_off);
     for (int q = 0; q < nql; ++q) {
       const float thr = s.scalars[q];
@@ -862,7 +891,7 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
                                       : crude[long(q0 + q) * n + base + p];
           if (c < thr)
             v[r] = __fadd_rn(c, row_sum_f32<NIBBLE>(lut + q * Km,
-                                                    rows + p * Kc, Kc, m));
+                                                    staged + p * Kc, Kc, m));
         }
       }
       list_round<true>(lists[q], s.scratch, v, int(base), n);
@@ -881,20 +910,24 @@ refine_scan_kernel(const uint8_t* __restrict__ codes, long codes_q_stride,
 // largest tile without them (lists in global memory).  The refine pass
 // double-buffers its staging (stages = 2) unless not even one query
 // fits that way, and then stages after each chunk; the crude pass loads
-// each chunk between barriers (stages = 1).  qt = 0: nothing fits.
+// each chunk between barriers (stages = 1).  Wide codes (m > 256: int32
+// rows, 4 Kc bytes, and K * m LUT entries a query) take the same search:
+// at m = 1024 a query's f32 LUT is 4 K KB, so the flat crude's tile of 8
+// shrinks to what fits.  qt = 0: nothing fits.
 struct ScanTiling {
   int qt, stages;
   bool lists_in_smem;
   size_t smem;
 };
 
-ScanTiling scan_tiling(int Kc, int Km, int lut_esize, int n_scalars,
+ScanTiling scan_tiling(int row_bytes, int Km, int lut_esize, int n_scalars,
                        int topk, bool refine, int max_qt) {
   for (int stages = refine ? 2 : 1; stages >= 1; --stages) {
     for (int lists = 1; lists >= 0; --lists) {
       for (int qt = max_qt; qt >= 1; qt >>= 1) {
-        const size_t b = scan_smem_bytes(Kc, qt, Km, lut_esize, n_scalars,
-                                         topk, lists, refine, stages);
+        const size_t b = scan_smem_bytes(row_bytes, qt, Km, lut_esize,
+                                         n_scalars, topk, lists, refine,
+                                         stages);
         if (b <= kMaxSmem) return ScanTiling{qt, stages, lists == 1, b};
       }
     }
@@ -902,18 +935,25 @@ ScanTiling scan_tiling(int Kc, int Km, int lut_esize, int n_scalars,
   return ScanTiling{0, 1, true, 0};
 }
 
-ScanTiling refine_tiling(int Kc, int Km, int topk, int max_qt) {
-  return scan_tiling(Kc, Km, 4, 1, topk, true, max_qt);
+ScanTiling refine_tiling(int row_bytes, int Km, int topk, int max_qt) {
+  return scan_tiling(row_bytes, Km, 4, 1, topk, true, max_qt);
 }
 
-ScanTiling crude_tiling(int Kc, int Km, int quant, int topk, int max_qt) {
-  return scan_tiling(Kc, Km, quant ? 1 : 4, quant ? 2 : 0, topk, false,
+ScanTiling crude_tiling(int row_bytes, int Km, int quant, int topk,
+                        int max_qt) {
+  return scan_tiling(row_bytes, Km, quant ? 1 : 4, quant ? 2 : 0, topk, false,
                      max_qt);
 }
 
 bool scan_args_ok(const ScanTiling& t, int n, int nq, int topk) {
   return t.qt > 0 && n >= 1 && nq >= 1 && (nq + t.qt - 1) / t.qt <= 65535 &&
          topk >= 1 && topk <= n;
+}
+
+// A row of code_bytes bytes a code: 1 (uint8, nibbles too) or 4 (int32,
+// never nibbles).
+bool code_bytes_ok(int code_bytes, int nibble) {
+  return code_bytes == 1 || (code_bytes == 4 && !nibble);
 }
 
 // Blocks along the rows of a scan launch, for the caller to size its
@@ -942,48 +982,71 @@ int scan_plan(Kernel kernel, const ScanTiling& t, int n, int nq, int topk,
   return int(cudaSuccess);
 }
 
-// The kernels' instances for a LUT type, code width and stage count.
-template <bool MASKED>
+// The kernels' instances for a row type, LUT type, code width and stage
+// count (nibbles only in uint8 rows).
+template <typename CodeT, bool MASKED>
 auto crude_instance(int quant, int nibble) {
-  if (quant)
-    return nibble ? crude_scan_kernel<true, true, MASKED>
-                  : crude_scan_kernel<true, false, MASKED>;
-  return nibble ? crude_scan_kernel<false, true, MASKED>
-                : crude_scan_kernel<false, false, MASKED>;
+  if constexpr (sizeof(CodeT) == 1) {
+    if (quant)
+      return nibble ? crude_scan_kernel<CodeT, true, true, MASKED>
+                    : crude_scan_kernel<CodeT, true, false, MASKED>;
+    return nibble ? crude_scan_kernel<CodeT, false, true, MASKED>
+                  : crude_scan_kernel<CodeT, false, false, MASKED>;
+  } else {
+    return quant ? crude_scan_kernel<CodeT, true, false, MASKED>
+                 : crude_scan_kernel<CodeT, false, false, MASKED>;
+  }
 }
-template <int STAGES>
+template <typename CodeT, int STAGES>
 auto refine_instance(int nibble) {
-  return nibble ? refine_scan_kernel<true, STAGES>
-                : refine_scan_kernel<false, STAGES>;
+  if constexpr (sizeof(CodeT) == 1)
+    return nibble ? refine_scan_kernel<CodeT, true, STAGES>
+                  : refine_scan_kernel<CodeT, false, STAGES>;
+  else
+    return refine_scan_kernel<CodeT, false, STAGES>;
 }
 
 // The crude pass's plan and launch, flat (MAX_QT > 1, codes_q_stride 0,
 // no ids) and IVF (MAX_QT = 1, codes_q_stride n * Kc, MASKED by the id
-// slab); the refine pass's, flat (MAX_QT > 1) and IVF (MAX_QT = 1).
-// Each returns cudaErrorInvalidValue for a shape that no tiling serves.
-// Templates, so that only the sources that launch a kernel compile it.
-template <int MAX_QT, bool MASKED>
-int crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
-               int topk, int* out) {
-  const ScanTiling t = crude_tiling(Kc, Km, quant, topk, MAX_QT);
+// slab); the refine pass's, flat (MAX_QT > 1) and IVF (MAX_QT = 1); for
+// uint8 rows (code_bytes 1) or int32 rows (4).  Each returns
+// cudaErrorInvalidValue for a shape that no tiling serves.  Templates,
+// so that only the sources that launch a kernel compile it.
+template <typename CodeT, int MAX_QT, bool MASKED>
+int crude_plan_rows(int n, int Kc, int nq, int Km, int quant, int nibble,
+                    int topk, int* out) {
+  const ScanTiling t = crude_tiling(Kc * int(sizeof(CodeT)), Km, quant, topk,
+                                    MAX_QT);
   if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
-  return scan_plan(crude_instance<MASKED>(quant, nibble), t, n, nq, topk,
-                   out);
+  return scan_plan(crude_instance<CodeT, MASKED>(quant, nibble), t, n, nq,
+                   topk, out);
 }
 
 template <int MAX_QT, bool MASKED>
-int crude_launch(const void* codes, long codes_q_stride, const void* ids,
-                 const void* lut, const void* scale, const void* offset,
-                 void* crude, void* out_v, void* out_i, int n, int Kc,
-                 int nq, int Km, int m, int quant, int nibble, int topk,
-                 int grid_x, void* stream) {
-  const ScanTiling t = crude_tiling(Kc, Km, quant, topk, MAX_QT);
+int crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
+               int code_bytes, int topk, int* out) {
+  if (!code_bytes_ok(code_bytes, nibble)) return int(cudaErrorInvalidValue);
+  return code_bytes == 4
+             ? crude_plan_rows<int32_t, MAX_QT, MASKED>(n, Kc, nq, Km, quant,
+                                                        nibble, topk, out)
+             : crude_plan_rows<uint8_t, MAX_QT, MASKED>(n, Kc, nq, Km, quant,
+                                                        nibble, topk, out);
+}
+
+template <typename CodeT, int MAX_QT, bool MASKED>
+int crude_launch_rows(const void* codes, long codes_q_stride, const void* ids,
+                      const void* lut, const void* scale, const void* offset,
+                      void* crude, void* out_v, void* out_i, int n, int Kc,
+                      int nq, int Km, int m, int quant, int nibble, int topk,
+                      int grid_x, void* stream) {
+  const ScanTiling t = crude_tiling(Kc * int(sizeof(CodeT)), Km, quant, topk,
+                                    MAX_QT);
   if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
     return int(cudaErrorInvalidValue);
   return int(launch_with_smem(
-      crude_instance<MASKED>(quant, nibble),
+      crude_instance<CodeT, MASKED>(quant, nibble),
       dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
-      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
+      static_cast<cudaStream_t>(stream), static_cast<const CodeT*>(codes),
       codes_q_stride, static_cast<const int*>(ids), lut,
       static_cast<const float*>(scale), static_cast<const float*>(offset),
       static_cast<float*>(crude), static_cast<float*>(out_v),
@@ -991,32 +1054,81 @@ int crude_launch(const void* codes, long codes_q_stride, const void* ids,
       t.lists_in_smem));
 }
 
-template <int MAX_QT>
-int refine_plan(int n, int Kc, int nq, int Km, int nibble, int topk,
-                int* out) {
-  const ScanTiling t = refine_tiling(Kc, Km, topk, MAX_QT);
+template <int MAX_QT, bool MASKED>
+int crude_launch(const void* codes, long codes_q_stride, const void* ids,
+                 const void* lut, const void* scale, const void* offset,
+                 void* crude, void* out_v, void* out_i, int n, int Kc,
+                 int nq, int Km, int m, int quant, int nibble, int code_bytes,
+                 int topk, int grid_x, void* stream) {
+  if (!code_bytes_ok(code_bytes, nibble)) return int(cudaErrorInvalidValue);
+  return code_bytes == 4
+             ? crude_launch_rows<int32_t, MAX_QT, MASKED>(
+                   codes, codes_q_stride, ids, lut, scale, offset, crude,
+                   out_v, out_i, n, Kc, nq, Km, m, quant, nibble, topk,
+                   grid_x, stream)
+             : crude_launch_rows<uint8_t, MAX_QT, MASKED>(
+                   codes, codes_q_stride, ids, lut, scale, offset, crude,
+                   out_v, out_i, n, Kc, nq, Km, m, quant, nibble, topk,
+                   grid_x, stream);
+}
+
+template <typename CodeT, int MAX_QT>
+int refine_plan_rows(int n, int Kc, int nq, int Km, int nibble, int topk,
+                     int* out) {
+  const ScanTiling t = refine_tiling(Kc * int(sizeof(CodeT)), Km, topk,
+                                     MAX_QT);
   if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
-  return scan_plan(t.stages == 2 ? refine_instance<2>(nibble)
-                                  : refine_instance<1>(nibble),
+  return scan_plan(t.stages == 2 ? refine_instance<CodeT, 2>(nibble)
+                                  : refine_instance<CodeT, 1>(nibble),
                    t, n, nq, topk, out);
+}
+
+template <int MAX_QT>
+int refine_plan(int n, int Kc, int nq, int Km, int nibble, int code_bytes,
+                int topk, int* out) {
+  if (!code_bytes_ok(code_bytes, nibble)) return int(cudaErrorInvalidValue);
+  return code_bytes == 4
+             ? refine_plan_rows<int32_t, MAX_QT>(n, Kc, nq, Km, nibble, topk,
+                                                 out)
+             : refine_plan_rows<uint8_t, MAX_QT>(n, Kc, nq, Km, nibble, topk,
+                                                 out);
+}
+
+template <typename CodeT, int MAX_QT>
+int refine_launch_rows(const void* codes, long codes_q_stride,
+                       const void* lut, const void* crude, const void* thr,
+                       void* out_v, void* out_i, int n, int Kc, int nq,
+                       int Km, int m, int nibble, int topk, int grid_x,
+                       void* stream) {
+  const ScanTiling t = refine_tiling(Kc * int(sizeof(CodeT)), Km, topk,
+                                     MAX_QT);
+  if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
+    return int(cudaErrorInvalidValue);
+  return int(launch_with_smem(
+      t.stages == 2 ? refine_instance<CodeT, 2>(nibble)
+                    : refine_instance<CodeT, 1>(nibble),
+      dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
+      static_cast<cudaStream_t>(stream), static_cast<const CodeT*>(codes),
+      codes_q_stride, static_cast<const float*>(lut),
+      static_cast<const float*>(crude), static_cast<const float*>(thr),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), n, Kc, nq, Km, m,
+      topk, t.qt, t.lists_in_smem));
 }
 
 template <int MAX_QT>
 int refine_launch(const void* codes, long codes_q_stride, const void* lut,
                   const void* crude, const void* thr, void* out_v,
                   void* out_i, int n, int Kc, int nq, int Km, int m,
-                  int nibble, int topk, int grid_x, void* stream) {
-  const ScanTiling t = refine_tiling(Kc, Km, topk, MAX_QT);
-  if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
-    return int(cudaErrorInvalidValue);
-  return int(launch_with_smem(
-      t.stages == 2 ? refine_instance<2>(nibble) : refine_instance<1>(nibble),
-      dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
-      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(codes),
-      codes_q_stride, static_cast<const float*>(lut),
-      static_cast<const float*>(crude), static_cast<const float*>(thr),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), n, Kc, nq, Km, m,
-      topk, t.qt, t.lists_in_smem));
+                  int nibble, int code_bytes, int topk, int grid_x,
+                  void* stream) {
+  if (!code_bytes_ok(code_bytes, nibble)) return int(cudaErrorInvalidValue);
+  return code_bytes == 4
+             ? refine_launch_rows<int32_t, MAX_QT>(
+                   codes, codes_q_stride, lut, crude, thr, out_v, out_i, n,
+                   Kc, nq, Km, m, nibble, topk, grid_x, stream)
+             : refine_launch_rows<uint8_t, MAX_QT>(
+                   codes, codes_q_stride, lut, crude, thr, out_v, out_i, n,
+                   Kc, nq, Km, m, nibble, topk, grid_x, stream);
 }
 
 }  // namespace

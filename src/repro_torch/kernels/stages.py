@@ -7,7 +7,11 @@ for the kernel paths):
     ThresholdStage  the eq. 2 threshold bootstrap: among the crude top-k
                     take the candidate furthest by full distance; its
                     crude value plus sigma is the threshold.  Tiny
-                    (nq, topk) PyTorch code.
+                    (nq, topk) PyTorch code; from the kernels' candidate
+                    lists on the served path, from the dense crude
+                    matrix (the reference's jnp path) under the options
+                    that only the plain versions serve (``filter``,
+                    ``refine_cap``).
     RefineStage     slow-codebook sums for margin-test survivors and the
                     final top-k (eq. 1: full = crude + slow), through
                     ``ops.batched_refine_topk`` or ``ops.ivf_refine_topk``
@@ -189,6 +193,25 @@ class ThresholdStage:
         else:
             full_cand = cand_c + base.lut_sum(luts, cand_codes, ~fast)
         far = torch.argmax(full_cand, dim=1)
+        return cand_c.gather(1, far[:, None])[:, 0] + sigma
+
+    def from_dense_slab(self, luts, cand_codes, crude, fast, sigma):
+        """Bootstrap from the dense slab crude (the reference's jnp IVF
+        path): f32 ranks candidates by one full-table sum, int8 by
+        quantized crude + exact slow; the +inf candidates of slabs
+        thinner than topk are left out of the far-element argmax."""
+        cand_c, cand = topk_two_key(crude, self.topk)
+        cand_top = torch.gather(
+            cand_codes, 1,
+            cand.long()[:, :, None].expand(-1, -1, cand_codes.shape[2]))
+        cand_top = widen_codes(cand_top, luts.shape[1], self.code_bits)
+        if not self.quantized:
+            full_cand = base.lut_sum(luts, cand_top)
+        else:
+            full_cand = cand_c + base.lut_sum(luts, cand_top, ~fast)
+        far = torch.argmax(torch.where(
+            torch.isfinite(cand_c), full_cand,
+            torch.full_like(full_cand, -float("inf"))), dim=1)
         return cand_c.gather(1, far[:, None])[:, 0] + sigma
 
     def from_candidates(self, luts, codes, cand_vals, cand_idx, fast,

@@ -20,11 +20,13 @@ CASES = [(lut, bits) for lut in ("f32", "int8") for bits in (8, 4)]
 
 def _problem(seed, n, nq, K, m, d=16, num_fast=2):
     """Codes with duplicated rows (exact ties), LUTs and fast mask, on
-    the card."""
+    the card; uint8 rows up to m = 256, int32 rows (as the index stores
+    wider codes) past it."""
     rng = np.random.default_rng(seed)
     C = torch.from_numpy((rng.standard_normal((K, m, d))
                           / np.sqrt(K)).astype(np.float32)).cuda()
-    codes = rng.integers(0, m, size=(n, K)).astype(np.uint8)
+    codes = rng.integers(0, m, size=(n, K)).astype(
+        np.uint8 if m <= 256 else np.int32)
     codes[n // 2:n // 2 + 7] = codes[3]
     codes[-5:] = codes[1]
     q = torch.from_numpy(rng.standard_normal((nq, d)).astype(
@@ -75,7 +77,8 @@ def _slab(seed, nq, nc, K, m, d=16, num_fast=2):
     rng = np.random.default_rng(seed)
     C = torch.from_numpy((rng.standard_normal((K, m, d))
                           / np.sqrt(K)).astype(np.float32)).cuda()
-    codes = rng.integers(0, m, size=(nq, nc, K)).astype(np.uint8)
+    codes = rng.integers(0, m, size=(nq, nc, K)).astype(
+        np.uint8 if m <= 256 else np.int32)
     codes[:, 100:107] = codes[:, 3:4]
     ids = rng.integers(0, 50 * nc, size=(nq, nc)).astype(np.int32)
     ids[rng.random((nq, nc)) < 0.2] = -1
@@ -729,3 +732,277 @@ def test_cuda_icm_encode_wide_d(d):
     perm = torch.from_numpy(rng.permutation(n)).cuda()
     assert torch.equal(icm.icm_encode_cuda(x[perm], init[perm].contiguous(),
                                            C, iters=3), got[perm])
+
+
+# codes wider than a byte (m > 256): the int32 rows the index stores,
+# and the widest K one block's shared memory serves there, with f32 LUTs
+# (all four passes) and with int8 crude LUTs (the two crude passes)
+WIDE_M = [(512, 36, 48), (1024, 27, 43)]
+
+
+def _refine_thresholds(crude):
+    """Margins of the refine checks: many survivors, fewer than topk,
+    none and all."""
+    ranked = torch.sort(crude, dim=1).values
+    nq = crude.shape[0]
+    inf = float("inf")
+    return [ranked[:, 600].contiguous(), ranked[:, 7].contiguous(),
+            torch.full((nq,), -inf, device="cuda"),
+            torch.full((nq,), inf, device="cuda")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [512, 1024])
+@pytest.mark.parametrize("lut_dtype", ["f32", "int8"])
+def test_cuda_search_kernels_int32_rows(m, lut_dtype):
+    """The four search passes over int32 code rows at K = 8 equal their
+    plain versions bit for bit: ragged shapes, duplicated rows (exact
+    ties), topk 1, 100 and 2048, the dense crude on and off, the refine
+    with many survivors, fewer than topk, none and all, the slab with
+    -1 holes and one row thinner than topk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    K = 8
+    quantized = lut_dtype == "int8"
+    codes, luts, fast = _problem(90 + m, 10_003, 13, K, m)
+    assert codes.dtype == torch.int32
+    lf, sc, of = stages.crude_lut_operands(luts, fast, quantized=quantized)
+    lut_slow = stages.slow_lut_operand(luts, fast)
+    for topk in (1, 100, 2048):
+        for want_crude in (True, False):
+            got = bs.crude_topk_cuda(codes, lf, topk, sc, of,
+                                     want_crude=want_crude)
+            want = bs.crude_topk_torch(codes, lf, topk, sc, of,
+                                       want_crude=want_crude)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
+    crude = bs.crude_topk_torch(codes, lf, 100, sc, of)[0]
+    for thr in _refine_thresholds(crude):
+        for topk in (1, 100, 2048):
+            got = bs.refine_topk_cuda(codes, lut_slow, crude, thr, topk)
+            want = bs.refine_topk_torch(codes, lut_slow, crude, thr, topk)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), topk
+    slab, ids, sluts, sfast = _slab(91 + m, 5, 5003, K, m)
+    lf, sc, of = stages.crude_lut_operands(sluts, sfast, quantized=quantized)
+    for topk in (1, 100, 2048):
+        got = bs.ivf_crude_topk_cuda(slab, ids, lf, topk, sc, of)
+        want = bs.ivf_crude_topk_torch(slab, ids, lf, topk, sc, of)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), topk
+    crude = want[0]
+    slow = stages.slow_lut_operand(sluts, sfast)
+    for thr in _refine_thresholds(crude):
+        for topk in (1, 100, 2048):
+            got = bs.ivf_refine_topk_cuda(slab, slow, crude, thr, topk)
+            want = bs.ivf_refine_topk_torch(slab, slow, crude, thr, topk)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), topk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k_f32,k_int8", WIDE_M)
+def test_cuda_search_kernels_widest_int32_codes(m, k_f32, k_int8):
+    """The widest int32 codes one block's shared memory serves: every
+    pass at K = k_f32 with f32 LUTs and both crude passes at K = k_int8
+    with int8 LUTs equal their plain versions bit for bit (topk 100 and
+    2048); one codebook more raises a ValueError naming shared memory
+    in each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, nq, nc = 3001, 3, 2500
+    for K, quantized in ((k_f32, False), (k_int8, True)):
+        codes, luts, fast = _problem(95 + K, n, nq, K, m)
+        slab, ids, sluts, sfast = _slab(96 + K, nq, nc, K, m)
+        lf, sc, of = stages.crude_lut_operands(luts, fast,
+                                               quantized=quantized)
+        slf, ssc, sof = stages.crude_lut_operands(sluts, sfast,
+                                                  quantized=quantized)
+        for topk in (100, 2048):
+            for got, want in (
+                    (bs.crude_topk_cuda(codes, lf, topk, sc, of),
+                     bs.crude_topk_torch(codes, lf, topk, sc, of)),
+                    (bs.ivf_crude_topk_cuda(slab, ids, slf, topk, ssc, sof),
+                     bs.ivf_crude_topk_torch(slab, ids, slf, topk, ssc,
+                                             sof))):
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (K, topk)
+        if not quantized:
+            crude = bs.crude_topk_torch(codes, lf, 100)[0]
+            scrude = bs.ivf_crude_topk_torch(slab, ids, slf, 100)[0]
+            thr = torch.sort(crude, dim=1).values[:, 300].contiguous()
+            sthr = torch.sort(scrude, dim=1).values[:, 300].contiguous()
+            slow = stages.slow_lut_operand(luts, fast)
+            sslow = stages.slow_lut_operand(sluts, sfast)
+            for topk in (100, 2048):
+                for got, want in (
+                        (bs.refine_topk_cuda(codes, slow, crude, thr, topk),
+                         bs.refine_topk_torch(codes, slow, crude, thr,
+                                              topk)),
+                        (bs.ivf_refine_topk_cuda(slab, sslow, scrude, sthr,
+                                                 topk),
+                         bs.ivf_refine_topk_torch(slab, sslow, scrude, sthr,
+                                                  topk))):
+                    torch.cuda.synchronize()
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (K, topk)
+        wide = torch.zeros((n, K + 1), dtype=torch.int32, device="cuda")
+        wslab = torch.zeros((nq, nc, K + 1), dtype=torch.int32,
+                            device="cuda")
+        lut = torch.zeros((nq, (K + 1) * m), device="cuda",
+                          dtype=torch.int8 if quantized else torch.float32)
+        with pytest.raises(ValueError, match="shared memory"):
+            bs.crude_topk_cuda(wide, lut, 20, sc, of)
+        with pytest.raises(ValueError, match="shared memory"):
+            bs.ivf_crude_topk_cuda(wslab, ids, lut, 20, sc, of)
+        if not quantized:
+            cr = torch.zeros((nq, n), device="cuda")
+            scr = torch.zeros((nq, nc), device="cuda")
+            t = torch.zeros((nq,), device="cuda")
+            with pytest.raises(ValueError, match="shared memory"):
+                bs.refine_topk_cuda(wide, lut, cr, t, 20)
+            with pytest.raises(ValueError, match="shared memory"):
+                bs.ivf_refine_topk_cuda(wslab, lut, scr, t, 20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["rising", "falling", "equal"])
+@pytest.mark.parametrize("lut_dtype", ["f32", "int8"])
+def test_cuda_slab_crude_adversarial_int32_rows(lut_dtype, order):
+    """The slab crude over int32 rows at m = 1024 on the adversarial
+    slabs of ``test_cuda_slab_crude_adversarial`` (a row all -1, a
+    700-column invalid prefix, 20% holes; nc 1024, 1025 and 5000; topk
+    1, 100 and 2048 or nc): equal to its plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    nq, m = 4, 1024
+    for nc in (1024, 1025, 5000):
+        r = np.arange(nc)
+        if order == "falling":
+            r = nc - 1 - r
+        elif order == "equal":
+            r = np.full(nc, 12345)
+        codes = np.stack([r // m % m, r % m], 1).astype(np.int32)
+        lut = (np.stack([float(m) * np.arange(m), np.arange(m)])
+               if lut_dtype == "f32"
+               else np.stack([np.arange(m) // 8 - 64, np.zeros(m)]))
+        slab = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(codes, (nq, nc, 2)))).cuda()
+        flat = np.tile(lut.reshape(1, 2 * m), (nq, 1))
+        if lut_dtype == "f32":
+            lf, sc, of = torch.from_numpy(flat.astype(np.float32)).cuda(), \
+                None, None
+        else:
+            lf = torch.from_numpy(flat.astype(np.int8)).cuda()
+            sc = torch.full((nq,), 0.5, device="cuda")
+            of = torch.linspace(-1.0, 1.0, nq, device="cuda")
+        rng = np.random.default_rng(nc)
+        ids = rng.integers(0, 1 << 30, size=(nq, nc)).astype(np.int32)
+        ids[0] = -1
+        ids[1, :700] = -1
+        ids[2, rng.random(nc) < 0.2] = -1
+        ids = torch.from_numpy(ids).cuda()
+        for topk in (1, 100, min(2048, nc)):
+            got = bs.ivf_crude_topk_cuda(slab, ids, lf, topk, sc, of)
+            want = bs.ivf_crude_topk_torch(slab, ids, lf, topk, sc, of)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (nc, topk)
+            assert bool(torch.isinf(got[1][0]).all())
+
+
+def _card_engine(kind, m=256):
+    """A small index of ``kind`` built on the card from a numpy seed,
+    served with no retries, and a query batch."""
+    from repro_torch.api import AnnEngine, ResilienceConfig
+    from repro_torch.index import make_index
+    rng = np.random.default_rng(11)
+    n, d, K = 6000, 16, 8
+    codes = rng.integers(0, m, size=(n, K)).astype(
+        np.uint8 if m <= 256 else np.int32)
+    C = (rng.standard_normal((K, m, d)) / np.sqrt(K)).astype(np.float32)
+    structure = (np.ones(d, bool), np.arange(K) < 2, np.float32(2.0))
+    opts = dict(device="cuda", topk=20)
+    if kind == "ivf":
+        emb = C[np.arange(K)[None, :], codes.astype(np.int64)].sum(axis=1)
+        opts.update(emb_db=emb, n_lists=16, n_probe=4, generator=0)
+    index = make_index(kind, codes, C, structure, **opts)
+    q = torch.from_numpy(rng.standard_normal((13, d)).astype(
+        np.float32)).cuda()
+    return AnnEngine(index, resilience=ResilienceConfig(max_retries=0)), q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [256, 1024])
+@pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
+def test_cuda_crude_rung_equals_full_path_candidates(kind, m):
+    """The crude rung on the card launches the crude kernel once (no
+    dense crude matrix, no refine) and serves bit for bit the crude top-k
+    that the plain versions compute on the same CUDA tensors: the
+    candidates the full path bootstraps its threshold from (ids through
+    the slab for IVF; FlatADC's crude rung is its full search)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.index.ivf import coarse_probe, gather_candidates
+    from repro_torch.kernels import build
+    from repro_torch.resilience import SearchBudget
+    engine, q = _card_engine(kind, m)
+    index = engine.index
+    engine.warm(13, budget=SearchBudget(allow_refine=False))
+    before = dict(build.LAUNCHES)
+    r = engine.search(q, budget=SearchBudget(allow_refine=False))
+    launched = {k: v - before[k] for k, v in build.LAUNCHES.items()
+                if v != before[k]}
+    assert r.meta.level_name == "crude" and r.meta.backend == "cuda"
+    assert launched == ({"ivf_crude_topk": 1} if kind == "ivf"
+                        else {"crude_topk": 1})
+    luts = build_lut(q, index.C)
+    fast = None if kind == "flat" else index.structure.fast_mask
+    lf, _, _ = stages.crude_lut_operands(luts, fast, quantized=False)
+    if kind == "ivf":
+        probes = coarse_probe(q, index.ivf.centroids, index.n_probe)
+        cand_ids, cand_codes = gather_candidates(
+            probes, index.ivf.lists, index.list_codes, 20)
+        _, vals, pos = bs.ivf_crude_topk_torch(cand_codes, cand_ids, lf, 20)
+        safe = torch.where(cand_ids >= 0, cand_ids,
+                           torch.zeros_like(cand_ids))
+        ids = safe.gather(1, pos.long())
+    else:
+        _, vals, ids = bs.crude_topk_torch(index.codes, lf, 20,
+                                           want_crude=False)
+    assert torch.equal(r.indices, ids) and torch.equal(r.distances, vals)
+    assert engine.stats["retries"] == 0 and engine.stats["failovers"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
+def test_cuda_filter_and_refine_cap_raise(kind):
+    """On the card ``filter`` and ``refine_cap`` raise the reference's
+    ``ValueError`` (the kernels cannot mask rows by predicate or compact
+    survivors), and the capped rung is not served."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.resilience import SearchBudget
+    engine, q = _card_engine(kind)
+    pred = torch.ones(engine.n, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="filtered search requires "
+                                         "backend='jnp'"):
+        engine.search(q, filter=pred)
+    with pytest.raises(ValueError, match="filtered search requires "
+                                         "backend='jnp'"):
+        engine.index.search(q, filter=pred)
+    if kind != "flat":
+        with pytest.raises(ValueError, match="filtered search requires"):
+            engine.index.search_crude(q, filter=pred)
+        with pytest.raises(ValueError, match="refine_cap compaction "
+                                             "requires backend='jnp'"):
+            dataclasses.replace(engine.index, refine_cap=64).search(q)
+    with pytest.raises(ValueError, match="not servable"):
+        engine.search(q, budget=SearchBudget(force_level="capped"))
+    assert "capped" not in engine._levels()

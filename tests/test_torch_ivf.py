@@ -471,13 +471,20 @@ def test_ivf_build_needs_embeddings_and_raises_unported_options():
     index = make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
                        n_lists=4, n_probe=2, kmeans_iters=3, topk=TOPK)
     q = np.zeros((2, D), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.search_crude(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index.search(_t(q), filter=np.ones(300, bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the pipelined executor (item 7) and sharding (item 10) still raise
+    # by name; search_crude, filter and refine_cap serve on the CPU
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
-                   n_lists=4, refine_cap=20)
+                   n_lists=4, pipeline="tiles")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        index.shard(None)
+    assert index.search_crude(_t(q)).indices.shape == (2, TOPK)
+    assert index.search(_t(q), filter=np.ones(300, bool)) \
+        .indices.shape == (2, TOPK)
+    capped = make_index("ivf", codes, C, structure, device="cpu",
+                        emb_db=emb, n_lists=4, n_probe=2, refine_cap=20,
+                        topk=TOPK)
+    assert capped.search(_t(q)).indices.shape == (2, TOPK)
     with pytest.raises(ValueError, match="n_probe"):
         make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
                    n_lists=4, n_probe=9, topk=TOPK).search(_t(q))

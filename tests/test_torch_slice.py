@@ -188,17 +188,26 @@ def test_tiled_engine_is_batching_invariant(artifacts, kind):
 
 
 def test_unported_options_raise_by_name(artifacts):
+    """The pipelined executor (queue 1, item 7) and sharded serving
+    (item 10) still raise by name; ``filter``, ``search_crude`` and
+    ``refine_cap`` serve on the CPU (their parity with the reference is
+    in ``test_torch_filtered.py`` and ``test_torch_ladder.py``)."""
     _, cells = artifacts
     path, _ = cells[("two-step", "f32", 8)]
     engine = load_ann_engine(path, device="cpu")
     q = np.zeros((2, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.search(q, filter=np.ones(N, bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.index.search_crude(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_ann_engine(path, device="cpu",
-                        overrides={"index.refine_cap": 64})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
         load_ann_engine(path, device="cpu",
                         overrides={"serve.pipeline": "tiles"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        engine.index.shard(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        engine.mark_shard_dead(0)
+    r = engine.search(q, filter=np.ones(N, bool))
+    assert r.indices.shape == (2, TOPK) and bool((r.indices >= 0).all())
+    r = engine.index.search_crude(torch.from_numpy(q))
+    assert r.indices.shape == (2, TOPK) and float(r.pass_rate) == 0.0
+    capped = load_ann_engine(path, device="cpu",
+                             overrides={"index.refine_cap": 64})
+    assert capped.index.refine_cap == 64
+    assert capped.search(q).indices.shape == (2, TOPK)
