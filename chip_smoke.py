@@ -117,7 +117,31 @@ or outside a checkout of the repository.  Phases:
    a two-step f32 and an IVF f32 index at K = 8, m = 1024 (32 MB of
    int32 codes) saved, loaded with ``load_ann_engine`` and served in
    64-query tiles equal to the plain composition, and the slab kernels
-   timed on the wide IVF cell's served slab.
+   timed on the wide IVF cell's served slab;
+10. (run after phase 8) the request path on the two-step-f32 and
+   ivf-f32 artifacts: each served pipelined (``serve.pipeline =
+   "tiles"``, tile 64, no engine tiling: the crude pass of tile t+1 on
+   one CUDA stream beside the refine of tile t on another) at every
+   rung the card offers (two-step {full, crude}, IVF {full, probes =
+   n_probe 4, crude}) over 3 batches of 512 queries and one of 200,
+   each result equal to the ``pipeline="off"``, ``query_tile=64``
+   engine's ids and distances bit for bit and to all four fields
+   (ids, distances, pass_rate, avg_ops) of the sequential index over
+   the same 64-query blocks (``serve.query_chunk = 64``), with the
+   same launch counts; ms per 512-query batch pipelined and off (CUDA
+   events and the host clock) and peak MB; with ``--profile``, the
+   device idle share of both and the streams the crude and refine
+   scan kernels ran on (two expected); then both artifacts as tenants
+   of one ``ServingLoop`` (32-row lanes, 2 ms window, warmed once)
+   under ``run_open_loop`` of ``make_workload`` (1000 requests/s for
+   2 s, seed 0, 1, 2 or 4 rows a request), every response equal to
+   the tenant engine's direct call bit for bit, with each tenant's
+   requests, p50 and p99 ms, requests/s, mean fill and mean queue ms
+   (and, not a gate, how many also equal a direct call with the
+   engine's tiling off, at the request's own row count);
+   and ``eval.ground_truth`` of 64 queries over the 1M decoded points
+   on the card (ms), its ids equal to the CPU ``exact_search`` wherever
+   the k-th and (k+1)-th distances are more than 1e-5 relative apart.
 
 Every engine but the fault check's runs with
 ``resilience.max_retries = 0``, so a kernel failure raises at once; at
@@ -126,7 +150,8 @@ the end none may have retried or failed over.
 With ``--profile DIR``, five more tiles of the two-step-f32 and ivf-f32
 cells run under ``torch.profiler`` after their counted windows: the
 device busy time and idle share per tile, the ops by device and host
-time, and a Chrome trace per cell in DIR.
+time, and a Chrome trace per cell in DIR; phase 10 traces its 512-query
+batches pipelined and off the same way.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2070,6 +2095,349 @@ def wide_cells(seed, n, batches, workdir):
     return total
 
 
+# ------------------------------------------ phase 10: the request path ----
+
+# the pipelined cells: batches of 512 queries (8 tiles of 64, the
+# reference's block_q) and one ragged batch of 200 (3 tiles and 8 rows)
+PIPE_BATCH, PIPE_RAGGED = 512, 200
+# the serving-loop cell: Poisson arrivals at 1000 requests/s for 2 s
+# (seed 0), 1, 2 or 4 rows a request, over two tenants whose lanes take
+# the config's serve.batch_tile (32 rows) and serve.batch_window_ms (2)
+LOOP = dict(rate_hz=1000.0, duration_s=2.0, seed=0, rows=(1, 2, 4),
+            pool=256)
+GT_QUERIES = 64
+SCALARS = ("pass_rate", "avg_ops")
+TOPK_FIELDS = ("indices", "distances")
+
+
+def same_result(a, b, fields=TOPK_FIELDS + SCALARS) -> bool:
+    import torch
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def served_window(engine, batches, budget):
+    """Serve ``batches`` at one rung with the launch counts reset before
+    and read after.  Returns (results, ms per batch (events), ms per
+    batch (host clock), launches, peak MB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    results = [engine.search(q, budget=budget) for q in batches]
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    return (results, start.elapsed_time(end) / len(batches), host_ms,
+            read_launches(), torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def trace_kernels(trace_path):
+    """(name, stream, start us, end us) of every device kernel in a
+    Chrome trace written by ``torch.profiler``."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = []
+    for ev in events:
+        if ev.get("cat") == "kernel" and "dur" in ev:
+            stream = ev.get("args", {}).get("stream", ev.get("tid"))
+            out.append((ev.get("name", ""), stream, float(ev["ts"]),
+                        float(ev["ts"]) + float(ev["dur"])))
+    return out
+
+
+def busy_union_us(kernels) -> float:
+    """Device time covered by at least one kernel (us)."""
+    busy, end = 0.0, float("-inf")
+    for _, _, s, e in sorted(kernels, key=lambda k: k[2]):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def profile_pipelined(label, engine, batches, out_dir, card):
+    """With ``--profile``: ``torch.profiler`` over ``batches`` served by
+    one engine.  Prints the device's idle share (1 - the time at least
+    one kernel ran / host wall), the time two kernels ran at once, and
+    the streams the crude and refine scan kernels ran on.  Returns the
+    number of distinct streams of those kernels (None when the trace
+    shows no kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in batches:
+            engine.search(q)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"profile_{label}.json")
+    prof.export_chrome_trace(path)
+    kernels = trace_kernels(path)
+    if not kernels:
+        log(f"profile {label}: the trace holds no device kernel: idle "
+            f"share and streams not measured")
+        return None
+    busy = busy_union_us(kernels)
+    total = sum(e - s for _, _, s, e in kernels)
+    crude = sorted({s for n, s, _, _ in kernels if "crude_scan_kernel" in n})
+    refine = sorted({s for n, s, _, _ in kernels
+                     if "refine_scan_kernel" in n})
+    n_b = len(batches)
+    log(f"profile {label}: {wall_us / 1e3 / n_b:.4f} ms per batch (host "
+        f"clock, profiler on), device busy {busy / 1e3 / n_b:.4f} ms per "
+        f"batch, idle share {1.0 - busy / wall_us:.4f}, kernels "
+        f"overlapping {(total - busy) / 1e3 / n_b:.4f} ms per batch, "
+        f"{len(kernels) / n_b:.1f} kernels per batch; crude scan kernel "
+        f"on streams {crude}, refine scan kernel on streams {refine}: "
+        f"{len(set(crude) | set(refine))} distinct; {card}")
+    return len(set(crude) | set(refine))
+
+
+def pipelined_cell(name, path, *, seed, batches, card, profile_dir=None):
+    """Phase 10, one saved cell served pipelined (``serve.pipeline =
+    "tiles"``, tile 64, no engine tiling) at every rung the card offers,
+    over ``batches`` batches of 512 queries and one of 200.  Each result
+    must equal the ``pipeline="off"``, ``query_tile=64`` engine's ids and
+    distances bit for bit, and all four fields of the sequential index
+    over the same 64-query blocks (``serve.query_chunk = 64``), whose
+    pass_rate and avg_ops fold the same per-query vector; the launch
+    counts must equal the tiled engine's.  Returns the pipelined
+    windows' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.resilience import SearchBudget
+
+    piped = engine_load(f"pipelined-{name}", path, {
+        "serve.pipeline": "tiles", "serve.pipeline_tile": TILE})
+    off = engine_load(f"off-{name}", path, query_tile=TILE)
+    chunked = engine_load(f"off-chunked-{name}", path,
+                          {"serve.query_chunk": TILE})
+    d = int(piped.index.C.shape[-1])
+    rng = np.random.default_rng(seed + 23)
+
+    def batch(nq):
+        return torch.from_numpy(rng.standard_normal(
+            (nq, d), dtype=np.float32)).cuda()
+
+    full = [batch(PIPE_BATCH) for _ in range(batches)]
+    ragged = batch(PIPE_RAGGED)
+    total = {k: 0 for k in read_launches()}
+    for level in piped._levels():
+        budget = SearchBudget(force_level=level)
+        for e in (piped, off, chunked):
+            e.warm(PIPE_BATCH, budget=budget)
+        res_p, ms_p, host_p, l_p, mb_p = served_window(piped, full, budget)
+        res_o, ms_o, host_o, l_o, mb_o = served_window(off, full, budget)
+        want = rung_launches(piped._level_index(level, budget), level,
+                             batches * PIPE_BATCH // TILE)
+        check(l_p == want and l_o == want,
+              f"pipelined {name} {level}: launches {l_p} (off {l_o}) != "
+              f"{want}")
+        for k in total:
+            total[k] += l_p[k]
+        res_p.append(piped.search(ragged, budget=budget))
+        res_o.append(off.search(ragged, budget=budget))
+        seq = [chunked.search(q, budget=budget) for q in full + [ragged]]
+        topk_equal = all(same_result(p, o, TOPK_FIELDS)
+                         for p, o in zip(res_p, res_o))
+        seq_equal = all(same_result(p, s) for p, s in zip(res_p, seq))
+        tiled_scalars = all(same_result(p, o, SCALARS)
+                            for p, o in zip(res_p, res_o))
+        check(all(r.meta.level_name == level and r.meta.backend == "cuda"
+                  for r in res_p), f"pipelined {name} {level}: meta "
+                                   f"{res_p[-1].meta}")
+        check(tuple(res_p[-1].indices.shape) == (PIPE_RAGGED, TOPK),
+              f"pipelined {name}: ragged shape "
+              f"{tuple(res_p[-1].indices.shape)}")
+        check(topk_equal, f"pipelined {name} {level}: ids or distances != "
+                          f"the pipeline=off, query_tile=64 engine")
+        check(seq_equal, f"pipelined {name} {level}: result != the "
+                         f"sequential index over the same tiles")
+        r = res_p[0]
+        log(f"pipelined {name} rung {level}: {PIPE_BATCH}-query batch "
+            f"{ms_p:.4f} ms (events), {host_p:.4f} ms (host clock), "
+            f"pipelined; {ms_o:.4f} / {host_o:.4f} ms off (query_tile "
+            f"64); {batches} batches each, then one of {PIPE_RAGGED}; "
+            f"launches {l_p} (off {l_o}); peak {mb_p:.1f} MB pipelined, "
+            f"{mb_o:.1f} MB off; pass_rate={float(r.pass_rate):.6f} "
+            f"avg_ops={float(r.avg_ops):.6f}; ids and distances equal to "
+            f"the off engine: {topk_equal}; all four fields equal to the "
+            f"sequential index over the same tiles (query_chunk 64): "
+            f"{seq_equal}; pass_rate and avg_ops equal to the off "
+            f"engine's tile means too: {tiled_scalars}; {card}")
+    if profile_dir:
+        streams = profile_pipelined(f"pipelined_{name}", piped, full,
+                                    profile_dir, card)
+        profile_pipelined(f"off_{name}", off, full, profile_dir, card)
+        check(streams in (None, 2), f"pipelined {name}: the crude and "
+                                    f"refine kernels ran on {streams} "
+                                    f"streams, not 2")
+    return total
+
+
+def serving_loop_cell(paths, *, card):
+    """Phase 10, the serving loop: the two-step-f32 and ivf-f32
+    artifacts as two tenants of one ``ServingLoop`` (lanes of the
+    config's 32 rows and 2 ms; each engine's ``query_tile`` pinned to
+    32), warmed once, under ``run_open_loop`` of ``make_workload``
+    (1000 requests/s for 2 s, seed 0, 1, 2 or 4 rows a request).  Every
+    response must equal its tenant engine's direct call on the request's
+    rows bit for bit.  Returns the window's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import (ServingLoop, load_tenants,
+                                   make_workload, run_open_loop, summarize)
+
+    names = ("two-step-f32", "ivf-f32")
+    tenants = load_tenants([f"{n}={paths[n]}" for n in names],
+                           overrides=NO_RETRIES)
+    for n, t in tenants.items():
+        ENGINES.append((f"loop-{n}", t.engine.stats))
+    rng = np.random.default_rng(LOOP["seed"])
+    pools = {n: rng.standard_normal((LOOP["pool"], t.d)).astype(np.float32)
+             for n, t in sorted(tenants.items())}
+    work = make_workload(pools, LOOP["rate_hz"], LOOP["duration_s"],
+                         rng=rng, rows_choices=LOOP["rows"])
+    with ServingLoop(tenants) as loop:
+        for n in tenants:
+            loop.warm(n)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        records = run_open_loop(loop, work)
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        stats = dict(loop.stats)
+    tiles = {t.engine.query_tile for t in tenants.values()}
+    check(tiles == {32}, f"serving loop: engine tiles {tiles}")
+    check(launches["crude_topk"] == launches["refine_topk"] > 0
+          and launches["ivf_crude_topk"] == launches["ivf_refine_topk"] > 0
+          and launches["crude_topk"] + launches["ivf_crude_topk"]
+          == stats["batches"],
+          f"serving loop: launches {launches} for {stats['batches']} "
+          f"flushes")
+    mismatched = 0
+    for spec, rec in zip(work, records):
+        direct = tenants[spec.tenant].engine.search(spec.queries)
+        mismatched += not (
+            np.array_equal(rec["ids"], direct.indices.cpu().numpy())
+            and np.array_equal(rec["dists"], direct.distances.cpu().numpy()))
+    check(len(records) == len(work) and mismatched == 0,
+          f"serving loop: {mismatched} of {len(records)} responses differ "
+          f"from the direct engine call")
+    rows = sum(spec.queries.shape[0] for spec in work)
+    log(f"serving loop: {len(work)} requests ({rows} rows) at "
+        f"{LOOP['rate_hz']:.0f}/s for {LOOP['duration_s']} s "
+        f"(seed {LOOP['seed']}), wall {wall_s:.4f} s; {stats['batches']} "
+        f"flushes (full {stats['flush_full']}, window "
+        f"{stats['flush_window']}, drain {stats['flush_drain']}); "
+        f"launches {launches}; every response equal to the direct engine "
+        f"call bit for bit: {mismatched == 0}; {card}")
+    for n in names:
+        s = summarize([r for r in records if r["tenant"] == n],
+                      wall_s=wall_s)
+        log(f"serving loop tenant {n}: {s['requests']} requests, "
+            f"{s['rows']} rows, p50 {s['p50_ms']:.4f} ms, p99 "
+            f"{s['p99_ms']:.4f} ms (host clock, submit to result), "
+            f"{s['qps']:.2f} requests/s, mean fill "
+            f"{s['mean_batch_fill']:.4f}, mean queue "
+            f"{s['mean_queue_ms']:.4f} ms, degraded rate "
+            f"{s['degraded_rate']:.4f}; {card}")
+    # a finding, not a gate: the same direct calls with the engines'
+    # tiling off, each request at its own row count
+    differ = {"ids": 0, "dists": 0, "either": 0}
+    for t in tenants.values():
+        t.engine.query_tile = None
+    for spec, rec in zip(work, records):
+        direct = tenants[spec.tenant].engine.search(spec.queries)
+        ids = not np.array_equal(rec["ids"], direct.indices.cpu().numpy())
+        dists = not np.array_equal(rec["dists"],
+                                   direct.distances.cpu().numpy())
+        differ["ids"] += ids
+        differ["dists"] += dists
+        differ["either"] += ids or dists
+    log(f"serving loop with query_tile=None (each direct call at the "
+        f"request's own row count): {len(records) - differ['either']} of "
+        f"{len(records)} responses equal bit for bit; ids differ in "
+        f"{differ['ids']}, distances in {differ['dists']}")
+    return launches
+
+
+def ground_truth_cell(paths, *, seed, card):
+    """Phase 10, the eval core: ``ground_truth`` of 64 queries over the
+    1M decoded points of the two-step-f32 cell on the card (ms, host
+    clock, second call), its ids equal to the CPU ``exact_search``
+    wherever the k-th and (k+1)-th distances are more than 1e-5 relative
+    apart, and the served cell's recall@100 against it."""
+    import numpy as np
+    import torch
+    from repro_torch import eval as ev
+    from repro_torch.core.codebooks import decode
+    from repro_torch.index.base import exact_search
+
+    engine = engine_load("ground-truth", paths["two-step-f32"],
+                         query_tile=TILE)
+    index = engine.index
+    db = decode(index.C, index.codes)
+    rng = np.random.default_rng(seed + 29)
+    q = rng.standard_normal((GT_QUERIES, db.shape[1])).astype(np.float32)
+    ev.ground_truth(db, q, TOPK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dist = ev.ground_truth(db, q, TOPK)
+    gt_ms = (time.perf_counter() - t0) * 1e3
+    want_i, want_d = exact_search(torch.from_numpy(q), db.cpu(), TOPK + 1,
+                                  query_chunk=GT_QUERIES)
+    want_i, want_d = want_i.numpy(), want_d.numpy()
+    gap = np.abs(np.diff(want_d, axis=1)) > 1e-5 * np.abs(want_d[:, 1:])
+    clear = gap[:, :TOPK].copy()
+    clear[:, 1:] &= gap[:, :TOPK - 1]
+    same = np.array_equal(ids[clear], want_i[:, :TOPK][clear])
+    dist_ok = np.allclose(dist, want_d[:, :TOPK], rtol=1e-5,
+                          atol=1e-5 * float(np.abs(want_d).max()))
+    check(same and dist_ok and clear.mean() > 0.5,
+          f"ground truth: ids equal where apart {same}, distances "
+          f"{dist_ok}, {clear.mean():.4f} of the slots apart")
+    served = engine.search(torch.from_numpy(q).cuda())
+    recall = ev.recall_at_k(served.indices.cpu().numpy(), ids, TOPK)
+    log(f"ground truth: {GT_QUERIES} queries over {db.shape[0]} points, "
+        f"d={db.shape[1]}, k={TOPK}: {gt_ms:.4f} ms on the card (host "
+        f"clock, second call, to numpy); ids equal to the CPU exact_search "
+        f"on the {clear.mean():.4f} of slots whose rank is apart by > 1e-5: "
+        f"{same}; distances to rtol 1e-5: {dist_ok}; the two-step-f32 "
+        f"cell's recall@{TOPK} against it {recall:.4f} (random "
+        f"codebooks: the LUT sum leaves out the cross-codebook terms of "
+        f"the decoded point's norm); {card}")
+
+
+def request_path(paths, *, seed, batches, card, profile_dir=None):
+    """Phase 10: the pipelined cells, the serving loop and the ground
+    truth.  Returns the launches of the pipelined and loop windows."""
+    total = {k: 0 for k in read_launches()}
+    for launches in (
+            pipelined_cell("two-step-f32", paths["two-step-f32"], seed=seed,
+                           batches=batches, card=card,
+                           profile_dir=profile_dir),
+            pipelined_cell("ivf-f32", paths["ivf-f32"], seed=seed,
+                           batches=batches, card=card,
+                           profile_dir=profile_dir),
+            serving_loop_cell(paths, card=card)):
+        for k in total:
+            total[k] += launches[k]
+    ground_truth_cell(paths, seed=seed, card=card)
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2079,8 +2447,9 @@ def main(argv=None) -> int:
                     help="64-query batches served per cell")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also trace 5 served tiles of the two-step-f32 "
-                         "and ivf-f32 cells with torch.profiler (Chrome "
-                         "traces to DIR)")
+                         "and ivf-f32 cells, and phase 10's pipelined and "
+                         "off batches, with torch.profiler (Chrome traces "
+                         "to DIR)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2149,6 +2518,8 @@ def main(argv=None) -> int:
             add(ladder_cell(name, paths[name], seed=args.seed,
                             batches=args.batches, card=card))
         fault_check(paths["two-step-f32"], seed=args.seed)
+        add(request_path(paths, seed=args.seed, batches=args.batches,
+                         card=card, profile_dir=args.profile))
         add(wide_cells(args.seed, args.n, args.batches, workdir))
         enc_total, records["icm_encode"] = encode_and_grow(args.seed, args.n,
                                                            workdir)

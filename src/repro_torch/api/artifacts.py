@@ -205,15 +205,7 @@ class Artifacts:
         ``resilience.verify_artifacts``."""
         cls._recover(path)
         manifest = cls._read_manifest(path)
-        config = ICQConfig.from_dict(manifest["config"])
-        if overrides:
-            if "index.kind" in overrides and overrides["index.kind"] \
-                    != config.index.kind:
-                raise ArtifactError(
-                    f"index.kind cannot be overridden on load (artifacts "
-                    f"at {path} store a {config.index.kind!r} index); "
-                    "rebuild and re-save to change the index kind")
-            config = config.with_overrides(overrides)
+        config = cls._config_of(manifest, path, overrides)
         if verify_checksums is None:
             verify_checksums = config.resilience.verify_artifacts
         arrays = cls._load_arrays(path, manifest,
@@ -223,6 +215,27 @@ class Artifacts:
             index = cls._load_index(arrays, manifest["index"], config,
                                     device)
         return cls(config=config, index=index, manifest=manifest)
+
+    @classmethod
+    def load_config(cls, path: str, *, overrides=None) -> ICQConfig:
+        """The embedded config of an artifact directory, with
+        ``overrides`` applied, without reading its arrays."""
+        cls._recover(path)
+        return cls._config_of(cls._read_manifest(path), path, overrides)
+
+    @staticmethod
+    def _config_of(manifest: Dict[str, Any], path: str,
+                   overrides) -> ICQConfig:
+        config = ICQConfig.from_dict(manifest["config"])
+        if overrides:
+            if "index.kind" in overrides and overrides["index.kind"] \
+                    != config.index.kind:
+                raise ArtifactError(
+                    f"index.kind cannot be overridden on load (artifacts "
+                    f"at {path} store a {config.index.kind!r} index); "
+                    "rebuild and re-save to change the index kind")
+            config = config.with_overrides(overrides)
+        return config
 
     @staticmethod
     def _recover(path: str) -> None:

@@ -29,7 +29,10 @@ serve on a CUDA device, and a fallback would hide a failing kernel.  So
 ``resilience.pallas_failover`` is kept for ``config_hash`` parity and
 has no effect here; ``stats["failovers"]`` stays 0.  Sharded engines
 (``mesh=``, ``mark_shard_dead``, coverage < 1) wait for ROADMAP.md queue
-1 item 10, the pipelined executor (``serve.pipeline``) for item 7.
+1 item 10.  A pipelined index (``serve.pipeline``, queue 1 item 7,
+done) is served like any other; with ``query_tile`` set the engine cuts
+the batch first, so the index sees one tile a call and has nothing to
+overlap, as in the reference.
 """
 from __future__ import annotations
 
@@ -94,6 +97,9 @@ class AnnEngine:
         self.backend = resolve_backend(index.backend, index.device)
         self._ema: Dict[str, float] = {}     # rung -> warm wall-ms EMA
         self._warmed: set = set()            # rung variants served once
+        # rung variants of the index, by their options: one instance a
+        # variant, so a pipelined variant keeps its plans and streams
+        self._variants: Tuple[Any, Dict[tuple, Any]] = (index, {})
         self.stats: Dict[str, int] = {"degraded": 0, "failovers": 0,
                                       "retries": 0}
 
@@ -121,7 +127,8 @@ class AnnEngine:
 
     def _level_index(self, level: str, budget: SearchBudget):
         """The index variant serving one rung (``dataclasses.replace``:
-        the tensors are shared, only options change)."""
+        the tensors are shared, only options change), made once per
+        option set for the index being served."""
         idx = self.index
         repl: Dict[str, Any] = {}
         if level == "capped":
@@ -138,7 +145,15 @@ class AnnEngine:
             n_probe = max(1, n_probe)
             if n_probe != int(idx.n_probe):
                 repl["n_probe"] = n_probe
-        return dataclasses.replace(idx, **repl) if repl else idx
+        if not repl:
+            return idx
+        if self._variants[0] is not idx:
+            self._variants = (idx, {})
+        key = tuple(sorted(repl.items()))
+        variants = self._variants[1]
+        if key not in variants:
+            variants[key] = dataclasses.replace(idx, **repl)
+        return variants[key]
 
     def _estimate_ms(self, level: str, order: Tuple[str, ...]):
         """Expected warm wall time of a rung: its own EMA, else the best
@@ -369,8 +384,8 @@ def build_ann_engine(codes, C, structure, *, topk: int = 50,
     a ``torch.Generator`` or an int seed for the coarse k-means).
     ``block_q``/``block_n`` are validated and kept in the config only:
     the CUDA kernels choose their own tiles.  ``mesh`` raises (sharded
-    serving, queue 1 item 10), and so does ``pipeline != "off"`` (the
-    pipelined executor, item 7)."""
+    serving, queue 1 item 10); ``pipeline`` and ``pipeline_tile`` select
+    the pipelined executor (item 7, done)."""
     if mesh is not None:
         raise _sharding_not_ported("build_ann_engine(mesh=)")
     # n_lists / n_probe describe an IVF only; the flat kinds ignore them

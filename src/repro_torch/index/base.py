@@ -1,7 +1,8 @@
 """Index-layer foundations (twin of ``repro.index.base``): the
 ``SearchResult`` record, the ADC LUT primitives, int8 LUT calibration,
 the nibble LUT sum, device and backend resolution, the row filter of a
-filtered search, and query chunking.
+filtered search, query chunking, and the brute-force ground truth
+(``exact_search``).
 
 LUTs: ``T[k, j] = ||c_{k,j}||^2 - 2 <q, c_{k,j}>``; ranking by their
 masked sums is ranking by L2 distance after ICQ's hard projection.
@@ -313,3 +314,38 @@ def chunked_over_queries(fn, queries: torch.Tensor,
     padded = F.pad(queries, (0, 0, 0, (-nq) % query_chunk))
     outs = [fn(block) for block in torch.split(padded, query_chunk)]
     return tuple(torch.cat(parts)[:nq] for parts in zip(*outs))
+
+
+# ---------------------------------------------------------- ground truth ----
+
+def exact_search(queries: torch.Tensor, X: torch.Tensor, topk: int, *,
+                 query_chunk: Optional[int] = None, filter=None):
+    """Brute-force L2 ground truth.  queries (nq, d), X (n, d) f32 on one
+    device -> (ids (nq, topk) int32, squared distances (nq, topk) f32).
+
+    The distance matrix ``||q||^2 - 2 q.x + ||x||^2`` is one full-f32
+    matrix product (``full_f32_matmul``: no TF32 on the card), bounded
+    to (``query_chunk``, n) blocks; the top-k is the two-key order,
+    lowest index first among ties, as ``lax.top_k``.  ``filter``: an
+    optional (n,) bool row predicate; excluded rows rank +inf, and when
+    fewer than ``topk`` rows pass, the tail slots report id -1 at
+    distance +inf."""
+    from repro_torch.kernels.stages import topk_two_key
+
+    xsq = torch.sum(torch.square(X), -1)[None, :]
+    pred = None if filter is None else as_filter(filter, X.shape[0],
+                                                 X.device)
+
+    def one_block(qs):
+        with full_f32_matmul():
+            d2 = torch.sum(torch.square(qs), -1)[:, None] - 2.0 * qs @ X.T \
+                + xsq
+        if pred is not None:
+            d2 = torch.where(pred[None, :], d2,
+                             torch.full_like(d2, float("inf")))
+        dist, idx = topk_two_key(d2, topk)
+        if pred is not None:
+            idx = mask_filtered_ids(idx, dist)
+        return idx, dist
+
+    return chunked_over_queries(one_block, queries, query_chunk)

@@ -24,11 +24,17 @@ bootstrap from it), and on the card they raise the reference's
 ``ValueError``: the kernels cannot mask rows by predicate or compact
 survivors, as the fused Pallas kernels cannot.
 
+Each engine is a phase pair (``two_step_phase_fns``, ``adc_phase_fns``
+over ``two_step_phase_env``): the sequential searches compose it block
+by block, and ``pipeline="tiles" | "auto"`` runs the same pair through
+the pipelined executor (``index/pipelined.py``; queue 1 item 7, done):
+on the card the crude phase of tile t+1 on one CUDA stream beside the
+refine of tile t on another.
+
 ``add`` grows an index without retraining: the new rows are encoded by
 the ICM engine (``core.encode.icm_encode``, the ICM kernel on the card)
 and appended, so a grown index equals one built over all rows at once.
-``pipeline`` (queue 1, item 7) and ``shard`` (item 10) raise, naming
-their ROADMAP.md item.
+``shard`` (queue 1, item 10) raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ from repro_torch.index.base import (SearchResult, as_filter, as_torch,
                                     build_lut, chunked_over_queries,
                                     mask_filtered_ids, resolve_backend,
                                     resolve_code_bits, resolve_lut_dtype)
+from repro_torch.index.pipelined import (compose, maybe_pipelined,
+                                         resolve_pipeline)
 from repro_torch.kernels.stages import (CrudeStage, RefineStage,
                                         ThresholdStage, topk_two_key,
                                         two_step_stages, widen_codes)
@@ -125,18 +133,43 @@ def capped_refine(luts, codes, crude, thr, topk: int, cap: int, *,
 
 
 # -------------------------------------------------------------- engines ----
+# Each engine is a phase pair over ``(qs | carry, env)``: ``env`` is the
+# borrowed index state (``*_phase_env``), the carry the crude phase's
+# outputs that the refine phase is the last reader of.  The sequential
+# searches below compose a pair block by block (``chunked_over_queries``);
+# ``index/pipelined.py`` runs the same pair over query tiles, the crude
+# phase of tile t+1 beside the refine phase of tile t.  Single-phase
+# engines (one-step ADC, the crude rung) have no refine phase.
 
-def _adc_block(qs, codes, C, *, topk: int, quantized: bool,
-               code_bits: int, pred=None):
+def _adc_phase(qs, env, *, topk: int, quantized: bool, code_bits: int,
+               has_filter: bool = False):
     """One-step ADC over one query block: a single crude stage over the
     full tables (with a filter, its dense crude matrix ranked here).
-    Returns (ids (nq, topk), dist (nq, topk))."""
+    Returns (ids (nq, topk), dist (nq, topk), pf = 0)."""
+    pred = env["pred"] if has_filter else None
     stage = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits,
                        want_crude=pred is not None)
-    out = stage(codes, build_lut(qs, C), None)
+    out = stage(env["codes"], build_lut(qs, env["C"]), None)
+    zeros = torch.zeros(qs.shape[0], dtype=torch.float32, device=qs.device)
     if pred is None:
-        return out.cand_idx, out.cand_vals
-    return _dense_topk(out.crude, topk, pred)
+        return out.cand_idx, out.cand_vals, zeros
+    return (*_dense_topk(out.crude, topk, pred), zeros)
+
+
+def adc_phase_fns(*, topk: int, quantized: bool = False, code_bits: int = 8,
+                  has_filter: bool = False):
+    """One-step ADC as a phase pair: the whole search is its crude
+    phase, so the refine slot is None."""
+    return functools.partial(_adc_phase, topk=topk, quantized=quantized,
+                             code_bits=code_bits,
+                             has_filter=has_filter), None
+
+
+def adc_result(idx, dist, pf, *, K: int) -> SearchResult:
+    """One-step ADC's accounting: K LUT adds a point, everything
+    'refined'."""
+    one = torch.ones((), dtype=torch.float32, device=idx.device)
+    return SearchResult(idx, dist, one * K, one)
 
 
 def adc_search(queries, codes, C, topk: int, *, backend: str = "auto",
@@ -149,26 +182,36 @@ def adc_search(queries, codes, C, topk: int, *, backend: str = "auto",
     id -1 at distance +inf."""
     be = resolve_backend(backend, codes.device)
     pred = _check_filter(filter, codes.shape[0], be, codes.device)
-    K = C.shape[0]
-    fn = functools.partial(
-        _adc_block, codes=codes, C=C, topk=topk,
-        quantized=resolve_lut_dtype(lut_dtype) == "int8",
+    crude_fn, _ = adc_phase_fns(
+        topk=topk, quantized=resolve_lut_dtype(lut_dtype) == "int8",
         code_bits=_check_fastscan_geometry(code_bits, C.shape[1]),
-        pred=pred)
-    idx, vals = chunked_over_queries(fn, queries, query_chunk)
-    one = torch.ones((), dtype=torch.float32, device=codes.device)
-    return SearchResult(idx, vals, one * K, one)
+        has_filter=pred is not None)
+    env = {"codes": codes, "C": C, "pred": pred}
+    out = chunked_over_queries(functools.partial(crude_fn, env=env),
+                               queries, query_chunk)
+    return adc_result(*out, K=C.shape[0])
+
+
+def two_step_phase_env(codes, C, structure, pred=None) -> dict:
+    """The borrowed index state of the flat two-step phases: stored
+    codes, codebooks, the ICQ structure's fast mask and margin, and the
+    optional filter predicate."""
+    return {"codes": codes, "C": C, "fast": structure.fast_mask,
+            "sigma": structure.sigma, "pred": pred}
 
 
 def _flat_crude_phase(qs, env, *, topk: int, quantized: bool,
-                      code_bits: int):
-    """Phase 1: per-query LUTs and the crude stage.  Returns the carry
-    (luts, crude, cand_vals, cand_idx) the refine phase reads."""
+                      code_bits: int, out=None, before_launch=None):
+    """Phase 1: per-query LUTs and the crude stage (``out``, optional,
+    receives the dense crude matrix; ``before_launch``, optional, runs
+    just before the kernel).  Returns the carry (luts, crude,
+    cand_vals, cand_idx) the refine phase reads."""
     crude_stage, _, _ = two_step_stages(topk=topk, quantized=quantized,
                                         code_bits=code_bits)
     luts = build_lut(qs, env["C"])                       # (nq, K, m)
-    out = crude_stage(env["codes"], luts, env["fast"])
-    return luts, out.crude, out.cand_vals, out.cand_idx
+    res = crude_stage(env["codes"], luts, env["fast"], out=out,
+                      before_launch=before_launch)
+    return luts, res.crude, res.cand_vals, res.cand_idx
 
 
 def _pass_frac(passed):
@@ -177,38 +220,40 @@ def _pass_frac(passed):
 
 
 def _flat_refine_phase(carry, env, *, topk: int, quantized: bool,
-                       code_bits: int):
+                       code_bits: int, before_launch=None):
     """Phases 2 and 3: the threshold bootstrap from the crude top-k and
-    the refine stage.  Returns (idx, dist, passed_frac (nq,))."""
+    the refine stage (``before_launch``, optional, runs just before its
+    kernel).  Returns (idx, dist, passed_frac (nq,))."""
     luts, crude, cand_vals, cand_idx = carry
     codes, fast = env["codes"], env["fast"]
     _, tstage, rstage = two_step_stages(topk=topk, quantized=quantized,
                                         code_bits=code_bits)
     thr = tstage.from_candidates(luts, codes, cand_vals, cand_idx, fast,
                                  env["sigma"])
-    idx, dist, passed = rstage(codes, luts, crude, thr, fast)
+    idx, dist, passed = rstage(codes, luts, crude, thr, fast,
+                               before_launch=before_launch)
     return idx, dist, _pass_frac(passed)
 
 
-def _two_step_block(qs, env, *, topk: int, quantized: bool, code_bits: int):
-    """The crude and refine phases back to back over one query block."""
-    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits)
-    return _flat_refine_phase(_flat_crude_phase(qs, env, **opts), env,
-                              **opts)
-
-
-def _two_step_block_dense(qs, env, *, topk: int, quantized: bool,
-                          code_bits: int, refine_cap: Optional[int],
-                          pred=None):
-    """The reference's jnp two-step over one query block, for the plain
-    versions' options: the dense crude matrix with filtered rows +inf,
-    the bootstrap from it (``ThresholdStage.from_dense``), then the
-    refine stage or, with ``refine_cap``, the survivor compaction."""
-    codes, fast = env["codes"], env["fast"]
+def _flat_dense_crude_phase(qs, env, *, topk: int, quantized: bool,
+                            code_bits: int, has_filter: bool):
+    """The reference's jnp crude phase, for the plain versions' options:
+    the dense crude matrix with filtered rows +inf.  Returns the carry
+    (luts, crude)."""
     luts = build_lut(qs, env["C"])
     crude = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits)(
-        codes, luts, fast).crude
-    crude = _masked_crude(crude, pred)
+        env["codes"], luts, env["fast"]).crude
+    return luts, _masked_crude(crude, env["pred"] if has_filter else None)
+
+
+def _flat_dense_refine_phase(carry, env, *, topk: int, quantized: bool,
+                             code_bits: int, refine_cap: Optional[int],
+                             has_filter: bool):
+    """The reference's jnp refine phase: the bootstrap from the dense
+    crude matrix (``ThresholdStage.from_dense``), then the refine stage
+    or, with ``refine_cap``, the survivor compaction."""
+    luts, crude = carry
+    codes, fast = env["codes"], env["fast"]
     thr = ThresholdStage(topk=topk, quantized=quantized,
                          code_bits=code_bits).from_dense(
         luts, codes, crude, fast, env["sigma"])
@@ -219,9 +264,67 @@ def _two_step_block_dense(qs, env, *, topk: int, quantized: bool,
         idx, dist = capped_refine(luts, codes, crude, thr, topk, refine_cap,
                                   code_bits=code_bits)
         passed = crude < thr[:, None]
-    if pred is not None:
+    if has_filter:
         idx = mask_filtered_ids(idx, dist)
     return idx, dist, _pass_frac(passed)
+
+
+def _flat_crude_only_phase(qs, env, *, topk: int, quantized: bool,
+                           code_bits: int, has_filter: bool = False):
+    """The crude rung over one query block: the crude stage with the
+    refine dropped.  Unfiltered, its candidate list (no dense matrix);
+    filtered (plain versions), the dense crude matrix masked and
+    ranked.  Returns (idx, dist, pf = 0)."""
+    pred = env["pred"] if has_filter else None
+    stage = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits,
+                       want_crude=pred is not None)
+    out = stage(env["codes"], build_lut(qs, env["C"]), env["fast"])
+    zeros = torch.zeros(qs.shape[0], dtype=torch.float32, device=qs.device)
+    if pred is None:
+        return out.cand_idx, out.cand_vals, zeros
+    return (*_dense_topk(out.crude, topk, pred), zeros)
+
+
+def two_step_phase_fns(*, topk: int, quantized: bool = False,
+                       code_bits: int = 8, refine_cap: Optional[int] = None,
+                       crude_only: bool = False, has_filter: bool = False):
+    """The flat two-step engine as a ``(crude_fn, refine_fn)`` phase
+    pair over ``(qs | carry, env)``.  ``crude_only`` is the crude rung
+    (refine_fn None; crude_fn returns the final (idx, dist, pf));
+    ``filter`` and ``refine_cap`` (plain versions only) take the
+    reference's dense jnp composition; otherwise the kernels'
+    composition, whose crude phase takes ``out=`` for its dense crude
+    matrix and both phases a ``before_launch`` hook.  ``refine_cap``
+    arrives clamped into [topk, n]."""
+    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits)
+    if crude_only:
+        return functools.partial(_flat_crude_only_phase,
+                                 has_filter=has_filter, **opts), None
+    if has_filter or refine_cap is not None:
+        return (functools.partial(_flat_dense_crude_phase,
+                                  has_filter=has_filter, **opts),
+                functools.partial(_flat_dense_refine_phase,
+                                  refine_cap=refine_cap,
+                                  has_filter=has_filter, **opts))
+    return (functools.partial(_flat_crude_phase, **opts),
+            functools.partial(_flat_refine_phase, **opts))
+
+
+def two_step_result(idx, dist, pf, *, K: int, kf) -> SearchResult:
+    """Fold per-query pass fractions into pass_rate and Average Ops
+    (|K_fast| + pass_rate * (K - |K_fast|))."""
+    pass_rate = torch.mean(pf)
+    return SearchResult(idx, dist, kf + pass_rate * (K - kf), pass_rate)
+
+
+def crude_result(idx, dist, pf, *, kf) -> SearchResult:
+    """The crude rung's accounting: |K_fast| adds a point, nothing
+    refined."""
+    return SearchResult(idx, dist, kf, torch.mean(pf))
+
+
+def _fast_count(structure) -> torch.Tensor:
+    return torch.sum(structure.fast_mask.to(torch.float32))
 
 
 def two_step_search(queries, codes, C, structure, topk: int, *,
@@ -247,38 +350,15 @@ def two_step_search(queries, codes, C, structure, topk: int, *,
     be = resolve_backend(backend, codes.device)
     pred = _check_filter(filter, codes.shape[0], be, codes.device)
     _check_refine_cap(refine_cap, be)
-    K = C.shape[0]
-    fast = structure.fast_mask
-    kf = torch.sum(fast.to(torch.float32))
-    env = {"codes": codes, "C": C, "fast": fast, "sigma": structure.sigma}
-    opts = dict(env=env, topk=topk,
-                quantized=resolve_lut_dtype(lut_dtype) == "int8",
-                code_bits=_check_fastscan_geometry(code_bits, C.shape[1]))
-    if pred is None and refine_cap is None:
-        fn = functools.partial(_two_step_block, **opts)
-    else:
-        cap = (None if refine_cap is None
-               else min(max(refine_cap, topk), codes.shape[0]))
-        fn = functools.partial(_two_step_block_dense, refine_cap=cap,
-                               pred=pred, **opts)
-    idx, dist, pf = chunked_over_queries(fn, queries, query_chunk)
-    pass_rate = torch.mean(pf)
-    return SearchResult(idx, dist, kf + pass_rate * (K - kf), pass_rate)
-
-
-def _two_step_crude_block(qs, env, *, topk: int, quantized: bool,
-                          code_bits: int, pred=None):
-    """The crude rung over one query block: the crude stage with the
-    refine dropped.  Unfiltered, its candidate list (no dense matrix);
-    filtered (plain versions), the dense crude matrix masked and
-    ranked.  Returns (idx, dist, pf = 0)."""
-    stage = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits,
-                       want_crude=pred is not None)
-    out = stage(env["codes"], build_lut(qs, env["C"]), env["fast"])
-    zeros = torch.zeros(qs.shape[0], dtype=torch.float32, device=qs.device)
-    if pred is None:
-        return out.cand_idx, out.cand_vals, zeros
-    return (*_dense_topk(out.crude, topk, pred), zeros)
+    cap = (None if refine_cap is None
+           else min(max(refine_cap, topk), codes.shape[0]))
+    fns = two_step_phase_fns(
+        topk=topk, quantized=resolve_lut_dtype(lut_dtype) == "int8",
+        code_bits=_check_fastscan_geometry(code_bits, C.shape[1]),
+        refine_cap=cap, has_filter=pred is not None)
+    env = two_step_phase_env(codes, C, structure, pred)
+    out = chunked_over_queries(compose(*fns, env), queries, query_chunk)
+    return two_step_result(*out, K=C.shape[0], kf=_fast_count(structure))
 
 
 def two_step_crude_search(queries, codes, C, structure, topk: int, *,
@@ -293,16 +373,13 @@ def two_step_crude_search(queries, codes, C, structure, topk: int, *,
     ``filter`` (plain versions only) masks rows before the top-k."""
     be = resolve_backend(backend, codes.device)
     pred = _check_filter(filter, codes.shape[0], be, codes.device)
-    fast = structure.fast_mask
-    env = {"codes": codes, "C": C, "fast": fast}
-    fn = functools.partial(
-        _two_step_crude_block, env=env, topk=topk,
-        quantized=resolve_lut_dtype(lut_dtype) == "int8",
+    fns = two_step_phase_fns(
+        topk=topk, quantized=resolve_lut_dtype(lut_dtype) == "int8",
         code_bits=_check_fastscan_geometry(code_bits, C.shape[1]),
-        pred=pred)
-    idx, dist, pf = chunked_over_queries(fn, queries, query_chunk)
-    return SearchResult(idx, dist, torch.sum(fast.to(torch.float32)),
-                        torch.mean(pf))
+        crude_only=True, has_filter=pred is not None)
+    env = two_step_phase_env(codes, C, structure, pred)
+    out = chunked_over_queries(compose(*fns, env), queries, query_chunk)
+    return crude_result(*out, kf=_fast_count(structure))
 
 
 # -------------------------------------------------------------- indexes ----
@@ -326,7 +403,10 @@ class _FlatBase:
     """Shared options, ``add`` and the not-yet-ported verbs of the
     port's indexes (flat, two-step and IVF).  The CUDA kernels choose
     their own tiles, so the reference's ``block_q``/``block_n``/
-    ``interpret`` options have no counterpart."""
+    ``interpret`` options have no counterpart.  ``pipeline`` ("off" |
+    "tiles" | "auto") routes ``search`` and ``search_crude`` through the
+    pipelined executor (``index/pipelined.py``) in tiles of
+    ``pipeline_tile`` queries."""
     topk: int = 50
     backend: str = "auto"
     query_chunk: Optional[int] = None
@@ -336,9 +416,7 @@ class _FlatBase:
     pipeline_tile: Optional[int] = None
 
     def __post_init__(self):
-        if self.pipeline != "off":
-            raise _not_ported(f"serve.pipeline={self.pipeline!r} (the "
-                              "pipelined executor)", "queue 1, item 7")
+        resolve_pipeline(self.pipeline)
 
     @property
     def device(self) -> torch.device:
@@ -375,8 +453,11 @@ class FlatADC(_FlatBase):
 
     def search(self, queries, topk: Optional[int] = None, *,
                filter=None) -> SearchResult:
-        return adc_search(queries, self.codes, self.C,
-                          topk if topk is not None else self.topk,
+        k = topk if topk is not None else self.topk
+        res = maybe_pipelined(self, queries, k, filter=filter)
+        if res is not None:
+            return res
+        return adc_search(queries, self.codes, self.C, k,
                           backend=self.backend, query_chunk=self.query_chunk,
                           lut_dtype=self.lut_dtype, code_bits=self.code_bits,
                           filter=filter)
@@ -403,9 +484,12 @@ class TwoStep(_FlatBase):
 
     def search(self, queries, topk: Optional[int] = None, *,
                filter=None) -> SearchResult:
+        k = topk if topk is not None else self.topk
+        res = maybe_pipelined(self, queries, k, filter=filter)
+        if res is not None:
+            return res
         return two_step_search(queries, self.codes, self.C, self.structure,
-                               topk if topk is not None else self.topk,
-                               backend=self.backend,
+                               k, backend=self.backend,
                                query_chunk=self.query_chunk,
                                refine_cap=self.refine_cap,
                                lut_dtype=self.lut_dtype,
@@ -415,9 +499,15 @@ class TwoStep(_FlatBase):
                      filter=None) -> SearchResult:
         """The crude floor of the degradation ladder: the fast-subset
         crude ranking, equal bit for bit to the crude top-k the full
-        path bootstraps from."""
+        path bootstraps from.  Under a pipeline, the single-phase
+        pipeline (the refine dropped)."""
+        k = topk if topk is not None else self.topk
+        res = maybe_pipelined(self, queries, k, filter=filter,
+                              crude_only=True)
+        if res is not None:
+            return res
         return two_step_crude_search(
-            queries, self.codes, self.C, self.structure,
-            topk if topk is not None else self.topk, backend=self.backend,
+            queries, self.codes, self.C, self.structure, k,
+            backend=self.backend,
             query_chunk=self.query_chunk, lut_dtype=self.lut_dtype,
             code_bits=self.code_bits, filter=filter)

@@ -32,8 +32,11 @@ refine); the ladder's probes rung is ``search`` at a reduced
 jnp-engine options, served by the plain versions on the CPU through the
 reference's jnp composition (filtered candidates invalid in the slab,
 the bootstrap from the dense slab crude) and refused on the card with
-the reference's ``ValueError``.  ``pipeline`` (queue 1, item 7) and
-``shard`` (item 10) raise, naming their ROADMAP.md item.
+the reference's ``ValueError``.  Every search is the phase pair of
+``ivf_phase_fns`` over ``ivf_phase_env``; ``pipeline="tiles" | "auto"``
+runs it through the pipelined executor (``index/pipelined.py``; queue 1
+item 7, done), each ``n_probe`` with a plan of its own.  ``shard``
+(item 10) raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ from repro_torch.index.base import (SearchResult, as_torch, build_lut,
                                     resolve_lut_dtype)
 from repro_torch.index.flat import (_check_fastscan_geometry, _check_filter,
                                     _check_refine_cap, _encode_new_rows,
-                                    _FlatBase, capped_refine)
+                                    _fast_count, _FlatBase, capped_refine)
+from repro_torch.index.pipelined import compose, maybe_pipelined
 from repro_torch.kernels.stages import (CrudeStage, RefineStage,
                                         ThresholdStage, topk_two_key,
                                         two_step_stages)
@@ -192,24 +196,39 @@ def gather_candidates(probes, lists, list_codes, topk: int):
     return cand_ids.contiguous(), cand_codes.contiguous()
 
 
+def ivf_phase_env(codes, C, structure, ivf: IVFIndex, *, list_codes,
+                  pred=None) -> dict:
+    """The borrowed index state of every IVF phase: codes, codebooks,
+    the ICQ structure's fast mask and margin, the coarse centroids, the
+    lists and their in-list codes slab, and the optional filter
+    predicate."""
+    return {"codes": codes, "C": C, "fast": structure.fast_mask,
+            "sigma": structure.sigma, "centroids": ivf.centroids,
+            "lists": ivf.lists, "list_codes": list_codes, "pred": pred}
+
+
 def _ivf_crude_phase(qs, env, *, topk: int, n_probe: int, quantized: bool,
-                     code_bits: int):
-    """Probe, gather and the slab crude stage over one query block.
-    Returns the carry the refine phase reads."""
+                     code_bits: int, out=None, before_launch=None):
+    """Probe, gather and the slab crude stage over one query block
+    (``out``, optional, receives the dense slab crude matrix;
+    ``before_launch``, optional, runs just before the kernel).  Returns
+    the carry the refine phase reads."""
     crude_stage, _, _ = two_step_stages(topk=topk, quantized=quantized,
                                         code_bits=code_bits)
     luts = build_lut(qs, env["C"])                        # (nq, K, m)
     probes = coarse_probe(qs, env["centroids"], n_probe)
     cand_ids, cand_codes = gather_candidates(probes, env["lists"],
                                              env["list_codes"], topk)
-    out = crude_stage.slab(cand_codes, cand_ids, luts, env["fast"])
-    return luts, out.crude, out.cand_vals, out.cand_idx, cand_codes, cand_ids
+    res = crude_stage.slab(cand_codes, cand_ids, luts, env["fast"], out=out,
+                           before_launch=before_launch)
+    return luts, res.crude, res.cand_vals, res.cand_idx, cand_codes, cand_ids
 
 
 def _ivf_refine_phase(carry, env, *, topk: int, quantized: bool,
-                      code_bits: int):
-    """Threshold bootstrap and the slab refine stage.  Returns (ids
-    (nq, topk), dist (nq, topk), n_cand (nq,), n_pass (nq,))."""
+                      code_bits: int, before_launch=None):
+    """Threshold bootstrap and the slab refine stage (``before_launch``,
+    optional, runs just before its kernel).  Returns (ids (nq, topk),
+    dist (nq, topk), n_cand (nq,), n_pass (nq,))."""
     luts, crude, cand_vals, cand_pos, cand_codes, cand_ids = carry
     _, tstage, rstage = two_step_stages(topk=topk, quantized=quantized,
                                         code_bits=code_bits)
@@ -218,19 +237,12 @@ def _ivf_refine_phase(carry, env, *, topk: int, quantized: bool,
     thr = tstage.from_slab_candidates(luts, cand_codes, cand_vals, cand_pos,
                                       env["fast"], env["sigma"])
     ids, dist, passed = rstage.slab(cand_codes, luts, crude, thr,
-                                    env["fast"], safe)
+                                    env["fast"], safe,
+                                    before_launch=before_launch)
     # counts are exact in any order
     n_cand = valid.sum(dim=1).to(torch.float32)
     n_pass = passed.sum(dim=1).to(torch.float32)
     return ids, dist, n_cand, n_pass
-
-
-def _ivf_block(qs, env, *, topk: int, n_probe: int, quantized: bool,
-               code_bits: int):
-    """The crude and refine phases back to back over one query block."""
-    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits)
-    return _ivf_refine_phase(_ivf_crude_phase(qs, env, n_probe=n_probe,
-                                              **opts), env, **opts)
 
 
 def _filtered_slab(qs, env, *, topk: int, n_probe: int, pred):
@@ -249,20 +261,32 @@ def _filtered_slab(qs, env, *, topk: int, n_probe: int, pred):
     return cand_ids, cand_codes, safe, valid
 
 
-def _ivf_block_dense(qs, env, *, topk: int, n_probe: int, quantized: bool,
-                     code_bits: int, refine_cap: Optional[int], pred=None):
-    """The reference's jnp IVF two-step over one query block, for the
-    plain versions' options: filtered candidates invalid (+inf crude),
-    the bootstrap from the dense slab crude
-    (``ThresholdStage.from_dense_slab``), then the slab refine or, with
-    ``refine_cap``, the survivor compaction (clamped into [topk, nc])."""
-    fast = env["fast"]
+def _ivf_dense_crude_phase(qs, env, *, topk: int, n_probe: int,
+                           quantized: bool, code_bits: int,
+                           has_filter: bool):
+    """The reference's jnp IVF crude phase, for the plain versions'
+    options: probe and gather with filtered candidates invalid (+inf
+    crude), and the dense slab crude.  Returns the carry (luts, crude,
+    cand_codes, safe, valid)."""
     luts = build_lut(qs, env["C"])
     cand_ids, cand_codes, safe, valid = _filtered_slab(
-        qs, env, topk=topk, n_probe=n_probe, pred=pred)
+        qs, env, topk=topk, n_probe=n_probe,
+        pred=env["pred"] if has_filter else None)
     crude = CrudeStage(topk=topk, quantized=quantized,
                        code_bits=code_bits).slab(cand_codes, cand_ids, luts,
-                                                 fast).crude
+                                                 env["fast"]).crude
+    return luts, crude, cand_codes, safe, valid
+
+
+def _ivf_dense_refine_phase(carry, env, *, topk: int, quantized: bool,
+                            code_bits: int, refine_cap: Optional[int],
+                            has_filter: bool):
+    """The reference's jnp IVF refine phase: the bootstrap from the dense
+    slab crude (``ThresholdStage.from_dense_slab``), then the slab refine
+    or, with ``refine_cap``, the survivor compaction (clamped into
+    [topk, nc])."""
+    luts, crude, cand_codes, safe, valid = carry
+    fast = env["fast"]
     thr = ThresholdStage(topk=topk, quantized=quantized,
                          code_bits=code_bits).from_dense_slab(
         luts, cand_codes, crude, fast, env["sigma"])
@@ -275,18 +299,20 @@ def _ivf_block_dense(qs, env, *, topk: int, n_probe: int, quantized: bool,
         pos, dist = capped_refine(luts, cand_codes, crude, thr, topk, cap,
                                   code_bits=code_bits)
         ids = safe.gather(1, pos)
-    if pred is not None:
+    if has_filter:
         ids = mask_filtered_ids(ids, dist)
     return (ids, dist, valid.sum(dim=1).to(torch.float32),
             passed.sum(dim=1).to(torch.float32))
 
 
-def _ivf_crude_block(qs, env, *, topk: int, n_probe: int, quantized: bool,
-                     code_bits: int, pred=None):
+def _ivf_crude_only_phase(qs, env, *, topk: int, n_probe: int,
+                          quantized: bool, code_bits: int,
+                          has_filter: bool = False):
     """The crude rung over one query block: probe, gather and the slab
     crude stage, its top-k of slab positions mapped to ids (the
     reference's ``safe[pos]``); no refine.  Returns (ids, dist, n_cand,
     n_pass = 0)."""
+    pred = env["pred"] if has_filter else None
     luts = build_lut(qs, env["C"])
     cand_ids, cand_codes, safe, valid = _filtered_slab(
         qs, env, topk=topk, n_probe=n_probe, pred=pred)
@@ -300,6 +326,31 @@ def _ivf_crude_block(qs, env, *, topk: int, n_probe: int, quantized: bool,
     return ids, out.cand_vals, n_cand, torch.zeros_like(n_cand)
 
 
+def ivf_phase_fns(*, topk: int, n_probe: int, quantized: bool = False,
+                  code_bits: int = 8, refine_cap: Optional[int] = None,
+                  crude_only: bool = False, has_filter: bool = False):
+    """The IVF search split at the crude/refine boundary: returns
+    ``(crude_fn, refine_fn)`` over ``(qs | carry, env)``, the pair both
+    the sequential searches and the pipelined executor compose.
+    ``crude_only`` is the single-phase crude rung (refine_fn None);
+    ``filter`` and ``refine_cap`` (plain versions only) take the
+    reference's dense jnp composition; otherwise the kernels', whose
+    crude phase takes ``out=`` for its dense slab crude matrix and both
+    phases a ``before_launch`` hook."""
+    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits)
+    if crude_only:
+        return functools.partial(_ivf_crude_only_phase, n_probe=n_probe,
+                                 has_filter=has_filter, **opts), None
+    if has_filter or refine_cap is not None:
+        return (functools.partial(_ivf_dense_crude_phase, n_probe=n_probe,
+                                  has_filter=has_filter, **opts),
+                functools.partial(_ivf_dense_refine_phase,
+                                  refine_cap=refine_cap,
+                                  has_filter=has_filter, **opts))
+    return (functools.partial(_ivf_crude_phase, n_probe=n_probe, **opts),
+            functools.partial(_ivf_refine_phase, **opts))
+
+
 def ivf_ops_result(ids, dist, n_cand, n_pass, *, n: int, n_lists: int, K,
                    kf) -> SearchResult:
     """Fold per-query candidate and pass counts into the generalized
@@ -310,6 +361,37 @@ def ivf_ops_result(ids, dist, n_cand, n_pass, *, n: int, n_lists: int, K,
     coarse = n_lists / n
     avg_ops = coarse * K / 2 + probed_frac * (kf + pass_rate * (K - kf))
     return SearchResult(ids, dist, avg_ops, pass_rate)
+
+
+def check_n_probe(ivf: IVFIndex, n_probe: int) -> int:
+    """Checks ``n_probe`` against the list count; returns the count."""
+    n_lists = ivf.lists.shape[0]
+    if not 1 <= n_probe <= n_lists:
+        raise ValueError(f"n_probe={n_probe} outside [1, {n_lists}]")
+    return n_lists
+
+
+def _ivf_search(queries, codes, C, structure, ivf: IVFIndex, topk: int,
+                n_probe: int, *, list_codes, backend: str,
+                query_chunk: Optional[int], lut_dtype: str, code_bits: int,
+                filter, refine_cap=None, crude_only: bool = False):
+    """The IVF phase pair composed block by block and folded into the
+    Average-Ops accounting."""
+    be = resolve_backend(backend, codes.device)
+    pred = _check_filter(filter, codes.shape[0], be, codes.device)
+    _check_refine_cap(refine_cap, be)
+    n_lists = check_n_probe(ivf, n_probe)
+    fns = ivf_phase_fns(
+        topk=topk, n_probe=n_probe,
+        quantized=resolve_lut_dtype(lut_dtype) == "int8",
+        code_bits=_check_fastscan_geometry(code_bits, C.shape[1]),
+        refine_cap=refine_cap, crude_only=crude_only,
+        has_filter=pred is not None)
+    env = ivf_phase_env(codes, C, structure, ivf, list_codes=list_codes,
+                        pred=pred)
+    out = chunked_over_queries(compose(*fns, env), queries, query_chunk)
+    return ivf_ops_result(*out, n=codes.shape[0], n_lists=n_lists,
+                          K=C.shape[0], kf=_fast_count(structure))
 
 
 def ivf_two_step_search(queries, codes, C, structure, ivf: IVFIndex,
@@ -325,38 +407,11 @@ def ivf_two_step_search(queries, codes, C, structure, ivf: IVFIndex,
     ``code_bits=4`` serves nibble-packed codes.  ``refine_cap`` and
     ``filter`` (an (n,) bool row predicate; absent slots are id -1 at
     distance +inf) are served by the plain versions only."""
-    be = resolve_backend(backend, codes.device)
-    pred = _check_filter(filter, codes.shape[0], be, codes.device)
-    _check_refine_cap(refine_cap, be)
-    opts, n_lists, kf = _ivf_engine(
-        C, structure, ivf, list_codes, topk=topk, n_probe=n_probe,
-        lut_dtype=lut_dtype, code_bits=code_bits)
-    if pred is None and refine_cap is None:
-        fn = functools.partial(_ivf_block, **opts)
-    else:
-        fn = functools.partial(_ivf_block_dense, refine_cap=refine_cap,
-                               pred=pred, **opts)
-    ids, dist, n_cand, n_pass = chunked_over_queries(fn, queries,
-                                                     query_chunk)
-    return ivf_ops_result(ids, dist, n_cand, n_pass, n=codes.shape[0],
-                          n_lists=n_lists, K=C.shape[0], kf=kf)
-
-
-def _ivf_engine(C, structure, ivf: IVFIndex, list_codes, *, topk: int,
-                n_probe: int, lut_dtype: str, code_bits: int):
-    """The keyword operands of an IVF block function, the list count and
-    |K_fast|; checks ``n_probe``."""
-    n_lists = ivf.lists.shape[0]
-    if not 1 <= n_probe <= n_lists:
-        raise ValueError(f"n_probe={n_probe} outside [1, {n_lists}]")
-    fast = structure.fast_mask
-    env = {"C": C, "fast": fast, "sigma": structure.sigma,
-           "centroids": ivf.centroids, "lists": ivf.lists,
-           "list_codes": list_codes}
-    opts = dict(env=env, topk=topk, n_probe=n_probe,
-                quantized=resolve_lut_dtype(lut_dtype) == "int8",
-                code_bits=_check_fastscan_geometry(code_bits, C.shape[1]))
-    return opts, n_lists, torch.sum(fast.to(torch.float32))
+    return _ivf_search(queries, codes, C, structure, ivf, topk, n_probe,
+                       list_codes=list_codes, backend=backend,
+                       query_chunk=query_chunk, lut_dtype=lut_dtype,
+                       code_bits=code_bits, filter=filter,
+                       refine_cap=refine_cap)
 
 
 def ivf_crude_search(queries, codes, C, structure, ivf: IVFIndex,
@@ -370,16 +425,10 @@ def ivf_crude_search(queries, codes, C, structure, ivf: IVFIndex,
     crude top-k the full path bootstraps from.  ``avg_ops`` drops the
     pass-rate term (nothing refined).  ``filter`` as in
     ``ivf_two_step_search`` (plain versions only)."""
-    be = resolve_backend(backend, codes.device)
-    pred = _check_filter(filter, codes.shape[0], be, codes.device)
-    opts, n_lists, kf = _ivf_engine(
-        C, structure, ivf, list_codes, topk=topk, n_probe=n_probe,
-        lut_dtype=lut_dtype, code_bits=code_bits)
-    fn = functools.partial(_ivf_crude_block, pred=pred, **opts)
-    ids, dist, n_cand, n_pass = chunked_over_queries(fn, queries,
-                                                     query_chunk)
-    return ivf_ops_result(ids, dist, n_cand, n_pass, n=codes.shape[0],
-                          n_lists=n_lists, K=C.shape[0], kf=kf)
+    return _ivf_search(queries, codes, C, structure, ivf, topk, n_probe,
+                       list_codes=list_codes, backend=backend,
+                       query_chunk=query_chunk, lut_dtype=lut_dtype,
+                       code_bits=code_bits, filter=filter, crude_only=True)
 
 
 # --------------------------------------------------------------- index ----
@@ -417,9 +466,13 @@ class IVFTwoStep(_FlatBase):
 
     def search(self, queries, topk: Optional[int] = None, *,
                filter=None) -> SearchResult:
+        k = topk if topk is not None else self.topk
+        res = maybe_pipelined(self, queries, k, filter=filter)
+        if res is not None:
+            return res
         return ivf_two_step_search(
             queries, self.codes, self.C, self.structure, self.ivf,
-            topk if topk is not None else self.topk, self.n_probe,
+            k, self.n_probe,
             list_codes=self.list_codes, backend=self.backend,
             query_chunk=self.query_chunk, refine_cap=self.refine_cap,
             lut_dtype=self.lut_dtype, code_bits=self.code_bits,
@@ -430,10 +483,15 @@ class IVFTwoStep(_FlatBase):
                      filter=None) -> SearchResult:
         """The crude floor of the degradation ladder: probe and the slab
         crude ranking with no refine, equal bit for bit to the full
-        path's crude top-k.  ``n_probe`` overrides the index's."""
+        path's crude top-k.  ``n_probe`` overrides the index's (under a
+        pipeline, with a plan of its own)."""
+        k = topk if topk is not None else self.topk
+        res = maybe_pipelined(self, queries, k, filter=filter,
+                              crude_only=True, n_probe=n_probe)
+        if res is not None:
+            return res
         return ivf_crude_search(
-            queries, self.codes, self.C, self.structure, self.ivf,
-            topk if topk is not None else self.topk,
+            queries, self.codes, self.C, self.structure, self.ivf, k,
             n_probe if n_probe is not None else self.n_probe,
             list_codes=self.list_codes, backend=self.backend,
             query_chunk=self.query_chunk, lut_dtype=self.lut_dtype,

@@ -31,7 +31,10 @@ as two roundings), so on the same inputs kernel and plain version agree
 bit for bit.
 ``*_cuda`` check their operands, allocate the outputs, launch on the
 current stream without synchronising, count the launch in
-``build.LAUNCHES`` and raise if the launch failed.  Each kernel writes
+``build.LAUNCHES`` and raise if the launch failed.  The two crude
+passes take an optional ``out=`` for their dense crude matrix (the
+pipelined executor's preallocated crude carry); the plain versions copy
+into it.  Each kernel writes
 one sorted candidate list per query and block, each block keeping a
 running top-k over its chunks; ``_merge_lists`` merges them two by two
 down to the top-k.
@@ -85,13 +88,25 @@ def _check_slab_topk(nc: int, topk: int):
            "the slab to >= topk columns")
 
 
+def _into(out, crude: torch.Tensor) -> torch.Tensor:
+    """The dense crude matrix, copied into ``out`` when one is given."""
+    return crude if out is None else out.copy_(crude)
+
+
+def _check_out(out, want_crude: bool):
+    _check(out is None or want_crude,
+           "out= holds the dense crude matrix; it needs want_crude=True")
+
+
 def crude_topk_torch(codes, lut_flat, topk: int, lut_scale=None,
                      lut_offset=None, *, want_crude: bool = True,
-                     code_bits: int = 8):
+                     code_bits: int = 8, out=None):
     """Plain version of the crude kernel.  codes (n, Kc) uint8 (or
     wider for m > 256), lut_flat (nq, K*m) f32 or int8 with
     ``lut_scale``/``lut_offset`` (nq,) f32 -> (crude (nq, n) f32 | None,
-    vals (nq, topk) f32, idx (nq, topk) int32)."""
+    vals (nq, topk) f32, idx (nq, topk) int32).  ``out`` (nq, n) f32
+    receives the crude matrix."""
+    _check_out(out, want_crude)
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
     K, m = resolve_kernel_code_bits(code_bits, codes.shape[1],
                                     lut_flat.shape[1])
@@ -103,7 +118,7 @@ def crude_topk_torch(codes, lut_flat, topk: int, lut_scale=None,
     else:
         crude = _flat_lut_sum(cols, lut_flat, K, m, torch.float32)
     vals, idx = topk_two_key(crude, topk)
-    return (crude if want_crude else None), vals, idx
+    return (_into(out, crude) if want_crude else None), vals, idx
 
 
 def refine_topk_torch(codes, lut_flat, crude, thresholds, topk: int, *,
@@ -124,13 +139,13 @@ def refine_topk_torch(codes, lut_flat, crude, thresholds, topk: int, *,
 
 def ivf_crude_topk_torch(cand_codes, cand_ids, lut_flat, topk: int,
                          lut_scale=None, lut_offset=None, *,
-                         code_bits: int = 8):
+                         code_bits: int = 8, out=None):
     """Plain version of the slab crude kernel.  cand_codes (nq, nc, Kc)
     uint8 stored rows (or wider for m > 256), cand_ids (nq, nc) int32
     (-1 = invalid), lut_flat (nq, K*m) f32 or int8 with
     ``lut_scale``/``lut_offset`` (nq,) f32 -> (crude (nq, nc) f32 with
     invalid columns +inf, vals (nq, topk) f32, pos (nq, topk) int32
-    slab positions)."""
+    slab positions).  ``out`` (nq, nc) f32 receives the crude matrix."""
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
     nq, nc, Kc = cand_codes.shape
     _check_slab_topk(nc, topk)
@@ -145,7 +160,7 @@ def ivf_crude_topk_torch(cand_codes, cand_ids, lut_flat, topk: int,
     crude = torch.where(cand_ids >= 0, crude,
                         torch.full_like(crude, float("inf")))
     vals, pos = topk_two_key(crude, topk)
-    return crude, vals, pos
+    return _into(out, crude), vals, pos
 
 
 def ivf_refine_topk_torch(cand_codes, lut_flat, crude, thresholds,
@@ -276,9 +291,10 @@ def _plan(lib, name: str, *args) -> int:
 
 def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
                     lut_offset=None, *, want_crude: bool = True,
-                    code_bits: int = 8):
+                    code_bits: int = 8, out=None):
     """Launch the crude kernel; same operands and outputs as
-    ``crude_topk_torch``."""
+    ``crude_topk_torch`` (the kernel writes every entry of ``out``)."""
+    _check_out(out, want_crude)
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
     code_bytes = _check_codes(codes, 2, code_bits)
     n, Kc = codes.shape
@@ -291,11 +307,14 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
     if quantized:
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
+    if out is not None:
+        _check_operand(out, "out", (nq, n), torch.float32, dev)
     lib, stream = _launch_env(dev)
     grid = _plan(lib, "icq_crude_plan", n, Kc, nq, Km, int(quantized),
                  int(code_bits == 4), code_bytes, topk)
-    crude = (torch.empty((nq, n), dtype=torch.float32, device=dev)
-             if want_crude else None)
+    crude = out
+    if crude is None and want_crude:
+        crude = torch.empty((nq, n), dtype=torch.float32, device=dev)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_crude_topk(
         _ptr(codes), _ptr(lut_flat), _ptr(lut_scale), _ptr(lut_offset),
@@ -335,9 +354,10 @@ def refine_topk_cuda(codes, lut_flat, crude, thresholds, topk: int, *,
 
 def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
                         lut_scale=None, lut_offset=None, *,
-                        code_bits: int = 8):
+                        code_bits: int = 8, out=None):
     """Launch the slab crude kernel; same operands and outputs as
-    ``ivf_crude_topk_torch``."""
+    ``ivf_crude_topk_torch`` (the kernel writes every entry of
+    ``out``)."""
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
     code_bytes = _check_codes(cand_codes, 3, code_bits)
     nq, nc, Kc = cand_codes.shape
@@ -351,10 +371,13 @@ def ivf_crude_topk_cuda(cand_codes, cand_ids, lut_flat, topk: int,
     if quantized:
         _check_operand(lut_scale, "lut_scale", (nq,), torch.float32, dev)
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
+    if out is not None:
+        _check_operand(out, "out", (nq, nc), torch.float32, dev)
     lib, stream = _launch_env(dev, "ivf_search")
     grid = _plan(lib, "icq_ivf_crude_plan", nq, nc, Kc, Km, int(quantized),
                  int(code_bits == 4), code_bytes, topk)
-    crude = torch.empty((nq, nc), dtype=torch.float32, device=dev)
+    crude = out if out is not None else torch.empty(
+        (nq, nc), dtype=torch.float32, device=dev)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_ivf_crude_topk(
         _ptr(cand_codes), _ptr(cand_ids), _ptr(lut_flat), _ptr(lut_scale),

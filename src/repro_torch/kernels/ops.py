@@ -66,23 +66,24 @@ def two_step(codes, lut, fast_mask, threshold):
 
 def batched_crude_topk(codes, lut_flat, topk: int, *,
                        want_crude: bool = True, lut_scale=None,
-                       lut_offset=None, code_bits: int = 8):
+                       lut_offset=None, code_bits: int = 8, out=None):
     """Phase 1: crude LUT sums of every (query, point) pair and their
     top-k.  codes (n, Kc) stored rows (nibble rows under
     ``code_bits=4``, against an even-K lut_flat), lut_flat (nq, K*m)
     fast-masked f32, or int8 with ``lut_scale``/``lut_offset`` (nq,)
-    -> (crude (nq, n) | None, vals (nq, topk), idx (nq, topk))."""
+    -> (crude (nq, n) | None, vals (nq, topk), idx (nq, topk)).
+    ``out`` (nq, n) f32, optional, receives the crude matrix."""
     _check_faults("batched_crude_topk")
     return _crude_topk(codes, lut_flat, topk, want_crude=want_crude,
                        lut_scale=lut_scale, lut_offset=lut_offset,
-                       code_bits=code_bits)
+                       code_bits=code_bits, out=out)
 
 
 def _crude_topk(codes, lut_flat, topk, *, want_crude, lut_scale,
-                lut_offset, code_bits):
+                lut_offset, code_bits, out=None):
     fn = bs.crude_topk_cuda if _on_card(codes) else bs.crude_topk_torch
     return fn(codes, lut_flat, topk, lut_scale, lut_offset,
-              want_crude=want_crude, code_bits=code_bits)
+              want_crude=want_crude, code_bits=code_bits, out=out)
 
 
 def batched_refine_topk(codes, lut_flat, crude, thresholds, topk: int, *,
@@ -108,24 +109,26 @@ def fastscan_crude_topk(packed_codes, lut_flat, topk: int, *,
 
 
 def ivf_crude_topk(cand_codes, cand_ids, lut_flat, topk: int, *,
-                   lut_scale=None, lut_offset=None, code_bits: int = 8):
+                   lut_scale=None, lut_offset=None, code_bits: int = 8,
+                   out=None):
     """IVF phase 1 over each query's candidate slab.  cand_codes
     (nq, nc, Kc) stored rows, cand_ids (nq, nc) int32 (-1 = invalid),
     lut_flat (nq, K*m) fast-masked f32, or int8 with
     ``lut_scale``/``lut_offset`` -> (crude (nq, nc) with invalid columns
-    +inf, vals (nq, topk), pos (nq, topk) slab positions)."""
+    +inf, vals (nq, topk), pos (nq, topk) slab positions).  ``out``
+    (nq, nc) f32, optional, receives the crude matrix."""
     _check_faults("ivf_crude_topk")
     return _ivf_crude_topk(cand_codes, cand_ids, lut_flat, topk,
                            lut_scale=lut_scale, lut_offset=lut_offset,
-                           code_bits=code_bits)
+                           code_bits=code_bits, out=out)
 
 
 def _ivf_crude_topk(cand_codes, cand_ids, lut_flat, topk, *, lut_scale,
-                    lut_offset, code_bits):
+                    lut_offset, code_bits, out=None):
     fn = (bs.ivf_crude_topk_cuda if _on_card(cand_codes)
           else bs.ivf_crude_topk_torch)
     return fn(cand_codes, cand_ids, lut_flat, topk, lut_scale, lut_offset,
-              code_bits=code_bits)
+              code_bits=code_bits, out=out)
 
 
 def ivf_fastscan_crude_topk(packed_cand_codes, cand_ids, lut_flat,

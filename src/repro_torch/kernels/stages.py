@@ -131,6 +131,11 @@ def slow_lut_operand(luts: torch.Tensor, fast, *, code_bits: int = 8):
 
 # --------------------------------------------------------------- stages ----
 
+def _call(hook) -> None:
+    if hook is not None:
+        hook()
+
+
 class CrudeOut(NamedTuple):
     """``crude`` is the dense (nq, n) or slab (nq, nc) crude matrix
     (None when ``want_crude=False``); ``cand_vals``/``cand_idx`` the
@@ -148,27 +153,36 @@ class CrudeStage:
     code_bits: int = 8
     want_crude: bool = True
 
-    def __call__(self, codes, luts, fast=None) -> CrudeOut:
+    def __call__(self, codes, luts, fast=None, *, out=None,
+                 before_launch=None) -> CrudeOut:
         """codes (n, Kc) stored rows, luts (nq, K, m) f32, fast optional
-        (K,) bool (None = full-table one-step ADC)."""
+        (K,) bool (None = full-table one-step ADC); ``out`` (nq, n) f32,
+        optional, receives the dense crude matrix; ``before_launch``,
+        optional, is called between the LUT operands and the kernel
+        (the pipelined executor's stream waits)."""
         from repro_torch.kernels import ops
         lut_flat, scale, offset = crude_lut_operands(
             luts, fast, quantized=self.quantized, code_bits=self.code_bits)
+        _call(before_launch)
         return CrudeOut(*ops.batched_crude_topk(
             codes, lut_flat, self.topk, want_crude=self.want_crude,
-            lut_scale=scale, lut_offset=offset, code_bits=self.code_bits))
+            lut_scale=scale, lut_offset=offset, code_bits=self.code_bits,
+            out=out))
 
-    def slab(self, cand_codes, cand_ids, luts, fast) -> CrudeOut:
+    def slab(self, cand_codes, cand_ids, luts, fast, *, out=None,
+             before_launch=None) -> CrudeOut:
         """IVF crude pass over the gathered candidate slab.  cand_codes
         (nq, nc, Kc) stored rows, cand_ids (nq, nc) global ids (-1 =
         invalid; invalid columns are +inf in the dense crude output, so
-        the refine pass inherits the mask)."""
+        the refine pass inherits the mask); ``out`` (nq, nc) f32,
+        optional, receives it; ``before_launch`` as in ``__call__``."""
         from repro_torch.kernels import ops
         lut_flat, scale, offset = crude_lut_operands(
             luts, fast, quantized=self.quantized, code_bits=self.code_bits)
+        _call(before_launch)
         return CrudeOut(*ops.ivf_crude_topk(
             cand_codes, cand_ids, lut_flat, self.topk, lut_scale=scale,
-            lut_offset=offset, code_bits=self.code_bits))
+            lut_offset=offset, code_bits=self.code_bits, out=out))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,24 +262,30 @@ class RefineStage:
     topk: int = 50
     code_bits: int = 8
 
-    def __call__(self, codes, luts, crude, thr, fast):
+    def __call__(self, codes, luts, crude, thr, fast, *,
+                 before_launch=None):
         """Returns (idx, dist, passed): ``passed`` is the (nq, n) margin
         test mask recomputed from crude (the kernel evaluates the same
-        expression), the pass-rate input."""
+        expression), the pass-rate input.  ``before_launch``, optional,
+        is called just before the kernel."""
         from repro_torch.kernels import ops
         lut_slow = slow_lut_operand(luts, fast, code_bits=self.code_bits)
+        _call(before_launch)
         dist, idx = ops.batched_refine_topk(codes, lut_slow, crude, thr,
                                             self.topk,
                                             code_bits=self.code_bits)
         return idx, dist, crude < thr[:, None]
 
-    def slab(self, cand_codes, luts, crude, thr, fast, safe):
+    def slab(self, cand_codes, luts, crude, thr, fast, safe, *,
+             before_launch=None):
         """IVF refine over the candidate slab.  ``safe`` (nq, nc) maps
         slab positions to global ids (0 at invalid columns), through
         ``safe[min(pos, nc - 1)]`` as the reference does, so the +inf
-        tail carries the same ids.  Returns (ids, dist, passed)."""
+        tail carries the same ids.  Returns (ids, dist, passed).
+        ``before_launch`` as in ``__call__``."""
         from repro_torch.kernels import ops
         lut_slow = slow_lut_operand(luts, fast, code_bits=self.code_bits)
+        _call(before_launch)
         dist, pos = ops.ivf_refine_topk(cand_codes, lut_slow, crude, thr,
                                         self.topk, code_bits=self.code_bits)
         pos = torch.clamp(pos.long(), max=safe.shape[1] - 1)

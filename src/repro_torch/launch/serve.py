@@ -1,5 +1,6 @@
 """ANN serving command of the port (twin of ``repro.launch.serve``'s
-``--ann`` and ``--load-artifacts`` paths, flat, two-step and IVF kinds).
+``--ann``, ``--load-artifacts`` and ``--serve-loop`` paths, flat,
+two-step and IVF kinds).
 
     # build a synthetic index from a seed, serve query batches on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --ann \
@@ -19,10 +20,21 @@
         --save-artifacts /path/ann && \
         PYTHONPATH=src python -m repro_torch.launch.serve \
         --load-artifacts /path/ann
+    # the pipelined executor: crude of tile t+1 beside refine of tile t
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --load-artifacts /path/ann --pipeline tiles --pipeline-tile 64 \
+        --ann-queries 512
+    # two saved indexes as tenants of the coalescing serving loop under
+    # 2 s of seeded Poisson traffic at 1000 requests/s
+    PYTHONPATH=src python -m repro_torch.launch.serve --serve-loop \
+        --tenant a=/path/ann --tenant b=/path/ivf --serve-rate 1000 \
+        --serve-duration 2 --batch-tile 32 --batch-window-ms 2
 
 Each batch's time comes from the host clock around work that ends in a
 device synchronize (the engine synchronizes before it returns); so does
-the ``--ann-add`` time.
+the ``--ann-add`` time.  ``--serve-loop`` prints, per tenant, requests,
+p50 and p99 end-to-end latency (host clock from submit to the result),
+requests per second, mean tile fill and mean queue wait.
 """
 from __future__ import annotations
 
@@ -134,6 +146,53 @@ def serve_loaded(path: str, nq: int, *, batches: int, device, seed: int,
                   seed=seed + 1)
 
 
+def serve_traffic(specs, *, rate_hz: float, duration_s: float,
+                  window_ms=None, tile=None, overrides=None, seed: int = 0,
+                  device=None, pool_q: int = 64):
+    """``--serve-loop``: serve tenant artifact directories through the
+    coalescing loop under a seeded Poisson workload and print each
+    tenant's latency and throughput.  Spec conflicts and artifact
+    errors exit with a one-line message."""
+    from repro_torch.api import ArtifactError
+    from repro_torch.serve import (ServeError, ServingLoop, load_tenants,
+                                   make_workload, run_open_loop, summarize)
+
+    try:
+        tenants = load_tenants(specs, overrides=overrides or None,
+                               device=device)
+    except (ServeError, ArtifactError, OSError) as e:
+        raise SystemExit(f"--serve-loop: {e}") from e
+    rng = np.random.default_rng(seed)
+    pools = {name: rng.standard_normal((pool_q, t.d)).astype(np.float32)
+             for name, t in sorted(tenants.items())}
+    workload = make_workload(pools, rate_hz, duration_s, rng=rng)
+    with ServingLoop(tenants, window_ms=window_ms, tile=tile) as loop:
+        for name in tenants:
+            loop.warm(name)
+        t0 = time.perf_counter()
+        records = run_open_loop(loop, workload)
+        wall_s = time.perf_counter() - t0
+        stats = dict(loop.stats)
+    for name in sorted(tenants):
+        s = summarize([r for r in records if r["tenant"] == name],
+                      wall_s=wall_s)
+        if not s["requests"]:
+            print(f"serve-loop[{name}]: no arrivals this run")
+            continue
+        print(f"serve-loop[{name}]: {s['requests']} req, "
+              f"p50 {s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms, "
+              f"{s['qps']:.1f} qps, fill {s['mean_batch_fill']:.2f}, "
+              f"queue {s['mean_queue_ms']:.2f} ms, device="
+              f"{tenants[name].engine.device}")
+    agg = summarize(records, wall_s=wall_s)
+    print(f"serve-loop: {agg['requests']} req total, "
+          f"{stats['batches']} flushes "
+          f"(full {stats['flush_full']} / window {stats['flush_window']}), "
+          f"p50 {agg['p50_ms']:.2f} ms, p99 {agg['p99_ms']:.2f} ms, "
+          f"{agg['qps']:.1f} qps, degraded {agg['degraded_rate']:.2f}")
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ann", action="store_true",
@@ -176,6 +235,35 @@ def main(argv=None):
                     help="override serve.lut_dtype")
     ap.add_argument("--code-bits", type=int, default=None, choices=[8, 4],
                     help="override index.code_bits (4 needs --ann-m <= 16)")
+    ap.add_argument("--pipeline", default=None,
+                    choices=["off", "tiles", "auto"],
+                    help="override serve.pipeline (tiles: the crude pass "
+                         "of one query tile beside the refine of the "
+                         "previous, on two CUDA streams on the card)")
+    ap.add_argument("--pipeline-tile", type=int, default=None,
+                    help="override serve.pipeline_tile (queries per "
+                         "pipeline tile; default 64 on the card, 16 on "
+                         "the CPU)")
+    ap.add_argument("--serve-loop", action="store_true",
+                    help="serve artifact tenants through the coalescing "
+                         "loop under a seeded Poisson workload")
+    ap.add_argument("--tenant", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="load an artifact directory as a named tenant of "
+                         "the --serve-loop (repeatable); duplicate names "
+                         "or paths are rejected up front")
+    ap.add_argument("--batch-window-ms", type=float, default=None,
+                    help="--serve-loop: override every tenant's "
+                         "serve.batch_window_ms (max coalescing wait)")
+    ap.add_argument("--batch-tile", type=int, default=None,
+                    help="--serve-loop: override every tenant's "
+                         "serve.batch_tile (rows per dispatched tile)")
+    ap.add_argument("--serve-rate", type=float, default=50.0,
+                    help="--serve-loop: Poisson arrival rate (req/s)")
+    ap.add_argument("--serve-duration", type=float, default=1.0,
+                    help="--serve-loop: workload duration (s)")
+    ap.add_argument("--serve-seed", type=int, default=0,
+                    help="--serve-loop: seed for arrivals and query rows")
     args = ap.parse_args(argv)
 
     overrides = {k: v for k, v in {
@@ -188,7 +276,30 @@ def main(argv=None):
         "serve.topk": args.topk,
         "serve.lut_dtype": args.lut_dtype,
         "index.code_bits": args.code_bits,
+        "serve.pipeline": args.pipeline,
+        "serve.pipeline_tile": args.pipeline_tile,
     }.items() if v is not None}
+    if args.serve_loop:
+        specs = list(args.tenant)
+        if args.load_artifacts:
+            # a bare --load-artifacts joins the loop as tenant "default";
+            # parse_tenant_specs catches a --tenant naming the same
+            # directory (or reusing the name)
+            specs = [f"default={args.load_artifacts}"] + specs
+        if not specs:
+            ap.error("--serve-loop needs at least one --tenant NAME=DIR "
+                     "(or --load-artifacts DIR)")
+        serve_traffic(specs, rate_hz=args.serve_rate,
+                      duration_s=args.serve_duration,
+                      window_ms=args.batch_window_ms, tile=args.batch_tile,
+                      overrides=overrides, seed=args.serve_seed,
+                      device=args.device)
+        return
+    for flag, val in (("--tenant", args.tenant or None),
+                      ("--batch-window-ms", args.batch_window_ms),
+                      ("--batch-tile", args.batch_tile)):
+        if val is not None:
+            ap.error(f"{flag} requires --serve-loop")
     if args.load_artifacts:
         for flag, val in (("--config", args.config),
                           ("--save-artifacts", args.save_artifacts),

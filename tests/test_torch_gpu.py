@@ -1006,3 +1006,133 @@ def test_cuda_filter_and_refine_cap_raise(kind):
     with pytest.raises(ValueError, match="not servable"):
         engine.search(q, budget=SearchBudget(force_level="capped"))
     assert "capped" not in engine._levels()
+
+
+def _assert_same_result(got, want):
+    for field in ("indices", "distances", "pass_rate", "avg_ops"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq", [1, 8, 9, 37, 64])
+@pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
+def test_cuda_pipelined_equals_sequential(kind, nq):
+    """The pipelined executor on the card (two-phase plans on a crude
+    and a refine stream) equals the sequential search over the same
+    tiles bit for bit (ids, distances, pass_rate, avg_ops), over ragged
+    tile counts, at the full and the crude rung; the crude and refine
+    launch counts equal the sequential path's.  A batch shorter than a
+    tile runs zero-padded to the tile, so its ids and distances are
+    those of the sequential search of the padded tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.index.pipelined import plan_for
+    from repro_torch.kernels import build
+    engine, _ = _card_engine(kind)
+    piped = dataclasses.replace(engine.index, pipeline="tiles",
+                                pipeline_tile=8)
+    seq = dataclasses.replace(engine.index, query_chunk=8)
+    q = torch.from_numpy(np.random.default_rng(nq).standard_normal(
+        (nq, 16)).astype(np.float32)).cuda()
+    padded = stages.pad_to(q, max(nq, 8))
+    for rung in ("search", "search_crude"):
+        launches = []
+        for index, rows in ((piped, q), (seq, padded)):
+            before = dict(build.LAUNCHES)
+            res = getattr(index, rung)(rows)
+            torch.cuda.synchronize()
+            launches.append({k: v - before[k]
+                             for k, v in build.LAUNCHES.items()})
+            if index is piped:
+                got = res
+        if nq >= 8:
+            _assert_same_result(got, res)
+        assert torch.equal(got.indices, res.indices[:nq])
+        assert torch.equal(got.distances, res.distances[:nq])
+        assert launches[0] == launches[1]
+    plan = plan_for(piped, piped.topk)
+    if kind != "flat":
+        crude_s, refine_s = plan.streams(q.device)
+        assert crude_s != refine_s
+        assert torch.cuda.current_stream() not in (crude_s, refine_s)
+
+
+@pytest.mark.gpu
+def test_cuda_pipelined_crude_slot_not_overwritten_early():
+    """Tile 1 over 9 queries with wildly different per-tile work (zero
+    queries refine most of the database, far queries almost nothing):
+    the crude(t+2) write into slot t % 2 must wait for refine(t), so the
+    pipelined result equals the sequential one, tile for tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.index import make_index
+    rng = np.random.default_rng(5)
+    n, d, K, m = 200_000, 16, 8, 256
+    codes = rng.integers(0, m, size=(n, K)).astype(np.uint8)
+    C = (rng.standard_normal((K, m, d)) / np.sqrt(K)).astype(np.float32)
+    structure = (np.ones(d, bool), np.arange(K) < 2, np.float32(3.0))
+    index = make_index("two-step", codes, C, structure, device="cuda",
+                       topk=50)
+    q = rng.standard_normal((9, d)).astype(np.float32)
+    q[0::2] = 0.0                               # heavy refine
+    q[1::2] *= 50.0                             # light refine
+    q = torch.from_numpy(q).cuda()
+    piped = dataclasses.replace(index, pipeline="tiles", pipeline_tile=1)
+    seq = dataclasses.replace(index, query_chunk=1)
+    for _ in range(3):
+        got = piped.search(q)
+        want = seq.search(q)
+        torch.cuda.synchronize()
+        _assert_same_result(got, want)
+    assert float(got.pass_rate) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_serving_loop_parity():
+    """Two tenants on the card behind one coalescing loop: every
+    response equals the tenant engine's direct call on the request's
+    rows, bit for bit, and no engine retries or fails over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.serve import ServingLoop, Tenant
+    tenants = [Tenant(name=kind, engine=_card_engine(kind)[0])
+               for kind in ("two-step", "ivf")]
+    rng = np.random.default_rng(7)
+    reqs = [(kind, rng.standard_normal((nq, 16)).astype(np.float32))
+            for nq in (1, 2, 4, 5, 3, 1, 8) for kind in ("two-step", "ivf")]
+    with ServingLoop(tenants, window_ms=1.0, tile=8) as loop:
+        for t in tenants:
+            loop.warm(t.name)
+        futs = [loop.submit(q, tenant=kind) for kind, q in reqs]
+        results = [f.result(timeout=120) for f in futs]
+    engines = {t.name: t.engine for t in tenants}
+    for (kind, q), res in zip(reqs, results):
+        direct = engines[kind].search(q)
+        assert np.array_equal(res.indices, direct.indices.cpu().numpy())
+        assert np.array_equal(res.distances,
+                              direct.distances.cpu().numpy())
+        assert res.meta.backend == "cuda" and res.meta.batch_fill > 0
+    for e in engines.values():
+        assert e.stats["retries"] == 0 and e.stats["failovers"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_ground_truth_matches_cpu():
+    """``exact_search`` on the card (full f32, no TF32) against the CPU:
+    ids equal wherever the k-th and (k+1)-th distances are apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import eval as ev
+    rng = np.random.default_rng(3)
+    db = rng.standard_normal((50_000, 64)).astype(np.float32)
+    q = rng.standard_normal((16, 64)).astype(np.float32)
+    got_i, got_d = ev.ground_truth(db, q, 11)
+    want_i, want_d = ev.ground_truth(db, q, 11, device="cpu")
+    gap = np.abs(np.diff(want_d, axis=1)) > 1e-5 * np.abs(want_d[:, 1:])
+    clear = gap[:, :10].copy()
+    clear[:, 1:] &= gap[:, :9]
+    assert clear.mean() > 0.9
+    assert np.array_equal(got_i[:, :10][clear], want_i[:, :10][clear])
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-3)

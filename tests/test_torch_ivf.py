@@ -29,6 +29,8 @@ multiply-adds XLA fuses, to four).
 The CUDA kernels themselves are held against the plain versions on the
 card (``tests/test_torch_gpu.py`` and ``chip_smoke.py``).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -471,11 +473,19 @@ def test_ivf_build_needs_embeddings_and_raises_unported_options():
     index = make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
                        n_lists=4, n_probe=2, kmeans_iters=3, topk=TOPK)
     q = np.zeros((2, D), np.float32)
-    # the pipelined executor (item 7) and sharding (item 10) still raise
-    # by name; search_crude, filter and refine_cap serve on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
-                   n_lists=4, pipeline="tiles")
+    # sharding (item 10) still raises by name; the pipelined executor
+    # (item 7) serves the sequential answers, and search_crude, filter
+    # and refine_cap serve on the CPU
+    piped = make_index("ivf", codes, C, structure, device="cpu",
+                       emb_db=emb, n_lists=4, n_probe=2, kmeans_iters=3,
+                       topk=TOPK, pipeline="tiles")
+    rows = _t(np.random.default_rng(4).standard_normal((5, D))
+              .astype(np.float32))
+    got = piped.search(rows)
+    want = dataclasses.replace(piped, pipeline="off",
+                               query_chunk=16).search(rows)
+    assert torch.equal(got.indices, want.indices)
+    assert torch.equal(got.distances, want.distances)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         index.shard(None)
     assert index.search_crude(_t(q)).indices.shape == (2, TOPK)

@@ -456,7 +456,8 @@ def test_build_ann_engine_equals_load_ann_engine(artifacts, kind):
 def test_build_ann_engine_ivf_round_trips(tmp_path, artifacts):
     """An IVF engine from the front door (its own k-means, seeded) serves
     what its saved and reloaded artifact serves, bit for bit; ``mesh``
-    and ``pipeline`` raise naming their ROADMAP.md items."""
+    raises naming its ROADMAP.md item, and ``pipeline`` serves what the
+    sequential path serves over the same tiles."""
     q, _ = artifacts
     codes, C, structure, emb = arrays()
     built = build_ann_engine(codes, C, structure, topk=TOPK, index="ivf",
@@ -476,6 +477,14 @@ def test_build_ann_engine_ivf_round_trips(tmp_path, artifacts):
         assert torch.equal(b.distances, w.distances), rung
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         build_ann_engine(codes, C, structure, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        build_ann_engine(codes, C, structure, pipeline="tiles",
-                         device="cpu")
+    piped = build_ann_engine(codes, C, structure, topk=TOPK, index="ivf",
+                             emb_db=emb, n_lists=8, n_probe=4,
+                             generator=5, device="cpu", pipeline="tiles",
+                             pipeline_tile=NQ)
+    assert piped.index.pipeline == "tiles"
+    plain = build_ann_engine(codes, C, structure, topk=TOPK, index="ivf",
+                             emb_db=emb, n_lists=8, n_probe=4,
+                             generator=5, device="cpu", query_chunk=NQ)
+    b, w = piped.search(q), plain.search(q)
+    assert torch.equal(b.indices, w.indices)
+    assert torch.equal(b.distances, w.distances)

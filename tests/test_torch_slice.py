@@ -22,6 +22,8 @@ ulp, so no test asks for bitwise distances across the packages.
 Within the port, a tiled ``AnnEngine`` answers each row bitwise the same
 however the rows were batched.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -188,17 +190,28 @@ def test_tiled_engine_is_batching_invariant(artifacts, kind):
 
 
 def test_unported_options_raise_by_name(artifacts):
-    """The pipelined executor (queue 1, item 7) and sharded serving
-    (item 10) still raise by name; ``filter``, ``search_crude`` and
+    """Sharded serving (queue 1, item 10) still raises by name; the
+    pipelined executor (item 7) now serves, equal bit for bit to the
+    sequential path over the same tiles (its parity is in
+    ``test_torch_pipelined.py``); ``filter``, ``search_crude`` and
     ``refine_cap`` serve on the CPU (their parity with the reference is
     in ``test_torch_filtered.py`` and ``test_torch_ladder.py``)."""
     _, cells = artifacts
     path, _ = cells[("two-step", "f32", 8)]
     engine = load_ann_engine(path, device="cpu")
     q = np.zeros((2, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        load_ann_engine(path, device="cpu",
-                        overrides={"serve.pipeline": "tiles"})
+    piped = load_ann_engine(path, device="cpu",
+                            overrides={"serve.pipeline": "tiles",
+                                       "serve.pipeline_tile": 4})
+    rows = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (10, 16)).astype(np.float32))
+    got = piped.index.search(rows)
+    want = dataclasses.replace(piped.index, pipeline="off",
+                               query_chunk=4).search(rows)
+    for field in ("indices", "distances", "pass_rate", "avg_ops"):
+        assert torch.equal(getattr(got, field), getattr(want, field))
+    with pytest.raises(ValueError, match="pipeline mode"):
+        dataclasses.replace(piped.index, pipeline="overlap")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
         engine.index.shard(None)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
