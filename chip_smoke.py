@@ -143,15 +143,42 @@ or outside a checkout of the repository.  Phases:
    on the card (ms), its ids equal to the CPU ``exact_search`` wherever
    the k-th and (k+1)-th distances are more than 1e-5 relative apart.
 
+11. training at the paper's Figure 1 full protocol
+   (``benchmarks/fig1_synthetic_pq.py``, full): Table 1's dataset1
+   (10000 rows, 64 features), d = 16, K = 8, m = 256, 2 fast codebooks,
+   the linear embedder, mode icq, 10 epochs of batch 256 at lr 1e-3.
+   First the gate: ``init_train_state`` on the card (its k-means
+   launches ``kmeans_assign`` 8 x 26 times; the kernel is held against
+   its plain version at that shape), 2 epochs of ``run_epoch`` on the
+   card with every step run again on the CPU from the card's inputs
+   (loss terms, psi_size, params, optimizer and variance state to rtol
+   1e-4; a step whose batch codes flip between the devices at a near
+   tie is counted instead), and ``finalize`` of the card's state on
+   both devices (structure equal, sigma to rtol 1e-5, codes on >= 99.9%
+   of rows; its encode launches ``kmeans_assign`` 8 and ``icm_encode``
+   once a chunk); the CPU's own free-running drift is printed.  Then
+   the main path: ``fit`` on the card (launch counts reset before and
+   read after: the init's and the export's), its loss terms per epoch
+   (the last epoch's total below the first's), the model served by
+   ``TwoStep`` at topk 50 over the 1000 test queries (equal to the
+   plain composition), MAP@50 (above chance, 0.1), Average Ops and
+   pass_rate beside the JAX package's CPU run of the same protocol;
+   init, step (CUDA events, median), epoch and finalize times, peak MB.
+
+``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
+before and after phase 10, with every live CUDA tensor of 64 MiB or more
+and the types of what holds it.
+
 Every engine but the fault check's runs with
-``resilience.max_retries = 0``, so a kernel failure raises at once; at
-the end none may have retried or failed over.
+``resilience.max_retries = 0``, so a failed batch is tried once more
+(the reference's count) and then raises; at the end none may have
+retried or failed over.
 
 With ``--profile DIR``, five more tiles of the two-step-f32 and ivf-f32
 cells run under ``torch.profiler`` after their counted windows: the
 device busy time and idle share per tile, the ops by device and host
 time, and a Chrome trace per cell in DIR; phase 10 traces its 512-query
-batches pipelined and off the same way.
+batches pipelined and off the same way, and phase 11 10 train steps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -219,9 +246,9 @@ def check(cond: bool, what: str):
 
 
 # every engine the script serves with, by name, with its stats: all but
-# phase 8's fault check run with resilience.max_retries = 0, so a kernel
-# failure raises at once, and at the end none may have retried or
-# failed over
+# phase 8's fault check run with resilience.max_retries = 0, so a failed
+# batch is tried once more and then raises, and at the end none may have
+# retried or failed over
 ENGINES = []
 NO_RETRIES = {"resilience.max_retries": 0}
 
@@ -2438,6 +2465,428 @@ def request_path(paths, *, seed, batches, card, profile_dir=None):
     return total
 
 
+# --------------------------------------- phase 11: training on the card ----
+
+# the paper's Figure 1 full protocol (benchmarks/fig1_synthetic_pq.py,
+# full=True) for its K = 8 cell: Table 1's dataset1, d = 16, K = 8,
+# m = 256, 2 fast codebooks, the linear embedder, 10 epochs of batch 256
+# at lr 1e-3, served two-step at topk 50 (benchmarks/common.py evaluate)
+FIG1 = dict(dataset="dataset1", d=16, K=8, m=256, num_fast=2, epochs=10,
+            batch=256, lr=1e-3, topk=50, sample=4096)
+# the JAX package's run of the same protocol on the CPU (key PRNGKey(8);
+# scripts/fig1_reference_cpu.py): a yardstick printed beside the port's,
+# not a target
+FIG1_REFERENCE_CPU = dict(map50=0.8518922328948975,
+                          avg_ops=6.889345169067383,
+                          pass_rate=0.8148908615112305)
+# epochs of the card-against-CPU gate
+GATE_EPOCHS = 2
+# the gate's least atol on params and optimizer / variance state, a
+# fraction of each leaf's largest magnitude, and how many times the CPU's
+# own rounding spread it allows where that is larger: the card's step
+# lands up to 5.8e-6 from the CPU's (the first moment of W, at entries
+# under 1% of the leaf's magnitude, where the batch sum x^T dL/demb
+# cancels), the CPU's own step on the batch's rows reversed 5.9e-6
+STATE_ATOL, SPREAD_FACTOR = 1e-5, 4
+
+
+def tree_apply(fn, tree):
+    """``fn`` over the tensor leaves of nested dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_apply(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_apply(fn, v) for v in tree)
+    return fn(tree)
+
+
+def leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def atol_needed(got, want) -> list:
+    """For each leaf of two param/state trees (got on the card, want on
+    the CPU): the smallest atol, as a fraction of the leaf's largest
+    magnitude, that with rtol 1e-4 holds every entry of got to want."""
+    import torch
+    need = []
+    for g, w in zip(leaves(got), leaves(want)):
+        g, w = g.detach().cpu().double(), w.detach().double()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        over = torch.clamp_min((g - w).abs() - 1e-4 * w.abs(), 0.0)
+        need.append(float(over.max()) / scale if scale else 0.0)
+    return need
+
+
+def batch_codes(params, x, embed_apply):
+    """The hard codes the step's L^C takes for batch x: (codes (n, K),
+    embeddings)."""
+    import torch
+    from repro_torch.core.encode import soft_assign
+    from repro_torch.index.base import full_f32_matmul
+    with full_f32_matmul(), torch.no_grad():
+        emb = embed_apply(params["embed"], x)
+        return soft_assign(emb, params["C"])[1], emb
+
+
+def near_ties(codes_a, codes_b, emb, C):
+    """Codes that differ between the devices: True when each such code's
+    two scores ``||c||^2 - 2 x.c`` (float64, from the CPU's embedding)
+    lie within 1e-5 of the terms' size, the kmeans_assign criterion."""
+    import torch
+    codes_a = codes_a.cpu()
+    diff = (codes_a != codes_b).nonzero()
+    x, Cd = emb.double(), C.double()
+    for i, k in diff.tolist():
+        s = (Cd[k] ** 2).sum(1) - 2.0 * Cd[k] @ x[i]
+        size = float((x[i] ** 2).sum() + (Cd[k] ** 2).sum(1).max())
+        if abs(float(s[codes_a[i, k]] - s[codes_b[i, k]])) > 1e-5 * size:
+            return False, len(diff)
+    return True, len(diff)
+
+
+def profile_train_steps(step, state, batches, out_dir):
+    """With ``--profile``: ``torch.profiler`` over the joint steps of
+    ``batches`` ((x, y) pairs on the card) from ``state``: step time
+    (host clock, profiler on), device busy time per step, the device's
+    idle share, kernel launches per step, the ops by device and host
+    time, and a Chrome trace ``<out_dir>/profile_train_step.json``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    p, o, v = state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            p, o, v, _ = step(p, o, v, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / len(batches)
+    launches = sum(e.count for e in kernels) / len(batches)
+    log(f"profile train step: {wall_ms:.4f} ms a step (host clock, "
+        f"profiler on), device busy {busy_ms:.4f} ms a step, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {launches:.1f} kernel launches a "
+        f"step")
+    log("--- train step: ops by device time ---\n"
+        + _op_table(prof, "self_device_time_total", 20))
+    log("--- train step: ops by host time ---\n"
+        + _op_table(prof, "self_cpu_time_total", 20))
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          "profile_train_step.json"))
+
+
+def train_gate(cfg, xs, ys, *, seed, profile_dir=None):
+    """Phase 11's gate: init on the card, then GATE_EPOCHS epochs of
+    ``run_epoch`` on the card, each step's inputs kept; every step is
+    run again on the CPU from the card's inputs (copied) and must give
+    the card's loss terms (rtol 1e-4), psi_size and updated params,
+    optimizer and variance state (rtol 1e-4 and an atol of each leaf's
+    magnitude times the larger of ``STATE_ATOL`` and ``SPREAD_FACTOR``
+    x the CPU's own spread), unless the batch's hard codes differ
+    between the devices at a near tie (then that step is counted, not
+    compared).  The CPU's own spread: it also runs each step on the
+    batch's rows reversed (the same loss in exact arithmetic, other
+    summation orders in the batch reductions); the largest difference
+    of that run from its own, relative to a leaf's magnitude, over all
+    steps and leaves.  The same
+    trained state is finalized on both devices: xi and fast_mask equal,
+    sigma to rtol 1e-5, codes equal on >= 99.9% of the rows.  The CPU
+    also trains on its own from the init (free-running): its drift from
+    the card is printed, not gated (training is chaotic: a near-tie code
+    flip moves the codebooks by ~1e-3, scripts/train_divergence.py).
+    Returns the init's state, the timings and the launches of init and
+    finalize."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kmeans as km
+    from repro_torch.trainer import (epoch_batches, finalize,
+                                     init_train_state, make_train_step,
+                                     run_epoch)
+
+    def cpu(tree):
+        return tree_apply(lambda a: a.detach().cpu(), tree)
+
+    n = xs.shape[0]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = init_train_state(seed, cfg, d_raw=xs.shape[1], mode="icq",
+                          lr=FIG1["lr"], sample_batch=(
+                              xs[:FIG1["sample"]], ys[:FIG1["sample"]]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = read_launches()
+    want = cfg.num_codebooks * (25 + 1)      # init_residual: 25 iterations
+    check(init_launches["kmeans_assign"] == want
+          and init_launches["icm_encode"] == 0,
+          f"init launched {init_launches}, expected {want} kmeans_assign")
+    # kmeans_assign at the init's shape: the sample's embeddings against
+    # the first codebook (not counted: a comparison launch)
+    with torch.no_grad():
+        emb0 = st["embed_apply"](st["params"]["embed"],
+                                 xs[:FIG1["sample"]])
+    cent = st["params"]["C"][0].contiguous()
+    ok, err, same, clear = compare_assign(km.kmeans_assign_cuda(emb0, cent),
+                                          km.kmeans_assign_torch(emb0, cent),
+                                          emb0, cent)
+    log(f"train kmeans_assign n={emb0.shape[0]} L={cent.shape[0]} "
+        f"d={cent.shape[1]}: ids equal on {same:.6f} ({clear} clear), "
+        f"max_abs_err {err}")
+    check(ok, "kmeans_assign at the init's shape disagrees with its plain "
+              "version")
+    init_cpu = cpu((st["params"], st["opt_state"]))
+    gen = torch.Generator().manual_seed(seed + 1)
+    stacks = [epoch_batches(gen, xs.cpu(), ys.cpu(), FIG1["batch"])
+              for _ in range(GATE_EPOCHS)]
+    step = make_train_step(cfg, st["embed_apply"], st["opt"], "icq")
+    kept, times = [], []
+
+    def kept_step(params, opt_state, var_state, batch):
+        inputs = tree_apply(torch.clone, (params, opt_state, var_state))
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = step(params, opt_state, var_state, batch)
+        e.record()
+        times.append((s, e))
+        kept.append((inputs, batch, out))
+        return out
+
+    params, opt_state = st["params"], st["opt_state"]
+    epoch_s = []
+    for xb, yb in stacks:
+        xb, yb = xb.cuda(), yb.cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, var_state, _ = run_epoch(kept_step, params,
+                                                    opt_state, xb, yb)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    step_ms = [s.elapsed_time(e) for s, e in times]
+    if profile_dir:
+        xb, yb = stacks[0]
+        profile_train_steps(step, (params, opt_state, var_state),
+                            [(xb[i].cuda(), yb[i].cuda()) for i in range(10)],
+                            profile_dir)
+
+    # every step again on the CPU from the card's inputs, and on the
+    # batch's rows reversed for the CPU's own rounding spread
+    terms = ("l_e", "l_c", "l_cq", "l_p", "l_icq", "total")
+    needs, flips, spread = {}, [], 0.0
+    for i, (inputs, (x, y), out) in enumerate(kept):
+        p, o, v = cpu(inputs)
+        xc, yc = x.cpu(), y.cpu()
+        got = cpu(out)
+        want = step(p, o, v, (xc, yc))
+        rev = step(p, o, v, (xc.flip(0), yc.flip(0)))
+        codes_card, _ = batch_codes(inputs[0], x, st["embed_apply"])
+        codes_cpu, emb = batch_codes(p, xc, st["embed_apply"])
+        if not torch.equal(codes_card.cpu(), codes_cpu):
+            tie, count = near_ties(codes_card, codes_cpu, emb, p["C"])
+            check(tie, f"train step {i}: hard codes differ between the "
+                       f"card and the CPU beyond a near tie")
+            flips.append((i, count))
+            continue
+        check(all(np.isclose(float(got[3][k]), float(want[3][k]),
+                             rtol=1e-4, atol=0.0) for k in terms)
+              and int(got[3]["psi_size"]) == int(want[3]["psi_size"]),
+              f"train step {i}: the card's loss terms != the CPU's from "
+              f"the same inputs: {got[3]} against {want[3]}")
+        needs[i] = atol_needed(got[:3], want[:3])
+        spread = max(spread, max(atol_needed(rev[:3], want[:3])))
+    atol = max(STATE_ATOL, SPREAD_FACTOR * spread)
+    worst = max(max(n) for n in needs.values())
+    off = [(i, j, n) for i, ns in needs.items() for j, n in enumerate(ns)
+           if n > atol]
+    log(f"train gate: {len(kept)} steps ({GATE_EPOCHS} epochs of "
+        f"{len(kept) // GATE_EPOCHS}); {len(needs)} compared with the CPU's "
+        f"step from the same inputs: loss terms to rtol 1e-4 and psi_size "
+        f"equal in each; params, opt_state and var_state need an atol of "
+        f"{worst:.3e} of a leaf's magnitude beside rtol 1e-4 (allowed "
+        f"{atol:.3e}: {STATE_ATOL} or {SPREAD_FACTOR}x the CPU's own "
+        f"spread on reversed rows, {spread:.3e}); steps with a near-tie "
+        f"code flip between the devices (step, codes): {flips}")
+    check(not off, f"train gate: (step, leaf, atol needed) beyond {atol}: "
+                   f"{off}")
+    check(len(needs) >= len(kept) * 9 // 10,
+          f"train gate: only {len(needs)} of {len(kept)} steps compared")
+
+    # finalize the card's trained state on both devices
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = finalize(params, st["embed_apply"], var_state, cfg, xs)
+    torch.cuda.synchronize()
+    fin_s = time.perf_counter() - t0
+    fin_launches = read_launches()
+    p, v = cpu((params, var_state))
+    ref = finalize(p, st["embed_apply"], v, cfg, xs.cpu())
+    rows = float((model.codes.cpu() == ref.codes).all(1).float().mean())
+    xi_ok = torch.equal(model.structure.xi.cpu(), ref.structure.xi)
+    fm_ok = torch.equal(model.structure.fast_mask.cpu(),
+                        ref.structure.fast_mask)
+    sig = (float(model.structure.sigma), float(ref.structure.sigma))
+    log(f"train finalize: {n} rows, card against CPU from the same state: "
+        f"xi {xi_ok}, fast_mask {fm_ok}, sigma {sig[0]} / {sig[1]}, codes "
+        f"equal on {rows:.6f} of rows; launches {fin_launches}")
+    chunks = -(-n // 8192)
+    check(xi_ok and fm_ok and np.isclose(sig[0], sig[1], rtol=1e-5)
+          and rows >= 0.999
+          and fin_launches["kmeans_assign"] == chunks * cfg.num_codebooks
+          and fin_launches["icm_encode"] == chunks,
+          "train finalize: the card's export != the CPU's")
+
+    # the CPU training on its own from the same init (not gated)
+    p, o = init_cpu
+    cstep = make_train_step(cfg, st["embed_apply"], st["opt"], "icq")
+    free = []
+
+    def free_step(*a):
+        out = cstep(*a)
+        free.append(out[3])
+        return out
+    for xb, yb in stacks:
+        p, o, v, _ = run_epoch(free_step, p, o, xb, yb)
+    drift = max(abs(float(a[3]["total"]) - float(b["total"]))
+                / abs(float(b["total"])) for (_, _, a), b in zip(kept, free))
+    need = atol_needed((params, opt_state, var_state), (p, o, v))
+    log(f"train free-running: the CPU trained from the same init drifts "
+        f"from the card by up to {drift:.3e} in the total loss; after "
+        f"{GATE_EPOCHS} epochs the state needs an atol of {max(need):.3e} "
+        f"of a leaf's magnitude, {sum(n > atol for n in need)} of "
+        f"{len(need)} leaves beyond the gate's {atol:.3e} (not gated)")
+    return (dict(init_s=init_s, step_ms=float(np.median(step_ms)),
+                 epoch_s=epoch_s, finalize_s=fin_s),
+            init_launches, fin_launches)
+
+
+def train_cell(seed: int, card: str, profile_dir=None):
+    """Phase 11: train at the Figure 1 full protocol on the card through
+    ``fit`` (launch counts reset before, read after; peak MB), its loss
+    terms per epoch, then serve the model with ``TwoStep`` at topk 50
+    over the 1000 test queries (launches counted; equal to the plain
+    composition) and score MAP@50, Average Ops and pass_rate beside the
+    JAX package's CPU run.  ``train_gate`` first holds the card's steps
+    and export to the CPU's (and, with ``profile_dir``, profiles 10
+    steps).  Returns the launches of the fit and the
+    served window."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import ICQConfig
+    from repro_torch.data import make_table1_dataset
+    from repro_torch.index import make_index
+    from repro_torch.index.base import mean_average_precision
+    from repro_torch.trainer import fit
+
+    f = FIG1
+    xtr, ytr, xte, yte = make_table1_dataset(f["dataset"])
+    cfg = ICQConfig(d=f["d"], num_codebooks=f["K"], codebook_size=f["m"],
+                    num_fast=f["num_fast"])
+    xs, ys = torch.from_numpy(xtr).cuda(), torch.from_numpy(ytr).cuda()
+    timing, init_launches, fin_launches = train_gate(
+        cfg, xs, ys, seed=seed, profile_dir=profile_dir)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model = fit(seed, xtr, ytr, cfg, mode="icq", epochs=f["epochs"],
+                    batch_size=f["batch"], lr=f["lr"], verbose=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = read_launches()
+    want = {k: init_launches[k] + fin_launches[k]
+            for k in ("kmeans_assign", "icm_encode")}
+    check(all(launches[k] == want[k] for k in want)
+          and sum(launches.values()) == sum(want.values()),
+          f"fit launched {launches}, expected {want}")
+    epochs = [dict(kv.split("=") for kv in line.split(": ", 1)[1].split())
+              for line in out.getvalue().splitlines()]
+    for ep, mets in enumerate(epochs):
+        log(f"train epoch {ep}: " + " ".join(f"{k}={v}"
+                                              for k, v in mets.items()))
+    totals = [float(m["total"]) for m in epochs]
+    check(len(totals) == f["epochs"] and totals[-1] < totals[0],
+          f"train: the total loss did not fall ({totals})")
+
+    index = make_index("two-step", model.codes, model.C, model.structure,
+                       topk=f["topk"])
+    q = model.embed(torch.from_numpy(xte).cuda())
+    reset_launches()
+    res = index.search(q)
+    torch.cuda.synchronize()
+    served = read_launches()
+    check(served == expected_launches(index, 1),
+          f"train serve: launches {served}")
+    ids, dist = plain_composition(index, q)
+    same = torch.equal(ids, res.indices) and torch.equal(dist, res.distances)
+    mapv = float(mean_average_precision(res.indices, ys,
+                                        torch.from_numpy(yte).cuda()))
+    check(same and tuple(res.indices.shape) == (len(xte), f["topk"])
+          and bool(torch.isfinite(res.distances[:, 0]).all()) and mapv > 0.1,
+          f"train serve: MAP@{f['topk']} {mapv}, served == plain "
+          f"composition {same}")
+    ref = FIG1_REFERENCE_CPU
+    log(f"train fig1 {f['dataset']} K={f['K']} m={f['m']} d={f['d']} "
+        f"num_fast={f['num_fast']} n={len(xtr)} epochs={f['epochs']} "
+        f"batch={f['batch']}: init {timing['init_s']:.4f} s, "
+        f"{timing['step_ms']:.4f} ms a step (CUDA events, median of "
+        f"{GATE_EPOCHS} epochs), epochs {timing['epoch_s']} s, finalize "
+        f"{timing['finalize_s']:.4f} s (host clock, synchronized); fit "
+        f"{fit_s:.4f} s; peak {peak_mb:.1f} MB; launches {launches}; "
+        f"{card}")
+    log(f"train fig1 served two-step topk={f['topk']} over {len(xte)} test "
+        f"queries: MAP@{f['topk']} {mapv:.6f}, avg_ops "
+        f"{float(res.avg_ops):.6f}, pass_rate {float(res.pass_rate):.6f} "
+        f"(the JAX package on the CPU, scripts/fig1_reference_cpu.py: "
+        f"{ref['map50']:.6f}, {ref['avg_ops']:.6f}, {ref['pass_rate']:.6f}"
+        f"); served == plain composition: {same}; launches {served}")
+    return {k: launches[k] + served[k] for k in launches}
+
+
+def cuda_held(label: str) -> int:
+    """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
+    live CUDA tensor of 64 MiB or more that gc reaches, with the types
+    of the objects that refer to it."""
+    import gc
+    import warnings
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    no_ws = torch.cuda.memory_allocated()
+    big = []
+    warnings.simplefilter("ignore", FutureWarning)   # deprecated aliases
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+            nbytes = obj.untyped_storage().nbytes()
+        except Exception:        # objects gc tracks that torch cannot read
+            continue
+        if nbytes >= 64 << 20:
+            refs = sorted({type(r).__name__ for r in gc.get_referrers(obj)}
+                          - {"list", "frame"})
+            big.append(f"{tuple(obj.shape)} {obj.dtype} "
+                       f"{nbytes / 2**20:.0f} MiB held by {refs}")
+    log(f"memory {label}: {alloc} B allocated ({alloc / 2**20:.1f} MiB), "
+        f"{no_ws} B once PyTorch's cuBLAS workspaces are cleared; live "
+        f"CUDA tensors >= 64 MiB: {big or 'none'}")
+    return alloc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2447,9 +2896,9 @@ def main(argv=None) -> int:
                     help="64-query batches served per cell")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also trace 5 served tiles of the two-step-f32 "
-                         "and ivf-f32 cells, and phase 10's pipelined and "
-                         "off batches, with torch.profiler (Chrome traces "
-                         "to DIR)")
+                         "and ivf-f32 cells, phase 10's pipelined and "
+                         "off batches and 10 of phase 11's train steps, "
+                         "with torch.profiler (Chrome traces to DIR)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2518,15 +2967,20 @@ def main(argv=None) -> int:
             add(ladder_cell(name, paths[name], seed=args.seed,
                             batches=args.batches, card=card))
         fault_check(paths["two-step-f32"], seed=args.seed)
+        before = cuda_held("before phase 10")
         add(request_path(paths, seed=args.seed, batches=args.batches,
                          card=card, profile_dir=args.profile))
+        log(f"memory: phase 10 left {cuda_held('after phase 10') - before}"
+            " B more allocated than before it")
         add(wide_cells(args.seed, args.n, args.batches, workdir))
         enc_total, records["icm_encode"] = encode_and_grow(args.seed, args.n,
                                                            workdir)
     check_kernel_ops(args.seed)
     ops_total, ops_records = kernel_ops(args.seed, args.n)
+    train_total = train_cell(args.seed, card, profile_dir=args.profile)
     for k in total:
-        total[k] += ivf_total[k] + enc_total[k] + ops_total[k]
+        total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
+                     + train_total[k])
     records.update(ivf_records)
     records.update(ops_records)
     for k, rec in records.items():

@@ -28,8 +28,8 @@ package load in the other.  ``serve.backend`` keeps its reference
 choices (auto | jnp | pallas): on a CUDA device auto and pallas name
 the hand-written kernels, and jnp names the plain PyTorch versions,
 which serve only on the CPU (``repro_torch.index.base.resolve_backend``).
-The trainer bridge ``TrainConfig.hyperparams`` waits for the training
-slice.
+``TrainConfig.hyperparams`` bridges to the trainer's record
+(``repro_torch.configs.base.ICQConfig``).
 """
 from __future__ import annotations
 
@@ -101,6 +101,21 @@ class TrainConfig:
     gamma_cq: float = 0.1
     margin_scale: float = 1.0
     learn_embedding: bool = True
+
+    def hyperparams(self, *, icm_iters: int = 3):
+        """The paper-level hyper-parameter record
+        (``repro_torch.configs.base.ICQConfig``) the trainer layer
+        consumes.  ``icm_iters`` comes from the sibling ``EncodeConfig``
+        (the api tree keeps encoding knobs out of the train section)."""
+        from repro_torch.configs.base import ICQConfig as CoreICQConfig
+
+        return CoreICQConfig(
+            d=self.d, num_codebooks=self.num_codebooks,
+            codebook_size=self.codebook_size, num_fast=self.num_fast,
+            pi1=self.pi1, pi2=self.pi2, alpha2=self.alpha2,
+            gamma_p=self.gamma_p, gamma_icq=self.gamma_icq,
+            gamma_cq=self.gamma_cq, margin_scale=self.margin_scale,
+            icm_iters=icm_iters, learn_embedding=self.learn_embedding)
 
 
 @dataclasses.dataclass(frozen=True)

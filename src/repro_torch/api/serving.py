@@ -20,12 +20,15 @@ and flat {full, crude}, IVF {full, probes, crude}; the capped rung, like
 versions serve on the CPU and the card refuses.
 
 A failed batch (a ``RuntimeError``: a kernel launch, a CUDA error, an
-injected fault) is retried in place under ``BackoffPolicy`` (1 +
-``resilience.max_retries`` attempts; each retry counted in
-``stats["retries"]``); the last failure raises ``RetriesExhausted``
-chained to it.  A refused argument (``ValueError``) raises at once.  The engine never fails over: the reference's Pallas ->
-jnp failover would move the batch onto the plain versions, which never
-serve on a CUDA device, and a fallback would hide a failing kernel.  So
+injected fault) is retried in place, as the reference retries it: one
+attempt, then 1 + ``resilience.max_retries`` more under
+``BackoffPolicy`` (2 + ``max_retries`` in all; every attempt after the
+first counted in ``stats["retries"]``); the last failure raises
+``RetriesExhausted`` chained to it.  A refused argument
+(``ValueError``) raises at once.  The engine never fails over: the
+reference's Pallas -> jnp failover would move the batch onto the plain
+versions, which never serve on a CUDA device, and a fallback would hide
+a failing kernel.  So
 ``resilience.pallas_failover`` is kept for ``config_hash`` parity and
 has no effect here; ``stats["failovers"]`` stays 0.  Sharded engines
 (``mesh=``, ``mark_shard_dead``, coverage < 1) wait for ROADMAP.md queue
@@ -239,26 +242,30 @@ class AnnEngine:
 
     def _serve(self, level: str, k, budget: SearchBudget, queries,
                filter=None):
-        """One batch at one rung, retried in place on failure."""
+        """One batch at one rung: one attempt, then on a failure 1 +
+        ``max_retries`` more in place under the backoff policy (the
+        reference's ``_serve_with_failover`` count)."""
         lidx = self._level_index(level, budget)
         search = lidx.search_crude if level == "crude" else lidx.search
 
         def call(q):
             return search(q, k, filter=filter)
 
+        def retry():
+            self.stats["retries"] += 1
+            return self._attempt(call, queries)
+
         res = self.resilience
         policy = BackoffPolicy(max_retries=res.max_retries,
                                base_ms=res.backoff_base_ms,
                                max_ms=res.backoff_max_ms)
-
-        def count_retry(attempt, error, delay_ms):
-            self.stats["retries"] += 1
-
         key = (level, k, getattr(lidx, "refine_cap", None),
                getattr(lidx, "n_probe", None), filter is not None)
-        return key, retry_with_backoff(
-            lambda: self._attempt(call, queries), policy=policy,
-            retryable=(RuntimeError,), on_retry=count_retry)
+        try:
+            return key, self._attempt(call, queries)
+        except RuntimeError:
+            return key, retry_with_backoff(retry, policy=policy,
+                                           retryable=(RuntimeError,))
 
     def __call__(self, queries, budget: Optional[SearchBudget] = None):
         return self.search(queries, budget=budget)

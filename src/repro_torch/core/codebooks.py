@@ -1,4 +1,11 @@
-"""Codebook geometry and k-means (twin of ``repro.core.codebooks``)."""
+"""Codebook geometry, k-means and the codebook initializers (twin of
+``repro.core.codebooks``).
+
+A quantizer is a tensor C of shape (K, m, d): K codebooks of m
+codewords in R^d.  ``init_pq`` runs k-means per contiguous d/K slice;
+``init_residual`` fits each codebook on the residual of the previous
+ones (the CQ/ICQ warm start).  Every k-means assignment goes through
+``kernels.ops.kmeans_assign``: the CUDA kernel on the card."""
 from __future__ import annotations
 
 from typing import Optional
@@ -64,6 +71,50 @@ def kmeans(x: torch.Tensor, m: int, iters: int = 25, *,
     return cent, kmeans_assign(x, cent)
 
 
+# --------------------------------------------------------- initializers ----
+
+def init_pq(generator, x: torch.Tensor, num_codebooks: int, m: int,
+            iters: int = 25) -> torch.Tensor:
+    """PQ init: k-means per contiguous subspace, embedded back into R^d.
+    Codebook k's initial rows are drawn from ``generator`` in codebook
+    order (the reference folds its key with k).
+
+    Returns C: (K, m, d) with codebook k nonzero only on its slice."""
+    n, d = x.shape
+    K = num_codebooks
+    if d % K:
+        raise ValueError(f"init_pq needs d divisible by K, got d={d}, K={K}")
+    sub = d // K
+    cbs = []
+    for k in range(K):
+        xs = x[:, k * sub:(k + 1) * sub].contiguous()
+        cent, _ = kmeans(xs, m, iters, generator=generator)
+        full = torch.zeros((m, d), dtype=torch.float32, device=x.device)
+        full[:, k * sub:(k + 1) * sub] = cent
+        cbs.append(full)
+    return torch.stack(cbs)
+
+
+def init_residual(generator, x: torch.Tensor, num_codebooks: int, m: int,
+                  iters: int = 25, mask=None) -> torch.Tensor:
+    """Residual k-means init for additive codebooks (CQ/ICQ warm start).
+
+    ``mask``: optional (K, d) 0/1 support constraint per codebook.  Each
+    codebook is fit on the (masked) residual of the previous ones; its
+    initial rows are drawn from ``generator`` in codebook order (the
+    reference folds its key with 101 + k)."""
+    res = x.to(torch.float32)
+    cbs = []
+    for k in range(num_codebooks):
+        tgt = res * mask[k][None, :] if mask is not None else res
+        cent, ids = kmeans(tgt.contiguous(), m, iters, generator=generator)
+        if mask is not None:
+            cent = cent * mask[k][None, :]
+        cbs.append(cent)
+        res = res - cent[ids.long()]
+    return torch.stack(cbs)
+
+
 # ------------------------------------------------------------ geometry ----
 
 def codeword_sq_norms(C: torch.Tensor) -> torch.Tensor:
@@ -78,3 +129,17 @@ def decode(C: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     for k in range(1, C.shape[0]):
         out = out + C[k][codes[:, k]]
     return out
+
+
+def cross_gram(C: torch.Tensor) -> torch.Tensor:
+    """Pairwise codeword inner products between codebooks: C (K, m, d)
+    -> G (K, K, m, m) with G[j, k] = C_j @ C_k^T."""
+    from repro_torch.index.base import full_f32_matmul
+    with full_f32_matmul():
+        return torch.einsum("jmd,knd->jkmn", C, C)
+
+
+def quantization_mse(x: torch.Tensor, C: torch.Tensor,
+                     codes: torch.Tensor) -> torch.Tensor:
+    """Mean squared quantization error ||x - decode(codes)||^2 / n."""
+    return torch.mean(torch.sum(torch.square(x - decode(C, codes)), dim=-1))

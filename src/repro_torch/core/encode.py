@@ -14,6 +14,11 @@ one codebook at a time, ``iters`` sweeps.  Both go through
 kernel once per codebook (no (K, n, m) score tensor is ever built) and
 the sweeps run the ICM kernel; on the CPU their plain versions.
 
+``soft_assign`` and ``st_decode`` are the differentiable relaxation the
+joint trainer uses: softmax assignments with straight-through hard
+codes in the forward pass (plain ``torch`` products; the caller pins
+f32 precision, ``trainer/joint.py``).
+
 The packing half stores byte codes in the narrowest unsigned dtype and
 the ``code_bits=4`` nibble layout, two codes per byte.
 """
@@ -23,6 +28,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.codebooks import codeword_sq_norms, decode
 
 
 def encode_pq(x: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -82,6 +89,28 @@ def icm_encode(x: torch.Tensor, C: torch.Tensor, iters: int = 3,
                         None if cp is None else cp[s:s + point_chunk], iters)
              for s in range(0, n + pad, point_chunk)]
     return torch.cat(parts)[:n]
+
+
+def soft_assign(x: torch.Tensor, C: torch.Tensor, tau: float = 1.0):
+    """Differentiable assignment: softmax(-dist / tau) per codebook.
+    x (n, d), C (K, m, d) -> (probs (K, n, m), hard codes (n, K) int32,
+    the first index of each minimum of ``||c||^2 - 2 x.c``).  The
+    straight-through reconstruction is built in ``st_decode``."""
+    sq = codeword_sq_norms(C)
+    scores = -2.0 * torch.einsum("nd,kmd->knm", x, C) + sq[:, None, :]
+    probs = torch.softmax(-scores / tau, dim=-1)
+    hard = torch.argmin(scores, dim=-1).T.to(torch.int32)
+    return probs, hard
+
+
+def st_decode(x: torch.Tensor, C: torch.Tensor, tau: float = 1.0):
+    """Straight-through decode: forward = the hard reconstruction,
+    backward = the soft one (differentiable in x and C).  Returns
+    (xbar (n, d), codes (n, K))."""
+    probs, hard = soft_assign(x, C, tau)
+    soft_rec = torch.einsum("knm,kmd->nd", probs, C)
+    hard_rec = decode(C, hard)
+    return soft_rec + (hard_rec - soft_rec).detach(), hard
 
 
 def pack_codes(codes: torch.Tensor, m: int) -> torch.Tensor:

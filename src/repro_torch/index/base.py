@@ -1,8 +1,9 @@
 """Index-layer foundations (twin of ``repro.index.base``): the
 ``SearchResult`` record, the ADC LUT primitives, int8 LUT calibration,
 the nibble LUT sum, device and backend resolution, the row filter of a
-filtered search, query chunking, and the brute-force ground truth
-(``exact_search``).
+filtered search, query chunking, the brute-force ground truth
+(``exact_search``) and the paper's metrics (``mean_average_precision``,
+``recall_at``).
 
 LUTs: ``T[k, j] = ||c_{k,j}||^2 - 2 <q, c_{k,j}>``; ranking by their
 masked sums is ranking by L2 distance after ICQ's hard projection.
@@ -56,6 +57,16 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the plain PyTorch versions instead")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def as_generator(generator) -> torch.Generator:
+    """A ``torch.Generator`` from a generator, an int seed or None
+    (seed 0, the reference's default ``PRNGKey(0)`` role); a seed makes
+    a CPU generator, so the draws do not depend on the device."""
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator().manual_seed(0 if generator is None
+                                         else int(generator))
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -166,16 +177,17 @@ def _int_acc_dtype(K: int) -> torch.dtype:
 
 @contextlib.contextmanager
 def full_f32_matmul():
-    """Run the enclosed matrix products in full f32 on the card: TF32
-    would move distances by about 1e-3 relative and so change rankings.
-    The caller's ``allow_tf32`` setting is restored on exit."""
-    flags = torch.backends.cuda.matmul
-    saved = flags.allow_tf32
-    flags.allow_tf32 = False
+    """Run the enclosed matrix products and convolutions in full f32 on
+    the card: TF32 would move distances by about 1e-3 relative and so
+    change rankings (cuDNN convolutions default to TF32 in PyTorch).
+    The caller's two ``allow_tf32`` settings are restored on exit."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        flags.allow_tf32 = saved
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 def build_lut(q: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
@@ -349,3 +361,24 @@ def exact_search(queries: torch.Tensor, X: torch.Tensor, topk: int, *,
         return idx, dist
 
     return chunked_over_queries(one_block, queries, query_chunk)
+
+
+# --------------------------------------------------------------- metrics ----
+
+def mean_average_precision(retrieved_ids, db_labels, query_labels):
+    """Label-based MAP (the paper's metric): a retrieved point is
+    relevant iff it shares the query's class.  retrieved_ids (nq, R)
+    tensors on one device -> () f32."""
+    rel = (db_labels[retrieved_ids.long()]
+           == query_labels[:, None]).to(torch.float32)
+    ranks = torch.arange(1, rel.shape[1] + 1, dtype=torch.float32,
+                         device=rel.device)[None, :]
+    prec_at = torch.cumsum(rel, dim=1) / ranks
+    denom = torch.clamp_min(torch.sum(rel, dim=1), 1.0)
+    return torch.mean(torch.sum(prec_at * rel, dim=1) / denom)
+
+
+def recall_at(retrieved_ids, true_ids):
+    """Fraction of true nearest neighbors recovered.  Both (nq, R)."""
+    hits = (retrieved_ids[:, :, None] == true_ids[:, None, :]).any(dim=1)
+    return torch.mean(hits.to(torch.float32))

@@ -48,10 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import codebooks as cb
-from repro_torch.index.base import (SearchResult, as_torch, build_lut,
-                                    chunked_over_queries, full_f32_matmul,
-                                    mask_filtered_ids, resolve_backend,
-                                    resolve_lut_dtype)
+from repro_torch.index.base import (SearchResult, as_generator, as_torch,
+                                    build_lut, chunked_over_queries,
+                                    full_f32_matmul, mask_filtered_ids,
+                                    resolve_backend, resolve_lut_dtype)
 from repro_torch.index.flat import (_check_fastscan_geometry, _check_filter,
                                     _check_refine_cap, _encode_new_rows,
                                     _fast_count, _FlatBase, capped_refine)
@@ -93,15 +93,6 @@ def _pack_buckets(ids: torch.Tensor, n_lists: int, centroids) -> IVFIndex:
                     imbalance=float(max_len / max(n / n_lists, 1)))
 
 
-def _generator(generator) -> torch.Generator:
-    """A ``torch.Generator`` from a generator, an int seed or None
-    (seed 0, the reference's default ``PRNGKey(0)`` role)."""
-    if isinstance(generator, torch.Generator):
-        return generator
-    return torch.Generator().manual_seed(0 if generator is None
-                                         else int(generator))
-
-
 def build_ivf(emb_db: torch.Tensor, n_lists: int, kmeans_iters: int = 20,
               *, generator: Union[torch.Generator, int, None] = None,
               init_ids: Optional[torch.Tensor] = None) -> IVFIndex:
@@ -117,7 +108,7 @@ def build_ivf(emb_db: torch.Tensor, n_lists: int, kmeans_iters: int = 20,
     # and pad the remaining rows with the sentinel over empty lists
     k_eff = min(n_lists, n)
     cent, ids = cb.kmeans(emb_db, k_eff, iters=kmeans_iters,
-                          generator=_generator(generator), init_ids=init_ids)
+                          generator=as_generator(generator), init_ids=init_ids)
     if k_eff < n_lists:
         pad = torch.full((n_lists - k_eff, cent.shape[1]), _SENTINEL,
                          dtype=cent.dtype, device=cent.device)

@@ -12,9 +12,12 @@ tile t+1 overlaps the threshold bootstrap and refine of tile t:
              | crude(1)    crude(2)    crude(3)
 
 On the card the overlap is CUDA concurrency: the crude phases run on
-one ``torch.cuda.Stream`` and the refine phases on a second, both made
-once per plan (the kernel wrappers launch on the current stream).  The
-order is held by events:
+one ``torch.cuda.Stream`` and the refine phases on a second, one pair
+per device shared by every plan (the kernel wrappers launch on the
+current stream).  One pair, not one per plan: PyTorch keeps a cuBLAS
+workspace (32 MiB on an H100) for every stream a matrix product has run
+on, for the life of the process, so a pair per plan left 64 MiB behind
+every plan made (F6).  The order is held by events:
   - the crude stream waits on the caller's stream at entry, where the
     tiles are padded and the crude carry allocated;
   - refine(t) waits on crude(t)'s event;
@@ -130,8 +133,6 @@ class PipelinedSearch:
     tile: int
     finalize: Callable
     carry_cols: int = 0
-    _streams: Optional[tuple] = dataclasses.field(default=None, init=False,
-                                                  repr=False)
 
     def __call__(self, queries, pred=None) -> SearchResult:
         env = self.env if pred is None else dict(self.env, pred=pred)
@@ -147,11 +148,16 @@ class PipelinedSearch:
                                for parts in zip(*outs)))
 
     def streams(self, device) -> tuple:
-        """The plan's (crude, refine) stream pair, made at first use."""
-        if self._streams is None:
-            self._streams = (torch.cuda.Stream(device),
-                             torch.cuda.Stream(device))
-        return self._streams
+        """The (crude, refine) stream pair of ``device``, made at first
+        use and shared by every plan (module docstring)."""
+        device = torch.device(device)
+        idx = (device.index if device.index is not None
+               else torch.cuda.current_device())
+        pair = _STREAMS.get(idx)
+        if pair is None:
+            pair = _STREAMS[idx] = (torch.cuda.Stream(idx),
+                                    torch.cuda.Stream(idx))
+        return pair
 
     def _overlapped(self, tiles, env) -> list:
         """The two-stream schedule (module docstring)."""
@@ -199,6 +205,10 @@ class PipelinedSearch:
             caller.wait_stream(crude_s)
             caller.wait_stream(refine_s)
         return outs
+
+
+# device index -> the (crude, refine) stream pair every plan shares
+_STREAMS: dict = {}
 
 
 def _plan(index, topk: int, *, crude_only: bool, has_filter: bool,

@@ -1,0 +1,143 @@
+"""AdamW with a folded global-norm clip, the cosine schedule and the
+pytree helpers they need (twin of ``repro.train.optimizer``; Adafactor
+waits for item 11).
+
+This is the reference's AdamW, not ``torch.optim.AdamW``: b2 = 0.95,
+eps added outside ``sqrt(vhat)``, the bias correction taken at the step
+as f32, decay only on leaves with ndim >= 2, and the clip folded into
+the update as ``min(1, clip_norm / max(gnorm, 1e-9))`` with the
+pre-clip global norm returned.  Params, gradients and moments are
+nested dicts of tensors (the reference's pytrees); leaves are visited
+in sorted-key order, as ``jax.tree.leaves`` visits a dict.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+
+# ---------------------------------------------------------------- trees ----
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """A nested dict shaped like ``tree`` holding ``leaves`` (in
+    ``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(tree)
+
+
+# ------------------------------------------------------------- schedule ----
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    min_frac: float = 0.1):
+    """Linear warmup to ``base_lr``, then cosine decay to
+    ``min_frac * base_lr`` at ``total``; ``lr(step)`` -> f32 tensor."""
+    def lr(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * (min_frac + (1 - min_frac) * 0.5
+                         * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def global_norm(tree) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.to(torch.float32)))
+              for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(tree scaled by ``min(1, max_norm / max(norm, 1e-9))``, norm)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    return tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
+                    tree), norm
+
+
+# ---------------------------------------------------------------- AdamW ----
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """``lr(step)`` gives the rate at the 1-based step (a tensor or a
+    float).  ``init(params)`` -> {"m", "v", "step"}; ``update(grads,
+    state, params)`` -> (params, state, pre-clip global norm), all new
+    tensors (nothing is updated in place)."""
+    lr: Callable[[Any], Any]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: torch.dtype = torch.float32
+
+    def init(self, params):
+        return {
+            "m": tree_map(lambda p: torch.zeros_like(
+                p, dtype=self.moment_dtype), params),
+            "v": tree_map(lambda p: torch.zeros_like(
+                p, dtype=self.moment_dtype), params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=tree_leaves(params)[0].device),
+        }
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        # the clip is folded into the elementwise update, as in the
+        # reference (no clipped copy of the gradients)
+        scale = (torch.clamp(self.clip_norm / torch.clamp_min(gnorm, 1e-9),
+                             max=1.0)
+                 if self.clip_norm else torch.ones_like(gnorm))
+        b1, b2 = self.b1, self.b2
+        t = step.to(torch.float32)
+        corr1 = 1 - torch.pow(b1, t)
+        corr2 = 1 - torch.pow(b2, t)
+        lr = torch.as_tensor(self.lr(step), dtype=torch.float32,
+                             device=gnorm.device)
+
+        def upd(g, m, v, p):
+            g32 = g.to(torch.float32) * scale
+            m32 = m.to(torch.float32) * b1 + g32 * (1 - b1)
+            v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1 - b2)
+            delta = (m32 / corr1) / (torch.sqrt(v32 / corr2) + self.eps)
+            if self.weight_decay and p.ndim >= 2:   # decay matrices only
+                delta = delta + self.weight_decay * p.to(torch.float32)
+            newp = p.to(torch.float32) - lr * delta
+            return (newp.to(p.dtype), m32.to(self.moment_dtype),
+                    v32.to(self.moment_dtype))
+
+        out = tree_map(upd, grads, state["m"], state["v"], params)
+        return (_pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2),
+                                "step": step}, gnorm)
+
+
+def _pick(tree, i):
+    """Field ``i`` of every (param, m, v) leaf tuple of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -1136,3 +1136,56 @@ def test_cuda_ground_truth_matches_cpu():
     assert clear.mean() > 0.9
     assert np.array_equal(got_i[:, :10][clear], want_i[:, :10][clear])
     np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,embed", [("icq", "linear"), ("cq", "linear"),
+                                        ("pq", "linear"), ("icq", "cnn")])
+def test_cuda_train_step_equals_cpu(mode, embed):
+    """One joint step on the card (f32 matmuls and convolutions, no
+    TF32) from the same state and batch as the CPU's: loss terms to rtol
+    1e-4 and psi_size equal; with the linear embedder the updated params
+    and optimizer / variance state to rtol 1e-4 with an atol of 1e-5 of
+    each leaf's magnitude; with the cnn the embeddings to rtol 1e-5 (its
+    first AdamW step divides conv-weight gradients near eps by
+    themselves, where rounding moves the update far more); and the
+    init's k-means through the kmeans_assign kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import ICQConfig
+    from repro_torch.kernels import build
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.trainer import init_train_state, make_train_step
+    rng = np.random.default_rng(12)
+    shape = (512, 24) if embed == "linear" else (512, 8, 8, 2)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 512).astype(np.int32))
+    cfg = ICQConfig(d=8, num_codebooks=4, codebook_size=32, num_fast=1)
+    before = build.LAUNCHES["kmeans_assign"]
+    st = init_train_state(3, cfg, embed_kind=embed, d_raw=24, img_hw=8,
+                          channels=2, mode=mode,
+                          sample_batch=(x.cuda(), y.cuda()))
+    assert build.LAUNCHES["kmeans_assign"] - before == 4 * 26
+    step = make_train_step(cfg, st["embed_apply"], st["opt"], mode,
+                           st["pq_mask"])
+    state = (st["params"], st["opt_state"], st["var_state"])
+    got = step(*state, (x[:128].cuda(), y[:128].cuda()))
+    cpu = tree_map(lambda t: t.cpu(),
+                   {"p": state[0], "o": state[1], "v": state[2]})
+    mask = None if st["pq_mask"] is None else st["pq_mask"].cpu()
+    want = make_train_step(cfg, st["embed_apply"], st["opt"], mode, mask)(
+        cpu["p"], cpu["o"], cpu["v"], (x[:128], y[:128]))
+    for k, w in want[3].items():
+        g = float(got[3][k])
+        assert (g == float(w) if k == "psi_size"
+                else np.isclose(g, float(w), rtol=1e-4, atol=0.0)), k
+    if embed == "cnn":
+        emb = st["embed_apply"](state[0]["embed"], x.cuda())
+        want_emb = st["embed_apply"](cpu["p"]["embed"], x)
+        torch.testing.assert_close(emb.cpu(), want_emb, rtol=1e-5,
+                                   atol=1e-6 * float(want_emb.abs().max()))
+        return
+    for g, w in zip(tree_leaves({"p": got[0], "o": got[1], "v": got[2]}),
+                    tree_leaves({"p": want[0], "o": want[1], "v": want[2]})):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5 * scale)

@@ -364,9 +364,10 @@ def test_kernel_fault_is_retried_and_counted(artifacts, kind):
 
 
 def test_permanent_fault_exhausts_retries(artifacts):
-    """A fault at every attempt: 1 + max_retries attempts, each retry
-    counted, then ``RetriesExhausted`` chained to the injected fault;
-    with ``max_retries=0`` the first failure raises at once."""
+    """A fault at every attempt: one attempt, then 1 + max_retries
+    retries (the reference's count), each retry counted, then
+    ``RetriesExhausted`` chained to the injected fault; with
+    ``max_retries=0`` the batch is tried twice."""
     q, paths = artifacts
     for retries in (0, 2):
         inj = FaultInjector(seed=0, spec=FaultSpec(
@@ -378,9 +379,49 @@ def test_permanent_fault_exhausts_retries(artifacts):
         with pytest.raises(RetriesExhausted) as ei:
             engine.search(q)
         assert isinstance(ei.value.__cause__, InjectedFault)
-        assert inj.counts == {"engine.search:raise": retries + 1}
-        assert engine.stats["retries"] == retries
+        assert inj.counts == {"engine.search:raise": retries + 2}
+        assert engine.stats["retries"] == retries + 1
         assert engine.stats["failovers"] == 0
+
+
+def _fault_outcome(engine, inj, q):
+    try:
+        engine.search(q)
+        outcome = "served"
+    except RuntimeError as e:
+        assert "attempt(s) failed" in str(e)
+        outcome = "raised"
+    return outcome, dict(inj.counts)
+
+
+@pytest.mark.parametrize("fault,retries", [("permanent", 0),
+                                           ("permanent", 2),
+                                           ("transient", 0)])
+def test_attempts_match_reference(artifacts, fault, retries):
+    """The same seeded injector at ``engine.search`` and the same
+    ``ResilienceConfig`` give both packages the same attempts: equal
+    ``inj.counts`` and the same outcome, served or raised.  A transient
+    fault (the first check raises, the second passes) is served even at
+    ``max_retries=0``; a permanent one raises after 2 + max_retries."""
+    q, paths = artifacts
+    seed, p = (0, 1.0) if fault == "permanent" else (
+        _raise_then_pass_seed(0.5), 0.5)
+    res = dict(max_retries=retries, backoff_base_ms=0.001)
+    ref_inj = RefFaultInjector(seed=seed, spec=RefFaultSpec(
+        p_raise=p, targets=("engine.search",)))
+    ref_engine = ref_api.load_ann_engine(paths["flat"],
+                                         fault_injector=ref_inj)
+    ref_engine.resilience = ref_api.ResilienceConfig(**res)
+    inj = FaultInjector(seed=seed, spec=FaultSpec(
+        p_raise=p, targets=("engine.search",)))
+    engine = load_ann_engine(paths["flat"], device="cpu",
+                             fault_injector=inj)
+    engine.resilience = ResilienceConfig(**res)
+    got = _fault_outcome(engine, inj, q)
+    assert got == _fault_outcome(ref_engine, ref_inj, q)
+    assert got[0] == ("served" if fault == "transient" else "raised")
+    assert engine.stats["retries"] == got[1]["engine.search:raise"] - (
+        fault == "permanent")
 
 
 def test_refused_argument_is_not_retried(artifacts):
