@@ -165,6 +165,29 @@ or outside a checkout of the repository.  Phases:
    pass_rate beside the JAX package's CPU run of the same protocol;
    init, step (CUDA events, median), epoch and finalize times, peak MB.
 
+12. the front door: the PQ, OPQ and CQ baselines through
+   ``icq_session(cfg).fit`` at SIFT1M's geometry (pseudo_sift: 100,000
+   train points, the size of SIFT1M's learn set, and a 1M-point base
+   indexed flat; d = 128, K = 8, m = 256; PQ 25 k-means iterations, OPQ 8
+   rounds, CQ 10 rounds of 50 steps): fit, encode and ms per 64-query
+   tile of ``Searcher.search``, recall@100 over 1000 queries against
+   ``eval.ground_truth``, peak MiB and the launches of fit, index and
+   serve (each checked against what the fit implies); ``sq`` on Figure
+   2's full protocol (dataset1, two-step, topk 50) and ``pqn`` with the
+   cnn embedder on Figure 5's (pseudo_mnist, 8000 / 800) through the
+   session, MAP@50, Average Ops, pass_rate.  Gates: ``Searcher.save`` ->
+   ``load_ann_engine`` fed ``ICQSession.from_artifacts(...).model``'s
+   embeddings serves the in-process answers bit for bit (an OPQ reload
+   raises ``ArtifactError``); ``Tenant.from_searcher`` answers as
+   ``Searcher.search``; PQ's, OPQ's and CQ's ``step`` and ``finalize``
+   on the card equal the CPU's from the same state (phase 11's
+   tolerances; OPQ's round fed the card's round init); ``kmeans_assign``
+   at the 100,000 x 256 x 16 subspace shape and ``icm_encode`` with CQ's
+   trained codebooks against their plain versions; and phase 11's cell
+   trained by ``fit(ckpt_dir=)`` with one fault before epoch 4 ends with
+   one restart, its C, codes and structure bit for bit the
+   uninterrupted fit's.
+
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
 and the types of what holds it.
@@ -2776,7 +2799,7 @@ def train_cell(seed: int, card: str, profile_dir=None):
     JAX package's CPU run.  ``train_gate`` first holds the card's steps
     and export to the CPU's (and, with ``profile_dir``, profiles 10
     steps).  Returns the launches of the fit and the
-    served window."""
+    served window, and the fitted model."""
     import contextlib
     import io
     import torch
@@ -2852,7 +2875,576 @@ def train_cell(seed: int, card: str, profile_dir=None):
         f"(the JAX package on the CPU, scripts/fig1_reference_cpu.py: "
         f"{ref['map50']:.6f}, {ref['avg_ops']:.6f}, {ref['pass_rate']:.6f}"
         f"); served == plain composition: {same}; launches {served}")
-    return {k: launches[k] + served[k] for k in launches}
+    return {k: launches[k] + served[k] for k in launches}, model
+
+
+# ------------------------------------------ phase 12: the front door ----
+
+# (a) the unsupervised baselines at SIFT1M's geometry: PQ and OPQ are
+# trained on SIFT1M's 100,000-point learn set and index its 1M-point
+# base (Jegou et al., TPAMI 2011); 1000 of its queries, recall@100
+# against the exact neighbours in the raw space (OPQ's R is orthogonal)
+FRONT = dict(d=128, K=8, m=256, num_fast=2, n_train=100_000, nq=1000,
+             topk=100)
+# each kind with its rounds (train.epochs): PQ is closed-form (its one
+# step is the identity), OPQ alternates 8 rounds of 10 k-means
+# iterations, CQ runs 10 rounds of 50 AdamW steps on C
+FRONT_KINDS = (("pq", 1), ("opq", 8), ("cq", 10))
+# the quantizers' own constants (trainer/quantizers.py defaults): PQ's
+# k-means iterations, OPQ's per round, CQ's residual init
+PQ_ITERS, OPQ_ITERS, CQ_INIT_ITERS = 25, 10, 10
+# (b) the supervised pipelines through the session: Figure 2's full
+# protocol (benchmarks/fig2_synthetic_cq.py, full=True) for its K = 8
+# cell (sq: Table 1's dataset1, the linear embedder, served two-step at
+# topk 50) and Figure 5's (benchmarks/fig5_pqn.py, full=True, K = 8;
+# pqn: pseudo_mnist, 8000 train / 800 test, the cnn embedder, served
+# one-step as that benchmark's evaluate does)
+FIG2 = dict(dataset="dataset1", d=16, K=8, m=256, num_fast=2, epochs=10,
+            batch=256, lr=1e-3, topk=50, kind="two-step")
+FIG5 = dict(n_train=8000, n_test=800, hw=28, channels=1, d=16, K=8, m=256,
+            num_fast=2, epochs=6, batch=256, lr=1e-3, topk=50, kind="flat")
+# (c) the checkpointed fit of phase 11's cell: one fault before this
+# epoch, a checkpoint every epoch
+RESUME_FAULT_EPOCH = 4
+ENCODE_CHUNK = 8192          # the config's encode.chunk
+# CQ's AdamW updates held one by one against the CPU's (of the round's 50)
+CQ_HELD = 10
+
+
+def chunks(n: int) -> int:
+    return -(-n // ENCODE_CHUNK)
+
+
+def front_config(overrides):
+    """An api config with no engine retries (the script's rule)."""
+    from repro_torch.api import ICQConfig
+    return ICQConfig().with_overrides({**NO_RETRIES, **overrides})
+
+
+def register(name, searcher):
+    """A session's engine with no retries, registered in ``ENGINES``."""
+    from repro_torch.api import ResilienceConfig
+    searcher.engine.resilience = ResilienceConfig(max_retries=0)
+    ENGINES.append((name, searcher.engine.stats))
+    return searcher
+
+
+def serve_tiles(call, q):
+    """``call`` over q in 64-query tiles: (ids, distances) of all rows
+    and the median device ms of a full tile (CUDA events)."""
+    import numpy as np
+    import torch
+    ids, dist, times = [], [], []
+    for s in range(0, q.shape[0], TILE):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        r = call(q[s:s + TILE])
+        e1.record()
+        ids.append(r.indices)
+        dist.append(r.distances)
+        times.append((e0, e1, r.indices.shape[0]))
+    torch.cuda.synchronize()
+    full = [a.elapsed_time(b) for a, b, rows in times if rows == TILE]
+    return (torch.cat(ids), torch.cat(dist),
+            float(np.median(full)) if full else float("nan"))
+
+
+def reload_gate(name, searcher, q, want, workdir, *, tiled=True):
+    """``Searcher.save`` -> ``load_ann_engine`` fed the embeddings of
+    ``ICQSession.from_artifacts(...).model`` serves ``want`` (the
+    in-process (ids, distances) over q) bit for bit, tile by tile as it
+    was served.  An OPQ model's reload raises ``ArtifactError``; its
+    index, fed the searcher's own embeddings, must still serve ``want``.
+    Returns the path."""
+    import torch
+    from repro_torch.api import ArtifactError, ICQSession
+    path = searcher.save(os.path.join(workdir, f"front-{name}"))
+    engine = engine_load(f"front-{name}-reload", path)
+    try:
+        embed = ICQSession.from_artifacts(path).model.embed
+        raised = None
+    except ArtifactError as e:
+        embed, raised = searcher.embed, str(e)
+    if name == "opq":
+        check(raised is not None and "OPQ rotation" in raised,
+              f"front opq: the reload did not raise ArtifactError "
+              f"({raised})")
+    else:
+        check(raised is None, f"front {name}: reload raised {raised}")
+
+    def call(t):
+        with torch.no_grad():
+            return engine.search(embed(t))
+    if tiled:
+        ids, dist, _ = serve_tiles(call, q)
+    else:
+        r = call(q)
+        ids, dist = r.indices, r.distances
+    same = torch.equal(ids, want[0]) and torch.equal(dist, want[1])
+    log(f"front {name} reload: load_ann_engine + "
+        + ("the searcher's embed (from_artifacts raised ArtifactError: "
+           f"{raised[:60]}...)" if raised else
+           "ICQSession.from_artifacts(...).model.embed")
+        + f": ids and distances equal to the in-process Searcher: {same}")
+    check(same, f"front {name}: the reloaded model and index serve other "
+                "answers than the in-process Searcher")
+    return path
+
+
+def baseline_launches(kind, rounds, n_train, n_base, K):
+    """The kernel launches a fit and an index build of ``kind`` imply:
+    (fit, index) dicts of kmeans_assign / icm_encode counts."""
+    if kind == "pq":            # k-means per subspace, the PQ export
+        fit = dict(kmeans_assign=K * (PQ_ITERS + 1) + chunks(n_train) * K,
+                   icm_encode=0)
+    elif kind == "opq":         # per round: k-means + encode_pq
+        fit = dict(kmeans_assign=rounds * K * (OPQ_ITERS + 2)
+                   + chunks(n_train) * K, icm_encode=0)
+    else:                       # residual init, ICM init + one a round
+        fit = dict(kmeans_assign=K * (CQ_INIT_ITERS + 1) + K,
+                   icm_encode=1 + rounds)
+    index = dict(kmeans_assign=chunks(n_base) * K,
+                 icm_encode=chunks(n_base) if kind == "cq" else 0)
+    return fit, index
+
+
+def front_baseline(kind, rounds, data, gt_ids, *, seed, card, workdir):
+    """Phase 12 (a) for one kind: ``icq_session(cfg).fit`` on the train
+    points, ``.index(base)`` (flat), ``Searcher.search`` of the queries
+    in 64-query tiles, each with the launch counts reset before and read
+    after; recall@100; then the reload gate.  Returns (launches, the
+    session, the searcher)."""
+    import torch
+    from repro_torch import eval as eval_mod
+    from repro_torch.api import icq_session
+    xtr, xdb, q = data
+    f = FRONT
+    cfg = front_config({
+        "train.quantizer": kind, "train.d": f["d"],
+        "train.num_codebooks": f["K"], "train.codebook_size": f["m"],
+        "train.num_fast": f["num_fast"], "train.epochs": rounds,
+        "index.kind": "flat", "serve.topk": f["topk"]})
+    session = icq_session(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    session.fit(xtr, seed=seed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_l = read_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    searcher = register(f"front-{kind}", session.index(xdb))
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    idx_l = read_launches()
+    want_fit, want_idx = baseline_launches(kind, rounds, xtr.shape[0],
+                                           xdb.shape[0], f["K"])
+    for got, want, what in ((fit_l, want_fit, "fit"),
+                            (idx_l, want_idx, "index")):
+        check(all(got[k] == want[k] for k in want)
+              and sum(got.values()) == sum(want.values()),
+              f"front {kind} {what} launched {got}, expected {want}")
+    reset_launches()
+    ids, dist, tile_ms = serve_tiles(searcher.search, q)
+    srv_l = read_launches()
+    tiles = -(-q.shape[0] // TILE)
+    check(srv_l == expected_launches(searcher.index, tiles),
+          f"front {kind} serve launched {srv_l}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    recall = eval_mod.recall_at_k(ids.cpu().numpy(), gt_ids, f["topk"])
+    chance = f["topk"] / xdb.shape[0]
+    last = (q.shape[0] - 1) // TILE * TILE
+    with torch.no_grad():
+        plain = plain_composition(searcher.index,
+                                  searcher.embed(q[last:]))
+    same = (torch.equal(plain[0], ids[last:])
+            and torch.equal(plain[1], dist[last:]))
+    check(tuple(ids.shape) == (q.shape[0], f["topk"])
+          and bool(torch.isfinite(dist).all())
+          and bool((dist[:, 1:] >= dist[:, :-1]).all())
+          and recall > 10 * chance and same,
+          f"front {kind}: recall@{f['topk']} {recall} (chance {chance}), "
+          f"served == plain composition {same}, or bad results")
+    log(f"front {kind} (SIFT1M geometry: d={f['d']} K={f['K']} "
+        f"m={f['m']}, {rounds} round(s), flat): fit {fit_s:.4f} s on "
+        f"{xtr.shape[0]} points, encode {enc_s:.4f} s (index of "
+        f"{xdb.shape[0]} points), {tile_ms:.4f} ms per 64-query tile "
+        f"(median, events), recall@{f['topk']} {recall:.6f} over "
+        f"{q.shape[0]} queries (served == plain composition: {same}), "
+        f"peak {peak:.1f} MiB; launches: fit "
+        f"{fit_l['kmeans_assign']} kmeans_assign, {fit_l['icm_encode']} "
+        f"icm_encode; index {idx_l['kmeans_assign']} kmeans_assign, "
+        f"{idx_l['icm_encode']} icm_encode; serve {srv_l['crude_topk']} "
+        f"crude_topk; {card}")
+    reload_gate(kind, searcher, q, (ids, dist), workdir)
+    total = {k: fit_l[k] + idx_l[k] + srv_l[k] for k in fit_l}
+    return total, session, searcher
+
+
+def cpu_tree(tree):
+    return tree_apply(lambda a: a.detach().cpu()
+                      if hasattr(a, "detach") else a, tree)
+
+
+def rows_equal(a, b) -> float:
+    return float((a.cpu() == b.cpu()).all(1).float().mean())
+
+
+def finalize_gate(kind, card_model, cpu_model):
+    """``finalize`` on the card and on the CPU from the same state:
+    codes equal on >= 99.9% of rows (the rest near ties, counted), lam
+    to rtol 1e-4 (atol 1e-5 of its magnitude), C equal."""
+    import torch
+    same = rows_equal(card_model.codes, cpu_model.codes)
+    lam_need = max(atol_needed(card_model.lam, cpu_model.lam))
+    c_same = torch.equal(card_model.C.cpu(), cpu_model.C)
+    n = card_model.codes.shape[0]
+    log(f"front {kind} finalize, card against CPU from the same state: "
+        f"codes equal on {same:.6f} of {n} rows "
+        f"({round((1 - same) * n)} differ), lam needs atol "
+        f"{lam_need:.3e} of its magnitude beside rtol 1e-4, C equal "
+        f"{c_same}")
+    check(same >= 0.999 and lam_need <= STATE_ATOL and c_same,
+          f"front {kind}: the card's finalize != the CPU's")
+
+
+def step_atol(got, want, rev):
+    """Phase 11's step gate for one card step ``got`` against the CPU's
+    ``want`` from the same inputs (lists of tensors): (atol needed,
+    atol allowed).  Each leaf is held to rtol 1e-4 and an atol of its
+    magnitude times the larger of ``STATE_ATOL`` and ``SPREAD_FACTOR``
+    x the CPU's own spread: ``rev``, the CPU's step on the batch's rows
+    reversed (the same function in exact arithmetic, other summation
+    orders)."""
+    spread = max(atol_needed(rev, want))
+    return (max(atol_needed(got, want)),
+            max(STATE_ATOL, SPREAD_FACTOR * spread))
+
+
+def quantizer_gates(seed, xtr, hyper):
+    """PQ's, OPQ's and CQ's ``step`` and ``finalize`` on the card, each
+    run again on the CPU from the card's state (copied), held to phase
+    11's step gate (``step_atol``).  OPQ's round k-means draws the same
+    rows on both devices, but Lloyd's iterations then round apart, so
+    the CPU's round is fed the card's round init (``init_pq`` recorded
+    and replayed); R = U V^T of an f32 X^T Xbar whose singular values
+    span orders of magnitude moves by ~1e-5-1e-4 under any reordering
+    of the sums, which the CPU's reversed-rows spread measures.  CQ's
+    step is 50 AdamW updates
+    of C: AdamW divides a gradient near zero by itself, so two devices'
+    rounding compounds over a free-running round (one entry of 8192
+    0.00045 apart after 50 updates, a card test), and even one update
+    from shared inputs moves an entry whose gradient cancels to ~eps by
+    AdamW's normalization of that gradient's rounding.  So the gate
+    holds each update from the card's inputs in its two parts, the
+    gradient (phase 11's step gate) and the AdamW update from the
+    card's gradient (rtol 1e-4, atol 1e-5), and prints the state against
+    the CPU's own step: the first ``CQ_HELD`` updates of the round (a
+    CPU update of 100,000 points takes seconds), the whole round run
+    twice on the card bit for bit, and its warm ICM re-encode against
+    the CPU's from the card's C on >= 99.9% of rows."""
+    import torch
+    from repro_torch.core import codebooks as cbm
+    from repro_torch.core import encode as enc
+    from repro_torch.trainer import make_quantizer
+    xc = xtr.cpu()
+
+    def pair(kind):
+        return (make_quantizer(kind, hyper),
+                make_quantizer(kind, hyper, device="cpu"))
+
+    q, qc = pair("pq")
+    s = q.init(seed, xtr)
+    s1, s1c = q.step(s, xtr), qc.step(cpu_tree(s), xc)
+    check(torch.equal(s1["C"].cpu(), s1c["C"]), "front pq: step")
+    log("front pq step: the identity on both devices (C equal)")
+    finalize_gate("pq", q.finalize(s1, xtr), qc.finalize(cpu_tree(s1), xc))
+
+    q, qc = pair("opq")
+    s1 = q.step(q.init(seed, xtr), xtr)
+    orig, seen = cbm.init_pq, []
+
+    def record(*a, **kw):
+        seen.append(orig(*a, **kw))
+        return seen[-1]
+    try:
+        cbm.init_pq = record
+        s2 = q.step(s1, xtr)
+        cbm.init_pq = lambda *a, **kw: seen[-1].cpu()
+        s2c = qc.step(cpu_tree(s1), xc)
+        s2r = qc.step(cpu_tree(s1), xc.flip(0))
+    finally:
+        cbm.init_pq = orig
+    need, allowed = step_atol([s2["R"]], [s2c["R"]], [s2r["R"]])
+    log(f"front opq step (round 2, its k-means init the card's on both "
+        f"devices), card against CPU from the same state: R needs an atol "
+        f"of {need:.3e} of its magnitude beside rtol 1e-4 (allowed "
+        f"{allowed:.3e}: {STATE_ATOL} or {SPREAD_FACTOR}x the CPU's own "
+        f"spread on reversed rows)")
+    check(need <= allowed, f"front opq: the card's step != the CPU's "
+                           f"({need} > {allowed})")
+    finalize_gate("opq", q.finalize(s2, xtr), qc.finalize(cpu_tree(s2), xc))
+
+    q, qc = pair("cq")
+    s0 = q.init(seed, xtr)
+    C, opt, held, state_need = s0["C"], s0["opt_state"], [], []
+    codes_c = s0["codes"].cpu()
+
+    def leaves_of(c, o):
+        return [c, o["m"]["C"], o["v"]["C"]]
+    for _ in range(CQ_HELD):
+        g = q.c_grad(C, s0["codes"], xtr)
+        gc = qc.c_grad(C.cpu(), codes_c, xc)
+        grev = qc.c_grad(C.cpu(), codes_c.flip(0), xc.flip(0))
+        nxt = q.c_update(C, g, opt)
+        upd = qc.c_update(C.cpu(), g.cpu(), cpu_tree(opt))
+        own = qc.c_update(C.cpu(), gc, cpu_tree(opt))
+        held.append(step_atol([g], [gc], [grev])
+                    + (max(atol_needed(leaves_of(*nxt), leaves_of(*upd))),))
+        state_need.append(max(atol_needed(leaves_of(*nxt),
+                                          leaves_of(*own))))
+        C, opt = nxt
+    off = [(i, h) for i, h in enumerate(held)
+           if h[0] > h[1] or h[2] > STATE_ATOL]
+    s1 = q.step(s0, xtr)
+    again = q.c_steps(s0["C"], s0["codes"], s0["opt_state"], xtr)[0]
+    codes = enc.icm_encode(xc, s1["C"].cpu(), q.icq_cfg.icm_iters,
+                           init_codes=s0["codes"].cpu())
+    same = rows_equal(s1["codes"], codes)
+    det = torch.equal(again, s1["C"])
+    log(f"front cq step (its {q.grad_steps} AdamW updates of C, then the "
+        f"warm ICM re-encode): the first {CQ_HELD} updates from the card's "
+        f"inputs: the gradient on the card against the CPU's needs an atol "
+        f"of {max(h[0] for h in held):.3e} of its magnitude beside rtol "
+        f"1e-4 (allowed per update {[round(h[1], 9) for h in held]}: "
+        f"{STATE_ATOL} or {SPREAD_FACTOR}x the CPU's own spread on reversed "
+        f"rows); the card's AdamW update against the CPU's from the card's "
+        f"gradient needs {max(h[2] for h in held):.3e} (allowed "
+        f"{STATE_ATOL}); the state against the CPU's own step (each device "
+        f"its own gradient, not gated: AdamW divides a gradient that "
+        f"cancels to ~eps by itself) needs {max(state_need):.3e}; the "
+        f"round again on the card gives C bit for bit: {det}; the "
+        f"re-encode from the card's C equal on the CPU on {same:.6f} of "
+        f"{xtr.shape[0]} rows")
+    check(not off and det and same >= 0.999,
+          f"front cq: the card's step != the CPU's (update, (gradient "
+          f"needed, allowed, update needed)): {off}")
+    finalize_gate("cq", q.finalize(s1, xtr), qc.finalize(cpu_tree(s1), xc))
+
+
+def front_kernels(xtr, pq_model, cq_model):
+    """``kmeans_assign`` at the PQ subspace shape (the train points'
+    first 16 dimensions against PQ's first codebook) and ``icm_encode``
+    with CQ's trained codebooks at d = 128, against their plain versions
+    on the same card tensors (phases 2 and 6's criteria)."""
+    import torch
+    from repro_torch.core.encode import encode_pq
+    from repro_torch.kernels import icm_encode as icm
+    from repro_torch.kernels import kmeans as km
+    sub = FRONT["d"] // FRONT["K"]
+    x = xtr[:, :sub].contiguous()
+    cent = pq_model.C[0][:, :sub].contiguous()
+    ok, err, same, clear = compare_assign(km.kmeans_assign_cuda(x, cent),
+                                          km.kmeans_assign_torch(x, cent),
+                                          x, cent)
+    log(f"front kmeans_assign n={x.shape[0]} L={cent.shape[0]} d={sub}: "
+        f"ids equal on {same:.6f} ({clear} clear), max_abs_err {err}")
+    check(ok, "kmeans_assign at the PQ subspace shape disagrees with its "
+              "plain version")
+    C = cq_model.C.contiguous()
+    init = encode_pq(xtr, C)
+    got = icm.icm_encode_cuda(xtr, init, C, iters=ICM_ITERS)
+    want = icm.icm_encode_torch(xtr, init, C, iters=ICM_ITERS)
+    differ = int((got != want).any(1).sum())
+    mse = [float(row_errors(xtr, C, c).double().mean()) for c in (got,
+                                                                 want)]
+    log(f"front icm_encode n={xtr.shape[0]} K={C.shape[0]} m={C.shape[1]}"
+        f" d={C.shape[2]} (CQ's trained codebooks): {differ} rows differ "
+        f"from the plain version, MSE {mse[0]!r} vs plain {mse[1]!r}")
+    check(differ <= xtr.shape[0] // 1000
+          and abs(mse[0] - mse[1]) <= 1e-5 * abs(mse[1]),
+          "icm_encode with CQ's codebooks disagrees with its plain version")
+
+
+def front_supervised(kind, seed, card, workdir):
+    """Phase 12 (b): ``sq`` on Figure 2's protocol or ``pqn`` on Figure
+    5's through the session: fit, index the train set, serve the test
+    queries in one call (launches counted), MAP@50, Average Ops and
+    pass_rate; then the reload gate on that call.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data import make_table1_dataset, pseudo_mnist
+    from repro_torch.index.base import mean_average_precision
+    from repro_torch.api import icq_session
+    if kind == "sq":
+        f = FIG2
+        xtr, ytr, xte, yte = make_table1_dataset(f["dataset"])
+        extra = {"train.embed": "linear"}
+        what = f"Figure 2 {f['dataset']}"
+    else:
+        f = FIG5
+        xtr, ytr, xte, yte = pseudo_mnist(n_train=f["n_train"],
+                                          n_test=f["n_test"], seed=seed)
+        shape = (-1, f["hw"], f["hw"], f["channels"])
+        xtr, xte = xtr.reshape(shape), xte.reshape(shape)
+        extra = {"train.embed": "cnn", "train.img_hw": f["hw"],
+                 "train.channels": f["channels"]}
+        what = "Figure 5 pseudo_mnist"
+    cfg = front_config({
+        "train.quantizer": kind, "train.d": f["d"],
+        "train.num_codebooks": f["K"], "train.codebook_size": f["m"],
+        "train.num_fast": f["num_fast"], "train.epochs": f["epochs"],
+        "train.batch_size": f["batch"], "train.lr": f["lr"],
+        "index.kind": f["kind"], "serve.topk": f["topk"], **extra})
+    session = icq_session(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    session.fit(xtr, ytr, seed=seed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_l = read_launches()
+    searcher = register(f"front-{kind}", session.index())
+    # contiguous rows, as Searcher.embed makes them (the reload gate
+    # embeds them with the reloaded model directly; on the card a
+    # product's rounding depends on its operands' strides)
+    q = torch.from_numpy(np.ascontiguousarray(xte)).cuda()
+    reset_launches()
+    res = searcher.search(q)
+    torch.cuda.synchronize()
+    srv_l = read_launches()
+    check(srv_l == expected_launches(searcher.index, 1),
+          f"front {kind} serve launched {srv_l}")
+    mapv = float(mean_average_precision(res.indices,
+                                        torch.from_numpy(ytr).cuda(),
+                                        torch.from_numpy(yte).cuda()))
+    check(tuple(res.indices.shape) == (len(xte), f["topk"])
+          and bool(torch.isfinite(res.distances[:, 0]).all())
+          and mapv > 0.1, f"front {kind}: MAP@{f['topk']} {mapv}")
+    log(f"front {kind} ({what}, n={len(xtr)}, d={f['d']} K={f['K']} "
+        f"m={f['m']}, {f['epochs']} epochs of {f['batch']}, served "
+        f"{f['kind']} topk={f['topk']} over {len(xte)} test queries): fit "
+        f"{fit_s:.4f} s, MAP@{f['topk']} {mapv:.6f}, avg_ops "
+        f"{float(res.avg_ops):.6f}, pass_rate {float(res.pass_rate):.6f},"
+        f" peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+        f"launches: fit {fit_l['kmeans_assign']} kmeans_assign, "
+        f"{fit_l['icm_encode']} icm_encode; serve {srv_l}; {card}")
+    reload_gate(kind, searcher, q, (res.indices, res.distances), workdir,
+                tiled=False)
+    return {k: fit_l[k] + srv_l[k] for k in fit_l}, searcher
+
+
+def tenant_gate(searcher):
+    """``Tenant.from_searcher`` in a ``ServingLoop``: one request of 16
+    raw rows answers what ``searcher.search`` answers on them (the loop
+    pins the engine's tile, so both run the same tiles)."""
+    import numpy as np
+    from repro_torch.serve import ServingLoop, Tenant
+    rows = np.random.default_rng(5).standard_normal(
+        (16, FRONT["d"])).astype(np.float32)
+    with ServingLoop(Tenant.from_searcher("front", searcher)) as loop:
+        got = loop.search(rows)
+        want = searcher.search(rows)
+    same = (np.array_equal(got.indices, want.indices.cpu().numpy())
+            and np.array_equal(got.distances, want.distances.cpu().numpy()))
+    log(f"front tenant: Tenant.from_searcher in a ServingLoop answers a "
+        f"16-row request as Searcher.search does: {same}")
+    check(same, "Tenant.from_searcher answers otherwise than the searcher")
+
+
+def resume_gate(seed, uninterrupted, workdir):
+    """Phase 11's Figure 1 cell trained by ``fit(ckpt_dir=)`` with a
+    fault raised once before epoch ``RESUME_FAULT_EPOCH``: one restart
+    (the hook is called once an attempt: epochs + restarts calls), and
+    C, codes and structure equal the uninterrupted fit's bit for bit."""
+    import torch
+    from repro_torch.configs import ICQConfig
+    from repro_torch.data import make_table1_dataset
+    from repro_torch.trainer import fit
+    f = FIG1
+    xtr, ytr, _, _ = make_table1_dataset(f["dataset"])
+    cfg = ICQConfig(d=f["d"], num_codebooks=f["K"], codebook_size=f["m"],
+                    num_fast=f["num_fast"])
+    calls = []
+
+    def fault(epoch):
+        calls.append(epoch)
+        if epoch == RESUME_FAULT_EPOCH and calls.count(epoch) == 1:
+            raise RuntimeError("injected fault")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fit(seed, xtr, ytr, cfg, mode="icq", epochs=f["epochs"],
+                batch_size=f["batch"], lr=f["lr"],
+                ckpt_dir=os.path.join(workdir, "fig1-ckpt"),
+                fault_hook=fault)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    restarts = len(calls) - f["epochs"]
+    same = {"C": torch.equal(model.C, uninterrupted.C),
+            "codes": torch.equal(model.codes, uninterrupted.codes),
+            "structure": all(torch.equal(a, b) for a, b in
+                             zip(model.structure, uninterrupted.structure))}
+    log(f"front resume: fit(ckpt_dir=) of the Figure 1 cell with a fault "
+        f"before epoch {RESUME_FAULT_EPOCH}: {restarts} restart(s), "
+        f"{fit_s:.4f} s; equal to the uninterrupted fit bit for bit: "
+        f"{same}")
+    check(restarts == 1 and all(same.values()),
+          f"front resume: {restarts} restarts, equal {same}")
+
+
+def front_door(seed: int, n_base: int, card: str, fig1_model):
+    """Phase 12: the front door (see the module docstring).  Returns
+    the main path's launches."""
+    import torch
+    from repro_torch import eval as eval_mod
+    from repro_torch.data import pseudo_sift
+    f = FRONT
+    n_train = min(f["n_train"], n_base // 10)
+    t0 = time.perf_counter()
+    x, q, _ = pseudo_sift(n=n_train + n_base, n_queries=f["nq"], d=f["d"],
+                          seed=seed)
+    xtr = torch.from_numpy(x[:n_train]).cuda()
+    xdb = torch.from_numpy(x[n_train:]).cuda()
+    q = torch.from_numpy(q).cuda()
+    del x
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gt_ids, _ = eval_mod.ground_truth(xdb, q, f["topk"])
+    gt_s = time.perf_counter() - t0
+    log(f"front data: pseudo_sift (seed {seed}) {n_train} train + "
+        f"{n_base} base points, {f['nq']} queries, d={f['d']}, made in "
+        f"{gen_s:.2f} s (host); ground truth top-{f['topk']} in "
+        f"{gt_s:.4f} s")
+    total = {k: 0 for k in read_launches()}
+    models = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_") as workdir:
+        for kind, rounds in FRONT_KINDS:
+            launches, session, searcher = front_baseline(
+                kind, rounds, (xtr, xdb, q), gt_ids, seed=seed, card=card,
+                workdir=workdir)
+            for k in total:
+                total[k] += launches[k]
+            models[kind] = session.model
+            if kind == "pq":
+                tenant_gate(searcher)
+            del session, searcher
+        for kind in ("sq", "pqn"):
+            launches, _ = front_supervised(kind, seed, card, workdir)
+            for k in total:
+                total[k] += launches[k]
+        hyper = front_config({
+            "train.d": f["d"], "train.num_codebooks": f["K"],
+            "train.codebook_size": f["m"]}).train.hyperparams(
+                icm_iters=ICM_ITERS)
+        quantizer_gates(seed, xtr, hyper)
+        front_kernels(xtr, models["pq"], models["cq"])
+        resume_gate(seed, fig1_model, workdir)
+    return total
 
 
 def cuda_held(label: str) -> int:
@@ -2977,10 +3569,12 @@ def main(argv=None) -> int:
                                                            workdir)
     check_kernel_ops(args.seed)
     ops_total, ops_records = kernel_ops(args.seed, args.n)
-    train_total = train_cell(args.seed, card, profile_dir=args.profile)
+    train_total, fig1_model = train_cell(args.seed, card,
+                                         profile_dir=args.profile)
+    front_total = front_door(args.seed, args.n, card, fig1_model)
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
-                     + train_total[k])
+                     + train_total[k] + front_total[k])
     records.update(ivf_records)
     records.update(ops_records)
     for k, rec in records.items():

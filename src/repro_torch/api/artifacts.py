@@ -1,17 +1,25 @@
-"""Persistent artifacts (the index side of ``repro.api.artifacts``): one
-directory with ``manifest.json`` (format version, config and config
-hash, array inventory, index metadata) and ``arrays.npz``.  The layout
-is the reference's, so a directory written by either package loads in
-the other.
+"""Persistent artifacts (twin of ``repro.api.artifacts``): one directory
+with ``manifest.json`` (format version, config and config hash, array
+inventory, model and index metadata) and ``arrays.npz``.  The layout is
+the reference's, so a directory written by either package loads in the
+other.
 
 Guarantees, as in the reference: atomic saves (stage into
 ``<path>.tmp``, swap by renames; ``load`` recovers a ``<path>.old`` left
-by a crash inside the swap), and verified loads (format version, npz
-byte size, per-array dtype and shape, and with ``verify_checksums`` the
+by a crash inside the swap), verified loads (format version, npz byte
+size, per-array dtype and shape, and with ``verify_checksums`` the
 sha256 of every tensor), each failure an ``ArtifactError`` naming what
-failed.  A manifest with a ``model`` section loads and its arrays are
-verified, but only the index is rebuilt: the model loader waits for the
-training slice (ROADMAP.md, queue 1, item 9).
+failed, and a bitwise round trip: fit -> save -> load -> search serves
+the in-process ids and distances.
+
+The model section (embedding params, codebooks, database codes,
+structure, variance estimate) serializes any ``trainer.base.ICQModel``
+whose embedder is a built-in (linear / cnn / identity): the apply
+function is rebuilt from the recorded kind, as in the reference.  An
+OPQ model's embedding is its rotation R (``model/embed/R``) folded into
+the apply; neither package records that apply, so its reload raises an
+``ArtifactError`` naming the rotation, where the reference's embed
+fails later with a bare ``KeyError`` (ROADMAP.md section 3).
 
 An IVF index stores its partition (``index/ivf/{centroids,lists,
 list_lens}``, meta ``imbalance``, ``n_probe``, ``list_codes``); the
@@ -28,6 +36,7 @@ import shutil
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.api.config import ICQConfig
 from repro_torch.index import make_index
@@ -40,6 +49,8 @@ _ARRAYS = "arrays.npz"
 _TMP_SUFFIX = ".tmp"
 _OLD_SUFFIX = ".old"
 _STRUCTURE = ("xi", "fast_mask", "sigma")
+# embedders rebuilt from a recorded kind (core/embed.py)
+_EMBED_KINDS = ("linear", "cnn", "identity")
 
 
 class ArtifactError(RuntimeError):
@@ -101,27 +112,75 @@ def index_from_numpy(arrays: Dict[str, np.ndarray], config_dict, *,
                       **index_opts(config.index, config.serve))
 
 
+def _embed_apply_for(kind: str):
+    from repro_torch.core import embed as embed_mod
+
+    if kind == "linear":
+        return embed_mod.linear_apply
+    if kind == "cnn":
+        return embed_mod.cnn_apply
+    if kind == "identity":
+        return embed_mod.identity_apply
+    raise ArtifactError(
+        f"unknown embed kind {kind!r} in manifest; this build rebuilds "
+        f"{list(_EMBED_KINDS)}")
+
+
+def _nest(flat: Dict[str, np.ndarray], device) -> Dict:
+    """A nested dict of tensors on ``device`` from ``a/b/c``-keyed
+    arrays (the embed params are plain nested dicts)."""
+    out: Dict = {}
+    for key, a in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.from_numpy(np.array(a)).to(device)
+    return out
+
+
+def _stored_codes(codes: np.ndarray, m: int) -> np.ndarray:
+    """Codes in the reference's stored width: the port keeps m > 256
+    codes as int32, the reference stores m <= 65536 as uint16."""
+    if codes.dtype == np.int32 and 256 < m <= 65536:
+        return codes.astype(np.uint16)
+    return codes
+
+
+def _codes_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """Stored codes as the port holds them: uint8, or int32 for the
+    reference's uint16 (PyTorch's uint16 covers few ops)."""
+    t = torch.from_numpy(np.array(a))
+    if t.dtype not in (torch.uint8, torch.int32):
+        t = t.to(torch.int32)
+    return t.to(device)
+
+
 @dataclasses.dataclass
 class Artifacts:
-    """A saved (or about-to-be-saved) index with its config."""
+    """A saved (or about-to-be-saved) system: config + optional trained
+    model + optional built index."""
     config: ICQConfig
+    model: Optional[Any] = None          # trainer.base.ICQModel
     index: Optional[Any] = None          # FlatADC | TwoStep | IVFTwoStep
     manifest: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------- save --
     def save(self, path: str) -> str:
         """Write the artifact directory atomically; returns ``path``."""
-        if self.index is None:
-            raise ArtifactError("nothing to save: the port saves an index "
-                                "(model artifacts wait for the training "
-                                "slice)")
         arrays: Dict[str, np.ndarray] = {}
         manifest: Dict[str, Any] = {
             "format_version": FORMAT_VERSION,
             "config": self.config.to_dict(),
             "config_hash": self.config.config_hash(),
-            "index": self._save_index(arrays),
         }
+        if self.model is not None:
+            manifest["model"] = self._save_model(arrays)
+        if self.index is not None:
+            manifest["index"] = self._save_index(arrays)
+        if self.model is None and self.index is None:
+            raise ArtifactError("nothing to save: artifacts need a model, "
+                                "an index, or both")
         manifest["arrays"] = {
             k: {"dtype": str(a.dtype), "shape": list(a.shape),
                 "sha256": tensor_sha256(a)}
@@ -152,6 +211,32 @@ class Artifacts:
         self.manifest = manifest
         return path
 
+    def _save_model(self, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """The reference's model section: ``model/embed/<path>`` (none
+        for an identity embedder), ``model/{C,codes,lam}`` and
+        ``model/structure/{xi,fast_mask,sigma}``; meta mode, embed kind
+        (the config's ``train.embed``, or identity without params) and
+        n.  An OPQ model's params ``{"base", "R"}`` are saved as they
+        are, under the config's kind, as the reference saves them."""
+        from repro_torch.distributed.checkpoint import flatten_pytree
+
+        model = self.model
+        embed_kind = self.config.train.embed
+        if model.embed_params is None:
+            embed_kind = "identity"
+        else:
+            for k, a in flatten_pytree(model.embed_params).items():
+                arrays[f"model/embed/{k}"] = a
+        C = model.C.detach().cpu().numpy()
+        arrays["model/C"] = C
+        arrays["model/codes"] = _stored_codes(model.codes.cpu().numpy(),
+                                              C.shape[1])
+        arrays["model/lam"] = model.lam.detach().cpu().numpy()
+        for k, t in zip(_STRUCTURE, model.structure):
+            arrays[f"model/structure/{k}"] = t.cpu().numpy()
+        return {"mode": model.mode, "embed": embed_kind,
+                "n": int(model.codes.shape[0])}
+
     def _save_index(self, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
         idx = self.index
         kind = {FlatADC: "flat", TwoStep: "two-step",
@@ -166,16 +251,13 @@ class Artifacts:
                 f"disagrees with the config's "
                 f"index.code_bits={self.config.index.code_bits}; the "
                 "embedded config describes the reload, so align them")
-        codes = idx.codes.cpu().numpy()
-        m = idx.C.shape[1]
-        if codes.dtype == np.int32 and 256 < m <= 65536:
-            codes = codes.astype(np.uint16)   # the reference's stored width
-        arrays["index/codes"] = codes
+        arrays["index/codes"] = _stored_codes(idx.codes.cpu().numpy(),
+                                              idx.C.shape[1])
         arrays["index/C"] = idx.C.cpu().numpy()
         if kind != "flat":
             for k, t in zip(_STRUCTURE, idx.structure):
                 arrays[f"index/structure/{k}"] = t.cpu().numpy()
-        meta = {"kind": kind, "n": int(codes.shape[0]),
+        meta = {"kind": kind, "n": int(idx.codes.shape[0]),
                 "code_bits": int(idx.code_bits)}
         if kind == "ivf":
             if int(idx.n_probe) != self.config.index.n_probe:
@@ -196,13 +278,15 @@ class Artifacts:
     @classmethod
     def load(cls, path: str, *, overrides=None,
              verify_checksums: Optional[bool] = False,
-             device=None) -> "Artifacts":
-        """Read and verify an artifact directory and rebuild its index on
-        ``device`` (the card unless named).  ``overrides`` (dotted
-        config paths) apply before the index is rebuilt, except
+             device=None, load_model: bool = True) -> "Artifacts":
+        """Read and verify an artifact directory and rebuild its model
+        and index on ``device`` (the card unless named).  ``overrides``
+        (dotted config paths) apply before the index is rebuilt, except
         ``index.kind``, which names the stored layout.
         ``verify_checksums=None`` defers to the embedded
-        ``resilience.verify_artifacts``."""
+        ``resilience.verify_artifacts``.  ``load_model=False`` verifies
+        the model section's arrays but does not rebuild the model (a
+        serving engine needs the index alone)."""
         cls._recover(path)
         manifest = cls._read_manifest(path)
         config = cls._config_of(manifest, path, overrides)
@@ -210,11 +294,15 @@ class Artifacts:
             verify_checksums = config.resilience.verify_artifacts
         arrays = cls._load_arrays(path, manifest,
                                   verify_checksums=verify_checksums)
-        index = None
+        model = index = None
+        if "model" in manifest and load_model:
+            model = cls._load_model(path, arrays, manifest["model"], config,
+                                    device)
         if "index" in manifest:
             index = cls._load_index(arrays, manifest["index"], config,
                                     device)
-        return cls(config=config, index=index, manifest=manifest)
+        return cls(config=config, model=model, index=index,
+                   manifest=manifest)
 
     @classmethod
     def load_config(cls, path: str, *, overrides=None) -> ICQConfig:
@@ -309,6 +397,46 @@ class Artifacts:
         return arrays
 
     @staticmethod
+    def _load_model(path: str, arrays, meta: Dict, config: ICQConfig,
+                    device):
+        from repro_torch.core.icq import ICQStructure
+        from repro_torch.index.base import resolve_device
+        from repro_torch.trainer.base import ICQModel
+
+        dev = resolve_device(device)
+        needed = ["model/C", "model/codes", "model/lam"] + [
+            f"model/structure/{k}" for k in _STRUCTURE]
+        missing = [k for k in needed if k not in arrays]
+        if missing:
+            raise ArtifactError(f"{path}: the model section lacks "
+                                f"array(s) {missing}")
+        prefix = "model/embed/"
+        embed_flat = {k[len(prefix):]: a for k, a in arrays.items()
+                      if k.startswith(prefix)}
+        if "R" in embed_flat:
+            raise ArtifactError(
+                f"{path}: the model's embedding holds an OPQ rotation "
+                "(model/embed/R), and its apply (the base embedder, then "
+                "x @ R) is not recorded: the manifest names the embed "
+                f"kind {meta['embed']!r}, which cannot rebuild it; serve "
+                "the index with load_ann_engine and rotate the queries "
+                "with the fitted model")
+        embed_apply = _embed_apply_for(meta["embed"])
+        structure = ICQStructure(*(
+            torch.from_numpy(np.array(arrays[f"model/structure/{k}"]))
+            .to(dev) for k in _STRUCTURE))
+        return ICQModel(
+            icq_cfg=config.train.hyperparams(
+                icm_iters=config.encode.icm_iters),
+            embed_params=_nest(embed_flat, dev) if embed_flat else None,
+            embed_apply=embed_apply,
+            C=torch.from_numpy(np.array(arrays["model/C"])).to(dev),
+            codes=_codes_tensor(arrays["model/codes"], dev),
+            structure=structure,
+            lam=torch.from_numpy(np.array(arrays["model/lam"])).to(dev),
+            mode=meta["mode"])
+
+    @staticmethod
     def _load_index(arrays, meta: Dict, config: ICQConfig, device):
         kind = meta["kind"]
         if kind != config.index.kind:
@@ -324,3 +452,17 @@ class Artifacts:
         return index_from_numpy(arrays, config, device=device,
                                 imbalance=meta.get("imbalance"))
 
+
+
+def save_artifacts(path: str, *, config: ICQConfig, model=None,
+                   index=None) -> str:
+    """One-call save: ``Artifacts(config, model, index).save(path)``."""
+    return Artifacts(config=config, model=model, index=index).save(path)
+
+
+def load_artifacts(path: str, *, verify_checksums: bool = False,
+                   device=None) -> Artifacts:
+    """One-call load: ``Artifacts.load(path)`` on ``device`` (the card
+    unless named)."""
+    return Artifacts.load(path, verify_checksums=verify_checksums,
+                          device=device)

@@ -285,7 +285,9 @@ class AnnEngine:
         deadline = self._deadline(budget)
         if not isinstance(queries, torch.Tensor):
             queries = torch.from_numpy(np.array(queries, np.float32))
-        queries = queries.to(self.device, torch.float32)
+        # one layout: on the card the LUT product's rounding depends on
+        # the operand strides (cuBLAS picks its kernel by them)
+        queries = queries.to(self.device, torch.float32).contiguous()
         t0 = time.perf_counter()
         key, result = self._serve(level, k, budget, queries, filter)
         wall_ms = (time.perf_counter() - t0) * 1000.0
@@ -423,10 +425,13 @@ def load_ann_engine(path: str, *, device=None,
     ``overrides`` applies dotted config overrides before the index is
     rebuilt.  ``verify_checksums`` forces the per-tensor sha256 pass
     (None defers to the embedded ``resilience.verify_artifacts``).  The
-    engine inherits the embedded ``ResilienceConfig``."""
+    engine inherits the embedded ``ResilienceConfig``.  A model section
+    is verified but not rebuilt: the engine serves embedded queries
+    (``ICQSession.from_artifacts`` rebuilds the model)."""
     device = resolve_device(device)
     art = Artifacts.load(path, overrides=overrides,
-                         verify_checksums=verify_checksums, device=device)
+                         verify_checksums=verify_checksums, device=device,
+                         load_model=False)
     if art.index is None:
         raise ArtifactError(
             f"{path}: artifacts hold no index (model-only save); build "

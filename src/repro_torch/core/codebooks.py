@@ -122,8 +122,58 @@ def codeword_sq_norms(C: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(C), dim=-1)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` whose gradient is summed per row of ``table`` in
+    ascending position of ``idx`` (flattened) from 0.0 -- a stable sort,
+    then segment sums, as ``kmeans_update`` sums -- so it is the same on
+    every run and device.  The gradient of plain indexing scatters with
+    an accumulating ``index_put_``, whose float sums change from run to
+    run on the CPU's threads.  No step waits on the device: the segment
+    lengths are an integer scatter of ones."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        lens = torch.zeros((ctx.rows,), dtype=torch.int64,
+                           device=flat.device).scatter_add_(
+                               0, flat, torch.ones_like(flat))
+        rows = grad.reshape((flat.shape[0],) + grad.shape[idx.dim():])
+        sums = torch.segment_reduce(rows[order], "sum", lengths=lens,
+                                    axis=0, unsafe=True, initial=0.0)
+        return sums, None
+
+
+def selected_codewords(C: torch.Tensor, codes: torch.Tensor):
+    """The codewords the codes select: C (K, m, d), codes (n, K) ->
+    (n, K, d), one gather over the flattened codebooks, with a
+    deterministic gradient (``_GatherRows``: one sort) when C needs
+    one."""
+    K, m, d = C.shape
+    idx = codes.long() + torch.arange(K, device=codes.device) * m
+    table = C.reshape(K * m, d)
+    if torch.is_grad_enabled() and C.requires_grad:
+        return _GatherRows.apply(table, idx)
+    return table[idx]
+
+
 def decode(C: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """Decode codes (n, K) against C (K, m, d) -> (n, d)."""
+    """Decode codes (n, K) against C (K, m, d) -> (n, d), the selected
+    codewords added in codebook order (with a deterministic gradient in
+    C: ``selected_codewords``)."""
+    if torch.is_grad_enabled() and C.requires_grad:
+        sel = selected_codewords(C, codes).unbind(1)
+        out = sel[0]
+        for k in range(1, C.shape[0]):
+            out = out + sel[k]
+        return out
     codes = codes.long()
     out = C[0][codes[:, 0]]
     for k in range(1, C.shape[0]):

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import codebooks as cb
 from repro_torch.core import encode as enc
 
 
@@ -44,18 +45,12 @@ def cq_penalty(C, codes, eps_target=None):
     """Composite-Quantization constraint (Zhang et al. 2014): the batch
     variance of  s_i = sum_{j != k} <c_j,b_ij, c_k,b_ik>  around its mean
     (or ``eps_target``); returns (penalty, batch mean)."""
-    sel = _selected(C, codes)                                # (n,K,d)
+    sel = cb.selected_codewords(C, codes)                    # (n,K,d)
     tot = torch.sum(sel, dim=1)                              # (n,d)
     sq_sum = torch.sum(torch.square(sel), dim=(1, 2))        # sum_k ||c_k||^2
     cross = torch.sum(torch.square(tot), dim=-1) - sq_sum    # (n,)
     mean = torch.mean(cross) if eps_target is None else eps_target
     return torch.mean(torch.square(cross - mean)), torch.mean(cross)
-
-
-def _selected(C, codes):
-    """Gather the selected codewords: (n, K, d)."""
-    codes = codes.long()
-    return torch.stack([C[k][codes[:, k]] for k in range(C.shape[0])], dim=1)
 
 
 def icq_loss(C, xi):

@@ -1,8 +1,17 @@
-"""Synthetic data of the port (twin of ``repro.data``): the Table-1
-datasets and the serving paths' random index."""
+"""Data of the port (twin of ``repro.data``, numpy only): the Table-1
+datasets, the pseudo-real stand-ins (MNIST, CIFAR, SIFT and GloVe
+shaped), the array minibatcher and the serving paths' random index.
+``TokenPipeline`` waits for ROADMAP.md queue 1 item 11."""
+from repro_torch.data.pipeline import ArrayPipeline
+from repro_torch.data.pseudo_real import (pseudo_cifar, pseudo_glove,
+                                          pseudo_mnist, pseudo_sift,
+                                          skewed_queries)
 from repro_torch.data.synthetic import (SYNTHETIC_DATASETS, guyon_dataset,
                                         make_synthetic_index,
                                         make_table1_dataset)
 
-__all__ = ["SYNTHETIC_DATASETS", "guyon_dataset", "make_table1_dataset",
-           "make_synthetic_index"]
+__all__ = [
+    "guyon_dataset", "SYNTHETIC_DATASETS", "make_table1_dataset",
+    "pseudo_mnist", "pseudo_cifar", "ArrayPipeline", "pseudo_sift",
+    "pseudo_glove", "skewed_queries", "make_synthetic_index",
+]

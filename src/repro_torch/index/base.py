@@ -14,7 +14,7 @@ table is bitwise equal to the reference's and to the CUDA kernels'.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -34,6 +34,23 @@ class SearchResult(NamedTuple):
     avg_ops: torch.Tensor     # () f32 average LUT adds per database point
     pass_rate: torch.Tensor   # () f32 fraction refined (phase-2 survivors)
     meta: Optional[object] = None   # resilience.budget.ResultMeta
+
+
+@runtime_checkable
+class Index(Protocol):
+    """The index protocol (twin of ``repro.index.base.Index``): a frozen
+    index serves ``search`` and grows by ``add`` (new vectors encoded
+    and appended without retraining; a new index is returned).
+    ``shard`` waits for ROADMAP.md queue 1 item 10 and raises."""
+
+    def search(self, queries, topk: Optional[int] = None) -> SearchResult:
+        ...
+
+    def add(self, new_vectors, *, icm_iters: int = 3) -> "Index":
+        ...
+
+    def shard(self, mesh) -> "Index":
+        ...
 
 
 # --------------------------------------------------------------- device ----

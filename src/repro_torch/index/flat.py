@@ -361,6 +361,17 @@ def two_step_search(queries, codes, C, structure, topk: int, *,
     return two_step_result(*out, K=C.shape[0], kf=_fast_count(structure))
 
 
+def two_step_search_compact(queries, codes, C, structure, topk: int,
+                            refine_cap: int, *,
+                            query_chunk: Optional[int] = None):
+    """The reference's back-compat wrapper: ``two_step_search`` with
+    the ``refine_cap`` survivor compaction, on the plain versions (so
+    on the CPU only; the card refuses ``refine_cap``)."""
+    return two_step_search(queries, codes, C, structure, topk,
+                           backend="jnp", query_chunk=query_chunk,
+                           refine_cap=refine_cap)
+
+
 def two_step_crude_search(queries, codes, C, structure, topk: int, *,
                           backend: str = "auto",
                           query_chunk: Optional[int] = None,

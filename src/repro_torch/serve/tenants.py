@@ -22,6 +22,8 @@ import dataclasses
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.resilience.budget import SearchBudget
 from repro_torch.serve.coalescer import ServeError
 
@@ -64,7 +66,10 @@ class Tenant:
         model)."""
         if self.model is None:
             return queries
-        return self.model.embed(queries)
+        out = self.model.embed(queries)
+        if isinstance(out, torch.Tensor):
+            out = out.detach().cpu().numpy()
+        return out
 
     # ------------------------------------------------------ constructors --
     @classmethod
@@ -91,15 +96,16 @@ class Tenant:
     @classmethod
     def from_searcher(cls, name: str, searcher, *,
                       budget: Optional[SearchBudget] = None) -> "Tenant":
-        """Wrap a live searcher (model + engine; duck-typed: ``.engine``,
-        ``.model`` with ``embed``, ``.config.serve``; the port's
-        ``Searcher`` comes with the training slice, ROADMAP.md queue 1
-        item 9): the loop embeds raw rows exactly as
-        ``searcher.search`` would."""
+        """Wrap a live ``api.Searcher`` (model + engine; any object with
+        ``.engine``, ``.model`` and ``.config.serve`` serves): the loop
+        embeds raw rows as ``searcher.search`` would, with the
+        searcher's own ``embed`` (on the engine's device) where it has
+        one."""
         cfg = searcher.config.serve
-        return cls(name=name, engine=searcher.engine,
-                   model=searcher.model, budget=budget,
-                   tile=cfg.batch_tile, window_ms=cfg.batch_window_ms)
+        model = searcher if hasattr(searcher, "embed") else searcher.model
+        return cls(name=name, engine=searcher.engine, model=model,
+                   budget=budget, tile=cfg.batch_tile,
+                   window_ms=cfg.batch_window_ms)
 
 
 def parse_tenant_specs(specs: Sequence[str]) -> List[Tuple[str, str]]:

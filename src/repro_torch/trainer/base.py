@@ -7,8 +7,8 @@ Every quantizer speaks the same three verbs:
     step(state, batch)  -> state     one optimization step or round
     finalize(state, xs) -> ICQModel  export: project, encode db, pack
 
-The quantizers behind the protocol (joint, PQ, OPQ, CQ) wait for
-ROADMAP.md queue 1 item 9b; the joint trainer's functions are in
+The quantizers behind the protocol (joint, PQ, OPQ, CQ) are in
+``trainer/quantizers.py``; the joint trainer's functions are in
 ``trainer/joint.py`` and its epoch loop in ``trainer/epoch.py``.
 """
 from __future__ import annotations

@@ -189,8 +189,9 @@ def test_atomic_save_and_old_recovery(tmp_path):
 
 
 def test_model_section_loads_and_is_verified(tmp_path):
-    """A manifest with a ``model`` section loads (only the index is
-    rebuilt), and the model's arrays are held to the inventory."""
+    """A manifest with a ``model`` section loads, its model is rebuilt
+    (identity embed, the stored C, codes, lam and structure), and the
+    model's arrays are held to the inventory."""
     import json
     from repro.api.artifacts import tensor_sha256
     path, _, ref_idx = _ref_artifact(tmp_path, "two-step", 8)
@@ -199,16 +200,26 @@ def test_model_section_loads_and_is_verified(tmp_path):
     with np.load(npz) as z:
         arrays = {k: z[k] for k in z.files}
     arrays["model/C"] = np.asarray(ref_idx.C)
+    arrays["model/codes"] = np.asarray(ref_idx.codes)
+    arrays["model/lam"] = np.ones((arrays["model/C"].shape[-1],),
+                                  np.float32)
+    for k in ("xi", "fast_mask", "sigma"):
+        arrays[f"model/structure/{k}"] = arrays[f"index/structure/{k}"]
     manifest = json.loads(pathlib.Path(man).read_text())
     manifest["model"] = {"mode": "icq", "embed": "identity", "n": 700}
-    manifest["arrays"]["model/C"] = {
-        "dtype": "float32", "shape": list(arrays["model/C"].shape),
-        "sha256": tensor_sha256(arrays["model/C"])}
+    for k, a in arrays.items():
+        manifest["arrays"][k] = {"dtype": str(a.dtype),
+                                 "shape": list(a.shape),
+                                 "sha256": tensor_sha256(a)}
     np.savez(npz, **arrays)
     manifest["arrays_bytes"] = os.path.getsize(npz)
     pathlib.Path(man).write_text(json.dumps(manifest))
     art = Artifacts.load(path, device="cpu", verify_checksums=True)
     assert art.index is not None and "model" in art.manifest
+    np.testing.assert_array_equal(art.model.C.numpy(), arrays["model/C"])
+    np.testing.assert_array_equal(art.model.codes.numpy(),
+                                  arrays["model/codes"])
+    assert art.model.embed_params is None and art.model.mode == "icq"
     arrays["model/C"] = arrays["model/C"] + 1.0
     np.savez(npz, **arrays)
     with pytest.raises(ArtifactError, match="model/C"):

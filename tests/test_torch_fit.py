@@ -203,9 +203,12 @@ def test_epoch_batches_permute_and_drop_tail(data):
 
 
 def test_fit_refuses_unported_options(data):
+    """Only the data-parallel options (item 10) still raise: ``fit``'s
+    ``mesh=`` and the step's ``axis_name``."""
     xs, ys, _, _ = data
     cfg = ICQConfig(**CFG)
     with pytest.raises(NotImplementedError, match="item 10"):
         fit(0, xs, ys, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        fit(0, xs, ys, cfg, ckpt_dir="ckpt", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_train_step(cfg, port_embed.linear_apply,
+                        AdamW(lr=lambda s: 1e-3), "icq", axis_name="data")

@@ -1189,3 +1189,111 @@ def test_cuda_train_step_equals_cpu(mode, embed):
                     tree_leaves({"p": want[0], "o": want[1], "v": want[2]})):
         scale = float(w.abs().max())
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
+@pytest.mark.parametrize("quantizer", ["icq", "pq", "opq", "cq"])
+def test_cuda_session_round_trip(tmp_path, quantizer, kind):
+    """The session on the card: fit -> index -> search -> save, then
+    ``load_ann_engine`` fed ``from_artifacts``'s embeddings serves the
+    in-process result bit for bit (an OPQ reload raises
+    ``ArtifactError``; its index alone serves the searcher's
+    embeddings)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.api import (ArtifactError, ICQConfig, ICQSession,
+                                 icq_session, load_ann_engine)
+    from repro_torch.data import make_table1_dataset
+    xtr, ytr, xte, _ = make_table1_dataset("dataset2")
+    joint = quantizer == "icq"
+    cfg = ICQConfig().with_overrides({
+        "train.quantizer": quantizer, "train.d": 16 if joint else 64,
+        "train.num_codebooks": 4, "train.codebook_size": 16,
+        "train.num_fast": 1, "train.epochs": 2, "index.kind": kind,
+        "index.n_lists": 8, "index.n_probe": 4, "serve.topk": 10})
+    session = icq_session(cfg)
+    session.fit(xtr[:600], ytr[:600], seed=0)
+    searcher = session.index()
+    # contiguous rows, as Searcher.embed makes them: on the card a
+    # product's rounding depends on its operands' strides
+    q = torch.from_numpy(np.ascontiguousarray(xte[:16])).cuda()
+    r0 = searcher.search(q)
+    assert r0.indices.is_cuda and r0.meta.backend == "cuda"
+    path = searcher.save(str(tmp_path / "art"))
+    engine = load_ann_engine(path)
+    if quantizer == "opq":
+        with pytest.raises(ArtifactError, match="OPQ rotation"):
+            ICQSession.from_artifacts(path)
+        embed = searcher.embed
+    else:
+        embed = ICQSession.from_artifacts(path).model.embed
+    r1 = engine(embed(q))
+    assert torch.equal(r0.indices, r1.indices)
+    assert torch.equal(r0.distances, r1.distances)
+
+
+@pytest.mark.gpu
+def test_cuda_codeword_gather_gradient_is_deterministic():
+    """CQ's 50 AdamW steps on C run twice on the card from one state
+    give the same C bit for bit (the gather's gradient is a sorted
+    segment sum); each of 5 updates from the card's inputs agrees with
+    the CPU's update from the same inputs to rtol 1e-4 with an atol of
+    1e-5 of C's magnitude (free-running, the devices' rounding
+    compounds through AdamW: one entry of 8192 ends 4.5e-4 apart after
+    50)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import ICQConfig
+    from repro_torch.trainer import make_quantizer
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((20000, 32)).astype(
+        np.float32))
+    cfg = ICQConfig(d=32, num_codebooks=4, codebook_size=64, num_fast=1)
+    q = make_quantizer("cq", cfg)
+    s0 = q.init(0, x)
+    xc = x.cuda()
+    a = q.c_steps(s0["C"], s0["codes"], s0["opt_state"], xc)
+    b = q.c_steps(s0["C"], s0["codes"], s0["opt_state"], xc)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1]["v"]["C"],
+                                                   b[1]["v"]["C"])
+    qc = make_quantizer("cq", cfg, device="cpu")
+    C, opt = s0["C"], s0["opt_state"]
+    for _ in range(5):
+        got = q.c_step(C, s0["codes"], opt, xc)
+        want = qc.c_step(C.cpu(), s0["codes"].cpu(),
+                         {"m": {"C": opt["m"]["C"].cpu()},
+                          "v": {"C": opt["v"]["C"].cpu()},
+                          "step": opt["step"].cpu()}, x)
+        scale = float(want[0].abs().max())
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4,
+                                   atol=1e-5 * scale)
+        C, opt = got
+
+
+@pytest.mark.gpu
+def test_cuda_fit_resumed_equals_uninterrupted(tmp_path):
+    """``fit(ckpt_dir=)`` on the card, killed at epoch 2 and re-invoked
+    with the same seed, ends bit for bit where the uninterrupted fit
+    ends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import ICQConfig
+    from repro_torch.data import guyon_dataset
+    from repro_torch.trainer import fit
+    xs, ys = guyon_dataset(2048, 32, 12, 10, seed=5)
+    cfg = ICQConfig(d=8, num_codebooks=4, codebook_size=16, num_fast=1)
+    kw = dict(epochs=4, batch_size=256)
+    want = fit(7, xs, ys, cfg, **kw)
+
+    def kill(epoch):
+        if epoch == 2:
+            raise RuntimeError("killed")
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(RuntimeError, match="killed"):
+        fit(7, xs, ys, cfg, ckpt_dir=ckpt, max_restarts=0, fault_hook=kill,
+            **kw)
+    got = fit(7, xs, ys, cfg, ckpt_dir=ckpt, **kw)
+    assert torch.equal(got.C, want.C) and torch.equal(got.codes, want.codes)
+    for a, b in zip(got.structure, want.structure):
+        assert torch.equal(a, b)
