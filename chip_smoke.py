@@ -188,6 +188,30 @@ or outside a checkout of the repository.  Phases:
    one restart, its C, codes and structure bit for bit the
    uninterrupted fit's.
 
+13. sharded serving and the data-parallel fit (``index/sharded.py``,
+   ``fit(mesh=)``): the two-step f32 / int8, flat f32, two-step int8
+   4-bit and ivf-f32 artifacts of phases 4-5 served through
+   ``load_ann_engine(path, mesh=)`` over 4 shards on the first card
+   (250,000 rows or 256 lists a shard) and over ``make_mesh_auto``'s
+   one-device list, and two-step f32 over 3 shards (a shorter last
+   shard): every 64-query tile equal bit for bit, in ids, distances,
+   pass_rate and avg_ops, to the unsharded engine's, D crude and D
+   refine launches a tile (launch counts reset before, read after), ms
+   a tile (CUDA events and host clock) beside the unsharded engine's,
+   peak MiB; shard 1 of 4 marked dead on two-step f32 and ivf-f32:
+   equal to an unsharded engine over the survivors (the codes without
+   the dead rows, ids mapped back; the dead lists emptied), coverage the
+   surviving share, every batch degraded, 3 launches of each kernel a
+   tile, marking all four dead raises; a sharded two-step engine grown
+   by 100,000 points through ``AnnEngine.add`` equal bit for bit to the
+   grown unsharded engine, and a dead shard kept through the add; then
+   phase 11's Figure 1 cell through ``fit(mesh=)`` on 4 shards of 64
+   rows on the first card, each step's inputs kept: every data-parallel
+   step equal to the CPU's 4-shard step and to the card's single-device
+   step from the same inputs, to phase 11's step gate; the launches of
+   the init and the export; the data-parallel step's ms; MAP@50 of the
+   served model beside phase 11's.
+
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
 and the types of what holds it.
@@ -3447,6 +3471,404 @@ def front_door(seed: int, n_base: int, card: str, fig1_model):
     return total
 
 
+# ------------------ phase 13: sharded serving and the data-parallel fit ----
+
+# the sharded cells: (artifact of phases 4-5, shards).  D = 4 lays four
+# shards of 250,000 rows (IVF: 256 of the 1024 lists) on the first card,
+# D = 3 gives a shorter last shard, D = 1 takes make_mesh_auto's device
+# list (the visible cards)
+SHARDED = tuple((name, D) for D in (4, 1) for name in (
+    "two-step-f32", "two-step-int8", "flat-f32", "two-step-int8-4bit",
+    "ivf-f32")) + (("two-step-f32", 3),)
+DEAD_SHARD = 1          # the shard the dead-shard cells fail over
+GROW = 100_000          # points the grow cell adds
+
+
+def data_mesh(D, devices=None):
+    """A D-way ``data`` mesh: over ``devices`` (one card repeated D
+    times for ``["cuda"]``), else over the visible cards."""
+    from repro_torch.distributed import make_mesh_auto
+    return make_mesh_auto((D,), ("data",), devices=devices)
+
+
+def query_tiles(seed, d, batches):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 13)
+    return [torch.from_numpy(rng.standard_normal(
+        (TILE, d), dtype=np.float32)).cuda() for _ in range(batches)]
+
+
+def shard_launches(index, live, batches):
+    """A sharded window's launches: every live shard's crude (and
+    refine) kernel once a tile."""
+    return {k: v * live for k, v in expected_launches(index, batches).items()}
+
+
+def add_into(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sharded_cell(name, path, D, *, seed, batches, card):
+    """One artifact served unsharded and through ``load_ann_engine(path,
+    mesh=)`` over D shards, 64-query tiles, launch counts reset before
+    and read after each window: the sharded answers equal the unsharded
+    ones in all four fields, bit for bit, tile by tile.  Returns the
+    sharded window's launches."""
+    from repro_torch.resilience import SearchBudget
+    devices = None if D == 1 else ["cuda"]
+    plain = engine_load(name, path, query_tile=TILE)
+    eng = engine_load(f"{name}-D{D}", path, mesh=data_mesh(D, devices),
+                      query_tile=TILE)
+    qs = query_tiles(seed, int(plain.index.C.shape[-1]), batches)
+    plain.warm(TILE)
+    eng.warm(TILE)
+    want, p_ms, p_host, _, p_mb = served_window(plain, qs, SearchBudget())
+    got, s_ms, s_host, launches, s_mb = served_window(eng, qs,
+                                                      SearchBudget())
+    expect = shard_launches(plain.index, D, batches)
+    check(launches == expect,
+          f"sharded {name} D={D}: launches {launches} != {expect}")
+    same = all(same_result(g, w) for g, w in zip(got, want))
+    check(same, f"sharded {name} D={D}: answers != the unsharded engine's")
+    check(all(r.meta.backend == "cuda" and r.meta.level_name == "full"
+              and r.meta.coverage == 1.0 and not r.meta.degraded
+              for r in got), f"sharded {name} D={D}: meta {got[0].meta}")
+    per_tile = {k: v // batches for k, v in launches.items() if v}
+    log(f"sharded {name} D={D} on {[str(d) for d in eng._view.devices]}: "
+        f"{s_ms:.4f} ms a tile (events), {s_host:.4f} ms (host clock); "
+        f"unsharded {p_ms:.4f} / {p_host:.4f} ms; launches a tile "
+        f"{per_tile}; peak {s_mb:.1f} MiB (unsharded {p_mb:.1f}); ids, "
+        f"distances, pass_rate, avg_ops == unsharded over {batches} tiles: "
+        f"{same}; {card}")
+    return launches
+
+
+def dead_shard_cell(name, path, *, seed, batches, card):
+    """Shard ``DEAD_SHARD`` of 4 failed over: the sharded engine answers
+    as an unsharded engine over the survivors (two-step: the codes
+    without the dead rows, ids mapped back; IVF: the dead lists emptied
+    to id -1), bit for bit in ids and distances (IVF: all four fields);
+    ``coverage`` is the surviving share, every batch counts as
+    degraded, the dead shard launches nothing and marking all four dead
+    raises.  Returns the window's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.index.ivf import IVFTwoStep
+    from repro_torch.resilience import SearchBudget
+    eng = engine_load(f"{name}-dead", path, mesh=data_mesh(4, ["cuda"]),
+                      query_tile=TILE)
+    eng.mark_shard_dead(DEAD_SHARD)
+    view, index = eng._view, eng.index
+    n = index.codes.shape[0]
+    ivf = isinstance(index, IVFTwoStep)
+    if ivf:
+        a, b = view.list_rows[DEAD_SHARD]
+        lists = index.ivf.lists.clone()
+        lists[a:b] = -1
+        survivors = dataclasses.replace(
+            index, ivf=index.ivf._replace(lists=lists))
+        alive = n - int(index.ivf.list_lens[a:b].sum())
+    else:
+        a, b = view.rows[DEAD_SHARD]
+        survivors = dataclasses.replace(
+            index, codes=torch.cat([index.codes[:a], index.codes[b:]]))
+        alive = n - (b - a)
+    ref = engine_over(f"{name}-survivors", survivors, query_tile=TILE)
+    qs = query_tiles(seed, int(index.C.shape[-1]), batches)
+    eng.warm(TILE)
+    ref.warm(TILE)
+    got, ms, host, launches, mb = served_window(eng, qs, SearchBudget())
+    want = [ref.search(q) for q in qs]
+    if not ivf:
+        want = [w._replace(indices=torch.where(
+            w.indices >= a, w.indices + (b - a), w.indices)) for w in want]
+    fields = TOPK_FIELDS + (SCALARS if ivf else ())
+    same = all(same_result(g, w, fields) for g, w in zip(got, want))
+    check(same, f"dead {name}: answers != the survivors' engine's")
+    expect = shard_launches(index, 3, batches)
+    check(launches == expect, f"dead {name}: launches {launches} != "
+                              f"{expect}")
+    cov = got[0].meta.coverage
+    check(cov == alive / n and all(r.meta.degraded for r in got)
+          and eng.stats["degraded"] == batches,
+          f"dead {name}: coverage {cov} (want {alive / n}), degraded "
+          f"{eng.stats['degraded']}")
+    try:
+        eng.mark_shard_dead(0, 2, 3)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and view.dead_shards == {DEAD_SHARD},
+          f"dead {name}: marking all shards dead did not raise")
+    log(f"dead shard {name}: shard {DEAD_SHARD} of 4 dead, coverage {cov} "
+        f"({alive} of {n} points); {ms:.4f} ms a tile (events), "
+        f"{host:.4f} ms (host clock); launches {launches}; peak {mb:.1f} "
+        f"MiB; {', '.join(fields)} == the survivors' engine: {same}; "
+        f"degraded batches {eng.stats['degraded']}; all four dead raises: "
+        f"{raised}; {card}")
+    return launches
+
+
+def grow_sharded(path, *, seed, batches, card):
+    """A sharded two-step engine (4 shards) ``add``s ``GROW`` points:
+    equal bit for bit to the unsharded engine grown by the same points;
+    a second sharded engine with a dead shard keeps it through the add
+    and serves none of its rows.  Returns the launches of the adds and
+    the windows."""
+    import numpy as np
+    import torch
+    from repro_torch.core.codebooks import decode
+    from repro_torch.resilience import SearchBudget
+    plain = engine_load("grow-plain", path, query_tile=TILE)
+    eng = engine_load("grow-D4", path, mesh=data_mesh(4, ["cuda"]),
+                      query_tile=TILE)
+    dead = engine_load("grow-D4-dead", path, mesh=data_mesh(4, ["cuda"]),
+                       query_tile=TILE)
+    dead.mark_shard_dead(DEAD_SHARD)
+    C = plain.index.C
+    K, m, d = C.shape
+    rng = np.random.default_rng(seed + 17)
+    new = (decode(C, torch.from_numpy(rng.integers(0, m, (GROW, K))).cuda())
+           + 0.01 * torch.from_numpy(rng.standard_normal(
+               (GROW, d), dtype=np.float32)).cuda())
+    total = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.add(new)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    plain.add(new)
+    dead.add(new)
+    add_into(total, read_launches())
+    qs = query_tiles(seed + 1, d, batches)
+    want = [plain.search(q) for q in qs]
+    got, ms, host, launches, _ = served_window(eng, qs, SearchBudget())
+    add_into(total, launches)
+    same = all(same_result(g, w) for g, w in zip(got, want))
+    check(eng.n == plain.n == plain.index.codes.shape[0] and same,
+          "grow: the sharded engine's answers != the grown unsharded "
+          "engine's")
+    res, _, _, launches, _ = served_window(dead, qs, SearchBudget())
+    add_into(total, launches)
+    a, b = dead._view.rows[DEAD_SHARD]
+    n = dead.n
+    kept = (dead._view.dead_shards == {DEAD_SHARD}
+            and res[0].meta.coverage == (n - (b - a)) / n
+            and all(bool(((r.indices < a) | (r.indices >= b)).all())
+                    for r in res))
+    check(kept, "grow: the dead shard did not survive the add")
+    log(f"grow sharded: +{GROW} points through AnnEngine.add on 4 shards "
+        f"in {add_s:.4f} s (host clock), n={n}; ids, distances, pass_rate, "
+        f"avg_ops == the grown unsharded engine: {same}; {ms:.4f} ms a tile "
+        f"(events); the dead shard {DEAD_SHARD} kept through the add, "
+        f"coverage {res[0].meta.coverage}, none of its rows [{a}, {b}) "
+        f"served: {kept}; {card}")
+    return total
+
+
+def sharded_serving(paths, *, seed, batches, card):
+    """Phase 13's serving half: every sharded cell, the dead-shard cells
+    and the grow cell.  Returns their launches."""
+    total = {}
+    for name, D in SHARDED:
+        add_into(total, sharded_cell(name, paths[name], D, seed=seed,
+                                     batches=batches, card=card))
+    for name in ("two-step-f32", "ivf-f32"):
+        add_into(total, dead_shard_cell(name, paths[name], seed=seed,
+                                        batches=batches, card=card))
+    add_into(total, grow_sharded(paths["two-step-f32"], seed=seed,
+                                 batches=batches, card=card))
+    return total
+
+
+def dp_codes(params, x, D, embed_apply):
+    """The hard codes of a data-parallel step's batch (its D row slices
+    embedded one by one) and the embeddings, on the CPU."""
+    import torch
+    parts = [batch_codes(params, xs, embed_apply)
+             for xs in torch.chunk(x, D)]
+    return (torch.cat([c for c, _ in parts]).cpu(),
+            torch.cat([e for _, e in parts]).cpu())
+
+
+def fit_data_parallel(seed: int, card: str, fig1_model):
+    """Phase 13's training half: phase 11's Figure 1 cell through
+    ``fit(mesh=)`` on a 4-shard mesh on the card (64 rows a shard), with
+    every step's inputs kept: each data-parallel step is run again on
+    the CPU's 4-shard mesh and as the card's single-device step from the
+    same inputs, both to phase 11's gate (loss terms rtol 1e-4, psi_size
+    equal, state rtol 1e-4 with an atol of a leaf's magnitude times the
+    larger of ``STATE_ATOL`` and ``SPREAD_FACTOR`` x the CPU's own
+    spread; a step whose batch codes flip at a near tie is counted, not
+    compared).  Then the model served two-step at topk 50 over the test
+    queries: MAP@50 beside phase 11's model's.  Returns the launches of
+    the fit and the served window."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ICQConfig
+    from repro_torch.data import make_table1_dataset
+    from repro_torch.index import make_index
+    from repro_torch.index.base import mean_average_precision
+    from repro_torch.trainer import epoch as epoch_mod
+    from repro_torch.trainer import fit
+
+    f = FIG1
+    D = 4
+    xtr, ytr, xte, yte = make_table1_dataset(f["dataset"])
+    cfg = ICQConfig(d=f["d"], num_codebooks=f["K"], codebook_size=f["m"],
+                    num_fast=f["num_fast"])
+    mesh, cpu_mesh = data_mesh(D, ["cuda"]), data_mesh(D, "cpu")
+    kept, built = [], []
+    joint = epoch_mod.joint
+    make_step = joint.make_train_step
+
+    def recording(*a, **kw):
+        built.append((a, kw))
+        step = make_step(*a, **kw)
+
+        def kept_step(p, o, v, batch):
+            inputs = tree_apply(torch.clone, (p, o, v))
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = step(p, o, v, batch)
+            e.record()
+            kept.append((inputs, batch, out, (s, e)))
+            return out
+        return kept_step
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    joint.make_train_step = recording
+    t0 = time.perf_counter()
+    try:
+        model = fit(seed, xtr, ytr, cfg, mode="icq", epochs=f["epochs"],
+                    batch_size=f["batch"], lr=f["lr"], mesh=mesh)
+    finally:
+        joint.make_train_step = make_step
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    launches = read_launches()
+    (a, kw), = built
+    check(kw.get("axis_name") == "data" and kw.get("mesh") is mesh,
+          f"fit(mesh=) built the step with {kw}")
+    embed_apply = a[1]
+    single = make_step(*a, **{**kw, "axis_name": None, "mesh": None})
+    cpu_dp = make_step(*a, **{**kw, "mesh": cpu_mesh})
+    step_ms = [s.elapsed_time(e) for _, _, _, (s, e) in kept]
+    t0 = time.perf_counter()
+    sd_times = []
+    terms = ("l_e", "l_c", "l_cq", "l_p", "l_icq", "total")
+
+    def cpu(tree):
+        return tree_apply(lambda t: t.detach().cpu(), tree)
+
+    def terms_close(got, want):
+        return (all(np.isclose(float(got[k]), float(want[k]), rtol=1e-4,
+                               atol=0.0) for k in terms)
+                and int(got["psi_size"]) == int(want["psi_size"]))
+
+    needs = {"cpu": {}, "single": {}}
+    flips = {"cpu": [], "single": []}
+    spread = 0.0
+    for i, (inputs, (x, y), out, _) in enumerate(kept):
+        got = cpu(out)
+        p, o, v = cpu(inputs)
+        xc, yc = x.cpu(), y.cpu()
+        codes_dp, _ = dp_codes(inputs[0], x, D, embed_apply)
+        # the CPU's data-parallel step from the same inputs
+        want = cpu_dp(p, o, v, (xc, yc))
+        rev = cpu_dp(p, o, v, (xc.flip(0), yc.flip(0)))
+        spread = max(spread, max(atol_needed(rev[:3], want[:3])))
+        codes_cpu, emb = dp_codes(p, xc, D, embed_apply)
+        if torch.equal(codes_dp, codes_cpu):
+            check(terms_close(got[3], want[3]),
+                  f"dp step {i}: the card's loss terms != the CPU's "
+                  f"data-parallel step's: {got[3]} against {want[3]}")
+            needs["cpu"][i] = atol_needed(got[:3], want[:3])
+        else:
+            tie, count = near_ties(codes_dp, codes_cpu, emb, p["C"])
+            check(tie, f"dp step {i}: codes differ between the card and "
+                       f"the CPU beyond a near tie")
+            flips["cpu"].append((i, count))
+        # the card's single-device step from the same inputs
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        one = single(*inputs, (x, y))
+        e.record()
+        sd_times.append((s, e))
+        codes_one, emb_one = batch_codes(inputs[0], x, embed_apply)
+        if torch.equal(codes_dp, codes_one.cpu()):
+            check(terms_close(got[3], cpu(one[3])),
+                  f"dp step {i}: the loss terms != the card's "
+                  f"single-device step's: {got[3]} against {one[3]}")
+            needs["single"][i] = atol_needed(got[:3], cpu(one[:3]))
+        else:
+            tie, count = near_ties(codes_dp, codes_one.cpu(),
+                                   emb_one.cpu(), p["C"])
+            check(tie, f"dp step {i}: codes differ from the single-device "
+                       f"step's beyond a near tie")
+            flips["single"].append((i, count))
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    sd_ms = [s.elapsed_time(e) for s, e in sd_times]
+    atol = max(STATE_ATOL, SPREAD_FACTOR * spread)
+    for against, ns in needs.items():
+        worst = max(max(n) for n in ns.values())
+        off = [(i, j, n) for i, row in ns.items() for j, n in enumerate(row)
+               if n > atol]
+        log(f"dp gate against the {against} step: {len(ns)} of "
+            f"{len(kept)} steps compared; loss terms to rtol 1e-4 and "
+            f"psi_size equal in each; params, opt_state and var_state need "
+            f"an atol of {worst:.3e} of a leaf's magnitude beside rtol 1e-4 "
+            f"(allowed {atol:.3e}: {STATE_ATOL} or {SPREAD_FACTOR}x the "
+            f"CPU's own data-parallel spread on reversed rows, "
+            f"{spread:.3e}); near-tie code flips (step, codes): "
+            f"{flips[against]}")
+        check(not off, f"dp gate against the {against} step: (step, leaf, "
+                       f"atol needed) beyond {atol}: {off}")
+        check(len(ns) >= len(kept) * 9 // 10,
+              f"dp gate against the {against} step: only {len(ns)} of "
+              f"{len(kept)} steps compared")
+    chunks_n = -(-xtr.shape[0] // 8192)
+    want = {"kmeans_assign": cfg.num_codebooks * (25 + 1)
+            + chunks_n * cfg.num_codebooks, "icm_encode": chunks_n}
+    check(all(launches[k] == want[k] for k in want)
+          and sum(launches.values()) == sum(want.values()),
+          f"fit(mesh=) launched {launches}, expected {want}")
+
+    def served_map(mdl):
+        index = make_index("two-step", mdl.codes, mdl.C, mdl.structure,
+                           topk=f["topk"])
+        res = index.search(mdl.embed(torch.from_numpy(xte).cuda()))
+        return index, res, float(mean_average_precision(
+            res.indices, torch.from_numpy(ytr).cuda(),
+            torch.from_numpy(yte).cuda()))
+
+    reset_launches()
+    index, res, mapv = served_map(model)
+    served = read_launches()
+    check(served == expected_launches(index, 1) and mapv > 0.1
+          and bool(torch.isfinite(res.distances[:, 0]).all()),
+          f"dp fit: MAP@{f['topk']} {mapv}, launches {served}")
+    _, _, map11 = served_map(fig1_model)
+    log(f"dp fit fig1 {f['dataset']} K={f['K']} m={f['m']} d={f['d']} on "
+        f"{D} shards of {f['batch'] // D} rows on {mesh.lead}: fit "
+        f"{fit_s:.4f} s (host clock, each step's inputs kept); data-parallel "
+        f"step {float(np.median(step_ms)):.4f} ms (CUDA events, median of "
+        f"{len(step_ms)}), the single-device step from the same inputs "
+        f"{float(np.median(sd_ms)):.4f} ms; gate {gate_s:.1f} s; peak "
+        f"{peak_mb:.1f} MiB; launches {launches}; MAP@{f['topk']} "
+        f"{mapv:.6f} (phase 11's single-device model: {map11:.6f}), avg_ops "
+        f"{float(res.avg_ops):.6f}, pass_rate {float(res.pass_rate):.6f}; "
+        f"{card}")
+    return {k: launches[k] + served[k] for k in launches}
+
+
 def cuda_held(label: str) -> int:
     """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
     live CUDA tensor of 64 MiB or more that gc reaches, with the types
@@ -3567,14 +3989,18 @@ def main(argv=None) -> int:
         add(wide_cells(args.seed, args.n, args.batches, workdir))
         enc_total, records["icm_encode"] = encode_and_grow(args.seed, args.n,
                                                            workdir)
+        shard_total = sharded_serving(paths, seed=args.seed,
+                                      batches=args.batches, card=card)
     check_kernel_ops(args.seed)
     ops_total, ops_records = kernel_ops(args.seed, args.n)
     train_total, fig1_model = train_cell(args.seed, card,
                                          profile_dir=args.profile)
     front_total = front_door(args.seed, args.n, card, fig1_model)
+    dp_total = fit_data_parallel(args.seed, card, fig1_model)
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
-                     + train_total[k] + front_total[k])
+                     + train_total[k] + front_total[k]
+                     + shard_total.get(k, 0) + dp_total[k])
     records.update(ivf_records)
     records.update(ops_records)
     for k, rec in records.items():

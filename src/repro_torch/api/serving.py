@@ -30,12 +30,21 @@ reference's Pallas -> jnp failover would move the batch onto the plain
 versions, which never serve on a CUDA device, and a fallback would hide
 a failing kernel.  So
 ``resilience.pallas_failover`` is kept for ``config_hash`` parity and
-has no effect here; ``stats["failovers"]`` stays 0.  Sharded engines
-(``mesh=``, ``mark_shard_dead``, coverage < 1) wait for ROADMAP.md queue
-1 item 10.  A pipelined index (``serve.pipeline``, queue 1 item 7,
-done) is served like any other; with ``query_tile`` set the engine cuts
-the batch first, so the index sees one tile a call and has nothing to
-overlap, as in the reference.
+has no effect here; ``stats["failovers"]`` stays 0.
+
+``AnnEngine(index, mesh)`` serves ``index.shard(mesh)``
+(``index/sharded.py``: rows or lists over the mesh's ``data`` axis, the
+scan kernels on every shard's device) and keeps the unsharded source,
+so ``add`` grows the source and shards it again, the dead shards
+carried over.  A sharded engine serves the ``("full",)`` rung only;
+``mark_shard_dead`` fails shards over, and every result reports the
+reachable share as ``meta.coverage``, flagged ``degraded`` below 1.  A
+failed sharded batch is retried in place like any other.
+
+A pipelined index (``serve.pipeline``, queue 1 item 7, done) is served
+like any other; with ``query_tile`` set the engine cuts the batch
+first, so the index sees one tile a call and has nothing to overlap,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -64,12 +73,6 @@ from repro_torch.resilience.retry import BackoffPolicy, retry_with_backoff
 _EMA_ALPHA = 0.3
 
 
-def _sharding_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (sharded "
-        "serving, ROADMAP.md, queue 1, item 10)")
-
-
 class AnnEngine:
     """A serving handle over one index: ``engine(queries)`` or
     ``engine.search(queries, k, budget=, filter=)`` serves an (nq, d)
@@ -86,25 +89,44 @@ class AnnEngine:
     before each attempt; its kernel hook is installed separately
     (``injector.installed()``).
 
+    ``mesh`` (a ``distributed.Mesh`` with a ``data`` axis) serves the
+    index sharded over it; ``index`` stays the unsharded source.
+
     ``stats`` counts batches served per rung and the degraded, retried
     and failed-over totals (failovers stay 0: see the module docstring).
     """
 
-    def __init__(self, index, *,
+    def __init__(self, index, mesh=None, *,
                  resilience: Optional[ResilienceConfig] = None,
                  fault_injector=None, query_tile: Optional[int] = None):
-        self.index = index
+        self.index = index                  # the unsharded source index
+        self.mesh = mesh
         self.resilience = resilience or ResilienceConfig()
         self.fault_injector = fault_injector
         self.query_tile = query_tile
-        self.backend = resolve_backend(index.backend, index.device)
         self._ema: Dict[str, float] = {}     # rung -> warm wall-ms EMA
         self._warmed: set = set()            # rung variants served once
-        # rung variants of the index, by their options: one instance a
-        # variant, so a pipelined variant keeps its plans and streams
-        self._variants: Tuple[Any, Dict[tuple, Any]] = (index, {})
         self.stats: Dict[str, int] = {"degraded": 0, "failovers": 0,
                                       "retries": 0}
+        self._refresh()
+
+    def _refresh(self):
+        """The served view: the source index, or its sharded clone with
+        the dead shards of the view it replaces (an ``add`` must not
+        resurrect a failed shard)."""
+        if self.mesh is not None:
+            view = self.index.shard(self.mesh)
+            dead = getattr(getattr(self, "_view", None), "dead_shards", ())
+            if dead:
+                view.mark_shard_dead(*dead)
+        else:
+            view = self.index
+        self._view = view
+        self.backend = resolve_backend(self.index.backend, view.device)
+        # rung variants of the index, by their options: one instance a
+        # variant, so a pipelined variant keeps its plans and streams
+        self._variants: Tuple[Any, Dict[tuple, Any]] = (self.index, {})
+        self._warmed = set()
 
     @property
     def n(self) -> int:
@@ -112,14 +134,29 @@ class AnnEngine:
 
     @property
     def device(self) -> torch.device:
-        return self.index.device
+        """Where queries go: the index's device, or the mesh's first."""
+        return self._view.device
 
-    def mark_shard_dead(self, *shards: int):
-        raise _sharding_not_ported("mark_shard_dead")
+    @property
+    def coverage(self) -> float:
+        """The reachable share of the database's rows (1.0 unsharded or
+        with no dead shard)."""
+        return float(getattr(self._view, "coverage", 1.0))
+
+    def mark_shard_dead(self, *shards: int) -> "AnnEngine":
+        """Fail shards over (sharded engines only): later batches merge
+        the surviving shards' top-k and report ``meta.coverage`` < 1."""
+        if self.mesh is None:
+            raise ValueError("mark_shard_dead needs a sharded engine "
+                             "(AnnEngine(mesh=...))")
+        self._view.mark_shard_dead(*shards)
+        return self
 
     # ------------------------------------------------------------ ladder --
     def _levels(self) -> Tuple[str, ...]:
         """Rungs this engine serves, least to most degraded."""
+        if self.mesh is not None:
+            return ("full",)                 # sharded: full search only
         idx = self.index
         if isinstance(idx, FlatADC):
             return ("full", "crude")         # crude == full (no refine)
@@ -131,7 +168,10 @@ class AnnEngine:
     def _level_index(self, level: str, budget: SearchBudget):
         """The index variant serving one rung (``dataclasses.replace``:
         the tensors are shared, only options change), made once per
-        option set for the index being served."""
+        option set for the index being served; a sharded engine serves
+        its sharded view."""
+        if self.mesh is not None:
+            return self._view
         idx = self.index
         repl: Dict[str, Any] = {}
         if level == "capped":
@@ -260,7 +300,8 @@ class AnnEngine:
                                base_ms=res.backoff_base_ms,
                                max_ms=res.backoff_max_ms)
         key = (level, k, getattr(lidx, "refine_cap", None),
-               getattr(lidx, "n_probe", None), filter is not None)
+               getattr(lidx, "n_probe", None), filter is not None,
+               getattr(lidx, "dead_shards", None))
         try:
             return key, self._attempt(call, queries)
         except RuntimeError:
@@ -300,12 +341,13 @@ class AnnEngine:
         else:
             self._warmed.add(key)
         li = DEGRADE_LEVELS.index(level)
+        coverage = self.coverage
         meta = ResultMeta(
-            level=li, level_name=level, degraded=li > 0,
+            level=li, level_name=level, degraded=li > 0 or coverage < 1.0,
             stages=self._stages(level), wall_ms=wall_ms,
             deadline_ms=deadline,
             deadline_exceeded=deadline is not None and wall_ms > deadline,
-            coverage=1.0, backend=self.backend)
+            coverage=coverage, backend=self.backend)
         self.stats[level] = self.stats.get(level, 0) + 1
         if meta.degraded:
             self.stats["degraded"] += 1
@@ -330,11 +372,12 @@ class AnnEngine:
     def add(self, new_vectors, **encode_opts) -> "AnnEngine":
         """Grow the served index by ``new_vectors`` ((n_new, d), numpy or
         torch): ``Index.add`` with ``encode_opts`` (``icm_iters``,
-        ``encode_backend``, ``point_chunk``).  ``n`` and ``device`` follow
-        the index; ``query_tile`` is unchanged.  The rungs' timings are
-        measured anew.  Returns the engine."""
+        ``encode_backend``, ``point_chunk``) on the source index, sharded
+        again over the mesh with the dead shards kept.  ``n`` and
+        ``device`` follow the index; ``query_tile`` is unchanged.  The
+        rungs' timings are measured anew.  Returns the engine."""
         self.index = self.index.add(new_vectors, **encode_opts)
-        self._warmed = set()
+        self._refresh()
         return self
 
 
@@ -392,11 +435,13 @@ def build_ann_engine(codes, C, structure, *, topk: int = 50,
     ``n_lists``, ``n_probe`` and ``generator`` (the reference's ``key``:
     a ``torch.Generator`` or an int seed for the coarse k-means).
     ``block_q``/``block_n`` are validated and kept in the config only:
-    the CUDA kernels choose their own tiles.  ``mesh`` raises (sharded
-    serving, queue 1 item 10); ``pipeline`` and ``pipeline_tile`` select
-    the pipelined executor (item 7, done)."""
-    if mesh is not None:
-        raise _sharding_not_ported("build_ann_engine(mesh=)")
+    the CUDA kernels choose their own tiles.  ``mesh`` (with a ``data``
+    axis) serves the index sharded over it; the index is then built on
+    the mesh's first device unless ``device`` names one.  ``pipeline``
+    and ``pipeline_tile`` select the pipelined executor (item 7, done;
+    a sharded engine serves ``pipeline="off"``)."""
+    if mesh is not None and device is None:
+        device = mesh.lead
     # n_lists / n_probe describe an IVF only; the flat kinds ignore them
     index_cfg = (IndexConfig(kind=index, n_lists=n_lists, n_probe=n_probe,
                              refine_cap=refine_cap, code_bits=code_bits)
@@ -410,17 +455,20 @@ def build_ann_engine(codes, C, structure, *, topk: int = 50,
     idx = build_index(codes, C, structure, index_cfg=index_cfg,
                       serve_cfg=serve_cfg, emb_db=emb_db,
                       generator=generator, device=device)
-    return AnnEngine(idx, resilience=resilience,
+    return AnnEngine(idx, mesh=mesh, resilience=resilience,
                      fault_injector=fault_injector, query_tile=query_tile)
 
 
-def load_ann_engine(path: str, *, device=None,
+def load_ann_engine(path: str, *, mesh=None, device=None,
                     overrides: Optional[Dict[str, Any]] = None,
                     verify_checksums: Optional[bool] = None,
                     query_tile: Optional[int] = None,
                     fault_injector=None) -> AnnEngine:
     """Open a saved artifact directory as a serving engine on ``device``
-    (the CUDA card unless named; with no card this raises).
+    (the CUDA card unless named; with no card this raises).  ``mesh``
+    shards the loaded index over its ``data`` axis, as
+    ``build_ann_engine(mesh=)`` does; the index loads onto the mesh's
+    first device unless ``device`` names one.
 
     ``overrides`` applies dotted config overrides before the index is
     rebuilt.  ``verify_checksums`` forces the per-tensor sha256 pass
@@ -428,6 +476,8 @@ def load_ann_engine(path: str, *, device=None,
     engine inherits the embedded ``ResilienceConfig``.  A model section
     is verified but not rebuilt: the engine serves embedded queries
     (``ICQSession.from_artifacts`` rebuilds the model)."""
+    if mesh is not None and device is None:
+        device = mesh.lead
     device = resolve_device(device)
     art = Artifacts.load(path, overrides=overrides,
                          verify_checksums=verify_checksums, device=device,
@@ -436,5 +486,6 @@ def load_ann_engine(path: str, *, device=None,
         raise ArtifactError(
             f"{path}: artifacts hold no index (model-only save); build "
             "one and save again")
-    return AnnEngine(art.index, resilience=art.config.resilience,
+    return AnnEngine(art.index, mesh=mesh,
+                     resilience=art.config.resilience,
                      fault_injector=fault_injector, query_tile=query_tile)

@@ -17,8 +17,9 @@ modes ("icq", "sq", "pqn") run ``trainer.fit``; the baselines ("pq",
 "opq", "cq") run the generic ``init``/``step``/``finalize`` loop, one
 step an epoch.  ``index`` builds the configured index over the fit data
 or a new database, and ``Searcher`` embeds raw-space queries with the
-trained model before every search.  Sharded serving and the
-data-parallel fit (``mesh=``) wait for ROADMAP.md queue 1 item 10.
+trained model before every search.  ``fit(mesh=)`` trains the joint
+modes data-parallel over the mesh's ``data`` axis; ``index(mesh=)``
+serves the index sharded over it.
 """
 from __future__ import annotations
 
@@ -30,8 +31,7 @@ import torch
 
 from repro_torch.api.artifacts import Artifacts
 from repro_torch.api.config import JOINT_MODES, ConfigError, ICQConfig
-from repro_torch.api.serving import (AnnEngine, _sharding_not_ported,
-                                     build_index)
+from repro_torch.api.serving import AnnEngine, build_index
 from repro_torch.index.base import as_torch, resolve_device
 
 
@@ -119,7 +119,9 @@ class ICQSession:
 
         seed:  an int or a ``torch.Generator``, threading init and
                shuffle (the reference's ``key``).
-        mesh:  data-parallel epochs wait for ROADMAP.md queue 1 item 10.
+        mesh:  optional mesh with a "data" axis: data-parallel epochs
+               for the joint trainer modes (``trainer.fit(mesh=)``),
+               on the mesh's first device unless the session names one.
 
         Returns (and retains) the fitted ``ICQModel``; the fit data's
         embeddings are kept so ``index()`` can build over them without
@@ -132,10 +134,8 @@ class ICQSession:
                     f"mesh-parallel fit is only wired for the joint "
                     f"trainer modes {sorted(JOINT_MODES)}, not "
                     f"{quantizer!r}")
-            raise NotImplementedError(
-                "data-parallel fit (mesh=) is not ported to the PyTorch "
-                "package yet (ROADMAP.md, queue 1, item 10)")
-        dev = resolve_device(self.device)
+        dev = resolve_device(self.device if self.device is not None
+                             or mesh is None else mesh.lead)
         X = as_torch(X).to(dev, torch.float32).contiguous()
         y = (torch.zeros((X.shape[0],), dtype=torch.int32, device=dev)
              if y is None else as_torch(y).to(dev))
@@ -150,7 +150,7 @@ class ICQSession:
                 img_hw=cfg.train.img_hw, channels=cfg.train.channels,
                 epochs=cfg.train.epochs, batch_size=cfg.train.batch_size,
                 lr=cfg.train.lr, tau=cfg.train.tau, verbose=verbose,
-                encode_batch=cfg.encode.chunk,
+                mesh=mesh, encode_batch=cfg.encode.chunk,
                 encode_backend=cfg.encode.backend, device=dev)
         else:
             from repro_torch.trainer import make_quantizer
@@ -192,15 +192,13 @@ class ICQSession:
         db:    optional (n, ...) raw-space database to index; ``None``
                indexes the fit data (reusing the codes ``fit``
                exported, no re-encode).
-        mesh:  sharded serving waits for ROADMAP.md queue 1 item 10.
+        mesh:  optional mesh with a "data" axis for sharded serving.
         seed:  seeds the IVF coarse k-means (default 0).
         """
         if self.model is None:
             raise ConfigError("session.index() before session.fit(); fit "
                               "a model first (or load artifacts with "
                               "ICQSession.from_artifacts)")
-        if mesh is not None:
-            raise _sharding_not_ported("ICQSession.index(mesh=)")
         cfg = self.config
         codes, emb_db = self._db_codes(db)
         idx = build_index(codes, self.model.C, self.model.structure,
@@ -208,7 +206,7 @@ class ICQSession:
                           emb_db=emb_db,
                           generator=0 if seed is None else seed,
                           device=self.model.C.device)
-        return Searcher(self.model, AnnEngine(idx), cfg)
+        return Searcher(self.model, AnnEngine(idx, mesh=mesh), cfg)
 
     # ------------------------------------------------------------- tune --
     def _tuning_structure(self, num_fast: int):

@@ -40,15 +40,29 @@ def batch_moments(x):
     return torch.mean(x, dim=0), torch.var(x, dim=0, correction=0)
 
 
-def global_batch_moments(x, axis_name=None):
-    """Batch moments of the global batch; on one device (``axis_name``
-    None) exactly ``batch_moments``.  The data-parallel form waits for
-    sharding (ROADMAP.md, queue 1, item 10)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel batch moments are not ported yet (ROADMAP.md, "
-            "queue 1, item 10)")
-    return batch_moments(x)
+def global_batch_moments(x, mesh=None):
+    """Batch moments of the global batch of a data-parallel step.
+
+    ``mesh`` None: exactly ``batch_moments(x)``.  Otherwise ``x`` is the
+    global batch, one equal slice per shard of the mesh's ``data`` axis:
+    a sequence of the shards' (b, d) embeddings (each on its device), or
+    one tensor split into equal row blocks.  The moments are the mean
+    over shards of the local means and second moments, gathered onto
+    the mesh's first device, in the reference's order: for equal shards
+    the exact global moments, ``E[x^2] - m^2`` for the variance.
+    Differentiable (``.to()`` and the means are), so the straight-through
+    Lambda gradient reaches every shard's embeddings."""
+    if mesh is None:
+        return batch_moments(x)
+    if isinstance(x, torch.Tensor):
+        devs = mesh.axis_devices("data")
+        x = [part.to(d) for part, d in zip(torch.chunk(x, len(devs)), devs)]
+    lead = mesh.lead
+    D = len(x)
+    m = sum(torch.mean(s.to(torch.float32), dim=0).to(lead) for s in x) / D
+    ex2 = sum(torch.mean(torch.square(s.to(torch.float32)), dim=0).to(lead)
+              for s in x) / D
+    return m, ex2 - torch.square(m)
 
 
 def update(state: Dict, x) -> Dict:

@@ -1,14 +1,15 @@
 """The index layer of the port (twin of ``repro.index``): one ``Index``
 protocol, three implementations (``FlatADC``, ``TwoStep``,
-``IVFTwoStep``), one backend dispatch, on one device.
+``IVFTwoStep``), one backend dispatch, on one device, and their
+sharded serving clones.
 
     from repro_torch.index import make_index
     idx = make_index("ivf", codes, C, structure, emb_db=emb,
                      n_lists=256, n_probe=8)
     result = idx.search(queries)          # SearchResult
+    idx = idx.shard(mesh)                 # optional: sharded serving
 
-``core.search`` and ``core.ivf`` re-export these names.  ``Index.shard``
-(sharded serving) waits for ROADMAP.md queue 1 item 10.
+``core.search`` and ``core.ivf`` re-export these names.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ _EXPORTS = {name: "repro_torch.index.flat" for name in (
 _EXPORTS.update({name: "repro_torch.index.ivf" for name in (
     "IVFIndex", "IVFTwoStep", "build_ivf", "ivf_assign", "ivf_extend",
     "ivf_list_codes", "ivf_two_step_search")})
+_EXPORTS.update({name: "repro_torch.index.sharded" for name in (
+    "ShardedFlatADC", "ShardedTwoStep", "ShardedIVFTwoStep")})
 _EXPORTS.update({name: "repro_torch.index.pipelined" for name in (
     "PIPELINE_MODES", "PipelinedSearch", "maybe_pipelined",
     "resolve_pipeline", "resolve_tile")})
@@ -114,4 +117,5 @@ __all__ = [
     "resolve_lut_dtype", "mean_average_precision", "recall_at",
     "PIPELINE_MODES", "PipelinedSearch", "maybe_pipelined",
     "resolve_pipeline", "resolve_tile", "resolve_device",
+    "ShardedFlatADC", "ShardedTwoStep", "ShardedIVFTwoStep",
 ]

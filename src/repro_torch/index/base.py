@@ -40,8 +40,8 @@ class SearchResult(NamedTuple):
 class Index(Protocol):
     """The index protocol (twin of ``repro.index.base.Index``): a frozen
     index serves ``search`` and grows by ``add`` (new vectors encoded
-    and appended without retraining; a new index is returned).
-    ``shard`` waits for ROADMAP.md queue 1 item 10 and raises."""
+    and appended without retraining; a new index is returned);
+    ``shard`` returns its sharded serving clone over a mesh."""
 
     def search(self, queries, topk: Optional[int] = None) -> SearchResult:
         ...

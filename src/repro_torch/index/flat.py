@@ -34,7 +34,7 @@ refine of tile t on another.
 ``add`` grows an index without retraining: the new rows are encoded by
 the ICM engine (``core.encode.icm_encode``, the ICM kernel on the card)
 and appended, so a grown index equals one built over all rows at once.
-``shard`` (queue 1, item 10) raises, naming its ROADMAP.md item.
+``shard(mesh)`` returns the sharded serving clone (``index/sharded.py``).
 """
 from __future__ import annotations
 
@@ -57,12 +57,6 @@ from repro_torch.kernels.stages import (CrudeStage, RefineStage,
                                         two_step_stages, widen_codes)
 
 _INF = float("inf")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, {item})")
 
 
 def _check_fastscan_geometry(code_bits: int, m: int) -> int:
@@ -411,8 +405,8 @@ def _encode_new_rows(new_vectors, C, codes_dtype, *, icm_iters: int,
 
 @dataclasses.dataclass(frozen=True)
 class _FlatBase:
-    """Shared options, ``add`` and the not-yet-ported verbs of the
-    port's indexes (flat, two-step and IVF).  The CUDA kernels choose
+    """Shared options, ``add`` and ``shard`` of the port's indexes
+    (flat, two-step and IVF).  The CUDA kernels choose
     their own tiles, so the reference's ``block_q``/``block_n``/
     ``interpret`` options have no counterpart.  ``pipeline`` ("off" |
     "tiles" | "auto") routes ``search`` and ``search_crude`` through the
@@ -447,8 +441,11 @@ class _FlatBase:
         return dataclasses.replace(self, codes=torch.cat([self.codes, new]))
 
     def shard(self, mesh):
-        raise _not_ported("Index.shard (sharded serving)",
-                          "queue 1, item 10")
+        """The sharded serving clone over ``mesh``'s ``data`` axis
+        (``index/sharded.py``): rows sharded for the flat kinds, lists
+        for IVF; it serves ``pipeline="off"``."""
+        from repro_torch.index.sharded import shard_index
+        return shard_index(self, mesh)
 
 
 @dataclasses.dataclass(frozen=True)

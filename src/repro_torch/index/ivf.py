@@ -35,8 +35,8 @@ the bootstrap from the dense slab crude) and refused on the card with
 the reference's ``ValueError``.  Every search is the phase pair of
 ``ivf_phase_fns`` over ``ivf_phase_env``; ``pipeline="tiles" | "auto"``
 runs it through the pipelined executor (``index/pipelined.py``; queue 1
-item 7, done), each ``n_probe`` with a plan of its own.  ``shard``
-(item 10) raises, naming its ROADMAP.md item.
+item 7, done), each ``n_probe`` with a plan of its own.  ``shard(mesh)``
+returns the list-sharded serving clone (``index/sharded.py``).
 """
 from __future__ import annotations
 

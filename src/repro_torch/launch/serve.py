@@ -24,6 +24,12 @@ two-step and IVF kinds).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --load-artifacts /path/ann --pipeline tiles --pipeline-tile 64 \
         --ann-queries 512
+    # the index sharded over a 4-way data mesh (four shards on one card
+    # share it; with more cards they spread over them), or on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --ann \
+        --ann-index ivf --ann-shards 4 --ann-n 1000000
+    PYTHONPATH=src python -m repro_torch.launch.serve --ann --device cpu \
+        --ann-shards 4 --ann-n 20000 --ann-queries 8
     # two saved indexes as tenants of the coalescing serving loop under
     # 2 s of seeded Poisson traffic at 1000 requests/s
     PYTHONPATH=src python -m repro_torch.launch.serve --serve-loop \
@@ -42,6 +48,16 @@ import argparse
 import time
 
 import numpy as np
+
+
+def serve_mesh(shards: int, device=None):
+    """``--ann-shards``: an N-way ``data`` mesh over the visible CUDA
+    devices (each repeated over a block of shards when there are fewer
+    than N), or over ``device`` when one is named; None for N <= 1."""
+    if shards <= 1:
+        return None
+    from repro_torch.distributed.sharding import make_mesh_auto
+    return make_mesh_auto((shards,), ("data",), devices=device)
 
 
 def serve_batches(engine, nq: int, d: int, batches: int, label: str,
@@ -87,11 +103,12 @@ def grow(engine, n_add: int, nq: int, seed: int):
 
 
 def serve_ann(cfg, n: int, nq: int, *, batches: int, device, seed: int,
-              save_dir=None, n_add: int = 0):
+              save_dir=None, n_add: int = 0, shards: int = 1):
     """Build a synthetic index as ``cfg`` describes and serve it, then
     with ``n_add`` grow it (``grow``).  The IVF kind fits its coarse
     quantizer over the decoded database ``decode(C, codes)``, seeded
-    with ``seed``.  ``save_dir`` saves the index the engine holds."""
+    with ``seed``.  ``save_dir`` saves the index the engine holds;
+    ``shards`` > 1 serves it sharded (``serve_mesh``)."""
     import torch
 
     from repro_torch.api import AnnEngine, Artifacts, build_index
@@ -111,14 +128,16 @@ def serve_ann(cfg, n: int, nq: int, *, batches: int, device, seed: int,
     index = build_index(codes, C, structure, index_cfg=cfg.index,
                         serve_cfg=cfg.serve, emb_db=emb_db, generator=seed,
                         device=device)
-    engine = AnnEngine(index, resilience=cfg.resilience, query_tile=nq)
+    engine = AnnEngine(index, serve_mesh(shards, device),
+                       resilience=cfg.resilience, query_tile=nq)
     ivf = (f" lists={cfg.index.n_lists} probe={cfg.index.n_probe}"
            if cfg.index.kind == "ivf" else "")
     serve_batches(engine, nq, t.d, batches,
                   f"ann: index={cfg.index.kind}{ivf} n={n} d={t.d} "
                   f"K={t.num_codebooks} m={t.codebook_size} nq={nq} "
                   f"topk={cfg.serve.topk} lut={cfg.serve.lut_dtype} "
-                  f"bits={cfg.index.code_bits}", seed=seed + 1)
+                  f"bits={cfg.index.code_bits} shards={shards}",
+                  seed=seed + 1)
     if n_add > 0:
         grow(engine, n_add, nq, seed + 3)
     if save_dir:
@@ -128,27 +147,28 @@ def serve_ann(cfg, n: int, nq: int, *, batches: int, device, seed: int,
 
 
 def serve_loaded(path: str, nq: int, *, batches: int, device, seed: int,
-                 overrides=None, verify: bool = False):
+                 overrides=None, verify: bool = False, shards: int = 1):
     """Serve a saved artifact directory; artifact errors exit with a
     one-line message."""
     from repro_torch.api import ArtifactError, load_ann_engine
 
     try:
-        engine = load_ann_engine(path, device=device,
-                                 overrides=overrides or None,
+        engine = load_ann_engine(path, mesh=serve_mesh(shards, device),
+                                 device=device, overrides=overrides or None,
                                  verify_checksums=verify or None,
                                  query_tile=nq)
     except (ArtifactError, OSError) as e:
         raise SystemExit(f"--load-artifacts {path}: {e}") from e
     d = int(engine.index.C.shape[-1])
     serve_batches(engine, nq, d, batches,
-                  f"ann-loaded: {path} n={engine.n} d={d} nq={nq}",
+                  f"ann-loaded: {path} n={engine.n} d={d} nq={nq} "
+                  f"shards={shards}",
                   seed=seed + 1)
 
 
 def serve_traffic(specs, *, rate_hz: float, duration_s: float,
                   window_ms=None, tile=None, overrides=None, seed: int = 0,
-                  device=None, pool_q: int = 64):
+                  device=None, pool_q: int = 64, shards: int = 1):
     """``--serve-loop``: serve tenant artifact directories through the
     coalescing loop under a seeded Poisson workload and print each
     tenant's latency and throughput.  Spec conflicts and artifact
@@ -158,8 +178,8 @@ def serve_traffic(specs, *, rate_hz: float, duration_s: float,
                                    make_workload, run_open_loop, summarize)
 
     try:
-        tenants = load_tenants(specs, overrides=overrides or None,
-                               device=device)
+        tenants = load_tenants(specs, mesh=serve_mesh(shards, device),
+                               overrides=overrides or None, device=device)
     except (ServeError, ArtifactError, OSError) as e:
         raise SystemExit(f"--serve-loop: {e}") from e
     rng = np.random.default_rng(seed)
@@ -215,6 +235,9 @@ def main(argv=None):
                     help="with --ann: after the timed batches, add N new "
                          "vectors to the served index and serve once more")
     ap.add_argument("--ann-queries", type=int, default=64)
+    ap.add_argument("--ann-shards", type=int, default=1, metavar="N",
+                    help="serve the index sharded over an N-way data mesh "
+                         "(on the card's devices, or on --device)")
     ap.add_argument("--ann-index", default=None,
                     choices=["flat", "two-step", "ivf"],
                     help="override index.kind")
@@ -293,7 +316,7 @@ def main(argv=None):
                       duration_s=args.serve_duration,
                       window_ms=args.batch_window_ms, tile=args.batch_tile,
                       overrides=overrides, seed=args.serve_seed,
-                      device=args.device)
+                      device=args.device, shards=args.ann_shards)
         return
     for flag, val in (("--tenant", args.tenant or None),
                       ("--batch-window-ms", args.batch_window_ms),
@@ -310,7 +333,7 @@ def main(argv=None):
         serve_loaded(args.load_artifacts, args.ann_queries,
                      batches=args.batches, device=args.device,
                      seed=args.seed, overrides=overrides,
-                     verify=args.verify_artifacts)
+                     verify=args.verify_artifacts, shards=args.ann_shards)
         return
     if not args.ann:
         ap.error("give --ann or --load-artifacts DIR")
@@ -319,7 +342,8 @@ def main(argv=None):
     cfg = ICQConfig.load(args.config) if args.config else ICQConfig()
     serve_ann(cfg.with_overrides(overrides), args.ann_n, args.ann_queries,
               batches=args.batches, device=args.device, seed=args.seed,
-              save_dir=args.save_artifacts, n_add=args.ann_add)
+              save_dir=args.save_artifacts, n_add=args.ann_add,
+              shards=args.ann_shards)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ tenant is loaded from disk).
 through ``repro_torch.api.load_ann_engine`` on one device (the card
 unless the caller names another), and duplicate or conflicting specs
 fail up front with a one-line actionable error instead of silently
-double-loading the same Artifacts directory.  A ``mesh`` (sharded
-tenants) raises: sharded serving is ROADMAP.md queue 1 item 10.
+double-loading the same Artifacts directory.  A ``mesh`` shards every
+tenant's index over its ``data`` axis (one shared mesh across all
+tenants).
 """
 from __future__ import annotations
 
@@ -80,13 +81,12 @@ class Tenant:
         ``repro_torch.api.load_ann_engine`` on ``device`` (the card
         unless named; inheriting the embedded ``ResilienceConfig``), the
         coalescing knobs from the embedded ``ServeConfig``
-        (``batch_tile`` / ``batch_window_ms``)."""
+        (``batch_tile`` / ``batch_window_ms``).  ``mesh`` serves the
+        index sharded over it (``load_ann_engine(mesh=)``)."""
         from repro_torch.api import Artifacts, load_ann_engine
-        from repro_torch.api.serving import _sharding_not_ported
 
-        if mesh is not None:
-            raise _sharding_not_ported("Tenant.from_artifacts(mesh=)")
-        engine = load_ann_engine(path, device=device, overrides=overrides,
+        engine = load_ann_engine(path, mesh=mesh, device=device,
+                                 overrides=overrides,
                                  fault_injector=fault_injector)
         cfg = Artifacts.load_config(path, overrides=overrides)
         return cls(name=name, engine=engine, budget=budget,

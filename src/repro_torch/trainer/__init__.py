@@ -12,8 +12,8 @@ trainer and the PQ / OPQ / CQ baselines behind it, the epoch loop and
 ``cfg`` is an ``ICQConfig`` (``repro_torch.configs``), e.g.
 ``TrainConfig(...).hyperparams()``.  The reference's ``compile_epoch``
 has no twin: it compiles an epoch into one ``lax.scan``, and the port's
-epoch is the plain loop ``run_epoch``.  The data-parallel ``fit``
-(``mesh=``) waits for ROADMAP.md queue 1 item 10.
+epoch is the plain loop ``run_epoch``.  ``fit(mesh=)`` trains
+data-parallel over a ``distributed.Mesh``'s ``data`` axis.
 """
 from repro_torch.trainer.base import ICQModel, Quantizer, plain_structure
 from repro_torch.trainer.encode import encode_database

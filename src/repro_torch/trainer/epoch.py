@@ -10,8 +10,11 @@ permutation's tail beyond ``nb * bs`` rows.
 ``fit(seed, xs, ys, cfg)`` draws everything from one CPU
 ``torch.Generator`` (``seed`` an int or a generator), in this order:
 the init (``joint.init_train_state``), then one permutation per epoch.
-The same seed gives the same model on one device.  Data-parallel
-training (``mesh=``) waits for ROADMAP.md queue 1 item 10.
+The same seed gives the same model on one device.  With ``mesh=``
+(a ``distributed.Mesh`` with a ``data`` axis) every step is
+data-parallel over that axis (``joint.make_train_step(axis_name=
+"data", mesh=mesh)``): each batch is cut into one equal slice per
+shard, and the params and states stay on the mesh's first device.
 
 With ``ckpt_dir`` the epoch loop runs under
 ``distributed.TrainSupervisor`` (one supervisor step is one epoch),
@@ -82,16 +85,32 @@ def fit(seed, xs, ys, icq_cfg, *, embed_kind="linear", num_classes=10,
     seed and data resumes and ends bit for bit where the uninterrupted
     fit ends.  ``heartbeat`` (a ``distributed.HeartbeatMonitor``) gets
     ``beat(0, epoch_seconds)`` per epoch; ``fault_hook(epoch)`` may
-    raise to inject a fault."""
+    raise to inject a fault.
+
+    mesh: optional mesh with a ``data`` axis -- data-parallel training
+    (the module docstring); ``batch_size`` must divide over the axis,
+    and the data and state live on the mesh's first device unless
+    ``device`` names one.  The model matches the single-device fit up
+    to rounding, which training amplifies."""
+    xs, ys = as_torch(xs), as_torch(ys)
+    n = xs.shape[0]
+    bs = max(min(batch_size, n), 1)
+    axis = None
     if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel fit (mesh=) is not ported to the PyTorch "
-            "package yet (ROADMAP.md, queue 1, item 10)")
+        if "data" not in mesh.axis_names:
+            raise ValueError("epoch driver needs a mesh with a 'data' axis")
+        if bs % mesh.shape["data"]:
+            raise ValueError(
+                f"batch_size={bs} must divide over the "
+                f"{mesh.shape['data']}-way 'data' axis for the sharded "
+                "epoch driver")
+        axis = "data"
+        if device is None:
+            device = mesh.lead
     dev = resolve_device(device)
     gen = as_generator(seed)
-    xs = as_torch(xs).to(dev, torch.float32)
-    ys = as_torch(ys).to(dev)
-    n = xs.shape[0]
+    xs = xs.to(dev, torch.float32)
+    ys = ys.to(dev)
     state = joint.init_train_state(
         gen, icq_cfg, embed_kind=embed_kind,
         d_raw=xs.shape[-1] if xs.ndim == 2 else None,
@@ -99,7 +118,8 @@ def fit(seed, xs, ys, icq_cfg, *, embed_kind="linear", num_classes=10,
         mode=mode, lr=lr, sample_batch=(xs[:min(n, 4096)],
                                          ys[:min(n, 4096)]), device=dev)
     step = joint.make_train_step(icq_cfg, state["embed_apply"], state["opt"],
-                                 mode, state["pq_mask"], tau)
+                                 mode, state["pq_mask"], tau,
+                                 axis_name=axis, mesh=mesh)
     if ckpt_dir is not None:
         params, var_state = _supervised_loop(
             ckpt_dir, step, state, gen, xs, ys, batch_size, epochs,

@@ -22,6 +22,21 @@ Gradient flow (as in the reference):
 - Theta's gradients are boosted 10x before the optimizer, so the global
   norm and its clip see the boosted gradients.
 
+Data parallelism (``make_train_step(axis_name="data", mesh=mesh)``):
+one process drives every shard.  The global batch is cut into equal
+row slices, slice s runs forward on the mesh's ``data`` device s with
+the params copied there (``.to()``, differentiable), Lambda reads the
+global batch moments (``variance.global_batch_moments``), and the loss
+is the mean over shards of each shard's batch-mean terms, gathered on
+the first device, beside the terms of Lambda and the params alone
+(L^P, L^ICQ), taken once.  One ``autograd.grad`` of that loss is the
+mean of the shards' gradients (the reference's ``pmean``) and is the
+single-device gradient of the same batch up to rounding; the metrics
+are the same means.  The CQ penalty centres every shard's rows at the
+global batch mean, as the single-device step centres them at its own
+(the reference's pmean of shard-local penalties centres each shard at
+its local mean and so trains another objective).
+
 Params are a dict ``{"embed": {...}, "C", "theta": {...}}`` of leaf
 tensors; gradients come from ``torch.autograd.grad``.  Every call of
 this module that computes (``init_train_state``, the step,
@@ -146,40 +161,85 @@ def _soft_xi(lam, theta, icq_cfg):
     return torch.sigmoid(log_minor - log_major)
 
 
+def _shard_mean(values, lead):
+    """The mean over shards of per-shard scalars (the reference's
+    ``pmean``), on the first device; one shard's value as it is."""
+    if len(values) == 1:
+        return values[0]
+    return sum(v.to(lead) for v in values) / len(values)
+
+
 def make_train_step(icq_cfg, embed_apply, opt: AdamW, mode: str,
                     pq_mask=None, tau: float = 1.0,
-                    axis_name: Optional[str] = None):
+                    axis_name: Optional[str] = None, mesh=None):
     """Returns step(params, opt_state, var_state, batch) -> (params,
     opt_state, var_state, metrics), every output a new detached tensor.
     ``batch`` is (x, y) on the params' device.  metrics: l_e, l_c,
     total, gnorm (the pre-clip global norm); l_cq in modes icq and cq;
     l_p, l_icq and psi_size (int32) in mode icq.
 
-    ``axis_name`` (a data-parallel mesh axis) waits for ROADMAP.md queue
-    1 item 10."""
+    ``axis_name`` (with ``mesh``, a ``distributed.Mesh``): the mesh axis
+    the step is data-parallel over (module docstring).  The batch
+    divides into one equal slice per device of that axis, the params
+    and states live on the mesh's first device, and the outputs come
+    back there."""
     _check_mode(mode)
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the data-parallel train step is not ported to the PyTorch "
-            "package yet (ROADMAP.md, queue 1, item 10)")
+    if axis_name is None:
+        devices = None
+    else:
+        if mesh is None:
+            raise ValueError(f"a data-parallel step over {axis_name!r} "
+                             "needs the mesh that holds the axis (mesh=)")
+        devices = mesh.axis_devices(axis_name)
+
+    def slices(params, x, y):
+        """(params, x, y) of every shard: the batch cut into equal row
+        slices on the shards' devices, the params copied there."""
+        if devices is None:
+            return [(params, x, y)]
+        D = len(devices)
+        if x.shape[0] % D:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not "
+                             f"divide over the {D}-way {axis_name!r} axis")
+        copies = {}
+        for d in devices:
+            if d not in copies:
+                copies[d] = tree_map(lambda t: t.to(d), params)
+        return [(copies[d], xs.to(d), ys.to(d)) for d, xs, ys in
+                zip(devices, torch.chunk(x, D), torch.chunk(y, D))]
 
     def loss_fn(params, var_state, x, y):
-        emb = embed_apply(params["embed"], x)
+        lead = params["C"].device
+        parts = slices(params, x, y)
+        embs = [embed_apply(p["embed"], xs) for p, xs, _ in parts]
         # --- L^E ---
-        logits = embed_mod.classify(params["embed"], emb)
-        l_e = losses.classification_loss(logits, y)
+        l_e = _shard_mean([losses.classification_loss(
+            embed_mod.classify(p["embed"], e), ys)
+            for (p, _, ys), e in zip(parts, embs)], lead)
         # --- online variance with straight-through running value ---
-        m_b, lam_batch = variance.batch_moments(emb)
+        m_b, lam_batch = (variance.batch_moments(embs[0]) if devices is None
+                          else variance.global_batch_moments(embs, mesh))
         new_var = variance.update_from_moments(var_state, m_b, lam_batch,
-                                               emb.shape[0])
+                                               x.shape[0])
         lam = ((variance.lambda_hat(new_var) - lam_batch).detach()
                + lam_batch)
         # --- L^C ---
-        l_c, codes = losses.quantization_loss(emb, params["C"], tau)
+        quant = [losses.quantization_loss(e, p["C"], tau)
+                 for (p, _, _), e in zip(parts, embs)]
+        l_c = _shard_mean([q[0] for q in quant], lead)
         total = l_e + l_c
         mets = {"l_e": l_e, "l_c": l_c}
         if mode in ("icq", "cq"):
-            l_cq, _ = losses.cq_penalty(params["C"], codes)
+            if devices is None:
+                l_cq, _ = losses.cq_penalty(params["C"], quant[0][1])
+            else:
+                # every shard's rows around the global batch mean
+                centre = _shard_mean([losses.cq_penalty(p["C"], q[1])[1]
+                                      for (p, _, _), q in zip(parts, quant)],
+                                     lead)
+                l_cq = _shard_mean([losses.cq_penalty(
+                    p["C"], q[1], eps_target=centre.to(p["C"].device))[0]
+                    for (p, _, _), q in zip(parts, quant)], lead)
             total = total + icq_cfg.gamma_cq * l_cq
             mets["l_cq"] = l_cq
         if mode == "icq":

@@ -203,12 +203,20 @@ def test_epoch_batches_permute_and_drop_tail(data):
 
 
 def test_fit_refuses_unported_options(data):
-    """Only the data-parallel options (item 10) still raise: ``fit``'s
-    ``mesh=`` and the step's ``axis_name``."""
+    """The data-parallel options refuse what they cannot serve, with the
+    reference's errors: ``fit``'s ``mesh=`` without a ``data`` axis or
+    with a batch that does not divide over it, and the step's
+    ``axis_name`` without the mesh that holds it."""
+    from repro_torch.distributed import make_mesh_auto
+
     xs, ys, _, _ = data
     cfg = ICQConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fit(0, xs, ys, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="needs a mesh with a 'data' axis"):
+        fit(0, xs, ys, cfg, device="cpu",
+            mesh=make_mesh_auto((2,), ("model",), devices="cpu"))
+    with pytest.raises(ValueError, match="must divide over the 3-way"):
+        fit(0, xs, ys, cfg, device="cpu", batch_size=64,
+            mesh=make_mesh_auto((3,), ("data",), devices="cpu"))
+    with pytest.raises(ValueError, match="needs the mesh"):
         make_train_step(cfg, port_embed.linear_apply,
                         AdamW(lr=lambda s: 1e-3), "icq", axis_name="data")

@@ -1297,3 +1297,81 @@ def test_cuda_fit_resumed_equals_uninterrupted(tmp_path):
     assert torch.equal(got.C, want.C) and torch.equal(got.codes, want.codes)
     for a, b in zip(got.structure, want.structure):
         assert torch.equal(a, b)
+
+
+def _card_mesh(D):
+    from repro_torch.distributed import make_mesh_auto
+    return make_mesh_auto((D,), ("data",), devices=["cuda"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
+def test_cuda_sharded_equals_unsharded(kind, lut_dtype):
+    """Four shards on the card launch the scan kernels once each a pass
+    and answer the unsharded index's ids, distances, pass_rate and
+    avg_ops bit for bit; a dead shard launches nothing; filter and
+    refine_cap raise as on the unsharded index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.kernels import build
+    engine, q = _card_engine(kind)
+    index = dataclasses.replace(engine.index, lut_dtype=lut_dtype)
+    want = index.search(q)
+    view = index.shard(_card_mesh(4))
+    before = dict(build.LAUNCHES)
+    got = view.search(q)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in build.LAUNCHES.items()
+                if v != before[k]}
+    _assert_same_result(got, want)
+    pair = (("ivf_crude_topk", "ivf_refine_topk") if kind == "ivf"
+            else ("crude_topk",) if kind == "flat"
+            else ("crude_topk", "refine_topk"))
+    assert launched == {k: 4 for k in pair}
+    view.mark_shard_dead(1)
+    before = dict(build.LAUNCHES)
+    view.search(q)
+    assert all(build.LAUNCHES[k] - before[k] == 3 for k in pair)
+    pred = torch.ones(index.codes.shape[0], dtype=torch.bool,
+                      device="cuda")
+    with pytest.raises(ValueError, match="filtered search requires"):
+        view.search(q, filter=pred)
+    if kind != "flat":
+        with pytest.raises(ValueError, match="refine_cap compaction"):
+            dataclasses.replace(index, refine_cap=64).shard(
+                _card_mesh(2)).search(q)
+
+
+@pytest.mark.gpu
+def test_cuda_dp_step_equals_single_device_step():
+    """A data-parallel step over 4 shards on the card from the same
+    state and batch as the card's single-device step: loss terms to rtol
+    1e-4, params and states to rtol 1e-4 with an atol of 1e-5 of each
+    leaf's magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import ICQConfig
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.trainer import init_train_state, make_train_step
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((512, 24)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, 512).astype(np.int32)).cuda()
+    cfg = ICQConfig(d=8, num_codebooks=4, codebook_size=32, num_fast=1)
+    st = init_train_state(3, cfg, d_raw=24, sample_batch=(x, y))
+    state = (st["params"], st["opt_state"], st["var_state"])
+    one = make_train_step(cfg, st["embed_apply"], st["opt"], "icq")(
+        *state, (x[:128], y[:128]))
+    dp = make_train_step(cfg, st["embed_apply"], st["opt"], "icq",
+                         axis_name="data", mesh=_card_mesh(4))(
+        *state, (x[:128], y[:128]))
+    for k, w in one[3].items():
+        g = float(dp[3][k])
+        assert (g == float(w) if k == "psi_size"
+                else np.isclose(g, float(w), rtol=1e-4, atol=0.0)), k
+    for g, w in zip(tree_leaves(dict(zip("pov", dp[:3]))),
+                    tree_leaves(dict(zip("pov", one[:3])))):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * scale)

@@ -473,9 +473,9 @@ def test_ivf_build_needs_embeddings_and_raises_unported_options():
     index = make_index("ivf", codes, C, structure, device="cpu", emb_db=emb,
                        n_lists=4, n_probe=2, kmeans_iters=3, topk=TOPK)
     q = np.zeros((2, D), np.float32)
-    # sharding (item 10) still raises by name; the pipelined executor
-    # (item 7) serves the sequential answers, and search_crude, filter
-    # and refine_cap serve on the CPU
+    # the list-sharded clone serves the same answers; the pipelined
+    # executor (item 7) serves the sequential answers, and search_crude,
+    # filter and refine_cap serve on the CPU
     piped = make_index("ivf", codes, C, structure, device="cpu",
                        emb_db=emb, n_lists=4, n_probe=2, kmeans_iters=3,
                        topk=TOPK, pipeline="tiles")
@@ -486,8 +486,9 @@ def test_ivf_build_needs_embeddings_and_raises_unported_options():
                                query_chunk=16).search(rows)
     assert torch.equal(got.indices, want.indices)
     assert torch.equal(got.distances, want.distances)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        index.shard(None)
+    from repro_torch.distributed import make_mesh_auto
+    view = index.shard(make_mesh_auto((3,), ("data",), devices="cpu"))
+    assert torch.equal(view.search(rows).indices, index.search(rows).indices)
     assert index.search_crude(_t(q)).indices.shape == (2, TOPK)
     assert index.search(_t(q), filter=np.ones(300, bool)) \
         .indices.shape == (2, TOPK)

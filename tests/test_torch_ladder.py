@@ -497,8 +497,9 @@ def test_build_ann_engine_equals_load_ann_engine(artifacts, kind):
 def test_build_ann_engine_ivf_round_trips(tmp_path, artifacts):
     """An IVF engine from the front door (its own k-means, seeded) serves
     what its saved and reloaded artifact serves, bit for bit; ``mesh``
-    raises naming its ROADMAP.md item, and ``pipeline`` serves what the
-    sequential path serves over the same tiles."""
+    serves the full rung of the list-sharded index, equal to it, and
+    ``pipeline`` serves what the sequential path serves over the same
+    tiles."""
     q, _ = artifacts
     codes, C, structure, emb = arrays()
     built = build_ann_engine(codes, C, structure, topk=TOPK, index="ivf",
@@ -516,8 +517,15 @@ def test_build_ann_engine_ivf_round_trips(tmp_path, artifacts):
         w = loaded.search(q, budget=SearchBudget(force_level=rung))
         assert torch.equal(b.indices, w.indices), rung
         assert torch.equal(b.distances, w.distances), rung
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        build_ann_engine(codes, C, structure, mesh=object(), device="cpu")
+    from repro_torch.distributed import make_mesh_auto
+    sharded = build_ann_engine(
+        codes, C, structure, topk=TOPK, index="ivf", emb_db=emb, n_lists=8,
+        n_probe=4, generator=5, refine_cap=40,
+        mesh=make_mesh_auto((4,), ("data",), devices="cpu"))
+    assert sharded._levels() == ("full",)
+    s, b = sharded.search(q), built.search(q)
+    assert torch.equal(s.indices, b.indices)
+    assert torch.equal(s.distances, b.distances)
     piped = build_ann_engine(codes, C, structure, topk=TOPK, index="ivf",
                              emb_db=emb, n_lists=8, n_probe=4,
                              generator=5, device="cpu", pipeline="tiles",

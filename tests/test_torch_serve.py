@@ -366,7 +366,7 @@ class TestTenants:
     def test_load_tenants_from_artifacts(self, paths):
         """``load_tenants`` opens each spec through ``load_ann_engine``
         on the named device, with the coalescing knobs of its embedded
-        ``ServeConfig``; a mesh (sharded serving) raises by name."""
+        ``ServeConfig``; a mesh serves every tenant sharded."""
         tenants = load_tenants([f"f={paths['flat']}",
                                 f"i={paths['ivf']}"], device="cpu",
                                overrides={"serve.batch_tile": 8})
@@ -374,9 +374,12 @@ class TestTenants:
         assert tenants["i"].engine.device.type == "cpu"
         assert (tenants["f"].tile, tenants["f"].window_ms) == (8, 2.0)
         assert tenants["i"].d == D
-        with pytest.raises(NotImplementedError, match="item 10"):
-            load_tenants([f"f={paths['flat']}"], mesh=object(),
-                         device="cpu")
+        from repro_torch.distributed import make_mesh_auto
+        sharded = load_tenants(
+            [f"f={paths['flat']}"],
+            mesh=make_mesh_auto((2,), ("data",), devices="cpu"))
+        assert sharded["f"].engine._levels() == ("full",)
+        assert sharded["f"].engine.device.type == "cpu"
 
     def test_per_tenant_routing_is_isolated(self, engines):
         t1 = Tenant(name="flat", engine=engines["flat"])

@@ -193,6 +193,11 @@ def test_tune_recall_matches_reference(data, tmp_path):
     assert all(p["qps"] > 0 for p in rg)
 
 
+def _model_mesh():
+    from repro_torch.distributed import make_mesh_auto
+    return make_mesh_auto((2,), ("model",), devices="cpu")
+
+
 def _guard_session():
     return icq_session(ICQConfig(), device="cpu")
 
@@ -206,16 +211,17 @@ def _guard_session():
     (lambda: _guard_session().save("unused"), ConfigError,
      "before session.fit"),
     (lambda: _guard_session().fit(np.zeros((8, 64), np.float32),
-                                  mesh=object()),
-     NotImplementedError, "item 10"),
+                                  mesh=_model_mesh()),
+     ValueError, "needs a mesh with a 'data' axis"),
     (lambda: icq_session(ICQConfig().with_overrides(
         {"train.quantizer": "pq"}), device="cpu").fit(
-            np.zeros((8, 16), np.float32), mesh=object()),
+            np.zeros((8, 16), np.float32), mesh=_model_mesh()),
      ConfigError, "only wired for the joint"),
 ], ids=["index", "config", "tune", "save", "mesh", "mesh-baseline"])
 def test_session_guards(call, error, match):
     """The reference's session guards (``test_api.py::test_session_
-    guards`` and its siblings), and ``mesh=`` naming item 10."""
+    guards`` and its siblings), and ``mesh=`` without a ``data``
+    axis."""
     with pytest.raises(error, match=match):
         call()
 
@@ -223,14 +229,14 @@ def test_session_guards(call, error, match):
 def test_session_guards_need_queries_and_a_model(data, tmp_path):
     """``tune`` without queries, and ``from_artifacts`` of an index-only
     save, raise the reference's ``ConfigError``s; ``index(mesh=)``
-    names item 10."""
+    needs a ``data`` axis."""
     xtr, ytr, _ = data
     session = icq_session(_port_cfg("pq", "flat"), device="cpu")
     session.fit(xtr, ytr)
     with pytest.raises(ConfigError, match="needs queries="):
         session.tune()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        session.index(mesh=object())
+    with pytest.raises(ValueError, match="'data' axis"):
+        session.index(mesh=_model_mesh())
     path = str(tmp_path / "index_only")
     from repro_torch.api import Artifacts
     Artifacts(config=session.config,

@@ -190,7 +190,8 @@ def test_tiled_engine_is_batching_invariant(artifacts, kind):
 
 
 def test_unported_options_raise_by_name(artifacts):
-    """Sharded serving (queue 1, item 10) still raises by name; the
+    """Sharded serving serves: ``shard`` gives the
+    row-sharded clone and ``mark_shard_dead`` needs a sharded engine; the
     pipelined executor (item 7) now serves, equal bit for bit to the
     sequential path over the same tiles (its parity is in
     ``test_torch_pipelined.py``); ``filter``, ``search_crude`` and
@@ -212,9 +213,12 @@ def test_unported_options_raise_by_name(artifacts):
         assert torch.equal(getattr(got, field), getattr(want, field))
     with pytest.raises(ValueError, match="pipeline mode"):
         dataclasses.replace(piped.index, pipeline="overlap")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        engine.index.shard(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+    from repro_torch.distributed import make_mesh_auto
+    view = engine.index.shard(make_mesh_auto((2,), ("data",),
+                                             devices="cpu"))
+    assert torch.equal(view.search(rows).indices,
+                       engine.index.search(rows).indices)
+    with pytest.raises(ValueError, match="needs a sharded engine"):
         engine.mark_shard_dead(0)
     r = engine.search(q, filter=np.ones(N, bool))
     assert r.indices.shape == (2, TOPK) and bool((r.indices >= 0).all())

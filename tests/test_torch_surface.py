@@ -15,9 +15,8 @@ MISSING = {
     },
     "data": {"TokenPipeline": "item 11 (the LM side)"},
     "distributed": {
-        name: "item 10 (sharding)" for name in (
+        name: "item 11 (the LM side)" for name in (
             "batch_shardings", "cache_shardings", "param_shardings",
-            "replicated", "make_elastic_mesh", "plan_mesh_shape",
             "reshard_state")},
 }
 PACKAGES = ["", "api", "index", "trainer", "core", "core.baselines",

@@ -474,7 +474,7 @@ def test_joint_step_matches_reference(joint_step, joint_problem):
 def test_step_refuses_data_parallel_and_unknown_modes():
     cfg = ICQConfig(**CFG)
     opt = port_opt.AdamW(lr=lambda s: 1e-3)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         port_joint.make_train_step(cfg, port_embed.linear_apply, opt, "icq",
                                    axis_name="data")
     with pytest.raises(ValueError, match="unknown trainer mode"):
