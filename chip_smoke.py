@@ -3,7 +3,8 @@
 from this checkout, holds each against its plain PyTorch version on the
 card, then builds and serves the flat, two-step and IVF indexes at
 SIFT1M geometry through the port's own entry points (``build_index``,
-``load_ann_engine``) and checks what comes out.
+``load_ann_engine``), trains, and serves two dense LMs at full width
+(``serve_lm``), and checks what comes out.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--batches 3] \
         [--profile DIR]
@@ -212,6 +213,33 @@ or outside a checkout of the repository.  Phases:
    the init and the export; the data-parallel step's ms; MAP@50 of the
    served model beside phase 11's.
 
+14. LM serving (``launch.serve.serve_lm``, the ``--arch`` command's
+   path) on the card at full width with random weights drawn by the
+   port's ``init`` from a generator on the card: cell A, tinyllama-1.1b
+   in f32, batch 8, a 512-token prompt (the ``full_attention`` branch),
+   32 greedy decode steps, then the same 32 steps through the ICQ-KV
+   decode (``build_icq_decode``, d_fast 16, top_c 128, its caches
+   quantized per layer from the prefill's K/V, fed the dense steps'
+   tokens): its ms a step, max logit error and greedy agreement against
+   the dense steps (reported, not gated) and the cache bytes a step
+   reads, dense and ICQ; cell B, gemma-7b under ``scale_config`` (bf16),
+   batch 1, a 2048-token prompt (the chunked branch), 16 steps.  Each
+   prints prefill ms, decode ms a step, tokens/s and peak MiB (CUDA
+   events) beside the card's name and power limit.  Gates: (1) cell A's
+   model at batch 1, a 64-token prompt and 4 steps on the card against
+   the CPU from the same weights, logits within 2e-4 of the largest
+   (``LM_TOL``), greedy tokens equal wherever the CPU's top-2 gap
+   exceeds that; (2) at both cells' shapes, the flash kernel on layer
+   0's q, k, v against its plain version (phase 7's tolerance), timed
+   beside its bound and SDPA; (3) at cell A's head geometry ICQ-KV
+   attention at top_c = S equal to exact attention over the dequantized
+   cache; (4) launch counts reset before and read after each cell:
+   exactly ``num_layers`` flash launches a prefill (22 and 28; the
+   untimed warm prefill doubles the window's count) and none in the
+   decode steps.  TF32 must be off; the phase logs
+   ``torch.get_float32_matmul_precision()``.  The kernels' record of
+   flash attention is cell B's served prefill shape.
+
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
 and the types of what holds it.
@@ -225,7 +253,8 @@ With ``--profile DIR``, five more tiles of the two-step-f32 and ivf-f32
 cells run under ``torch.profiler`` after their counted windows: the
 device busy time and idle share per tile, the ops by device and host
 time, and a Chrome trace per cell in DIR; phase 10 traces its 512-query
-batches pipelined and off the same way, and phase 11 10 train steps.
+batches pipelined and off the same way, phase 11 10 train steps, and
+phase 14 one prefill and 4 decode steps of each LM cell.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3868,6 +3897,327 @@ def fit_data_parallel(seed: int, card: str, fig1_model):
         f"{card}")
     return {k: launches[k] + served[k] for k in launches}
 
+# ------------------------------------------------ phase 14: LM serving ----
+
+# the served LM cells: (label, arch, bf16 under scale_config, batch,
+# prompt, decode steps).  A: tinyllama-1.1b at full width in f32, a
+# prompt within attn_chunk (the full_attention branch); B: gemma-7b at
+# full width in bf16 (GeGLU, tied embeddings, head width 256), a prompt
+# past attn_chunk (the chunked branch)
+LM_CELLS = (("A", "tinyllama-1.1b", False, 8, 512, 32),
+            ("B", "gemma-7b", True, 1, 2048, 16))
+# gate 1: cell A's model on the card against the CPU from the same
+# weights, at batch 1, a 64-token prompt and 4 decode steps.  Logits
+# within LM_TOL of the largest |logit|: each of the 22 layers sums 2048
+# to 5632 f32 products in cuBLAS's order against the CPU's, each sum
+# about sqrt(n) 2^-24 ~ 5e-6 relative, the errors growing with depth;
+# the flash kernel against the plain softmax adds 2e-5 (phase 7's)
+LM_GATE = dict(batch=1, prompt=64, steps=4)
+LM_TOL = 2e-4
+
+
+def lm_config(arch, bf16):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import scale_config
+    cfg = get_config(arch)
+    return scale_config(cfg) if bf16 else cfg
+
+
+def lm_params(cfg, seed):
+    import torch
+    from repro_torch.models import build_model
+    return build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(seed))
+
+
+def lm_card_gate(seed: int):
+    """Gate 1: cell A's model (f32) on the card against the CPU from the
+    same weights: prefill and decode logits within ``LM_TOL`` of the
+    largest |logit|, greedy tokens equal wherever the CPU's top-2 gap
+    exceeds that; both fed the card's greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    cfg = lm_config("tinyllama-1.1b", False)
+    model = build_model(cfg)
+    card = lm_params(cfg, seed)
+    cpu = cpu_tree(card)
+    b, s, steps = LM_GATE["batch"], LM_GATE["prompt"], LM_GATE["steps"]
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
+                                                dtype=np.int32)
+    lg, cg = model.prefill(card, {"tokens": toks}, s + steps)
+    lc, cc = model.prefill(cpu, {"tokens": toks}, s + steps)
+    worst = 0.0
+    for step in range(steps + 1):
+        got, want = lg[:, -1].float().cpu(), lc[:, -1].float()
+        bound = LM_TOL * max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        worst = max(worst, err / bound)
+        top2 = want.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = got.argmax(-1) == want.argmax(-1)
+        log(f"lm gate card vs cpu tinyllama-1.1b f32 "
+            f"{'prefill' if step == 0 else f'decode {step}'}: max |logit| "
+            f"{float(want.abs().max()):.4f}, max_abs_err {err:.3e} (bound "
+            f"{bound:.3e}), top-2 gap {float(gap.min()):.4e}, greedy "
+            f"{'equal' if bool(same.all()) else 'DIFFERENT'}")
+        check(err <= bound, f"lm gate: card logits {err} from the CPU's "
+                            f"(bound {bound}) at step {step}")
+        check(bool((same | (gap <= bound)).all()),
+              f"lm gate: greedy token differs at step {step} with top-2 "
+              f"gap {float(gap.min())} > {bound}")
+        if step < steps:
+            tok = got.argmax(-1).to(torch.int32)[:, None]
+            lg, cg = model.decode_step(card, tok.cuda(), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+    del card, cpu, cg, cc
+    return worst
+
+
+def lm_icq_gate(seed: int):
+    """Gate 3: at cell A's head geometry (b 8, S 544, 4 KV heads, 32
+    query heads, dh 64) on the card, ICQ-KV attention with top_c = S
+    (no pruning) equals exact attention over the dequantized cache
+    (rtol 1e-5, atol 1e-5 of the largest output)."""
+    import torch
+    from repro_torch.index.base import full_f32_matmul
+    from repro_torch.quant import (ICQKVConfig, build_icq_kv_cache,
+                                   dequantize_int8, icq_kv_decode_attention)
+    from repro_torch.quant.kv_cache import reference_decode_attention
+    b, S, kvh, H, dh = 8, 544, 4, 32, 64
+    g = torch.Generator(device="cuda").manual_seed(seed + 1400)
+    hot = torch.where(torch.randperm(dh, generator=g, device="cuda") < 16,
+                      3.0, 0.3)
+    k = torch.randn((b, S, kvh, dh), generator=g, device="cuda") * hot
+    v = torch.randn((b, S, kvh, dh), generator=g, device="cuda")
+    q = torch.randn((b, 1, H, dh), generator=g, device="cuda") * hot
+    cfg = ICQKVConfig(d_fast=16)
+    with full_f32_matmul():
+        cache = build_icq_kv_cache(cfg, k, v, max_len=S)
+        got = icq_kv_decode_attention(q, cache, cfg, S - 1, top_c=S)
+        inv = torch.argsort(cache["perm"].long(), dim=-1)
+        kd = dequantize_int8(cache["kq"], cache["ks"])
+        kd = torch.gather(kd, -1, inv[None, None].expand(kd.shape))
+        vd = dequantize_int8(cache["vq"], cache["vs"])
+        want = reference_decode_attention(q, kd, vd, S - 1)
+        raw = reference_decode_attention(q, k, v, S - 1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.isclose(got, want, rtol=1e-5, atol=1e-5 * max(
+        1.0, float(want.abs().max()))).all())
+    log(f"lm gate icq-kv top_c = S = {S} (b={b} kvh={kvh} H={H} dh={dh} "
+        f"d_fast=16): max_abs_err {err:.3e} against exact attention over "
+        f"the dequantized cache: {'within' if ok else 'OUTSIDE'}; "
+        f"{float((got - raw).abs().max()):.3e} against the raw cache (int8 "
+        f"error, reported)")
+    check(ok, f"icq_kv_decode_attention at top_c = S != exact attention "
+              f"over the dequantized cache: {err}")
+
+
+def layer0_qkv(cfg, params, toks):
+    """Layer 0's q, k, v of the prefill of ``toks`` (the shapes and
+    types the model hands the flash kernel)."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.nn import as_dtype
+    from repro_torch.models.transformer import _layer, _norm_apply
+    x = params["embed"][torch.from_numpy(toks).cuda().long()].to(
+        as_dtype(cfg.compute_dtype))
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype,
+                             device="cuda")
+    lp = _layer(params["seg0"], 0)
+    return attn.qkv_project(lp["attn"], _norm_apply(cfg, lp["norm1"], x),
+                            cfg, torch.arange(toks.shape[1], device="cuda"))
+
+
+def lm_flash_at_cell(label, arch, cfg, params, toks):
+    """Gate 2 at a cell's served shape: ``ops.flash_attention``'s kernel
+    on layer 0's q, k, v against its plain version (phase 7's
+    tolerance), then its time beside the bound, the plain version and
+    SDPA.  Returns the kernel's record at this shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = layer0_qkv(cfg, params, toks)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = fa.flash_attention_torch(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = flash_tolerance(q.dtype)
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                            atol=tol).all())
+    b, s, H, dh = q.shape
+    KVH = k.shape[2]
+    name = str(q.dtype).split(".")[-1]
+    log(f"lm gate flash cell {label} {arch} layer 0 b={b} s={s} H={H} "
+        f"KVH={KVH} dh={dh} {name} ({flash_body(q.dtype, dh)}): "
+        f"max_abs_err {err} (tolerance {tol}): "
+        f"{'within' if ok else 'OUTSIDE'}")
+    check(ok, f"flash_attention kernel != plain version at cell {label}'s "
+              f"shape: max_abs_err {err}")
+    del want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5)
+    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v), 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    nbytes, nops = attention_work(b, s, s, H, KVH, dh, True,
+                                  q.element_size())
+    b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
+                          if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
+    log(f"kernel flash_attention cell {label} {arch} b={b} s={s} H={H} "
+        f"KVH={KVH} dh={dh} causal {name}: {ms:.4f} ms "
+        f"({nops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), library scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms, kernel / SDPA {ms / lib_ms:.2f}")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:71",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def profile_lm(label, cfg, params, toks, steps, out_dir):
+    """With ``--profile``: ``torch.profiler`` over one prefill and 4
+    decode steps of a cell (after its counted window): wall time (host
+    clock, profiler on), device busy time, the device's idle share,
+    kernel launches, the ops by device and by host time; a Chrome trace
+    to ``<out_dir>/profile_lm_<label>.json``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import build_serve_fns
+    prefill_fn, decode_fn, _ = build_serve_fns(cfg)
+    max_len = toks.shape[1] + steps
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    logits, caches = prefill_fn(params, batch, max_len)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    for what, reps in (("prefill", 1), ("decode", 4)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                if what == "prefill":
+                    prefill_fn(params, batch, max_len)
+                else:
+                    logits, caches = decode_fn(params, tok, caches)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
+        launches = sum(e.count for e in kernels) / reps
+        log(f"profile lm cell {label} {what}: {wall_ms:.3f} ms a call "
+            f"(host clock, profiler on), device busy {busy_ms:.3f} ms, "
+            f"idle share {1.0 - busy_ms / wall_ms:.4f}, {launches:.1f} "
+            f"kernel launches a call")
+        log(f"--- lm cell {label} {what}: ops by device time ---\n"
+            + _op_table(prof, "self_device_time_total", 15))
+        log(f"--- lm cell {label} {what}: ops by host time ---\n"
+            + _op_table(prof, "self_cpu_time_total", 15))
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            out_dir, f"profile_lm_{label}_{what}.json"))
+
+
+def lm_serving(seed: int, card: str, profile_dir=None):
+    """Phase 14: the dense LM served through ``launch.serve.serve_lm``
+    (the CLI's path) on the card at full width, cells ``LM_CELLS`` (A
+    also through the ICQ-KV decode), with the four gates; with
+    ``profile_dir``, ``profile_lm`` of each cell.  Returns (the
+    served cells' launches, the flash kernel's record at cell B's
+    shape)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve_lm
+    log(f"phase 14: torch.get_float32_matmul_precision() = "
+        f"{torch.get_float32_matmul_precision()!r}, "
+        f"torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matrix products are on")
+    t0 = time.perf_counter()
+    lm_card_gate(seed)
+    lm_icq_gate(seed)
+    total = {k: 0 for k in read_launches()}
+    record = None
+    for label, arch, bf16, b, s, steps in LM_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = lm_config(arch, bf16)
+        t_init = time.perf_counter()
+        params = lm_params(cfg, seed)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init
+        reset_launches()
+        out = serve_lm(cfg, prompt_len=s, decode_steps=steps, batch=b,
+                       device="cuda", seed=seed, icq_kv=label == "A",
+                       params=params, verbose=False)
+        launches = read_launches()
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = 2 * cfg.num_layers   # warm + timed
+        log(f"lm cell {label} launches {launches} (prefill "
+            f"{out['launches']['prefill']}, decode "
+            f"{out['launches']['decode']})")
+        check(launches == want and out["launches"] == dict(
+            prefill=cfg.num_layers, decode=0),
+            f"lm cell {label}: launches {launches} / {out['launches']}, "
+            f"want {cfg.num_layers} flash a prefill and none a decode step")
+        for k in total:
+            total[k] += launches[k]
+        lg, toks = out["logits"], out["tokens"]
+        check(tuple(lg.shape) == (b, steps + 1, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all())
+              and toks.shape == (b, steps + 1)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"lm cell {label}: logits {tuple(lg.shape)} or tokens wrong")
+        log(f"lm cell {label} {arch} {'bf16' if bf16 else 'f32'} "
+            f"({cfg.param_count() / 1e9:.3f} B params, init "
+            f"{t_init:.2f} s) batch {b} prompt {s} decode {steps}: "
+            f"prefill {out['prefill_ms']:.3f} ms "
+            f"({b * s / out['prefill_ms'] * 1e3:.0f} tokens/s), decode "
+            f"{out['decode_ms']:.3f} ms a step (median, CUDA events) = "
+            f"{out['tokens_per_s']:.1f} tokens/s, peak "
+            f"{out['peak_mib']:.1f} MiB; {card}")
+        if label == "A":
+            r = out["icq"]
+            log(f"lm cell A icq-kv d_fast={r['d_fast']} top_c={r['top_c']}:"
+                f" {r['decode_ms']:.3f} ms a step (median) against dense "
+                f"{out['decode_ms']:.3f}; max logit err "
+                f"{r['max_logit_err']:.4e} against the dense steps (max "
+                f"|logit| {float(lg[:, 1:].abs().max()):.4f}), greedy "
+                f"tokens agree {r['agree']:.4f} (reported, not gated); "
+                f"cache bytes a step {r['bytes']['dense']} dense -> "
+                f"{r['bytes']['icq']} ICQ "
+                f"({r['bytes']['dense'] / r['bytes']['icq']:.2f}x less); "
+                f"{card}")
+        if label == "A":
+            # the same steps with no top-c cut: what int8 alone costs
+            full = serve_lm(cfg, prompt_len=s, decode_steps=steps, batch=b,
+                            device="cuda", seed=seed, icq_kv=True,
+                            icq_top_c=s + steps, params=params,
+                            verbose=False)["icq"]
+            log(f"lm cell A icq-kv control top_c = S = {s + steps}: "
+                f"{full['decode_ms']:.3f} ms a step, max logit err "
+                f"{full['max_logit_err']:.4e}, greedy tokens agree "
+                f"{full['agree']:.4f} (reported)")
+        toks0 = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                     (b, s), dtype=np.int32)
+        rec = lm_flash_at_cell(label, arch, cfg, params, toks0)
+        if profile_dir:
+            profile_lm(label, cfg, params, toks0, steps, profile_dir)
+        if label == "B":
+            record = rec
+        del params, out, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 ran {time.perf_counter() - t0:.1f} s; the "
+        "flash_attention record is cell B's served prefill shape")
+    return total, record
+
 
 def cuda_held(label: str) -> int:
     """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
@@ -3911,7 +4261,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also trace 5 served tiles of the two-step-f32 "
                          "and ivf-f32 cells, phase 10's pipelined and "
-                         "off batches and 10 of phase 11's train steps, "
+                         "off batches, 10 of phase 11's train steps "
+                         "and phase 14's prefill and decode steps, "
                          "with torch.profiler (Chrome traces to DIR)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3997,10 +4348,12 @@ def main(argv=None) -> int:
                                          profile_dir=args.profile)
     front_total = front_door(args.seed, args.n, card, fig1_model)
     dp_total = fit_data_parallel(args.seed, card, fig1_model)
+    lm_total, ops_records["flash_attention"] = lm_serving(
+        args.seed, card, profile_dir=args.profile)
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
                      + train_total[k] + front_total[k]
-                     + shard_total.get(k, 0) + dp_total[k])
+                     + shard_total.get(k, 0) + dp_total[k] + lm_total[k])
     records.update(ivf_records)
     records.update(ops_records)
     for k, rec in records.items():

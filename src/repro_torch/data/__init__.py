@@ -1,7 +1,7 @@
 """Data of the port (twin of ``repro.data``, numpy only): the Table-1
 datasets, the pseudo-real stand-ins (MNIST, CIFAR, SIFT and GloVe
 shaped), the array minibatcher and the serving paths' random index.
-``TokenPipeline`` waits for ROADMAP.md queue 1 item 11."""
+``TokenPipeline`` waits for ROADMAP item 22 (LM training)."""
 from repro_torch.data.pipeline import ArrayPipeline
 from repro_torch.data.pseudo_real import (pseudo_cifar, pseudo_glove,
                                           pseudo_mnist, pseudo_sift,

@@ -3,7 +3,8 @@
 ``ArrayPipeline`` — minibatches over in-memory arrays with per-epoch
 shuffling and sharded slicing for the retrieval workloads; the same
 seed gives the reference's batches bit for bit.  ``TokenPipeline``
-(the synthetic LM token stream) waits for ROADMAP.md queue 1 item 11.
+(the synthetic LM token stream) waits for ROADMAP item 22 (LM
+training).
 """
 from __future__ import annotations
 

@@ -1,8 +1,7 @@
 """Distributed runtime of the port (twin of ``repro.distributed``): the
 single-controller device mesh, checkpointing, fault tolerance and
 elastic re-meshing.  The LM parameter, cache and batch sharding rules
-and ``reshard_state`` come with the LM side (ROADMAP.md queue 1 item
-11)."""
+and ``reshard_state`` come with LM sharding (ROADMAP item 23)."""
 from repro_torch.distributed.checkpoint import (CheckpointManager,
                                                 flatten_pytree,
                                                 unflatten_pytree)

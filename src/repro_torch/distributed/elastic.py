@@ -7,7 +7,7 @@ remaining devices into ``data`` (data parallelism shrinks safely), and
 drop stragglers to a power-of-two fleet so collectives stay balanced.
 Moving a train state onto the new mesh (the reference's
 ``reshard_state``) reads the LM parameter rules and comes with them
-(ROADMAP.md queue 1 item 11).
+(ROADMAP item 23, LM sharding).
 """
 from __future__ import annotations
 

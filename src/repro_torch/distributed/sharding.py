@@ -18,8 +18,8 @@ region, an abstract mesh for tracing) and have no twin: a port function
 loops over its shards instead.  The LM parameter, cache and batch rule
 tables (``param_pspec``/``param_shardings``, ``cache_pspec``/
 ``cache_shardings``, ``batch_pspec``/``batch_shardings``) are keyed on
-transformer parameter paths and come with the LM side (ROADMAP.md
-queue 1 item 11).
+transformer parameter paths and come with LM sharding (ROADMAP item
+23).
 """
 from __future__ import annotations
 

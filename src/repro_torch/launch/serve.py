@@ -1,6 +1,16 @@
-"""ANN serving command of the port (twin of ``repro.launch.serve``'s
-``--ann``, ``--load-artifacts`` and ``--serve-loop`` paths, flat,
-two-step and IVF kinds).
+"""Serving command of the port (twin of ``repro.launch.serve``): the
+dense decoder LMs (``--arch``) and the ANN index (``--ann``,
+``--load-artifacts`` and ``--serve-loop``; flat, two-step and IVF
+kinds).
+
+    # a dense LM at full width on the card, random weights from --seed:
+    # prefill a seeded prompt batch (the flash kernel in every layer),
+    # then greedy-decode; --icq-kv also decodes through the ICQ-KV cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --prompt-len 512 --decode-steps 32 --batch 8 --icq-kv
+    # the reduced config on the CPU, through the plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --smoke --device cpu --prompt-len 32 --decode-steps 8 --batch 2
 
     # build a synthetic index from a seed, serve query batches on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --ann \
@@ -36,9 +46,11 @@ two-step and IVF kinds).
         --tenant a=/path/ann --tenant b=/path/ivf --serve-rate 1000 \
         --serve-duration 2 --batch-tile 32 --batch-window-ms 2
 
-Each batch's time comes from the host clock around work that ends in a
-device synchronize (the engine synchronizes before it returns); so does
-the ``--ann-add`` time.  ``--serve-loop`` prints, per tenant, requests,
+The LM path prints the prefill's time, the decode's time a token and
+tokens per second (CUDA events on the card, the host clock on the CPU)
+and the peak device memory.  Each ANN batch's time comes from the host
+clock around work that ends in a device synchronize (the engine
+synchronizes before it returns); so does the ``--ann-add`` time.  ``--serve-loop`` prints, per tenant, requests,
 p50 and p99 end-to-end latency (host clock from submit to the result),
 requests per second, mean tile fill and mean queue wait.
 """
@@ -213,8 +225,214 @@ def serve_traffic(specs, *, rate_hz: float, duration_s: float,
     return records
 
 
+class _Clock:
+    """Times of enclosed work: CUDA events on the card (read after one
+    synchronize at the end), the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.card = device.type == "cuda"
+        self.spans = []
+
+    def span(self, fn):
+        import torch
+        if self.card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            self.spans.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            self.spans.append(time.perf_counter() - t0)
+        return out
+
+    def ms(self) -> list:
+        import torch
+        if not self.card:
+            return [1e3 * t for t in self.spans]
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.spans]
+
+
+def icq_kv_geometry(cfg, max_len: int):
+    """The ICQ-KV dials of the reference's decode cell
+    (``launch/steps.py`` ``plan_icq_kv_cell``): d_fast = max(dh / 4, 16)
+    and top_c = max(S / 16, 128), each at most its axis."""
+    from repro_torch.quant import ICQKVConfig
+    d_fast = min(max(cfg.head_dim // 4, 16), cfg.head_dim)
+    return ICQKVConfig(d_fast=d_fast), min(max(max_len // 16, 128), max_len)
+
+
+def icq_caches_from_prefill(kv_cfg, caches, s: int, max_len: int):
+    """The ICQ-KV decode caches of every layer, quantized from the dense
+    prefill's K/V at positions [0, s) (``build_icq_kv_cache``)."""
+    import torch
+    from repro_torch.quant import build_icq_kv_cache
+    k, v = caches["seg0"]["k"], caches["seg0"]["v"]
+    per = [build_icq_kv_cache(kv_cfg, k[li, :, :s], v[li, :, :s], max_len)
+           for li in range(k.shape[0])]
+    return {"pos": torch.tensor(s, dtype=torch.int32, device=k.device),
+            "layers": {name: torch.stack([c[name] for c in per])
+                       for name in per[0]}}
+
+
+def serve_lm(cfg, *, prompt_len: int, decode_steps: int, batch: int,
+             device=None, seed: int = 0, icq_kv: bool = False,
+             icq_top_c=None, params=None, verbose: bool = True):
+    """Serve a dense decoder LM: draw its params from ``seed`` on the
+    device (or take ``params``), prefill a prompt batch of token ids
+    from ``np.random.default_rng(seed)`` (the reference's ids at seed
+    0), then greedy-decode ``decode_steps`` tokens.  One untimed
+    prefill at the same shape comes first (on the card: the kernel
+    library, cuBLAS, the allocator).  With ``icq_kv`` the same steps
+    run again through the ICQ-KV decode (``build_icq_decode``),
+    its caches quantized from the prefill's K/V and fed the dense
+    path's tokens, so that its logits compare step for step;
+    ``icq_top_c`` overrides its survivor count (``icq_kv_geometry``).
+
+    Returns a dict: ``prefill_ms``, ``decode_ms`` (median a step),
+    ``tokens_per_s`` (batch / that median), ``peak_mib`` (None on the
+    CPU), ``tokens`` (b, 1 + steps) numpy, ``logits`` (b, 1 + steps, V)
+    f32 on the device (the prefill's last position, then each step's),
+    ``launches`` (flash launches of the timed prefill and of the decode
+    steps) and, with ``icq_kv``, ``icq`` (its ``decode_ms``,
+    ``max_logit_err`` and ``agree`` share against the dense steps,
+    ``d_fast``, ``top_c`` and the cache ``bytes`` a step reads, dense
+    and ICQ)."""
+    import torch
+
+    from repro_torch.index.base import resolve_device
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.steps import build_serve_fns
+    from repro_torch.models.nn import as_dtype
+    from repro_torch.quant.serve_icq import build_icq_decode
+
+    device = resolve_device(device)
+    card = device.type == "cuda"
+    prefill_fn, decode_fn, model = build_serve_fns(cfg)
+    if params is None:
+        params = model.init(torch.Generator(device=device).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
+                          dtype=np.int32)
+    max_len = prompt_len + decode_steps
+    tokens_in = {"tokens": torch.from_numpy(prompt).to(device)}
+    prefill_fn(params, tokens_in, max_len)              # warm, untimed
+    if card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    clock = _Clock(device)
+    flash0 = LAUNCHES["flash_attention"]
+    logits, caches = clock.span(
+        lambda: prefill_fn(params, tokens_in, max_len))
+    flash1 = LAUNCHES["flash_attention"]
+    steps = [logits[:, -1].float()]
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    toks = [tok]
+    for _ in range(decode_steps):
+        logits, caches = clock.span(lambda: decode_fn(params, tok, caches))
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        steps.append(logits[:, -1].float())
+        toks.append(tok)
+    ms = clock.ms()
+    out = dict(
+        prefill_ms=ms[0], decode_ms=float(np.median(ms[1:])) if ms[1:]
+        else None,
+        peak_mib=(torch.cuda.max_memory_allocated(device) / 2**20
+                  if card else None),
+        tokens=torch.cat(toks, dim=1).cpu().numpy(),
+        logits=torch.stack(steps, dim=1),
+        launches=dict(prefill=flash1 - flash0,
+                      decode=LAUNCHES["flash_attention"] - flash1))
+    out["tokens_per_s"] = (batch / out["decode_ms"] * 1e3
+                           if out["decode_ms"] else None)
+    if verbose:
+        print(f"prefill: {prompt_len} tokens x {batch} in "
+              f"{out['prefill_ms']:.3f} ms; logits "
+              f"{tuple(out['logits'][:, 0].shape)}; flash launches "
+              f"{out['launches']['prefill']}")
+        if decode_steps:
+            print(f"decode: {decode_steps} steps, {out['decode_ms']:.3f} ms"
+                  f" a step (median), {out['tokens_per_s']:.1f} tokens/s; "
+                  f"flash launches {out['launches']['decode']}")
+        print("generated:", out["tokens"][:, :16])
+        if card:
+            print(f"peak device memory {out['peak_mib']:.1f} MiB")
+    if icq_kv and decode_steps:
+        kv_cfg, top_c = icq_kv_geometry(cfg, max_len)
+        top_c = icq_top_c or top_c
+        icq_decode, _ = build_icq_decode(cfg, kv_cfg)
+        icq = icq_caches_from_prefill(kv_cfg, caches, prompt_len, max_len)
+        del caches
+        iclock = _Clock(device)
+        got = []
+        for i in range(decode_steps):
+            logits, icq = iclock.span(lambda: icq_decode(
+                params, toks[i], icq, top_c=top_c))
+            got.append(logits[:, -1].float())
+        got = torch.stack(got, dim=1)
+        want = out["logits"][:, 1:]
+        L, kvh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        dense_bytes = (L * batch * kvh * max_len * dh * 2
+                       * torch.finfo(as_dtype(cfg.compute_dtype)).bits // 8)
+        icq_bytes = L * batch * kvh * (max_len * kv_cfg.d_fast * 2
+                                       + top_c * (dh * 2 + 2 * 4))
+        out["icq"] = dict(
+            decode_ms=float(np.median(iclock.ms())), d_fast=kv_cfg.d_fast,
+            top_c=top_c,
+            max_logit_err=float((got - want).abs().max()),
+            agree=float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+            bytes=dict(dense=dense_bytes, icq=icq_bytes))
+        if verbose:
+            r = out["icq"]
+            print(f"icq-kv: d_fast={r['d_fast']} top_c={top_c}: "
+                  f"{r['decode_ms']:.3f} ms a step (median); max logit err "
+                  f"{r['max_logit_err']:.4f} against the dense steps, "
+                  f"greedy tokens agree {r['agree']:.3f}; cache bytes a "
+                  f"step {dense_bytes} -> {icq_bytes} "
+                  f"({dense_bytes / icq_bytes:.1f}x less)")
+    return out
+
+
+def serve_arch(args):
+    """``--arch``: the LM's config, ``serve_lm`` on it; an arch the port
+    does not serve exits with a one-line error naming its ROADMAP
+    item."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.transformer import unported_item
+    from repro_torch.quant.serve_icq import supports_icq_kv
+
+    try:
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    except KeyError as e:
+        raise SystemExit(f"--arch: {e.args[0]}") from e
+    item = unported_item(cfg)
+    if item:
+        raise SystemExit(f"--arch {args.arch}: the {cfg.family} family is "
+                         f"not ported; it waits for ROADMAP {item}")
+    if args.icq_kv and not supports_icq_kv(cfg):
+        raise SystemExit(f"--icq-kv: {args.arch} has no dense KV cache")
+    serve_lm(cfg, prompt_len=args.prompt_len,
+             decode_steps=args.decode_steps, batch=args.batch,
+             device=args.device, seed=args.seed, icq_kv=args.icq_kv)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None,
+                    help="serve this LM (configs.list_archs(); the dense "
+                         "decoder LMs are ported)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the reduced config (smoke_config)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--icq-kv", action="store_true",
+                    help="with --arch: also decode through the ICQ-KV "
+                         "cache (crude scores over the high-variance key "
+                         "dims, exact attention over the top survivors)")
     ap.add_argument("--ann", action="store_true",
                     help="build a synthetic index and serve it")
     ap.add_argument("--load-artifacts", default=None, metavar="DIR",
@@ -335,8 +553,11 @@ def main(argv=None):
                      seed=args.seed, overrides=overrides,
                      verify=args.verify_artifacts, shards=args.ann_shards)
         return
+    if args.arch is not None:
+        serve_arch(args)
+        return
     if not args.ann:
-        ap.error("give --ann or --load-artifacts DIR")
+        ap.error("give --arch, --ann or --load-artifacts DIR")
     from repro_torch.api import ICQConfig
 
     cfg = ICQConfig.load(args.config) if args.config else ICQConfig()

@@ -1,3 +1,5 @@
-"""Module primitives of the port (twin of ``repro.models``); only the
-initializers the embedders need are here, the LM models wait for item
-11."""
+"""The port's models (twin of ``repro.models``): the dense decoder LMs
+and their module primitives."""
+from repro_torch.models.transformer import build_model, ModelFns
+
+__all__ = ["build_model", "ModelFns"]

@@ -1,16 +1,26 @@
-"""Parameter initializers (twin of ``repro.models.nn``: ``dense_init``
-and ``bias_init``; the rest of that module waits for item 11).
+"""Module primitives (twin of ``repro.models.nn``; the two
+cross-entropy functions are training and wait for ROADMAP item 22).
 
-Params are nested dicts of tensors.  Random draws come from a
-``torch.Generator``; the reference's JAX keys have no counterpart, so
-the same seed gives other values than the reference's (tests carry the
-reference's params across as numpy instead)."""
+Params are nested dicts of tensors.  ``*_init`` builds params, the
+matching functions apply them; dtypes are explicit.  Random draws come
+from a ``torch.Generator``; the reference's JAX keys have no
+counterpart, so the same seed gives other values than the reference's
+(tests carry the reference's params across as numpy instead)."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or its name (the configs' dtype
+    fields are names: ``"float32"``, ``"bfloat16"``)."""
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, dtype)
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -20,8 +30,107 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
     s = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=generator,
                     device=generator.device, dtype=torch.float32)
-    return (w * s).to(dtype)
+    return (w * s).to(as_dtype(dtype))
 
 
-def bias_init(out_dim: int, dtype=torch.float32):
-    return torch.zeros((out_dim,), dtype=dtype)
+def bias_init(out_dim: int, dtype=torch.float32, device=None):
+    return torch.zeros((out_dim,), dtype=as_dtype(dtype), device=device)
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32):
+    w = torch.randn((vocab, d), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return (w * 0.02).to(as_dtype(dtype))
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None):
+    return torch.ones((d,), dtype=as_dtype(dtype), device=device)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """In f32, cast back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(dt)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=as_dtype(dtype), device=device),
+            "bias": torch.zeros((d,), dtype=as_dtype(dtype), device=device)}
+
+
+def layernorm(x, p, eps: float = 1e-5):
+    """In f32 with the variance over n (the reference's ``jnp.var``),
+    cast back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(dt)
+
+
+# ---------------------------------------------------------------- RoPE ----
+
+def rope_frequencies(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_frequencies_on(head_dim: int, theta: float, device: torch.device):
+    """``rope_frequencies`` copied to ``device`` once: a copy from host
+    memory at every call would wait for the card each time."""
+    return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Half-split rotary embedding.  x: (..., seq, heads, head_dim);
+    positions: (..., seq) integers; the angles in f32."""
+    head_dim = x.shape[-1]
+    freqs = _rope_frequencies_on(head_dim, theta, x.device)
+    angles = positions[..., None].float() * freqs        # (..., s, hd/2)
+    angles = angles[..., None, :]                        # (..., s, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------- activations ----
+
+def gated_act(kind: str, gate, up):
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    raise ValueError(kind)
+
+
+# ------------------------------------------------------------- MLP ----
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+             activation: str, dtype=torch.float32):
+    if activation in ("swiglu", "geglu"):
+        return {
+            "w_gate": dense_init(generator, d_model, d_ff, dtype),
+            "w_up": dense_init(generator, d_model, d_ff, dtype),
+            "w_down": dense_init(generator, d_ff, d_model, dtype),
+        }
+    return {  # plain gelu MLP (whisper)
+        "w_up": dense_init(generator, d_model, d_ff, dtype),
+        "b_up": bias_init(d_ff, dtype, generator.device),
+        "w_down": dense_init(generator, d_ff, d_model, dtype),
+        "b_down": bias_init(d_model, dtype, generator.device),
+    }
+
+
+def mlp_apply(p, x, activation: str):
+    if activation in ("swiglu", "geglu"):
+        h = gated_act(activation, x @ p["w_gate"], x @ p["w_up"])
+        return h @ p["w_down"]
+    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    return h @ p["w_down"] + p["b_down"]

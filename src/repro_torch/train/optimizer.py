@@ -1,6 +1,6 @@
 """AdamW with a folded global-norm clip, the cosine schedule and the
 pytree helpers they need (twin of ``repro.train.optimizer``; Adafactor
-waits for item 11).
+waits for ROADMAP item 22, LM training).
 
 This is the reference's AdamW, not ``torch.optim.AdamW``: b2 = 0.95,
 eps added outside ``sqrt(vhat)``, the bias correction taken at the step

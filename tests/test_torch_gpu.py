@@ -1375,3 +1375,77 @@ def test_cuda_dp_step_equals_single_device_step():
                     tree_leaves(dict(zip("pov", one[:3])))):
         scale = float(w.abs().max())
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _dense_lm(arch, bf16, attn_chunk=1024):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import scale_config
+    cfg = dataclasses.replace(smoke_config(arch), attn_chunk=attn_chunk,
+                              head_dim=32)
+    return scale_config(cfg) if bf16 else cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,bf16,attn_chunk", [
+    ("tinyllama-1.1b", False, 1024), ("gemma-7b", True, 1024),
+    ("llama3-405b", False, 8), ("granite-3-8b", True, 8)])
+def test_cuda_dense_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
+    """The dense LM's prefill (the flash kernel in every layer, one
+    launch each) and 3 decode steps on the card against the CPU from the
+    same params: f32 within 1e-5, bf16 within 2^-5 of the largest
+    logit; greedy tokens equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = _dense_lm(arch, bf16, attn_chunk)
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = _to(cpu, "cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16),
+                                             dtype=np.int32)
+    tol = 2.0 ** -5 if bf16 else 1e-5
+    ops.LAUNCHES["flash_attention"] = 0
+    lg, cg = model.prefill(card, {"tokens": toks}, 24)
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    lc, cc = model.prefill(cpu, {"tokens": toks}, 24)
+    for step in range(4):
+        want = lc.float()
+        bound = tol * max(1.0, float(want.abs().max()))
+        assert float((lg.float().cpu() - want).abs().max()) <= bound, step
+        tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        assert torch.equal(lg[:, -1].float().argmax(-1).cpu(), tok[:, 0])
+        if step < 3:
+            lg, cg = model.decode_step(card, tok.cuda(), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_refuses_an_uncompiled_head_width():
+    """dh 16 (smoke_config's) is not one of the kernel's compiled widths:
+    the card raises, naming them, and runs no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import attention as attn
+    cfg = smoke_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(0)
+    toks = np.zeros((1, 8), np.int32)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
+        model.prefill(params, {"tokens": toks}, 8)
+    q = torch.zeros((1, 8, 4, 32), device="cuda")
+    k = torch.zeros((1, 8, 2, 32), device="cuda")
+    with pytest.raises(NotImplementedError, match="item 20"):
+        attn.full_attention(q, k, k, causal=True, window=4)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        attn.chunked_attention(q, k, k, causal=False, chunk=4)

@@ -13,14 +13,19 @@ MISSING = {
         # compile
         "compile_epoch": "none: the port's epoch is run_epoch",
     },
-    "data": {"TokenPipeline": "item 11 (the LM side)"},
+    "data": {"TokenPipeline": "item 22 (LM training)"},
     "distributed": {
-        name: "item 11 (the LM side)" for name in (
+        name: "item 23 (LM sharding)" for name in (
             "batch_shardings", "cache_shardings", "param_shardings",
             "reshard_state")},
+    "quant": {
+        name: "item 22 (LM training: cross-pod gradient compression)"
+        for name in ("compress_state_init", "compressed_cross_pod_mean",
+                     "ef_quantize")},
 }
 PACKAGES = ["", "api", "index", "trainer", "core", "core.baselines",
-            "core.train", "core.search", "data", "distributed"]
+            "core.train", "core.search", "data", "distributed", "configs",
+            "models", "quant"]
 
 
 def _pair(sub):
