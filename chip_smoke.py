@@ -3,8 +3,9 @@
 from this checkout, holds each against its plain PyTorch version on the
 card, then builds and serves the flat, two-step and IVF indexes at
 SIFT1M geometry through the port's own entry points (``build_index``,
-``load_ann_engine``), trains, and serves two dense LMs at full width
-(``serve_lm``), and checks what comes out.
+``load_ann_engine``), trains, and serves two dense LMs, a MoE LM and
+an MLA + MoE LM at full width (``serve_lm``), and checks what comes
+out.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--batches 3] \
         [--profile DIR]
@@ -215,30 +216,49 @@ or outside a checkout of the repository.  Phases:
 
 14. LM serving (``launch.serve.serve_lm``, the ``--arch`` command's
    path) on the card at full width with random weights drawn by the
-   port's ``init`` from a generator on the card: cell A, tinyllama-1.1b
-   in f32, batch 8, a 512-token prompt (the ``full_attention`` branch),
-   32 greedy decode steps, then the same 32 steps through the ICQ-KV
-   decode (``build_icq_decode``, d_fast 16, top_c 128, its caches
-   quantized per layer from the prefill's K/V, fed the dense steps'
-   tokens): its ms a step, max logit error and greedy agreement against
-   the dense steps (reported, not gated) and the cache bytes a step
-   reads, dense and ICQ; cell B, gemma-7b under ``scale_config`` (bf16),
-   batch 1, a 2048-token prompt (the chunked branch), 16 steps.  Each
-   prints prefill ms, decode ms a step, tokens/s and peak MiB (CUDA
-   events) beside the card's name and power limit.  Gates: (1) cell A's
-   model at batch 1, a 64-token prompt and 4 steps on the card against
-   the CPU from the same weights, logits within 2e-4 of the largest
+   port's ``init`` from a generator on the card, four cells served one
+   after the other, each freed (``del``, ``empty_cache``) before the
+   next: cell A, tinyllama-1.1b in f32, batch 8, a 512-token prompt
+   (the ``full_attention`` branch), 32 greedy decode steps, then the
+   same 32 steps through the ICQ-KV decode (``build_icq_decode``,
+   d_fast 16, top_c 128, its caches quantized per layer from the
+   prefill's K/V, fed the dense steps' tokens): its ms a step, max logit
+   error and greedy agreement against the dense steps (reported, not
+   gated) and the cache bytes a step reads, dense and ICQ; cell B,
+   gemma-7b under ``scale_config`` (bf16), batch 1, a 2048-token prompt
+   (the chunked branch), 16 steps; cell C, moonshot-v1-16b-a3b in bf16
+   at full depth (1 dense + 47 MoE layers of 64 experts top-6 + 2
+   shared, 28.4 B parameters), batch 8, a 512-token prompt, 16 steps:
+   the capacity-bounded dispatch at T = 4096 (C = 480) in the prefill
+   and T = 8 (C = 4, drops possible) a step; cell D, deepseek-v2-236b
+   in bf16, its depth cut to 6 layers (1 MLA dense + 5 MLA MoE of 160
+   experts, 21.2 B parameters; the 60 layers do not fit one card),
+   batch 1, a 2048-token prompt (past ``attn_chunk``: on the card MLA's
+   K and V materialized and the flash kernel's (192, 128) instance),
+   16 steps.  Each prints prefill ms, decode ms a step, tokens/s and
+   peak MiB (CUDA events) beside the card's name and power limit.
+   Gates: (1) each arch's model on the card against the CPU from the
+   same weights in f32 at batch 1, a 64-token prompt and 4 steps
+   (tinyllama at full depth, the MoE archs at depth 2: the first dense
+   layer and one MoE layer), logits within 2e-4 of the largest
    (``LM_TOL``), greedy tokens equal wherever the CPU's top-2 gap
-   exceeds that; (2) at both cells' shapes, the flash kernel on layer
+   exceeds that; (2) at every cell's shape, the flash kernel on layer
    0's q, k, v against its plain version (phase 7's tolerance), timed
-   beside its bound and SDPA; (3) at cell A's head geometry ICQ-KV
-   attention at top_c = S equal to exact attention over the dequantized
-   cache; (4) launch counts reset before and read after each cell:
-   exactly ``num_layers`` flash launches a prefill (22 and 28; the
-   untimed warm prefill doubles the window's count) and none in the
-   decode steps.  TF32 must be off; the phase logs
+   beside its bound and SDPA (or SDPA's refusal), and the f32 (192,
+   128) body at a small MLA shape; (3) cell C's two prefills from the
+   same inputs, and two decode steps from those caches, bit for bit
+   equal (logits and caches); (4) cell C's layer 1 dispatch at 512
+   tokens with capacity_factor = E (no drops) against the every-expert
+   oracle within 2^-5 of the largest output; (5) at cell A's head
+   geometry ICQ-KV attention at top_c = S equal to exact attention over
+   the dequantized cache; (6) launch counts reset before and read after
+   each cell: exactly ``num_layers`` flash launches a prefill (22, 28,
+   48 and 6; the untimed warm prefill doubles the window's count) and
+   none in the decode steps.  TF32 must be off; the phase logs
    ``torch.get_float32_matmul_precision()``.  The kernels' record of
-   flash attention is cell B's served prefill shape.
+   flash attention is cell B's served prefill shape, with the launches
+   of the whole run; a second record, ``flash_attention (192, 128)``,
+   is cell D's, with cell D's launches.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -256,7 +276,8 @@ time, and a Chrome trace per cell in DIR; phase 10 traces its 512-query
 batches pipelined and off the same way, phase 11 10 train steps, and
 phase 14 one prefill and 4 decode steps of each LM cell.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (the nine
+kernels, then the flash kernel's (192, 128) instance); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1722,16 +1743,20 @@ def encode_and_grow(seed: int, n: int, workdir):
 
 # ------------------------------------------------ phase 7: kernel ops ----
 
-FLASH_MODES = (   # b, sq, sk, H, KVH, dh, causal
-    (1, 64, 64, 4, 4, 32, True),
-    (2, 128, 128, 8, 2, 64, True),
-    (1, 64, 256, 4, 1, 32, False),       # cross-length, MQA
-    (2, 256, 256, 8, 8, 128, True),
-    (1, 1000, 1000, 8, 1, 64, True),     # ragged against the 64-row tile
-    (1, 333, 1111, 4, 2, 128, True),     # sq < sk, GQA
-    (2, 700, 130, 6, 3, 32, False),      # sq > sk
-    (1, 700, 130, 4, 4, 128, True),      # sq > sk, causal
-    (1, 300, 300, 2, 1, 256, True),      # dh 256 (gemma-7b's head width)
+FLASH_MODES = (   # b, sq, sk, H, KVH, dqk, dv, causal
+    (1, 64, 64, 4, 4, 32, 32, True),
+    (2, 128, 128, 8, 2, 64, 64, True),
+    (1, 64, 256, 4, 1, 32, 32, False),       # cross-length, MQA
+    (2, 256, 256, 8, 8, 128, 128, True),
+    (1, 1000, 1000, 8, 1, 64, 64, True),     # ragged against the tile
+    (1, 333, 1111, 4, 2, 128, 128, True),    # sq < sk, GQA
+    (2, 700, 130, 6, 3, 32, 32, False),      # sq > sk
+    (1, 700, 130, 4, 4, 128, 128, True),     # sq > sk, causal
+    (1, 300, 300, 2, 1, 256, 256, True),     # gemma-7b's head width
+    # DeepSeek-V2's MLA widths: q/k 128 nope + 64 rope, v 128
+    (1, 1000, 1000, 8, 8, 192, 128, True),   # ragged, MHA
+    (2, 64, 200, 4, 1, 192, 128, False),     # cross-length, MQA
+    (1, 130, 77, 4, 2, 192, 128, True),      # sq > sk, GQA
 )
 
 
@@ -1740,20 +1765,24 @@ def flash_tolerance(dtype) -> float:
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
-def flash_body(dtype, dh) -> str:
-    """The flash body that runs for ``dtype`` and ``dh``: its path, and
-    its registers and local-memory (spill) bytes per thread."""
+def flash_body(dtype, dh, dv=None) -> str:
+    """The flash body that runs for ``dtype`` at (``dh``, ``dv``; ``dv``
+    defaults to ``dh``): its path, and its registers and local-memory
+    (spill) bytes per thread."""
     from repro_torch.kernels import flash_attention as fa
-    a = fa.kernel_attributes(dtype, dh)
+    a = fa.kernel_attributes(dtype, dh, dv)
     return (f"{a['path']}, {a['registers']} registers, "
             f"{a['local_bytes']} B local per thread")
 
 
-def attention_operands(seed, b, sq, sk, H, KVH, dh, dtype):
+def attention_operands(seed, b, sq, sk, H, KVH, dh, dtype, dv=None):
+    """Random q (b, sq, H, dh), k (b, sk, KVH, dh) and v (b, sk, KVH, dv;
+    dv defaults to dh) on the card."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-            for shape in ((b, sq, H, dh), (b, sk, KVH, dh), (b, sk, KVH, dh))]
+            for shape in ((b, sq, H, dh), (b, sk, KVH, dh),
+                          (b, sk, KVH, dv or dh))]
 
 
 def check_kernel_ops(seed: int):
@@ -1791,10 +1820,10 @@ def check_kernel_ops(seed: int):
             check(ok, f"adc/two_step kernel != plain version (K={K}, m={m},"
                       f" {dtype}) or wrong pass counts {passes}")
     for mode in FLASH_MODES:
-        b, sq, sk, H, KVH, dh, causal = mode
+        b, sq, sk, H, KVH, dh, dv, causal = mode
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = attention_operands(seed + sq + dh, b, sq, sk, H, KVH,
-                                         dh, dtype)
+                                         dh, dtype, dv)
             got = fa.flash_attention_cuda(q, k, v, causal=causal)
             want = fa.flash_attention_torch(q, k, v, causal=causal)
             torch.cuda.synchronize()
@@ -1804,24 +1833,27 @@ def check_kernel_ops(seed: int):
                   and bool(torch.isclose(got.float(), want.float(), rtol=tol,
                                          atol=tol).all()))
             log(f"mode flash_attention b={b} sq={sq} sk={sk} H={H} KVH={KVH}"
-                f" dh={dh} causal={causal} {str(dtype).split('.')[-1]} "
-                f"({flash_body(dtype, dh)}): max_abs_err {err} (tolerance "
+                f" dh={dh} dv={dv} causal={causal} "
+                f"{str(dtype).split('.')[-1]} ({flash_body(dtype, dh, dv)}):"
+                f" max_abs_err {err} (tolerance "
                 f"{tol}): {'within' if ok else 'OUTSIDE'}")
             check(ok, f"flash_attention kernel != plain version {mode} "
                       f"{dtype}: max_abs_err {err}")
     log(f"phase 7 check launches: {read_launches()}")
 
 
-def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize):
-    """(bytes, operations) of one attention call: q, k, v read and out
-    written once; two products of 2 dh operations per visible
-    (query, key) pair, counting only the causal part."""
+def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize, dv=None):
+    """(bytes, operations) of one attention call: q (width dh), k (dh),
+    v (dv, default dh) read and out (dv) written once; per visible
+    (query, key) pair 2 dh operations of Q . K^T and 2 dv of P . V,
+    counting only the causal part."""
+    dv = dv or dh
     if causal:
         pairs = sum(min(i + 1, sk) for i in range(sq))
     else:
         pairs = sq * sk
-    nbytes = itemsize * (2 * b * sq * H * dh + 2 * b * sk * KVH * dh)
-    return nbytes, 4 * b * H * dh * pairs
+    nbytes = itemsize * (b * sq * H * (dh + dv) + b * sk * KVH * (dh + dv))
+    return nbytes, 2 * b * H * (dh + dv) * pairs
 
 
 def kernel_ops(seed: int, n: int):
@@ -3900,26 +3932,48 @@ def fit_data_parallel(seed: int, card: str, fig1_model):
 # ------------------------------------------------ phase 14: LM serving ----
 
 # the served LM cells: (label, arch, bf16 under scale_config, batch,
-# prompt, decode steps).  A: tinyllama-1.1b at full width in f32, a
-# prompt within attn_chunk (the full_attention branch); B: gemma-7b at
-# full width in bf16 (GeGLU, tied embeddings, head width 256), a prompt
-# past attn_chunk (the chunked branch)
-LM_CELLS = (("A", "tinyllama-1.1b", False, 8, 512, 32),
-            ("B", "gemma-7b", True, 1, 2048, 16))
-# gate 1: cell A's model on the card against the CPU from the same
-# weights, at batch 1, a 64-token prompt and 4 decode steps.  Logits
-# within LM_TOL of the largest |logit|: each of the 22 layers sums 2048
-# to 5632 f32 products in cuBLAS's order against the CPU's, each sum
-# about sqrt(n) 2^-24 ~ 5e-6 relative, the errors growing with depth;
-# the flash kernel against the plain softmax adds 2e-5 (phase 7's)
+# prompt, decode steps, layers: 0 = the config's depth).  A:
+# tinyllama-1.1b at full width in f32, a prompt within attn_chunk (the
+# full_attention branch); B: gemma-7b at full width in bf16 (GeGLU, tied
+# embeddings, head width 256), a prompt past attn_chunk (the chunked
+# branch); C: moonshot-v1-16b-a3b (hf moonshotai/Moonlight-16B-A3B) at
+# full width and depth in bf16, 1 dense + 47 MoE layers of 64 experts
+# top-6 + 2 shared, batched chat serving; D: deepseek-v2-236b
+# (arXiv:2405.04434) at full width in bf16, MLA (q_lora 1536, kv_lora
+# 512, q/k 128 + 64, v 128) and 160 experts top-6 + 2 shared, its depth
+# cut from 60 layers to 6 (1 MLA dense + 5 MLA MoE: 42.5 GB; the 60
+# layers are 472 GB, past one card), a prompt past attn_chunk (on the
+# card K/V materialized and one flash launch a layer)
+LM_CELLS = (("A", "tinyllama-1.1b", False, 8, 512, 32, 0),
+            ("B", "gemma-7b", True, 1, 2048, 16, 0),
+            ("C", "moonshot-v1-16b-a3b", True, 8, 512, 16, 0),
+            ("D", "deepseek-v2-236b", True, 1, 2048, 16, 6))
+# gate 1: each arch's model on the card against the CPU from the same
+# weights, in f32 at batch 1, a 64-token prompt and 4 decode steps (the
+# MoE archs at depth 2: the first dense layer and one MoE layer).
+# Logits within LM_TOL of the largest |logit|: each of tinyllama's 22
+# layers sums 2048 to 5632 f32 products in cuBLAS's order against the
+# CPU's, each sum about sqrt(n) 2^-24 ~ 5e-6 relative, the errors
+# growing with depth; the flash kernel against the plain softmax adds
+# 2e-5 (phase 7's)
 LM_GATE = dict(batch=1, prompt=64, steps=4)
 LM_TOL = 2e-4
+LM_GATE_ARCHS = (("tinyllama-1.1b", 0), ("moonshot-v1-16b-a3b", 2),
+                 ("deepseek-v2-236b", 2))
+# gate 4: cell C's layer 1 (the first MoE layer) at this many tokens,
+# capacity_factor = E so that no assignment drops, against the
+# every-expert oracle in bf16 (TOL_BF16 of the largest output)
+MOE_ORACLE_TOKENS = 512
+TOL_BF16 = 2.0 ** -5
 
 
-def lm_config(arch, bf16):
+def lm_config(arch, bf16, layers=0):
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import scale_config
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return scale_config(cfg) if bf16 else cfg
 
 
@@ -3930,15 +3984,17 @@ def lm_params(cfg, seed):
         torch.Generator(device="cuda").manual_seed(seed))
 
 
-def lm_card_gate(seed: int):
-    """Gate 1: cell A's model (f32) on the card against the CPU from the
-    same weights: prefill and decode logits within ``LM_TOL`` of the
-    largest |logit|, greedy tokens equal wherever the CPU's top-2 gap
-    exceeds that; both fed the card's greedy tokens."""
+def lm_card_gate(seed: int, arch: str, layers: int = 0):
+    """Gate 1: ``arch``'s model (f32, ``layers`` deep) on the card
+    against the CPU from the same weights: prefill and decode logits
+    within ``LM_TOL`` of the largest |logit|, greedy tokens equal
+    wherever the CPU's top-2 gap exceeds that; both fed the card's
+    greedy tokens.  Returns (worst error over bound, seconds)."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
-    cfg = lm_config("tinyllama-1.1b", False)
+    t0 = time.perf_counter()
+    cfg = lm_config(arch, False, layers)
     model = build_model(cfg)
     card = lm_params(cfg, seed)
     cpu = cpu_tree(card)
@@ -3956,22 +4012,25 @@ def lm_card_gate(seed: int):
         top2 = want.topk(2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
         same = got.argmax(-1) == want.argmax(-1)
-        log(f"lm gate card vs cpu tinyllama-1.1b f32 "
+        log(f"lm gate card vs cpu {arch} f32 {cfg.num_layers} layers "
             f"{'prefill' if step == 0 else f'decode {step}'}: max |logit| "
             f"{float(want.abs().max()):.4f}, max_abs_err {err:.3e} (bound "
             f"{bound:.3e}), top-2 gap {float(gap.min()):.4e}, greedy "
             f"{'equal' if bool(same.all()) else 'DIFFERENT'}")
-        check(err <= bound, f"lm gate: card logits {err} from the CPU's "
-                            f"(bound {bound}) at step {step}")
+        check(err <= bound, f"lm gate {arch}: card logits {err} from the "
+                            f"CPU's (bound {bound}) at step {step}")
         check(bool((same | (gap <= bound)).all()),
-              f"lm gate: greedy token differs at step {step} with top-2 "
-              f"gap {float(gap.min())} > {bound}")
+              f"lm gate {arch}: greedy token differs at step {step} with "
+              f"top-2 gap {float(gap.min())} > {bound}")
         if step < steps:
             tok = got.argmax(-1).to(torch.int32)[:, None]
             lg, cg = model.decode_step(card, tok.cuda(), cg)
             lc, cc = model.decode_step(cpu, tok, cc)
     del card, cpu, cg, cc
-    return worst
+    seconds = time.perf_counter() - t0
+    log(f"lm gate card vs cpu {arch}: {seconds:.1f} s "
+        f"({cfg.param_count() / 1e9:.2f} B params on each side)")
+    return worst, seconds
 
 
 def lm_icq_gate(seed: int):
@@ -4016,9 +4075,11 @@ def lm_icq_gate(seed: int):
 
 def layer0_qkv(cfg, params, toks):
     """Layer 0's q, k, v of the prefill of ``toks`` (the shapes and
-    types the model hands the flash kernel)."""
+    types the model hands the flash kernel; MLA's per-head K and V
+    materialized as its card path does)."""
     import torch
     from repro_torch.models import attention as attn
+    from repro_torch.models import mla as mla_mod
     from repro_torch.models.nn import as_dtype
     from repro_torch.models.transformer import _layer, _norm_apply
     x = params["embed"][torch.from_numpy(toks).cuda().long()].to(
@@ -4027,17 +4088,35 @@ def layer0_qkv(cfg, params, toks):
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype,
                              device="cuda")
     lp = _layer(params["seg0"], 0)
-    return attn.qkv_project(lp["attn"], _norm_apply(cfg, lp["norm1"], x),
-                            cfg, torch.arange(toks.shape[1], device="cuda"))
+    h = _norm_apply(cfg, lp["norm1"], x)
+    pos = torch.arange(toks.shape[1], device="cuda")
+    if cfg.mla:
+        return mla_mod.mla_qkv(lp["attn"], h, cfg, pos)
+    return attn.qkv_project(lp["attn"], h, cfg, pos)
+
+
+def sdpa_ms(q, k, v):
+    """The library yardstick: ``scaled_dot_product_attention``'s time at
+    the kernel's operands ((b, heads, s, width) views), or (None, its
+    refusal) where PyTorch does not take them."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    try:
+        call()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return time_ms(call, 10), None
 
 
 def lm_flash_at_cell(label, arch, cfg, params, toks):
     """Gate 2 at a cell's served shape: ``ops.flash_attention``'s kernel
     on layer 0's q, k, v against its plain version (phase 7's
     tolerance), then its time beside the bound, the plain version and
-    SDPA.  Returns the kernel's record at this shape."""
+    SDPA (or SDPA's refusal).  Returns the kernel's record at this
+    shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     q, k, v = layer0_qkv(cfg, params, toks)
     got = fa.flash_attention_cuda(q, k, v, causal=True)
@@ -4048,34 +4127,116 @@ def lm_flash_at_cell(label, arch, cfg, params, toks):
     ok = bool(torch.isclose(got.float(), want.float(), rtol=tol,
                             atol=tol).all())
     b, s, H, dh = q.shape
-    KVH = k.shape[2]
+    KVH, dv = k.shape[2], v.shape[-1]
     name = str(q.dtype).split(".")[-1]
-    log(f"lm gate flash cell {label} {arch} layer 0 b={b} s={s} H={H} "
-        f"KVH={KVH} dh={dh} {name} ({flash_body(q.dtype, dh)}): "
-        f"max_abs_err {err} (tolerance {tol}): "
-        f"{'within' if ok else 'OUTSIDE'}")
+    shape = f"b={b} s={s} H={H} KVH={KVH} dh={dh} dv={dv}"
+    log(f"lm gate flash cell {label} {arch} layer 0 {shape} {name} "
+        f"({flash_body(q.dtype, dh, dv)}): max_abs_err {err} (tolerance "
+        f"{tol}): {'within' if ok else 'OUTSIDE'}")
     check(ok, f"flash_attention kernel != plain version at cell {label}'s "
               f"shape: max_abs_err {err}")
     del want
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5)
     plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v), 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    lib_ms, refused = sdpa_ms(q, k, v)
     nbytes, nops = attention_work(b, s, s, H, KVH, dh, True,
-                                  q.element_size())
+                                  q.element_size(), dv)
     b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
                           if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
-    log(f"kernel flash_attention cell {label} {arch} b={b} s={s} H={H} "
-        f"KVH={KVH} dh={dh} causal {name}: {ms:.4f} ms "
-        f"({nops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), library scaled_dot_product_attention "
-        f"{lib_ms:.4f} ms, kernel / SDPA {ms / lib_ms:.2f}")
+    lib = (f"library scaled_dot_product_attention {lib_ms:.4f} ms, kernel "
+           f"/ SDPA {ms / lib_ms:.2f}" if lib_ms is not None else
+           f"library scaled_dot_product_attention refused: {refused}")
+    log(f"kernel flash_attention cell {label} {arch} {shape} causal {name}:"
+        f" {ms:.4f} ms ({nops / ms / 1e9:.2f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {lib}")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:71",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+def mla_flash_f32_gate(seed: int):
+    """Gate 2 (f32): the (192, 128) instance's FMA body against its plain
+    version at a small MLA shape (b 1, s 300, 16 heads), 2e-5."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = attention_operands(seed + 1450, 1, 300, 300, 16, 16, 192,
+                                 torch.float32, 128)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = fa.flash_attention_torch(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = flash_tolerance(torch.float32)
+    err = float((got - want).abs().max())
+    ok = bool(torch.isclose(got, want, rtol=tol, atol=tol).all())
+    log(f"lm gate flash f32 b=1 s=300 H=16 dh=192 dv=128 "
+        f"({flash_body(torch.float32, 192, 128)}): max_abs_err {err} "
+        f"(tolerance {tol}): {'within' if ok else 'OUTSIDE'}")
+    check(ok, f"f32 (192, 128) flash kernel != plain version: {err}")
+
+
+def moe_determinism_gate(cfg, params, toks, steps: int = 2):
+    """Gate 3: two prefills of the cell from the same inputs give bit for
+    bit equal logits and caches, and ``steps`` decode steps from those
+    equal caches bit for bit equal logits and caches."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    max_len = toks.shape[1] + steps
+    (l1, c1), (l2, c2) = (model.prefill(params, {"tokens": toks}, max_len)
+                          for _ in range(2))
+    bufs = [(seg, name) for seg in c1 if seg != "pos" for name in c1[seg]]
+    same = [torch.equal(l1, l2)]
+    same_cache = [all(torch.equal(c1[g][n], c2[g][n]) for g, n in bufs)]
+    tok = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(steps):
+        d1, c1 = model.decode_step(params, tok, c1)
+        d2, c2 = model.decode_step(params, tok, c2)
+        same.append(torch.equal(d1, d2))
+        tok = d1[:, -1].argmax(-1).to(torch.int32)[:, None]
+    same_cache.append(all(torch.equal(c1[g][n], c2[g][n]) for g, n in bufs))
+    same_cache = all(same_cache)
+    log(f"lm gate moe determinism {cfg.name}: logits of 2 prefills and "
+        f"{steps} decode steps {'equal' if all(same) else same}, caches "
+        f"({len(bufs)} buffers) {'equal' if same_cache else 'DIFFERENT'} "
+        "bit for bit")
+    check(all(same) and same_cache,
+          f"moe: two runs from the same inputs differ ({same}, caches "
+          f"{same_cache})")
+
+
+def moe_oracle_gate(cfg, params, seed: int):
+    """Gate 4: the dispatch on the card at cell C's layer 1 (its first
+    MoE layer), ``MOE_ORACLE_TOKENS`` tokens, capacity_factor = E (no
+    assignment can drop: C >= T k), against the port's every-expert
+    oracle ``moe_apply_dense_reference``, bf16 within ``TOL_BF16`` of
+    the largest output."""
+    import dataclasses
+    import torch
+    from repro_torch.index.base import full_f32_matmul
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layer
+    big = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    T = MOE_ORACLE_TOKENS
+    check(moe.expert_capacity(T, big) >= T * cfg.experts_per_token,
+          "gate 4's capacity can drop")
+    ffn = _layer(params["seg1"], 0)["ffn"]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1460)
+    x = torch.randn((1, T, cfg.d_model), generator=g, device="cuda").to(
+        params["embed"].dtype)
+    with full_f32_matmul():
+        got, _ = moe.moe_apply(ffn, x, big)
+        want = moe.moe_apply_dense_reference(ffn, x, big)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    bound = TOL_BF16 * max(1.0, float(want.float().abs().max()))
+    log(f"lm gate moe dispatch vs every-expert oracle {cfg.name} layer 1, "
+        f"T={T}, C={moe.expert_capacity(T, big)} (no drops), "
+        f"{str(x.dtype).split('.')[-1]}: max_abs_err {err:.4e} (bound "
+        f"{bound:.4e}, max |out| {float(want.float().abs().max()):.4f}): "
+        f"{'within' if err <= bound else 'OUTSIDE'}")
+    check(err <= bound, f"moe dispatch != oracle at layer 1: {err} > "
+                        f"{bound}")
 
 
 def profile_lm(label, cfg, params, toks, steps, out_dir):
@@ -4123,12 +4284,16 @@ def profile_lm(label, cfg, params, toks, steps, out_dir):
 
 
 def lm_serving(seed: int, card: str, profile_dir=None):
-    """Phase 14: the dense LM served through ``launch.serve.serve_lm``
-    (the CLI's path) on the card at full width, cells ``LM_CELLS`` (A
-    also through the ICQ-KV decode), with the four gates; with
-    ``profile_dir``, ``profile_lm`` of each cell.  Returns (the
-    served cells' launches, the flash kernel's record at cell B's
-    shape)."""
+    """Phase 14: the LMs served through ``launch.serve.serve_lm`` (the
+    CLI's path) on the card at full width, cells ``LM_CELLS`` (A also
+    through the ICQ-KV decode), one after the other, each freed before
+    the next, with the gates: 1 card against CPU per arch, 2 the flash
+    kernel at every cell's layer-0 shape (and the f32 (192, 128) body),
+    3 and 4 (MoE determinism and the dispatch against its oracle) at
+    cell C, the ICQ-KV top_c = S check, and the launch counts.  With
+    ``profile_dir``, ``profile_lm`` of each cell.  Returns (the served
+    cells' launches, the flash kernel's records at cell B's shape and at
+    cell D's (the (192, 128) instance, with cell D's launches))."""
     import gc
     import numpy as np
     import torch
@@ -4140,14 +4305,19 @@ def lm_serving(seed: int, card: str, profile_dir=None):
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matrix products are on")
     t0 = time.perf_counter()
-    lm_card_gate(seed)
-    lm_icq_gate(seed)
-    total = {k: 0 for k in read_launches()}
-    record = None
-    for label, arch, bf16, b, s, steps in LM_CELLS:
+    for arch, layers in LM_GATE_ARCHS:
+        lm_card_gate(seed, arch, layers)
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = lm_config(arch, bf16)
+    lm_icq_gate(seed)
+    mla_flash_f32_gate(seed)
+    total = {k: 0 for k in read_launches()}
+    records = {}
+    for label, arch, bf16, b, s, steps, layers in LM_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_cell = time.perf_counter()
+        cfg = lm_config(arch, bf16, layers)
         t_init = time.perf_counter()
         params = lm_params(cfg, seed)
         torch.cuda.synchronize()
@@ -4174,8 +4344,10 @@ def lm_serving(seed: int, card: str, profile_dir=None):
               and toks.shape == (b, steps + 1)
               and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
               f"lm cell {label}: logits {tuple(lg.shape)} or tokens wrong")
+        depth = (f", depth cut to {cfg.num_layers} layers" if layers
+                 else "")
         log(f"lm cell {label} {arch} {'bf16' if bf16 else 'f32'} "
-            f"({cfg.param_count() / 1e9:.3f} B params, init "
+            f"({cfg.param_count() / 1e9:.3f} B params{depth}, init "
             f"{t_init:.2f} s) batch {b} prompt {s} decode {steps}: "
             f"prefill {out['prefill_ms']:.3f} ms "
             f"({b * s / out['prefill_ms'] * 1e3:.0f} tokens/s), decode "
@@ -4194,7 +4366,6 @@ def lm_serving(seed: int, card: str, profile_dir=None):
                 f"{r['bytes']['icq']} ICQ "
                 f"({r['bytes']['dense'] / r['bytes']['icq']:.2f}x less); "
                 f"{card}")
-        if label == "A":
             # the same steps with no top-c cut: what int8 alone costs
             full = serve_lm(cfg, prompt_len=s, decode_steps=steps, batch=b,
                             device="cuda", seed=seed, icq_kv=True,
@@ -4204,19 +4375,31 @@ def lm_serving(seed: int, card: str, profile_dir=None):
                 f"{full['decode_ms']:.3f} ms a step, max logit err "
                 f"{full['max_logit_err']:.4e}, greedy tokens agree "
                 f"{full['agree']:.4f} (reported)")
+        del out, lg
         toks0 = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                      (b, s), dtype=np.int32)
         rec = lm_flash_at_cell(label, arch, cfg, params, toks0)
+        if label == "C":
+            moe_determinism_gate(cfg, params, toks0)
+            moe_oracle_gate(cfg, params, seed)
         if profile_dir:
             profile_lm(label, cfg, params, toks0, steps, profile_dir)
         if label == "B":
-            record = rec
-        del params, out, lg
-    gc.collect()
-    torch.cuda.empty_cache()
+            records["flash_attention"] = rec
+        if label == "D":
+            records["flash_attention_mla"] = dict(
+                rec, name="flash_attention (192, 128)",
+                launches=launches["flash_attention"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"lm cell {label} ran {time.perf_counter() - t_cell:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB left "
+            "allocated after it")
     log(f"phase 14 ran {time.perf_counter() - t0:.1f} s; the "
-        "flash_attention record is cell B's served prefill shape")
-    return total, record
+        "flash_attention records are cell B's and cell D's served prefill "
+        "shapes")
+    return total, records
 
 
 def cuda_held(label: str) -> int:
@@ -4348,8 +4531,9 @@ def main(argv=None) -> int:
                                          profile_dir=args.profile)
     front_total = front_door(args.seed, args.n, card, fig1_model)
     dp_total = fit_data_parallel(args.seed, card, fig1_model)
-    lm_total, ops_records["flash_attention"] = lm_serving(
-        args.seed, card, profile_dir=args.profile)
+    lm_total, lm_records = lm_serving(args.seed, card,
+                                      profile_dir=args.profile)
+    ops_records["flash_attention"] = lm_records["flash_attention"]
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
                      + train_total[k] + front_total[k]
@@ -4371,7 +4555,7 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [records[k] for k in (
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
         "kmeans_assign", "icm_encode", "adc", "two_step",
-        "flash_attention")]}))
+        "flash_attention")] + [lm_records["flash_attention_mla"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s phase 14 alone on the card: build the kernels
-of this checkout, then serve the two LM cells through ``serve_lm`` with
-the phase's four gates (``chip_smoke.lm_serving``).
+of this checkout, then serve the four LM cells (dense f32 and bf16, MoE,
+MLA + MoE) through ``serve_lm`` with the phase's gates
+(``chip_smoke.lm_serving``).
 
     python3 scripts/lm_serving.py [--seed 0] [--profile DIR]
 

@@ -82,8 +82,8 @@ SIGNATURES = {
     },
     "flash_attention": {
         **_COMMON,
-        "icq_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _I, _P], _I),
-        "icq_flash_attention_attributes": ([_I, _I, _P, _P], _I),
+        "icq_flash_attention": ([_P] * 4 + [_I] * 8 + [_F, _I, _P], _I),
+        "icq_flash_attention_attributes": ([_I] * 3 + [_P, _P], _I),
     },
 }
 

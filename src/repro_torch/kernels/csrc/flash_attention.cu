@@ -4,10 +4,14 @@
 //   icq_flash_attention  <- flash_attention_pallas (_flash_kernel), with
 //                           the GQA head folding of ops.flash_attention
 //
-// q (b, sq, H, dh), k and v (b, sk, KVH, dh), f32 or bf16, H a multiple
-// of KVH; query head h reads key/value head h / (H / KVH).  For every
-// query row, over key tiles in order, with running max m and sum l in f32:
-//   s    = (q . k^T in f32) * scale            scale = dh ** -0.5
+// q (b, sq, H, dqk), k (b, sk, KVH, dqk) and v (b, sk, KVH, dv), f32 or
+// bf16, H a multiple of KVH; query head h reads key/value head h / (H /
+// KVH).  The compiled (dqk, dv) pairs: (32, 32), (64, 64), (128, 128),
+// (256, 256) and DeepSeek-V2's MLA prefill, (192, 128): 128 nope + 64
+// rope dims of q and k, 128 of v.  The output is (b, sq, H, dv).  For
+// every query row, over key tiles in order, with running max m and sum l
+// in f32:
+//   s    = (q . k^T in f32) * scale            scale = dqk ** -0.5
 //   s    = NEG_INF = -1e30 where causal and q_pos < k_pos (top-left
 //          aligned, both counted from 0, also when sq != sk)
 //   m'   = max(m, max_j s);  corr = exp(m - m');  p = exp(s - m')
@@ -19,10 +23,12 @@
 // that sees only masked keys in a tile free of NaN, as in the reference.
 //
 // What bounds it on this card: operations.  Causal attention at s = 4096
-// does 4 dh H s (s + 1) / 2 operations: 0.55e12 for llama3-405b's 128
-// heads of 128 (0.56 ms at the 989 TFLOP/s of bf16 tensor cores) and
-// 0.07e12 for tinyllama's 32 heads of 64 (0.07 ms in bf16, 1.0 ms at the
-// 67 TFLOP/s of f32 FMAs), against 0.3 GB and 0.08 GB of q, k, v and out.
+// does 2 (dqk + dv) H s (s + 1) / 2 operations: 0.55e12 for
+// llama3-405b's 128 heads of 128 (0.56 ms at the 989 TFLOP/s of bf16
+// tensor cores) and 0.07e12 for tinyllama's 32 heads of 64 (0.07 ms in
+// bf16, 1.0 ms at the 67 TFLOP/s of f32 FMAs), against 0.3 GB and 0.08 GB
+// of q, k, v and out; DeepSeek-V2's 128 MLA heads at s = 2048 do 0.17e12
+// (0.17 ms) against 0.34 GB (0.10 ms).
 //
 // Two bodies, chosen by the type; no runtime fallback between them.
 //
@@ -33,12 +39,13 @@
 //     key tiles start first.
 //   * Both products are mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //     The Q fragments are read once with ldmatrix and stay in registers
-//     (dh <= 128; at dh 256 they are re-read from shared memory each
-//     tile, so that the 128 f32 of O per thread stay in registers).  S
-//     comes from ldmatrix.x4 fragments of K and stays in its accumulator
-//     fragments; scale, masks and the online softmax run there (exp2 of
-//     log2-scaled scores, one MUFU instruction each), the row max and
-//     sum reducing over the quad that shares a row (shuffles 1 and 2).
+//     (dqk <= 128; at dqk 192 and 256 they are re-read from shared memory
+//     each tile, so that the 64 or 128 f32 of O per thread stay in
+//     registers).  S comes from ldmatrix.x4 fragments of K and stays in
+//     its accumulator fragments; scale, masks and the online softmax run
+//     there (exp2 of log2-scaled scores, one MUFU instruction each), the
+//     row max and sum reducing over the quad that shares a row (shuffles
+//     1 and 2).
 //     P is rounded to bf16 straight into the A fragments of P . V (an
 //     accumulator pair of m16n8 is an A-fragment pair of m16n8k16), so
 //     it never touches shared memory; l sums the unrounded p.  V is read
@@ -49,6 +56,9 @@
 //     tile during this tile's P . V, with two barriers per tile.  Shared
 //     rows are padded by 16 bytes, so the 8 row addresses of an ldmatrix
 //     fall in 8 distinct 16-byte bank groups.
+//   * K's rows are dqk + 8 wide and V's dv + 8, each ring sized for its
+//     own width.  At (192, 128) Q (25 KB), the K ring (50 KB) and the V
+//     ring (34 KB) take 109 KB, so two blocks share an SM.
 //   * Keys per tile: 64, and 32 at dh 256 (registers).  At dh 128 the Q
 //     tile is staged in V's second stage and the registers are capped at
 //     168, so three blocks (12 warps) share an SM instead of two; at dh
@@ -63,14 +73,14 @@
 //
 // f32: f32 FMAs on the SIMT cores (flash_kernel), the first port's design.
 //   * One block of 256 threads per (64-query tile, head, batch); query
-//     tiles are visited from the last.  The Q tile (64 x dh) stays in
+//     tiles are visited from the last.  The Q tile (64 x dqk) stays in
 //     shared memory; each 64-key tile of K, then of V, is staged into one
-//     shared buffer, read from the (b, s, heads, dh) layout with 16-byte
-//     loads: no repeat of K/V for GQA and no transposes.  Rows are padded
-//     by 4 floats, so the float4 reads of 8 neighbouring lanes fall in
-//     distinct banks.
+//     shared buffer max(dqk, dv) wide, read from the (b, s, heads, width)
+//     layout with 16-byte loads: no repeat of K/V for GQA and no
+//     transposes.  Rows are padded by 4 floats, so the float4 reads of 8
+//     neighbouring lanes fall in distinct banks.
 //   * Each thread holds a 4 x 4 tile of S (rows 4 ty + i, keys tx + 16 j)
-//     and a 4 x dh/16 tile of O, in registers.  The row max and row sum
+//     and a 4 x dv/16 tile of O, in registers.  The row max and row sum
 //     reduce over the 16 lanes of a row group with shuffles; P goes
 //     through shared memory.  It keeps 2e-5 against the plain version,
 //     which TF32 tensor cores would not.
@@ -90,12 +100,12 @@ constexpr int kBKey = 64;     // keys per tile
 constexpr int kPadF = 4;      // row padding of every shared tile (floats)
 constexpr float kNegInf = -1e30f;
 
-template <int DH>
+template <int DQK, int DV>
 struct Geometry {
-  static constexpr int kLd = DH + kPadF;            // Q / K / V row stride
+  static constexpr int kLd = (DQK > DV ? DQK : DV) + kPadF;  // Q / K / V
   static constexpr int kLdp = kBKey + kPadF;        // P row stride
-  static constexpr int kVW = DH >= 64 ? 4 : 2;      // O columns per load
-  static constexpr int kNG = DH / (16 * kVW);       // loads per O row
+  static constexpr int kVW = DV >= 64 ? 4 : 2;      // O columns per load
+  static constexpr int kNG = DV / (16 * kVW);       // loads per O row
   static constexpr size_t kSmem =
       sizeof(float) * (size_t(kBQ) * kLd + size_t(kBKey) * kLd +
                        size_t(kBQ) * kLdp);
@@ -120,17 +130,17 @@ __device__ __forceinline__ void store_vec(float* dst, const float* v) {
   else
     *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
 }
-// Stage rows [row0, row0 + 64) of one head into dst (64 x kLd f32); rows
-// at or past `rows` read 0.  src points at row 0 of the head; rows are
-// `stride` elements apart.
-template <typename T, int DH>
+// Stage W columns of rows [row0, row0 + 64) of one head into dst (64 x
+// LD f32); rows at or past `rows` read 0.  src points at row 0 of the
+// head; rows are `stride` elements apart.
+template <typename T, int W, int LD>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       int row0, int rows, long stride) {
   constexpr int kVE = 16 / int(sizeof(T));
-  constexpr int kPerRow = DH / kVE;
+  constexpr int kPerRow = W / kVE;
   for (int e = threadIdx.x; e < kBQ * kPerRow; e += blockDim.x) {
     const int r = e / kPerRow, c = (e % kPerRow) * kVE;
-    float* d = dst + r * Geometry<DH>::kLd + c;
+    float* d = dst + r * LD + c;
     if (row0 + r < rows) {
       load16(src + long(row0 + r) * stride + c, d);
     } else {
@@ -151,12 +161,12 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
              int H, int KVH, float scale, bool causal) {
-  using G = Geometry<DH>;
+  using G = Geometry<DQK, DV>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // kBQ x kLd
   float* kvs = qs + kBQ * G::kLd;          // kBKey x kLd: K, then V
@@ -167,28 +177,29 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (n_qt - 1 - int(blockIdx.x)) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const long q_stride = long(H) * DH, kv_stride = long(KVH) * DH;
-  const T* q_head = q + long(b) * sq * q_stride + long(h) * DH;
-  const T* k_head = k + long(b) * sk * kv_stride + long(kvh) * DH;
-  const T* v_head = v + long(b) * sk * kv_stride + long(kvh) * DH;
+  const long q_stride = long(H) * DQK, k_stride = long(KVH) * DQK;
+  const long v_stride = long(KVH) * DV, o_stride = long(H) * DV;
+  const T* q_head = q + long(b) * sq * q_stride + long(h) * DQK;
+  const T* k_head = k + long(b) * sk * k_stride + long(kvh) * DQK;
+  const T* v_head = v + long(b) * sk * v_stride + long(kvh) * DV;
 
   // key tiles up to the one holding the tile's last row's own position
   int n_kt = (sk + kBKey - 1) / kBKey;
   if (causal) n_kt = min(n_kt, (min(q0 + kBQ, sq) - 1) / kBKey + 1);
 
-  float o[4][DH / 16], m_run[4], l_run[4];
+  float o[4][DV / 16], m_run[4], l_run[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m_run[i] = kNegInf;
     l_run[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < DH / 16; ++c) o[i][c] = 0.0f;
+    for (int c = 0; c < DV / 16; ++c) o[i][c] = 0.0f;
   }
 
-  stage<T, DH>(qs, q_head, q0, sq, q_stride);
+  stage<T, DQK, G::kLd>(qs, q_head, q0, sq, q_stride);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBKey;
-    stage<T, DH>(kvs, k_head, k0, sk, kv_stride);
+    stage<T, DQK, G::kLd>(kvs, k_head, k0, sk, k_stride);
     __syncthreads();
 
     float s[4][4];
@@ -197,7 +208,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       float4 a[4], bk[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -246,11 +257,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_run[i] = l_run[i] * corr + group_sum(rs);
       m_run[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < DH / 16; ++c) o[i][c] *= corr;
+      for (int c = 0; c < DV / 16; ++c) o[i][c] *= corr;
     }
     __syncthreads();   // S done with K; P complete
 
-    stage<T, DH>(kvs, v_head, k0, sk, kv_stride);
+    stage<T, DV, G::kLd>(kvs, v_head, k0, sk, v_stride);
     __syncthreads();
 
 #pragma unroll 2
@@ -263,7 +274,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const float* vrow = kvs + (j + jj) * G::kLd;
-        float vv[DH / 16];
+        float vv[DV / 16];
 #pragma unroll
         for (int g = 0; g < G::kNG; ++g) {
           const float* src = vrow + g * 16 * G::kVW + tx * G::kVW;
@@ -286,7 +297,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           : jj == 2 ? p4[i].z
                                     : p4[i].w;
 #pragma unroll
-          for (int c = 0; c < DH / 16; ++c)
+          for (int c = 0; c < DV / 16; ++c)
             o[i][c] = __fmaf_rn(p, vv[c], o[i][c]);
         }
       }
@@ -294,7 +305,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // P and V consumed before the next tile
   }
 
-  T* out_head = out + long(b) * sq * q_stride + long(h) * DH;
+  T* out_head = out + long(b) * sq * o_stride + long(h) * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
@@ -307,18 +318,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < G::kVW; ++e)
         w[e] = __fdiv_rn(o[i][g * G::kVW + e], den);
       store_vec<G::kVW>(
-          out_head + long(row) * q_stride + g * 16 * G::kVW + tx * G::kVW,
+          out_head + long(row) * o_stride + g * 16 * G::kVW + tx * G::kVW,
           w);
     }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int sk, int H, int KVH, float scale, bool causal,
            cudaStream_t stream) {
-  auto kernel = flash_kernel<T, DH>;
-  const size_t smem = Geometry<DH>::kSmem;
+  auto kernel = flash_kernel<T, DQK, DV>;
+  const size_t smem = Geometry<DQK, DV>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
@@ -337,22 +348,28 @@ constexpr int kMmaWarps = 4;                  // 16 query rows each
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaBQ = 16 * kMmaWarps;        // query rows per block
 
-template <int DH>
+template <int DQK, int DV>
 struct MmaGeometry {
-  static constexpr int kBK = DH >= 256 ? 32 : 64;   // keys per tile
-  static constexpr int kLd = DH + 8;                // bf16 row stride
-  static constexpr bool kQInRegs = DH <= 128;
+  static constexpr int kBK = DQK >= 256 ? 32 : 64;  // keys per tile
+  static constexpr int kLdK = DQK + 8;              // Q / K row stride
+  static constexpr int kLdV = DV + 8;               // V row stride
+  static constexpr bool kQInRegs = DQK <= 128;
   // at dh 128 the Q tile is staged in V's second stage (read into
   // registers before that stage is first filled) and the registers are
   // capped at 168, so that three blocks share an SM; at dh 64 they are
-  // capped at 128, so that four do
-  static constexpr bool kQInV = DH == 128;
-  static constexpr int kMinBlocks = DH == 128 ? 3 : (DH == 64 ? 4 : 1);
-  static constexpr int kTile = kBK * kLd;           // one K or V stage
+  // capped at 128, so that four do; at (192, 128) shared memory admits
+  // two
+  static constexpr bool kQInV = DQK == 128 && DV == 128;
+  static constexpr int kMinBlocks =
+      kQInV ? 3 : (DQK == 64 ? 4 : (DQK == 192 ? 2 : 1));
+  static constexpr int kTileK = kBK * kLdK;         // one K stage
+  static constexpr int kTileV = kBK * kLdV;         // one V stage
   static constexpr size_t kSmem =
       sizeof(__nv_bfloat16) *
-      ((kQInV ? 0 : size_t(kMmaBQ) * kLd) + 4 * size_t(kTile));
-  static_assert(!kQInV || (kQInRegs && kMmaBQ <= kBK), "Q fits one stage");
+      ((kQInV ? 0 : size_t(kMmaBQ) * kLdK) + 2 * size_t(kTileK) +
+       2 * size_t(kTileV));
+  static_assert(!kQInV || (kQInRegs && kMmaBQ <= kBK && kLdK == kLdV),
+                "Q fits one V stage");
 };
 
 // 2^x in one MUFU instruction (no denormal handling: every x here is
@@ -414,14 +431,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// cp.async rows [row0, row0 + ROWS) of one head (rows `stride` elements
-// apart, src at row 0) into dst (ROWS x kLd); rows at or past `rows` are
-// zero-filled.
-template <int DH, int ROWS>
+// cp.async W columns of rows [row0, row0 + ROWS) of one head (rows
+// `stride` elements apart, src at row 0) into dst (ROWS x LD); rows at or
+// past `rows` are zero-filled.
+template <int W, int LD, int ROWS>
 __device__ __forceinline__ void load_tile_async(
     __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
     int rows, long stride) {
-  constexpr int kChunks = DH / 8;                  // 16 bytes each
+  constexpr int kChunks = W / 8;                   // 16 bytes each
   constexpr int kIters = ROWS * kChunks / kMmaThreads;
   static_assert(ROWS * kChunks % kMmaThreads == 0, "whole passes");
 #pragma unroll
@@ -429,28 +446,29 @@ __device__ __forceinline__ void load_tile_async(
     const int e = threadIdx.x + i * kMmaThreads;
     const int r = e / kChunks, c = (e % kChunks) * 8;
     const bool ok = row0 + r < rows;
-    cp_async16(smem_addr(dst + r * MmaGeometry<DH>::kLd + c),
+    cp_async16(smem_addr(dst + r * LD + c),
                src + (ok ? long(row0 + r) * stride + c : 0), ok ? 16 : 0);
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, MmaGeometry<DH>::kMinBlocks)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kMmaThreads,
+                                  MmaGeometry<DQK, DV>::kMinBlocks)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int sq, int sk, int H,
                  int KVH, float scale, bool causal) {
-  using G = MmaGeometry<DH>;
-  constexpr int kBK = G::kBK, kLd = G::kLd;
-  constexpr int kKS = DH / 16;    // k-steps of S = Q . K^T
+  using G = MmaGeometry<DQK, DV>;
+  constexpr int kBK = G::kBK, kLdK = G::kLdK, kLdV = G::kLdV;
+  constexpr int kKS = DQK / 16;   // k-steps of S = Q . K^T
   constexpr int kNT = kBK / 8;    // 8-key column tiles of S
   constexpr int kPS = kBK / 16;   // k-steps of O += P . V
-  constexpr int kDT = DH / 8;     // 8-wide column tiles of O
+  constexpr int kDT = DV / 8;     // 8-wide column tiles of O
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* k_sm = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* v_sm = k_sm + 2 * G::kTile;       // 2 stages each
-  __nv_bfloat16* q_sm = v_sm + (G::kQInV ? 1 : 2) * G::kTile;
+  __nv_bfloat16* v_sm = k_sm + 2 * G::kTileK;      // 2 stages each
+  __nv_bfloat16* q_sm = v_sm + (G::kQInV ? 1 : 2) * G::kTileV;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // fragment row, column pair
@@ -458,12 +476,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
   const int q0 = (n_qt - 1 - int(blockIdx.y)) * kMmaBQ;
   const int kvh = h / (H / KVH);
-  const long q_stride = long(H) * DH, kv_stride = long(KVH) * DH;
-  const __nv_bfloat16* q_head = q + long(b) * sq * q_stride + long(h) * DH;
+  const long q_stride = long(H) * DQK, k_stride = long(KVH) * DQK;
+  const long v_stride = long(KVH) * DV, o_stride = long(H) * DV;
+  const __nv_bfloat16* q_head =
+      q + long(b) * sq * q_stride + long(h) * DQK;
   const __nv_bfloat16* k_head =
-      k + long(b) * sk * kv_stride + long(kvh) * DH;
+      k + long(b) * sk * k_stride + long(kvh) * DQK;
   const __nv_bfloat16* v_head =
-      v + long(b) * sk * kv_stride + long(kvh) * DH;
+      v + long(b) * sk * v_stride + long(kvh) * DV;
 
   // key tiles up to the one holding the tile's last row's own position
   int n_kt = (sk + kBK - 1) / kBK;
@@ -474,19 +494,19 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // for lanes 16-31, column half bit 3 of the lane); V as B^T of two
   // 8-column tiles (keys lane & 7 and + 8 for bit 3, column half lane /
   // 16)
-  const int a_off = (warp * 16 + lane % 16) * kLd + (lane / 16) * 8;
+  const int a_off = (warp * 16 + lane % 16) * kLdK + (lane / 16) * 8;
   const int k_off =
-      ((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8;
+      ((lane & 7) + ((lane >> 4) << 3)) * kLdK + ((lane >> 3) & 1) * 8;
   const int v_off =
-      ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + (lane >> 4) * 8;
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLdV + (lane >> 4) * 8;
   const uint32_t q_a = smem_addr(q_sm) + 2 * a_off;
   const uint32_t k_a = smem_addr(k_sm) + 2 * k_off;
   const uint32_t v_a = smem_addr(v_sm) + 2 * v_off;
 
-  load_tile_async<DH, kMmaBQ>(q_sm, q_head, q0, sq, q_stride);
-  load_tile_async<DH, kBK>(k_sm, k_head, 0, sk, kv_stride);
+  load_tile_async<DQK, kLdK, kMmaBQ>(q_sm, q_head, q0, sq, q_stride);
+  load_tile_async<DQK, kLdK, kBK>(k_sm, k_head, 0, sk, k_stride);
   cp_async_commit();
-  load_tile_async<DH, kBK>(v_sm, v_head, 0, sk, kv_stride);
+  load_tile_async<DV, kLdV, kBK>(v_sm, v_head, 0, sk, v_stride);
   cp_async_commit();
 
   uint32_t qf[G::kQInRegs ? kKS : 1][4];
@@ -512,8 +532,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = kt * kBK;
     const int st = kt & 1;
     if (kt + 1 < n_kt)
-      load_tile_async<DH, kBK>(k_sm + (st ^ 1) * G::kTile, k_head,
-                               k0 + kBK, sk, kv_stride);
+      load_tile_async<DQK, kLdK, kBK>(k_sm + (st ^ 1) * G::kTileK, k_head,
+                                      k0 + kBK, sk, k_stride);
     cp_async_commit();
     cp_async_wait<2>();   // K tile kt
     __syncthreads();
@@ -535,7 +555,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t bb[4];
-        ldmatrix_x4(bb, k_a + 2 * (st * G::kTile + np * 16 * kLd + kk * 16));
+        ldmatrix_x4(bb,
+                    k_a + 2 * (st * G::kTileK + np * 16 * kLdK + kk * 16));
         mma_bf16(s[2 * np], a, bb[0], bb[1]);
         mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
       }
@@ -594,8 +615,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     if (kt + 1 < n_kt)
-      load_tile_async<DH, kBK>(v_sm + (st ^ 1) * G::kTile, v_head,
-                               k0 + kBK, sk, kv_stride);
+      load_tile_async<DV, kLdV, kBK>(v_sm + (st ^ 1) * G::kTileV, v_head,
+                                     k0 + kBK, sk, v_stride);
     cp_async_commit();
     cp_async_wait<2>();   // V tile kt
     __syncthreads();
@@ -605,7 +626,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int nd = 0; nd < kDT / 2; ++nd) {
         uint32_t bb[4];
-        ldmatrix_x4_trans(bb, v_a + 2 * (st * G::kTile + kk * 16 * kLd +
+        ldmatrix_x4_trans(bb, v_a + 2 * (st * G::kTileV + kk * 16 * kLdV +
                                          nd * 16));
         mma_bf16(o[2 * nd], pf[kk], bb[0], bb[1]);
         mma_bf16(o[2 * nd + 1], pf[kk], bb[2], bb[3]);
@@ -613,7 +634,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   __nv_bfloat16* out_head =
-      out + long(b) * sq * q_stride + long(h) * DH;
+      out + long(b) * sq * o_stride + long(h) * DV;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
@@ -621,7 +642,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (rows[i] >= sq) continue;
     const float den = fmaxf(l, 1e-30f);
-    __nv_bfloat16* dst = out_head + long(rows[i]) * q_stride + 2 * t;
+    __nv_bfloat16* dst = out_head + long(rows[i]) * o_stride + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
@@ -630,12 +651,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int b, int sq, int sk, int H, int KVH, float scale,
                bool causal, cudaStream_t stream) {
-  auto kernel = flash_mma_kernel<DH>;
-  const size_t smem = MmaGeometry<DH>::kSmem;
+  auto kernel = flash_mma_kernel<DQK, DV>;
+  const size_t smem = MmaGeometry<DQK, DV>::kSmem;
   const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
   if (n_qt > 65535) return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
@@ -653,68 +674,80 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 
 // ------------------------------------------------------------ dispatch ----
 
-template <int DH>
+template <int DQK, int DV>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* out, int b, int sq, int sk, int H, int KVH,
                  float scale, bool causal, cudaStream_t s) {
   if (dtype == 0)
-    return launch<float, DH>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                             causal, s);
+    return launch<float, DQK, DV>(q, k, v, out, b, sq, sk, H, KVH, scale,
+                                  causal, s);
   if (dtype == 1)
-    return launch_mma<DH>(q, k, v, out, b, sq, sk, H, KVH, scale, causal,
-                          s);
+    return launch_mma<DQK, DV>(q, k, v, out, b, sq, sk, H, KVH, scale,
+                               causal, s);
   return int(cudaErrorInvalidValue);
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t attributes(int dtype, cudaFuncAttributes* attr) {
-  if (dtype == 0) return cudaFuncGetAttributes(attr, flash_kernel<float, DH>);
-  if (dtype == 1) return cudaFuncGetAttributes(attr, flash_mma_kernel<DH>);
+  if (dtype == 0)
+    return cudaFuncGetAttributes(attr, flash_kernel<float, DQK, DV>);
+  if (dtype == 1)
+    return cudaFuncGetAttributes(attr, flash_mma_kernel<DQK, DV>);
   return cudaErrorInvalidValue;
 }
+
+// The compiled (dqk, dv) pairs, each as one case value.
+constexpr int pair(int dqk, int dv) { return dqk * 1024 + dv; }
 
 }  // namespace
 
 extern "C" {
 
-// q (b, sq, H, dh), k / v (b, sk, KVH, dh), out (b, sq, H, dh), all of
-// one type: dtype 0 = f32 (FMA body), 1 = bf16 (tensor-core body); every
-// pointer 16-byte aligned.  dh in {32, 64, 128, 256}, H a multiple of
-// KVH, b and H at most 65535.  Returns cudaGetLastError(), or
+// q (b, sq, H, dqk), k (b, sk, KVH, dqk), v (b, sk, KVH, dv), out (b, sq,
+// H, dv), all of one type: dtype 0 = f32 (FMA body), 1 = bf16
+// (tensor-core body); every pointer 16-byte aligned.  (dqk, dv) in
+// {(32, 32), (64, 64), (128, 128), (256, 256), (192, 128)}, H a multiple
+// of KVH, b and H at most 65535.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for another shape or type.
 int icq_flash_attention(const void* q, const void* k, const void* v,
                         void* out, int dtype, int b, int sq, int sk, int H,
-                        int KVH, int dh, float scale, int causal,
+                        int KVH, int dqk, int dv, float scale, int causal,
                         void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KVH < 1 || H % KVH != 0 ||
       b > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
-  switch (dh) {
-    case 32: return launch_dtype<32>(dtype, q, k, v, out, b, sq, sk, H, KVH,
-                                     scale, c, s);
-    case 64: return launch_dtype<64>(dtype, q, k, v, out, b, sq, sk, H, KVH,
-                                     scale, c, s);
-    case 128: return launch_dtype<128>(dtype, q, k, v, out, b, sq, sk, H,
-                                       KVH, scale, c, s);
-    case 256: return launch_dtype<256>(dtype, q, k, v, out, b, sq, sk, H,
-                                       KVH, scale, c, s);
+  switch (pair(dqk, dv)) {
+#define ICQ_FLASH_CASE(DQK, DV)                                          \
+  case pair(DQK, DV):                                                    \
+    return launch_dtype<DQK, DV>(dtype, q, k, v, out, b, sq, sk, H, KVH, \
+                                 scale, c, s);
+    ICQ_FLASH_CASE(32, 32)
+    ICQ_FLASH_CASE(64, 64)
+    ICQ_FLASH_CASE(128, 128)
+    ICQ_FLASH_CASE(256, 256)
+    ICQ_FLASH_CASE(192, 128)
+#undef ICQ_FLASH_CASE
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 // The registers per thread and local-memory bytes per thread (spills and
-// local arrays) of the body that runs for dtype and dh.
-int icq_flash_attention_attributes(int dtype, int dh, int* regs,
+// local arrays) of the body that runs for dtype and (dqk, dv).
+int icq_flash_attention_attributes(int dtype, int dqk, int dv, int* regs,
                                    int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t e;
-  switch (dh) {
-    case 32: e = attributes<32>(dtype, &attr); break;
-    case 64: e = attributes<64>(dtype, &attr); break;
-    case 128: e = attributes<128>(dtype, &attr); break;
-    case 256: e = attributes<256>(dtype, &attr); break;
+  switch (pair(dqk, dv)) {
+#define ICQ_FLASH_CASE(DQK, DV) \
+  case pair(DQK, DV): e = attributes<DQK, DV>(dtype, &attr); break;
+    ICQ_FLASH_CASE(32, 32)
+    ICQ_FLASH_CASE(64, 64)
+    ICQ_FLASH_CASE(128, 128)
+    ICQ_FLASH_CASE(256, 256)
+    ICQ_FLASH_CASE(192, 128)
+#undef ICQ_FLASH_CASE
     default: return int(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return int(e);

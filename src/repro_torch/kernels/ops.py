@@ -172,9 +172,11 @@ def icm_encode(x, init_codes, C, *, iters: int):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """Flash attention with GQA and MQA: q (b, sq, H, dh), k/v (b, sk,
-    KVH, dh), f32 or bf16, H a multiple of KVH -> (b, sq, H, dh) in v's
-    type; ``causal`` masks top-left aligned (q_pos >= k_pos)."""
+    """Flash attention with GQA and MQA: q (b, sq, H, dqk), k (b, sk,
+    KVH, dqk), v (b, sk, KVH, dv), f32 or bf16, H a multiple of KVH ->
+    (b, sq, H, dv) in v's type, scaled by dqk ** -0.5 (on the card
+    (dqk, dv) one of ``flash_attention.HEAD_DIMS``); ``causal`` masks
+    top-left aligned (q_pos >= k_pos)."""
     _check_faults("flash_attention")
     fn = (fa.flash_attention_cuda if _on_card(q)
           else fa.flash_attention_torch)

@@ -1,13 +1,19 @@
 """Serving command of the port (twin of ``repro.launch.serve``): the
-dense decoder LMs (``--arch``) and the ANN index (``--ann``,
-``--load-artifacts`` and ``--serve-loop``; flat, two-step and IVF
-kinds).
+decoder LMs of dense, MoE and MLA layers (``--arch``) and the ANN index
+(``--ann``, ``--load-artifacts`` and ``--serve-loop``; flat, two-step
+and IVF kinds).
 
     # a dense LM at full width on the card, random weights from --seed:
     # prefill a seeded prompt batch (the flash kernel in every layer),
     # then greedy-decode; --icq-kv also decodes through the ICQ-KV cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --prompt-len 512 --decode-steps 32 --batch 8 --icq-kv
+    # the MoE and MLA LMs the same way (on the card their full-width
+    # configs do not fit in f32: serve_lm(scale_config(cfg)) serves them
+    # in bf16); --icq-kv there runs the reference launcher's standalone
+    # ICQ-KV demonstration on the arch's head geometry
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --smoke --device cpu --icq-kv
     # the reduced config on the CPU, through the plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --device cpu --prompt-len 32 --decode-steps 8 --batch 2
@@ -281,7 +287,7 @@ def icq_caches_from_prefill(kv_cfg, caches, s: int, max_len: int):
 def serve_lm(cfg, *, prompt_len: int, decode_steps: int, batch: int,
              device=None, seed: int = 0, icq_kv: bool = False,
              icq_top_c=None, params=None, verbose: bool = True):
-    """Serve a dense decoder LM: draw its params from ``seed`` on the
+    """Serve a decoder LM: draw its params from ``seed`` on the
     device (or take ``params``), prefill a prompt batch of token ids
     from ``np.random.default_rng(seed)`` (the reference's ids at seed
     0), then greedy-decode ``decode_steps`` tokens.  One untimed
@@ -396,10 +402,49 @@ def serve_lm(cfg, *, prompt_len: int, decode_steps: int, batch: int,
     return out
 
 
+def icq_kv_demo(cfg, *, batch: int, max_len: int, device=None,
+                seed: int = 1):
+    """The reference launcher's standalone ICQ-KV demonstration on
+    ``cfg``'s head geometry, for an arch whose own decode has no dense
+    KV cache to quantize (MoE, MLA): random K/V/q of ``max_len``
+    positions from a generator seeded ``seed`` (other draws than the
+    reference's ``PRNGKey(1)``), ICQ-KV attention at top_c = max(S / 8,
+    4) against exact attention.  Prints the max error and the decode
+    bytes a head, dense and ICQ (the reference's count)."""
+    import torch
+
+    from repro_torch.index.base import full_f32_matmul, resolve_device
+    from repro_torch.quant import (ICQKVConfig, build_icq_kv_cache,
+                                   icq_kv_decode_attention)
+    from repro_torch.quant.kv_cache import reference_decode_attention
+
+    dev = resolve_device(device)
+    kvh, dh, S = max(cfg.num_kv_heads, 1), max(cfg.head_dim, 16), max_len
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v = (torch.randn((batch, S, kvh, dh), generator=g, device=dev)
+            for _ in range(2))
+    q = torch.randn((batch, 1, cfg.num_heads or kvh, dh), generator=g,
+                    device=dev)
+    kv_cfg = ICQKVConfig(d_fast=max(dh // 4, 4))
+    with full_f32_matmul():
+        cache = build_icq_kv_cache(kv_cfg, k, v, max_len=S)
+        out = icq_kv_decode_attention(q, cache, kv_cfg, S - 1,
+                                      top_c=max(S // 8, 4))
+        ref = reference_decode_attention(q, k, v, S - 1)
+    err = float((out - ref).abs().max())
+    raw = S * kvh * dh * 2 * 2                       # bf16 K+V
+    icq = (S * kvh * kv_cfg.d_fast * 2               # crude reads
+           + (S // 8) * kvh * dh * 2 * 1)            # int8 survivors
+    print(f"icq-kv: max err {err:.4f}; decode HBM bytes/head "
+          f"{raw} -> {icq} ({raw / icq:.1f}x less)")
+
+
 def serve_arch(args):
     """``--arch``: the LM's config, ``serve_lm`` on it; an arch the port
     does not serve exits with a one-line error naming its ROADMAP
-    item."""
+    item.  ``--icq-kv`` on an arch ICQ-KV does not serve runs
+    ``icq_kv_demo`` after the serving, as the reference launcher
+    does."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models.transformer import unported_item
     from repro_torch.quant.serve_icq import supports_icq_kv
@@ -412,18 +457,22 @@ def serve_arch(args):
     if item:
         raise SystemExit(f"--arch {args.arch}: the {cfg.family} family is "
                          f"not ported; it waits for ROADMAP {item}")
-    if args.icq_kv and not supports_icq_kv(cfg):
-        raise SystemExit(f"--icq-kv: {args.arch} has no dense KV cache")
+    dense_kv = supports_icq_kv(cfg)
     serve_lm(cfg, prompt_len=args.prompt_len,
              decode_steps=args.decode_steps, batch=args.batch,
-             device=args.device, seed=args.seed, icq_kv=args.icq_kv)
+             device=args.device, seed=args.seed,
+             icq_kv=args.icq_kv and dense_kv)
+    if args.icq_kv and not dense_kv:
+        icq_kv_demo(cfg, batch=args.batch,
+                    max_len=args.prompt_len + args.decode_steps,
+                    device=args.device)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None,
-                    help="serve this LM (configs.list_archs(); the dense "
-                         "decoder LMs are ported)")
+                    help="serve this LM (configs.list_archs(); the decoder "
+                         "LMs of dense, MoE and MLA layers are ported)")
     ap.add_argument("--smoke", action="store_true",
                     help="with --arch: the reduced config (smoke_config)")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -432,7 +481,10 @@ def main(argv=None):
     ap.add_argument("--icq-kv", action="store_true",
                     help="with --arch: also decode through the ICQ-KV "
                          "cache (crude scores over the high-variance key "
-                         "dims, exact attention over the top survivors)")
+                         "dims, exact attention over the top survivors); "
+                         "for an arch with no dense KV cache (MoE, MLA) "
+                         "the standalone demonstration on its head "
+                         "geometry")
     ap.add_argument("--ann", action="store_true",
                     help="build a synthetic index and serve it")
     ap.add_argument("--load-artifacts", default=None, metavar="DIR",

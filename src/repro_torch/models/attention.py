@@ -7,10 +7,13 @@ CUDA tensor the causal self-attention of ``full_attention``,
 ``chunked_attention`` and ``triangular_chunked_attention`` (query and
 key positions both counted from 0, no window, no padding mask) is
 exactly what the flash kernel computes, so there they launch
-``kernels.ops.flash_attention`` and nothing else: a head width the
-kernel does not compile raises its ``ValueError``, and a call the kernel
-does not cover (a window, a query offset, a key padding mask, a
-non-causal call) raises ``NotImplementedError``.  ``decode_attention``
+``kernels.ops.flash_attention`` and nothing else.  v may be narrower
+than q and k (MLA's prefill: q/k 192, v 128; the output takes v's
+width); a (q/k, v) width pair the kernel does not compile (it compiles
+32, 64, 128 and 256 with v as wide, and (192, 128)) raises its
+``ValueError``, and a call the kernel does not cover (a window, a query
+offset, a key padding mask, a non-causal call) raises
+``NotImplementedError``.  ``decode_attention``
 is not a kernel in the reference either and stays plain PyTorch on both
 devices.  Cross attention waits for ROADMAP item 21.
 """

@@ -1,16 +1,18 @@
-"""Model assembly of the dense decoder LMs (twin of
-``repro.models.transformer`` for the ``"dense"`` layer kind: tinyllama,
-llama3, gemma and granite).
+"""Model assembly of the decoder LMs (twin of ``repro.models.transformer``
+for the layer kinds ``"dense"`` (tinyllama, llama3, gemma, granite),
+``"dense_first"`` and ``"moe"`` (moonshot), ``"mla_dense"`` and
+``"mla_moe"`` (deepseek-v2)).
 
-Layers are *stacked* as in the reference: every leaf of
-``params["seg0"]`` has a leading layer axis, so the reference's params
-carry across leaf for leaf (``params_from_numpy``).  A Python loop over
-the layer index applies them.  The prefill's attention runs the flash
-kernel on the card (``models.attention``); the decode step writes its
-K/V into the cache in place (the reference donates the cache) at the
-position held by a 0-d device tensor, so a step does not synchronise
-the host.  Every matrix product runs in full f32 on the card (TF32 off,
-``index.base.full_f32_matmul``).
+Layers are *stacked* as in the reference: every leaf of a segment's
+params (``params["seg0"]``, ``["seg1"]``, one per run of one kind) has a
+leading layer axis, so the reference's params carry across leaf for leaf
+(``params_from_numpy``).  A Python loop over the layer index applies
+them.  The prefill's attention runs the flash kernel on the card
+(``models.attention``, ``models.mla``); the decode step writes its cache
+(K/V, or MLA's latent and rope key) in place (the reference donates the
+cache) at the position held by a 0-d device tensor, so a step does not
+synchronise the host.  Every matrix product runs in full f32 on the card
+(TF32 off, ``index.base.full_f32_matmul``).
 
 Entry points (``build_model``):
   init(generator)                       -> params
@@ -18,8 +20,9 @@ Entry points (``build_model``):
   prefill(params, batch, max_len)       -> (last-token logits, caches)
   decode_step(params, tokens, caches)   -> (logits, caches)
 
-The other layer kinds, ``train_forward`` and a ``mesh`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The other layer kinds (ssm, rglru, local, enc, dec), ``train_forward``
+and a ``mesh`` raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -31,10 +34,11 @@ import torch
 
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import nn
 
 # ROADMAP items of what this module does not build yet
-_MOE_MLA = "item 19 (MoE and MLA)"
 _SSM_HYBRID = "item 20 (SSM and the hybrid)"
 _ENCDEC_VLM = "item 21 (the encoder-decoder and the VLM)"
 _TRAIN = "item 22 (LM training)"
@@ -42,10 +46,9 @@ _SHARDING = "item 23 (LM sharding and the dry run)"
 
 
 def unported_item(cfg) -> str:
-    """The ROADMAP item that brings ``cfg``'s family, or "" for a dense
-    decoder-only arch (what this module serves)."""
-    if cfg.num_experts or cfg.mla:
-        return _MOE_MLA
+    """The ROADMAP item that brings ``cfg``'s family, or "" for a
+    decoder-only arch of dense, MoE or MLA layers (what this module
+    serves)."""
     if cfg.ssm or cfg.hybrid:
         return _SSM_HYBRID
     if cfg.encdec or cfg.frontend != "none" or cfg.learned_pos_emb:
@@ -65,8 +68,13 @@ def _layer(stacked, li: int):
 
 
 # =================================================================
-# per-layer init / apply (the "dense" kind)
+# per-layer init / apply, switched on ``kind``
 # =================================================================
+
+_KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe")
+_MLA_KINDS = ("mla_dense", "mla_moe")
+_MOE_KINDS = ("moe", "mla_moe")
+
 
 def _norm_init(cfg, dtype, device=None):
     if cfg.norm_type == "layernorm":
@@ -81,21 +89,40 @@ def _norm_apply(cfg, p, x):
 
 
 def _check_kind(kind: str):
-    if kind != "dense":
+    if kind not in _KINDS:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported; the port builds the dense "
-            f"decoder layer only (MoE / MLA kinds: ROADMAP {_MOE_MLA}; "
-            f"ssm / rglru / local: {_SSM_HYBRID}; enc / dec: {_ENCDEC_VLM})")
+            f"layer kind {kind!r} is not ported; the port builds the "
+            f"decoder layer kinds {_KINDS} (ssm / rglru / local: ROADMAP "
+            f"{_SSM_HYBRID}; enc / dec: {_ENCDEC_VLM})")
 
 
 def layer_init(generator: torch.Generator, cfg, dtype, kind: str):
     _check_kind(kind)
     dev = generator.device
-    return {"norm1": _norm_init(cfg, dtype, dev),
-            "norm2": _norm_init(cfg, dtype, dev),
-            "attn": attn.attn_init(generator, cfg, dtype),
-            "ffn": nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                               cfg.activation, dtype)}
+    p = {"norm1": _norm_init(cfg, dtype, dev),
+         "norm2": _norm_init(cfg, dtype, dev)}
+    if kind in _MLA_KINDS or (kind == "dense_first" and cfg.mla):
+        p["attn"] = mla_mod.mla_init(generator, cfg, dtype)
+    else:
+        p["attn"] = attn.attn_init(generator, cfg, dtype)
+    if kind in _MOE_KINDS:
+        p["ffn"] = moe_mod.moe_init(generator, cfg, dtype)
+    elif kind in ("mla_dense", "dense_first"):
+        p["ffn"] = nn.mlp_init(generator, cfg.d_model,
+                               cfg.dense_d_ff or cfg.d_ff, cfg.activation,
+                               dtype)
+    else:
+        p["ffn"] = nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                               cfg.activation, dtype)
+    return p
+
+
+def _ffn(p, x, cfg, kind: str):
+    """The layer's feed-forward on x: (out, aux), aux the MoE layers'
+    load-balance loss (None for an MLP)."""
+    if kind in _MOE_KINDS:
+        return moe_mod.moe_apply(p["ffn"], x, cfg)
+    return nn.mlp_apply(p["ffn"], x, cfg.activation), None
 
 
 def layer_apply(p, x, cfg, positions, kind: str, *, enc_out=None,
@@ -103,70 +130,105 @@ def layer_apply(p, x, cfg, positions, kind: str, *, enc_out=None,
     """Full-sequence layer.  Returns (x, aux)."""
     _check_kind(kind)
     h = _norm_apply(cfg, p["norm1"], x)
-    x = x + attn.attention_apply(p["attn"], h, cfg, positions, causal=True,
-                                 impl=attn_impl, rope=not cfg.learned_pos_emb)
-    h2 = _norm_apply(cfg, p["norm2"], x)
-    x = x + nn.mlp_apply(p["ffn"], h2, cfg.activation)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in _MLA_KINDS:
+        x = x + mla_mod.mla_attention_apply(p["attn"], h, cfg, positions)
+    else:
+        x = x + attn.attention_apply(p["attn"], h, cfg, positions,
+                                     causal=True, impl=attn_impl,
+                                     rope=not cfg.learned_pos_emb)
+    y, aux = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def layer_init_cache(cfg, kind: str, batch: int, max_len: int, dtype,
                      device=None):
     _check_kind(kind)
+    dt = nn.as_dtype(dtype)
+    if kind in _MLA_KINDS:
+        return {"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                      dtype=dt, device=device),
+                "k_rope": torch.zeros((batch, max_len,
+                                       cfg.qk_rope_head_dim), dtype=dt,
+                                      device=device)}
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=nn.as_dtype(dtype), device=device),
-            "v": torch.zeros(shape, dtype=nn.as_dtype(dtype), device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
                   enc_out=None, attn_impl="chunked", cache=None):
-    """Layer forward that also fills its decode cache: K/V at positions
-    [0, s) of ``cache`` (made with ``layer_init_cache`` when None),
-    zeros past them.  Returns (x, cache)."""
+    """Layer forward that also fills its decode cache: K/V (or MLA's
+    latent and rope key) at positions [0, s) of ``cache`` (made with
+    ``layer_init_cache`` when None), zeros past them.  Returns (x,
+    cache)."""
     _check_kind(kind)
     b, s, _ = x.shape
-    h = _norm_apply(cfg, p["norm1"], x)
-    q, k, v = attn.qkv_project(p["attn"], h, cfg, positions,
-                               rope=not cfg.learned_pos_emb)
-    if s <= cfg.attn_chunk:
-        o = attn.full_attention(q, k, v, causal=True)
-    elif attn_impl == "triangular":
-        o = attn.triangular_chunked_attention(q, k, v, chunk=cfg.attn_chunk)
-    else:
-        o = attn.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     if cache is None:
         cache = layer_init_cache(cfg, kind, b, max(max_len, s), x.dtype,
                                  x.device)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    x = x + o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["attn"]["wo"]
-    h2 = _norm_apply(cfg, p["norm2"], x)
-    x = x + nn.mlp_apply(p["ffn"], h2, cfg.activation)
-    return x, cache
+    h = _norm_apply(cfg, p["norm1"], x)
+    if kind in _MLA_KINDS:
+        latent, k_rope = mla_mod.mla_prefill_latent(p["attn"], h, cfg,
+                                                    positions)
+        cache["latent"][:, :s] = latent
+        cache["k_rope"][:, :s] = k_rope
+        x = x + mla_mod.mla_attention_apply(p["attn"], h, cfg, positions)
+    else:
+        q, k, v = attn.qkv_project(p["attn"], h, cfg, positions,
+                                   rope=not cfg.learned_pos_emb)
+        if s <= cfg.attn_chunk:
+            o = attn.full_attention(q, k, v, causal=True)
+        elif attn_impl == "triangular":
+            o = attn.triangular_chunked_attention(q, k, v,
+                                                  chunk=cfg.attn_chunk)
+        else:
+            o = attn.chunked_attention(q, k, v, causal=True,
+                                       chunk=cfg.attn_chunk)
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        x = x + o.reshape(b, s, cfg.num_heads * cfg.head_dim) \
+            @ p["attn"]["wo"]
+    y, _ = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
+    return x + y, cache
 
 
 def layer_decode(p, x, cfg, cache, pos, kind: str):
     """One-token layer step.  x: (b,1,d); pos: the write index (a 0-d
-    tensor on x's device, or an int).  Writes K/V at ``pos`` of
-    ``cache`` in place and returns (x, cache)."""
+    tensor on x's device, or an int).  Writes K/V (or the latent and
+    rope key) at ``pos`` of ``cache`` in place and returns (x,
+    cache)."""
     _check_kind(kind)
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     h = _norm_apply(cfg, p["norm1"], x)
     positions = pos.reshape(1, 1).expand(b, 1)
-    q, k, v = attn.qkv_project(p["attn"], h, cfg, positions,
-                               rope=not cfg.learned_pos_emb)
-    kc, vc = cache["k"], cache["v"]
     at = pos.long().reshape(1)
-    kc.index_copy_(1, at, k.to(kc.dtype))
-    vc.index_copy_(1, at, v.to(vc.dtype))
-    S = kc.shape[1]
-    mask = (torch.arange(S, device=x.device) <= pos)[None, :].expand(b, S)
-    o = attn.decode_attention(q, kc, vc, mask)
-    x = x + o.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["attn"]["wo"]
-    h2 = _norm_apply(cfg, p["norm2"], x)
-    x = x + nn.mlp_apply(p["ffn"], h2, cfg.activation)
-    return x, cache
+    if kind in _MLA_KINDS:
+        latent, k_rope = mla_mod.mla_prefill_latent(p["attn"], h, cfg,
+                                                    positions)
+        lat_c, kr_c = cache["latent"], cache["k_rope"]
+        lat_c.index_copy_(1, at, latent.to(lat_c.dtype))
+        kr_c.index_copy_(1, at, k_rope.to(kr_c.dtype))
+        S = lat_c.shape[1]
+        mask = (torch.arange(S, device=x.device) <= pos)[None, :]
+        x = x + mla_mod.mla_decode_attention(p["attn"], h, lat_c, kr_c, cfg,
+                                             positions, mask)
+    else:
+        q, k, v = attn.qkv_project(p["attn"], h, cfg, positions,
+                                   rope=not cfg.learned_pos_emb)
+        kc, vc = cache["k"], cache["v"]
+        kc.index_copy_(1, at, k.to(kc.dtype))
+        vc.index_copy_(1, at, v.to(vc.dtype))
+        S = kc.shape[1]
+        mask = (torch.arange(S, device=x.device) <= pos)[None, :] \
+            .expand(b, S)
+        o = attn.decode_attention(q, kc, vc, mask)
+        x = x + o.reshape(b, 1, cfg.num_heads * cfg.head_dim) \
+            @ p["attn"]["wo"]
+    y, _ = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
+    return x + y, cache
 
 
 # =================================================================
@@ -176,14 +238,15 @@ def layer_decode(p, x, cfg, cache, pos, kind: str):
 def _stacked_init(generator, cfg, dtype, kind: str, n: int):
     """``n`` layers drawn one after another into stacked leaves (peak
     memory: the stack plus one layer)."""
-    first = layer_init(generator, cfg, dtype, kind)
+    one = layer_init(generator, cfg, dtype, kind)
     stacked = _tree_map(
         lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype,
-                              device=a.device), first)
+                              device=a.device), one)
     for li in range(n):
-        one = first if li == 0 else layer_init(generator, cfg, dtype, kind)
+        if li:
+            one = layer_init(generator, cfg, dtype, kind)
         _tree_map(lambda buf, a: buf[li].copy_(a), stacked, one)
-        del one
+        one = None
     return stacked
 
 
@@ -241,10 +304,10 @@ def _layer_plan(cfg):
 
 
 def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
-    """The dense decoder LM of ``cfg``.  ``init(generator)`` draws the
-    params on the generator's device (an int seeds a generator on
-    ``device``, the card unless the caller names another); the other
-    entry points run where the params are."""
+    """The decoder LM of ``cfg`` (dense, MoE or MLA layers).
+    ``init(generator)`` draws the params on the generator's device (an
+    int seeds a generator on ``device``, the card unless the caller
+    names another); the other entry points run where the params are."""
     if mesh is not None:
         raise NotImplementedError(
             f"a sharded model (mesh=) waits for ROADMAP {_SHARDING}")
@@ -252,7 +315,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     if item:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported; the port serves the "
-            f"dense decoder LMs, and this family waits for ROADMAP {item}")
+            f"decoder LMs of dense, MoE and MLA layers, and this family "
+            f"waits for ROADMAP {item}")
     dtype = nn.as_dtype(cfg.param_dtype)
     cdt = nn.as_dtype(cfg.compute_dtype)
     tied = cfg.tie_embeddings

@@ -46,9 +46,12 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
             "the sharded ICQ-KV decode (mesh=) waits for ROADMAP item 23 "
             "(LM sharding and the dry run)")
     if not supports_icq_kv(cfg):
+        item = unported_item(cfg)
         raise NotImplementedError(
-            f"ICQ-KV serves the dense decoder LMs; {cfg.name} "
-            f"({cfg.family}) waits for ROADMAP {unported_item(cfg)}")
+            f"ICQ-KV serves dense decoder-only archs (no MLA, no experts: "
+            f"the reference's gate); {cfg.name} ({cfg.family}) "
+            + (f"waits for ROADMAP {item}" if item
+               else "has no dense KV cache"))
     tied = cfg.tie_embeddings
     emb_scale = float(cfg.d_model) ** 0.5 if tied else 1.0
     cdt = nn.as_dtype(cfg.compute_dtype)

@@ -269,6 +269,40 @@ def test_cuda_flash_attention_matches_plain_version(b, sq, sk, h, kvh, dh,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# (b, sq, sk, H, KVH, causal) at MLA's widths: q/k 192 = 128 + 64, v 128
+MLA_FLASH_CASES = [
+    (1, 257, 257, 8, 8, True),          # ragged against the tile, MHA
+    (2, 64, 200, 4, 1, False),          # cross-length, MQA
+    (1, 130, 77, 4, 2, True),           # causal, sq > sk, GQA
+    (1, 1000, 1000, 2, 2, True),        # many causal tiles
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal", MLA_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_mla_widths_match_plain_version(
+        b, sq, sk, h, kvh, causal, dtype):
+    """The (192, 128) instance (v narrower than q and k) against its
+    plain version, at phase 7's tolerances; an uncompiled pair raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(sq + sk + h + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).cuda()
+        for s in ((b, sq, h, 192), (b, sk, kvh, 192), (b, sk, kvh, 128)))
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_torch(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, sq, h, 128)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="not compiled"):
+        fa.flash_attention_cuda(q, k, v[..., :64].contiguous())
+    assert fa.kernel_attributes(dtype, 192, 128)["path"] == fa.PATHS[dtype]
+
+
 @pytest.mark.gpu
 def test_cuda_kmeans_assign_takes_bf16():
     """bf16 operands run the f32 kernel on their exact f32 values."""
@@ -1449,3 +1483,105 @@ def test_cuda_prefill_refuses_an_uncompiled_head_width():
         attn.full_attention(q, k, k, causal=True, window=4)
     with pytest.raises(NotImplementedError, match="item 21"):
         attn.chunked_attention(q, k, k, causal=False, chunk=4)
+
+
+def _moe_mla_lm(arch, bf16):
+    """A smoke config of a MoE / MLA arch whose attention widths the
+    flash kernel compiles: moonshot with heads of 32; deepseek with
+    MLA's own head widths (q/k 128 + 64, v 128) at d_model 64."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import scale_config
+    repl = (dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+            if arch == "deepseek-v2-236b" else dict(head_dim=32))
+    cfg = dataclasses.replace(smoke_config(arch), **repl)
+    return scale_config(cfg) if bf16 else cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("bf16,attn_chunk", [(False, 1024), (True, 1024),
+                                             (False, 8)])
+def test_cuda_moe_mla_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
+    """The MoE / MLA LM's prefill (one flash launch a layer: MHA at 32,
+    MLA at (192, 128) also past attn_chunk, where the CPU decompresses
+    per block) and 3 decode steps (no flash launch) on the card against
+    the CPU from the same params: f32 within 1e-5, bf16 within 2^-5 of
+    the largest logit; greedy tokens equal wherever the CPU's top-2 gap
+    exceeds that bound (bf16 logits of a 128-token vocab do tie within
+    it); both fed the CPU's greedy tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(_moe_mla_lm(arch, bf16), attn_chunk=attn_chunk)
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = _to(cpu, "cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16),
+                                             dtype=np.int32)
+    tol = 2.0 ** -5 if bf16 else 1e-5
+    ops.LAUNCHES["flash_attention"] = 0
+    lg, cg = model.prefill(card, {"tokens": toks}, 24)
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    lc, cc = model.prefill(cpu, {"tokens": toks}, 24)
+    for step in range(4):
+        want = lc.float()
+        bound = tol * max(1.0, float(want.abs().max()))
+        assert float((lg.float().cpu() - want).abs().max()) <= bound, step
+        tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        top2 = want[:, -1].topk(2, dim=-1).values
+        same = lg[:, -1].float().argmax(-1).cpu() == tok[:, 0]
+        assert bool((same | (top2[:, 0] - top2[:, 1] <= bound)).all()), step
+        if step < 3:
+            lg, cg = model.decode_step(card, tok.cuda(), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    for seg in (k for k in cc if k != "pos"):
+        for name, buf in cc[seg].items():
+            b = tol * max(1.0, float(buf.float().abs().max()))
+            assert float((cg[seg][name].float().cpu() - buf.float()).abs()
+                         .max()) <= b, (seg, name)
+
+
+@pytest.mark.gpu
+def test_cuda_moe_combine_is_deterministic():
+    """Two bf16 prefills of the MoE LM from the same inputs give bit for
+    bit equal logits and caches, and so do two decode steps from equal
+    caches (the combine sums each token's slots in a fixed order, no
+    atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import build_model
+    cfg = _moe_mla_lm("moonshot-v1-16b-a3b", True)
+    model = build_model(cfg)
+    params = model.init(0)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 64),
+                                             dtype=np.int32)
+    (l1, c1), (l2, c2) = (model.prefill(params, {"tokens": toks}, 72)
+                          for _ in range(2))
+    assert torch.equal(l1, l2)
+    for seg in ("seg0", "seg1"):
+        for name in ("k", "v"):
+            assert torch.equal(c1[seg][name], c2[seg][name])
+    tok = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
+    (d1, _), (d2, _) = (model.decode_step(params, tok, c)
+                        for c in (c1, c2))
+    assert torch.equal(d1, d2)
+
+
+@pytest.mark.gpu
+def test_cuda_mla_refuses_uncompiled_widths():
+    """smoke_config's MLA widths (q/k 16 + 8, v 16) are not a compiled
+    pair: the card's prefill raises the kernel's ValueError and runs no
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    model = build_model(smoke_config("deepseek-v2-236b"))
+    params = model.init(0)
+    with pytest.raises(ValueError, match=r"\(dqk=24, dv=16\) are not "
+                                         r"compiled"):
+        model.prefill(params, {"tokens": np.zeros((1, 8), np.int32)}, 8)
