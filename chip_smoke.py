@@ -3,9 +3,9 @@
 from this checkout, holds each against its plain PyTorch version on the
 card, then builds and serves the flat, two-step and IVF indexes at
 SIFT1M geometry through the port's own entry points (``build_index``,
-``load_ann_engine``), trains, and serves two dense LMs, a MoE LM and
-an MLA + MoE LM at full width (``serve_lm``), and checks what comes
-out.
+``load_ann_engine``), trains, and serves two dense LMs, a MoE LM, an
+MLA + MoE LM, an SSM and a hybrid at full width (``serve_lm``), and
+checks what comes out.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--batches 3] \
         [--profile DIR]
@@ -91,7 +91,9 @@ or outside a checkout of the repository.  Phases:
    two-step bit for bit on uint8 and int32 rows, K in {2, 8, 16}, m in
    {16, 256}, thresholds passing none, some and all points; flash
    attention within 2e-5 in f32 and 2e-2 in bf16, causal and not,
-   sq != sk, MHA, GQA and MQA, dh in {32, 64, 128, 256}; each line names
+   sq != sk, MHA, GQA and MQA, dh in {32, 64, 128, 256}, and the
+   sliding window (``FLASH_WINDOW_MODES``: 1 key to wider than the
+   prompt, inside, on and across key tiles); each line names
    the body that ran, ``mma.sync`` bf16 or FMA f32, with its registers
    and local-memory bytes); then the ops
    once each at full width, counts reset before and read after: ADC and
@@ -216,7 +218,7 @@ or outside a checkout of the repository.  Phases:
 
 14. LM serving (``launch.serve.serve_lm``, the ``--arch`` command's
    path) on the card at full width with random weights drawn by the
-   port's ``init`` from a generator on the card, four cells served one
+   port's ``init`` from a generator on the card, six cells served one
    after the other, each freed (``del``, ``empty_cache``) before the
    next: cell A, tinyllama-1.1b in f32, batch 8, a 512-token prompt
    (the ``full_attention`` branch), 32 greedy decode steps, then the
@@ -235,30 +237,43 @@ or outside a checkout of the repository.  Phases:
    experts, 21.2 B parameters; the 60 layers do not fit one card),
    batch 1, a 2048-token prompt (past ``attn_chunk``: on the card MLA's
    K and V materialized and the flash kernel's (192, 128) instance),
-   16 steps.  Each prints prefill ms, decode ms a step, tokens/s and
-   peak MiB (CUDA events) beside the card's name and power limit.
+   16 steps; cell E, mamba2-1.3b in bf16 at full depth (48 SSD layers,
+   no attention), batch 8, a 2048-token prompt (16 SSD chunks of 128),
+   32 steps; cell F, recurrentgemma-9b in bf16 at full depth (12 groups
+   of (rglru, rglru, local) and two rglru layers; MQA 16 / 1 heads of
+   256, window 2048), batch 1, a 4096-token prompt (the band masks, the
+   local ring of 2048 slots wraps), 16 steps.  Each prints prefill ms,
+   decode ms a step, tokens/s and peak MiB (CUDA events) beside the
+   card's name and power limit.
    Gates: (1) each arch's model on the card against the CPU from the
    same weights in f32 at batch 1, a 64-token prompt and 4 steps
    (tinyllama at full depth, the MoE archs at depth 2: the first dense
-   layer and one MoE layer), logits within 2e-4 of the largest
+   layer and one MoE layer; mamba2 at depth 2; recurrentgemma at depth
+   4, one group and a tail layer, at its window and again at a window
+   of 32, which masks and wraps at 64 tokens), logits within 2e-4 of
+   the largest
    (``LM_TOL``), greedy tokens equal wherever the CPU's top-2 gap
    exceeds that; (2) at every cell's shape, the flash kernel on layer
    0's q, k, v against its plain version (phase 7's tolerance), timed
    beside its bound and SDPA (or SDPA's refusal), and the f32 (192,
-   128) body at a small MLA shape; (3) cell C's two prefills from the
-   same inputs, and two decode steps from those caches, bit for bit
+   128) body at a small MLA shape; at cell F the windowed kernel in
+   bf16 and in f32, its bound counting the band only, SDPA with the
+   band as a boolean mask; (3) cell C's and cell E's two prefills from
+   the same inputs, and two decode steps from those caches, bit for bit
    equal (logits and caches); (4) cell C's layer 1 dispatch at 512
    tokens with capacity_factor = E (no drops) against the every-expert
    oracle within 2^-5 of the largest output; (5) at cell A's head
    geometry ICQ-KV attention at top_c = S equal to exact attention over
    the dequantized cache; (6) launch counts reset before and read after
-   each cell: exactly ``num_layers`` flash launches a prefill (22, 28,
-   48 and 6; the untimed warm prefill doubles the window's count) and
-   none in the decode steps.  TF32 must be off; the phase logs
+   each cell: exactly one flash launch an attention layer a prefill
+   (22, 28, 48, 6, none at cell E and the 12 local layers at cell F;
+   the untimed warm prefill doubles the window's count) and none in the
+   decode steps.  TF32 must be off; the phase logs
    ``torch.get_float32_matmul_precision()``.  The kernels' record of
    flash attention is cell B's served prefill shape, with the launches
    of the whole run; a second record, ``flash_attention (192, 128)``,
-   is cell D's, with cell D's launches.
+   is cell D's, with cell D's launches, and a third, ``flash_attention
+   (window 2048)``, cell F's, with cell F's.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -274,10 +289,12 @@ cells run under ``torch.profiler`` after their counted windows: the
 device busy time and idle share per tile, the ops by device and host
 time, and a Chrome trace per cell in DIR; phase 10 traces its 512-query
 batches pipelined and off the same way, phase 11 10 train steps, and
-phase 14 one prefill and 4 decode steps of each LM cell.
+phase 14 one prefill and 4 decode steps of each LM cell (with the
+SSM's and the RG-LRU's pieces as ranges).
 
 The line before the last is the kernels' JSON record (the nine
-kernels, then the flash kernel's (192, 128) instance); the last line is
+kernels, then the flash kernel's (192, 128) and windowed instances);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1758,6 +1775,21 @@ FLASH_MODES = (   # b, sq, sk, H, KVH, dqk, dv, causal
     (2, 64, 200, 4, 1, 192, 128, False),     # cross-length, MQA
     (1, 130, 77, 4, 2, 192, 128, True),      # sq > sk, GQA
 )
+# the sliding band (recurrentgemma's local layers): b, sq, sk, H, KVH,
+# dqk, dv, causal, window: the diagonal alone, a band inside one tile,
+# exactly a tile, across tiles at dh 256 (32-key tiles in bf16) with
+# MQA, wider than the prompt, sq < sk, non-causal (keys right of the
+# query kept), MLA's widths
+FLASH_WINDOW_MODES = (
+    (1, 300, 300, 4, 1, 32, 32, True, 1),
+    (1, 1000, 1000, 4, 2, 64, 64, True, 100),
+    (2, 256, 256, 8, 8, 128, 128, True, 64),
+    (1, 777, 777, 16, 1, 256, 256, True, 70),
+    (1, 200, 500, 4, 4, 128, 128, True, 5000),
+    (1, 333, 1111, 4, 2, 64, 64, True, 300),
+    (1, 300, 500, 4, 4, 32, 32, False, 50),
+    (1, 1000, 1000, 8, 8, 192, 128, True, 333),
+)
 
 
 def flash_tolerance(dtype) -> float:
@@ -1819,13 +1851,15 @@ def check_kernel_ops(seed: int):
                 f"{'equal' if ok else 'DIFFERENT'}")
             check(ok, f"adc/two_step kernel != plain version (K={K}, m={m},"
                       f" {dtype}) or wrong pass counts {passes}")
-    for mode in FLASH_MODES:
-        b, sq, sk, H, KVH, dh, dv, causal = mode
+    for mode in tuple(m + (0,) for m in FLASH_MODES) + FLASH_WINDOW_MODES:
+        b, sq, sk, H, KVH, dh, dv, causal, window = mode
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = attention_operands(seed + sq + dh, b, sq, sk, H, KVH,
-                                         dh, dtype, dv)
-            got = fa.flash_attention_cuda(q, k, v, causal=causal)
-            want = fa.flash_attention_torch(q, k, v, causal=causal)
+            q, k, v = attention_operands(seed + sq + dh + window, b, sq, sk,
+                                         H, KVH, dh, dtype, dv)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window)
+            want = fa.flash_attention_torch(q, k, v, causal=causal,
+                                            window=window)
             torch.cuda.synchronize()
             tol = flash_tolerance(dtype)
             err = float((got.float() - want.float()).abs().max())
@@ -1833,7 +1867,7 @@ def check_kernel_ops(seed: int):
                   and bool(torch.isclose(got.float(), want.float(), rtol=tol,
                                          atol=tol).all()))
             log(f"mode flash_attention b={b} sq={sq} sk={sk} H={H} KVH={KVH}"
-                f" dh={dh} dv={dv} causal={causal} "
+                f" dh={dh} dv={dv} causal={causal} window={window} "
                 f"{str(dtype).split('.')[-1]} ({flash_body(dtype, dh, dv)}):"
                 f" max_abs_err {err} (tolerance "
                 f"{tol}): {'within' if ok else 'OUTSIDE'}")
@@ -1842,16 +1876,19 @@ def check_kernel_ops(seed: int):
     log(f"phase 7 check launches: {read_launches()}")
 
 
-def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize, dv=None):
+def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize, dv=None,
+                   window=0):
     """(bytes, operations) of one attention call: q (width dh), k (dh),
     v (dv, default dh) read and out (dv) written once; per visible
     (query, key) pair 2 dh operations of Q . K^T and 2 dv of P . V,
-    counting only the causal part."""
+    counting only the causal part, and under ``window`` only the band
+    (keys i - window < j)."""
     dv = dv or dh
-    if causal:
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-    else:
-        pairs = sq * sk
+    pairs = 0
+    for i in range(sq):
+        last = min(i, sk - 1) if causal else sk - 1
+        first = max(0, i - window + 1) if window else 0
+        pairs += max(0, last - first + 1)
     nbytes = itemsize * (b * sq * H * (dh + dv) + b * sk * KVH * (dh + dv))
     return nbytes, 2 * b * H * (dh + dv) * pairs
 
@@ -3943,14 +3980,27 @@ def fit_data_parallel(seed: int, card: str, fig1_model):
 # 512, q/k 128 + 64, v 128) and 160 experts top-6 + 2 shared, its depth
 # cut from 60 layers to 6 (1 MLA dense + 5 MLA MoE: 42.5 GB; the 60
 # layers are 472 GB, past one card), a prompt past attn_chunk (on the
-# card K/V materialized and one flash launch a layer)
+# card K/V materialized and one flash launch a layer); E: mamba2-1.3b
+# (arXiv:2405.21060) at full width and depth in bf16, 48 SSD layers (d
+# 2048, 64 heads of 64, state 128, chunk 128), batched serving of an
+# attention-free LM (16 SSD chunks a prompt, no flash launch); F:
+# recurrentgemma-9b (arXiv:2402.19427) at full width and depth in bf16,
+# 38 layers = 12 x (rglru, rglru, local) + 2 rglru, MQA 16 / 1 heads of
+# 256, window 2048, a prompt of twice the window (the band masks, the
+# local ring wraps), the windowed flash kernel in its 12 local layers
 LM_CELLS = (("A", "tinyllama-1.1b", False, 8, 512, 32, 0),
             ("B", "gemma-7b", True, 1, 2048, 16, 0),
             ("C", "moonshot-v1-16b-a3b", True, 8, 512, 16, 0),
-            ("D", "deepseek-v2-236b", True, 1, 2048, 16, 6))
+            ("D", "deepseek-v2-236b", True, 1, 2048, 16, 6),
+            ("E", "mamba2-1.3b", True, 8, 2048, 32, 0),
+            ("F", "recurrentgemma-9b", True, 1, 4096, 16, 0))
 # gate 1: each arch's model on the card against the CPU from the same
 # weights, in f32 at batch 1, a 64-token prompt and 4 decode steps (the
-# MoE archs at depth 2: the first dense layer and one MoE layer).
+# MoE archs and mamba2 at depth 2: the first dense layer and one MoE
+# layer; recurrentgemma at depth 4, one group and one tail layer, once
+# at its window of 2048 and once with the window cut to 32, which is a
+# correctness gate and not a cell: at a 64-token prompt the band masks
+# and the ring of 32 slots wraps, at full width, cheaply on the CPU).
 # Logits within LM_TOL of the largest |logit|: each of tinyllama's 22
 # layers sums 2048 to 5632 f32 products in cuBLAS's order against the
 # CPU's, each sum about sqrt(n) 2^-24 ~ 5e-6 relative, the errors
@@ -3958,8 +4008,9 @@ LM_CELLS = (("A", "tinyllama-1.1b", False, 8, 512, 32, 0),
 # 2e-5 (phase 7's)
 LM_GATE = dict(batch=1, prompt=64, steps=4)
 LM_TOL = 2e-4
-LM_GATE_ARCHS = (("tinyllama-1.1b", 0), ("moonshot-v1-16b-a3b", 2),
-                 ("deepseek-v2-236b", 2))
+LM_GATE_ARCHS = (("tinyllama-1.1b", 0, 0), ("moonshot-v1-16b-a3b", 2, 0),
+                 ("deepseek-v2-236b", 2, 0), ("mamba2-1.3b", 2, 0),
+                 ("recurrentgemma-9b", 4, 0), ("recurrentgemma-9b", 4, 32))
 # gate 4: cell C's layer 1 (the first MoE layer) at this many tokens,
 # capacity_factor = E so that no assignment drops, against the
 # every-expert oracle in bf16 (TOL_BF16 of the largest output)
@@ -3967,14 +4018,29 @@ MOE_ORACLE_TOKENS = 512
 TOL_BF16 = 2.0 ** -5
 
 
-def lm_config(arch, bf16, layers=0):
+def lm_config(arch, bf16, layers=0, window=0):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import scale_config
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if window:
+        cfg = dataclasses.replace(cfg, local_window=window)
     return scale_config(cfg) if bf16 else cfg
+
+
+def attention_layers(cfg) -> int:
+    """The layers whose prefill launches the flash kernel once: every
+    layer of the dense, MoE and MLA archs, none of the SSM, the hybrid's
+    local layers."""
+    if cfg.ssm:
+        return 0
+    if cfg.hybrid:
+        pattern = cfg.block_pattern
+        return sum(pattern[i % len(pattern)] == "local"
+                   for i in range(cfg.num_layers))
+    return cfg.num_layers
 
 
 def lm_params(cfg, seed):
@@ -3984,17 +4050,18 @@ def lm_params(cfg, seed):
         torch.Generator(device="cuda").manual_seed(seed))
 
 
-def lm_card_gate(seed: int, arch: str, layers: int = 0):
-    """Gate 1: ``arch``'s model (f32, ``layers`` deep) on the card
-    against the CPU from the same weights: prefill and decode logits
-    within ``LM_TOL`` of the largest |logit|, greedy tokens equal
-    wherever the CPU's top-2 gap exceeds that; both fed the card's
-    greedy tokens.  Returns (worst error over bound, seconds)."""
+def lm_card_gate(seed: int, arch: str, layers: int = 0, window: int = 0):
+    """Gate 1: ``arch``'s model (f32, ``layers`` deep, ``local_window``
+    replaced by ``window`` when given) on the card against the CPU from
+    the same weights: prefill and decode logits within ``LM_TOL`` of the
+    largest |logit|, greedy tokens equal wherever the CPU's top-2 gap
+    exceeds that; both fed the card's greedy tokens.  Returns (worst
+    error over bound, seconds)."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
     t0 = time.perf_counter()
-    cfg = lm_config(arch, False, layers)
+    cfg = lm_config(arch, False, layers, window)
     model = build_model(cfg)
     card = lm_params(cfg, seed)
     cpu = cpu_tree(card)
@@ -4012,7 +4079,8 @@ def lm_card_gate(seed: int, arch: str, layers: int = 0):
         top2 = want.topk(2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
         same = got.argmax(-1) == want.argmax(-1)
-        log(f"lm gate card vs cpu {arch} f32 {cfg.num_layers} layers "
+        log(f"lm gate card vs cpu {arch} f32 {cfg.num_layers} layers"
+            f"{f' window {window}' if window else ''} "
             f"{'prefill' if step == 0 else f'decode {step}'}: max |logit| "
             f"{float(want.abs().max()):.4f}, max_abs_err {err:.3e} (bound "
             f"{bound:.3e}), top-2 gap {float(gap.min()):.4e}, greedy "
@@ -4028,7 +4096,8 @@ def lm_card_gate(seed: int, arch: str, layers: int = 0):
             lc, cc = model.decode_step(cpu, tok, cc)
     del card, cpu, cg, cc
     seconds = time.perf_counter() - t0
-    log(f"lm gate card vs cpu {arch}: {seconds:.1f} s "
+    log(f"lm gate card vs cpu {arch}"
+        f"{f' window {window}' if window else ''}: {seconds:.1f} s "
         f"({cfg.param_count() / 1e9:.2f} B params on each side)")
     return worst, seconds
 
@@ -4076,7 +4145,8 @@ def lm_icq_gate(seed: int):
 def layer0_qkv(cfg, params, toks):
     """Layer 0's q, k, v of the prefill of ``toks`` (the shapes and
     types the model hands the flash kernel; MLA's per-head K and V
-    materialized as its card path does)."""
+    materialized as its card path does; the hybrid's first local layer,
+    on the embedded prompt)."""
     import torch
     from repro_torch.models import attention as attn
     from repro_torch.models import mla as mla_mod
@@ -4087,7 +4157,11 @@ def layer0_qkv(cfg, params, toks):
     if cfg.tie_embeddings:
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype,
                              device="cuda")
-    lp = _layer(params["seg0"], 0)
+    if cfg.hybrid:
+        first = cfg.block_pattern.index("local")
+        lp = _layer(params["groups"][f"b{first}"], 0)
+    else:
+        lp = _layer(params["seg0"], 0)
     h = _norm_apply(cfg, lp["norm1"], x)
     pos = torch.arange(toks.shape[1], device="cuda")
     if cfg.mla:
@@ -4095,14 +4169,24 @@ def layer0_qkv(cfg, params, toks):
     return attn.qkv_project(lp["attn"], h, cfg, pos)
 
 
-def sdpa_ms(q, k, v):
+def sdpa_ms(q, k, v, window=0):
     """The library yardstick: ``scaled_dot_product_attention``'s time at
-    the kernel's operands ((b, heads, s, width) views), or (None, its
-    refusal) where PyTorch does not take them."""
+    the kernel's operands ((b, heads, s, width) views; under ``window``
+    the causal band as a boolean ``attn_mask``), or (None, its refusal)
+    where PyTorch does not take them."""
+    import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    call = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+    if window:
+        sq, sk = q.shape[1], k.shape[1]
+        gap = (torch.arange(sq, device=q.device)[:, None]
+               - torch.arange(sk, device=q.device)[None, :])
+        band = (gap >= 0) & (gap < window)
+        call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+    else:
+        call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     try:
         call()
     except RuntimeError as e:
@@ -4119,28 +4203,38 @@ def lm_flash_at_cell(label, arch, cfg, params, toks):
     import torch
     from repro_torch.kernels import flash_attention as fa
     q, k, v = layer0_qkv(cfg, params, toks)
-    got = fa.flash_attention_cuda(q, k, v, causal=True)
-    want = fa.flash_attention_torch(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    tol = flash_tolerance(q.dtype)
-    err = float((got.float() - want.float()).abs().max())
-    ok = bool(torch.isclose(got.float(), want.float(), rtol=tol,
-                            atol=tol).all())
+    window = cfg.local_window if cfg.hybrid else 0
     b, s, H, dh = q.shape
     KVH, dv = k.shape[2], v.shape[-1]
     name = str(q.dtype).split(".")[-1]
-    shape = f"b={b} s={s} H={H} KVH={KVH} dh={dh} dv={dv}"
-    log(f"lm gate flash cell {label} {arch} layer 0 {shape} {name} "
-        f"({flash_body(q.dtype, dh, dv)}): max_abs_err {err} (tolerance "
-        f"{tol}): {'within' if ok else 'OUTSIDE'}")
-    check(ok, f"flash_attention kernel != plain version at cell {label}'s "
-              f"shape: max_abs_err {err}")
-    del want
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5)
-    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v), 2)
-    lib_ms, refused = sdpa_ms(q, k, v)
+    shape = (f"b={b} s={s} H={H} KVH={KVH} dh={dh} dv={dv}"
+             + (f" window={window}" if window else ""))
+    err = None
+    # the served type, and under a window also f32 at the same shape
+    for dt in (q.dtype,) + ((torch.float32,) if window else ()):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        got = fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window)
+        want = fa.flash_attention_torch(qd, kd, vd, causal=True,
+                                        window=window)
+        torch.cuda.synchronize()
+        tol = flash_tolerance(dt)
+        e = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                                atol=tol).all())
+        log(f"lm gate flash cell {label} {arch} layer 0 {shape} "
+            f"{str(dt).split('.')[-1]} ({flash_body(dt, dh, dv)}): "
+            f"max_abs_err {e} (tolerance {tol}): "
+            f"{'within' if ok else 'OUTSIDE'}")
+        check(ok, f"flash_attention kernel != plain version at cell "
+                  f"{label}'s shape ({dt}): max_abs_err {e}")
+        err = e if err is None else err
+        del got, want, qd, kd, vd
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window), 5)
+    plain_ms = time_ms(lambda: fa.flash_attention_torch(
+        q, k, v, window=window), 2)
+    lib_ms, refused = sdpa_ms(q, k, v, window)
     nbytes, nops = attention_work(b, s, s, H, KVH, dh, True,
-                                  q.element_size(), dv)
+                                  q.element_size(), dv, window)
     b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
                           if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
     lib = (f"library scaled_dot_product_attention {lib_ms:.4f} ms, kernel "
@@ -4175,7 +4269,7 @@ def mla_flash_f32_gate(seed: int):
     check(ok, f"f32 (192, 128) flash kernel != plain version: {err}")
 
 
-def moe_determinism_gate(cfg, params, toks, steps: int = 2):
+def determinism_gate(cfg, params, toks, steps: int = 2):
     """Gate 3: two prefills of the cell from the same inputs give bit for
     bit equal logits and caches, and ``steps`` decode steps from those
     equal caches bit for bit equal logits and caches."""
@@ -4196,13 +4290,13 @@ def moe_determinism_gate(cfg, params, toks, steps: int = 2):
         tok = d1[:, -1].argmax(-1).to(torch.int32)[:, None]
     same_cache.append(all(torch.equal(c1[g][n], c2[g][n]) for g, n in bufs))
     same_cache = all(same_cache)
-    log(f"lm gate moe determinism {cfg.name}: logits of 2 prefills and "
+    log(f"lm gate determinism {cfg.name}: logits of 2 prefills and "
         f"{steps} decode steps {'equal' if all(same) else same}, caches "
         f"({len(bufs)} buffers) {'equal' if same_cache else 'DIFFERENT'} "
         "bit for bit")
     check(all(same) and same_cache,
-          f"moe: two runs from the same inputs differ ({same}, caches "
-          f"{same_cache})")
+          f"{cfg.name}: two runs from the same inputs differ ({same}, "
+          f"caches {same_cache})")
 
 
 def moe_oracle_gate(cfg, params, seed: int):
@@ -4239,12 +4333,47 @@ def moe_oracle_gate(cfg, params, seed: int):
                         f"{bound}")
 
 
+# the SSM's and the RG-LRU's pieces that ``profile_lm`` times as ranges:
+# (module of repro_torch.models, function)
+LM_PIECES = (("ssm", "ssd_chunked"), ("nn", "causal_conv"),
+             ("ssm", "ssm_decode_step"), ("rglru", "_linear_scan"),
+             ("rglru", "_gates"), ("rglru", "rglru_decode_step"))
+
+
+class PieceRanges:
+    """While entered, each ``LM_PIECES`` function runs inside a
+    ``record_function`` range named ``module.function`` (the module
+    attribute is swapped, so the port's code carries no annotation);
+    ``labels`` holds the names."""
+
+    def __enter__(self):
+        import importlib
+        from torch.profiler import record_function
+        self.saved, self.labels = [], set()
+        for mod_name, fn_name in LM_PIECES:
+            mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+            fn, label = getattr(mod, fn_name), f"{mod_name}.{fn_name}"
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                with record_function(_label):
+                    return _fn(*a, **kw)
+            self.saved.append((mod, fn_name, fn))
+            self.labels.add(label)
+            setattr(mod, fn_name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
 def profile_lm(label, cfg, params, toks, steps, out_dir):
     """With ``--profile``: ``torch.profiler`` over one prefill and 4
     decode steps of a cell (after its counted window): wall time (host
     clock, profiler on), device busy time, the device's idle share,
-    kernel launches, the ops by device and by host time; a Chrome trace
-    to ``<out_dir>/profile_lm_<label>.json``."""
+    kernel launches, the ops by device and by host time, the SSM's and
+    RG-LRU's pieces (``LM_PIECES``) as ranges; a Chrome trace to
+    ``<out_dir>/profile_lm_<label>.json``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4256,8 +4385,8 @@ def profile_lm(label, cfg, params, toks, steps, out_dir):
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     for what, reps in (("prefill", 1), ("decode", 4)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with PieceRanges() as ranges, profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 if what == "prefill":
@@ -4267,7 +4396,19 @@ def profile_lm(label, cfg, params, toks, steps, out_dir):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges.labels]
+        for e in prof.key_averages():
+            if e.key in ranges.labels:
+                side = ("device span" if e.device_type == DeviceType.CUDA
+                        else "host")
+                total = (getattr(e, "device_time_total", None)
+                         or getattr(e, "cuda_time_total", 0.0)
+                         if side == "device span" else e.cpu_time_total)
+                per = "prefill" if what == "prefill" else "step"
+                log(f"profile lm cell {label} {what} range {e.key} "
+                    f"({side}): {e.count / reps:.1f} calls and "
+                    f"{total / 1e3 / reps:.3f} ms a {per}")
         busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
         launches = sum(e.count for e in kernels) / reps
         log(f"profile lm cell {label} {what}: {wall_ms:.3f} ms a call "
@@ -4287,13 +4428,17 @@ def lm_serving(seed: int, card: str, profile_dir=None):
     """Phase 14: the LMs served through ``launch.serve.serve_lm`` (the
     CLI's path) on the card at full width, cells ``LM_CELLS`` (A also
     through the ICQ-KV decode), one after the other, each freed before
-    the next, with the gates: 1 card against CPU per arch, 2 the flash
-    kernel at every cell's layer-0 shape (and the f32 (192, 128) body),
-    3 and 4 (MoE determinism and the dispatch against its oracle) at
-    cell C, the ICQ-KV top_c = S check, and the launch counts.  With
-    ``profile_dir``, ``profile_lm`` of each cell.  Returns (the served
-    cells' launches, the flash kernel's records at cell B's shape and at
-    cell D's (the (192, 128) instance, with cell D's launches))."""
+    the next, with the gates: 1 card against CPU per arch (the hybrid
+    also at a window of 32), 2 the flash kernel at every attention
+    cell's layer-0 shape (the f32 (192, 128) body; at cell F the
+    windowed kernel in bf16 and f32), 3 two runs bit for bit at cells C
+    (MoE) and E (SSM), 4 the dispatch against its oracle at cell C, the
+    ICQ-KV top_c = S check, and the launch counts (one flash launch an
+    attention layer a prefill, none at cell E, none a decode step).
+    With ``profile_dir``, ``profile_lm`` of each cell.  Returns (the
+    served cells' launches, the flash kernel's records at cell B's
+    shape, at cell D's (the (192, 128) instance) and at cell F's (the
+    window), each of the latter with its cell's launches))."""
     import gc
     import numpy as np
     import torch
@@ -4305,8 +4450,8 @@ def lm_serving(seed: int, card: str, profile_dir=None):
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matrix products are on")
     t0 = time.perf_counter()
-    for arch, layers in LM_GATE_ARCHS:
-        lm_card_gate(seed, arch, layers)
+    for arch, layers, window in LM_GATE_ARCHS:
+        lm_card_gate(seed, arch, layers, window)
         gc.collect()
         torch.cuda.empty_cache()
     lm_icq_gate(seed)
@@ -4327,15 +4472,16 @@ def lm_serving(seed: int, card: str, profile_dir=None):
                        device="cuda", seed=seed, icq_kv=label == "A",
                        params=params, verbose=False)
         launches = read_launches()
+        n_attn = attention_layers(cfg)
         want = {k: 0 for k in launches}
-        want["flash_attention"] = 2 * cfg.num_layers   # warm + timed
+        want["flash_attention"] = 2 * n_attn   # warm + timed
         log(f"lm cell {label} launches {launches} (prefill "
             f"{out['launches']['prefill']}, decode "
             f"{out['launches']['decode']})")
         check(launches == want and out["launches"] == dict(
-            prefill=cfg.num_layers, decode=0),
+            prefill=n_attn, decode=0),
             f"lm cell {label}: launches {launches} / {out['launches']}, "
-            f"want {cfg.num_layers} flash a prefill and none a decode step")
+            f"want {n_attn} flash a prefill and none a decode step")
         for k in total:
             total[k] += launches[k]
         lg, toks = out["logits"], out["tokens"]
@@ -4378,10 +4524,13 @@ def lm_serving(seed: int, card: str, profile_dir=None):
         del out, lg
         toks0 = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                      (b, s), dtype=np.int32)
-        rec = lm_flash_at_cell(label, arch, cfg, params, toks0)
+        rec = (lm_flash_at_cell(label, arch, cfg, params, toks0) if n_attn
+               else None)
         if label == "C":
-            moe_determinism_gate(cfg, params, toks0)
+            determinism_gate(cfg, params, toks0)
             moe_oracle_gate(cfg, params, seed)
+        if label == "E":
+            determinism_gate(cfg, params, toks0)
         if profile_dir:
             profile_lm(label, cfg, params, toks0, steps, profile_dir)
         if label == "B":
@@ -4390,6 +4539,10 @@ def lm_serving(seed: int, card: str, profile_dir=None):
             records["flash_attention_mla"] = dict(
                 rec, name="flash_attention (192, 128)",
                 launches=launches["flash_attention"])
+        if label == "F":
+            records["flash_attention_window"] = dict(
+                rec, name="flash_attention (window 2048)",
+                launches=launches["flash_attention"])
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4397,8 +4550,8 @@ def lm_serving(seed: int, card: str, profile_dir=None):
             f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB left "
             "allocated after it")
     log(f"phase 14 ran {time.perf_counter() - t0:.1f} s; the "
-        "flash_attention records are cell B's and cell D's served prefill "
-        "shapes")
+        "flash_attention records are cell B's, cell D's and cell F's "
+        "served prefill shapes")
     return total, records
 
 
@@ -4555,7 +4708,8 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [records[k] for k in (
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
         "kmeans_assign", "icm_encode", "adc", "two_step",
-        "flash_attention")] + [lm_records["flash_attention_mla"]]}))
+        "flash_attention")] + [lm_records["flash_attention_mla"],
+                               lm_records["flash_attention_window"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

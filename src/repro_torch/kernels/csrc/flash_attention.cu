@@ -13,14 +13,22 @@
 // in f32:
 //   s    = (q . k^T in f32) * scale            scale = dqk ** -0.5
 //   s    = NEG_INF = -1e30 where causal and q_pos < k_pos (top-left
-//          aligned, both counted from 0, also when sq != sk)
+//          aligned, both counted from 0, also when sq != sk), and where
+//          window > 0 and q_pos - k_pos >= window (the sliding band of
+//          the hybrid's local layers; window 0 = none)
 //   m'   = max(m, max_j s);  corr = exp(m - m');  p = exp(s - m')
 //   l    = l * corr + sum_j p                  (p unrounded)
 //   o    = o * corr + (p cast to v's type) . v     (f32 sums)
 // and out = o / max(l, 1e-30) cast to v's type.  Key tiles wholly above
-// the diagonal are skipped; key rows past sk (the ragged last tile) get
-// s = -inf and contribute exactly 0.  The finite NEG_INF keeps a row
-// that sees only masked keys in a tile free of NaN, as in the reference.
+// the diagonal are skipped, and so are those wholly left of the band: a
+// block's key loop starts at the tile holding q0 - window + 1, the first
+// key its first row keeps (a windowed call needs sq <= sk, so that every
+// row keeps at least its own position).  Key rows past sk (the ragged
+// last tile) get s = -inf and contribute exactly 0.  The finite NEG_INF
+// keeps a row that sees only masked keys in a tile free of NaN, as in the
+// reference; under a window a row may see only masked keys in the first
+// tiles of its block, and its first unmasked tile's correction
+// exp(NEG_INF - m) = 0 clears what they added.
 //
 // What bounds it on this card: operations.  Causal attention at s = 4096
 // does 2 (dqk + dv) H s (s + 1) / 2 operations: 0.55e12 for
@@ -28,7 +36,10 @@
 // tensor cores) and 0.07e12 for tinyllama's 32 heads of 64 (0.07 ms in
 // bf16, 1.0 ms at the 67 TFLOP/s of f32 FMAs), against 0.3 GB and 0.08 GB
 // of q, k, v and out; DeepSeek-V2's 128 MLA heads at s = 2048 do 0.17e12
-// (0.17 ms) against 0.34 GB (0.10 ms).
+// (0.17 ms) against 0.34 GB (0.10 ms).  A window of W keeps at most W
+// keys a row: recurrentgemma-9b's local layers (16 heads of 256, one KV
+// head, W = 2048) at s = 4096 do 2 (dqk + dv) H (W (W + 1) / 2 + (s - W)
+// W) = 0.10e12 operations (0.10 ms) against 71 MB (0.02 ms).
 //
 // Two bodies, chosen by the type; no runtime fallback between them.
 //
@@ -165,7 +176,7 @@ template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-             int H, int KVH, float scale, bool causal) {
+             int H, int KVH, float scale, bool causal, int window) {
   using G = Geometry<DQK, DV>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // kBQ x kLd
@@ -183,9 +194,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* k_head = k + long(b) * sk * k_stride + long(kvh) * DQK;
   const T* v_head = v + long(b) * sk * v_stride + long(kvh) * DV;
 
-  // key tiles up to the one holding the tile's last row's own position
+  // key tiles up to the one holding the tile's last row's own position,
+  // from the one holding the first key of the first row's band
   int n_kt = (sk + kBKey - 1) / kBKey;
   if (causal) n_kt = min(n_kt, (min(q0 + kBQ, sq) - 1) / kBKey + 1);
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBKey : 0;
 
   float o[4][DV / 16], m_run[4], l_run[4];
 #pragma unroll
@@ -197,7 +210,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   stage<T, DQK, G::kLd>(qs, q_head, q0, sq, q_stride);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBKey;
     stage<T, DQK, G::kLd>(kvs, k_head, k0, sk, k_stride);
     __syncthreads();
@@ -240,7 +253,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = __fmul_rn(s[i][j], scale);
         if (kpos >= sk)
           x = -CUDART_INF_F;
-        else if (causal && qpos < kpos)
+        else if ((causal && qpos < kpos) ||
+                 (window > 0 && qpos - kpos >= window))
           x = kNegInf;
         s[i][j] = x;
         mt = fmaxf(mt, x);
@@ -327,7 +341,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int sk, int H, int KVH, float scale, bool causal,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
   auto kernel = flash_kernel<T, DQK, DV>;
   const size_t smem = Geometry<DQK, DV>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
@@ -337,7 +351,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, H, KVH, scale,
-      causal);
+      causal, window);
   return int(cudaGetLastError());
 }
 
@@ -458,7 +472,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int sq, int sk, int H,
-                 int KVH, float scale, bool causal) {
+                 int KVH, float scale, bool causal, int window) {
   using G = MmaGeometry<DQK, DV>;
   constexpr int kBK = G::kBK, kLdK = G::kLdK, kLdV = G::kLdV;
   constexpr int kKS = DQK / 16;   // k-steps of S = Q . K^T
@@ -485,9 +499,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* v_head =
       v + long(b) * sk * v_stride + long(kvh) * DV;
 
-  // key tiles up to the one holding the tile's last row's own position
+  // key tiles up to the one holding the tile's last row's own position,
+  // from the one holding the first key of the first row's band
   int n_kt = (sk + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (min(q0 + kMmaBQ, sq) - 1) / kBK + 1);
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   // per-lane ldmatrix offsets (elements): Q as A (rows lane % 16, column
   // half lane / 16); K as B of two 8-key tiles (keys lane & 7 and + 8
@@ -504,9 +520,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t v_a = smem_addr(v_sm) + 2 * v_off;
 
   load_tile_async<DQK, kLdK, kMmaBQ>(q_sm, q_head, q0, sq, q_stride);
-  load_tile_async<DQK, kLdK, kBK>(k_sm, k_head, 0, sk, k_stride);
+  load_tile_async<DQK, kLdK, kBK>(k_sm, k_head, kt0 * kBK, sk, k_stride);
   cp_async_commit();
-  load_tile_async<DV, kLdV, kBK>(v_sm, v_head, 0, sk, v_stride);
+  load_tile_async<DV, kLdV, kBK>(v_sm, v_head, kt0 * kBK, sk, v_stride);
   cp_async_commit();
 
   uint32_t qf[G::kQInRegs ? kKS : 1][4];
@@ -528,9 +544,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run[2] = {kNegInf, kNegInf};
   float l_run[2] = {0.0f, 0.0f};      // this lane's share of the row sum
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    const int st = kt & 1;
+    const int st = (kt - kt0) & 1;   // tile kt0 sits in stage 0
     if (kt + 1 < n_kt)
       load_tile_async<DQK, kLdK, kBK>(k_sm + (st ^ 1) * G::kTileK, k_head,
                                       k0 + kBK, sk, k_stride);
@@ -564,8 +580,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // scale, mask and the online softmax on the accumulator fragments:
     // element e of column tile nt is row rows[e / 2], key
-    // k0 + 8 nt + 2 t + e % 2
-    const bool mask = k0 + kBK > sk || (causal && k0 + kBK - 1 > row_w);
+    // k0 + 8 nt + 2 t + e % 2.  The tile needs a mask where it runs past
+    // sk, past the warp's first row's diagonal, or (under a window) left
+    // of the warp's last row's band
+    const bool mask = k0 + kBK > sk || (causal && k0 + kBK - 1 > row_w) ||
+                      (window > 0 && row_w + 15 - k0 >= window);
     float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
@@ -574,9 +593,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         float x = s[nt][e] * sl2;
         if (mask) {
           const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const int row = rows[e >> 1];
           if (key >= sk)
             x = -CUDART_INF_F;
-          else if (causal && rows[e >> 1] < key)
+          else if ((causal && row < key) ||
+                   (window > 0 && row - key >= window))
             x = kNegInf;
         }
         s[nt][e] = x;
@@ -654,7 +675,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int b, int sq, int sk, int H, int KVH, float scale,
-               bool causal, cudaStream_t stream) {
+               bool causal, int window, cudaStream_t stream) {
   auto kernel = flash_mma_kernel<DQK, DV>;
   const size_t smem = MmaGeometry<DQK, DV>::kSmem;
   const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
@@ -668,7 +689,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), sq, sk, H, KVH, scale, causal);
+      static_cast<__nv_bfloat16*>(out), sq, sk, H, KVH, scale, causal,
+      window);
   return int(cudaGetLastError());
 }
 
@@ -677,13 +699,13 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 template <int DQK, int DV>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* out, int b, int sq, int sk, int H, int KVH,
-                 float scale, bool causal, cudaStream_t s) {
+                 float scale, bool causal, int window, cudaStream_t s) {
   if (dtype == 0)
     return launch<float, DQK, DV>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                                  causal, s);
+                                  causal, window, s);
   if (dtype == 1)
     return launch_mma<DQK, DV>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                               causal, s);
+                               causal, window, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -707,14 +729,15 @@ extern "C" {
 // H, dv), all of one type: dtype 0 = f32 (FMA body), 1 = bf16
 // (tensor-core body); every pointer 16-byte aligned.  (dqk, dv) in
 // {(32, 32), (64, 64), (128, 128), (256, 256), (192, 128)}, H a multiple
-// of KVH, b and H at most 65535.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another shape or type.
+// of KVH, b and H at most 65535; window >= 0 (0 = no band), and sq <= sk
+// when window > 0.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for another shape or type.
 int icq_flash_attention(const void* q, const void* k, const void* v,
                         void* out, int dtype, int b, int sq, int sk, int H,
                         int KVH, int dqk, int dv, float scale, int causal,
-                        void* stream) {
+                        int window, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KVH < 1 || H % KVH != 0 ||
-      b > 65535 || H > 65535)
+      b > 65535 || H > 65535 || window < 0 || (window > 0 && sq > sk))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
@@ -722,7 +745,7 @@ int icq_flash_attention(const void* q, const void* k, const void* v,
 #define ICQ_FLASH_CASE(DQK, DV)                                          \
   case pair(DQK, DV):                                                    \
     return launch_dtype<DQK, DV>(dtype, q, k, v, out, b, sq, sk, H, KVH, \
-                                 scale, c, s);
+                                 scale, c, window, s);
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)

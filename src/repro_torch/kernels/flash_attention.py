@@ -11,12 +11,16 @@ width, as in DeepSeek-V2's MLA prefill (192 = 128 nope + 64 rope, v
 128), which the reference's ``full_attention`` serves with one einsum.
 Scores are ``(q . k^T in f32) * dqk ** -0.5``; under ``causal`` the mask
 is the reference's finite ``NEG_INF`` where ``q_pos < k_pos``, top-left
-aligned (both counted from 0, also when sq != sk); the softmax weights
+aligned (both counted from 0, also when sq != sk), and with ``window`` >
+0 also where ``q_pos - k_pos >= window`` (the reference's sliding band,
+``models/attention.py``: recurrentgemma's local layers; a windowed call
+needs sq <= sk, so that every row keeps a key); the softmax weights
 are cast to v's type before the P . V product (f32 sums), and the output
 is ``o / max(l, 1e-30)``.  The kernel keeps a running max and sum over
-key tiles and skips tiles above the diagonal; the plain version takes
-each head's full softmax at once.  They agree to rounding: 2e-5 in f32
-and 2e-2 in bf16, the reference's own tolerances.
+key tiles and skips tiles above the diagonal and left of the band; the
+plain version takes each head's full softmax at once.  They agree to
+rounding: 2e-5 in f32 and 2e-2 in bf16, the reference's own
+tolerances.
 
 The kernel compiles the (dqk, dv) pairs of ``HEAD_DIMS``, each in both
 bodies; another pair raises a ``ValueError``.  The type picks the body
@@ -49,7 +53,8 @@ def _compiled(dqk: int, dv: int):
             f"takes dh in {square} with dv = dqk, or (dqk, dv) in {other}")
 
 
-def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            window: int = 0):
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError(f"q, k and v must be 4-d (b, s, heads, dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -62,27 +67,38 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         raise ValueError(f"k must be (b={b}, sk, KVH, dqk={dqk}) and v (b, "
                          f"sk, KVH, dv) with H={H} a multiple of KVH, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if window < 0 or (window > 0 and sq > sk):
+        raise ValueError(f"window must be >= 0, and a windowed call needs sq "
+                         f"<= sk; got window={window}, sq={sq}, sk={sk}")
     return b, sq, sk, H, KVH, dqk, dv
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, causal: bool = True):
-    """Plain version (the reference's oracle ``flash_attention_ref``),
-    one (b, head) at a time so that only one (sq, sk) score matrix is
-    alive: the full f32 softmax, p cast to v's type before P . V, the
-    row sum applied after the product, as the kernel does."""
-    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v)
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: int = 0):
+    """Plain version (the reference's oracle ``flash_attention_ref``,
+    with the reference's band mask under ``window``), one (b, head) at a
+    time so that only one (sq, sk) score matrix is alive: the full f32
+    softmax, p cast to v's type before P . V, the row sum applied after
+    the product, as the kernel does."""
+    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, window)
     g = H // KVH
     scale = dqk ** -0.5
     out = torch.empty((b, sq, H, dv), dtype=v.dtype, device=q.device)
-    visible = (torch.arange(sq, device=q.device)[:, None]
-               >= torch.arange(sk, device=q.device)[None, :])
+    gap = (torch.arange(sq, device=q.device)[:, None]
+           - torch.arange(sk, device=q.device)[None, :])   # q_pos - k_pos
+    visible = torch.ones_like(gap, dtype=torch.bool)
+    if causal:
+        visible &= gap >= 0
+    if window:
+        visible &= gap < window
+    masked = causal or bool(window)
     with full_f32_matmul():
         for bi in range(b):
             for h in range(H):
                 s = (q[bi, :, h].float() @ k[bi, :, h // g].float().T) \
                     * scale
-                if causal:
+                if masked:
                     s = torch.where(visible, s, torch.full_like(s, NEG_INF))
                 p = torch.exp(s - s.max(dim=1, keepdim=True).values)
                 l = p.sum(dim=1, keepdim=True)
@@ -92,10 +108,11 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, *, causal: bool = True):
+                         v: torch.Tensor, *, causal: bool = True,
+                         window: int = 0):
     """Launch the flash attention kernel; same operands and output as
     ``flash_attention_torch``."""
-    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v)
+    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not (t.is_cuda and t.device == q.device and t.dtype == v.dtype
                 and t.dtype in DTYPES and t.is_contiguous()
@@ -114,7 +131,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dv, dqk ** -0.5,
-        int(causal), ctypes.c_void_p(stream))
+        int(causal), int(window), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{lib.icq_error_string(err).decode()}")

@@ -505,6 +505,11 @@ def main(argv=None):
                     help="with --ann: after the timed batches, add N new "
                          "vectors to the served index and serve once more")
     ap.add_argument("--ann-queries", type=int, default=64)
+    ap.add_argument("--ann-backend", default=None,
+                    choices=["auto", "jnp", "pallas"],
+                    help="override serve.backend (auto and pallas: the CUDA "
+                         "kernels on the card; jnp: the plain versions, "
+                         "which only the CPU serves)")
     ap.add_argument("--ann-shards", type=int, default=1, metavar="N",
                     help="serve the index sharded over an N-way data mesh "
                          "(on the card's devices, or on --device)")
@@ -560,6 +565,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     overrides = {k: v for k, v in {
+        "serve.backend": args.ann_backend,
         "index.kind": args.ann_index,
         "index.n_lists": args.ann_lists,
         "index.n_probe": args.ann_probe,

@@ -1,0 +1,173 @@
+"""Training command of the port (twin of ``repro.launch.train``): the
+retrieval pipeline (``--icq``) on the card, or on the CPU with
+``--device cpu``.
+
+``--icq`` trains the joint quantizer through the front door
+(``repro_torch.api.icq_session``) on a synthetic Table-1 dataset,
+optionally data-parallel over ``--icq-shards`` mesh positions, then
+builds the serving index, grows it with held-out rows through
+``Searcher.add``, serves a query batch and the held-out rows' own
+queries (their self-recall), and with ``--save-artifacts`` saves the
+model and index as one artifact directory, which either package's
+``load_ann_engine`` serves:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --icq --icq-epochs 4
+    PYTHONPATH=src python -m repro_torch.launch.train --icq --icq-shards 4
+    PYTHONPATH=src python -m repro_torch.launch.train --icq --device cpu \\
+        --icq-n 1000 --icq-epochs 1 --save-artifacts /path/run0
+
+The LM half (``--arch``: the train step, token pipeline and
+checkpointed supervision) waits for ROADMAP item 22 (LM training) and
+exits with a one-line error naming it.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+_LM_TRAINING = "item 22 (LM training)"
+
+
+def icq_config_from_args(args):
+    """The run's ``repro_torch.api.ICQConfig``: ``--config path.json``
+    (validated, schema-versioned) or the CLI default, with the legacy
+    flags applied as dotted overrides; a flag left at its ``None``
+    default defers to the config."""
+    from repro_torch.api import ICQConfig, ServeConfig, TrainConfig
+
+    if args.config is not None:
+        cfg = ICQConfig.load(args.config)
+    else:                       # the historical CLI defaults
+        cfg = ICQConfig(
+            train=TrainConfig(codebook_size=64, epochs=3, batch_size=256),
+            serve=ServeConfig(topk=20, backend="jnp"))
+    overrides = {}
+    if args.icq_epochs is not None:
+        overrides["train.epochs"] = args.icq_epochs
+    if args.icq_batch is not None:
+        overrides["train.batch_size"] = args.icq_batch
+    if args.icq_index is not None:
+        overrides["index.kind"] = args.icq_index
+    return cfg.with_overrides(overrides)
+
+
+def run_icq(args):
+    """Train -> index -> add -> query -> (save): the retrieval pipeline
+    through the front door, on ``args.device`` (the card unless it names
+    the CPU).  On the card the CLI's default ``serve.backend = "jnp"``
+    (the plain versions, which the card refuses) becomes ``"auto"`` (the
+    CUDA kernels), with a line saying so; a ``--config`` naming
+    ``"jnp"`` still raises there."""
+    import torch
+
+    from repro_torch.api import icq_session
+    from repro_torch.data import make_table1_dataset
+    from repro_torch.index.base import recall_at, resolve_device
+
+    device = resolve_device(args.device)
+    cfg = icq_config_from_args(args)
+    if device.type == "cuda" and args.config is None:
+        cfg = cfg.with_overrides({"serve.backend": "auto"})
+        print("icq: serve.backend jnp (the CLI default) -> auto on the "
+              "card: the CUDA kernels serve (the saved config hash is "
+              "not the reference CLI's)")
+    xtr, ytr, xte, yte = make_table1_dataset(args.icq_dataset)
+    xtr, ytr = xtr[: args.icq_n], ytr[: args.icq_n]
+    n_held = max(args.icq_add, 1)
+    x_held, xtr = xtr[-n_held:], xtr[:-n_held]       # rows added post-build
+    ytr = ytr[:-n_held]
+
+    mesh = None
+    if args.icq_shards > 1:
+        # N positions over the visible cards (or the CPU), each device
+        # repeated over a block of positions when there are fewer
+        from repro_torch.distributed.sharding import make_mesh_auto
+        mesh = make_mesh_auto((args.icq_shards,), ("data",),
+                              devices=None if device.type == "cuda"
+                              else device)
+
+    session = icq_session(cfg, device=device)
+    t0 = time.time()
+    model = session.fit(xtr, ytr, seed=args.seed, mesh=mesh, verbose=True)
+    print(f"icq: fit n={xtr.shape[0]} epochs={cfg.train.epochs} "
+          f"shards={args.icq_shards} in {time.time() - t0:.1f}s; "
+          f"psi={int(model.structure.xi.sum())}/{cfg.train.d} "
+          f"fast={int(model.structure.fast_mask.sum())}"
+          f"/{cfg.train.num_codebooks}")
+
+    searcher = session.index(mesh=mesh, seed=args.seed + 1)
+    n0 = searcher.n
+    searcher.add(x_held)                             # incremental build
+    res = searcher.search(xte[:64])
+    # the held-out rows must be findable: query with themselves
+    n_self = min(n_held, 16)
+    self_res = searcher.search(x_held[:n_self])
+    self_ids = torch.arange(n0, n0 + n_self,
+                            device=self_res.indices.device)[:, None]
+    hit = float(recall_at(self_res.indices, self_ids))
+    print(f"icq: index={cfg.index.kind} grown {n0} -> {searcher.n}; "
+          f"query batch ok (pass_rate={float(res.pass_rate):.3f}); "
+          f"added-row self-recall@{cfg.serve.topk}={hit:.3f}")
+
+    if args.save_artifacts:
+        path = searcher.save(args.save_artifacts)
+        print(f"icq: artifacts (config hash "
+              f"{cfg.config_hash()[:12]}) -> {path}; reload with "
+              "launch/serve.py --load-artifacts or "
+              "repro_torch.api.load_ann_engine")
+    return searcher
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None,
+                    help="train this LM (waits for ROADMAP "
+                         f"{_LM_TRAINING})")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config of the arch family")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--icq", action="store_true",
+                    help="run the retrieval trainer pipeline (no LM): "
+                         "fit -> index -> add -> query")
+    ap.add_argument("--config", default=None,
+                    help="ICQConfig JSON driving the --icq run; the --icq-* "
+                         "flags below override individual fields")
+    ap.add_argument("--save-artifacts", default=None, metavar="DIR",
+                    help="after the --icq run, save config + model + index "
+                         "(repro_torch.api.Artifacts); reload with "
+                         "launch/serve.py --load-artifacts DIR")
+    ap.add_argument("--icq-dataset", default="dataset2")
+    ap.add_argument("--icq-n", type=int, default=4000)
+    ap.add_argument("--icq-epochs", type=int, default=None,
+                    help="override train.epochs (config default: 3)")
+    ap.add_argument("--icq-batch", type=int, default=None,
+                    help="override train.batch_size (config default: 256)")
+    ap.add_argument("--icq-shards", type=int, default=1,
+                    help="data-parallel training/serving mesh size")
+    ap.add_argument("--icq-index", default=None,
+                    choices=["flat", "two-step", "ivf"],
+                    help="override index.kind (config default: two-step)")
+    ap.add_argument("--icq-add", type=int, default=64,
+                    help="held-out rows appended via Searcher.add after "
+                         "the build")
+    args = ap.parse_args(argv)
+
+    if args.icq:
+        run_icq(args)
+        return
+    if args.arch is None:
+        ap.error("--arch is required unless --icq is given")
+    raise SystemExit(f"--arch {args.arch}: LM training is not ported; it "
+                     f"waits for ROADMAP {_LM_TRAINING}")
+
+
+if __name__ == "__main__":
+    main()

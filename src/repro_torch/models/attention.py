@@ -5,17 +5,17 @@ attention and single-token decode against a KV cache.
 On the CPU each function is the plain twin of the reference's.  On a
 CUDA tensor the causal self-attention of ``full_attention``,
 ``chunked_attention`` and ``triangular_chunked_attention`` (query and
-key positions both counted from 0, no window, no padding mask) is
-exactly what the flash kernel computes, so there they launch
-``kernels.ops.flash_attention`` and nothing else.  v may be narrower
-than q and k (MLA's prefill: q/k 192, v 128; the output takes v's
-width); a (q/k, v) width pair the kernel does not compile (it compiles
-32, 64, 128 and 256 with v as wide, and (192, 128)) raises its
-``ValueError``, and a call the kernel does not cover (a window, a query
-offset, a key padding mask, a non-causal call) raises
-``NotImplementedError``.  ``decode_attention``
-is not a kernel in the reference either and stays plain PyTorch on both
-devices.  Cross attention waits for ROADMAP item 21.
+key positions both counted from 0, no padding mask, with or without a
+sliding window) is exactly what the flash kernel computes, so there
+they launch ``kernels.ops.flash_attention`` and nothing else.  v may be
+narrower than q and k (MLA's prefill: q/k 192, v 128; the output takes
+v's width); a (q/k, v) width pair the kernel does not compile (it
+compiles 32, 64, 128 and 256 with v as wide, and (192, 128)) raises its
+``ValueError``, and a call the kernel does not cover (a query offset, a
+key padding mask, a non-causal call) raises ``NotImplementedError``.
+``decode_attention`` is not a kernel in the reference either and stays
+plain PyTorch on both devices.  Cross attention waits for ROADMAP item
+21.
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ from repro_torch.models import nn
 
 NEG_INF = -1e30
 # what the card does not serve yet, by the ROADMAP item that brings it
-_ITEM = {"window": "item 20 (the hybrid's local attention)",
-         "non-causal": "item 21 (the encoder-decoder and the VLM)",
+_ITEM = {"non-causal": "item 21 (the encoder-decoder and the VLM)",
          "offset": "item 21 (the encoder-decoder and the VLM)"}
 
 
@@ -77,16 +76,16 @@ def _gqa_out(probs, v):
 
 def _flash(q, k, v, *, causal, window=0, q_offset=0, masked=False):
     """The card's attention: the flash kernel for causal self-attention
-    from position 0, a ``NotImplementedError`` naming its ROADMAP item
-    for any other call."""
-    for cond, what in ((window, "window"), (not causal, "non-causal"),
+    from position 0 (with the band mask under ``window``), a
+    ``NotImplementedError`` naming its ROADMAP item for any other call."""
+    for cond, what in ((not causal, "non-causal"),
                        (q_offset or masked, "offset")):
         if cond:
             raise NotImplementedError(
                 f"attention on the card serves causal self-attention from "
                 f"position 0 only (the flash kernel); a {what} call waits "
                 f"for ROADMAP {_ITEM[what]}")
-    return ops.flash_attention(q, k, v, causal=True)
+    return ops.flash_attention(q, k, v, causal=True, window=window)
 
 
 def chunked_attention(q, k, v, *, causal: bool, chunk: int,

@@ -110,6 +110,20 @@ def gated_act(kind: str, gate, up):
     raise ValueError(kind)
 
 
+# ------------------------------------------------------------- conv ----
+
+def causal_conv(x, w, b):
+    """Per-channel causal conv1d of the SSM and the RG-LRU blocks.
+    x:(b,l,c), w:(width,c): the shifted products summed in tap order,
+    then the bias (the reference's two ``_causal_conv``s)."""
+    width, l = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = pad[:, 0:l] * w[0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + l] * w[i]
+    return out + b
+
+
 # ------------------------------------------------------------- MLP ----
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,

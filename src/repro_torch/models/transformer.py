@@ -1,18 +1,24 @@
 """Model assembly of the decoder LMs (twin of ``repro.models.transformer``
 for the layer kinds ``"dense"`` (tinyllama, llama3, gemma, granite),
 ``"dense_first"`` and ``"moe"`` (moonshot), ``"mla_dense"`` and
-``"mla_moe"`` (deepseek-v2)).
+``"mla_moe"`` (deepseek-v2), ``"ssm"`` (mamba2) and the hybrid's
+``"rglru"`` and ``"local"`` (recurrentgemma)).
 
 Layers are *stacked* as in the reference: every leaf of a segment's
 params (``params["seg0"]``, ``["seg1"]``, one per run of one kind) has a
 leading layer axis, so the reference's params carry across leaf for leaf
-(``params_from_numpy``).  A Python loop over the layer index applies
-them.  The prefill's attention runs the flash kernel on the card
-(``models.attention``, ``models.mla``); the decode step writes its cache
-(K/V, or MLA's latent and rope key) in place (the reference donates the
-cache) at the position held by a 0-d device tensor, so a step does not
-synchronise the host.  Every matrix product runs in full f32 on the card
-(TF32 off, ``index.base.full_f32_matmul``).
+(``params_from_numpy``).  The hybrid keeps the reference's layout too:
+``params["groups"]["b{i}"]`` stacked over the ``num_layers //
+len(block_pattern)`` groups, ``params["tail{i}"]`` the leftover layers
+(the caches alike).  A Python loop over the layer index applies them.
+The prefill's attention runs the flash kernel on the card
+(``models.attention``, ``models.mla``; the local layers' with the
+sliding window); the decode step writes its cache (K/V, MLA's latent and
+rope key, the SSM's state and conv window, the RG-LRU's state, the local
+layers' ring of ``min(max_len, local_window)`` slots) in place (the
+reference donates the cache) at the position held by a 0-d device
+tensor, so a step does not synchronise the host.  Every matrix product
+runs in full f32 on the card (TF32 off, ``index.base.full_f32_matmul``).
 
 Entry points (``build_model``):
   init(generator)                       -> params
@@ -20,9 +26,8 @@ Entry points (``build_model``):
   prefill(params, batch, max_len)       -> (last-token logits, caches)
   decode_step(params, tokens, caches)   -> (logits, caches)
 
-The other layer kinds (ssm, rglru, local, enc, dec), ``train_forward``
-and a ``mesh`` raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+The other layer kinds (enc, dec), ``train_forward`` and a ``mesh`` raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -37,9 +42,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import nn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 
 # ROADMAP items of what this module does not build yet
-_SSM_HYBRID = "item 20 (SSM and the hybrid)"
 _ENCDEC_VLM = "item 21 (the encoder-decoder and the VLM)"
 _TRAIN = "item 22 (LM training)"
 _SHARDING = "item 23 (LM sharding and the dry run)"
@@ -47,10 +53,8 @@ _SHARDING = "item 23 (LM sharding and the dry run)"
 
 def unported_item(cfg) -> str:
     """The ROADMAP item that brings ``cfg``'s family, or "" for a
-    decoder-only arch of dense, MoE or MLA layers (what this module
-    serves)."""
-    if cfg.ssm or cfg.hybrid:
-        return _SSM_HYBRID
+    decoder-only arch of dense, MoE, MLA, SSM or hybrid layers (what this
+    module serves)."""
     if cfg.encdec or cfg.frontend != "none" or cfg.learned_pos_emb:
         return _ENCDEC_VLM
     return ""
@@ -71,7 +75,8 @@ def _layer(stacked, li: int):
 # per-layer init / apply, switched on ``kind``
 # =================================================================
 
-_KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe")
+_KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe", "ssm",
+          "rglru", "local")
 _MLA_KINDS = ("mla_dense", "mla_moe")
 _MOE_KINDS = ("moe", "mla_moe")
 
@@ -92,16 +97,21 @@ def _check_kind(kind: str):
     if kind not in _KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported; the port builds the "
-            f"decoder layer kinds {_KINDS} (ssm / rglru / local: ROADMAP "
-            f"{_SSM_HYBRID}; enc / dec: {_ENCDEC_VLM})")
+            f"decoder layer kinds {_KINDS} (enc / dec: ROADMAP "
+            f"{_ENCDEC_VLM})")
 
 
 def layer_init(generator: torch.Generator, cfg, dtype, kind: str):
     _check_kind(kind)
     dev = generator.device
+    if kind == "ssm":
+        return {"norm1": _norm_init(cfg, dtype, dev),
+                "mixer": ssm_mod.ssm_init(generator, cfg, dtype)}
     p = {"norm1": _norm_init(cfg, dtype, dev),
          "norm2": _norm_init(cfg, dtype, dev)}
-    if kind in _MLA_KINDS or (kind == "dense_first" and cfg.mla):
+    if kind == "rglru":
+        p["mixer"] = rglru_mod.rglru_init(generator, cfg, dtype)
+    elif kind in _MLA_KINDS or (kind == "dense_first" and cfg.mla):
         p["attn"] = mla_mod.mla_init(generator, cfg, dtype)
     else:
         p["attn"] = attn.attn_init(generator, cfg, dtype)
@@ -129,47 +139,84 @@ def layer_apply(p, x, cfg, positions, kind: str, *, enc_out=None,
                 attn_impl="chunked"):
     """Full-sequence layer.  Returns (x, aux)."""
     _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm_apply(cfg, p["norm1"], x)
-    if kind in _MLA_KINDS:
+    if kind == "ssm":
+        return x + ssm_mod.ssm_block_apply(p["mixer"], h, cfg), aux
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_block_apply(p["mixer"], h, cfg)
+    elif kind == "local":
+        x = x + attn.attention_apply(p["attn"], h, cfg, positions,
+                                     causal=True, window=cfg.local_window,
+                                     impl=attn_impl)
+    elif kind in _MLA_KINDS:
         x = x + mla_mod.mla_attention_apply(p["attn"], h, cfg, positions)
     else:
         x = x + attn.attention_apply(p["attn"], h, cfg, positions,
                                      causal=True, impl=attn_impl,
                                      rope=not cfg.learned_pos_emb)
-    y, aux = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    y, moe_aux = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
+    return x + y, aux if moe_aux is None else moe_aux
 
 
 def layer_init_cache(cfg, kind: str, batch: int, max_len: int, dtype,
                      device=None):
     _check_kind(kind)
     dt = nn.as_dtype(dtype)
+    if kind == "ssm":
+        return ssm_mod.ssm_init_cache(cfg, batch, dt, device)
+    if kind == "rglru":
+        return rglru_mod.rglru_init_cache(cfg, batch, dt, device)
     if kind in _MLA_KINDS:
         return {"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
                                       dtype=dt, device=device),
                 "k_rope": torch.zeros((batch, max_len,
                                        cfg.qk_rope_head_dim), dtype=dt,
                                       device=device)}
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    S = min(max_len, cfg.local_window) if kind == "local" else max_len
+    shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros(shape, dtype=dt, device=device),
+         "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == "local":        # the ring's absolute positions, -1 = empty
+        c["k_pos"] = torch.full((batch, S), -1, dtype=torch.int32,
+                                device=device)
+    return c
 
 
 def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
                   enc_out=None, attn_impl="chunked", cache=None):
-    """Layer forward that also fills its decode cache: K/V (or MLA's
-    latent and rope key) at positions [0, s) of ``cache`` (made with
-    ``layer_init_cache`` when None), zeros past them.  Returns (x,
-    cache)."""
+    """Layer forward that also fills its decode cache (made with
+    ``layer_init_cache`` when None): K/V (or MLA's latent and rope key)
+    at positions [0, s), zeros past them; a local layer's last min(s, W)
+    K/V at ring slots ``i % W`` with their positions; the SSM's and the
+    RG-LRU's final state and conv window.  Returns (x, cache)."""
     _check_kind(kind)
     b, s, _ = x.shape
     if cache is None:
         cache = layer_init_cache(cfg, kind, b, max(max_len, s), x.dtype,
                                  x.device)
     h = _norm_apply(cfg, p["norm1"], x)
-    if kind in _MLA_KINDS:
+    if kind == "ssm":
+        return x + ssm_mod.ssm_prefill(p["mixer"], h, cfg, cache), cache
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_prefill(p["mixer"], h, cfg, cache)
+    elif kind == "local":
+        q, k, v = attn.qkv_project(p["attn"], h, cfg, positions,
+                                   rope=not cfg.learned_pos_emb)
+        o = attn.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                   window=cfg.local_window)
+        # ring buffer: the token at absolute position i lives in slot i %
+        # W, so that the decode's writes at pos % W stay consistent
+        W = cache["k"].shape[1]
+        t = min(s, W)
+        slots = torch.arange(s - t, s, device=x.device) % W
+        cache["k"].index_copy_(1, slots, k[:, -t:].to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slots, v[:, -t:].to(cache["v"].dtype))
+        cache["k_pos"].index_copy_(
+            1, slots, positions[-t:].to(torch.int32)[None].expand(b, t))
+        x = x + o.reshape(b, s, cfg.num_heads * cfg.head_dim) \
+            @ p["attn"]["wo"]
+    elif kind in _MLA_KINDS:
         latent, k_rope = mla_mod.mla_prefill_latent(p["attn"], h, cfg,
                                                     positions)
         cache["latent"][:, :s] = latent
@@ -197,15 +244,34 @@ def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
 def layer_decode(p, x, cfg, cache, pos, kind: str):
     """One-token layer step.  x: (b,1,d); pos: the write index (a 0-d
     tensor on x's device, or an int).  Writes K/V (or the latent and
-    rope key) at ``pos`` of ``cache`` in place and returns (x,
-    cache)."""
+    rope key) at ``pos`` of ``cache`` (a local layer: at ring slot ``pos
+    % W``; the SSM and the RG-LRU: their state and conv window) in place
+    and returns (x, cache)."""
     _check_kind(kind)
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     h = _norm_apply(cfg, p["norm1"], x)
+    if kind == "ssm":
+        out, cache = ssm_mod.ssm_decode_step(p["mixer"], h, cache, cfg)
+        return x + out, cache
     positions = pos.reshape(1, 1).expand(b, 1)
     at = pos.long().reshape(1)
-    if kind in _MLA_KINDS:
+    if kind == "rglru":
+        out, cache = rglru_mod.rglru_decode_step(p["mixer"], h, cache, cfg)
+        x = x + out
+    elif kind == "local":
+        q, k, v = attn.qkv_project(p["attn"], h, cfg, positions,
+                                   rope=not cfg.learned_pos_emb)
+        kc, vc, kp = cache["k"], cache["v"], cache["k_pos"]
+        slot = at % kc.shape[1]
+        kc.index_copy_(1, slot, k.to(kc.dtype))
+        vc.index_copy_(1, slot, v.to(vc.dtype))
+        kp.index_copy_(1, slot, positions)
+        mask = (kp >= 0) & (kp > pos - cfg.local_window) & (kp <= pos)
+        o = attn.decode_attention(q, kc, vc, mask)
+        x = x + o.reshape(b, 1, cfg.num_heads * cfg.head_dim) \
+            @ p["attn"]["wo"]
+    elif kind in _MLA_KINDS:
         latent, k_rope = mla_mod.mla_prefill_latent(p["attn"], h, cfg,
                                                     positions)
         lat_c, kr_c = cache["latent"], cache["k_rope"]
@@ -304,7 +370,7 @@ def _layer_plan(cfg):
 
 
 def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
-    """The decoder LM of ``cfg`` (dense, MoE or MLA layers).
+    """The decoder LM of ``cfg`` (dense, MoE, MLA, SSM or hybrid layers).
     ``init(generator)`` draws the params on the generator's device (an
     int seeds a generator on ``device``, the card unless the caller
     names another); the other entry points run where the params are."""
@@ -315,13 +381,32 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     if item:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported; the port serves the "
-            f"decoder LMs of dense, MoE and MLA layers, and this family "
-            f"waits for ROADMAP {item}")
+            f"decoder LMs of dense, MoE, MLA, SSM and hybrid layers, and "
+            f"this family waits for ROADMAP {item}")
     dtype = nn.as_dtype(cfg.param_dtype)
     cdt = nn.as_dtype(cfg.compute_dtype)
     tied = cfg.tie_embeddings
     emb_scale = float(cfg.d_model) ** 0.5 if tied else 1.0
     plan = _layer_plan(cfg)
+    # the hybrid: groups of block_pattern, stacked over n_groups, then
+    # the leftover layers one by one (the reference's layout)
+    pattern = tuple(cfg.block_pattern) if cfg.hybrid else ()
+    n_groups = cfg.num_layers // len(pattern) if cfg.hybrid else 0
+    tail = pattern[: cfg.num_layers % len(pattern)] if cfg.hybrid else ()
+
+    def _walk(tree):
+        """(kind, layer view) of a params or caches tree, in the order
+        the layers apply."""
+        if cfg.hybrid:
+            for g in range(n_groups):
+                for i, kind in enumerate(pattern):
+                    yield kind, _layer(tree["groups"][f"b{i}"], g)
+            for i, kind in enumerate(tail):
+                yield kind, tree[f"tail{i}"]
+            return
+        for si, (kind, n) in enumerate(plan):
+            for li in range(n):
+                yield kind, _layer(tree[f"seg{si}"], li)
 
     def init(generator, *, device=None):
         if not isinstance(generator, torch.Generator):
@@ -335,6 +420,13 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         if not tied:
             params["head"] = nn.dense_init(generator, cfg.d_model,
                                            cfg.padded_vocab, dtype)
+        if cfg.hybrid:
+            params["groups"] = {
+                f"b{i}": _stacked_init(generator, cfg, dtype, kind, n_groups)
+                for i, kind in enumerate(pattern)}
+            for i, kind in enumerate(tail):
+                params[f"tail{i}"] = layer_init(generator, cfg, dtype, kind)
+            return params
         for si, (kind, n) in enumerate(plan):
             params[f"seg{si}"] = _stacked_init(generator, cfg, dtype, kind, n)
         return params
@@ -362,10 +454,20 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         dev = resolve_device(device)
         caches: Dict[str, Any] = {
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
-        for si, (kind, n) in enumerate(plan):
+
+        def stack(kind, n):
             one = layer_init_cache(cfg, kind, batch_size, max_len, dt, dev)
-            caches[f"seg{si}"] = _tree_map(
-                lambda a: a[None].repeat((n,) + (1,) * a.ndim), one)
+            return _tree_map(lambda a: a[None].repeat((n,) + (1,) * a.ndim),
+                             one)
+        if cfg.hybrid:
+            caches["groups"] = {f"b{i}": stack(kind, n_groups)
+                                for i, kind in enumerate(pattern)}
+            for i, kind in enumerate(tail):
+                caches[f"tail{i}"] = layer_init_cache(
+                    cfg, kind, batch_size, max_len, dt, dev)
+            return caches
+        for si, (kind, n) in enumerate(plan):
+            caches[f"seg{si}"] = stack(kind, n)
         return caches
 
     def prefill(params, batch, max_len: int):
@@ -376,12 +478,9 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             positions = torch.arange(s, device=dev)
             caches = init_cache(b, max(max_len, s), device=dev)
             caches["pos"].fill_(s)
-            for si, (kind, n) in enumerate(plan):
-                seg, cseg = params[f"seg{si}"], caches[f"seg{si}"]
-                for li in range(n):
-                    x, _ = layer_prefill(_layer(seg, li), x, cfg, positions,
-                                         kind, max_len, attn_impl=attn_impl,
-                                         cache=_layer(cseg, li))
+            for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
+                x, _ = layer_prefill(lp, x, cfg, positions, kind, max_len,
+                                     attn_impl=attn_impl, cache=lc)
             logits = _logits(params, x[:, -1:, :])
         return logits, caches
 
@@ -391,11 +490,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         pos = caches["pos"]
         with full_f32_matmul():
             x = _embed_tokens(params, tokens)
-            for si, (kind, n) in enumerate(plan):
-                seg, cseg = params[f"seg{si}"], caches[f"seg{si}"]
-                for li in range(n):
-                    x, _ = layer_decode(_layer(seg, li), x, cfg,
-                                        _layer(cseg, li), pos, kind)
+            for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
+                x, _ = layer_decode(lp, x, cfg, lc, pos, kind)
             logits = _logits(params, x)
         return logits, {**caches, "pos": pos + 1}
 

@@ -48,8 +48,9 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
     if not supports_icq_kv(cfg):
         item = unported_item(cfg)
         raise NotImplementedError(
-            f"ICQ-KV serves dense decoder-only archs (no MLA, no experts: "
-            f"the reference's gate); {cfg.name} ({cfg.family}) "
+            f"ICQ-KV serves dense decoder-only archs (supports_icq_kv, the "
+            f"reference's gate: no SSM, hybrid, encoder-decoder, MLA, "
+            f"experts or frontend); {cfg.name} ({cfg.family}) "
             + (f"waits for ROADMAP {item}" if item
                else "has no dense KV cache"))
     tied = cfg.tie_embeddings

@@ -269,6 +269,47 @@ def test_cuda_flash_attention_matches_plain_version(b, sq, sk, h, kvh, dh,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# (b, sq, sk, H, KVH, dh, window) of the sliding band, causal: a window
+# inside one tile, across tiles, of exactly a tile, wider than the
+# prompt (masks nothing), of one key (the diagonal), recurrentgemma's
+# MQA at dh 256 (32-key tiles in bf16), ragged lengths, sq < sk
+FLASH_WINDOW_CASES = [
+    (1, 300, 300, 4, 1, 32, 1),
+    (1, 1000, 1000, 4, 2, 64, 100),
+    (2, 256, 256, 8, 8, 128, 64),
+    (1, 777, 777, 16, 1, 256, 70),
+    (1, 200, 500, 4, 4, 128, 5000),
+    (1, 333, 1111, 4, 2, 64, 300),
+    (1, 129, 129, 2, 1, 256, 17),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,dh,window", FLASH_WINDOW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_window_matches_plain_version(
+        b, sq, sk, h, kvh, dh, window, dtype):
+    """The windowed kernel (band mask and the tiles left of the band
+    skipped) against its plain version, at 2e-5 (f32) and 2e-2 (bf16);
+    a windowed call with sq > sk raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(sq + sk + h + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).cuda()
+        for s in ((b, sq, h, dh), (b, sk, kvh, dh), (b, sk, kvh, dh)))
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_torch(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    short = q[:, :1, :kvh].contiguous()               # sk = 1 < sq
+    with pytest.raises(ValueError, match="sq <= sk"):
+        fa.flash_attention_cuda(q, short, short, window=window)
+
+
 # (b, sq, sk, H, KVH, causal) at MLA's widths: q/k 192 = 128 + 64, v 128
 MLA_FLASH_CASES = [
     (1, 257, 257, 8, 8, True),          # ragged against the tile, MHA
@@ -1477,10 +1518,15 @@ def test_cuda_prefill_refuses_an_uncompiled_head_width():
     toks = np.zeros((1, 8), np.int32)
     with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
         model.prefill(params, {"tokens": toks}, 8)
-    q = torch.zeros((1, 8, 4, 32), device="cuda")
-    k = torch.zeros((1, 8, 2, 32), device="cuda")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        attn.full_attention(q, k, k, causal=True, window=4)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 8, 4, 32), generator=g, device="cuda")
+    k = torch.randn((1, 8, 2, 32), generator=g, device="cuda")
+    # a window is served by the kernel now, equal to its plain version
+    from repro_torch.kernels import flash_attention as fa
+    torch.testing.assert_close(
+        attn.full_attention(q, k, k, causal=True, window=4),
+        fa.flash_attention_torch(q, k, k, causal=True, window=4),
+        rtol=2e-5, atol=2e-5)
     with pytest.raises(NotImplementedError, match="item 21"):
         attn.chunked_attention(q, k, k, causal=False, chunk=4)
 
@@ -1585,3 +1631,96 @@ def test_cuda_mla_refuses_uncompiled_widths():
     with pytest.raises(ValueError, match=r"\(dqk=24, dv=16\) are not "
                                          r"compiled"):
         model.prefill(params, {"tokens": np.zeros((1, 8), np.int32)}, 8)
+
+
+def _ssm_hybrid_lm(arch, bf16):
+    """A smoke config of the SSM or the hybrid whose attention width the
+    flash kernel compiles: the hybrid with heads of 32, five layers (two
+    groups of (rglru, local) and a tail), its window of 32."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import scale_config
+    cfg = smoke_config(arch)
+    if cfg.hybrid:
+        cfg = dataclasses.replace(cfg, head_dim=32, num_layers=5)
+    return scale_config(cfg) if bf16 else cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_ssm_hybrid_prefill_decode_equals_cpu(arch, bf16):
+    """The SSM's and the hybrid's prefill (a 72-token prompt: past the
+    window of 32, 9 SSD chunks; one windowed flash launch a local layer,
+    none for the SSM) and 4 decode steps (no flash launch, the ring
+    wrapping) on the card against the CPU from the same params: f32
+    within 1e-5, bf16 within 2^-5 of the largest logit and of every
+    cache buffer; greedy tokens equal where the CPU's top-2 gap exceeds
+    the bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    cfg = _ssm_hybrid_lm(arch, bf16)
+    n_local = sum(1 for i in range(cfg.num_layers) if cfg.hybrid and
+                  cfg.block_pattern[i % len(cfg.block_pattern)] == "local")
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = _to(cpu, "cuda")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 72),
+                                             dtype=np.int32)
+    tol = 2.0 ** -5 if bf16 else 1e-5
+    ops.LAUNCHES["flash_attention"] = 0
+    lg, cg = model.prefill(card, {"tokens": toks}, 80)
+    assert ops.LAUNCHES["flash_attention"] == n_local
+    lc, cc = model.prefill(cpu, {"tokens": toks}, 80)
+    for step in range(5):
+        want = lc[:, -1].float()
+        bound = tol * max(1.0, float(want.abs().max()))
+        assert float((lg[:, -1].float().cpu() - want).abs().max()) <= bound
+        top2 = want.topk(2, dim=-1).values
+        same = lg[:, -1].float().argmax(-1).cpu() == want.argmax(-1)
+        assert bool((same | (top2[:, 0] - top2[:, 1] <= bound)).all()), step
+        if step < 4:
+            tok = want.argmax(-1).to(torch.int32)[:, None]
+            lg, cg = model.decode_step(card, tok.cuda(), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+    assert ops.LAUNCHES["flash_attention"] == n_local
+
+    def close(got, want, where):
+        if isinstance(want, dict):
+            for key in want:
+                close(got[key], want[key], f"{where}/{key}")
+            return
+        if not want.is_floating_point():
+            assert torch.equal(got.cpu(), want), where
+            return
+        b = tol * max(1.0, float(want.float().abs().max()))
+        assert float((got.float().cpu() - want.float()).abs().max()) <= b, \
+            where
+    close(cg, cc, arch)
+
+
+@pytest.mark.gpu
+def test_cuda_ssm_is_deterministic():
+    """Two bf16 prefills of the SSM from the same inputs give bit for
+    bit equal logits and caches, and so do two decode steps from equal
+    caches (no atomics anywhere in the block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models import build_model
+    cfg = _ssm_hybrid_lm("mamba2-1.3b", True)
+    model = build_model(cfg)
+    params = model.init(0)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 64),
+                                             dtype=np.int32)
+    (l1, c1), (l2, c2) = (model.prefill(params, {"tokens": toks}, 72)
+                          for _ in range(2))
+    assert torch.equal(l1, l2)
+    for name in ("state", "conv"):
+        assert torch.equal(c1["seg0"][name], c2["seg0"][name])
+    tok = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
+    (d1, e1), (d2, e2) = (model.decode_step(params, tok, c)
+                          for c in (c1, c2))
+    assert torch.equal(d1, d2)
+    assert torch.equal(e1["seg0"]["state"], e2["seg0"]["state"])

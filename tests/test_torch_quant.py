@@ -277,9 +277,11 @@ def test_icq_decode_step_matches_reference(arch):
 
 
 def test_icq_decode_refuses_what_it_does_not_serve():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        port_serve_icq.build_icq_decode(configs.smoke_config("mamba2-1.3b"),
-                                        quant.ICQKVConfig())
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        with pytest.raises(NotImplementedError,
+                           match="supports_icq_kv.*has no dense KV cache"):
+            port_serve_icq.build_icq_decode(configs.smoke_config(arch),
+                                            quant.ICQKVConfig())
     with pytest.raises(NotImplementedError, match="item 23"):
         port_serve_icq.build_icq_decode(
             configs.smoke_config("gemma-7b"), quant.ICQKVConfig(),
