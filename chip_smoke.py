@@ -4,8 +4,8 @@ from this checkout, holds each against its plain PyTorch version on the
 card, then builds and serves the flat, two-step and IVF indexes at
 SIFT1M geometry through the port's own entry points (``build_index``,
 ``load_ann_engine``), trains, and serves two dense LMs, a MoE LM, an
-MLA + MoE LM, an SSM and a hybrid at full width (``serve_lm``), and
-checks what comes out.
+MLA + MoE LM, an SSM, a hybrid, an encoder-decoder and a VLM at full
+width (``serve_lm``), and checks what comes out.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--batches 3] \
         [--profile DIR]
@@ -93,7 +93,10 @@ or outside a checkout of the repository.  Phases:
    attention within 2e-5 in f32 and 2e-2 in bf16, causal and not,
    sq != sk, MHA, GQA and MQA, dh in {32, 64, 128, 256}, and the
    sliding window (``FLASH_WINDOW_MODES``: 1 key to wider than the
-   prompt, inside, on and across key tiles); each line names
+   prompt, inside, on and across key tiles), and the key-padding bound
+   (``FLASH_KV_VALID_MODES``: 1 key, a key tile's edge and one past it,
+   inside a tile, whisper's padded cross attention, MQA, (192, 128)),
+   which the wrapper refuses with causal or a window; each line names
    the body that ran, ``mma.sync`` bf16 or FMA f32, with its registers
    and local-memory bytes); then the ops
    once each at full width, counts reset before and read after: ADC and
@@ -218,7 +221,7 @@ or outside a checkout of the repository.  Phases:
 
 14. LM serving (``launch.serve.serve_lm``, the ``--arch`` command's
    path) on the card at full width with random weights drawn by the
-   port's ``init`` from a generator on the card, six cells served one
+   port's ``init`` from a generator on the card, eight cells served one
    after the other, each freed (``del``, ``empty_cache``) before the
    next: cell A, tinyllama-1.1b in f32, batch 8, a 512-token prompt
    (the ``full_attention`` branch), 32 greedy decode steps, then the
@@ -242,7 +245,12 @@ or outside a checkout of the repository.  Phases:
    32 steps; cell F, recurrentgemma-9b in bf16 at full depth (12 groups
    of (rglru, rglru, local) and two rglru layers; MQA 16 / 1 heads of
    256, window 2048), batch 1, a 4096-token prompt (the band masks, the
-   local ring of 2048 slots wraps), 16 steps.  Each prints prefill ms,
+   local ring of 2048 slots wraps), 16 steps; cell G, whisper-large-v3
+   in bf16 at full depth (32 encoder and 32 decoder layers), batch 8,
+   1500 seeded audio frames a row and a 64-token prompt, 32 steps;
+   cell H, internvl2-76b in bf16, its depth cut to 32 of 80 layers
+   (29.5 B parameters), batch 4, 256 seeded patch tokens and 768 text
+   tokens, 16 steps.  Each prints prefill ms,
    decode ms a step, tokens/s and peak MiB (CUDA events) beside the
    card's name and power limit.
    Gates: (1) each arch's model on the card against the CPU from the
@@ -250,15 +258,21 @@ or outside a checkout of the repository.  Phases:
    (tinyllama at full depth, the MoE archs at depth 2: the first dense
    layer and one MoE layer; mamba2 at depth 2; recurrentgemma at depth
    4, one group and a tail layer, at its window and again at a window
-   of 32, which masks and wraps at 64 tokens), logits within 2e-4 of
+   of 32, which masks and wraps at 64 tokens; whisper at 2 + 2 layers
+   over the 1500 frames, its cross caches too; internvl at depth 2 with
+   its 256 patch tokens before the 64), logits within 2e-4 of
    the largest
    (``LM_TOL``), greedy tokens equal wherever the CPU's top-2 gap
-   exceeds that; (2) at every cell's shape, the flash kernel on layer
-   0's q, k, v against its plain version (phase 7's tolerance), timed
-   beside its bound and SDPA (or SDPA's refusal), and the f32 (192,
-   128) body at a small MLA shape; at cell F the windowed kernel in
-   bf16 and in f32, its bound counting the band only, SDPA with the
-   band as a boolean mask; (3) cell C's and cell E's two prefills from
+   exceeds that; (2) at every attention cell, the flash kernel on the
+   operands of each distinct call of a served prefill (captured by
+   wrapping ``ops.flash_attention``: one call a cell, G's three:
+   encoder, decoder self and cross attention) against its plain version
+   (phase 7's tolerance), timed beside its bound and SDPA (or SDPA's
+   refusal), and the f32 (192, 128) body at a small MLA shape; at cell
+   F the windowed kernel in bf16 and in f32, its bound counting the
+   band only, SDPA with the band as a boolean mask; and G's cross call on the unpadded keys against the reference's padded form
+   with ``kv_valid`` (1024 queries, 2048 keys, 1500 valid), its first
+   64 rows bit for bit; (3) cell C's and cell E's two prefills from
    the same inputs, and two decode steps from those caches, bit for bit
    equal (logits and caches); (4) cell C's layer 1 dispatch at 512
    tokens with capacity_factor = E (no drops) against the every-expert
@@ -266,14 +280,16 @@ or outside a checkout of the repository.  Phases:
    geometry ICQ-KV attention at top_c = S equal to exact attention over
    the dequantized cache; (6) launch counts reset before and read after
    each cell: exactly one flash launch an attention layer a prefill
-   (22, 28, 48, 6, none at cell E and the 12 local layers at cell F;
+   (22, 28, 48, 6, none at cell E, the 12 local layers at cell F, 96
+   at cell G: 32 encoder, 32 self and 32 cross, 32 at cell H;
    the untimed warm prefill doubles the window's count) and none in the
    decode steps.  TF32 must be off; the phase logs
    ``torch.get_float32_matmul_precision()``.  The kernels' record of
    flash attention is cell B's served prefill shape, with the launches
    of the whole run; a second record, ``flash_attention (192, 128)``,
-   is cell D's, with cell D's launches, and a third, ``flash_attention
-   (window 2048)``, cell F's, with cell F's.
+   is cell D's, with cell D's launches, a third, ``flash_attention
+   (window 2048)``, cell F's, with cell F's, and two more, ``(non-causal,
+   encoder)`` and ``(non-causal, cross)``, cell G's, with cell G's.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -1790,6 +1806,20 @@ FLASH_WINDOW_MODES = (
     (1, 300, 500, 4, 4, 32, 32, False, 50),
     (1, 1000, 1000, 8, 8, 192, 128, True, 333),
 )
+# the key-padding bound (the reference's padded cross attention), non-
+# causal: b, sq, sk, H, KVH, dqk, dv, kv_valid: one key, a key tile's
+# edge (64) and one key past it, inside a tile, whisper-large-v3's padded
+# cross attention (q 1024, k / v 2048, 1500 frames valid), MQA, MLA's
+# widths
+FLASH_KV_VALID_MODES = (
+    (1, 100, 256, 4, 4, 64, 64, 1),
+    (1, 100, 256, 4, 2, 64, 64, 64),
+    (1, 100, 256, 4, 2, 64, 64, 65),
+    (2, 77, 300, 4, 4, 32, 32, 150),
+    (1, 1024, 2048, 20, 20, 64, 64, 1500),
+    (2, 64, 200, 4, 1, 128, 128, 100),
+    (1, 130, 257, 4, 2, 192, 128, 200),
+)
 
 
 def flash_tolerance(dtype) -> float:
@@ -1851,15 +1881,18 @@ def check_kernel_ops(seed: int):
                 f"{'equal' if ok else 'DIFFERENT'}")
             check(ok, f"adc/two_step kernel != plain version (K={K}, m={m},"
                       f" {dtype}) or wrong pass counts {passes}")
-    for mode in tuple(m + (0,) for m in FLASH_MODES) + FLASH_WINDOW_MODES:
-        b, sq, sk, H, KVH, dh, dv, causal, window = mode
+    modes = (tuple(m + (0, 0) for m in FLASH_MODES)
+             + tuple(m + (0,) for m in FLASH_WINDOW_MODES)
+             + tuple(m[:7] + (False, 0, m[7]) for m in FLASH_KV_VALID_MODES))
+    for mode in modes:
+        b, sq, sk, H, KVH, dh, dv, causal, window, kv_valid = mode
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = attention_operands(seed + sq + dh + window, b, sq, sk,
-                                         H, KVH, dh, dtype, dv)
+            q, k, v = attention_operands(seed + sq + dh + window + kv_valid,
+                                         b, sq, sk, H, KVH, dh, dtype, dv)
             got = fa.flash_attention_cuda(q, k, v, causal=causal,
-                                          window=window)
+                                          window=window, kv_valid=kv_valid)
             want = fa.flash_attention_torch(q, k, v, causal=causal,
-                                            window=window)
+                                            window=window, kv_valid=kv_valid)
             torch.cuda.synchronize()
             tol = flash_tolerance(dtype)
             err = float((got.float() - want.float()).abs().max())
@@ -1868,11 +1901,24 @@ def check_kernel_ops(seed: int):
                                          atol=tol).all()))
             log(f"mode flash_attention b={b} sq={sq} sk={sk} H={H} KVH={KVH}"
                 f" dh={dh} dv={dv} causal={causal} window={window} "
+                f"kv_valid={kv_valid} "
                 f"{str(dtype).split('.')[-1]} ({flash_body(dtype, dh, dv)}):"
                 f" max_abs_err {err} (tolerance "
                 f"{tol}): {'within' if ok else 'OUTSIDE'}")
             check(ok, f"flash_attention kernel != plain version {mode} "
                       f"{dtype}: max_abs_err {err}")
+    # kv_valid only in a non-causal call with no window (a row could keep
+    # no key); the wrapper refuses the others before any launch
+    q, k, v = attention_operands(seed, 1, 64, 64, 2, 2, 64, torch.float32)
+    refused = []
+    for kw in (dict(causal=True), dict(causal=False, window=8)):
+        try:
+            fa.flash_attention_cuda(q, k, v, kv_valid=32, **kw)
+        except ValueError:
+            refused.append(kw)
+    log(f"mode flash_attention kv_valid with causal / with a window: "
+        f"{'refused' if len(refused) == 2 else 'SERVED'} (ValueError)")
+    check(len(refused) == 2, "kv_valid with causal or a window was served")
     log(f"phase 7 check launches: {read_launches()}")
 
 
@@ -3987,20 +4033,37 @@ def fit_data_parallel(seed: int, card: str, fig1_model):
 # recurrentgemma-9b (arXiv:2402.19427) at full width and depth in bf16,
 # 38 layers = 12 x (rglru, rglru, local) + 2 rglru, MQA 16 / 1 heads of
 # 256, window 2048, a prompt of twice the window (the band masks, the
-# local ring wraps), the windowed flash kernel in its 12 local layers
+# local ring wraps), the windowed flash kernel in its 12 local layers; G:
+# whisper-large-v3 (arXiv:2212.04356) at full width and depth in bf16,
+# 32 encoder and 32 decoder layers (d 1280, 20 heads of 64, d_ff 5120,
+# LayerNorm, GELU, learned positions, vocab 51866), batch 8, 1500 audio
+# frames a row (a 30-s window), a 64-token decoder prompt, 32 greedy
+# steps: batched transcription (the non-causal flash kernel at 1500 x
+# 1500 in the encoder, cross attention over 1500 keys, 96 launches a
+# prefill); H: internvl2-76b (arXiv:2404.16821) at full width in bf16
+# (d 8192, 64 / 8 heads of 128, SwiGLU d_ff 28672, vocab 128256, 256
+# patch tokens of 3200 projected), its depth cut from 80 layers to 32
+# (29.5 B parameters, 59 GB; the 80 layers are 141 GB, past one card),
+# batch 4, a 1024-position prompt (256 patch + 768 text tokens, the
+# full_attention branch), 16 steps: batched image question answering
 LM_CELLS = (("A", "tinyllama-1.1b", False, 8, 512, 32, 0),
             ("B", "gemma-7b", True, 1, 2048, 16, 0),
             ("C", "moonshot-v1-16b-a3b", True, 8, 512, 16, 0),
             ("D", "deepseek-v2-236b", True, 1, 2048, 16, 6),
             ("E", "mamba2-1.3b", True, 8, 2048, 32, 0),
-            ("F", "recurrentgemma-9b", True, 1, 4096, 16, 0))
+            ("F", "recurrentgemma-9b", True, 1, 4096, 16, 0),
+            ("G", "whisper-large-v3", True, 8, 64, 32, 0),
+            ("H", "internvl2-76b", True, 4, 1024, 16, 32))
 # gate 1: each arch's model on the card against the CPU from the same
 # weights, in f32 at batch 1, a 64-token prompt and 4 decode steps (the
 # MoE archs and mamba2 at depth 2: the first dense layer and one MoE
 # layer; recurrentgemma at depth 4, one group and one tail layer, once
 # at its window of 2048 and once with the window cut to 32, which is a
 # correctness gate and not a cell: at a 64-token prompt the band masks
-# and the ring of 32 slots wraps, at full width, cheaply on the CPU).
+# and the ring of 32 slots wraps, at full width, cheaply on the CPU;
+# whisper at 2 encoder and 2 decoder layers over the full 1500 frames,
+# its cross caches too; internvl at depth 2, its 256 patch tokens before
+# the 64 text tokens).
 # Logits within LM_TOL of the largest |logit|: each of tinyllama's 22
 # layers sums 2048 to 5632 f32 products in cuBLAS's order against the
 # CPU's, each sum about sqrt(n) 2^-24 ~ 5e-6 relative, the errors
@@ -4010,7 +4073,8 @@ LM_GATE = dict(batch=1, prompt=64, steps=4)
 LM_TOL = 2e-4
 LM_GATE_ARCHS = (("tinyllama-1.1b", 0, 0), ("moonshot-v1-16b-a3b", 2, 0),
                  ("deepseek-v2-236b", 2, 0), ("mamba2-1.3b", 2, 0),
-                 ("recurrentgemma-9b", 4, 0), ("recurrentgemma-9b", 4, 32))
+                 ("recurrentgemma-9b", 4, 0), ("recurrentgemma-9b", 4, 32),
+                 ("whisper-large-v3", 2, 0), ("internvl2-76b", 2, 0))
 # gate 4: cell C's layer 1 (the first MoE layer) at this many tokens,
 # capacity_factor = E so that no assignment drops, against the
 # every-expert oracle in bf16 (TOL_BF16 of the largest output)
@@ -4023,19 +4087,23 @@ def lm_config(arch, bf16, layers=0, window=0):
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import scale_config
     cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if layers:     # whisper: as many encoder layers as decoder layers
+        cfg = dataclasses.replace(cfg, num_layers=layers, encoder_layers=(
+            layers if cfg.encdec else cfg.encoder_layers))
     if window:
         cfg = dataclasses.replace(cfg, local_window=window)
     return scale_config(cfg) if bf16 else cfg
 
 
 def attention_layers(cfg) -> int:
-    """The layers whose prefill launches the flash kernel once: every
-    layer of the dense, MoE and MLA archs, none of the SSM, the hybrid's
-    local layers."""
+    """The flash launches of a prefill, one an attention: every layer of
+    the dense, MoE, MLA and VLM archs, none of the SSM, the hybrid's
+    local layers, whisper's encoder layers and twice its decoder layers
+    (self and cross attention)."""
     if cfg.ssm:
         return 0
+    if cfg.encdec:
+        return cfg.encoder_layers + 2 * cfg.num_layers
     if cfg.hybrid:
         pattern = cfg.block_pattern
         return sum(pattern[i % len(pattern)] == "local"
@@ -4050,6 +4118,17 @@ def lm_params(cfg, seed):
         torch.Generator(device="cuda").manual_seed(seed))
 
 
+def prompt_positions(cfg, text: int) -> int:
+    """The decoder positions of a prompt of ``text`` tokens: the VLM's
+    patch tokens come first."""
+    return text + (cfg.num_vision_tokens if cfg.frontend == "vision_stub"
+                   else 0)
+
+
+def n_params(params) -> int:
+    return sum(a.numel() for a in leaves(params))
+
+
 def lm_card_gate(seed: int, arch: str, layers: int = 0, window: int = 0):
     """Gate 1: ``arch``'s model (f32, ``layers`` deep, ``local_window``
     replaced by ``window`` when given) on the card against the CPU from
@@ -4060,17 +4139,30 @@ def lm_card_gate(seed: int, arch: str, layers: int = 0, window: int = 0):
     import numpy as np
     import torch
     from repro_torch.models import build_model
+    from repro_torch.launch.serve import lm_batch
     t0 = time.perf_counter()
     cfg = lm_config(arch, False, layers, window)
     model = build_model(cfg)
     card = lm_params(cfg, seed)
     cpu = cpu_tree(card)
-    b, s, steps = LM_GATE["batch"], LM_GATE["prompt"], LM_GATE["steps"]
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
-                                                dtype=np.int32)
-    lg, cg = model.prefill(card, {"tokens": toks}, s + steps)
-    lc, cc = model.prefill(cpu, {"tokens": toks}, s + steps)
+    b, steps = LM_GATE["batch"], LM_GATE["steps"]
+    s = prompt_positions(cfg, LM_GATE["prompt"])
+    batch = lm_batch(cfg, b, s, seed)
+    lg, cg = model.prefill(card, batch, s + steps)
+    lc, cc = model.prefill(cpu, batch, s + steps)
     worst = 0.0
+    for name in ("ck", "cv") if cfg.encdec else ():
+        got, want = cg["seg0"][name].float().cpu(), cc["seg0"][name].float()
+        bound = LM_TOL * max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        worst = max(worst, err / bound)
+        log(f"lm gate card vs cpu {arch} f32 {cfg.num_layers} layers cross "
+            f"cache {name} {tuple(want.shape)}: max |{name}| "
+            f"{float(want.abs().max()):.4f}, max_abs_err {err:.3e} (bound "
+            f"{bound:.3e})")
+        check(err <= bound, f"lm gate {arch}: card {name} {err} from the "
+                            f"CPU's (bound {bound})")
+        del got, want
     for step in range(steps + 1):
         got, want = lg[:, -1].float().cpu(), lc[:, -1].float()
         bound = LM_TOL * max(1.0, float(want.abs().max()))
@@ -4094,11 +4186,13 @@ def lm_card_gate(seed: int, arch: str, layers: int = 0, window: int = 0):
             tok = got.argmax(-1).to(torch.int32)[:, None]
             lg, cg = model.decode_step(card, tok.cuda(), cg)
             lc, cc = model.decode_step(cpu, tok, cc)
+    count = n_params(cpu)
     del card, cpu, cg, cc
     seconds = time.perf_counter() - t0
     log(f"lm gate card vs cpu {arch}"
         f"{f' window {window}' if window else ''}: {seconds:.1f} s "
-        f"({cfg.param_count() / 1e9:.2f} B params on each side)")
+        f"({count / 1e9:.3f} B params, {count * 4 / 1e9:.2f} GB in f32, on "
+        f"each side)")
     return worst, seconds
 
 
@@ -4142,34 +4236,7 @@ def lm_icq_gate(seed: int):
               f"over the dequantized cache: {err}")
 
 
-def layer0_qkv(cfg, params, toks):
-    """Layer 0's q, k, v of the prefill of ``toks`` (the shapes and
-    types the model hands the flash kernel; MLA's per-head K and V
-    materialized as its card path does; the hybrid's first local layer,
-    on the embedded prompt)."""
-    import torch
-    from repro_torch.models import attention as attn
-    from repro_torch.models import mla as mla_mod
-    from repro_torch.models.nn import as_dtype
-    from repro_torch.models.transformer import _layer, _norm_apply
-    x = params["embed"][torch.from_numpy(toks).cuda().long()].to(
-        as_dtype(cfg.compute_dtype))
-    if cfg.tie_embeddings:
-        x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype,
-                             device="cuda")
-    if cfg.hybrid:
-        first = cfg.block_pattern.index("local")
-        lp = _layer(params["groups"][f"b{first}"], 0)
-    else:
-        lp = _layer(params["seg0"], 0)
-    h = _norm_apply(cfg, lp["norm1"], x)
-    pos = torch.arange(toks.shape[1], device="cuda")
-    if cfg.mla:
-        return mla_mod.mla_qkv(lp["attn"], h, cfg, pos)
-    return attn.qkv_project(lp["attn"], h, cfg, pos)
-
-
-def sdpa_ms(q, k, v, window=0):
+def sdpa_ms(q, k, v, window=0, causal=True):
     """The library yardstick: ``scaled_dot_product_attention``'s time at
     the kernel's operands ((b, heads, s, width) views; under ``window``
     the causal band as a boolean ``attn_mask``), or (None, its refusal)
@@ -4186,7 +4253,7 @@ def sdpa_ms(q, k, v, window=0):
             qt, kt, vt, attn_mask=band, enable_gqa=True)
     else:
         call = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     try:
         call()
     except RuntimeError as e:
@@ -4194,34 +4261,65 @@ def sdpa_ms(q, k, v, window=0):
     return time_ms(call, 10), None
 
 
-def lm_flash_at_cell(label, arch, cfg, params, toks):
-    """Gate 2 at a cell's served shape: ``ops.flash_attention``'s kernel
-    on layer 0's q, k, v against its plain version (phase 7's
-    tolerance), then its time beside the bound, the plain version and
-    SDPA (or SDPA's refusal).  Returns the kernel's record at this
-    shape."""
+class FlashCalls:
+    """While entered, every ``ops.flash_attention`` call goes through a
+    wrapper that counts it by (causal, window, kv_valid, shapes) in
+    ``counts`` (a tuple and a dict update on the host a call) and, with
+    ``capture``, copies the operands of each key's first call into
+    ``calls`` as (q, k, v, causal, window), in call order (whisper: its
+    encoder's layer 0, the decoder's layer-0 self and cross attention;
+    the hybrid: its first local layer; the others: layer 0)."""
+
+    def __init__(self, capture: bool = False):
+        self.capture, self.counts, self.calls = capture, {}, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, launch = ops, ops.flash_attention
+
+        def record(q, k, v, *, causal=True, window=0, kv_valid=0):
+            key = (causal, window, kv_valid, tuple(q.shape), tuple(k.shape),
+                   tuple(v.shape))
+            if key not in self.counts and self.capture:
+                self.calls.append((q.clone(), k.clone(), v.clone(), causal,
+                                   window))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return launch(q, k, v, causal=causal, window=window,
+                          kv_valid=kv_valid)
+        self.launch, ops.flash_attention = launch, record
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.launch
+
+
+def flash_at_shape(label, arch, q, k, v, causal, window=0):
+    """Gate 2 on one served call's operands: the kernel against its plain
+    version (phase 7's tolerance; under a window also in f32), then its
+    time beside the bound, the plain version and SDPA (or SDPA's
+    refusal).  Returns the kernel's record at this shape."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = layer0_qkv(cfg, params, toks)
-    window = cfg.local_window if cfg.hybrid else 0
-    b, s, H, dh = q.shape
-    KVH, dv = k.shape[2], v.shape[-1]
+    b, sq, H, dh = q.shape
+    sk, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     name = str(q.dtype).split(".")[-1]
-    shape = (f"b={b} s={s} H={H} KVH={KVH} dh={dh} dv={dv}"
+    shape = (f"b={b} sq={sq} sk={sk} H={H} KVH={KVH} dh={dh} dv={dv}"
              + (f" window={window}" if window else ""))
+    kind = "causal" if causal else "non-causal"
     err = None
     # the served type, and under a window also f32 at the same shape
     for dt in (q.dtype,) + ((torch.float32,) if window else ()):
         qd, kd, vd = (t.to(dt) for t in (q, k, v))
-        got = fa.flash_attention_cuda(qd, kd, vd, causal=True, window=window)
-        want = fa.flash_attention_torch(qd, kd, vd, causal=True,
+        got = fa.flash_attention_cuda(qd, kd, vd, causal=causal,
+                                      window=window)
+        want = fa.flash_attention_torch(qd, kd, vd, causal=causal,
                                         window=window)
         torch.cuda.synchronize()
         tol = flash_tolerance(dt)
         e = float((got.float() - want.float()).abs().max())
         ok = bool(torch.isclose(got.float(), want.float(), rtol=tol,
                                 atol=tol).all())
-        log(f"lm gate flash cell {label} {arch} layer 0 {shape} "
+        log(f"lm gate flash cell {label} {arch} {shape} {kind} "
             f"{str(dt).split('.')[-1]} ({flash_body(dt, dh, dv)}): "
             f"max_abs_err {e} (tolerance {tol}): "
             f"{'within' if ok else 'OUTSIDE'}")
@@ -4229,18 +4327,19 @@ def lm_flash_at_cell(label, arch, cfg, params, toks):
                   f"{label}'s shape ({dt}): max_abs_err {e}")
         err = e if err is None else err
         del got, want, qd, kd, vd
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window), 5)
+    ms = time_ms(lambda: fa.flash_attention_cuda(
+        q, k, v, causal=causal, window=window), 5)
     plain_ms = time_ms(lambda: fa.flash_attention_torch(
-        q, k, v, window=window), 2)
-    lib_ms, refused = sdpa_ms(q, k, v, window)
-    nbytes, nops = attention_work(b, s, s, H, KVH, dh, True,
+        q, k, v, causal=causal, window=window), 2)
+    lib_ms, refused = sdpa_ms(q, k, v, window, causal)
+    nbytes, nops = attention_work(b, sq, sk, H, KVH, dh, causal,
                                   q.element_size(), dv, window)
     b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
                           if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
     lib = (f"library scaled_dot_product_attention {lib_ms:.4f} ms, kernel "
            f"/ SDPA {ms / lib_ms:.2f}" if lib_ms is not None else
            f"library scaled_dot_product_attention refused: {refused}")
-    log(f"kernel flash_attention cell {label} {arch} {shape} causal {name}:"
+    log(f"kernel flash_attention cell {label} {arch} {shape} {kind} {name}:"
         f" {ms:.4f} ms ({nops / ms / 1e9:.2f} TFLOP/s), plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {lib}")
     return dict(name="flash_attention", route="cuda",
@@ -4248,6 +4347,35 @@ def lm_flash_at_cell(label, arch, cfg, params, toks):
                 replaces="src/repro/kernels/flash_attention.py:71",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+def padding_identity(q, k, v, chunk: int = 1024):
+    """At cell G's cross attention shape: the card's call on the unpadded
+    operands (what the model launches) against the reference's padded
+    form on the card (q and k / v zero-padded to multiples of
+    ``chunk``, the padded keys masked by ``kv_valid``), rows [0, sq)
+    compared bit for bit: each query row is computed on its own, and the
+    ragged-tail mask (-inf past sk) and kv_valid's (NEG_INF) both give
+    those keys p = 0 exactly."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    sq, sk = q.shape[1], k.shape[1]
+    qp = F.pad(q, (0, 0, 0, 0, 0, -(-sq // chunk) * chunk - sq))
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, -(-sk // chunk) * chunk - sk))
+              for t in (k, v))
+    got = fa.flash_attention_cuda(q, k, v, causal=False)
+    want = fa.flash_attention_cuda(qp, kp, vp, causal=False,
+                                   kv_valid=sk)[:, :sq]
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    log(f"lm gate padding identity cell G: unpadded q {tuple(q.shape)}, k / "
+        f"v {tuple(k.shape)} against padded q {tuple(qp.shape)}, k / v "
+        f"{tuple(kp.shape)} at kv_valid {sk}, rows [0, {sq}): "
+        f"{'equal bit for bit' if same else 'DIFFERENT'} (max_abs_err "
+        f"{err})")
+    check(same, f"cross attention unpadded != padded with kv_valid: {err}")
 
 
 def mla_flash_f32_gate(seed: int):
@@ -4269,15 +4397,15 @@ def mla_flash_f32_gate(seed: int):
     check(ok, f"f32 (192, 128) flash kernel != plain version: {err}")
 
 
-def determinism_gate(cfg, params, toks, steps: int = 2):
+def determinism_gate(cfg, params, batch, steps: int = 2):
     """Gate 3: two prefills of the cell from the same inputs give bit for
     bit equal logits and caches, and ``steps`` decode steps from those
     equal caches bit for bit equal logits and caches."""
     import torch
     from repro_torch.models import build_model
     model = build_model(cfg)
-    max_len = toks.shape[1] + steps
-    (l1, c1), (l2, c2) = (model.prefill(params, {"tokens": toks}, max_len)
+    max_len = batch["tokens"].shape[1] + steps
+    (l1, c1), (l2, c2) = (model.prefill(params, batch, max_len)
                           for _ in range(2))
     bufs = [(seg, name) for seg in c1 if seg != "pos" for name in c1[seg]]
     same = [torch.equal(l1, l2)]
@@ -4367,7 +4495,7 @@ class PieceRanges:
             setattr(mod, name, fn)
 
 
-def profile_lm(label, cfg, params, toks, steps, out_dir):
+def profile_lm(label, cfg, params, batch, max_len, out_dir):
     """With ``--profile``: ``torch.profiler`` over one prefill and 4
     decode steps of a cell (after its counted window): wall time (host
     clock, profiler on), device busy time, the device's idle share,
@@ -4379,8 +4507,7 @@ def profile_lm(label, cfg, params, toks, steps, out_dir):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import build_serve_fns
     prefill_fn, decode_fn, _ = build_serve_fns(cfg)
-    max_len = toks.shape[1] + steps
-    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    batch = {k: torch.from_numpy(a).cuda() for k, a in batch.items()}
     logits, caches = prefill_fn(params, batch, max_len)
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
@@ -4429,20 +4556,24 @@ def lm_serving(seed: int, card: str, profile_dir=None):
     CLI's path) on the card at full width, cells ``LM_CELLS`` (A also
     through the ICQ-KV decode), one after the other, each freed before
     the next, with the gates: 1 card against CPU per arch (the hybrid
-    also at a window of 32), 2 the flash kernel at every attention
-    cell's layer-0 shape (the f32 (192, 128) body; at cell F the
-    windowed kernel in bf16 and f32), 3 two runs bit for bit at cells C
-    (MoE) and E (SSM), 4 the dispatch against its oracle at cell C, the
-    ICQ-KV top_c = S check, and the launch counts (one flash launch an
-    attention layer a prefill, none at cell E, none a decode step).
+    also at a window of 32), 2 the flash kernel on every distinct call of
+    a served prefill of each attention cell (``FlashCalls``; the f32
+    (192, 128) body; at cell F the windowed kernel in bf16 and f32; at
+    cell G whisper's non-causal encoder and cross attention, with the
+    padding identity), 3 two runs bit for bit at cells C (MoE) and E
+    (SSM), 4 the dispatch against its oracle at cell C, the ICQ-KV
+    top_c = S check, and the launch counts (one flash launch an attention
+    a prefill, none at cell E, none a decode step; in ``serve_lm``'s run
+    counted by distinct call too, the counts summing to the wrapper's).
     With ``profile_dir``, ``profile_lm`` of each cell.  Returns (the
-    served cells' launches, the flash kernel's records at cell B's
-    shape, at cell D's (the (192, 128) instance) and at cell F's (the
-    window), each of the latter with its cell's launches))."""
+    served cells' launches, the flash kernel's records at cell B's call,
+    at cell D's (the (192, 128) instance), at cell F's (the window) and
+    at cell G's encoder and cross attention (non-causal), each of the
+    latter with its own call's launches in ``serve_lm``'s run))."""
     import gc
-    import numpy as np
     import torch
-    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.serve import lm_batch, serve_lm
+    from repro_torch.models import build_model
     log(f"phase 14: torch.get_float32_matmul_precision() = "
         f"{torch.get_float32_matmul_precision()!r}, "
         f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -4468,20 +4599,24 @@ def lm_serving(seed: int, card: str, profile_dir=None):
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t_init
         reset_launches()
-        out = serve_lm(cfg, prompt_len=s, decode_steps=steps, batch=b,
-                       device="cuda", seed=seed, icq_kv=label == "A",
-                       params=params, verbose=False)
+        with FlashCalls() as served:
+            out = serve_lm(cfg, prompt_len=s, decode_steps=steps, batch=b,
+                           device="cuda", seed=seed, icq_kv=label == "A",
+                           params=params, verbose=False)
         launches = read_launches()
         n_attn = attention_layers(cfg)
         want = {k: 0 for k in launches}
         want["flash_attention"] = 2 * n_attn   # warm + timed
         log(f"lm cell {label} launches {launches} (prefill "
             f"{out['launches']['prefill']}, decode "
-            f"{out['launches']['decode']})")
+            f"{out['launches']['decode']}); flash by distinct call "
+            f"{list(served.counts.values())}")
         check(launches == want and out["launches"] == dict(
-            prefill=n_attn, decode=0),
-            f"lm cell {label}: launches {launches} / {out['launches']}, "
-            f"want {n_attn} flash a prefill and none a decode step")
+            prefill=n_attn, decode=0)
+            and sum(served.counts.values()) == launches["flash_attention"],
+            f"lm cell {label}: launches {launches} / {out['launches']} / "
+            f"{served.counts}, want {n_attn} flash a prefill and none a "
+            "decode step")
         for k in total:
             total[k] += launches[k]
         lg, toks = out["logits"], out["tokens"]
@@ -4493,7 +4628,10 @@ def lm_serving(seed: int, card: str, profile_dir=None):
         depth = (f", depth cut to {cfg.num_layers} layers" if layers
                  else "")
         log(f"lm cell {label} {arch} {'bf16' if bf16 else 'f32'} "
-            f"({cfg.param_count() / 1e9:.3f} B params{depth}, init "
+            f"({n_params(params) / 1e9:.3f} B params, "
+            f"{n_params(params) * params['embed'].element_size() / 1e9:.2f}"
+            f" GB; param_count() {cfg.param_count() / 1e9:.3f} B{depth}; "
+            f"init "
             f"{t_init:.2f} s) batch {b} prompt {s} decode {steps}: "
             f"prefill {out['prefill_ms']:.3f} ms "
             f"({b * s / out['prefill_ms'] * 1e3:.0f} tokens/s), decode "
@@ -4522,36 +4660,46 @@ def lm_serving(seed: int, card: str, profile_dir=None):
                 f"{full['max_logit_err']:.4e}, greedy tokens agree "
                 f"{full['agree']:.4f} (reported)")
         del out, lg
-        toks0 = np.random.default_rng(seed).integers(0, cfg.vocab_size,
-                                                     (b, s), dtype=np.int32)
-        rec = (lm_flash_at_cell(label, arch, cfg, params, toks0) if n_attn
-               else None)
+        batch0 = lm_batch(cfg, b, s, seed)         # the served batch
+        with FlashCalls(capture=True) as seen:
+            build_model(cfg).prefill(params, batch0, s + steps)
+        calls = seen.calls
+        check(list(seen.counts) == list(served.counts)
+              and len(calls) == (3 if cfg.encdec else min(n_attn, 1)),
+              f"lm cell {label}: distinct flash calls {list(seen.counts)}, "
+              f"served {list(served.counts)}")
+        recs = [dict(flash_at_shape(label, arch, *call), launches=n)
+                for call, n in zip(calls, served.counts.values())]
         if label == "C":
-            determinism_gate(cfg, params, toks0)
+            determinism_gate(cfg, params, batch0)
             moe_oracle_gate(cfg, params, seed)
         if label == "E":
-            determinism_gate(cfg, params, toks0)
+            determinism_gate(cfg, params, batch0)
         if profile_dir:
-            profile_lm(label, cfg, params, toks0, steps, profile_dir)
+            profile_lm(label, cfg, params, batch0, s + steps, profile_dir)
         if label == "B":
-            records["flash_attention"] = rec
+            records["flash_attention"] = recs[0]
         if label == "D":
             records["flash_attention_mla"] = dict(
-                rec, name="flash_attention (192, 128)",
-                launches=launches["flash_attention"])
+                recs[0], name="flash_attention (192, 128)")
         if label == "F":
             records["flash_attention_window"] = dict(
-                rec, name="flash_attention (window 2048)",
-                launches=launches["flash_attention"])
-        del params
+                recs[0], name="flash_attention (window 2048)")
+        if label == "G":     # encoder, decoder self, cross, in call order
+            records["flash_attention_encoder"] = dict(
+                recs[0], name="flash_attention (non-causal, encoder)")
+            records["flash_attention_cross"] = dict(
+                recs[2], name="flash_attention (non-causal, cross)")
+            padding_identity(*calls[2][:3])
+        del params, seen, calls      # the captured operands
         gc.collect()
         torch.cuda.empty_cache()
         log(f"lm cell {label} ran {time.perf_counter() - t_cell:.1f} s, "
             f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB left "
             "allocated after it")
     log(f"phase 14 ran {time.perf_counter() - t0:.1f} s; the "
-        "flash_attention records are cell B's, cell D's and cell F's "
-        "served prefill shapes")
+        "flash_attention records are cell B's, cell D's, cell F's and "
+        "cell G's (encoder, cross) served prefill calls")
     return total, records
 
 
@@ -4708,8 +4856,9 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": [records[k] for k in (
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
         "kmeans_assign", "icm_encode", "adc", "two_step",
-        "flash_attention")] + [lm_records["flash_attention_mla"],
-                               lm_records["flash_attention_window"]]}))
+        "flash_attention")] + [lm_records[k] for k in (
+            "flash_attention_mla", "flash_attention_window",
+            "flash_attention_encoder", "flash_attention_cross")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,7 +15,10 @@
 //   s    = NEG_INF = -1e30 where causal and q_pos < k_pos (top-left
 //          aligned, both counted from 0, also when sq != sk), and where
 //          window > 0 and q_pos - k_pos >= window (the sliding band of
-//          the hybrid's local layers; window 0 = none)
+//          the hybrid's local layers; window 0 = none), and where
+//          kv_valid > 0 and k_pos >= kv_valid (the key-padding bound of
+//          the reference's padded cross attention; 0 = none, and only
+//          in a non-causal call with no window)
 //   m'   = max(m, max_j s);  corr = exp(m - m');  p = exp(s - m')
 //   l    = l * corr + sum_j p                  (p unrounded)
 //   o    = o * corr + (p cast to v's type) . v     (f32 sums)
@@ -23,8 +26,11 @@
 // the diagonal are skipped, and so are those wholly left of the band: a
 // block's key loop starts at the tile holding q0 - window + 1, the first
 // key its first row keeps (a windowed call needs sq <= sk, so that every
-// row keeps at least its own position).  Key rows past sk (the ragged
-// last tile) get s = -inf and contribute exactly 0.  The finite NEG_INF
+// row keeps at least its own position); under kv_valid the loop ends at
+// the tile holding key kv_valid - 1, so fully padded tiles are never
+// read (sk stays the row count of the loads and the batch stride: a
+// padded tensor is read in place).  Key rows past sk (the ragged last
+// tile) get s = -inf and contribute exactly 0.  The finite NEG_INF
 // keeps a row that sees only masked keys in a tile free of NaN, as in the
 // reference; under a window a row may see only masked keys in the first
 // tiles of its block, and its first unmasked tile's correction
@@ -39,7 +45,10 @@
 // (0.17 ms) against 0.34 GB (0.10 ms).  A window of W keeps at most W
 // keys a row: recurrentgemma-9b's local layers (16 heads of 256, one KV
 // head, W = 2048) at s = 4096 do 2 (dqk + dv) H (W (W + 1) / 2 + (s - W)
-// W) = 0.10e12 operations (0.10 ms) against 71 MB (0.02 ms).
+// W) = 0.10e12 operations (0.10 ms) against 71 MB (0.02 ms).  A
+// non-causal call keeps every key: whisper-large-v3's encoder (20 heads
+// of 64, 8 x 1500 frames) does 2 (dqk + dv) H b s^2 = 0.092e12 (0.093
+// ms) against 61 MB a layer.
 //
 // Two bodies, chosen by the type; no runtime fallback between them.
 //
@@ -176,7 +185,8 @@ template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-             int H, int KVH, float scale, bool causal, int window) {
+             int H, int KVH, float scale, bool causal, int window,
+             int kv_end) {
   using G = Geometry<DQK, DV>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // kBQ x kLd
@@ -194,9 +204,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* k_head = k + long(b) * sk * k_stride + long(kvh) * DQK;
   const T* v_head = v + long(b) * sk * v_stride + long(kvh) * DV;
 
-  // key tiles up to the one holding the tile's last row's own position,
-  // from the one holding the first key of the first row's band
-  int n_kt = (sk + kBKey - 1) / kBKey;
+  // key tiles up to the one holding key kv_end - 1 and the tile's last
+  // row's own position, from the one holding the first key of the first
+  // row's band
+  int n_kt = (kv_end + kBKey - 1) / kBKey;
   if (causal) n_kt = min(n_kt, (min(q0 + kBQ, sq) - 1) / kBKey + 1);
   const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBKey : 0;
 
@@ -253,7 +264,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float x = __fmul_rn(s[i][j], scale);
         if (kpos >= sk)
           x = -CUDART_INF_F;
-        else if ((causal && qpos < kpos) ||
+        else if (kpos >= kv_end || (causal && qpos < kpos) ||
                  (window > 0 && qpos - kpos >= window))
           x = kNegInf;
         s[i][j] = x;
@@ -341,7 +352,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int sk, int H, int KVH, float scale, bool causal,
-           int window, cudaStream_t stream) {
+           int window, int kv_end, cudaStream_t stream) {
   auto kernel = flash_kernel<T, DQK, DV>;
   const size_t smem = Geometry<DQK, DV>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
@@ -351,7 +362,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, H, KVH, scale,
-      causal, window);
+      causal, window, kv_end);
   return int(cudaGetLastError());
 }
 
@@ -472,7 +483,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int sq, int sk, int H,
-                 int KVH, float scale, bool causal, int window) {
+                 int KVH, float scale, bool causal, int window, int kv_end) {
   using G = MmaGeometry<DQK, DV>;
   constexpr int kBK = G::kBK, kLdK = G::kLdK, kLdV = G::kLdV;
   constexpr int kKS = DQK / 16;   // k-steps of S = Q . K^T
@@ -499,9 +510,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* v_head =
       v + long(b) * sk * v_stride + long(kvh) * DV;
 
-  // key tiles up to the one holding the tile's last row's own position,
-  // from the one holding the first key of the first row's band
-  int n_kt = (sk + kBK - 1) / kBK;
+  // key tiles up to the one holding key kv_end - 1 and the tile's last
+  // row's own position, from the one holding the first key of the first
+  // row's band
+  int n_kt = (kv_end + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (min(q0 + kMmaBQ, sq) - 1) / kBK + 1);
   const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
@@ -581,9 +593,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // scale, mask and the online softmax on the accumulator fragments:
     // element e of column tile nt is row rows[e / 2], key
     // k0 + 8 nt + 2 t + e % 2.  The tile needs a mask where it runs past
-    // sk, past the warp's first row's diagonal, or (under a window) left
-    // of the warp's last row's band
-    const bool mask = k0 + kBK > sk || (causal && k0 + kBK - 1 > row_w) ||
+    // kv_end (<= sk), past the warp's first row's diagonal, or (under a
+    // window) left of the warp's last row's band
+    const bool mask = k0 + kBK > kv_end ||
+                      (causal && k0 + kBK - 1 > row_w) ||
                       (window > 0 && row_w + 15 - k0 >= window);
     float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
@@ -596,7 +609,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           const int row = rows[e >> 1];
           if (key >= sk)
             x = -CUDART_INF_F;
-          else if ((causal && row < key) ||
+          else if (key >= kv_end || (causal && row < key) ||
                    (window > 0 && row - key >= window))
             x = kNegInf;
         }
@@ -675,7 +688,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DQK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int b, int sq, int sk, int H, int KVH, float scale,
-               bool causal, int window, cudaStream_t stream) {
+               bool causal, int window, int kv_end, cudaStream_t stream) {
   auto kernel = flash_mma_kernel<DQK, DV>;
   const size_t smem = MmaGeometry<DQK, DV>::kSmem;
   const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
@@ -690,7 +703,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), sq, sk, H, KVH, scale, causal,
-      window);
+      window, kv_end);
   return int(cudaGetLastError());
 }
 
@@ -699,13 +712,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 template <int DQK, int DV>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* out, int b, int sq, int sk, int H, int KVH,
-                 float scale, bool causal, int window, cudaStream_t s) {
+                 float scale, bool causal, int window, int kv_end,
+                 cudaStream_t s) {
   if (dtype == 0)
     return launch<float, DQK, DV>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                                  causal, window, s);
+                                  causal, window, kv_end, s);
   if (dtype == 1)
     return launch_mma<DQK, DV>(q, k, v, out, b, sq, sk, H, KVH, scale,
-                               causal, window, s);
+                               causal, window, kv_end, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -730,22 +744,26 @@ extern "C" {
 // (tensor-core body); every pointer 16-byte aligned.  (dqk, dv) in
 // {(32, 32), (64, 64), (128, 128), (256, 256), (192, 128)}, H a multiple
 // of KVH, b and H at most 65535; window >= 0 (0 = no band), and sq <= sk
-// when window > 0.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for another shape or type.
+// when window > 0; 0 <= kv_valid <= sk (0 = every key), and kv_valid > 0
+// only with causal 0 and window 0.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another shape or type.
 int icq_flash_attention(const void* q, const void* k, const void* v,
                         void* out, int dtype, int b, int sq, int sk, int H,
                         int KVH, int dqk, int dv, float scale, int causal,
-                        int window, void* stream) {
+                        int window, int kv_valid, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KVH < 1 || H % KVH != 0 ||
-      b > 65535 || H > 65535 || window < 0 || (window > 0 && sq > sk))
+      b > 65535 || H > 65535 || window < 0 || (window > 0 && sq > sk) ||
+      kv_valid < 0 || kv_valid > sk ||
+      (kv_valid > 0 && (causal != 0 || window > 0)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
+  const int kv_end = kv_valid > 0 ? kv_valid : sk;
   switch (pair(dqk, dv)) {
 #define ICQ_FLASH_CASE(DQK, DV)                                          \
   case pair(DQK, DV):                                                    \
     return launch_dtype<DQK, DV>(dtype, q, k, v, out, b, sq, sk, H, KVH, \
-                                 scale, c, window, s);
+                                 scale, c, window, kv_end, s);
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)

@@ -14,10 +14,15 @@ is the reference's finite ``NEG_INF`` where ``q_pos < k_pos``, top-left
 aligned (both counted from 0, also when sq != sk), and with ``window`` >
 0 also where ``q_pos - k_pos >= window`` (the reference's sliding band,
 ``models/attention.py``: recurrentgemma's local layers; a windowed call
-needs sq <= sk, so that every row keeps a key); the softmax weights
+needs sq <= sk, so that every row keeps a key), and with ``kv_valid``
+> 0 where ``k_pos >= kv_valid`` (the key-padding bound of the
+reference's padded cross attention, ``chunked_attention(kv_valid=)``;
+only in a non-causal call with no window, so that every row keeps keys
+[0, kv_valid)); the softmax weights
 are cast to v's type before the P . V product (f32 sums), and the output
 is ``o / max(l, 1e-30)``.  The kernel keeps a running max and sum over
-key tiles and skips tiles above the diagonal and left of the band; the
+key tiles and skips tiles above the diagonal, left of the band and past
+``kv_valid`` (the padded rows are read in place, never copied); the
 plain version takes each head's full softmax at once.  They agree to
 rounding: 2e-5 in f32 and 2e-2 in bf16, the reference's own
 tolerances.
@@ -54,7 +59,7 @@ def _compiled(dqk: int, dv: int):
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            window: int = 0):
+            causal: bool = True, window: int = 0, kv_valid: int = 0):
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError(f"q, k and v must be 4-d (b, s, heads, dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -70,18 +75,24 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0 or (window > 0 and sq > sk):
         raise ValueError(f"window must be >= 0, and a windowed call needs sq "
                          f"<= sk; got window={window}, sq={sq}, sk={sk}")
+    if not 0 <= kv_valid <= sk or (kv_valid and (causal or window)):
+        raise ValueError(f"kv_valid must be in [0, sk={sk}] and is taken only "
+                         f"by a non-causal call with no window; got "
+                         f"kv_valid={kv_valid}, causal={causal}, "
+                         f"window={window}")
     return b, sq, sk, H, KVH, dqk, dv
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          window: int = 0):
+                          window: int = 0, kv_valid: int = 0):
     """Plain version (the reference's oracle ``flash_attention_ref``,
-    with the reference's band mask under ``window``), one (b, head) at a
-    time so that only one (sq, sk) score matrix is alive: the full f32
-    softmax, p cast to v's type before P . V, the row sum applied after
-    the product, as the kernel does."""
-    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, window)
+    with the reference's band mask under ``window`` and key-padding mask
+    under ``kv_valid``), one (b, head) at a time so that only one (sq,
+    sk) score matrix is alive: the full f32 softmax, p cast to v's type
+    before P . V, the row sum applied after the product, as the kernel
+    does."""
+    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, causal, window, kv_valid)
     g = H // KVH
     scale = dqk ** -0.5
     out = torch.empty((b, sq, H, dv), dtype=v.dtype, device=q.device)
@@ -92,7 +103,9 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
         visible &= gap >= 0
     if window:
         visible &= gap < window
-    masked = causal or bool(window)
+    if kv_valid:
+        visible &= torch.arange(sk, device=q.device)[None, :] < kv_valid
+    masked = causal or bool(window) or bool(kv_valid)
     with full_f32_matmul():
         for bi in range(b):
             for h in range(H):
@@ -109,10 +122,10 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, *, causal: bool = True,
-                         window: int = 0):
+                         window: int = 0, kv_valid: int = 0):
     """Launch the flash attention kernel; same operands and output as
     ``flash_attention_torch``."""
-    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, window)
+    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, causal, window, kv_valid)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not (t.is_cuda and t.device == q.device and t.dtype == v.dtype
                 and t.dtype in DTYPES and t.is_contiguous()
@@ -131,7 +144,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dv, dqk ** -0.5,
-        int(causal), int(window), ctypes.c_void_p(stream))
+        int(causal), int(window), int(kv_valid), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{lib.icq_error_string(err).decode()}")

@@ -171,14 +171,16 @@ def icm_encode(x, init_codes, C, *, iters: int):
     return fn(x, init_codes, C, iters=iters)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_valid: int = 0):
     """Flash attention with GQA and MQA: q (b, sq, H, dqk), k (b, sk,
     KVH, dqk), v (b, sk, KVH, dv), f32 or bf16, H a multiple of KVH ->
     (b, sq, H, dv) in v's type, scaled by dqk ** -0.5 (on the card
     (dqk, dv) one of ``flash_attention.HEAD_DIMS``); ``causal`` masks
     top-left aligned (q_pos >= k_pos); ``window`` > 0 also masks
-    q_pos - k_pos >= window (needs sq <= sk)."""
+    q_pos - k_pos >= window (needs sq <= sk); ``kv_valid`` > 0 masks
+    keys at k_pos >= kv_valid (a non-causal call with no window only)."""
     _check_faults("flash_attention")
     fn = (fa.flash_attention_cuda if _on_card(q)
           else fa.flash_attention_torch)
-    return fn(q, k, v, causal=causal, window=window)
+    return fn(q, k, v, causal=causal, window=window, kv_valid=kv_valid)

@@ -1,7 +1,8 @@
-"""Serving command of the port (twin of ``repro.launch.serve``): the
-decoder LMs of dense, MoE and MLA layers (``--arch``) and the ANN index
-(``--ann``, ``--load-artifacts`` and ``--serve-loop``; flat, two-step
-and IVF kinds).
+"""Serving command of the port (twin of ``repro.launch.serve``): the LMs
+of every family (``--arch``: dense, MoE, MLA, SSM, hybrid, the
+encoder-decoder and the VLM) and the ANN index (``--ann``,
+``--load-artifacts`` and ``--serve-loop``; flat, two-step and IVF
+kinds).
 
     # a dense LM at full width on the card, random weights from --seed:
     # prefill a seeded prompt batch (the flash kernel in every layer),
@@ -14,6 +15,14 @@ and IVF kinds).
     # ICQ-KV demonstration on the arch's head geometry
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-236b --smoke --device cpu --icq-kv
+    # whisper: 1500 seeded audio frames a row through the encoder, the
+    # prompt through the decoder (cross attention over the frames); the
+    # VLM: 256 seeded patch embeddings before the text (--prompt-len
+    # counts them)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --prompt-len 64 --decode-steps 8 --batch 2
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch internvl2-76b --smoke --device cpu --prompt-len 16
     # the reduced config on the CPU, through the plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --device cpu --prompt-len 32 --decode-steps 8 --batch 2
@@ -284,13 +293,37 @@ def icq_caches_from_prefill(kv_cfg, caches, s: int, max_len: int):
                        for name in per[0]}}
 
 
+def lm_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
+    """The reference launcher's prompt batch, numpy arrays drawn from one
+    ``np.random.default_rng(seed)`` in its order (so that both packages
+    see the same inputs): ``tokens`` (batch, prompt_len, less the VLM's
+    ``num_vision_tokens``) int32, then the VLM's ``patch_emb`` (batch,
+    num_vision_tokens, vision_dim) and whisper's ``audio_emb`` (batch,
+    encoder_seq_len, d_model), f32."""
+    vis = cfg.num_vision_tokens if cfg.frontend == "vision_stub" else 0
+    if prompt_len <= vis:
+        raise ValueError(f"prompt_len={prompt_len} must exceed the "
+                         f"{vis} vision tokens it counts")
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (batch, prompt_len - vis), dtype=np.int32)}
+    if vis:
+        out["patch_emb"] = rng.standard_normal(
+            (batch, vis, cfg.vision_dim)).astype(np.float32)
+    if cfg.encdec:
+        out["audio_emb"] = rng.standard_normal(
+            (batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def serve_lm(cfg, *, prompt_len: int, decode_steps: int, batch: int,
              device=None, seed: int = 0, icq_kv: bool = False,
              icq_top_c=None, params=None, verbose: bool = True):
-    """Serve a decoder LM: draw its params from ``seed`` on the
-    device (or take ``params``), prefill a prompt batch of token ids
-    from ``np.random.default_rng(seed)`` (the reference's ids at seed
-    0), then greedy-decode ``decode_steps`` tokens.  One untimed
+    """Serve an LM: draw its params from ``seed`` on the device (or take
+    ``params``), prefill the prompt batch ``lm_batch(cfg, batch,
+    prompt_len, seed)`` (the reference launcher's at seed 0; the VLM's
+    ``prompt_len`` counts its vision tokens, and so does ``max_len``),
+    then greedy-decode ``decode_steps`` tokens.  One untimed
     prefill at the same shape comes first (on the card: the kernel
     library, cuBLAS, the allocator).  With ``icq_kv`` the same steps
     run again through the ICQ-KV decode (``build_icq_decode``),
@@ -302,11 +335,11 @@ def serve_lm(cfg, *, prompt_len: int, decode_steps: int, batch: int,
     ``tokens_per_s`` (batch / that median), ``peak_mib`` (None on the
     CPU), ``tokens`` (b, 1 + steps) numpy, ``logits`` (b, 1 + steps, V)
     f32 on the device (the prefill's last position, then each step's),
-    ``launches`` (flash launches of the timed prefill and of the decode
-    steps) and, with ``icq_kv``, ``icq`` (its ``decode_ms``,
-    ``max_logit_err`` and ``agree`` share against the dense steps,
-    ``d_fast``, ``top_c`` and the cache ``bytes`` a step reads, dense
-    and ICQ)."""
+    ``launches`` (flash launches of the timed prefill, the encoder's and
+    the cross attention's included, and of the decode steps) and, with
+    ``icq_kv``, ``icq`` (its ``decode_ms``, ``max_logit_err`` and
+    ``agree`` share against the dense steps, ``d_fast``, ``top_c`` and
+    the cache ``bytes`` a step reads, dense and ICQ)."""
     import torch
 
     from repro_torch.index.base import resolve_device
@@ -320,11 +353,9 @@ def serve_lm(cfg, *, prompt_len: int, decode_steps: int, batch: int,
     prefill_fn, decode_fn, model = build_serve_fns(cfg)
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed))
-    rng = np.random.default_rng(seed)
-    prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len),
-                          dtype=np.int32)
     max_len = prompt_len + decode_steps
-    tokens_in = {"tokens": torch.from_numpy(prompt).to(device)}
+    tokens_in = {k: torch.from_numpy(a).to(device)
+                 for k, a in lm_batch(cfg, batch, prompt_len, seed).items()}
     prefill_fn(params, tokens_in, max_len)              # warm, untimed
     if card:
         torch.cuda.synchronize(device)
@@ -440,23 +471,18 @@ def icq_kv_demo(cfg, *, batch: int, max_len: int, device=None,
 
 
 def serve_arch(args):
-    """``--arch``: the LM's config, ``serve_lm`` on it; an arch the port
-    does not serve exits with a one-line error naming its ROADMAP
-    item.  ``--icq-kv`` on an arch ICQ-KV does not serve runs
+    """``--arch``: the LM's config, ``serve_lm`` on it; an unknown arch
+    exits with a one-line error.  ``--icq-kv`` on an arch ICQ-KV does
+    not serve (MoE, MLA, SSM, hybrid, encoder-decoder, VLM) runs
     ``icq_kv_demo`` after the serving, as the reference launcher
     does."""
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.models.transformer import unported_item
     from repro_torch.quant.serve_icq import supports_icq_kv
 
     try:
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     except KeyError as e:
         raise SystemExit(f"--arch: {e.args[0]}") from e
-    item = unported_item(cfg)
-    if item:
-        raise SystemExit(f"--arch {args.arch}: the {cfg.family} family is "
-                         f"not ported; it waits for ROADMAP {item}")
     dense_kv = supports_icq_kv(cfg)
     serve_lm(cfg, prompt_len=args.prompt_len,
              decode_steps=args.decode_steps, batch=args.batch,
@@ -471,8 +497,8 @@ def serve_arch(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None,
-                    help="serve this LM (configs.list_archs(); the decoder "
-                         "LMs of dense, MoE and MLA layers are ported)")
+                    help="serve this LM (configs.list_archs(); every arch "
+                         "is ported)")
     ap.add_argument("--smoke", action="store_true",
                     help="with --arch: the reduced config (smoke_config)")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -482,7 +508,8 @@ def main(argv=None):
                     help="with --arch: also decode through the ICQ-KV "
                          "cache (crude scores over the high-variance key "
                          "dims, exact attention over the top survivors); "
-                         "for an arch with no dense KV cache (MoE, MLA) "
+                         "for an arch with no dense decoder-only KV cache "
+                         "(MoE, MLA, SSM, hybrid, encoder-decoder, VLM) "
                          "the standalone demonstration on its head "
                          "geometry")
     ap.add_argument("--ann", action="store_true",

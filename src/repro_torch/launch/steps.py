@@ -10,8 +10,10 @@ from repro_torch.models import build_model
 
 
 def build_serve_fns(cfg, *, attn_impl: str = "chunked", mesh=None):
-    """(prefill_fn, decode_fn, model).  prefill(params, batch, max_len);
-    decode(params, tokens, caches)."""
+    """(prefill_fn, decode_fn, model).  prefill(params, batch, max_len),
+    ``batch`` the reference's dict: ``tokens``, and ``patch_emb`` (the
+    VLM) or ``audio_emb`` (the encoder-decoder); decode(params, tokens,
+    caches)."""
     model = build_model(cfg, attn_impl=attn_impl, mesh=mesh)
 
     def prefill_fn(params, batch, max_len: int):

@@ -1,21 +1,25 @@
 """Attention layers (twin of ``repro.models.attention``): GQA with
 chunked online-softmax, the triangular chunk-pair scan, full einsum
-attention and single-token decode against a KV cache.
+attention, cross attention over encoder states and single-token decode
+against a KV cache.
 
 On the CPU each function is the plain twin of the reference's.  On a
-CUDA tensor the causal self-attention of ``full_attention``,
-``chunked_attention`` and ``triangular_chunked_attention`` (query and
-key positions both counted from 0, no padding mask, with or without a
-sliding window) is exactly what the flash kernel computes, so there
-they launch ``kernels.ops.flash_attention`` and nothing else.  v may be
-narrower than q and k (MLA's prefill: q/k 192, v 128; the output takes
-v's width); a (q/k, v) width pair the kernel does not compile (it
-compiles 32, 64, 128 and 256 with v as wide, and (192, 128)) raises its
-``ValueError``, and a call the kernel does not cover (a query offset, a
-key padding mask, a non-causal call) raises ``NotImplementedError``.
-``decode_attention`` is not a kernel in the reference either and stays
-plain PyTorch on both devices.  Cross attention waits for ROADMAP item
-21.
+CUDA tensor ``full_attention``, ``chunked_attention`` and
+``triangular_chunked_attention`` compute exactly what the flash kernel
+computes when query and key positions both count from 0 (causal or
+not, with or without a sliding window, with or without the key-padding
+bound ``kv_valid``), so there they launch ``kernels.ops.flash_attention``
+and nothing else; so does ``cross_attention_apply``, on the unpadded
+operands (each query row is computed on its own, and the kernel's
+ragged-tail mask masks what the reference's padding and ``kv_valid``
+mask, so rows [0, s) are the padded call's).  v may be narrower than q
+and k (MLA's prefill: q/k 192, v 128; the output takes v's width); a
+(q/k, v) width pair the kernel does not compile (it compiles 32, 64,
+128 and 256 with v as wide, and (192, 128)) raises its ``ValueError``,
+and a call no served model makes (a query offset, ``full_attention``'s
+``mask=``) raises ``NotImplementedError``.  ``decode_attention`` and
+``cross_attention_decode`` are not kernels in the reference either and
+stay plain PyTorch on both devices.
 """
 from __future__ import annotations
 
@@ -25,9 +29,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import nn
 
 NEG_INF = -1e30
-# what the card does not serve yet, by the ROADMAP item that brings it
-_ITEM = {"non-causal": "item 21 (the encoder-decoder and the VLM)",
-         "offset": "item 21 (the encoder-decoder and the VLM)"}
+# what the card does not serve, by the ROADMAP item that would bring it
+_ITEM = "item 28 (attention calls no served model makes on the card)"
 
 
 def attn_init(generator: torch.Generator, cfg, dtype=torch.float32):
@@ -74,18 +77,21 @@ def _gqa_out(probs, v):
     return out.reshape(b, sq, kvh * g, v.shape[-1])
 
 
-def _flash(q, k, v, *, causal, window=0, q_offset=0, masked=False):
-    """The card's attention: the flash kernel for causal self-attention
-    from position 0 (with the band mask under ``window``), a
-    ``NotImplementedError`` naming its ROADMAP item for any other call."""
-    for cond, what in ((not causal, "non-causal"),
-                       (q_offset or masked, "offset")):
-        if cond:
-            raise NotImplementedError(
-                f"attention on the card serves causal self-attention from "
-                f"position 0 only (the flash kernel); a {what} call waits "
-                f"for ROADMAP {_ITEM[what]}")
-    return ops.flash_attention(q, k, v, causal=True, window=window)
+def _flash(q, k, v, *, causal, window=0, kv_valid=0, q_offset=0,
+           masked=False):
+    """The card's attention: the flash kernel for queries and keys both
+    counted from position 0 (causal or not, with the band mask under
+    ``window`` and the key-padding bound ``kv_valid``), a
+    ``NotImplementedError`` naming its ROADMAP item for a query offset
+    or an arbitrary mask."""
+    if q_offset or masked:
+        raise NotImplementedError(
+            f"attention on the card serves queries and keys counted from "
+            f"position 0 with no mask but the causal, window and kv_valid "
+            f"ones (the flash kernel); a query offset or a mask= call "
+            f"waits for ROADMAP {_ITEM}")
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               kv_valid=kv_valid)
 
 
 def chunked_attention(q, k, v, *, causal: bool, chunk: int,
@@ -97,7 +103,7 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int,
     kv_valid.  On the card: the flash kernel (module docstring)."""
     if q.is_cuda:
         return _flash(q, k, v, causal=causal, window=window,
-                      q_offset=q_offset, masked=bool(kv_valid))
+                      kv_valid=kv_valid, q_offset=q_offset)
     b, sq, h, dh = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kvh
@@ -250,3 +256,51 @@ def attention_apply(p, x, cfg, positions, *, causal=True, window=0,
 
 def _pad_len(n: int, c: int) -> int:
     return ((n + c - 1) // c) * c
+
+
+# ------------------------------------------------------ cross attention ----
+
+def cross_attn_init(generator: torch.Generator, cfg, dtype=torch.float32):
+    return attn_init(generator, cfg, dtype)
+
+
+def cross_kv(p, enc_out, cfg):
+    """The cross attention's K and V of the encoder states: (b, s_enc,
+    KVH, dh) each, contiguous (the decoder's static cross cache)."""
+    return (_split_heads(enc_out @ p["wk"], cfg.num_kv_heads, cfg.head_dim),
+            _split_heads(enc_out @ p["wv"], cfg.num_kv_heads, cfg.head_dim))
+
+
+def cross_attention_apply(p, x, enc_out, cfg, *, kv=None):
+    """Decoder cross attention over encoder states (no rope, no mask).
+    ``kv``: the ``cross_kv`` of ``enc_out`` when the caller has them
+    already (the prefill, which also caches them).  On the CPU, chunked
+    when either side exceeds attn_chunk, q and k / v padded to multiples
+    of it and the padded keys masked with ``kv_valid``, as the
+    reference; on the card the flash kernel on the unpadded operands
+    (module docstring)."""
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
+    k, v = kv if kv is not None else cross_kv(p, enc_out, cfg)
+    sk = k.shape[1]
+    if q.is_cuda or max(s, sk) <= cfg.attn_chunk:
+        out = full_attention(q, k, v, causal=False)
+    else:
+        qc, kc = _pad_len(s, cfg.attn_chunk), _pad_len(sk, cfg.attn_chunk)
+        qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, qc - s))
+        kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, kc - sk))
+                  for t in (k, v))
+        out = chunked_attention(qp, kp, vp, causal=False,
+                                chunk=cfg.attn_chunk, kv_valid=sk)[:, :s]
+    return out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+
+
+def cross_attention_decode(p, x, k_cache, v_cache, cfg):
+    """Decode-time cross attention against the static cross cache (read
+    only); plain PyTorch on both devices."""
+    b = x.shape[0]
+    q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
+    valid = torch.ones(k_cache.shape[:2], dtype=torch.bool,
+                       device=x.device)
+    out = decode_attention(q, k_cache, v_cache, valid)
+    return out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]

@@ -1,8 +1,9 @@
-"""Model assembly of the decoder LMs (twin of ``repro.models.transformer``
-for the layer kinds ``"dense"`` (tinyllama, llama3, gemma, granite),
-``"dense_first"`` and ``"moe"`` (moonshot), ``"mla_dense"`` and
-``"mla_moe"`` (deepseek-v2), ``"ssm"`` (mamba2) and the hybrid's
-``"rglru"`` and ``"local"`` (recurrentgemma)).
+"""Model assembly of the served LMs (twin of ``repro.models.transformer``
+for the layer kinds ``"dense"`` (tinyllama, llama3, gemma, granite, and
+the VLM internvl2's backbone), ``"dense_first"`` and ``"moe"``
+(moonshot), ``"mla_dense"`` and ``"mla_moe"`` (deepseek-v2), ``"ssm"``
+(mamba2), the hybrid's ``"rglru"`` and ``"local"`` (recurrentgemma),
+and the encoder-decoder's ``"enc"`` and ``"dec"`` (whisper)).
 
 Layers are *stacked* as in the reference: every leaf of a segment's
 params (``params["seg0"]``, ``["seg1"]``, one per run of one kind) has a
@@ -10,12 +11,24 @@ leading layer axis, so the reference's params carry across leaf for leaf
 (``params_from_numpy``).  The hybrid keeps the reference's layout too:
 ``params["groups"]["b{i}"]`` stacked over the ``num_layers //
 len(block_pattern)`` groups, ``params["tail{i}"]`` the leftover layers
-(the caches alike).  A Python loop over the layer index applies them.
+(the caches alike); whisper's encoder is ``params["enc_layers"]``,
+stacked the same way, and its decoder ``params["seg0"]`` of kind
+``"dec"``.  A Python loop over the layer index applies them.  The
+stubbed frontends take precomputed inputs as the reference's do: the
+VLM's ``batch["patch_emb"]`` (b, num_vision_tokens, vision_dim),
+projected by ``vis_proj`` and prepended to the text tokens (its
+positions count them); whisper's ``batch["audio_emb"]`` (b, frames,
+d_model), plus the learned ``enc_pos``, through the non-causal encoder;
+the decoder adds the learned ``dec_pos`` and attends over the encoder's
+output in every layer (cross attention, its K/V computed once a prefill
+for both the cache and the attention).
 The prefill's attention runs the flash kernel on the card
 (``models.attention``, ``models.mla``; the local layers' with the
-sliding window); the decode step writes its cache (K/V, MLA's latent and
-rope key, the SSM's state and conv window, the RG-LRU's state, the local
-layers' ring of ``min(max_len, local_window)`` slots) in place (the
+sliding window; the encoder's and the cross attention non-causal); the
+decode step writes its cache (K/V, MLA's latent and rope key, the SSM's
+state and conv window, the RG-LRU's state, the local layers' ring of
+``min(max_len, local_window)`` slots; the cross cache ``ck`` / ``cv`` is
+written by the prefill and only read after) in place (the
 reference donates the cache) at the position held by a 0-d device
 tensor, so a step does not synchronise the host.  Every matrix product
 runs in full f32 on the card (TF32 off, ``index.base.full_f32_matmul``).
@@ -26,8 +39,8 @@ Entry points (``build_model``):
   prefill(params, batch, max_len)       -> (last-token logits, caches)
   decode_step(params, tokens, caches)   -> (logits, caches)
 
-The other layer kinds (enc, dec), ``train_forward`` and a ``mesh`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``train_forward`` and a ``mesh`` raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -46,18 +59,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 
 # ROADMAP items of what this module does not build yet
-_ENCDEC_VLM = "item 21 (the encoder-decoder and the VLM)"
 _TRAIN = "item 22 (LM training)"
 _SHARDING = "item 23 (LM sharding and the dry run)"
-
-
-def unported_item(cfg) -> str:
-    """The ROADMAP item that brings ``cfg``'s family, or "" for a
-    decoder-only arch of dense, MoE, MLA, SSM or hybrid layers (what this
-    module serves)."""
-    if cfg.encdec or cfg.frontend != "none" or cfg.learned_pos_emb:
-        return _ENCDEC_VLM
-    return ""
 
 
 def _tree_map(fn, *trees):
@@ -76,7 +79,7 @@ def _layer(stacked, li: int):
 # =================================================================
 
 _KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe", "ssm",
-          "rglru", "local")
+          "rglru", "local", "enc", "dec")
 _MLA_KINDS = ("mla_dense", "mla_moe")
 _MOE_KINDS = ("moe", "mla_moe")
 
@@ -95,10 +98,7 @@ def _norm_apply(cfg, p, x):
 
 def _check_kind(kind: str):
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported; the port builds the "
-            f"decoder layer kinds {_KINDS} (enc / dec: ROADMAP "
-            f"{_ENCDEC_VLM})")
+        raise ValueError(f"layer kind {kind!r} is not one of {_KINDS}")
 
 
 def layer_init(generator: torch.Generator, cfg, dtype, kind: str):
@@ -115,6 +115,9 @@ def layer_init(generator: torch.Generator, cfg, dtype, kind: str):
         p["attn"] = mla_mod.mla_init(generator, cfg, dtype)
     else:
         p["attn"] = attn.attn_init(generator, cfg, dtype)
+    if kind == "dec":
+        p["norm_cross"] = _norm_init(cfg, dtype, dev)
+        p["cross"] = attn.cross_attn_init(generator, cfg, dtype)
     if kind in _MOE_KINDS:
         p["ffn"] = moe_mod.moe_init(generator, cfg, dtype)
     elif kind in ("mla_dense", "dense_first"):
@@ -151,16 +154,25 @@ def layer_apply(p, x, cfg, positions, kind: str, *, enc_out=None,
                                      impl=attn_impl)
     elif kind in _MLA_KINDS:
         x = x + mla_mod.mla_attention_apply(p["attn"], h, cfg, positions)
+    elif kind == "enc":
+        x = x + attn.attention_apply(p["attn"], h, cfg, positions,
+                                     causal=False, impl="full",
+                                     rope=not cfg.learned_pos_emb)
     else:
         x = x + attn.attention_apply(p["attn"], h, cfg, positions,
                                      causal=True, impl=attn_impl,
                                      rope=not cfg.learned_pos_emb)
+    if kind == "dec":
+        x = x + attn.cross_attention_apply(
+            p["cross"], _norm_apply(cfg, p["norm_cross"], x), enc_out, cfg)
     y, moe_aux = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
     return x + y, aux if moe_aux is None else moe_aux
 
 
 def layer_init_cache(cfg, kind: str, batch: int, max_len: int, dtype,
-                     device=None):
+                     device=None, enc_len=None):
+    """A layer's zeroed decode cache; a ``dec`` layer's cross cache holds
+    ``enc_len`` encoder positions (default ``cfg.encoder_seq_len``)."""
     _check_kind(kind)
     dt = nn.as_dtype(dtype)
     if kind == "ssm":
@@ -180,6 +192,11 @@ def layer_init_cache(cfg, kind: str, batch: int, max_len: int, dtype,
     if kind == "local":        # the ring's absolute positions, -1 = empty
         c["k_pos"] = torch.full((batch, S), -1, dtype=torch.int32,
                                 device=device)
+    if kind == "dec":
+        cross = (batch, enc_len or cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        c["ck"] = torch.zeros(cross, dtype=dt, device=device)
+        c["cv"] = torch.zeros(cross, dtype=dt, device=device)
     return c
 
 
@@ -189,12 +206,15 @@ def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
     ``layer_init_cache`` when None): K/V (or MLA's latent and rope key)
     at positions [0, s), zeros past them; a local layer's last min(s, W)
     K/V at ring slots ``i % W`` with their positions; the SSM's and the
-    RG-LRU's final state and conv window.  Returns (x, cache)."""
+    RG-LRU's final state and conv window; a ``dec`` layer's cross K/V of
+    ``enc_out`` (computed once, for the cache and the cross attention;
+    the reference computes them twice).  Returns (x, cache)."""
     _check_kind(kind)
     b, s, _ = x.shape
     if cache is None:
-        cache = layer_init_cache(cfg, kind, b, max(max_len, s), x.dtype,
-                                 x.device)
+        cache = layer_init_cache(
+            cfg, kind, b, max(max_len, s), x.dtype, x.device,
+            enc_len=enc_out.shape[1] if enc_out is not None else None)
     h = _norm_apply(cfg, p["norm1"], x)
     if kind == "ssm":
         return x + ssm_mod.ssm_prefill(p["mixer"], h, cfg, cache), cache
@@ -237,6 +257,13 @@ def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
         cache["v"][:, :s] = v
         x = x + o.reshape(b, s, cfg.num_heads * cfg.head_dim) \
             @ p["attn"]["wo"]
+    if kind == "dec":
+        ck, cv = attn.cross_kv(p["cross"], enc_out, cfg)
+        cache["ck"].copy_(ck)
+        cache["cv"].copy_(cv)
+        x = x + attn.cross_attention_apply(
+            p["cross"], _norm_apply(cfg, p["norm_cross"], x), enc_out, cfg,
+            kv=(ck, cv))
     y, _ = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
     return x + y, cache
 
@@ -246,7 +273,8 @@ def layer_decode(p, x, cfg, cache, pos, kind: str):
     tensor on x's device, or an int).  Writes K/V (or the latent and
     rope key) at ``pos`` of ``cache`` (a local layer: at ring slot ``pos
     % W``; the SSM and the RG-LRU: their state and conv window) in place
-    and returns (x, cache)."""
+    and returns (x, cache); a ``dec`` layer also attends over its cross
+    cache, which it only reads."""
     _check_kind(kind)
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -293,6 +321,10 @@ def layer_decode(p, x, cfg, cache, pos, kind: str):
         o = attn.decode_attention(q, kc, vc, mask)
         x = x + o.reshape(b, 1, cfg.num_heads * cfg.head_dim) \
             @ p["attn"]["wo"]
+    if kind == "dec":
+        x = x + attn.cross_attention_decode(
+            p["cross"], _norm_apply(cfg, p["norm_cross"], x), cache["ck"],
+            cache["cv"], cfg)
     y, _ = _ffn(p, _norm_apply(cfg, p["norm2"], x), cfg, kind)
     return x + y, cache
 
@@ -369,20 +401,21 @@ def _layer_plan(cfg):
     return [("dense", cfg.num_layers)]
 
 
+def _max_pos(cfg):
+    return 65536 if not cfg.encdec else 32768
+
+
 def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
-    """The decoder LM of ``cfg`` (dense, MoE, MLA, SSM or hybrid layers).
-    ``init(generator)`` draws the params on the generator's device (an
-    int seeds a generator on ``device``, the card unless the caller
-    names another); the other entry points run where the params are."""
+    """The LM of ``cfg`` (dense, MoE, MLA, SSM, hybrid, encoder-decoder
+    or VLM).  ``init(generator)`` draws the params on the generator's
+    device (an int seeds a generator on ``device``, the card unless the
+    caller names another); the other entry points run where the params
+    are.  ``batch`` is the reference's: ``"tokens"`` (b, s) ids, and
+    ``"patch_emb"`` (the VLM) or ``"audio_emb"`` (whisper), numpy arrays
+    or tensors."""
     if mesh is not None:
         raise NotImplementedError(
             f"a sharded model (mesh=) waits for ROADMAP {_SHARDING}")
-    item = unported_item(cfg)
-    if item:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported; the port serves the "
-            f"decoder LMs of dense, MoE, MLA, SSM and hybrid layers, and "
-            f"this family waits for ROADMAP {item}")
     dtype = nn.as_dtype(cfg.param_dtype)
     cdt = nn.as_dtype(cfg.compute_dtype)
     tied = cfg.tie_embeddings
@@ -420,6 +453,19 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         if not tied:
             params["head"] = nn.dense_init(generator, cfg.d_model,
                                            cfg.padded_vocab, dtype)
+        if cfg.frontend == "vision_stub":
+            params["vis_proj"] = nn.dense_init(generator, cfg.vision_dim,
+                                               cfg.d_model, dtype)
+        if cfg.encdec:
+            params["enc_layers"] = _stacked_init(generator, cfg, dtype, "enc",
+                                                 cfg.encoder_layers)
+            params["enc_norm"] = _norm_init(cfg, dtype, generator.device)
+            if cfg.learned_pos_emb:
+                params["enc_pos"] = nn.embedding_init(
+                    generator, cfg.encoder_seq_len, cfg.d_model, dtype)
+        if cfg.learned_pos_emb:
+            params["dec_pos"] = nn.embedding_init(generator, _max_pos(cfg),
+                                                  cfg.d_model, dtype)
         if cfg.hybrid:
             params["groups"] = {
                 f"b{i}": _stacked_init(generator, cfg, dtype, kind, n_groups)
@@ -438,6 +484,32 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             x = x * torch.tensor(emb_scale, dtype=x.dtype)
         return x
 
+    def _inputs(params, batch):
+        """The decoder's input rows (the VLM's projected patches first,
+        then the text tokens; plus ``dec_pos`` under learned positions)
+        and their positions."""
+        dev = params["embed"].device
+        x = _embed_tokens(params, batch["tokens"])
+        if cfg.frontend == "vision_stub":
+            patches = torch.as_tensor(batch["patch_emb"], device=dev)
+            x = torch.cat([patches.to(cdt) @ params["vis_proj"], x], dim=1)
+        if cfg.learned_pos_emb:
+            x = x + params["dec_pos"][: x.shape[1]][None].to(x.dtype)
+        return x, torch.arange(x.shape[1], device=dev)
+
+    def _encode(params, batch):
+        """Whisper's encoder over ``batch["audio_emb"]``: learned
+        positions, the non-causal ``enc`` layers, the final norm."""
+        a = torch.as_tensor(batch["audio_emb"],
+                            device=params["embed"].device).to(cdt)
+        if cfg.learned_pos_emb:
+            a = a + params["enc_pos"][: a.shape[1]][None].to(a.dtype)
+        pos = torch.arange(a.shape[1], device=a.device)
+        for li in range(cfg.encoder_layers):
+            a, _ = layer_apply(_layer(params["enc_layers"], li), a, cfg, pos,
+                               "enc")
+        return _norm_apply(cfg, params["enc_norm"], a)
+
     def _logits(params, x):
         x = _norm_apply(cfg, params["final_norm"], x)
         logits = (x @ params["embed"].T.to(x.dtype) if tied
@@ -449,14 +521,15 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             f"train_forward waits for ROADMAP {_TRAIN}; the port serves")
 
     def init_cache(batch_size: int, max_len: int, dtype_=None, *,
-                   device=None):
+                   device=None, enc_len=None):
         dt = dtype_ or cdt
         dev = resolve_device(device)
         caches: Dict[str, Any] = {
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
         def stack(kind, n):
-            one = layer_init_cache(cfg, kind, batch_size, max_len, dt, dev)
+            one = layer_init_cache(cfg, kind, batch_size, max_len, dt, dev,
+                                   enc_len)
             return _tree_map(lambda a: a[None].repeat((n,) + (1,) * a.ndim),
                              one)
         if cfg.hybrid:
@@ -473,14 +546,17 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     def prefill(params, batch, max_len: int):
         dev = params["embed"].device
         with full_f32_matmul():
-            x = _embed_tokens(params, batch["tokens"])
+            enc_out = _encode(params, batch) if cfg.encdec else None
+            x, positions = _inputs(params, batch)
             b, s, _ = x.shape
-            positions = torch.arange(s, device=dev)
-            caches = init_cache(b, max(max_len, s), device=dev)
+            caches = init_cache(
+                b, max(max_len, s), device=dev,
+                enc_len=enc_out.shape[1] if cfg.encdec else None)
             caches["pos"].fill_(s)
             for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
                 x, _ = layer_prefill(lp, x, cfg, positions, kind, max_len,
-                                     attn_impl=attn_impl, cache=lc)
+                                     enc_out=enc_out, attn_impl=attn_impl,
+                                     cache=lc)
             logits = _logits(params, x[:, -1:, :])
         return logits, caches
 
@@ -490,6 +566,9 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         pos = caches["pos"]
         with full_f32_matmul():
             x = _embed_tokens(params, tokens)
+            if cfg.learned_pos_emb:   # a gather at the device pos: no sync
+                x = x + params["dec_pos"].index_select(
+                    0, pos.long().reshape(1))[None].to(x.dtype)
             for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
                 x, _ = layer_decode(lp, x, cfg, lc, pos, kind)
             logits = _logits(params, x)

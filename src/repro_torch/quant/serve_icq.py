@@ -21,8 +21,7 @@ from repro_torch.api.serving import AnnEngine, build_ann_engine  # noqa: F401
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import nn
 from repro_torch.models.attention import qkv_project
-from repro_torch.models.transformer import (_layer, _norm_apply, _tree_map,
-                                            unported_item)
+from repro_torch.models.transformer import _layer, _norm_apply, _tree_map
 from repro_torch.quant.kv_cache import (ICQKVConfig, icq_kv_append,
                                         icq_kv_decode_attention,
                                         init_icq_kv_cache)
@@ -46,13 +45,11 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
             "the sharded ICQ-KV decode (mesh=) waits for ROADMAP item 23 "
             "(LM sharding and the dry run)")
     if not supports_icq_kv(cfg):
-        item = unported_item(cfg)
         raise NotImplementedError(
             f"ICQ-KV serves dense decoder-only archs (supports_icq_kv, the "
             f"reference's gate: no SSM, hybrid, encoder-decoder, MLA, "
-            f"experts or frontend); {cfg.name} ({cfg.family}) "
-            + (f"waits for ROADMAP {item}" if item
-               else "has no dense KV cache"))
+            f"experts or frontend); {cfg.name} ({cfg.family}) has no dense "
+            "KV cache")
     tied = cfg.tie_embeddings
     emb_scale = float(cfg.d_model) ** 0.5 if tied else 1.0
     cdt = nn.as_dtype(cfg.compute_dtype)

@@ -344,6 +344,53 @@ def test_cuda_flash_attention_mla_widths_match_plain_version(
     assert fa.kernel_attributes(dtype, 192, 128)["path"] == fa.PATHS[dtype]
 
 
+# (b, sq, sk, H, KVH, dqk, dv, kv_valid), non-causal: one key, a key
+# tile's edge (64) and one key past it, inside a tile with MQA, whisper's
+# padded cross attention (1024 x 2048 at kv_valid 1500), MLA's widths,
+# dh 256 (32-key tiles in bf16)
+FLASH_KV_VALID_CASES = [
+    (1, 100, 256, 4, 4, 64, 64, 1),
+    (1, 100, 256, 4, 2, 64, 64, 64),
+    (1, 100, 256, 4, 2, 64, 64, 65),
+    (2, 77, 300, 4, 1, 32, 32, 150),
+    (1, 1024, 2048, 20, 20, 64, 64, 1500),
+    (1, 130, 257, 4, 2, 192, 128, 200),
+    (1, 96, 97, 2, 1, 256, 256, 33),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,dqk,dv,kv_valid",
+                         FLASH_KV_VALID_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_kv_valid_matches_plain_version(
+        b, sq, sk, h, kvh, dqk, dv, kv_valid, dtype):
+    """The key-padding bound in both bodies against the plain version, at
+    2e-5 (f32) and 2e-2 (bf16); the unpadded call (keys [0, kv_valid))
+    equals the padded one bit for bit (what the model's cross attention
+    relies on); kv_valid with causal or a window raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(sq + sk + kv_valid)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).cuda()
+        for s in ((b, sq, h, dqk), (b, sk, kvh, dqk), (b, sk, kvh, dv)))
+    got = fa.flash_attention_cuda(q, k, v, causal=False, kv_valid=kv_valid)
+    want = fa.flash_attention_torch(q, k, v, causal=False, kv_valid=kv_valid)
+    short = fa.flash_attention_cuda(q, k[:, :kv_valid].contiguous(),
+                                    v[:, :kv_valid].contiguous(),
+                                    causal=False)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(short, got)
+    for kw in (dict(causal=True), dict(causal=False, window=8)):
+        with pytest.raises(ValueError, match="kv_valid"):
+            fa.flash_attention_cuda(q, k, v, kv_valid=kv_valid, **kw)
+
+
 @pytest.mark.gpu
 def test_cuda_kmeans_assign_takes_bf16():
     """bf16 operands run the f32 kernel on their exact f32 values."""
@@ -1527,8 +1574,13 @@ def test_cuda_prefill_refuses_an_uncompiled_head_width():
         attn.full_attention(q, k, k, causal=True, window=4),
         fa.flash_attention_torch(q, k, k, causal=True, window=4),
         rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        attn.chunked_attention(q, k, k, causal=False, chunk=4)
+    # so is a non-causal call; a query offset raises naming item 28
+    torch.testing.assert_close(
+        attn.chunked_attention(q, k, k, causal=False, chunk=4),
+        fa.flash_attention_torch(q, k, k, causal=False),
+        rtol=2e-5, atol=2e-5)
+    with pytest.raises(NotImplementedError, match="item 28"):
+        attn.chunked_attention(q, k, k, causal=True, chunk=4, q_offset=4)
 
 
 def _moe_mla_lm(arch, bf16):
@@ -1724,3 +1776,67 @@ def test_cuda_ssm_is_deterministic():
                           for c in (c1, c2))
     assert torch.equal(d1, d2)
     assert torch.equal(e1["seg0"]["state"], e2["seg0"]["state"])
+
+
+def _encdec_vlm_lm(arch, bf16, attn_chunk):
+    """A smoke config of whisper or the VLM whose head width the flash
+    kernel compiles: whisper at dh 64 (its own; 4 heads) over 100 frames
+    (ragged against the 64-key tile), the VLM at dh 32."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import scale_config
+    cfg = smoke_config(arch)
+    repl = (dict(head_dim=64, encoder_seq_len=100) if cfg.encdec
+            else dict(head_dim=32))
+    cfg = dataclasses.replace(cfg, attn_chunk=attn_chunk, **repl)
+    return scale_config(cfg) if bf16 else cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,bf16,attn_chunk", [
+    ("whisper-large-v3", False, 1024), ("whisper-large-v3", True, 1024),
+    ("whisper-large-v3", False, 8), ("internvl2-76b", False, 1024),
+    ("internvl2-76b", True, 8)])
+def test_cuda_encdec_vlm_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
+    """Whisper's prefill (the encoder non-causal, each decoder layer's
+    self-attention causal and its cross attention non-causal over the
+    unpadded 100 frames: one flash launch each) and the VLM's (4 patch
+    tokens before the text, one launch a layer), then 3 decode steps (no
+    flash launch) on the card against the CPU from the same params: f32
+    within 1e-5, bf16 within 2^-5 of the largest logit and of every
+    cache buffer; greedy tokens equal where the CPU's top-2 gap exceeds
+    the bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models import build_model
+    cfg = _encdec_vlm_lm(arch, bf16, attn_chunk)
+    launches = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.encdec
+                else cfg.num_layers)
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    card = _to(cpu, "cuda")
+    batch = lm_batch(cfg, 2, 24, seed=4)
+    tol = 2.0 ** -5 if bf16 else 1e-5
+    ops.LAUNCHES["flash_attention"] = 0
+    lg, cg = model.prefill(card, batch, 28)
+    assert ops.LAUNCHES["flash_attention"] == launches
+    lc, cc = model.prefill(cpu, batch, 28)
+    for step in range(4):
+        want = lc[:, -1].float()
+        bound = tol * max(1.0, float(want.abs().max()))
+        assert float((lg[:, -1].float().cpu() - want).abs().max()) <= bound
+        top2 = want.topk(2, dim=-1).values
+        same = lg[:, -1].float().argmax(-1).cpu() == want.argmax(-1)
+        assert bool((same | (top2[:, 0] - top2[:, 1] <= bound)).all()), step
+        if step < 3:
+            tok = want.argmax(-1).to(torch.int32)[:, None]
+            lg, cg = model.decode_step(card, tok.cuda(), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+    assert ops.LAUNCHES["flash_attention"] == launches
+    assert int(cg["pos"]) == int(cc["pos"]) == 27
+    for name, buf in cc["seg0"].items():
+        b = tol * max(1.0, float(buf.float().abs().max()))
+        assert float((cg["seg0"][name].float().cpu() - buf.float()).abs()
+                     .max()) <= b, name
