@@ -5,7 +5,9 @@ card, then builds and serves the flat, two-step and IVF indexes at
 SIFT1M geometry through the port's own entry points (``build_index``,
 ``load_ann_engine``), trains, and serves two dense LMs, a MoE LM, an
 MLA + MoE LM, an SSM, a hybrid, an encoder-decoder and a VLM at full
-width (``serve_lm``), and checks what comes out.
+width (``serve_lm``), trains a dense LM at full width through the
+``launch.train --arch`` command and its resume, and checks what comes
+out.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--batches 3] \
         [--profile DIR]
@@ -98,14 +100,23 @@ or outside a checkout of the repository.  Phases:
    inside a tile, whisper's padded cross attention, MQA, (192, 128)),
    which the wrapper refuses with causal or a window; each line names
    the body that ran, ``mma.sync`` bf16 or FMA f32, with its registers
-   and local-memory bytes); then the ops
+   and local-memory bytes), and in every one of these modes and both
+   types the backward kernels (dQ, then dK / dV) against the plain
+   backward from the same forward output, log-sum-exp and output
+   gradient (2e-5 / 2e-2 of the largest gradient), two launches equal
+   bit for bit, the forward with its log-sum-exp equal to the forward
+   without it bit for bit; then the ops
    once each at full width, counts reset before and read after: ADC and
    two-step at SIFT1M geometry (1M uint8 rows, one query's LUT, 2 fast
    codebooks, the threshold at the crude 0.3% quantile), flash attention
    at tinyllama-1.1b's (f32 and bf16) and llama3-405b's (bf16) attention
    widths at s = 4096, causal; and their times beside their bounds, their
    plain versions and a one-call library yardstick (``embedding_bag``,
-   ``scaled_dot_product_attention``);
+   ``scaled_dot_product_attention``); and the backward kernels at the
+   train cell's attention (f32, 8 x 2048, 32 / 4 heads of 64, causal)
+   and at cell B's (bf16, 1 x 2048, 16 heads of 256): each kernel's
+   time, the pair's, the plain backward's and SDPA's backward beside
+   their bounds (5 products against the forward's 2);
 8. (run after phase 5, as is 9) the degradation ladder on the
    two-step-f32, flat-f32 and ivf-f32 artifacts of phases 4-5: every rung the card offers (two-step and
    flat {full, crude}, IVF {full, probes, crude}) warmed once and served
@@ -291,6 +302,20 @@ or outside a checkout of the repository.  Phases:
    (window 2048)``, cell F's, with cell F's, and two more, ``(non-causal,
    encoder)`` and ``(non-causal, cross)``, cell G's, with cell G's.
 
+15. LM training (``launch.train --arch``, run last): tinyllama-1.1b's
+   loss and every gradient at depth 2, batch 1, 64 tokens, f32, on the
+   card against the CPU from the same weights (loss to 1e-5, each leaf
+   within 2e-4 of its largest; 4 flash forward launches and 2 of each
+   backward kernel); then cell "LM train A": tinyllama-1.1b at full width
+   and depth in f32 (remat, 2 microbatches of 8 x 2048 a step, AdamW)
+   through the command's ``main`` in process, ``--seq-len 2048
+   --global-batch 16 --steps 4 --save-every 2``, two more steps from its
+   final state in memory (the uninterrupted run, launches counted over
+   one step: 88 flash forwards, 44 of each backward kernel), and
+   ``--resume --steps 6`` from its checkpoint, whose two losses must
+   equal the uninterrupted run's bit for bit; every loss finite; losses,
+   dt a step, peak MiB.
+
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
 and the types of what holds it.
@@ -309,7 +334,9 @@ phase 14 one prefill and 4 decode steps of each LM cell (with the
 SSM's and the RG-LRU's pieces as ranges).
 
 The line before the last is the kernels' JSON record (the nine
-kernels, then the flash kernel's (192, 128) and windowed instances);
+kernels, then the flash kernel's (192, 128), windowed and non-causal
+instances, then the two backward kernels at the train cell's shape with
+phase 15's launches);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1827,12 +1854,12 @@ def flash_tolerance(dtype) -> float:
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
-def flash_body(dtype, dh, dv=None) -> str:
+def flash_body(dtype, dh, dv=None, kernel="forward") -> str:
     """The flash body that runs for ``dtype`` at (``dh``, ``dv``; ``dv``
-    defaults to ``dh``): its path, and its registers and local-memory
-    (spill) bytes per thread."""
+    defaults to ``dh``), the forward's or a backward kernel's: its path,
+    and its registers and local-memory (spill) bytes per thread."""
     from repro_torch.kernels import flash_attention as fa
-    a = fa.kernel_attributes(dtype, dh, dv)
+    a = fa.kernel_attributes(dtype, dh, dv, kernel)
     return (f"{a['path']}, {a['registers']} registers, "
             f"{a['local_bytes']} B local per thread")
 
@@ -1907,6 +1934,7 @@ def check_kernel_ops(seed: int):
                 f"{tol}): {'within' if ok else 'OUTSIDE'}")
             check(ok, f"flash_attention kernel != plain version {mode} "
                       f"{dtype}: max_abs_err {err}")
+            check_flash_backward(seed, mode, dtype, q, k, v, got)
     # kv_valid only in a non-causal call with no window (a row could keep
     # no key); the wrapper refuses the others before any launch
     q, k, v = attention_operands(seed, 1, 64, 64, 2, 2, 64, torch.float32)
@@ -1920,6 +1948,56 @@ def check_kernel_ops(seed: int):
         f"{'refused' if len(refused) == 2 else 'SERVED'} (ValueError)")
     check(len(refused) == 2, "kv_valid with causal or a window was served")
     log(f"phase 7 check launches: {read_launches()}")
+
+
+def check_flash_backward(seed, mode, dtype, q, k, v, out):
+    """Phase 7 (a), the backward in one mode: the forward with its
+    log-sum-exp equal to the forward without it (``out``) bit for bit;
+    dq, dk, dv of the backward kernels each within phase 7's tolerance
+    of its own largest magnitude in the plain backward, from the same
+    forward output, log-sum-exp and output gradient; two launches bit
+    for bit.  A plain gradient whose largest magnitude is below the
+    tolerance times the whole gradient's (over dq, dk and dv) is
+    rounding noise, and is held to the whole gradient's scale, named in
+    the log: at window 1 or one valid key a row sees one key, P = 1 and
+    dS = dP - D cancels exactly, so dq and dk are ~1e-7 against dv's
+    ~1 on both sides."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, sk, H, KVH, dh, dv, causal, window, kv_valid = mode
+    masks = dict(causal=causal, window=window, kv_valid=kv_valid)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7 * sq + dh)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    want = fa.flash_attention_bwd_torch(q, k, v, o, do, lse, **masks)
+    torch.cuda.synchronize()
+    tol = flash_tolerance(dtype)
+    same_fwd = torch.equal(o, out)
+    twice = all(torch.equal(x, y) for x, y in zip(got, again))
+    peaks = [float(w.float().abs().max()) for w in want]
+    whole = max(1e-30, max(peaks))
+    noise = [n for n, p in zip(("dq", "dk", "dv"), peaks) if p < tol * whole]
+    bounds = [tol * (whole if p < tol * whole else p) for p in peaks]
+    rel = [float((x.float() - w.float()).abs().max()) / bd
+           for x, w, bd in zip(got, want, bounds)]
+    ok = (same_fwd and twice and max(rel) <= 1.0
+          and all(x.dtype == dtype for x in got))
+    noted = (f"; rounding noise, at the whole gradient's scale: "
+             f"{', '.join(noise)}" if noise else "")
+    log(f"mode flash_attention backward b={b} sq={sq} sk={sk} H={H} "
+        f"KVH={KVH} dh={dh} dv={dv} causal={causal} window={window} "
+        f"kv_valid={kv_valid} {str(dtype).split('.')[-1]}: dq / dk / dv "
+        f"max_abs_err over tolerance {rel[0]:.3f} / {rel[1]:.3f} / "
+        f"{rel[2]:.3f} ({tol} of each one's largest magnitude{noted}); "
+        f"two launches "
+        f"{'equal' if twice else 'DIFFERENT'}; forward with the "
+        f"log-sum-exp {'equal' if same_fwd else 'DIFFERENT'}: "
+        f"{'within' if ok else 'OUTSIDE'}")
+    check(ok, f"flash_attention backward {mode} {dtype}: errors over "
+              f"tolerance {rel}, twice equal {twice}, forward equal "
+              f"{same_fwd}")
 
 
 def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize, dv=None,
@@ -2066,6 +2144,132 @@ def kernel_ops(seed: int, n: int):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms)
     return launches, records
+
+
+# the backward's timed shapes: the train cell's attention (phase 15:
+# tinyllama-1.1b, f32, 8 x 2048, 32 / 4 heads of 64, causal) and cell B's
+# (gemma-7b bf16, 1 x 2048, 16 heads of 256); the records keep the first
+FLASH_BWD_SHAPES = (
+    ("train A", dict(b=8, s=2048, H=32, KVH=4, dh=64), "float32"),
+    ("cell B", dict(b=1, s=2048, H=16, KVH=16, dh=256), "bfloat16"),
+)
+
+
+def attention_bwd_work(b, sq, sk, H, KVH, dh, dv, causal, itemsize, part):
+    """(bytes, operations) of the backward ``part``: "dq" (S, dP and dQ
+    per visible pair; q, k, v, O, dO and LSE read, dQ and D written),
+    "dkdv" (S, dP, dV and dK; q, k, v, dO, LSE and D read, dK and dV
+    written) or "all" (the 5 products S, dP, dV, dQ, dK; q, k, v, O, dO
+    and LSE read, dq, dk and dv written)."""
+    _, fwd_ops = attention_work(b, sq, sk, H, KVH, dh, causal, itemsize, dv)
+    pair_ops = fwd_ops / (dh + dv)        # 2 b H pairs
+    q_rows, kv_rows, stats = b * sq * H, b * sk * KVH, 4 * b * H * sq
+    if part == "dq":
+        return (itemsize * (q_rows * (2 * dh + 2 * dv) + kv_rows * (dh + dv))
+                + 2 * stats, pair_ops * (2 * dh + dv))
+    if part == "dkdv":
+        return (itemsize * (q_rows * (dh + dv) + 2 * kv_rows * (dh + dv))
+                + 2 * stats, pair_ops * (2 * dh + 2 * dv))
+    return (itemsize * (q_rows * (2 * dh + 2 * dv) + 2 * kv_rows * (dh + dv))
+            + stats, pair_ops * (3 * dh + 2 * dv))
+
+
+def sdpa_bwd_ms(q, k, v, do):
+    """The library yardstick of the backward: ``torch.autograd.grad`` of
+    one ``scaled_dot_product_attention`` (causal, ``enable_gqa``) output,
+    or (None, its refusal)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        call = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dot, retain_graph=True)
+        call()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return time_ms(call, 5), None
+
+
+def flash_backward_timing(seed: int, card: str):
+    """Phase 7 (d): the backward kernels at ``FLASH_BWD_SHAPES``: each
+    kernel's time (CUDA events), the whole backward's, the plain
+    backward's and SDPA's backward beside their bounds (5 products
+    against the forward's 2, at the f32 or bf16 peak); the forward with
+    and without its log-sum-exp.  Returns the records of the two kernels
+    at the train cell's shape."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    records = {}
+    for label, w, dt in FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        b, s, H, KVH, dh = w["b"], w["s"], w["H"], w["KVH"], w["dh"]
+        q, k, v = attention_operands(seed + 900 + dh, b, s, s, H, KVH, dh,
+                                     dtype)
+        g = torch.Generator(device="cuda").manual_seed(seed + 901)
+        do = torch.randn((b, s, H, dh), generator=g, device="cuda").to(dtype)
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        want = fa.flash_attention_bwd_torch(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        errs = [float((x.float() - y.float()).abs().max())
+                for x, y in zip(grads, want)]
+        tol = flash_tolerance(dtype)
+        for name, x, y, e in zip(("dq", "dk", "dv"), grads, want, errs):
+            check(e <= tol * float(y.float().abs().max()),
+                  f"flash backward {label} {name}: max_abs_err {e}")
+        del want
+        outs = tuple(torch.empty_like(x) for x in grads)
+        dbuf = torch.empty((b, H, s), dtype=torch.float32, device="cuda")
+        ms = {part: time_ms(lambda part=part: fa.flash_attention_bwd_kernel(
+            part, q, k, v, o, do, lse, *outs, dbuf), 5)
+            for part in fa.BWD_KERNELS}
+        ms_all = time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse), 5)
+        fwd_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), 5)
+        fwd_lse_ms = time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, with_lse=True), 5)
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
+            q, k, v, o, do, lse), 1)
+        lib_ms, refusal = sdpa_bwd_ms(q, k, v, do)
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        bounds = {part: bound_ms(*attention_bwd_work(
+            b, s, s, H, KVH, dh, dh, True, q.element_size(), part), rate)
+            for part in (*fa.BWD_KERNELS, "all")}
+        _, all_ops = attention_bwd_work(b, s, s, H, KVH, dh, dh, True,
+                                        q.element_size(), "all")
+        log(f"kernel flash_attention backward {label} b={b} s={s} H={H} "
+            f"KVH={KVH} dh={dh} causal {dt}: dq kernel {ms['dq']:.4f} ms "
+            f"({flash_body(dtype, dh, kernel='dq')}; bound "
+            f"{bounds['dq'][0]:.4f} ms, {bounds['dq'][1]}), dkdv kernel "
+            f"{ms['dkdv']:.4f} ms ({flash_body(dtype, dh, kernel='dkdv')}; "
+            f"bound {bounds['dkdv'][0]:.4f} ms, {bounds['dkdv'][1]}); the "
+            f"backward {ms_all:.4f} ms ({all_ops / ms_all / 1e9:.2f} TFLOP/s "
+            f"of its 5 products), bound {bounds['all'][0]:.4f} ms "
+            f"({bounds['all'][1]}), plain {plain_ms:.2f} ms, library "
+            + (f"scaled_dot_product_attention backward {lib_ms:.4f} ms "
+               f"(backward / SDPA's {ms_all / lib_ms:.2f})" if lib_ms
+               else f"SDPA backward refused ({refusal})")
+            + f"; forward {fwd_ms:.4f} ms, with its log-sum-exp "
+            f"{fwd_lse_ms:.4f} ms; max_abs_err dq / dk / dv {errs}; {card}")
+        if label == "train A":
+            for part, err in (("dq", errs[0]), ("dkdv", max(errs[1:]))):
+                name = f"flash_attention_bwd_{part}"
+                records[name] = dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:71 (no "
+                             "Pallas backward; the gradient of "
+                             "src/repro/models/attention.py:60)",
+                    max_abs_err=err, ms=ms[part], plain_ms=plain_ms,
+                    bound_ms=bounds[part][0], bound_by=bounds[part][1],
+                    library_ms=lib_ms)
+        del q, k, v, o, do, lse, grads, outs, dbuf
+        torch.cuda.empty_cache()
+    return records
 
 
 # ------------------------------------------------- phase 8: the ladder ----
@@ -4703,6 +4907,183 @@ def lm_serving(seed: int, card: str, profile_dir=None):
     return total, records
 
 
+# phase 15: the train cell "LM train A", tinyllama-1.1b
+# (src/repro/configs/tinyllama_1_1b.py, arXiv:2401.02385) at full width
+# and depth in f32 as configured (remat on, microbatch_size 8, ce_chunk
+# 2048), shapes.py's train_4k (4096 x 256) cut to 2048 x 16: two
+# microbatches of 8 x 2048 a step; 4 steps with a checkpoint every 2,
+# then the resume to 6, the command a user runs
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_ARGS = ("--seq-len", "2048", "--global-batch", "16",
+              "--save-every", "2")
+TRAIN_STEPS = (4, 6)
+# gate: the model at depth 2, batch 1, 64 tokens, f32, card against CPU
+# from the same weights: the loss to 1e-5 relative, every gradient leaf
+# within LM_TOL of its largest magnitude on the CPU (the products' sums
+# in cuBLAS's and the flash kernel's orders against the CPU's, through a
+# forward and a backward)
+TRAIN_GATE = dict(layers=2, batch=1, tokens=64)
+
+
+def train_flash_launches(cfg, n_micro: int) -> dict:
+    """The flash launches of one train step: every attention layer of
+    every microbatch runs the forward twice under remat (the step and
+    the recompute of its backward), once without it, and each backward
+    kernel once."""
+    n = cfg.num_layers * n_micro
+    return {"flash_attention": n * (2 if cfg.remat else 1),
+            "flash_attention_bwd_dq": n, "flash_attention_bwd_dkdv": n}
+
+
+def train_card_gate(seed: int):
+    """Phase 15 (a): tinyllama's loss and gradients at depth 2 on the
+    card against the CPU from the same weights, with the step's flash
+    launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_GATE["layers"])
+    model = build_model(cfg)
+    card = lm_params(cfg, seed)
+    cpu = cpu_tree(card)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_GATE["batch"], TRAIN_GATE["tokens"]),
+        dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+
+    def loss_and_grads(params):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = model.train_forward(tree_unflatten(params, live), batch)
+        return float(loss.detach()), torch.autograd.grad(loss, live)
+    reset_launches()
+    lc, gc = loss_and_grads(card)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lp, gp = loss_and_grads(cpu)
+    names = ["/".join(k) for k in _leaf_paths(card)]
+    worst, worst_name = 0.0, ""
+    for name, x, y in zip(names, gc, gp):
+        bound = LM_TOL * max(1e-30, float(y.abs().max()))
+        rel = float((x.cpu() - y).abs().max()) / bound
+        if rel > worst:
+            worst, worst_name = rel, name
+    want = {k: 0 for k in launches}
+    want.update(train_flash_launches(cfg, 1))
+    loss_rel = abs(lc - lp) / abs(lp)
+    log(f"train gate card vs cpu {TRAIN_ARCH} f32 {cfg.num_layers} layers "
+        f"batch {TRAIN_GATE['batch']} x {TRAIN_GATE['tokens']}: loss "
+        f"{lc!r} against {lp!r} (relative {loss_rel:.3e}, tolerance 1e-5); "
+        f"{len(names)} gradient leaves, the worst {worst_name} at "
+        f"{worst:.3f} of its bound ({LM_TOL} of the leaf's largest); "
+        f"launches {launches}")
+    check(loss_rel <= 1e-5, f"train gate: card loss {lc} != CPU's {lp}")
+    check(worst <= 1.0, f"train gate: gradient {worst_name} at {worst} of "
+                        "its bound")
+    check(launches == want, f"train gate launches {launches} != {want}")
+    del card, cpu, gc, gp
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def lm_training(seed: int, card: str):
+    """Phase 15: LM training on the card.  (a) ``train_card_gate``;
+    (b) the full-width train command (``launch.train``'s ``main``, in
+    process): ``--steps 4 --save-every 2``, then two more steps from its
+    final state in memory (the uninterrupted run), then ``--resume
+    --steps 6`` from its checkpoint, whose losses must equal the
+    uninterrupted run's bit for bit; every loss finite and ``dt`` a step,
+    peak MiB and the flash launches of one step (counts reset before the
+    uninterrupted step 4, read after).  Returns the launches of the
+    command's runs."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as train_cli
+    t0 = time.perf_counter()
+    train_card_gate(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: 0 for k in read_launches()}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_") as workdir:
+        ck = os.path.join(workdir, "ck")
+        disk = shutil.disk_usage(workdir)
+        log(f"phase 15: {disk.free / 2**30:.1f} GiB free for checkpoints")
+        argv = ["--arch", TRAIN_ARCH, *TRAIN_ARGS, "--ckpt-dir", ck]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t_run = time.perf_counter()
+        run = train_cli.main(argv + ["--steps", str(TRAIN_STEPS[0])])
+        t_run = time.perf_counter() - t_run
+        add(read_launches())
+        cfg, n_micro = run["cfg"], run["n_micro"]
+        state = run.pop("state")
+        log(f"lm train A: {TRAIN_STEPS[0]} steps in {t_run:.1f} s (host "
+            f"clock, init and checkpoints included), n_micro {n_micro}; "
+            "two more steps from the final state in memory (the "
+            "uninterrupted run):")
+        per_step = None
+        for step in range(TRAIN_STEPS[0], TRAIN_STEPS[1]):
+            reset_launches()
+            state, _ = run["step_fn"](state, step)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            add(launches)
+            per_step = per_step or launches
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        whole = dict(run["losses"])
+        dts = dict(run["dts"])
+        del run, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        resumed = train_cli.main(argv + ["--steps", str(TRAIN_STEPS[1]),
+                                         "--resume"])
+        add(read_launches())
+        same = {i: resumed["losses"][i] == whole[i]
+                for i in resumed["losses"]}
+        want = {k: 0 for k in per_step}
+        want.update(train_flash_launches(cfg, n_micro))
+        log(f"lm train A {TRAIN_ARCH} f32 ({cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, remat {cfg.remat}, ce_chunk {cfg.ce_chunk}) "
+            f"batch {TRAIN_ARGS[3]} x {TRAIN_ARGS[1]} in {n_micro} "
+            f"microbatches: losses {whole}, resumed "
+            f"{resumed['losses']} (equal {same}); dt a step (host clock, "
+            f"synchronised by the loss read) {dts}, resumed "
+            f"{resumed['dts']}; peak {peak:.1f} MiB; launches a step "
+            f"{per_step}; {card}")
+        check(all(np.isfinite(v) for v in whole.values())
+              and sorted(whole) == list(range(TRAIN_STEPS[1])),
+              f"lm train A: losses {whole}")
+        check(resumed["report"].resumed_from == TRAIN_STEPS[0] - 1
+              and sorted(resumed["losses"]) == list(
+                  range(TRAIN_STEPS[0], TRAIN_STEPS[1])) and all(
+                      same.values()),
+              f"lm train A: resumed losses {resumed['losses']} != the "
+              f"uninterrupted run's {whole}")
+        check(per_step == want, f"lm train A launches a step {per_step} != "
+                                f"{want}")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 15 ran {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def cuda_held(label: str) -> int:
     """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
     live CUDA tensor of 64 MiB or more that gc reaches, with the types
@@ -4828,19 +5209,23 @@ def main(argv=None) -> int:
                                       batches=args.batches, card=card)
     check_kernel_ops(args.seed)
     ops_total, ops_records = kernel_ops(args.seed, args.n)
+    bwd_records = flash_backward_timing(args.seed, card)
     train_total, fig1_model = train_cell(args.seed, card,
                                          profile_dir=args.profile)
     front_total = front_door(args.seed, args.n, card, fig1_model)
     dp_total = fit_data_parallel(args.seed, card, fig1_model)
     lm_total, lm_records = lm_serving(args.seed, card,
                                       profile_dir=args.profile)
+    lm_train_total = lm_training(args.seed, card)
     ops_records["flash_attention"] = lm_records["flash_attention"]
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
                      + train_total[k] + front_total[k]
-                     + shard_total.get(k, 0) + dp_total[k] + lm_total[k])
+                     + shard_total.get(k, 0) + dp_total[k] + lm_total[k]
+                     + lm_train_total[k])
     records.update(ivf_records)
     records.update(ops_records)
+    records.update(bwd_records)
     for k, rec in records.items():
         check(total[k] > 0, f"{k} was never launched on the main path")
         rec["launches"] = total[k]
@@ -4858,7 +5243,9 @@ def main(argv=None) -> int:
         "kmeans_assign", "icm_encode", "adc", "two_step",
         "flash_attention")] + [lm_records[k] for k in (
             "flash_attention_mla", "flash_attention_window",
-            "flash_attention_encoder", "flash_attention_cross")]}))
+            "flash_attention_encoder", "flash_attention_cross")]
+        + [records[k] for k in ("flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkdv")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

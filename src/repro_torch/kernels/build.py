@@ -37,6 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "ivf_crude_topk": 0, "ivf_refine_topk": 0,
     "kmeans_assign": 0, "icm_encode": 0,
     "adc": 0, "two_step": 0, "flash_attention": 0,
+    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
 }
 
 # ctypes signatures of each library's C entry points: every pointer and
@@ -82,8 +83,12 @@ SIGNATURES = {
     },
     "flash_attention": {
         **_COMMON,
-        "icq_flash_attention": ([_P] * 4 + [_I] * 8 + [_F, _I, _I, _P], _I),
+        "icq_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _I, _I, _I, _P],
+                                _I),
         "icq_flash_attention_attributes": ([_I] * 3 + [_P, _P], _I),
+        "icq_flash_attention_bwd": ([_I] + [_P] * 10 + [_I] * 8
+                                    + [_F, _I, _I, _I, _P], _I),
+        "icq_flash_attention_bwd_attributes": ([_I] * 4 + [_P, _P], _I),
     },
 }
 

@@ -1,7 +1,7 @@
-"""Forward flash attention (twin of ``repro.kernels.flash_attention``
-with the GQA head folding of ``repro.kernels.ops.flash_attention``): the
-CUDA kernel of ``csrc/flash_attention.cu`` beside its plain PyTorch
-version.
+"""Flash attention (twin of ``repro.kernels.flash_attention`` with the
+GQA head folding of ``repro.kernels.ops.flash_attention``) and its
+backward: the CUDA kernels of ``csrc/flash_attention.cu`` beside their
+plain PyTorch versions.
 
 Both take q (b, sq, H, dqk), k (b, sk, KVH, dqk) and v (b, sk, KVH, dv)
 of one type, f32 or bf16, with H a multiple of KVH (MHA, GQA, MQA: query
@@ -32,6 +32,23 @@ bodies; another pair raises a ``ValueError``.  The type picks the body
 (``PATHS``): bf16 runs both products on the tensor cores (``mma.sync``
 m16n8k16, f32 accumulate), f32 runs f32 FMAs on the SIMT cores; neither
 falls back to the other.
+
+Training: with ``with_lse`` the forward also returns each row's
+log-sum-exp ``m + log(l)`` (b, H, sq) f32 (the reference kernel's ``m``
+and ``l`` outputs), its output bit for bit the same.  The backward
+(``flash_attention_bwd_cuda``: two kernels, dQ with D = rowsum(dO * O),
+then dK and dV over the G query heads of each KV head, no atomics, so
+two launches are equal bit for bit) recomputes P = exp(s * scale - LSE)
+tile by tile under the forward's masks (0 exactly where masked) and
+returns (dq, dk, dv) in the operands' types; dV takes P cast to v's type
+as the forward's P . V does.  It takes every call the forward takes
+(both types, every ``HEAD_DIMS`` pair, causal or not, ``window``,
+``kv_valid``, GQA / MQA), in f32 FMAs for both types.
+``flash_attention_bwd_torch`` is its plain version (tests and
+``chip_smoke.py``; nothing on the card calls it).  The reference trains
+through its jnp ``chunked_attention``, whose ``jax.checkpoint``'ed
+chunks make XLA recompute the probabilities in the backward: the same
+gradient.
 """
 from __future__ import annotations
 
@@ -83,28 +100,37 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, sk, H, KVH, dqk, dv
 
 
-def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, *, causal: bool = True,
-                          window: int = 0, kv_valid: int = 0):
-    """Plain version (the reference's oracle ``flash_attention_ref``,
-    with the reference's band mask under ``window`` and key-padding mask
-    under ``kv_valid``), one (b, head) at a time so that only one (sq,
-    sk) score matrix is alive: the full f32 softmax, p cast to v's type
-    before P . V, the row sum applied after the product, as the kernel
-    does."""
-    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, causal, window, kv_valid)
-    g = H // KVH
-    scale = dqk ** -0.5
-    out = torch.empty((b, sq, H, dv), dtype=v.dtype, device=q.device)
-    gap = (torch.arange(sq, device=q.device)[:, None]
-           - torch.arange(sk, device=q.device)[None, :])   # q_pos - k_pos
+def _visible(sq: int, sk: int, causal: bool, window: int, kv_valid: int,
+             device):
+    """(sq, sk) bool: the (query, key) pairs the masks keep."""
+    gap = (torch.arange(sq, device=device)[:, None]
+           - torch.arange(sk, device=device)[None, :])   # q_pos - k_pos
     visible = torch.ones_like(gap, dtype=torch.bool)
     if causal:
         visible &= gap >= 0
     if window:
         visible &= gap < window
     if kv_valid:
-        visible &= torch.arange(sk, device=q.device)[None, :] < kv_valid
+        visible &= torch.arange(sk, device=device)[None, :] < kv_valid
+    return visible
+
+
+def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: int = 0, kv_valid: int = 0,
+                          with_lse: bool = False):
+    """Plain version (the reference's oracle ``flash_attention_ref``,
+    with the reference's band mask under ``window`` and key-padding mask
+    under ``kv_valid``), one (b, head) at a time so that only one (sq,
+    sk) score matrix is alive: the full f32 softmax, p cast to v's type
+    before P . V, the row sum applied after the product, as the kernel
+    does.  ``with_lse``: also each row's log-sum-exp (b, H, sq) f32."""
+    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, causal, window, kv_valid)
+    g = H // KVH
+    scale = dqk ** -0.5
+    out = torch.empty((b, sq, H, dv), dtype=v.dtype, device=q.device)
+    lse = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    visible = _visible(sq, sk, causal, window, kv_valid, q.device)
     masked = causal or bool(window) or bool(kv_valid)
     with full_f32_matmul():
         for bi in range(b):
@@ -113,49 +139,156 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
                     * scale
                 if masked:
                     s = torch.where(visible, s, torch.full_like(s, NEG_INF))
-                p = torch.exp(s - s.max(dim=1, keepdim=True).values)
+                m = s.max(dim=1, keepdim=True).values
+                p = torch.exp(s - m)
                 l = p.sum(dim=1, keepdim=True)
                 o = p.to(v.dtype).float() @ v[bi, :, h // g].float()
                 out[bi, :, h] = (o / torch.clamp(l, min=1e-30)).to(v.dtype)
-    return out
+                lse[bi, h] = (m + torch.log(l))[:, 0]
+    return (out, lse) if with_lse else out
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, *, causal: bool = True,
-                         window: int = 0, kv_valid: int = 0):
-    """Launch the flash attention kernel; same operands and output as
-    ``flash_attention_torch``."""
+def flash_attention_bwd_torch(q, k, v, o, do, lse, *, causal: bool = True,
+                              window: int = 0, kv_valid: int = 0):
+    """Plain version of the backward: per (b, head), P = exp(s * scale -
+    LSE) under the masks (0 where masked), D = rowsum(dO * O), dV += (P
+    cast to v's type)^T dO, dS = P (dO V^T - D), dQ = scale dS K, dK +=
+    scale dS^T Q, all in f32; returns (dq, dk, dv) in the operands'
+    types.  ``lse`` (b, H, sq) f32 is the forward's (``with_lse``)."""
     b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, causal, window, kv_valid)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not (t.is_cuda and t.device == q.device and t.dtype == v.dtype
-                and t.dtype in DTYPES and t.is_contiguous()
+    g = H // KVH
+    scale = dqk ** -0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, H, dqk), **f32)
+    dk = torch.zeros((b, sk, KVH, dqk), **f32)
+    dvv = torch.zeros((b, sk, KVH, dv), **f32)
+    visible = _visible(sq, sk, causal, window, kv_valid, q.device)
+    with full_f32_matmul():
+        for bi in range(b):
+            for h in range(H):
+                qf, kf = q[bi, :, h].float(), k[bi, :, h // g].float()
+                vf, dof = v[bi, :, h // g].float(), do[bi, :, h].float()
+                s = (qf @ kf.T) * scale
+                p = torch.where(visible, torch.exp(s - lse[bi, h][:, None]),
+                                torch.zeros_like(s))
+                d = (dof * o[bi, :, h].float()).sum(dim=1, keepdim=True)
+                dvv[bi, :, h // g] += p.to(v.dtype).float().T @ dof
+                ds = p * (dof @ vf.T - d)
+                dq[bi, :, h] = (ds @ kf) * scale
+                dk[bi, :, h // g] += (ds.T @ qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+def _check_operands(dtype, device, **tensors):
+    """Each tensor a contiguous, 16-byte aligned CUDA tensor of ``dtype``
+    on ``device``; the operands' type f32 or bf16."""
+    for name, t in tensors.items():
+        if not (t.is_cuda and t.device == device and t.dtype == dtype
+                and (dtype in DTYPES) and t.is_contiguous()
                 and t.data_ptr() % 16 == 0):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             "float32 or bfloat16 CUDA tensor of v's type on "
-                             f"q's device, got {t.dtype} on {t.device}")
+                             f"CUDA tensor on q's device of type {dtype} (q, "
+                             "k, v and their gradients float32 or bfloat16, "
+                             f"all of v's type), got {t.dtype} on {t.device}")
+
+
+def _check_sizes(b, sq, sk, H, dqk, dv):
     _compiled(dqk, dv)
     if max(b, H) > 65535 or min(b, sq, sk) < 1:
         raise ValueError(f"b={b}, H={H} must be at most 65535 and b, sq={sq},"
                          f" sk={sk} at least 1")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, *, causal: bool = True,
+                         window: int = 0, kv_valid: int = 0,
+                         with_lse: bool = False):
+    """Launch the flash attention kernel; same operands and output as
+    ``flash_attention_torch`` (with ``with_lse``, (out, lse): the kernel
+    also writes each row's log-sum-exp, the output unchanged)."""
+    b, sq, sk, H, KVH, dqk, dv = _shapes(q, k, v, causal, window, kv_valid)
+    _check_operands(v.dtype, q.device, q=q, k=k, v=v)
+    _check_sizes(b, sq, sk, H, dqk, dv)
     out = torch.empty((b, sq, H, dv), dtype=v.dtype, device=q.device)
+    lse = (torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = build.library("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.icq_flash_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(lse.data_ptr() if with_lse else None),
         DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dv, dqk ** -0.5,
         int(causal), int(window), int(kv_valid), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{lib.icq_error_string(err).decode()}")
     build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-def kernel_attributes(dtype: torch.dtype, dqk: int, dv=None) -> dict:
+BWD_KERNELS = ("dq", "dkdv")
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: int = 0, kv_valid: int = 0):
+    """Launch the backward kernels (dQ and D, then dK and dV); same
+    operands and outputs as ``flash_attention_bwd_torch``.  o and do
+    (b, sq, H, dv) of v's type and lse (b, H, sq) f32 must be
+    contiguous and 16-byte aligned on q's card; anything else raises."""
+    b, sq, _, H, _, _, _ = _shapes(q, k, v, causal, window, kv_valid)
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    dbuf = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    for kernel in BWD_KERNELS:
+        flash_attention_bwd_kernel(kernel, q, k, v, o, do, lse, *grads, dbuf,
+                                   causal=causal, window=window,
+                                   kv_valid=kv_valid)
+    return grads
+
+
+def flash_attention_bwd_kernel(kernel: str, q, k, v, o, do, lse, dq, dk, dv,
+                               dbuf, *, causal: bool = True, window: int = 0,
+                               kv_valid: int = 0):
+    """One backward kernel on the current stream: ``"dq"`` writes dq and
+    D = rowsum(dO * O) (b, H, sq) f32 into dbuf; ``"dkdv"`` reads dbuf
+    and writes dk and dv (so it runs after ``"dq"``).  Outputs are
+    allocated by the caller (``torch.empty``: every element is
+    written)."""
+    b, sq, sk, H, KVH, dqk, dvw = _shapes(q, k, v, causal, window, kv_valid)
+    _check_operands(v.dtype, q.device, q=q, k=k, v=v, o=o, do=do, dq=dq,
+                    dk=dk, dv=dv)
+    _check_operands(torch.float32, q.device, lse=lse, dbuf=dbuf)
+    want = {"o": (b, sq, H, dvw), "do": (b, sq, H, dvw), "lse": (b, H, sq),
+            "dbuf": (b, H, sq), "dq": tuple(q.shape), "dk": tuple(k.shape),
+            "dv": tuple(v.shape)}
+    got = {"o": o, "do": do, "lse": lse, "dbuf": dbuf, "dq": dq, "dk": dk,
+           "dv": dv}
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(got[name].shape)}")
+    _check_sizes(b, sq, sk, H, dqk, dvw)
+    which = BWD_KERNELS.index(kernel)
+    lib = build.library("flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.icq_flash_attention_bwd(
+        which, *(ctypes.c_void_p(t.data_ptr())
+                 for t in (q, k, v, o, do, lse, dq, dk, dv, dbuf)),
+        DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dvw, dqk ** -0.5,
+        int(causal), int(window), int(kv_valid), ctypes.c_void_p(stream))
+    name = f"flash_attention_bwd_{kernel}"
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.icq_error_string(err).decode()}")
+    build.LAUNCHES[name] += 1
+
+
+def kernel_attributes(dtype: torch.dtype, dqk: int, dv=None,
+                      kernel: str = "forward") -> dict:
     """The body that runs for ``dtype`` at (``dqk``, ``dv``; ``dv``
-    defaults to ``dqk``): its path (``PATHS``), registers per thread and
-    local-memory bytes per thread (spills and local arrays), as
+    defaults to ``dqk``), the forward or a backward kernel (``"dq"``,
+    ``"dkdv"``: f32 FMAs for both types): its path, registers per thread
+    and local-memory bytes per thread (spills and local arrays), as
     ``cudaFuncGetAttributes`` reports them."""
     dv = dqk if dv is None else dv
     if dtype not in DTYPES:
@@ -163,10 +296,16 @@ def kernel_attributes(dtype: torch.dtype, dqk: int, dv=None) -> dict:
     _compiled(dqk, dv)
     lib = build.library("flash_attention")
     regs, local = ctypes.c_int(), ctypes.c_int()
-    err = lib.icq_flash_attention_attributes(
-        DTYPES[dtype], dqk, dv, ctypes.byref(regs), ctypes.byref(local))
+    if kernel == "forward":
+        path = PATHS[dtype]
+        err = lib.icq_flash_attention_attributes(
+            DTYPES[dtype], dqk, dv, ctypes.byref(regs), ctypes.byref(local))
+    else:
+        path = f"backward {kernel}, FMA f32"
+        err = lib.icq_flash_attention_bwd_attributes(
+            DTYPES[dtype], BWD_KERNELS.index(kernel), dqk, dv,
+            ctypes.byref(regs), ctypes.byref(local))
     if err:
         raise RuntimeError("flash_attention attributes failed: "
                            f"{lib.icq_error_string(err).decode()}")
-    return dict(path=PATHS[dtype], registers=regs.value,
-                local_bytes=local.value)
+    return dict(path=path, registers=regs.value, local_bytes=local.value)

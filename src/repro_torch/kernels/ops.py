@@ -11,6 +11,8 @@ deterministically, so tests and ``chip_smoke.py`` can drive the
 engine's retries.  No hook (the default) costs one ``is None`` test."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.encode import pack_nibbles, unpack_nibbles  # noqa: F401
 from repro_torch.kernels import adc as adc_mod
 from repro_torch.kernels import batched_search as bs
@@ -171,6 +173,28 @@ def icm_encode(x, init_codes, C, *, iters: int):
     return fn(x, init_codes, C, iters=iters)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The card's differentiable flash attention: the forward kernel
+    writing each row's log-sum-exp, the backward kernels recomputing P
+    from it (``flash_attention.flash_attention_bwd_cuda``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_valid):
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, kv_valid=kv_valid,
+                                           with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, kv_valid=kv_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd_cuda(
+            q, k, v, out, dout.contiguous(), lse, **ctx.masks)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_valid: int = 0):
     """Flash attention with GQA and MQA: q (b, sq, H, dqk), k (b, sk,
@@ -179,8 +203,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     (dqk, dv) one of ``flash_attention.HEAD_DIMS``); ``causal`` masks
     top-left aligned (q_pos >= k_pos); ``window`` > 0 also masks
     q_pos - k_pos >= window (needs sq <= sk); ``kv_valid`` > 0 masks
-    keys at k_pos >= kv_valid (a non-causal call with no window only)."""
+    keys at k_pos >= kv_valid (a non-causal call with no window only).
+
+    Differentiable on both devices.  On the card, when autograd records
+    (``torch.is_grad_enabled()`` and q, k or v requires grad), the
+    forward kernel also writes the rows' log-sum-exp and the backward
+    runs the backward kernels; otherwise the forward kernel alone runs,
+    exactly as for inference.  On the CPU autograd differentiates the
+    plain version."""
     _check_faults("flash_attention")
-    fn = (fa.flash_attention_cuda if _on_card(q)
-          else fa.flash_attention_torch)
-    return fn(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    if not _on_card(q):
+        return fa.flash_attention_torch(q, k, v, causal=causal,
+                                        window=window, kv_valid=kv_valid)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, kv_valid)
+    return fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   kv_valid=kv_valid)

@@ -1,6 +1,30 @@
-"""Training command of the port (twin of ``repro.launch.train``): the
-retrieval pipeline (``--icq``) on the card, or on the CPU with
-``--device cpu``.
+"""Training command of the port (twin of ``repro.launch.train``): an LM
+(``--arch``) or the retrieval pipeline (``--icq``), on the card, or on
+the CPU with ``--device cpu``.
+
+``--arch`` trains the LM of a config from random weights (``init`` from
+seed 0) on the synthetic ``TokenPipeline`` stream: microbatches of the
+arch's ``microbatch_size`` accumulate into one step
+(``launch.steps.build_train_step``: remat, the flash kernel's backward
+kernels on the card, AdamW on the cosine schedule), under
+``TrainSupervisor``'s checkpointing (every ``--save-every`` steps and
+the last) into ``--ckpt-dir``.  Each step prints ``step N loss= gnorm=
+dt=``, the run ``done: ...``, as the reference's command.  ``--resume``
+continues from the newest checkpoint of ``--ckpt-dir`` and replays the
+token stream from the next step (the pipeline's state is the step
+index), so the resumed steps equal an uninterrupted run's bit for bit;
+without it a directory that already holds checkpoints is refused (the
+reference resumes from whatever its directory holds).  With no
+``--ckpt-dir`` the checkpoints go to a new temporary directory:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+        --seq-len 2048 --global-batch 16 --steps 4 --save-every 2 \
+        --ckpt-dir /path/ck
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+        --seq-len 2048 --global-batch 16 --steps 6 --save-every 2 \
+        --ckpt-dir /path/ck --resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+        --smoke --device cpu --steps 3 --seq-len 32 --global-batch 4
 
 ``--icq`` trains the joint quantizer through the front door
 (``repro_torch.api.icq_session``) on a synthetic Table-1 dataset,
@@ -16,16 +40,99 @@ model and index as one artifact directory, which either package's
     PYTHONPATH=src python -m repro_torch.launch.train --icq --device cpu \\
         --icq-n 1000 --icq-epochs 1 --save-artifacts /path/run0
 
-The LM half (``--arch``: the train step, token pipeline and
-checkpointed supervision) waits for ROADMAP item 22 (LM training) and
-exits with a one-line error naming it.
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
-_LM_TRAINING = "item 22 (LM training)"
+import numpy as np
+
+
+def make_host_batch(pipe, cfg, shape, n_micro, step):
+    """The step's batch from the token stream, microbatch-major (n_micro,
+    B / n_micro, ...) numpy: the VLM's text cut to leave room for its
+    patches and seeded patch embeddings, whisper's seeded audio frames
+    (the reference launcher's draws, bit for bit)."""
+    raw = pipe.batch(step)
+    B = shape.global_batch
+
+    def shape_mb(x):
+        return x.reshape((n_micro, B // n_micro) + x.shape[1:])
+
+    batch = {k: shape_mb(v) for k, v in raw.items()}
+    if cfg.frontend == "vision_stub":
+        v = cfg.num_vision_tokens
+        batch["tokens"] = batch["tokens"][..., : shape.seq_len - v]
+        batch["labels"] = batch["labels"][..., : shape.seq_len - v]
+        batch["patch_emb"] = np.random.default_rng(step).standard_normal(
+            (n_micro, B // n_micro, v, cfg.vision_dim)).astype(np.float32)
+    if cfg.encdec:
+        batch["audio_emb"] = np.random.default_rng(step).standard_normal(
+            (n_micro, B // n_micro, cfg.encoder_seq_len, cfg.d_model)
+        ).astype(np.float32)
+    return batch
+
+
+def run_lm(args):
+    """Train ``args.arch`` under the supervisor; returns {"losses",
+    "gnorms", "dts": by step index, "state": the final {"params", "opt"},
+    "step_fn": the supervisor's step function (``step_fn(state, i) ->
+    (state, metrics)``), "report", "ckpt_dir", "n_micro", "cfg"}."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config, smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import CheckpointManager, TrainSupervisor
+    from repro_torch.distributed.sharding import axis_size
+    from repro_torch.index.base import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step, num_microbatches
+
+    device = resolve_device(args.device)
+    ckpt_dir = args.ckpt_dir
+    if ckpt_dir is None:
+        if args.resume:
+            raise SystemExit("--resume needs the --ckpt-dir to resume from")
+        ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    ckpt = CheckpointManager(ckpt_dir, keep=3)
+    if ckpt.all_steps() and not args.resume:
+        raise SystemExit(f"--ckpt-dir {ckpt_dir} holds checkpoints (steps "
+                         f"{ckpt.all_steps()}); pass --resume to continue "
+                         "from the newest, or name another directory")
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    shape = ShapeSpec(name="cli", seq_len=args.seq_len,
+                      global_batch=args.global_batch, kind="train")
+    mesh = make_host_mesh(device)
+    n_micro = num_microbatches(cfg, shape, axis_size(mesh, "data"))
+
+    train_step, model, opt, init_opt = build_train_step(
+        cfg, n_micro=n_micro, mesh=mesh)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    state = {"params": params, "opt": init_opt(params)}
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                         global_batch=shape.global_batch)
+    sup = TrainSupervisor(ckpt, save_every=args.save_every)
+    losses, gnorms, dts = {}, {}, {}
+
+    def one_step(state, idx):
+        batch = make_host_batch(pipe, cfg, shape, n_micro, idx)
+        t0 = time.time()
+        p, o, metrics = train_step(state["params"], state["opt"], batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["gnorm"])
+        dts[idx] = time.time() - t0
+        losses[idx], gnorms[idx] = loss, gnorm
+        print(f"step {idx:5d} loss={loss:8.4f} gnorm={gnorm:7.3f} "
+              f"dt={dts[idx]:5.2f}s", flush=True)
+        return {"params": p, "opt": o}, {"loss": loss}
+
+    state, report = sup.run(state, one_step, args.steps)
+    print(f"done: final_step={report.final_step} restarts={report.restarts} "
+          f"resumed_from={report.resumed_from}", flush=True)
+    return dict(losses=losses, gnorms=gnorms, dts=dts, state=state,
+                step_fn=one_step, report=report, ckpt_dir=ckpt_dir,
+                n_micro=n_micro, cfg=cfg)
 
 
 def icq_config_from_args(args):
@@ -121,16 +228,19 @@ def run_icq(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None,
-                    help="train this LM (waits for ROADMAP "
-                         f"{_LM_TRAINING})")
+                    help="train this LM (configs.list_archs())")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config of the arch family")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="--arch checkpoints (default: a new temporary "
+                         "directory)")
     ap.add_argument("--save-every", type=int, default=10)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest checkpoint of "
+                         "--ckpt-dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
@@ -161,12 +271,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.icq:
-        run_icq(args)
-        return
+        return run_icq(args)
     if args.arch is None:
         ap.error("--arch is required unless --icq is given")
-    raise SystemExit(f"--arch {args.arch}: LM training is not ported; it "
-                     f"waits for ROADMAP {_LM_TRAINING}")
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,12 @@ and a call no served model makes (a query offset, ``full_attention``'s
 ``mask=``) raises ``NotImplementedError``.  ``decode_attention`` and
 ``cross_attention_decode`` are not kernels in the reference either and
 stay plain PyTorch on both devices.
+
+Training takes the same branches: under autograd (``train_forward``) the
+card's flash launch is differentiable, its forward writing the rows'
+log-sum-exp and its backward running the flash backward kernels
+(``kernels.ops.flash_attention``); on the CPU autograd differentiates
+the plain twins, as XLA differentiates the reference's.
 """
 from __future__ import annotations
 

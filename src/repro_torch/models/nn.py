@@ -1,5 +1,5 @@
-"""Module primitives (twin of ``repro.models.nn``; the two
-cross-entropy functions are training and wait for ROADMAP item 22).
+"""Module primitives (twin of ``repro.models.nn``), with the two
+cross-entropy losses of LM training.
 
 Params are nested dicts of tensors.  ``*_init`` builds params, the
 matching functions apply them; dtypes are explicit.  Random draws come
@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -148,3 +149,56 @@ def mlp_apply(p, x, activation: str):
         return h @ p["w_down"]
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
     return h @ p["w_down"] + p["b_down"]
+
+
+# ------------------------------------------------------------- losses ----
+
+def _token_losses(logits, labels, z_loss: float):
+    """Per-token CE (+ z-loss) of f32 logits (..., V) at labels (...)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss
+
+
+def cross_entropy(logits, labels, z_loss: float = 1e-4):
+    """Mean token CE with optional z-loss; logits (..., V), labels (...);
+    in f32."""
+    return torch.mean(_token_losses(logits.float(), labels, z_loss))
+
+
+def chunked_cross_entropy_head(x, w_head, labels, mask=None, *,
+                               chunk: int = 2048, z_loss: float = 1e-4,
+                               vocab_real: int = 0):
+    """Fused head projection + CE over *sequence* chunks: only one
+    chunk's (b, chunk, V) f32 logits live at a time, and each chunk is
+    recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``).  Padded vocab columns (at and past
+    ``vocab_real``) are masked to -1e30.  x (b, s, d), labels (b, s),
+    mask (b, s) float / bool or None -> mean CE over the masked tokens
+    (the chunk sums added in order)."""
+    b, s, d = x.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+
+    def one(xb, lb, mb):
+        logits = (xb @ w_head).float()                    # (b, c, V)
+        if vocab_real and vocab_real < logits.shape[-1]:
+            pad = torch.arange(logits.shape[-1],
+                               device=logits.device) < vocab_real
+            logits = torch.where(pad, logits, torch.full_like(logits,
+                                                              -1e30))
+        return torch.sum(_token_losses(logits, lb, z_loss) * mb)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        total = total + torch_checkpoint.checkpoint(
+            one, x[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c],
+            use_reentrant=False)
+    return total / torch.clamp(torch.sum(mask), min=1.0)

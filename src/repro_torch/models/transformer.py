@@ -35,12 +35,19 @@ runs in full f32 on the card (TF32 off, ``index.base.full_f32_matmul``).
 
 Entry points (``build_model``):
   init(generator)                       -> params
+  train_forward(params, batch)          -> (loss, {"ce", "aux"})
   init_cache(batch, max_len)            -> caches
   prefill(params, batch, max_len)       -> (last-token logits, caches)
   decode_step(params, tokens, caches)   -> (logits, caches)
 
-``train_forward`` and a ``mesh`` raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+``train_forward`` is differentiable by autograd (on the card the flash
+kernel's backward kernels run).  ``cfg.remat`` recomputes each layer in
+the backward (``torch.utils.checkpoint``, non-reentrant: the reference's
+``jax.checkpoint`` of the layer scan's body; the hybrid's per group),
+and ``cfg.remat_block`` G > 0 adds the reference's outer level: blocks
+of G layers checkpointed around their per-layer checkpoints, so that
+one carry a block is kept.  A ``mesh`` raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import attention as attn
@@ -58,8 +66,7 @@ from repro_torch.models import nn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 
-# ROADMAP items of what this module does not build yet
-_TRAIN = "item 22 (LM training)"
+# the ROADMAP item of what this module does not build yet
 _SHARDING = "item 23 (LM sharding and the dry run)"
 
 
@@ -333,6 +340,46 @@ def layer_decode(p, x, cfg, cache, pos, kind: str):
 # stacks
 # =================================================================
 
+def _checkpointed(fn):
+    """``fn`` recomputed in the backward (non-reentrant checkpoint)."""
+    return lambda *args: torch_checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+
+
+def _apply_stack(stacked, L: int, x, cfg, positions, kind: str, *,
+                 enc_out=None, attn_impl="chunked"):
+    """A stacked segment's ``L`` layers in order (the reference's
+    ``_scan_layers``): (x, summed aux).  Under ``cfg.remat`` each layer
+    is recomputed in its backward; with ``cfg.remat_block`` G dividing
+    the L layers into more than one block, each block of G is
+    checkpointed too (the two-level remat)."""
+
+    def body(h, aux, li):
+        h, a = layer_apply(_layer(stacked, li), h, cfg, positions, kind,
+                           enc_out=enc_out, attn_impl=attn_impl)
+        return h, aux + a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not cfg.remat:
+        for li in range(L):
+            x, aux = body(x, aux, li)
+        return x, aux
+    layer = _checkpointed(body)
+    G = getattr(cfg, "remat_block", 0)
+    if G and L % G == 0 and L // G > 1:
+        def block(h, aux, b0):
+            for li in range(b0, b0 + G):
+                h, aux = layer(h, aux, li)
+            return h, aux
+        block = _checkpointed(block)
+        for b0 in range(0, L, G):
+            x, aux = block(x, aux, b0)
+        return x, aux
+    for li in range(L):
+        x, aux = layer(x, aux, li)
+    return x, aux
+
+
 def _stacked_init(generator, cfg, dtype, kind: str, n: int):
     """``n`` layers drawn one after another into stacked leaves (peak
     memory: the stack plus one layer)."""
@@ -499,15 +546,16 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
 
     def _encode(params, batch):
         """Whisper's encoder over ``batch["audio_emb"]``: learned
-        positions, the non-causal ``enc`` layers, the final norm."""
+        positions, the non-causal ``enc`` layers (``_apply_stack``, so
+        under ``cfg.remat`` each recomputed in the backward), the final
+        norm."""
         a = torch.as_tensor(batch["audio_emb"],
                             device=params["embed"].device).to(cdt)
         if cfg.learned_pos_emb:
             a = a + params["enc_pos"][: a.shape[1]][None].to(a.dtype)
         pos = torch.arange(a.shape[1], device=a.device)
-        for li in range(cfg.encoder_layers):
-            a, _ = layer_apply(_layer(params["enc_layers"], li), a, cfg, pos,
-                               "enc")
+        a, _ = _apply_stack(params["enc_layers"], cfg.encoder_layers, a,
+                            cfg, pos, "enc")
         return _norm_apply(cfg, params["enc_norm"], a)
 
     def _logits(params, x):
@@ -516,9 +564,73 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
                   else x @ params["head"])
         return logits[..., : cfg.vocab_size]
 
+    def _hybrid_apply(params, x, positions):
+        """The hybrid's groups (each one checkpoint under ``cfg.remat``,
+        as the reference's scan body), then its tail layers."""
+        def group(h, aux, g):
+            for i, kind in enumerate(pattern):
+                h, a = layer_apply(_layer(params["groups"][f"b{i}"], g), h,
+                                   cfg, positions, kind, attn_impl=attn_impl)
+                aux = aux + a
+            return h, aux
+        run = _checkpointed(group) if cfg.remat else group
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(n_groups):
+            x, aux = run(x, aux, g)
+        for i, kind in enumerate(tail):
+            x, a = layer_apply(params[f"tail{i}"], x, cfg, positions, kind,
+                               attn_impl=attn_impl)
+            aux = aux + a
+        return x, aux
+
+    def _backbone_train(params, x, positions):
+        if cfg.hybrid:
+            return _hybrid_apply(params, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for si, (kind, n) in enumerate(plan):
+            x, a = _apply_stack(params[f"seg{si}"], n, x, cfg, positions,
+                                kind, attn_impl=attn_impl)
+            aux = aux + a
+        return x, aux
+
     def train_forward(params, batch):
-        raise NotImplementedError(
-            f"train_forward waits for ROADMAP {_TRAIN}; the port serves")
+        """Mean next-token CE (+ z-loss) plus the MoE layers' summed
+        load-balance loss: (loss + aux, {"ce": loss, "aux": aux}).
+        ``batch``: ``tokens`` and ``labels`` (b, s) ids, and
+        ``patch_emb`` (the VLM, whose patch positions carry no loss) or
+        ``audio_emb`` (the encoder-decoder); numpy arrays or tensors.
+        With ``cfg.ce_chunk`` the head and CE run fused over sequence
+        chunks, the final position masked (the shift without slicing);
+        else the full logits and CE of positions [0, s - 1)."""
+        dev = params["embed"].device
+        with full_f32_matmul():
+            if cfg.encdec:
+                enc_out = _encode(params, batch)
+                x, positions = _inputs(params, batch)
+                x, aux = _apply_stack(params["seg0"], cfg.num_layers, x, cfg,
+                                      positions, "dec", enc_out=enc_out,
+                                      attn_impl=attn_impl)
+            else:
+                x, positions = _inputs(params, batch)
+                x, aux = _backbone_train(params, x, positions)
+            labels = torch.as_tensor(batch["labels"], device=dev).long()
+            if cfg.frontend == "vision_stub":   # loss over text positions
+                x = x[:, cfg.num_vision_tokens:, :]
+            x = _norm_apply(cfg, params["final_norm"], x)
+            w = (params["embed"].T.to(x.dtype) if tied else params["head"])
+            if cfg.ce_chunk:
+                s = labels.shape[1]
+                labels_next = torch.cat(
+                    [labels[:, 1:], torch.zeros_like(labels[:, :1])], dim=1)
+                pos_mask = (torch.arange(s, device=dev) < s - 1)[None, :] \
+                    .expand(labels.shape)
+                loss = nn.chunked_cross_entropy_head(
+                    x, w, labels_next, pos_mask, chunk=cfg.ce_chunk,
+                    vocab_real=cfg.vocab_size)
+            else:
+                logits = (x @ w)[..., : cfg.vocab_size]
+                loss = nn.cross_entropy(logits[:, :-1], labels[:, 1:])
+        return loss + aux, {"ce": loss, "aux": aux}
 
     def init_cache(batch_size: int, max_len: int, dtype_=None, *,
                    device=None, enc_len=None):

@@ -1,0 +1,82 @@
+"""Cross-pod gradient compression with error feedback (twin of
+``repro.quant.grad_compress``, in the single-controller form).
+
+Within a pod, gradients reduce in full precision; across pods, where
+the links are scarce, the combine runs compressed:
+
+    1. error feedback:   e = g + residual;  q, s = int8(e);
+                         residual' = e - dequant(q, s)
+    2. every pod's int8 payload and scales go to the lead device
+       (1 byte an element on the wire against 4 for an f32 mean)
+    3. dequantize there and average over the pods, in pod order
+
+The reference runs step 2 as ``all_gather`` over its ``pod`` mesh axis
+inside a ``shard_map``.  The port drives every pod from one process, as
+its sharded engines do (``distributed.sharding``): a pod's gradient
+tree lives on its own device, and the gather is a ``.to()`` of the int8
+codes and scales.  Each pod's residual stays on its device and carries
+its quantization error into the next step.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from repro_torch.quant.int8 import dequantize_int8, quantize_int8
+from repro_torch.train.optimizer import tree_map
+
+
+def compress_state_init(grads):
+    """Error-feedback residuals: f32 zeros shaped like ``grads``."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads)
+
+
+def ef_quantize(g, residual):
+    """Error-feedback int8 quantization of one tensor: (q int8, scale
+    f32 per trailing-axis slice, new residual)."""
+    e = g.float() + residual
+    q, s = quantize_int8(e, axis=-1)
+    return q, s, e - dequantize_int8(q, s)
+
+
+def _pod_mean(parts, dtype):
+    """Mean of equal-shaped f32 tensors, summed in pod order."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return (acc / len(parts)).to(dtype)
+
+
+def compressed_cross_pod_mean(grads: Sequence, residuals: Sequence,
+                              lead: Optional[torch.device] = None):
+    """The compressed mean of one gradient tree per pod (``grads``, in
+    pod order; ``residuals`` one residual tree per pod, on the pods'
+    devices).  Returns (the mean tree on ``lead``, pod 0's device by
+    default, in each leaf's type; the new residual trees, one per pod)."""
+    if len(grads) != len(residuals) or not grads:
+        raise ValueError(f"one residual tree per pod: {len(grads)} "
+                         f"gradient trees, {len(residuals)} residual trees")
+    out = [tree_map(ef_quantize, g, r) for g, r in zip(grads, residuals)]
+
+    def gather_mean(g, *pods):
+        """One leaf's (q, scale, residual) of every pod -> the mean of
+        the dequantized payloads on the lead device, in g's type."""
+        dev = lead if lead is not None else pods[0][0].device
+        return _pod_mean([dequantize_int8(q.to(dev), s.to(dev))
+                          for q, s, _ in pods], g.dtype)
+    means = tree_map(gather_mean, grads[0], *out)
+    new_res: List = [tree_map(lambda t: t[2], o) for o in out]
+    return means, new_res
+
+
+def plain_cross_pod_mean(grads: Sequence,
+                         lead: Optional[torch.device] = None):
+    """The uncompressed control: the f32 mean of one gradient tree per
+    pod on ``lead`` (pod 0's device by default), in pod order."""
+    def mean(*leaves):
+        dev = lead if lead is not None else leaves[0].device
+        return _pod_mean([g.float().to(dev) for g in leaves],
+                         leaves[0].dtype)
+    return tree_map(mean, *grads)

@@ -1,6 +1,6 @@
-"""AdamW with a folded global-norm clip, the cosine schedule and the
-pytree helpers they need (twin of ``repro.train.optimizer``; Adafactor
-waits for ROADMAP item 22, LM training).
+"""AdamW with a folded global-norm clip, Adafactor, the cosine schedule,
+``make_optimizer`` and the pytree helpers they need (twin of
+``repro.train.optimizer``).
 
 This is the reference's AdamW, not ``torch.optim.AdamW``: b2 = 0.95,
 eps added outside ``sqrt(vhat)``, the bias correction taken at the step
@@ -134,6 +134,88 @@ class AdamW:
         out = tree_map(upd, grads, state["m"], state["v"], params)
         return (_pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2),
                                 "step": step}, gnorm)
+
+
+# ------------------------------------------------------------- Adafactor ----
+
+@dataclasses.dataclass(frozen=True)
+class Adafactor:
+    """Factored second moments: a matrix leaf (ndim >= 2) keeps row and
+    column means of g^2 + eps over its last two axes (``vr``, ``vc``), a
+    vector leaf the full ``v``; ``beta = 1 - step ** -decay``.  The
+    gradients are clipped to ``clip_norm`` first (a clipped copy, as the
+    reference's ``clip_by_global_norm``), and the pre-clip global norm
+    is returned.  ``init(params)`` -> {"f", "step"}; ``update(grads,
+    state, params)`` -> (params, state, norm), all new tensors."""
+    lr: Callable[[Any], Any]
+    decay: float = 0.8
+    eps: float = 1e-30
+    clip_norm: float = 1.0
+
+    def init(self, params):
+        def mk(p):
+            if p.ndim >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                          device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device)}
+        return {"f": tree_map(mk, params),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=tree_leaves(params)[0].device)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        if self.clip_norm:
+            grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        else:
+            gnorm = global_norm(grads)
+        beta = 1.0 - torch.pow(step.to(torch.float32), -self.decay)
+        lr = torch.as_tensor(self.lr(step), dtype=torch.float32,
+                             device=gnorm.device)
+
+        def upd(g, p, f):
+            g32 = g.to(torch.float32)
+            g2 = torch.square(g32) + self.eps
+            if p.ndim >= 2:
+                vr = f["vr"] * beta + g2.mean(-1) * (1 - beta)
+                vc = f["vc"] * beta + g2.mean(-2) * (1 - beta)
+                denom = (vr[..., None] / torch.clamp_min(
+                    vr.mean(-1, keepdim=True)[..., None], self.eps)) \
+                    * vc[..., None, :]
+                delta = g32 / torch.sqrt(torch.clamp_min(denom, self.eps))
+                nf = {"vr": vr, "vc": vc}
+            else:
+                v = f["v"] * beta + g2 * (1 - beta)
+                delta = g32 / torch.sqrt(torch.clamp_min(v, self.eps))
+                nf = {"v": v}
+            newp = p.to(torch.float32) - lr * delta
+            return newp.to(p.dtype), nf
+
+        out = _map_leaves(upd, grads, params, state["f"])
+        return (_pick(out, 0), {"f": _pick(out, 1), "step": step}, gnorm)
+
+
+def _map_leaves(fn, grads, params, f):
+    """``fn(g, p, f_leaf)`` over the param leaves, ``f``'s leaves being
+    the per-param dicts of Adafactor's state."""
+    if isinstance(params, dict):
+        return {k: _map_leaves(fn, grads[k], params[k], f[k])
+                for k in params}
+    return fn(grads, params, f)
+
+
+def make_optimizer(cfg, total_steps: int = 10000, base_lr: float = 3e-4):
+    """The LM trainer's optimizer: AdamW over the cosine schedule
+    (warmup ``min(2000, total_steps // 10 + 1)``), moments in
+    ``cfg.optimizer_dtype``."""
+    return AdamW(lr=cosine_schedule(base_lr,
+                                    warmup=min(2000, total_steps // 10 + 1),
+                                    total=total_steps),
+                 moment_dtype=getattr(torch, cfg.optimizer_dtype))
 
 
 def _pick(tree, i):

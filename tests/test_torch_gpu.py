@@ -391,6 +391,113 @@ def test_cuda_flash_attention_kv_valid_matches_plain_version(
             fa.flash_attention_cuda(q, k, v, kv_valid=kv_valid, **kw)
 
 
+# (b, sq, sk, H, KVH, dqk, dv, causal, window, kv_valid) of the backward:
+# every compiled width pair, causal and not, GQA / MQA, ragged lengths
+# against the 64- and 32-row tiles, sq > sk causal (key tiles right of
+# every row), a window inside and across tiles (and non-causal), the
+# key-padding bound (a tile past it), MLA's (192, 128)
+FLASH_BWD_CASES = [
+    (2, 100, 100, 4, 2, 32, 32, True, 0, 0),
+    (1, 257, 257, 8, 1, 64, 64, True, 0, 0),
+    (1, 96, 161, 4, 4, 64, 64, False, 0, 0),
+    (2, 130, 130, 4, 2, 128, 128, True, 0, 0),
+    (1, 257, 100, 4, 1, 128, 128, True, 0, 0),
+    (1, 77, 140, 4, 2, 256, 256, True, 0, 0),
+    (1, 65, 97, 2, 1, 256, 256, False, 0, 0),
+    (1, 300, 300, 4, 2, 64, 64, True, 70, 0),
+    (1, 129, 200, 4, 1, 32, 32, False, 17, 0),
+    (1, 100, 300, 4, 2, 64, 64, False, 0, 65),
+    (1, 130, 257, 4, 2, 192, 128, False, 0, 200),
+    (1, 200, 200, 4, 4, 192, 128, True, 0, 0),
+    (1, 160, 160, 2, 1, 192, 128, True, 50, 0),
+]
+
+
+def _bwd_operands(dtype, b, sq, sk, h, kvh, dqk, dv, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype).cuda()
+        for s in ((b, sq, h, dqk), (b, sk, kvh, dqk), (b, sk, kvh, dv),
+                  (b, sq, h, dv))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,dqk,dv,causal,window,kv_valid",
+                         FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_bwd_matches_plain_version(
+        b, sq, sk, h, kvh, dqk, dv, causal, window, kv_valid, dtype):
+    """The backward kernels against the plain backward from the same
+    forward output and log-sum-exp: dq, dk, dv within 2e-5 (f32) / 2e-2
+    (bf16) of each one's largest magnitude; two launches equal bit for
+    bit; the forward's output with the log-sum-exp equal to its output
+    without it, bit for bit, and the log-sum-exp within 2e-5 of the
+    plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_operands(dtype, b, sq, sk, h, kvh, dqk, dv,
+                                sq + sk + dqk + window + kv_valid)
+    masks = dict(causal=causal, window=window, kv_valid=kv_valid)
+    plain = fa.flash_attention_cuda(q, k, v, **masks)
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
+    _, want_lse = fa.flash_attention_torch(q, k, v, with_lse=True, **masks)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
+    want = fa.flash_attention_bwd_torch(q, k, v, o, do, lse, **masks)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, o)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for name, g, a, w, ref in zip(("dq", "dk", "dv"), got, again, want,
+                                  (q, k, v)):
+        assert g.dtype == dtype and g.shape == ref.shape, name
+        assert torch.equal(g, a), name
+        bound = tol * float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_autograd_runs_the_kernels():
+    """Under autograd on the card ``ops.flash_attention`` runs the
+    forward with its log-sum-exp and the two backward kernels, and its
+    gradients are the backward kernels'; without grad the inference
+    kernel alone runs, the same output bit for bit; a backward operand
+    the kernels do not take raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_operands(torch.float32, 2, 130, 130, 4, 2, 64, 64, 9)
+    for key in build.LAUNCHES:
+        build.LAUNCHES[key] = 0
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert build.LAUNCHES["flash_attention_bwd_dq"] == 1
+    assert build.LAUNCHES["flash_attention_bwd_dkdv"] == 1
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    want = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    assert torch.equal(out.detach(), o)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(*leaves, causal=True), o)
+    assert build.LAUNCHES["flash_attention"] == 3
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, do.transpose(1, 2), lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, do, lse.double())
+    with pytest.raises(ValueError, match="not compiled"):
+        short = q[..., :16].contiguous()
+        fa.flash_attention_bwd_cuda(short, k[..., :16].contiguous(),
+                                    v[..., :16].contiguous(),
+                                    o[..., :16].contiguous(),
+                                    do[..., :16].contiguous(), lse)
+
+
 @pytest.mark.gpu
 def test_cuda_kmeans_assign_takes_bf16():
     """bf16 operands run the f32 kernel on their exact f32 values."""
@@ -1548,6 +1655,61 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,bf16,repl", [
+    ("tinyllama-1.1b", False, dict(remat=True)),
+    ("gemma-7b", True, dict(remat=True, remat_block=1, ce_chunk=8)),
+    ("deepseek-v2-236b", False, dict(attn_chunk=8))])
+def test_cuda_lm_train_step_equals_cpu(arch, bf16, repl):
+    """One ``build_train_step`` step (2 microbatches) on the card against
+    the CPU from the same params and batch: the loss and gnorm to 1e-5
+    relative (bf16: 2^-5), every param after the step within 1e-4 (bf16:
+    2^-5) of the leaf's largest; the flash launches of the step (the
+    forward twice a layer and microbatch under remat, each backward
+    kernel once), none of them on the CPU; two card steps equal bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step, scale_config
+    from repro_torch.models import build_model
+    from repro_torch.configs import smoke_config
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(smoke_config(arch), head_dim=32, **repl)
+    if cfg.mla:      # a compiled flash pair: q/k 192 = 128 + 64, v 128
+        cfg = dataclasses.replace(cfg, qk_nope_head_dim=128,
+                                  qk_rope_head_dim=64, v_head_dim=128)
+    cfg = scale_config(cfg) if bf16 else cfg
+    cpu = build_model(cfg).init(0, device="cpu")
+    card = _to(cpu, "cuda")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 2, 16),
+                                             dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    step, _, _, init = build_train_step(cfg, n_micro=2)
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    pc, _, mc = step(card, init(card), batch)
+    torch.cuda.synchronize()
+    n = cfg.num_layers * 2
+    assert (ops.LAUNCHES["flash_attention"],
+            ops.LAUNCHES["flash_attention_bwd_dq"],
+            ops.LAUNCHES["flash_attention_bwd_dkdv"]) == (
+        n * (2 if cfg.remat else 1), n, n)
+    pc2, _, mc2 = step(card, init(card), batch)
+    pp, _, mp = step(cpu, init(cpu), batch)
+    assert ops.LAUNCHES["flash_attention_bwd_dq"] == 2 * n
+    tol = 2.0 ** -5 if bf16 else 1e-5
+    for name in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(mc[name]), float(mp[name]),
+                                   rtol=tol, err_msg=name)
+        assert float(mc[name]) == float(mc2[name])
+    for g, g2, w in zip(tree_leaves(pc), tree_leaves(pc2), tree_leaves(pp)):
+        assert torch.equal(g, g2)
+        bound = (tol if bf16 else 1e-4) * float(w.float().abs().max())
+        assert float((g.float().cpu() - w.float()).abs().max()) <= bound
 
 
 @pytest.mark.gpu

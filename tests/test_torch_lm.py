@@ -325,8 +325,14 @@ def test_unported_families_raise_naming_their_item():
     cfg = configs.smoke_config("tinyllama-1.1b")
     with pytest.raises(NotImplementedError, match="item 23"):
         build_serve_fns(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 22"):
-        build_model(cfg).train_forward({}, {})
+    with pytest.raises(NotImplementedError, match="item 23"):
+        build_model(cfg, mesh=object())
+    # LM training (item 22) is ported: train_forward gives a finite loss
+    model = build_model(cfg)
+    toks = _tokens(cfg.vocab_size, 1, 8)
+    loss, aux = model.train_forward(model.init(0, device="cpu"),
+                                    {"tokens": toks, "labels": toks})
+    assert bool(torch.isfinite(loss)) and float(aux["aux"]) == 0.0
 
 
 def test_entry_points_need_a_card_unless_told_cpu():

@@ -13,15 +13,10 @@ MISSING = {
         # compile
         "compile_epoch": "none: the port's epoch is run_epoch",
     },
-    "data": {"TokenPipeline": "item 22 (LM training)"},
     "distributed": {
         name: "item 23 (LM sharding)" for name in (
             "batch_shardings", "cache_shardings", "param_shardings",
             "reshard_state")},
-    "quant": {
-        name: "item 22 (LM training: cross-pod gradient compression)"
-        for name in ("compress_state_init", "compressed_cross_pod_mean",
-                     "ef_quantize")},
 }
 PACKAGES = ["", "api", "index", "trainer", "core", "core.baselines",
             "core.train", "core.search", "data", "distributed", "configs",

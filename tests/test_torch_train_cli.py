@@ -126,14 +126,25 @@ def test_train_cli_shards_on_the_cpu():
     assert index.group(2, 3) == ("292", "300")
 
 
-def test_train_cli_arch_exits_naming_item_22():
-    with pytest.raises(SystemExit, match="item 22"):
-        port_train.main(["--arch", "tinyllama-1.1b", "--smoke"])
+def test_train_cli_arch_exits_naming_item_22(tmp_path):
+    """``--arch`` trains now (it exited naming ROADMAP item 22 before LM
+    training was ported): the command runs a smoke LM on the CPU and
+    prints the reference's step and done lines; with no card and no
+    ``--device`` it raises before it trains."""
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--arch", "mamba2-1.3b"], capture_output=True,
+                          "--arch", "mamba2-1.3b", "--smoke", "--device",
+                          "cpu", "--steps", "2", "--seq-len", "16",
+                          "--global-batch", "2", "--ckpt-dir",
+                          str(tmp_path / "ck")], capture_output=True,
                          text=True, timeout=120, env=ENV)
-    assert out.returncode != 0 and "item 22" in out.stderr
-    assert len(out.stderr.strip().splitlines()) == 1
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert [line.split()[:2] for line in lines[:2]] == [
+        ["step", "0"], ["step", "1"]], lines
+    assert lines[-1] == "done: final_step=1 restarts=0 resumed_from=None"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            port_train.main(["--arch", "tinyllama-1.1b", "--smoke"])
 
 
 def test_train_cli_defaults_to_the_card():
