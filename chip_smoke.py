@@ -101,10 +101,12 @@ or outside a checkout of the repository.  Phases:
    which the wrapper refuses with causal or a window; each line names
    the body that ran, ``mma.sync`` bf16 or FMA f32, with its registers
    and local-memory bytes), and in every one of these modes and both
-   types the backward kernels (dQ, then dK / dV) against the plain
-   backward from the same forward output, log-sum-exp and output
-   gradient (2e-5 / 2e-2 of the largest gradient), two launches equal
-   bit for bit, the forward with its log-sum-exp equal to the forward
+   types the backward kernels (dQ, then dK / dV: ``mma.sync`` bf16, or
+   ``mma.sync`` 3xTF32 in f32; each line names both kernels' bodies with
+   their registers and local-memory bytes) against the plain backward
+   from the same forward output, log-sum-exp and output gradient (2e-5 /
+   2e-2 of each gradient's largest magnitude), two launches equal bit
+   for bit, the forward with its log-sum-exp equal to the forward
    without it bit for bit; then the ops
    once each at full width, counts reset before and read after: ADC and
    two-step at SIFT1M geometry (1M uint8 rows, one query's LUT, 2 fast
@@ -113,10 +115,13 @@ or outside a checkout of the repository.  Phases:
    widths at s = 4096, causal; and their times beside their bounds, their
    plain versions and a one-call library yardstick (``embedding_bag``,
    ``scaled_dot_product_attention``); and the backward kernels at the
-   train cell's attention (f32, 8 x 2048, 32 / 4 heads of 64, causal)
-   and at cell B's (bf16, 1 x 2048, 16 heads of 256): each kernel's
-   time, the pair's, the plain backward's and SDPA's backward beside
-   their bounds (5 products against the forward's 2);
+   train cell's attention (8 x 2048, 32 / 4 heads of 64, causal) in f32
+   and in bf16, and in bf16 at cell B's (1 x 2048, 16 heads of 256),
+   cell H's (4 x 1024, 64 / 8 heads of 128) and cell D's (1 x 2048, 128
+   heads of (192, 128)): each kernel's time with its registers and
+   local-memory bytes, the pair's, the plain backward's and SDPA's
+   backward beside their bounds (5 products against the forward's 2; in
+   f32 at the FMA rate and at 3xTF32's 165 TFLOP/s);
 8. (run after phase 5, as is 9) the degradation ladder on the
    two-step-f32, flat-f32 and ivf-f32 artifacts of phases 4-5: every rung the card offers (two-step and
    flat {full, crude}, IVF {full, probes, crude}) warmed once and served
@@ -359,6 +364,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # and the dense bf16 tensor-core rate
 BF16_OPS_PER_S = 989e12
+# what 3xTF32 (three TF32 tensor-core products per f32 product) leaves of
+# the dense TF32 rate, 495e12: the f32 flash backward's body
+TF32X3_OPS_PER_S = 495e12 / 3
 
 TOPK = 100
 TILE = 64
@@ -1988,7 +1996,9 @@ def check_flash_backward(seed, mode, dtype, q, k, v, out):
              f"{', '.join(noise)}" if noise else "")
     log(f"mode flash_attention backward b={b} sq={sq} sk={sk} H={H} "
         f"KVH={KVH} dh={dh} dv={dv} causal={causal} window={window} "
-        f"kv_valid={kv_valid} {str(dtype).split('.')[-1]}: dq / dk / dv "
+        f"kv_valid={kv_valid} {str(dtype).split('.')[-1]} "
+        f"({flash_body(dtype, dh, dv, 'dq')}; "
+        f"{flash_body(dtype, dh, dv, 'dkdv')}): dq / dk / dv "
         f"max_abs_err over tolerance {rel[0]:.3f} / {rel[1]:.3f} / "
         f"{rel[2]:.3f} ({tol} of each one's largest magnitude{noted}); "
         f"two launches "
@@ -2147,11 +2157,19 @@ def kernel_ops(seed: int, n: int):
 
 
 # the backward's timed shapes: the train cell's attention (phase 15:
-# tinyllama-1.1b, f32, 8 x 2048, 32 / 4 heads of 64, causal) and cell B's
-# (gemma-7b bf16, 1 x 2048, 16 heads of 256); the records keep the first
+# tinyllama-1.1b, f32, 8 x 2048, 32 / 4 heads of 64, causal), the same in
+# bf16 (scale_config's type), and the attention of cells B (gemma-7b, 1 x
+# 2048, 16 heads of 256), H (internvl2-76b, 4 x 1024, 64 / 8 heads of 128)
+# and D (deepseek-v2, 1 x 2048, 128 heads of (192, 128)) in bf16; the
+# records keep the first
 FLASH_BWD_SHAPES = (
-    ("train A", dict(b=8, s=2048, H=32, KVH=4, dh=64), "float32"),
-    ("cell B", dict(b=1, s=2048, H=16, KVH=16, dh=256), "bfloat16"),
+    ("train A", dict(b=8, s=2048, H=32, KVH=4, dh=64, dv=64), "float32"),
+    ("train A bf16", dict(b=8, s=2048, H=32, KVH=4, dh=64, dv=64),
+     "bfloat16"),
+    ("cell B", dict(b=1, s=2048, H=16, KVH=16, dh=256, dv=256), "bfloat16"),
+    ("cell H", dict(b=4, s=1024, H=64, KVH=8, dh=128, dv=128), "bfloat16"),
+    ("cell D", dict(b=1, s=2048, H=128, KVH=128, dh=192, dv=128),
+     "bfloat16"),
 )
 
 
@@ -2196,21 +2214,25 @@ def sdpa_bwd_ms(q, k, v, do):
 
 def flash_backward_timing(seed: int, card: str):
     """Phase 7 (d): the backward kernels at ``FLASH_BWD_SHAPES``: each
-    kernel's time (CUDA events), the whole backward's, the plain
-    backward's and SDPA's backward beside their bounds (5 products
-    against the forward's 2, at the f32 or bf16 peak); the forward with
-    and without its log-sum-exp.  Returns the records of the two kernels
-    at the train cell's shape."""
+    kernel's time (CUDA events) with its registers and local-memory
+    bytes, the whole backward's, the plain backward's and SDPA's
+    backward beside their bounds (5 products against the forward's 2; in
+    bf16 at the tensor-core peak, in f32 at the FMA rate and at what
+    3xTF32 leaves of the TF32 rate); the forward with and without its
+    log-sum-exp.  Returns the records of the two kernels at the train
+    cell's shape, each bound at the rate of the body that ran (f32:
+    3xTF32's; the FMA-rate bound stays in the log line only)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     records = {}
     for label, w, dt in FLASH_BWD_SHAPES:
         dtype = getattr(torch, dt)
-        b, s, H, KVH, dh = w["b"], w["s"], w["H"], w["KVH"], w["dh"]
+        b, s, H, KVH, dh, dv = (w[x] for x in ("b", "s", "H", "KVH", "dh",
+                                               "dv"))
         q, k, v = attention_operands(seed + 900 + dh, b, s, s, H, KVH, dh,
-                                     dtype)
+                                     dtype, dv)
         g = torch.Generator(device="cuda").manual_seed(seed + 901)
-        do = torch.randn((b, s, H, dh), generator=g, device="cuda").to(dtype)
+        do = torch.randn((b, s, H, dv), generator=g, device="cuda").to(dtype)
         o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
         grads = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
         want = fa.flash_attention_bwd_torch(q, k, v, o, do, lse)
@@ -2235,21 +2257,29 @@ def flash_backward_timing(seed: int, card: str):
         plain_ms = time_ms(lambda: fa.flash_attention_bwd_torch(
             q, k, v, o, do, lse), 1)
         lib_ms, refusal = sdpa_bwd_ms(q, k, v, do)
-        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        bounds = {part: bound_ms(*attention_bwd_work(
-            b, s, s, H, KVH, dh, dh, True, q.element_size(), part), rate)
-            for part in (*fa.BWD_KERNELS, "all")}
-        _, all_ops = attention_bwd_work(b, s, s, H, KVH, dh, dh, True,
-                                        q.element_size(), "all")
+        # the body's own rate first: the records take their bound from it
+        rates = ({"bf16 peak": BF16_OPS_PER_S} if dtype == torch.bfloat16
+                 else {"3xTF32": TF32X3_OPS_PER_S,
+                       "f32 FMA": F32_OPS_PER_S})
+        body_rate = next(iter(rates))
+        work = {part: attention_bwd_work(b, s, s, H, KVH, dh, dv, True,
+                                         q.element_size(), part)
+                for part in (*fa.BWD_KERNELS, "all")}
+        bounds = {(part, r): bound_ms(*work[part], rate)
+                  for part in work for r, rate in rates.items()}
+
+        def bound_text(part):
+            return ", ".join(f"{bounds[part, r][0]:.4f} ms at the {r} rate "
+                             f"({bounds[part, r][1]})" for r in rates)
         log(f"kernel flash_attention backward {label} b={b} s={s} H={H} "
-            f"KVH={KVH} dh={dh} causal {dt}: dq kernel {ms['dq']:.4f} ms "
-            f"({flash_body(dtype, dh, kernel='dq')}; bound "
-            f"{bounds['dq'][0]:.4f} ms, {bounds['dq'][1]}), dkdv kernel "
-            f"{ms['dkdv']:.4f} ms ({flash_body(dtype, dh, kernel='dkdv')}; "
-            f"bound {bounds['dkdv'][0]:.4f} ms, {bounds['dkdv'][1]}); the "
-            f"backward {ms_all:.4f} ms ({all_ops / ms_all / 1e9:.2f} TFLOP/s "
-            f"of its 5 products), bound {bounds['all'][0]:.4f} ms "
-            f"({bounds['all'][1]}), plain {plain_ms:.2f} ms, library "
+            f"KVH={KVH} dh={dh} dv={dv} causal {dt}: dq kernel "
+            f"{ms['dq']:.4f} ms ({flash_body(dtype, dh, dv, 'dq')}; bound "
+            f"{bound_text('dq')}), dkdv kernel {ms['dkdv']:.4f} ms "
+            f"({flash_body(dtype, dh, dv, 'dkdv')}; bound "
+            f"{bound_text('dkdv')}); the pair {sum(ms.values()):.4f} ms, "
+            f"the backward {ms_all:.4f} ms ({work['all'][1] / ms_all / 1e9:.2f}"
+            f" TFLOP/s of its 5 products), bound {bound_text('all')}, plain "
+            f"{plain_ms:.2f} ms, library "
             + (f"scaled_dot_product_attention backward {lib_ms:.4f} ms "
                f"(backward / SDPA's {ms_all / lib_ms:.2f})" if lib_ms
                else f"SDPA backward refused ({refusal})")
@@ -2260,13 +2290,14 @@ def flash_backward_timing(seed: int, card: str):
                 name = f"flash_attention_bwd_{part}"
                 records[name] = dict(
                     name=name, route="cuda",
-                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    source="src/repro_torch/kernels/csrc/"
+                           "flash_attention_bwd.cu",
                     replaces="src/repro/kernels/flash_attention.py:71 (no "
                              "Pallas backward; the gradient of "
-                             "src/repro/models/attention.py:60)",
+                             "src/repro/models/attention.py:62)",
                     max_abs_err=err, ms=ms[part], plain_ms=plain_ms,
-                    bound_ms=bounds[part][0], bound_by=bounds[part][1],
-                    library_ms=lib_ms)
+                    bound_ms=bounds[part, body_rate][0],
+                    bound_by=bounds[part, body_rate][1], library_ms=lib_ms)
         del q, k, v, o, do, lse, grads, outs, dbuf
         torch.cuda.empty_cache()
     return records

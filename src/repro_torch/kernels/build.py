@@ -86,6 +86,9 @@ SIGNATURES = {
         "icq_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _I, _I, _I, _P],
                                 _I),
         "icq_flash_attention_attributes": ([_I] * 3 + [_P, _P], _I),
+    },
+    "flash_attention_bwd": {
+        **_COMMON,
         "icq_flash_attention_bwd": ([_I] + [_P] * 10 + [_I] * 8
                                     + [_F, _I, _I, _I, _P], _I),
         "icq_flash_attention_bwd_attributes": ([_I] * 4 + [_P, _P], _I),

@@ -1,15 +1,12 @@
-// Flash attention for Hopper (sm_90a): the forward and its backward.
+// Flash attention for Hopper (sm_90a): the forward.  Its backward is
+// flash_attention_bwd.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 //   icq_flash_attention  <- flash_attention_pallas (_flash_kernel), with
 //                           the GQA head folding of ops.flash_attention;
 //                           optionally also writes each row's log-sum-exp
-//                           (the Pallas kernel's m and l outputs)
-//   icq_flash_attention_bwd <- no Pallas kernel: the reference trains
-//                           through jax.checkpoint'ed chunked_attention
-//                           (models/attention.py), whose autodiff
-//                           recomputes the probabilities chunk by chunk;
-//                           this is that backward as two kernels (below)
+//                           (the Pallas kernel's m and l outputs), which
+//                           the backward reads
 //
 // q (b, sq, H, dqk), k (b, sk, KVH, dqk) and v (b, sk, KVH, dv), f32 or
 // bf16, H a multiple of KVH; query head h reads key/value head h / (H /
@@ -115,6 +112,7 @@
 
 #include <cuda_bf16.h>
 
+#include "flash_mma.cuh"
 #include "search_common.cuh"
 
 namespace {
@@ -408,85 +406,6 @@ struct MmaGeometry {
                 "Q fits one V stage");
 };
 
-// 2^x in one MUFU instruction (no denormal handling: every x here is
-// <= 0, and a result that underflows adds nothing).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src to shared dst; with src_bytes = 0 nothing is read and
-// dst is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's newest groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a . b over one m16 n8 k16 step, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) rounded to bf16 in one 32-bit register, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// cp.async W columns of rows [row0, row0 + ROWS) of one head (rows
-// `stride` elements apart, src at row 0) into dst (ROWS x LD); rows at or
-// past `rows` are zero-filled.
-template <int W, int LD, int ROWS>
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
-    int rows, long stride) {
-  constexpr int kChunks = W / 8;                   // 16 bytes each
-  constexpr int kIters = ROWS * kChunks / kMmaThreads;
-  static_assert(ROWS * kChunks % kMmaThreads == 0, "whole passes");
-#pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int e = threadIdx.x + i * kMmaThreads;
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(smem_addr(dst + r * LD + c),
-               src + (ok ? long(row0 + r) * stride + c : 0), ok ? 16 : 0);
-  }
-}
-
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads,
                                   MmaGeometry<DQK, DV>::kMinBlocks)
@@ -543,10 +462,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t k_a = smem_addr(k_sm) + 2 * k_off;
   const uint32_t v_a = smem_addr(v_sm) + 2 * v_off;
 
-  load_tile_async<DQK, kLdK, kMmaBQ>(q_sm, q_head, q0, sq, q_stride);
-  load_tile_async<DQK, kLdK, kBK>(k_sm, k_head, kt0 * kBK, sk, k_stride);
+  load_rows<__nv_bfloat16, DQK, kLdK, kMmaBQ, kMmaThreads>(
+      q_sm, q_head, q0, sq, q_stride);
+  load_rows<__nv_bfloat16, DQK, kLdK, kBK, kMmaThreads>(
+      k_sm, k_head, kt0 * kBK, sk, k_stride);
   cp_async_commit();
-  load_tile_async<DV, kLdV, kBK>(v_sm, v_head, kt0 * kBK, sk, v_stride);
+  load_rows<__nv_bfloat16, DV, kLdV, kBK, kMmaThreads>(
+      v_sm, v_head, kt0 * kBK, sk, v_stride);
   cp_async_commit();
 
   uint32_t qf[G::kQInRegs ? kKS : 1][4];
@@ -572,8 +494,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = kt * kBK;
     const int st = (kt - kt0) & 1;   // tile kt0 sits in stage 0
     if (kt + 1 < n_kt)
-      load_tile_async<DQK, kLdK, kBK>(k_sm + (st ^ 1) * G::kTileK, k_head,
-                                      k0 + kBK, sk, k_stride);
+      load_rows<__nv_bfloat16, DQK, kLdK, kBK, kMmaThreads>(
+          k_sm + (st ^ 1) * G::kTileK, k_head, k0 + kBK, sk, k_stride);
     cp_async_commit();
     cp_async_wait<2>();   // K tile kt
     __syncthreads();
@@ -661,8 +583,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     if (kt + 1 < n_kt)
-      load_tile_async<DV, kLdV, kBK>(v_sm + (st ^ 1) * G::kTileV, v_head,
-                                     k0 + kBK, sk, v_stride);
+      load_rows<__nv_bfloat16, DV, kLdV, kBK, kMmaThreads>(
+          v_sm + (st ^ 1) * G::kTileV, v_head, k0 + kBK, sk, v_stride);
     cp_async_commit();
     cp_async_wait<2>();   // V tile kt
     __syncthreads();
@@ -722,474 +644,6 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<__nv_bfloat16*>(out), lse, sq, sk, H, KVH, scale, causal,
       window, kv_end);
   return int(cudaGetLastError());
-}
-
-// ------------------------------------------------ backward: SIMT FMAs ----
-//
-// The FlashAttention-2 backward from the forward's row log-sum-exp LSE,
-// in f32 FMAs for both types (bf16 operands widened exactly on staging).
-// Per visible (query i, key j) pair, recomputed tile by tile under the
-// forward's masks:
-//   P_ij  = exp(s_ij * scale - LSE_i)        (0 exactly where masked)
-//   D_i   = sum_c dO_ic O_ic
-//   dP_ij = dO_i . v_j,  dS_ij = P_ij (dP_ij - D_i)
-//   dV_j += (P_ij cast to v's type) dO_i     (the forward's cast)
-//   dQ_i += scale dS_ij k_j,  dK_j += scale dS_ij q_i
-// No atomics: two launches are equal bit for bit.
-//   * flash_bwd_dq_kernel: one block of 256 threads per (query tile,
-//     head, batch) computes D for its rows (written for the second
-//     kernel) and accumulates dQ over the key tiles in order.
-//   * flash_bwd_dkdv_kernel: one block per (key tile, KV head, batch)
-//     accumulates dK and dV over the G query heads of its KV head and,
-//     for each, the query tiles that see the tile, in order; a key tile
-//     no query sees (past kv_valid, right of every causal row) writes
-//     zeros.
-// Tiles: 64 queries x 64 keys (32 x 32 when a width is 256, for shared
-// memory); each thread holds R x R of the score tile (rows R ty + i,
-// columns tx + 16 j, R = tile / 16) and R rows of the gradients it
-// accumulates (columns tx + 16 g).  Q, dO, K and V tiles sit in shared
-// memory as f32 rows padded by 4 floats; P and dS go through shared
-// memory.
-// What bounds it: operations.  The work is 5 products a visible pair
-// (S, dP, dV, dQ, dK: 2 (3 dqk + 2 dv) operations) against the forward's
-// 2; each kernel recomputes S and dP, so 7 are computed.  At the f32 rate
-// and with shared-memory reads beside every FMA it stays well under that
-// bound; tensor cores are later work.
-
-template <typename T>
-__device__ __forceinline__ float widen(T x);
-template <>
-__device__ __forceinline__ float widen<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// 16 bytes of T at src widened to f32 at dst.
-__device__ __forceinline__ void widen16(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void widen16(const __nv_bfloat16* src,
-                                        float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-// Stage W columns of rows [row0, row0 + ROWS) of one head (rows `stride`
-// elements apart, src at row 0) into dst (ROWS x LD f32), widened; rows
-// at or past `rows` read 0.
-template <typename T, int W, int LD, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const T* __restrict__ src,
-                                           int row0, int rows, long stride) {
-  constexpr int kVE = 16 / int(sizeof(T));
-  constexpr int kPerRow = W / kVE;
-  for (int e = threadIdx.x; e < ROWS * kPerRow; e += blockDim.x) {
-    const int r = e / kPerRow, c = (e % kPerRow) * kVE;
-    float* d = dst + r * LD + c;
-    if (row0 + r < rows) {
-      widen16(src + long(row0 + r) * stride + c, d);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVE; ++i) d[i] = 0.0f;
-    }
-  }
-}
-
-template <int DQK, int DV>
-struct BwdGeometry {
-  static constexpr int kB = (DQK > 192 || DV > 192) ? 32 : 64;  // tile
-  static constexpr int kR = kB / 16;        // rows of a thread's tile
-  static constexpr int kLq = DQK + kPadF;   // Q / K row stride (floats)
-  static constexpr int kLv = DV + kPadF;    // dO / V row stride
-  static constexpr int kLs = kB + kPadF;    // P / dS row stride
-  static constexpr int kCQ = DQK / 16;      // dQ / dK columns a thread
-  static constexpr int kCV = DV / 16;       // dV columns a thread
-  // Q, dO, K and V tiles, LSE and D of the query rows, and one score
-  // tile (dS) in the dQ kernel, two (P and dS) in the dK/dV kernel
-  static constexpr size_t kTiles =
-      2 * size_t(kB) * kLq + 2 * size_t(kB) * kLv + 2 * size_t(kB);
-  static constexpr size_t kSmemDq = sizeof(float) * (kTiles + kB * kLs);
-  static constexpr size_t kSmemDkdv =
-      sizeof(float) * (kTiles + 2 * kB * kLs);
-};
-
-// acc[i][j] = ra[R ty + i] . rb[tx + 16 j] over W columns (row stride
-// LD), in f32 FMAs (the forward's layout: float4 reads of padded rows).
-template <int W, int LD, int R>
-__device__ __forceinline__ void tile_products(float (&acc)[R][R],
-                                              const float* ra,
-                                              const float* rb, int ty,
-                                              int tx) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < W; d += 4) {
-    float4 a[R], bb[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&ra[(R * ty + i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-      bb[j] = *reinterpret_cast<const float4*>(&rb[(tx + 16 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        acc[i][j] = __fmaf_rn(a[i].x, bb[j].x, acc[i][j]);
-        acc[i][j] = __fmaf_rn(a[i].y, bb[j].y, acc[i][j]);
-        acc[i][j] = __fmaf_rn(a[i].z, bb[j].z, acc[i][j]);
-        acc[i][j] = __fmaf_rn(a[i].w, bb[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[i][g] += sum_j w[R ty + i][j] rows[j][tx + 16 g] over the tile's B
-// rows j, in order (w's row stride LS, rows' LD).
-template <int C, int LD, int R, int B, int LS>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[R][C],
-                                                const float* w,
-                                                const float* rows, int ty,
-                                                int tx) {
-#pragma unroll 2
-  for (int j = 0; j < B; j += 4) {
-    float4 w4[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      w4[i] = *reinterpret_cast<const float4*>(&w[(R * ty + i) * LS + j]);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const float* row = rows + (j + jj) * LD + tx;
-      float x[C];
-#pragma unroll
-      for (int g = 0; g < C; ++g) x[g] = row[16 * g];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float wi = jj == 0   ? w4[i].x
-                         : jj == 1 ? w4[i].y
-                         : jj == 2 ? w4[i].z
-                                   : w4[i].w;
-#pragma unroll
-        for (int g = 0; g < C; ++g)
-          acc[i][g] = __fmaf_rn(wi, x[g], acc[i][g]);
-      }
-    }
-  }
-}
-
-// Whether query qpos sees key kpos under the forward's masks (and both
-// lie inside the operands: kv_end <= sk).
-__device__ __forceinline__ bool visible(int qpos, int kpos, int sq,
-                                        int kv_end, bool causal,
-                                        int window) {
-  return qpos < sq && kpos < kv_end && !(causal && qpos < kpos) &&
-         !(window > 0 && qpos - kpos >= window);
-}
-
-// Store a thread's R rows of C gradient columns (tx + 16 g), times mul,
-// as T at rows row0 + R ty + i of one head; rows at or past `rows` are
-// not written.
-template <typename T, int R, int C>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst,
-                                           const float (&acc)[R][C],
-                                           float mul, int row0, int rows,
-                                           long stride, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = row0 + R * ty + i;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int g = 0; g < C; ++g)
-      dst[long(row) * stride + tx + 16 * g] =
-          narrow<T>(__fmul_rn(acc[i][g], mul));
-  }
-}
-
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq,
-                    float* __restrict__ dbuf, int sq, int sk, int H,
-                    int KVH, float scale, bool causal, int window,
-                    int kv_end) {
-  using G = BwdGeometry<DQK, DV>;
-  constexpr int kB = G::kB, kR = G::kR;
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* qs = bwd_smem;                  // kB x kLq
-  float* dos = qs + kB * G::kLq;         // kB x kLv
-  float* ks = dos + kB * G::kLv;         // kB x kLq
-  float* vs = ks + kB * G::kLq;          // kB x kLv
-  float* ds = vs + kB * G::kLv;          // kB x kLs
-  float* lse_s = ds + kB * G::kLs;       // kB
-  float* d_s = lse_s + kB;               // kB
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_qt = (sq + kB - 1) / kB;
-  const int q0 = (n_qt - 1 - int(blockIdx.x)) * kB;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const long q_stride = long(H) * DQK, k_stride = long(KVH) * DQK;
-  const long v_stride = long(KVH) * DV, o_stride = long(H) * DV;
-  const long qo = long(b) * sq;
-  const long row_stat = (long(b) * H + h) * sq;   // LSE / D of the head
-
-  stage_rows<T, DQK, G::kLq, kB>(qs, q + qo * q_stride + long(h) * DQK, q0,
-                                 sq, q_stride);
-  stage_rows<T, DV, G::kLv, kB>(dos, dout + qo * o_stride + long(h) * DV,
-                                q0, sq, o_stride);
-  __syncthreads();
-  // D = rowsum(dO o O): one warp a row, lanes over the columns
-  const T* o_head = o + qo * o_stride + long(h) * DV;
-  for (int r = warp; r < kB; r += kWarps) {
-    const int row = q0 + r;
-    float acc = 0.0f;
-    if (row < sq)
-      for (int c = lane; c < DV; c += 32)
-        acc = __fmaf_rn(dos[r * G::kLv + c],
-                        widen<T>(o_head[long(row) * o_stride + c]), acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      d_s[r] = acc;
-      lse_s[r] = row < sq ? lse[row_stat + row] : 0.0f;
-      if (row < sq) dbuf[row_stat + row] = acc;
-    }
-  }
-
-  // the forward's key tiles of this query tile
-  int n_kt = (kv_end + kB - 1) / kB;
-  if (causal) n_kt = min(n_kt, (min(q0 + kB, sq) - 1) / kB + 1);
-  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kB : 0;
-  const T* k_head = k + long(b) * sk * k_stride + long(kvh) * DQK;
-  const T* v_head = v + long(b) * sk * v_stride + long(kvh) * DV;
-
-  float acc[kR][G::kCQ];
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int g = 0; g < G::kCQ; ++g) acc[i][g] = 0.0f;
-
-  for (int kt = kt0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();   // the last tile's K and dS consumed; D, LSE ready
-    stage_rows<T, DQK, G::kLq, kB>(ks, k_head, k0, sk, k_stride);
-    stage_rows<T, DV, G::kLv, kB>(vs, v_head, k0, sk, v_stride);
-    __syncthreads();
-    float s[kR][kR], dp[kR][kR];   // queries R ty + i, keys tx + 16 j
-    tile_products<DQK, G::kLq, kR>(s, qs, ks, ty, tx);
-    tile_products<DV, G::kLv, kR>(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int r = kR * ty + i;
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const int c = tx + 16 * j;
-        const float p =
-            visible(q0 + r, k0 + c, sq, kv_end, causal, window)
-                ? expf(__fmul_rn(s[i][j], scale) - lse_s[r])
-                : 0.0f;
-        ds[r * G::kLs + c] = p * (dp[i][j] - d_s[r]);
-      }
-    }
-    __syncthreads();
-    accumulate_rows<G::kCQ, G::kLq, kR, kB, G::kLs>(acc, ds, ks, ty, tx);
-  }
-  store_rows<T, kR, G::kCQ>(dq + qo * q_stride + long(h) * DQK, acc, scale,
-                            q0, sq, q_stride, ty, tx);
-}
-
-template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ dbuf, T* __restrict__ dk,
-                      T* __restrict__ dv, int sq, int sk, int H, int KVH,
-                      float scale, bool causal, int window, int kv_end) {
-  using G = BwdGeometry<DQK, DV>;
-  constexpr int kB = G::kB, kR = G::kR;
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* qs = bwd_smem;                  // kB x kLq
-  float* dos = qs + kB * G::kLq;         // kB x kLv
-  float* ks = dos + kB * G::kLv;         // kB x kLq
-  float* vs = ks + kB * G::kLq;          // kB x kLv
-  float* ps = vs + kB * G::kLv;          // kB x kLs: P^T (keys x queries)
-  float* dss = ps + kB * G::kLs;         // kB x kLs: dS^T
-  float* lse_s = dss + kB * G::kLs;      // kB
-  float* d_s = lse_s + kB;               // kB
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = int(blockIdx.x) * kB;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int group = H / KVH;
-  const long q_stride = long(H) * DQK, k_stride = long(KVH) * DQK;
-  const long v_stride = long(KVH) * DV, o_stride = long(H) * DV;
-  const long kvo = long(b) * sk;
-
-  stage_rows<T, DQK, G::kLq, kB>(ks, k + kvo * k_stride + long(kvh) * DQK,
-                                 k0, sk, k_stride);
-  stage_rows<T, DV, G::kLv, kB>(vs, v + kvo * v_stride + long(kvh) * DV, k0,
-                                sk, v_stride);
-
-  // the query tiles that see a key of [k0, k0 + kB): under causal the
-  // rows from k0 on, under a window those up to k0 + kB + window - 2;
-  // none when the tile lies past kv_valid
-  const int n_qt = (sq + kB - 1) / kB;
-  const int qt0 = causal ? k0 / kB : 0;
-  int qt1 = n_qt;
-  if (window > 0) qt1 = min(qt1, (k0 + kB + window - 2) / kB + 1);
-  if (k0 >= kv_end) qt1 = qt0;
-
-  float adk[kR][G::kCQ], adv[kR][G::kCV];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-#pragma unroll
-    for (int g = 0; g < G::kCQ; ++g) adk[i][g] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < G::kCV; ++g) adv[i][g] = 0.0f;
-  }
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const long row_stat = (long(b) * H + h) * sq;
-    const T* q_head = q + long(b) * sq * q_stride + long(h) * DQK;
-    const T* do_head = dout + long(b) * sq * o_stride + long(h) * DV;
-    for (int qt = qt0; qt < qt1; ++qt) {
-      const int q0 = qt * kB;
-      __syncthreads();   // the last tile's Q, dO, P and dS consumed
-      stage_rows<T, DQK, G::kLq, kB>(qs, q_head, q0, sq, q_stride);
-      stage_rows<T, DV, G::kLv, kB>(dos, do_head, q0, sq, o_stride);
-      for (int r = threadIdx.x; r < kB; r += kThreads) {
-        const bool in = q0 + r < sq;
-        lse_s[r] = in ? lse[row_stat + q0 + r] : 0.0f;
-        d_s[r] = in ? dbuf[row_stat + q0 + r] : 0.0f;
-      }
-      __syncthreads();
-      float s[kR][kR], dp[kR][kR];   // keys R ty + i, queries tx + 16 j
-      tile_products<DQK, G::kLq, kR>(s, ks, qs, ty, tx);
-      tile_products<DV, G::kLv, kR>(dp, vs, dos, ty, tx);
-#pragma unroll
-      for (int i = 0; i < kR; ++i) {
-        const int r = kR * ty + i;
-#pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          const int c = tx + 16 * j;
-          const float p =
-              visible(q0 + c, k0 + r, sq, kv_end, causal, window)
-                  ? expf(__fmul_rn(s[i][j], scale) - lse_s[c])
-                  : 0.0f;
-          ps[r * G::kLs + c] = round_to<T>(p);
-          dss[r * G::kLs + c] = p * (dp[i][j] - d_s[c]);
-        }
-      }
-      __syncthreads();
-      accumulate_rows<G::kCV, G::kLv, kR, kB, G::kLs>(adv, ps, dos, ty, tx);
-      accumulate_rows<G::kCQ, G::kLq, kR, kB, G::kLs>(adk, dss, qs, ty, tx);
-    }
-  }
-  store_rows<T, kR, G::kCQ>(dk + kvo * k_stride + long(kvh) * DQK, adk,
-                            scale, k0, sk, k_stride, ty, tx);
-  store_rows<T, kR, G::kCV>(dv + kvo * v_stride + long(kvh) * DV, adv, 1.0f,
-                            k0, sk, v_stride, ty, tx);
-}
-
-// kernel 0: dQ and D; kernel 1: dK and dV (after kernel 0: reads D)
-template <typename T, int DQK, int DV>
-int launch_bwd(int which, const void* q, const void* k, const void* v,
-               const void* o, const void* dout, const void* lse, void* dq,
-               void* dk, void* dv, void* dbuf, int b, int sq, int sk, int H,
-               int KVH, float scale, bool causal, int window, int kv_end,
-               cudaStream_t stream) {
-  using G = BwdGeometry<DQK, DV>;
-  const int n_qt = (sq + G::kB - 1) / G::kB;
-  const int n_kt = (sk + G::kB - 1) / G::kB;
-  if (n_qt > 65535 || n_kt > 65535 || H > 65535)
-    return int(cudaErrorInvalidValue);
-  if (which == 0) {
-    auto kernel = flash_bwd_dq_kernel<T, DQK, DV>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(G::kSmemDq));
-    if (e != cudaSuccess) return int(e);
-    kernel<<<dim3(unsigned(n_qt), unsigned(H), unsigned(b)), kThreads,
-             G::kSmemDq, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(o),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<T*>(dq), static_cast<float*>(dbuf), sq, sk, H, KVH,
-        scale, causal, window, kv_end);
-    return int(cudaGetLastError());
-  }
-  auto kernel = flash_bwd_dkdv_kernel<T, DQK, DV>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(G::kSmemDkdv));
-  if (e != cudaSuccess) return int(e);
-  kernel<<<dim3(unsigned(n_kt), unsigned(KVH), unsigned(b)), kThreads,
-           G::kSmemDkdv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dbuf),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, H, KVH, scale,
-      causal, window, kv_end);
-  return int(cudaGetLastError());
-}
-
-template <int DQK, int DV>
-int launch_bwd_dtype(int dtype, int which, const void* q, const void* k,
-                     const void* v, const void* o, const void* dout,
-                     const void* lse, void* dq, void* dk, void* dv,
-                     void* dbuf, int b, int sq, int sk, int H, int KVH,
-                     float scale, bool causal, int window, int kv_end,
-                     cudaStream_t s) {
-  if (dtype == 0)
-    return launch_bwd<float, DQK, DV>(which, q, k, v, o, dout, lse, dq, dk,
-                                      dv, dbuf, b, sq, sk, H, KVH, scale,
-                                      causal, window, kv_end, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, DQK, DV>(
-        which, q, k, v, o, dout, lse, dq, dk, dv, dbuf, b, sq, sk, H, KVH,
-        scale, causal, window, kv_end, s);
-  return int(cudaErrorInvalidValue);
-}
-
-template <int DQK, int DV>
-cudaError_t bwd_attributes(int dtype, int which, cudaFuncAttributes* attr) {
-  if (dtype == 0)
-    return which == 0
-               ? cudaFuncGetAttributes(attr,
-                                       flash_bwd_dq_kernel<float, DQK, DV>)
-               : cudaFuncGetAttributes(attr,
-                                       flash_bwd_dkdv_kernel<float, DQK, DV>);
-  if (dtype == 1)
-    return which == 0
-               ? cudaFuncGetAttributes(
-                     attr, flash_bwd_dq_kernel<__nv_bfloat16, DQK, DV>)
-               : cudaFuncGetAttributes(
-                     attr, flash_bwd_dkdv_kernel<__nv_bfloat16, DQK, DV>);
-  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------ dispatch ----
@@ -1271,67 +725,6 @@ int icq_flash_attention_attributes(int dtype, int dqk, int dv, int* regs,
   switch (pair(dqk, dv)) {
 #define ICQ_FLASH_CASE(DQK, DV) \
   case pair(DQK, DV): e = attributes<DQK, DV>(dtype, &attr); break;
-    ICQ_FLASH_CASE(32, 32)
-    ICQ_FLASH_CASE(64, 64)
-    ICQ_FLASH_CASE(128, 128)
-    ICQ_FLASH_CASE(256, 256)
-    ICQ_FLASH_CASE(192, 128)
-#undef ICQ_FLASH_CASE
-    default: return int(cudaErrorInvalidValue);
-  }
-  if (e != cudaSuccess) return int(e);
-  *regs = attr.numRegs;
-  *local_bytes = int(attr.localSizeBytes);
-  return 0;
-}
-
-// The backward of icq_flash_attention with the same operands, masks and
-// types: which 0 launches the dQ kernel (dq (b, sq, H, dqk), and D
-// (b, H, sq) f32 into dbuf), which 1 the dK/dV kernel (dk (b, sk, KVH,
-// dqk), dv (b, sk, KVH, dv); reads dbuf, so it runs after which 0 on the
-// stream).  o and dout (b, sq, H, dv) of the type, lse (b, H, sq) f32 from
-// the forward.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// another shape or type.
-int icq_flash_attention_bwd(int which, const void* q, const void* k,
-                            const void* v, const void* o, const void* dout,
-                            const void* lse, void* dq, void* dk, void* dv,
-                            void* dbuf, int dtype, int b, int sq, int sk,
-                            int H, int KVH, int dqk, int dvw, float scale,
-                            int causal, int window, int kv_valid,
-                            void* stream) {
-  if (b < 1 || sq < 1 || sk < 1 || H < 1 || KVH < 1 || H % KVH != 0 ||
-      b > 65535 || window < 0 || (window > 0 && sq > sk) || kv_valid < 0 ||
-      kv_valid > sk || (kv_valid > 0 && (causal != 0 || window > 0)) ||
-      (which != 0 && which != 1))
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool c = causal != 0;
-  const int kv_end = kv_valid > 0 ? kv_valid : sk;
-  switch (pair(dqk, dvw)) {
-#define ICQ_FLASH_CASE(DQK, DV)                                             \
-  case pair(DQK, DV):                                                       \
-    return launch_bwd_dtype<DQK, DV>(dtype, which, q, k, v, o, dout, lse,   \
-                                     dq, dk, dv, dbuf, b, sq, sk, H, KVH,   \
-                                     scale, c, window, kv_end, s);
-    ICQ_FLASH_CASE(32, 32)
-    ICQ_FLASH_CASE(64, 64)
-    ICQ_FLASH_CASE(128, 128)
-    ICQ_FLASH_CASE(256, 256)
-    ICQ_FLASH_CASE(192, 128)
-#undef ICQ_FLASH_CASE
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
-// Registers and local-memory bytes per thread of backward kernel `which`
-// (0 = dQ, 1 = dK/dV) for dtype and (dqk, dv).
-int icq_flash_attention_bwd_attributes(int dtype, int which, int dqk, int dv,
-                                       int* regs, int* local_bytes) {
-  cudaFuncAttributes attr;
-  cudaError_t e;
-  switch (pair(dqk, dv)) {
-#define ICQ_FLASH_CASE(DQK, DV) \
-  case pair(DQK, DV): e = bwd_attributes<DQK, DV>(dtype, which, &attr); break;
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)

@@ -1,0 +1,97 @@
+// Device helpers shared by the flash attention forward
+// (flash_attention.cu) and its backward (flash_attention_bwd.cu): 2^x in
+// one MUFU instruction, cp.async copies of head rows into shared memory,
+// ldmatrix
+// fragment loads and the bf16 mma.sync step of the tensor-core bodies.
+//
+// Each source is compiled into its own shared library, so every helper
+// here has internal linkage (anonymous namespace) in the one
+// translation unit that includes it.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+namespace {
+
+// 2^x in one MUFU instruction (no denormal handling: every x here is
+// <= 0, and a result that underflows adds nothing).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst; with src_bytes = 0 nothing is read and
+// dst is zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async W columns of rows [row0, row0 + ROWS) of one head (rows
+// `stride` elements apart, src at row 0) into dst (ROWS x LD) by NT
+// threads; rows at or past `rows` are zero-filled.
+template <typename E, int W, int LD, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(E* dst, const E* __restrict__ src,
+                                          int row0, int rows, long stride) {
+  constexpr int kVE = 16 / int(sizeof(E));
+  constexpr int kChunks = W / kVE;
+  constexpr int kIters = (ROWS * kChunks + NT - 1) / NT;
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int e = int(threadIdx.x) + i * NT;
+    if (ROWS * kChunks % NT != 0 && e >= ROWS * kChunks) break;
+    const int r = e / kChunks, c = (e % kChunks) * kVE;
+    const bool ok = row0 + r < rows;
+    cp_async16(smem_addr(dst + r * LD + c),
+               src + (ok ? long(row0 + r) * stride + c : 0), ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a . b over one m16 n8 k16 step, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 in one 32-bit register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+}  // namespace

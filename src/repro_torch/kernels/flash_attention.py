@@ -1,7 +1,8 @@
 """Flash attention (twin of ``repro.kernels.flash_attention`` with the
 GQA head folding of ``repro.kernels.ops.flash_attention``) and its
-backward: the CUDA kernels of ``csrc/flash_attention.cu`` beside their
-plain PyTorch versions.
+backward: the CUDA kernels of ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (backward) beside their plain PyTorch
+versions.
 
 Both take q (b, sq, H, dqk), k (b, sk, KVH, dqk) and v (b, sk, KVH, dv)
 of one type, f32 or bf16, with H a multiple of KVH (MHA, GQA, MQA: query
@@ -43,8 +44,15 @@ tile by tile under the forward's masks (0 exactly where masked) and
 returns (dq, dk, dv) in the operands' types; dV takes P cast to v's type
 as the forward's P . V does.  It takes every call the forward takes
 (both types, every ``HEAD_DIMS`` pair, causal or not, ``window``,
-``kv_valid``, GQA / MQA), in f32 FMAs for both types.
-``flash_attention_bwd_torch`` is its plain version (tests and
+``kv_valid``, GQA / MQA), on ``mma.sync`` tensor cores in both types
+(``BWD_PATHS``): bf16 m16n8k16 with f32 sums, where dS is also rounded
+to bf16 before it multiplies K (dq) or Q (dk), so that each product
+takes bf16 operands; f32 m16n8k8 TF32 with the 3xTF32 split of every
+operand (hi = x rounded to TF32, lo = x - hi rounded to TF32, a . b as
+lo_a hi_b + hi_a lo_b + hi_a hi_b in f32: ~2^-21 of a product, within
+the 2e-5 gate, which one-pass TF32 is not).  Both hold 2e-5 (f32) /
+2e-2 (bf16) of each gradient's largest magnitude against
+``flash_attention_bwd_torch``, its plain version (tests and
 ``chip_smoke.py``; nothing on the card calls it).  The reference trains
 through its jnp ``chunked_attention``, whose ``jax.checkpoint``'ed
 chunks make XLA recompute the probabilities in the backward: the same
@@ -64,6 +72,8 @@ NEG_INF = -1e30
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PATHS = {torch.float32: "FMA f32", torch.bfloat16: "mma.sync bf16"}
+BWD_PATHS = {torch.float32: "mma.sync 3xTF32 f32",
+             torch.bfloat16: "mma.sync bf16"}
 
 
 def _compiled(dqk: int, dv: int):
@@ -269,7 +279,7 @@ def flash_attention_bwd_kernel(kernel: str, q, k, v, o, do, lse, dq, dk, dv,
                              f"{tuple(got[name].shape)}")
     _check_sizes(b, sq, sk, H, dqk, dvw)
     which = BWD_KERNELS.index(kernel)
-    lib = build.library("flash_attention")
+    lib = build.library("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.icq_flash_attention_bwd(
         which, *(ctypes.c_void_p(t.data_ptr())
@@ -287,21 +297,22 @@ def kernel_attributes(dtype: torch.dtype, dqk: int, dv=None,
                       kernel: str = "forward") -> dict:
     """The body that runs for ``dtype`` at (``dqk``, ``dv``; ``dv``
     defaults to ``dqk``), the forward or a backward kernel (``"dq"``,
-    ``"dkdv"``: f32 FMAs for both types): its path, registers per thread
-    and local-memory bytes per thread (spills and local arrays), as
-    ``cudaFuncGetAttributes`` reports them."""
+    ``"dkdv"``): its path, registers per thread and local-memory bytes
+    per thread (spills and local arrays), as ``cudaFuncGetAttributes``
+    reports them."""
     dv = dqk if dv is None else dv
     if dtype not in DTYPES:
         raise ValueError(f"no kernel for {dtype}")
     _compiled(dqk, dv)
-    lib = build.library("flash_attention")
     regs, local = ctypes.c_int(), ctypes.c_int()
     if kernel == "forward":
         path = PATHS[dtype]
+        lib = build.library("flash_attention")
         err = lib.icq_flash_attention_attributes(
             DTYPES[dtype], dqk, dv, ctypes.byref(regs), ctypes.byref(local))
     else:
-        path = f"backward {kernel}, FMA f32"
+        path = f"backward {kernel}, {BWD_PATHS[dtype]}"
+        lib = build.library("flash_attention_bwd")
         err = lib.icq_flash_attention_bwd_attributes(
             DTYPES[dtype], BWD_KERNELS.index(kernel), dqk, dv,
             ctypes.byref(regs), ctypes.byref(local))

@@ -395,7 +395,12 @@ def test_cuda_flash_attention_kv_valid_matches_plain_version(
 # every compiled width pair, causal and not, GQA / MQA, ragged lengths
 # against the 64- and 32-row tiles, sq > sk causal (key tiles right of
 # every row), a window inside and across tiles (and non-causal), the
-# key-padding bound (a tile past it), MLA's (192, 128)
+# key-padding bound (a tile past it), MLA's (192, 128); then the tensor-
+# core bodies' instances: 32-row query tiles walked over 4 heads of a KV
+# head, the 32-key dK / dV blocks at dh 256 with sq > sk, two warps a key
+# slab at (192, 128) and 256 under a window and kv_valid on a 32-key
+# edge, and a dK / dV sum over 16,384 queries (16 heads of one KV head),
+# where the tensor cores' truncating accumulation would pass 2e-5
 FLASH_BWD_CASES = [
     (2, 100, 100, 4, 2, 32, 32, True, 0, 0),
     (1, 257, 257, 8, 1, 64, 64, True, 0, 0),
@@ -410,6 +415,12 @@ FLASH_BWD_CASES = [
     (1, 130, 257, 4, 2, 192, 128, False, 0, 200),
     (1, 200, 200, 4, 4, 192, 128, True, 0, 0),
     (1, 160, 160, 2, 1, 192, 128, True, 50, 0),
+    (1, 161, 161, 8, 2, 64, 64, True, 0, 0),
+    (1, 100, 70, 2, 1, 256, 256, True, 0, 0),
+    (1, 97, 130, 4, 2, 192, 128, False, 33, 0),
+    (1, 64, 96, 2, 2, 256, 256, False, 0, 33),
+    (1, 150, 300, 4, 1, 128, 128, True, 40, 0),
+    (1, 1024, 1024, 16, 1, 64, 64, False, 0, 0),
 ]
 
 
@@ -456,6 +467,40 @@ def test_cuda_flash_attention_bwd_matches_plain_version(
         bound = tol * float(w.float().abs().max())
         err = float((g.float() - w.float()).abs().max())
         assert err <= bound, (name, err, bound)
+
+
+# local-memory bytes a thread of a backward instance (dtype, dqk, dv,
+# kernel) took when built for sm_90a and measured on an NVIDIA H100; an
+# instance not listed took none
+BWD_LOCAL_BYTES = {
+    (torch.float32, 128, 128, "dkdv"): 24,
+    (torch.float32, 256, 256, "dq"): 112,
+    (torch.float32, 256, 256, "dkdv"): 96,
+    (torch.float32, 192, 128, "dq"): 152,
+    (torch.float32, 192, 128, "dkdv"): 16,
+    (torch.bfloat16, 128, 128, "dkdv"): 8,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_bwd_bodies(dtype):
+    """No backward instance spills more local memory a thread than
+    ``BWD_LOCAL_BYTES`` records for it, and an instance it does not list
+    spills none: the timed ones (f32 at dh 64; bf16 at 64, 256 and
+    (192, 128)) among them, bf16's dK / dV at 128 at its 8 bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    spills = {}
+    for dqk, dv in fa.HEAD_DIMS:
+        for kernel in fa.BWD_KERNELS:
+            key = (dtype, dqk, dv, kernel)
+            spills[key] = fa.kernel_attributes(*key)["local_bytes"]
+    over = {key: (got, BWD_LOCAL_BYTES.get(key, 0))
+            for key, got in spills.items()
+            if got > BWD_LOCAL_BYTES.get(key, 0)}
+    assert not over, over
 
 
 @pytest.mark.gpu
