@@ -6,8 +6,9 @@ SIFT1M geometry through the port's own entry points (``build_index``,
 ``load_ann_engine``), trains, and serves two dense LMs, a MoE LM, an
 MLA + MoE LM, an SSM, a hybrid, an encoder-decoder and a VLM at full
 width (``serve_lm``), trains a dense LM at full width through the
-``launch.train --arch`` command and its resume, and checks what comes
-out.
+``launch.train --arch`` command and its resume, runs MLA's block-wise
+attention at a 32k prompt, the sharded train step, the cross-pod combine
+programs and a reshard, and checks what comes out.
 
     python3 chip_smoke.py [--seed 0] [--n 1000000] [--batches 3] \
         [--profile DIR]
@@ -254,9 +255,9 @@ or outside a checkout of the repository.  Phases:
    and T = 8 (C = 4, drops possible) a step; cell D, deepseek-v2-236b
    in bf16, its depth cut to 6 layers (1 MLA dense + 5 MLA MoE of 160
    experts, 21.2 B parameters; the 60 layers do not fit one card),
-   batch 1, a 2048-token prompt (past ``attn_chunk``: on the card MLA's
-   K and V materialized and the flash kernel's (192, 128) instance),
-   16 steps; cell E, mamba2-1.3b in bf16 at full depth (48 SSD layers,
+   batch 1, a 2048-token prompt (past ``attn_chunk``: MLA's block-wise
+   attention, 2 blocks, the flash kernel's (192, 128) instance 3 times a
+   layer), 16 steps; cell E, mamba2-1.3b in bf16 at full depth (48 SSD layers,
    no attention), batch 8, a 2048-token prompt (16 SSD chunks of 128),
    32 steps; cell F, recurrentgemma-9b in bf16 at full depth (12 groups
    of (rglru, rglru, local) and two rglru layers; MQA 16 / 1 heads of
@@ -295,17 +296,20 @@ or outside a checkout of the repository.  Phases:
    oracle within 2^-5 of the largest output; (5) at cell A's head
    geometry ICQ-KV attention at top_c = S equal to exact attention over
    the dequantized cache; (6) launch counts reset before and read after
-   each cell: exactly one flash launch an attention layer a prefill
-   (22, 28, 48, 6, none at cell E, the 12 local layers at cell F, 96
-   at cell G: 32 encoder, 32 self and 32 cross, 32 at cell H;
+   each cell: exactly one flash launch an attention layer a prefill,
+   an MLA layer past ``attn_chunk`` one a (query block, key block <= it)
+   pair (22, 28, 48, 6 x 3 = 18, none at cell E, the 12 local layers at
+   cell F, 96 at cell G: 32 encoder, 32 self and 32 cross, 32 at cell H;
    the untimed warm prefill doubles the window's count) and none in the
    decode steps.  TF32 must be off; the phase logs
    ``torch.get_float32_matmul_precision()``.  The kernels' record of
    flash attention is cell B's served prefill shape, with the launches
-   of the whole run; a second record, ``flash_attention (192, 128)``,
-   is cell D's, with cell D's launches, a third, ``flash_attention
-   (window 2048)``, cell F's, with cell F's, and two more, ``(non-causal,
-   encoder)`` and ``(non-causal, cross)``, cell G's, with cell G's.
+   of the whole run; two more, ``flash_attention (192, 128, causal
+   block)`` and ``(192, 128, non-causal block)``, are cell D's diagonal
+   and earlier block calls, each with its own launches, a fourth,
+   ``flash_attention (window 2048)``, cell F's, with cell F's, and two
+   more, ``(non-causal, encoder)`` and ``(non-causal, cross)``, cell
+   G's, with cell G's.
 
 15. LM training (``launch.train --arch``, run last): tinyllama-1.1b's
    loss and every gradient at depth 2, batch 1, 64 tokens, f32, on the
@@ -320,6 +324,35 @@ or outside a checkout of the repository.  Phases:
    ``--resume --steps 6`` from its checkpoint, whose two losses must
    equal the uninterrupted run's bit for bit; every loss finite; losses,
    dt a step, peak MiB.
+
+16. MLA at length and LM sharding (run last, ~70 s): (a) one
+   ``mla_dense`` layer's attention at DeepSeek-V2's full width (128
+   heads, (192, 128)) in bf16 at ``prefill_32k``'s 32768 tokens, batch
+   1: ``mla_blockwise_attention`` (32 blocks, 528 flash launches with the
+   rows' log-sum-exp, merged in f32) against the materialized path (K and
+   V of the whole sequence, one launch) from the same weights, within
+   2e-2 of the largest output; each call's peak allocation above its
+   inputs and output, the block-wise one within two blocks' working set;
+   both timed (CUDA events); the same in f32 at 4096 tokens within 2e-5;
+   (b) tinyllama-1.1b at full width, depth 2, f32, a global batch of 8 x
+   512 through ``build_train_step`` over ``make_mesh_auto((2, 2, 1),
+   ("pod", "data", "model"))`` on the first card, the plain and the
+   ``icq_grad`` step, each against the unsharded step on the card and the
+   same sharded step on the CPU from the same state, held on what
+   carries the gradient (a first AdamW step moves a param by less than
+   its 3e-7 learning rate whatever the gradient): the loss to 1e-5;
+   plain, the pre-clip norm, params and both moments within 2e-4 of
+   their largest; icq_grad, the gradient read back from the moments
+   within one int8 step of each leaf's largest pod gradient, the norm
+   within the norm of half steps, the error-feedback residuals equal to
+   the plain gradient less the compressed one and within half a step,
+   params within twice the learning rate; with 4 shards' flash
+   launches; (c) the fp32
+   and int8 combine programs (``launch.combine``) over 2 pods of
+   tinyllama's full parameter vector: ms, wire bytes a device, the int8
+   mean equal to the plain formula bit for bit; (d) ``reshard_state`` of
+   tinyllama's full params from (data 4) to (data 2, model 2) and back,
+   bit for bit, with its peak MiB.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -340,8 +373,8 @@ SSM's and the RG-LRU's pieces as ranges).
 
 The line before the last is the kernels' JSON record (the nine
 kernels, then the flash kernel's (192, 128), windowed and non-causal
-instances, then the two backward kernels at the train cell's shape with
-phase 15's launches);
+instances, then the two backward kernels at the train cell's shape; the
+launches are the whole run's, phases 15 and 16 included);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4331,10 +4364,10 @@ def lm_config(arch, bf16, layers=0, window=0):
 
 
 def attention_layers(cfg) -> int:
-    """The flash launches of a prefill, one an attention: every layer of
-    the dense, MoE, MLA and VLM archs, none of the SSM, the hybrid's
-    local layers, whisper's encoder layers and twice its decoder layers
-    (self and cross attention)."""
+    """The attention calls of a prefill: every layer of the dense, MoE,
+    MLA and VLM archs, none of the SSM, the hybrid's local layers,
+    whisper's encoder layers and twice its decoder layers (self and
+    cross attention)."""
     if cfg.ssm:
         return 0
     if cfg.encdec:
@@ -4344,6 +4377,26 @@ def attention_layers(cfg) -> int:
         return sum(pattern[i % len(pattern)] == "local"
                    for i in range(cfg.num_layers))
     return cfg.num_layers
+
+
+def mla_blocks(cfg, s: int) -> int:
+    """MLA's query / key blocks at a prompt of ``s``: 1 up to
+    ``attn_chunk``, past it ``attn_chunk`` reduced until it divides s
+    (``models.mla._block``)."""
+    if s <= cfg.attn_chunk:
+        return 1
+    c = cfg.attn_chunk
+    while s % c:
+        c -= 1
+    return s // c
+
+
+def prefill_flash_launches(cfg, s: int) -> int:
+    """The flash launches of a prefill of ``s`` tokens: one an attention
+    call, and an MLA layer past ``attn_chunk`` one a (query block, key
+    block <= it) pair, n (n + 1) / 2 for n blocks."""
+    n = mla_blocks(cfg, s) if cfg.mla else 1
+    return attention_layers(cfg) * n * (n + 1) // 2
 
 
 def lm_params(cfg, seed):
@@ -4512,7 +4565,8 @@ class FlashCalls:
         from repro_torch.kernels import ops
         self.ops, launch = ops, ops.flash_attention
 
-        def record(q, k, v, *, causal=True, window=0, kv_valid=0):
+        def record(q, k, v, *, causal=True, window=0, kv_valid=0,
+                   with_lse=False):
             key = (causal, window, kv_valid, tuple(q.shape), tuple(k.shape),
                    tuple(v.shape))
             if key not in self.counts and self.capture:
@@ -4520,7 +4574,7 @@ class FlashCalls:
                                    window))
             self.counts[key] = self.counts.get(key, 0) + 1
             return launch(q, k, v, causal=causal, window=window,
-                          kv_valid=kv_valid)
+                          kv_valid=kv_valid, with_lse=with_lse)
         self.launch, ops.flash_attention = launch, record
         return self
 
@@ -4802,7 +4856,8 @@ def lm_serving(seed: int, card: str, profile_dir=None):
     counted by distinct call too, the counts summing to the wrapper's).
     With ``profile_dir``, ``profile_lm`` of each cell.  Returns (the
     served cells' launches, the flash kernel's records at cell B's call,
-    at cell D's (the (192, 128) instance), at cell F's (the window) and
+    at cell D's two (the (192, 128) instance, the causal diagonal block
+    and the non-causal earlier one), at cell F's (the window) and
     at cell G's encoder and cross attention (non-causal), each of the
     latter with its own call's launches in ``serve_lm``'s run))."""
     import gc
@@ -4839,7 +4894,7 @@ def lm_serving(seed: int, card: str, profile_dir=None):
                            device="cuda", seed=seed, icq_kv=label == "A",
                            params=params, verbose=False)
         launches = read_launches()
-        n_attn = attention_layers(cfg)
+        n_attn = prefill_flash_launches(cfg, s)
         want = {k: 0 for k in launches}
         want["flash_attention"] = 2 * n_attn   # warm + timed
         log(f"lm cell {label} launches {launches} (prefill "
@@ -4899,8 +4954,12 @@ def lm_serving(seed: int, card: str, profile_dir=None):
         with FlashCalls(capture=True) as seen:
             build_model(cfg).prefill(params, batch0, s + steps)
         calls = seen.calls
+        # distinct calls: whisper's three; an MLA prefill past attn_chunk
+        # two (the causal diagonal blocks, the non-causal earlier ones)
+        distinct = (3 if cfg.encdec else 2 if cfg.mla
+                    and mla_blocks(cfg, s) > 1 else min(n_attn, 1))
         check(list(seen.counts) == list(served.counts)
-              and len(calls) == (3 if cfg.encdec else min(n_attn, 1)),
+              and len(calls) == distinct,
               f"lm cell {label}: distinct flash calls {list(seen.counts)}, "
               f"served {list(served.counts)}")
         recs = [dict(flash_at_shape(label, arch, *call), launches=n)
@@ -4914,9 +4973,11 @@ def lm_serving(seed: int, card: str, profile_dir=None):
             profile_lm(label, cfg, params, batch0, s + steps, profile_dir)
         if label == "B":
             records["flash_attention"] = recs[0]
-        if label == "D":
+        if label == "D":     # the causal diagonal blocks, the earlier ones
             records["flash_attention_mla"] = dict(
-                recs[0], name="flash_attention (192, 128)")
+                recs[0], name="flash_attention (192, 128, causal block)")
+            records["flash_attention_mla_noncausal"] = dict(
+                recs[1], name="flash_attention (192, 128, non-causal block)")
         if label == "F":
             records["flash_attention_window"] = dict(
                 recs[0], name="flash_attention (window 2048)")
@@ -4933,8 +4994,9 @@ def lm_serving(seed: int, card: str, profile_dir=None):
             f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB left "
             "allocated after it")
     log(f"phase 14 ran {time.perf_counter() - t0:.1f} s; the "
-        "flash_attention records are cell B's, cell D's, cell F's and "
-        "cell G's (encoder, cross) served prefill calls")
+        "flash_attention records are cell B's, cell D's (causal and "
+        "non-causal blocks), cell F's and cell G's (encoder, cross) served "
+        "prefill calls")
     return total, records
 
 
@@ -5115,6 +5177,443 @@ def lm_training(seed: int, card: str):
     return total
 
 
+# ------------------------------------- phase 16: MLA at length, sharding ----
+
+# (a) one mla_dense layer's attention at DeepSeek-V2's full width
+# (configs/deepseek_v2_236b.py: 128 heads, kv_lora 512, q/k 128 + 64, v
+# 128) in bf16 at prefill_32k's length (32768 tokens, batch 1: 32 blocks of
+# attn_chunk 1024, 528 flash launches), against the materialized path from
+# the same weights within TOL_BF16_LM of the largest output; the same in
+# f32 at MLA_F32's length (4 blocks) within 2e-5
+MLA_LEN = dict(s=32768, b=1)
+MLA_F32 = dict(s=4096, b=1)
+TOL_BF16_LM = 2e-2
+# (b) the sharded train step: tinyllama-1.1b at full width, depth 2, f32
+# as configured, over make_mesh_auto((2, 2, 1), (pod, data, model)) on the
+# first card, a global batch of 8 x 512 in one microbatch (2 rows a
+# shard); the plain step and the icq_grad step (compressed cross-pod
+# mean).  The first AdamW step moves a param by less than the learning
+# rate (3e-7 at step 1 of the warmup) whatever the gradient, so the
+# gates hold what carries the gradient: the combined gradient read back
+# from the moments (m = (1 - b1) c g, v = (1 - b2) (c g)^2, c the clip
+# factor), the pre-clip norm and the residuals.  Plain, against the
+# unsharded step on the card and the same sharded step on the CPU: the
+# loss to 1e-5, the norm to LM_TOL, params, m and v within LM_TOL of
+# each leaf's largest.  icq_grad (each pod's gradient rows rounded to
+# their int8 grid, step = the row's largest / 127: an element moves by
+# at most half a step, the pods' mean by B / 2, B = M / 127, M the leaf's
+# largest over the pods' own gradients, each from the unsharded step
+# over the pod's rows): against the unsharded plain step, the gradient
+# (from m; |g| from v) within B, the norm within the norm of the half
+# steps, the residuals' pod mean equal to the plain gradient less the
+# compressed one within LM_TOL of M, each residual within (1 + LM_TOL)
+# M / 254, params within twice the first step's rate and f32 rounding;
+# against the CPU's icq_grad step, the gradient and the residuals within
+# B + 3 LM_TOL M (a rounding flip moves an element by one step of its
+# row, the two sides' inputs and row maxima agreeing within LM_TOL of
+# M), the norm to LM_TOL
+SHARD_STEP = dict(layers=2, rows=8, tokens=512, mesh=(2, 2, 1))
+EPS32 = 2.0 ** -23
+# (c) the combine programs over 2 pods of tinyllama's full parameter
+# vector ((rows, 256) f32, one device a pod); (d) reshard_state of
+# tinyllama's full params from (data 4) to (data 2, model 2) and back
+
+
+def mla_block_bytes(cfg, b: int, c: int, item: int) -> int:
+    """One (query block, key block) pair's working set in
+    ``mla_blockwise_attention``: q_blk, k_nope, k_blk, v_blk and o_b in
+    the latent's type (``item`` bytes), the log-sum-exp, the f32
+    accumulator and one f32 merge temporary."""
+    rows = b * c * cfg.num_heads
+    dqk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    return rows * (item * (2 * dqk + dn + 2 * dv) + 4 + 8 * dv)
+
+
+def mla_at_length(seed: int, card: str, bf16: bool, b: int, s: int):
+    """Phase 16 (a) at one type and length: the block-wise attention and
+    the materialized one (K and V of the whole sequence, one flash
+    launch) from the same weights and inputs; each call's peak
+    allocation above its inputs and output.  Returns (launches of the
+    block-wise call, max_abs_err / largest, ms, peak bytes)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import mla as mla_mod
+    cfg = lm_config("deepseek-v2-236b", bf16, 1)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1600)
+    p = mla_mod.mla_init(gen, cfg, dt)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.float32).to(dt)
+    pos = torch.arange(s, device="cuda")
+    with torch.no_grad():
+        qn, qr = mla_mod._queries(p, x, cfg, pos)
+        lat, kr = mla_mod._latent(p, x, cfg, pos)
+        args = (p, qn, qr, lat, kr, cfg)
+
+        def blockwise():
+            return mla_mod.mla_blockwise_attention(*args)
+
+        def materialized():
+            q, k, v = mla_mod._materialize(*args)
+            return fa.flash_attention_cuda(q, k, v, causal=True)
+
+        def peak(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            extra = (torch.cuda.max_memory_allocated() - base
+                     - out.numel() * out.element_size())
+            return out, extra
+        blockwise()                   # warm: cuBLAS workspaces, launches
+        reset_launches()
+        got, peak_b = peak(blockwise)
+        launches = read_launches()["flash_attention"]
+        want, peak_m = peak(materialized)
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        del want
+        ms = time_ms(blockwise, 2)
+        ms_m = time_ms(materialized, 2)
+    n = mla_blocks(cfg, s)
+    work = mla_block_bytes(cfg, b, s // n, x.element_size())
+    kv = b * s * cfg.num_heads * (cfg.qk_nope_head_dim
+                                  + cfg.qk_rope_head_dim
+                                  + cfg.v_head_dim) * x.element_size()
+    tol = TOL_BF16_LM if bf16 else flash_tolerance(torch.float32)
+    log(f"phase 16 (a) mla block-wise deepseek-v2-236b "
+        f"{'bf16' if bf16 else 'f32'} b={b} s={s} ({n} blocks, H "
+        f"{cfg.num_heads}, (192, 128)): {launches} flash launches (want "
+        f"{n * (n + 1) // 2}), max_abs_err {err} against the materialized "
+        f"path (largest {top}; {err / top:.3e} of it, tolerance {tol}), "
+        f"{ms:.3f} ms against {ms_m:.3f} ms materialized (CUDA events); "
+        f"peak above inputs and output {peak_b / 2**20:.1f} MiB (bound: two "
+        f"blocks' working set, 2 x {work / 2**20:.1f} MiB), materialized "
+        f"{peak_m / 2**20:.1f} MiB (its K + V alone {kv / 2**20:.1f} MiB); "
+        f"{card}")
+    check(launches == n * (n + 1) // 2,
+          f"mla block-wise: {launches} flash launches")
+    check(err <= tol * top, f"mla block-wise != materialized: {err}")
+    check(peak_b <= 2 * work, f"mla block-wise peak {peak_b} B > 2 x {work}")
+    del got, p, x, qn, qr, lat, kr, args
+    return launches, err / top, ms, peak_b
+
+
+def _at_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _step_grads(opt, out):
+    """The combined gradient that a first AdamW step (zero moments before
+    it) took, read back from its moments and pre-clip norm, on the card:
+    ({leaf: g from m}, {leaf: |g| from v})."""
+    _, state, metrics = out
+    c = min(1.0, opt.clip_norm / max(float(metrics["gnorm"]), 1e-9))
+    g, a = {}, {}
+    for path in _leaf_paths(state["m"]):
+        m = _at_path(state["m"], path).float().cuda()
+        v = _at_path(state["v"], path).float().cuda()
+        g["/".join(path)] = m / ((1 - opt.b1) * c)
+        a["/".join(path)] = (v / (1 - opt.b2)).sqrt() / c
+    return g, a
+
+
+def _flat(tree):
+    return {"/".join(p): _at_path(tree, p).float().cuda()
+            for p in _leaf_paths(tree)}
+
+
+def _ratio(got, want, bound):
+    """(worst ratio of a leaf's max |got - want| to ``bound[leaf]``, the
+    leaf) over dicts of card tensors."""
+    worst, name = 0.0, ""
+    for k, w in want.items():
+        r = float((got[k] - w).abs().max()) / max(bound[k], 1e-30)
+        if r >= worst:
+            worst, name = r, k
+    return worst, name
+
+
+def icq_step_ratios(opt, out, plain, pod_grads, cpu_out):
+    """Phase 16 (b)'s icq_grad gates (the comment above SHARD_STEP): each
+    {gate: (worst ratio to its bound, leaf)}, a ratio <= 1 passing."""
+    import torch
+    g, a = _step_grads(opt, out)
+    g0, _ = _step_grads(opt, plain)
+    gc, _ = _step_grads(opt, cpu_out)
+    res = [_flat(r) for r in out[1]["ef_residual"]]
+    res_c = [_flat(r) for r in cpu_out[1]["ef_residual"]]
+    M = {k: max(float(pg[k].abs().max()) for pg in pod_grads) for k in g0}
+    B = {k: m / 127 for k, m in M.items()}
+    # a rounding flip: one step of its row, the rows' inputs and largest
+    # agreeing within LM_TOL of M (the plain gates)
+    flip = {k: B[k] + 3 * LM_TOL * M[k] for k in M}
+    out_r = {
+        "g vs unsharded": _ratio(g, g0, B),
+        "|g| vs unsharded": _ratio(a, {k: w.abs() for k, w in g0.items()},
+                                   B),
+        "residual mean vs plain - icq": _ratio(
+            {k: sum(r[k] for r in res) / len(res) for k in g0},
+            {k: g0[k] - g[k] for k in g0}, {k: LM_TOL * M[k] for k in g0}),
+        "residual half step": max(
+            (float(r[k].abs().max()) / ((1 + LM_TOL) * M[k] / 254), k)
+            for r in res for k in g0),
+        "g vs CPU": _ratio(g, gc, flip),
+        "residual vs CPU": max(_ratio(r, rc, flip)
+                               for r, rc in zip(res, res_c)),
+    }
+    norm = sum(g0[k].numel() * (B[k] / 2) ** 2 for k in g0) ** 0.5
+    gn, gn0 = float(out[2]["gnorm"]), float(plain[2]["gnorm"])
+    gnc = float(cpu_out[2]["gnorm"])
+    out_r["gnorm vs unsharded"] = (abs(gn - gn0) / (norm + 1e-5 * gn0),
+                                   "gnorm")
+    out_r["gnorm vs CPU"] = (abs(gn - gnc) / (LM_TOL * gnc), "gnorm")
+    lr1 = float(opt.lr(torch.ones((), dtype=torch.int32)))
+    p, p0 = _flat(out[0]), _flat(plain[0])
+    out_r["params vs unsharded"] = _ratio(
+        p, p0, {k: 2 * lr1 + 2 * EPS32 * float(w.abs().max())
+                for k, w in p0.items()})
+    return out_r
+
+
+def plain_step_ratios(out, want, what):
+    """Phase 16 (b)'s plain gates against ``want`` (the unsharded step or
+    the CPU's): params, m and v within LM_TOL of each leaf's largest,
+    the pre-clip norm to LM_TOL."""
+    r = {}
+    for name, got_t, want_t in (("params", out[0], want[0]),
+                                ("m", out[1]["m"], want[1]["m"]),
+                                ("v", out[1]["v"], want[1]["v"])):
+        got_f, want_f = _flat(got_t), _flat(want_t)
+        r[f"{name} vs {what}"] = _ratio(
+            got_f, want_f, {k: LM_TOL * float(w.abs().max())
+                            for k, w in want_f.items()})
+    gn, gw = float(out[2]["gnorm"]), float(want[2]["gnorm"])
+    r[f"gnorm vs {what}"] = (abs(gn - gw) / (LM_TOL * gw), "gnorm")
+    return r
+
+
+def sharded_step_gate(seed: int, card: str):
+    """Phase 16 (b): the plain and the icq_grad train step over the (2,
+    2, 1) mesh on the card against the unsharded step on the card and
+    the same sharded step on the CPU, from the same state and batch, on
+    the gradient that each step took (the comment above SHARD_STEP).
+    Returns the launches of the two sharded steps on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch.steps import build_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=SHARD_STEP["layers"])
+    rows, tokens = SHARD_STEP["rows"], SHARD_STEP["tokens"]
+    names = ("pod", "data", "model")
+    pods = SHARD_STEP["mesh"][0]
+    shards = pods * SHARD_STEP["mesh"][1]
+    toks = np.random.default_rng(seed + 1601).integers(
+        0, cfg.vocab_size, (1, rows, tokens), dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    card_params = lm_params(cfg, seed)
+    cpu_params = cpu_tree(card_params)
+    total = {k: 0 for k in read_launches()}
+    step0, _, opt, init0 = build_train_step(cfg, n_micro=1)
+    plain = step0(card_params, init0(card_params), batch)
+    m0 = plain[2]
+    # each pod's own gradient: the unsharded step over the pod's rows
+    per = rows // pods
+    pod_grads = [_step_grads(opt, step0(
+        card_params, init0(card_params),
+        {k: v[:, p * per:(p + 1) * per] for k, v in batch.items()}))[0]
+        for p in range(pods)]
+    for icq in (False, True):
+        t0 = time.perf_counter()
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            mesh = make_mesh_auto(SHARD_STEP["mesh"], names, devices=dev)
+            step, _, _, init = build_train_step(cfg, n_micro=1,
+                                                multi_pod=True,
+                                                icq_grad=icq, mesh=mesh)
+            params = card_params if dev == "cuda" else cpu_params
+            state = init(params)
+            reset_launches()
+            outs[dev] = step(params, state, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_launches()
+                for k in total:
+                    total[k] += launches[k]
+        want = {k: 0 for k in launches}
+        for k, n in train_flash_launches(cfg, 1).items():
+            want[k] = shards * n
+        mc, mp = outs["cuda"][2], outs["cpu"][2]
+        loss_u = abs(float(mc["loss"]) - float(m0["loss"])) / abs(
+            float(m0["loss"]))
+        loss_c = abs(float(mc["loss"]) - float(mp["loss"])) / abs(
+            float(mp["loss"]))
+        if icq:
+            ratios = icq_step_ratios(opt, outs["cuda"], plain, pod_grads,
+                                     outs["cpu"])
+        else:
+            ratios = dict(plain_step_ratios(outs["cuda"], plain,
+                                            "unsharded"),
+                          **plain_step_ratios(outs["cuda"], outs["cpu"],
+                                              "CPU"))
+        kind = "icq_grad" if icq else "plain"
+        log(f"phase 16 (b) sharded train step {kind} {TRAIN_ARCH} f32 "
+            f"{cfg.num_layers} layers, mesh {SHARD_STEP['mesh']} {names} on "
+            f"one card, {rows} x {tokens} ({rows // shards} rows a shard): "
+            f"loss {float(mc['loss'])!r}, unsharded {float(m0['loss'])!r} "
+            f"(rel {loss_u:.3e}), CPU {float(mp['loss'])!r} (rel "
+            f"{loss_c:.3e}), tolerance 1e-5; gnorm {float(mc['gnorm'])!r}, "
+            f"unsharded {float(m0['gnorm'])!r}, CPU {float(mp['gnorm'])!r}; "
+            "worst leaf a gate, its ratio to the bound: "
+            + ", ".join(f"{k} {n} {r:.4f}" for k, (r, n) in ratios.items())
+            + f"; launches {launches} (want {want}); "
+            f"{time.perf_counter() - t0:.1f} s with the CPU's step; {card}")
+        check(loss_u <= 1e-5 and loss_c <= 1e-5,
+              f"sharded {kind} loss {float(mc['loss'])}")
+        bad = {k: v for k, v in ratios.items() if not v[0] <= 1.0}
+        check(not bad, f"sharded {kind}: {bad}")
+        check(launches == want, f"sharded {kind} launches {launches}")
+        if icq:
+            check(len(outs["cuda"][1]["ef_residual"]) == pods,
+                  "one residual tree a pod")
+        del outs
+    return total
+
+
+def combine_gate(card: str):
+    """Phase 16 (c): the two combine programs over 2 pods of tinyllama's
+    full parameter vector on the card: ms (CUDA events), the wire bytes a
+    device, and the int8 result equal to the plain formula (the mean of
+    dequantize(quantize(g + r)) over the pods) bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch import combine as cb
+    from repro_torch.quant.int8 import dequantize_int8, quantize_int8
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_mesh_auto((2, 1, 1), ("pod", "data", "model"))
+    gen = torch.Generator(device="cuda").manual_seed(1602)
+    for compressed in (False, True):
+        plan = cb.plan_combine_cell(cfg, mesh, compressed=compressed)
+        shape = plan.args[0].shape
+        g = [torch.randn(shape, generator=gen, device="cuda") * 1e-2
+             for _ in range(2)]
+        r = [torch.randn(shape, generator=gen, device="cuda") * 1e-4
+             for _ in range(2)]
+
+        def grid(ts):
+            out = np.empty(mesh.devices.shape, dtype=object)
+            for i, t in enumerate(ts):
+                out.flat[i] = t
+            return out
+        means, res = cb.run_combine(plan, grid(g), grid(r))
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: cb.run_combine(plan, grid(g), grid(r)), 3)
+        mean = means[0, 0, 0]
+        if compressed:
+            want = None
+            for gp, rp in zip(g, r):
+                part = dequantize_int8(*quantize_int8(gp.float() + rp,
+                                                      axis=-1))
+                want = part if want is None else want + part
+            want = want / 2
+        else:
+            want = (g[0] + g[1]) / 2
+        same = torch.equal(mean, want)
+        err = float((mean - want).abs().max())
+        log(f"phase 16 (c) combine {'int8' if compressed else 'fp32'} over "
+            f"2 pods of {TRAIN_ARCH}'s {cfg.param_count()} params as "
+            f"{tuple(shape)} f32: {ms:.3f} ms (CUDA events), wire "
+            f"{cb.wire_bytes(plan):.0f} B a device, result "
+            f"{'equal' if same else 'DIFFERENT'} to the plain formula "
+            f"(max_abs_err {err}); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {card}")
+        check(same, f"combine {'int8' if compressed else 'fp32'} != plain "
+                    f"formula: {err}")
+        del g, r, means, res, want, mean
+        torch.cuda.empty_cache()
+
+
+def reshard_gate(seed: int, card: str):
+    """Phase 16 (d): ``reshard_state`` of tinyllama's full params (f32)
+    from (data 4) to (data 2, model 2) and back on the card: every leaf
+    gathered bit for bit the original; peak MiB and seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import reshard_state
+    from repro_torch.distributed.sharding import make_mesh_auto
+    cfg = get_config(TRAIN_ARCH)
+    params = lm_params(cfg, seed)
+    a = make_mesh_auto((4,), ("data",))
+    b = make_mesh_auto((2, 2), ("data", "model"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    on_a = reshard_state(params, a, a)
+    on_b = reshard_state(on_a, a, b, cfg)
+    del on_a
+    back = reshard_state(on_b, b, a)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    bad = [path for path in _leaf_paths(params) if not torch.equal(
+        _at_path(back, path).gather(), _at_path(params, path))]
+    split = sum(_at_path(on_b, path).shards.flat[0].numel()
+                < _at_path(params, path).numel()
+                for path in _leaf_paths(params))
+    log(f"phase 16 (d) reshard_state {TRAIN_ARCH} "
+        f"({n_params(params) / 1e9:.3f} B params, f32) (data 4) -> (data 2, "
+        f"model 2) -> (data 4): {len(bad)} leaves differ after the round "
+        f"trip (bit for bit), {split} leaves split on (2, 2); "
+        f"{dt:.2f} s, peak {peak / 2**20:.1f} MiB above the params; {card}")
+    check(not bad, f"reshard round trip differs at {bad}")
+    del params, on_b, back
+
+
+def lm_sharding(seed: int, card: str):
+    """Phase 16: (a) MLA's block-wise attention at prefill_32k's length
+    in bf16 (and f32 at 4 blocks), (b) the sharded train step, (c) the
+    combine programs, (d) the reshard round trip.  Returns the launches
+    of (a) and (b)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    total = {k: 0 for k in read_launches()}
+    for bf16, shape in ((True, MLA_LEN), (False, MLA_F32)):
+        n, *_ = mla_at_length(seed, card, bf16, shape["b"], shape["s"])
+        total["flash_attention"] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 16 (a) ran {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    for k, n in sharded_step_gate(seed, card).items():
+        total[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16 (b) ran {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    combine_gate(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16 (c) ran {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    reshard_gate(seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16 (d) ran {time.perf_counter() - t1:.1f} s; phase 16 ran "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def cuda_held(label: str) -> int:
     """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
     live CUDA tensor of 64 MiB or more that gc reaches, with the types
@@ -5248,12 +5747,13 @@ def main(argv=None) -> int:
     lm_total, lm_records = lm_serving(args.seed, card,
                                       profile_dir=args.profile)
     lm_train_total = lm_training(args.seed, card)
+    lm_shard_total = lm_sharding(args.seed, card)
     ops_records["flash_attention"] = lm_records["flash_attention"]
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
                      + train_total[k] + front_total[k]
                      + shard_total.get(k, 0) + dp_total[k] + lm_total[k]
-                     + lm_train_total[k])
+                     + lm_train_total[k] + lm_shard_total[k])
     records.update(ivf_records)
     records.update(ops_records)
     records.update(bwd_records)
@@ -5273,7 +5773,8 @@ def main(argv=None) -> int:
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
         "kmeans_assign", "icm_encode", "adc", "two_step",
         "flash_attention")] + [lm_records[k] for k in (
-            "flash_attention_mla", "flash_attention_window",
+            "flash_attention_mla", "flash_attention_mla_noncausal",
+            "flash_attention_window",
             "flash_attention_encoder", "flash_attention_cross")]
         + [records[k] for k in ("flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkdv")]}))

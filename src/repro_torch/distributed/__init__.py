@@ -1,21 +1,26 @@
 """Distributed runtime of the port (twin of ``repro.distributed``): the
-single-controller device mesh, checkpointing, fault tolerance and
-elastic re-meshing.  The LM parameter, cache and batch sharding rules
-and ``reshard_state`` come with LM sharding (ROADMAP item 23)."""
+single-controller device mesh and the LM sharding rules,
+checkpointing, fault tolerance and elastic re-meshing."""
 from repro_torch.distributed.checkpoint import (CheckpointManager,
                                                 flatten_pytree,
                                                 unflatten_pytree)
 from repro_torch.distributed.elastic import (make_elastic_mesh,
-                                             plan_mesh_shape)
+                                             plan_mesh_shape, reshard_state)
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
                                                      SupervisorReport,
                                                      TrainSupervisor)
 from repro_torch.distributed.sharding import (Mesh, NamedSharding,
-                                              make_mesh_auto, replicated)
+                                              PartitionSpec, ShardedTensor,
+                                              batch_shardings,
+                                              cache_shardings,
+                                              make_mesh_auto,
+                                              param_shardings, replicated)
 
 __all__ = [
-    "replicated", "Mesh", "NamedSharding", "make_mesh_auto",
+    "batch_shardings", "cache_shardings", "param_shardings", "replicated",
+    "Mesh", "NamedSharding", "PartitionSpec", "ShardedTensor",
+    "make_mesh_auto",
     "CheckpointManager", "flatten_pytree", "unflatten_pytree",
     "HeartbeatMonitor", "TrainSupervisor", "SupervisorReport",
-    "make_elastic_mesh", "plan_mesh_shape",
+    "make_elastic_mesh", "plan_mesh_shape", "reshard_state",
 ]

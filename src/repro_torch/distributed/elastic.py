@@ -5,9 +5,10 @@ Policy: keep the ``model`` axis at the largest size that still divides
 the tensor-parallel dims (heads and d_ff must divide it), absorb the
 remaining devices into ``data`` (data parallelism shrinks safely), and
 drop stragglers to a power-of-two fleet so collectives stay balanced.
-Moving a train state onto the new mesh (the reference's
-``reshard_state``) reads the LM parameter rules and comes with them
-(ROADMAP item 23, LM sharding).
+``reshard_state`` moves a params / optimizer tree onto the new mesh
+under the same logical rules: on the single controller every leaf is
+gathered whole and laid out again by the new mesh's param shardings (a
+real fleet restores from the checkpoint instead, under the same specs).
 """
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.distributed.sharding import Mesh, visible_devices
+from repro_torch.distributed.sharding import (Mesh, ShardedTensor,
+                                              param_shardings,
+                                              tree_map_with_path,
+                                              visible_devices)
 
 
 def _pow2_floor(n: int) -> int:
@@ -55,3 +59,27 @@ def make_elastic_mesh(devices=None, *, model_divisors: Sequence[int] = (),
     for i in range(data * model):
         grid[i] = devices[i]
     return Mesh(grid.reshape(data, model), ("data", "model"))
+
+
+def reshard_state(state, old_mesh: Mesh, new_mesh: Mesh, cfg=None):
+    """``state`` (a tree of tensors, or of ``ShardedTensor``s laid out on
+    ``old_mesh``) laid out on ``new_mesh`` under its param rules
+    (``param_shardings``): a tree of ``ShardedTensor``s.  Each leaf is
+    gathered on ``old_mesh``'s lead device first; the values move bit
+    for bit.
+    ``cfg`` is the reference's unused argument."""
+    def whole(_, leaf):
+        if isinstance(leaf, ShardedTensor):
+            return leaf.gather(old_mesh.lead)
+        return leaf
+    flat = tree_map_with_path(whole, state)
+    shardings = param_shardings(flat, new_mesh)
+
+    return tree_map_with_path(
+        lambda path, leaf: _at(shardings, path).lay_out(leaf), flat)
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree

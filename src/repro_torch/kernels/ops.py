@@ -196,7 +196,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_valid: int = 0):
+                    kv_valid: int = 0, with_lse: bool = False):
     """Flash attention with GQA and MQA: q (b, sq, H, dqk), k (b, sk,
     KVH, dqk), v (b, sk, KVH, dv), f32 or bf16, H a multiple of KVH ->
     (b, sq, H, dv) in v's type, scaled by dqk ** -0.5 (on the card
@@ -204,19 +204,35 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     top-left aligned (q_pos >= k_pos); ``window`` > 0 also masks
     q_pos - k_pos >= window (needs sq <= sk); ``kv_valid`` > 0 masks
     keys at k_pos >= kv_valid (a non-causal call with no window only).
+    ``with_lse``: (out, lse), lse each row's log-sum-exp (b, H, sq) f32
+    (what a merge of calls over key blocks reads).
 
     Differentiable on both devices.  On the card, when autograd records
     (``torch.is_grad_enabled()`` and q, k or v requires grad), the
     forward kernel also writes the rows' log-sum-exp and the backward
     runs the backward kernels; otherwise the forward kernel alone runs,
-    exactly as for inference.  On the CPU autograd differentiates the
-    plain version."""
+    exactly as for inference.  The backward takes no gradient of
+    ``lse``, so ``with_lse`` under autograd on the card raises.  On the
+    CPU autograd differentiates the plain version.  On the meta device
+    (the dry run's shapes) nothing is computed: the outputs are empty
+    meta tensors (``flash_attention.flash_attention_meta``)."""
     _check_faults("flash_attention")
+    if q.device.type == "meta":
+        return fa.flash_attention_meta(q, k, v, causal=causal,
+                                       window=window, kv_valid=kv_valid,
+                                       with_lse=with_lse)
     if not _on_card(q):
         return fa.flash_attention_torch(q, k, v, causal=causal,
-                                        window=window, kv_valid=kv_valid)
+                                        window=window, kv_valid=kv_valid,
+                                        with_lse=with_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if with_lse:
+            raise NotImplementedError(
+                "flash_attention(with_lse=True) under autograd on the "
+                "card: the backward kernels take no gradient of the "
+                "log-sum-exp; that waits for ROADMAP item 32 (the "
+                "per-block MLA path under autograd)")
         return _FlashAttention.apply(q, k, v, causal, window, kv_valid)
     return fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   kv_valid=kv_valid)
+                                   kv_valid=kv_valid, with_lse=with_lse)

@@ -1,12 +1,25 @@
-"""Meshes of the launchers (twin of ``repro.launch.mesh``): the host
-mesh of a one-device run and the data-parallel size of a mesh, over the
-port's ``distributed.sharding.Mesh``.  The production meshes
-(``make_production_mesh``: 16 x 16 and 2 x 16 x 16 chips) come with LM
-sharding, ROADMAP item 23."""
+"""Meshes of the launchers (twin of ``repro.launch.mesh``) over the
+port's ``distributed.sharding.Mesh``.
+
+Single pod: 16 x 16 = 256 devices, axes (data, model).  Multi-pod: 2 x
+16 x 16 = 512 devices, axes (pod, data, model): "pod" carries cross-pod
+data parallelism, "data" in-pod FSDP / data parallelism, "model" tensor
+and expert parallelism.  The dry run lays them over ``"meta"`` devices;
+over fewer real devices each repeats over a block of positions, as
+``make_mesh_auto`` lays any mesh out.
+"""
 from __future__ import annotations
 
-from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.sharding import Mesh, make_mesh_auto
 from repro_torch.index.base import resolve_device
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The production mesh over ``devices`` (the visible CUDA devices by
+    default; ``"meta"`` for the dry run)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_auto(shape, axes, devices=devices)
 
 
 def make_host_mesh(device=None) -> Mesh:

@@ -1,35 +1,55 @@
 """Step builders of the LM paths (twin of ``repro.launch.steps``): the
 train step with gradient accumulation over microbatches, the batch
-geometry, and the serving functions.
+geometry, the serving functions and the cell plans of the dry run.
 
 ``build_train_step`` — microbatches in a loop (the reference's
 ``lax.scan``), each differentiated by autograd through
 ``train_forward`` (remat inside the model's layers), the gradients
 accumulated in ``cfg.grad_accum_dtype``, then the optimizer update; all
-of it with full-f32 matrix products on the card (no TF32).  The
-compressed cross-pod combine (``multi_pod``) and a sharded mesh wait
-for ROADMAP item 23 (LM sharding and the dry run); the cell plans and
-lowering are the reference's XLA dry run and come with it too.
+of it with full-f32 matrix products on the card (no TF32).  Over a mesh
+whose ``pod`` / ``data`` axes exceed 1, each microbatch's rows split
+over the (pod, data) shards as ``batch_shardings`` splits them, each
+shard differentiating its rows on its position's device from a whole
+copy of the params; the gradients and the loss average over ``data`` in
+f32, then across pods (``plain_cross_pod_mean``, or with ``icq_grad``
+``compressed_cross_pod_mean`` with its error-feedback residuals, one
+tree a pod, in ``opt_state["ef_residual"]``).  The port does not split
+a layer's products over ``model``: a ``model`` axis above 1 places
+nothing differently in an executed step (GSPMD's result is the
+unsharded one); tensor-parallel execution is ROADMAP item 31, and the
+``model`` rules drive the dry run only.
 ``build_serve_fns`` — prefill and decode_step.
 
 Microbatching: batches come shaped (n_micro, micro_batch, seq);
 ``n_micro`` follows the arch's ``microbatch_size`` (rows a data shard):
 n_micro = global_batch / (dp_size * microbatch_size).
+
+Cell plans (``plan_cell``, ``plan_icq_kv_cell``) hold what the dry run
+reads: the step, its arguments as meta tensors (``eval_shape``, the
+twin of ``jax.eval_shape``), and the rule tables' shardings of every
+argument.  ``lower_cell`` traces the step of one (pod, data) shard on
+the meta device under a cost count (``launch.hlo_cost``); there is no
+XLA lowering and no ``shard_map``, so the reference's
+``wrap_pod_manual`` and ``pod_manual_spec`` (a region manual over
+"pod") have no twin: the port's compressed combine is a loop over pods.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.distributed import sharding as shrules
 from repro_torch.index.base import full_f32_matmul
 from repro_torch.models import build_model
+from repro_torch.quant.grad_compress import (compressed_cross_pod_mean,
+                                             plain_cross_pod_mean)
+from repro_torch.quant.kv_cache import ICQKVConfig
 from repro_torch.train.optimizer import (make_optimizer, tree_leaves,
                                          tree_map, tree_unflatten)
-
-# the ROADMAP item of what this module does not build yet
-_SHARDING = "item 23 (LM sharding and the dry run)"
 
 
 # ----------------------------------------------------------- geometry ----
@@ -67,6 +87,58 @@ def batch_struct(cfg, shape, n_micro: int, *,
     return specs
 
 
+def meta_batch(specs) -> Dict[str, torch.Tensor]:
+    """``batch_struct``'s (shape, dtype) pairs as meta tensors."""
+    return {k: torch.empty(s, dtype=dt, device="meta")
+            for k, (s, dt) in specs.items()}
+
+
+def batch_shardings(specs, mesh, *, train: bool):
+    """Batch dim -> (pod, data); the train microbatch axis (leading) is
+    looped, not sharded; everything else replicated.  ``specs`` holds
+    leaves with ``.shape``."""
+    ba = shrules.batch_axes(mesh)
+    axis = ba if len(ba) > 1 else ba[0]
+    batch_dim = 1 if train else 0
+
+    def one(_, leaf):
+        nd = len(leaf.shape)
+        if nd <= batch_dim:
+            return shrules.NamedSharding(mesh, shrules.P())
+        spec = [None] * nd
+        spec[batch_dim] = shrules.maybe(axis, leaf.shape[batch_dim], mesh)
+        return shrules.NamedSharding(mesh, shrules.P(*spec))
+
+    return shrules.tree_map_with_path(one, specs)
+
+
+class _ToMeta(TorchDispatchMode):
+    """A dispatch mode that runs every op on the meta device: factory
+    calls get ``device="meta"`` and no generator, and any other tensor
+    argument is replaced by an empty meta tensor of its shape."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if any(a.name == "device" for a in func._schema.arguments):
+            kwargs["device"] = torch.device("meta")
+        if "generator" in kwargs:
+            kwargs["generator"] = None
+        args = shrules.tree_map_with_path(
+            lambda _, t: torch.empty_like(t, device="meta")
+            if isinstance(t, torch.Tensor) and not t.is_meta else t, args)
+        return func(*args, **kwargs)
+
+
+def eval_shape(fn, *args, **kw):
+    """The reference's ``jax.eval_shape``: ``fn`` run with every op on the
+    meta device (no memory, no arithmetic; random draws skipped), its
+    tensors returned as empty meta tensors of their shapes and types.
+    The model inits skip their per-layer and per-expert draw loops on
+    meta tensors, so a full-size init takes well under a second."""
+    with _ToMeta():
+        return fn(*args, **kw)
+
+
 # -------------------------------------------------------------- train ----
 
 def tree_zeros(tree, dtype):
@@ -74,36 +146,80 @@ def tree_zeros(tree, dtype):
                                           device=x.device), tree)
 
 
+def _shard_devices(mesh):
+    """[[device of shard (p, d) for d in data] for p in pods]: the
+    position with pod p, data d and every other axis at 0."""
+    names = mesh.axis_names
+    pods, data = (shrules.axis_size(mesh, a) for a in ("pod", "data"))
+    out = []
+    for p in range(pods):
+        row = []
+        for d in range(data):
+            index = [0] * len(names)
+            if "pod" in names:
+                index[names.index("pod")] = p
+            if "data" in names:
+                index[names.index("data")] = d
+            row.append(mesh.devices[tuple(index)])
+        out.append(row)
+    return out
+
+
+def _rows_split(mesh, rows: int) -> bool:
+    """Whether a microbatch of ``rows`` splits over the (pod, data)
+    shards (``batch_pspec``'s divisibility guard); else every shard would
+    hold all rows, which is the unsharded computation."""
+    ba = shrules.batch_axes(mesh)
+    return shrules.maybe(ba if len(ba) > 1 else ba[0], rows, mesh) \
+        is not None
+
+
+def _f32_mean(parts, dev):
+    """Mean of equal-shaped tensors in f32 on ``dev``, summed in order."""
+    acc = parts[0].float().to(dev)
+    for part in parts[1:]:
+        acc = acc + part.float().to(dev)
+    return acc / len(parts)
+
+
 def build_train_step(cfg, *, n_micro: int, multi_pod: bool = False,
-                     attn_impl: str = "chunked", total_steps: int = 10000,
-                     mesh=None):
+                     icq_grad: bool = False, attn_impl: str = "chunked",
+                     total_steps: int = 10000, mesh=None):
     """Returns (train_step, model, opt, init_opt_state).
 
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "gnorm"})``: batch leaves (n_micro, micro_B, ...), numpy
     arrays or tensors; the loss the microbatches' mean; new param and
-    optimizer tensors (the inputs are not modified).  Gradients of
-    every microbatch add in place into one accumulator in
-    ``cfg.grad_accum_dtype`` (the reference's sum, in its order), which
-    is then scaled in place by 1 / n_micro."""
-    if multi_pod:
-        raise NotImplementedError(
-            "the compressed cross-pod gradient combine (multi_pod) of the "
-            f"train step waits for ROADMAP {_SHARDING}")
-    if mesh is not None and any(
-            mesh.shape.get(a, 1) > 1 for a in ("data", "pod", "model")):
-        raise NotImplementedError(
-            f"a train step over a sharded mesh ({mesh.shape}) waits for "
-            f"ROADMAP {_SHARDING}")
-    model = build_model(cfg, attn_impl=attn_impl)
+    optimizer tensors on the params' device (the inputs are not
+    modified).  Gradients of every microbatch add in place into one
+    accumulator in ``cfg.grad_accum_dtype`` (the reference's sum, in its
+    order), which is then scaled in place by 1 / n_micro.
+
+    With a ``mesh`` whose (pod, data) shards number more than one and
+    whose size divides the microbatch rows, shard (p, d) takes block
+    p * D + d of every microbatch's rows on its device (module
+    docstring); the shards' gradients and losses average in f32 over
+    ``data`` on each pod's first device, then across pods on the params'
+    device.  With ``icq_grad`` and ``multi_pod`` the cross-pod mean is
+    the compressed one and ``opt_state["ef_residual"]`` holds one
+    residual tree a pod (on the pod's first device); without a mesh that
+    is one pod.  A single-shard step computes exactly the unsharded
+    step.  The MoE load-balance term is each shard's own (averaged), as
+    in data parallelism."""
+    model = build_model(cfg, attn_impl=attn_impl, mesh=mesh)
     opt = make_optimizer(cfg, total_steps=total_steps)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
+    compress = icq_grad and multi_pod
+    sharded = mesh is not None and _dp(mesh) > 1
+    shard_devs = _shard_devices(mesh) if sharded else None
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, rows=slice(None)):
+        """One shard's (gradients scaled by 1 / n_micro, mean loss) over
+        ``rows`` of every microbatch, where ``params`` are."""
         leaves = tree_leaves(params)
         gacc, lsum = None, None
         for i in range(n_micro):
-            mb = {k: v[i] for k, v in batch.items()}
+            mb = {k: v[i][rows] for k, v in batch.items()}
             live = [p.detach().requires_grad_(True) for p in leaves]
             loss, _ = model.train_forward(tree_unflatten(params, live), mb)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
@@ -122,17 +238,76 @@ def build_train_step(cfg, *, n_micro: int, multi_pod: bool = False,
             g.mul_(scale)
         return tree_unflatten(params, gacc), lsum * scale
 
+    def sharded_grads(params, batch):
+        """The shards' gradients and losses, averaged over data in f32
+        on each pod's first device: ([one tree a pod], [one loss a
+        pod]).  Unsharded, the one shard is the params' device."""
+        rows = next(iter(batch.values())).shape[1]
+        devs = shard_devs or [[tree_leaves(params)[0].device]]
+        if not sharded or _rows_split(mesh, rows):
+            block = rows // (len(devs) * len(devs[0]))
+        else:       # replicated rows: every data shard would compute the
+            devs = [[row[0]] for row in devs]    # same; one a pod does
+            block = 0
+        copies = {}
+        pod_grads, pod_losses = [], []
+        for p, row in enumerate(devs):
+            grads, losses = [], []
+            for d, dev in enumerate(row):
+                if dev not in copies:
+                    copies[dev] = tree_map(lambda t: t.to(dev), params)
+                j = (p * len(row) + d) * block
+                g, loss = grads_of(copies[dev], batch,
+                                   slice(j, j + block) if block
+                                   else slice(None))
+                grads.append(g)
+                losses.append(loss)
+            lead = row[0]
+            if len(row) == 1:
+                pod_grads.append(grads[0])
+                pod_losses.append(losses[0])
+            else:
+                pod_grads.append(tree_map(
+                    lambda *gs: _f32_mean(gs, lead).to(acc_dtype), *grads))
+                pod_losses.append(_f32_mean(losses, lead))
+        return pod_grads, pod_losses
+
     def train_step(params, opt_state, batch):
         with full_f32_matmul():
-            grads, loss = grads_of(params, batch)
-            new_params, new_opt, gnorm = opt.update(grads, opt_state,
-                                                    params)
+            dev = tree_leaves(params)[0].device
+            pod_grads, pod_losses = sharded_grads(params, batch)
+            inner = {k: v for k, v in opt_state.items()
+                     if k != "ef_residual"}
+            if compress:
+                grads, res = compressed_cross_pod_mean(
+                    pod_grads, opt_state["ef_residual"], lead=dev)
+            elif len(pod_grads) > 1:
+                grads = plain_cross_pod_mean(pod_grads, lead=dev)
+            else:
+                grads = tree_map(lambda g: g.to(dev), pod_grads[0])
+            loss = (_f32_mean(pod_losses, dev) if len(pod_losses) > 1
+                    else pod_losses[0].to(dev))
+            new_params, new_opt, gnorm = opt.update(grads, inner, params)
+            if compress:
+                new_opt = dict(new_opt, ef_residual=res)
         return new_params, new_opt, {"loss": loss, "gnorm": gnorm}
 
     def init_opt_state(params):
-        return opt.init(params)
+        st = opt.init(params)
+        if compress:
+            leads = ([row[0] for row in shard_devs] if shard_devs
+                     else [tree_leaves(params)[0].device])
+            st = dict(st, ef_residual=[
+                tree_map(lambda p, d=d: torch.zeros(
+                    p.shape, dtype=torch.float32, device=d), params)
+                for d in leads])
+        return st
 
     return train_step, model, opt, init_opt_state
+
+
+def _dp(mesh) -> int:
+    return shrules.axis_size(mesh, "data") * shrules.axis_size(mesh, "pod")
 
 
 # ---------------------------------------------------------------- serve ----
@@ -141,7 +316,7 @@ def build_serve_fns(cfg, *, attn_impl: str = "chunked", mesh=None):
     """(prefill_fn, decode_fn, model).  prefill(params, batch, max_len),
     ``batch`` the reference's dict: ``tokens``, and ``patch_emb`` (the
     VLM) or ``audio_emb`` (the encoder-decoder); decode(params, tokens,
-    caches)."""
+    caches).  ``mesh`` is accepted and changes nothing computed."""
     model = build_model(cfg, attn_impl=attn_impl, mesh=mesh)
 
     def prefill_fn(params, batch, max_len: int):
@@ -158,3 +333,197 @@ def scale_config(cfg):
     accumulation inside the products; norms and softmax in f32)."""
     return dataclasses.replace(cfg, param_dtype="bfloat16",
                                compute_dtype="bfloat16")
+
+
+# ------------------------------------------------------------ the plans ----
+
+@dataclasses.dataclass
+class CellPlan:
+    """Everything the dry run reads of one (arch x shape x mesh) cell.
+
+    ``fn(*args)`` is the cell's step over the mesh and ``args`` its
+    arguments as meta tensors, ``in_shardings`` / ``out_shardings`` the
+    rule tables' ``NamedSharding``s of each (``None``: not placed).
+    ``trace_fn(*trace_args)`` is the step of one (pod, data) shard (its
+    rows of one microbatch for train), what ``lower_cell`` traces;
+    ``update_fn(*update_args)`` the optimizer update alone (train), the
+    part of the step outside the microbatch loop."""
+    cfg: Any
+    shape: Any
+    mesh: Any
+    kind: str                    # train | prefill | decode
+    n_micro: int
+    fn: Any
+    args: Tuple
+    in_shardings: Tuple
+    out_shardings: Any
+    donate: Tuple[int, ...]
+    trace_fn: Any = None
+    trace_args: Tuple = ()
+    update_fn: Any = None
+    update_args: Tuple = ()
+
+
+def _shard_rows(mesh, rows: int) -> int:
+    """A (pod, data) shard's rows of a ``rows``-row batch."""
+    return rows // _dp(mesh) if _rows_split(mesh, rows) else rows
+
+
+def _row_block(batch, rows: int, dim: int):
+    return {k: v.narrow(dim, 0, rows) for k, v in batch.items()}
+
+
+def plan_cell(cfg, shape, mesh, *, icq_grad: bool = False,
+              attn_impl: str = "chunked") -> CellPlan:
+    multi_pod = "pod" in mesh.axis_names
+    dp = _dp(mesh)
+    cfg = scale_config(cfg)
+
+    if shape.kind == "train":
+        n_micro = num_microbatches(cfg, shape, dp)
+        compress = icq_grad and multi_pod
+        train_step, model, opt, init_opt = build_train_step(
+            cfg, n_micro=n_micro, multi_pod=multi_pod, icq_grad=icq_grad,
+            attn_impl=attn_impl, mesh=mesh)
+        params_sh = eval_shape(model.init, 0, device="cpu")
+        opt_sh = init_opt(params_sh)
+        batch = meta_batch(batch_struct(cfg, shape, n_micro, train=True))
+        # the compressed cross-pod exchange implies pure data parallelism
+        # across pods (pods share int8 gradient payloads only, so params
+        # are pod-replicated); otherwise FSDP spans the pod axis too
+        p_shard = shrules.param_shardings(params_sh, mesh,
+                                          fsdp_over_pod=not compress)
+        o_shard = opt_shardings(opt_sh, params_sh, p_shard, mesh)
+        b_shard = batch_shardings(batch, mesh, train=True)
+        one_step = build_train_step(cfg, n_micro=1, attn_impl=attn_impl)[0]
+        one_opt = opt.init(params_sh)
+        rows = _shard_rows(mesh, batch["tokens"].shape[1])
+        one_batch = _row_block({k: v[:1] for k, v in batch.items()}, rows,
+                               1)
+        return CellPlan(
+            cfg=cfg, shape=shape, mesh=mesh, kind="train", n_micro=n_micro,
+            fn=train_step, args=(params_sh, opt_sh, batch),
+            in_shardings=(p_shard, o_shard, b_shard),
+            out_shardings=(p_shard, o_shard, None), donate=(0, 1),
+            trace_fn=one_step, trace_args=(params_sh, one_opt, one_batch),
+            update_fn=opt.update,
+            update_args=(tree_map(lambda p: torch.empty_like(
+                p, dtype=getattr(torch, cfg.grad_accum_dtype)), params_sh),
+                one_opt, params_sh))
+
+    prefill_fn, decode_fn, model = build_serve_fns(cfg, attn_impl=attn_impl,
+                                                   mesh=mesh)
+    params_sh = eval_shape(model.init, 0, device="cpu")
+    p_shard = shrules.param_shardings(params_sh, mesh)
+    B, S = shape.global_batch, shape.seq_len
+    rows = _shard_rows(mesh, B)
+
+    if shape.kind == "prefill":
+        batch = meta_batch(batch_struct(cfg, shape, 1, train=False))
+        b_shard = batch_shardings(batch, mesh, train=False)
+        fn = functools.partial(prefill_fn, max_len=S)
+        return CellPlan(
+            cfg=cfg, shape=shape, mesh=mesh, kind="prefill", n_micro=1,
+            fn=fn, args=(params_sh, batch),
+            in_shardings=(p_shard, b_shard), out_shardings=None, donate=(),
+            trace_fn=fn, trace_args=(params_sh, _row_block(batch, rows, 0)))
+
+    # decode: one token against a seq_len cache
+    cache_sh = model.init_cache(B, S, torch.bfloat16, device="meta")
+    c_shard = shrules.cache_shardings(cache_sh, cfg, mesh)
+    tok = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    t_shard = batch_shardings({"tokens": tok}, mesh, train=False)["tokens"]
+    return CellPlan(
+        cfg=cfg, shape=shape, mesh=mesh, kind="decode", n_micro=1,
+        fn=decode_fn, args=(params_sh, tok, cache_sh),
+        in_shardings=(p_shard, t_shard, c_shard),
+        out_shardings=(None, c_shard), donate=(2,),
+        trace_fn=decode_fn, trace_args=(
+            params_sh, tok[:rows],
+            model.init_cache(rows, S, torch.bfloat16, device="meta")))
+
+
+def _structure(tree):
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_structure(v) for v in tree]
+    return None
+
+
+def opt_shardings(opt_sh, params_sh, p_shard, mesh):
+    """Optimizer moments mirror the param shardings; scalars replicated;
+    each pod's error-feedback residual tree mirrors the params."""
+    def fallback(tree):
+        return shrules.tree_map_with_path(
+            lambda *_: shrules.replicated(mesh), tree)
+
+    def like_params(v):
+        return p_shard if _structure(v) == _structure(p_shard) \
+            else fallback(v)
+
+    out = {}
+    for k, v in opt_sh.items():
+        if k == "ef_residual":
+            out[k] = [like_params(r) for r in v]
+        elif k in ("m", "v", "f"):
+            out[k] = like_params(v)
+        else:
+            out[k] = fallback(v)
+    return out
+
+
+def plan_icq_kv_cell(cfg, shape, mesh, *, top_c_frac: float = 1 / 16,
+                     d_fast_frac: float = 1 / 4) -> CellPlan:
+    """Decode cell with the ICQ two-step quantized KV cache (the paper's
+    technique as the serving hot path): the reference's variant
+    'icq_kv'."""
+    from repro_torch.quant.serve_icq import (build_icq_decode,
+                                             icq_kv_cache_shardings,
+                                             supports_icq_kv)
+    cfg = scale_config(cfg)
+    assert supports_icq_kv(cfg), cfg.name
+    kv_cfg = ICQKVConfig(d_fast=max(int(cfg.head_dim * d_fast_frac), 16))
+    model = build_model(cfg, mesh=mesh)
+    decode_fn, init_cache = build_icq_decode(cfg, kv_cfg, mesh=mesh)
+    params_sh = eval_shape(model.init, 0, device="cpu")
+    p_shard = shrules.param_shardings(params_sh, mesh)
+    B, S = shape.global_batch, shape.seq_len
+    cache_sh = init_cache(B, S, device="meta")
+    c_shard = icq_kv_cache_shardings(cache_sh, cfg, mesh)
+    tok = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    t_shard = batch_shardings({"tokens": tok}, mesh, train=False)["tokens"]
+    top_c = max(int(S * top_c_frac), 128)
+    fn = functools.partial(decode_fn, top_c=top_c)
+    rows = _shard_rows(mesh, B)
+    return CellPlan(
+        cfg=cfg, shape=shape, mesh=mesh, kind="decode", n_micro=1,
+        fn=fn, args=(params_sh, tok, cache_sh),
+        in_shardings=(p_shard, t_shard, c_shard),
+        out_shardings=(None, c_shard), donate=(2,),
+        trace_fn=fn, trace_args=(params_sh, tok[:rows],
+                                 init_cache(rows, S, device="meta")))
+
+
+@dataclasses.dataclass
+class LoweredCell:
+    """A traced cell: ``cost`` the counted work of one device's step
+    (``launch.hlo_cost.CellCost``), ``trace_s`` the host time."""
+    plan: CellPlan
+    cost: Any
+    trace_s: float
+
+
+def lower_cell(plan: CellPlan) -> LoweredCell:
+    """Trace one (pod, data) shard's step on the meta device under a cost
+    count: its products' flops and its ops' bytes, the microbatch traced
+    once and counted ``n_micro`` times (the reference's trip-count
+    rule), the optimizer update once; per device, the shard's work is
+    split over the ``model`` axis and the update over every device
+    (``hlo_cost.cell_cost``)."""
+    import time
+    from repro_torch.launch import hlo_cost
+    t0 = time.perf_counter()
+    cost = hlo_cost.cell_cost(plan)
+    return LoweredCell(plan=plan, cost=cost,
+                       trace_s=time.perf_counter() - t0)

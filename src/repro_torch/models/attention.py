@@ -12,7 +12,8 @@ bound ``kv_valid``), so there they launch ``kernels.ops.flash_attention``
 and nothing else; so does ``cross_attention_apply``, on the unpadded
 operands (each query row is computed on its own, and the kernel's
 ragged-tail mask masks what the reference's padding and ``kv_valid``
-mask, so rows [0, s) are the padded call's).  v may be narrower than q
+mask, so rows [0, s) are the padded call's).  A meta tensor takes the card's branch (the dry
+run).  v may be narrower than q
 and k (MLA's prefill: q/k 192, v 128; the output takes v's width); a
 (q/k, v) width pair the kernel does not compile (it compiles 32, 64,
 128 and 256 with v as wide, and (192, 128)) raises its ``ValueError``,
@@ -83,6 +84,12 @@ def _gqa_out(probs, v):
     return out.reshape(b, sq, kvh * g, v.shape[-1])
 
 
+def on_card(t) -> bool:
+    """Whether ``t`` takes the card's branch: a CUDA tensor, or a meta
+    tensor (the dry run traces the card's program)."""
+    return t.device.type in ("cuda", "meta")
+
+
 def _flash(q, k, v, *, causal, window=0, kv_valid=0, q_offset=0,
            masked=False):
     """The card's attention: the flash kernel for queries and keys both
@@ -107,7 +114,7 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int,
     carrying (running max, normalizer, accumulator).  ``window>0`` adds
     a sliding band mask, ``kv_valid>0`` masks keys at positions >=
     kv_valid.  On the card: the flash kernel (module docstring)."""
-    if q.is_cuda:
+    if on_card(q):
         return _flash(q, k, v, causal=causal, window=window,
                       kv_valid=kv_valid, q_offset=q_offset)
     b, sq, h, dh = q.shape
@@ -157,7 +164,7 @@ def triangular_chunked_attention(q, k, v, *, chunk: int, window: int = 0):
     the flash kernel, which skips those tiles too (module docstring)."""
     b, sq, h, dh = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
-    if q.is_cuda:
+    if on_card(q):
         return _flash(q, k, v, causal=True, window=window,
                       q_offset=sk - sq)
     g = h // kvh
@@ -201,7 +208,7 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                    window: int = 0, mask=None):
     """Einsum attention over the whole score matrix.  On the card: the
     flash kernel (module docstring)."""
-    if q.is_cuda:
+    if on_card(q):
         return _flash(q, k, v, causal=causal, window=window,
                       q_offset=q_offset, masked=mask is not None)
     sq, dh = q.shape[1], q.shape[3]
@@ -289,7 +296,7 @@ def cross_attention_apply(p, x, enc_out, cfg, *, kv=None):
     q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     k, v = kv if kv is not None else cross_kv(p, enc_out, cfg)
     sk = k.shape[1]
-    if q.is_cuda or max(s, sk) <= cfg.attn_chunk:
+    if on_card(q) or max(s, sk) <= cfg.attn_chunk:
         out = full_attention(q, k, v, causal=False)
     else:
         qc, kc = _pad_len(s, cfg.attn_chunk), _pad_len(sk, cfg.attn_chunk)

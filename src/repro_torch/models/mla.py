@@ -16,12 +16,17 @@ Which attention runs where:
 * prefill with s > ``attn_chunk``: the reference decompresses one KV
   block at a time inside an online softmax (``mla_chunked_attention``),
   so only (b, chunk, h, d) of K ever exists.  On the CPU the port twins
-  it block for block.  On the card it materializes K and V for the
-  whole sequence and launches the flash kernel once: the same causal
-  softmax, to rounding, at the cost of K and V in device memory for one
-  layer at a time (at DeepSeek-V2's 128 heads and s = 2048: K 101 MB
-  and V 67 MB in bf16).  The per-block decompression on the card is
-  open work.
+  it block for block.  On the card (``mla_blockwise_attention``) it
+  keeps the reference's block structure: for each query block, each key
+  block at or before it is decompressed from the latent and the flash
+  kernel runs once over it with its rows' log-sum-exp (the diagonal
+  block causal, the earlier ones not, the later ones skipped), and the
+  partials merge in f32 by their log-sum-exps; nothing of (b, s, h, ·)
+  exists in K or V, only one block's.  s = 32 blocks take 528 launches
+  a layer.  Under autograd on the card K and V are materialized for the
+  whole sequence and the flash kernel launches once, because its
+  backward takes no gradient of the log-sum-exp the merge reads (ROADMAP
+  item 32).  A meta tensor (the dry run) takes the card's branches.
 * decode: plain PyTorch on both devices, as the reference's is not a
   kernel.
 """
@@ -29,8 +34,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import nn
-from repro_torch.models.attention import NEG_INF, full_attention
+from repro_torch.models.attention import NEG_INF, full_attention, on_card
 
 
 def mla_init(generator: torch.Generator, cfg, dtype=torch.float32):
@@ -83,15 +89,11 @@ def _latent(p, x, cfg, positions):
     return latent, k_rope
 
 
-def mla_qkv(p, x, cfg, positions):
-    """The per-head q, K and V of a full-sequence MLA call: q, k (b, s,
-    h, nope + rope) and v (b, s, h, v), each contiguous (what the flash
-    kernel reads)."""
-    b, s, _ = x.shape
-    h = cfg.num_heads
-    qk_nope, qk_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_nope, q_rope = _queries(p, x, cfg, positions)
-    latent, k_rope = _latent(p, x, cfg, positions)
+def _materialize(p, q_nope, q_rope, latent, k_rope, cfg):
+    """q, k (b, s, h, nope + rope) and v (b, s, h, v) of the whole
+    sequence, each contiguous (what the flash kernel reads)."""
+    b, s, h, qk_nope = q_nope.shape
+    qk_rope = q_rope.shape[-1]
     k_nope = (latent @ p["w_uk"]).reshape(b, s, h, qk_nope)
     v = (latent @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -101,20 +103,76 @@ def mla_qkv(p, x, cfg, positions):
 
 
 def mla_attention_apply(p, x, cfg, positions):
-    """Full-sequence causal MLA (prefill).  Short sequences, and every
-    sequence on the card, take the dense path; long ones on the CPU the
-    lazy decompression of ``mla_chunked_attention`` (module
+    """Full-sequence causal MLA (prefill and training).  Short
+    sequences take the dense path; long ones the lazy decompression:
+    ``mla_chunked_attention`` on the CPU, ``mla_blockwise_attention``
+    on the card, and the dense path under autograd on the card (module
     docstring)."""
     b, s, _ = x.shape
     h, v_dim = cfg.num_heads, cfg.v_head_dim
-    if s <= cfg.attn_chunk or x.is_cuda:
-        q, k, v = mla_qkv(p, x, cfg, positions)
+    q_nope, q_rope = _queries(p, x, cfg, positions)
+    latent, k_rope = _latent(p, x, cfg, positions)
+    dense = s <= cfg.attn_chunk or (
+        on_card(x) and torch.is_grad_enabled()
+        and (q_nope.requires_grad or latent.requires_grad))
+    if dense:
+        q, k, v = _materialize(p, q_nope, q_rope, latent, k_rope, cfg)
         out = full_attention(q, k, v, causal=True)
+    elif on_card(x):
+        out = mla_blockwise_attention(p, q_nope, q_rope, latent, k_rope, cfg)
     else:
-        q_nope, q_rope = _queries(p, x, cfg, positions)
-        latent, k_rope = _latent(p, x, cfg, positions)
         out = mla_chunked_attention(p, q_nope, q_rope, latent, k_rope, cfg)
     return out.reshape(b, s, h * v_dim) @ p["wo"]
+
+
+def _block(s: int, chunk: int) -> int:
+    """The reference's block: ``attn_chunk`` reduced until it divides s."""
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def mla_blockwise_attention(p, q_nope, q_rope, latent, k_rope_seq, cfg):
+    """Causal MLA over (query block, key block <= it) pairs with the key
+    block decompressed from the latent per pair: one flash call with its
+    rows' log-sum-exp a pair (the diagonal causal: both blocks start at
+    qi * c, so the kernel's top-left mask is the causal one), merged
+    into an f32 accumulator of the query block as ``lse = logaddexp(
+    lse_run, lse_b)``, ``acc = exp(lse_run - lse) acc + exp(lse_b - lse)
+    o_b``.  Runs on either device (on the CPU through the flash kernel's
+    plain version); returns (b, s, h, dv) in the latent's type."""
+    b, s, h, dn = q_nope.shape
+    dr = q_rope.shape[-1]
+    dv = cfg.v_head_dim
+    c = _block(s, cfg.attn_chunk)
+    out = torch.empty((b, s, h, dv), dtype=latent.dtype,
+                      device=latent.device)
+    for qi in range(s // c):
+        rows = slice(qi * c, (qi + 1) * c)
+        q_blk = torch.cat([q_nope[:, rows], q_rope[:, rows]], dim=-1)
+        acc = lse_run = None
+        for ki in range(qi + 1):
+            keys = slice(ki * c, (ki + 1) * c)
+            lat_blk = latent[:, keys]                      # (b,c,lora)
+            k_nope = (lat_blk @ p["w_uk"]).reshape(b, c, h, dn)
+            v_blk = (lat_blk @ p["w_uv"]).reshape(b, c, h, dv)
+            kr_blk = k_rope_seq[:, keys, None, :].expand(b, c, h, dr)
+            k_blk = torch.cat([k_nope, kr_blk], dim=-1)
+            del k_nope
+            o_b, lse_b = ops.flash_attention(q_blk, k_blk, v_blk,
+                                             causal=ki == qi, with_lse=True)
+            del k_blk, v_blk
+            lse_b = lse_b.transpose(1, 2)[..., None]       # (b,c,h,1)
+            if acc is None:
+                acc, lse_run = o_b.float(), lse_b
+                continue
+            lse = torch.logaddexp(lse_run, lse_b)
+            acc.mul_(torch.exp(lse_run - lse)).add_(
+                torch.exp(lse_b - lse) * o_b)
+            lse_run = lse
+        out[:, rows] = acc.to(out.dtype)
+    return out
 
 
 def mla_chunked_attention(p, q_nope, q_rope, latent, k_rope_seq, cfg):
@@ -126,9 +184,7 @@ def mla_chunked_attention(p, q_nope, q_rope, latent, k_rope_seq, cfg):
     dr = q_rope.shape[-1]
     dv = cfg.v_head_dim
     scale = (dn + dr) ** -0.5
-    c = min(cfg.attn_chunk, s)
-    while s % c:
-        c -= 1
+    c = _block(s, cfg.attn_chunk)
     n = s // c
     dev = q_nope.device
     outs = []

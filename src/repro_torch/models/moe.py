@@ -34,6 +34,8 @@ def _experts_init(generator, e: int, in_dim: int, out_dim: int, dtype):
     expert)."""
     w = torch.empty((e, in_dim, out_dim), dtype=nn.as_dtype(dtype),
                     device=generator.device)
+    if w.is_meta:             # shapes only (launch.steps.eval_shape)
+        return w
     for i in range(e):
         w[i] = nn.dense_init(generator, in_dim, out_dim, dtype)
     return w

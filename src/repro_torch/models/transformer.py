@@ -46,8 +46,10 @@ the backward (``torch.utils.checkpoint``, non-reentrant: the reference's
 ``jax.checkpoint`` of the layer scan's body; the hybrid's per group),
 and ``cfg.remat_block`` G > 0 adds the reference's outer level: blocks
 of G layers checkpointed around their per-layer checkpoints, so that
-one carry a block is kept.  A ``mesh`` raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+one carry a block is kept.  A ``mesh`` is accepted and changes
+nothing computed: the reference's is a placement hint for GSPMD (its
+``_act_constraint``), and the port does not split a layer over the
+mesh (``launch.steps``).
 """
 from __future__ import annotations
 
@@ -66,8 +68,6 @@ from repro_torch.models import nn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 
-# the ROADMAP item of what this module does not build yet
-_SHARDING = "item 23 (LM sharding and the dry run)"
 
 
 def _tree_map(fn, *trees):
@@ -380,6 +380,13 @@ def _apply_stack(stacked, L: int, x, cfg, positions, kind: str, *,
     return x, aux
 
 
+def _tree_meta(tree) -> bool:
+    """Whether a tree's first leaf is a meta tensor (shapes only)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return isinstance(tree, torch.Tensor) and tree.is_meta
+
+
 def _stacked_init(generator, cfg, dtype, kind: str, n: int):
     """``n`` layers drawn one after another into stacked leaves (peak
     memory: the stack plus one layer)."""
@@ -387,6 +394,8 @@ def _stacked_init(generator, cfg, dtype, kind: str, n: int):
     stacked = _tree_map(
         lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype,
                               device=a.device), one)
+    if _tree_meta(stacked):    # shapes only (launch.steps.eval_shape)
+        return stacked
     for li in range(n):
         if li:
             one = layer_init(generator, cfg, dtype, kind)
@@ -459,10 +468,7 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     caller names another); the other entry points run where the params
     are.  ``batch`` is the reference's: ``"tokens"`` (b, s) ids, and
     ``"patch_emb"`` (the VLM) or ``"audio_emb"`` (whisper), numpy arrays
-    or tensors."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a sharded model (mesh=) waits for ROADMAP {_SHARDING}")
+    or tensors.  ``mesh`` is accepted and unused (module docstring)."""
     dtype = nn.as_dtype(cfg.param_dtype)
     cdt = nn.as_dtype(cfg.compute_dtype)
     tied = cfg.tie_embeddings

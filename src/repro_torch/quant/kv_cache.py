@@ -18,8 +18,9 @@ so equal crude scores keep the lowest position first, as ``lax.top_k``
 does.  ``icq_kv_append`` writes in place at ``pos`` (the reference
 donates the cache), and ``pos`` may be a 0-d device tensor, so a decode
 step does not synchronise the host.  The cross-shard combine
-(``combine_attention_partials``) is a collective and waits for ROADMAP
-item 23 (LM sharding).
+(``combine_attention_partials``) is the reference's collective in the
+single-controller form: each shard's partials are gathered to the
+mesh's lead device and merged there.
 
 A decode step reads S * d_fast crude values and top_c int8 K and V rows
 per kv-head instead of S full-width K and V rows.
@@ -208,3 +209,21 @@ def combine_partials_local(ms, ls, os_):
     l_g = torch.sum(ls * corr, dim=0)
     o_g = torch.sum(os_ * corr[..., None], dim=0)
     return o_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def combine_attention_partials(m, l, o, axis_name: str = "model", *,
+                               mesh=None):
+    """Merge per-shard (m, l, o) softmax partials across the shards of
+    ``axis_name``: ``m``, ``l``, ``o`` one tensor per shard, in shard
+    order, each on its shard's device.  The reference's pmax / psum over
+    the axis become a gather of every shard's partials to the lead
+    device (``mesh.lead``, shard 0's device without a mesh) and the
+    local merge there, ``combine_partials_local`` of the stacked
+    partials.  Returns o / l on the lead device."""
+    if not len(m) == len(l) == len(o) or not len(m):
+        raise ValueError(f"one (m, l, o) a shard of {axis_name!r}: got "
+                         f"{len(m)}, {len(l)}, {len(o)}")
+    dev = mesh.lead if mesh is not None else m[0].device
+    return combine_partials_local(*(torch.stack([t.to(dev) for t in part])
+                                    for part in (m, l, o)))
+

@@ -8,8 +8,10 @@ variance-permuted d_fast crude slab plus int8 full-width codes,
 ``quant.kv_cache``), and attention runs crude-first over the d_fast
 dims, refining only the ``top_c`` survivors.  It is plain PyTorch on
 both devices, as the reference's is not a Pallas kernel; the cache is
-written in place.  Its sharding rules (``icq_kv_cache_shardings``) wait
-for ROADMAP item 23.
+written in place.  ``icq_kv_cache_shardings`` are the reference's
+rules for the quantized cache (the dry run reads them); a ``mesh``
+given to ``build_icq_decode`` is accepted and, as in the reference,
+does not change what the step computes.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict
 import torch
 
 from repro_torch.api.serving import AnnEngine, build_ann_engine  # noqa: F401
+from repro_torch.distributed import sharding as shrules
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import nn
 from repro_torch.models.attention import qkv_project
@@ -39,11 +42,8 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
 
     decode_fn(params, tokens, caches, *, top_c) -> (logits, caches); the
     caches are the stacked ICQ-KV tree of every layer (``"layers"``) and
-    the position (``"pos"``, a 0-d tensor), written in place."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded ICQ-KV decode (mesh=) waits for ROADMAP item 23 "
-            "(LM sharding and the dry run)")
+    the position (``"pos"``, a 0-d tensor), written in place.  ``mesh``
+    is accepted and unused, as in the reference."""
     if not supports_icq_kv(cfg):
         raise NotImplementedError(
             f"ICQ-KV serves dense decoder-only archs (supports_icq_kv, the "
@@ -97,3 +97,34 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
                                                    layers=layers)
 
     return decode_step, init_cache
+
+
+def icq_kv_cache_shardings(cache_sh, cfg, mesh):
+    """The quantized cache's shardings (the reference's rules): batch
+    over "data"; heads over "model" when they divide, else positions
+    over "model" (as the dense cache's rules)."""
+    P, NamedSharding = shrules.PartitionSpec, shrules.NamedSharding
+    msize = shrules.axis_size(mesh, "model")
+    heads_ok = (cfg.num_kv_heads % max(msize, 1) == 0
+                and cfg.num_kv_heads >= msize)
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        last = shrules._path_str(path).rsplit("/", 1)[-1]
+        if last == "pos" or nd <= 1:
+            return NamedSharding(mesh, P())
+        if last == "perm":                           # (L, kvh, dh)
+            return NamedSharding(mesh, P(
+                None, shrules.maybe("model", shape[1], mesh)
+                if heads_ok else None, None))
+        spec = [None] * nd                           # (L, b, S, kvh, ...)
+        spec[1] = shrules.maybe(("data",), shape[1], mesh)
+        if heads_ok and nd >= 4:
+            spec[3] = shrules.maybe("model", shape[3], mesh)
+        elif nd >= 3:
+            spec[2] = shrules.maybe("model", shape[2], mesh)
+        return NamedSharding(mesh, P(*spec))
+
+    return shrules.tree_map_with_path(one, cache_sh)
+

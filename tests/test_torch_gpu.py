@@ -1680,9 +1680,11 @@ def test_cuda_dense_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16),
                                              dtype=np.int32)
     tol = 2.0 ** -5 if bf16 else 1e-5
+    n = 16 // cfg.attn_chunk if cfg.mla and 16 > cfg.attn_chunk else 1
+    per_prefill = cfg.num_layers * n * (n + 1) // 2
     ops.LAUNCHES["flash_attention"] = 0
     lg, cg = model.prefill(card, {"tokens": toks}, 24)
-    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert ops.LAUNCHES["flash_attention"] == per_prefill
     lc, cc = model.prefill(cpu, {"tokens": toks}, 24)
     for step in range(4):
         want = lc.float()
@@ -1809,8 +1811,10 @@ def _moe_mla_lm(arch, bf16):
                                              (False, 8)])
 def test_cuda_moe_mla_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
     """The MoE / MLA LM's prefill (one flash launch a layer: MHA at 32,
-    MLA at (192, 128) also past attn_chunk, where the CPU decompresses
-    per block) and 3 decode steps (no flash launch) on the card against
+    MLA at (192, 128); past attn_chunk an MLA layer decompresses per
+    block on both devices, on the card one launch a (query block, key
+    block <= it) pair: 3 at 2 blocks) and 3 decode steps (no flash
+    launch) on the card against
     the CPU from the same params: f32 within 1e-5, bf16 within 2^-5 of
     the largest logit; greedy tokens equal wherever the CPU's top-2 gap
     exceeds that bound (bf16 logits of a 128-token vocab do tie within
@@ -1827,9 +1831,11 @@ def test_cuda_moe_mla_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16),
                                              dtype=np.int32)
     tol = 2.0 ** -5 if bf16 else 1e-5
+    n = 16 // cfg.attn_chunk if cfg.mla and 16 > cfg.attn_chunk else 1
+    per_prefill = cfg.num_layers * n * (n + 1) // 2
     ops.LAUNCHES["flash_attention"] = 0
     lg, cg = model.prefill(card, {"tokens": toks}, 24)
-    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert ops.LAUNCHES["flash_attention"] == per_prefill
     lc, cc = model.prefill(cpu, {"tokens": toks}, 24)
     for step in range(4):
         want = lc.float()
@@ -1842,7 +1848,7 @@ def test_cuda_moe_mla_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
         if step < 3:
             lg, cg = model.decode_step(card, tok.cuda(), cg)
             lc, cc = model.decode_step(cpu, tok, cc)
-    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert ops.LAUNCHES["flash_attention"] == per_prefill
     for seg in (k for k in cc if k != "pos"):
         for name, buf in cc[seg].items():
             b = tol * max(1.0, float(buf.float().abs().max()))
@@ -2047,3 +2053,176 @@ def test_cuda_encdec_vlm_prefill_decode_equals_cpu(arch, bf16, attn_chunk):
         b = tol * max(1.0, float(buf.float().abs().max()))
         assert float((cg["seg0"][name].float().cpu() - buf.float()).abs()
                      .max()) <= b, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_with_lse_through_ops(dtype):
+    """``ops.flash_attention(with_lse=True)`` on the card returns the
+    forward kernel's (out, lse) bit for bit, the output equal to the call
+    without it; under autograd it raises naming ROADMAP item 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, 300, 4, 64), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    out, lse = ops.flash_attention(q, k, v, causal=False, with_lse=True)
+    want, wlse = fa.flash_attention_cuda(q, k, v, causal=False,
+                                         with_lse=True)
+    assert torch.equal(out, want) and torch.equal(lse, wlse)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=False))
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 32"):
+        ops.flash_attention(q, k, v, with_lse=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_blockwise_equals_materialized(dtype):
+    """MLA's block-wise attention on the card (16 heads at DeepSeek-V2's
+    head widths, 4 blocks of 256) against the materialized path from the
+    same weights (2e-5 f32, 2e-2 bf16 of the largest output) with its
+    10 flash launches; under autograd the card takes the materialized
+    path (one launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import mla
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), num_heads=16,
+                              attn_chunk=256)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    p = mla.mla_init(g, cfg, dtype)
+    x = torch.randn((2, 1024, cfg.d_model), generator=g,
+                    device="cuda").to(dtype)
+    pos = torch.arange(1024, device="cuda")
+    qn, qr = mla._queries(p, x, cfg, pos)
+    lat, kr = mla._latent(p, x, cfg, pos)
+    ops.LAUNCHES["flash_attention"] = 0
+    got = mla.mla_blockwise_attention(p, qn, qr, lat, kr, cfg)
+    assert ops.LAUNCHES["flash_attention"] == 10
+    q, k, v = mla._materialize(p, qn, qr, lat, kr, cfg)
+    want = fa.flash_attention_cuda(q, k, v, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * top
+    with torch.no_grad():
+        served = mla.mla_attention_apply(p, x, cfg, pos)
+    for t in p.values():
+        t.requires_grad_(True)
+    ops.LAUNCHES["flash_attention"] = 0
+    trained = mla.mla_attention_apply(p, x, cfg, pos)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    top = float(trained.detach().float().abs().max())
+    assert float((served.float() - trained.detach().float()).abs().max()) \
+        <= tol * top
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_train_step_equals_unsharded():
+    """A (2, 2, 1) (pod, data, model) train step on the card (one card
+    repeated) against the unsharded step on the card, on what carries
+    the gradient (a first AdamW step moves a param by less than the
+    learning rate whatever the gradient): loss to 1e-5; plain, the
+    pre-clip norm to 1e-5 and params and moments within 1e-4 of each
+    leaf's largest; icq_grad, the gradient read back from m (m = (1 - b1)
+    c g, c the clip factor) within one int8 step B = M / 127 of the
+    unsharded one (M the leaf's largest over the pods' own gradients:
+    rounding moves the pods' mean by at most B / 2), the residuals' pod
+    mean equal to the plain gradient less the compressed one within 1e-4
+    of M; 4 shards' flash launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _dense_lm("tinyllama-1.1b", False)
+    card = build_model(cfg).init(0, device="cuda")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 8, 16),
+                                             dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    step0, _, opt, init0 = build_train_step(cfg, n_micro=1)
+
+    def grads(out):
+        c = min(1.0, opt.clip_norm / max(float(out[2]["gnorm"]), 1e-9))
+        return [m.float() / ((1 - opt.b1) * c)
+                for m in tree_leaves(out[1]["m"])]
+
+    plain = step0(card, init0(card), batch)
+    p0, o0, m0 = plain
+    g0 = grads(plain)
+    pods = [grads(step0(card, init0(card), {k: v[:, 4 * p:4 * p + 4]
+                                            for k, v in batch.items()}))
+            for p in range(2)]
+    M = [max(float(pg[i].abs().max()) for pg in pods)
+         for i in range(len(g0))]
+    mesh = make_mesh_auto((2, 2, 1), ("pod", "data", "model"))
+    for icq in (False, True):
+        step, _, _, init = build_train_step(cfg, n_micro=1, multi_pod=True,
+                                            icq_grad=icq, mesh=mesh)
+        ops.LAUNCHES["flash_attention"] = 0
+        out = step(card, init(card), batch)
+        p1, o1, m1 = out
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 4 * cfg.num_layers * (
+            2 if cfg.remat else 1)
+        np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                                   rtol=1e-5)
+        assert ("ef_residual" in o1) == icq
+        if icq:
+            res = [tree_leaves(r) for r in o1["ef_residual"]]
+            for i, (g, w) in enumerate(zip(grads(out), g0)):
+                assert float((g - w).abs().max()) <= M[i] / 127
+                mean = (res[0][i] + res[1][i]) / 2
+                assert float((mean - (w - g)).abs().max()) <= 1e-4 * M[i]
+        else:
+            np.testing.assert_allclose(float(m1["gnorm"]),
+                                       float(m0["gnorm"]), rtol=1e-5)
+            for got, want in ((p1, p0), (o1["m"], o0["m"]),
+                              (o1["v"], o0["v"])):
+                for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                    assert float((g - w).abs().max()) \
+                        <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_reshard_and_combine():
+    """``reshard_state`` on the card from (data 4) to (data 2, model 2)
+    and back bit for bit; the int8 combine over 2 pods equal to the
+    mean of the pods' dequantized error-feedback payloads bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.distributed import reshard_state
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch import combine as cb
+    from repro_torch.models import build_model
+    from repro_torch.quant.int8 import dequantize_int8, quantize_int8
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _dense_lm("tinyllama-1.1b", False)
+    params = build_model(cfg).init(0, device="cuda")
+    a = make_mesh_auto((4,), ("data",))
+    b = make_mesh_auto((2, 2), ("data", "model"))
+    back = reshard_state(reshard_state(reshard_state(params, a, a), a, b),
+                         b, a)
+    for leaf, st in zip(tree_leaves(params), tree_leaves(back)):
+        assert torch.equal(st.gather(), leaf)
+    mesh = make_mesh_auto((2, 1, 1), ("pod", "data", "model"))
+    plan = cb.plan_combine_cell(cfg, mesh, compressed=True)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gs = [torch.randn(plan.args[0].shape, generator=g, device="cuda")
+          for _ in range(2)]
+    rs = [torch.zeros_like(t) for t in gs]
+    grid, rgrid = (np.empty((2, 1, 1), dtype=object) for _ in range(2))
+    for i in range(2):
+        grid[i, 0, 0], rgrid[i, 0, 0] = gs[i], rs[i]
+    means, _ = cb.run_combine(plan, grid, rgrid)
+    parts = [dequantize_int8(*quantize_int8(t + r, axis=-1))
+             for t, r in zip(gs, rs)]
+    assert torch.equal(means[0, 0, 0], (parts[0] + parts[1]) / 2)
+

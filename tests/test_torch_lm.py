@@ -322,11 +322,18 @@ def test_unported_families_raise_naming_their_item():
                  "whisper-large-v3", "internvl2-76b"):         # item 21
         for cfg in (configs.get_config(arch), configs.smoke_config(arch)):
             assert build_model(cfg).cfg is cfg
+    # LM sharding (item 23) is ported: a mesh is accepted and, as the
+    # reference's placement hint, changes nothing computed
+    from repro_torch.distributed.sharding import make_mesh_auto
     cfg = configs.smoke_config("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        build_serve_fns(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 23"):
-        build_model(cfg, mesh=object())
+    mesh = make_mesh_auto((2, 2), ("data", "model"), devices="cpu")
+    params = build_model(cfg).init(0, device="cpu")
+    toks = _tokens(cfg.vocab_size, 2, 8)
+    prefill, _, _ = build_serve_fns(cfg, mesh=mesh)
+    got, _ = prefill(params, {"tokens": toks}, 12)
+    want, _ = build_model(cfg).prefill(params, {"tokens": toks}, 12)
+    assert torch.equal(got, want)
+    assert build_model(cfg, mesh=mesh).cfg is cfg
     # LM training (item 22) is ported: train_forward gives a finite loss
     model = build_model(cfg)
     toks = _tokens(cfg.vocab_size, 1, 8)

@@ -174,16 +174,26 @@ def test_train_step_matches_reference(n_micro):
 
 
 def test_train_step_refuses_what_waits_for_sharding():
+    """LM sharding (item 23) is ported: ``multi_pod`` and a one-shard
+    mesh give the unsharded step bit for bit (one pod, no combine), and a
+    model built with a mesh computes as without one."""
     _, pcfg = _cfgs("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        build_train_step(pcfg, n_micro=1, multi_pod=True)
+    _, nparams = _params("tinyllama-1.1b", ())
+    batch = _batch(pcfg, b=2, lead=(1,), seed=5)
     from repro_torch.distributed.sharding import make_mesh_auto
-    with pytest.raises(NotImplementedError, match="item 23"):
-        build_train_step(pcfg, n_micro=1, mesh=make_mesh_auto(
-            (2,), ("data",), devices="cpu"))
-    with pytest.raises(NotImplementedError, match="item 23"):
-        build_model(pcfg, mesh=make_mesh_auto((1,), ("data",),
-                                              devices="cpu"))
+    outs = []
+    for kw in ({}, {"multi_pod": True}, {"mesh": make_mesh_auto(
+            (1, 1, 2), ("pod", "data", "model"), devices="cpu")}):
+        step, _, _, init = build_train_step(pcfg, n_micro=1, **kw)
+        params = params_from_numpy(nparams, device="cpu")
+        outs.append(step(params, init(params), batch))
+    for p, o, m in outs[1:]:
+        _trees_close(p, outs[0][0], 0.0, "params")
+        _trees_close(o, outs[0][1], 0.0, "optimizer state")
+        assert float(m["loss"]) == float(outs[0][2]["loss"])
+    model = build_model(pcfg, mesh=make_mesh_auto((1,), ("data",),
+                                                  devices="cpu"))
+    assert model.cfg is pcfg
 
 
 def test_adafactor_matches_reference():

@@ -198,6 +198,41 @@ def test_mla_attention_apply_matches_reference(dtype, attn_chunk):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_blockwise_matches_reference_chunked(dtype):
+    """The card's block-wise MLA (one flash call with its log-sum-exp a
+    (query block, key block <= it) pair, merged in f32), run on the CPU
+    through the flash kernel's plain version at 4 blocks of 8, against
+    the reference's ``mla_chunked_attention`` from the same q, latent
+    and rope key; and the flash calls it makes: 4 * 5 / 2 = 10, the 4
+    diagonal ones causal."""
+    rcfg, pcfg = _cfgs("deepseek-v2-236b", dtype == "bfloat16",
+                       attn_chunk=8)
+    lp, tp = _layer("deepseek-v2-236b", dtype == "bfloat16", 0)
+    rx, px = _x((2, 32, rcfg.d_model), dtype, seed=11)
+    pos = np.arange(32)
+    qn, qr = ref_mla._queries(lp["attn"], rx, rcfg, pos)
+    lat, kr = ref_mla._latent(lp["attn"], rx, rcfg, pos)
+    want = ref_mla.mla_chunked_attention(lp["attn"], qn, qr, lat, kr, rcfg)
+    tqn, tqr, tlat, tkr = (torch.tensor(_f32(t)).to(getattr(torch, dtype))
+                           for t in (qn, qr, lat, kr))
+    calls = []
+    launch = port_mla.ops.flash_attention
+
+    def counted(q, k, v, *, causal=True, with_lse=False):
+        calls.append(causal)
+        return launch(q, k, v, causal=causal, with_lse=with_lse)
+    port_mla.ops.flash_attention = counted
+    try:
+        got = port_mla.mla_blockwise_attention(tp["attn"], tqn, tqr, tlat,
+                                               tkr, pcfg)
+    finally:
+        port_mla.ops.flash_attention = launch
+    assert calls.count(True) == 4 and len(calls) == 10, calls
+    assert got.dtype == tlat.dtype
+    _close(got, want, dtype, "mla block-wise, 4 blocks")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mla_decode_attention_matches_reference(dtype):
     """The absorbed decode against a latent / rope-key cache of 12 valid
     positions out of 16."""

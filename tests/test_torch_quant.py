@@ -282,10 +282,12 @@ def test_icq_decode_refuses_what_it_does_not_serve():
                            match="supports_icq_kv.*has no dense KV cache"):
             port_serve_icq.build_icq_decode(configs.smoke_config(arch),
                                             quant.ICQKVConfig())
-    with pytest.raises(NotImplementedError, match="item 23"):
-        port_serve_icq.build_icq_decode(
-            configs.smoke_config("gemma-7b"), quant.ICQKVConfig(),
-            mesh=object())
+    # a mesh is accepted and, as in the reference, unused
+    from repro_torch.distributed.sharding import make_mesh_auto
+    mesh = make_mesh_auto((1, 1), ("data", "model"), devices="cpu")
+    step, init = port_serve_icq.build_icq_decode(
+        configs.smoke_config("gemma-7b"), quant.ICQKVConfig(), mesh=mesh)
+    assert callable(step) and init(1, 8, device="cpu")["pos"].ndim == 0
     assert port_serve_icq.AnnEngine.__module__ == "repro_torch.api.serving"
     for arch in configs.list_archs():
         assert port_serve_icq.supports_icq_kv(configs.get_config(arch)) == \

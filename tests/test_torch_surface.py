@@ -13,10 +13,6 @@ MISSING = {
         # compile
         "compile_epoch": "none: the port's epoch is run_epoch",
     },
-    "distributed": {
-        name: "item 23 (LM sharding)" for name in (
-            "batch_shardings", "cache_shardings", "param_shardings",
-            "reshard_state")},
 }
 PACKAGES = ["", "api", "index", "trainer", "core", "core.baselines",
             "core.train", "core.search", "data", "distributed", "configs",
