@@ -1890,19 +1890,67 @@ FLASH_KV_VALID_MODES = (
 )
 
 
+# the query offset (query row i at position i + q_offset): b, sq, sk, H,
+# KVH, dqk, dv, causal, window, q_offset: the triangular scan's sk - sq, a
+# positive offset inside the keys, a negative one (the first rows see no
+# key), a window with sq > sk, a window with a negative offset, a
+# non-causal band whose last rows lie past the last key's band; the same
+# kinds at MLA's widths; every length ragged against the tiles
+FLASH_OFFSET_MODES = (
+    (1, 333, 1111, 4, 2, 64, 64, True, 0, 778),
+    (1, 200, 300, 4, 1, 64, 64, True, 0, 37),
+    (2, 300, 130, 4, 4, 64, 64, True, 0, -70),
+    (1, 500, 257, 4, 2, 64, 64, True, 100, 45),
+    (1, 257, 500, 4, 4, 64, 64, True, 70, -33),
+    (1, 300, 300, 4, 2, 64, 64, False, 50, 120),
+    (1, 130, 1000, 8, 8, 192, 128, True, 0, 870),
+    (1, 333, 200, 4, 2, 192, 128, True, 0, -45),
+    (1, 400, 300, 4, 4, 192, 128, True, 64, 29),
+    (1, 200, 333, 4, 1, 192, 128, True, 90, -61),
+)
+# the mask operand (random, 70% kept, rows 5 and sq - 1 fully masked):
+# b, sq, sk, H, KVH, dqk, dv, causal, window, q_offset, its shape: "qk"
+# one (sq, sk) mask for every batch row and head (stride 0 over both),
+# "heads" one a (batch, head), whose fully masked rows are head 1's only
+MASK_KEEP = 0.7
+FLASH_MASK_MODES = (
+    (2, 130, 200, 4, 2, 64, 64, False, 0, 0, "qk"),
+    (1, 257, 257, 4, 4, 64, 64, True, 0, 0, "heads"),
+    (1, 300, 500, 4, 1, 64, 64, True, 80, 200, "qk"),
+    (1, 200, 130, 4, 4, 192, 128, False, 0, 0, "qk"),
+    (2, 129, 300, 4, 2, 192, 128, True, 0, 171, "heads"),
+)
+
+
 def flash_tolerance(dtype) -> float:
     import torch
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
-def flash_body(dtype, dh, dv=None, kernel="forward") -> str:
+def flash_body(dtype, dh, dv=None, kernel="forward", general=False) -> str:
     """The flash body that runs for ``dtype`` at (``dh``, ``dv``; ``dv``
-    defaults to ``dh``), the forward's or a backward kernel's: its path,
-    and its registers and local-memory (spill) bytes per thread."""
+    defaults to ``dh``), the forward's or a backward kernel's, its
+    general instance (a query offset, a mask) under ``general``: its
+    path, and its registers and local-memory (spill) bytes per thread."""
     from repro_torch.kernels import flash_attention as fa
-    a = fa.kernel_attributes(dtype, dh, dv, kernel)
+    a = fa.kernel_attributes(dtype, dh, dv, kernel, general)
     return (f"{a['path']}, {a['registers']} registers, "
             f"{a['local_bytes']} B local per thread")
+
+
+def random_mask(seed, kind, b, H, sq, sk):
+    """``FLASH_MASK_MODES``' mask on the card: (sq, sk) for "qk", (b, H,
+    sq, sk) for "heads", ``MASK_KEEP`` of the pairs kept, rows 5 and sq -
+    1 fully masked (in head 1 only for "heads")."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (sq, sk) if kind == "qk" else (b, H, sq, sk)
+    m = torch.rand(shape, generator=g, device="cuda") < MASK_KEEP
+    if kind == "qk":
+        m[[5, sq - 1]] = False
+    else:
+        m[:, 1, [5, sq - 1]] = False
+    return m
 
 
 def attention_operands(seed, b, sq, sk, H, KVH, dh, dtype, dv=None):
@@ -1975,7 +2023,11 @@ def check_kernel_ops(seed: int):
                 f"{tol}): {'within' if ok else 'OUTSIDE'}")
             check(ok, f"flash_attention kernel != plain version {mode} "
                       f"{dtype}: max_abs_err {err}")
-            check_flash_backward(seed, mode, dtype, q, k, v, got)
+            check_flash_backward(seed, f"b={b} sq={sq} sk={sk} H={H} "
+                                 f"KVH={KVH} dh={dh} dv={dv}", dtype, q, k,
+                                 v, got, dict(causal=causal, window=window,
+                                              kv_valid=kv_valid))
+    check_offsets_and_masks(seed)
     # kv_valid only in a non-causal call with no window (a row could keep
     # no key); the wrapper refuses the others before any launch
     q, k, v = attention_operands(seed, 1, 64, 64, 2, 2, 64, torch.float32)
@@ -1991,8 +2043,9 @@ def check_kernel_ops(seed: int):
     log(f"phase 7 check launches: {read_launches()}")
 
 
-def check_flash_backward(seed, mode, dtype, q, k, v, out):
-    """Phase 7 (a), the backward in one mode: the forward with its
+def check_flash_backward(seed, shape, dtype, q, k, v, out, masks):
+    """Phase 7 (a), the backward in one mode (``shape`` its label,
+    ``masks`` the flash call's mask arguments): the forward with its
     log-sum-exp equal to the forward without it (``out``) bit for bit;
     dq, dk, dv of the backward kernels each within phase 7's tolerance
     of its own largest magnitude in the plain backward, from the same
@@ -2005,9 +2058,8 @@ def check_flash_backward(seed, mode, dtype, q, k, v, out):
     ~1 on both sides."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    b, sq, sk, H, KVH, dh, dv, causal, window, kv_valid = mode
-    masks = dict(causal=causal, window=window, kv_valid=kv_valid)
-    g = torch.Generator(device="cuda").manual_seed(seed + 7 * sq + dh)
+    dh = q.shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(seed + 7 * q.shape[1] + dh)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
@@ -2017,30 +2069,81 @@ def check_flash_backward(seed, mode, dtype, q, k, v, out):
     tol = flash_tolerance(dtype)
     same_fwd = torch.equal(o, out)
     twice = all(torch.equal(x, y) for x, y in zip(got, again))
-    peaks = [float(w.float().abs().max()) for w in want]
-    whole = max(1e-30, max(peaks))
-    noise = [n for n, p in zip(("dq", "dk", "dv"), peaks) if p < tol * whole]
-    bounds = [tol * (whole if p < tol * whole else p) for p in peaks]
-    rel = [float((x.float() - w.float()).abs().max()) / bd
-           for x, w, bd in zip(got, want, bounds)]
+    rel, noise = tolerance_ratios(got, want, tol)
     ok = (same_fwd and twice and max(rel) <= 1.0
           and all(x.dtype == dtype for x in got))
     noted = (f"; rounding noise, at the whole gradient's scale: "
-             f"{', '.join(noise)}" if noise else "")
-    log(f"mode flash_attention backward b={b} sq={sq} sk={sk} H={H} "
-        f"KVH={KVH} dh={dh} dv={dv} causal={causal} window={window} "
-        f"kv_valid={kv_valid} {str(dtype).split('.')[-1]} "
-        f"({flash_body(dtype, dh, dv, 'dq')}; "
-        f"{flash_body(dtype, dh, dv, 'dkdv')}): dq / dk / dv "
+             f"{', '.join(('dq', 'dk', 'dv')[i] for i in noise)}"
+             if noise else "")
+    dv = v.shape[-1]
+    masked = masks.get("mask") is not None
+    general = fa.general_instance(q.shape[1], k.shape[1],
+                                  masks.get("window", 0),
+                                  masks.get("q_offset", 0), masks.get("mask"))
+    named = ", ".join(f"{key}={val}" for key, val in masks.items()
+                      if key != "mask")
+    log(f"mode flash_attention backward {shape} {named}"
+        f"{', masked' if masked else ''} {str(dtype).split('.')[-1]} "
+        f"({flash_body(dtype, dh, dv, 'dq', general)}; "
+        f"{flash_body(dtype, dh, dv, 'dkdv', general)}): dq / dk / dv "
         f"max_abs_err over tolerance {rel[0]:.3f} / {rel[1]:.3f} / "
         f"{rel[2]:.3f} ({tol} of each one's largest magnitude{noted}); "
         f"two launches "
         f"{'equal' if twice else 'DIFFERENT'}; forward with the "
         f"log-sum-exp {'equal' if same_fwd else 'DIFFERENT'}: "
         f"{'within' if ok else 'OUTSIDE'}")
-    check(ok, f"flash_attention backward {mode} {dtype}: errors over "
-              f"tolerance {rel}, twice equal {twice}, forward equal "
+    check(ok, f"flash_attention backward {shape} {named} {dtype}: errors "
+              f"over tolerance {rel}, twice equal {twice}, forward equal "
               f"{same_fwd}")
+
+
+def check_offsets_and_masks(seed: int):
+    """Phase 7 (a), the query offset and the mask operand: every mode of
+    ``FLASH_OFFSET_MODES`` and ``FLASH_MASK_MODES`` in both types, the
+    forward against the plain version (phase 7's tolerance; the rows
+    that see no key included: the mean of V, log-sum-exp NEG_INF) and
+    the backward through ``check_flash_backward``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    modes = ([m + (None,) for m in FLASH_OFFSET_MODES]
+             + list(FLASH_MASK_MODES))
+    for b, sq, sk, H, KVH, dh, dv, causal, window, q_offset, kind in modes:
+        for dtype in (torch.float32, torch.bfloat16):
+            seed_m = seed + sq + 3 * sk + dh + window + q_offset
+            q, k, v = attention_operands(seed_m, b, sq, sk, H, KVH, dh,
+                                         dtype, dv)
+            mask = (random_mask(seed_m, kind, b, H, sq, sk) if kind
+                    else None)
+            masks = dict(causal=causal, window=window, q_offset=q_offset,
+                         mask=mask)
+            got, lse = fa.flash_attention_cuda(q, k, v, with_lse=True,
+                                               **masks)
+            want, wlse = fa.flash_attention_torch(q, k, v, with_lse=True,
+                                                  **masks)
+            torch.cuda.synchronize()
+            tol = flash_tolerance(dtype)
+            err = float((got.float() - want.float()).abs().max())
+            empty = wlse < fa.NEG_INF / 2
+            n_empty = int(empty.sum())
+            ok = (got.dtype == dtype and bool(torch.isclose(
+                got.float(), want.float(), rtol=tol, atol=tol).all())
+                and torch.equal(lse < fa.NEG_INF / 2, empty))
+            label = (f"b={b} sq={sq} sk={sk} H={H} KVH={KVH} dh={dh} "
+                     f"dv={dv}")
+            general = fa.general_instance(sq, sk, window, q_offset, mask)
+            log(f"mode flash_attention {label} causal={causal} "
+                f"window={window} q_offset={q_offset}"
+                + (f" mask {kind} ({float(mask.float().mean()):.3f} kept)"
+                   if kind else "")
+                + f" {str(dtype).split('.')[-1]} "
+                f"({flash_body(dtype, dh, dv, general=general)}): "
+                f"max_abs_err {err} (tolerance {tol}), {n_empty} "
+                f"(batch, head, row)s with no key, equal on both sides: "
+                f"{'within' if ok else 'OUTSIDE'}")
+            check(ok, f"flash_attention kernel != plain version {label} "
+                      f"q_offset={q_offset} mask={kind} {dtype}: "
+                      f"max_abs_err {err}")
+            check_flash_backward(seed, label, dtype, q, k, v, got, masks)
 
 
 def attention_work(b, sq, sk, H, KVH, dh, causal, itemsize, dv=None,
@@ -2186,6 +2289,174 @@ def kernel_ops(seed: int, n: int):
             replaces="src/repro/kernels/flash_attention.py:71",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms)
+    return launches, records
+
+
+# phase 7 (e): the query offset and the mask operand at full width,
+# through the attention layer's entry points on the card, under autograd
+# (forward, then both backward kernels): tinyllama-1.1b's attention (32 /
+# 4 heads of 64) in bf16 (scale_config's type).  OFFSET_CALL: a prompt's
+# last prefill chunk, chunked_attention(q_offset=3072) of 1024 queries over
+# its 4096 keys (a 4096-token prompt prefilled 1024 tokens at a time);
+# MASK_CALL: full_attention(causal, mask=) over 4096 tokens packed from 4
+# documents of 1024, each token seeing only its own document (the
+# block-diagonal (4096, 4096) mask of packed-sequence training)
+OFFSET_CALL = dict(b=1, sq=1024, sk=4096, H=32, KVH=4, dh=64, q_offset=3072)
+MASK_CALL = dict(b=1, s=4096, H=32, KVH=4, dh=64, docs=4)
+BWD_REPLACES = ("src/repro/kernels/flash_attention.py:71 (no Pallas "
+                "backward; the gradient of src/repro/models/attention.py:62)")
+
+
+def tolerance_ratios(got, want, tol) -> tuple:
+    """Phase 7's gradient rule: each of ``got``'s max errors against
+    ``want`` over ``tol`` times that gradient's largest magnitude, or the
+    whole set's where its own is below ``tol`` of it (rounding noise).
+    Returns (ratios, the indices held at the whole scale)."""
+    peaks = [float(w.float().abs().max()) for w in want]
+    whole = max(1e-30, max(peaks))
+    noise = [i for i, p in enumerate(peaks) if p < tol * whole]
+    bounds = [tol * (whole if i in noise else p) for i, p in enumerate(peaks)]
+    return ([float((x.float() - w.float()).abs().max()) / bd
+             for x, w, bd in zip(got, want, bounds)], noise)
+
+
+def offset_mask_calls(seed: int, card: str):
+    """Phase 7 (e): ``OFFSET_CALL`` and ``MASK_CALL`` through
+    ``models.attention`` under autograd, launch counts reset before and
+    read after around each call (one forward and one of each backward
+    kernel; its records carry that call's counts, the backward pair's
+    the sum of dq's and dkdv's);
+    output and gradients against the plain versions (phase 7's
+    tolerance); then each call's forward and backward pair timed beside
+    the plain versions, the bound (the pairs its masks keep) and SDPA
+    with the same boolean ``attn_mask``.  Returns (the launches, four
+    records)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    dt = torch.bfloat16
+    o_, m_ = OFFSET_CALL, MASK_CALL
+    qkv_o = attention_operands(seed + 710, o_["b"], o_["sq"], o_["sk"],
+                               o_["H"], o_["KVH"], o_["dh"], dt)
+    qkv_m = attention_operands(seed + 711, m_["b"], m_["s"], m_["s"],
+                               m_["H"], m_["KVH"], m_["dh"], dt)
+    doc = torch.arange(m_["s"], device="cuda") // (m_["s"] // m_["docs"])
+    docs = doc[:, None] == doc[None, :]
+    calls = {
+        "q_offset": (qkv_o, dict(causal=True, q_offset=o_["q_offset"]),
+                     lambda q, k, v: attn.chunked_attention(
+                         q, k, v, causal=True, chunk=1024,
+                         q_offset=o_["q_offset"])),
+        "mask": (qkv_m, dict(causal=True, mask=docs),
+                 lambda q, k, v: attn.full_attention(q, k, v, causal=True,
+                                                     mask=docs)),
+    }
+    g = torch.Generator(device="cuda").manual_seed(seed + 712)
+    grads_in = {name: torch.randn(qkv[0].shape, generator=g,
+                                  device="cuda").to(dt)
+                for name, (qkv, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    outs, counts, launches = {}, {}, None
+    for name, (qkv, _, entry) in calls.items():
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        reset_launches()
+        out = entry(*leaves)
+        out.backward(grads_in[name])
+        torch.cuda.synchronize()
+        counts[name] = read_launches()
+        outs[name] = (out.detach(), [t.grad for t in leaves])
+        want = {k: 0 for k in counts[name]}
+        want.update(flash_attention=1, flash_attention_bwd_dq=1,
+                    flash_attention_bwd_dkdv=1)
+        log(f"phase 7 (e) {name} call under autograd: launches "
+            f"{counts[name]}")
+        check(counts[name] == want, f"{name} call launches {counts[name]} "
+                                    f"!= {want}")
+        launches = {k: (launches or {}).get(k, 0) + n
+                    for k, n in counts[name].items()}
+    records = {}
+    tol = flash_tolerance(dt)
+    for name, (qkv, masks, _) in calls.items():
+        q, k, v = qkv
+        do = grads_in[name]
+        out, grads = outs[name]
+        wo, wlse = fa.flash_attention_torch(q, k, v, with_lse=True, **masks)
+        _, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
+        wg = fa.flash_attention_bwd_torch(q, k, v, out, do, lse, **masks)
+        torch.cuda.synchronize()
+        err = float((out.float() - wo.float()).abs().max())
+        ratios, _ = tolerance_ratios(grads, wg, tol)
+        check(bool(torch.isclose(out.float(), wo.float(), rtol=tol,
+                                 atol=tol).all()) and max(ratios) <= 1.0,
+              f"{name} call != plain version: max_abs_err {err}, gradient "
+              f"ratios {ratios}")
+        g_err = max(float((x.float() - w.float()).abs().max())
+                    for x, w in zip(grads, wg))
+        del wo, wg
+        b, sq, H, dh = q.shape
+        sk, KVH = k.shape[1], k.shape[2]
+        keep = fa._visible(sq, sk, True, 0, 0, "cuda",
+                           masks.get("q_offset", 0))
+        if "mask" in masks:
+            keep = keep & masks["mask"]
+        pairs = int(keep.sum())
+        mask_bytes = sq * sk if "mask" in masks else 0
+        item = q.element_size()
+        q_rows, kv_rows, stats = b * sq * H, b * sk * KVH, 4 * b * H * sq
+        f_ms, f_by = bound_ms(item * (q_rows + kv_rows) * 2 * dh
+                              + mask_bytes, 2 * b * H * pairs * 2 * dh,
+                              BF16_OPS_PER_S)
+        b_ms_, b_by = bound_ms(item * (q_rows * 4 * dh + 2 * kv_rows * 2 * dh)
+                               + stats + mask_bytes,
+                               2 * b * H * pairs * 5 * dh, BF16_OPS_PER_S)
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **masks), 10)
+        plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v,
+                                                            **masks), 1)
+        bwd = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, do,
+                                                          lse, **masks), 10)
+        plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(
+            q, k, v, out, do, lse, **masks), 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep, enable_gqa=True), 10)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                 enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), 5)
+        del lib_out
+        label = (f"q_offset {o_['q_offset']}, {sq} x {sk}" if name ==
+                 "q_offset" else f"mask, {m_['docs']} documents of "
+                 f"{sq // m_['docs']}")
+        log(f"kernel flash_attention ({label}) b={b} H={H} KVH={KVH} dh={dh}"
+            f" causal bf16 ({flash_body(dt, dh, general=True)}): "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {f_ms:.4f} ms "
+            f"({f_by}; {pairs} kept pairs a head), SDPA with the same "
+            f"boolean attn_mask {lib:.4f} ms (kernel / SDPA {ms / lib:.2f});"
+            f" backward pair {bwd:.4f} ms, plain {plain_bwd:.4f} ms, bound "
+            f"{b_ms_:.4f} ms ({b_by}), SDPA's backward {lib_bwd:.4f} ms "
+            f"({bwd / lib_bwd:.2f}); max_abs_err {err}, gradients {g_err} "
+            f"(ratios to phase 7's bound {[round(r, 3) for r in ratios]}); "
+            f"{card}")
+        n = counts[name]
+        common = dict(route="cuda")
+        records[f"flash_attention ({name})"] = dict(
+            common, name=f"flash_attention ({label})",
+            launches=n["flash_attention"],
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:71",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=f_ms,
+            bound_by=f_by, library_ms=lib)
+        records[f"flash_attention_bwd ({name})"] = dict(
+            common, name=f"flash_attention_bwd dq + dkdv ({label})",
+            launches=(n["flash_attention_bwd_dq"]
+                      + n["flash_attention_bwd_dkdv"]),
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces=BWD_REPLACES, max_abs_err=g_err, ms=bwd,
+            plain_ms=plain_bwd, bound_ms=b_ms_, bound_by=b_by,
+            library_ms=lib_bwd)
     return launches, records
 
 
@@ -4566,7 +4837,7 @@ class FlashCalls:
         self.ops, launch = ops, ops.flash_attention
 
         def record(q, k, v, *, causal=True, window=0, kv_valid=0,
-                   with_lse=False):
+                   with_lse=False, **offset_mask):
             key = (causal, window, kv_valid, tuple(q.shape), tuple(k.shape),
                    tuple(v.shape))
             if key not in self.counts and self.capture:
@@ -4574,7 +4845,8 @@ class FlashCalls:
                                    window))
             self.counts[key] = self.counts.get(key, 0) + 1
             return launch(q, k, v, causal=causal, window=window,
-                          kv_valid=kv_valid, with_lse=with_lse)
+                          kv_valid=kv_valid, with_lse=with_lse,
+                          **offset_mask)
         self.launch, ops.flash_attention = launch, record
         return self
 
@@ -5188,6 +5460,22 @@ def lm_training(seed: int, card: str):
 MLA_LEN = dict(s=32768, b=1)
 MLA_F32 = dict(s=4096, b=1)
 TOL_BF16_LM = 2e-2
+# (a) under autograd: the same layer's attention (_MLABlockwise from the
+# layer's q_nope, q_rope, latent, k_rope and w_uk, w_uv) against the
+# materialized path (_materialize + full_attention: K and V of the whole
+# sequence, one flash launch forward, one of each backward kernel), the
+# six gradients within phase 7's backward rule, at MLA_LEN in bf16 and
+# MLA_F32 in f32; at MLA_CPU in f32 also against the CPU's
+# mla_chunked_attention (autograd of the reference's twin); the bytes each
+# path saves for its backward (saved_tensors_hooks, by storage), the
+# backward's ms and peak.  MLA_STEP: deepseek-v2's train step cut to its
+# one mla_dense layer (60 -> 1; 1.39 B parameters in f32 as configured),
+# train_4k's 4096 tokens, batch 1 (4 blocks of attn_chunk 1024), against
+# the same step at attn_chunk 4096 (the materialized path): the loss and
+# gnorm of build_train_step's step, and every gradient of train_forward,
+# within LM_TOL (phase 15's 2e-4) of the leaf's largest
+MLA_CPU = dict(s=2048, b=1)
+MLA_STEP = dict(layers=1, tokens=4096, rows=1)
 # (b) the sharded train step: tinyllama-1.1b at full width, depth 2, f32
 # as configured, over make_mesh_auto((2, 2, 1), (pod, data, model)) on the
 # first card, a global batch of 8 x 512 in one microbatch (2 rows a
@@ -5299,6 +5587,240 @@ def mla_at_length(seed: int, card: str, bf16: bool, b: int, s: int):
     check(peak_b <= 2 * work, f"mla block-wise peak {peak_b} B > 2 x {work}")
     del got, p, x, qn, qr, lat, kr, args
     return launches, err / top, ms, peak_b
+
+
+def saved_for_backward(fn):
+    """``fn()``'s output and what autograd saved for its backward while it
+    ran: {storage pointer: (shape, storage bytes)} (a storage saved twice
+    counted once)."""
+    import torch
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen.setdefault(st.data_ptr(), (tuple(t.shape), st.nbytes()))
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, seen
+
+
+def mla_grad_at_length(seed: int, card: str, bf16: bool, b: int, s: int,
+                       cpu: bool = False):
+    """Phase 16 (a) under autograd at one type and length (the comment
+    above ``MLA_CPU``).  Returns the launches of the block-wise forward
+    and backward."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mla as mla_mod
+    cfg = lm_config("deepseek-v2-236b", bf16, 1)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    h, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv = cfg.v_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1610)
+    p = mla_mod.mla_init(gen, cfg, dt)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.float32).to(dt)
+    pos = torch.arange(s, device="cuda")
+    with torch.no_grad():
+        qn, qr = mla_mod._queries(p, x, cfg, pos)
+        lat, kr = mla_mod._latent(p, x, cfg, pos)
+    base = (qn, qr, lat, kr, p["w_uk"], p["w_uv"])
+    do = torch.randn((b, s, h, dv), generator=gen, device="cuda",
+                     dtype=torch.float32).to(dt)
+    del x
+
+    def paths(leaves):
+        pp = dict(p, w_uk=leaves[4], w_uv=leaves[5])
+
+        def materialized():
+            q, k, v = mla_mod._materialize(pp, *leaves[:4], cfg)
+            return attn.full_attention(q, k, v, causal=True)
+        return {"block-wise": lambda: mla_mod.mla_blockwise_attention(
+            pp, *leaves[:4], cfg), "materialized": materialized}
+
+    res = {}
+    for name in ("block-wise", "materialized"):
+        leaves = [t.detach().requires_grad_() for t in base]
+        inputs = {t.untyped_storage().data_ptr() for t in leaves}
+        torch.cuda.synchronize()
+        reset_launches()
+        out, saved = saved_for_backward(paths(leaves)[name])
+        torch.cuda.synchronize()
+        fwd = read_launches()
+        made = {k: v for k, v in saved.items() if k not in inputs}
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        grads = torch.autograd.grad(out, leaves, do)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        res[name] = dict(
+            out=out.detach(), grads=grads, made=made,
+            saved_bytes=sum(nb for _, nb in made.values()),
+            ms=start.elapsed_time(end), fwd=fwd,
+            bwd={k: launches[k] - fwd[k] for k in launches},
+            peak=torch.cuda.max_memory_allocated() - base_mem)
+        del out, leaves
+    got, want = res["block-wise"], res["materialized"]
+    tol = flash_tolerance(dt)
+    ratios, noise = tolerance_ratios(got["grads"], want["grads"], tol)
+    top = float(want["out"].float().abs().max())
+    err = float((got["out"].float() - want["out"].float()).abs().max())
+    n = mla_blocks(cfg, s)
+    pairs = n * (n + 1) // 2
+    k_shape, v_shape = (b, s, h, dn + dr), (b, s, h, dv)
+    shapes = sorted(sh for sh, _ in got["made"].values())
+    # the block-wise path saves, besides its inputs, only its output O (V's
+    # shape: the attention's output, which the materialized path saves
+    # too) and L; nothing of K's shape, no second tensor of V's
+    saves_ok = (k_shape not in shapes and shapes.count(v_shape) == 1
+                and shapes == sorted([v_shape, (b, h, s)]))
+    log(f"phase 16 (a) mla block-wise under autograd deepseek-v2-236b "
+        f"{'bf16' if bf16 else 'f32'} b={b} s={s} ({n} blocks): "
+        f"forward {got['fwd']['flash_attention']} flash launches (want "
+        f"{pairs}), backward dq {got['bwd']['flash_attention_bwd_dq']} / "
+        f"dkdv {got['bwd']['flash_attention_bwd_dkdv']} (want {pairs} each); "
+        f"against the materialized path (forward "
+        f"{want['fwd']['flash_attention']}, backward "
+        f"{want['bwd']['flash_attention_bwd_dq']} + "
+        f"{want['bwd']['flash_attention_bwd_dkdv']}): output {err / top:.3e}"
+        f" of its largest, gradients of q_nope / q_rope / latent / k_rope /"
+        f" w_uk / w_uv at {[round(r, 4) for r in ratios]} of phase 7's bound "
+        f"({tol}; at the whole gradient's scale: {noise}); saved for "
+        f"backward beyond the inputs {got['saved_bytes'] / 2**20:.1f} MiB "
+        f"{shapes} against {want['saved_bytes'] / 2**20:.1f} MiB "
+        f"{sorted(sh for sh, _ in want['made'].values())}; backward "
+        f"{got['ms']:.3f} ms against {want['ms']:.3f} ms (CUDA events), "
+        f"peak above its inputs {got['peak'] / 2**20:.1f} MiB against "
+        f"{want['peak'] / 2**20:.1f} MiB; {card}")
+    check(got["fwd"]["flash_attention"] == pairs
+          and got["bwd"]["flash_attention_bwd_dq"] == pairs
+          and got["bwd"]["flash_attention_bwd_dkdv"] == pairs,
+          f"mla block-wise under autograd launches {got['fwd']}, "
+          f"{got['bwd']}")
+    check(err <= tol * top and max(ratios) <= 1.0,
+          f"mla block-wise gradients != materialized: {ratios}, out {err}")
+    check(saves_ok, f"mla block-wise saved {shapes} for backward")
+    if cpu:
+        leaves = [t.detach().cpu().requires_grad_() for t in base]
+        cpu_p = dict(w_uk=leaves[4], w_uv=leaves[5])
+        out = mla_mod.mla_chunked_attention(cpu_p, *leaves[:4], cfg)
+        cg = torch.autograd.grad(out, leaves, do.cpu())
+        c_ratios, c_noise = tolerance_ratios([x.cpu() for x in got["grads"]],
+                                             cg, tol)
+        c_err = float((got["out"].cpu().float() - out.detach().float())
+                      .abs().max())
+        log(f"phase 16 (a) mla block-wise under autograd f32 s={s} against "
+            f"the CPU's mla_chunked_attention: output {c_err:.3e} (largest "
+            f"{float(out.detach().abs().max()):.4f}), gradients at "
+            f"{[round(r, 4) for r in c_ratios]} of phase 7's bound ({tol};"
+            f" at the whole scale: {c_noise})")
+        check(c_err <= tol * float(out.detach().abs().max())
+              and max(c_ratios) <= 1.0,
+              f"mla block-wise gradients != the CPU's: {c_ratios}")
+        del out, cg, leaves
+    launches = {k: got["fwd"][k] + got["bwd"][k] for k in got["fwd"]}
+    del res, got, want, base, p, qn, qr, lat, kr
+    return launches
+
+
+def mla_train_step(seed: int, card: str):
+    """Phase 16 (a), the train step (the comment above ``MLA_CPU``).
+    Returns the launches of the block-wise step and gradient pass."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=MLA_STEP["layers"])
+    tokens = MLA_STEP["tokens"]
+    paths = {"block-wise": cfg,
+             "materialized": dataclasses.replace(cfg, attn_chunk=tokens)}
+    params = lm_params(cfg, seed + 1620)
+    toks = np.random.default_rng(seed + 1621).integers(
+        0, cfg.vocab_size, (1, MLA_STEP["rows"], tokens), dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    total = {k: 0 for k in read_launches()}
+    res = {}
+    for name, c in paths.items():
+        step, model, _, init = build_train_step(c, n_micro=1)
+        step_s = []
+        for _ in range(2):      # the first step of a path warms it
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = step(params, init(params), batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_launches = read_launches()
+            metrics = {k: float(v) for k, v in out[2].items()}
+            del out
+        live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        loss, _ = model.train_forward(tree_unflatten(params, live),
+                                      {"tokens": toks[0], "labels": toks[0]})
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if name == "block-wise":
+            for k in total:
+                total[k] += launches[k]
+        res[name] = dict(metrics=metrics, loss=float(loss.detach()),
+                         grads=grads, step_s=step_s, launches=step_launches)
+        del live, loss
+    got, want = res["block-wise"], res["materialized"]
+    names = ["/".join(k) for k in _leaf_paths(params)]
+    worst, worst_name = 0.0, ""
+    # leaves the one-layer model does not read (no gradient on either side)
+    unused = [n for n, x, y in zip(names, got["grads"], want["grads"])
+              if x is None or y is None]
+    same_unused = all((x is None) == (y is None)
+                      for x, y in zip(got["grads"], want["grads"]))
+    for name, x, y in zip(names, got["grads"], want["grads"]):
+        if x is None or y is None:
+            continue
+        rel = float((x - y).abs().max()) / (
+            LM_TOL * max(1e-30, float(y.abs().max())))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    rel = {k: abs(got["metrics"][k] - want["metrics"][k])
+           / abs(want["metrics"][k]) for k in ("loss", "gnorm")}
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    pairs = mla_blocks(cfg, tokens) * (mla_blocks(cfg, tokens) + 1) // 2
+    remat = 2 if cfg.remat else 1
+    want_launches = {k: 0 for k in got["launches"]}
+    want_launches.update(flash_attention=remat * pairs,
+                         flash_attention_bwd_dq=pairs,
+                         flash_attention_bwd_dkdv=pairs)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"phase 16 (a) mla train step deepseek-v2-236b f32 "
+        f"{cfg.num_layers} layer ({n_params} parameters), "
+        f"{MLA_STEP['rows']} x {tokens}: block-wise loss "
+        f"{got['metrics']['loss']!r}, gnorm {got['metrics']['gnorm']!r} "
+        f"against materialized {want['metrics']['loss']!r}, "
+        f"{want['metrics']['gnorm']!r} (relative {rel['loss']:.3e}, "
+        f"{rel['gnorm']:.3e}; tolerance {LM_TOL}); train_forward's loss "
+        f"{loss_rel:.3e} apart, {len(names) - len(unused)} gradient leaves "
+        f"(unread by the model, on both sides: {unused}), the worst "
+        f"{worst_name} at {worst:.4f} of its bound ({LM_TOL} of the leaf's "
+        f"largest); first / second step {got['step_s'][0]:.3f} / "
+        f"{got['step_s'][1]:.3f} s against {want['step_s'][0]:.3f} / "
+        f"{want['step_s'][1]:.3f} s (host clock); launches a step "
+        f"{got['launches']} (materialized {want['launches']}); {card}")
+    check(max(rel.values()) <= LM_TOL and loss_rel <= LM_TOL,
+          f"mla train step: loss / gnorm {rel}, train_forward {loss_rel}")
+    check(worst <= 1.0 and same_unused,
+          f"mla train step gradient {worst_name} at {worst}, unread "
+          f"leaves {unused}")
+    check(got["launches"] == want_launches,
+          f"mla train step launches {got['launches']} != {want_launches}")
+    del res, got, want, params
+    return total
 
 
 def _at_path(tree, path):
@@ -5581,9 +6103,10 @@ def reshard_gate(seed: int, card: str):
 
 def lm_sharding(seed: int, card: str):
     """Phase 16: (a) MLA's block-wise attention at prefill_32k's length
-    in bf16 (and f32 at 4 blocks), (b) the sharded train step, (c) the
-    combine programs, (d) the reshard round trip.  Returns the launches
-    of (a) and (b)."""
+    in bf16 (and f32 at 4 blocks), without grad and under autograd, and
+    deepseek-v2's one-layer train step past attn_chunk, (b) the sharded
+    train step, (c) the combine programs, (d) the reshard round trip.
+    Returns the launches of (a) and (b)."""
     import gc
     import torch
     t0 = time.perf_counter()
@@ -5593,6 +6116,17 @@ def lm_sharding(seed: int, card: str):
         total["flash_attention"] += n
         gc.collect()
         torch.cuda.empty_cache()
+    for bf16, shape, cpu in ((True, MLA_LEN, False), (False, MLA_F32, False),
+                             (False, MLA_CPU, True)):
+        for k, n in mla_grad_at_length(seed, card, bf16, shape["b"],
+                                       shape["s"], cpu).items():
+            total[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k, n in mla_train_step(seed, card).items():
+        total[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 16 (a) ran {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     for k, n in sharded_step_gate(seed, card).items():
@@ -5739,6 +6273,7 @@ def main(argv=None) -> int:
                                       batches=args.batches, card=card)
     check_kernel_ops(args.seed)
     ops_total, ops_records = kernel_ops(args.seed, args.n)
+    om_total, om_records = offset_mask_calls(args.seed, card)
     bwd_records = flash_backward_timing(args.seed, card)
     train_total, fig1_model = train_cell(args.seed, card,
                                          profile_dir=args.profile)
@@ -5750,7 +6285,7 @@ def main(argv=None) -> int:
     lm_shard_total = lm_sharding(args.seed, card)
     ops_records["flash_attention"] = lm_records["flash_attention"]
     for k in total:
-        total[k] += (ivf_total[k] + enc_total[k] + ops_total[k]
+        total[k] += (ivf_total[k] + enc_total[k] + ops_total[k] + om_total[k]
                      + train_total[k] + front_total[k]
                      + shard_total.get(k, 0) + dp_total[k] + lm_total[k]
                      + lm_train_total[k] + lm_shard_total[k])
@@ -5776,8 +6311,12 @@ def main(argv=None) -> int:
             "flash_attention_mla", "flash_attention_mla_noncausal",
             "flash_attention_window",
             "flash_attention_encoder", "flash_attention_cross")]
+        + [om_records[f"flash_attention ({k})"] for k in ("q_offset",
+                                                           "mask")]
         + [records[k] for k in ("flash_attention_bwd_dq",
-                                "flash_attention_bwd_dkdv")]}))
+                                "flash_attention_bwd_dkdv")]
+        + [om_records[f"flash_attention_bwd ({k})"] for k in ("q_offset",
+                                                               "mask")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

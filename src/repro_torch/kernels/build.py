@@ -42,8 +42,9 @@ LAUNCHES: Dict[str, int] = {
 
 # ctypes signatures of each library's C entry points: every pointer and
 # the stream travel as c_void_p (a bare Python int would be cut to 32
-# bits), every size as c_int / c_long
+# bits), every size as c_int / c_long (a 64-bit stride as c_longlong)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_LL = ctypes.c_longlong
 _COMMON = {   # search_common.cuh, compiled into every library
     "icq_error_string": ([_I], ctypes.c_char_p),
 }
@@ -83,15 +84,17 @@ SIGNATURES = {
     },
     "flash_attention": {
         **_COMMON,
-        "icq_flash_attention": ([_P] * 5 + [_I] * 8 + [_F, _I, _I, _I, _P],
-                                _I),
-        "icq_flash_attention_attributes": ([_I] * 3 + [_P, _P], _I),
+        "icq_flash_attention": ([_P] * 5 + [_I] * 8 + [_F] + [_I] * 4
+                                + [_P] + [_LL] * 4 + [_P], _I),
+        "icq_flash_attention_attributes": ([_I] * 4 + [_P, _P], _I),
+        "icq_flash_general_instance": ([_I] * 5, _I),
     },
     "flash_attention_bwd": {
         **_COMMON,
-        "icq_flash_attention_bwd": ([_I] + [_P] * 10 + [_I] * 8
-                                    + [_F, _I, _I, _I, _P], _I),
-        "icq_flash_attention_bwd_attributes": ([_I] * 4 + [_P, _P], _I),
+        "icq_flash_attention_bwd": ([_I] + [_P] * 10 + [_I] * 8 + [_F]
+                                    + [_I] * 4 + [_P] + [_LL] * 4 + [_P],
+                                    _I),
+        "icq_flash_attention_bwd_attributes": ([_I] * 5 + [_P, _P], _I),
     },
 }
 

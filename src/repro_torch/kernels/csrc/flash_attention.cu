@@ -16,29 +16,35 @@
 // every query row, over key tiles in order, with running max m and sum l
 // in f32:
 //   s    = (q . k^T in f32) * scale            scale = dqk ** -0.5
-//   s    = NEG_INF = -1e30 where causal and q_pos < k_pos (top-left
-//          aligned, both counted from 0, also when sq != sk), and where
-//          window > 0 and q_pos - k_pos >= window (the sliding band of
-//          the hybrid's local layers; window 0 = none), and where
-//          kv_valid > 0 and k_pos >= kv_valid (the key-padding bound of
-//          the reference's padded cross attention; 0 = none, and only
-//          in a non-causal call with no window)
+//   s    = NEG_INF = -1e30 where causal and q_pos < k_pos, with q_pos =
+//          row + q_offset and k_pos = key (q_offset 0: top-left aligned,
+//          also when sq != sk; sk - sq: bottom-right, the triangular
+//          scan's prefix keys), and where window > 0 and q_pos - k_pos >=
+//          window (the sliding band of the hybrid's local layers; window
+//          0 = none), and where kv_valid > 0 and k_pos >= kv_valid (the
+//          key-padding bound of the reference's padded cross attention; 0
+//          = none, and only in a non-causal call with no window and no
+//          mask operand), and where the mask operand (optional, uint8,
+//          (b, H, sq, sk) by element strides, MaskArg) is 0
 //   m'   = max(m, max_j s);  corr = exp(m - m');  p = exp(s - m')
 //   l    = l * corr + sum_j p                  (p unrounded)
 //   o    = o * corr + (p cast to v's type) . v     (f32 sums)
 // and out = o / max(l, 1e-30) cast to v's type.  Key tiles wholly above
 // the diagonal are skipped, and so are those wholly left of the band: a
-// block's key loop starts at the tile holding q0 - window + 1, the first
-// key its first row keeps (a windowed call needs sq <= sk, so that every
-// row keeps at least its own position); under kv_valid the loop ends at
-// the tile holding key kv_valid - 1, so fully padded tiles are never
-// read (sk stays the row count of the loads and the batch stride: a
-// padded tensor is read in place).  Key rows past sk (the ragged last
-// tile) get s = -inf and contribute exactly 0.  The finite NEG_INF
-// keeps a row that sees only masked keys in a tile free of NaN, as in the
-// reference; under a window a row may see only masked keys in the first
-// tiles of its block, and its first unmasked tile's correction
-// exp(NEG_INF - m) = 0 clears what they added.
+// block's key loop starts at the tile holding q0 + q_offset - window + 1,
+// the first key its first row keeps; under kv_valid the loop ends at the
+// tile holding key kv_valid - 1, so fully padded tiles are never read (sk
+// stays the row count of the loads and the batch stride: a padded tensor
+// is read in place).  The mask operand skips no tile: a tile is skipped
+// only where the static masks skip it, and every element of every other
+// tile reads it.  Key rows past sk (the ragged last tile) get s = -inf
+// and contribute exactly 0.  The finite NEG_INF keeps a row that sees
+// only masked keys in a tile free of NaN, as in the reference; a row may
+// see only masked keys in its first tiles, and its first unmasked tile's
+// correction exp(NEG_INF - m) = 0 clears what they added.  A row that
+// sees no key at all (m still NEG_INF after the loop) takes the
+// reference's uniform softmax (flash_mma.cuh, kEmptyLse): the mean of V
+// over all sk keys, summed in f32 from device memory, lse NEG_INF.
 //
 // What bounds it on this card: operations.  Causal attention at s = 4096
 // does 2 (dqk + dv) H s (s + 1) / 2 operations: 0.55e12 for
@@ -54,7 +60,12 @@
 // of 64, 8 x 1500 frames) does 2 (dqk + dv) H b s^2 = 0.092e12 (0.093
 // ms) against 61 MB a layer.
 //
-// Two bodies, chosen by the type; no runtime fallback between them.
+// Two bodies, chosen by the type; no runtime fallback between them.  Each
+// is compiled twice: the kGeneral instance of a call with a query offset,
+// a mask operand (read per element of every tile the static masks keep)
+// or a row that may see no key (it holds the no-key rule), and the one
+// for every other call, compiled with q_offset 0 and neither, so that
+// the offset, the mask and the rule cost those calls nothing.
 //
 // bf16: tensor cores (flash_mma_kernel), the FlashAttention-2 structure.
 //   * One block of 4 warps per (head, 64-query tile, batch); each warp
@@ -175,6 +186,13 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
   }
 }
 
+// The key tiles of BK keys a causal block reads: those up to the one
+// holding key last_pos (its last row's position, clamped to n_kt), none
+// when last_pos < 0 (every row before key 0).
+__device__ __forceinline__ int key_tiles_to(int n_kt, int last_pos, int bk) {
+  return last_pos < 0 ? 0 : min(n_kt, last_pos / bk + 1);
+}
+
 __device__ __forceinline__ float group_max(float x) {
   for (int off = 8; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -186,12 +204,17 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <typename T, int DQK, int DV>
+// kGeneral: the instance of a call with a query offset, a mask operand or
+// rows with no key (general_instance); the other takes q_offset as 0 and
+// does none of it.
+template <typename T, int DQK, int DV, bool kGeneral>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out,
              float* __restrict__ lse, int sq, int sk, int H, int KVH,
-             float scale, bool causal, int window, int kv_end) {
+             float scale, bool causal, int window, int kv_end, int q_offset,
+             MaskArg mask) {
+  if constexpr (!kGeneral) q_offset = 0;
   using G = Geometry<DQK, DV>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // kBQ x kLd
@@ -213,8 +236,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // row's own position, from the one holding the first key of the first
   // row's band
   int n_kt = (kv_end + kBKey - 1) / kBKey;
-  if (causal) n_kt = min(n_kt, (min(q0 + kBQ, sq) - 1) / kBKey + 1);
-  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBKey : 0;
+  if (causal) n_kt = key_tiles_to(n_kt, min(q0 + kBQ, sq) - 1 + q_offset,
+                                  kBKey);
+  const int kt0 =
+      window > 0 ? max(0, q0 + q_offset - window + 1) / kBKey : 0;
 
   float o[4][DV / 16], m_run[4], l_run[4];
 #pragma unroll
@@ -261,7 +286,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // scale, mask, online softmax; P (cast to v's type) to shared memory
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+      const int row = q0 + 4 * ty + i, qpos = row + q_offset;
       float mt = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -270,7 +295,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kpos >= sk)
           x = -CUDART_INF_F;
         else if (kpos >= kv_end || (causal && qpos < kpos) ||
-                 (window > 0 && qpos - kpos >= window))
+                 (window > 0 && qpos - kpos >= window) ||
+                 (kGeneral && row < sq && !mask_keeps(mask, b, h, row, kpos)))
           x = kNegInf;
         s[i][j] = x;
         mt = fmaxf(mt, x);
@@ -340,6 +366,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= sq) continue;
+    if (kGeneral && m_run[i] == kNegInf) {   // no key: the mean of V over sk
+#pragma unroll
+      for (int c = 0; c < DV / 16; ++c) o[i][c] = 0.0f;
+      for (int j = 0; j < sk; ++j)
+#pragma unroll
+        for (int g = 0; g < G::kNG; ++g)
+#pragma unroll
+          for (int e = 0; e < G::kVW; ++e)
+            o[i][g * G::kVW + e] += float(
+                v_head[long(j) * v_stride + g * 16 * G::kVW + tx * G::kVW +
+                       e]);
+      l_run[i] = float(sk);
+    }
     const float den = fmaxf(l_run[i], 1e-30f);
 #pragma unroll
     for (int g = 0; g < G::kNG; ++g) {
@@ -358,11 +397,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, bool kGeneral>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int sq, int sk, int H, int KVH, float scale,
-           bool causal, int window, int kv_end, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, DQK, DV>;
+           bool causal, int window, int kv_end, int q_offset,
+           const MaskArg& mask, cudaStream_t stream) {
+  auto kernel = flash_kernel<T, DQK, DV, kGeneral>;
   const size_t smem = Geometry<DQK, DV>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -371,7 +411,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, H, KVH,
-      scale, causal, window, kv_end);
+      scale, causal, window, kv_end, q_offset, mask);
   return int(cudaGetLastError());
 }
 
@@ -396,6 +436,10 @@ struct MmaGeometry {
   static constexpr bool kQInV = DQK == 128 && DV == 128;
   static constexpr int kMinBlocks =
       kQInV ? 3 : (DQK == 64 ? 4 : (DQK == 192 ? 2 : 1));
+  // the general instance (an offset, a mask: the positions and the mask's
+  // address live beside the rows) spilled 88 bytes a thread at dh 128 under
+  // the cap of 168 registers; at two blocks an SM it takes up to 255
+  static constexpr int kMinBlocksGeneral = kQInV ? 2 : kMinBlocks;
   static constexpr int kTileK = kBK * kLdK;         // one K stage
   static constexpr int kTileV = kBK * kLdV;         // one V stage
   static constexpr size_t kSmem =
@@ -406,15 +450,17 @@ struct MmaGeometry {
                 "Q fits one V stage");
 };
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kMmaThreads,
-                                  MmaGeometry<DQK, DV>::kMinBlocks)
+template <int DQK, int DV, bool kGeneral>
+__global__ void __launch_bounds__(
+    kMmaThreads, kGeneral ? MmaGeometry<DQK, DV>::kMinBlocksGeneral
+                          : MmaGeometry<DQK, DV>::kMinBlocks)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int sq, int sk, int H, int KVH, float scale, bool causal,
-                 int window, int kv_end) {
+                 int window, int kv_end, int q_offset, MaskArg mask) {
+  if constexpr (!kGeneral) q_offset = 0;
   using G = MmaGeometry<DQK, DV>;
   constexpr int kBK = G::kBK, kLdK = G::kLdK, kLdV = G::kLdV;
   constexpr int kKS = DQK / 16;   // k-steps of S = Q . K^T
@@ -445,8 +491,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // row's own position, from the one holding the first key of the first
   // row's band
   int n_kt = (kv_end + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (min(q0 + kMmaBQ, sq) - 1) / kBK + 1);
-  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  if (causal)
+    n_kt = key_tiles_to(n_kt, min(q0 + kMmaBQ, sq) - 1 + q_offset, kBK);
+  const int kt0 = window > 0 ? max(0, q0 + q_offset - window + 1) / kBK : 0;
 
   // per-lane ldmatrix offsets (elements): Q as A (rows lane % 16, column
   // half lane / 16); K as B of two 8-key tiles (keys lane & 7 and + 8
@@ -527,24 +574,27 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // scale, mask and the online softmax on the accumulator fragments:
     // element e of column tile nt is row rows[e / 2], key
     // k0 + 8 nt + 2 t + e % 2.  The tile needs a mask where it runs past
-    // kv_end (<= sk), past the warp's first row's diagonal, or (under a
-    // window) left of the warp's last row's band
-    const bool mask = k0 + kBK > kv_end ||
-                      (causal && k0 + kBK - 1 > row_w) ||
-                      (window > 0 && row_w + 15 - k0 >= window);
+    // kv_end (<= sk), past the warp's first row's diagonal, (under a
+    // window) left of the warp's last row's band, and always under the
+    // mask operand
+    const bool tile_mask = (kGeneral && mask.p != nullptr) ||
+                           k0 + kBK > kv_end ||
+                           (causal && k0 + kBK - 1 > row_w + q_offset) ||
+                           (window > 0 && row_w + 15 + q_offset - k0 >= window);
     float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * sl2;
-        if (mask) {
+        if (tile_mask) {
           const int key = k0 + nt * 8 + 2 * t + (e & 1);
-          const int row = rows[e >> 1];
+          const int row = rows[e >> 1], qpos = row + q_offset;
           if (key >= sk)
             x = -CUDART_INF_F;
-          else if (key >= kv_end || (causal && row < key) ||
-                   (window > 0 && row - key >= window))
+          else if (key >= kv_end || (causal && qpos < key) ||
+                   (window > 0 && qpos - key >= window) ||
+                   (kGeneral && row < sq && !mask_keeps(mask, b, h, row, key)))
             x = kNegInf;
         }
         s[nt][e] = x;
@@ -600,6 +650,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(o[2 * nd + 1], pf[kk], bb[2], bb[3]);
       }
   }
+  // no copy outlives the block (a block of rows with no key has no tile)
+  if constexpr (kGeneral) cp_async_wait<0>();
 
   __nv_bfloat16* out_head =
       out + long(b) * sq * o_stride + long(h) * DV;
@@ -609,6 +661,22 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (rows[i] >= sq) continue;
+    const bool empty = kGeneral && m_run[i] == kNegInf;
+    if (empty) {   // no key seen: the mean of V over sk keys
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) o[dt][2 * i] = o[dt][2 * i + 1] = 0.0f;
+      for (int j = 0; j < sk; ++j) {
+        const __nv_bfloat16* vr = v_head + long(j) * v_stride + 2 * t;
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(vr + dt * 8));
+          o[dt][2 * i] += x.x;
+          o[dt][2 * i + 1] += x.y;
+        }
+      }
+      l = float(sk);
+    }
     const float den = fmaxf(l, 1e-30f);
     __nv_bfloat16* dst = out_head + long(rows[i]) * o_stride + 2 * t;
 #pragma unroll
@@ -616,19 +684,25 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
           __floats2bfloat162_rn(__fdiv_rn(o[dt][2 * i], den),
                                 __fdiv_rn(o[dt][2 * i + 1], den));
-    // the row's log-sum-exp, m_run in log2 units: m ln 2 + log(l)
-    if (lse != nullptr && t == 0)
-      lse[(long(b) * H + h) * sq + rows[i]] =
-          m_run[i] * 0.6931471805599453f + logf(l);
+    // the row's log-sum-exp, m_run in log2 units: m ln 2 + log(l);
+    // NEG_INF for a row that saw no key
+    if (lse != nullptr && t == 0) {
+      if constexpr (kGeneral)
+        lse[(long(b) * H + h) * sq + rows[i]] =
+            empty ? kNegInf : m_run[i] * 0.6931471805599453f + logf(l);
+      else
+        lse[(long(b) * H + h) * sq + rows[i]] =
+            m_run[i] * 0.6931471805599453f + logf(l);
+    }
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kGeneral>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int b, int sq, int sk, int H, int KVH,
-               float scale, bool causal, int window, int kv_end,
-               cudaStream_t stream) {
-  auto kernel = flash_mma_kernel<DQK, DV>;
+               float scale, bool causal, int window, int kv_end, int q_offset,
+               const MaskArg& mask, cudaStream_t stream) {
+  auto kernel = flash_mma_kernel<DQK, DV, kGeneral>;
   const size_t smem = MmaGeometry<DQK, DV>::kSmem;
   const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
   if (n_qt > 65535) return int(cudaErrorInvalidValue);
@@ -642,32 +716,48 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), lse, sq, sk, H, KVH, scale, causal,
-      window, kv_end);
+      window, kv_end, q_offset, mask);
   return int(cudaGetLastError());
 }
 
 // ------------------------------------------------------------ dispatch ----
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kGeneral>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* out, float* lse, int b, int sq, int sk, int H,
                  int KVH, float scale, bool causal, int window, int kv_end,
-                 cudaStream_t s) {
+                 int q_offset, const MaskArg& mask, cudaStream_t s) {
   if (dtype == 0)
-    return launch<float, DQK, DV>(q, k, v, out, lse, b, sq, sk, H, KVH,
-                                  scale, causal, window, kv_end, s);
+    return launch<float, DQK, DV, kGeneral>(q, k, v, out, lse, b, sq, sk, H,
+                                         KVH, scale, causal, window, kv_end,
+                                         q_offset, mask, s);
   if (dtype == 1)
-    return launch_mma<DQK, DV>(q, k, v, out, lse, b, sq, sk, H, KVH, scale,
-                               causal, window, kv_end, s);
+    return launch_mma<DQK, DV, kGeneral>(q, k, v, out, lse, b, sq, sk, H, KVH,
+                                      scale, causal, window, kv_end,
+                                      q_offset, mask, s);
   return int(cudaErrorInvalidValue);
 }
 
 template <int DQK, int DV>
+int launch_pair(int dtype, const void* q, const void* k, const void* v,
+                void* out, float* lse, int b, int sq, int sk, int H, int KVH,
+                float scale, bool causal, int window, int kv_end,
+                int q_offset, const MaskArg& mask, cudaStream_t s) {
+  if (general_instance(mask.p != nullptr, window, q_offset, sq, sk))
+    return launch_dtype<DQK, DV, true>(dtype, q, k, v, out, lse, b, sq, sk,
+                                       H, KVH, scale, causal, window, kv_end,
+                                       q_offset, mask, s);
+  return launch_dtype<DQK, DV, false>(dtype, q, k, v, out, lse, b, sq, sk, H,
+                                      KVH, scale, causal, window, kv_end,
+                                      q_offset, mask, s);
+}
+
+template <int DQK, int DV, bool kGeneral>
 cudaError_t attributes(int dtype, cudaFuncAttributes* attr) {
   if (dtype == 0)
-    return cudaFuncGetAttributes(attr, flash_kernel<float, DQK, DV>);
+    return cudaFuncGetAttributes(attr, flash_kernel<float, DQK, DV, kGeneral>);
   if (dtype == 1)
-    return cudaFuncGetAttributes(attr, flash_mma_kernel<DQK, DV>);
+    return cudaFuncGetAttributes(attr, flash_mma_kernel<DQK, DV, kGeneral>);
   return cudaErrorInvalidValue;
 }
 
@@ -682,30 +772,37 @@ extern "C" {
 // H, dv), all of one type: dtype 0 = f32 (FMA body), 1 = bf16
 // (tensor-core body); every pointer 16-byte aligned.  (dqk, dv) in
 // {(32, 32), (64, 64), (128, 128), (256, 256), (192, 128)}, H a multiple
-// of KVH, b and H at most 65535; window >= 0 (0 = no band), and sq <= sk
-// when window > 0; 0 <= kv_valid <= sk (0 = every key), and kv_valid > 0
-// only with causal 0 and window 0.  lse: null, or (b, H, sq) f32, which
-// receives each row's log-sum-exp m + log(l) for the backward (the output
-// is the same either way).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another shape or type.
+// of KVH, b and H at most 65535; window >= 0 (0 = no band); 0 <= kv_valid
+// <= sk (0 = every key), and kv_valid > 0 only with causal 0, window 0 and
+// no mask; |q_offset| <= 2^30 (query row i sits at position i +
+// q_offset).  mask: null, or uint8 (nonzero = kept) with element (b, h,
+// i, j) at mask + b mask_b + h mask_h + i mask_q + j mask_k.  lse: null,
+// or (b, H, sq) f32, which receives each row's log-sum-exp m + log(l) for
+// the backward (the output is the same either way).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another shape or type.
 int icq_flash_attention(const void* q, const void* k, const void* v,
                         void* out, void* lse, int dtype, int b, int sq,
                         int sk, int H, int KVH, int dqk, int dv, float scale,
-                        int causal, int window, int kv_valid, void* stream) {
+                        int causal, int window, int kv_valid, int q_offset,
+                        const void* mask, long long mask_b, long long mask_h,
+                        long long mask_q, long long mask_k, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KVH < 1 || H % KVH != 0 ||
-      b > 65535 || H > 65535 || window < 0 || (window > 0 && sq > sk) ||
-      kv_valid < 0 || kv_valid > sk ||
-      (kv_valid > 0 && (causal != 0 || window > 0)))
+      b > 65535 || H > 65535 || window < 0 || kv_valid < 0 || kv_valid > sk ||
+      (kv_valid > 0 && (causal != 0 || window > 0 || mask != nullptr)) ||
+      q_offset > (1 << 30) || q_offset < -(1 << 30))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
   const int kv_end = kv_valid > 0 ? kv_valid : sk;
+  const MaskArg m{static_cast<const uint8_t*>(mask), mask_b, mask_h, mask_q,
+                  mask_k};
   switch (pair(dqk, dv)) {
 #define ICQ_FLASH_CASE(DQK, DV)                                          \
   case pair(DQK, DV):                                                    \
-    return launch_dtype<DQK, DV>(dtype, q, k, v, out,                    \
-                                 static_cast<float*>(lse), b, sq, sk, H,  \
-                                 KVH, scale, c, window, kv_end, s);
+    return launch_pair<DQK, DV>(dtype, q, k, v, out,                     \
+                                static_cast<float*>(lse), b, sq, sk, H,   \
+                                KVH, scale, c, window, kv_end, q_offset,  \
+                                m, s);
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)
@@ -716,15 +813,27 @@ int icq_flash_attention(const void* q, const void* k, const void* v,
   }
 }
 
+// Whether a call with these arguments runs the kGeneral instance of the
+// forward and of both backward kernels (general_instance), nonzero if so.
+int icq_flash_general_instance(int has_mask, int window, int q_offset,
+                               int sq, int sk) {
+  return int(general_instance(has_mask != 0, window, q_offset, sq, sk));
+}
+
 // The registers per thread and local-memory bytes per thread (spills and
-// local arrays) of the body that runs for dtype and (dqk, dv).
-int icq_flash_attention_attributes(int dtype, int dqk, int dv, int* regs,
-                                   int* local_bytes) {
+// local arrays) of the body that runs for dtype and (dqk, dv), the kGeneral
+// instance (a call with an offset, a mask or rows with no key) when
+// general is nonzero.
+int icq_flash_attention_attributes(int dtype, int dqk, int dv, int general,
+                                   int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t e;
   switch (pair(dqk, dv)) {
-#define ICQ_FLASH_CASE(DQK, DV) \
-  case pair(DQK, DV): e = attributes<DQK, DV>(dtype, &attr); break;
+#define ICQ_FLASH_CASE(DQK, DV)                                  \
+  case pair(DQK, DV):                                            \
+    e = general ? attributes<DQK, DV, true>(dtype, &attr)        \
+                : attributes<DQK, DV, false>(dtype, &attr);      \
+    break;
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)

@@ -11,15 +11,23 @@
 // Operands and masks are the forward's: q (b, sq, H, dqk), k (b, sk,
 // KVH, dqk), v (b, sk, KVH, dv), the output o and its gradient dO (b, sq,
 // H, dv), one type (f32 or bf16); the (dqk, dv) pairs (32, 32), (64,
-// 64), (128, 128), (256, 256) and (192, 128); causal, window and
-// kv_valid as in the forward.  Per visible (query i, key j) pair,
-// recomputed tile by tile:
+// 64), (128, 128), (256, 256) and (192, 128); causal, window, kv_valid,
+// the query offset and the mask operand as in the forward.  Per visible
+// (query i, key j) pair, recomputed tile by tile:
 //   P_ij  = exp(s_ij * scale - LSE_i)        (exactly 0 where masked)
 //   D_i   = sum_c dO_ic O_ic                 (f32 FMAs)
 //   dP_ij = dO_i . v_j,  dS_ij = P_ij (dP_ij - D_i)
 //   dV_j += P_ij dO_i,  dQ_i += scale dS_ij k_j,  dK_j += scale dS_ij q_i
 // with f32 sums.  No atomics: every output element is summed by one
-// thread in a fixed order, so two launches are equal bit for bit.
+// thread in a fixed order, so two launches are equal bit for bit.  A row
+// that saw no key (its LSE below kEmptyLse, flash_mma.cuh) had the
+// reference's uniform softmax: it adds nothing to dQ or dK and dO_i / sk
+// (1 / sk cast to the operands' type, as the forward's P) to every key's
+// dV; in the kernels' kGeneral instance (general_instance: a call with a
+// query offset, a mask operand or a window past the last key, the calls
+// where such a row can occur) the dK/dV kernel sums those rows' dO over
+// its KV head's G query heads, one warp a run of 32 rows, and adds it to
+// every key.
 //
 // What bounds it: operations.  Five products a visible pair (S, dP, dV,
 // dQ, dK: 2 (3 dqk + 2 dv) operations, against the forward's 2 (dqk +
@@ -68,7 +76,10 @@
 //     HBM3, 700 W).
 //
 // Two bodies, chosen by the type (the Body traits below); no runtime
-// fallback between them.
+// fallback between them.  Each kernel is compiled twice, as the forward
+// is: the kGeneral instance of a call with a query offset, a mask operand
+// or rows with no key, and the one for every other call, compiled with
+// q_offset 0, no mask and no no-key rule.
 //   bf16: mma.sync m16n8k16, bf16 in, f32 accumulate; fragments read with
 //     ldmatrix (.trans for an operand whose k runs down its rows: dO, Q
 //     and K as the B of dV, dK and dQ).  Shared rows are padded by 16
@@ -196,6 +207,9 @@ struct Body<__nv_bfloat16> {
   static __device__ __forceinline__ float widen(E x) {
     return __bfloat162float(x);
   }
+  static __device__ __forceinline__ E narrow(float x) {
+    return __float2bfloat16_rn(x);
+  }
 };
 
 template <>
@@ -275,6 +289,7 @@ struct Body<float> {
     *reinterpret_cast<float2*>(dst) = make_float2(x, y);
   }
   static __device__ __forceinline__ float widen(E x) { return x; }
+  static __device__ __forceinline__ E narrow(float x) { return x; }
 };
 
 // acc[2 NP][4] += A . B over KS k-steps: load_a(a, kk) fills the A
@@ -343,23 +358,44 @@ __device__ __forceinline__ void split_rows(float* hi, float* lo) {
   }
 }
 
-// Whether query qpos sees key kpos under the forward's masks (and both
-// lie inside the operands: kv_end <= sk).
-__device__ __forceinline__ bool visible(int qpos, int kpos, int sq,
-                                        int kv_end, bool causal,
-                                        int window) {
-  return qpos < sq && kpos < kv_end && !(causal && qpos < kpos) &&
-         !(window > 0 && qpos - kpos >= window);
+// The forward's static masks and the mask operand of one call.  Query
+// row i sits at position i + q_offset; keys at their index.
+struct Masks {
+  int sq, kv_end, window, q_offset;
+  bool causal;
+  MaskArg op;
+};
+
+// The query offset an instance reads: the call's in the kGeneral one, 0
+// in the other (Masks is read, never written: writing a field of a
+// by-value struct parameter copies the struct out of the parameter space,
+// which cost the f32 dK/dV kernels 8-24 bytes of spills a thread).
+template <bool kGeneral>
+__device__ __forceinline__ int offset_of(const Masks& m) {
+  return kGeneral ? m.q_offset : 0;
 }
 
-// Whether a tile of queries [q0, q0 + nq) and keys [k0, k0 + nk) holds a
-// pair that visible() drops.
-__device__ __forceinline__ bool needs_mask(int q0, int nq, int k0, int nk,
-                                           int sq, int kv_end, bool causal,
-                                           int window) {
-  return q0 + nq > sq || k0 + nk > kv_end ||
-         (causal && k0 + nk - 1 > q0) ||
-         (window > 0 && q0 + nq - 1 - k0 >= window);
+// Whether query row `row` of head h, batch b sees key kpos under the
+// forward's masks (and both lie inside the operands: kv_end <= sk).
+template <bool kGeneral>
+__device__ __forceinline__ bool visible(const Masks& m, int b, int h,
+                                        int row, int kpos) {
+  const int qpos = row + offset_of<kGeneral>(m);
+  return row < m.sq && kpos < m.kv_end && !(m.causal && qpos < kpos) &&
+         !(m.window > 0 && qpos - kpos >= m.window) &&
+         (!kGeneral || mask_keeps(m.op, b, h, row, kpos));
+}
+
+// Whether a tile of query rows [q0, q0 + nq) and keys [k0, k0 + nk) holds
+// a pair that visible() drops: always under the mask operand.
+template <bool kGeneral>
+__device__ __forceinline__ bool needs_mask(const Masks& m, int q0, int nq,
+                                           int k0, int nk) {
+  const int qp0 = q0 + offset_of<kGeneral>(m);   // the first row's position
+  return (kGeneral && m.op.p != nullptr) || q0 + nq > m.sq ||
+         k0 + nk > m.kv_end ||
+         (m.causal && k0 + nk - 1 > qp0) ||
+         (m.window > 0 && qp0 + nq - 1 - k0 >= m.window);
 }
 
 // -------------------------------------------------------- dQ and D ----
@@ -391,15 +427,16 @@ struct DqGeometry {
 // thread.  Without the minimum it held the f32 kernels at 131 / 168
 // registers at the LM train cell, and the pair ran in 12.50 ms against
 // 10.73 (NVIDIA H100 80GB HBM3, 700 W).
-template <typename T, int DQK, int DV>
+// kGeneral: the instance of a call with a query offset, a mask operand or
+// rows with no key (general_instance); the other takes q_offset as 0.
+template <typename T, int DQK, int DV, bool kGeneral>
 __global__ void __launch_bounds__(DqGeometry<T, DQK, DV>::kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout,
                     const float* __restrict__ lse, T* __restrict__ dq,
-                    float* __restrict__ dbuf, int sq, int sk, int H,
-                    int KVH, float scale, bool causal, int window,
-                    int kv_end) {
+                    float* __restrict__ dbuf, int sk, int H, int KVH,
+                    float scale, Masks mk) {
   using G = DqGeometry<T, DQK, DV>;
   using Bd = typename G::Bd;
   using E = typename G::E;
@@ -415,6 +452,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   E* q_lo = reinterpret_cast<E*>(d_s + kBQ);       // kPreSplit: kBQ x kLdK
   E* o_lo = q_lo + kBQ * kLdK;                     // kBQ x kLdV
 
+  const int sq = mk.sq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int n_qt = (sq + kBQ - 1) / kBQ;
@@ -430,10 +468,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* k_head = k + long(b) * sk * k_stride + long(kvh) * DQK;
   const T* v_head = v + long(b) * sk * v_stride + long(kvh) * DV;
 
-  // the forward's key tiles of this query tile
-  int n_kt = (kv_end + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (min(q0 + kBQ, sq) - 1) / kBK + 1);
-  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  // the forward's key tiles of this query tile: up to the one holding
+  // its last row's position (none when that is before key 0), from the
+  // one holding the first key of its first row's band
+  const int q_offset = offset_of<kGeneral>(mk);
+  int n_kt = (mk.kv_end + kBK - 1) / kBK;
+  if (mk.causal) {
+    const int last = min(q0 + kBQ, sq) - 1 + q_offset;
+    n_kt = last < 0 ? 0 : min(n_kt, last / kBK + 1);
+  }
+  const int kt0 =
+      mk.window > 0 ? max(0, q0 + q_offset - mk.window + 1) / kBK : 0;
 
   auto load_kv = [&](int kt, int st) {
     load_rows<E, DQK, kLdK, kBK, G::kThreads>(
@@ -519,15 +564,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         [&](typename Bd::B& bb, int kk, int np) {
           Bd::load_b_rows(bb, ks + np * 16 * kLdK, kLdK, kk);
         });
-    const bool mask = needs_mask(row_w, 16, k0, kBK, sq, kv_end, causal,
-                                 window);
+    const bool mask = needs_mask<kGeneral>(mk, row_w, 16, k0, kBK);
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = ex2(__fmaf_rn(s[nt][e], sl2, -lse2[e >> 1]));
-        if (mask && !visible(rows[e >> 1], k0 + nt * 8 + 2 * t + (e & 1), sq,
-                             kv_end, causal, window))
+        if (mask && !visible<kGeneral>(mk, b, h, rows[e >> 1],
+                                    k0 + nt * 8 + 2 * t + (e & 1)))
           p = 0.0f;
         s[nt][e] = p;
       }
@@ -599,14 +643,14 @@ struct DkdvGeometry {
       sizeof(float) * 2 * 2 * kBQ + kSmemLo;
 };
 
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, bool kGeneral>
 __global__ void __launch_bounds__(DkdvGeometry<T, DQK, DV>::kThreads, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ dbuf, T* __restrict__ dk,
-                      T* __restrict__ dv, int sq, int sk, int H, int KVH,
-                      float scale, bool causal, int window, int kv_end) {
+                      T* __restrict__ dv, int sk, int H, int KVH,
+                      float scale, Masks mk) {
   using G = DkdvGeometry<T, DQK, DV>;
   using Bd = typename G::Bd;
   using E = typename G::E;
@@ -621,6 +665,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   E* k_lo = reinterpret_cast<E*>(stat + 2 * 2 * kBQ);   // kPreSplit
   E* v_lo = k_lo + kBK * kLdK;
 
+  const int sq = mk.sq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int slab = warp % G::kSlabs, part = warp / G::kSlabs;
@@ -632,15 +677,67 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long kvo = long(b) * sk;
 
   // the query tiles that see a key of [k0, k0 + kBK): under causal the
-  // rows from k0 on, under a window those up to k0 + kBK + window - 2;
-  // none when the tile lies past kv_valid
+  // rows at positions from k0 on, under a window those at positions up to
+  // k0 + kBK + window - 2; none when the tile lies past kv_valid
   const int n_qt = (sq + kBQ - 1) / kBQ;
-  const int qt0 = causal ? k0 / kBQ : 0;
+  const int q_offset = offset_of<kGeneral>(mk);
+  const int qt0 = mk.causal ? max(0, k0 - q_offset) / kBQ : 0;
   int qt1 = n_qt;
-  if (window > 0) qt1 = min(qt1, (k0 + kBK + window - 2) / kBQ + 1);
-  if (k0 >= kv_end) qt1 = qt0;
+  if (mk.window > 0) {
+    const int last = k0 + kBK + mk.window - 2 - q_offset;
+    qt1 = last < 0 ? 0 : min(qt1, last / kBQ + 1);
+  }
+  if (k0 >= mk.kv_end) qt1 = qt0;
   const int per_head = max(0, qt1 - qt0);
   const int n_it = group * per_head;   // (query head, query tile) in order
+
+  float adk[G::kCK / 8][4], adv[G::kCV / 8][4];
+  zero(adk);
+  zero(adv);
+  if constexpr (kGeneral) {
+    // the rows that saw no key, first (before the walk's registers are
+    // live): esum[w][c] = warp w's sum of their dO over the G query
+    // heads, each warp taking runs of 32 (head, row) slots in order,
+    // lanes testing one slot each, in the Q stages; dV starts at their
+    // sum times 1 / sk
+    constexpr int kC = (DV + 31) / 32;
+    float* esum = reinterpret_cast<float*>(q_sm);   // kWarps x DV
+    float part_e[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) part_e[c] = 0.0f;
+    const long stat0 = (long(b) * H + long(kvh) * group) * sq;
+    for (int base = warp * 32; base < group * sq; base += G::kWarps * 32) {
+      const int slot = base + lane;
+      unsigned run = __ballot_sync(
+          0xffffffffu, slot < group * sq && lse[stat0 + slot] < kEmptyLse);
+      while (run) {
+        const int at = base + __ffs(run) - 1;   // slot = head * sq + row
+        run &= run - 1;
+        const T* src = dout + (long(b) * sq + at % sq) * o_stride +
+                       long(kvh * group + at / sq) * DV;
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          if (lane + 32 * c < DV) part_e[c] += Bd::widen(src[lane + 32 * c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (lane + 32 * c < DV) esum[warp * DV + lane + 32 * c] = part_e[c];
+    __syncthreads();
+    // dV_j = (1 / sk in the operands' type) * sum, for this thread's keys
+    const float r = Bd::widen(Bd::narrow(1.0f / float(sk)));
+#pragma unroll
+    for (int nt = 0; nt < G::kCV / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = part * G::kCV + nt * 8 + 2 * t + e;
+        float sum = 0.0f;
+        for (int w = 0; w < G::kWarps; ++w) sum += esum[w * DV + col];
+        adv[nt][e] = r * sum;
+        adv[nt][2 + e] = r * sum;
+      }
+    __syncthreads();   // esum read before the Q stages are filled
+  }
 
   load_rows<E, DQK, kLdK, kBK, G::kThreads>(
       k_sm, k + kvo * k_stride + long(kvh) * DQK, k0, sk, k_stride);
@@ -682,9 +779,6 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int key_w = k0 + slab * 16;                 // the warp's first key
   const int keys[2] = {key_w + g, key_w + g + 8};
   const float sl2 = scale * kLog2e;
-  float adk[G::kCK / 8][4], adv[G::kCV / 8][4];
-  zero(adk);
-  zero(adv);
   for (int it = 0; it < n_it; ++it) {
     const int st = it & 1;
     if (it + 1 < n_it) prefetch(it + 1, st ^ 1);
@@ -692,6 +786,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<1>();   // iteration it (and K, V)
     __syncthreads();
     const int q0 = (qt0 + it % per_head) * kBQ;
+    const int h = kvh * group + it / per_head;
     const E* qs = q_sm + st * G::kTileQ;
     const E* os = o_sm + st * G::kTileO;
     const float* lse_s = stat + st * 2 * kBQ;
@@ -709,16 +804,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         [&](typename Bd::B& bb, int kk, int np) {
           Bd::load_b_rows(bb, qs + np * 16 * kLdK, kLdK, kk);
         });
-    const bool mask = needs_mask(q0, kBQ, key_w, 16, sq, kv_end, causal,
-                                 window);
+    const bool mask = needs_mask<kGeneral>(mk, q0, kBQ, key_w, 16);
 #pragma unroll
     for (int nt = 0; nt < kBQ / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = nt * 8 + 2 * t + (e & 1);     // query in the tile
         float p = ex2(__fmaf_rn(s[nt][e], sl2, -lse_s[c] * kLog2e));
-        if (mask && !visible(q0 + c, keys[e >> 1], sq, kv_end, causal,
-                             window))
+        if (mask && !visible<kGeneral>(mk, b, h, q0 + c, keys[e >> 1]))
           p = 0.0f;
         s[nt][e] = p;
       }
@@ -780,17 +873,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------- launches ----
 
 // kernel 0: dQ and D; kernel 1: dK and dV (after kernel 0: reads D)
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, bool kGeneral>
 int launch_bwd(int which, const void* q, const void* k, const void* v,
                const void* o, const void* dout, const void* lse, void* dq,
-               void* dk, void* dv, void* dbuf, int b, int sq, int sk, int H,
-               int KVH, float scale, bool causal, int window, int kv_end,
-               cudaStream_t stream) {
+               void* dk, void* dv, void* dbuf, int b, int sk, int H, int KVH,
+               float scale, const Masks& mk, cudaStream_t stream) {
+  const int sq = mk.sq;
   if (which == 0) {
     using G = DqGeometry<T, DQK, DV>;
     const int n_qt = (sq + G::kBQ - 1) / G::kBQ;
     if (H > 65535) return int(cudaErrorInvalidValue);
-    auto kernel = flash_bwd_dq_kernel<T, DQK, DV>;
+    auto kernel = flash_bwd_dq_kernel<T, DQK, DV, kGeneral>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::kSmem));
     if (e != cudaSuccess) return int(e);
@@ -799,14 +892,14 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(o),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<T*>(dq), static_cast<float*>(dbuf), sq, sk, H, KVH,
-        scale, causal, window, kv_end);
+        static_cast<T*>(dq), static_cast<float*>(dbuf), sk, H, KVH, scale,
+        mk);
     return int(cudaGetLastError());
   }
   using G = DkdvGeometry<T, DQK, DV>;
   const int n_kt = (sk + G::kBK - 1) / G::kBK;
   if (KVH > 65535) return int(cudaErrorInvalidValue);
-  auto kernel = flash_bwd_dkdv_kernel<T, DQK, DV>;
+  auto kernel = flash_bwd_dkdv_kernel<T, DQK, DV, kGeneral>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::kSmem));
   if (e != cudaSuccess) return int(e);
@@ -815,43 +908,64 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dbuf),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, H, KVH, scale,
-      causal, window, kv_end);
+      static_cast<T*>(dk), static_cast<T*>(dv), sk, H, KVH, scale, mk);
   return int(cudaGetLastError());
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool kGeneral>
 int launch_bwd_dtype(int dtype, int which, const void* q, const void* k,
                      const void* v, const void* o, const void* dout,
                      const void* lse, void* dq, void* dk, void* dv,
-                     void* dbuf, int b, int sq, int sk, int H, int KVH,
-                     float scale, bool causal, int window, int kv_end,
-                     cudaStream_t s) {
+                     void* dbuf, int b, int sk, int H, int KVH, float scale,
+                     const Masks& mk, cudaStream_t s) {
   if (dtype == 0)
-    return launch_bwd<float, DQK, DV>(which, q, k, v, o, dout, lse, dq, dk,
-                                      dv, dbuf, b, sq, sk, H, KVH, scale,
-                                      causal, window, kv_end, s);
+    return launch_bwd<float, DQK, DV, kGeneral>(which, q, k, v, o, dout, lse,
+                                                dq, dk, dv, dbuf, b, sk, H,
+                                                KVH, scale, mk, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16, DQK, DV>(
-        which, q, k, v, o, dout, lse, dq, dk, dv, dbuf, b, sq, sk, H, KVH,
-        scale, causal, window, kv_end, s);
+    return launch_bwd<__nv_bfloat16, DQK, DV, kGeneral>(
+        which, q, k, v, o, dout, lse, dq, dk, dv, dbuf, b, sk, H, KVH, scale,
+        mk, s);
   return int(cudaErrorInvalidValue);
 }
 
 template <int DQK, int DV>
-cudaError_t bwd_attributes(int dtype, int which, cudaFuncAttributes* attr) {
+int launch_bwd_pair(int dtype, int which, const void* q, const void* k,
+                    const void* v, const void* o, const void* dout,
+                    const void* lse, void* dq, void* dk, void* dv, void* dbuf,
+                    int b, int sk, int H, int KVH, float scale,
+                    const Masks& mk, cudaStream_t s) {
+  if (general_instance(mk.op.p != nullptr, mk.window, mk.q_offset, mk.sq,
+                       sk))
+    return launch_bwd_dtype<DQK, DV, true>(dtype, which, q, k, v, o, dout,
+                                           lse, dq, dk, dv, dbuf, b, sk, H,
+                                           KVH, scale, mk, s);
+  return launch_bwd_dtype<DQK, DV, false>(dtype, which, q, k, v, o, dout, lse,
+                                          dq, dk, dv, dbuf, b, sk, H, KVH,
+                                          scale, mk, s);
+}
+
+template <typename T, int DQK, int DV, bool kGeneral>
+cudaError_t bwd_kernel_attributes(int which, cudaFuncAttributes* attr) {
+  return which == 0
+             ? cudaFuncGetAttributes(attr,
+                                     flash_bwd_dq_kernel<T, DQK, DV, kGeneral>)
+             : cudaFuncGetAttributes(
+                   attr, flash_bwd_dkdv_kernel<T, DQK, DV, kGeneral>);
+}
+
+template <int DQK, int DV>
+cudaError_t bwd_attributes(int dtype, int which, int general,
+                           cudaFuncAttributes* attr) {
   if (dtype == 0)
-    return which == 0
-               ? cudaFuncGetAttributes(attr,
-                                       flash_bwd_dq_kernel<float, DQK, DV>)
-               : cudaFuncGetAttributes(attr,
-                                       flash_bwd_dkdv_kernel<float, DQK, DV>);
+    return general ? bwd_kernel_attributes<float, DQK, DV, true>(which, attr)
+                   : bwd_kernel_attributes<float, DQK, DV, false>(which, attr);
   if (dtype == 1)
-    return which == 0
-               ? cudaFuncGetAttributes(
-                     attr, flash_bwd_dq_kernel<__nv_bfloat16, DQK, DV>)
-               : cudaFuncGetAttributes(
-                     attr, flash_bwd_dkdv_kernel<__nv_bfloat16, DQK, DV>);
+    return general
+               ? bwd_kernel_attributes<__nv_bfloat16, DQK, DV, true>(which,
+                                                                      attr)
+               : bwd_kernel_attributes<__nv_bfloat16, DQK, DV, false>(which,
+                                                                       attr);
   return cudaErrorInvalidValue;
 }
 
@@ -868,29 +982,35 @@ extern "C" {
 // dqk), dv (b, sk, KVH, dv); reads dbuf, so it runs after which 0 on the
 // stream).  o and dout (b, sq, H, dv) of the type, lse (b, H, sq) f32 from
 // the forward; dtype 0 = f32 (3xTF32 body), 1 = bf16; every pointer
-// 16-byte aligned.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for another shape or type.
+// 16-byte aligned (but the mask's); q_offset and the mask operand (null,
+// or uint8 by four element strides) as in icq_flash_attention.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another shape or type.
 int icq_flash_attention_bwd(int which, const void* q, const void* k,
                             const void* v, const void* o, const void* dout,
                             const void* lse, void* dq, void* dk, void* dv,
                             void* dbuf, int dtype, int b, int sq, int sk,
                             int H, int KVH, int dqk, int dvw, float scale,
                             int causal, int window, int kv_valid,
-                            void* stream) {
+                            int q_offset, const void* mask, long long mask_b,
+                            long long mask_h, long long mask_q,
+                            long long mask_k, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || H < 1 || KVH < 1 || H % KVH != 0 ||
-      b > 65535 || window < 0 || (window > 0 && sq > sk) || kv_valid < 0 ||
-      kv_valid > sk || (kv_valid > 0 && (causal != 0 || window > 0)) ||
+      b > 65535 || window < 0 || kv_valid < 0 || kv_valid > sk ||
+      (kv_valid > 0 && (causal != 0 || window > 0 || mask != nullptr)) ||
+      q_offset > (1 << 30) || q_offset < -(1 << 30) ||
       (which != 0 && which != 1))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool c = causal != 0;
-  const int kv_end = kv_valid > 0 ? kv_valid : sk;
+  const Masks mk{sq, kv_valid > 0 ? kv_valid : sk, window, q_offset,
+                 causal != 0,
+                 MaskArg{static_cast<const uint8_t*>(mask), mask_b, mask_h,
+                         mask_q, mask_k}};
   switch (pair(dqk, dvw)) {
 #define ICQ_FLASH_CASE(DQK, DV)                                             \
   case pair(DQK, DV):                                                       \
-    return launch_bwd_dtype<DQK, DV>(dtype, which, q, k, v, o, dout, lse,   \
-                                     dq, dk, dv, dbuf, b, sq, sk, H, KVH,   \
-                                     scale, c, window, kv_end, s);
+    return launch_bwd_pair<DQK, DV>(dtype, which, q, k, v, o, dout, lse,    \
+                                    dq, dk, dv, dbuf, b, sk, H, KVH, scale, \
+                                    mk, s);
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)
@@ -902,14 +1022,18 @@ int icq_flash_attention_bwd(int which, const void* q, const void* k,
 }
 
 // Registers and local-memory bytes per thread of backward kernel `which`
-// (0 = dQ, 1 = dK/dV) for dtype and (dqk, dv).
+// (0 = dQ, 1 = dK/dV) for dtype and (dqk, dv), the kGeneral instance (a call
+// with an offset, a mask or rows with no key) when general is nonzero.
 int icq_flash_attention_bwd_attributes(int dtype, int which, int dqk, int dv,
-                                       int* regs, int* local_bytes) {
+                                       int general, int* regs,
+                                       int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t e;
   switch (pair(dqk, dv)) {
-#define ICQ_FLASH_CASE(DQK, DV) \
-  case pair(DQK, DV): e = bwd_attributes<DQK, DV>(dtype, which, &attr); break;
+#define ICQ_FLASH_CASE(DQK, DV)                                  \
+  case pair(DQK, DV):                                            \
+    e = bwd_attributes<DQK, DV>(dtype, which, general, &attr);   \
+    break;
     ICQ_FLASH_CASE(32, 32)
     ICQ_FLASH_CASE(64, 64)
     ICQ_FLASH_CASE(128, 128)

@@ -1,8 +1,9 @@
 // Device helpers shared by the flash attention forward
 // (flash_attention.cu) and its backward (flash_attention_bwd.cu): 2^x in
 // one MUFU instruction, cp.async copies of head rows into shared memory,
-// ldmatrix
-// fragment loads and the bf16 mma.sync step of the tensor-core bodies.
+// ldmatrix fragment loads and the bf16 mma.sync step of the tensor-core
+// bodies; the mask operand's reader and the rule for a row that sees no
+// key.
 //
 // Each source is compiled into its own shared library, so every helper
 // here has internal linkage (anonymous namespace) in the one
@@ -87,6 +88,40 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// The mask operand of a masked call: element (b, h, i, j) (batch, query
+// head, query row, key) at p + b sb + h sh + i sq + j sk (element strides;
+// a broadcast dimension has stride 0), nonzero where the pair is kept;
+// p null: no mask operand.  It is ANDed into the causal, window and
+// kv_valid masks.
+struct MaskArg {
+  const uint8_t* p;
+  long long sb, sh, sq, sk;
+};
+__device__ __forceinline__ bool mask_keeps(const MaskArg& m, int b, int h,
+                                           int i, int j) {
+  return m.p == nullptr || m.p[b * m.sb + h * m.sh + i * m.sq + j * m.sk] != 0;
+}
+
+// Whether a call runs the kernels' kGeneral instance: a call with a query
+// offset, or one that can leave a row with no key (a mask operand, a row
+// past the last key's band).  That instance reads the offset and the mask
+// operand and applies the no-key rule below; the other is the kernel of
+// every call with neither (q_offset 0, no mask, a key for every row: the
+// calls the served models make), compiled with q_offset 0 and no rule.
+inline bool general_instance(bool has_mask, int window, int q_offset,
+                             int sq, int sk) {
+  return q_offset != 0 || has_mask || (window > 0 && sq - sk >= window);
+}
+
+// A row that sees no key (possible only under a mask operand, a negative
+// query offset with causal, or a window past the last key) takes the
+// reference's softmax of all-NEG_INF scores: uniform over the sk keys.
+// The forward writes it the mean of V over all sk keys and the log-sum-exp
+// NEG_INF (NEG_INF + log(sk) in f32); the backward reads a log-sum-exp
+// below kEmptyLse as such a row: no gradient to q or k, dV_j += dO_i / sk
+// for every key j.
+constexpr float kEmptyLse = -5e29f;
 
 // (lo, hi) rounded to bf16 in one 32-bit register, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -179,12 +179,12 @@ class _FlashAttention(torch.autograd.Function):
     from it (``flash_attention.flash_attention_bwd_cuda``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, kv_valid):
-        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, kv_valid=kv_valid,
-                                           with_lse=True)
+    def forward(ctx, q, k, v, causal, window, kv_valid, q_offset, mask):
+        masks = dict(causal=causal, window=window, kv_valid=kv_valid,
+                     q_offset=q_offset, mask=mask)
+        out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = dict(causal=causal, window=window, kv_valid=kv_valid)
+        ctx.masks = masks
         return out
 
     @staticmethod
@@ -192,47 +192,72 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = fa.flash_attention_bwd_cuda(
             q, k, v, out, dout.contiguous(), lse, **ctx.masks)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_valid: int = 0, with_lse: bool = False):
+                    kv_valid: int = 0, q_offset: int = 0, mask=None,
+                    with_lse: bool = False):
     """Flash attention with GQA and MQA: q (b, sq, H, dqk), k (b, sk,
     KVH, dqk), v (b, sk, KVH, dv), f32 or bf16, H a multiple of KVH ->
     (b, sq, H, dv) in v's type, scaled by dqk ** -0.5 (on the card
-    (dqk, dv) one of ``flash_attention.HEAD_DIMS``); ``causal`` masks
-    top-left aligned (q_pos >= k_pos); ``window`` > 0 also masks
-    q_pos - k_pos >= window (needs sq <= sk); ``kv_valid`` > 0 masks
-    keys at k_pos >= kv_valid (a non-causal call with no window only).
-    ``with_lse``: (out, lse), lse each row's log-sum-exp (b, H, sq) f32
-    (what a merge of calls over key blocks reads).
+    (dqk, dv) one of ``flash_attention.HEAD_DIMS``).  Query row i sits
+    at q_pos = i + ``q_offset``, key j at k_pos = j; ``causal`` masks
+    q_pos < k_pos; ``window`` > 0 also masks q_pos - k_pos >= window;
+    ``kv_valid`` > 0 masks keys at k_pos >= kv_valid (a non-causal call
+    with no window and no mask only); ``mask`` (bool, broadcastable to
+    (b, H, sq, sk)) masks where it is False.  A row that keeps no key
+    gets the mean of v over all keys (the reference's softmax of all
+    ``NEG_INF`` scores).  ``with_lse``: (out, lse), lse each row's
+    log-sum-exp (b, H, sq) f32 (what a merge of calls over key blocks
+    reads).
 
     Differentiable on both devices.  On the card, when autograd records
     (``torch.is_grad_enabled()`` and q, k or v requires grad), the
     forward kernel also writes the rows' log-sum-exp and the backward
     runs the backward kernels; otherwise the forward kernel alone runs,
     exactly as for inference.  The backward takes no gradient of
-    ``lse``, so ``with_lse`` under autograd on the card raises.  On the
-    CPU autograd differentiates the plain version.  On the meta device
-    (the dry run's shapes) nothing is computed: the outputs are empty
-    meta tensors (``flash_attention.flash_attention_meta``)."""
+    ``lse`` (the reference's attention has no such output; MLA's
+    block-wise path differentiates its merge itself,
+    ``models.mla._MLABlockwise``), so ``with_lse`` under autograd on the
+    card raises.  On the CPU autograd differentiates the plain version.
+    On the meta device (the dry run's shapes) nothing is computed: the
+    outputs are empty meta tensors
+    (``flash_attention.flash_attention_meta``)."""
     _check_faults("flash_attention")
+    masks = dict(causal=causal, window=window, kv_valid=kv_valid,
+                 q_offset=q_offset, mask=mask)
     if q.device.type == "meta":
-        return fa.flash_attention_meta(q, k, v, causal=causal,
-                                       window=window, kv_valid=kv_valid,
-                                       with_lse=with_lse)
+        return fa.flash_attention_meta(q, k, v, with_lse=with_lse, **masks)
     if not _on_card(q):
-        return fa.flash_attention_torch(q, k, v, causal=causal,
-                                        window=window, kv_valid=kv_valid,
-                                        with_lse=with_lse)
+        return fa.flash_attention_torch(q, k, v, with_lse=with_lse, **masks)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if with_lse:
             raise NotImplementedError(
                 "flash_attention(with_lse=True) under autograd on the "
                 "card: the backward kernels take no gradient of the "
-                "log-sum-exp; that waits for ROADMAP item 32 (the "
-                "per-block MLA path under autograd)")
-        return _FlashAttention.apply(q, k, v, causal, window, kv_valid)
-    return fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   kv_valid=kv_valid, with_lse=with_lse)
+                "log-sum-exp, which the reference's attention does not "
+                "return; a caller that merges calls by their log-sum-exp "
+                "differentiates the merge itself (models.mla."
+                "_MLABlockwise)")
+        return _FlashAttention.apply(q, k, v, causal, window, kv_valid,
+                                     q_offset, mask)
+    return fa.flash_attention_cuda(q, k, v, with_lse=with_lse, **masks)
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, **masks):
+    """The flash backward where the operands lie, for a caller that
+    differentiates a merge of flash calls itself (``models.mla.
+    _MLABlockwise``): (dq, dk, dv) from the forward's output ``o``, the
+    output gradient ``do`` and the rows' log-sum-exp ``lse`` (the
+    merged ones, for a call over one key block of a merge).  The two
+    backward kernels on the card, the plain version on the CPU, the meta
+    op on the meta device (the dry run); ``masks`` as
+    ``flash_attention``'s."""
+    _check_faults("flash_attention_bwd")
+    if q.device.type == "meta":
+        return fa.flash_attention_meta_bwd(q, k, v, o, do, lse, **masks)
+    fn = (fa.flash_attention_bwd_cuda if _on_card(q)
+          else fa.flash_attention_bwd_torch)
+    return fn(q, k, v, o, do, lse, **masks)

@@ -89,10 +89,13 @@ def _mm_flops(func, args) -> float:
     return 2.0 * bsz * m * b.shape[2] * k
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
-    """(query, key) pairs the flash kernel's masks leave visible, top-left
-    aligned (rows of ``kv_valid`` are counted whole)."""
-    i = np.arange(sq, dtype=np.int64)
+def visible_pairs(sq: int, sk: int, causal: bool, window: int = 0,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the flash kernel's static masks leave visible,
+    query row i at position i + ``q_offset`` (rows of ``kv_valid`` are
+    counted whole; a mask operand is not read: its call is counted as
+    the static masks leave it)."""
+    i = np.arange(sq, dtype=np.int64) + q_offset
     last = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
     first = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
     return int(np.maximum(0, last - first + 1).sum())
@@ -101,8 +104,9 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
 def flash_work(part: str, shapes) -> tuple:
     """(flops, bytes) of one flash call: ``part`` "forward" or
     "backward", ``shapes`` ``flash_attention_meta``'s."""
-    b, sq, sk, H, KVH, dqk, dv, causal, window, kv_valid, item = shapes
-    pairs = visible_pairs(sq, kv_valid or sk, causal, window)
+    b, sq, sk, H, KVH, dqk, dv, causal, window, kv_valid, q_offset, item = \
+        shapes
+    pairs = visible_pairs(sq, kv_valid or sk, causal, window, q_offset)
     q_rows, kv_rows = b * sq * H, b * sk * KVH
     if part == "forward":
         return (2.0 * b * H * (dqk + dv) * pairs,
@@ -163,9 +167,10 @@ class CostCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func in _FLASH:
-            q, k, v, causal, window, kv_valid = args[-6:]
-            shapes = fa._shapes(q, k, v, causal, window, kv_valid) + (
-                causal, window, kv_valid, q.element_size())
+            q, k, v, causal, window, kv_valid, q_offset, mask = args[-8:]
+            shapes = fa._shapes(q, k, v, causal, window, kv_valid, q_offset,
+                                mask) + (causal, window, kv_valid, q_offset,
+                                         q.element_size())
             self.cost.add("flash_attention",
                           *flash_work(_FLASH[func], shapes))
             self.cost.flash_calls += 1

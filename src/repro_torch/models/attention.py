@@ -6,21 +6,23 @@ against a KV cache.
 On the CPU each function is the plain twin of the reference's.  On a
 CUDA tensor ``full_attention``, ``chunked_attention`` and
 ``triangular_chunked_attention`` compute exactly what the flash kernel
-computes when query and key positions both count from 0 (causal or
-not, with or without a sliding window, with or without the key-padding
-bound ``kv_valid``), so there they launch ``kernels.ops.flash_attention``
+computes (causal or not, with or without a sliding window, the
+key-padding bound ``kv_valid``, a query offset ``q_offset``: query row
+i at position i + q_offset, the triangular scan's sk > sq as q_offset
+= sk - sq; ``full_attention``'s ``mask=`` as the kernel's mask operand,
+broadcast as the reference broadcasts it against the (b, KVH, G, sq,
+sk) scores; a row that keeps no key takes the reference's uniform
+softmax in both), so there they launch ``kernels.ops.flash_attention``
 and nothing else; so does ``cross_attention_apply``, on the unpadded
 operands (each query row is computed on its own, and the kernel's
 ragged-tail mask masks what the reference's padding and ``kv_valid``
-mask, so rows [0, s) are the padded call's).  A meta tensor takes the card's branch (the dry
-run).  v may be narrower than q
-and k (MLA's prefill: q/k 192, v 128; the output takes v's width); a
-(q/k, v) width pair the kernel does not compile (it compiles 32, 64,
-128 and 256 with v as wide, and (192, 128)) raises its ``ValueError``,
-and a call no served model makes (a query offset, ``full_attention``'s
-``mask=``) raises ``NotImplementedError``.  ``decode_attention`` and
-``cross_attention_decode`` are not kernels in the reference either and
-stay plain PyTorch on both devices.
+mask, so rows [0, s) are the padded call's).  A meta tensor takes the
+card's branch (the dry run).  v may be narrower than q and k (MLA's
+prefill: q/k 192, v 128; the output takes v's width); a (q/k, v) width
+pair the kernel does not compile (it compiles 32, 64, 128 and 256 with
+v as wide, and (192, 128)) raises its ``ValueError``.
+``decode_attention`` and ``cross_attention_decode`` are not kernels in
+the reference either and stay plain PyTorch on both devices.
 
 Training takes the same branches: under autograd (``train_forward``) the
 card's flash launch is differentiable, its forward writing the rows'
@@ -36,8 +38,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import nn
 
 NEG_INF = -1e30
-# what the card does not serve, by the ROADMAP item that would bring it
-_ITEM = "item 28 (attention calls no served model makes on the card)"
 
 
 def attn_init(generator: torch.Generator, cfg, dtype=torch.float32):
@@ -91,20 +91,20 @@ def on_card(t) -> bool:
 
 
 def _flash(q, k, v, *, causal, window=0, kv_valid=0, q_offset=0,
-           masked=False):
-    """The card's attention: the flash kernel for queries and keys both
-    counted from position 0 (causal or not, with the band mask under
-    ``window`` and the key-padding bound ``kv_valid``), a
-    ``NotImplementedError`` naming its ROADMAP item for a query offset
-    or an arbitrary mask."""
-    if q_offset or masked:
-        raise NotImplementedError(
-            f"attention on the card serves queries and keys counted from "
-            f"position 0 with no mask but the causal, window and kv_valid "
-            f"ones (the flash kernel); a query offset or a mask= call "
-            f"waits for ROADMAP {_ITEM}")
+           mask=None):
+    """The card's attention: the flash kernel, causal or not, with the
+    band mask under ``window``, the key-padding bound ``kv_valid``, query
+    positions shifted by ``q_offset`` and ``mask`` (the reference's,
+    broadcast against (b, KVH, G, sq, sk) and read as (b, H, sq, sk):
+    head h = kvh G + g) as its mask operand."""
+    if mask is not None:
+        b, sq, h, _ = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        mask = torch.broadcast_to(mask, (b, kvh, h // kvh, sq, sk)) \
+            .reshape(b, h, sq, sk)
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               kv_valid=kv_valid)
+                               kv_valid=kv_valid, q_offset=q_offset,
+                               mask=mask)
 
 
 def chunked_attention(q, k, v, *, causal: bool, chunk: int,
@@ -210,7 +210,7 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     flash kernel (module docstring)."""
     if on_card(q):
         return _flash(q, k, v, causal=causal, window=window,
-                      q_offset=q_offset, masked=mask is not None)
+                      q_offset=q_offset, mask=mask)
     sq, dh = q.shape[1], q.shape[3]
     sk = k.shape[1]
     s = _gqa_scores(q, k, dh ** -0.5)
@@ -222,7 +222,7 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     if window:
         m &= (q_pos[:, None] - k_pos[None, :]) < window
     if mask is not None:
-        m &= mask
+        m = m & mask
     s = torch.where(m, s, NEG_INF)
     return _gqa_out(torch.softmax(s, dim=-1), v)
 

@@ -16,17 +16,25 @@ Which attention runs where:
 * prefill with s > ``attn_chunk``: the reference decompresses one KV
   block at a time inside an online softmax (``mla_chunked_attention``),
   so only (b, chunk, h, d) of K ever exists.  On the CPU the port twins
-  it block for block.  On the card (``mla_blockwise_attention``) it
-  keeps the reference's block structure: for each query block, each key
-  block at or before it is decompressed from the latent and the flash
-  kernel runs once over it with its rows' log-sum-exp (the diagonal
-  block causal, the earlier ones not, the later ones skipped), and the
-  partials merge in f32 by their log-sum-exps; nothing of (b, s, h, ·)
-  exists in K or V, only one block's.  s = 32 blocks take 528 launches
-  a layer.  Under autograd on the card K and V are materialized for the
-  whole sequence and the flash kernel launches once, because its
-  backward takes no gradient of the log-sum-exp the merge reads (ROADMAP
-  item 32).  A meta tensor (the dry run) takes the card's branches.
+  it block for block.  On the card (``mla_blockwise_attention``, the
+  autograd Function ``_MLABlockwise``) it keeps the reference's block
+  structure: for each query block, each key block at or before it is
+  decompressed from the latent and the flash kernel runs once over it
+  with its rows' log-sum-exp (the diagonal block causal, the earlier
+  ones not, the later ones skipped), and the partials merge in f32 by
+  their log-sum-exps; nothing of (b, s, h, ·) exists in K or V, only one
+  block's.  s = 32 blocks take 528 launches a layer.  Under autograd
+  the forward keeps only the merged output O and log-sum-exp L; the
+  backward re-decompresses each pair's key block (the reference's
+  ``jax.checkpoint``) and runs the flash backward kernels once a pair
+  with O, dO and L of the query block: P = exp(S - L) and D =
+  rowsum(dO O) are then those of the whole softmax, so the pairs'
+  gradients sum to the whole attention's, and no gradient of the
+  log-sum-exp is needed.  dK and dV of the pair go back through the
+  decompression at once (d latent, dW_uk, dW_uv, d k_rope), into f32
+  buffers the size of the latent and the weights.  A meta tensor (the
+  dry run) takes the card's branches, its backward the flash backward's
+  meta op.
 * decode: plain PyTorch on both devices, as the reference's is not a
   kernel.
 """
@@ -106,16 +114,12 @@ def mla_attention_apply(p, x, cfg, positions):
     """Full-sequence causal MLA (prefill and training).  Short
     sequences take the dense path; long ones the lazy decompression:
     ``mla_chunked_attention`` on the CPU, ``mla_blockwise_attention``
-    on the card, and the dense path under autograd on the card (module
-    docstring)."""
+    on the card, under autograd too (module docstring)."""
     b, s, _ = x.shape
     h, v_dim = cfg.num_heads, cfg.v_head_dim
     q_nope, q_rope = _queries(p, x, cfg, positions)
     latent, k_rope = _latent(p, x, cfg, positions)
-    dense = s <= cfg.attn_chunk or (
-        on_card(x) and torch.is_grad_enabled()
-        and (q_nope.requires_grad or latent.requires_grad))
-    if dense:
+    if s <= cfg.attn_chunk:
         q, k, v = _materialize(p, q_nope, q_rope, latent, k_rope, cfg)
         out = full_attention(q, k, v, causal=True)
     elif on_card(x):
@@ -135,44 +139,133 @@ def _block(s: int, chunk: int) -> int:
 
 def mla_blockwise_attention(p, q_nope, q_rope, latent, k_rope_seq, cfg):
     """Causal MLA over (query block, key block <= it) pairs with the key
-    block decompressed from the latent per pair: one flash call with its
-    rows' log-sum-exp a pair (the diagonal causal: both blocks start at
-    qi * c, so the kernel's top-left mask is the causal one), merged
-    into an f32 accumulator of the query block as ``lse = logaddexp(
-    lse_run, lse_b)``, ``acc = exp(lse_run - lse) acc + exp(lse_b - lse)
-    o_b``.  Runs on either device (on the CPU through the flash kernel's
-    plain version); returns (b, s, h, dv) in the latent's type."""
-    b, s, h, dn = q_nope.shape
-    dr = q_rope.shape[-1]
-    dv = cfg.v_head_dim
-    c = _block(s, cfg.attn_chunk)
-    out = torch.empty((b, s, h, dv), dtype=latent.dtype,
-                      device=latent.device)
-    for qi in range(s // c):
-        rows = slice(qi * c, (qi + 1) * c)
-        q_blk = torch.cat([q_nope[:, rows], q_rope[:, rows]], dim=-1)
-        acc = lse_run = None
-        for ki in range(qi + 1):
-            keys = slice(ki * c, (ki + 1) * c)
-            lat_blk = latent[:, keys]                      # (b,c,lora)
-            k_nope = (lat_blk @ p["w_uk"]).reshape(b, c, h, dn)
-            v_blk = (lat_blk @ p["w_uv"]).reshape(b, c, h, dv)
-            kr_blk = k_rope_seq[:, keys, None, :].expand(b, c, h, dr)
-            k_blk = torch.cat([k_nope, kr_blk], dim=-1)
-            del k_nope
-            o_b, lse_b = ops.flash_attention(q_blk, k_blk, v_blk,
-                                             causal=ki == qi, with_lse=True)
-            del k_blk, v_blk
-            lse_b = lse_b.transpose(1, 2)[..., None]       # (b,c,h,1)
-            if acc is None:
-                acc, lse_run = o_b.float(), lse_b
-                continue
-            lse = torch.logaddexp(lse_run, lse_b)
-            acc.mul_(torch.exp(lse_run - lse)).add_(
-                torch.exp(lse_b - lse) * o_b)
-            lse_run = lse
-        out[:, rows] = acc.to(out.dtype)
-    return out
+    block decompressed from the latent per pair (``_MLABlockwise``:
+    differentiable, the backward once a pair too).  Runs on either
+    device (on the CPU through the flash kernel's plain versions);
+    returns (b, s, h, dv) in the latent's type."""
+    return _MLABlockwise.apply(q_nope, q_rope, latent, k_rope_seq,
+                               p["w_uk"], p["w_uv"],
+                               _block(q_nope.shape[1], cfg.attn_chunk))
+
+
+def _key_block(lat_blk, kr_blk, w_uk, w_uv, h, dn):
+    """One key block's K (b, c, h, dn + dr) and V (b, c, h, dv),
+    decompressed from its latent rows (b, c, lora) and rope keys (b, c,
+    dr), each contiguous."""
+    b, c, _ = lat_blk.shape
+    dr = kr_blk.shape[-1]
+    k_nope = (lat_blk @ w_uk).reshape(b, c, h, dn)
+    v_blk = (lat_blk @ w_uv).reshape(b, c, h, w_uv.shape[1] // h)
+    k_blk = torch.cat([k_nope, kr_blk[:, :, None, :].expand(b, c, h, dr)],
+                      dim=-1)
+    return k_blk, v_blk
+
+
+class _MLABlockwise(torch.autograd.Function):
+    """Block-wise causal MLA (module docstring): inputs q_nope, q_rope
+    (b, s, h, ·), latent (b, s, lora), k_rope_seq (b, s, dr), w_uk (lora,
+    h dn), w_uv (lora, h dv) and the block c (dividing s).
+
+    Forward: for each query block, the flash call with its rows'
+    log-sum-exp on each key block <= it (the diagonal causal: both
+    blocks start at qi c, so the kernel's top-left mask is the causal
+    one), merged into an f32 accumulator as ``lse = logaddexp(lse_run,
+    lse_b)``, ``acc = exp(lse_run - lse) acc + exp(lse_b - lse) o_b``;
+    saves the inputs, the merged O (b, s, h, dv) in the latent's type
+    and L (b, h, s) f32.
+
+    Backward, over the same pairs: the key block decompressed again, the
+    flash backward with the query block's O, dO and L (exact per pair:
+    P and D are the whole softmax's), dq summed over ascending key
+    blocks in f32, dK and dV carried back through the decompression
+    into f32 buffers at once: d latent += dK_nope W_uk^T + dV W_uv^T,
+    dW_uk += latent^T dK_nope, dW_uv += latent^T dV, d k_rope += dK_rope
+    summed over heads."""
+
+    @staticmethod
+    def forward(ctx, q_nope, q_rope, latent, k_rope_seq, w_uk, w_uv, c):
+        b, s, h, dn = q_nope.shape
+        dv = w_uv.shape[1] // h
+        out = torch.empty((b, s, h, dv), dtype=latent.dtype,
+                          device=latent.device)
+        lse_out = torch.empty((b, h, s), dtype=torch.float32,
+                              device=latent.device)
+        for qi in range(s // c):
+            rows = slice(qi * c, (qi + 1) * c)
+            q_blk = torch.cat([q_nope[:, rows], q_rope[:, rows]], dim=-1)
+            acc = lse_run = None
+            for ki in range(qi + 1):
+                keys = slice(ki * c, (ki + 1) * c)
+                k_blk, v_blk = _key_block(latent[:, keys],
+                                          k_rope_seq[:, keys], w_uk, w_uv,
+                                          h, dn)
+                o_b, lse_b = ops.flash_attention(q_blk, k_blk, v_blk,
+                                                 causal=ki == qi,
+                                                 with_lse=True)
+                del k_blk, v_blk
+                lse_b = lse_b.transpose(1, 2)[..., None]   # (b,c,h,1)
+                if acc is None:
+                    acc, lse_run = o_b.float(), lse_b
+                    continue
+                lse = torch.logaddexp(lse_run, lse_b)
+                acc.mul_(torch.exp(lse_run - lse)).add_(
+                    torch.exp(lse_b - lse) * o_b)
+                lse_run = lse
+            out[:, rows] = acc.to(out.dtype)
+            lse_out[:, :, rows] = lse_run[..., 0].transpose(1, 2)
+        ctx.save_for_backward(q_nope, q_rope, latent, k_rope_seq, w_uk, w_uv,
+                              out, lse_out)
+        ctx.c = c
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_nope, q_rope, latent, k_rope_seq, w_uk, w_uv, out, lse = \
+            ctx.saved_tensors
+        c = ctx.c
+        b, s, h, dn = q_nope.shape
+        dv = out.shape[-1]
+        lora = latent.shape[-1]
+        f32 = dict(dtype=torch.float32, device=latent.device)
+        d_lat = torch.zeros(latent.shape, **f32)
+        d_kr = torch.zeros(k_rope_seq.shape, **f32)
+        d_wuk = torch.zeros(w_uk.shape, **f32)
+        d_wuv = torch.zeros(w_uv.shape, **f32)
+        d_qn = torch.empty(q_nope.shape, dtype=q_nope.dtype,
+                           device=q_nope.device)
+        d_qr = torch.empty(q_rope.shape, dtype=q_rope.dtype,
+                           device=q_rope.device)
+        for qi in range(s // c):
+            rows = slice(qi * c, (qi + 1) * c)
+            q_blk = torch.cat([q_nope[:, rows], q_rope[:, rows]], dim=-1)
+            o_blk = out[:, rows].contiguous()
+            do_blk = dout[:, rows].contiguous()
+            l_blk = lse[:, :, rows].contiguous()
+            dq_acc = torch.zeros(q_blk.shape, **f32)
+            for ki in range(qi + 1):
+                keys = slice(ki * c, (ki + 1) * c)
+                lat_blk = latent[:, keys]
+                k_blk, v_blk = _key_block(lat_blk, k_rope_seq[:, keys], w_uk,
+                                          w_uv, h, dn)
+                dq, dk, dvb = ops.flash_attention_bwd(
+                    q_blk, k_blk, v_blk, o_blk, do_blk, l_blk,
+                    causal=ki == qi)
+                del k_blk, v_blk
+                dq_acc += dq
+                dk_nope = dk[..., :dn].reshape(b * c, h * dn)
+                dvb = dvb.reshape(b * c, h * dv)
+                lat2 = lat_blk.reshape(b * c, lora)
+                d_lat[:, keys] += (dk_nope @ w_uk.T).reshape(b, c, lora)
+                d_lat[:, keys] += (dvb @ w_uv.T).reshape(b, c, lora)
+                d_wuk += lat2.T @ dk_nope
+                d_wuv += lat2.T @ dvb
+                d_kr[:, keys] += dk[..., dn:].float().sum(dim=2)
+                del dq, dk, dvb, dk_nope
+            d_qn[:, rows] = dq_acc[..., :dn]
+            d_qr[:, rows] = dq_acc[..., dn:]
+        return (d_qn, d_qr, d_lat.to(latent.dtype),
+                d_kr.to(k_rope_seq.dtype), d_wuk.to(w_uk.dtype),
+                d_wuv.to(w_uv.dtype), None)
 
 
 def mla_chunked_attention(p, q_nope, q_rope, latent, k_rope_seq, cfg):

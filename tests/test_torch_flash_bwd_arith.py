@@ -22,8 +22,11 @@ scale) against the plain backward ``flash_attention_bwd_torch`` and
 against ``jax.vjp`` of the reference's ``chunked_attention`` (the
 tolerances of ``tests/test_torch_flash_grad.py``), on small versions of
 phase 7's modes (against the reference, three modes that combine
-them).  One-pass TF32, which the f32 body does not use, misses the f32
-gate.
+them), and with a query offset and a mask operand (rows that see no
+key: no gradient to q or k, dO / sk to every key's dV, 1 / sk rounded to
+the body's type) against the plain backward and ``jax.vjp`` of the
+reference's ``full_attention(q_offset=, mask=)``.  One-pass TF32, which
+the f32 body does not use, misses the f32 gate.
 """
 import jax
 import jax.numpy as jnp
@@ -93,19 +96,21 @@ def mm_f32(a, b):
 
 
 def emulate_bwd(q, k, v, o, do, lse, body, *, causal=True, window=0,
-                kv_valid=0, mm=None):
+                kv_valid=0, q_offset=0, mask=None, mm=None):
     """(dq, dk, dv) as body ``"bf16"`` or ``"f32"`` computes them, from
     the forward's output and log-sum-exp; ``mm`` replaces the f32 body's
     products (a one-pass TF32 control)."""
     b, sq, sk, H, KVH, dqk, dv = fa._shapes(q, k, v, causal, window,
-                                            kv_valid)
+                                            kv_valid, q_offset, mask)
     g = H // KVH
     scale = dqk ** -0.5
     bf16 = body == "bf16"
     mm = mm or (mm_f32 if bf16 else mm_3xtf32)
     rnd = (lambda x: x.to(torch.bfloat16).float()) if bf16 else (
         lambda x: x)
-    visible = fa._visible(sq, sk, causal, window, kv_valid, "cpu")
+    visible = fa._visible(sq, sk, causal, window, kv_valid, "cpu", q_offset)
+    if mask is not None:
+        mask = fa._mask_view(mask, b, H, sq, sk, "cpu")
     dq = torch.empty((b, sq, H, dqk))
     dk = torch.zeros((b, sk, KVH, dqk))
     dvv = torch.zeros((b, sk, KVH, dv))
@@ -114,10 +119,13 @@ def emulate_bwd(q, k, v, o, do, lse, body, *, causal=True, window=0,
             qf, kf = q[bi, :, h].float(), k[bi, :, h // g].float()
             vf, dof = v[bi, :, h // g].float(), do[bi, :, h].float()
             s = mm(qf, kf.T)
-            p = torch.where(visible, torch.exp(s * scale - lse[bi, h][:, None]),
+            keep = visible if mask is None else visible & mask[bi, h]
+            p = torch.where(keep, torch.exp(s * scale - lse[bi, h][:, None]),
                             torch.zeros_like(s))
             d = (dof * o[bi, :, h].float()).sum(dim=1, keepdim=True)
-            dvv[bi, :, h // g] += mm(rnd(p).T.contiguous(), dof)
+            empty = (lse[bi, h] < fa.NEG_INF / 2)[:, None]
+            pv = torch.where(empty, torch.full_like(p, 1.0 / sk), p)
+            dvv[bi, :, h // g] += mm(rnd(pv).T.contiguous(), dof)
             ds = rnd(p * (mm(dof, vf.T) - d))
             dq[bi, :, h] = mm(ds, kf) * scale
             dk[bi, :, h // g] += mm(ds.T.contiguous(), qf) * scale
@@ -217,3 +225,76 @@ def test_tf32_rounding_is_cvt_rna():
     assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
     assert float(((hi.double() + lo.double()) - y.double()).abs().max()
                  / y.abs().max()) < 2.0 ** -21
+
+
+# the query offset and the mask operand: (b, sq, sk, H, KVH, dqk, dv,
+# causal, window, q_offset, mask shape): the triangular scan's sk - sq, a
+# negative offset (rows 0-8 see no key), a window with sq > sk, a (sq, sk)
+# mask and a (b, H, sq, sk) one at MLA's widths with fully masked rows
+OFFSET_MASK_MODES = {
+    "offset sk - sq": (1, 24, 56, 4, 2, 32, 32, True, 0, 32, None),
+    "negative offset": (1, 40, 30, 2, 1, 32, 32, True, 0, -9, None),
+    "window, sq > sk": (1, 48, 24, 2, 2, 32, 32, True, 10, 5, None),
+    "mask (sq, sk)": (2, 20, 36, 4, 2, 32, 32, False, 0, 0, "qk"),
+    "mask (b, H), (192, 128)": (1, 24, 24, 2, 2, 192, 128, True, 0, 0,
+                                "heads"),
+}
+
+
+def _offset_mask_case(mode, body):
+    b, sq, sk, h, kvh, dqk, dv, causal, window, q_offset, kind = \
+        OFFSET_MASK_MODES[mode]
+    rng = np.random.default_rng(sq + sk + dqk + window + q_offset)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(DTYPES[body])
+        for s in ((b, sq, h, dqk), (b, sk, kvh, dqk), (b, sk, kvh, dv),
+                  (b, sq, h, dv)))
+    mask = None
+    if kind:
+        shape = (sq, sk) if kind == "qk" else (b, h, sq, sk)
+        mask = torch.from_numpy(rng.random(shape) > 0.4)
+        mask[..., [2, sq - 1], :] = False
+    masks = dict(causal=causal, window=window, q_offset=q_offset, mask=mask)
+    o, lse = fa.flash_attention_torch(q, k, v, with_lse=True, **masks)
+    assert bool((lse < fa.NEG_INF / 2).any()) == (mode != "offset sk - sq")
+    return (q, k, v, o, do, lse), masks
+
+
+@pytest.mark.parametrize("body", ["bf16", "f32"])
+@pytest.mark.parametrize("mode", list(OFFSET_MASK_MODES))
+def test_body_arithmetic_with_offset_and_mask(mode, body):
+    """Each body with a query offset or a mask, rows with no key
+    included: within phase 7's rule of the plain backward."""
+    args, masks = _offset_mask_case(mode, body)
+    got = emulate_bwd(*args, body, **masks)
+    want = fa.flash_attention_bwd_torch(*args, **masks)
+    ratios = phase7_ratios([x.float() for x in got],
+                           [w.float() for w in want], TOL[body])
+    assert max(ratios) <= 1.0, (mode, body, ratios)
+
+
+@pytest.mark.parametrize("body", ["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["negative offset", "mask (sq, sk)"])
+def test_body_arithmetic_with_offset_and_mask_matches_reference(mode, body):
+    """Against ``jax.vjp`` of the reference's ``full_attention`` with the
+    same ``q_offset`` and ``mask`` (its uniform softmax on the rows with
+    no key)."""
+    args, masks = _offset_mask_case(mode, body)
+    q, k, v, _, do, _ = args
+    jd = jnp.bfloat16 if body == "bf16" else jnp.float32
+    mask = masks["mask"]
+
+    def to_jax(t):
+        return jnp.asarray(t.float().numpy(), jd)
+
+    def ref_grads(q_, k_, v_, do_):
+        return jax.vjp(lambda *t: ref_attn.full_attention(
+            *t, causal=masks["causal"], q_offset=masks["q_offset"],
+            window=masks["window"],
+            mask=None if mask is None else jnp.asarray(mask.numpy())),
+            q_, k_, v_)[1](do_)
+    want = [torch.tensor(np.asarray(w.astype(jnp.float32)))
+            for w in jax.jit(ref_grads)(*(to_jax(t) for t in (q, k, v, do)))]
+    got = [x.float() for x in emulate_bwd(*args, body, **masks)]
+    ratios = phase7_ratios(got, want, TOL[body])
+    assert max(ratios) <= 1.0, (mode, body, ratios)

@@ -153,11 +153,12 @@ def test_ops_flash_attention_routes_autograd_to_the_kernels(monkeypatch):
     output."""
     calls = []
 
-    def fwd(q, k, v, *, causal, window, kv_valid, with_lse=False):
+    def fwd(q, k, v, *, causal, window, kv_valid, with_lse=False, **rest):
         calls.append(("forward", with_lse))
         build.LAUNCHES["flash_attention"] += 1
         return fa.flash_attention_torch(q, k, v, causal=causal, window=window,
-                                        kv_valid=kv_valid, with_lse=with_lse)
+                                        kv_valid=kv_valid, with_lse=with_lse,
+                                        **rest)
 
     def bwd(q, k, v, o, do, lse, **masks):
         calls.append(("backward", None))

@@ -262,8 +262,11 @@ def test_flash_window_matches_reference(dtype, window):
 def test_flash_window_refuses_bad_calls():
     q = torch.zeros((1, 8, 2, 16))
     k = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(ValueError, match="sq <= sk"):
-        fa.flash_attention_torch(q, k, k, window=3)
+    # a window with sq > sk is served (a query offset places its rows);
+    # a window with the key-padding bound is refused
+    assert fa.flash_attention_torch(q, k, k, window=3).shape == q.shape
+    with pytest.raises(ValueError, match="kv_valid"):
+        fa.flash_attention_torch(q, k, k, causal=False, window=3, kv_valid=2)
     with pytest.raises(ValueError, match="window must be >= 0"):
         fa.flash_attention_torch(q, q, q, window=-1)
     # a window that covers the whole prompt masks nothing
