@@ -353,6 +353,25 @@ or outside a checkout of the repository.  Phases:
    mean equal to the plain formula bit for bit; (d) ``reshard_state`` of
    tinyllama's full params from (data 4) to (data 2, model 2) and back,
    bit for bit, with its peak MiB.
+17. tensor parallelism (run last, all on the first card): the layers
+   split over the mesh's ``model`` axis (``distributed.tensor_parallel``,
+   each shard's heads, ``d_ff`` columns and experts, the flash kernel
+   once a shard): (a) tinyllama-1.1b at full width, depth 2, f32, a
+   global batch of 8 x 512 in one microbatch through ``build_train_step``
+   over (pod 1, data 2, model 2), against the unsharded step on the card
+   and the same split step on the CPU from the same state at phase 16
+   (b)'s gates, each shard's parameter bytes beside ``shard_bytes`` of
+   the model-only specs, the flash launches (4 shards a layer); (b)
+   tinyllama-1.1b at full width and depth, f32, batch 8, a 512-token
+   prompt and 8 greedy steps over (model 2) against the unsharded served
+   path (phase 14's gate and near-tie rule), prefill ms, ms a step and
+   peak MiB of both; (c) deepseek-v2-236b at full width, depth 60 -> 2,
+   bf16, 1 x 2048 (past attn_chunk: each shard's 64 heads by the
+   block-wise path), 8 steps over (model 2), its latent cache split by
+   sequence, 80 experts a shard; (d) llama3-405b at full width, depth
+   126 -> 1, bf16, 1 x 2048, 4 steps over (model 16): 8 query heads a
+   shard, half a KV head's columns of wk / wv (all-gathered), the cache
+   split by sequence; (c) and (d) at phase 14's bf16 gate.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -369,12 +388,13 @@ device busy time and idle share per tile, the ops by device and host
 time, and a Chrome trace per cell in DIR; phase 10 traces its 512-query
 batches pipelined and off the same way, phase 11 10 train steps, and
 phase 14 one prefill and 4 decode steps of each LM cell (with the
-SSM's and the RG-LRU's pieces as ranges).
+SSM's and the RG-LRU's pieces as ranges), phase 17 the same of each
+split serving cell and of its unsplit path.
 
 The line before the last is the kernels' JSON record (the nine
 kernels, then the flash kernel's (192, 128), windowed and non-causal
 instances, then the two backward kernels at the train cell's shape; the
-launches are the whole run's, phases 15 and 16 included);
+launches are the whole run's, phases 15 to 17 included);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5056,18 +5076,19 @@ class PieceRanges:
             setattr(mod, name, fn)
 
 
-def profile_lm(label, cfg, params, batch, max_len, out_dir):
+def profile_lm(label, cfg, params, batch, max_len, out_dir, mesh=None):
     """With ``--profile``: ``torch.profiler`` over one prefill and 4
-    decode steps of a cell (after its counted window): wall time (host
-    clock, profiler on), device busy time, the device's idle share,
-    kernel launches, the ops by device and by host time, the SSM's and
-    RG-LRU's pieces (``LM_PIECES``) as ranges; a Chrome trace to
+    decode steps of a cell (after its counted window; split over
+    ``mesh``'s model axis when given): wall time (host clock, profiler
+    on), device busy time, the device's idle share, kernel launches, the
+    ops by device and by host time, the SSM's and RG-LRU's pieces
+    (``LM_PIECES``) as ranges; a Chrome trace to
     ``<out_dir>/profile_lm_<label>.json``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import build_serve_fns
-    prefill_fn, decode_fn, _ = build_serve_fns(cfg)
+    prefill_fn, decode_fn, _ = build_serve_fns(cfg, mesh=mesh)
     batch = {k: torch.from_numpy(a).cuda() for k, a in batch.items()}
     logits, caches = prefill_fn(params, batch, max_len)
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
@@ -6148,6 +6169,248 @@ def lm_sharding(seed: int, card: str):
     return total
 
 
+# ------------------------------------------ phase 17: tensor parallelism ----
+
+# (a) the split train step: tinyllama-1.1b at full width, depth 2, f32,
+# 8 x 512 in one microbatch over (pod 1, data 2, model 2) on the first
+# card, held at phase 16 (b)'s plain gates against the unsharded step on
+# the card and the same split step on the CPU
+TP_STEP = dict(layers=2, rows=8, tokens=512, mesh=(1, 2, 2))
+# (b)-(d) split serving against the unsharded served path on the card:
+# (label, arch, bf16, layers (0: the config's), batch, prompt, steps,
+# model ways).  (b) tinyllama-1.1b at full width and depth in f32; (c)
+# deepseek-v2-236b at full width, its depth cut 60 -> 2 (1 mla_dense and
+# 1 mla_moe: 10.4 GB whole in bf16, past it the two copies would not
+# fit beside each other), a prompt past attn_chunk; (d) llama3-405b at
+# full width, its depth cut 126 -> 1 (7.4 B parameters, 14.8 GB in bf16)
+# over the width of the reference's production model axis (16).  The
+# caches hold the prompt and the steps, rounded up to a multiple of 16
+# so that the sequence split divides.
+TP_SERVE = (("b", "tinyllama-1.1b", False, 0, 8, 512, 8, 2),
+            ("c", "deepseek-v2-236b", True, 2, 1, 2048, 8, 2),
+            ("d", "llama3-405b", True, 1, 1, 2048, 4, 16))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def position_bytes(placed, pos) -> int:
+    """The bytes one mesh position holds of a placed tree."""
+    from repro_torch.distributed import sharding as shrules
+    return sum(st.shards[pos].numel() * st.shards[pos].element_size()
+               for (st,) in shrules.zip_leaves(placed))
+
+
+def tp_train_gate(seed: int, card: str):
+    """Phase 17 (a): the split train step on the card against the
+    unsharded step on the card and the split step on the CPU (the
+    comment above TP_STEP).  Returns its launches on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shrules
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch.steps import build_train_step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TP_STEP["layers"])
+    rows, tokens = TP_STEP["rows"], TP_STEP["tokens"]
+    names = ("pod", "data", "model")
+    toks = np.random.default_rng(seed + 1701).integers(
+        0, cfg.vocab_size, (1, rows, tokens), dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    card_params = lm_params(cfg, seed)
+    cpu_params = cpu_tree(card_params)
+    step0, _, _, init0 = build_train_step(cfg, n_micro=1)
+    plain = step0(card_params, init0(card_params), batch)
+    outs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh_auto(TP_STEP["mesh"], names, devices=dev)
+        step, _, _, init = build_train_step(cfg, n_micro=1, multi_pod=True,
+                                            mesh=mesh)
+        params = card_params if dev == "cuda" else cpu_params
+        placed = tp.place(params, mesh)
+        state = init(placed)
+        if dev == "cuda":
+            want = shrules.shard_bytes(params,
+                                       shrules.model_shardings(params, mesh))
+            held = [position_bytes(placed, (0, 0, j))
+                    for j in range(TP_STEP["mesh"][2])]
+            cards = len(set(mesh.devices.flat))
+            log(f"phase 17 (a) parameter bytes a model shard: {held}, "
+                f"shard_bytes of the model-only specs {want} (whole: "
+                f"{tree_bytes(params)})")
+            check(all(h == want for h in held),
+                  f"split params hold {held} bytes a shard, the rule table "
+                  f"{want}")
+            reset_launches()
+        out = step(placed, state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_launches()
+        outs[dev] = (tp.gather(out[0]), dict(out[1], m=tp.gather(
+            out[1]["m"]), v=tp.gather(out[1]["v"])), out[2])
+    shards = TP_STEP["mesh"][1] * TP_STEP["mesh"][2]
+    want = {k: 0 for k in launches}
+    for k, n in train_flash_launches(cfg, 1).items():
+        want[k] = shards * n
+    mc, mp, m0 = outs["cuda"][2], outs["cpu"][2], plain[2]
+    loss_u = abs(float(mc["loss"]) - float(m0["loss"])) / abs(
+        float(m0["loss"]))
+    loss_c = abs(float(mc["loss"]) - float(mp["loss"])) / abs(
+        float(mp["loss"]))
+    ratios = dict(plain_step_ratios(outs["cuda"], plain, "unsharded"),
+                  **plain_step_ratios(outs["cuda"], outs["cpu"], "CPU"))
+    log(f"phase 17 (a) split train step {TRAIN_ARCH} f32 {cfg.num_layers} "
+        f"layers, mesh {TP_STEP['mesh']} {names} on {cards} card(s), "
+        f"{rows} x "
+        f"{tokens} ({rows // TP_STEP['mesh'][1]} rows a data shard): loss "
+        f"{float(mc['loss'])!r}, unsharded {float(m0['loss'])!r} (rel "
+        f"{loss_u:.3e}), CPU {float(mp['loss'])!r} (rel {loss_c:.3e}), "
+        f"tolerance 1e-5; gnorm {float(mc['gnorm'])!r}, unsharded "
+        f"{float(m0['gnorm'])!r}, CPU {float(mp['gnorm'])!r}; worst leaf a "
+        "gate, its ratio to the bound: "
+        + ", ".join(f"{k} {n} {r:.4f}" for k, (r, n) in ratios.items())
+        + f"; launches {launches} (want {want}); "
+        f"{time.perf_counter() - t0:.1f} s with the CPU's step; {card}")
+    check(loss_u <= 1e-5 and loss_c <= 1e-5,
+          f"split train step loss {float(mc['loss'])}")
+    bad = {k: v for k, v in ratios.items() if not v[0] <= 1.0}
+    check(not bad, f"split train step: {bad}")
+    check(launches == want, f"split train step launches {launches}")
+    return launches
+
+
+def served_run(prefill, decode, params, batch, max_len, toks):
+    """A prefill and a decode step for each of ``toks`` (the feed), each
+    timed by CUDA events: (logits of each stage, prefill ms, ms a step,
+    peak bytes above the params)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, caches = prefill(params, batch, max_len)
+    ev[1].record()
+    out = [logits[:, -1].float()]
+    for tok in toks:
+        logits, caches = decode(params, tok, caches)
+        out.append(logits[:, -1].float())
+    ev[2].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del caches
+    return (out, ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / max(len(toks), 1), peak)
+
+
+def tp_serve_cell(seed, card, label, arch, bf16, layers, b, s, steps, M,
+                  profile_dir=None):
+    """Phase 17 (b)-(d): one cell split over (model M) against the
+    unsharded served path from the same params, both fed the unsharded
+    path's greedy tokens: logits within phase 14's gate (LM_TOL in f32,
+    TOL_BF16 in bf16) of the largest, greedy tokens equal wherever the
+    unsharded top-2 gap exceeds it; the split prefill's flash launches
+    (each shard's heads: M a layer, an MLA layer past attn_chunk M a
+    block pair).  With ``profile_dir``, both paths' prefill and steps
+    under ``profile_lm`` after the gates.  Returns the split run's
+    launches."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.launch.steps import build_serve_fns
+    t0 = time.perf_counter()
+    cfg = lm_config(arch, bf16, layers)
+    mesh = make_mesh_auto((M,), ("model",))
+    params = lm_params(cfg, seed)
+    placed = tp.place(params, mesh)
+    batch = lm_batch(cfg, b, s, seed)
+    max_len = -(-(s + steps) // 16) * 16
+    tol = TOL_BF16 if bf16 else LM_TOL
+    prefill0, decode0, _ = build_serve_fns(cfg)
+    prefill1, decode1, model1 = build_serve_fns(cfg, mesh=mesh)
+    # the feed: the unsharded path's greedy tokens
+    logits, caches = prefill0(params, batch, max_len)
+    feed = []
+    for _ in range(steps):
+        feed.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+        logits, caches = decode0(params, feed[-1], caches)
+    del logits, caches
+    want, pre0, step0, peak0 = served_run(prefill0, decode0, params, batch,
+                                          max_len, feed)
+    served_run(prefill1, decode1, placed, batch, max_len, feed[:1])  # warm
+    reset_launches()
+    got, pre1, step1, peak1 = served_run(prefill1, decode1, placed, batch,
+                                         max_len, feed)
+    launches = read_launches()
+    n_pre = prefill_flash_launches(cfg, s) * M
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        bound = tol * max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        worst = max(worst, err / bound)
+        top2 = w.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = g.argmax(-1) == w.argmax(-1)
+        check(err <= bound, f"phase 17 ({label}) {arch} stage {i}: split "
+                            f"logits {err} from the unsharded (bound {bound})")
+        check(bool((same | (gap <= bound)).all()),
+              f"phase 17 ({label}) {arch}: greedy token differs at stage "
+              f"{i} with top-2 gap {float(gap.min())} > {bound}")
+    log(f"phase 17 ({label}) split serving {arch} "
+        f"{'bf16' if bf16 else 'f32'} {cfg.num_layers} layers over (model "
+        f"{M}) on {len(set(mesh.devices.flat))} card(s), batch {b}, prompt "
+        f"{s}, {steps} greedy steps "
+        f"(cache {max_len}): worst logit error / bound {worst:.4f} (bound "
+        f"{tol:g} of the largest |logit|); prefill {pre1:.2f} ms split, "
+        f"{pre0:.2f} ms unsharded; {step1:.2f} ms a step split, {step0:.2f} "
+        f"ms unsharded; peak above the params {peak1 / 2**20:.1f} MiB split, "
+        f"{peak0 / 2**20:.1f} MiB unsharded; split params "
+        f"{position_bytes(placed, (0,)) / 2**30:.2f} GiB a shard of "
+        f"{tree_bytes(params) / 2**30:.2f} GiB; flash launches "
+        f"{launches['flash_attention']} (want {n_pre} "
+        f"= {M} a layer{' a block pair' if cfg.mla else ''}); "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    check(launches["flash_attention"] == n_pre,
+          f"phase 17 ({label}) flash launches {launches['flash_attention']}"
+          f" (want {n_pre})")
+    check(model1.split, f"phase 17 ({label}) {arch} did not split")
+    if profile_dir:
+        for tag, m, p in (("split", mesh, placed), ("unsplit", None, params)):
+            profile_lm(f"17{label}_{tag}", cfg, p, batch, max_len,
+                       profile_dir, mesh=m)
+    return launches
+
+
+def tensor_parallelism(seed: int, card: str, profile_dir=None):
+    """Phase 17: (a) the split train step, (b)-(d) split serving (with
+    ``profile_dir``, each cell's split and unsplit path profiled).
+    Returns the launches."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    total = {k: 0 for k in read_launches()}
+    for k, n in tp_train_gate(seed, card).items():
+        total[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for cell in TP_SERVE:
+        t1 = time.perf_counter()
+        for k, n in tp_serve_cell(seed, card, *cell,
+                                  profile_dir=profile_dir).items():
+            total[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 17 ({cell[0]}) ran {time.perf_counter() - t1:.1f} s")
+    log(f"phase 17 ran {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def cuda_held(label: str) -> int:
     """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
     live CUDA tensor of 64 MiB or more that gc reaches, with the types
@@ -6191,8 +6454,9 @@ def main(argv=None) -> int:
                     help="also trace 5 served tiles of the two-step-f32 "
                          "and ivf-f32 cells, phase 10's pipelined and "
                          "off batches, 10 of phase 11's train steps "
-                         "and phase 14's prefill and decode steps, "
-                         "with torch.profiler (Chrome traces to DIR)")
+                         "and phase 14's and 17's prefill and decode "
+                         "steps, with torch.profiler (Chrome traces to "
+                         "DIR)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -6283,12 +6547,15 @@ def main(argv=None) -> int:
                                       profile_dir=args.profile)
     lm_train_total = lm_training(args.seed, card)
     lm_shard_total = lm_sharding(args.seed, card)
+    lm_tp_total = tensor_parallelism(args.seed, card,
+                                     profile_dir=args.profile)
     ops_records["flash_attention"] = lm_records["flash_attention"]
     for k in total:
         total[k] += (ivf_total[k] + enc_total[k] + ops_total[k] + om_total[k]
                      + train_total[k] + front_total[k]
                      + shard_total.get(k, 0) + dp_total[k] + lm_total[k]
-                     + lm_train_total[k] + lm_shard_total[k])
+                     + lm_train_total[k] + lm_shard_total[k]
+                     + lm_tp_total[k])
     records.update(ivf_records)
     records.update(ops_records)
     records.update(bwd_records)

@@ -499,6 +499,26 @@ def cache_shardings(cache_shape, cfg, mesh):
         cache_shape)
 
 
+# ------------------------------------------------------- the model axis
+
+def model_pspec(path, leaf, mesh, cfg=None) -> P:
+    """The ``model`` entries of a leaf's rule-table spec, the ``data``
+    and ``pod`` entries dropped: ``param_pspec``'s, or ``cache_pspec``'s
+    when ``cfg`` is given (a cache leaf).  What the tensor-parallel step
+    executes (``distributed.tensor_parallel``): params stay whole over
+    ``data`` / ``pod`` (FSDP is not executed)."""
+    spec = (cache_pspec(path, leaf, cfg, mesh) if cfg is not None
+            else param_pspec(path, leaf, mesh))
+    return P(*["model" if "model" in entry_axes(e) else None for e in spec])
+
+
+def model_shardings(tree, mesh, cfg=None):
+    """A ``NamedSharding`` of ``model_pspec`` per leaf of a params tree
+    (a cache tree when ``cfg`` is given)."""
+    return tree_map_with_path(
+        lambda p, l: NamedSharding(mesh, model_pspec(p, l, mesh, cfg)), tree)
+
+
 # ------------------------------------------------------------------ batch
 
 def batch_pspec(leaf, mesh) -> P:

@@ -378,14 +378,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
            if with_lse else None)
     lib = build.library("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.icq_flash_attention(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(lse.data_ptr() if with_lse else None),
-        DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dv, dqk ** -0.5,
-        int(causal), int(window), int(kv_valid), int(q_offset),
-        *_mask_operand(mask, b, H, sq, sk, q.device),
-        ctypes.c_void_p(stream))
+    with torch.cuda.device(q.device):     # the launch's device is q's
+        err = lib.icq_flash_attention(
+            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(lse.data_ptr() if with_lse else None),
+            DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dv, dqk ** -0.5,
+            int(causal), int(window), int(kv_valid), int(q_offset),
+            *_mask_operand(mask, b, H, sq, sk, q.device),
+            ctypes.c_void_p(stream))
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            f"{lib.icq_error_string(err).decode()}")
@@ -441,13 +442,14 @@ def flash_attention_bwd_kernel(kernel: str, q, k, v, o, do, lse, dq, dk, dv,
     which = BWD_KERNELS.index(kernel)
     lib = build.library("flash_attention_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.icq_flash_attention_bwd(
-        which, *(ctypes.c_void_p(t.data_ptr())
-                 for t in (q, k, v, o, do, lse, dq, dk, dv, dbuf)),
-        DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dvw, dqk ** -0.5,
-        int(causal), int(window), int(kv_valid), int(q_offset),
-        *_mask_operand(mask, b, H, sq, sk, q.device),
-        ctypes.c_void_p(stream))
+    with torch.cuda.device(q.device):     # the launch's device is q's
+        err = lib.icq_flash_attention_bwd(
+            which, *(ctypes.c_void_p(t.data_ptr())
+                     for t in (q, k, v, o, do, lse, dq, dk, dv, dbuf)),
+            DTYPES[v.dtype], b, sq, sk, H, KVH, dqk, dvw, dqk ** -0.5,
+            int(causal), int(window), int(kv_valid), int(q_offset),
+            *_mask_operand(mask, b, H, sq, sk, q.device),
+            ctypes.c_void_p(stream))
     name = f"flash_attention_bwd_{kernel}"
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "

@@ -12,10 +12,9 @@ For each cell:
 Nothing is allocated and nothing runs on a card: meta tensors hold
 shapes only.  The reference lowers and compiles XLA programs for
 256 / 512 TPU chips; the port traces its own step, so its per-device
-counts assume what the rules ask of GSPMD: one (pod, data) shard's
-traced work split evenly over the "model" axis (the port executes no
-tensor parallelism yet, ROADMAP item 31) and the optimizer update over
-the devices that shard the params.
+flops and bytes assume what the rules ask of GSPMD: one (pod, data)
+shard's traced unsplit work divided evenly over the "model" axis and
+the optimizer update over the devices that shard the params.
 
 Roofline terms, per device:
     compute    = counted flops / PEAK_FLOPS
@@ -32,9 +31,18 @@ Roofline terms, per device:
                  (the all-reduce over the replicas; over "pod" under
                  --icq-grad an int8 all-gather, (P - 1) s_f32 / 4); a
                  prefill or decode step one all-gather, (f - 1) s.
-                 Tensor-parallel activation collectives, the MoE
-                 all-to-alls and the context-parallel softmax partials
-                 are not counted.
+                 Beside them, under their own keys, the tensor-parallel
+                 collectives the executed split step runs
+                 (``hlo_cost.tp_collectives``: one model group's step
+                 traced on the meta device under
+                 ``tensor_parallel.counting``): "all-reduce (tp)" (the
+                 attention, MLP and embedding partials forward, the
+                 gradients of each split region's input backward, 2 (M -
+                 1) / M of the bytes a device), "all-gather (tp)" (the
+                 logit and projection slices, wk / wv split inside a
+                 head, the decode's queries and softmax partials,
+                 (M - 1) / M), "all-reduce (experts)" (the MoE's expert
+                 partials).  A train step counts each microbatch's.
 
 Hardware constants: the NVIDIA H100 SXM data sheet (NVIDIA H100 80GB
 HBM3, at its 700 W limit); a 16-wide axis spans more than one 8-GPU
@@ -123,12 +131,13 @@ def exec_flops(cfg, shape) -> float:
     return mf
 
 
-def collective_bytes(plan, *, compress: bool):
+def collective_bytes(plan, *, compress: bool, tp_bytes=None):
     """Per-device collective bytes of one step (module docstring):
-    (total, by op)."""
+    (total, by op); ``tp_bytes`` the tensor-parallel collectives by tag
+    (``hlo_cost.tp_collectives``), added under their own keys."""
     mesh = plan.mesh
     dp_axes = [a for a in ("pod", "data") if a in mesh.axis_names]
-    by_op = {}
+    by_op = dict(tp_bytes or {})
 
     def add(op, n):
         if n:
@@ -189,7 +198,8 @@ def analyze(lowered, cfg, shape, mesh, *, compress: bool) -> dict:
     plan = lowered.plan
     n_dev = mesh.size
     cost = lowered.cost.per_device
-    coll, by_op = collective_bytes(plan, compress=compress)
+    coll, by_op = collective_bytes(plan, compress=compress,
+                                   tp_bytes=lowered.cost.tp_bytes)
     mf = model_flops(cfg, shape)
     ef = exec_flops(cfg, shape)
     compute_term = cost.flops / PEAK_FLOPS

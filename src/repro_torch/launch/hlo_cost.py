@@ -201,11 +201,39 @@ def count(fn, *args, **kw) -> Cost:
 class CellCost:
     """A cell's counted work: ``per_device`` (what one device's step
     does), ``shard`` (one (pod, data) shard's step, every microbatch),
-    and how it was divided."""
+    how it was divided, and ``tp_bytes``: the tensor-parallel
+    collectives' bytes a device moves in the step, by tag
+    (``tp_collectives``)."""
     per_device: Cost
     shard: Cost
     model_ways: int
     update_ways: int
+    tp_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+class _Dispatch(TorchDispatchMode):
+    """Runs every op as dispatched: meta ops run at the aten level, ~3x
+    faster than through torch's Python references (MLA's block-wise
+    merge)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def tp_collectives(plan) -> Dict[str, float]:
+    """The bytes a device moves in the tensor-parallel collectives of
+    ``plan``'s step, by tag: one model shard's split step
+    (``plan.tp_fn`` under ``tensor_parallel.one_shard``) run on the meta
+    device under ``tensor_parallel.counting``, a train step's
+    microbatch counted ``n_micro`` times; empty when the layers do not
+    split."""
+    from repro_torch.distributed import tensor_parallel as tp
+    if plan.tp_fn is None:
+        return {}
+    with torch.no_grad() if plan.kind != "train" else nullcontext(), \
+            tp.counting() as counted, tp.one_shard(), _Dispatch():
+        plan.tp_fn(*plan.tp_args)
+    return {k: v * plan.n_micro for k, v in counted.items()}
 
 
 def cell_cost(plan) -> CellCost:
@@ -219,8 +247,10 @@ def cell_cost(plan) -> CellCost:
     model_ways = shrules.axis_size(mesh, "model")
     with torch.no_grad() if plan.kind != "train" else nullcontext():
         step = count(plan.trace_fn, *plan.trace_args)
+    tp_bytes = tp_collectives(plan)
     if plan.kind != "train":
-        return CellCost(step.scaled(1.0 / model_ways), step, model_ways, 1)
+        return CellCost(step.scaled(1.0 / model_ways), step, model_ways, 1,
+                        tp_bytes)
     upd = count(plan.update_fn, *plan.update_args)
     micro = step - upd
     update_ways = mesh.size // (shrules.axis_size(mesh, "pod")
@@ -228,7 +258,7 @@ def cell_cost(plan) -> CellCost:
     shard = micro.scaled(plan.n_micro) + upd
     per_dev = micro.scaled(plan.n_micro / model_ways) \
         + upd.scaled(1.0 / update_ways)
-    return CellCost(per_dev, shard, model_ways, update_ways)
+    return CellCost(per_dev, shard, model_ways, update_ways, tp_bytes)
 
 
 def _pod_replicated(plan) -> bool:

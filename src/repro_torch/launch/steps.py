@@ -13,12 +13,17 @@ shard differentiating its rows on its position's device from a whole
 copy of the params; the gradients and the loss average over ``data`` in
 f32, then across pods (``plain_cross_pod_mean``, or with ``icq_grad``
 ``compressed_cross_pod_mean`` with its error-feedback residuals, one
-tree a pod, in ``opt_state["ef_residual"]``).  The port does not split
-a layer's products over ``model``: a ``model`` axis above 1 places
-nothing differently in an executed step (GSPMD's result is the
-unsharded one); tensor-parallel execution is ROADMAP item 31, and the
-``model`` rules drive the dry run only.
-``build_serve_fns`` — prefill and decode_step.
+tree a pod, in ``opt_state["ef_residual"]``).  A ``model`` axis above 1
+splits the layers of the dense, MoE, MLA and VLM kinds Megatron-style
+(``distributed.tensor_parallel``): params and AdamW moments are placed
+by the rule tables' ``model`` entries, each (pod, data) position runs
+its model group, the means are taken block by block and AdamW updates
+each block (``_split_train_step``).  The ``data`` / ``pod`` (FSDP)
+entries of the param rules are not executed: params stay whole over
+them (ROADMAP item 37); the SSM, hybrid and encoder-decoder kinds keep
+their params whole over ``model`` too (item 38).
+``build_serve_fns`` — prefill and decode_step, split over ``model``
+likewise.
 
 Microbatching: batches come shaped (n_micro, micro_batch, seq);
 ``n_micro`` follows the arch's ``microbatch_size`` (rows a data shard):
@@ -43,6 +48,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.distributed import sharding as shrules
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.index.base import full_f32_matmul
 from repro_torch.models import build_model
 from repro_torch.quant.grad_compress import (compressed_cross_pod_mean,
@@ -212,6 +218,9 @@ def build_train_step(cfg, *, n_micro: int, multi_pod: bool = False,
     compress = icq_grad and multi_pod
     sharded = mesh is not None and _dp(mesh) > 1
     shard_devs = _shard_devices(mesh) if sharded else None
+    if model.split:
+        return _split_train_step(model, opt, mesh, n_micro=n_micro,
+                                 compress=compress, acc_dtype=acc_dtype)
 
     def grads_of(params, batch, rows=slice(None)):
         """One shard's (gradients scaled by 1 / n_micro, mean loss) over
@@ -310,13 +319,125 @@ def _dp(mesh) -> int:
     return shrules.axis_size(mesh, "data") * shrules.axis_size(mesh, "pod")
 
 
+def _split_train_step(model, opt, mesh, *, n_micro, compress, acc_dtype):
+    """``build_train_step`` over a mesh whose ``model`` axis splits the
+    layers (``model.split``): params and the AdamW moments placed by the
+    model-only specs (``tensor_parallel.place``; a whole tree is placed
+    first).  Each (pod, data) position runs its model group on its rows
+    (as the unsplit sharded step splits them), differentiating its
+    group's blocks; the data and cross-pod means are taken block by
+    block, on the blocks' devices of the position (p, 0) and (0, 0);
+    AdamW updates each block of position (0, 0) on its device (the clip's
+    global norm over every split block once and every replicated leaf
+    once), and every position takes its block of the result."""
+    pods, data = (shrules.axis_size(mesh, a) for a in ("pod", "data"))
+
+    def view(placed, p=0, d=0):
+        return tp.group_view(placed, mesh, {"pod": p, "data": d})
+
+    def grads_of(v, batch, rows):
+        """A model group's gradients scaled by 1 / n_micro, as a block
+        tree (``to_blocks``) in ``acc_dtype``, and its mean loss."""
+        gacc, lsum = None, None
+        for i in range(n_micro):
+            mb = {k: t[i][rows] for k, t in batch.items()}
+            lv, leaves = tp.live(v)
+            loss, _ = model.train_forward(lv, mb)
+            gr = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g = tp.to_blocks(tp.grads_view(v, lv, leaves, gr))
+            if gacc is None:
+                gacc = tree_map(lambda t: t.to(acc_dtype), g)
+                lsum = loss.detach()
+            else:
+                tree_map(lambda a, t: a.add_(t.to(acc_dtype)), gacc, g)
+                lsum = lsum + loss.detach()
+            del g, gr, lv, leaves, loss
+        tree_map(lambda t: t.mul_(1.0 / n_micro), gacc)
+        return gacc, lsum * (1.0 / n_micro)
+
+    def train_step(params, opt_state, batch):
+        with full_f32_matmul():
+            placed = tp.place(params, mesh)
+            v00 = view(placed)
+            g00 = tp.group_of(v00)
+            rows = next(iter(batch.values())).shape[1]
+            if _rows_split(mesh, rows):
+                block = rows // (pods * data)
+                positions = [[(p, d) for d in range(data)]
+                             for p in range(pods)]
+            else:          # replicated rows: one shard a pod computes
+                block = 0
+                positions = [[(p, 0)] for p in range(pods)]
+            pod_grads, pod_losses = [], []
+            for p, row in enumerate(positions):
+                gs, losses = [], []
+                for (pp, d) in row:
+                    j = (pp * data + d) * block
+                    g, loss = grads_of(view(placed, pp, d), batch,
+                                       slice(j, j + block) if block
+                                       else slice(None))
+                    gs.append(g)
+                    losses.append(loss)
+                if len(gs) == 1:
+                    pod_grads.append(gs[0])
+                    pod_losses.append(losses[0])
+                else:        # f32 over data, onto position (p, 0)
+                    pod_grads.append(tree_map(
+                        lambda *t: _f32_mean(t, t[0].device).to(acc_dtype),
+                        *gs))
+                    pod_losses.append(_f32_mean(losses, losses[0].device))
+            if compress:
+                grads, res = compressed_cross_pod_mean(
+                    pod_grads, opt_state["ef_residual"])
+            elif len(pod_grads) > 1:
+                grads = plain_cross_pod_mean(pod_grads)
+            else:
+                grads = pod_grads[0]
+            loss = (_f32_mean(pod_losses, g00.lead) if len(pod_losses) > 1
+                    else pod_losses[0].to(g00.lead))
+            m, v = (tp.to_blocks(view(tp.place(opt_state[k], mesh)))
+                    for k in ("m", "v"))
+            new_p, new_opt, gnorm = opt.update(
+                grads, {"m": m, "v": v, "step": opt_state["step"]},
+                tp.to_blocks(v00))
+            out_opt = {"step": new_opt["step"]}
+            for k in ("m", "v"):
+                out_opt[k] = tp.relayout(placed, tp.from_blocks(
+                    v00, new_opt[k], g00))
+            if compress:
+                out_opt["ef_residual"] = res
+        return (tp.relayout(placed, tp.from_blocks(v00, new_p, g00)),
+                out_opt, {"loss": loss, "gnorm": gnorm})
+
+    def init_opt_state(params):
+        placed = tp.place(params, mesh)
+        v00 = view(placed)
+        g00 = tp.group_of(v00)
+        st = opt.init(tp.to_blocks(v00))
+        out = {"step": st["step"]}
+        for k in ("m", "v"):
+            out[k] = tp.relayout(placed, tp.from_blocks(v00, st[k], g00))
+        if compress:
+            out["ef_residual"] = [
+                tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                               device=t.device),
+                         tp.to_blocks(view(placed, p)))
+                for p in range(pods)]
+        return out
+
+    return train_step, model, opt, init_opt_state
+
+
 # ---------------------------------------------------------------- serve ----
 
 def build_serve_fns(cfg, *, attn_impl: str = "chunked", mesh=None):
     """(prefill_fn, decode_fn, model).  prefill(params, batch, max_len),
     ``batch`` the reference's dict: ``tokens``, and ``patch_emb`` (the
     VLM) or ``audio_emb`` (the encoder-decoder); decode(params, tokens,
-    caches).  ``mesh`` is accepted and changes nothing computed."""
+    caches).  Over a ``mesh`` whose ``model`` axis exceeds 1 the layers
+    of the split kinds run over the model group of the mesh's first
+    position (``models.transformer.build_model``); the rows are not
+    split over ``data``."""
     model = build_model(cfg, attn_impl=attn_impl, mesh=mesh)
 
     def prefill_fn(params, batch, max_len: int):
@@ -347,7 +468,10 @@ class CellPlan:
     ``trace_fn(*trace_args)`` is the step of one (pod, data) shard (its
     rows of one microbatch for train), what ``lower_cell`` traces;
     ``update_fn(*update_args)`` the optimizer update alone (train), the
-    part of the step outside the microbatch loop."""
+    part of the step outside the microbatch loop.  ``tp_fn(*tp_args)``
+    is the same shard's step split over its model group (one microbatch
+    and its backward for train), when the layers split over ``model``:
+    what the dry run counts the tensor-parallel collectives of."""
     cfg: Any
     shape: Any
     mesh: Any
@@ -362,6 +486,8 @@ class CellPlan:
     trace_args: Tuple = ()
     update_fn: Any = None
     update_args: Tuple = ()
+    tp_fn: Any = None
+    tp_args: Tuple = ()
 
 
 def _shard_rows(mesh, rows: int) -> int:
@@ -371,6 +497,29 @@ def _shard_rows(mesh, rows: int) -> int:
 
 def _row_block(batch, rows: int, dim: int):
     return {k: v.narrow(dim, 0, rows) for k, v in batch.items()}
+
+
+def _grads_trace(model, view, batch):
+    """One microbatch's forward and backward over a model group's
+    blocks."""
+    lv, leaves = tp.live(view)
+    loss, _ = model.train_forward(lv, batch)
+    torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def _split_trace(model, mesh, params_sh, kind, batch, S=0):
+    """(tp_fn, tp_args) of ``CellPlan`` for a split model (else (None,
+    ())): the first model group's step on the meta device."""
+    if not model.split:
+        return None, ()
+    view = tp.group_view(tp.place(params_sh, mesh), mesh)
+    if kind == "train":
+        return functools.partial(_grads_trace, model), (view, batch)
+    if kind == "prefill":
+        return functools.partial(model.prefill, max_len=S), (view, batch)
+    tok = batch["tokens"]
+    return model.decode_step, (view, tok, model.init_cache(
+        tok.shape[0], S, torch.bfloat16))
 
 
 def plan_cell(cfg, shape, mesh, *, icq_grad: bool = False,
@@ -400,6 +549,9 @@ def plan_cell(cfg, shape, mesh, *, icq_grad: bool = False,
         rows = _shard_rows(mesh, batch["tokens"].shape[1])
         one_batch = _row_block({k: v[:1] for k, v in batch.items()}, rows,
                                1)
+        tp_fn, tp_args = _split_trace(model, mesh, params_sh, "train",
+                                      {k: v[0] for k, v in
+                                       one_batch.items()})
         return CellPlan(
             cfg=cfg, shape=shape, mesh=mesh, kind="train", n_micro=n_micro,
             fn=train_step, args=(params_sh, opt_sh, batch),
@@ -409,10 +561,12 @@ def plan_cell(cfg, shape, mesh, *, icq_grad: bool = False,
             update_fn=opt.update,
             update_args=(tree_map(lambda p: torch.empty_like(
                 p, dtype=getattr(torch, cfg.grad_accum_dtype)), params_sh),
-                one_opt, params_sh))
+                one_opt, params_sh),
+            tp_fn=tp_fn, tp_args=tp_args)
 
-    prefill_fn, decode_fn, model = build_serve_fns(cfg, attn_impl=attn_impl,
-                                                   mesh=mesh)
+    # the traced step is the unsplit one (the flops divide over model)
+    prefill_fn, decode_fn, model = build_serve_fns(cfg, attn_impl=attn_impl)
+    split_model = build_model(cfg, attn_impl=attn_impl, mesh=mesh)
     params_sh = eval_shape(model.init, 0, device="cpu")
     p_shard = shrules.param_shardings(params_sh, mesh)
     B, S = shape.global_batch, shape.seq_len
@@ -422,17 +576,23 @@ def plan_cell(cfg, shape, mesh, *, icq_grad: bool = False,
         batch = meta_batch(batch_struct(cfg, shape, 1, train=False))
         b_shard = batch_shardings(batch, mesh, train=False)
         fn = functools.partial(prefill_fn, max_len=S)
+        rows_batch = _row_block(batch, rows, 0)
+        tp_fn, tp_args = _split_trace(split_model, mesh, params_sh,
+                                      "prefill", rows_batch, S)
         return CellPlan(
             cfg=cfg, shape=shape, mesh=mesh, kind="prefill", n_micro=1,
             fn=fn, args=(params_sh, batch),
             in_shardings=(p_shard, b_shard), out_shardings=None, donate=(),
-            trace_fn=fn, trace_args=(params_sh, _row_block(batch, rows, 0)))
+            trace_fn=fn, trace_args=(params_sh, rows_batch),
+            tp_fn=tp_fn, tp_args=tp_args)
 
     # decode: one token against a seq_len cache
     cache_sh = model.init_cache(B, S, torch.bfloat16, device="meta")
     c_shard = shrules.cache_shardings(cache_sh, cfg, mesh)
     tok = torch.empty((B, 1), dtype=torch.int32, device="meta")
     t_shard = batch_shardings({"tokens": tok}, mesh, train=False)["tokens"]
+    tp_fn, tp_args = _split_trace(split_model, mesh, params_sh, "decode",
+                                  {"tokens": tok[:rows]}, S)
     return CellPlan(
         cfg=cfg, shape=shape, mesh=mesh, kind="decode", n_micro=1,
         fn=decode_fn, args=(params_sh, tok, cache_sh),
@@ -440,7 +600,8 @@ def plan_cell(cfg, shape, mesh, *, icq_grad: bool = False,
         out_shardings=(None, c_shard), donate=(2,),
         trace_fn=decode_fn, trace_args=(
             params_sh, tok[:rows],
-            model.init_cache(rows, S, torch.bfloat16, device="meta")))
+            model.init_cache(rows, S, torch.bfloat16, device="meta")),
+        tp_fn=tp_fn, tp_args=tp_args)
 
 
 def _structure(tree):

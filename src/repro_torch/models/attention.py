@@ -29,11 +29,22 @@ card's flash launch is differentiable, its forward writing the rows'
 log-sum-exp and its backward running the flash backward kernels
 (``kernels.ops.flash_attention``); on the CPU autograd differentiates
 the plain twins, as XLA differentiates the reference's.
+
+Split over a mesh's ``model`` axis (``*_tp``, ``distributed.
+tensor_parallel``): each shard projects and attends over its H / M query
+heads and the KV heads they read (``wk`` / ``wv`` all-gathered first
+when the rule table's column split falls inside a head), ``wo``'s rows
+of them give a partial that is all-reduced; the decode reads the cache
+layout ``cache_pspec`` picks (heads, or the sequence: every head's
+softmax partials over each shard's positions, merged by
+``combine_attention_partials``) and writes the new K / V in place at
+the 0-d device position, by a mask where the sequence is split.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models import nn
 
@@ -247,7 +258,14 @@ def attention_apply(p, x, cfg, positions, *, causal=True, window=0,
                     impl="chunked", rope=True):
     """Full-sequence attention (train / prefill)."""
     q, k, v = qkv_project(p, x, cfg, positions, rope=rope)
-    s = x.shape[1]
+    out = _attend(q, k, v, cfg, causal=causal, window=window, impl=impl)
+    return out.flatten(-2) @ p["wo"]
+
+
+def _attend(q, k, v, cfg, *, causal, window, impl):
+    """The attention of ``attention_apply`` over q's heads: (b, s, h,
+    dv)."""
+    s = q.shape[1]
     if impl == "full" or s <= cfg.attn_chunk:
         out = full_attention(q, k, v, causal=causal, window=window)
     elif impl == "triangular" and causal:
@@ -264,7 +282,7 @@ def attention_apply(p, x, cfg, positions, *, causal=True, window=0,
     else:
         out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                                 window=window)
-    return out.reshape(*x.shape[:-1], cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return out
 
 
 def _pad_len(n: int, c: int) -> int:
@@ -317,3 +335,201 @@ def cross_attention_decode(p, x, k_cache, v_cache, cfg):
                        device=x.device)
     out = decode_attention(q, k_cache, v_cache, valid)
     return out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+
+
+# -------------------------------------------------- tensor parallelism ----
+
+def head_split(cfg, M: int):
+    """(H / M query heads a shard, [(lo, hi)]: the KV heads shard j's
+    query heads read).  Raises when the query heads do not split over M
+    or a shard's heads straddle their KV groups unevenly."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    G = H // KVH
+    Hl = H // M
+    if H % M or (G % Hl and Hl % G):
+        raise ValueError(f"{H} query heads over {KVH} KV heads do not "
+                         f"split into {M} model shards head by head")
+    return Hl, [(j * Hl // G, ((j + 1) * Hl - 1) // G + 1)
+                for j in range(M)]
+
+
+def _kv_weight(w, cfg, kv, group, kv_heads_split: bool):
+    """Shard j's K (or V) kernel columns: its block when the KV heads
+    split over the group; else the heads [lo, hi) of the whole kernel,
+    which a column split inside a head all-gathers first (GSPMD's
+    result of the rule table's split)."""
+    if kv_heads_split:
+        return list(w)
+    whole = (list(w) if w.dim is None
+             else tp.broadcast(tp.all_gather(list(w), group, dim=-1),
+                               group))
+    dh = cfg.head_dim
+    return [wj[:, lo * dh:hi * dh] for wj, (lo, hi) in zip(whole, kv)]
+
+
+def kv_heads_split(cfg, p, M: int) -> bool:
+    """Whether the KV heads split over the model group block by block
+    (``cache_pspec``'s head rule, and ``wk`` split)."""
+    return cfg.num_kv_heads % M == 0 and p["wk"].dim is not None
+
+
+def qkv_project_tp(p, x, cfg, positions, group, rope: bool = True):
+    """``qkv_project`` on each shard of a model group (``p`` a ``Split``
+    tree, x and positions replicated on the first device): [(q_j (b, s,
+    H / M, dh), k_j, v_j (b, s, hi - lo, dh))] on the shards' devices,
+    shard j's query heads and the KV heads they read."""
+    M = group.size
+    if p["wq"].dim is None or p["wo"].dim is None:
+        raise ValueError("wq / wo are not split over the model axis")
+    Hl, kv = head_split(cfg, M)
+    split = kv_heads_split(cfg, p, M)
+    wk = _kv_weight(p["wk"], cfg, kv, group, split)
+    wv = _kv_weight(p["wv"], cfg, kv, group, split)
+    out = []
+    for j, (xj, pos) in enumerate(zip(tp.broadcast(x, group),
+                                      tp.broadcast(positions, group))):
+        n = kv[j][1] - kv[j][0]
+        q = _split_heads(xj @ p["wq"][j], Hl, cfg.head_dim)
+        k = _split_heads(xj @ wk[j], n, cfg.head_dim)
+        v = _split_heads(xj @ wv[j], n, cfg.head_dim)
+        if rope:
+            q = nn.apply_rope(q, pos, cfg.rope_theta)
+            k = nn.apply_rope(k, pos, cfg.rope_theta)
+        out.append((q, k, v))
+    return out
+
+
+def attention_apply_tp(p, x, cfg, positions, group, *, causal=True,
+                       window=0, impl="chunked", rope=True, qkv=None):
+    """``attention_apply`` split over a model group: each shard its
+    query heads (on the card one flash launch a shard), ``wo``'s rows
+    of them giving a partial that is all-reduced.  ``qkv``: the shards'
+    ``qkv_project_tp`` when the caller has them (the prefill)."""
+    qkv = qkv or qkv_project_tp(p, x, cfg, positions, group, rope=rope)
+    parts = [_attend(q, k, v, cfg, causal=causal, window=window,
+                     impl=impl).flatten(-2) @ p["wo"][j]
+             for j, (q, k, v) in enumerate(qkv)]
+    return tp.all_reduce(parts, group)
+
+
+def owned_kv(ks, cfg, group):
+    """Every KV head of the shards' ``qkv_project_tp`` keys (or values),
+    (b, s, KVH, dh) on the first device: each head from the first shard
+    that reads it, all-gathered in shard order."""
+    _, kv = head_split(cfg, group.size)
+    parts, done = [], 0
+    for k, (lo, hi) in zip(ks, kv):
+        parts.append(k[:, :, max(lo, done) - lo:])
+        done = max(done, hi)
+    return tp.all_gather(parts, group, dim=2, size=cfg.num_kv_heads)
+
+
+def write_at(block, val, pos, start: int):
+    """``val`` (b, 1, ...) written in place at position ``pos`` (a 0-d
+    tensor on the block's device) of a sequence block holding positions
+    [start, start + its length): by a mask where the block does not
+    hold it (no host branch, no synchronize)."""
+    n = block.shape[1]
+    local = pos.long() - start
+    idx = torch.clamp(local, 0, n - 1).reshape(1)
+    mine = (local >= 0) & (local < n)
+    old = block.index_select(1, idx)
+    block.index_copy_(1, idx, torch.where(mine, val.to(block.dtype), old))
+
+
+def write_copies(split, val, pos):
+    """``val`` (b, 1, ...) written in place at ``pos`` into every
+    distinct copy of a cache leaf the rule table keeps whole."""
+    at = pos.long().reshape(1)
+    for blk in {id(b): b for b in split}.values():
+        blk.index_copy_(1, at.to(blk.device), val.to(blk.device, blk.dtype))
+
+
+def decode_partials(q, k_cache, v_cache, length_mask):
+    """``decode_attention``'s softmax over one block of positions as
+    unnormalized partials (m, l, o): (b, KVH, G) and (b, KVH, G, dh), in
+    f32, for ``combine_attention_partials``."""
+    b, _, h, dh = q.shape
+    kvh = k_cache.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) \
+        * dh ** -0.5
+    s = torch.where(length_mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    return m, e.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd", e,
+                                          v_cache.float())
+
+
+def combine_partials_tp(parts, group):
+    """The shards' (m, l, o) partials (shard order) merged on the first
+    device (``quant.kv_cache.combine_attention_partials``), counted as
+    the all-gather that brings them there: o / l in f32."""
+    from repro_torch.quant.kv_cache import combine_attention_partials
+    M = group.size
+    tp.count(tp.ALL_GATHER, (M - 1) * sum(
+        t.numel() * t.element_size() for t in parts[0]))
+    ms, ls, os_ = zip(*parts)
+    return combine_attention_partials(list(ms), list(ls), list(os_))
+
+
+def decode_attention_tp(p, x, cfg, cache, pos, group):
+    """One token's attention split over a model group, writing its K / V
+    at ``pos`` (0-d, on the first device) into ``cache`` ("k", "v":
+    ``Split``s of the layout ``cache_pspec`` picks) in place.  Heads over
+    ``model``: each shard its heads over its KV heads.  The sequence over
+    ``model``: the new K / V of every KV head all-gathered and written
+    by the shard that holds ``pos``; the queries all-gathered, each shard
+    the softmax partials of every head over its positions, merged by
+    ``combine_attention_partials``; each shard then its heads' rows of
+    ``wo``.  A whole cache: each shard its heads over its KV heads of
+    it.  The partials of ``wo`` are all-reduced."""
+    b = x.shape[0]
+    M = group.size
+    Hl, kv = head_split(cfg, M)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    qkv = qkv_project_tp(p, x, cfg, positions, group)
+    kc, vc = cache["k"], cache["v"]
+    poss = tp.broadcast(pos, group)
+    outs = []
+    if kc.dim == 2:                       # heads over model
+        for j, (q, k, v) in enumerate(qkv):
+            at = poss[j].long().reshape(1)
+            kc[j].index_copy_(1, at, k.to(kc[j].dtype))
+            vc[j].index_copy_(1, at, v.to(vc[j].dtype))
+            S = kc[j].shape[1]
+            mask = (torch.arange(S, device=q.device) <= poss[j])[None, :] \
+                .expand(b, S)
+            outs.append(decode_attention(q, kc[j], vc[j], mask))
+    else:
+        k_all = owned_kv([t[1] for t in qkv], cfg, group)
+        v_all = owned_kv([t[2] for t in qkv], cfg, group)
+        if kc.dim == 1:                   # the sequence over model
+            q_all = tp.all_gather([t[0] for t in qkv], group, dim=2)
+            S = kc[0].shape[1]
+            parts = []
+            for j, (qj, kj, vj) in enumerate(zip(
+                    tp.broadcast(q_all, group), tp.broadcast(k_all, group),
+                    tp.broadcast(v_all, group))):
+                write_at(kc[j], kj, poss[j], j * S)
+                write_at(vc[j], vj, poss[j], j * S)
+                mask = (j * S + torch.arange(S, device=qj.device)
+                        <= poss[j])[None, :].expand(b, S)
+                parts.append(decode_partials(qj, kc[j], vc[j], mask))
+            o = combine_partials_tp(parts, group)    # (b, KVH, G, dh)
+            o = o.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
+            outs = [oj[:, :, j * Hl:(j + 1) * Hl]
+                    for j, oj in enumerate(tp.broadcast(o, group))]
+        else:                             # a whole cache
+            write_copies(kc, k_all, pos)
+            write_copies(vc, v_all, pos)
+            for j, (q, _, _) in enumerate(qkv):
+                lo, hi = kv[j]
+                S = kc[j].shape[1]
+                mask = (torch.arange(S, device=q.device)
+                        <= poss[j])[None, :].expand(b, S)
+                outs.append(decode_attention(q, kc[j][:, :, lo:hi],
+                                             vc[j][:, :, lo:hi], mask))
+    parts = [o.reshape(b, 1, Hl * cfg.head_dim) @ p["wo"][j]
+             for j, o in enumerate(outs)]
+    return tp.all_reduce(parts, group)

@@ -37,11 +37,19 @@ Which attention runs where:
   meta op.
 * decode: plain PyTorch on both devices, as the reference's is not a
   kernel.
+
+Split over a mesh's ``model`` axis (``*_tp``): the query bottleneck and
+the latent once on the group's first device, each shard its heads'
+``w_uq`` / ``w_uk`` / ``w_uv`` columns (head-aligned, checked) by the
+branch above, ``wo``'s rows of them a partial, all-reduced; the absorbed
+decode over a latent cache split by sequence all-gathers the absorbed
+queries and merges each shard's softmax partials.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models import nn
 from repro_torch.models.attention import NEG_INF, full_attention, on_card
@@ -74,18 +82,27 @@ def mla_init(generator: torch.Generator, cfg, dtype=torch.float32):
     return p
 
 
-def _queries(p, x, cfg, positions):
-    h = cfg.num_heads
-    qk_nope, qk_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+def _q_rank(p, x, cfg):
+    """The rows the query heads project: the normed q_lora bottleneck,
+    or x itself without one."""
     if cfg.q_lora_rank:
-        cq = nn.rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
-        q = cq @ p["w_uq"]
-    else:
-        q = x @ p["w_q"]
-    q = q.reshape(*x.shape[:-1], h, qk_nope + qk_rope)
+        return nn.rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    return x
+
+
+def _heads_q(q, positions, cfg):
+    """(q_nope, q_rope) of projected queries (..., h (nope + rope)), the
+    rope half rotated."""
+    qk_nope, qk_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = q.reshape(*q.shape[:-1], -1, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     q_rope = nn.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
+
+
+def _queries(p, x, cfg, positions):
+    w = p["w_uq"] if cfg.q_lora_rank else p["w_q"]
+    return _heads_q(_q_rank(p, x, cfg) @ w, positions, cfg)
 
 
 def _latent(p, x, cfg, positions):
@@ -115,18 +132,22 @@ def mla_attention_apply(p, x, cfg, positions):
     sequences take the dense path; long ones the lazy decompression:
     ``mla_chunked_attention`` on the CPU, ``mla_blockwise_attention``
     on the card, under autograd too (module docstring)."""
-    b, s, _ = x.shape
-    h, v_dim = cfg.num_heads, cfg.v_head_dim
     q_nope, q_rope = _queries(p, x, cfg, positions)
     latent, k_rope = _latent(p, x, cfg, positions)
-    if s <= cfg.attn_chunk:
+    out = _attend(p, q_nope, q_rope, latent, k_rope, cfg)
+    return out.flatten(-2) @ p["wo"]
+
+
+def _attend(p, q_nope, q_rope, latent, k_rope, cfg):
+    """Causal MLA over q's heads (``p``'s ``w_uk`` / ``w_uv`` columns of
+    them): (b, s, h, dv), by the branch the module docstring names."""
+    if q_nope.shape[1] <= cfg.attn_chunk:
         q, k, v = _materialize(p, q_nope, q_rope, latent, k_rope, cfg)
-        out = full_attention(q, k, v, causal=True)
-    elif on_card(x):
-        out = mla_blockwise_attention(p, q_nope, q_rope, latent, k_rope, cfg)
-    else:
-        out = mla_chunked_attention(p, q_nope, q_rope, latent, k_rope, cfg)
-    return out.reshape(b, s, h * v_dim) @ p["wo"]
+        return full_attention(q, k, v, causal=True)
+    if on_card(q_nope):
+        return mla_blockwise_attention(p, q_nope, q_rope, latent, k_rope,
+                                       cfg)
+    return mla_chunked_attention(p, q_nope, q_rope, latent, k_rope, cfg)
 
 
 def _block(s: int, chunk: int) -> int:
@@ -342,3 +363,120 @@ def mla_decode_attention(p, x, latent_cache, k_rope_cache, cfg, positions,
     out = torch.einsum("bhl,lhv->bhv", out_lat, w_uv).reshape(b, 1,
                                                               h * v_dim)
     return out @ p["wo"]
+
+
+# -------------------------------------------------- tensor parallelism ----
+
+def _check_heads(p, cfg, M: int):
+    """The per-head leaves must split over M head by head."""
+    h = cfg.num_heads
+    names = ("w_uq" if cfg.q_lora_rank else "w_q", "w_uk", "w_uv", "wo")
+    if h % M or any(p[n].dim is None for n in names if n != "w_q"):
+        raise ValueError(f"MLA's {h} heads do not split head by head "
+                         f"over {M} model shards (w_uq, w_uk, w_uv, wo)")
+
+
+def _shard_queries(p, x, cfg, positions, group):
+    """Each shard's (q_nope, q_rope) of its heads: the query bottleneck
+    (``w_dq``, ``q_norm``, whole) once on the first device, then
+    ``w_uq``'s columns of the shard's heads (a whole ``w_q`` projects on
+    the first device and each shard takes its heads' columns)."""
+    lead = tp.shard(p, 0)
+    rank = _q_rank(lead, x, cfg)
+    M = group.size
+    out = []
+    if not cfg.q_lora_rank:
+        q_all = rank @ lead["w_q"]
+        w = q_all.shape[-1] // M
+        for j, (qj, pos) in enumerate(zip(tp.broadcast(q_all, group),
+                                          tp.broadcast(positions, group))):
+            out.append(_heads_q(qj[..., j * w:(j + 1) * w], pos, cfg))
+        return out
+    for j, (rj, pos) in enumerate(zip(tp.broadcast(rank, group),
+                                      tp.broadcast(positions, group))):
+        out.append(_heads_q(rj @ p["w_uq"][j], pos, cfg))
+    return out
+
+
+def mla_attention_apply_tp(p, x, cfg, positions, group, latent=None):
+    """``mla_attention_apply`` split over a model group (``p`` a
+    ``Split`` tree, x replicated on the first device): the latent and
+    rope key (``w_dkv``, ``kv_norm``, whole) once on the first device,
+    each shard its heads (``w_uq`` / ``w_uk`` / ``w_uv`` columns, the
+    head-aligned split checked) by the materialized, block-wise or
+    chunked path, ``wo``'s rows of them giving a partial; the partials
+    all-reduced.  ``latent``: (latent, k_rope) when the caller has them
+    (the prefill)."""
+    _check_heads(p, cfg, group.size)
+    if latent is None:
+        latent = _latent(tp.shard(p, 0), x, cfg, positions)
+    qs = _shard_queries(p, x, cfg, positions, group)
+    parts = []
+    for j, (lat, kr) in enumerate(zip(tp.broadcast(latent[0], group),
+                                      tp.broadcast(latent[1], group))):
+        pj = tp.shard(p, j)
+        out = _attend(pj, *qs[j], lat, kr, cfg)
+        parts.append(out.flatten(-2) @ pj["wo"])
+    return tp.all_reduce(parts, group)
+
+
+def mla_decode_attention_tp(p, x, lat_c, kr_c, cfg, positions, pos, group):
+    """``mla_decode_attention`` split over a model group, over a latent
+    cache split by sequence (``lat_c``, ``kr_c``: ``Split``s, dim 1; the
+    new token's rows already written): each shard builds its heads'
+    absorbed queries, the queries are all-gathered (b, H, lora + rope),
+    each shard computes the softmax partials of every head over its
+    positions (<= ``pos``), ``combine_attention_partials`` merges them,
+    each shard applies its heads' ``w_uv`` and ``wo`` rows, and the
+    partials are all-reduced.  A whole cache: each shard its heads over
+    all of it."""
+    from repro_torch.models.attention import combine_partials_tp
+    _check_heads(p, cfg, group.size)
+    b = x.shape[0]
+    M = group.size
+    h, lora = cfg.num_heads, cfg.kv_lora_rank
+    hl = h // M
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+    q_lat, q_rope = [], []
+    for j, (qn, qr) in enumerate(_shard_queries(p, x, cfg, positions,
+                                                group)):
+        w_uk = p["w_uk"][j].reshape(lora, hl, dn)
+        q_lat.append(torch.einsum("bhd,lhd->bhl", qn[:, 0], w_uk))
+        q_rope.append(qr[:, 0])
+    poss = tp.broadcast(pos, group)
+
+    def partials(ql, qr, lat, kr, start, pj):
+        S = lat.shape[1]
+        sc = (torch.einsum("bhl,bsl->bhs", ql.float(), lat.float())
+              + torch.einsum("bhr,bsr->bhs", qr.float(), kr.float())) * scale
+        mask = (start + torch.arange(S, device=lat.device) <= pj)
+        sc = torch.where(mask[None, None, :], sc, NEG_INF)
+        m = sc.amax(dim=-1)
+        e = torch.exp(sc - m[..., None])
+        return m, e.sum(dim=-1), torch.einsum("bhs,bsl->bhl", e,
+                                              lat.float())
+
+    if lat_c.dim == 1:
+        S = lat_c[0].shape[1]
+        ql_all = tp.broadcast(tp.all_gather(q_lat, group, dim=1), group)
+        qr_all = tp.broadcast(tp.all_gather(q_rope, group, dim=1), group)
+        o = combine_partials_tp(
+            [partials(ql_all[i], qr_all[i], lat_c[j], kr_c[j], j * S,
+                      poss[i]) for i, j in enumerate(group.shards)], group)
+        o = o.to(lat_c[0].dtype)
+        outs = [oj[:, j * hl:(j + 1) * hl]
+                for j, oj in enumerate(tp.broadcast(o, group))]
+    else:
+        outs = []
+        for j in group.shards:
+            m, l, o = partials(q_lat[j], q_rope[j], lat_c[j], kr_c[j], 0,
+                               poss[j])
+            outs.append((o / torch.clamp(l, min=1e-30)[..., None])
+                        .to(lat_c[j].dtype))
+    parts = []
+    for j, oj in enumerate(outs):
+        w_uv = p["w_uv"][j].reshape(lora, hl, dv)
+        out = torch.einsum("bhl,lhv->bhv", oj, w_uv).reshape(b, 1, hl * dv)
+        parts.append(out @ p["wo"][j])
+    return tp.all_reduce(parts, group)

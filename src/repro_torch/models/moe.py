@@ -20,12 +20,22 @@ Two places differ in how, not what, they compute:
   token's k slots are sorted ascending (dropped ones last, reading a
   zero row) and summed into zeros in that order: k adds of (T, d), the
   same on both devices, the same from run to run.
+
+Split over a mesh's ``model`` axis (``moe_apply(..., group=)``): the
+router and the dispatch once, each shard the ``bmm``s of its E / M
+experts and the sum of its kept slots, the shards' partials all-reduced
+in shard order (``_moe_apply_flat_tp``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import nn
+
+EXPERT_PARTIALS = "all-reduce (experts)"
 
 
 def _experts_init(generator, e: int, in_dim: int, out_dim: int, dtype):
@@ -120,12 +130,16 @@ def expert_capacity(tokens: int, cfg) -> int:
                    / cfg.num_experts), 4)
 
 
-def moe_apply(p, x, cfg):
+def moe_apply(p, x, cfg, group=None):
     """x: (..., d) -> (out (..., d), aux_loss scalar f32).
 
     Long sequences are processed in token chunks (the reference's
     ``lax.scan``): capacity scales with the chunk, so the (E, C, d)
-    dispatch buffers stay O(chunk) and overflow drops stay local."""
+    dispatch buffers stay O(chunk) and overflow drops stay local.  With
+    a model ``group`` (``p`` a ``Split`` tree) each chunk runs split
+    over it (``_moe_apply_flat_tp``)."""
+    flat = (_moe_apply_flat if group is None
+            else functools.partial(_moe_apply_flat_tp, group=group))
     orig_shape = x.shape
     d = orig_shape[-1]
     xt_all = x.reshape(-1, d)
@@ -135,11 +149,11 @@ def moe_apply(p, x, cfg):
         c = chunk
         while T_all % c:
             c -= 1
-        outs, auxes = zip(*(_moe_apply_flat(p, xt_all[i:i + c], cfg)
+        outs, auxes = zip(*(flat(p, xt_all[i:i + c], cfg)
                             for i in range(0, T_all, c)))
         return (torch.cat(outs).reshape(orig_shape),
                 torch.stack(auxes).mean())
-    out, aux = _moe_apply_flat(p, xt_all, cfg)
+    out, aux = flat(p, xt_all, cfg)
     return out.reshape(orig_shape), aux
 
 
@@ -147,9 +161,11 @@ def _activation(cfg) -> str:
     return cfg.activation if cfg.activation != "gelu" else "swiglu"
 
 
-def _moe_apply_flat(p, xt, cfg):
-    """One dispatch round over xt: (T, d) -> ((T, d), aux)."""
-    T, d = xt.shape
+def _route(p, xt, cfg):
+    """The router and the dispatch of one round over xt (T, d): (aux,
+    src_token (E C,), valid (E C,), gate_of_slot (E C,) f32, mine (T,
+    k): each token's slots ascending, E C where dropped)."""
+    T = xt.shape[0]
     k = cfg.experts_per_token
     E = cfg.num_experts
     C = expert_capacity(T, cfg)
@@ -163,23 +179,70 @@ def _moe_apply_flat(p, xt, cfg):
     src_token = torch.where(valid, token_of_slot // k, 0)
     gate_of_slot = torch.where(
         valid, gates.reshape(-1)[torch.clamp(token_of_slot, min=0)], 0.0)
+    mine = torch.sort(slot_of_flat.reshape(T, k), dim=-1).values
+    return aux, src_token, valid, gate_of_slot, mine
 
-    xe = xt[src_token].reshape(E, C, d)                  # gather
-    xe = xe * valid.reshape(E, C, 1).to(xe.dtype)
+
+def _experts(p, xt, cfg, src_token, valid, gate_of_slot, mine, first):
+    """The experts of ``p`` (a leading axis of E' experts) over their
+    slots [first, first + E' C) of the dispatch, and each token's kept
+    slots among them summed in ascending slot order (a slot outside them
+    reads a zero row): (T, d)."""
+    T, d = xt.shape
+    e, C = p["we_gate"].shape[0], src_token.shape[0] // \
+        cfg.num_experts
+    slots = slice(first, first + e * C)
+    xe = xt[src_token[slots]].reshape(e, C, d)           # gather
+    xe = xe * valid[slots].reshape(e, C, 1).to(xe.dtype)
     h = nn.gated_act(_activation(cfg), torch.bmm(xe, p["we_gate"]),
                      torch.bmm(xe, p["we_up"]))
-    ye = torch.bmm(h, p["we_down"]).reshape(E * C, d)    # (E*C, d)
-    ye = ye * gate_of_slot[:, None].to(ye.dtype)
+    ye = torch.bmm(h, p["we_down"]).reshape(e * C, d)    # (E'C, d)
+    ye = ye * gate_of_slot[slots, None].to(ye.dtype)
     # combine: each token's kept slots in ascending order, then the zero
-    # row (index E*C) for its dropped ones
+    # row (index E'C) for its dropped ones and the other experts' slots
     ye = torch.cat([ye, ye.new_zeros((1, d))])
-    mine = torch.sort(slot_of_flat.reshape(T, k), dim=-1).values
+    local = mine - first
+    local = torch.where((local >= 0) & (local < e * C), local, e * C)
     out = torch.zeros((T, d), dtype=ye.dtype, device=xt.device)
-    for j in range(k):
-        out = out + ye[mine[:, j]]
+    for j in range(mine.shape[1]):
+        out = out + ye[local[:, j]]
+    return out
 
+
+def _moe_apply_flat(p, xt, cfg):
+    """One dispatch round over xt: (T, d) -> ((T, d), aux)."""
+    aux, *route = _route(p, xt, cfg)
+    out = _experts(p, xt, cfg, *route, 0)
     if cfg.num_shared_experts:
         out = out + nn.mlp_apply(p["shared"], xt, "swiglu")
+    return out, aux
+
+
+def _moe_apply_flat_tp(p, xt, cfg, group):
+    """One dispatch round split over a model group (``p`` a ``Split``
+    tree, xt replicated on the first device): the router (whole) and
+    the dispatch of every token at the unsharded capacity C once on the
+    first device; shard j the ``bmm``s of its E / M experts over their
+    slots and the sum of its kept slots in ascending slot order; the
+    shards' partials all-reduced in shard order (fixed-order, not bit
+    for bit the unsharded combine).  The shared experts run as a split
+    MLP; the load-balance term is counted once.  Experts the rule table
+    leaves whole run whole on the first device."""
+    aux, *route = _route(tp.shard(p, 0), xt, cfg)
+    if p["we_gate"].dim is None:
+        out = _experts(tp.shard(p, 0), xt, cfg, *route, 0)
+    else:
+        C = route[0].shape[0] // cfg.num_experts
+        parts = []
+        for j, (xj, *rj) in enumerate(zip(
+                tp.broadcast(xt, group),
+                *(tp.broadcast(t, group) for t in route))):
+            pj = tp.shard(p, j)
+            parts.append(_experts(pj, xj, cfg, *rj,
+                                  j * pj["we_gate"].shape[0] * C))
+        out = tp.all_reduce(parts, group, tag=EXPERT_PARTIALS)
+    if cfg.num_shared_experts:
+        out = out + nn.mlp_apply_tp(p["shared"], xt, "swiglu", group)
     return out, aux
 
 

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 
+from repro_torch.distributed import tensor_parallel as tp
+
 
 def as_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or its name (the configs' dtype
@@ -151,6 +153,62 @@ def mlp_apply(p, x, activation: str):
     return h @ p["w_down"] + p["b_down"]
 
 
+def mlp_apply_tp(p, x, activation: str, group):
+    """``mlp_apply`` split over a model group (``p`` a ``Split`` tree, x
+    replicated on the group's first device): ``w_gate``, ``w_up`` and
+    ``b_up`` column-split, ``w_down`` row-split, each shard's partial
+    product all-reduced, ``b_down`` added once after.  A ``d_ff`` that
+    the rule table leaves whole runs whole on the first device."""
+    if p["w_down"].dim is None:
+        return mlp_apply(tp.shard(p, 0), x, activation)
+    xs = tp.broadcast(x, group)
+    parts = []
+    for j, xj in enumerate(xs):
+        pj = tp.shard(p, j)
+        if activation in ("swiglu", "geglu"):
+            h = gated_act(activation, xj @ pj["w_gate"], xj @ pj["w_up"])
+        else:
+            h = F.gelu(xj @ pj["w_up"] + pj["b_up"], approximate="tanh")
+        parts.append(h @ pj["w_down"])
+    out = tp.all_reduce(parts, group)
+    return out + p["b_down"].whole if "b_down" in p else out
+
+
+# ------------------------------------------- vocabulary-parallel ends ----
+
+def embed_tp(table, tokens, group):
+    """The embedding rows of ``tokens`` from a vocabulary-parallel table
+    (a ``Split`` over its rows): shard j holds rows [j V / M, (j + 1) V /
+    M) and gives zero for an id outside them; the all-reduce sums.  A
+    table the rule table leaves whole is read on the first device."""
+    tokens = tokens.long()
+    if table.dim is None:
+        return table.whole[tokens.to(table.whole.device)]
+    parts = []
+    for j, t in enumerate(tp.broadcast(tokens, group)):
+        rows = table[j].shape[0]
+        local = t - j * rows
+        inside = (local >= 0) & (local < rows)
+        got = table[j][torch.clamp(local, 0, rows - 1)]
+        parts.append(torch.where(inside[..., None], got,
+                                 torch.zeros((), dtype=got.dtype,
+                                             device=got.device)))
+    return tp.all_reduce(parts, group)
+
+
+def head_tp(x, w, group, *, tied: bool = False):
+    """Logits of x (replicated on the first device) through a head split
+    over the vocabulary: ``w`` the head (d, V) split on V, or with
+    ``tied`` the embedding (V, d) split on V; each shard's logit slice,
+    all-gathered in shard order.  A head the rule table leaves whole
+    runs whole on the first device."""
+    if w.dim is None:
+        return x @ (w.whole.T.to(x.dtype) if tied else w.whole)
+    parts = [xj @ (w[j].T.to(xj.dtype) if tied else w[j])
+             for j, xj in enumerate(tp.broadcast(x, group))]
+    return tp.all_gather(parts, group, dim=-1)
+
+
 # ------------------------------------------------------------- losses ----
 
 def _token_losses(logits, labels, z_loss: float):
@@ -178,7 +236,8 @@ def chunked_cross_entropy_head(x, w_head, labels, mask=None, *,
     reference's ``jax.checkpoint``).  Padded vocab columns (at and past
     ``vocab_real``) are masked to -1e30.  x (b, s, d), labels (b, s),
     mask (b, s) float / bool or None -> mean CE over the masked tokens
-    (the chunk sums added in order)."""
+    (the chunk sums added in order).  ``w_head`` may be a function of a
+    chunk's rows giving its logits (the tensor-parallel head)."""
     b, s, d = x.shape
     c = min(chunk, s)
     while s % c:
@@ -188,7 +247,8 @@ def chunked_cross_entropy_head(x, w_head, labels, mask=None, *,
     mask = mask.float()
 
     def one(xb, lb, mb):
-        logits = (xb @ w_head).float()                    # (b, c, V)
+        logits = (w_head(xb) if callable(w_head)
+                  else xb @ w_head).float()                # (b, c, V)
         if vocab_real and vocab_real < logits.shape[-1]:
             pad = torch.arange(logits.shape[-1],
                                device=logits.device) < vocab_real

@@ -46,10 +46,23 @@ the backward (``torch.utils.checkpoint``, non-reentrant: the reference's
 ``jax.checkpoint`` of the layer scan's body; the hybrid's per group),
 and ``cfg.remat_block`` G > 0 adds the reference's outer level: blocks
 of G layers checkpointed around their per-layer checkpoints, so that
-one carry a block is kept.  A ``mesh`` is accepted and changes
-nothing computed: the reference's is a placement hint for GSPMD (its
-``_act_constraint``), and the port does not split a layer over the
-mesh (``launch.steps``).
+one carry a block is kept.
+
+Over a ``mesh`` whose ``model`` axis M exceeds 1, the kinds ``"dense"``,
+``"dense_first"``, ``"moe"``, ``"mla_dense"`` and ``"mla_moe"`` (and the
+VLM's dense backbone) run split over a model group (the reference's mesh
+is a placement hint for GSPMD, its ``_act_constraint``; the port
+executes the split its rule tables give, ``distributed.tensor_parallel``):
+the residual stream and the norms replicated on the group's first
+device; attention over each shard's heads (on the card one flash launch
+a shard), the MLP over its ``d_ff`` columns, the MoE over its experts,
+MLA over its heads; the embedding and the head vocabulary-parallel,
+the VLM's ``vis_proj`` over its output columns; the partials
+all-reduced, the logit and projection slices all-gathered; the caches
+split by ``cache_pspec``'s model entries (heads, or the sequence,
+whose decode merges each shard's softmax partials).  The kinds ssm,
+rglru, local, enc and dec keep their params whole over ``model`` and
+compute as without a mesh (ROADMAP item 38).
 """
 from __future__ import annotations
 
@@ -60,6 +73,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint as torch_checkpoint
 
+from repro_torch.distributed import sharding as shrules
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
@@ -77,8 +92,10 @@ def _tree_map(fn, *trees):
 
 
 def _layer(stacked, li: int):
-    """Layer ``li``'s params (or cache) of a stacked tree: views."""
-    return _tree_map(lambda a: a[li], stacked)
+    """Layer ``li``'s params (or cache) of a stacked tree: views (of
+    each block, for a model group's ``Split`` leaves)."""
+    return _tree_map(lambda a: a.at(li) if isinstance(a, tp.Split)
+                     else a[li], stacked)
 
 
 # =================================================================
@@ -89,6 +106,8 @@ _KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe", "ssm",
           "rglru", "local", "enc", "dec")
 _MLA_KINDS = ("mla_dense", "mla_moe")
 _MOE_KINDS = ("moe", "mla_moe")
+# the kinds that run split over a mesh's model axis
+_TP_KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe")
 
 
 def _norm_init(cfg, dtype, device=None):
@@ -145,10 +164,43 @@ def _ffn(p, x, cfg, kind: str):
     return nn.mlp_apply(p["ffn"], x, cfg.activation), None
 
 
+def _lead(p):
+    """The first shard's view of a model group's (sub)tree: its whole
+    copies of the replicated leaves (the norms)."""
+    return tp.shard(p, 0)
+
+
+def _ffn_tp(p, x, cfg, kind: str, group):
+    if kind in _MOE_KINDS:
+        return moe_mod.moe_apply(p["ffn"], x, cfg, group)
+    return nn.mlp_apply_tp(p["ffn"], x, cfg.activation, group), None
+
+
+def _layer_apply_tp(p, x, cfg, positions, kind, group, attn_impl):
+    """``layer_apply`` split over a model group: the residual stream and
+    the norms replicated on the first device, attention and the
+    feed-forward split (``*_tp``), their outputs all-reduced."""
+    h = _norm_apply(cfg, _lead(p["norm1"]), x)
+    if kind in _MLA_KINDS:
+        x = x + mla_mod.mla_attention_apply_tp(p["attn"], h, cfg, positions,
+                                               group)
+    else:
+        x = x + attn.attention_apply_tp(p["attn"], h, cfg, positions, group,
+                                        causal=True, impl=attn_impl,
+                                        rope=not cfg.learned_pos_emb)
+    y, moe_aux = _ffn_tp(p, _norm_apply(cfg, _lead(p["norm2"]), x), cfg,
+                         kind, group)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux if moe_aux is None else moe_aux
+
+
 def layer_apply(p, x, cfg, positions, kind: str, *, enc_out=None,
-                attn_impl="chunked"):
-    """Full-sequence layer.  Returns (x, aux)."""
+                attn_impl="chunked", group=None):
+    """Full-sequence layer.  Returns (x, aux).  With a model ``group``
+    (``p`` a ``Split`` tree) the layer runs split over it."""
     _check_kind(kind)
+    if group is not None:
+        return _layer_apply_tp(p, x, cfg, positions, kind, group, attn_impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm_apply(cfg, p["norm1"], x)
     if kind == "ssm":
@@ -207,16 +259,103 @@ def layer_init_cache(cfg, kind: str, batch: int, max_len: int, dtype,
     return c
 
 
+def _write_prefix(block_split, rows, s: int):
+    """Rows [0, s) of the whole sequence written into a cache leaf's
+    blocks: a sequence block its own positions, a replicated leaf each
+    distinct copy."""
+    if block_split.dim == 1:
+        n = block_split[0].shape[1]
+        for j, blk in enumerate(block_split):
+            k = min(n, rows.shape[1] - j * n)
+            if k > 0:
+                blk[:, :k] = rows[:, j * n:j * n + k].to(blk.device,
+                                                         blk.dtype)
+        return
+    for blk in {id(b): b for b in block_split}.values():
+        blk[:, :s] = rows.to(blk.device, blk.dtype)
+
+
+def _layer_prefill_tp(p, x, cfg, positions, kind, cache, group, attn_impl):
+    """``layer_prefill`` split over a model group: the attention as in
+    ``_layer_apply_tp``, the cache written by its layout (heads over
+    model: each shard its KV heads; the sequence over model: every KV
+    head all-gathered and each shard its positions; MLA's latent and
+    rope key, computed once, each shard its positions)."""
+    s = x.shape[1]
+    h = _norm_apply(cfg, _lead(p["norm1"]), x)
+    if kind in _MLA_KINDS:
+        latent = mla_mod.mla_prefill_latent(_lead(p["attn"]), h, cfg,
+                                            positions)
+        _write_prefix(cache["latent"], latent[0], s)
+        _write_prefix(cache["k_rope"], latent[1], s)
+        x = x + mla_mod.mla_attention_apply_tp(p["attn"], h, cfg, positions,
+                                               group, latent=latent)
+    else:
+        qkv = attn.qkv_project_tp(p["attn"], h, cfg, positions, group,
+                                  rope=not cfg.learned_pos_emb)
+        for i, name in ((1, "k"), (2, "v")):
+            c = cache[name]
+            if c.dim == 2:              # heads over model
+                for j, t in enumerate(qkv):
+                    c[j][:, :s] = t[i]
+            else:
+                _write_prefix(c, attn.owned_kv([t[i] for t in qkv], cfg,
+                                               group), s)
+        x = x + attn.attention_apply_tp(p["attn"], h, cfg, positions, group,
+                                        causal=True, impl=attn_impl,
+                                        qkv=qkv)
+    y, _ = _ffn_tp(p, _norm_apply(cfg, _lead(p["norm2"]), x), cfg, kind,
+                   group)
+    return x + y, cache
+
+
+def _layer_decode_tp(p, x, cfg, cache, pos, kind, group):
+    """``layer_decode`` split over a model group (``decode_attention_tp``,
+    ``mla_decode_attention_tp``): the new latent and rope key, computed
+    once, written by the shard whose sequence block holds ``pos``."""
+    b = x.shape[0]
+    h = _norm_apply(cfg, _lead(p["norm1"]), x)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    if kind in _MLA_KINDS:
+        latent, k_rope = mla_mod.mla_prefill_latent(_lead(p["attn"]), h,
+                                                    cfg, positions)
+        lat_c, kr_c = cache["latent"], cache["k_rope"]
+        if lat_c.dim == 1:
+            n = lat_c[0].shape[1]
+            for j, (lat, kr, pj) in enumerate(zip(
+                    tp.broadcast(latent, group), tp.broadcast(k_rope, group),
+                    tp.broadcast(pos, group))):
+                attn.write_at(lat_c[j], lat, pj, j * n)
+                attn.write_at(kr_c[j], kr, pj, j * n)
+        else:
+            attn.write_copies(lat_c, latent, pos)
+            attn.write_copies(kr_c, k_rope, pos)
+        x = x + mla_mod.mla_decode_attention_tp(p["attn"], h, lat_c, kr_c,
+                                                cfg, positions, pos, group)
+    else:
+        x = x + attn.decode_attention_tp(p["attn"], h, cfg, cache, pos,
+                                         group)
+    y, _ = _ffn_tp(p, _norm_apply(cfg, _lead(p["norm2"]), x), cfg, kind,
+                   group)
+    return x + y, cache
+
+
 def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
-                  enc_out=None, attn_impl="chunked", cache=None):
+                  enc_out=None, attn_impl="chunked", cache=None,
+                  group=None):
     """Layer forward that also fills its decode cache (made with
     ``layer_init_cache`` when None): K/V (or MLA's latent and rope key)
     at positions [0, s), zeros past them; a local layer's last min(s, W)
     K/V at ring slots ``i % W`` with their positions; the SSM's and the
     RG-LRU's final state and conv window; a ``dec`` layer's cross K/V of
     ``enc_out`` (computed once, for the cache and the cross attention;
-    the reference computes them twice).  Returns (x, cache)."""
+    the reference computes them twice).  Returns (x, cache).  With a
+    model ``group`` (``p`` and ``cache`` ``Split`` trees) the layer runs
+    split over it."""
     _check_kind(kind)
+    if group is not None:
+        return _layer_prefill_tp(p, x, cfg, positions, kind, cache, group,
+                                 attn_impl)
     b, s, _ = x.shape
     if cache is None:
         cache = layer_init_cache(
@@ -275,16 +414,19 @@ def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
     return x + y, cache
 
 
-def layer_decode(p, x, cfg, cache, pos, kind: str):
+def layer_decode(p, x, cfg, cache, pos, kind: str, group=None):
     """One-token layer step.  x: (b,1,d); pos: the write index (a 0-d
     tensor on x's device, or an int).  Writes K/V (or the latent and
     rope key) at ``pos`` of ``cache`` (a local layer: at ring slot ``pos
     % W``; the SSM and the RG-LRU: their state and conv window) in place
     and returns (x, cache); a ``dec`` layer also attends over its cross
-    cache, which it only reads."""
+    cache, which it only reads.  With a model ``group`` (``p`` and
+    ``cache`` ``Split`` trees) the layer runs split over it."""
     _check_kind(kind)
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    if group is not None:
+        return _layer_decode_tp(p, x, cfg, cache, pos, kind, group)
     h = _norm_apply(cfg, p["norm1"], x)
     if kind == "ssm":
         out, cache = ssm_mod.ssm_decode_step(p["mixer"], h, cache, cfg)
@@ -347,7 +489,7 @@ def _checkpointed(fn):
 
 
 def _apply_stack(stacked, L: int, x, cfg, positions, kind: str, *,
-                 enc_out=None, attn_impl="chunked"):
+                 enc_out=None, attn_impl="chunked", group=None):
     """A stacked segment's ``L`` layers in order (the reference's
     ``_scan_layers``): (x, summed aux).  Under ``cfg.remat`` each layer
     is recomputed in its backward; with ``cfg.remat_block`` G dividing
@@ -356,7 +498,7 @@ def _apply_stack(stacked, L: int, x, cfg, positions, kind: str, *,
 
     def body(h, aux, li):
         h, a = layer_apply(_layer(stacked, li), h, cfg, positions, kind,
-                           enc_out=enc_out, attn_impl=attn_impl)
+                           enc_out=enc_out, attn_impl=attn_impl, group=group)
         return h, aux + a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -434,6 +576,7 @@ class ModelFns:
     prefill: Any
     decode_step: Any
     init_cache: Any
+    split: bool = False        # runs split over the mesh's model axis
 
 
 def _layer_plan(cfg):
@@ -461,6 +604,12 @@ def _max_pos(cfg):
     return 65536 if not cfg.encdec else 32768
 
 
+def tp_kinds(cfg) -> bool:
+    """Whether every layer of ``cfg`` is of a kind that runs split over
+    a model axis (``_TP_KINDS``)."""
+    return all(kind in _TP_KINDS for kind, _ in _layer_plan(cfg))
+
+
 def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     """The LM of ``cfg`` (dense, MoE, MLA, SSM, hybrid, encoder-decoder
     or VLM).  ``init(generator)`` draws the params on the generator's
@@ -468,12 +617,33 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     caller names another); the other entry points run where the params
     are.  ``batch`` is the reference's: ``"tokens"`` (b, s) ids, and
     ``"patch_emb"`` (the VLM) or ``"audio_emb"`` (whisper), numpy arrays
-    or tensors.  ``mesh`` is accepted and unused (module docstring)."""
+    or tensors.
+
+    With a ``mesh`` whose ``model`` axis M exceeds 1 and layers of the
+    kinds ``_TP_KINDS`` (``split``), the entry points run split over
+    the model group of the mesh's first position (module docstring):
+    they take the params whole (laid out first), placed
+    (``distributed.tensor_parallel.place``) or as a group's ``Split``
+    tree; ``init`` still draws them whole; the caches are the group's
+    ``Split`` tree (plus ``pos`` on the first device) by
+    ``cache_pspec``'s model entries.  The other kinds (ssm, rglru,
+    local, enc, dec) keep their params whole under a model axis, and
+    compute as without a mesh (ROADMAP item 38)."""
     dtype = nn.as_dtype(cfg.param_dtype)
     cdt = nn.as_dtype(cfg.compute_dtype)
     tied = cfg.tie_embeddings
     emb_scale = float(cfg.d_model) ** 0.5 if tied else 1.0
     plan = _layer_plan(cfg)
+    split = tp.model_size(mesh) > 1 and tp_kinds(cfg)
+
+    def _view(params):
+        """(the model group's ``Split`` tree of ``params``, the group),
+        or (params, None) unsplit."""
+        if not split:
+            return params, None
+        if not tp.is_view(params):
+            params = tp.group_view(tp.place(params, mesh), mesh)
+        return params, tp.group_of(params)
     # the hybrid: groups of block_pattern, stacked over n_groups, then
     # the leftover layers one by one (the reference's layout)
     pattern = tuple(cfg.block_pattern) if cfg.hybrid else ()
@@ -530,22 +700,36 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             params[f"seg{si}"] = _stacked_init(generator, cfg, dtype, kind, n)
         return params
 
-    def _embed_tokens(params, tokens):
-        tokens = torch.as_tensor(tokens, device=params["embed"].device)
-        x = params["embed"][tokens.long()].to(cdt)
+    def _embed_tokens(params, tokens, g=None):
+        if g is not None:
+            x = nn.embed_tp(params["embed"],
+                            torch.as_tensor(tokens, device=g.lead), g) \
+                .to(cdt)
+        else:
+            tokens = torch.as_tensor(tokens, device=params["embed"].device)
+            x = params["embed"][tokens.long()].to(cdt)
         if tied:   # sqrt(d) cast to x's type (a host scalar, no copy)
             x = x * torch.tensor(emb_scale, dtype=x.dtype)
         return x
 
-    def _inputs(params, batch):
+    def _vis(params, patches, g):
+        """The patches projected by ``vis_proj``: split over a model
+        group, each shard its columns, all-gathered."""
+        vp = params["vis_proj"]
+        if g is None or vp.dim is None:
+            return patches @ (vp if g is None else vp.whole)
+        return tp.all_gather([pj @ vp[j] for j, pj in
+                              enumerate(tp.broadcast(patches, g))], g)
+
+    def _inputs(params, batch, g=None):
         """The decoder's input rows (the VLM's projected patches first,
         then the text tokens; plus ``dec_pos`` under learned positions)
         and their positions."""
-        dev = params["embed"].device
-        x = _embed_tokens(params, batch["tokens"])
+        dev = g.lead if g is not None else params["embed"].device
+        x = _embed_tokens(params, batch["tokens"], g)
         if cfg.frontend == "vision_stub":
             patches = torch.as_tensor(batch["patch_emb"], device=dev)
-            x = torch.cat([patches.to(cdt) @ params["vis_proj"], x], dim=1)
+            x = torch.cat([_vis(params, patches.to(cdt), g), x], dim=1)
         if cfg.learned_pos_emb:
             x = x + params["dec_pos"][: x.shape[1]][None].to(x.dtype)
         return x, torch.arange(x.shape[1], device=dev)
@@ -564,11 +748,21 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
                             cfg, pos, "enc")
         return _norm_apply(cfg, params["enc_norm"], a)
 
-    def _logits(params, x):
-        x = _norm_apply(cfg, params["final_norm"], x)
-        logits = (x @ params["embed"].T.to(x.dtype) if tied
-                  else x @ params["head"])
-        return logits[..., : cfg.vocab_size]
+    def _head(params, g):
+        """The head as a function of normed rows: the tied embedding's
+        transpose or ``head``, split over the vocabulary with a group."""
+        w = params["embed"] if tied else params["head"]
+        if g is not None:
+            return lambda x: nn.head_tp(x, w, g, tied=tied)
+        return lambda x: x @ (w.T.to(x.dtype) if tied else w)
+
+    def _final_norm(params, x, g):
+        return _norm_apply(cfg, params["final_norm"] if g is None
+                           else _lead(params["final_norm"]), x)
+
+    def _logits(params, x, g=None):
+        x = _final_norm(params, x, g)
+        return _head(params, g)(x)[..., : cfg.vocab_size]
 
     def _hybrid_apply(params, x, positions):
         """The hybrid's groups (each one checkpoint under ``cfg.remat``,
@@ -589,13 +783,13 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             aux = aux + a
         return x, aux
 
-    def _backbone_train(params, x, positions):
+    def _backbone_train(params, x, positions, g=None):
         if cfg.hybrid:
             return _hybrid_apply(params, x, positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, (kind, n) in enumerate(plan):
             x, a = _apply_stack(params[f"seg{si}"], n, x, cfg, positions,
-                                kind, attn_impl=attn_impl)
+                                kind, attn_impl=attn_impl, group=g)
             aux = aux + a
         return x, aux
 
@@ -608,7 +802,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         With ``cfg.ce_chunk`` the head and CE run fused over sequence
         chunks, the final position masked (the shift without slicing);
         else the full logits and CE of positions [0, s - 1)."""
-        dev = params["embed"].device
+        params, g = _view(params)
+        dev = g.lead if g is not None else params["embed"].device
         with full_f32_matmul():
             if cfg.encdec:
                 enc_out = _encode(params, batch)
@@ -617,13 +812,15 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
                                       positions, "dec", enc_out=enc_out,
                                       attn_impl=attn_impl)
             else:
-                x, positions = _inputs(params, batch)
-                x, aux = _backbone_train(params, x, positions)
+                x, positions = _inputs(params, batch, g)
+                x, aux = _backbone_train(params, x, positions, g)
             labels = torch.as_tensor(batch["labels"], device=dev).long()
             if cfg.frontend == "vision_stub":   # loss over text positions
                 x = x[:, cfg.num_vision_tokens:, :]
-            x = _norm_apply(cfg, params["final_norm"], x)
-            w = (params["embed"].T.to(x.dtype) if tied else params["head"])
+            x = _final_norm(params, x, g)
+            w = (_head(params, g) if g is not None
+                 else params["embed"].T.to(x.dtype) if tied
+                 else params["head"])
             if cfg.ce_chunk:
                 s = labels.shape[1]
                 labels_next = torch.cat(
@@ -634,12 +831,42 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
                     x, w, labels_next, pos_mask, chunk=cfg.ce_chunk,
                     vocab_real=cfg.vocab_size)
             else:
-                logits = (x @ w)[..., : cfg.vocab_size]
+                logits = (w(x) if g is not None else x @ w)[
+                    ..., : cfg.vocab_size]
                 loss = nn.cross_entropy(logits[:, :-1], labels[:, 1:])
         return loss + aux, {"ce": loss, "aux": aux}
 
     def init_cache(batch_size: int, max_len: int, dtype_=None, *,
                    device=None, enc_len=None):
+        if split:       # the model group's blocks (``device`` unused)
+            return _split_cache(batch_size, max_len, dtype_)
+        return _whole_cache(batch_size, max_len, dtype_, device=device,
+                            enc_len=enc_len)
+
+    def _split_cache(batch_size, max_len, dtype_):
+        """Zeroed blocks of the caches over the mesh's first model
+        group: each split leaf shard j's block of ``cache_pspec``'s model
+        split on its device, each replicated leaf one copy a device."""
+        whole = _whole_cache(batch_size, max_len, dtype_, device="meta")
+        pos = whole.pop("pos")
+        g = tp.model_group(mesh)
+
+        def one(t, sh):
+            dim = next((i for i, e in enumerate(sh.spec) if e is not None),
+                       None)
+            if dim is None:
+                copies = {d: torch.zeros(t.shape, dtype=t.dtype, device=d)
+                          for d in dict.fromkeys(g.devices)}
+                return tp.Split([copies[d] for d in g.devices], None)
+            block = sh.shard_shape(t.shape)
+            return tp.Split([torch.zeros(block, dtype=t.dtype, device=d)
+                             for d in g.devices], dim)
+        out = tp._map2(one, whole, shrules.model_shardings(whole, mesh, cfg))
+        out["pos"] = torch.zeros((), dtype=pos.dtype, device=g.lead)
+        return out
+
+    def _whole_cache(batch_size, max_len, dtype_=None, *, device=None,
+                     enc_len=None):
         dt = dtype_ or cdt
         dev = resolve_device(device)
         caches: Dict[str, Any] = {
@@ -662,10 +889,11 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         return caches
 
     def prefill(params, batch, max_len: int):
-        dev = params["embed"].device
+        params, g = _view(params)
+        dev = g.lead if g is not None else params["embed"].device
         with full_f32_matmul():
             enc_out = _encode(params, batch) if cfg.encdec else None
-            x, positions = _inputs(params, batch)
+            x, positions = _inputs(params, batch, g)
             b, s, _ = x.shape
             caches = init_cache(
                 b, max(max_len, s), device=dev,
@@ -674,24 +902,25 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
                 x, _ = layer_prefill(lp, x, cfg, positions, kind, max_len,
                                      enc_out=enc_out, attn_impl=attn_impl,
-                                     cache=lc)
-            logits = _logits(params, x[:, -1:, :])
+                                     cache=lc, group=g)
+            logits = _logits(params, x[:, -1:, :], g)
         return logits, caches
 
     def decode_step(params, tokens, caches):
         """tokens: (b,1) ints.  Returns (logits (b,1,V), caches): the
         cache buffers are written in place, ``pos`` advances by one."""
+        params, g = _view(params)
         pos = caches["pos"]
         with full_f32_matmul():
-            x = _embed_tokens(params, tokens)
+            x = _embed_tokens(params, tokens, g)
             if cfg.learned_pos_emb:   # a gather at the device pos: no sync
                 x = x + params["dec_pos"].index_select(
                     0, pos.long().reshape(1))[None].to(x.dtype)
             for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
-                x, _ = layer_decode(lp, x, cfg, lc, pos, kind)
-            logits = _logits(params, x)
+                x, _ = layer_decode(lp, x, cfg, lc, pos, kind, group=g)
+            logits = _logits(params, x, g)
         return logits, {**caches, "pos": pos + 1}
 
     return ModelFns(cfg=cfg, init=init, train_forward=train_forward,
                     prefill=prefill, decode_step=decode_step,
-                    init_cache=init_cache)
+                    init_cache=init_cache, split=split)

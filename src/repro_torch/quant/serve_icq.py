@@ -10,8 +10,9 @@ dims, refining only the ``top_c`` survivors.  It is plain PyTorch on
 both devices, as the reference's is not a Pallas kernel; the cache is
 written in place.  ``icq_kv_cache_shardings`` are the reference's
 rules for the quantized cache (the dry run reads them); a ``mesh``
-given to ``build_icq_decode`` is accepted and, as in the reference,
-does not change what the step computes.
+given to ``build_icq_decode`` is accepted and does not change what the
+step computes: its params and caches stay whole under a ``model`` axis
+(the split of ICQ-KV's decode is ROADMAP item 38).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
     decode_fn(params, tokens, caches, *, top_c) -> (logits, caches); the
     caches are the stacked ICQ-KV tree of every layer (``"layers"``) and
     the position (``"pos"``, a 0-d tensor), written in place.  ``mesh``
-    is accepted and unused, as in the reference."""
+    is accepted and unused (module docstring)."""
     if not supports_icq_kv(cfg):
         raise NotImplementedError(
             f"ICQ-KV serves dense decoder-only archs (supports_icq_kv, the "

@@ -65,16 +65,21 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """On the first leaf's device (leaves may lie on several: a tree of
+    tensor-parallel blocks)."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    sums = [torch.sum(torch.square(x.to(torch.float32))).to(dev)
+            for x in leaves]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def clip_by_global_norm(tree, max_norm: float):
     """(tree scaled by ``min(1, max_norm / max(norm, 1e-9))``, norm)."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
+    return tree_map(lambda x: (x.to(torch.float32)
+                               * scale.to(x.device)).to(x.dtype),
                     tree), norm
 
 
@@ -121,13 +126,16 @@ class AdamW:
                              device=gnorm.device)
 
         def upd(g, m, v, p):
-            g32 = g.to(torch.float32) * scale
+            # the step's scalars where the leaf lies (a no-op on one device)
+            sc, c1, c2, rate = (t.to(p.device)
+                                for t in (scale, corr1, corr2, lr))
+            g32 = g.to(torch.float32) * sc
             m32 = m.to(torch.float32) * b1 + g32 * (1 - b1)
             v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1 - b2)
-            delta = (m32 / corr1) / (torch.sqrt(v32 / corr2) + self.eps)
+            delta = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
             if self.weight_decay and p.ndim >= 2:   # decay matrices only
                 delta = delta + self.weight_decay * p.to(torch.float32)
-            newp = p.to(torch.float32) - lr * delta
+            newp = p.to(torch.float32) - rate * delta
             return (newp.to(p.dtype), m32.to(self.moment_dtype),
                     v32.to(self.moment_dtype))
 

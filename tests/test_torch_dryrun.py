@@ -86,3 +86,83 @@ def test_cli_writes_a_record(tmp_path):
         assert rec["memory"]["cache"] > 0 and rec["memory"]["params"] > 0
         assert rec["compute_term_s"] == pytest.approx(
             rec["counted_flops_per_dev"] / dryrun.PEAK_FLOPS)
+
+
+def _tp_cell(kind, seq_len, batch):
+    """tinyllama at 2 layers (full width, bf16 as the dry run scales it)
+    on the meta (data 1, model 2) mesh: the lowered cell."""
+    mesh = make_mesh_auto((1, 2), ("data", "model"), devices="meta")
+    cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b"),
+                              num_layers=2, microbatch_size=batch)
+    shape = configs.ShapeSpec(name="t", seq_len=seq_len, global_batch=batch,
+                              kind=kind)
+    return lower_cell(plan_cell(cfg, shape, mesh))
+
+
+def test_tensor_parallel_bytes_of_a_train_cell_equal_a_hand_count():
+    """A 2 x 512 train cell split over model 2: the collectives the split
+    step's code runs, counted on the meta device, under their own keys
+    beside the param collectives.  By hand, with a = 2 x 512 x 2048 x 2
+    bytes (a bf16 activation), each all-reduce moving 2 (M - 1) / M a = a
+    a device: forward the embedding's and each layer's two (attention,
+    MLP) all-reduces; the remat recompute of each layer up to the last
+    tensor its backward reads (the attention's all-reduce; the MLP's is
+    past it); backward the gradient all-reduce of each layer's two
+    broadcast inputs and of the head's input: 1 + 4 + 2 + 5 = 12; the
+    head's logit slices (2 x 512 x 32000 bf16) all-gathered, (M - 1) / M
+    of them a device, in the forward and in the CE chunk's recompute."""
+    lowered = _tp_cell("train", 512, 2)
+    act, logits = 2 * 512 * 2048 * 2, 2 * 512 * 32000 * 2
+    want = {"all-reduce (tp)": 12.0 * act, "all-gather (tp)": logits}
+    assert lowered.cost.tp_bytes == want
+    total, by_op = dryrun.collective_bytes(lowered.plan, compress=False,
+                                           tp_bytes=lowered.cost.tp_bytes)
+    plain, plain_by_op = dryrun.collective_bytes(lowered.plan,
+                                                 compress=False)
+    assert total == plain + sum(want.values())
+    assert by_op == dict(plain_by_op, **want)
+
+
+def test_tensor_parallel_bytes_of_a_decode_cell_equal_a_hand_count():
+    """One decode token of 4 rows over a 1024-position cache, split over
+    model 2 (4 KV heads: the cache split by heads): the embedding's and
+    each layer's two all-reduces of a 4 x 2048 bf16 activation (2 (M -
+    1) / M of it a device each: 5 in all) and the logits' all-gather
+    (4 x 32000 bf16, half of it a device); a prefill of 2 x 512: the
+    same all-reduces of its activations and the last position's logits
+    all-gathered; a model axis of 1 counts none."""
+    dec = _tp_cell("decode", 1024, 4)
+    assert dec.cost.tp_bytes == {"all-reduce (tp)": 5.0 * 4 * 2048 * 2,
+                                 "all-gather (tp)": 0.5 * 4 * 32000 * 2}
+    pre = _tp_cell("prefill", 512, 2)
+    assert pre.cost.tp_bytes == {
+        "all-reduce (tp)": 5.0 * 2 * 512 * 2048 * 2,
+        "all-gather (tp)": 0.5 * 2 * 32000 * 2}
+    mesh = make_mesh_auto((1, 1), ("data", "model"), devices="meta")
+    cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b"),
+                              num_layers=2)
+    shape = configs.ShapeSpec(name="t", seq_len=1024, global_batch=4,
+                              kind="decode")
+    assert lower_cell(plan_cell(cfg, shape, mesh)).cost.tp_bytes == {}
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-236b",
+                                  "internvl2-76b"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_one_model_shards_trace_counts_the_groups_collectives(arch, kind):
+    """The dry run traces one model shard's split step
+    (``tensor_parallel.one_shard``); its count equals the whole group's
+    step traced shard by shard, at smoke size on a meta (data 1, model
+    2) mesh: tinyllama's wk / wv split inside its one KV head and its
+    cache by sequence, deepseek's MLA and experts, internvl's
+    ``vis_proj``."""
+    from repro_torch.distributed import tensor_parallel as tp
+    mesh = make_mesh_auto((1, 2), ("data", "model"), devices="meta")
+    cfg = configs.smoke_config(arch)
+    shape = configs.ShapeSpec(name="t", seq_len=16, global_batch=2,
+                              kind=kind)
+    plan = plan_cell(cfg, shape, mesh)
+    with torch.no_grad() if kind != "train" else torch.enable_grad(), \
+            tp.counting() as whole:
+        plan.tp_fn(*plan.tp_args)
+    assert hlo_cost.tp_collectives(plan) == whole and whole

@@ -2402,3 +2402,98 @@ def test_cuda_reshard_and_combine():
              for t, r in zip(gs, rs)]
     assert torch.equal(means[0, 0, 0], (parts[0] + parts[1]) / 2)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvh", [1, 2])
+def test_cuda_split_prefill_decode_equals_unsharded(kvh):
+    """Prefill and 4 greedy decode steps split over (model 2) on the
+    visible cards (one card repeated, or two cards) against the unsharded
+    ones on the first card: f32
+    logits within 2e-5 of the largest, greedy tokens equal; each shard's
+    attention is the flash kernel over its heads, 2 launches a layer (1
+    KV head: its wk / wv split inside the head, the cache split by
+    sequence; 2: by heads); the split step's decode writes its cache
+    in place without a host synchronize."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_serve_fns
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(_dense_lm("tinyllama-1.1b", False),
+                              num_kv_heads=kvh)
+    params = build_model(cfg).init(0, device="cuda")
+    mesh = make_mesh_auto((2,), ("model",))
+    placed = tp.place(params, mesh)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16),
+                                             dtype=np.int32)
+    outs = []
+    for m, p in ((mesh, placed), (None, params)):
+        prefill, decode, _ = build_serve_fns(cfg, mesh=m)
+        ops.LAUNCHES["flash_attention"] = 0
+        logits, caches = prefill(p, {"tokens": toks}, 24)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == cfg.num_layers * (
+            2 if m is not None else 1)
+        got = [logits]
+        for _ in range(4):
+            tok = got[-1][:, -1].argmax(-1)[:, None]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, caches = decode(p, tok, caches)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got.append(logits)
+        outs.append(got)
+    for g, w in zip(*outs):
+        assert float((g - w).abs().max()) <= 2e-5 * float(w.abs().max())
+        assert torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1))
+
+
+@pytest.mark.gpu
+def test_cuda_split_train_step_equals_unsharded():
+    """A (1, 2, 2) (pod, data, model) train step on the visible cards
+    (one card repeated, or four cards), its layers split over model,
+    against the unsharded step on the first card: loss to 1e-5, the pre-clip norm to 1e-5, params and
+    both moments (gathered from their blocks) within 1e-4 of each leaf's
+    largest; the flash kernel over each shard's heads: 4 forward
+    launches a layer (2 data x 2 model shards; twice under remat) and 4
+    of each backward kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _dense_lm("tinyllama-1.1b", False)
+    card = build_model(cfg).init(0, device="cuda")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 8, 16),
+                                             dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    step0, _, _, init0 = build_train_step(cfg, n_micro=1)
+    p0, o0, m0 = step0(card, init0(card), batch)
+    mesh = make_mesh_auto((1, 2, 2), ("pod", "data", "model"))
+    step, _, _, init = build_train_step(cfg, n_micro=1, multi_pod=True,
+                                        mesh=mesh)
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    p1, o1, m1 = step(card, init(card), batch)
+    torch.cuda.synchronize()
+    n = 4 * cfg.num_layers
+    assert (ops.LAUNCHES["flash_attention"],
+            ops.LAUNCHES["flash_attention_bwd_dq"],
+            ops.LAUNCHES["flash_attention_bwd_dkdv"]) == (
+        n * (2 if cfg.remat else 1), n, n)
+    for name in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(m1[name]), float(m0[name]),
+                                   rtol=1e-5)
+    for got, want in ((tp.gather(p1), p0), (tp.gather(o1["m"]), o0["m"]),
+                      (tp.gather(o1["v"]), o0["v"])):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert float((g - w).abs().max()) <= 1e-4 * float(
+                w.abs().max())
