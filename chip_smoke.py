@@ -371,7 +371,26 @@ or outside a checkout of the repository.  Phases:
    sequence, 80 experts a shard; (d) llama3-405b at full width, depth
    126 -> 1, bf16, 1 x 2048, 4 steps over (model 16): 8 query heads a
    shard, half a KV head's columns of wk / wv (all-gathered), the cache
-   split by sequence; (c) and (d) at phase 14's bf16 gate.
+   split by sequence; (c) and (d) at phase 14's bf16 gate; (a') the
+   split train step of recurrentgemma-9b at full width, depth 38 -> 3
+   (rglru, rglru, local), f32, 2 x 4096 over (pod 1, data 2, model 2) at
+   (a)'s gates against the unsharded step (the windowed flash forward
+   and both backward kernels on each shard; no CPU twin: ~300 s on the
+   CPU); at full width and depth in bf16 over (model 2), each against
+   the unsharded served path at phase 14's bf16 gate: (e) mamba2-1.3b
+   8 x 2048, 16 steps (the SSM's segment layout, B / C all-gathered;
+   held in f32 at LM_TOL and its bf16 drift from f32 against the
+   unsplit path's; (e') the same at 1 layer at the bf16 gate); (f)
+   recurrentgemma-9b 1 x 4096, 16 steps (the ring split by sequence and
+   wrapped); (g) whisper-large-v3 8 x (1500 frames + 64), 16 steps
+   (encoder, self and cross attention by heads, the cross cache by
+   heads); every cell's shard holding ``shard_bytes`` of its params;
+   (h) ICQ-KV's decode of phase 14's cell A (f32, 8 x 512, d_fast 16,
+   top_c 128, 32 steps) over (model 2) by KV heads and (model 8) by
+   positions, and over (model 8) at a 2048-token prompt (257 positions
+   a shard, past top_c), against the unsplit ICQ-KV step: logits
+   within LM_TOL, greedy tokens and the global survivors equal outside
+   near ties.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -5316,7 +5335,7 @@ def train_flash_launches(cfg, n_micro: int) -> dict:
     every microbatch runs the forward twice under remat (the step and
     the recompute of its backward), once without it, and each backward
     kernel once."""
-    n = cfg.num_layers * n_micro
+    n = attention_layers(cfg) * n_micro
     return {"flash_attention": n * (2 if cfg.remat else 1),
             "flash_attention_bwd_dq": n, "flash_attention_bwd_dkdv": n}
 
@@ -5923,15 +5942,23 @@ def icq_step_ratios(opt, out, plain, pod_grads, cpu_out):
     return out_r
 
 
-def plain_step_ratios(out, want, what):
+def plain_step_ratios(out, want, what, moments_only=()):
     """Phase 16 (b)'s plain gates against ``want`` (the unsharded step or
     the CPU's): params, m and v within LM_TOL of each leaf's largest,
-    the pre-clip norm to LM_TOL."""
+    the pre-clip norm to LM_TOL.  The leaves named in ``moments_only``
+    are held on m and v only: a leaf that starts at zero holds, after a
+    first AdamW step, lr g / (|g| + eps) for each element, whose largest
+    is the learning rate whatever the gradient, so an element whose
+    gradient is near eps moves by a share of lr that no gradient bound
+    limits to LM_TOL of it; its gradient is m's."""
     r = {}
     for name, got_t, want_t in (("params", out[0], want[0]),
                                 ("m", out[1]["m"], want[1]["m"]),
                                 ("v", out[1]["v"], want[1]["v"])):
         got_f, want_f = _flat(got_t), _flat(want_t)
+        if name == "params":
+            want_f = {k: w for k, w in want_f.items()
+                      if k not in moments_only}
         r[f"{name} vs {what}"] = _ratio(
             got_f, want_f, {k: LM_TOL * float(w.abs().max())
                             for k, w in want_f.items()})
@@ -6174,8 +6201,15 @@ def lm_sharding(seed: int, card: str):
 # (a) the split train step: tinyllama-1.1b at full width, depth 2, f32,
 # 8 x 512 in one microbatch over (pod 1, data 2, model 2) on the first
 # card, held at phase 16 (b)'s plain gates against the unsharded step on
-# the card and the same split step on the CPU
-TP_STEP = dict(layers=2, rows=8, tokens=512, mesh=(1, 2, 2))
+# the card and the same split step on the CPU; (a') the same of
+# recurrentgemma-9b at full width, depth 38 -> 3 (one rglru, rglru,
+# local group), f32, 2 x 4096 (twice the window) in one microbatch,
+# against the unsharded step on the card only (the same split step on
+# the CPU took 278-298 s, for the tied 256k-vocabulary head's products:
+# the whole script ~1050 s of its 1200 s): (label, arch, layers, rows,
+# tokens, mesh, whether the CPU twin runs)
+TP_STEPS = (("a", "tinyllama-1.1b", 2, 8, 512, (1, 2, 2), True),
+            ("a'", "recurrentgemma-9b", 3, 2, 4096, (1, 2, 2), False))
 # (b)-(d) split serving against the unsharded served path on the card:
 # (label, arch, bf16, layers (0: the config's), batch, prompt, steps,
 # model ways).  (b) tinyllama-1.1b at full width and depth in f32; (c)
@@ -6186,9 +6220,69 @@ TP_STEP = dict(layers=2, rows=8, tokens=512, mesh=(1, 2, 2))
 # over the width of the reference's production model axis (16).  The
 # caches hold the prompt and the steps, rounded up to a multiple of 16
 # so that the sequence split divides.
+# (e)-(g), at full width and depth in bf16 over model 2: (e)
+# mamba2-1.3b, 8 x 2048, 16 steps (32 of 64 heads a shard, no flash
+# launch); (f) recurrentgemma-9b, 1 x 4096 (twice the window: the ring
+# wraps), 16 steps (2048 of 4096 LRU channels and 8 of 16 gate blocks a
+# shard, half the MQA head's columns all-gathered, the ring split by
+# sequence); (g) whisper-large-v3, 8 x (1500 frames + 64 tokens), 16
+# steps (10 of 20 heads a shard, the cross cache by heads).  A last
+# True: the cell's gate is held in f32 (``tp_serve_cell``'s
+# ``f32_gate``): mamba2's 48 SSM layers in bf16 drift 0.25-0.97 logits
+# apart on two paths of the same sums (rounded in other places: the
+# split's two K = 2048 ``w_out`` partials against one K = 4096 product),
+# 7x phase 14's bf16 gate, where the same cell in f32 agrees at 0.07 of
+# LM_TOL (PERF.md §6); its bf16 split is then held no farther from the
+# f32 logits than SSM_DRIFT_RATIO times the unsplit bf16 path, and (e')
+# holds the bf16 split at the bf16 gate at 1 layer: from 2 layers on the
+# whole model in bf16 drifts past that gate, split or not (0.45-1.32 of
+# it at 2 layers, 0.22-0.23 at 1, over 8 seeds on an H100,
+# scripts/ssm_bf16_drift.py): a layer's rounding differences grow
+# through the next.
 TP_SERVE = (("b", "tinyllama-1.1b", False, 0, 8, 512, 8, 2),
             ("c", "deepseek-v2-236b", True, 2, 1, 2048, 8, 2),
-            ("d", "llama3-405b", True, 1, 1, 2048, 4, 16))
+            ("d", "llama3-405b", True, 1, 1, 2048, 4, 16),
+            ("e", "mamba2-1.3b", True, 0, 8, 2048, 16, 2, True),
+            ("e'", "mamba2-1.3b", True, 1, 8, 2048, 16, 2),
+            ("f", "recurrentgemma-9b", True, 0, 1, 4096, 16, 2),
+            ("g", "whisper-large-v3", True, 0, 8, 64, 16, 2))
+# (e)'s limit on its bf16 split's distance from the f32 logits, as a
+# multiple of the unsplit bf16 path's: the ratio read 0.92-1.12 over 8
+# seeds at each of 1, 2, 4, 8 and 48 layers (0.95-1.08 at 48) on an H100
+# (scripts/ssm_bf16_drift.py; PERF.md §6); the limit doubles the largest
+# excess over 1
+SSM_DRIFT_RATIO = 1.25
+# (h) ICQ-KV's decode split: phase 14's cell "LM A, ICQ-KV"
+# (tinyllama-1.1b f32, 8 x 512, d_fast 16, top_c 128, 32 steps) over
+# model 2 (by KV heads: 2 of 4 a shard) and model 8 (by positions: 68 of
+# the cache's 544 a shard, so that each shard's local top-c keeps all of
+# its positions), and over model 8 at a 2048-token prompt and 8 steps
+# (257 of 2056 positions a shard: each shard's local top-c truncates),
+# each against the unsplit ICQ-KV step fed the
+# same tokens: each layer's global survivors equal as sets wherever the
+# crude gap at rank top_c exceeds the crude bound; logits within LM_TOL
+# of the largest, greedy tokens equal wherever the top-2 gap exceeds it.
+# The crude bound (over the row's largest sum of |q_f k_f|,
+# ``kv_cache._crude_gap``): the two paths' appended keys come from other
+# GEMMs, rounded otherwise, and their bf16 ``k_fast`` may land one
+# rounding step apart (2^-7 of a product at most); a swap needs the gap
+# below twice that, plus q's own difference (LM_TOL): 2^-6 + 2 LM_TOL.
+# The top-c is discontinuous: a batch row whose survivor set differs at
+# such a near tie attends over another candidate, so its logits and
+# tokens are reported, not gated (the rows and steps are printed); each
+# step starts both paths from the unsplit step's caches, so that no
+# difference carries over.  At most FLIPS_PER_POSITION times the cache's
+# positions of the survivor sets may differ (2% at 544, 7.6% at 2056):
+# near rank 128 the crude scores lie close, the closer the more
+# positions a row holds, and the two paths' queries differ in their last
+# bits (the split's GEMMs and all-reduces round otherwise), so such near
+# ties recur (0.40-0.47% of the sets at 544 positions, 1.97% at 2056, on
+# an H100, PERF.md §6), where a wrong merge or offset would change
+# nearly every set.  The sets whose crude gap lies within the bound (the
+# ones that may differ) are counted and printed.
+TP_ICQ = dict(batch=8, runs=((512, 32, (2, 8)), (2048, 8, (8,))))
+CRUDE_BOUND = 2.0 ** -6 + 2 * LM_TOL
+FLIPS_PER_POSITION = 0.02 / 544
 
 
 def tree_bytes(tree) -> int:
@@ -6202,10 +6296,12 @@ def position_bytes(placed, pos) -> int:
                for (st,) in shrules.zip_leaves(placed))
 
 
-def tp_train_gate(seed: int, card: str):
-    """Phase 17 (a): the split train step on the card against the
-    unsharded step on the card and the split step on the CPU (the
-    comment above TP_STEP).  Returns its launches on the card."""
+def tp_train_gate(seed: int, card: str, label, arch, layers, rows, tokens,
+                  mesh_shape, cpu_twin):
+    """Phase 17 (a) and (a'): the split train step on the card against
+    the unsharded step on the card and, where ``cpu_twin``, the split
+    step on the CPU (the comment above TP_STEPS).  Returns its launches on the
+    card."""
     import dataclasses
     import numpy as np
     import torch
@@ -6215,9 +6311,7 @@ def tp_train_gate(seed: int, card: str):
     from repro_torch.distributed.sharding import make_mesh_auto
     from repro_torch.launch.steps import build_train_step
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
-                              num_layers=TP_STEP["layers"])
-    rows, tokens = TP_STEP["rows"], TP_STEP["tokens"]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     names = ("pod", "data", "model")
     toks = np.random.default_rng(seed + 1701).integers(
         0, cfg.vocab_size, (1, rows, tokens), dtype=np.int32)
@@ -6225,10 +6319,15 @@ def tp_train_gate(seed: int, card: str):
     card_params = lm_params(cfg, seed)
     cpu_params = cpu_tree(card_params)
     step0, _, _, init0 = build_train_step(cfg, n_micro=1)
-    plain = step0(card_params, init0(card_params), batch)
-    outs, launches = {}, {}
-    for dev in ("cuda", "cpu"):
-        mesh = make_mesh_auto(TP_STEP["mesh"], names, devices=dev)
+    # the unsharded step's result waits on the host: the split step
+    # needs the room (at (a')'s 6.6 GB of f32 params, each step's
+    # params and moments are 20 GB)
+    plain = cpu_tree(step0(card_params, init0(card_params), batch))
+    zero = tuple("/".join(p) for p in _leaf_paths(cpu_params)
+                 if not bool(_at_path(cpu_params, p).any()))
+    outs, launches, secs, ratios = {}, {}, {}, {}
+    for dev in ("cuda", "cpu") if cpu_twin else ("cuda",):
+        mesh = make_mesh_auto(mesh_shape, names, devices=dev)
         step, _, _, init = build_train_step(cfg, n_micro=1, multi_pod=True,
                                             mesh=mesh)
         params = card_params if dev == "cuda" else cpu_params
@@ -6238,49 +6337,67 @@ def tp_train_gate(seed: int, card: str):
             want = shrules.shard_bytes(params,
                                        shrules.model_shardings(params, mesh))
             held = [position_bytes(placed, (0, 0, j))
-                    for j in range(TP_STEP["mesh"][2])]
+                    for j in range(mesh_shape[2])]
             cards = len(set(mesh.devices.flat))
-            log(f"phase 17 (a) parameter bytes a model shard: {held}, "
+            log(f"phase 17 ({label}) parameter bytes a model shard: {held}, "
                 f"shard_bytes of the model-only specs {want} (whole: "
                 f"{tree_bytes(params)})")
             check(all(h == want for h in held),
                   f"split params hold {held} bytes a shard, the rule table "
                   f"{want}")
+            del params, card_params
             reset_launches()
+        t1 = time.perf_counter()
         out = step(placed, state, batch)
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = read_launches()
+        secs[dev] = time.perf_counter() - t1
         outs[dev] = (tp.gather(out[0]), dict(out[1], m=tp.gather(
             out[1]["m"]), v=tp.gather(out[1]["v"])), out[2])
-    shards = TP_STEP["mesh"][1] * TP_STEP["mesh"][2]
+        del out, placed, state
+        if dev == "cuda":        # against the unsharded step, then drop it
+            ratios.update(plain_step_ratios(outs["cuda"], plain,
+                                            "unsharded", zero))
+            m0 = plain[2]
+            del plain
+    shards = mesh_shape[1] * mesh_shape[2]
     want = {k: 0 for k in launches}
     for k, n in train_flash_launches(cfg, 1).items():
         want[k] = shards * n
-    mc, mp, m0 = outs["cuda"][2], outs["cpu"][2], plain[2]
+    mc = outs["cuda"][2]
     loss_u = abs(float(mc["loss"]) - float(m0["loss"])) / abs(
         float(m0["loss"]))
-    loss_c = abs(float(mc["loss"]) - float(mp["loss"])) / abs(
-        float(mp["loss"]))
-    ratios = dict(plain_step_ratios(outs["cuda"], plain, "unsharded"),
-                  **plain_step_ratios(outs["cuda"], outs["cpu"], "CPU"))
-    log(f"phase 17 (a) split train step {TRAIN_ARCH} f32 {cfg.num_layers} "
-        f"layers, mesh {TP_STEP['mesh']} {names} on {cards} card(s), "
+    loss_c, cpu_line = 0.0, "no CPU twin"
+    if cpu_twin:
+        mp = outs["cpu"][2]
+        loss_c = abs(float(mc["loss"]) - float(mp["loss"])) / abs(
+            float(mp["loss"]))
+        ratios.update(plain_step_ratios(outs["cuda"], outs["cpu"], "CPU",
+                                        zero))
+        cpu_line = (f"CPU {float(mp['loss'])!r} (rel {loss_c:.3e}), gnorm "
+                    f"{float(mp['gnorm'])!r}; the CPU's step "
+                    f"{secs['cpu']:.1f} s")
+    log(f"phase 17 ({label}) split train step {arch} f32 {cfg.num_layers} "
+        f"layers, mesh {mesh_shape} {names} on {cards} card(s), "
         f"{rows} x "
-        f"{tokens} ({rows // TP_STEP['mesh'][1]} rows a data shard): loss "
+        f"{tokens} ({rows // mesh_shape[1]} rows a data shard): loss "
         f"{float(mc['loss'])!r}, unsharded {float(m0['loss'])!r} (rel "
-        f"{loss_u:.3e}), CPU {float(mp['loss'])!r} (rel {loss_c:.3e}), "
-        f"tolerance 1e-5; gnorm {float(mc['gnorm'])!r}, unsharded "
-        f"{float(m0['gnorm'])!r}, CPU {float(mp['gnorm'])!r}; worst leaf a "
+        f"{loss_u:.3e}), tolerance 1e-5; gnorm {float(mc['gnorm'])!r}, "
+        f"unsharded {float(m0['gnorm'])!r}; {cpu_line}; worst leaf a "
         "gate, its ratio to the bound: "
         + ", ".join(f"{k} {n} {r:.4f}" for k, (r, n) in ratios.items())
-        + f"; launches {launches} (want {want}); "
-        f"{time.perf_counter() - t0:.1f} s with the CPU's step; {card}")
+        + (f" (params of the leaves that start at zero, {list(zero)}, "
+           "held on m and v: plain_step_ratios)" if zero else "")
+        + f"; launches {launches} (want {want}); the split step "
+        f"{secs['cuda']:.2f} s on the card (its first call); "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
     check(loss_u <= 1e-5 and loss_c <= 1e-5,
-          f"split train step loss {float(mc['loss'])}")
+          f"split train step ({label}) loss {float(mc['loss'])}")
     bad = {k: v for k, v in ratios.items() if not v[0] <= 1.0}
-    check(not bad, f"split train step: {bad}")
-    check(launches == want, f"split train step launches {launches}")
+    check(not bad, f"split train step ({label}): {bad}")
+    check(launches == want, f"split train step ({label}) launches "
+                            f"{launches}")
     return launches
 
 
@@ -6308,18 +6425,110 @@ def served_run(prefill, decode, params, batch, max_len, toks):
             ev[1].elapsed_time(ev[2]) / max(len(toks), 1), peak)
 
 
+def split_logit_gate(what, got, want, tol) -> float:
+    """Each stage's split logits within ``tol`` of the largest |logit| of
+    the unsplit ones, greedy tokens equal wherever the unsplit top-2 gap
+    exceeds that bound.  Returns the worst error over its bound."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        bound = tol * max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        worst = max(worst, err / bound)
+        top2 = w.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = g.argmax(-1) == w.argmax(-1)
+        check(err <= bound, f"phase 17 {what} stage {i}: split logits "
+                            f"{err} from the unsharded (bound {bound})")
+        bad = ~same & (gap > bound)
+        check(not bool(bad.any()),
+              f"phase 17 {what}: greedy token differs at stage {i} where "
+              f"the top-2 gap {gap[bad].tolist()} exceeds {bound}")
+    return worst
+
+
+def greedy_feed(prefill, decode, params, batch, max_len, steps):
+    """The greedy tokens of ``steps`` decode steps after a prefill: the
+    feed both paths of a cell take."""
+    import torch
+    logits, caches = prefill(params, batch, max_len)
+    feed = []
+    for _ in range(steps):
+        feed.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+        logits, caches = decode(params, feed[-1], caches)
+    return feed
+
+
+def f32_twin(arch, layers, params, mesh, batch, max_len, feed):
+    """The same weights in f32, served split over ``mesh`` and unsplit
+    on ``feed``: (split logits, unsplit logits) of each stage."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.steps import build_serve_fns
+    cfg32 = lm_config(arch, False, layers)
+    p32 = tree_apply(lambda t: t.float(), params)
+    pre_u, dec_u, _ = build_serve_fns(cfg32)
+    pre_s, dec_s, _ = build_serve_fns(cfg32, mesh=mesh)
+    ref = served_run(pre_u, dec_u, p32, batch, max_len, feed)[0]
+    got = served_run(pre_s, dec_s, tp.place(p32, mesh), batch, max_len,
+                     feed)[0]
+    return got, ref
+
+
+def max_dist(xs, ys) -> float:
+    """The largest |x - y| over the stages' logits."""
+    return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+
+
+def logit_ratio(got, want, tol) -> float:
+    """The worst stage's largest |got - want| over ``tol`` of its
+    largest |want| (``split_logit_gate``'s bound), not gated."""
+    return max(float((g - w).abs().max()) / (tol * max(
+        1.0, float(w.abs().max()))) for g, w in zip(got, want))
+
+
+def bf16_drift(seed, arch, layers, b, s, steps, M):
+    """One cell in bf16 split over (model M) against its unsplit path,
+    and both against the same weights in f32 unsplit (``f32_twin``), on
+    the unsplit path's greedy feed: (bf16 split against unsplit over
+    TOL_BF16's bound, the bf16 split's largest logit distance from f32,
+    the unsplit's, the f32 split against unsplit over LM_TOL's bound).
+    ``scripts/ssm_bf16_drift.py`` reads it over seeds and depths."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.launch.steps import build_serve_fns
+    cfg = lm_config(arch, True, layers)
+    mesh = make_mesh_auto((M,), ("model",))
+    params = lm_params(cfg, seed)
+    batch = lm_batch(cfg, b, s, seed)
+    max_len = -(-(s + steps) // 16) * 16
+    prefill0, decode0, _ = build_serve_fns(cfg)
+    prefill1, decode1, _ = build_serve_fns(cfg, mesh=mesh)
+    feed = greedy_feed(prefill0, decode0, params, batch, max_len, steps)
+    want = served_run(prefill0, decode0, params, batch, max_len, feed)[0]
+    got = served_run(prefill1, decode1, tp.place(params, mesh), batch,
+                     max_len, feed)[0]
+    got32, ref = f32_twin(arch, layers, params, mesh, batch, max_len, feed)
+    return (logit_ratio(got, want, TOL_BF16), max_dist(got, ref),
+            max_dist(want, ref), logit_ratio(got32, ref, LM_TOL))
+
+
 def tp_serve_cell(seed, card, label, arch, bf16, layers, b, s, steps, M,
-                  profile_dir=None):
-    """Phase 17 (b)-(d): one cell split over (model M) against the
+                  f32_gate=False, profile_dir=None):
+    """Phase 17 (b)-(g): one cell split over (model M) against the
     unsharded served path from the same params, both fed the unsharded
     path's greedy tokens: logits within phase 14's gate (LM_TOL in f32,
     TOL_BF16 in bf16) of the largest, greedy tokens equal wherever the
-    unsharded top-2 gap exceeds it; the split prefill's flash launches
-    (each shard's heads: M a layer, an MLA layer past attn_chunk M a
-    block pair).  With ``profile_dir``, both paths' prefill and steps
-    under ``profile_lm`` after the gates.  Returns the split run's
-    launches."""
-    import torch
+    unsharded top-2 gap exceeds it (``split_logit_gate``); the split
+    prefill's flash launches (each shard's heads: M an attention call,
+    an MLA layer past attn_chunk M a block pair).  With ``f32_gate`` (a
+    bf16 cell too deep for phase 14's bf16 gate: its bf16 rounding
+    grows over the layers, on either path) the same weights also serve
+    in f32, split and unsplit on the same feed, at LM_TOL, and the bf16
+    split may be no farther from the f32 logits than SSM_DRIFT_RATIO
+    times the unsplit bf16 path.  With ``profile_dir``, both paths'
+    prefill and steps under ``profile_lm`` after the gates.  Returns the
+    split run's launches."""
+    from repro_torch.distributed import sharding as shrules
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.distributed.sharding import make_mesh_auto
     from repro_torch.launch.serve import lm_batch
@@ -6329,18 +6538,17 @@ def tp_serve_cell(seed, card, label, arch, bf16, layers, b, s, steps, M,
     mesh = make_mesh_auto((M,), ("model",))
     params = lm_params(cfg, seed)
     placed = tp.place(params, mesh)
+    rule = shrules.shard_bytes(params, shrules.model_shardings(params, mesh))
+    held = [position_bytes(placed, (j,)) for j in range(M)]
+    check(all(h == rule for h in held),
+          f"phase 17 ({label}) {arch}: split params hold {held} bytes a "
+          f"shard, the rule table {rule}")
     batch = lm_batch(cfg, b, s, seed)
     max_len = -(-(s + steps) // 16) * 16
     tol = TOL_BF16 if bf16 else LM_TOL
     prefill0, decode0, _ = build_serve_fns(cfg)
     prefill1, decode1, model1 = build_serve_fns(cfg, mesh=mesh)
-    # the feed: the unsharded path's greedy tokens
-    logits, caches = prefill0(params, batch, max_len)
-    feed = []
-    for _ in range(steps):
-        feed.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None])
-        logits, caches = decode0(params, feed[-1], caches)
-    del logits, caches
+    feed = greedy_feed(prefill0, decode0, params, batch, max_len, steps)
     want, pre0, step0, peak0 = served_run(prefill0, decode0, params, batch,
                                           max_len, feed)
     served_run(prefill1, decode1, placed, batch, max_len, feed[:1])  # warm
@@ -6349,19 +6557,27 @@ def tp_serve_cell(seed, card, label, arch, bf16, layers, b, s, steps, M,
                                          max_len, feed)
     launches = read_launches()
     n_pre = prefill_flash_launches(cfg, s) * M
-    worst = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
-        bound = tol * max(1.0, float(w.abs().max()))
-        err = float((g - w).abs().max())
-        worst = max(worst, err / bound)
-        top2 = w.topk(2, dim=-1).values
-        gap = top2[:, 0] - top2[:, 1]
-        same = g.argmax(-1) == w.argmax(-1)
-        check(err <= bound, f"phase 17 ({label}) {arch} stage {i}: split "
-                            f"logits {err} from the unsharded (bound {bound})")
-        check(bool((same | (gap <= bound)).all()),
-              f"phase 17 ({label}) {arch}: greedy token differs at stage "
-              f"{i} with top-2 gap {float(gap.min())} > {bound}")
+    if f32_gate:
+        got32, ref = f32_twin(arch, layers, params, mesh, batch, max_len,
+                              feed)
+        worst32 = split_logit_gate(f"({label}) {arch} f32", got32, ref,
+                                   LM_TOL)
+        del got32
+        d_u, d_s = max_dist(want, ref), max_dist(got, ref)
+        lim = SSM_DRIFT_RATIO * d_u
+        worst = logit_ratio(got, want, tol)
+        log(f"phase 17 ({label}) {arch}: the same weights in f32, split "
+            f"against unsplit on the bf16 feed: worst logit error / bound "
+            f"{worst32:.4f} (bound {LM_TOL:g} of the largest |logit|); "
+            f"bf16 against the f32 logits: split {d_s:.4f}, unsplit "
+            f"{d_u:.4f}, ratio {d_s / d_u:.4f} (gate: split <= {lim:.4f}, "
+            f"SSM_DRIFT_RATIO {SSM_DRIFT_RATIO:g} times the unsplit's); "
+            f"bf16 split against bf16 unsplit {worst:.4f} of the bf16 "
+            f"gate (reported; (e') gates it at 1 layer)")
+        check(d_s <= lim, f"phase 17 ({label}) {arch}: bf16 split logits "
+                          f"{d_s} from the f32 ones, unsplit {d_u}")
+    else:
+        worst = split_logit_gate(f"({label}) {arch}", got, want, tol)
     log(f"phase 17 ({label}) split serving {arch} "
         f"{'bf16' if bf16 else 'f32'} {cfg.num_layers} layers over (model "
         f"{M}) on {len(set(mesh.devices.flat))} card(s), batch {b}, prompt "
@@ -6371,10 +6587,10 @@ def tp_serve_cell(seed, card, label, arch, bf16, layers, b, s, steps, M,
         f"{pre0:.2f} ms unsharded; {step1:.2f} ms a step split, {step0:.2f} "
         f"ms unsharded; peak above the params {peak1 / 2**20:.1f} MiB split, "
         f"{peak0 / 2**20:.1f} MiB unsharded; split params "
-        f"{position_bytes(placed, (0,)) / 2**30:.2f} GiB a shard of "
-        f"{tree_bytes(params) / 2**30:.2f} GiB; flash launches "
+        f"{held[0] / 2**30:.2f} GiB a shard ({held[0]} B each, = "
+        f"shard_bytes) of {tree_bytes(params) / 2**30:.2f} GiB; flash launches "
         f"{launches['flash_attention']} (want {n_pre} "
-        f"= {M} a layer{' a block pair' if cfg.mla else ''}); "
+        f"= {M} an attention call{' a block pair' if cfg.mla else ''}); "
         f"{time.perf_counter() - t0:.1f} s; {card}")
     check(launches["flash_attention"] == n_pre,
           f"phase 17 ({label}) flash launches {launches['flash_attention']}"
@@ -6387,18 +6603,146 @@ def tp_serve_cell(seed, card, label, arch, bf16, layers, b, s, steps, M,
     return launches
 
 
+def tp_icq_cell(seed, card):
+    """Phase 17 (h): ICQ-KV's decode split by KV heads and by positions
+    against the unsplit ICQ-KV step (the comment above TP_ICQ).  Returns
+    no launch (ICQ-KV runs no hand-written kernel)."""
+    cfg = lm_config("tinyllama-1.1b", False)
+    params = lm_params(cfg, seed)
+    b = TP_ICQ["batch"]
+    for s, steps, models in TP_ICQ["runs"]:
+        tp_icq_run(seed, card, cfg, params, b, s, steps, models)
+    return {k: 0 for k in read_launches()}
+
+
+def tp_icq_run(seed, card, cfg, params, b, s, steps, models):
+    """Phase 17 (h) at one prompt length ``s``: ``steps`` decode steps
+    split over (model M) for each M of ``models``, each against the
+    unsplit ICQ-KV step (``tp_icq_cell``)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import make_mesh_auto
+    from repro_torch.launch.serve import (icq_caches_from_prefill,
+                                          icq_kv_geometry, lm_batch)
+    from repro_torch.models import build_model
+    from repro_torch.quant.serve_icq import build_icq_decode
+    t0 = time.perf_counter()
+    max_len = s + steps
+    kv_cfg, top_c = icq_kv_geometry(cfg, max_len)
+    logits, dense = build_model(cfg).prefill(params, lm_batch(cfg, b, s,
+                                                               seed),
+                                             max_len)
+    tok0 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    del logits
+    step0, _ = build_icq_decode(cfg, kv_cfg)
+    for M in models:
+        mesh = make_mesh_auto((M,), ("model",))
+        step1, _ = build_icq_decode(cfg, kv_cfg, mesh=mesh)
+        placed = tp.place(params, mesh)
+        step1(placed, tok0, icq_caches_from_prefill(kv_cfg, dense, s,
+                                                    max_len),
+              top_c=top_c)                                    # warm
+        # each step from the same caches: the split step takes the
+        # unsplit step's (laid out anew, a copy), so that a difference
+        # is the step's own and none carries over
+        cache = icq_caches_from_prefill(kv_cfg, dense, s, max_len)
+        worst, sets, flips, near, feed, flipped = 0.0, 0, 0, 0, [tok0], {}
+        top_gap = 0.0
+        for i in range(steps):
+            rec1, rec0 = [], []
+            g, _ = step1(placed, feed[-1], cache, top_c=top_c, record=rec1)
+            w, cache = step0(params, feed[-1], cache, top_c=top_c,
+                             record=rec0)
+            g, w = g[:, -1].float(), w[:, -1].float()
+            rows = torch.zeros(b, dtype=torch.bool, device=tok0.device)
+            for li, ((cand, _), (pcand, gap)) in enumerate(zip(rec1, rec0)):
+                eq = (torch.sort(cand, -1).values
+                      == torch.sort(pcand, -1).values).all(-1)
+                if not bool(eq.all()):
+                    top_gap = max(top_gap, float(gap[~eq].max()))
+                check(bool((eq | (gap <= CRUDE_BOUND)).all()),
+                      f"phase 17 (h) model {M} step {i} layer {li}: global "
+                      f"survivors differ where the crude gap exceeds the "
+                      f"crude bound {CRUDE_BOUND:g}: gaps "
+                      f"{gap[~eq].tolist()[:8]}")
+                sets += eq.numel()
+                flips += int((~eq).sum())
+                near += int((gap <= CRUDE_BOUND).sum())
+                rows |= (~eq).flatten(1).any(1)
+            if bool(rows.any()):
+                flipped[i] = rows.nonzero().flatten().tolist()
+            keep = ~rows
+            bound = LM_TOL * max(1.0, float(w.abs().max()))
+            err = float((g - w).abs().max(-1).values[keep].max()) \
+                if bool(keep.any()) else 0.0
+            worst = max(worst, err / bound)
+            top2 = w.topk(2, dim=-1).values
+            same = g.argmax(-1) == w.argmax(-1)
+            check(err <= bound, f"phase 17 (h) model {M} step {i}: split "
+                                f"ICQ-KV logits {err} from the unsplit "
+                                f"(bound {bound})")
+            check(bool((same | (top2[:, 0] - top2[:, 1] <= bound)
+                        | rows).all()),
+                  f"phase 17 (h) model {M} step {i}: greedy token differs")
+            feed.append(w.argmax(-1).to(torch.int32)[:, None])
+        cap = FLIPS_PER_POSITION * max_len
+        check(flips <= cap * sets,
+              f"phase 17 (h) model {M}: {flips} of {sets} survivor sets "
+              f"differ (at most {cap:.2%})")
+        del cache, rec0, rec1
+        med, peak = {}, {}
+        for k, (step, p) in enumerate(((step0, params),
+                                       (step1, placed))):  # timed
+            c = icq_caches_from_prefill(kv_cfg, dense, s, max_len)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+            ev[0].record()
+            for i in range(steps):
+                _, c = step(p, feed[i], c, top_c=top_c)
+                ev[i + 1].record()
+            torch.cuda.synchronize()
+            med[k] = float(np.median([ev[i].elapsed_time(ev[i + 1])
+                                      for i in range(steps)]))
+            peak[k] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            del c
+        split_by = ("heads" if cfg.num_kv_heads % M == 0 else "positions")
+        log(f"phase 17 (h) ICQ-KV decode split over (model {M}) by "
+            f"{split_by}, tinyllama-1.1b f32, batch {b}, cache {max_len}, "
+            f"d_fast {kv_cfg.d_fast}, top_c {top_c}, {steps} steps: worst "
+            f"logit error / bound {worst:.4f} (bound {LM_TOL:g} of the "
+            f"largest |logit|; each step from the unsplit step's caches, "
+            f"the rows whose survivors all agreed in it); {flips} of "
+            f"{sets} survivor sets differ (gate: at most {cap:.2%} of them, "
+            f"each at a crude gap within the crude bound {CRUDE_BOUND:g}, "
+            f"which {near} sets' gaps lie within; "
+            f"the largest such gap {top_gap:.3e}; (step: rows) "
+            f"{flipped or 'none'}); "
+            f"{med[1]:.2f} ms a step split, {med[0]:.2f} ms unsplit "
+            f"(median, CUDA events); peak above the params and caches "
+            f"{peak[1]:.1f} MiB split, {peak[0]:.1f} MiB unsplit; "
+            f"{time.perf_counter() - t0:.1f} s; {card}")
+        del placed
+
+
 def tensor_parallelism(seed: int, card: str, profile_dir=None):
-    """Phase 17: (a) the split train step, (b)-(d) split serving (with
-    ``profile_dir``, each cell's split and unsplit path profiled).
-    Returns the launches."""
+    """Phase 17: (a) and (a') the split train steps, (b)-(g) split
+    serving (with ``profile_dir``, each cell's split and unsplit path
+    profiled), (h) ICQ-KV's split decode.  Returns the launches."""
     import gc
     import torch
     t0 = time.perf_counter()
     total = {k: 0 for k in read_launches()}
-    for k, n in tp_train_gate(seed, card).items():
-        total[k] += n
-    gc.collect()
-    torch.cuda.empty_cache()
+    for cell in TP_STEPS:
+        t1 = time.perf_counter()
+        for k, n in tp_train_gate(seed, card, *cell).items():
+            total[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 17 ({cell[0]}) ran {time.perf_counter() - t1:.1f} s")
     for cell in TP_SERVE:
         t1 = time.perf_counter()
         for k, n in tp_serve_cell(seed, card, *cell,
@@ -6407,6 +6751,11 @@ def tensor_parallelism(seed: int, card: str, profile_dir=None):
         gc.collect()
         torch.cuda.empty_cache()
         log(f"phase 17 ({cell[0]}) ran {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    tp_icq_cell(seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 17 (h) ran {time.perf_counter() - t1:.1f} s")
     log(f"phase 17 ran {time.perf_counter() - t0:.1f} s")
     return total
 

@@ -245,6 +245,12 @@ class NamedSharding:
     indices along those axes count (row-major, in the entry's order) to
     j holds block j.
 
+    ``segments`` (the tensor-parallel step's layout of a fused leaf,
+    ``distributed.tensor_parallel.shardings``): the widths of the
+    segments the split dim concatenates; block j is then the j-th slice
+    of every segment, in segment order, instead of the j-th contiguous
+    block (each segment must divide over the dim's axes).
+
     ``lay_out`` gives a ``ShardedTensor`` over every mesh position, the
     dims divisible by their axes (the rule tables guarantee it).  ``put``
     of a spec () or ("data",) keeps the data-shard layout the sharded
@@ -254,17 +260,35 @@ class NamedSharding:
     ``lay_out``.  ``gather`` takes either back to the whole tensor."""
     mesh: Mesh
     spec: Tuple = ()
+    segments: Tuple[int, ...] = ()
 
     def _data_layout(self) -> bool:
-        return tuple(self.spec) in ((), ("data",))
+        return tuple(self.spec) in ((), ("data",)) and not self.segments
+
+    def _ways(self, i: int) -> int:
+        n = 1
+        for a in entry_axes(self.spec[i]):
+            n *= axis_size(self.mesh, a)
+        return n
+
+    def _segment_perm(self, shape):
+        """(dim, perm) of a segment layout: the split dim, and the index
+        of the whole tensor's entry at each position of the blocks laid
+        end to end; None without segments."""
+        if not self.segments:
+            return None
+        dim = next(i for i, e in enumerate(self.spec) if e is not None)
+        if sum(self.segments) != shape[dim]:
+            raise ValueError(f"segments {self.segments} do not tile dim "
+                             f"{dim} of {tuple(shape)}")
+        return dim, segment_perm(self.segments, self._ways(dim))
 
     def shard_shape(self, global_shape) -> Tuple[int, ...]:
         """The block of ``global_shape`` that one position holds."""
         shape = list(global_shape)
+        self._segment_perm(shape)                # checks the segments
         for i, entry in enumerate(self.spec):
-            n = 1
-            for a in entry_axes(entry):
-                n *= axis_size(self.mesh, a)
+            n = self._ways(i)
             if shape[i] % n:
                 raise ValueError(f"dim {i} of {tuple(global_shape)} does "
                                  f"not divide over {entry!r} ({n} ways)")
@@ -308,6 +332,9 @@ class NamedSharding:
         position's device (one a distinct block and device)."""
         blocks = {}
         shards = np.empty(self.mesh.devices.shape, dtype=object)
+        seg = self._segment_perm(x.shape)
+        if seg is not None:                # blocks of the permuted tensor
+            x = x.index_select(seg[0], seg[1].to(x.device))
         for pos in np.ndindex(*self.mesh.devices.shape):
             dev = self.mesh.devices[pos]
             sl = self._slices(pos, x.shape)
@@ -333,7 +360,26 @@ class NamedSharding:
             if key not in done:
                 out[sl] = placed.shards[pos].to(dev)
                 done.add(key)
+        seg = self._segment_perm(placed.shape)
+        if seg is not None:
+            out = torch.empty_like(out).index_copy_(seg[0],
+                                                    seg[1].to(dev), out)
         return out
+
+
+def segment_perm(segments, ways: int) -> torch.Tensor:
+    """The segment layout's order of a dim concatenating ``segments``
+    split ``ways`` ways: block j takes slice j of each segment in turn
+    (int64 indices into the whole dim).  Raises when a segment does not
+    divide."""
+    bad = [w for w in segments if w % ways]
+    if bad:
+        raise ValueError(f"segments {tuple(segments)} do not each split "
+                         f"{ways} ways ({bad})")
+    starts = np.cumsum((0,) + tuple(segments))[:-1]
+    idx = [np.arange(o + j * (w // ways), o + (j + 1) * (w // ways))
+           for j in range(ways) for o, w in zip(starts, segments)]
+    return torch.from_numpy(np.concatenate(idx).astype(np.int64))
 
 
 def replicated(mesh) -> NamedSharding:

@@ -14,10 +14,12 @@ process, as its (pod, data) step does (``launch.steps``):
 * a mesh position's *model group* is its ``model`` devices in shard
   order (``model_group``); on one card they are all the same device, as
   ``make_mesh_auto`` lays them out;
-* ``place`` lays a params (or cache) tree out by the model-only specs
-  (``sharding.model_shardings``, ``NamedSharding.lay_out``): each
-  position holds its block of every split leaf, a whole copy of every
-  replicated one; ``gather`` gives the whole tree back bit for bit;
+* ``place`` lays a params (or cache) tree out by ``shardings`` (the
+  model-only specs of ``sharding.model_shardings``, with the SSM's
+  fused leaves in the segment layout and the cross cache by KV heads;
+  ``NamedSharding.lay_out``): each position holds its block of every
+  split leaf, a whole copy of every replicated one; ``gather`` gives
+  the whole tree back bit for bit;
 * ``group_view`` is what the model runs on: each leaf a ``Split``, the M
   blocks of one model group in shard order with the dim they split (None
   for a replicated leaf, whose "blocks" are the per-device copies);
@@ -42,6 +44,7 @@ counts all M.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -133,11 +136,17 @@ class Split(list):
     """The blocks of one leaf over a model group, in shard order, each on
     its shard's device; ``dim`` the dim the leaf splits over ``model``
     (None: a replicated leaf, the blocks its per-device copies, one
-    tensor wherever devices repeat)."""
+    tensor wherever devices repeat); ``segments`` the segment layout's
+    widths along ``dim`` (``shardings``), () for contiguous blocks."""
 
-    def __init__(self, blocks, dim: Optional[int]):
+    def __init__(self, blocks, dim: Optional[int], segments=()):
         super().__init__(blocks)
         self.dim = dim
+        self.segments = tuple(segments)
+
+    def like(self, blocks) -> "Split":
+        """``blocks`` with this leaf's layout."""
+        return Split(blocks, self.dim, self.segments)
 
     @property
     def whole(self) -> torch.Tensor:
@@ -151,7 +160,8 @@ class Split(list):
         if self.dim == 0:
             raise ValueError("the layer axis is not split")
         return Split([b[li] for b in self],
-                     None if self.dim is None else self.dim - 1)
+                     None if self.dim is None else self.dim - 1,
+                     self.segments)
 
 
 def _spec_dim(spec) -> Optional[int]:
@@ -159,11 +169,73 @@ def _spec_dim(spec) -> Optional[int]:
     return dims[0] if dims else None
 
 
-def place(tree, mesh, cfg=None):
-    """``tree`` (whole tensors) laid out on ``mesh`` by the model-only
-    specs (a cache tree when ``cfg`` is given): a tree of
-    ``ShardedTensor``s; an already placed tree is returned as it is."""
+# ------------------------------------------------------- the split layout --
+
+def _ssm_segments(d_in: int, n: int, nheads: int = 0):
+    """The SSM's fused widths: ``w_in``'s columns [z | x | B | C | dt]
+    (with ``nheads``), else the conv channels [x | B | C]."""
+    return (d_in, d_in, n, n, nheads) if nheads else (d_in, n, n)
+
+
+def shardings(tree, mesh, cfg=None):
+    """The model-only shardings the split executes (a cache tree when
+    ``cfg`` is given): ``sharding.model_shardings``'s, with two
+    departures that keep each shard's bytes.
+
+    * The segment layout of the SSM's fused leaves: the rule table
+      splits ``w_in`` (d, [z d_in | x d_in | B n | C n | dt nheads]) and
+      the conv's ``conv_dim`` channels ([x | B | C]: ``conv_w``,
+      ``conv_b``, the conv cache) in contiguous blocks, which cut across
+      the segments; here shard j holds the j-th slice of each segment
+      (z, x and dt by heads, B and C by state columns), as many bytes.
+      A segment that does not divide over ``model`` raises.
+    * The cross cache ``ck`` / ``cv`` (b, Senc, kvh, dh) by KV heads,
+      where ``cache_pspec`` splits ``dh`` (Senc kvh dh / M a shard
+      either way): a ``dh`` split would leave each shard a partial of
+      every score, summed across shards before the softmax, so no flash
+      launch could serve the cross attention; by heads each shard
+      attends over its own.  KV heads that do not divide stay whole.
+
+    The params, checkpoints and ``reshard_state`` keep the reference's
+    layout: ``place`` permutes, ``gather`` and ``view_whole`` invert."""
     sh = shrules.model_shardings(tree, mesh, cfg)
+    M = model_size(mesh)
+
+    def seg(s, widths):
+        if _spec_dim(s.spec) is None:
+            return s
+        shrules.segment_perm(widths, M)          # raises if one is ragged
+        return dataclasses.replace(s, segments=tuple(widths))
+
+    def walk(t, s):
+        if not isinstance(t, dict):
+            return s
+        out = {k: walk(t[k], s[k]) for k in t}
+        if cfg is None and {"w_in", "A_log", "conv_w", "norm"} <= t.keys():
+            d_in, nh = t["norm"].shape[-1], t["A_log"].shape[-1]
+            n = (t["conv_b"].shape[-1] - d_in) // 2
+            out["w_in"] = seg(s["w_in"], _ssm_segments(d_in, n, nh))
+            for k in ("conv_w", "conv_b"):
+                out[k] = seg(s[k], _ssm_segments(d_in, n))
+        if cfg is not None and {"state", "conv"} <= t.keys():
+            *_, h, p_, n = t["state"].shape
+            out["conv"] = seg(s["conv"], _ssm_segments(h * p_, n))
+        if cfg is not None:
+            for k in ("ck", "cv"):
+                if k in t:
+                    shape = t[k].shape
+                    spec = [None] * len(shape)
+                    spec[-2] = shrules.maybe("model", shape[-2], mesh)
+                    out[k] = shrules.NamedSharding(mesh, shrules.P(*spec))
+        return out
+    return walk(tree, sh)
+
+
+def place(tree, mesh, cfg=None):
+    """``tree`` (whole tensors) laid out on ``mesh`` by ``shardings``
+    (a cache tree when ``cfg`` is given): a tree of ``ShardedTensor``s;
+    an already placed tree is returned as it is."""
+    sh = shardings(tree, mesh, cfg)
 
     def one(t, s):
         return t if isinstance(t, shrules.ShardedTensor) else s.lay_out(t)
@@ -189,7 +261,8 @@ def group_view(placed, mesh, index: Optional[Dict[str, int]] = None):
             if ax is not None:
                 pos[ax] = j
             blocks.append(st.shards[tuple(pos)])
-        return Split(blocks, _spec_dim(st.sharding.spec))
+        return Split(blocks, _spec_dim(st.sharding.spec),
+                     st.sharding.segments)
     return _map(one, placed)
 
 
@@ -200,7 +273,11 @@ def view_whole(view, device=None):
         dev = device if device is not None else s[0].device
         if s.dim is None:
             return s[0].to(dev)
-        return torch.cat([b.to(dev) for b in s], dim=s.dim)
+        out = torch.cat([b.to(dev) for b in s], dim=s.dim)
+        if s.segments:
+            perm = shrules.segment_perm(s.segments, len(s)).to(dev)
+            out = torch.empty_like(out).index_copy_(s.dim, perm, out)
+        return out
     return _map(one, view)
 
 
@@ -268,7 +345,7 @@ def from_blocks(view, blocks, group: ModelGroup):
                 if d not in copies:
                     copies[d] = b if b.device == d else b.to(d)
             return Split([copies[d] for d in group.devices], None)
-        return Split([b[_key(j)] for j in range(len(s))], s.dim)
+        return s.like([b[_key(j)] for j in range(len(s))])
     return _map2(one, view, blocks)
 
 
@@ -285,7 +362,7 @@ def live(view):
             if id(b) not in made:
                 made[id(b)] = b.detach().requires_grad_(True)
             out.append(made[id(b)])
-        return Split(out, s.dim)
+        return s.like(out)
     v = _map(one, view)
     return v, list(made.values())
 
@@ -306,7 +383,7 @@ def grads_view(view, live_view, leaves, grads):
             g = by_leaf.get(id(l))
             gs.append(torch.zeros_like(b) if g is None else g)
         if s.dim is not None:
-            return Split(gs, s.dim)
+            return s.like(gs)
         seen, acc = set(), None
         for l, g in zip(lv, gs):
             if id(l) in seen:

@@ -14,14 +14,15 @@ copy of the params; the gradients and the loss average over ``data`` in
 f32, then across pods (``plain_cross_pod_mean``, or with ``icq_grad``
 ``compressed_cross_pod_mean`` with its error-feedback residuals, one
 tree a pod, in ``opt_state["ef_residual"]``).  A ``model`` axis above 1
-splits the layers of the dense, MoE, MLA and VLM kinds Megatron-style
-(``distributed.tensor_parallel``): params and AdamW moments are placed
-by the rule tables' ``model`` entries, each (pod, data) position runs
-its model group, the means are taken block by block and AdamW updates
-each block (``_split_train_step``).  The ``data`` / ``pod`` (FSDP)
-entries of the param rules are not executed: params stay whole over
-them (ROADMAP item 37); the SSM, hybrid and encoder-decoder kinds keep
-their params whole over ``model`` too (item 38).
+splits the layers of every kind (dense, MoE, MLA, VLM, SSM, hybrid,
+encoder-decoder) Megatron-style (``distributed.tensor_parallel``):
+params and AdamW moments are placed by ``tensor_parallel.shardings``
+(the rule tables' ``model`` entries, the SSM's fused leaves in the
+segment layout), each (pod, data) position runs its model group, the
+means are taken block by block and AdamW updates each block
+(``_split_train_step``).  The ``data`` / ``pod`` (FSDP) entries of the
+param rules are not executed: params stay whole over them (ROADMAP
+item 37).
 ``build_serve_fns`` — prefill and decode_step, split over ``model``
 likewise.
 
@@ -645,8 +646,9 @@ def plan_icq_kv_cell(cfg, shape, mesh, *, top_c_frac: float = 1 / 16,
     cfg = scale_config(cfg)
     assert supports_icq_kv(cfg), cfg.name
     kv_cfg = ICQKVConfig(d_fast=max(int(cfg.head_dim * d_fast_frac), 16))
-    model = build_model(cfg, mesh=mesh)
-    decode_fn, init_cache = build_icq_decode(cfg, kv_cfg, mesh=mesh)
+    model = build_model(cfg)
+    # the traced step is the unsplit one (the flops divide over model)
+    decode_fn, init_cache = build_icq_decode(cfg, kv_cfg)
     params_sh = eval_shape(model.init, 0, device="cpu")
     p_shard = shrules.param_shardings(params_sh, mesh)
     B, S = shape.global_batch, shape.seq_len
@@ -657,13 +659,20 @@ def plan_icq_kv_cell(cfg, shape, mesh, *, top_c_frac: float = 1 / 16,
     top_c = max(int(S * top_c_frac), 128)
     fn = functools.partial(decode_fn, top_c=top_c)
     rows = _shard_rows(mesh, B)
+    tp_fn, tp_args = None, ()
+    if shrules.axis_size(mesh, "model") > 1:    # the split step's group
+        split_fn, split_init = build_icq_decode(cfg, kv_cfg, mesh=mesh)
+        tp_fn = functools.partial(split_fn, top_c=top_c)
+        tp_args = (tp.group_view(tp.place(params_sh, mesh), mesh),
+                   tok[:rows], split_init(rows, S, device="meta"))
     return CellPlan(
         cfg=cfg, shape=shape, mesh=mesh, kind="decode", n_micro=1,
         fn=fn, args=(params_sh, tok, cache_sh),
         in_shardings=(p_shard, t_shard, c_shard),
         out_shardings=(None, c_shard), donate=(2,),
         trace_fn=fn, trace_args=(params_sh, tok[:rows],
-                                 init_cache(rows, S, device="meta")))
+                                 init_cache(rows, S, device="meta")),
+        tp_fn=tp_fn, tp_args=tp_args)
 
 
 @dataclasses.dataclass

@@ -38,7 +38,13 @@ of them give a partial that is all-reduced; the decode reads the cache
 layout ``cache_pspec`` picks (heads, or the sequence: every head's
 softmax partials over each shard's positions, merged by
 ``combine_attention_partials``) and writes the new K / V in place at
-the 0-d device position, by a mask where the sequence is split.
+the 0-d device position, by a mask where the sequence is split.  A local
+layer's ring splits by sequence or stays whole (``write_ring``; its
+decode masks each slot by ``k_pos``; a ring by heads raises); the cross
+attention splits by heads over the cross cache held by KV heads
+(``cross_kv_tp``, ``write_cross``, ``cross_attention_apply_tp``: one
+non-causal flash launch a shard on the card,
+``cross_attention_decode_tp``).
 """
 from __future__ import annotations
 
@@ -310,20 +316,23 @@ def cross_attention_apply(p, x, enc_out, cfg, *, kv=None):
     of it and the padded keys masked with ``kv_valid``, as the
     reference; on the card the flash kernel on the unpadded operands
     (module docstring)."""
-    b, s, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     k, v = kv if kv is not None else cross_kv(p, enc_out, cfg)
-    sk = k.shape[1]
+    return _cross_attend(q, k, v, cfg).flatten(-2) @ p["wo"]
+
+
+def _cross_attend(q, k, v, cfg):
+    """The cross attention of ``cross_attention_apply`` over q's heads:
+    (b, s, h, dh)."""
+    s, sk = q.shape[1], k.shape[1]
     if on_card(q) or max(s, sk) <= cfg.attn_chunk:
-        out = full_attention(q, k, v, causal=False)
-    else:
-        qc, kc = _pad_len(s, cfg.attn_chunk), _pad_len(sk, cfg.attn_chunk)
-        qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, qc - s))
-        kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, kc - sk))
-                  for t in (k, v))
-        out = chunked_attention(qp, kp, vp, causal=False,
-                                chunk=cfg.attn_chunk, kv_valid=sk)[:, :s]
-    return out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+        return full_attention(q, k, v, causal=False)
+    qc, kc = _pad_len(s, cfg.attn_chunk), _pad_len(sk, cfg.attn_chunk)
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, qc - s))
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, kc - sk))
+              for t in (k, v))
+    return chunked_attention(qp, kp, vp, causal=False, chunk=cfg.attn_chunk,
+                             kv_valid=sk)[:, :s]
 
 
 def cross_attention_decode(p, x, k_cache, v_cache, cfg):
@@ -473,7 +482,24 @@ def combine_partials_tp(parts, group):
     return combine_attention_partials(list(ms), list(ls), list(os_))
 
 
-def decode_attention_tp(p, x, cfg, cache, pos, group):
+def ring_mask(kp, pos, window: int):
+    """The valid slots of a ring block from its absolute positions."""
+    return (kp >= 0) & (kp > pos - window) & (kp <= pos)
+
+
+def _ring_split(cache):
+    """A local layer's ring's ``k_pos``, after checking that the ring is
+    split by sequence or kept whole: a ring split by KV heads (a local
+    layer with as many KV heads as the group, which no shipped config
+    has: recurrentgemma's one) raises."""
+    if cache["k"].dim == 2:
+        raise NotImplementedError(
+            "a local layer's ring split by KV heads over the model axis")
+    return cache["k_pos"]
+
+
+def decode_attention_tp(p, x, cfg, cache, pos, group, *, window=0,
+                        rope=True):
     """One token's attention split over a model group, writing its K / V
     at ``pos`` (0-d, on the first device) into ``cache`` ("k", "v":
     ``Split``s of the layout ``cache_pspec`` picks) in place.  Heads over
@@ -483,53 +509,166 @@ def decode_attention_tp(p, x, cfg, cache, pos, group):
     the softmax partials of every head over its positions, merged by
     ``combine_attention_partials``; each shard then its heads' rows of
     ``wo``.  A whole cache: each shard its heads over its KV heads of
-    it.  The partials of ``wo`` are all-reduced."""
+    it.  The partials of ``wo`` are all-reduced.
+
+    With ``window`` (a local layer) the cache is the ring of ``W`` slots
+    and its ``k_pos`` (split by sequence, or whole where ``W`` does not
+    divide over the group: ``_ring_split``): the token goes to slot
+    ``pos % W`` (by the shard whose block holds it, with its position),
+    and each slot counts where ``k_pos`` puts it inside the window."""
     b = x.shape[0]
     M = group.size
     Hl, kv = head_split(cfg, M)
     positions = pos.reshape(1, 1).expand(b, 1)
-    qkv = qkv_project_tp(p, x, cfg, positions, group)
+    qkv = qkv_project_tp(p, x, cfg, positions, group, rope=rope)
     kc, vc = cache["k"], cache["v"]
-    poss = tp.broadcast(pos, group)
+    kp = _ring_split(cache) if window else None
+    S = kc[0].shape[1]                    # a block's (or a copy's) slots
+    at = pos % (S * M if kc.dim == 1 else S) if window else pos
+    poss, ats = tp.broadcast(pos, group), tp.broadcast(at, group)
+    if window and kc.dim is None:         # a whole ring
+        write_copies(kp, positions, at)
+
+    def mask_of(j, dev, start=0):
+        if window:
+            return ring_mask(kp[j], poss[j], window)
+        return (start + torch.arange(S, device=dev) <= poss[j])[None, :] \
+            .expand(b, S)
     outs = []
     if kc.dim == 2:                       # heads over model
         for j, (q, k, v) in enumerate(qkv):
-            at = poss[j].long().reshape(1)
-            kc[j].index_copy_(1, at, k.to(kc[j].dtype))
-            vc[j].index_copy_(1, at, v.to(vc[j].dtype))
-            S = kc[j].shape[1]
-            mask = (torch.arange(S, device=q.device) <= poss[j])[None, :] \
-                .expand(b, S)
-            outs.append(decode_attention(q, kc[j], vc[j], mask))
+            i = ats[j].long().reshape(1)
+            kc[j].index_copy_(1, i, k.to(kc[j].dtype))
+            vc[j].index_copy_(1, i, v.to(vc[j].dtype))
+            outs.append(decode_attention(q, kc[j], vc[j],
+                                         mask_of(j, q.device)))
     else:
         k_all = owned_kv([t[1] for t in qkv], cfg, group)
         v_all = owned_kv([t[2] for t in qkv], cfg, group)
         if kc.dim == 1:                   # the sequence over model
             q_all = tp.all_gather([t[0] for t in qkv], group, dim=2)
-            S = kc[0].shape[1]
             parts = []
-            for j, (qj, kj, vj) in enumerate(zip(
+            for j, (qj, kj, vj, pj) in enumerate(zip(
                     tp.broadcast(q_all, group), tp.broadcast(k_all, group),
-                    tp.broadcast(v_all, group))):
-                write_at(kc[j], kj, poss[j], j * S)
-                write_at(vc[j], vj, poss[j], j * S)
-                mask = (j * S + torch.arange(S, device=qj.device)
-                        <= poss[j])[None, :].expand(b, S)
-                parts.append(decode_partials(qj, kc[j], vc[j], mask))
+                    tp.broadcast(v_all, group),
+                    tp.broadcast(positions, group))):
+                write_at(kc[j], kj, ats[j], j * S)
+                write_at(vc[j], vj, ats[j], j * S)
+                if window:
+                    write_at(kp[j], pj, ats[j], j * S)
+                parts.append(decode_partials(qj, kc[j], vc[j],
+                                             mask_of(j, qj.device, j * S)))
             o = combine_partials_tp(parts, group)    # (b, KVH, G, dh)
             o = o.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
             outs = [oj[:, :, j * Hl:(j + 1) * Hl]
                     for j, oj in enumerate(tp.broadcast(o, group))]
         else:                             # a whole cache
-            write_copies(kc, k_all, pos)
-            write_copies(vc, v_all, pos)
+            write_copies(kc, k_all, at)
+            write_copies(vc, v_all, at)
             for j, (q, _, _) in enumerate(qkv):
                 lo, hi = kv[j]
-                S = kc[j].shape[1]
-                mask = (torch.arange(S, device=q.device)
-                        <= poss[j])[None, :].expand(b, S)
                 outs.append(decode_attention(q, kc[j][:, :, lo:hi],
-                                             vc[j][:, :, lo:hi], mask))
+                                             vc[j][:, :, lo:hi],
+                                             mask_of(j, q.device)))
     parts = [o.reshape(b, 1, Hl * cfg.head_dim) @ p["wo"][j]
              for j, o in enumerate(outs)]
+    return tp.all_reduce(parts, group)
+
+
+def write_ring(cache, ks, vs, positions, cfg, group):
+    """A local layer's prefill K / V (the shards' ``qkv_project_tp``
+    keys ``ks`` and values ``vs``) written into its ring of ``W`` slots
+    (``cache`` "k", "v", "k_pos": ``Split``s) at slots ``i % W`` of its
+    last min(s, W) positions, as ``layer_prefill`` writes the whole
+    ring: every KV head all-gathered, the ring built once and each shard
+    given its block of slots (the sequence over model), or each copy
+    written (a whole ring; ``_ring_split``)."""
+    kc, vc, kp = cache["k"], cache["v"], _ring_split(cache)
+    s = positions.shape[0]
+    W = kc[0].shape[1] * (group.size if kc.dim == 1 else 1)
+    t = min(s, W)
+    slots = torch.arange(s - t, s, device=positions.device) % W
+    pos_rows = positions[-t:].to(torch.int32)[None].expand(
+        kc[0].shape[0], t)
+    rings = {"k": (kc, owned_kv(ks, cfg, group)),
+             "v": (vc, owned_kv(vs, cfg, group)), "k_pos": (kp, pos_rows)}
+    for c, rows in rings.values():
+        ring = torch.full((rows.shape[0], W) + tuple(rows.shape[2:]),
+                          -1 if c is kp else 0, dtype=c[0].dtype,
+                          device=rows.device)
+        ring.index_copy_(1, slots, rows[:, -t:].to(ring.dtype))
+        if c.dim is None:                 # each copy takes the whole ring
+            for blk in {id(b): b for b in c}.values():
+                blk.copy_(ring)
+            continue
+        n = c[0].shape[1]
+        for j, blk in enumerate(c):
+            blk.copy_(ring[:, j * n:(j + 1) * n])
+
+
+# ------------------------------------------ cross attention, split ----
+
+def cross_kv_tp(p, enc_out, cfg, group):
+    """``cross_kv`` on each shard of a model group: [(k_j, v_j)], shard
+    j's KV heads (those its query heads read, ``head_split``) of the
+    encoder states, on its device."""
+    _, kv = head_split(cfg, group.size)
+    split = kv_heads_split(cfg, p, group.size)
+    wk = _kv_weight(p["wk"], cfg, kv, group, split)
+    wv = _kv_weight(p["wv"], cfg, kv, group, split)
+    out = []
+    for j, ej in enumerate(tp.broadcast(enc_out, group)):
+        n = kv[j][1] - kv[j][0]
+        out.append((_split_heads(ej @ wk[j], n, cfg.head_dim),
+                    _split_heads(ej @ wv[j], n, cfg.head_dim)))
+    return out
+
+
+def write_cross(cache, kv, cfg, group):
+    """The prefill's cross K / V (``cross_kv_tp``) into the cross cache
+    (``ck`` / ``cv`` ``Split``s, by KV heads: ``tensor_parallel.
+    shardings``): each shard its heads; a cache kept whole takes every
+    head, all-gathered."""
+    for i, name in ((0, "ck"), (1, "cv")):
+        c = cache[name]
+        if c.dim is not None:
+            for j, t in enumerate(kv):
+                c[j].copy_(t[i])
+            continue
+        whole = owned_kv([t[i] for t in kv], cfg, group)
+        for blk in {id(b): b for b in c}.values():
+            blk.copy_(whole.to(blk.device))
+
+
+def cross_attention_apply_tp(p, x, enc_out, cfg, group, *, kv=None):
+    """``cross_attention_apply`` split over a model group: each shard its
+    query heads over its KV heads of the encoder states (on the card one
+    non-causal flash launch a shard), ``wo``'s rows of them giving a
+    partial that is all-reduced.  ``kv``: the shards' ``cross_kv_tp``
+    when the caller has them (the prefill)."""
+    Hl, _ = head_split(cfg, group.size)
+    kv = kv or cross_kv_tp(p, enc_out, cfg, group)
+    parts = []
+    for j, (xj, (k, v)) in enumerate(zip(tp.broadcast(x, group), kv)):
+        q = _split_heads(xj @ p["wq"][j], Hl, cfg.head_dim)
+        parts.append(_cross_attend(q, k, v, cfg).flatten(-2) @ p["wo"][j])
+    return tp.all_reduce(parts, group)
+
+
+def cross_attention_decode_tp(p, x, ck, cv, cfg, group):
+    """``cross_attention_decode`` split over a model group: each shard
+    its query heads over its KV heads of the cross cache (its block by
+    heads, or its heads' slice of a whole copy), ``wo``'s partials
+    all-reduced."""
+    b = x.shape[0]
+    Hl, kv = head_split(cfg, group.size)
+    parts = []
+    for j, xj in enumerate(tp.broadcast(x, group)):
+        q = _split_heads(xj @ p["wq"][j], Hl, cfg.head_dim)
+        k, v = ck[j], cv[j]
+        if ck.dim is None:
+            k, v = k[:, :, kv[j][0]:kv[j][1]], v[:, :, kv[j][0]:kv[j][1]]
+        valid = torch.ones(k.shape[:2], dtype=torch.bool, device=q.device)
+        out = decode_attention(q, k, v, valid)
+        parts.append(out.reshape(b, 1, Hl * cfg.head_dim) @ p["wo"][j])
     return tp.all_reduce(parts, group)

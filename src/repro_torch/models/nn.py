@@ -60,6 +60,26 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (out * scale.float()).to(dt)
 
 
+def rmsnorm_tp(parts, scale, eps: float, group):
+    """``rmsnorm`` over a last dim split across a model group: ``parts``
+    the shards' slices (shard order, each on its device), ``scale`` the
+    whole weight (a replicated ``Split``), sliced where it is used.  Each
+    shard's f32 sum of squares is all-reduced in shard order, and each
+    shard scales its own slice (the Mamba-2 gated norm over a split
+    ``d_in``).  Returns the normed slices, each in its part's type."""
+    d = sum(t.shape[-1] for t in parts) * (group.size // len(parts))
+    ss = tp.all_reduce([torch.sum(torch.square(t.float()), dim=-1,
+                                  keepdim=True) for t in parts], group)
+    out = []
+    for j, (t, tot, w) in enumerate(zip(parts, tp.broadcast(ss, group),
+                                        scale)):
+        n = t.shape[-1]
+        lo = group.shards[j] * n
+        y = t.float() * torch.rsqrt(tot / d + eps)
+        out.append((y * w[lo:lo + n].float()).to(t.dtype))
+    return out
+
+
 def layernorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=as_dtype(dtype), device=device),
             "bias": torch.zeros((d,), dtype=as_dtype(dtype), device=device)}

@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import nn
 
 _C = 8.0  # Griffin's fixed recurrence-sharpness constant
@@ -151,3 +152,70 @@ def rglru_decode_step(p, x, cache, cfg):
     cache["h"].copy_(h)
     cache["conv"].copy_(win[:, 1:])
     return out, cache
+
+
+# -------------------------------------------------- tensor parallelism ----
+
+def _shard_params(p, j: int):
+    """Shard j's block tree of a mixer split over a model group: its
+    columns of ``w_x`` / ``w_gate_branch``, its conv channels, its gate
+    blocks, its rows of ``w_out``, and its channels of the replicated
+    ``lambda``."""
+    for k in ("w_x", "w_gate_branch", "conv_w", "w_out"):
+        if p[k].dim is None:
+            raise ValueError(f"the RG-LRU's {k} does not split over the "
+                             "model axis")
+    if p["rg"]["w"].dim is None or p["ig"]["w"].dim is None:
+        raise ValueError("the RG-LRU's gate blocks (num_heads) do not "
+                         "split over the model axis")
+    pj = tp.shard(p, j)
+    w = pj["w_x"].shape[-1]
+    pj["lambda"] = pj["lambda"][j * w:(j + 1) * w]
+    return pj
+
+
+def _block_tp(p, x, cfg, group):
+    """``_block`` split over a model group (``p`` a ``Split`` tree, x
+    replicated on the first device): each shard its channels of the
+    recurrent and gate branches (the block-diagonal gates by blocks, so
+    the recurrence is shard-local), ``w_out``'s rows of them giving a
+    partial that is all-reduced.  Returns (out, [each shard's last
+    state], [each shard's pre-conv recurrent rows])."""
+    parts, hs, raws = [], [], []
+    for j, xj in enumerate(tp.broadcast(x, group)):
+        out, h_last, rec_raw = _block(_shard_params(p, j), xj, cfg)
+        parts.append(out)
+        hs.append(h_last)
+        raws.append(rec_raw)
+    return tp.all_reduce(parts, group), hs, raws
+
+
+def rglru_block_apply_tp(p, x, cfg, group):
+    """``rglru_block_apply`` split over a model group."""
+    return _block_tp(p, x, cfg, group)[0]
+
+
+def rglru_prefill_tp(p, x, cfg, cache, group):
+    """``rglru_prefill`` split over a model group: each shard writes its
+    channels of the state and the conv window (``cache`` ``Split``s by
+    channels)."""
+    out, hs, raws = _block_tp(p, x, cfg, group)
+    for j, (h_last, raw) in enumerate(zip(hs, raws)):
+        cache["h"][j].copy_(h_last.float())
+        conv = cache["conv"][j]
+        t = min(x.shape[1], conv.shape[1])
+        conv.zero_()
+        conv[:, -t:] = raw[:, -t:]
+    return out
+
+
+def rglru_decode_step_tp(p, x, cache, cfg, group):
+    """``rglru_decode_step`` split over a model group: each shard its
+    channels' step on its cache blocks in place, ``w_out``'s partials
+    all-reduced."""
+    parts = []
+    for j, xj in enumerate(tp.broadcast(x, group)):
+        out, _ = rglru_decode_step(_shard_params(p, j), xj,
+                                   tp.shard(cache, j), cfg)
+        parts.append(out)
+    return tp.all_reduce(parts, group), cache

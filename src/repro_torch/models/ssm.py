@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import nn
 
 
@@ -120,26 +121,65 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int, h0=None):
     return y, state
 
 
+def _in_proj(zx, di: int, nl: int, hl: int):
+    """z, the pre-conv [x | B | C] rows and dt's raw columns of an
+    in-projection ``zx`` (the whole mixer's, or one shard's in the
+    segment layout: ``di``, ``nl``, ``hl`` its d_in, state columns and
+    heads)."""
+    return zx[..., :di], zx[..., di: 2 * di + 2 * nl], zx[..., -hl:]
+
+
+def _bc(xbc, di: int, nl: int):
+    """B and C of the post-conv [x | B | C] rows."""
+    return xbc[..., di: di + nl], xbc[..., di + nl:]
+
+
+def _dt_a(dt_raw, dt_bias, A_log):
+    """softplus(dt + dt_bias) in f32, and A = -exp(A_log)."""
+    return F.softplus(dt_raw.float() + dt_bias), -torch.exp(A_log)
+
+
+def _scan(xbc, dt_raw, B, C, dt_bias, A_log, D, cfg, h0=None):
+    """The SSD over the heads of ``dt_raw`` (b,l,h), their x the first
+    columns of ``xbc``: (y (b,l,h*p), final state (b,h,p,n))."""
+    b, l, h = dt_raw.shape
+    xs = xbc[..., :h * cfg.ssm_head_dim].reshape(b, l, h, cfg.ssm_head_dim)
+    dt, A = _dt_a(dt_raw, dt_bias, A_log)
+    y, hT = ssd_chunked(xs, dt.to(xs.dtype), A.to(xs.dtype), B, C, D,
+                        cfg.ssm_chunk, h0=h0)
+    return y.reshape(b, l, h * cfg.ssm_head_dim), hT
+
+
+def _conv_step(conv, new, conv_w, conv_b):
+    """The conv over the cached window ``conv`` and the current token's
+    pre-conv row ``new``: (the SiLU of it, the window)."""
+    win = torch.cat([conv, new[:, None, :]], dim=1)
+    return F.silu(torch.einsum("bwc,wc->bc", win, conv_w) + conv_b), win
+
+
+def _recur(xbc, dt_raw, B, C, dt_bias, A_log, D, state, cfg):
+    """One token's recurrent update of the heads of ``dt_raw`` (b,h):
+    (y (b,h*p), the new state (b,h,p,n))."""
+    b, h = dt_raw.shape
+    xs = xbc[..., :h * cfg.ssm_head_dim].reshape(b, h, cfg.ssm_head_dim)
+    dt, A = _dt_a(dt_raw, dt_bias, A_log)
+    dA = torch.exp(dt * A).to(xs.dtype)                     # (b,h)
+    upd = torch.einsum("bhp,bn->bhpn", xs * dt[..., None].to(xs.dtype), B)
+    state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, C) + xs * D[None, :, None]
+    return y.reshape(b, h * cfg.ssm_head_dim), state
+
+
 def _block(p, x, cfg, h0=None):
     """The Mamba-2 block on x (b,l,d): (out, final state, the pre-conv
     xBC activations (b,l,conv_dim), whose last width - 1 rows are the
     decode's conv cache)."""
-    b, l, _ = x.shape
-    d_in, nheads, conv_dim = ssm_dims(cfg)
+    d_in, nheads, _ = ssm_dims(cfg)
     n = cfg.ssm_state
-    zxbcdt = x @ p["w_in"]
-    z = zxbcdt[..., :d_in]
-    xbc_raw = zxbcdt[..., d_in: d_in + d_in + 2 * n]
-    dt_raw = zxbcdt[..., -nheads:]
+    z, xbc_raw, dt_raw = _in_proj(x @ p["w_in"], d_in, n, nheads)
     xbc = F.silu(nn.causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
-    xs = xbc[..., :d_in].reshape(b, l, nheads, cfg.ssm_head_dim)
-    B = xbc[..., d_in: d_in + n]
-    C = xbc[..., d_in + n:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, hT = ssd_chunked(xs, dt.to(xs.dtype), A.to(xs.dtype), B, C, p["D"],
-                        cfg.ssm_chunk, h0=h0)
-    y = y.reshape(b, l, d_in)
+    y, hT = _scan(xbc, dt_raw, *_bc(xbc, d_in, n), p["dt_bias"],
+                  p["A_log"], p["D"], cfg, h0)
     y = nn.rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["w_out"], hT, xbc_raw
 
@@ -179,28 +219,128 @@ def ssm_decode_step(p, x, cache, cfg):
     """One-token recurrent update.  x: (b,1,d).  Writes ``cache``'s
     ``state`` and ``conv`` in place (no host sync); returns (out (b,1,d),
     cache)."""
-    b = x.shape[0]
-    d_in, nheads, conv_dim = ssm_dims(cfg)
+    d_in, nheads, _ = ssm_dims(cfg)
     n = cfg.ssm_state
-    zxbcdt = x[:, 0] @ p["w_in"]
-    z = zxbcdt[..., :d_in]
-    xbc_new = zxbcdt[..., d_in: d_in + d_in + 2 * n]
-    dt_raw = zxbcdt[..., -nheads:]
-    # conv over the cached window + the current token
-    win = torch.cat([cache["conv"], xbc_new[:, None, :]], dim=1)
-    xbc = F.silu(torch.einsum("bwc,wc->bc", win, p["conv_w"]) + p["conv_b"])
-    xs = xbc[..., :d_in].reshape(b, nheads, cfg.ssm_head_dim)
-    B = xbc[..., d_in: d_in + n]
-    C = xbc[..., d_in + n:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A).to(xs.dtype)                     # (b,h)
-    upd = torch.einsum("bhp,bn->bhpn", xs * dt[..., None].to(xs.dtype), B)
-    state = cache["state"] * dA[..., None, None] + upd
-    y = torch.einsum("bhpn,bn->bhp", state, C) + xs * p["D"][None, :, None]
-    y = y.reshape(b, d_in)
+    z, xbc_new, dt_raw = _in_proj(x[:, 0] @ p["w_in"], d_in, n, nheads)
+    xbc, win = _conv_step(cache["conv"], xbc_new, p["conv_w"], p["conv_b"])
+    y, state = _recur(xbc, dt_raw, *_bc(xbc, d_in, n), p["dt_bias"],
+                      p["A_log"], p["D"], cache["state"], cfg)
     y = nn.rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = (y @ p["w_out"])[:, None, :]
     cache["state"].copy_(state)
     cache["conv"].copy_(win[:, 1:])
     return out, cache
+
+
+# -------------------------------------------------- tensor parallelism ----
+
+def _local_dims(p, cfg):
+    """(d_in, state columns, heads) one shard holds of a mixer split over
+    a model group (``distributed.tensor_parallel.shardings``' segment
+    layout: ``w_in`` [z | x | B | C | dt], the conv [x | B | C], each
+    segment split over the group); raises where a leaf is not split."""
+    for k in ("w_in", "conv_w", "conv_b", "D", "w_out"):
+        if p[k].dim is None:
+            raise ValueError(f"the SSM's {k} does not split over the "
+                             "model axis (ssm_state, the heads and d_inner "
+                             "must each divide over it)")
+    M = len(p["w_in"])
+    d_in, nheads, _ = ssm_dims(cfg)
+    return d_in // M, cfg.ssm_state // M, nheads // M
+
+
+def _shard_heads(p, j: int, hl: int):
+    """Shard j's heads of the replicated per-head leaves: (``dt_bias``,
+    ``A_log``)."""
+    return tuple(p[k][j][..., j * hl:(j + 1) * hl]
+                 for k in ("dt_bias", "A_log"))
+
+
+def _all_gather_bc(xbcs, di, nl, group):
+    """B and C of every state column: each shard's post-conv slices,
+    all-gathered in shard order, then on each shard's device."""
+    bcs = [_bc(t, di, nl) for t in xbcs]
+    B = tp.all_gather([t[0] for t in bcs], group, dim=-1)
+    C = tp.all_gather([t[1] for t in bcs], group, dim=-1)
+    return tp.broadcast(B, group), tp.broadcast(C, group)
+
+
+def _out_tp(p, ys, zs, cfg, group):
+    """The gated norm over the split ``d_in`` (``nn.rmsnorm_tp``), then
+    ``w_out``'s rows of each shard, all-reduced."""
+    normed = nn.rmsnorm_tp([y * F.silu(z) for y, z in zip(ys, zs)],
+                           p["norm"], cfg.norm_eps, group)
+    return tp.all_reduce([y @ p["w_out"][j] for j, y in enumerate(normed)],
+                         group)
+
+
+def _block_tp(p, x, cfg, group):
+    """``_block`` split over a model group (``p`` a ``Split`` tree, x
+    replicated on the first device): each shard its heads of z, x and
+    dt and its state columns of B and C, convolved on its own channels;
+    B and C all-gathered after the conv and SiLU; ``_scan`` over its
+    heads with no collective; the gated norm's sums of squares and
+    ``w_out``'s partials all-reduced.  Returns (out, [final state of
+    each shard's heads], [each shard's pre-conv [x | B | C] rows])."""
+    di, nl, hl = _local_dims(p, cfg)
+    zs, raws, dts, xbcs = [], [], [], []
+    for j, xj in enumerate(tp.broadcast(x, group)):
+        z, raw, dt_raw = _in_proj(xj @ p["w_in"][j], di, nl, hl)
+        zs.append(z)
+        raws.append(raw)
+        dts.append(dt_raw)
+        xbcs.append(F.silu(nn.causal_conv(raw, p["conv_w"][j],
+                                          p["conv_b"][j])))
+    ys, states = [], []
+    for j, (xbc, dt_raw, B, C) in enumerate(zip(
+            xbcs, dts, *_all_gather_bc(xbcs, di, nl, group))):
+        y, hT = _scan(xbc, dt_raw, B, C, *_shard_heads(p, j, hl), p["D"][j],
+                      cfg)
+        ys.append(y)
+        states.append(hT)
+    return _out_tp(p, ys, zs, cfg, group), states, raws
+
+
+def ssm_block_apply_tp(p, x, cfg, group):
+    """``ssm_block_apply`` split over a model group (``_block_tp``)."""
+    return _block_tp(p, x, cfg, group)[0]
+
+
+def ssm_prefill_tp(p, x, cfg, cache, group):
+    """``ssm_prefill`` split over a model group: each shard writes its
+    heads' final state and its [x | B | C] channels of the conv window
+    into its blocks of ``cache`` (``Split``s: the state by heads, the
+    conv window by segments)."""
+    out, states, raws = _block_tp(p, x, cfg, group)
+    for j, (hT, raw) in enumerate(zip(states, raws)):
+        cache["state"][j].copy_(hT)
+        conv = cache["conv"][j]
+        t = min(x.shape[1], conv.shape[1])
+        conv.zero_()
+        conv[:, -t:] = raw[:, -t:]
+    return out
+
+
+def ssm_decode_step_tp(p, x, cache, cfg, group):
+    """``ssm_decode_step`` split over a model group: each shard's conv
+    window, heads and state in place; B and C all-gathered, the gated
+    norm and ``w_out`` as in ``_block_tp``.  Returns (out (b,1,d),
+    cache)."""
+    di, nl, hl = _local_dims(p, cfg)
+    zs, dts, xbcs = [], [], []
+    for j, xj in enumerate(tp.broadcast(x[:, 0], group)):
+        z, new, dt_raw = _in_proj(xj @ p["w_in"][j], di, nl, hl)
+        xbc, win = _conv_step(cache["conv"][j], new, p["conv_w"][j],
+                              p["conv_b"][j])
+        cache["conv"][j].copy_(win[:, 1:])
+        zs.append(z)
+        dts.append(dt_raw)
+        xbcs.append(xbc)
+    ys = []
+    for j, (xbc, dt_raw, B, C) in enumerate(zip(
+            xbcs, dts, *_all_gather_bc(xbcs, di, nl, group))):
+        y, state = _recur(xbc, dt_raw, B, C, *_shard_heads(p, j, hl),
+                          p["D"][j], cache["state"][j], cfg)
+        cache["state"][j].copy_(state)
+        ys.append(y)
+    return _out_tp(p, ys, zs, cfg, group)[:, None, :], cache

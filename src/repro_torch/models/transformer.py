@@ -48,21 +48,25 @@ and ``cfg.remat_block`` G > 0 adds the reference's outer level: blocks
 of G layers checkpointed around their per-layer checkpoints, so that
 one carry a block is kept.
 
-Over a ``mesh`` whose ``model`` axis M exceeds 1, the kinds ``"dense"``,
-``"dense_first"``, ``"moe"``, ``"mla_dense"`` and ``"mla_moe"`` (and the
-VLM's dense backbone) run split over a model group (the reference's mesh
-is a placement hint for GSPMD, its ``_act_constraint``; the port
-executes the split its rule tables give, ``distributed.tensor_parallel``):
-the residual stream and the norms replicated on the group's first
-device; attention over each shard's heads (on the card one flash launch
-a shard), the MLP over its ``d_ff`` columns, the MoE over its experts,
-MLA over its heads; the embedding and the head vocabulary-parallel,
-the VLM's ``vis_proj`` over its output columns; the partials
-all-reduced, the logit and projection slices all-gathered; the caches
-split by ``cache_pspec``'s model entries (heads, or the sequence,
-whose decode merges each shard's softmax partials).  The kinds ssm,
-rglru, local, enc and dec keep their params whole over ``model`` and
-compute as without a mesh (ROADMAP item 38).
+Over a ``mesh`` whose ``model`` axis M exceeds 1, every kind runs split
+over a model group (the reference's mesh is a placement hint for GSPMD,
+its ``_act_constraint``; the port executes the split its rule tables
+give, ``distributed.tensor_parallel``): the residual stream and the
+norms replicated on the group's first device; attention over each
+shard's heads (on the card one flash launch a shard: causal, windowed in
+the local layers, non-causal in the encoder and the cross attention),
+the MLP over its ``d_ff`` columns, the MoE over its experts, MLA over
+its heads, the SSM over its heads of z, x and dt and its state columns
+of B and C (``w_in`` and the conv in the segment layout, B and C
+all-gathered after the conv, the gated norm's sums of squares
+all-reduced), the RG-LRU over its channels and gate blocks; the
+embedding and the head vocabulary-parallel, the VLM's ``vis_proj`` over
+its output columns; the partials all-reduced, the logit and projection
+slices all-gathered; the caches split by ``tensor_parallel.shardings``
+(``cache_pspec``'s model entries: heads, or the sequence, whose decode
+merges each shard's softmax partials, a local layer's ring by its
+slots; the SSM's state by heads and conv window by segments, the
+RG-LRU's by channels; the cross cache by KV heads).
 """
 from __future__ import annotations
 
@@ -73,7 +77,6 @@ import numpy as np
 import torch
 import torch.utils.checkpoint as torch_checkpoint
 
-from repro_torch.distributed import sharding as shrules
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import attention as attn
@@ -106,8 +109,6 @@ _KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe", "ssm",
           "rglru", "local", "enc", "dec")
 _MLA_KINDS = ("mla_dense", "mla_moe")
 _MOE_KINDS = ("moe", "mla_moe")
-# the kinds that run split over a mesh's model axis
-_TP_KINDS = ("dense", "dense_first", "moe", "mla_dense", "mla_moe")
 
 
 def _norm_init(cfg, dtype, device=None):
@@ -170,27 +171,50 @@ def _lead(p):
     return tp.shard(p, 0)
 
 
+def _whole(t):
+    """A replicated leaf's value: a ``Split``'s first copy, else ``t``."""
+    return t.whole if isinstance(t, tp.Split) else t
+
+
 def _ffn_tp(p, x, cfg, kind: str, group):
     if kind in _MOE_KINDS:
         return moe_mod.moe_apply(p["ffn"], x, cfg, group)
     return nn.mlp_apply_tp(p["ffn"], x, cfg.activation, group), None
 
 
-def _layer_apply_tp(p, x, cfg, positions, kind, group, attn_impl):
+def _attn_args(cfg, kind, attn_impl):
+    """``attention_apply``'s keywords for a layer of ``kind``: the local
+    layers' window, the encoder's non-causal full attention."""
+    return dict(causal=kind != "enc",
+                window=cfg.local_window if kind == "local" else 0,
+                impl="full" if kind == "enc" else attn_impl,
+                rope=not cfg.learned_pos_emb)
+
+
+def _layer_apply_tp(p, x, cfg, positions, kind, group, attn_impl,
+                    enc_out=None):
     """``layer_apply`` split over a model group: the residual stream and
-    the norms replicated on the first device, attention and the
-    feed-forward split (``*_tp``), their outputs all-reduced."""
+    the norms replicated on the first device, the mixer (attention, the
+    SSM, the RG-LRU), the cross attention and the feed-forward split
+    (``*_tp``), their outputs all-reduced."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm_apply(cfg, _lead(p["norm1"]), x)
-    if kind in _MLA_KINDS:
+    if kind == "ssm":
+        return x + ssm_mod.ssm_block_apply_tp(p["mixer"], h, cfg, group), aux
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_block_apply_tp(p["mixer"], h, cfg, group)
+    elif kind in _MLA_KINDS:
         x = x + mla_mod.mla_attention_apply_tp(p["attn"], h, cfg, positions,
                                                group)
     else:
         x = x + attn.attention_apply_tp(p["attn"], h, cfg, positions, group,
-                                        causal=True, impl=attn_impl,
-                                        rope=not cfg.learned_pos_emb)
+                                        **_attn_args(cfg, kind, attn_impl))
+    if kind == "dec":
+        x = x + attn.cross_attention_apply_tp(
+            p["cross"], _norm_apply(cfg, _lead(p["norm_cross"]), x), enc_out,
+            cfg, group)
     y, moe_aux = _ffn_tp(p, _norm_apply(cfg, _lead(p["norm2"]), x), cfg,
                          kind, group)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux if moe_aux is None else moe_aux
 
 
@@ -200,7 +224,8 @@ def layer_apply(p, x, cfg, positions, kind: str, *, enc_out=None,
     (``p`` a ``Split`` tree) the layer runs split over it."""
     _check_kind(kind)
     if group is not None:
-        return _layer_apply_tp(p, x, cfg, positions, kind, group, attn_impl)
+        return _layer_apply_tp(p, x, cfg, positions, kind, group, attn_impl,
+                               enc_out)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm_apply(cfg, p["norm1"], x)
     if kind == "ssm":
@@ -275,15 +300,23 @@ def _write_prefix(block_split, rows, s: int):
         blk[:, :s] = rows.to(blk.device, blk.dtype)
 
 
-def _layer_prefill_tp(p, x, cfg, positions, kind, cache, group, attn_impl):
-    """``layer_prefill`` split over a model group: the attention as in
+def _layer_prefill_tp(p, x, cfg, positions, kind, cache, group, attn_impl,
+                      enc_out=None):
+    """``layer_prefill`` split over a model group: the layer as in
     ``_layer_apply_tp``, the cache written by its layout (heads over
     model: each shard its KV heads; the sequence over model: every KV
-    head all-gathered and each shard its positions; MLA's latent and
-    rope key, computed once, each shard its positions)."""
+    head all-gathered and each shard its positions, a local layer's ring
+    its slots; MLA's latent and rope key, computed once, each shard its
+    positions; the SSM's state by heads and conv window by segments, the
+    RG-LRU's by channels; the cross cache by KV heads)."""
     s = x.shape[1]
     h = _norm_apply(cfg, _lead(p["norm1"]), x)
-    if kind in _MLA_KINDS:
+    if kind == "ssm":
+        return x + ssm_mod.ssm_prefill_tp(p["mixer"], h, cfg, cache,
+                                          group), cache
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_prefill_tp(p["mixer"], h, cfg, cache, group)
+    elif kind in _MLA_KINDS:
         latent = mla_mod.mla_prefill_latent(_lead(p["attn"]), h, cfg,
                                             positions)
         _write_prefix(cache["latent"], latent[0], s)
@@ -293,17 +326,27 @@ def _layer_prefill_tp(p, x, cfg, positions, kind, cache, group, attn_impl):
     else:
         qkv = attn.qkv_project_tp(p["attn"], h, cfg, positions, group,
                                   rope=not cfg.learned_pos_emb)
-        for i, name in ((1, "k"), (2, "v")):
-            c = cache[name]
-            if c.dim == 2:              # heads over model
-                for j, t in enumerate(qkv):
-                    c[j][:, :s] = t[i]
-            else:
-                _write_prefix(c, attn.owned_kv([t[i] for t in qkv], cfg,
-                                               group), s)
+        if kind == "local":
+            attn.write_ring(cache, [t[1] for t in qkv], [t[2] for t in qkv],
+                            positions, cfg, group)
+        else:
+            for i, name in ((1, "k"), (2, "v")):
+                c = cache[name]
+                if c.dim == 2:              # heads over model
+                    for j, t in enumerate(qkv):
+                        c[j][:, :s] = t[i]
+                else:
+                    _write_prefix(c, attn.owned_kv([t[i] for t in qkv], cfg,
+                                                   group), s)
         x = x + attn.attention_apply_tp(p["attn"], h, cfg, positions, group,
-                                        causal=True, impl=attn_impl,
-                                        qkv=qkv)
+                                        qkv=qkv,
+                                        **_attn_args(cfg, kind, attn_impl))
+    if kind == "dec":
+        kv = attn.cross_kv_tp(p["cross"], enc_out, cfg, group)
+        attn.write_cross(cache, kv, cfg, group)
+        x = x + attn.cross_attention_apply_tp(
+            p["cross"], _norm_apply(cfg, _lead(p["norm_cross"]), x), enc_out,
+            cfg, group, kv=kv)
     y, _ = _ffn_tp(p, _norm_apply(cfg, _lead(p["norm2"]), x), cfg, kind,
                    group)
     return x + y, cache
@@ -316,7 +359,15 @@ def _layer_decode_tp(p, x, cfg, cache, pos, kind, group):
     b = x.shape[0]
     h = _norm_apply(cfg, _lead(p["norm1"]), x)
     positions = pos.reshape(1, 1).expand(b, 1)
-    if kind in _MLA_KINDS:
+    if kind == "ssm":
+        out, cache = ssm_mod.ssm_decode_step_tp(p["mixer"], h, cache, cfg,
+                                                group)
+        return x + out, cache
+    if kind == "rglru":
+        out, cache = rglru_mod.rglru_decode_step_tp(p["mixer"], h, cache,
+                                                    cfg, group)
+        x = x + out
+    elif kind in _MLA_KINDS:
         latent, k_rope = mla_mod.mla_prefill_latent(_lead(p["attn"]), h,
                                                     cfg, positions)
         lat_c, kr_c = cache["latent"], cache["k_rope"]
@@ -333,8 +384,14 @@ def _layer_decode_tp(p, x, cfg, cache, pos, kind, group):
         x = x + mla_mod.mla_decode_attention_tp(p["attn"], h, lat_c, kr_c,
                                                 cfg, positions, pos, group)
     else:
-        x = x + attn.decode_attention_tp(p["attn"], h, cfg, cache, pos,
-                                         group)
+        x = x + attn.decode_attention_tp(
+            p["attn"], h, cfg, cache, pos, group,
+            window=cfg.local_window if kind == "local" else 0,
+            rope=not cfg.learned_pos_emb)
+    if kind == "dec":
+        x = x + attn.cross_attention_decode_tp(
+            p["cross"], _norm_apply(cfg, _lead(p["norm_cross"]), x),
+            cache["ck"], cache["cv"], cfg, group)
     y, _ = _ffn_tp(p, _norm_apply(cfg, _lead(p["norm2"]), x), cfg, kind,
                    group)
     return x + y, cache
@@ -355,7 +412,7 @@ def layer_prefill(p, x, cfg, positions, kind: str, max_len: int, *,
     _check_kind(kind)
     if group is not None:
         return _layer_prefill_tp(p, x, cfg, positions, kind, cache, group,
-                                 attn_impl)
+                                 attn_impl, enc_out)
     b, s, _ = x.shape
     if cache is None:
         cache = layer_init_cache(
@@ -444,8 +501,8 @@ def layer_decode(p, x, cfg, cache, pos, kind: str, group=None):
         kc.index_copy_(1, slot, k.to(kc.dtype))
         vc.index_copy_(1, slot, v.to(vc.dtype))
         kp.index_copy_(1, slot, positions)
-        mask = (kp >= 0) & (kp > pos - cfg.local_window) & (kp <= pos)
-        o = attn.decode_attention(q, kc, vc, mask)
+        o = attn.decode_attention(q, kc, vc,
+                                  attn.ring_mask(kp, pos, cfg.local_window))
         x = x + o.reshape(b, 1, cfg.num_heads * cfg.head_dim) \
             @ p["attn"]["wo"]
     elif kind in _MLA_KINDS:
@@ -577,6 +634,9 @@ class ModelFns:
     decode_step: Any
     init_cache: Any
     split: bool = False        # runs split over the mesh's model axis
+    # params -> (the model group's ``Split`` tree, the group), or
+    # (params, None) unsplit
+    view: Any = None
 
 
 def _layer_plan(cfg):
@@ -604,12 +664,6 @@ def _max_pos(cfg):
     return 65536 if not cfg.encdec else 32768
 
 
-def tp_kinds(cfg) -> bool:
-    """Whether every layer of ``cfg`` is of a kind that runs split over
-    a model axis (``_TP_KINDS``)."""
-    return all(kind in _TP_KINDS for kind, _ in _layer_plan(cfg))
-
-
 def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     """The LM of ``cfg`` (dense, MoE, MLA, SSM, hybrid, encoder-decoder
     or VLM).  ``init(generator)`` draws the params on the generator's
@@ -619,22 +673,20 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     ``"patch_emb"`` (the VLM) or ``"audio_emb"`` (whisper), numpy arrays
     or tensors.
 
-    With a ``mesh`` whose ``model`` axis M exceeds 1 and layers of the
-    kinds ``_TP_KINDS`` (``split``), the entry points run split over
-    the model group of the mesh's first position (module docstring):
-    they take the params whole (laid out first), placed
+    With a ``mesh`` whose ``model`` axis M exceeds 1 (``split``; every
+    kind splits), the entry points run split over the
+    model group of the mesh's first position (module docstring): they
+    take the params whole (laid out first), placed
     (``distributed.tensor_parallel.place``) or as a group's ``Split``
     tree; ``init`` still draws them whole; the caches are the group's
     ``Split`` tree (plus ``pos`` on the first device) by
-    ``cache_pspec``'s model entries.  The other kinds (ssm, rglru,
-    local, enc, dec) keep their params whole under a model axis, and
-    compute as without a mesh (ROADMAP item 38)."""
+    ``tensor_parallel.shardings``."""
     dtype = nn.as_dtype(cfg.param_dtype)
     cdt = nn.as_dtype(cfg.compute_dtype)
     tied = cfg.tie_embeddings
     emb_scale = float(cfg.d_model) ** 0.5 if tied else 1.0
     plan = _layer_plan(cfg)
-    split = tp.model_size(mesh) > 1 and tp_kinds(cfg)
+    split = tp.model_size(mesh) > 1
 
     def _view(params):
         """(the model group's ``Split`` tree of ``params``, the group),
@@ -731,22 +783,23 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             patches = torch.as_tensor(batch["patch_emb"], device=dev)
             x = torch.cat([_vis(params, patches.to(cdt), g), x], dim=1)
         if cfg.learned_pos_emb:
-            x = x + params["dec_pos"][: x.shape[1]][None].to(x.dtype)
+            x = x + _whole(params["dec_pos"])[: x.shape[1]][None].to(x.dtype)
         return x, torch.arange(x.shape[1], device=dev)
 
-    def _encode(params, batch):
+    def _encode(params, batch, g=None):
         """Whisper's encoder over ``batch["audio_emb"]``: learned
         positions, the non-causal ``enc`` layers (``_apply_stack``, so
-        under ``cfg.remat`` each recomputed in the backward), the final
-        norm."""
-        a = torch.as_tensor(batch["audio_emb"],
-                            device=params["embed"].device).to(cdt)
+        under ``cfg.remat`` each recomputed in the backward; split over
+        a model group ``g``), the final norm."""
+        dev = g.lead if g is not None else params["embed"].device
+        a = torch.as_tensor(batch["audio_emb"], device=dev).to(cdt)
         if cfg.learned_pos_emb:
-            a = a + params["enc_pos"][: a.shape[1]][None].to(a.dtype)
+            a = a + _whole(params["enc_pos"])[: a.shape[1]][None].to(a.dtype)
         pos = torch.arange(a.shape[1], device=a.device)
         a, _ = _apply_stack(params["enc_layers"], cfg.encoder_layers, a,
-                            cfg, pos, "enc")
-        return _norm_apply(cfg, params["enc_norm"], a)
+                            cfg, pos, "enc", group=g)
+        return _norm_apply(cfg, params["enc_norm"] if g is None
+                           else _lead(params["enc_norm"]), a)
 
     def _head(params, g):
         """The head as a function of normed rows: the tied embedding's
@@ -764,13 +817,15 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         x = _final_norm(params, x, g)
         return _head(params, g)(x)[..., : cfg.vocab_size]
 
-    def _hybrid_apply(params, x, positions):
+    def _hybrid_apply(params, x, positions, mg=None):
         """The hybrid's groups (each one checkpoint under ``cfg.remat``,
-        as the reference's scan body), then its tail layers."""
+        as the reference's scan body), then its tail layers; split over
+        a model group ``mg``."""
         def group(h, aux, g):
             for i, kind in enumerate(pattern):
                 h, a = layer_apply(_layer(params["groups"][f"b{i}"], g), h,
-                                   cfg, positions, kind, attn_impl=attn_impl)
+                                   cfg, positions, kind, attn_impl=attn_impl,
+                                   group=mg)
                 aux = aux + a
             return h, aux
         run = _checkpointed(group) if cfg.remat else group
@@ -779,13 +834,13 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             x, aux = run(x, aux, g)
         for i, kind in enumerate(tail):
             x, a = layer_apply(params[f"tail{i}"], x, cfg, positions, kind,
-                               attn_impl=attn_impl)
+                               attn_impl=attn_impl, group=mg)
             aux = aux + a
         return x, aux
 
     def _backbone_train(params, x, positions, g=None):
         if cfg.hybrid:
-            return _hybrid_apply(params, x, positions)
+            return _hybrid_apply(params, x, positions, g)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, (kind, n) in enumerate(plan):
             x, a = _apply_stack(params[f"seg{si}"], n, x, cfg, positions,
@@ -806,11 +861,11 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         dev = g.lead if g is not None else params["embed"].device
         with full_f32_matmul():
             if cfg.encdec:
-                enc_out = _encode(params, batch)
-                x, positions = _inputs(params, batch)
+                enc_out = _encode(params, batch, g)
+                x, positions = _inputs(params, batch, g)
                 x, aux = _apply_stack(params["seg0"], cfg.num_layers, x, cfg,
                                       positions, "dec", enc_out=enc_out,
-                                      attn_impl=attn_impl)
+                                      attn_impl=attn_impl, group=g)
             else:
                 x, positions = _inputs(params, batch, g)
                 x, aux = _backbone_train(params, x, positions, g)
@@ -839,15 +894,18 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     def init_cache(batch_size: int, max_len: int, dtype_=None, *,
                    device=None, enc_len=None):
         if split:       # the model group's blocks (``device`` unused)
-            return _split_cache(batch_size, max_len, dtype_)
+            return _split_cache(batch_size, max_len, dtype_, enc_len)
         return _whole_cache(batch_size, max_len, dtype_, device=device,
                             enc_len=enc_len)
 
-    def _split_cache(batch_size, max_len, dtype_):
+    def _split_cache(batch_size, max_len, dtype_, enc_len=None):
         """Zeroed blocks of the caches over the mesh's first model
-        group: each split leaf shard j's block of ``cache_pspec``'s model
-        split on its device, each replicated leaf one copy a device."""
-        whole = _whole_cache(batch_size, max_len, dtype_, device="meta")
+        group: each split leaf shard j's block of its model split
+        (``tensor_parallel.shardings``: ``cache_pspec``'s, the SSM's conv
+        window by segments, the cross cache by heads) on its device,
+        each replicated leaf one copy a device."""
+        whole = _whole_cache(batch_size, max_len, dtype_, device="meta",
+                             enc_len=enc_len)
         pos = whole.pop("pos")
         g = tp.model_group(mesh)
 
@@ -860,8 +918,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
                 return tp.Split([copies[d] for d in g.devices], None)
             block = sh.shard_shape(t.shape)
             return tp.Split([torch.zeros(block, dtype=t.dtype, device=d)
-                             for d in g.devices], dim)
-        out = tp._map2(one, whole, shrules.model_shardings(whole, mesh, cfg))
+                             for d in g.devices], dim, sh.segments)
+        out = tp._map2(one, whole, tp.shardings(whole, mesh, cfg))
         out["pos"] = torch.zeros((), dtype=pos.dtype, device=g.lead)
         return out
 
@@ -892,7 +950,7 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         params, g = _view(params)
         dev = g.lead if g is not None else params["embed"].device
         with full_f32_matmul():
-            enc_out = _encode(params, batch) if cfg.encdec else None
+            enc_out = _encode(params, batch, g) if cfg.encdec else None
             x, positions = _inputs(params, batch, g)
             b, s, _ = x.shape
             caches = init_cache(
@@ -914,7 +972,7 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         with full_f32_matmul():
             x = _embed_tokens(params, tokens, g)
             if cfg.learned_pos_emb:   # a gather at the device pos: no sync
-                x = x + params["dec_pos"].index_select(
+                x = x + _whole(params["dec_pos"]).index_select(
                     0, pos.long().reshape(1))[None].to(x.dtype)
             for (kind, lp), (_, lc) in zip(_walk(params), _walk(caches)):
                 x, _ = layer_decode(lp, x, cfg, lc, pos, kind, group=g)
@@ -923,4 +981,4 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
 
     return ModelFns(cfg=cfg, init=init, train_forward=train_forward,
                     prefill=prefill, decode_step=decode_step,
-                    init_cache=init_cache, split=split)
+                    init_cache=init_cache, split=split, view=_view)

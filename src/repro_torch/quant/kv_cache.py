@@ -108,37 +108,48 @@ def icq_kv_append(cache: Dict, cfg_kv: ICQKVConfig, k_new, v_new,
     """Append one decode step's K/V at ``pos``, in place.
     k_new/v_new: (b,1,kvh,dh).  Returns the cache with its new ``len``."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=k_new.device)
-    k_rot = _apply_perm(k_new, cache["perm"])
-    kq, ks = quantize_int8(k_rot)
-    vq, vs = quantize_int8(v_new)
     at = pos.long().reshape(1)
-    for name, val in (("k_fast", k_rot[..., : cfg_kv.d_fast]), ("kq", kq),
-                      ("ks", ks), ("vq", vq), ("vs", vs)):
+    for name, val in quantized_rows(cache["perm"], cfg_kv, k_new,
+                                    v_new).items():
         cache[name].index_copy_(1, at, val.to(cache[name].dtype))
     return dict(cache, len=torch.maximum(cache["len"], pos + 1))
 
 
-def _survivors(q, cache: Dict, cfg_kv: ICQKVConfig, valid, top_c: int):
-    """Phases 1 and 2 up to the masked exact scores: (scores (b,kvh,g,c)
-    f32 with invalid survivors at NEG_INF, dequantized V rows
-    (b,kvh,g,c,dh))."""
+def quantized_rows(perm, cfg_kv: ICQKVConfig, k_new, v_new) -> Dict:
+    """The cache rows of new K / V (b, t, kvh, dh) under the per-head
+    ``perm``: the crude slab and the int8 codes with their scales."""
+    k_rot = _apply_perm(k_new, perm)
+    kq, ks = quantize_int8(k_rot)
+    vq, vs = quantize_int8(v_new)
+    return {"k_fast": k_rot[..., : cfg_kv.d_fast], "kq": kq, "ks": ks,
+            "vq": vq, "vs": vs}
+
+
+def _rotated(q, cache: Dict, cfg_kv: ICQKVConfig):
+    """(q by kv head, permuted: (b,kvh,g,dh); its d_fast crude dims)."""
     b, _, h, dh = q.shape
-    kvh = cache["kq"].shape[2]
-    g = h // kvh
-    scale = dh ** -0.5
-    qg = q[:, 0].reshape(b, kvh, g, dh)                  # head h -> kv h//g
+    kvh = cache["perm"].shape[0]
+    qg = q[:, 0].reshape(b, kvh, h // kvh, dh)           # head h -> kv h//g
     q_rot = torch.gather(qg, -1, cache["perm"].long()[None, :, None, :]
-                         .expand(b, kvh, g, dh))
-    q_fast = q_rot[..., : cfg_kv.d_fast]
+                         .expand(qg.shape))
+    return q_rot, q_rot[..., : cfg_kv.d_fast]
 
-    # ---- phase 1: crude scores (b,kvh,g,S) ----
-    S = cache["kq"].shape[1]
+
+def _crude(q_fast, cache: Dict, valid):
+    """Phase 1: crude scores (b,kvh,g,S) over the cache's S positions,
+    invalid ones at NEG_INF."""
+    scale = cache["kq"].shape[-1] ** -0.5
     crude = torch.einsum("bkgf,bskf->bkgs", q_fast.float(),
-                         cache["k_fast"][:, :S].float()) * scale
-    crude = torch.where(valid[:, None, None, :], crude, NEG_INF)
-    cand = _top_c(crude, top_c)                          # (b,kvh,g,c)
+                         cache["k_fast"].float()) * scale
+    return torch.where(valid[:, None, None, :], crude, NEG_INF)
 
-    # ---- phase 2: gather survivors, dequantize, exact scores ----
+
+def _refine(q_rot, cache: Dict, cand, cand_valid):
+    """Phase 2: the survivors at ``cand`` (b,kvh,g,c) positions of the
+    cache gathered, dequantized and scored exactly: (scores f32 with
+    those not ``cand_valid`` at NEG_INF, V rows (b,kvh,g,c,dh))."""
+    b, kvh, g, dh = q_rot.shape
+
     def gather(buf):                                     # (b,S,kvh,x)
         bf = buf.transpose(1, 2)[:, :, None]             # (b,kvh,1,S,x)
         bf = bf.expand(b, kvh, g, *bf.shape[3:])
@@ -147,23 +158,56 @@ def _survivors(q, cache: Dict, cfg_kv: ICQKVConfig, valid, top_c: int):
 
     k_sel = dequantize_int8(gather(cache["kq"]), gather(cache["ks"]))
     v_sel = dequantize_int8(gather(cache["vq"]), gather(cache["vs"]))
-    s = torch.einsum("bkgd,bkgcd->bkgc", q_rot.float(), k_sel) * scale
-    cand_valid = torch.gather(valid[:, None, None, :].expand(crude.shape), 3,
-                              cand)
+    s = torch.einsum("bkgd,bkgcd->bkgc", q_rot.float(), k_sel) * dh ** -0.5
     return torch.where(cand_valid, s, NEG_INF), v_sel
 
 
+def _crude_gap(crude, q_fast, cache: Dict, top_c: int):
+    """The crude score at rank ``top_c`` less the next one, over the
+    row's largest sum of |products| (max over positions of sum_f |q_f
+    k_f| scaled; inf when no position is left out): how far the top-c
+    set is from a tie, in the unit that bounds a score's rounding (a
+    cached bf16 ``k_fast`` value one rounding step away moves a score by
+    at most 2^-7 of it)."""
+    vals = torch.sort(crude, dim=-1, descending=True, stable=True).values
+    if vals.shape[-1] <= top_c:
+        return torch.full(vals.shape[:-1], float("inf"), device=vals.device)
+    mag = torch.einsum("bkgf,bskf->bkgs", q_fast.float().abs(),
+                       cache["k_fast"].float().abs()).amax(dim=-1) \
+        * cache["kq"].shape[-1] ** -0.5
+    return (vals[..., top_c - 1] - vals[..., top_c]) / torch.clamp(mag,
+                                                                   1e-30)
+
+
+def _survivors(q, cache: Dict, cfg_kv: ICQKVConfig, valid, top_c: int,
+               record=None):
+    """Phases 1 and 2 up to the masked exact scores: (scores (b,kvh,g,c)
+    f32 with invalid survivors at NEG_INF, dequantized V rows
+    (b,kvh,g,c,dh)).  ``record``: a list that takes (the survivors'
+    positions, ``_crude_gap``)."""
+    q_rot, q_fast = _rotated(q, cache, cfg_kv)
+    crude = _crude(q_fast, cache, valid)
+    cand = _top_c(crude, top_c)                          # (b,kvh,g,c)
+    if record is not None:
+        record.append((cand, _crude_gap(crude, q_fast, cache, top_c)))
+    cand_valid = torch.gather(valid[:, None, None, :].expand(crude.shape), 3,
+                              cand)
+    return _refine(q_rot, cache, cand, cand_valid)
+
+
 def icq_kv_decode_attention(q, cache: Dict, cfg_kv: ICQKVConfig, pos,
-                            top_c: int):
+                            top_c: int, *, record=None):
     """Two-step decode attention.  q: (b, 1, H, dh) -> (b, 1, H, dh).
 
     Phase 1: crude scores over all S from the d_fast high-variance dims.
     Phase 2: exact scores + softmax over the top_c survivors.
+    ``record``: a list that takes the survivors' positions and crude gap
+    (``_survivors``).
     """
     b, _, h, dh = q.shape
     S = cache["kq"].shape[1]
     valid = (torch.arange(S, device=q.device) <= pos)[None, :]   # (1,S)
-    s, v_sel = _survivors(q, cache, cfg_kv, valid, top_c)
+    s, v_sel = _survivors(q, cache, cfg_kv, valid, top_c, record)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bkgcd->bkgd", p, v_sel)     # (b,kvh,g,dh)
     return out.reshape(b, 1, h, dh).to(q.dtype)
@@ -227,3 +271,61 @@ def combine_attention_partials(m, l, o, axis_name: str = "model", *,
     return combine_partials_local(*(torch.stack([t.to(dev) for t in part])
                                     for part in (m, l, o)))
 
+
+def icq_kv_decode_attention_tp(q, blocks, cfg_kv: ICQKVConfig, pos,
+                               top_c: int, group, *, record=None):
+    """``icq_kv_decode_attention`` over a cache split by positions over a
+    model group: ``blocks`` each shard's cache (its positions of every
+    buffer, the whole ``perm``), q (b, 1, H, dh) on the first device.
+    It computes the unsplit result: the *global* top-c over all S.
+
+    1. Each shard scores its positions crudely and keeps its local top-c
+       (all of them where it holds fewer), with their global positions.
+    2. The union is all-gathered on the first device in shard order and
+       merged by a stable descending sort: equal scores keep the lowest
+       position first, ``_top_c``'s order (``lax.top_k``'s).  A global
+       survivor ranks below at most top_c - 1 others of its shard, so
+       the global top-c lies inside the union: the merge is exact.
+    3. The survivors are broadcast; each shard refines those it owns
+       (the others masked), and the softmax partials are merged by
+       ``combine_attention_partials``.
+
+    (``icq_kv_attention_partial`` keeps ``top_c_local`` survivors a
+    shard, another result, which no entry point of the reference
+    calls.)  ``record``: as ``icq_kv_decode_attention``'s, the gap
+    None.  Returns (b, 1, H, dh) on the first device."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models.attention import combine_partials_tp
+    b, _, h, dh = q.shape
+    qs, poss = tp.broadcast(q, group), tp.broadcast(pos, group)
+    rot, vals, where = [], [], []
+    for j, (qj, cj, pj) in enumerate(zip(qs, blocks, poss)):
+        n = cj["kq"].shape[1]
+        at = j * n + torch.arange(n, device=qj.device)
+        q_rot, q_fast = _rotated(qj, cj, cfg_kv)
+        crude = _crude(q_fast, cj, (at <= pj)[None, :])
+        top = torch.sort(crude, dim=-1, descending=True, stable=True)
+        c = min(top_c, n)
+        rot.append(q_rot)
+        vals.append(top.values[..., :c])
+        where.append((top.indices[..., :c] + j * n).to(torch.int32))
+    vals = tp.all_gather(vals, group, dim=-1)
+    where = tp.all_gather(where, group, dim=-1)
+    order = torch.sort(vals, dim=-1, descending=True,
+                       stable=True).indices[..., :top_c]
+    cand = torch.gather(where, -1, order).long()         # (b,kvh,g,c)
+    if record is not None:
+        record.append((cand, None))
+    parts = []
+    for j, (q_rot, cj, pj, cd) in enumerate(zip(
+            rot, blocks, poss, tp.broadcast(cand, group))):
+        n = cj["kq"].shape[1]
+        local = cd - j * n
+        mine = (local >= 0) & (local < n) & (cd <= pj)
+        s, v_sel = _refine(q_rot, cj, torch.clamp(local, 0, n - 1), mine)
+        m = s.amax(dim=-1)
+        e = torch.exp(s - m[..., None])
+        parts.append((m, e.sum(dim=-1),
+                      torch.einsum("bkgc,bkgcd->bkgd", e, v_sel)))
+    o = combine_partials_tp(parts, group)                # (b,kvh,g,dh)
+    return o.reshape(b, 1, h, dh).to(q.dtype)

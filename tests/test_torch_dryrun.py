@@ -17,7 +17,7 @@ from repro_torch import configs
 from repro_torch.distributed.sharding import make_mesh_auto
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, hlo_cost
-from repro_torch.launch.steps import lower_cell, plan_cell
+from repro_torch.launch.steps import lower_cell, plan_cell, plan_icq_kv_cell
 
 
 @pytest.mark.parametrize("arch", configs.list_archs())
@@ -146,8 +146,70 @@ def test_tensor_parallel_bytes_of_a_decode_cell_equal_a_hand_count():
     assert lower_cell(plan_cell(cfg, shape, mesh)).cost.tp_bytes == {}
 
 
+def _tp_bytes(arch, kind, seq_len, batch, **repl):
+    """The tensor-parallel bytes of ``arch`` (full width, bf16 as the dry
+    run scales it, ``repl`` cutting its depth) on the meta (data 1, model
+    2) mesh."""
+    mesh = make_mesh_auto((1, 2), ("data", "model"), devices="meta")
+    cfg = dataclasses.replace(configs.get_config(arch), **repl)
+    shape = configs.ShapeSpec(name="t", seq_len=seq_len, global_batch=batch,
+                              kind=kind)
+    return lower_cell(plan_cell(cfg, shape, mesh)).cost.tp_bytes
+
+
+def test_tensor_parallel_bytes_of_an_ssm_decode_cell_equal_a_hand_count():
+    """mamba2-1.3b at 2 layers, one decode token of 4 rows, over model 2:
+    the embedding's all-reduce (4 x 2048 bf16, 2 (M - 1) / M of it a
+    device), and a layer's two: the gated norm's f32 sums of squares (4
+    x 1) and ``w_out``'s partials (4 x 2048 bf16); B's and C's
+    all-gathers after the conv (4 x 128 bf16 each, (M - 1) / M of it a
+    device) in each layer, and the logits' (4 x 50432 bf16)."""
+    got = _tp_bytes("mamba2-1.3b", "decode", 1024, 4, num_layers=2)
+    act = 4 * 2048 * 2
+    assert got == {"all-reduce (tp)": act + 2 * (4 * 4 + act),
+                   "all-gather (tp)": 2 * 2 * 0.5 * 4 * 128 * 2
+                   + 0.5 * 4 * 50432 * 2}
+
+
+def test_tensor_parallel_bytes_of_a_hybrid_decode_cell_equal_a_hand_count():
+    """recurrentgemma-9b at 3 layers (rglru, rglru, local), one decode
+    token of 4 rows over a 1024-slot ring, over model 2: the tied
+    embedding's all-reduce and each layer's two (the mixer's or the
+    attention's ``wo`` partials, the MLP's), 4 x 4096 bf16 each.  The
+    local layer's one KV head (dh 256) splits inside the head: ``wk`` and
+    ``wv`` (4096 x 256 bf16) all-gathered, the new K and V (4 x 256)
+    all-gathered, the queries (4 x 16 x 256); the ring split by sequence,
+    each shard's softmax partials gathered (m and l 4 x 16 f32, o 4 x 16
+    x 256 f32: (M - 1) of a shard's); the tied head's logits (4 x
+    256000 bf16)."""
+    got = _tp_bytes("recurrentgemma-9b", "decode", 1024, 4, num_layers=3)
+    act = 4 * 4096 * 2
+    half = 0.5
+    assert got == {
+        "all-reduce (tp)": act + 3 * 2 * act,
+        "all-gather (tp)": half * 2 * 4096 * 256 * 2
+        + half * 2 * 4 * 256 * 2 + half * 4 * 16 * 256 * 2
+        + (2 * 4 * 16 * 4 + 4 * 16 * 256 * 4) + half * 4 * 256000 * 2}
+
+
+def test_tensor_parallel_bytes_of_a_whisper_prefill_cell_equal_a_hand_count():
+    """whisper-large-v3 at 2 encoder and 2 decoder layers, a prefill of
+    2 x 64 tokens over 1500 frames, over model 2 (20 heads: 10 a shard,
+    the cross cache by heads): each encoder layer's two all-reduces of a
+    2 x 1500 x 1280 bf16 activation, the embedding's and each decoder
+    layer's three (self attention, cross attention, MLP) of 2 x 64 x
+    1280, and the last position's logits (2 x 51968 bf16)
+    all-gathered."""
+    got = _tp_bytes("whisper-large-v3", "prefill", 64, 2, num_layers=2,
+                    encoder_layers=2)
+    enc, dec = 2 * 1500 * 1280 * 2, 2 * 64 * 1280 * 2
+    assert got == {"all-reduce (tp)": 2 * 2 * enc + dec + 2 * 3 * dec,
+                   "all-gather (tp)": 0.5 * 2 * 51968 * 2}
+
+
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v2-236b",
-                                  "internvl2-76b"])
+                                  "internvl2-76b", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "whisper-large-v3"])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_one_model_shards_trace_counts_the_groups_collectives(arch, kind):
     """The dry run traces one model shard's split step
@@ -155,7 +217,8 @@ def test_one_model_shards_trace_counts_the_groups_collectives(arch, kind):
     step traced shard by shard, at smoke size on a meta (data 1, model
     2) mesh: tinyllama's wk / wv split inside its one KV head and its
     cache by sequence, deepseek's MLA and experts, internvl's
-    ``vis_proj``."""
+    ``vis_proj``, mamba2's segment layout, recurrentgemma's ring split
+    by sequence, whisper's encoder and cross attention."""
     from repro_torch.distributed import tensor_parallel as tp
     mesh = make_mesh_auto((1, 2), ("data", "model"), devices="meta")
     cfg = configs.smoke_config(arch)
@@ -166,3 +229,37 @@ def test_one_model_shards_trace_counts_the_groups_collectives(arch, kind):
             tp.counting() as whole:
         plan.tp_fn(*plan.tp_args)
     assert hlo_cost.tp_collectives(plan) == whole and whole
+
+
+@pytest.mark.parametrize("kvh,heads", [(4, 8), (1, 4)])
+def test_tensor_parallel_bytes_of_an_icq_kv_cell_equal_a_hand_count(kvh,
+                                                                   heads):
+    """The ICQ-KV decode cell (smoke tinyllama: d 64, 2 layers, dh 16,
+    vocabulary padded to 256; 4 rows, a 256-position cache, top_c 128)
+    over model 2.  4 KV heads: the cache by heads, no collective but the
+    all-reduces (the embedding's and each layer's ``wo`` and MLP
+    partials, 4 x 64 bf16 each) and the logits' all-gather (4 x 256
+    bf16).  1 KV head: by positions, besides those ``wk`` / ``wv`` (64 x
+    16 bf16) all-gathered, the new K / V (4 x 16), the queries (4 x 4 x
+    16), the crude candidates' union (4 x 4 x 256 f32 scores and int32
+    positions: 128 a shard) and the refined partials (m and l 4 x 4 f32,
+    o 4 x 4 x 16 f32: (M - 1) of a shard's); one shard's trace counts
+    the group's."""
+    from repro_torch.distributed import tensor_parallel as tp
+    mesh = make_mesh_auto((1, 2), ("data", "model"), devices="meta")
+    cfg = dataclasses.replace(configs.smoke_config("tinyllama-1.1b"),
+                              num_heads=heads, num_kv_heads=kvh)
+    shape = configs.ShapeSpec(name="t", seq_len=256, global_batch=4,
+                              kind="decode")
+    plan = plan_icq_kv_cell(cfg, shape, mesh)
+    with torch.no_grad(), tp.counting() as whole:
+        plan.tp_fn(*plan.tp_args)
+    got = hlo_cost.tp_collectives(plan)
+    act, half = 4 * 64 * 2, 0.5
+    gather = half * 4 * 256 * 2
+    if kvh == 1:
+        gather += 2 * (half * 2 * 64 * 16 * 2 + half * 2 * 4 * 16 * 2
+                       + half * 4 * 4 * 16 * 2 + half * 2 * 4 * 4 * 256 * 4
+                       + (2 * 4 * 4 * 4 + 4 * 4 * 16 * 4))
+    assert got == whole == {"all-reduce (tp)": act + 2 * 2 * act,
+                            "all-gather (tp)": gather}
