@@ -347,7 +347,15 @@ or outside a checkout of the repository.  Phases:
    within the norm of half steps, the error-feedback residuals equal to
    the plain gradient less the compressed one and within half a step,
    params within twice the learning rate; with 4 shards' flash
-   launches; (c) the fp32
+   launches; (b') FSDP (``distributed.fsdp``): each of the two steps
+   again from params laid out by the full rule-table specs (plain: FSDP
+   over (pod, data), 4 ways; icq_grad: over data), against the step
+   above on the card: the loss to 1e-5 (bit for bit printed), params,
+   m, v and the norm within 2e-4 of their largest, icq_grad's gradient
+   and residuals within a rounding flip, each position's bytes of
+   params, m and v at ``shard_bytes`` of the full specs, the flash
+   launches equal, a second step keeping the layout, the peak MiB above
+   the state no higher, both steps' seconds; (c) the fp32
    and int8 combine programs (``launch.combine``) over 2 pods of
    tinyllama's full parameter vector: ms, wire bytes a device, the int8
    mean equal to the plain formula bit for bit; (d) ``reshard_state`` of
@@ -361,7 +369,9 @@ or outside a checkout of the repository.  Phases:
    over (pod 1, data 2, model 2), against the unsharded step on the card
    and the same split step on the CPU from the same state at phase 16
    (b)'s gates, each shard's parameter bytes beside ``shard_bytes`` of
-   the model-only specs, the flash launches (4 shards a layer); (b)
+   the model-only specs, the flash launches (4 shards a layer); (a'')
+   its FSDP cell (over data beside the split over model) against it at
+   (b')'s gates; (b)
    tinyllama-1.1b at full width and depth, f32, batch 8, a 512-token
    prompt and 8 greedy steps over (model 2) against the unsharded served
    path (phase 14's gate and near-tie rule), prefill ms, ms a step and
@@ -390,7 +400,9 @@ or outside a checkout of the repository.  Phases:
    positions, and over (model 8) at a 2048-token prompt (257 positions
    a shard, past top_c), against the unsplit ICQ-KV step: logits
    within LM_TOL, greedy tokens and the global survivors equal outside
-   near ties.
+   near ties; each split set the top-c of the split step's own recorded
+   crude scores bit for bit, and both paths' scores within a score's
+   rounding of each other.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -5967,12 +5979,147 @@ def plain_step_ratios(out, want, what, moments_only=()):
     return r
 
 
+# (b') and phase 17 (a''): FSDP (``distributed.fsdp``): the same step
+# from params laid out by the full rule-table specs (each (pod, data)
+# position holds its block of every leaf's FSDP dim; a layer is gathered
+# where the model reads it and its gradient reduce-scattered into the
+# owners' f32 accumulators), from the same state and batch as the cell's
+# step on whole (or model-placed) params on the same mesh, which is the
+# yardstick: (2, 2, 1) plain, FSDP over (pod, data), 4 ways; (2, 2, 1)
+# icq_grad, FSDP over data (params whole across pods); (1, 2, 2), FSDP
+# over data beside the split over model.  Gates against the yardstick:
+# the loss to 1e-5 (bit for bit expected: the gathered layer holds the
+# same values; printed), params, m, v and the norm within LM_TOL
+# (plain_step_ratios: the clip's norm sums the blocks in another order);
+# icq_grad, the gradient read back from m and each pod's residuals
+# within a rounding flip (B + 3 LM_TOL M, phase 16 (b)'s rule against
+# the CPU; bit for bit expected, printed); each position's bytes of
+# params, m and v equal to ``shard_bytes`` of the full specs; the
+# yardstick's flash launches; a second step from the first's output,
+# the layout kept; the peak MiB above the state
+# (``torch.cuda.max_memory_allocated``) no higher than the yardstick's.
+
+
+def fsdp_gathered(out):
+    """An FSDP step's output with every placed tree gathered whole."""
+    from repro_torch.distributed import fsdp
+    p, o, m = out
+    o = dict(o, m=fsdp.gather(o["m"]), v=fsdp.gather(o["v"]))
+    if "ef_residual" in o:
+        o["ef_residual"] = [fsdp.gather(r) for r in o["ef_residual"]]
+    return fsdp.gather(p), o, m
+
+
+def timed_step(step, params, state, batch, mesh=None):
+    """(the step's output, its seconds, its peak MiB above what was
+    allocated before it, the largest over the cards of ``mesh`` (the
+    current card without one), its launches).  The garbage collector
+    runs first: an earlier step's cycles (a caught exception's frames)
+    would otherwise be freed inside this one and hide part of its
+    peak."""
+    import gc
+    import torch
+    cards = (sorted({d.index for d in mesh.devices.flat}) if mesh is not None
+             else [torch.cuda.current_device()])
+    gc.collect()
+    torch.cuda.synchronize()
+    base = {c: torch.cuda.memory_allocated(c) for c in cards}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = step(params, state, batch)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return (out, time.perf_counter() - t0,
+            max(torch.cuda.max_memory_allocated(c) - base[c]
+                for c in cards) / 2**20, read_launches())
+
+
+def fsdp_cell(label, cfg, mesh, params, batch, today, want, card, *,
+              icq=False, pod_grads=None):
+    """Phase 16 (b') / 17 (a''): the FSDP step against ``today`` =
+    (output, seconds, peak MiB) of the cell's step on the same mesh (the
+    comment above). Returns (the launches of its two steps, its peak
+    MiB, its seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as shrules
+    from repro_torch.launch.steps import build_train_step
+    t0 = time.perf_counter()
+    step, _, opt, init = build_train_step(cfg, n_micro=1, multi_pod=True,
+                                          icq_grad=icq, mesh=mesh)
+    placed = fsdp.place(params, mesh, fsdp_over_pod=not icq)
+    state = init(placed)
+    rule = shrules.shard_bytes(params, shrules.param_shardings(
+        params, mesh, fsdp_over_pod=not icq))
+    held = {k: sorted({position_bytes(t, pos)
+                       for pos in np.ndindex(*mesh.devices.shape)})
+            for k, t in (("params", placed), ("m", state["m"]),
+                         ("v", state["v"]))}
+    check(all(h == [rule] for h in held.values()),
+          f"FSDP {label}: positions hold {held} bytes, shard_bytes {rule}")
+    out, secs, peak, launches = timed_step(step, placed, state, batch, mesh)
+    (want_out, want_s, want_peak) = today
+    got = fsdp_gathered(out)
+    lf, lw = got[2]["loss"], want_out[2]["loss"]
+    loss_r = abs(float(lf) - float(lw)) / abs(float(lw))
+    same_loss = torch.equal(lf.to(lw.device), lw)
+    ratios = plain_step_ratios(got, want_out, "without FSDP")
+    bitwise = all(torch.equal(a.to(b.device), b) for a, b in zip(
+        leaves(got[:2]), leaves(want_out[:2])))
+    if icq:
+        g, _ = _step_grads(opt, got)
+        g0, _ = _step_grads(opt, want_out)
+        M = {k: max(float(pg[k].abs().max()) for pg in pod_grads)
+             for k in g0}
+        flip = {k: M[k] / 127 + 3 * LM_TOL * M[k] for k in M}
+        ratios["g vs without FSDP"] = _ratio(g, g0, flip)
+        ratios["residual vs without FSDP"] = max(
+            _ratio(_flat(r), _flat(r0), flip) for r, r0 in zip(
+                got[1]["ef_residual"], want_out[1]["ef_residual"]))
+    reset_launches()
+    two = step(*out[:2], batch)
+    torch.cuda.synchronize()
+    second = read_launches()
+    kept = all(a.sharding == b.sharding for t in (two[0], two[1]["m"])
+               for a, b in shrules.zip_leaves(t, placed))
+    loss2 = float(two[2]["loss"])
+    over = "icq_grad, FSDP over data" if icq else "FSDP over the data axes"
+    log(f"phase {label} FSDP train step {cfg.name} f32 {cfg.num_layers} "
+        f"layers, mesh {tuple(mesh.devices.shape)} {mesh.axis_names} {over}"
+        f": loss {float(lf)!r} against {float(lw)!r} without FSDP (rel "
+        f"{loss_r:.3e}, {'bit for bit' if same_loss else 'NOT bit for bit'}"
+        f"), gnorm {float(got[2]['gnorm'])!r} against "
+        f"{float(want_out[2]['gnorm'])!r}; params, m, v "
+        f"{'bit for bit' if bitwise else 'not bit for bit'}; worst leaf a "
+        "gate, its ratio to the bound: "
+        + ", ".join(f"{k} {n} {r:.4f}" for k, (r, n) in ratios.items())
+        + f"; bytes a position of params / m / v {held} (shard_bytes "
+        f"{rule}); launches {launches} (want {want}); second step loss "
+        f"{loss2!r}, layout {'kept' if kept else 'LOST'}; {secs:.2f} s "
+        f"against {want_s:.2f} s without FSDP; peak above the state "
+        f"{peak:.1f} MiB against {want_peak:.1f} MiB without FSDP; "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    check(loss_r <= 1e-5, f"FSDP {label} loss {float(lf)}")
+    bad = {k: v for k, v in ratios.items() if not v[0] <= 1.0}
+    check(not bad, f"FSDP {label}: {bad}")
+    check(launches == want, f"FSDP {label} launches {launches}")
+    check(kept and np.isfinite(loss2), f"FSDP {label}: second step")
+    check(peak <= want_peak, f"FSDP {label}: peak {peak:.1f} MiB above "
+                             f"{want_peak:.1f} MiB without FSDP")
+    return {k: launches[k] + second[k] for k in launches}, peak, secs
+
+
 def sharded_step_gate(seed: int, card: str):
     """Phase 16 (b): the plain and the icq_grad train step over the (2,
     2, 1) mesh on the card against the unsharded step on the card and
     the same sharded step on the CPU, from the same state and batch, on
     the gradient that each step took (the comment above SHARD_STEP).
-    Returns the launches of the two sharded steps on the card."""
+    Then (b'): the FSDP cell of each (``fsdp_cell``) against the card's
+    sharded step.  Returns the launches of the two sharded steps and of
+    the FSDP cells' on the card."""
     import dataclasses
     import numpy as np
     import torch
@@ -6010,13 +6157,13 @@ def sharded_step_gate(seed: int, card: str):
                                                 icq_grad=icq, mesh=mesh)
             params = card_params if dev == "cuda" else cpu_params
             state = init(params)
-            reset_launches()
-            outs[dev] = step(params, state, batch)
             if dev == "cuda":
-                torch.cuda.synchronize()
-                launches = read_launches()
+                outs[dev], secs, peak, launches = timed_step(
+                    step, params, state, batch)
                 for k in total:
                     total[k] += launches[k]
+            else:
+                outs[dev] = step(params, state, batch)
         want = {k: 0 for k in launches}
         for k, n in train_flash_launches(cfg, 1).items():
             want[k] = shards * n
@@ -6053,6 +6200,12 @@ def sharded_step_gate(seed: int, card: str):
         if icq:
             check(len(outs["cuda"][1]["ef_residual"]) == pods,
                   "one residual tree a pod")
+        del outs["cpu"]
+        mesh = make_mesh_auto(SHARD_STEP["mesh"], names, devices="cuda")
+        for k, n in fsdp_cell("16 (b')", cfg, mesh, card_params, batch,
+                              (outs["cuda"], secs, peak), want, card,
+                              icq=icq, pod_grads=pod_grads)[0].items():
+            total[k] += n
         del outs
     return total
 
@@ -6208,8 +6361,11 @@ def lm_sharding(seed: int, card: str):
 # the CPU took 278-298 s, for the tied 256k-vocabulary head's products:
 # the whole script ~1050 s of its 1200 s): (label, arch, layers, rows,
 # tokens, mesh, whether the CPU twin runs)
-TP_STEPS = (("a", "tinyllama-1.1b", 2, 8, 512, (1, 2, 2), True),
-            ("a'", "recurrentgemma-9b", 3, 2, 4096, (1, 2, 2), False))
+# tinyllama's cell also runs (a''), the FSDP cell (``fsdp_cell``) against
+# its split step on the card (the last entry)
+TP_STEPS = (("a", "tinyllama-1.1b", 2, 8, 512, (1, 2, 2), True, True),
+            ("a'", "recurrentgemma-9b", 3, 2, 4096, (1, 2, 2), False,
+             False))
 # (b)-(d) split serving against the unsharded served path on the card:
 # (label, arch, bf16, layers (0: the config's), batch, prompt, steps,
 # model ways).  (b) tinyllama-1.1b at full width and depth in f32; (c)
@@ -6280,8 +6436,17 @@ SSM_DRIFT_RATIO = 1.25
 # an H100, PERF.md §6), where a wrong merge or offset would change
 # nearly every set.  The sets whose crude gap lies within the bound (the
 # ones that may differ) are counted and printed.
+# Besides, the merge itself is gated: each path records
+# its global crude scores (``kv_cache`` ``record=``: the split step's
+# every shard's scores of its positions), the split's survivors must be
+# the top-c of its own scores in ``_top_c``'s order, bit for bit, and the
+# two paths' scores must lie within a score's rounding, half the crude
+# bound: SCORE_BOUND of the row's largest sum of |q_f k_f|, in each batch
+# row whose survivors agreed in every earlier layer of the step (one
+# that differed attends over another candidate from there on).
 TP_ICQ = dict(batch=8, runs=((512, 32, (2, 8)), (2048, 8, (8,))))
 CRUDE_BOUND = 2.0 ** -6 + 2 * LM_TOL
+SCORE_BOUND = CRUDE_BOUND / 2
 FLIPS_PER_POSITION = 0.02 / 544
 
 
@@ -6297,11 +6462,12 @@ def position_bytes(placed, pos) -> int:
 
 
 def tp_train_gate(seed: int, card: str, label, arch, layers, rows, tokens,
-                  mesh_shape, cpu_twin):
+                  mesh_shape, cpu_twin, with_fsdp):
     """Phase 17 (a) and (a'): the split train step on the card against
     the unsharded step on the card and, where ``cpu_twin``, the split
-    step on the CPU (the comment above TP_STEPS).  Returns its launches on the
-    card."""
+    step on the CPU (the comment above TP_STEPS); with ``with_fsdp``
+    (a''), the FSDP cell against the split step on the card.  Returns
+    the launches on the card."""
     import dataclasses
     import numpy as np
     import torch
@@ -6345,14 +6511,14 @@ def tp_train_gate(seed: int, card: str, label, arch, layers, rows, tokens,
             check(all(h == want for h in held),
                   f"split params hold {held} bytes a shard, the rule table "
                   f"{want}")
+            whole = card_params if with_fsdp else None
             del params, card_params
-            reset_launches()
-        t1 = time.perf_counter()
-        out = step(placed, state, batch)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = read_launches()
-        secs[dev] = time.perf_counter() - t1
+            out, secs[dev], peak, launches = timed_step(step, placed, state,
+                                                        batch)
+        else:
+            t1 = time.perf_counter()
+            out = step(placed, state, batch)
+            secs[dev] = time.perf_counter() - t1
         outs[dev] = (tp.gather(out[0]), dict(out[1], m=tp.gather(
             out[1]["m"]), v=tp.gather(out[1]["v"])), out[2])
         del out, placed, state
@@ -6398,6 +6564,12 @@ def tp_train_gate(seed: int, card: str, label, arch, layers, rows, tokens,
     check(not bad, f"split train step ({label}): {bad}")
     check(launches == want, f"split train step ({label}) launches "
                             f"{launches}")
+    if with_fsdp:
+        mesh = make_mesh_auto(mesh_shape, names, devices="cuda")
+        fsdp_launches, *_ = fsdp_cell(
+            f"17 ({label}'')", cfg, mesh, whole, batch,
+            (outs["cuda"], secs["cuda"], peak), want, card)
+        launches = {k: n + fsdp_launches[k] for k, n in launches.items()}
     return launches
 
 
@@ -6626,6 +6798,7 @@ def tp_icq_run(seed, card, cfg, params, b, s, steps, models):
     from repro_torch.launch.serve import (icq_caches_from_prefill,
                                           icq_kv_geometry, lm_batch)
     from repro_torch.models import build_model
+    from repro_torch.quant.kv_cache import _top_c
     from repro_torch.quant.serve_icq import build_icq_decode
     t0 = time.perf_counter()
     max_len = s + steps
@@ -6648,7 +6821,7 @@ def tp_icq_run(seed, card, cfg, params, b, s, steps, models):
         # is the step's own and none carries over
         cache = icq_caches_from_prefill(kv_cfg, dense, s, max_len)
         worst, sets, flips, near, feed, flipped = 0.0, 0, 0, 0, [tok0], {}
-        top_gap = 0.0
+        top_gap, worst_drift = 0.0, 0.0
         for i in range(steps):
             rec1, rec0 = [], []
             g, _ = step1(placed, feed[-1], cache, top_c=top_c, record=rec1)
@@ -6656,7 +6829,24 @@ def tp_icq_run(seed, card, cfg, params, b, s, steps, models):
                              record=rec0)
             g, w = g[:, -1].float(), w[:, -1].float()
             rows = torch.zeros(b, dtype=torch.bool, device=tok0.device)
-            for li, ((cand, _), (pcand, gap)) in enumerate(zip(rec1, rec0)):
+            for li, ((cand, _, scores, _), (pcand, gap, pscores, mag)) in \
+                    enumerate(zip(rec1, rec0)):
+                own = torch.equal(cand, _top_c(scores, top_c))
+                # a row whose survivors differed in an earlier layer of
+                # this step attends otherwise from there on: held from
+                # the next step
+                drift = ((scores - pscores).abs().amax(-1)
+                         / torch.clamp(mag, 1e-30)).flatten(1).amax(1)
+                drift = float(drift[~rows].max()) if bool(
+                    (~rows).any()) else 0.0
+                worst_drift = max(worst_drift, drift)
+                check(own, f"phase 17 (h) model {M} step {i} layer {li}: "
+                           "the split survivors are not the top-c of the "
+                           "split step's own crude scores")
+                check(drift <= SCORE_BOUND,
+                      f"phase 17 (h) model {M} step {i} layer {li}: crude "
+                      f"scores {drift:.3e} of the row's scale apart (bound "
+                      f"{SCORE_BOUND:g})")
                 eq = (torch.sort(cand, -1).values
                       == torch.sort(pcand, -1).values).all(-1)
                 if not bool(eq.all()):
@@ -6720,7 +6910,11 @@ def tp_icq_run(seed, card, cfg, params, b, s, steps, models):
             f"each at a crude gap within the crude bound {CRUDE_BOUND:g}, "
             f"which {near} sets' gaps lie within; "
             f"the largest such gap {top_gap:.3e}; (step: rows) "
-            f"{flipped or 'none'}); "
+            f"{flipped or 'none'}); every split set the top-c of its own "
+            f"crude scores bit for bit, the two paths' scores at most "
+            f"{worst_drift:.3e} of their row's scale apart (bound "
+            f"{SCORE_BOUND:g}; a row from the layer after its survivors "
+            f"differ to the step's end not held); "
             f"{med[1]:.2f} ms a step split, {med[0]:.2f} ms unsplit "
             f"(median, CUDA events); peak above the params and caches "
             f"{peak[1]:.1f} MiB split, {peak[0]:.1f} MiB unsplit; "

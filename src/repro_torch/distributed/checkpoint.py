@@ -15,7 +15,10 @@ other.
   - retention keeps the newest ``keep`` checkpoints plus every
     ``keep_period``-th step;
   - ``save_async`` copies the tensors to host numpy at once and writes
-    on a background thread.
+    on a background thread;
+  - a leaf laid out on a mesh (a ``ShardedTensor``: the tensor-parallel
+    or FSDP step's state) is saved whole, in the reference's layout, and
+    restored laid out by the template leaf's sharding.
 """
 from __future__ import annotations
 
@@ -29,8 +32,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ShardedTensor
+
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -72,7 +79,8 @@ def flatten_pytree(tree) -> Dict[str, np.ndarray]:
 def unflatten_pytree(template, flat: Dict[str, np.ndarray]):
     """Inverse of ``flatten_pytree`` against a structural ``template``:
     each leaf takes the template leaf's dtype and shape, and a tensor
-    leaf its device (a numpy leaf stays numpy)."""
+    leaf its device (a numpy leaf stays numpy; a ``ShardedTensor`` leaf
+    is laid out by its sharding)."""
     def build(t, prefix):
         if t is None:
             return None
@@ -84,6 +92,9 @@ def unflatten_pytree(template, flat: Dict[str, np.ndarray]):
         key = "/".join(prefix)
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
+        if isinstance(t, ShardedTensor):
+            a = np.ascontiguousarray(flat[key]).reshape(tuple(t.shape))
+            return t.sharding.lay_out(torch.from_numpy(a.copy()).to(t.dtype))
         if isinstance(t, torch.Tensor):
             a = np.ascontiguousarray(flat[key]).reshape(tuple(t.shape))
             return torch.from_numpy(a.copy()).to(t.device, t.dtype)

@@ -247,9 +247,11 @@ class NamedSharding:
 
     ``segments`` (the tensor-parallel step's layout of a fused leaf,
     ``distributed.tensor_parallel.shardings``): the widths of the
-    segments the split dim concatenates; block j is then the j-th slice
-    of every segment, in segment order, instead of the j-th contiguous
-    block (each segment must divide over the dim's axes).
+    segments the dim split over "model" concatenates; block j is then
+    the j-th slice of every segment, in segment order, instead of the
+    j-th contiguous block (each segment must divide over the dim's
+    axes).  A dim split over the FSDP axes beside it
+    (``distributed.fsdp``) is cut in contiguous blocks.
 
     ``lay_out`` gives a ``ShardedTensor`` over every mesh position, the
     dims divisible by their axes (the rule tables guarantee it).  ``put``
@@ -272,12 +274,13 @@ class NamedSharding:
         return n
 
     def _segment_perm(self, shape):
-        """(dim, perm) of a segment layout: the split dim, and the index
-        of the whole tensor's entry at each position of the blocks laid
-        end to end; None without segments."""
+        """(dim, perm) of a segment layout: the dim split over "model",
+        and the index of the whole tensor's entry at each position of the
+        blocks laid end to end; None without segments."""
         if not self.segments:
             return None
-        dim = next(i for i, e in enumerate(self.spec) if e is not None)
+        dim = next(i for i, e in enumerate(self.spec)
+                   if "model" in entry_axes(e))
         if sum(self.segments) != shape[dim]:
             raise ValueError(f"segments {self.segments} do not tile dim "
                              f"{dim} of {tuple(shape)}")
@@ -551,8 +554,11 @@ def model_pspec(path, leaf, mesh, cfg=None) -> P:
     """The ``model`` entries of a leaf's rule-table spec, the ``data``
     and ``pod`` entries dropped: ``param_pspec``'s, or ``cache_pspec``'s
     when ``cfg`` is given (a cache leaf).  What the tensor-parallel step
-    executes (``distributed.tensor_parallel``): params stay whole over
-    ``data`` / ``pod`` (FSDP is not executed)."""
+    executes (``distributed.tensor_parallel``) for a tree placed by these
+    specs: params whole over ``data`` / ``pod``.  A params tree placed
+    by the full specs (``param_shardings``; ``distributed.fsdp``) runs
+    the FSDP step, which gathers each leaf's model block from its
+    ``data`` / ``pod`` blocks where the model reads it."""
     spec = (cache_pspec(path, leaf, cfg, mesh) if cfg is not None
             else param_pspec(path, leaf, mesh))
     return P(*["model" if "model" in entry_axes(e) else None for e in spec])

@@ -20,9 +20,17 @@ params and AdamW moments are placed by ``tensor_parallel.shardings``
 (the rule tables' ``model`` entries, the SSM's fused leaves in the
 segment layout), each (pod, data) position runs its model group, the
 means are taken block by block and AdamW updates each block
-(``_split_train_step``).  The ``data`` / ``pod`` (FSDP) entries of the
-param rules are not executed: params stay whole over them (ROADMAP
-item 37).
+(``_split_train_step``).  Those paths hold the params whole over
+``data`` / ``pod``; a params tree laid out by the full rule-table specs
+(the FSDP entries too: ``distributed.fsdp.place``, or
+``reshard_state``'s output) runs the FSDP step instead, as ``jit``'s
+``in_shardings`` decide the reference's program (``_fsdp_train_step``):
+each position gathers every layer from its FSDP group's blocks where the
+model reads it, its backward reduce-scatters the gradient into the
+owners' f32 accumulators, the means and AdamW run on each distinct block
+where it lives, and the output keeps the layout (over (pod, data), or
+over ``data`` alone with ``icq_grad`` on a multi-pod mesh, and beside a
+``model`` axis).
 ``build_serve_fns`` — prefill and decode_step, split over ``model``
 likewise.
 
@@ -48,6 +56,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as shrules
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.index.base import full_f32_matmul
@@ -212,16 +221,42 @@ def build_train_step(cfg, *, n_micro: int, multi_pod: bool = False,
     residual tree a pod (on the pod's first device); without a mesh that
     is one pod.  A single-shard step computes exactly the unsharded
     step.  The MoE load-balance term is each shard's own (averaged), as
-    in data parallelism."""
+    in data parallelism.
+
+    Over a mesh, params laid out by the full rule-table specs
+    (``distributed.fsdp``) run ``_fsdp_train_step``, and
+    ``init_opt_state`` of them gives moments laid out alike; whole or
+    model-placed params run the steps above."""
     model = build_model(cfg, attn_impl=attn_impl, mesh=mesh)
     opt = make_optimizer(cfg, total_steps=total_steps)
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
     compress = icq_grad and multi_pod
+    step, init = (_split_train_step if model.split else _train_step)(
+        model, opt, mesh, n_micro=n_micro, compress=compress,
+        acc_dtype=acc_dtype)
+    if mesh is not None:
+        fsdp_step, fsdp_init = _fsdp_train_step(
+            model, opt, mesh, n_micro=n_micro, compress=compress,
+            acc_dtype=acc_dtype)
+        step, init = (_by_layout(step, fsdp_step),
+                      _by_layout(init, fsdp_init))
+    return step, model, opt, init
+
+
+def _by_layout(plain, on_fsdp):
+    """``plain(params, ...)``, or ``on_fsdp`` where ``params`` is laid
+    out by the FSDP entries (``fsdp.is_fsdp``)."""
+    def fn(params, *args):
+        return (on_fsdp if fsdp.is_fsdp(params) else plain)(params, *args)
+    return fn
+
+
+def _train_step(model, opt, mesh, *, n_micro, compress, acc_dtype):
+    """The unsplit step of ``build_train_step`` and its
+    ``init_opt_state``: whole params, unsharded or over the mesh's (pod,
+    data) shards."""
     sharded = mesh is not None and _dp(mesh) > 1
     shard_devs = _shard_devices(mesh) if sharded else None
-    if model.split:
-        return _split_train_step(model, opt, mesh, n_micro=n_micro,
-                                 compress=compress, acc_dtype=acc_dtype)
 
     def grads_of(params, batch, rows=slice(None)):
         """One shard's (gradients scaled by 1 / n_micro, mean loss) over
@@ -313,7 +348,18 @@ def build_train_step(cfg, *, n_micro: int, multi_pod: bool = False,
                 for d in leads])
         return st
 
-    return train_step, model, opt, init_opt_state
+    return train_step, init_opt_state
+
+
+def _one_backward_thread():
+    """The backward in the calling thread, every card's nodes in turn.
+    With a layer split over cards, autograd would run each card's nodes
+    in that card's thread, and two of them could start recomputing one
+    checkpointed layer at once (``torch.utils.checkpoint``'s non-reentrant
+    recompute is triggered by the first saved tensor a node unpacks):
+    the recomputations then interleave and fail.  On one card it changes
+    nothing."""
+    return torch.autograd.set_multithreading_enabled(False)
 
 
 def _dp(mesh) -> int:
@@ -344,7 +390,8 @@ def _split_train_step(model, opt, mesh, *, n_micro, compress, acc_dtype):
             mb = {k: t[i][rows] for k, t in batch.items()}
             lv, leaves = tp.live(v)
             loss, _ = model.train_forward(lv, mb)
-            gr = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with _one_backward_thread():
+                gr = torch.autograd.grad(loss, leaves, allow_unused=True)
             g = tp.to_blocks(tp.grads_view(v, lv, leaves, gr))
             if gacc is None:
                 gacc = tree_map(lambda t: t.to(acc_dtype), g)
@@ -426,7 +473,105 @@ def _split_train_step(model, opt, mesh, *, n_micro, compress, acc_dtype):
                 for p in range(pods)]
         return out
 
-    return train_step, model, opt, init_opt_state
+    return train_step, init_opt_state
+
+
+def _fsdp_train_step(model, opt, mesh, *, n_micro, compress, acc_dtype):
+    """``build_train_step`` for params laid out by the full rule-table
+    specs (``distributed.fsdp``: FSDP over (pod, data), or over ``data``
+    alone when the cross-pod mean is the compressed one; a tree placed
+    by the same specs without the SSM's segment layout is laid out again
+    first, any other layout raises).  The (pod, data) positions run in
+    order, each on its rows (as the sharded step splits them) and each
+    microbatch differentiated against the anchor its view's gathers
+    hang from: the backward adds each block's slice of the gradient into
+    its owner's f32 accumulator of the position's pod.  A pod's
+    accumulators give its data mean (``Run.pod_mean``: scaled by 1 /
+    n_micro, over the pod's positions, in ``acc_dtype``), then the
+    cross-pod mean (plain, or compressed with each pod's residual blocks
+    and a row's int8 scale over its FSDP shards), AdamW on each distinct
+    block (the clip's norm over each once), and every position takes its
+    block of the new params, moments and residuals.  At n_micro 1 the
+    sums are the unsharded path's, in its order."""
+    pods, data = (shrules.axis_size(mesh, a) for a in ("pod", "data"))
+    over_pod = not compress
+
+    def train_step(params, opt_state, batch):
+        with full_f32_matmul():
+            run = fsdp.Run(params, mesh, fsdp_over_pod=over_pod,
+                           split=model.split)
+            rows = next(iter(batch.values())).shape[1]
+            if _rows_split(mesh, rows):
+                block = rows // (pods * data)
+                positions = [[(p, d) for d in range(data)]
+                             for p in range(pods)]
+            else:          # replicated rows: one shard a pod computes
+                block = 0
+                positions = [[(p, 0)] for p in range(pods)]
+            pod_grads, pod_losses = [], []
+            for p, row in enumerate(positions):
+                sinks = run.sinks(p)
+                losses = []
+                for (pp, d) in row:
+                    j = (pp * data + d) * block
+                    at = slice(j, j + block) if block else slice(None)
+                    lsum = None
+                    for i in range(n_micro):
+                        mb = {k: v[i][at] for k, v in batch.items()}
+                        anchor = torch.zeros((), device=run.device(pp, d),
+                                             requires_grad=True)
+                        loss, _ = model.train_forward(
+                            run.view(pp, d, sinks, anchor), mb)
+                        with _one_backward_thread():
+                            torch.autograd.grad(loss, anchor,
+                                                allow_unused=True)
+                        lsum = (loss.detach() if lsum is None
+                                else lsum + loss.detach())
+                        del loss
+                    losses.append(lsum * (1.0 / n_micro))
+                pod_grads.append(run.pod_mean(sinks, len(row), n_micro,
+                                              acc_dtype))
+                del sinks
+                pod_losses.append(losses[0] if len(losses) == 1
+                                  else _f32_mean(losses, losses[0].device))
+            if compress:
+                res = [run.rows(run.blocks_of(fsdp.conform(
+                    r, mesh, over_pod), p))
+                    for p, r in enumerate(opt_state["ef_residual"])]
+                means, res = compressed_cross_pod_mean(
+                    [run.rows(g) for g in pod_grads], res)
+                grads = run.unrows(means)
+                res = [run.laid_out(run.unrows(r)) for r in res]
+            elif len(pod_grads) > 1:
+                grads = plain_cross_pod_mean(pod_grads)
+            else:
+                grads = pod_grads[0]
+            del pod_grads
+            loss = (_f32_mean(pod_losses, mesh.lead) if len(pod_losses) > 1
+                    else pod_losses[0].to(mesh.lead))
+            m, v = (run.blocks_of(fsdp.conform(opt_state[k], mesh, over_pod))
+                    for k in ("m", "v"))
+            new_p, new_opt, gnorm = opt.update(
+                grads, {"m": m, "v": v, "step": opt_state["step"]},
+                run.blocks_of(run.params))
+            out_opt = {"step": new_opt["step"],
+                       "m": run.laid_out(new_opt["m"]),
+                       "v": run.laid_out(new_opt["v"])}
+            if compress:
+                out_opt["ef_residual"] = res
+        return run.laid_out(new_p), out_opt, {"loss": loss, "gnorm": gnorm}
+
+    def init_opt_state(params):
+        placed = fsdp.conform(params, mesh, over_pod)
+        st = {"m": fsdp.zeros_like(placed, opt.moment_dtype),
+              "v": fsdp.zeros_like(placed, opt.moment_dtype),
+              "step": torch.zeros((), dtype=torch.int32, device=mesh.lead)}
+        if compress:
+            st["ef_residual"] = [fsdp.zeros_like(placed, torch.float32)
+                                 for _ in range(pods)]
+        return st
+
+    return train_step, init_opt_state
 
 
 # ---------------------------------------------------------------- serve ----

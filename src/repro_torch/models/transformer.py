@@ -67,6 +67,15 @@ slices all-gathered; the caches split by ``tensor_parallel.shardings``
 merges each shard's softmax partials, a local layer's ring by its
 slots; the SSM's state by heads and conv window by segments, the
 RG-LRU's by channels; the cross cache by KV heads).
+
+``train_forward`` also takes a (pod, data) position's FSDP view
+(``distributed.fsdp``: the train step of params laid out by the full
+rule-table specs): each leaf is gathered where it is read, a stacked
+leaf's layer inside ``_layer`` (so inside the layer's checkpoint: freed
+after the layer, gathered again when it is recomputed), the unstacked
+ones (``embed``, ``head``, the norms, ``vis_proj``, ``enc_pos`` /
+``dec_pos``, the hybrid's tail layers) at their use; a tied embedding
+once for the input and the head.
 """
 from __future__ import annotations
 
@@ -77,6 +86,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint as torch_checkpoint
 
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.index.base import full_f32_matmul, resolve_device
 from repro_torch.models import attention as attn
@@ -96,9 +106,15 @@ def _tree_map(fn, *trees):
 
 def _layer(stacked, li: int):
     """Layer ``li``'s params (or cache) of a stacked tree: views (of
-    each block, for a model group's ``Split`` leaves)."""
-    return _tree_map(lambda a: a.at(li) if isinstance(a, tp.Split)
-                     else a[li], stacked)
+    each block, for a model group's ``Split`` leaves); an FSDP view's
+    leaves gathered, this layer's slice of each (``fsdp.use``)."""
+    def one(a):
+        if isinstance(a, tp.Split):
+            return a.at(li)
+        if isinstance(a, fsdp.Sharded):
+            return fsdp.use(a.at(li))
+        return a[li]
+    return _tree_map(one, stacked)
 
 
 # =================================================================
@@ -691,6 +707,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     def _view(params):
         """(the model group's ``Split`` tree of ``params``, the group),
         or (params, None) unsplit."""
+        if fsdp.is_view(params):
+            return params, fsdp.group_of(params) if split else None
         if not split:
             return params, None
         if not tp.is_view(params):
@@ -753,13 +771,13 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         return params
 
     def _embed_tokens(params, tokens, g=None):
+        emb = fsdp.use(params["embed"])
         if g is not None:
-            x = nn.embed_tp(params["embed"],
-                            torch.as_tensor(tokens, device=g.lead), g) \
+            x = nn.embed_tp(emb, torch.as_tensor(tokens, device=g.lead), g) \
                 .to(cdt)
         else:
-            tokens = torch.as_tensor(tokens, device=params["embed"].device)
-            x = params["embed"][tokens.long()].to(cdt)
+            tokens = torch.as_tensor(tokens, device=emb.device)
+            x = emb[tokens.long()].to(cdt)
         if tied:   # sqrt(d) cast to x's type (a host scalar, no copy)
             x = x * torch.tensor(emb_scale, dtype=x.dtype)
         return x
@@ -767,7 +785,7 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
     def _vis(params, patches, g):
         """The patches projected by ``vis_proj``: split over a model
         group, each shard its columns, all-gathered."""
-        vp = params["vis_proj"]
+        vp = fsdp.use(params["vis_proj"])
         if g is None or vp.dim is None:
             return patches @ (vp if g is None else vp.whole)
         return tp.all_gather([pj @ vp[j] for j, pj in
@@ -783,7 +801,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             patches = torch.as_tensor(batch["patch_emb"], device=dev)
             x = torch.cat([_vis(params, patches.to(cdt), g), x], dim=1)
         if cfg.learned_pos_emb:
-            x = x + _whole(params["dec_pos"])[: x.shape[1]][None].to(x.dtype)
+            x = x + _whole(fsdp.use(params["dec_pos"]))[: x.shape[1]][None] \
+                .to(x.dtype)
         return x, torch.arange(x.shape[1], device=dev)
 
     def _encode(params, batch, g=None):
@@ -794,24 +813,25 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         dev = g.lead if g is not None else params["embed"].device
         a = torch.as_tensor(batch["audio_emb"], device=dev).to(cdt)
         if cfg.learned_pos_emb:
-            a = a + _whole(params["enc_pos"])[: a.shape[1]][None].to(a.dtype)
+            a = a + _whole(fsdp.use(params["enc_pos"]))[: a.shape[1]][None] \
+                .to(a.dtype)
         pos = torch.arange(a.shape[1], device=a.device)
         a, _ = _apply_stack(params["enc_layers"], cfg.encoder_layers, a,
                             cfg, pos, "enc", group=g)
-        return _norm_apply(cfg, params["enc_norm"] if g is None
-                           else _lead(params["enc_norm"]), a)
+        norm = fsdp.use(params["enc_norm"])
+        return _norm_apply(cfg, norm if g is None else _lead(norm), a)
 
     def _head(params, g):
         """The head as a function of normed rows: the tied embedding's
         transpose or ``head``, split over the vocabulary with a group."""
-        w = params["embed"] if tied else params["head"]
+        w = fsdp.use(params["embed"] if tied else params["head"])
         if g is not None:
             return lambda x: nn.head_tp(x, w, g, tied=tied)
         return lambda x: x @ (w.T.to(x.dtype) if tied else w)
 
     def _final_norm(params, x, g):
-        return _norm_apply(cfg, params["final_norm"] if g is None
-                           else _lead(params["final_norm"]), x)
+        norm = fsdp.use(params["final_norm"])
+        return _norm_apply(cfg, norm if g is None else _lead(norm), x)
 
     def _logits(params, x, g=None):
         x = _final_norm(params, x, g)
@@ -833,8 +853,9 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         for g in range(n_groups):
             x, aux = run(x, aux, g)
         for i, kind in enumerate(tail):
-            x, a = layer_apply(params[f"tail{i}"], x, cfg, positions, kind,
-                               attn_impl=attn_impl, group=mg)
+            x, a = layer_apply(fsdp.use(params[f"tail{i}"]), x, cfg,
+                               positions, kind, attn_impl=attn_impl,
+                               group=mg)
             aux = aux + a
         return x, aux
 
@@ -859,6 +880,8 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
         else the full logits and CE of positions [0, s - 1)."""
         params, g = _view(params)
         dev = g.lead if g is not None else params["embed"].device
+        if tied:        # one gather for the input and the head
+            params = dict(params, embed=fsdp.use(params["embed"]))
         with full_f32_matmul():
             if cfg.encdec:
                 enc_out = _encode(params, batch, g)
@@ -875,7 +898,7 @@ def build_model(cfg, *, attn_impl: str = "chunked", mesh=None) -> ModelFns:
             x = _final_norm(params, x, g)
             w = (_head(params, g) if g is not None
                  else params["embed"].T.to(x.dtype) if tied
-                 else params["head"])
+                 else fsdp.use(params["head"]))
             if cfg.ce_chunk:
                 s = labels.shape[1]
                 labels_next = torch.cat(

@@ -35,10 +35,34 @@ def compress_state_init(grads):
 
 def ef_quantize(g, residual):
     """Error-feedback int8 quantization of one tensor: (q int8, scale
-    f32 per trailing-axis slice, new residual)."""
-    e = g.float() + residual
-    q, s = quantize_int8(e, axis=-1)
-    return q, s, e - dequantize_int8(q, s)
+    f32 per trailing-axis slice, new residual).
+
+    ``g`` and ``residual`` may also be lists: the shards of one tensor
+    split along its last dim, in order, each on its own device (FSDP's
+    blocks of a row, ``distributed.fsdp``).  Each row's scale is then
+    taken over the whole row, the largest of the shards' row maxima (on
+    the first shard's device, sent back to each), so that the codes,
+    scales and residuals are the whole tensor's, bit for bit; the three
+    come back as lists, one entry a shard."""
+    if not isinstance(g, (list, tuple)):
+        e = g.float() + residual
+        q, s = quantize_int8(e, axis=-1)
+        return q, s, e - dequantize_int8(q, s)
+    es = [gi.float() + ri for gi, ri in zip(g, residual)]
+    lead = es[0].device
+    amax = None
+    for e in es:          # quantize_int8's amax, over the whole row
+        m = torch.amax(torch.abs(e), dim=-1, keepdim=True).to(lead)
+        amax = m if amax is None else torch.maximum(amax, m)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    qs, ss, rs = [], [], []
+    for e in es:
+        s = scale.to(e.device)
+        q = torch.clamp(torch.round(e / s), -127, 127).to(torch.int8)
+        qs.append(q)
+        ss.append(s)
+        rs.append(e - dequantize_int8(q, s))
+    return qs, ss, rs
 
 
 def _pod_mean(parts, dtype):
@@ -54,7 +78,10 @@ def compressed_cross_pod_mean(grads: Sequence, residuals: Sequence,
     """The compressed mean of one gradient tree per pod (``grads``, in
     pod order; ``residuals`` one residual tree per pod, on the pods'
     devices).  Returns (the mean tree on ``lead``, pod 0's device by
-    default, in each leaf's type; the new residual trees, one per pod)."""
+    default, in each leaf's type; the new residual trees, one per pod).
+    A leaf may be a list, the shards of a row (``ef_quantize``): its
+    mean is then a list too, each shard's on ``lead`` or on pod 0's
+    device of that shard."""
     if len(grads) != len(residuals) or not grads:
         raise ValueError(f"one residual tree per pod: {len(grads)} "
                          f"gradient trees, {len(residuals)} residual trees")
@@ -63,6 +90,10 @@ def compressed_cross_pod_mean(grads: Sequence, residuals: Sequence,
     def gather_mean(g, *pods):
         """One leaf's (q, scale, residual) of every pod -> the mean of
         the dequantized payloads on the lead device, in g's type."""
+        if isinstance(g, (list, tuple)):
+            return [gather_mean(gi, *((q[i], s[i], None)
+                                      for q, s, _ in pods))
+                    for i, gi in enumerate(g)]
         dev = lead if lead is not None else pods[0][0].device
         return _pod_mean([dequantize_int8(q.to(dev), s.to(dev))
                           for q, s, _ in pods], g.dtype)

@@ -162,19 +162,23 @@ def _refine(q_rot, cache: Dict, cand, cand_valid):
     return torch.where(cand_valid, s, NEG_INF), v_sel
 
 
-def _crude_gap(crude, q_fast, cache: Dict, top_c: int):
-    """The crude score at rank ``top_c`` less the next one, over the
-    row's largest sum of |products| (max over positions of sum_f |q_f
-    k_f| scaled; inf when no position is left out): how far the top-c
-    set is from a tie, in the unit that bounds a score's rounding (a
-    cached bf16 ``k_fast`` value one rounding step away moves a score by
-    at most 2^-7 of it)."""
+def _crude_mag(q_fast, cache: Dict):
+    """A row's largest sum of |products|: max over positions of sum_f
+    |q_f k_f|, scaled as the crude scores (b,kvh,g), the unit that bounds
+    a score's rounding (a cached bf16 ``k_fast`` value one rounding step
+    away moves a score by at most 2^-7 of it)."""
+    return torch.einsum("bkgf,bskf->bkgs", q_fast.float().abs(),
+                        cache["k_fast"].float().abs()).amax(dim=-1) \
+        * cache["kq"].shape[-1] ** -0.5
+
+
+def _crude_gap(crude, mag, top_c: int):
+    """The crude score at rank ``top_c`` less the next one, over ``mag``
+    (``_crude_mag``; inf when no position is left out): how far the
+    top-c set is from a tie."""
     vals = torch.sort(crude, dim=-1, descending=True, stable=True).values
     if vals.shape[-1] <= top_c:
         return torch.full(vals.shape[:-1], float("inf"), device=vals.device)
-    mag = torch.einsum("bkgf,bskf->bkgs", q_fast.float().abs(),
-                       cache["k_fast"].float().abs()).amax(dim=-1) \
-        * cache["kq"].shape[-1] ** -0.5
     return (vals[..., top_c - 1] - vals[..., top_c]) / torch.clamp(mag,
                                                                    1e-30)
 
@@ -184,12 +188,14 @@ def _survivors(q, cache: Dict, cfg_kv: ICQKVConfig, valid, top_c: int,
     """Phases 1 and 2 up to the masked exact scores: (scores (b,kvh,g,c)
     f32 with invalid survivors at NEG_INF, dequantized V rows
     (b,kvh,g,c,dh)).  ``record``: a list that takes (the survivors'
-    positions, ``_crude_gap``)."""
+    positions, ``_crude_gap``, the crude scores (b,kvh,g,S),
+    ``_crude_mag``)."""
     q_rot, q_fast = _rotated(q, cache, cfg_kv)
     crude = _crude(q_fast, cache, valid)
     cand = _top_c(crude, top_c)                          # (b,kvh,g,c)
     if record is not None:
-        record.append((cand, _crude_gap(crude, q_fast, cache, top_c)))
+        mag = _crude_mag(q_fast, cache)
+        record.append((cand, _crude_gap(crude, mag, top_c), crude, mag))
     cand_valid = torch.gather(valid[:, None, None, :].expand(crude.shape), 3,
                               cand)
     return _refine(q_rot, cache, cand, cand_valid)
@@ -201,8 +207,8 @@ def icq_kv_decode_attention(q, cache: Dict, cfg_kv: ICQKVConfig, pos,
 
     Phase 1: crude scores over all S from the d_fast high-variance dims.
     Phase 2: exact scores + softmax over the top_c survivors.
-    ``record``: a list that takes the survivors' positions and crude gap
-    (``_survivors``).
+    ``record``: a list that takes the survivors' positions, the crude
+    gap, the crude scores and the row's magnitude (``_survivors``).
     """
     b, _, h, dh = q.shape
     S = cache["kq"].shape[1]
@@ -293,17 +299,23 @@ def icq_kv_decode_attention_tp(q, blocks, cfg_kv: ICQKVConfig, pos,
     (``icq_kv_attention_partial`` keeps ``top_c_local`` survivors a
     shard, another result, which no entry point of the reference
     calls.)  ``record``: as ``icq_kv_decode_attention``'s, the gap
-    None.  Returns (b, 1, H, dh) on the first device."""
+    None: the scores are every shard's crude scores of its positions,
+    concatenated on the first device (the global crude scores the merge
+    ranks), the magnitude the largest of the shards'.  Returns (b, 1, H,
+    dh) on the first device."""
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models.attention import combine_partials_tp
     b, _, h, dh = q.shape
     qs, poss = tp.broadcast(q, group), tp.broadcast(pos, group)
-    rot, vals, where = [], [], []
+    rot, vals, where, crudes, mags = [], [], [], [], []
     for j, (qj, cj, pj) in enumerate(zip(qs, blocks, poss)):
         n = cj["kq"].shape[1]
         at = j * n + torch.arange(n, device=qj.device)
         q_rot, q_fast = _rotated(qj, cj, cfg_kv)
         crude = _crude(q_fast, cj, (at <= pj)[None, :])
+        if record is not None:
+            crudes.append(crude.to(group.lead))
+            mags.append(_crude_mag(q_fast, cj).to(group.lead))
         top = torch.sort(crude, dim=-1, descending=True, stable=True)
         c = min(top_c, n)
         rot.append(q_rot)
@@ -315,7 +327,8 @@ def icq_kv_decode_attention_tp(q, blocks, cfg_kv: ICQKVConfig, pos,
                        stable=True).indices[..., :top_c]
     cand = torch.gather(where, -1, order).long()         # (b,kvh,g,c)
     if record is not None:
-        record.append((cand, None))
+        record.append((cand, None, torch.cat(crudes, -1),
+                       torch.stack(mags).amax(0)))
     parts = []
     for j, (q_rot, cj, pj, cd) in enumerate(zip(
             rot, blocks, poss, tp.broadcast(cand, group))):

@@ -56,8 +56,9 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
     caches); the caches are the stacked ICQ-KV tree of every layer
     (``"layers"``) and the position (``"pos"``, a 0-d tensor), written in
     place; ``record`` a list that takes each layer's survivors (their
-    positions (b, kvh, g, top_c), and the crude gap at rank top_c
-    unsplit; ``quant.kv_cache._survivors``).
+    positions (b, kvh, g, top_c), the crude gap at rank top_c unsplit,
+    the crude scores of every position (b, kvh, g, S) and the rows'
+    largest sums of |products|; ``quant.kv_cache._survivors``).
 
     Over a ``mesh`` whose ``model`` axis M exceeds 1 the step runs split
     over the model group of its first position (module docstring): the
@@ -141,9 +142,10 @@ def build_icq_decode(cfg, kv_cfg: ICQKVConfig, *, mesh=None):
                 outs.append(icq_kv_decode_attention(
                     qj, cj, kv_cfg, pj, top_c,
                     record=recs if record is not None else None))
-            if record is not None:
-                record.append((torch.cat([r[0].to(g.lead) for r in recs],
-                                         1), None))
+            if record is not None:       # the shards' KV heads in order
+                cand, crude, mag = (torch.cat([r[i].to(g.lead) for r in recs],
+                                              1) for i in (0, 2, 3))
+                record.append((cand, None, crude, mag))
         else:                                    # positions over model
             k_all = attn.owned_kv([t[1] for t in qkv], cfg, g)
             v_all = attn.owned_kv([t[2] for t in qkv], cfg, g)

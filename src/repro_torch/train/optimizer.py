@@ -66,7 +66,9 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 
 def global_norm(tree) -> torch.Tensor:
     """On the first leaf's device (leaves may lie on several: a tree of
-    tensor-parallel blocks)."""
+    tensor-parallel or FSDP blocks, which holds each distinct block of a
+    leaf once, not once a replica or a copy, so that each counts
+    once)."""
     leaves = tree_leaves(tree)
     dev = leaves[0].device
     sums = [torch.sum(torch.square(x.to(torch.float32))).to(dev)

@@ -263,3 +263,47 @@ def test_tensor_parallel_bytes_of_an_icq_kv_cell_equal_a_hand_count(kvh,
                        + (2 * 4 * 4 * 4 + 4 * 4 * 16 * 4))
     assert got == whole == {"all-reduce (tp)": act + 2 * 2 * act,
                             "all-gather (tp)": gather}
+
+
+def test_executed_fsdp_bytes_equal_the_priced_ones():
+    """tinyllama's smoke config with remat on, an 8 x 32 train cell over
+    (pod 2, data 2, model 1), in bf16 as ``plan_cell`` scales it: the
+    bytes a device of the executed FSDP step (``distributed.fsdp``, on
+    CPU devices) against the dry run's (``collective_bytes``: per
+    microbatch 2 (f - 1) s all-gathered, (f - 1) s_f32
+    reduce-scattered).  The reduce-scatters are equal.  The all-gathers
+    are equal but for the two leaves read outside a checkpointed layer,
+    ``embed`` and ``head``: the forward gathers each once a microbatch
+    and autograd keeps the gathered copy for the backward, where the dry
+    run prices a second gather."""
+    import numpy as np
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.steps import build_train_step, scale_config
+    cfg = dataclasses.replace(configs.smoke_config("tinyllama-1.1b"),
+                              remat=True, microbatch_size=1)
+    shape = configs.ShapeSpec(name="t", seq_len=32, global_batch=8,
+                              kind="train")
+    names = ("pod", "data", "model")
+    plan = plan_cell(cfg, shape, make_mesh_auto((2, 2, 1), names,
+                                                devices="meta"))
+    _, priced = dryrun.collective_bytes(plan, compress=False)
+    once = ("embed", "head")
+    sub = dataclasses.replace(
+        plan, args=({k: plan.args[0][k] for k in once},) + plan.args[1:],
+        in_shardings=({k: plan.in_shardings[0][k] for k in once},)
+        + plan.in_shardings[1:])
+    _, second = dryrun.collective_bytes(sub, compress=False)
+    mesh = make_mesh_auto((2, 2, 1), names, devices="cpu")
+    step, model, _, init = build_train_step(
+        scale_config(cfg), n_micro=plan.n_micro, multi_pod=True, mesh=mesh)
+    params = fsdp.place(model.init(0, device="cpu"), mesh)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, tuple(plan.args[2]["tokens"].shape),
+        dtype=np.int32)
+    with tp.counting() as got:
+        step(params, init(params), {"tokens": toks, "labels": toks})
+    assert plan.n_micro == 2
+    assert got["reduce-scatter (fsdp)"] == priced["reduce-scatter"]
+    assert got["all-gather (fsdp)"] == \
+        priced["all-gather"] - second["all-gather"] / 2

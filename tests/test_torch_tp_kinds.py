@@ -50,6 +50,7 @@ from repro_torch.launch.steps import build_serve_fns, build_train_step
 from repro_torch.models import build_model
 from repro_torch.models.transformer import params_from_numpy
 from repro_torch.quant import ICQKVConfig
+from repro_torch.quant import kv_cache
 from repro_torch.quant import serve_icq
 from repro_torch.train import optimizer as port_opt
 
@@ -339,6 +340,11 @@ def test_split_cache_layouts():
 ICQ = {"heads": ("m2", 8, 4), "positions": ("m8", 8, 4),
        "positions-1kv": ("m2", 4, 1)}
 ICQ_S, ICQ_LEN, TOP_C = 24, 64, 6
+# a crude score's rounding between the two paths, over its row's largest
+# sum of |products| (``kv_cache._crude_mag``): an appended key's bf16
+# ``k_fast`` one rounding step apart (2^-7 of a product at most), plus
+# the queries' own difference (PORT_TOL)
+SCORE_BOUND = 2.0 ** -7 + PORT_TOL
 
 
 def _icq_cfgs(name):
@@ -359,7 +365,10 @@ def test_split_icq_decode_matches_reference(name):
     ``build_icq_decode`` (2e-4) and the port's unsplit step (2e-5),
     greedy tokens equal; every layer's global survivors (the top_c of
     all 64 positions) equal as sets to the unsplit step's wherever the
-    crude gap at rank top_c exceeds 1e-5 (``_crude_gap``); the
+    crude gap at rank top_c exceeds 1e-5 (``_crude_gap``), equal bit for
+    bit, in order, to the top_c of the split step's own recorded crude
+    scores (``_top_c``), those scores within SCORE_BOUND of the unsplit
+    step's; the
     caches gathered from their blocks equal the unsplit step's."""
     rcfg, cfg = _icq_cfgs(name)
     mesh = _mesh(ICQ[name][0])
@@ -404,8 +413,13 @@ def test_split_icq_decode_matches_reference(name):
     compared = 0
     for rec, prec in zip(recs, plain_recs):
         assert len(rec) == len(prec) == cfg.num_layers
-        for (cand, _), (pcand, gap) in zip(rec, prec):
+        for (cand, _, scores, _), (pcand, gap, pscores, mag) in zip(rec,
+                                                                    prec):
             assert cand.shape == pcand.shape
+            assert torch.equal(cand, kv_cache._top_c(scores, TOP_C)), name
+            err = (scores - pscores).abs().amax(-1)
+            assert bool((err <= SCORE_BOUND * mag).all()), (
+                name, float((err / mag).max()))
             same = (torch.sort(cand, -1).values
                     == torch.sort(pcand, -1).values).all(-1)
             clear = gap > 1e-5
