@@ -403,6 +403,32 @@ or outside a checkout of the repository.  Phases:
    near ties; each split set the top-c of the split step's own recorded
    crude scores bit for bit, and both paths' scores within a score's
    rounding of each other.
+18. (run after phase 13, on phase 4's and 5's artifacts) ``filter=`` and
+   ``refine_cap`` on the card, served by the scan kernels at
+   ``serve.backend = "jnp"``: (a) the crude kernel's row-predicate
+   instance (f32, int8, int8 4-bit) under four filters drawn from
+   ``--seed`` (Bernoulli 0.5 and 0.01, the rows [0, 50 000), 60 rows:
+   fewer than topk), the survivor selection at caps 400, 1000 and topk
+   and the re-rank of the survivors, each against its plain version bit
+   for bit and timed (64 queries x 1M points) beside the unfiltered
+   crude; (b) the two-step f32 / int8 / int8-4bit, flat f32, ivf-f32
+   and ivf-int8 engines loaded with ``{"serve.backend": "jnp"}``, one
+   64-query tile unfiltered and under each filter, launch counts reset
+   before and read after: ids, distances (so the +inf slots) and
+   pass_rate equal to the plain composition on the same operands bit
+   for bit, no filtered row returned, recall@100 against
+   ``eval.ground_truth(filter=)`` over the decoded points, ms filtered
+   beside unfiltered; (c) on two-step f32 and ivf-f32, the rungs with
+   the capped rung, the crude rung filtered, the capped rung at
+   refine_cap 400 and 1000 (about 2,800 survivors a query at sigma 10:
+   the cap bites) through ``SearchBudget(refine_cap=)`` and through
+   ``index.refine_cap``, also filtered, each equal to the plain
+   composition, the pipelined executor (tiles of 64, two streams)
+   filtered and capped against the tiled engine, and the artifact at
+   auto refusing ``filter`` (engine and
+   index) and ``refine_cap`` with the reference's words, with no capped
+   rung; (d) the same two artifacts over a 4-way mesh on the first card
+   at auto, filtered, equal bit for bit to the unsharded jnp engine.
 
 ``torch.cuda.memory_allocated()`` (after ``gc.collect()``) is printed
 before and after phase 10, with every live CUDA tensor of 64 MiB or more
@@ -423,7 +449,8 @@ SSM's and the RG-LRU's pieces as ranges), phase 17 the same of each
 split serving cell and of its unsplit path.
 
 The line before the last is the kernels' JSON record (the nine
-kernels, then the flash kernel's (192, 128), windowed and non-causal
+kernels with phase 18's predicate crude, survivor selection and re-rank
+after the four search kernels, then the flash kernel's (192, 128), windowed and non-causal
 instances, then the two backward kernels at the train cell's shape; the
 launches are the whole run's, phases 15 to 17 included);
 the last line is
@@ -606,9 +633,11 @@ def scan_kernel_registers(logs) -> list:
                               r"((?:L[bi]\d+E)+)E", fn)
                 if k:
                     flags = re.findall(r"L[bi](\d+)E", k.group(3))
-                    names = (("quant", "nibble", "masked", "stages")
+                    # mask: 0 none, 1 the slab's ids, 2 a row filter;
+                    # select: the refine_cap survivor selection
+                    names = (("quant", "nibble", "mask")
                              if k.group(1) == "crude"
-                             else ("nibble", "stages"))
+                             else ("nibble", "stages", "select"))
                     rows = "uint8" if k.group(2) == "h" else "int32"
                     inst = ", ".join([f"rows={rows}"] + [
                         f"{a}={b}" for a, b in zip(names, flags)])
@@ -6954,6 +6983,535 @@ def tensor_parallelism(seed: int, card: str, profile_dir=None):
     return total
 
 
+# ----------------------------------- phase 18: filter= and refine_cap ----
+
+# the filters of phase 18 over the n rows, drawn from --seed: half the
+# rows, one in a hundred, the first 50,000 rows, and 60 rows (fewer than
+# topk: the bootstrap's +inf slots)
+FILTERS = ("bernoulli-0.5", "bernoulli-0.01", "block-50000", "rows-60")
+CAPS = (400, 1000)
+# (name, artifact, overrides) of the engines phase 18 serves at
+# serve.backend = "jnp"
+JNP_CELLS = (("two-step-f32", "two-step-f32", {}),
+             ("two-step-int8", "two-step-int8", {}),
+             ("two-step-int8-4bit", "two-step-int8-4bit", {}),
+             ("flat-f32", "flat-f32", {}),
+             ("ivf-f32", "ivf-f32", {}),
+             ("ivf-int8", "ivf-f32", {"serve.lut_dtype": "int8"}))
+JNP = {"serve.backend": "jnp"}
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def make_filters(seed: int, n: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(seed + 41)
+    rows = np.zeros(n, bool)
+    rows[rng.choice(n, 60, replace=False)] = True
+    return {"bernoulli-0.5": rng.random(n) < 0.5,
+            "bernoulli-0.01": rng.random(n) < 0.01,
+            "block-50000": np.arange(n) < 50_000,
+            "rows-60": rows}
+
+
+def plain_jnp(index, q, pred=None, *, refine_cap=None, crude_only=False):
+    """The jnp engine's search composed by hand from the plain versions on
+    the same CUDA tensors: the filtered crude (``pred``), the bootstrap
+    over its top-k (the jnp rule under ``pred`` or ``refine_cap``, the
+    fused engine's otherwise, as the engine composes it), then the
+    refine, or the survivor selection and re-rank (``refine_cap``), or
+    nothing (``crude_only``).
+    Returns (ids, distances, pass_rate as the engine folds the pass
+    counts, or None for a single-phase search)."""
+    import torch
+    from repro_torch.index.base import build_lut, mask_filtered_ids
+    from repro_torch.index.flat import FlatADC
+    from repro_torch.index.ivf import (IVFTwoStep, coarse_probe,
+                                       gather_candidates)
+    from repro_torch.kernels import batched_search as bs
+    from repro_torch.kernels.stages import (ThresholdStage,
+                                            crude_lut_operands,
+                                            full_lut_operand,
+                                            slow_lut_operand)
+    quant = index.lut_dtype == "int8"
+    bits, topk = index.code_bits, index.topk
+    luts = build_lut(q, index.C)
+    flat_adc = isinstance(index, FlatADC)
+    fast = None if flat_adc else index.structure.fast_mask
+    lf, sc, of = crude_lut_operands(luts, fast, quantized=quant,
+                                    code_bits=bits)
+    mask = (lambda i, d: i) if pred is None else mask_filtered_ids
+
+    def capped(codes_rows, crude, thr):
+        # the slab or row positions of the cap best-crude survivors,
+        # re-ranked by one full-table sum
+        cap = min(max(refine_cap, topk), crude.shape[1])
+        sv, surv = bs.select_topk_torch(crude, thr, cap)
+        surv = surv.long()
+        rows = (codes_rows[surv] if codes_rows.ndim == 2 else torch.gather(
+            codes_rows, 1, surv[:, :, None].expand(-1, -1,
+                                                   codes_rows.shape[2])))
+        full = full_lut_operand(luts, code_bits=bits)
+        dist, pos = bs.rerank_topk_torch(rows, full, torch.isfinite(sv),
+                                         topk, code_bits=bits)
+        return surv.gather(1, pos.long()), dist
+
+    tstage = ThresholdStage(topk=topk, quantized=quant, code_bits=bits)
+    jnp_rule = pred is not None or refine_cap is not None
+    if isinstance(index, IVFTwoStep):
+        probes = coarse_probe(q, index.ivf.centroids, index.n_probe)
+        cand_ids, cand_codes = gather_candidates(probes, index.ivf.lists,
+                                                 index.list_codes, topk)
+        valid = cand_ids >= 0
+        safe = torch.where(valid, cand_ids, torch.zeros_like(cand_ids))
+        if pred is not None:
+            valid = valid & pred[safe.long()]
+            cand_ids = torch.where(valid, cand_ids,
+                                   torch.full_like(cand_ids, -1))
+        crude, cv, cp = bs.ivf_crude_topk_torch(cand_codes, cand_ids, lf,
+                                                topk, sc, of, code_bits=bits)
+        if crude_only:
+            return mask(safe.gather(1, cp.long()), cv), cv, None
+        bootstrap = (tstage.from_dense_slab_candidates if jnp_rule
+                     else tstage.from_slab_candidates)
+        thr = bootstrap(luts, cand_codes, cv, cp, fast,
+                        index.structure.sigma)
+        if refine_cap is None:
+            slow = slow_lut_operand(luts, fast, code_bits=bits)
+            dist, pos = bs.ivf_refine_topk_torch(cand_codes, slow, crude,
+                                                 thr, topk, code_bits=bits)
+            pos = torch.clamp(pos.long(), max=cand_ids.shape[1] - 1)
+        else:
+            pos, dist = capped(cand_codes, crude, thr)
+        n_pass = (crude < thr[:, None]).sum(dim=1).to(torch.float32)
+        n_cand = valid.sum(dim=1).to(torch.float32)
+        rate = torch.mean(n_pass) / torch.clamp_min(torch.mean(n_cand), 1.0)
+        return mask(safe.gather(1, pos), dist), dist, rate
+    crude, cv, ci = bs.crude_topk_torch(index.codes, lf, topk, sc, of,
+                                        code_bits=bits, pred=pred)
+    if flat_adc or crude_only:
+        return mask(ci, cv), cv, None
+    bootstrap = (tstage.from_dense_candidates if jnp_rule
+                 else tstage.from_candidates)
+    thr = bootstrap(luts, index.codes, cv, ci, fast, index.structure.sigma)
+    if refine_cap is None:
+        slow = slow_lut_operand(luts, fast, code_bits=bits)
+        dist, idx = bs.refine_topk_torch(index.codes, slow, crude, thr, topk,
+                                         code_bits=bits)
+    else:
+        idx, dist = capped(index.codes, crude, thr)
+    pf = (crude < thr[:, None]).sum(dim=1).to(torch.float32) / crude.shape[1]
+    return mask(idx, dist), dist, torch.mean(pf)
+
+
+def filtered_kernels(seed: int, n: int, filters: dict, card: str):
+    """Phase 18 (a): the row-predicate crude instance, the survivor
+    selection and the re-rank at the main path's shapes against their
+    plain versions bit for bit, timed beside the unfiltered crude and
+    refine, with bounds that count the predicate's bytes and only the
+    work this run's data needs.  Returns their kernel records."""
+    import torch
+    from repro_torch.kernels import batched_search as bs
+    from repro_torch.kernels.stages import (ThresholdStage,
+                                            crude_lut_operands)
+    K, d = SIFT["K"], SIFT["d"]
+    codes, luts, fast = problem(seed + 100, n, TILE, K, SIFT["m"], d,
+                                SIFT["num_fast"], dup=False)
+    lf, _, _ = crude_lut_operands(luts, fast, quantized=False)
+    lq, sc, of = crude_lut_operands(luts, fast, quantized=True)
+    codes4, luts4, fast4 = problem(seed + 200, n, TILE, 16, 16, d, 4,
+                                   dup=False)
+    packed = stored_codes(codes4, 16, 4)
+    lq4, sc4, of4 = crude_lut_operands(luts4, fast4, quantized=True,
+                                       code_bits=4)
+    records = {}
+    base_ms = time_ms(lambda: bs.crude_topk_cuda(codes, lf, TOPK), 10)
+    for fname, mask in filters.items():
+        pred = torch.from_numpy(mask).cuda()
+        for label, args, kw in (
+                ("f32 8-bit", (codes, lf, TOPK), {}),
+                ("int8 8-bit", (codes, lq, TOPK, sc, of), {}),
+                ("int8 4-bit K=16 m=16", (packed, lq4, TOPK, sc4, of4),
+                 {"code_bits": 4})):
+            got = bs.crude_topk_cuda(*args, pred=pred, **kw)
+            want = bs.crude_topk_torch(*args, pred=pred, **kw)
+            check(equal_outputs(got, want), f"crude_topk_pred {label} "
+                  f"{fname} != its plain version")
+        kept = int(mask.sum())
+        ms = time_ms(lambda: bs.crude_topk_cuda(codes, lf, TOPK, pred=pred),
+                     10)
+        got = bs.crude_topk_cuda(codes, lf, TOPK, pred=pred)
+        inf_slots = int(torch.isinf(got[1]).sum())
+        log(f"kernel crude_topk_pred f32 8-bit nq={TILE} n={n} filter "
+            f"{fname} ({kept} rows kept): {ms:.4f} ms, unfiltered "
+            f"{base_ms:.4f} ms; +inf slots {inf_slots}; equal to the plain "
+            f"version bit for bit (f32, int8, int8 4-bit); {card}")
+        if fname == "bernoulli-0.5":
+            plain_ms = time_ms(lambda: bs.crude_topk_torch(
+                codes, lf, TOPK, pred=pred), 3)
+            # codes, LUTs, the predicate's byte a row, the dense crude
+            # matrix written, the lists; K adds for each kept pair
+            nbytes = codes.numel() + lf.numel() * 4 + n + TILE * n * 4 \
+                + TILE * TOPK * 8
+            b_ms, b_by = bound_ms(nbytes, TILE * kept * K)
+            records["crude_topk_pred"] = dict(
+                name="crude_topk_pred", route="cuda",
+                source="src/repro_torch/kernels/csrc/search_common.cuh",
+                replaces="src/repro/kernels/batched_search.py:168",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+    crude, cv, ci = bs.crude_topk_cuda(codes, lf, TOPK)
+    thr = ThresholdStage(topk=TOPK).from_dense_candidates(
+        luts, codes, cv, ci, fast, torch.tensor(SIGMA, device="cuda"))
+    survivors = int((crude < thr[:, None]).sum())
+    full = luts.reshape(TILE, -1)
+    for cap in CAPS + (TOPK,):
+        got = bs.select_topk_cuda(crude, thr, cap)
+        want = bs.select_topk_torch(crude, thr, cap)
+        check(equal_outputs(got, want), f"select_topk cap {cap} != its "
+              "plain version")
+        surv = got[1].long()
+        rows = codes[surv].contiguous()
+        valid = torch.isfinite(got[0])
+        rr = bs.rerank_topk_cuda(rows, full, valid, TOPK)
+        check(equal_outputs(rr, bs.rerank_topk_torch(rows, full, valid,
+                                                     TOPK)),
+              f"rerank_topk cap {cap} != its plain version")
+        s_ms = time_ms(lambda: bs.select_topk_cuda(crude, thr, cap), 10)
+        r_ms = time_ms(lambda: bs.rerank_topk_cuda(rows, full, valid, TOPK),
+                       10)
+        log(f"kernel select_topk nq={TILE} n={n} cap={cap} sigma={SIGMA} "
+            f"survivors={survivors} ({survivors / TILE:.1f} per query): "
+            f"{s_ms:.4f} ms; rerank_topk over the {cap} survivors' rows: "
+            f"{r_ms:.4f} ms; both equal to their plain versions bit for "
+            f"bit; {card}")
+        if cap == CAPS[0]:
+            s_plain = time_ms(lambda: bs.select_topk_torch(crude, thr, cap),
+                              3)
+            r_plain = time_ms(lambda: bs.rerank_topk_torch(rows, full, valid,
+                                                           TOPK), 3)
+            # the crude matrix and thresholds read, the lists written;
+            # one compare a pair
+            b_ms, b_by = bound_ms(TILE * n * 4 + TILE * 4 + TILE * cap * 8,
+                                  TILE * n)
+            records["select_topk"] = dict(
+                name="select_topk", route="cuda",
+                source="src/repro_torch/kernels/csrc/search_common.cuh",
+                replaces="src/repro/kernels/batched_search.py:441",
+                max_abs_err=0.0, ms=s_ms, plain_ms=s_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+            # the survivors' rows, LUTs and mask read, the top-k written;
+            # K + 1 adds a valid survivor
+            n_valid = int(valid.sum())
+            b_ms, b_by = bound_ms(rows.numel() + full.numel() * 4
+                                  + TILE * cap + TILE * TOPK * 8,
+                                  n_valid * (K + 1))
+            records["rerank_topk"] = dict(
+                name="rerank_topk", route="cuda",
+                source="src/repro_torch/kernels/csrc/ivf_search.cu",
+                replaces="src/repro/kernels/batched_search.py:390",
+                max_abs_err=0.0, ms=r_ms, plain_ms=r_plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+    return records
+
+
+def same_jnp(r, want) -> bool:
+    """The served result against the hand composition (ids, distances,
+    pass_rate): ids and distances bit for bit, so the +inf slots too,
+    and the pass counts through the pass_rate they fold into."""
+    import torch
+    ids, dist, rate = want
+    return (torch.equal(r.indices.long(), ids.long())
+            and torch.equal(r.distances, dist)
+            and (rate is None or torch.equal(r.pass_rate, rate)))
+
+
+def jnp_cell(name, path, overrides, filters, *, seed, n, card):
+    """Phase 18 (b) on one artifact at serve.backend = "jnp": unfiltered
+    and under each filter, one 64-query tile (launch counts reset before,
+    read after), ids / distances / +inf slots / pass counts equal to the
+    plain composition on the same operands, recall@100 against
+    ``ground_truth(filter=)``, ms of the tile filtered beside unfiltered.
+    Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import eval as ev
+    from repro_torch.index.flat import FlatADC
+    from repro_torch.index.ivf import IVFTwoStep
+
+    engine = engine_load(f"jnp-{name}", path, {**JNP, **overrides},
+                         query_tile=TILE)
+    index = engine.index
+    db = decoded_db(index)
+    check(engine.backend == "cuda-jnp", f"jnp {name}: backend "
+                                        f"{engine.backend}")
+    rng = np.random.default_rng(seed + 43)
+    qn = rng.standard_normal((TILE, int(index.C.shape[-1])),
+                             dtype=np.float32)
+    q = torch.from_numpy(qn).cuda()
+    ivf = isinstance(index, IVFTwoStep)
+    crude_key = ("ivf_crude_topk" if ivf else "crude_topk")
+    refine_key = (None if isinstance(index, FlatADC) else
+                  "ivf_refine_topk" if ivf else "refine_topk")
+    total = {k: 0 for k in read_launches()}
+    unf_ms = time_ms(lambda: engine.search(q), 5)
+    for fname in ("none",) + tuple(filters):
+        mask = None if fname == "none" else filters[fname]
+        pred = None if mask is None else torch.from_numpy(mask).cuda()
+        engine.search(q, filter=pred)
+        torch.cuda.synchronize()
+        reset_launches()
+        r = engine.search(q, filter=pred)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {k: 0 for k in launches}
+        want[crude_key + ("_pred" if pred is not None and not ivf
+                          else "")] = 1
+        if refine_key:
+            want[refine_key] = 1
+        check(launches == want, f"jnp {name} {fname}: launches "
+                                f"{nonzero(launches)} != {nonzero(want)}")
+        for k in total:
+            total[k] += launches[k]
+        same = same_jnp(r, plain_jnp(index, q, pred))
+        check(same, f"jnp {name} {fname}: served != the plain composition")
+        if mask is not None:
+            got_ids = r.indices.cpu().numpy()
+            check(bool(mask[got_ids[got_ids >= 0]].all()),
+                  f"jnp {name} {fname}: a filtered row was returned")
+        ms = unf_ms if pred is None else time_ms(
+            lambda: engine.search(q, filter=pred), 5)
+        gt, _ = ev.ground_truth(db, qn, TOPK, filter=mask)
+        recall = ev.recall_at_k(r.indices.cpu().numpy(), gt, TOPK)
+        log(f"jnp {name} filter {fname} "
+            f"({n if mask is None else int(mask.sum())} rows): {ms:.4f} "
+            f"ms a 64-query tile (events; unfiltered {unf_ms:.4f} ms), "
+            f"recall@{TOPK} {recall:.4f} against ground_truth(filter=), "
+            f"pass_rate {float(r.pass_rate):.6f}, +inf slots "
+            f"{int(torch.isinf(r.distances).sum())}, id -1 slots "
+            f"{int((r.indices < 0).sum())}; launches {nonzero(launches)}; "
+            f"equal to the plain composition: {same}; {card}")
+    return total
+
+
+def decoded_db(index):
+    """The (n, d) points the index's codes decode to, on the card."""
+    from repro_torch.core.codebooks import decode
+    from repro_torch.core.encode import unpack_nibbles
+    K = int(index.C.shape[0])
+    codes = (unpack_nibbles(index.codes, K) if index.code_bits == 4
+             else index.codes)
+    return decode(index.C, codes)
+
+
+# the reference's refusals, word for word: its engine's (AnnEngine.search
+# under the pallas backend) and its fused index's
+ENGINE_FILTER_WORDS = ("filtered search requires backend='jnp' (the fused "
+                       "kernels cannot mask rows by predicate)")
+INDEX_FILTER_WORDS = ("filtered search requires backend='jnp' (the fused "
+                      "kernels cannot mask rows by predicate; like "
+                      "refine_cap, filter is a jnp-engine option)")
+CAP_WORDS = ("refine_cap compaction requires backend='jnp' (the fused "
+             "kernels bound phase-2 work with the in-kernel top-k merge "
+             "instead)")
+
+
+def raised(call) -> str:
+    try:
+        call()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def jnp_rungs(name, path, filters, *, seed, card):
+    """Phase 18 (c) on one artifact at serve.backend = "jnp": the rungs
+    (the capped rung offered), the crude rung filtered, the capped rung
+    at each cap of ``CAPS`` through ``SearchBudget(refine_cap=)`` and
+    through ``index.refine_cap`` (also filtered), each equal to the plain
+    composition; the pipelined executor filtered and capped against the
+    tiled engine; then the same artifact at auto refusing ``filter`` and
+    ``refine_cap`` with the reference's words and offering no capped
+    rung.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.index.ivf import IVFTwoStep
+    from repro_torch.resilience import SearchBudget
+
+    engine = engine_load(f"jnp-rungs-{name}", path, JNP, query_tile=TILE)
+    index = engine.index
+    ivf = isinstance(index, IVFTwoStep)
+    want_levels = (("full", "capped", "probes", "crude") if ivf
+                   else ("full", "capped", "crude"))
+    check(engine._levels() == want_levels,
+          f"jnp {name}: rungs {engine._levels()}")
+    rng = np.random.default_rng(seed + 47)
+    q = torch.from_numpy(rng.standard_normal(
+        (TILE, int(index.C.shape[-1])), dtype=np.float32)).cuda()
+    crude_key = "ivf_crude_topk" if ivf else "crude_topk"
+    total = {k: 0 for k in read_launches()}
+
+    def served(what, call, want_launches, want):
+        call()
+        torch.cuda.synchronize()
+        reset_launches()
+        r = call()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect = {k: 0 for k in launches}
+        expect.update(want_launches)
+        check(launches == expect, f"jnp {name} {what}: launches "
+                                  f"{nonzero(launches)} != {nonzero(expect)}")
+        for k in total:
+            total[k] += launches[k]
+        same = same_jnp(r, want)
+        check(same, f"jnp {name} {what}: served != the plain composition")
+        ms = time_ms(call, 5)
+        log(f"jnp {name} {what}: {ms:.4f} ms a 64-query tile (events), "
+            f"rung {r.meta.level_name}, pass_rate {float(r.pass_rate):.6f},"
+            f" +inf slots {int(torch.isinf(r.distances).sum())}; launches "
+            f"{nonzero(launches)}; equal to the plain composition: {same}; "
+            f"{card}")
+        return r
+
+    for fname in ("bernoulli-0.01", "rows-60"):
+        pred = torch.from_numpy(filters[fname]).cuda()
+        served(f"crude rung, filter {fname}", lambda: engine.search(
+            q, budget=SearchBudget(force_level="crude"), filter=pred),
+            {crude_key if ivf else "crude_topk_pred": 1},
+            plain_jnp(index, q, pred, crude_only=True))
+    crude = ("ivf_crude_topk" if ivf else "crude_topk")
+    capped = {crude: 1, "select_topk": 1, "rerank_topk": 1}
+    half = torch.from_numpy(filters["bernoulli-0.5"]).cuda()
+    for cap in CAPS:
+        want = plain_jnp(index, q, refine_cap=cap)
+        r = served(f"capped rung, SearchBudget(refine_cap={cap})",
+                   lambda: engine.search(
+                       q, budget=SearchBudget(refine_cap=cap)),
+                   capped, want)
+        check(r.meta.level_name == "capped", f"jnp {name}: refine_cap "
+                                             f"served {r.meta.level_name}")
+        at_cap = engine_load(f"jnp-{name}-refine_cap{cap}", path,
+                             {**JNP, "index.refine_cap": cap},
+                             query_tile=TILE)
+        served(f"index.refine_cap={cap}", lambda: at_cap.search(q), capped,
+               want)
+        served(f"index.refine_cap={cap}, filter bernoulli-0.5",
+               lambda: at_cap.search(q, filter=half),
+               {**capped, crude: 1} if ivf else
+               {"crude_topk_pred": 1, "select_topk": 1, "rerank_topk": 1},
+               plain_jnp(index, q, half, refine_cap=cap))
+    # the pipelined executor (two streams on the card) at tile 64 over
+    # three tiles, filtered and capped, equal to the tiled engine
+    piped = engine_load(f"jnp-{name}-pipelined", path,
+                        {**JNP, "serve.pipeline": "tiles"})
+    qb = torch.from_numpy(rng.standard_normal(
+        (3 * TILE, int(index.C.shape[-1])), dtype=np.float32)).cuda()
+    for what, kw in (("filter bernoulli-0.5", dict(filter=half)),
+                     (f"refine_cap {CAPS[0]}",
+                      dict(budget=SearchBudget(refine_cap=CAPS[0])))):
+        want = engine.search(qb, **kw)
+        reset_launches()
+        got = piped.search(qb, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for k in total:
+            total[k] += launches[k]
+        same = (torch.equal(got.indices, want.indices)
+                and torch.equal(got.distances, want.distances))
+        check(same, f"jnp {name} pipelined {what}: != the tiled engine")
+        log(f"jnp {name} pipelined (tiles of {TILE}, 3 tiles) {what}: ids "
+            f"and distances == the tiled engine's: {same}; launches "
+            f"{nonzero(launches)}; {card}")
+    auto = engine_load(f"auto-{name}", path, query_tile=TILE)
+    words = {
+        "engine filter": (raised(lambda: auto.search(q, filter=half)),
+                          ENGINE_FILTER_WORDS),
+        "index filter": (raised(lambda: auto.index.search(q, filter=half)),
+                         INDEX_FILTER_WORDS),
+        "refine_cap": (raised(lambda: engine_load(
+            f"auto-{name}-refine_cap", path,
+            {"index.refine_cap": CAPS[0]}).search(q)), CAP_WORDS),
+        "capped rung": (raised(lambda: auto.search(
+            q, budget=SearchBudget(force_level="capped"))), "not servable")}
+    for what, (got, want) in words.items():
+        check(got == want if what != "capped rung" else want in got,
+              f"auto {name}: {what} raised {got!r}")
+    check("capped" not in auto._levels(), f"auto {name}: capped rung")
+    log(f"auto {name}: engine and index filter, refine_cap and the capped "
+        f"rung refused with the reference's words; rungs {auto._levels()}")
+    return total
+
+
+def sharded_filtered(name, path, filters, *, seed, card):
+    """Phase 18 (d): the artifact over a 4-way mesh on the first card at
+    its own backend (auto: the sharded engine serves filter under every
+    backend), filtered, equal bit for bit (ids, distances, pass_rate,
+    avg_ops) to the unsharded jnp engine's filtered search.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.index.ivf import IVFTwoStep
+
+    plain = engine_load(f"jnp-{name}-unsharded", path, JNP, query_tile=TILE)
+    eng = engine_load(f"{name}-D4-filtered", path,
+                      mesh=data_mesh(4, ["cuda"]), query_tile=TILE)
+    ivf = isinstance(plain.index, IVFTwoStep)
+    rng = np.random.default_rng(seed + 53)
+    q = torch.from_numpy(rng.standard_normal(
+        (TILE, int(plain.index.C.shape[-1])), dtype=np.float32)).cuda()
+    total = {k: 0 for k in read_launches()}
+    pair = (("ivf_crude_topk", "ivf_refine_topk") if ivf
+            else ("crude_topk_pred", "refine_topk"))
+    for fname in ("bernoulli-0.5", "rows-60"):
+        pred = torch.from_numpy(filters[fname]).cuda()
+        want = plain.search(q, filter=pred)
+        eng.search(q, filter=pred)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = eng.search(q, filter=pred)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect = {k: 0 for k in launches}
+        expect.update({k: 4 for k in pair})
+        check(launches == expect, f"sharded {name} {fname}: launches "
+                                  f"{nonzero(launches)} != {nonzero(expect)}")
+        for k in total:
+            total[k] += launches[k]
+        same = same_result(got, want)
+        check(same, f"sharded {name} D=4 {fname}: != the unsharded jnp "
+                    "engine")
+        log(f"sharded {name} D=4 (backend {eng.backend}) filter {fname}: "
+            f"ids, distances, pass_rate, avg_ops == the unsharded jnp "
+            f"engine's: {same}; launches {nonzero(launches)}; {card}")
+    return total
+
+
+def filtered_search(paths, *, seed, n, card):
+    """Phase 18: filter= and refine_cap on the card.  Returns (launches,
+    kernel records)."""
+    t0 = time.perf_counter()
+    filters = make_filters(seed, n)
+    records = filtered_kernels(seed, n, filters, card)
+    total = {k: 0 for k in read_launches()}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    for name, art, over in JNP_CELLS:
+        add(jnp_cell(name, paths[art], over, filters, seed=seed, n=n,
+                     card=card))
+    for name in ("two-step-f32", "ivf-f32"):
+        add(jnp_rungs(name, paths[name], filters, seed=seed, card=card))
+        add(sharded_filtered(name, paths[name], filters, seed=seed,
+                             card=card))
+    log(f"phase 18 ran {time.perf_counter() - t0:.1f} s (host clock)")
+    return total, records
+
+
 def cuda_held(label: str) -> int:
     """``torch.cuda.memory_allocated()`` after ``gc.collect()``, and every
     live CUDA tensor of 64 MiB or more that gc reaches, with the types
@@ -7078,6 +7636,9 @@ def main(argv=None) -> int:
                                                            workdir)
         shard_total = sharded_serving(paths, seed=args.seed,
                                       batches=args.batches, card=card)
+        filt_total, filt_records = filtered_search(paths, seed=args.seed,
+                                                   n=args.n, card=card)
+        add(filt_total)
     check_kernel_ops(args.seed)
     ops_total, ops_records = kernel_ops(args.seed, args.n)
     om_total, om_records = offset_mask_calls(args.seed, card)
@@ -7102,6 +7663,7 @@ def main(argv=None) -> int:
     records.update(ivf_records)
     records.update(ops_records)
     records.update(bwd_records)
+    records.update(filt_records)
     for k, rec in records.items():
         check(total[k] > 0, f"{k} was never launched on the main path")
         rec["launches"] = total[k]
@@ -7116,6 +7678,7 @@ def main(argv=None) -> int:
         "clock, the kernels' build included)")
     log(json.dumps({"kernels": [records[k] for k in (
         "crude_topk", "refine_topk", "ivf_crude_topk", "ivf_refine_topk",
+        "crude_topk_pred", "select_topk", "rerank_topk",
         "kmeans_assign", "icm_encode", "adc", "two_step",
         "flash_attention")] + [lm_records[k] for k in (
             "flash_attention_mla", "flash_attention_mla_noncausal",

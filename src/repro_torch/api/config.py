@@ -25,9 +25,13 @@ This is the port's own copy of ``repro.api.config``: the same tree,
 fields, defaults and validation, so ``config_hash`` equals the
 reference's for the same config and artifacts written by either
 package load in the other.  ``serve.backend`` keeps its reference
-choices (auto | jnp | pallas): on a CUDA device auto and pallas name
-the hand-written kernels, and jnp names the plain PyTorch versions,
-which serve only on the CPU (``repro_torch.index.base.resolve_backend``).
+choices (auto | jnp | pallas): on a CUDA device all three run the
+hand-written kernels, auto and pallas as the reference's fused engine
+and jnp with the reference's jnp-engine options (``filter``,
+``refine_cap``, the capped rung); on the CPU all three run the plain
+PyTorch versions (``repro_torch.index.base.resolve_backend``).
+``encode.backend="jnp"`` names the plain ICM sweep, which only the CPU
+runs (``resolve_encode_backend``).
 ``TrainConfig.hyperparams`` bridges to the trainer's record
 (``repro_torch.configs.base.ICQConfig``).
 """

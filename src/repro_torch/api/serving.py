@@ -14,10 +14,17 @@ crude): per batch it picks the least degraded rung whose measured warm
 wall time (an EMA, alpha 0.3) fits the budget's deadline; hard caps
 promote their rung (``refine_cap`` the capped rung, ``max_n_probe`` below
 the index's ``n_probe`` the probes rung) and ``allow_refine=False``
-takes the crude floor.  On the card the rungs are the kernels': two-step
-and flat {full, crude}, IVF {full, probes, crude}; the capped rung, like
-``filter``, is a jnp-engine option of the reference, which the plain
-versions serve on the CPU and the card refuses.
+takes the crude floor.  The rungs follow the reference backend for
+backend: every rung runs on the kernels on the card, and the capped
+rung, like ``filter``, is a jnp-engine option of the reference, so an
+index whose ``serve.backend`` is auto or pallas on the card (resolved
+"cuda", the fused engine) serves two-step and flat {full, crude} and
+IVF {full, probes, crude}, and refuses ``filter`` with the reference's
+words, while ``serve.backend="jnp"`` on the card ("cuda-jnp") and every
+backend on the CPU ("torch") add the capped rung (two-step {full,
+capped, crude}, IVF {full, capped, probes, crude}) and serve
+``filter``.  A sharded engine serves ``filter`` under every backend, as
+the reference's sharded bodies do.
 
 A failed batch (a ``RuntimeError``: a kernel launch, a CUDA error, an
 injected fault) is retried in place, as the reference retries it: one
@@ -26,9 +33,9 @@ attempt, then 1 + ``resilience.max_retries`` more under
 first counted in ``stats["retries"]``); the last failure raises
 ``RetriesExhausted`` chained to it.  A refused argument
 (``ValueError``) raises at once.  The engine never fails over: the
-reference's Pallas -> jnp failover would move the batch onto the plain
-versions, which never serve on a CUDA device, and a fallback would hide
-a failing kernel.  So
+reference's Pallas -> jnp failover would move the batch onto another
+engine of the same kernels, and a fallback would hide a failing
+kernel.  So
 ``resilience.pallas_failover`` is kept for ``config_hash`` parity and
 has no effect here; ``stats["failovers"]`` stays 0.
 
@@ -160,6 +167,8 @@ class AnnEngine:
         idx = self.index
         if isinstance(idx, FlatADC):
             return ("full", "crude")         # crude == full (no refine)
+        # the fused engine ("cuda") has no capped rung, as the
+        # reference's pallas engine has none
         capped = () if self.backend == "cuda" else ("capped",)
         if isinstance(idx, IVFTwoStep):
             return ("full",) + capped + ("probes", "crude")
@@ -317,9 +326,14 @@ class AnnEngine:
         index's device as f32); ``k`` overrides the index's ``topk``.
         ``budget`` bounds the batch: the engine picks the ladder rung
         that fits and reports it on ``result.meta``.  ``filter``: an
-        optional (n,) bool row predicate (plain versions only: the index
-        refuses it on the card; absent slots are id -1 at distance
-        +inf)."""
+        optional (n,) bool row predicate (a jnp-engine option: the fused
+        engine of an unsharded index on the card refuses it with the
+        reference's words; absent slots are id -1 at distance +inf)."""
+        if filter is not None and self.mesh is None and \
+                self.backend == "cuda":
+            raise ValueError(
+                "filtered search requires backend='jnp' (the fused "
+                "kernels cannot mask rows by predicate)")
         budget = validate_budget(budget) if budget is not None \
             else SearchBudget()
         level = self._pick_level(budget)

@@ -32,7 +32,7 @@ import torch
 from repro_torch.api.artifacts import Artifacts
 from repro_torch.api.config import JOINT_MODES, ConfigError, ICQConfig
 from repro_torch.api.serving import AnnEngine, build_index
-from repro_torch.index.base import as_torch, resolve_device
+from repro_torch.index.base import as_torch, resolve_backend, resolve_device
 
 
 class Searcher:
@@ -244,8 +244,12 @@ class ICQSession:
                     grid.append({"index.n_probe": np_,
                                  "train.num_fast": nf})
         else:                                            # two-step
-            # the card refuses refine_cap (a plain-version option)
-            capped = self.model.C.device.type == "cpu"
+            # refine_cap is a jnp-engine option: the fused engine (auto |
+            # pallas on the card) refuses it, so it is a candidate only
+            # where the engine serves it (the reference's grid lists it
+            # under every backend, and its pallas engine then raises)
+            capped = resolve_backend(self.config.serve.backend,
+                                     self.model.C.device) != "cuda"
             for nf in nf_opts:
                 grid.append({"train.num_fast": nf})
                 if capped:

@@ -63,15 +63,15 @@ def icm_encode(x: torch.Tensor, C: torch.Tensor, iters: int = 3,
 
     backend:      "auto" | "pallas" run the ICM kernel on a CUDA device;
                   "jnp" names the plain version and is refused on one
-                  (``index.base.resolve_backend``).  On the CPU every
-                  backend runs the plain version.
+                  (``index.base.resolve_encode_backend``).  On the CPU
+                  every backend runs the plain version.
     point_chunk:  working-set bound: points are encoded in blocks of
                   this size, the last zero-padded and its pad rows sliced
                   off.  Encoding is per-point independent, so chunking
                   never changes a point's codes.
     """
-    from repro_torch.index.base import resolve_backend
-    resolve_backend(backend, x.device)
+    from repro_torch.index.base import resolve_encode_backend
+    resolve_encode_backend(backend, x.device)
     if x.ndim != 2 or C.ndim != 3 or x.shape[1] != C.shape[2]:
         raise ValueError(f"icm_encode needs x (n, d) and C (K, m, d) of "
                          f"one d, got {tuple(x.shape)} and {tuple(C.shape)}")

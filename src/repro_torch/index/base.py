@@ -87,25 +87,37 @@ def as_generator(generator) -> torch.Generator:
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
-    """Map the config's ``serve.backend`` onto what runs: "cuda" (the
-    hand-written kernels) on a CUDA device for auto | pallas, "torch"
-    (their plain versions) on the CPU.  "jnp" names the plain versions,
-    which never serve on a CUDA device."""
+    """Map the config's ``serve.backend`` onto what runs.  On a CUDA
+    device the hand-written kernels always run: auto | pallas resolve
+    to "cuda", the reference's fused engine (``filter`` and
+    ``refine_cap`` refused, no capped rung), and jnp to "cuda-jnp", the
+    kernels with the reference's jnp-engine options (``filter``,
+    ``refine_cap``, the capped rung).  On the CPU every backend resolves
+    to "torch": the kernels' plain versions, with the jnp-engine
+    options."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown search backend {backend!r}; expected "
                          f"one of {BACKENDS}")
     if device.type == "cuda":
-        if backend == "jnp":
-            raise ValueError(
-                "serve.backend='jnp' selects the plain PyTorch versions, "
-                "which never serve on a CUDA device; load with overrides "
-                "{'serve.backend': 'auto'} to serve through the CUDA "
-                "kernels")
-        return "cuda"
+        return "cuda-jnp" if backend == "jnp" else "cuda"
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}; the port runs on "
                          "cuda or cpu")
     return "torch"
+
+
+def resolve_encode_backend(backend: str, device: torch.device) -> str:
+    """Map ``encode.backend`` onto what runs: "cuda" (the ICM kernel) on
+    a CUDA device for auto | pallas, "torch" (its plain version) on the
+    CPU.  "jnp" names the plain version, which never runs on a CUDA
+    device (the encoder has no jnp-engine options to serve)."""
+    if backend == "jnp" and device.type == "cuda":
+        raise ValueError(
+            "encode.backend='jnp' selects the plain PyTorch ICM sweep, "
+            "which never runs on a CUDA device; use backend='auto' to "
+            "encode through the CUDA kernel")
+    return "torch" if resolve_backend(backend, device) == "torch" \
+        else "cuda"
 
 
 def resolve_lut_dtype(lut_dtype: str) -> str:

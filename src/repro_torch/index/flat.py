@@ -17,12 +17,17 @@ matrix (``want_crude=False``), the exact crude top-k the full path
 bootstraps its threshold from; ``pass_rate`` 0, ``avg_ops`` |K_fast|.
 
 ``filter`` (a per-row predicate) and ``refine_cap`` (the static
-survivor compaction) are the reference's jnp-engine options: the plain
-versions serve them on the CPU through the reference's jnp composition
-(the dense crude matrix, filtered rows +inf before any top-k, the
-bootstrap from it), and on the card they raise the reference's
-``ValueError``: the kernels cannot mask rows by predicate or compact
-survivors, as the fused Pallas kernels cannot.
+survivor compaction) are the reference's jnp-engine options, served in
+the reference's jnp composition through the kernels: the crude kernel
+with the predicate (filtered rows +inf before any top-k, its candidate
+list the two-key top-k of the masked crude matrix), the jnp bootstrap
+rule over that list (``ThresholdStage.from_dense_candidates``), then the
+refine kernel or, with ``refine_cap``, the survivor selection and its
+re-rank (``CappedStage``).  They are served under ``backend="jnp"`` on
+the card (resolved "cuda-jnp") and under every backend on the CPU
+(where the same composition runs on the plain versions); the fused
+engine (auto | pallas on the card, resolved "cuda") raises the
+reference's ``ValueError`` for them, as its Pallas engine does.
 
 Each engine is a phase pair (``two_step_phase_fns``, ``adc_phase_fns``
 over ``two_step_phase_env``): the sequential searches compose it block
@@ -45,18 +50,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.encode import icm_encode, pack_nibbles
-from repro_torch.index import base
 from repro_torch.index.base import (SearchResult, as_filter, as_torch,
                                     build_lut, chunked_over_queries,
                                     mask_filtered_ids, resolve_backend,
                                     resolve_code_bits, resolve_lut_dtype)
 from repro_torch.index.pipelined import (compose, maybe_pipelined,
                                          resolve_pipeline)
-from repro_torch.kernels.stages import (CrudeStage, RefineStage,
-                                        ThresholdStage, topk_two_key,
-                                        two_step_stages, widen_codes)
-
-_INF = float("inf")
+from repro_torch.kernels.stages import (CappedStage, CrudeStage,
+                                        RefineStage, ThresholdStage)
 
 
 def _check_fastscan_geometry(code_bits: int, m: int) -> int:
@@ -70,8 +71,8 @@ def _check_fastscan_geometry(code_bits: int, m: int) -> int:
 
 def _check_filter(filter, n: int, backend: str, device):
     """The row predicate of a filtered search, or None.  A jnp-engine
-    option, as in the reference: the kernels cannot mask rows by
-    predicate, so on the card it raises by name."""
+    option, as in the reference: the fused engine (resolved backend
+    "cuda") raises the reference's words."""
     if filter is None:
         return None
     if backend == "cuda":
@@ -83,47 +84,12 @@ def _check_filter(filter, n: int, backend: str, device):
 
 
 def _check_refine_cap(refine_cap, backend: str):
+    """``refine_cap`` is a jnp-engine option: the fused engine
+    (resolved backend "cuda") raises the reference's words."""
     if refine_cap is not None and backend == "cuda":
         raise ValueError("refine_cap compaction requires backend='jnp'"
                          " (the fused kernels bound phase-2 work with"
                          " the in-kernel top-k merge instead)")
-
-
-def _masked_crude(crude, pred):
-    """Filtered rows score +inf before any top-k."""
-    return crude if pred is None else torch.where(
-        pred[None, :], crude, torch.full_like(crude, _INF))
-
-
-def _dense_topk(crude, topk: int, pred):
-    """The top-k of a dense crude matrix (ids, dist), filtered slots
-    reported as id -1."""
-    dist, idx = topk_two_key(_masked_crude(crude, pred), topk)
-    return (idx if pred is None else mask_filtered_ids(idx, dist)), dist
-
-
-def capped_refine(luts, codes, crude, thr, topk: int, cap: int, *,
-                  code_bits: int):
-    """The static survivor compaction (the reference's jnp ``refine_cap``
-    tail): the ``cap`` best-crude margin-test survivors of each row are
-    gathered (``codes`` (n, Kc) shared or (nq, n, Kc) per query) and
-    re-ranked by one full-table sum.  Returns (positions (nq, topk),
-    dist (nq, topk)); +inf past the survivors."""
-    K = luts.shape[1]
-    passed = crude < thr[:, None]
-    s_vals, surv = topk_two_key(
-        torch.where(passed, crude, torch.full_like(crude, _INF)), cap)
-    surv = surv.long()
-    if codes.ndim == 2:
-        surv_codes = codes[surv]                          # (nq, cap, Kc)
-    else:
-        surv_codes = torch.gather(
-            codes, 1, surv[:, :, None].expand(-1, -1, codes.shape[2]))
-    full = base.lut_sum(luts, widen_codes(surv_codes, K, code_bits))
-    ranked = torch.where(torch.isfinite(s_vals), full,
-                         torch.full_like(full, _INF))
-    dist, pos = topk_two_key(ranked, topk)
-    return surv.gather(1, pos.long()), dist
 
 
 # -------------------------------------------------------------- engines ----
@@ -135,19 +101,28 @@ def capped_refine(luts, codes, crude, thr, topk: int, cap: int, *,
 # phase of tile t+1 beside the refine phase of tile t.  Single-phase
 # engines (one-step ADC, the crude rung) have no refine phase.
 
+def _crude_list(qs, env, *, topk: int, quantized: bool, code_bits: int,
+                fast, has_filter: bool):
+    """A single-phase search over one query block: the crude stage's
+    candidate list (no dense matrix), filtered rows +inf in the kernel
+    and their slots reported as id -1.  Returns (ids (nq, topk), dist
+    (nq, topk), pf = 0)."""
+    pred = env["pred"] if has_filter else None
+    stage = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits,
+                       want_crude=False)
+    out = stage(env["codes"], build_lut(qs, env["C"]), fast, pred=pred)
+    ids = (out.cand_idx if pred is None
+           else mask_filtered_ids(out.cand_idx, out.cand_vals))
+    zeros = torch.zeros(qs.shape[0], dtype=torch.float32, device=qs.device)
+    return ids, out.cand_vals, zeros
+
+
 def _adc_phase(qs, env, *, topk: int, quantized: bool, code_bits: int,
                has_filter: bool = False):
     """One-step ADC over one query block: a single crude stage over the
-    full tables (with a filter, its dense crude matrix ranked here).
-    Returns (ids (nq, topk), dist (nq, topk), pf = 0)."""
-    pred = env["pred"] if has_filter else None
-    stage = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits,
-                       want_crude=pred is not None)
-    out = stage(env["codes"], build_lut(qs, env["C"]), None)
-    zeros = torch.zeros(qs.shape[0], dtype=torch.float32, device=qs.device)
-    if pred is None:
-        return out.cand_idx, out.cand_vals, zeros
-    return (*_dense_topk(out.crude, topk, pred), zeros)
+    full tables.  Returns (ids (nq, topk), dist (nq, topk), pf = 0)."""
+    return _crude_list(qs, env, topk=topk, quantized=quantized,
+                       code_bits=code_bits, fast=None, has_filter=has_filter)
 
 
 def adc_phase_fns(*, topk: int, quantized: bool = False, code_bits: int = 8,
@@ -171,9 +146,9 @@ def adc_search(queries, codes, C, topk: int, *, backend: str = "auto",
                code_bits: int = 8, filter=None) -> SearchResult:
     """Baseline one-step ADC: the full K-codebook LUT sum of every point.
     queries (nq, d) f32; codes (n, Kc) stored rows; C (K, m, d) f32.
-    ``filter``: optional (n,) bool row predicate (plain versions only):
-    excluded rows never appear; slots with no eligible row left report
-    id -1 at distance +inf."""
+    ``filter``: optional (n,) bool row predicate (a jnp-engine option,
+    refused by the fused engine): excluded rows never appear; slots with
+    no eligible row left report id -1 at distance +inf."""
     be = resolve_backend(backend, codes.device)
     pred = _check_filter(filter, codes.shape[0], be, codes.device)
     crude_fn, _ = adc_phase_fns(
@@ -195,16 +170,17 @@ def two_step_phase_env(codes, C, structure, pred=None) -> dict:
 
 
 def _flat_crude_phase(qs, env, *, topk: int, quantized: bool,
-                      code_bits: int, out=None, before_launch=None):
-    """Phase 1: per-query LUTs and the crude stage (``out``, optional,
-    receives the dense crude matrix; ``before_launch``, optional, runs
-    just before the kernel).  Returns the carry (luts, crude,
-    cand_vals, cand_idx) the refine phase reads."""
-    crude_stage, _, _ = two_step_stages(topk=topk, quantized=quantized,
-                                        code_bits=code_bits)
+                      code_bits: int, has_filter: bool = False, out=None,
+                      before_launch=None):
+    """Phase 1: per-query LUTs and the crude stage, filtered rows +inf
+    under ``has_filter`` (``out``, optional, receives the dense crude
+    matrix; ``before_launch``, optional, runs just before the kernel).
+    Returns the carry (luts, crude, cand_vals, cand_idx) the refine
+    phase reads."""
     luts = build_lut(qs, env["C"])                       # (nq, K, m)
-    res = crude_stage(env["codes"], luts, env["fast"], out=out,
-                      before_launch=before_launch)
+    res = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits)(
+        env["codes"], luts, env["fast"], out=out, before_launch=before_launch,
+        pred=env["pred"] if has_filter else None)
     return luts, res.crude, res.cand_vals, res.cand_idx
 
 
@@ -214,49 +190,29 @@ def _pass_frac(passed):
 
 
 def _flat_refine_phase(carry, env, *, topk: int, quantized: bool,
-                       code_bits: int, before_launch=None):
-    """Phases 2 and 3: the threshold bootstrap from the crude top-k and
-    the refine stage (``before_launch``, optional, runs just before its
-    kernel).  Returns (idx, dist, passed_frac (nq,))."""
+                       code_bits: int, refine_cap: Optional[int] = None,
+                       has_filter: bool = False, before_launch=None):
+    """Phases 2 and 3: the threshold bootstrap from the crude top-k (the
+    fused engine's rule, ``from_candidates``; under the jnp engine's
+    options the reference's jnp rule, ``from_dense_candidates``), then
+    the refine stage or, with ``refine_cap``, the survivor selection and
+    re-rank (``CappedStage``); ``before_launch``, optional, runs just
+    before the first kernel.  Returns (idx, dist, passed_frac (nq,))."""
     luts, crude, cand_vals, cand_idx = carry
     codes, fast = env["codes"], env["fast"]
-    _, tstage, rstage = two_step_stages(topk=topk, quantized=quantized,
-                                        code_bits=code_bits)
-    thr = tstage.from_candidates(luts, codes, cand_vals, cand_idx, fast,
-                                 env["sigma"])
-    idx, dist, passed = rstage(codes, luts, crude, thr, fast,
-                               before_launch=before_launch)
-    return idx, dist, _pass_frac(passed)
-
-
-def _flat_dense_crude_phase(qs, env, *, topk: int, quantized: bool,
-                            code_bits: int, has_filter: bool):
-    """The reference's jnp crude phase, for the plain versions' options:
-    the dense crude matrix with filtered rows +inf.  Returns the carry
-    (luts, crude)."""
-    luts = build_lut(qs, env["C"])
-    crude = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits)(
-        env["codes"], luts, env["fast"]).crude
-    return luts, _masked_crude(crude, env["pred"] if has_filter else None)
-
-
-def _flat_dense_refine_phase(carry, env, *, topk: int, quantized: bool,
-                             code_bits: int, refine_cap: Optional[int],
-                             has_filter: bool):
-    """The reference's jnp refine phase: the bootstrap from the dense
-    crude matrix (``ThresholdStage.from_dense``), then the refine stage
-    or, with ``refine_cap``, the survivor compaction."""
-    luts, crude = carry
-    codes, fast = env["codes"], env["fast"]
-    thr = ThresholdStage(topk=topk, quantized=quantized,
-                         code_bits=code_bits).from_dense(
-        luts, codes, crude, fast, env["sigma"])
+    tstage = ThresholdStage(topk=topk, quantized=quantized,
+                            code_bits=code_bits)
+    bootstrap = (tstage.from_dense_candidates
+                 if has_filter or refine_cap is not None
+                 else tstage.from_candidates)
+    thr = bootstrap(luts, codes, cand_vals, cand_idx, fast, env["sigma"])
     if refine_cap is None:
         idx, dist, passed = RefineStage(topk=topk, code_bits=code_bits)(
-            codes, luts, crude, thr, fast)
+            codes, luts, crude, thr, fast, before_launch=before_launch)
     else:
-        idx, dist = capped_refine(luts, codes, crude, thr, topk, refine_cap,
-                                  code_bits=code_bits)
+        idx, dist = CappedStage(topk=topk, cap=refine_cap,
+                                code_bits=code_bits)(
+            codes, luts, crude, thr, before_launch=before_launch)
         passed = crude < thr[:, None]
     if has_filter:
         idx = mask_filtered_ids(idx, dist)
@@ -266,17 +222,11 @@ def _flat_dense_refine_phase(carry, env, *, topk: int, quantized: bool,
 def _flat_crude_only_phase(qs, env, *, topk: int, quantized: bool,
                            code_bits: int, has_filter: bool = False):
     """The crude rung over one query block: the crude stage with the
-    refine dropped.  Unfiltered, its candidate list (no dense matrix);
-    filtered (plain versions), the dense crude matrix masked and
-    ranked.  Returns (idx, dist, pf = 0)."""
-    pred = env["pred"] if has_filter else None
-    stage = CrudeStage(topk=topk, quantized=quantized, code_bits=code_bits,
-                       want_crude=pred is not None)
-    out = stage(env["codes"], build_lut(qs, env["C"]), env["fast"])
-    zeros = torch.zeros(qs.shape[0], dtype=torch.float32, device=qs.device)
-    if pred is None:
-        return out.cand_idx, out.cand_vals, zeros
-    return (*_dense_topk(out.crude, topk, pred), zeros)
+    refine dropped, its candidate list (no dense matrix), filtered rows
+    +inf in the kernel.  Returns (idx, dist, pf = 0)."""
+    return _crude_list(qs, env, topk=topk, quantized=quantized,
+                       code_bits=code_bits, fast=env["fast"],
+                       has_filter=has_filter)
 
 
 def two_step_phase_fns(*, topk: int, quantized: bool = False,
@@ -285,23 +235,18 @@ def two_step_phase_fns(*, topk: int, quantized: bool = False,
     """The flat two-step engine as a ``(crude_fn, refine_fn)`` phase
     pair over ``(qs | carry, env)``.  ``crude_only`` is the crude rung
     (refine_fn None; crude_fn returns the final (idx, dist, pf));
-    ``filter`` and ``refine_cap`` (plain versions only) take the
-    reference's dense jnp composition; otherwise the kernels'
-    composition, whose crude phase takes ``out=`` for its dense crude
-    matrix and both phases a ``before_launch`` hook.  ``refine_cap``
-    arrives clamped into [topk, n]."""
-    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits)
+    ``filter`` and ``refine_cap`` (the jnp engine's options) take the
+    reference's jnp bootstrap rule, otherwise the fused engine's; the
+    crude phase takes ``out=`` for its dense crude matrix and both
+    phases a ``before_launch`` hook.  ``refine_cap`` arrives clamped
+    into [topk, n]."""
+    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits,
+                has_filter=has_filter)
     if crude_only:
-        return functools.partial(_flat_crude_only_phase,
-                                 has_filter=has_filter, **opts), None
-    if has_filter or refine_cap is not None:
-        return (functools.partial(_flat_dense_crude_phase,
-                                  has_filter=has_filter, **opts),
-                functools.partial(_flat_dense_refine_phase,
-                                  refine_cap=refine_cap,
-                                  has_filter=has_filter, **opts))
+        return functools.partial(_flat_crude_only_phase, **opts), None
     return (functools.partial(_flat_crude_phase, **opts),
-            functools.partial(_flat_refine_phase, **opts))
+            functools.partial(_flat_refine_phase, refine_cap=refine_cap,
+                              **opts))
 
 
 def two_step_result(idx, dist, pf, *, K: int, kf) -> SearchResult:
@@ -334,10 +279,11 @@ def two_step_search(queries, codes, C, structure, topk: int, *,
                uint8, codebook_size <= 16).
     lut_dtype: "f32" | "int8" (per-query quantized crude tables; the
                refine pass is always f32).
-    refine_cap: the static survivor compaction (plain versions only):
-               at most ``min(max(refine_cap, topk), n)`` best-crude
-               survivors per query are refined.
-    filter:    optional (n,) bool row predicate (plain versions only):
+    refine_cap: the static survivor compaction (a jnp-engine option,
+               refused by the fused engine): at most
+               ``min(max(refine_cap, topk), n)`` best-crude survivors
+               per query are re-ranked by one full-table sum.
+    filter:    optional (n,) bool row predicate (a jnp-engine option):
                excluded rows get crude +inf before the eq. 2 bootstrap;
                unfilled slots report id -1 at distance +inf.
     query_chunk bounds the dense (chunk, n) crude matrix."""
@@ -359,8 +305,7 @@ def two_step_search_compact(queries, codes, C, structure, topk: int,
                             refine_cap: int, *,
                             query_chunk: Optional[int] = None):
     """The reference's back-compat wrapper: ``two_step_search`` with
-    the ``refine_cap`` survivor compaction, on the plain versions (so
-    on the CPU only; the card refuses ``refine_cap``)."""
+    the ``refine_cap`` survivor compaction under ``backend="jnp"``."""
     return two_step_search(queries, codes, C, structure, topk,
                            backend="jnp", query_chunk=query_chunk,
                            refine_cap=refine_cap)
@@ -375,7 +320,7 @@ def two_step_crude_search(queries, codes, C, structure, topk: int, *,
     crude distance only, skipping eq. 2 and the refine pass; equal bit
     for bit to the crude top-k the full path bootstraps from.
     ``pass_rate`` is 0 (nothing refined), ``avg_ops`` |K_fast|.
-    ``filter`` (plain versions only) masks rows before the top-k."""
+    ``filter`` (a jnp-engine option) masks rows before the top-k."""
     be = resolve_backend(backend, codes.device)
     pred = _check_filter(filter, codes.shape[0], be, codes.device)
     fns = two_step_phase_fns(

@@ -29,14 +29,18 @@ equals ``ivf_assign`` of the same centroids over all rows.
 and the slab crude pass, its top-k of slab positions mapped to ids (no
 refine); the ladder's probes rung is ``search`` at a reduced
 ``n_probe``.  ``filter`` and ``refine_cap`` are the reference's
-jnp-engine options, served by the plain versions on the CPU through the
-reference's jnp composition (filtered candidates invalid in the slab,
-the bootstrap from the dense slab crude) and refused on the card with
-the reference's ``ValueError``.  Every search is the phase pair of
-``ivf_phase_fns`` over ``ivf_phase_env``; ``pipeline="tiles" | "auto"``
-runs it through the pipelined executor (``index/pipelined.py``; queue 1
-item 7, done), each ``n_probe`` with a plan of its own.  ``shard(mesh)``
-returns the list-sharded serving clone (``index/sharded.py``).
+jnp-engine options (``backend="jnp"`` on the card, any backend on the
+CPU; the fused engine raises the reference's ``ValueError``), served in
+the reference's jnp composition through the slab kernels: filtered
+candidates invalid (id -1) in the slab the slab crude kernel masks, the
+jnp bootstrap rule over its candidate list
+(``ThresholdStage.from_dense_slab_candidates``), then the slab refine
+or the survivor selection and re-rank (``CappedStage``).  Every search
+is the phase pair of ``ivf_phase_fns`` over ``ivf_phase_env``;
+``pipeline="tiles" | "auto"`` runs it through the pipelined executor
+(``index/pipelined.py``; queue 1 item 7, done), each ``n_probe`` with a
+plan of its own.  ``shard(mesh)`` returns the list-sharded serving clone
+(``index/sharded.py``).
 """
 from __future__ import annotations
 
@@ -54,11 +58,11 @@ from repro_torch.index.base import (SearchResult, as_generator, as_torch,
                                     resolve_backend, resolve_lut_dtype)
 from repro_torch.index.flat import (_check_fastscan_geometry, _check_filter,
                                     _check_refine_cap, _encode_new_rows,
-                                    _fast_count, _FlatBase, capped_refine)
+                                    _fast_count, _FlatBase)
 from repro_torch.index.pipelined import compose, maybe_pipelined
-from repro_torch.kernels.stages import (CrudeStage, RefineStage,
-                                        ThresholdStage, topk_two_key,
-                                        two_step_stages)
+from repro_torch.kernels.stages import (CappedStage, CrudeStage,
+                                        RefineStage, ThresholdStage,
+                                        topk_two_key)
 
 # centroid rows of the lists k-means cannot seed (n_lists > n): huge but
 # finite, so probe distances stay ordered, never NaN
@@ -198,44 +202,6 @@ def ivf_phase_env(codes, C, structure, ivf: IVFIndex, *, list_codes,
             "lists": ivf.lists, "list_codes": list_codes, "pred": pred}
 
 
-def _ivf_crude_phase(qs, env, *, topk: int, n_probe: int, quantized: bool,
-                     code_bits: int, out=None, before_launch=None):
-    """Probe, gather and the slab crude stage over one query block
-    (``out``, optional, receives the dense slab crude matrix;
-    ``before_launch``, optional, runs just before the kernel).  Returns
-    the carry the refine phase reads."""
-    crude_stage, _, _ = two_step_stages(topk=topk, quantized=quantized,
-                                        code_bits=code_bits)
-    luts = build_lut(qs, env["C"])                        # (nq, K, m)
-    probes = coarse_probe(qs, env["centroids"], n_probe)
-    cand_ids, cand_codes = gather_candidates(probes, env["lists"],
-                                             env["list_codes"], topk)
-    res = crude_stage.slab(cand_codes, cand_ids, luts, env["fast"], out=out,
-                           before_launch=before_launch)
-    return luts, res.crude, res.cand_vals, res.cand_idx, cand_codes, cand_ids
-
-
-def _ivf_refine_phase(carry, env, *, topk: int, quantized: bool,
-                      code_bits: int, before_launch=None):
-    """Threshold bootstrap and the slab refine stage (``before_launch``,
-    optional, runs just before its kernel).  Returns (ids (nq, topk),
-    dist (nq, topk), n_cand (nq,), n_pass (nq,))."""
-    luts, crude, cand_vals, cand_pos, cand_codes, cand_ids = carry
-    _, tstage, rstage = two_step_stages(topk=topk, quantized=quantized,
-                                        code_bits=code_bits)
-    valid = cand_ids >= 0
-    safe = torch.where(valid, cand_ids, torch.zeros_like(cand_ids))
-    thr = tstage.from_slab_candidates(luts, cand_codes, cand_vals, cand_pos,
-                                      env["fast"], env["sigma"])
-    ids, dist, passed = rstage.slab(cand_codes, luts, crude, thr,
-                                    env["fast"], safe,
-                                    before_launch=before_launch)
-    # counts are exact in any order
-    n_cand = valid.sum(dim=1).to(torch.float32)
-    n_pass = passed.sum(dim=1).to(torch.float32)
-    return ids, dist, n_cand, n_pass
-
-
 def _filtered_slab(qs, env, *, topk: int, n_probe: int, pred):
     """Probe and gather, with the filter folded into validity: returns
     (cand_ids with filtered columns -1, cand_codes, safe ids (0 at the
@@ -252,46 +218,60 @@ def _filtered_slab(qs, env, *, topk: int, n_probe: int, pred):
     return cand_ids, cand_codes, safe, valid
 
 
-def _ivf_dense_crude_phase(qs, env, *, topk: int, n_probe: int,
-                           quantized: bool, code_bits: int,
-                           has_filter: bool):
-    """The reference's jnp IVF crude phase, for the plain versions'
-    options: probe and gather with filtered candidates invalid (+inf
-    crude), and the dense slab crude.  Returns the carry (luts, crude,
-    cand_codes, safe, valid)."""
-    luts = build_lut(qs, env["C"])
+def _ivf_crude_phase(qs, env, *, topk: int, n_probe: int, quantized: bool,
+                     code_bits: int, has_filter: bool = False, out=None,
+                     before_launch=None):
+    """Probe, gather (filtered candidates invalid under ``has_filter``:
+    id -1, so +inf in the slab crude kernel) and the slab crude stage
+    over one query block (``out``, optional, receives the dense slab
+    crude matrix; ``before_launch``, optional, runs just before the
+    kernel).  Returns the carry (luts, crude, cand_vals, cand_pos,
+    cand_codes, safe, valid) the refine phase reads."""
+    luts = build_lut(qs, env["C"])                        # (nq, K, m)
     cand_ids, cand_codes, safe, valid = _filtered_slab(
         qs, env, topk=topk, n_probe=n_probe,
         pred=env["pred"] if has_filter else None)
-    crude = CrudeStage(topk=topk, quantized=quantized,
-                       code_bits=code_bits).slab(cand_codes, cand_ids, luts,
-                                                 env["fast"]).crude
-    return luts, crude, cand_codes, safe, valid
+    res = CrudeStage(topk=topk, quantized=quantized,
+                     code_bits=code_bits).slab(
+        cand_codes, cand_ids, luts, env["fast"], out=out,
+        before_launch=before_launch)
+    return (luts, res.crude, res.cand_vals, res.cand_idx, cand_codes, safe,
+            valid)
 
 
-def _ivf_dense_refine_phase(carry, env, *, topk: int, quantized: bool,
-                            code_bits: int, refine_cap: Optional[int],
-                            has_filter: bool):
-    """The reference's jnp IVF refine phase: the bootstrap from the dense
-    slab crude (``ThresholdStage.from_dense_slab``), then the slab refine
-    or, with ``refine_cap``, the survivor compaction (clamped into
-    [topk, nc])."""
-    luts, crude, cand_codes, safe, valid = carry
+def _ivf_refine_phase(carry, env, *, topk: int, quantized: bool,
+                      code_bits: int, refine_cap: Optional[int] = None,
+                      has_filter: bool = False, before_launch=None):
+    """The threshold bootstrap from the slab crude top-k (the fused
+    engine's rule, ``from_slab_candidates``; under the jnp engine's
+    options the reference's jnp rule, ``from_dense_slab_candidates``),
+    then the slab refine stage or, with ``refine_cap``, the survivor
+    selection and re-rank (``CappedStage``, the cap clamped into [topk,
+    nc]); ``before_launch``, optional, runs just before the first
+    kernel.  Returns (ids (nq, topk), dist (nq, topk), n_cand (nq,),
+    n_pass (nq,))."""
+    luts, crude, cand_vals, cand_pos, cand_codes, safe, valid = carry
     fast = env["fast"]
-    thr = ThresholdStage(topk=topk, quantized=quantized,
-                         code_bits=code_bits).from_dense_slab(
-        luts, cand_codes, crude, fast, env["sigma"])
+    tstage = ThresholdStage(topk=topk, quantized=quantized,
+                            code_bits=code_bits)
+    bootstrap = (tstage.from_dense_slab_candidates
+                 if has_filter or refine_cap is not None
+                 else tstage.from_slab_candidates)
+    thr = bootstrap(luts, cand_codes, cand_vals, cand_pos, fast,
+                    env["sigma"])
     passed = crude < thr[:, None]
     if refine_cap is None:
         ids, dist, _ = RefineStage(topk=topk, code_bits=code_bits).slab(
-            cand_codes, luts, crude, thr, fast, safe)
+            cand_codes, luts, crude, thr, fast, safe,
+            before_launch=before_launch)
     else:
         cap = min(max(refine_cap, topk), crude.shape[1])
-        pos, dist = capped_refine(luts, cand_codes, crude, thr, topk, cap,
-                                  code_bits=code_bits)
+        pos, dist = CappedStage(topk=topk, cap=cap, code_bits=code_bits)(
+            cand_codes, luts, crude, thr, before_launch=before_launch)
         ids = safe.gather(1, pos)
     if has_filter:
         ids = mask_filtered_ids(ids, dist)
+    # counts are exact in any order
     return (ids, dist, valid.sum(dim=1).to(torch.float32),
             passed.sum(dim=1).to(torch.float32))
 
@@ -324,22 +304,18 @@ def ivf_phase_fns(*, topk: int, n_probe: int, quantized: bool = False,
     ``(crude_fn, refine_fn)`` over ``(qs | carry, env)``, the pair both
     the sequential searches and the pipelined executor compose.
     ``crude_only`` is the single-phase crude rung (refine_fn None);
-    ``filter`` and ``refine_cap`` (plain versions only) take the
-    reference's dense jnp composition; otherwise the kernels', whose
+    ``filter`` and ``refine_cap`` (the jnp engine's options) take the
+    reference's jnp bootstrap rule, otherwise the fused engine's; the
     crude phase takes ``out=`` for its dense slab crude matrix and both
     phases a ``before_launch`` hook."""
-    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits)
+    opts = dict(topk=topk, quantized=quantized, code_bits=code_bits,
+                has_filter=has_filter)
     if crude_only:
         return functools.partial(_ivf_crude_only_phase, n_probe=n_probe,
-                                 has_filter=has_filter, **opts), None
-    if has_filter or refine_cap is not None:
-        return (functools.partial(_ivf_dense_crude_phase, n_probe=n_probe,
-                                  has_filter=has_filter, **opts),
-                functools.partial(_ivf_dense_refine_phase,
-                                  refine_cap=refine_cap,
-                                  has_filter=has_filter, **opts))
+                                 **opts), None
     return (functools.partial(_ivf_crude_phase, n_probe=n_probe, **opts),
-            functools.partial(_ivf_refine_phase, **opts))
+            functools.partial(_ivf_refine_phase, refine_cap=refine_cap,
+                              **opts))
 
 
 def ivf_ops_result(ids, dist, n_cand, n_pass, *, n: int, n_lists: int, K,
@@ -397,7 +373,8 @@ def ivf_two_step_search(queries, codes, C, structure, ivf: IVFIndex,
     tables ("f32" | "int8"; the refine pass is always f32);
     ``code_bits=4`` serves nibble-packed codes.  ``refine_cap`` and
     ``filter`` (an (n,) bool row predicate; absent slots are id -1 at
-    distance +inf) are served by the plain versions only."""
+    distance +inf) are the jnp engine's options, refused by the fused
+    engine."""
     return _ivf_search(queries, codes, C, structure, ivf, topk, n_probe,
                        list_codes=list_codes, backend=backend,
                        query_chunk=query_chunk, lut_dtype=lut_dtype,
@@ -415,7 +392,7 @@ def ivf_crude_search(queries, codes, C, structure, ivf: IVFIndex,
     crude-only ranking of the candidate slab, equal bit for bit to the
     crude top-k the full path bootstraps from.  ``avg_ops`` drops the
     pass-rate term (nothing refined).  ``filter`` as in
-    ``ivf_two_step_search`` (plain versions only)."""
+    ``ivf_two_step_search``."""
     return _ivf_search(queries, codes, C, structure, ivf, topk, n_probe,
                        list_codes=list_codes, backend=backend,
                        query_chunk=query_chunk, lut_dtype=lut_dtype,

@@ -94,14 +94,15 @@ def resolve_pipeline(value: str) -> str:
 
 def resolve_tile(pipeline_tile: Optional[int], backend: str) -> int:
     """The query-tile size: an explicit ``pipeline_tile`` wins; otherwise
-    64 on the kernels ("cuda") and 16 on the plain versions."""
+    64 on the kernels (a resolved backend of the card) and 16 on the
+    plain versions ("torch")."""
     if pipeline_tile is not None:
         tile = int(pipeline_tile)
         if tile < 1:
             raise ValueError(f"pipeline_tile must be a positive int, "
                              f"got {pipeline_tile!r}")
         return tile
-    return _DEFAULT_TILE_CUDA if backend == "cuda" else _DEFAULT_TILE_PLAIN
+    return _DEFAULT_TILE_PLAIN if backend == "torch" else _DEFAULT_TILE_CUDA
 
 
 def compose(crude_fn, refine_fn, env):
@@ -125,7 +126,7 @@ class PipelinedSearch:
     state it reads, the tile size, the finalizer that folds the
     concatenated per-query outputs into a ``SearchResult``, and the
     columns of the dense crude carry (n, or the slab's nc).  ``pred``
-    (the optional filter predicate, plain versions only) is the one
+    (the optional filter predicate, a jnp-engine option) is the one
     per-call operand besides the queries."""
     crude_fn: Callable
     refine_fn: Optional[Callable]

@@ -30,11 +30,17 @@ program; the port holds itself to more).
 
 ``lut_dtype`` and ``code_bits`` follow the source index: int8 crude
 tables are calibrated per query from the replicated LUT, so every shard
-quantizes with the same affine.  ``filter`` and ``refine_cap`` behave
-as on the unsharded index: the plain versions serve them on the CPU
-through the reference's dense composition, and on the card they raise
-its ``ValueError``.  Sharded clones always serve ``pipeline="off"``: a
-pipelined source yields a working non-pipelined clone.
+quantizes with the same affine.  ``filter`` is served under every
+backend, as the reference's sharded bodies (jnp-only) serve it: row
+shards hand their slice of the predicate to the crude kernel, list
+shards fold the whole predicate into their slab's ids (global ids), and
+the threshold bootstrap follows the reference's jnp rule.
+``refine_cap`` behaves as on the unsharded index (the jnp engine's
+option, refused by the fused engine): each shard's survivor selection
+and the re-rank of its survivors through the kernels, the merged cap
+best-crude survivors re-ranked by full distance.  Sharded clones always
+serve ``pipeline="off"``: a pipelined source yields a working
+non-pipelined clone.
 
 Layouts:
   ShardedFlatADC / ShardedTwoStep   rows sharded: shard s owns global
@@ -65,18 +71,30 @@ import torch
 
 from repro_torch.distributed.sharding import NamedSharding, shard_rows
 from repro_torch.index import base
-from repro_torch.index.base import (SearchResult, build_lut,
+from repro_torch.index.base import (SearchResult, as_filter, build_lut,
                                     chunked_over_queries, mask_filtered_ids,
                                     resolve_backend, resolve_code_bits,
                                     resolve_lut_dtype)
-from repro_torch.index.flat import (_check_filter, _check_refine_cap,
-                                    _fast_count, _masked_crude, adc_result,
-                                    two_step_result)
+from repro_torch.index.flat import (_check_refine_cap, _fast_count,
+                                    adc_result, two_step_result)
 from repro_torch.index.ivf import (check_n_probe, coarse_probe,
                                    ivf_list_codes, ivf_ops_result)
 from repro_torch.kernels import ops
-from repro_torch.kernels.stages import (crude_lut_operands, slow_lut_operand,
+from repro_torch.kernels.stages import (crude_lut_operands,
+                                        full_lut_operand, slow_lut_operand,
                                         topk_two_key, widen_codes)
+
+
+def _survivor_full(codes_rows, luts, s_vals, code_bits: int):
+    """Full-table distances of a shard's selected survivors (nq, w), in
+    survivor order, through the re-rank kernel over all w of them (its
+    sorted output scattered back): +inf at the slots past the
+    survivors."""
+    d, pos = ops.rerank_topk(codes_rows.contiguous(),
+                             full_lut_operand(luts, code_bits=code_bits),
+                             torch.isfinite(s_vals), s_vals.shape[1],
+                             code_bits=code_bits)
+    return torch.empty_like(d).scatter_(1, pos.long(), d)
 
 _INF = float("inf")
 # the key of a slab column a shard does not own: after every real one
@@ -150,9 +168,8 @@ class _Sharded:
         self.lut_dtype = resolve_lut_dtype(source.lut_dtype)
         self.code_bits = resolve_code_bits(source.code_bits)
         self.refine_cap = getattr(source, "refine_cap", None)
-        # the plain versions never serve on a CUDA device: every shard's
-        # device resolves the backend (a "jnp" index on a CUDA mesh
-        # raises here)
+        # every shard's device resolves the backend (an unknown backend or
+        # device raises here)
         for d in set(self.devices):
             resolve_backend(self.backend, d)
         self._be = resolve_backend(self.backend, self.lead)
@@ -230,9 +247,13 @@ class _RowSharded(_Sharded):
                 if s not in self.dead_shards and b > a]
 
     def _preds(self, filter):
-        pred = _check_filter(filter, self.n, self._be, self.lead)
-        return None if pred is None else \
-            NamedSharding(self.mesh, ("data",)).put(pred)
+        """The filter's row slices, one a shard on its device (served
+        under every backend, as the reference's sharded bodies serve
+        it), or None."""
+        if filter is None:
+            return None
+        pred = as_filter(filter, self.n, self.lead)
+        return NamedSharding(self.mesh, ("data",)).put(pred)
 
 
 class ShardedFlatADC(_RowSharded):
@@ -248,11 +269,10 @@ class ShardedFlatADC(_RowSharded):
         for s, a, rows, dev in self._serving():
             lf, sc, of = rep[dev]
             kl = min(k, rows)
-            crude, v, i = ops.batched_crude_topk(
-                self.codes[s], lf, kl, want_crude=preds is not None,
-                lut_scale=sc, lut_offset=of, code_bits=self.code_bits)
-            if preds is not None:
-                v, i = topk_two_key(_masked_crude(crude, preds[s]), kl)
+            _, v, i = ops.batched_crude_topk(
+                self.codes[s], lf, kl, want_crude=False, lut_scale=sc,
+                lut_offset=of, code_bits=self.code_bits,
+                pred=None if preds is None else preds[s])
             cols.append((_sanitize(v).to(self.lead),
                          (i.long() + a).to(self.lead)))
         dist, gid = _gather_sorted(cols, k)
@@ -266,8 +286,8 @@ class ShardedFlatADC(_RowSharded):
     def search(self, queries, topk: Optional[int] = None, *,
                filter=None) -> SearchResult:
         """queries (nq, d) f32 -> SearchResult, equal bit for bit to the
-        unsharded index's.  ``filter``: optional (n,) bool row predicate
-        (plain versions only)."""
+        unsharded index's.  ``filter``: optional (n,) bool row
+        predicate, served under every backend."""
         k = self.topk if topk is None else topk
         preds = self._preds(filter)
         out = chunked_over_queries(lambda qs: self._block(qs, k, preds),
@@ -289,8 +309,9 @@ class ShardedTwoStep(_RowSharded):
     def _block(self, qs, k: int, preds):
         K, cb = self.C.shape[0], self.code_bits
         quant = self.lut_dtype == "int8"
-        # filter and refine_cap take the reference's dense composition
-        # (the plain versions): bootstrap from the dense crude matrix
+        # filter and refine_cap take the reference's jnp composition: its
+        # bootstrap rule (one full-table sum in f32, every slot of the
+        # crude top-k in the argmax)
         dense = preds is not None or self.refine_cap is not None
         luts = build_lut(qs, self.C)
         rep = self._per_device(
@@ -308,10 +329,7 @@ class ShardedTwoStep(_RowSharded):
             kl = min(k, rows)
             crude, v, i = ops.batched_crude_topk(
                 self.codes[s], lf, kl, lut_scale=sc, lut_offset=of,
-                code_bits=cb)
-            if dense:
-                crude = _masked_crude(crude, None if preds is None else preds[s])
-                v, i = topk_two_key(crude, kl)
+                code_bits=cb, pred=None if preds is None else preds[s])
             cand = widen_codes(self.codes[s][i.long()], K, cb)
             full = (base.lut_sum(lu, cand) if dense and not quant
                     else v + base.lut_sum(lu, cand, ~fm))
@@ -339,11 +357,8 @@ class ShardedTwoStep(_RowSharded):
                 cols.append((_sanitize(d).to(self.lead),
                              (i.long() + a).to(self.lead)))
             else:
-                v, i = topk_two_key(torch.where(
-                    passed, crude, torch.full_like(crude, _INF)),
-                    min(cap, rows))
-                full = base.lut_sum(lu, widen_codes(
-                    self.codes[s][i.long()], K, cb))
+                v, i = ops.select_topk(crude, t, min(cap, rows))
+                full = _survivor_full(self.codes[s][i.long()], lu, v, cb)
                 cols.append((v.to(self.lead), (i.long() + a).to(self.lead),
                              full.to(self.lead)))
         if cap is None:
@@ -366,8 +381,8 @@ class ShardedTwoStep(_RowSharded):
                filter=None) -> SearchResult:
         """queries (nq, d) f32 -> SearchResult; ids, distances, pass_rate
         and avg_ops equal bit for bit to the unsharded index's.
-        ``filter``: optional (n,) bool row predicate (plain versions
-        only); absent slots are id -1 at distance +inf."""
+        ``filter``: optional (n,) bool row predicate, served under every
+        backend; absent slots are id -1 at distance +inf."""
         k = self.topk if topk is None else topk
         preds = self._preds(filter)
         _check_refine_cap(self.refine_cap, self._be)
@@ -490,8 +505,6 @@ class ShardedIVFTwoStep(_Sharded):
             crude, v, pos = ops.ivf_crude_topk(
                 codes, ids, lf, kl, lut_scale=sc, lut_offset=of,
                 code_bits=cb)
-            if dense:
-                v, pos = topk_two_key(crude, kl)
             ok = torch.isfinite(v)
             cand = widen_codes(_gather_rows(
                 codes, torch.where(ok, pos, torch.zeros_like(pos))), K, cb)
@@ -542,11 +555,9 @@ class ShardedIVFTwoStep(_Sharded):
                              key.gather(1, pos).to(self.lead),
                              safe.gather(1, pos).to(self.lead)))
             else:
-                v, pos = topk_two_key(torch.where(
-                    passed, crude, torch.full_like(crude, _INF)), width)
+                v, pos = ops.select_topk(crude, t, width)
                 pos = pos.long()
-                full = base.lut_sum(lu, widen_codes(
-                    _gather_rows(codes, pos), K, cb))
+                full = _survivor_full(_gather_rows(codes, pos), lu, v, cb)
                 cols.append((v.to(self.lead),
                              key.gather(1, pos).to(self.lead),
                              full.to(self.lead),
@@ -567,11 +578,12 @@ class ShardedIVFTwoStep(_Sharded):
                filter=None) -> SearchResult:
         """queries (nq, d) f32 -> SearchResult with the IVF Average-Ops
         accounting; ids, distances and counts equal bit for bit to the
-        unsharded index's.  ``filter``: optional (n,) bool row predicate
-        (plain versions only; list-sharded ids are global, so every
-        shard reads the whole predicate)."""
+        unsharded index's.  ``filter``: optional (n,) bool row predicate,
+        served under every backend (list-sharded ids are global, so
+        every shard reads the whole predicate)."""
         k = self.topk if topk is None else topk
-        pred = _check_filter(filter, self.n, self._be, self.lead)
+        pred = None if filter is None else as_filter(filter, self.n,
+                                                     self.lead)
         _check_refine_cap(self.refine_cap, self._be)
         check_n_probe(self.source.ivf, self.n_probe)
         out = chunked_over_queries(

@@ -18,6 +18,23 @@ beside its plain PyTorch version.
                    +inf, and the top-k of slab positions.
   ivf_refine_topk  IVF phase 2 over the slab: the flat refine's
                    arithmetic, top-k of slab positions.
+  select_topk      the ``refine_cap`` survivor selection (flat or slab
+                   crude alike): per query the ``cap`` best-crude rows
+                   that pass ``crude < thr``, pruned rows ranking +inf
+                   after them (the refine kernel's SELECT instance).
+  rerank_topk      their re-rank by one full-table f32 sum: the slab
+                   refine kernel over the survivors' gathered code rows
+                   with every codebook as its table, a zero crude
+                   operand at the valid survivors (+inf at the others)
+                   and a +inf threshold, so a survivor's distance is
+                   ``0.0 + sum`` in codebook order.
+
+``crude_topk`` takes an optional ``pred`` (an (n,) bool filter, the
+jnp engine's ``filter=``): a filtered row is +inf in the dense crude
+matrix and in the ranking, never summed, so the candidate list is the
+two-key top-k of the masked crude matrix, its +inf slots the lowest
+filtered rows (the kernel's row-predicate instance, counted as
+``crude_topk_pred``).
 
 Every top-k is in ascending (distance, column) order, the reference's
 two-key order, where the column is the global index (flat) or the slab
@@ -98,14 +115,21 @@ def _check_out(out, want_crude: bool):
            "out= holds the dense crude matrix; it needs want_crude=True")
 
 
+def _masked(crude: torch.Tensor, pred) -> torch.Tensor:
+    """Rows a filter ``pred`` (n,) excludes are +inf."""
+    return crude if pred is None else torch.where(
+        pred[None, :], crude, torch.full_like(crude, float("inf")))
+
+
 def crude_topk_torch(codes, lut_flat, topk: int, lut_scale=None,
                      lut_offset=None, *, want_crude: bool = True,
-                     code_bits: int = 8, out=None):
+                     code_bits: int = 8, out=None, pred=None):
     """Plain version of the crude kernel.  codes (n, Kc) uint8 (or
     wider for m > 256), lut_flat (nq, K*m) f32 or int8 with
     ``lut_scale``/``lut_offset`` (nq,) f32 -> (crude (nq, n) f32 | None,
     vals (nq, topk) f32, idx (nq, topk) int32).  ``out`` (nq, n) f32
-    receives the crude matrix."""
+    receives the crude matrix; ``pred`` (n,) bool, optional, makes the
+    rows it excludes +inf."""
     _check_out(out, want_crude)
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
     K, m = resolve_kernel_code_bits(code_bits, codes.shape[1],
@@ -117,6 +141,7 @@ def crude_topk_torch(codes, lut_flat, topk: int, lut_scale=None,
                  + lut_offset[:, None])
     else:
         crude = _flat_lut_sum(cols, lut_flat, K, m, torch.float32)
+    crude = _masked(crude, pred)
     vals, idx = topk_two_key(crude, topk)
     return (_into(out, crude) if want_crude else None), vals, idx
 
@@ -178,6 +203,38 @@ def ivf_refine_topk_torch(cand_codes, lut_flat, crude, thresholds,
     ranked = torch.where(passed, crude + slow,
                          torch.full_like(crude, float("inf")))
     return topk_two_key(ranked, topk)
+
+
+def select_topk_torch(crude, thresholds, cap: int):
+    """Plain version of the survivor selection.  crude (nq, n) f32,
+    thresholds (nq,) f32 -> (vals (nq, cap) f32: the crude values of the
+    survivors, +inf past them; idx (nq, cap) int32 columns)."""
+    passed = crude < thresholds[:, None]
+    return topk_two_key(torch.where(passed, crude,
+                                    torch.full_like(crude, float("inf"))),
+                        cap)
+
+
+def _rerank_operands(valid: torch.Tensor):
+    """The slab refine's crude operand and thresholds for a re-rank:
+    0.0 at the valid survivors, +inf at the others (which the margin
+    test then prunes), and +inf thresholds (every valid survivor
+    passes)."""
+    crude = torch.where(valid, torch.zeros((), device=valid.device),
+                        torch.full((), float("inf"), device=valid.device))
+    thr = torch.full((valid.shape[0],), float("inf"), device=valid.device)
+    return crude.to(torch.float32).contiguous(), thr
+
+
+def rerank_topk_torch(cand_codes, lut_flat, valid, topk: int, *,
+                      code_bits: int = 8):
+    """Plain version of the re-rank.  cand_codes (nq, c, Kc) the
+    survivors' stored rows, lut_flat (nq, K*m) f32 full tables, valid
+    (nq, c) bool -> (dist (nq, topk) f32, pos (nq, topk) int32 survivor
+    positions; +inf after the valid survivors)."""
+    crude, thr = _rerank_operands(valid)
+    return ivf_refine_topk_torch(cand_codes, lut_flat, crude, thr, topk,
+                                 code_bits=code_bits)
 
 
 # -------------------------------------------------------- CUDA kernels ----
@@ -291,8 +348,9 @@ def _plan(lib, name: str, *args) -> int:
 
 def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
                     lut_offset=None, *, want_crude: bool = True,
-                    code_bits: int = 8, out=None):
-    """Launch the crude kernel; same operands and outputs as
+                    code_bits: int = 8, out=None, pred=None):
+    """Launch the crude kernel (its row-predicate instance when
+    ``pred`` is given); same operands and outputs as
     ``crude_topk_torch`` (the kernel writes every entry of ``out``)."""
     _check_out(out, want_crude)
     quantized = check_quantized_args(lut_flat, lut_scale, lut_offset)
@@ -309,19 +367,23 @@ def crude_topk_cuda(codes, lut_flat, topk: int, lut_scale=None,
         _check_operand(lut_offset, "lut_offset", (nq,), torch.float32, dev)
     if out is not None:
         _check_operand(out, "out", (nq, n), torch.float32, dev)
+    if pred is not None:
+        _check_operand(pred, "pred", (n,), torch.bool, dev)
+        pred = pred.view(torch.uint8)       # one byte a row, 0 filtered
     lib, stream = _launch_env(dev)
     grid = _plan(lib, "icq_crude_plan", n, Kc, nq, Km, int(quantized),
-                 int(code_bits == 4), code_bytes, topk)
+                 int(code_bits == 4), code_bytes, topk, int(pred is not None))
     crude = out
     if crude is None and want_crude:
         crude = torch.empty((nq, n), dtype=torch.float32, device=dev)
     cand_v, cand_i = _lists(nq, grid * topk, dev)
     _raise_on(lib.icq_crude_topk(
-        _ptr(codes), _ptr(lut_flat), _ptr(lut_scale), _ptr(lut_offset),
-        _ptr(crude), _ptr(cand_v), _ptr(cand_i), n, Kc, nq, Km, m,
-        int(quantized), int(code_bits == 4), code_bytes, topk, grid, stream),
+        _ptr(codes), _ptr(pred), _ptr(lut_flat), _ptr(lut_scale),
+        _ptr(lut_offset), _ptr(crude), _ptr(cand_v), _ptr(cand_i), n, Kc, nq,
+        Km, m, int(quantized), int(code_bits == 4), code_bytes, topk, grid,
+        stream),
         lib, "crude_topk")
-    build.LAUNCHES["crude_topk"] += 1
+    build.LAUNCHES["crude_topk" if pred is None else "crude_topk_pred"] += 1
     vals, idx = _merge_lists(cand_v, cand_i, topk, topk, stream)
     return crude, vals, idx
 
@@ -394,6 +456,28 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
                          topk: int, *, code_bits: int = 8):
     """Launch the slab refine kernel; same operands and outputs as
     ``ivf_refine_topk_torch``."""
+    out = _ivf_refine_launch(cand_codes, lut_flat, crude, thresholds, topk,
+                             code_bits)
+    build.LAUNCHES["ivf_refine_topk"] += 1
+    return out
+
+
+def rerank_topk_cuda(cand_codes, lut_flat, valid, topk: int, *,
+                     code_bits: int = 8):
+    """Launch the slab refine kernel as the re-rank; same operands and
+    outputs as ``rerank_topk_torch``."""
+    _check(valid.device == cand_codes.device
+           and tuple(valid.shape) == tuple(cand_codes.shape[:2]),
+           "valid must be an (nq, c) mask beside cand_codes")
+    crude, thr = _rerank_operands(valid)
+    out = _ivf_refine_launch(cand_codes, lut_flat, crude, thr, topk,
+                             code_bits)
+    build.LAUNCHES["rerank_topk"] += 1
+    return out
+
+
+def _ivf_refine_launch(cand_codes, lut_flat, crude, thresholds, topk: int,
+                       code_bits: int):
     code_bytes = _check_codes(cand_codes, 3, code_bits)
     nq, nc, Kc = cand_codes.shape
     _check_slab_topk(nc, topk)
@@ -412,5 +496,24 @@ def ivf_refine_topk_cuda(cand_codes, lut_flat, crude, thresholds,
         _ptr(cand_v), _ptr(cand_i), nq, nc, Kc, Km, m,
         int(code_bits == 4), code_bytes, topk, grid, stream),
         lib, "ivf_refine_topk")
-    build.LAUNCHES["ivf_refine_topk"] += 1
     return _merge_lists(cand_v, cand_i, topk, topk, stream)
+
+
+def select_topk_cuda(crude, thresholds, cap: int):
+    """Launch the survivor selection (the refine kernel's SELECT
+    instance); same operands and outputs as ``select_topk_torch``."""
+    _check(crude.is_cuda and crude.ndim == 2,
+           "crude must be an (nq, n) tensor on the CUDA device")
+    nq, n = crude.shape
+    _check_flat_topk(n, cap)
+    dev = crude.device
+    _check_operand(crude, "crude", (nq, n), torch.float32, dev)
+    _check_operand(thresholds, "thresholds", (nq,), torch.float32, dev)
+    lib, stream = _launch_env(dev)
+    grid = _plan(lib, "icq_select_plan", n, nq, cap)
+    cand_v, cand_i = _lists(nq, grid * cap, dev)
+    _raise_on(lib.icq_select_topk(
+        _ptr(crude), _ptr(thresholds), _ptr(cand_v), _ptr(cand_i), n, nq,
+        cap, grid, stream), lib, "select_topk")
+    build.LAUNCHES["select_topk"] += 1
+    return _merge_lists(cand_v, cand_i, cap, cap, stream)

@@ -35,6 +35,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {
     "crude_topk": 0, "refine_topk": 0,
     "ivf_crude_topk": 0, "ivf_refine_topk": 0,
+    "crude_topk_pred": 0, "select_topk": 0, "rerank_topk": 0,
     "kmeans_assign": 0, "icm_encode": 0,
     "adc": 0, "two_step": 0, "flash_attention": 0,
     "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
@@ -51,10 +52,12 @@ _COMMON = {   # search_common.cuh, compiled into every library
 SIGNATURES = {
     "batched_search": {
         **_COMMON,
-        "icq_crude_topk": ([_P] * 7 + [_I] * 10 + [_P], _I),
+        "icq_crude_topk": ([_P] * 8 + [_I] * 10 + [_P], _I),
         "icq_refine_topk": ([_P] * 6 + [_I] * 9 + [_P], _I),
-        "icq_crude_plan": ([_I] * 8 + [_P], _I),
+        "icq_crude_plan": ([_I] * 9 + [_P], _I),
         "icq_refine_plan": ([_I] * 7 + [_P], _I),
+        "icq_select_topk": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "icq_select_plan": ([_I] * 3 + [_P], _I),
         "icq_merge_lists": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "icq_merge_block": ([_P] * 4 + [_I] * 4 + [_P], _I),
         "icq_merge_block_fits": ([_I] * 3, _I),

@@ -5,8 +5,14 @@
 // (these two and the IVF slab pair of ivf_search.cu) end with.
 //
 // Replaces the TPU kernels of src/repro/kernels/batched_search.py:
-//   icq_crude_topk   <- crude_topk_pallas  (_crude_topk_kernel)
+//   icq_crude_topk   <- crude_topk_pallas  (_crude_topk_kernel); with a
+//                       row predicate, the jnp engine's filtered crude
+//                       (src/repro/kernels/stages.py CrudeStage, pred=)
 //   icq_refine_topk  <- refine_topk_pallas (_refine_topk_kernel)
+//   icq_select_topk  <- the jnp engine's refine_cap survivor selection
+//                       (src/repro/index/flat.py _flat_refine_phase,
+//                       src/repro/index/ivf.py; XLA on the TPU): an
+//                       instance of the refine pass
 //
 // What bounds them on this card: memory bytes.  At the serving shape
 // (64 queries x 1M points, K = 8, m = 256) the crude pass must write the
@@ -75,6 +81,20 @@
 //     The order is total (distance, then index), so the result equals
 //     one global sort: lowest index first among ties, and the +inf tail
 //     carries the lowest pruned indices.
+//   * filter= (the jnp engine's row predicate): the crude kernel's
+//     kRowPred instance reads the (n,) filter as one byte a row, once
+//     per chunk for the whole query tile, and scores a filtered row +inf
+//     without summing it; +inf rows enter a list only while it holds
+//     pads, lowest index first, so the candidate list is the two-key top-k
+//     of the masked crude row, its +inf slots the lowest filtered rows,
+//     which the jnp engine's threshold bootstrap reads.
+//   * refine_cap: the refine kernel's SELECT instance keeps per query the
+//     cap best-crude survivors of the margin test (no code rows, no slow
+//     sum: it reads the crude matrix and writes lists of cap pairs, with
+//     the refine pass's tiling and merge); their re-rank by one full-table
+//     f32 sum is the IVF refine kernel over the survivors' gathered code
+//     rows, every codebook as its "slow" table and a zero crude operand
+//     (kernels/stages.py CappedStage).
 //   * Sum order and rounding match the plain PyTorch version bit for
 //     bit: the K entries are added in codebook order starting from 0.0,
 //     and every add and multiply is an explicit __fadd_rn / __fmul_rn so
@@ -188,12 +208,17 @@ long merge_block_pairs(int L, int w, int topk) {
 
 extern "C" {
 
-// The crude pass's block count along the points (scan_plan).  Returns
+// The crude pass's block count along the points (scan_plan), of the
+// instance with a row predicate (pred 1) or without (0).  Returns
 // cudaErrorInvalidValue for another shape.
 int icq_crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
-                   int code_bytes, int topk, int* out) {
-  return crude_plan<kMaxQueryTile, false>(n, Kc, nq, Km, quant, nibble,
-                                          code_bytes, topk, out);
+                   int code_bytes, int topk, int pred, int* out) {
+  return pred ? crude_plan<kMaxQueryTile, kRowPred>(n, Kc, nq, Km, quant,
+                                                    nibble, code_bytes, topk,
+                                                    out)
+              : crude_plan<kMaxQueryTile, kNoMask>(n, Kc, nq, Km, quant,
+                                                   nibble, code_bytes, topk,
+                                                   out);
 }
 
 // The refine pass's block count along the points (scan_plan).
@@ -204,15 +229,20 @@ int icq_refine_plan(int n, int Kc, int nq, int Km, int nibble,
 }
 
 // Phase 1.  codes (n, Kc) of code_bytes a code: uint8 (1) or int32 (4,
-// no nibbles); lut (nq, Km) f32, or int8 with scale / offset (nq,) f32;
+// no nibbles); pred (n,) uint8 (0 = filtered: +inf) or null (no
+// filter); lut (nq, Km) f32, or int8 with scale / offset (nq,) f32;
 // crude (nq, n) f32 or null; out_v / out_i (nq, grid, topk), grid from
-// icq_crude_plan.  Returns cudaGetLastError().
-int icq_crude_topk(const void* codes, const void* lut, const void* scale,
-                   const void* offset, void* crude, void* out_v,
-                   void* out_i, int n, int Kc, int nq, int Km, int m,
-                   int quant, int nibble, int code_bytes, int topk,
+// icq_crude_plan with pred set alike.  Returns cudaGetLastError().
+int icq_crude_topk(const void* codes, const void* pred, const void* lut,
+                   const void* scale, const void* offset, void* crude,
+                   void* out_v, void* out_i, int n, int Kc, int nq, int Km,
+                   int m, int quant, int nibble, int code_bytes, int topk,
                    int grid_x, void* stream) {
-  return crude_launch<kMaxQueryTile, false>(
+  if (pred != nullptr)
+    return crude_launch<kMaxQueryTile, kRowPred>(
+        codes, 0, pred, lut, scale, offset, crude, out_v, out_i, n, Kc, nq,
+        Km, m, quant, nibble, code_bytes, topk, grid_x, stream);
+  return crude_launch<kMaxQueryTile, kNoMask>(
       codes, 0, nullptr, lut, scale, offset, crude, out_v, out_i, n, Kc, nq,
       Km, m, quant, nibble, code_bytes, topk, grid_x, stream);
 }
@@ -227,6 +257,22 @@ int icq_refine_topk(const void* codes, const void* lut, const void* crude,
   return refine_launch<kRefineQueryTile>(codes, 0, lut, crude, thr, out_v,
                                          out_i, n, Kc, nq, Km, m, nibble,
                                          code_bytes, topk, grid_x, stream);
+}
+
+// The survivor selection's block count along the points (scan_plan).
+int icq_select_plan(int n, int nq, int cap, int* out) {
+  return select_plan<kRefineQueryTile>(n, nq, cap, out);
+}
+
+// The refine_cap selection: crude (nq, n) f32 (a flat crude matrix or a
+// slab's), thr (nq,) f32; out_v / out_i (nq, grid, cap): per query the
+// cap best-crude rows with crude < thr, pruned rows (+inf, index) after
+// them; grid from icq_select_plan.
+int icq_select_topk(const void* crude, const void* thr, void* out_v,
+                    void* out_i, int n, int nq, int cap, int grid_x,
+                    void* stream) {
+  return select_launch<kRefineQueryTile>(crude, thr, out_v, out_i, n, nq,
+                                         cap, grid_x, stream);
 }
 
 // One merge level: in (nq, L, w) sorted lists -> out (nq, ceil(L / 2),

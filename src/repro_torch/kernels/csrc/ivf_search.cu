@@ -25,10 +25,11 @@
 //     time with 16-byte loads and sums the K gathered entries per row.
 //     The TPU kernel's one-hot x LUT batched matvec exists for the MXU
 //     and does not carry over.
-//   * Crude (crude_scan_kernel, MASKED by the id slab): invalid columns
-//     (id < 0) are +inf in the dense crude output, so the refine pass
-//     inherits the mask through crude < thr, and rank as (+inf,
-//     position).  A block walks its chunks of the slab in ascending
+//   * Crude (crude_scan_kernel, masked by the id slab, kSlabIds): invalid
+//     columns (id < 0: the slab's pads and, under a filter, the filtered
+//     candidates, which the caller sets to -1) are +inf in the dense
+//     crude output, so the refine pass inherits the mask through crude
+//     < thr, and rank as (+inf, position).  A block walks its chunks of the slab in ascending
 //     order and keeps a running top-k (list_round<false>): its first
 //     chunk fills the list (one sort), later chunks admit only the few
 //     rows below the bar and merge them by rank; +inf columns enter only
@@ -66,8 +67,8 @@ extern "C" {
 // a shape that no tiling serves.
 int icq_ivf_crude_plan(int nq, int nc, int Kc, int Km, int quant,
                        int nibble, int code_bytes, int topk, int* out) {
-  return crude_plan<1, true>(nc, Kc, nq, Km, quant, nibble, code_bytes, topk,
-                             out);
+  return crude_plan<1, kSlabIds>(nc, Kc, nq, Km, quant, nibble, code_bytes,
+                                 topk, out);
 }
 
 // Phase 1.  codes (nq, nc, Kc) uint8 or int32 (code_bytes 1 or 4); ids
@@ -79,9 +80,10 @@ int icq_ivf_crude_topk(const void* codes, const void* ids, const void* lut,
                        void* out_v, void* out_i, int nq, int nc, int Kc,
                        int Km, int m, int quant, int nibble,
                        int code_bytes, int topk, int grid_x, void* stream) {
-  return crude_launch<1, true>(codes, long(nc) * Kc, ids, lut, scale, offset,
-                               crude, out_v, out_i, nc, Kc, nq, Km, m, quant,
-                               nibble, code_bytes, topk, grid_x, stream);
+  return crude_launch<1, kSlabIds>(codes, long(nc) * Kc, ids, lut, scale,
+                                   offset, crude, out_v, out_i, nc, Kc, nq,
+                                   Km, m, quant, nibble, code_bytes, topk,
+                                   grid_x, stream);
 }
 
 // The slab refine's blocks per query, as icq_ivf_crude_plan.

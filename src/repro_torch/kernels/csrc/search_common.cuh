@@ -726,10 +726,15 @@ struct BlockLists {
 // the n rows' chunks, y: query tiles of qt).  codes (n, Kc) of CodeT
 // (uint8, or int32 for codes wider than a byte) shared by the tile or
 // each query's own slab (codes_q_stride, above); crude (nq, n), or null:
-// no dense matrix is written.  MASKED: ids (nq, n), and a row whose id
-// is < 0 (the IVF slab's pads) is +inf, in the dense crude row and in
-// the ranking.  out_v / out_i (nq, gridDim.x, topk): block x's list of
-// query q is row (q * gridDim.x + x).
+// no dense matrix is written.  MASK (kNoMask, kSlabIds, kRowPred) names
+// the rows that are +inf, in the dense crude row and in the ranking,
+// never summed (under int8 never offset + scale * acc either): with
+// kSlabIds, mask is the (nq, n) int32 id slab and a row whose id is < 0
+// (the IVF slab's pads, its filtered candidates) is +inf; with
+// kRowPred, mask is a flat filter's (n,) uint8 predicate, shared by
+// every query of the tile, and a row whose byte is 0 is +inf.  out_v /
+// out_i (nq, gridDim.x, topk): block x's list of query q is row (q *
+// gridDim.x + x).
 //
 // A running list per query, its candidates merged at the end of each
 // round (list_round<false>, one buffer for the tile): the block's first
@@ -737,17 +742,21 @@ struct BlockLists {
 // later round is a ballot, a barrier and a merge by rank of the few rows
 // below the bar.  +inf rows enter only while the list holds pads, lowest
 // position first, so a slab row with fewer valid rows than topk ends in
-// its lowest invalid positions.  Each chunk's code rows are loaded
+// its lowest invalid positions, and a filtered flat row in its lowest
+// filtered rows (the order of one two-key sort of the masked crude
+// row).  Each chunk's code rows are loaded
 // between two barriers (double-buffering them with cp.async gained 1-4%
 // on the slab pass on the H100, which the IVF tile's host time hides).
 // The launch bound asks for two blocks an SM, which the shared memory
 // allows anyway: without it ptxas settles for 48 registers and spills
 // in the int8 variant.  The int32-row instances compile on their own,
 // so the uint8 ones keep their registers.
-template <typename CodeT, bool QUANT, bool NIBBLE, bool MASKED>
+constexpr int kNoMask = 0, kSlabIds = 1, kRowPred = 2;
+
+template <typename CodeT, bool QUANT, bool NIBBLE, int MASK>
 __global__ void __launch_bounds__(kThreads, 2)
 crude_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
-                  const int* __restrict__ ids,
+                  const void* __restrict__ mask,
                   const void* __restrict__ lut_g,
                   const float* __restrict__ scale_g,
                   const float* __restrict__ offset_g,
@@ -783,6 +792,15 @@ crude_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
     __syncthreads();  // the previous chunk's readers are done
     load_codes(reinterpret_cast<CodeT*>(s.stage), codes, base, n, Kc);
     __syncthreads();
+    // a flat filter's bytes of the thread's points, read once for the
+    // tile's queries
+    bool keep[kPerThread];
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const long gi = base + threadIdx.x + r * kThreads;
+      keep[r] = MASK != kRowPred ||
+                (gi < n && static_cast<const uint8_t*>(mask)[gi] != 0);
+    }
     for (int q = 0; q < nql; ++q) {
       const long qrow = long(q0 + q) * n;
       // the thread's kPerThread points first (independent gather
@@ -794,7 +812,11 @@ crude_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
         const long gi = base + p;
         float d = CUDART_INF_F;
         if (gi < n) {
-          if (!MASKED || ids[qrow + gi] >= 0) {
+          const bool valid =
+              MASK == kSlabIds
+                  ? static_cast<const int*>(mask)[qrow + gi] >= 0
+                  : keep[r];
+          if (valid) {
             const CodeT* row = staged + p * Kc;
             if (QUANT) {
               const int acc = row_sum_i8<NIBBLE>(
@@ -832,7 +854,14 @@ crude_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
 // works on the current chunk; 1 (codes too wide for two): the code rows
 // are staged after it and the crude values read from global memory,
 // one coalesced word per thread and point.
-template <typename CodeT, bool NIBBLE, int STAGES>
+//
+// SELECT (the refine_cap survivor selection): no code rows, no LUTs and
+// no slow sum; a survivor's key is its crude value, so each query's
+// list is the top-topk of its margin-test survivors by crude (the cap
+// best-crude survivors, topk = cap), pruned rows ranking (+inf, index)
+// behind them as in the refine pass.  codes and lut_g are null and Kc
+// = Km = 0: a staging buffer holds the tile's crude rows only.
+template <typename CodeT, bool NIBBLE, int STAGES, bool SELECT = false>
 __global__ void __launch_bounds__(kThreads)
 refine_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
                    const float* __restrict__ lut_g,
@@ -855,7 +884,8 @@ refine_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
   auto stage = [&](int chunk, int b) {
     const long base = long(chunk) * kChunk;
     uint8_t* dst = s.stage + b * s.stage_buf;
-    load_codes(reinterpret_cast<CodeT*>(dst), codes, base, n, Kc, true);
+    if (!SELECT)
+      load_codes(reinterpret_cast<CodeT*>(dst), codes, base, n, Kc, true);
     if (STAGES == 1) return;
     const int rows = int(min(long(kChunk), n - base));
     for (int q = 0; q < nql; ++q)
@@ -864,7 +894,8 @@ refine_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
                   true);
   };
   if (blockIdx.x < nchunks) stage(blockIdx.x, 0);
-  load_table_tile(reinterpret_cast<float*>(s.lut), lut_g, q0, qt, nq, Km);
+  if (!SELECT)
+    load_table_tile(reinterpret_cast<float*>(s.lut), lut_g, q0, qt, nq, Km);
   for (int i = threadIdx.x; i < qt; i += blockDim.x)
     s.scalars[i] = q0 + i < nq ? thr_g[q0 + i] : 0.0f;
   lists.start(nql);
@@ -890,8 +921,10 @@ refine_scan_kernel(const CodeT* __restrict__ codes, long codes_q_stride,
           const float c = STAGES == 2 ? cr[q * kChunk + p]
                                       : crude[long(q0 + q) * n + base + p];
           if (c < thr)
-            v[r] = __fadd_rn(c, row_sum_f32<NIBBLE>(lut + q * Km,
-                                                    staged + p * Kc, Kc, m));
+            v[r] = SELECT ? c
+                          : __fadd_rn(c, row_sum_f32<NIBBLE>(
+                                             lut + q * Km, staged + p * Kc,
+                                             Kc, m));
         }
       }
       list_round<true>(lists[q], s.scratch, v, int(base), n);
@@ -984,17 +1017,17 @@ int scan_plan(Kernel kernel, const ScanTiling& t, int n, int nq, int topk,
 
 // The kernels' instances for a row type, LUT type, code width and stage
 // count (nibbles only in uint8 rows).
-template <typename CodeT, bool MASKED>
+template <typename CodeT, int MASK>
 auto crude_instance(int quant, int nibble) {
   if constexpr (sizeof(CodeT) == 1) {
     if (quant)
-      return nibble ? crude_scan_kernel<CodeT, true, true, MASKED>
-                    : crude_scan_kernel<CodeT, true, false, MASKED>;
-    return nibble ? crude_scan_kernel<CodeT, false, true, MASKED>
-                  : crude_scan_kernel<CodeT, false, false, MASKED>;
+      return nibble ? crude_scan_kernel<CodeT, true, true, MASK>
+                    : crude_scan_kernel<CodeT, true, false, MASK>;
+    return nibble ? crude_scan_kernel<CodeT, false, true, MASK>
+                  : crude_scan_kernel<CodeT, false, false, MASK>;
   } else {
-    return quant ? crude_scan_kernel<CodeT, true, false, MASKED>
-                 : crude_scan_kernel<CodeT, false, false, MASKED>;
+    return quant ? crude_scan_kernel<CodeT, true, false, MASK>
+                 : crude_scan_kernel<CodeT, false, false, MASK>;
   }
 }
 template <typename CodeT, int STAGES>
@@ -1007,34 +1040,36 @@ auto refine_instance(int nibble) {
 }
 
 // The crude pass's plan and launch, flat (MAX_QT > 1, codes_q_stride 0,
-// no ids) and IVF (MAX_QT = 1, codes_q_stride n * Kc, MASKED by the id
-// slab); the refine pass's, flat (MAX_QT > 1) and IVF (MAX_QT = 1); for
+// kNoMask, or kRowPred by a filter) and IVF (MAX_QT = 1, codes_q_stride
+// n * Kc, kSlabIds); the refine pass's, flat (MAX_QT > 1) and IVF
+// (MAX_QT = 1), and its survivor selection (select_*); for
 // uint8 rows (code_bytes 1) or int32 rows (4).  Each returns
 // cudaErrorInvalidValue for a shape that no tiling serves.  Templates,
 // so that only the sources that launch a kernel compile it.
-template <typename CodeT, int MAX_QT, bool MASKED>
+template <typename CodeT, int MAX_QT, int MASK>
 int crude_plan_rows(int n, int Kc, int nq, int Km, int quant, int nibble,
                     int topk, int* out) {
   const ScanTiling t = crude_tiling(Kc * int(sizeof(CodeT)), Km, quant, topk,
                                     MAX_QT);
   if (!scan_args_ok(t, n, nq, topk)) return int(cudaErrorInvalidValue);
-  return scan_plan(crude_instance<CodeT, MASKED>(quant, nibble), t, n, nq,
+  return scan_plan(crude_instance<CodeT, MASK>(quant, nibble), t, n, nq,
                    topk, out);
 }
 
-template <int MAX_QT, bool MASKED>
+template <int MAX_QT, int MASK>
 int crude_plan(int n, int Kc, int nq, int Km, int quant, int nibble,
                int code_bytes, int topk, int* out) {
   if (!code_bytes_ok(code_bytes, nibble)) return int(cudaErrorInvalidValue);
   return code_bytes == 4
-             ? crude_plan_rows<int32_t, MAX_QT, MASKED>(n, Kc, nq, Km, quant,
-                                                        nibble, topk, out)
-             : crude_plan_rows<uint8_t, MAX_QT, MASKED>(n, Kc, nq, Km, quant,
-                                                        nibble, topk, out);
+             ? crude_plan_rows<int32_t, MAX_QT, MASK>(n, Kc, nq, Km, quant,
+                                                      nibble, topk, out)
+             : crude_plan_rows<uint8_t, MAX_QT, MASK>(n, Kc, nq, Km, quant,
+                                                      nibble, topk, out);
 }
 
-template <typename CodeT, int MAX_QT, bool MASKED>
-int crude_launch_rows(const void* codes, long codes_q_stride, const void* ids,
+template <typename CodeT, int MAX_QT, int MASK>
+int crude_launch_rows(const void* codes, long codes_q_stride,
+                      const void* mask,
                       const void* lut, const void* scale, const void* offset,
                       void* crude, void* out_v, void* out_i, int n, int Kc,
                       int nq, int Km, int m, int quant, int nibble, int topk,
@@ -1044,30 +1079,30 @@ int crude_launch_rows(const void* codes, long codes_q_stride, const void* ids,
   if (!scan_args_ok(t, n, nq, topk) || grid_x < 1)
     return int(cudaErrorInvalidValue);
   return int(launch_with_smem(
-      crude_instance<CodeT, MASKED>(quant, nibble),
+      crude_instance<CodeT, MASK>(quant, nibble),
       dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
       static_cast<cudaStream_t>(stream), static_cast<const CodeT*>(codes),
-      codes_q_stride, static_cast<const int*>(ids), lut,
+      codes_q_stride, mask, lut,
       static_cast<const float*>(scale), static_cast<const float*>(offset),
       static_cast<float*>(crude), static_cast<float*>(out_v),
       static_cast<int*>(out_i), n, Kc, nq, Km, m, topk, t.qt,
       t.lists_in_smem));
 }
 
-template <int MAX_QT, bool MASKED>
-int crude_launch(const void* codes, long codes_q_stride, const void* ids,
+template <int MAX_QT, int MASK>
+int crude_launch(const void* codes, long codes_q_stride, const void* mask,
                  const void* lut, const void* scale, const void* offset,
                  void* crude, void* out_v, void* out_i, int n, int Kc,
                  int nq, int Km, int m, int quant, int nibble, int code_bytes,
                  int topk, int grid_x, void* stream) {
   if (!code_bytes_ok(code_bytes, nibble)) return int(cudaErrorInvalidValue);
   return code_bytes == 4
-             ? crude_launch_rows<int32_t, MAX_QT, MASKED>(
-                   codes, codes_q_stride, ids, lut, scale, offset, crude,
+             ? crude_launch_rows<int32_t, MAX_QT, MASK>(
+                   codes, codes_q_stride, mask, lut, scale, offset, crude,
                    out_v, out_i, n, Kc, nq, Km, m, quant, nibble, topk,
                    grid_x, stream)
-             : crude_launch_rows<uint8_t, MAX_QT, MASKED>(
-                   codes, codes_q_stride, ids, lut, scale, offset, crude,
+             : crude_launch_rows<uint8_t, MAX_QT, MASK>(
+                   codes, codes_q_stride, mask, lut, scale, offset, crude,
                    out_v, out_i, n, Kc, nq, Km, m, quant, nibble, topk,
                    grid_x, stream);
 }
@@ -1129,6 +1164,39 @@ int refine_launch(const void* codes, long codes_q_stride, const void* lut,
              : refine_launch_rows<uint8_t, MAX_QT>(
                    codes, codes_q_stride, lut, crude, thr, out_v, out_i, n,
                    Kc, nq, Km, m, nibble, topk, grid_x, stream);
+}
+
+// The survivor selection (refine_scan_kernel<..., SELECT>) over a dense
+// (nq, n) crude matrix, flat or slab alike (it reads no code rows): the
+// refine tiling with no code bytes and no LUT, lists of cap pairs.
+template <int STAGES>
+auto select_instance() {
+  return refine_scan_kernel<uint8_t, false, STAGES, true>;
+}
+
+template <int MAX_QT>
+int select_plan(int n, int nq, int cap, int* out) {
+  const ScanTiling t = refine_tiling(0, 0, cap, MAX_QT);
+  if (!scan_args_ok(t, n, nq, cap)) return int(cudaErrorInvalidValue);
+  return t.stages == 2 ? scan_plan(select_instance<2>(), t, n, nq, cap, out)
+                       : scan_plan(select_instance<1>(), t, n, nq, cap, out);
+}
+
+template <int MAX_QT>
+int select_launch(const void* crude, const void* thr, void* out_v,
+                  void* out_i, int n, int nq, int cap, int grid_x,
+                  void* stream) {
+  const ScanTiling t = refine_tiling(0, 0, cap, MAX_QT);
+  if (!scan_args_ok(t, n, nq, cap) || grid_x < 1)
+    return int(cudaErrorInvalidValue);
+  return int(launch_with_smem(
+      t.stages == 2 ? select_instance<2>() : select_instance<1>(),
+      dim3(grid_x, (nq + t.qt - 1) / t.qt), t.smem,
+      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(nullptr),
+      0L, static_cast<const float*>(nullptr),
+      static_cast<const float*>(crude), static_cast<const float*>(thr),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), n, 0, nq, 0, 0,
+      cap, t.qt, t.lists_in_smem));
 }
 
 }  // namespace

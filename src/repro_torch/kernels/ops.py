@@ -68,24 +68,27 @@ def two_step(codes, lut, fast_mask, threshold):
 
 def batched_crude_topk(codes, lut_flat, topk: int, *,
                        want_crude: bool = True, lut_scale=None,
-                       lut_offset=None, code_bits: int = 8, out=None):
+                       lut_offset=None, code_bits: int = 8, out=None,
+                       pred=None):
     """Phase 1: crude LUT sums of every (query, point) pair and their
     top-k.  codes (n, Kc) stored rows (nibble rows under
     ``code_bits=4``, against an even-K lut_flat), lut_flat (nq, K*m)
     fast-masked f32, or int8 with ``lut_scale``/``lut_offset`` (nq,)
     -> (crude (nq, n) | None, vals (nq, topk), idx (nq, topk)).
-    ``out`` (nq, n) f32, optional, receives the crude matrix."""
+    ``out`` (nq, n) f32, optional, receives the crude matrix; ``pred``
+    (n,) bool, optional (a filter), makes the rows it excludes +inf."""
     _check_faults("batched_crude_topk")
     return _crude_topk(codes, lut_flat, topk, want_crude=want_crude,
                        lut_scale=lut_scale, lut_offset=lut_offset,
-                       code_bits=code_bits, out=out)
+                       code_bits=code_bits, out=out, pred=pred)
 
 
 def _crude_topk(codes, lut_flat, topk, *, want_crude, lut_scale,
-                lut_offset, code_bits, out=None):
+                lut_offset, code_bits, out=None, pred=None):
     fn = bs.crude_topk_cuda if _on_card(codes) else bs.crude_topk_torch
     return fn(codes, lut_flat, topk, lut_scale, lut_offset,
-              want_crude=want_crude, code_bits=code_bits, out=out)
+              want_crude=want_crude, code_bits=code_bits, out=out,
+              pred=pred)
 
 
 def batched_refine_topk(codes, lut_flat, crude, thresholds, topk: int, *,
@@ -153,6 +156,28 @@ def ivf_refine_topk(cand_codes, lut_flat, crude, thresholds, topk: int, *,
           else bs.ivf_refine_topk_torch)
     return fn(cand_codes, lut_flat, crude, thresholds, topk,
               code_bits=code_bits)
+
+
+def select_topk(crude, thresholds, cap: int):
+    """The ``refine_cap`` survivor selection over a flat or slab crude
+    matrix: crude (nq, n), thresholds (nq,) -> (vals (nq, cap), idx
+    (nq, cap)), the cap best-crude rows with ``crude < thr``, +inf
+    after them."""
+    _check_faults("select_topk")
+    fn = bs.select_topk_cuda if _on_card(crude) else bs.select_topk_torch
+    return fn(crude, thresholds, cap)
+
+
+def rerank_topk(cand_codes, lut_flat, valid, topk: int, *,
+                code_bits: int = 8):
+    """The survivors' re-rank by one full-table f32 sum: cand_codes
+    (nq, c, Kc) gathered stored rows, lut_flat (nq, K*m) f32 full
+    tables, valid (nq, c) bool -> (dist (nq, topk), pos (nq, topk)
+    survivor positions)."""
+    _check_faults("rerank_topk")
+    fn = bs.rerank_topk_cuda if _on_card(cand_codes) \
+        else bs.rerank_topk_torch
+    return fn(cand_codes, lut_flat, valid, topk, code_bits=code_bits)
 
 
 def kmeans_assign(x, cent):

@@ -7,15 +7,20 @@ for the kernel paths):
     ThresholdStage  the eq. 2 threshold bootstrap: among the crude top-k
                     take the candidate furthest by full distance; its
                     crude value plus sigma is the threshold.  Tiny
-                    (nq, topk) PyTorch code; from the kernels' candidate
-                    lists on the served path, from the dense crude
-                    matrix (the reference's jnp path) under the options
-                    that only the plain versions serve (``filter``,
-                    ``refine_cap``).
+                    (nq, topk) PyTorch code over the kernels' candidate
+                    lists: the fused engine's rule (``from_candidates``,
+                    crude + slow) on the served path, the reference's
+                    jnp rule (``from_dense_candidates``: one full-table
+                    sum in f32, every slot in the far-element argmax on
+                    the flat path) under the jnp engine's options
+                    (``filter``, ``refine_cap``).
     RefineStage     slow-codebook sums for margin-test survivors and the
                     final top-k (eq. 1: full = crude + slow), through
                     ``ops.batched_refine_topk`` or ``ops.ivf_refine_topk``
                     (``slab``).
+    CappedStage     the jnp engine's ``refine_cap`` tail: the cap
+                    best-crude survivors (``ops.select_topk``) re-ranked
+                    by one full-table f32 sum (``ops.rerank_topk``).
 
 The ops wrappers launch the CUDA kernels for tensors on the card and run
 the kernels' plain PyTorch versions for tensors on the CPU, so both
@@ -129,6 +134,13 @@ def slow_lut_operand(luts: torch.Tensor, fast, *, code_bits: int = 8):
     return lut_slow.reshape(luts.shape[0], -1)
 
 
+def full_lut_operand(luts: torch.Tensor, *, code_bits: int = 8):
+    """The re-rank's flattened f32 tables: every codebook (even-K padded
+    under the nibble format)."""
+    lut = base.pad_luts_even(luts) if code_bits == 4 else luts
+    return lut.reshape(luts.shape[0], -1)
+
+
 # --------------------------------------------------------------- stages ----
 
 def _call(hook) -> None:
@@ -154,12 +166,14 @@ class CrudeStage:
     want_crude: bool = True
 
     def __call__(self, codes, luts, fast=None, *, out=None,
-                 before_launch=None) -> CrudeOut:
+                 before_launch=None, pred=None) -> CrudeOut:
         """codes (n, Kc) stored rows, luts (nq, K, m) f32, fast optional
         (K,) bool (None = full-table one-step ADC); ``out`` (nq, n) f32,
         optional, receives the dense crude matrix; ``before_launch``,
         optional, is called between the LUT operands and the kernel
-        (the pipelined executor's stream waits)."""
+        (the pipelined executor's stream waits); ``pred`` (n,) bool,
+        optional (a filter), makes the rows it excludes +inf in the
+        crude matrix and the candidate list."""
         from repro_torch.kernels import ops
         lut_flat, scale, offset = crude_lut_operands(
             luts, fast, quantized=self.quantized, code_bits=self.code_bits)
@@ -167,7 +181,7 @@ class CrudeStage:
         return CrudeOut(*ops.batched_crude_topk(
             codes, lut_flat, self.topk, want_crude=self.want_crude,
             lut_scale=scale, lut_offset=offset, code_bits=self.code_bits,
-            out=out))
+            out=out, pred=pred))
 
     def slab(self, cand_codes, cand_ids, luts, fast, *, out=None,
              before_launch=None) -> CrudeOut:
@@ -198,9 +212,21 @@ class ThresholdStage:
 
     def from_dense(self, luts, codes, crude, fast, sigma):
         """Bootstrap from the dense crude matrix (the reference's jnp
-        path): f32 ranks candidates by one full-table sum, int8 by
-        quantized crude + exact slow."""
+        path): ``from_dense_candidates`` over its two-key top-k."""
         cand_c, cand = topk_two_key(crude, self.topk)
+        return self.from_dense_candidates(luts, codes, cand_c, cand, fast,
+                                          sigma)
+
+    def from_dense_candidates(self, luts, codes, cand_c, cand, fast,
+                              sigma):
+        """The reference's jnp bootstrap rule over the crude top-k
+        (the crude kernel's candidate list, the two-key top-k of the
+        dense matrix): f32 ranks candidates by one full-table sum, int8
+        by quantized crude + exact slow.  Every slot takes part in the
+        far-element argmax, the +inf slots of filtered rows included
+        (their full-table sums are finite, so a filtered search with
+        fewer eligible rows than topk can get a finite threshold), as in
+        the reference."""
         cand_codes = self._cand_codes(codes, cand, luts.shape[1])
         if not self.quantized:
             full_cand = base.lut_sum(luts, cand_codes)
@@ -211,10 +237,19 @@ class ThresholdStage:
 
     def from_dense_slab(self, luts, cand_codes, crude, fast, sigma):
         """Bootstrap from the dense slab crude (the reference's jnp IVF
-        path): f32 ranks candidates by one full-table sum, int8 by
-        quantized crude + exact slow; the +inf candidates of slabs
-        thinner than topk are left out of the far-element argmax."""
+        path): ``from_dense_slab_candidates`` over its two-key top-k."""
         cand_c, cand = topk_two_key(crude, self.topk)
+        return self.from_dense_slab_candidates(luts, cand_codes, cand_c,
+                                               cand, fast, sigma)
+
+    def from_dense_slab_candidates(self, luts, cand_codes, cand_c, cand,
+                                   fast, sigma):
+        """The reference's jnp IVF bootstrap rule over the slab crude
+        top-k of slab positions (the slab crude kernel's candidate
+        list): f32 ranks candidates by one full-table sum, int8 by
+        quantized crude + exact slow; the +inf candidates (slabs thinner
+        than topk, filtered candidates) are left out of the far-element
+        argmax."""
         cand_top = torch.gather(
             cand_codes, 1,
             cand.long()[:, :, None].expand(-1, -1, cand_codes.shape[2]))
@@ -290,6 +325,37 @@ class RefineStage:
                                         self.topk, code_bits=self.code_bits)
         pos = torch.clamp(pos.long(), max=safe.shape[1] - 1)
         return safe.gather(1, pos), dist, crude < thr[:, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class CappedStage:
+    """The jnp engine's ``refine_cap`` tail (the reference's
+    ``_two_step_block_compact``): the ``cap`` best-crude margin-test
+    survivors of each query, re-ranked by one full-table f32 sum."""
+    topk: int = 50
+    cap: int = 64
+    code_bits: int = 8
+
+    def __call__(self, codes, luts, crude, thr, *, before_launch=None):
+        """codes (n, Kc) shared rows (flat) or (nq, nc, Kc) each query's
+        slab, luts (nq, K, m) f32, crude (nq, n | nc), thr (nq,).
+        Returns (positions (nq, topk) int64: rows, or slab positions;
+        dist (nq, topk)), +inf past the survivors.  ``before_launch``,
+        optional, is called just before the selection kernel."""
+        from repro_torch.kernels import ops
+        _call(before_launch)
+        s_vals, surv = ops.select_topk(crude, thr, self.cap)
+        surv = surv.long()
+        if codes.ndim == 2:
+            surv_codes = codes[surv]                      # (nq, cap, Kc)
+        else:
+            surv_codes = torch.gather(
+                codes, 1, surv[:, :, None].expand(-1, -1, codes.shape[2]))
+        dist, pos = ops.rerank_topk(
+            surv_codes.contiguous(),
+            full_lut_operand(luts, code_bits=self.code_bits),
+            torch.isfinite(s_vals), self.topk, code_bits=self.code_bits)
+        return surv.gather(1, pos.long()), dist
 
 
 def two_step_stages(*, topk: int, quantized: bool = False,

@@ -534,9 +534,10 @@ def main(argv=None):
     ap.add_argument("--ann-queries", type=int, default=64)
     ap.add_argument("--ann-backend", default=None,
                     choices=["auto", "jnp", "pallas"],
-                    help="override serve.backend (auto and pallas: the CUDA "
-                         "kernels on the card; jnp: the plain versions, "
-                         "which only the CPU serves)")
+                    help="override serve.backend (on the card all three "
+                         "run the CUDA kernels: auto and pallas as the "
+                         "fused engine, jnp with filter= and refine_cap; "
+                         "on the CPU the plain versions)")
     ap.add_argument("--ann-shards", type=int, default=1, metavar="N",
                     help="serve the index sharded over an N-way data mesh "
                          "(on the card's devices, or on --device)")

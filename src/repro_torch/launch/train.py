@@ -161,10 +161,10 @@ def icq_config_from_args(args):
 def run_icq(args):
     """Train -> index -> add -> query -> (save): the retrieval pipeline
     through the front door, on ``args.device`` (the card unless it names
-    the CPU).  On the card the CLI's default ``serve.backend = "jnp"``
-    (the plain versions, which the card refuses) becomes ``"auto"`` (the
-    CUDA kernels), with a line saying so; a ``--config`` naming
-    ``"jnp"`` still raises there."""
+    the CPU).  The CLI's default ``serve.backend = "jnp"`` serves on
+    both: through the CUDA kernels (with the jnp engine's options) on
+    the card, through their plain versions on the CPU, so the saved
+    config hash is the reference CLI's on both."""
     import torch
 
     from repro_torch.api import icq_session
@@ -173,11 +173,6 @@ def run_icq(args):
 
     device = resolve_device(args.device)
     cfg = icq_config_from_args(args)
-    if device.type == "cuda" and args.config is None:
-        cfg = cfg.with_overrides({"serve.backend": "auto"})
-        print("icq: serve.backend jnp (the CLI default) -> auto on the "
-              "card: the CUDA kernels serve (the saved config hash is "
-              "not the reference CLI's)")
     xtr, ytr, xte, yte = make_table1_dataset(args.icq_dataset)
     xtr, ytr = xtr[: args.icq_n], ytr[: args.icq_n]
     n_held = max(args.icq_add, 1)

@@ -13,8 +13,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.encode import (encode_pq, icm_encode, pack_codes,
                                      pack_nibbles)
-from repro_torch.index.base import (as_torch, resolve_backend,
-                                    resolve_code_bits, resolve_device)
+from repro_torch.index.base import (as_torch, resolve_code_bits,
+                                    resolve_device, resolve_encode_backend)
 
 MODES = ("icm", "pq")
 
@@ -47,7 +47,7 @@ def encode_database(xs, C, *, embed_apply=None, embed_params=None,
         raise ValueError(f"unknown encode mode {mode!r}; expected one of "
                          f"{MODES}")
     dev = resolve_device(device)
-    resolve_backend(backend, dev)
+    resolve_encode_backend(backend, dev)
     C = as_torch(C).to(dev, torch.float32).contiguous()
     n = xs.shape[0]
     K, m = C.shape[0], C.shape[1]

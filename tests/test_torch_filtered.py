@@ -3,8 +3,10 @@ jnp engine, and the port's own filtered == compacted identity.
 
 ``filter`` (an (n,) bool row predicate) and ``refine_cap`` (the static
 survivor compaction) are jnp-engine options of the reference; the port
-serves them with its plain versions on the CPU and refuses them on the
-card with the reference's ``ValueError`` (the card side is in
+serves them with its plain versions on the CPU, and on the card through
+the kernels at ``serve.backend="jnp"`` while auto and pallas refuse them
+with the reference's ``ValueError`` (the card's route:
+``tests/test_torch_filtered_card.py``; the card itself:
 ``tests/test_torch_gpu.py``).
 
 One artifact per cell (flat f32, two-step f32 / int8, IVF f32 / int8),

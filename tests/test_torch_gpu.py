@@ -1422,32 +1422,119 @@ def test_cuda_crude_rung_equals_full_path_candidates(kind, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
 @pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
-def test_cuda_filter_and_refine_cap_raise(kind):
-    """On the card ``filter`` and ``refine_cap`` raise the reference's
-    ``ValueError`` (the kernels cannot mask rows by predicate or compact
-    survivors), and the capped rung is not served."""
+def test_cuda_filter_and_refine_cap_raise(kind, backend):
+    """On the card the fused engine (``serve.backend`` auto or pallas)
+    refuses ``filter`` and ``refine_cap`` with the reference's
+    ``ValueError`` words (its engine's and its fused index's), and the
+    capped rung is not served."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
+    from repro_torch.api import AnnEngine, ResilienceConfig
     from repro_torch.resilience import SearchBudget
     engine, q = _card_engine(kind)
+    engine = AnnEngine(dataclasses.replace(engine.index, backend=backend),
+                       resilience=ResilienceConfig(max_retries=0))
     pred = torch.ones(engine.n, dtype=torch.bool, device="cuda")
-    with pytest.raises(ValueError, match="filtered search requires "
-                                         "backend='jnp'"):
+    with pytest.raises(ValueError) as ei:
         engine.search(q, filter=pred)
-    with pytest.raises(ValueError, match="filtered search requires "
-                                         "backend='jnp'"):
+    assert str(ei.value) == ("filtered search requires backend='jnp' (the "
+                             "fused kernels cannot mask rows by predicate)")
+    index_words = ("filtered search requires backend='jnp' (the fused "
+                   "kernels cannot mask rows by predicate; like refine_cap, "
+                   "filter is a jnp-engine option)")
+    with pytest.raises(ValueError) as ei:
         engine.index.search(q, filter=pred)
+    assert str(ei.value) == index_words
     if kind != "flat":
-        with pytest.raises(ValueError, match="filtered search requires"):
+        with pytest.raises(ValueError) as ei:
             engine.index.search_crude(q, filter=pred)
-        with pytest.raises(ValueError, match="refine_cap compaction "
-                                             "requires backend='jnp'"):
+        assert str(ei.value) == index_words
+        with pytest.raises(ValueError) as ei:
             dataclasses.replace(engine.index, refine_cap=64).search(q)
+        assert str(ei.value) == (
+            "refine_cap compaction requires backend='jnp' (the fused "
+            "kernels bound phase-2 work with the in-kernel top-k merge "
+            "instead)")
     with pytest.raises(ValueError, match="not servable"):
         engine.search(q, budget=SearchBudget(force_level="capped"))
     assert "capped" not in engine._levels()
+
+
+def _plain_on_card(monkeypatch):
+    """Each search kernel's wrapper replaced by its plain version, which
+    then runs on the same CUDA tensors (the plain composition)."""
+    from repro_torch.kernels import batched_search as bs
+    for name in ("crude_topk", "refine_topk", "ivf_crude_topk",
+                 "ivf_refine_topk", "select_topk", "rerank_topk"):
+        monkeypatch.setattr(bs, f"{name}_cuda", getattr(bs, f"{name}_torch"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flat", "two-step", "ivf"])
+def test_cuda_jnp_serves_filter_and_refine_cap(kind, monkeypatch):
+    """``serve.backend="jnp"`` on the card: the kernels serve ``filter``
+    (a filter leaving half the rows, and one leaving 5, fewer than
+    topk), the crude rung filtered and ``refine_cap`` (the capped rung
+    offered, ``SearchBudget(refine_cap=)`` and ``index.refine_cap`` at
+    64 and at n), each equal bit for bit to the same composition with
+    the plain versions on the same CUDA tensors, with the row-predicate
+    crude, the survivor selection and the re-rank launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from repro_torch.api import AnnEngine, ResilienceConfig
+    from repro_torch.kernels import build
+    from repro_torch.resilience import SearchBudget
+    engine, q = _card_engine(kind)
+    index = dataclasses.replace(engine.index, backend="jnp")
+    engine = AnnEngine(index, resilience=ResilienceConfig(max_retries=0))
+    assert engine.backend == "cuda-jnp"
+    if kind != "flat":
+        assert "capped" in engine._levels()
+    n = engine.n
+    rng = np.random.default_rng(3)
+    few = np.zeros(n, bool)
+    few[rng.choice(n, 5, replace=False)] = True
+    half = rng.random(n) < 0.5
+    calls = [("half", lambda: engine.search(
+        q, filter=torch.from_numpy(half).cuda())),
+        ("five", lambda: engine.search(q, filter=torch.from_numpy(
+            few).cuda()))]
+    if kind != "flat":
+        calls += [
+            ("crude rung", lambda: engine.search(
+                q, budget=SearchBudget(force_level="crude"),
+                filter=torch.from_numpy(few).cuda())),
+            ("budget cap", lambda: engine.search(
+                q, budget=SearchBudget(refine_cap=64))),
+            ("index cap n", lambda: dataclasses.replace(
+                index, refine_cap=n).search(q)),
+            ("index cap filtered", lambda: dataclasses.replace(
+                index, refine_cap=64).search(
+                    q, filter=torch.from_numpy(half).cuda()))]
+    got = {}
+    before = dict(build.LAUNCHES)
+    for what, call in calls:
+        got[what] = call()
+    torch.cuda.synchronize()
+    launched = {k for k, v in build.LAUNCHES.items() if v != before[k]}
+    want = ({"crude_topk_pred"} if kind == "flat" else
+            {"crude_topk_pred", "refine_topk", "crude_topk", "select_topk",
+             "rerank_topk"} if kind == "two-step" else
+            {"ivf_crude_topk", "ivf_refine_topk", "select_topk",
+             "rerank_topk"})
+    assert launched == want
+    _plain_on_card(monkeypatch)
+    for what, call in calls:
+        plain = call()
+        assert torch.equal(got[what].indices, plain.indices), what
+        assert torch.equal(got[what].distances, plain.distances), what
+        assert torch.equal(got[what].pass_rate, plain.pass_rate), what
+    ids = got["five"].indices
+    assert bool((ids[:, 5:] == -1).all())
 
 
 def _assert_same_result(got, want):
@@ -1752,8 +1839,8 @@ def _card_mesh(D):
 def test_cuda_sharded_equals_unsharded(kind, lut_dtype):
     """Four shards on the card launch the scan kernels once each a pass
     and answer the unsharded index's ids, distances, pass_rate and
-    avg_ops bit for bit; a dead shard launches nothing; filter and
-    refine_cap raise as on the unsharded index."""
+    avg_ops bit for bit; a dead shard launches nothing; filter is served
+    under every backend, refine_cap as on the unsharded index."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -1776,14 +1863,22 @@ def test_cuda_sharded_equals_unsharded(kind, lut_dtype):
     before = dict(build.LAUNCHES)
     view.search(q)
     assert all(build.LAUNCHES[k] - before[k] == 3 for k in pair)
-    pred = torch.ones(index.codes.shape[0], dtype=torch.bool,
-                      device="cuda")
-    with pytest.raises(ValueError, match="filtered search requires"):
-        view.search(q, filter=pred)
+    # filter under every backend (as the reference's sharded bodies),
+    # equal to the unsharded jnp engine; refine_cap as unsharded: the
+    # fused engine refuses it, jnp serves it
+    rng = np.random.default_rng(5)
+    pred = torch.from_numpy(rng.random(index.codes.shape[0]) < 0.5).cuda()
+    view = index.shard(_card_mesh(4))
+    jnp_index = dataclasses.replace(index, backend="jnp")
+    _assert_same_result(view.search(q, filter=pred),
+                        jnp_index.search(q, filter=pred))
     if kind != "flat":
         with pytest.raises(ValueError, match="refine_cap compaction"):
             dataclasses.replace(index, refine_cap=64).shard(
                 _card_mesh(2)).search(q)
+        capped = dataclasses.replace(jnp_index, refine_cap=64)
+        _assert_same_result(capped.shard(_card_mesh(2)).search(q),
+                            capped.search(q))
 
 
 @pytest.mark.gpu

@@ -161,8 +161,14 @@ def test_backend_and_device_resolution():
     assert base.resolve_backend("pallas", cpu) == "torch"
     assert base.resolve_backend("jnp", cpu) == "torch"
     assert base.resolve_backend("pallas", torch.device("cuda")) == "cuda"
-    with pytest.raises(ValueError, match="serve.backend"):
-        base.resolve_backend("jnp", torch.device("cuda"))
+    assert base.resolve_backend("auto", torch.device("cuda")) == "cuda"
+    # jnp on the card: the kernels with the jnp engine's options
+    assert base.resolve_backend("jnp", torch.device("cuda")) == "cuda-jnp"
+    # the encoder has no jnp-engine options: jnp names its plain sweep
+    assert base.resolve_encode_backend("jnp", cpu) == "torch"
+    assert base.resolve_encode_backend("auto", torch.device("cuda")) == "cuda"
+    with pytest.raises(ValueError, match="encode.backend"):
+        base.resolve_encode_backend("jnp", torch.device("cuda"))
     with pytest.raises(ValueError, match="unknown search backend"):
         base.resolve_backend("triton", cpu)
     assert base.resolve_device("cpu") == cpu
