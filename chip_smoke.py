@@ -100,7 +100,7 @@ or outside a checkout of the repository.  Phases:
    (``FLASH_KV_VALID_MODES``: 1 key, a key tile's edge and one past it,
    inside a tile, whisper's padded cross attention, MQA, (192, 128)),
    which the wrapper refuses with causal or a window; each line names
-   the body that ran, ``mma.sync`` bf16 or FMA f32, with its registers
+   the body that ran, ``mma.sync`` bf16 or 3xTF32 f32, with its registers
    and local-memory bytes), and in every one of these modes and both
    types the backward kernels (dQ, then dK / dV: ``mma.sync`` bf16, or
    ``mma.sync`` 3xTF32 in f32; each line names both kernels' bodies with
@@ -113,16 +113,21 @@ or outside a checkout of the repository.  Phases:
    two-step at SIFT1M geometry (1M uint8 rows, one query's LUT, 2 fast
    codebooks, the threshold at the crude 0.3% quantile), flash attention
    at tinyllama-1.1b's (f32 and bf16) and llama3-405b's (bf16) attention
-   widths at s = 4096, causal; and their times beside their bounds, their
-   plain versions and a one-call library yardstick (``embedding_bag``,
-   ``scaled_dot_product_attention``); and the backward kernels at the
-   train cell's attention (8 x 2048, 32 / 4 heads of 64, causal) in f32
-   and in bf16, and in bf16 at cell B's (1 x 2048, 16 heads of 256),
-   cell H's (4 x 1024, 64 / 8 heads of 128) and cell D's (1 x 2048, 128
-   heads of (192, 128)): each kernel's time with its registers and
-   local-memory bytes, the pair's, the plain backward's and SDPA's
-   backward beside their bounds (5 products against the forward's 2; in
-   f32 at the FMA rate and at 3xTF32's 165 TFLOP/s);
+   widths at s = 4096, causal; and their times beside their bounds (f32
+   flash at 3xTF32's 165 TFLOP/s, its body's rate, the FMA-rate bound in
+   the log line), their plain versions and a one-call library yardstick
+   (``embedding_bag``, ``scaled_dot_product_attention``); and the
+   backward kernels at the train cell's attention (8 x 2048, 32 / 4
+   heads of 64, causal) in f32 and in bf16, and in bf16 at cell B's (1 x
+   2048, 16 heads of 256), cell H's (4 x 1024, 64 / 8 heads of 128) and
+   cell D's (1 x 2048, 128 heads of (192, 128)): each kernel's time with
+   its registers and local-memory bytes, the pair's, the plain
+   backward's and SDPA's backward beside their bounds (5 products
+   against the forward's 2; in f32 at the FMA rate and at 3xTF32's 165
+   TFLOP/s), and the forward with
+   and without its log-sum-exp (at the train cell's shape in f32 also
+   beside its bounds and SDPA's f32 forward: the kernels line's record
+   ``flash_attention (train A f32)``);
 8. (run after phase 5, as is 9) the degradation ladder on the
    two-step-f32, flat-f32 and ivf-f32 artifacts of phases 4-5: every rung the card offers (two-step and
    flat {full, crude}, IVF {full, probes, crude}) warmed once and served
@@ -2142,13 +2147,15 @@ def check_flash_backward(seed, shape, dtype, q, k, v, out, masks):
     g = torch.Generator(device="cuda").manual_seed(seed + 7 * q.shape[1] + dh)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
+    o2, lse2 = fa.flash_attention_cuda(q, k, v, with_lse=True, **masks)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
     again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **masks)
     want = fa.flash_attention_bwd_torch(q, k, v, o, do, lse, **masks)
     torch.cuda.synchronize()
     tol = flash_tolerance(dtype)
     same_fwd = torch.equal(o, out)
-    twice = all(torch.equal(x, y) for x, y in zip(got, again))
+    twice = (all(torch.equal(x, y) for x, y in zip(got, again))
+             and torch.equal(o2, o) and torch.equal(lse2, lse))
     rel, noise = tolerance_ratios(got, want, tol)
     ok = (same_fwd and twice and max(rel) <= 1.0
           and all(x.dtype == dtype for x in got))
@@ -2168,8 +2175,8 @@ def check_flash_backward(seed, shape, dtype, q, k, v, out, masks):
         f"{flash_body(dtype, dh, dv, 'dkdv', general)}): dq / dk / dv "
         f"max_abs_err over tolerance {rel[0]:.3f} / {rel[1]:.3f} / "
         f"{rel[2]:.3f} ({tol} of each one's largest magnitude{noted}); "
-        f"two launches "
-        f"{'equal' if twice else 'DIFFERENT'}; forward with the "
+        f"two launches of the forward (output, log-sum-exp) and of the "
+        f"backward {'equal' if twice else 'DIFFERENT'}; forward with the "
         f"log-sum-exp {'equal' if same_fwd else 'DIFFERENT'}: "
         f"{'within' if ok else 'OUTSIDE'}")
     check(ok, f"flash_attention backward {shape} {named} {dtype}: errors "
@@ -2351,14 +2358,19 @@ def kernel_ops(seed: int, n: int):
         nbytes, nops = attention_work(w["b"], w["s"], w["s"], w["H"],
                                       w["KVH"], w["dh"], True,
                                       q.element_size())
-        b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
-                              if dtype == torch.bfloat16 else F32_OPS_PER_S)
+        # the body's own rate: bf16 tensor cores, or 3xTF32 (f32; the
+        # FMA-rate bound in the log line only)
+        b_ms, b_by = bound_ms(nbytes, nops,
+                              BF16_OPS_PER_S if dtype == torch.bfloat16
+                              else TF32X3_OPS_PER_S)
+        fma = ("" if dtype == torch.bfloat16 else
+               f", {bound_ms(nbytes, nops)[0]:.4f} ms at the f32 FMA rate")
         log(f"kernel flash_attention {name} b={w['b']} s={w['s']} H={w['H']}"
             f" KVH={w['KVH']} dh={w['dh']} causal "
             f"{str(dtype).split('.')[-1]} ({flash_body(dtype, w['dh'])}): "
             f"{ms:.4f} ms "
             f"({nops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), library "
+            f"bound {b_ms:.4f} ms ({b_by}){fma}, library "
             f"scaled_dot_product_attention {lib_ms:.4f} ms "
             f"({nops / lib_ms / 1e9:.2f} TFLOP/s), kernel / SDPA "
             f"{ms / lib_ms:.2f}; max_abs_err {err}, against SDPA {sdpa_err}")
@@ -2603,9 +2615,12 @@ def flash_backward_timing(seed: int, card: str):
     backward beside their bounds (5 products against the forward's 2; in
     bf16 at the tensor-core peak, in f32 at the FMA rate and at what
     3xTF32 leaves of the TF32 rate); the forward with and without its
-    log-sum-exp.  Returns the records of the two kernels at the train
-    cell's shape, each bound at the rate of the body that ran (f32:
-    3xTF32's; the FMA-rate bound stays in the log line only)."""
+    log-sum-exp.  Returns the records of the two kernels and of the
+    forward with its log-sum-exp (``flash_attention (train A f32)``: its
+    bytes with the log-sum-exp written, the plain forward with it, SDPA's
+    f32 forward as the yardstick) at the train cell's shape, each bound
+    at the rate of the body that ran (f32: 3xTF32's; the FMA-rate bound
+    stays in the log line only)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     records = {}
@@ -2682,9 +2697,58 @@ def flash_backward_timing(seed: int, card: str):
                     max_abs_err=err, ms=ms[part], plain_ms=plain_ms,
                     bound_ms=bounds[part, body_rate][0],
                     bound_by=bounds[part, body_rate][1], library_ms=lib_ms)
+        if label == "train A":
+            records["flash_attention (train A f32)"] = forward_record(
+                label, q, k, v, o, lse, fwd_lse_ms, card)
         del q, k, v, o, do, lse, grads, outs, dbuf
         torch.cuda.empty_cache()
     return records
+
+
+def forward_record(label, q, k, v, o, lse, ms, card):
+    """The f32 forward with its log-sum-exp at one shape of
+    ``FLASH_BWD_SHAPES`` (causal): its output and log-sum-exp (``o``,
+    ``lse``) against the plain forward's (phase 7's tolerance), ``ms``
+    (timed by the caller) beside its bounds at 3xTF32's rate (the
+    record's) and at the FMA rate, the plain forward's time and SDPA's
+    f32 forward (``library_ms``).  Returns its record."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s, H, dh = q.shape
+    KVH, dv = k.shape[2], v.shape[-1]
+    want, want_lse = fa.flash_attention_torch(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    tol = flash_tolerance(q.dtype)
+    err = float((o - want).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    check(bool(torch.isclose(o, want, rtol=tol, atol=tol).all())
+          and bool(torch.isclose(lse, want_lse, rtol=tol, atol=tol).all()),
+          f"flash forward {label} != plain version: max_abs_err {err}, "
+          f"log-sum-exp {lse_err}")
+    del want, want_lse
+    plain_ms = time_ms(lambda: fa.flash_attention_torch(
+        q, k, v, with_lse=True), 1)
+    lib_ms, refused = sdpa_ms(q, k, v)
+    nbytes, nops = attention_work(b, s, s, H, KVH, dh, True,
+                                  q.element_size(), dv)
+    nbytes += lse.numel() * lse.element_size()
+    b_ms, b_by = bound_ms(nbytes, nops, TF32X3_OPS_PER_S)
+    fma_ms = bound_ms(nbytes, nops)[0]
+    log(f"kernel flash_attention forward {label} b={b} s={s} H={H} "
+        f"KVH={KVH} dh={dh} dv={dv} causal float32 with its log-sum-exp "
+        f"({flash_body(q.dtype, dh, dv)}): {ms:.4f} ms "
+        f"({nops / ms / 1e9:.2f} TFLOP/s), bound {b_ms:.4f} ms at the "
+        f"3xTF32 rate ({b_by}), {fma_ms:.4f} ms at the f32 FMA rate; plain "
+        f"{plain_ms:.2f} ms; library "
+        + (f"scaled_dot_product_attention f32 {lib_ms:.4f} ms (kernel / "
+           f"SDPA {ms / lib_ms:.2f})" if lib_ms is not None
+           else f"SDPA refused ({refused})")
+        + f"; max_abs_err {err}, log-sum-exp {lse_err}; {card}")
+    return dict(name="flash_attention (train A f32)", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:71",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 # ------------------------------------------------- phase 8: the ladder ----
@@ -4975,14 +5039,19 @@ def flash_at_shape(label, arch, q, k, v, causal, window=0):
     lib_ms, refused = sdpa_ms(q, k, v, window, causal)
     nbytes, nops = attention_work(b, sq, sk, H, KVH, dh, causal,
                                   q.element_size(), dv, window)
-    b_ms, b_by = bound_ms(nbytes, nops, BF16_OPS_PER_S
-                          if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
+    # the body's own rate: bf16 tensor cores, or 3xTF32 (f32; the
+    # FMA-rate bound in the log line only)
+    b_ms, b_by = bound_ms(nbytes, nops,
+                          BF16_OPS_PER_S if q.dtype == torch.bfloat16
+                          else TF32X3_OPS_PER_S)
+    fma = ("" if q.dtype == torch.bfloat16 else
+           f", {bound_ms(nbytes, nops)[0]:.4f} ms at the f32 FMA rate")
     lib = (f"library scaled_dot_product_attention {lib_ms:.4f} ms, kernel "
            f"/ SDPA {ms / lib_ms:.2f}" if lib_ms is not None else
            f"library scaled_dot_product_attention refused: {refused}")
     log(f"kernel flash_attention cell {label} {arch} {shape} {kind} {name}:"
         f" {ms:.4f} ms ({nops / ms / 1e9:.2f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {lib}")
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){fma}, {lib}")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:71",
@@ -5020,7 +5089,7 @@ def padding_identity(q, k, v, chunk: int = 1024):
 
 
 def mla_flash_f32_gate(seed: int):
-    """Gate 2 (f32): the (192, 128) instance's FMA body against its plain
+    """Gate 2 (f32): the (192, 128) instance's 3xTF32 body against its plain
     version at a small MLA shape (b 1, s 300, 16 heads), 2e-5."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -7660,6 +7729,12 @@ def main(argv=None) -> int:
                      + shard_total.get(k, 0) + dp_total[k] + lm_total[k]
                      + lm_train_total[k] + lm_shard_total[k]
                      + lm_tp_total[k])
+    # the f32 forward at the train cell's shape: phase 15's launches (the
+    # train command's steps, the forward with its log-sum-exp)
+    train_fwd = bwd_records.pop("flash_attention (train A f32)")
+    train_fwd["launches"] = lm_train_total["flash_attention"]
+    check(train_fwd["launches"] > 0, "the f32 forward was never launched "
+                                     "in phase 15's train steps")
     records.update(ivf_records)
     records.update(ops_records)
     records.update(bwd_records)
@@ -7686,6 +7761,7 @@ def main(argv=None) -> int:
             "flash_attention_encoder", "flash_attention_cross")]
         + [om_records[f"flash_attention ({k})"] for k in ("q_offset",
                                                            "mask")]
+        + [train_fwd]
         + [records[k] for k in ("flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkdv")]
         + [om_records[f"flash_attention_bwd ({k})"] for k in ("q_offset",

@@ -13,8 +13,9 @@ git-ignored directory) and runs every mode of this checkout's
 ``flash_attention_bwd_cuda`` with the arguments every tree takes (no
 query offset, no mask), from operands drawn on the card from ``--seed``;
 it writes the outputs to FILE with ``torch.save``.  ``compare`` says,
-mode by mode, whether two such files hold the same bits, and exits 1
-if any differs.  Run ``save`` once per tree (each in its own process:
+mode by mode, whether two such files hold the same bits (and, of each
+output that differs, the largest difference), counts them by type, and
+exits 1 if any differs.  Run ``save`` once per tree (each in its own process:
 the trees' modules share names), then ``compare``.  Prints the card's
 name and power limit first; ``save`` needs a CUDA card.
 """
@@ -69,14 +70,20 @@ def compare(a: str, b: str) -> int:
     x, y = torch.load(a), torch.load(b)
     names = ("out", "lse", "dq", "dk", "dv")
     differ = 0
+    by_type = {}
     for key in x:
         same = [torch.equal(p, q) for p, q in zip(x[key], y[key])]
         differ += not all(same)
+        kind = key.rsplit(" ", 1)[-1]
+        by_type.setdefault(kind, [0, 0])[all(same)] += 1
         print(f"{key}: " + ("equal bit for bit" if all(same) else
                             "DIFFERENT in " + ", ".join(
-                                n for n, s in zip(names, same) if not s)))
+                                f"{n} (max |a - b| "
+                                f"{float((p.float() - q.float()).abs().max())}"
+                                ")" for n, s, p, q in zip(
+                                    names, same, x[key], y[key]) if not s)))
     print(f"{len(x) - differ} of {len(x)} mode x type outputs equal bit for "
-          f"bit ({a} against {b})")
+          f"bit ({a} against {b}); by type (different, equal): {by_type}")
     return 1 if differ or set(x) != set(y) else 0
 
 

@@ -114,36 +114,11 @@
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 // 4 bytes from src to shared dst; with src_bytes = 0 dst is zero-filled.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// x rounded to TF32 (nearest, ties away), as a 32-bit pattern: the bits
-// of cvt.rna.tf32.f32, in two integer instructions of the full-rate
-// pipes (the 13 dropped mantissa bits rounded on the magnitude, a carry
-// moving into the exponent).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a . b over one m16 n8 k8 step, TF32 in, f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------- the two bodies ----
@@ -218,8 +193,8 @@ struct Body<float> {
   static constexpr int kPad = 4;   // row stride = 4 mod 32 words
   static constexpr int kK = 8;
   static constexpr bool kFreshSums = true;
-  struct A { uint32_t hi[4], lo[4]; };
-  struct B { uint32_t hi[4], lo[4]; };   // tile 0: [0..1], tile 1: [2..3]
+  using A = Tf32Frag;
+  using B = Tf32Frag;   // tile 0: [0..1], tile 1: [2..3]
 
   // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
   static __device__ __forceinline__ void load_a(A& a, const E* rows, int ld,
@@ -278,12 +253,9 @@ struct Body<float> {
     split_tf32(c[kk][1], a.hi[2], a.lo[2]);
     split_tf32(c[kk][3], a.hi[3], a.lo[3]);
   }
-  // 3xTF32: the small terms first
   static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
                                              const B& b, int half) {
-    mma_tf32(c, a.lo, b.hi[2 * half], b.hi[2 * half + 1]);
-    mma_tf32(c, a.hi, b.lo[2 * half], b.lo[2 * half + 1]);
-    mma_tf32(c, a.hi, b.hi[2 * half], b.hi[2 * half + 1]);
+    mma_3xtf32(c, a, b, half);
   }
   static __device__ __forceinline__ void store2(E* dst, float x, float y) {
     *reinterpret_cast<float2*>(dst) = make_float2(x, y);

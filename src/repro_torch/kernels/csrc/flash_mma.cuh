@@ -1,9 +1,9 @@
 // Device helpers shared by the flash attention forward
 // (flash_attention.cu) and its backward (flash_attention_bwd.cu): 2^x in
 // one MUFU instruction, cp.async copies of head rows into shared memory,
-// ldmatrix fragment loads and the bf16 mma.sync step of the tensor-core
-// bodies; the mask operand's reader and the rule for a row that sees no
-// key.
+// ldmatrix fragment loads and the bf16 mma.sync step of the bf16 bodies,
+// the TF32 split and the 3xTF32 mma.sync step of the f32 bodies; the
+// mask operand's reader and the rule for a row that sees no key.
 //
 // Each source is compiled into its own shared library, so every helper
 // here has internal linkage (anonymous namespace) in the one
@@ -15,6 +15,8 @@
 #include <cuda_bf16.h>
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x in one MUFU instruction (no denormal handling: every x here is
 // <= 0, and a result that underflows adds nothing).
@@ -87,6 +89,49 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (nearest, ties away), as a 32-bit pattern: the bits
+// of cvt.rna.tf32.f32, in two integer instructions of the full-rate
+// pipes (the 13 dropped mantissa bits rounded on the magnitude, a carry
+// moving into the exponent; the cvt runs on a slow pipe, and the split
+// made the backward kernels 1.3x slower with it).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// The 3xTF32 split: hi = x rounded to TF32, lo = (x - hi) rounded to TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b over one m16 n8 k8 step, TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The split fragments of a 3xTF32 product: an A fragment of m16 k8
+// (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)), or the B
+// fragments of two n8 k8 tiles (tile 0 in [0..1], tile 1 in [2..3]; b0
+// (k t, n g), b1 (k t + 4, n g)), with g = lane / 4, t = lane % 4.
+struct Tf32Frag {
+  uint32_t hi[4], lo[4];
+};
+
+// c += a . b over one m16 n8 k8 step with B tile `half` of b, in 3xTF32:
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms first (the dropped
+// lo_a lo_b and the rounding of lo are ~2^-21 of a product).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32Frag& a,
+                                           const Tf32Frag& b, int half) {
+  mma_tf32(c, a.lo, b.hi[2 * half], b.hi[2 * half + 1]);
+  mma_tf32(c, a.hi, b.lo[2 * half], b.lo[2 * half + 1]);
+  mma_tf32(c, a.hi, b.hi[2 * half], b.hi[2 * half + 1]);
 }
 
 // The mask operand of a masked call: element (b, h, i, j) (batch, query

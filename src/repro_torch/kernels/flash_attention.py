@@ -38,9 +38,12 @@ and 2e-2 in bf16, the reference's own tolerances.
 
 The kernel compiles the (dqk, dv) pairs of ``HEAD_DIMS``, each in both
 bodies; another pair raises a ``ValueError``.  The type picks the body
-(``PATHS``): bf16 runs both products on the tensor cores (``mma.sync``
-m16n8k16, f32 accumulate), f32 runs f32 FMAs on the SIMT cores; neither
-falls back to the other.
+(``PATHS``), both on ``mma.sync`` tensor cores: bf16 m16n8k16 with f32
+sums; f32 m16n8k8 TF32 with the 3xTF32 split of every operand of both
+products (hi = x rounded to TF32, lo = x - hi rounded to TF32, a . b as
+lo_a hi_b + hi_a lo_b + hi_a hi_b in f32), each key tile's P . V summed
+from zero and added to the running output in f32; neither falls back to
+the other.
 
 Training: with ``with_lse`` the forward also returns each row's
 log-sum-exp ``m + log(l)`` (b, H, sq) f32 (the reference kernel's ``m``
@@ -55,14 +58,12 @@ below ``NEG_INF / 2``) adds nothing to dq and dk and dO / sk (1 / sk cast
 to v's type) to every key's dv, as the reference's uniform softmax
 does.  It takes every call the forward takes (both types, every
 ``HEAD_DIMS`` pair, causal or not, ``window``, ``kv_valid``,
-``q_offset``, ``mask``, GQA / MQA), on ``mma.sync`` tensor cores in both types
-(``BWD_PATHS``): bf16 m16n8k16 with f32 sums, where dS is also rounded
+``q_offset``, ``mask``, GQA / MQA), on ``mma.sync`` tensor cores with
+the forward's arithmetic in each type (``PATHS``); bf16 also rounds dS
 to bf16 before it multiplies K (dq) or Q (dk), so that each product
-takes bf16 operands; f32 m16n8k8 TF32 with the 3xTF32 split of every
-operand (hi = x rounded to TF32, lo = x - hi rounded to TF32, a . b as
-lo_a hi_b + hi_a lo_b + hi_a hi_b in f32: ~2^-21 of a product, within
-the 2e-5 gate, which one-pass TF32 is not).  Both hold 2e-5 (f32) /
-2e-2 (bf16) of each gradient's largest magnitude against
+takes bf16 operands, and f32's 3xTF32 products are ~2^-21 of a
+product, within the 2e-5 gate, which one-pass TF32 is not.  Both hold
+2e-5 (f32) / 2e-2 (bf16) of each gradient's largest magnitude against
 ``flash_attention_bwd_torch``, its plain version (tests and
 ``chip_smoke.py``; nothing on the card calls it).  The reference trains
 through its jnp ``chunked_attention``, whose ``jax.checkpoint``'ed
@@ -84,9 +85,8 @@ MAX_OFFSET = 1 << 30      # the kernels' bound on |q_offset|
 # the kernel's compiled (dqk, dv) pairs: the square widths, and MLA's
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-PATHS = {torch.float32: "FMA f32", torch.bfloat16: "mma.sync bf16"}
-BWD_PATHS = {torch.float32: "mma.sync 3xTF32 f32",
-             torch.bfloat16: "mma.sync bf16"}
+PATHS = {torch.float32: "mma.sync 3xTF32 f32",
+         torch.bfloat16: "mma.sync bf16"}
 
 
 def _compiled(dqk: int, dv: int):
@@ -478,7 +478,7 @@ def kernel_attributes(dtype: torch.dtype, dqk: int, dv=None,
             DTYPES[dtype], dqk, dv, int(general), ctypes.byref(regs),
             ctypes.byref(local))
     else:
-        path = f"backward {kernel}, {BWD_PATHS[dtype]}"
+        path = f"backward {kernel}, {PATHS[dtype]}"
         lib = build.library("flash_attention_bwd")
         err = lib.icq_flash_attention_bwd_attributes(
             DTYPES[dtype], BWD_KERNELS.index(kernel), dqk, dv, int(general),

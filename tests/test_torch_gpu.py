@@ -631,7 +631,8 @@ def test_cuda_mla_blockwise_grads_equal_materialized(dtype):
 # general instance (a query offset, a mask) under general; an instance not
 # listed took none
 FLASH_LOCAL_BYTES = {
-    (torch.float32, 32, 32, "forward", False): 24,
+    (torch.float32, 64, 64, "forward", True): 16,
+    (torch.float32, 256, 256, "forward", True): 8,
     (torch.bfloat16, 64, 64, "forward", False): 8,
     (torch.bfloat16, 128, 128, "forward", False): 40,
     (torch.float32, 128, 128, "dkdv", False): 24,
